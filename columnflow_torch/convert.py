@@ -26,3 +26,24 @@ def area_from_jax(area_np, device=None) -> AreaParams:
     float32 tensors on ``device``."""
     return area_to_torch(
         AreaParams(**{f: getattr(area_np, f) for f in AreaParams._fields}), device)
+
+
+def network_from_jax(params_np: dict, static, device=None):
+    """The JAX package's network (params dict, ``NetworkStatic``) -> the
+    port's (float32 tensors on ``device``, the port's ``NetworkStatic``)."""
+    from columnflow_torch.models.network import NetworkStatic
+
+    fields = {f: getattr(static, f) for f in NetworkStatic._fields}
+    for f, v in fields.items():
+        if isinstance(v, np.ndarray):
+            fields[f] = np.array(v, dtype=np.float32)
+    fields["columns_per_area"] = tuple(fields["columns_per_area"])
+    fields["num_pops"] = int(fields["num_pops"])
+    return params_from_jax(params_np, device), NetworkStatic(**fields)
+
+
+def lane_key_words(keys) -> torch.Tensor:
+    """(B, 2) raw JAX PRNG keys (uint32 key data, anything ``np.asarray``
+    takes) -> the (B, 2) tree key words (k0, k1) the port takes, uint32
+    values in int64."""
+    return torch.as_tensor(np.asarray(keys, dtype=np.uint32).astype(np.int64)).reshape(-1, 2)

@@ -1,8 +1,9 @@
-"""WTA stimulus tables and dataset (port of the WTA part of
+"""WTA and parity stimuli and datasets (port of the WTA and parity parts of
 ``columnflow/data.py``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Stimulus targets L4e/L4i of each column: indices 2,3 (column A) and
@@ -62,3 +63,48 @@ def make_wta_dataset(generator: torch.Generator, n_samples: int,
     rates = wong_wang_three_phase(stims[:, 0], stims[:, 1],
                                   phase_time=phase_time, dt=dt)
     return rates[:, ::10][:, :time_steps].contiguous(), stims
+
+
+# ---------------------------------------------------------------------------
+# Parity (port of the parity part of ``columnflow/data.py``)
+# ---------------------------------------------------------------------------
+
+
+def parity_combinations(n_inputs: int, fixed_position: bool = True,
+                        level: float = 15.0) -> np.ndarray:
+    """All input patterns, scaled to ``level`` Hz: with ``fixed_position``
+    the patterns [0...0 1...1] with k trailing ones, k = 1..n_inputs,
+    otherwise all 2^n binary combinations."""
+    if fixed_position:
+        combos = np.tril(np.ones((n_inputs, n_inputs), dtype=np.float32))[:, ::-1]
+    else:
+        combos = np.array(
+            [[(i >> bit) & 1 for bit in reversed(range(n_inputs))]
+             for i in range(2**n_inputs)],
+            dtype=np.float32,
+        )
+    return combos * level
+
+
+def make_parity_batch(generator: torch.Generator, n_inputs: int, batch_size: int,
+                      fixed_position: bool = True, level: float = 15.0,
+                      device=None):
+    """A shuffled batch of parity input patterns (B, n_inputs): the
+    patterns tiled to at least ``batch_size`` rows, permuted by
+    ``generator``, truncated."""
+    combos = torch.as_tensor(parity_combinations(n_inputs, fixed_position, level),
+                             device=device)
+    reps = -(-batch_size // combos.shape[0])  # ceil
+    tiled = combos.repeat(reps, 1)
+    perm = torch.randperm(tiled.shape[0], generator=generator,
+                          device=generator.device).to(tiled.device)
+    return tiled[perm][:batch_size]
+
+
+def parity_stim_table(stim_raw, time_steps: int):
+    """Parity stimulus table (T, n_inputs): zeros for the first half, the
+    input pattern for the second."""
+    stim_raw = torch.as_tensor(stim_raw)
+    on = (torch.arange(time_steps, device=stim_raw.device)
+          >= time_steps // 2).to(stim_raw.dtype)
+    return on[:, None] * stim_raw[None, :]

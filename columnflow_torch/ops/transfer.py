@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from columnflow_torch.ops.arith import div
+
 GAIN_A = 48.0
 THRESHOLD_B = 981.0
 NOISE_D = 0.0089
@@ -19,7 +21,7 @@ _CLAMP = 80.0
 
 def soft_clamp(x, max_val: float = _CLAMP):
     """Smoothly clamp x to (-max_val, max_val)."""
-    return max_val * torch.tanh(x / max_val)
+    return max_val * torch.tanh(div(x, max_val))
 
 
 def compute_firing_rate(x):

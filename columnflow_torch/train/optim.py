@@ -4,7 +4,8 @@
 Parameters and gradients are plain dicts of tensors (the JAX package's
 pytrees). ``torch_rmsprop`` is ``torch.optim.RMSprop`` itself (eps outside
 the square root, which the JAX package reproduces by hand) with a
-per-update ``ExponentialLR``.
+per-update ``ExponentialLR``; ``adam`` is ``torch.optim.Adam``, whose update
+is optax's (eps outside the square root).
 """
 
 from __future__ import annotations
@@ -20,6 +21,12 @@ def torch_rmsprop(params, lr: float, alpha: float = 0.99, eps: float = 1e-8,
     optimizer = torch.optim.RMSprop(params, lr=lr, alpha=alpha, eps=eps)
     scheduler = torch.optim.lr_scheduler.ExponentialLR(optimizer, gamma=lr_gamma)
     return optimizer, scheduler
+
+
+def adam(params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """torch.optim.Adam over ``params`` (an iterable of tensors): the update
+    of the JAX package's ``adam`` (optax), b1/b2/eps as there."""
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
 
 
 def mask_grads(grads: dict, masks: dict) -> dict:
