@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two training steps on one CUDA card: the
-WTA step and the 104-column stochastic-adaptive parity step.
+"""Drive the PyTorch/CUDA port's three training steps on one CUDA card: the
+WTA step, the 104-column stochastic-adaptive parity step and the
+deterministic fused-dopri5 parity step.
 
     python3 chip_smoke.py
 
@@ -27,15 +28,28 @@ points over 1 s, max_steps 16384, the flagship's flags):
    full-horizon replay; the whole selection over 100 grid points; the
    replay and its reverse sweep on 64-half-step windows early, in the middle
    and late in the full-horizon replay.
-6. main path: 3 training steps through the kernels, the launch counters
+6. main path: 2 training steps through the kernels, the launch counters
    asserted per step; a step over 100 grid points repeated on the CPU with
    the plain versions on the card's frozen grid and lane words, over 5 and
    100 grid points.
 7. times: each kernel's device time at the main path's shapes, its bound
    and ns per serial step, its plain version's time over 100 grid points,
    the train step's wall time and a profile of it.
-Then the kernels line (every kernel of both paths), the card's name and
-power limit, and the result line.
+Deterministic parity (13 columns = 104 populations, state 312, batch 4 under
+one controller, 1000 grid points over 1 s, max_steps 3072 -> 3078, dopri5 at
+rtol 1e-7 / atol 1e-9: the reference network at its full width):
+8. kernel vs plain: the whole selection against its plain loop over the
+   common accepted prefix, single attempts from states along the replay, the
+   replay and its reverse sweep on 64-step windows early, in the middle and
+   late in the full replay.
+9. main path: 5 training steps through the kernels, one launch of each per
+   step; the first step repeated on the CPU with the plain versions on the
+   card's frozen grid (loss, gradients and the gradients' own spread under a
+   1e-7 nudge of the weights).
+10. times: each kernel's device time, ns per accepted step, its bound, its
+   plain version's time, the train step's wall time and a profile of it.
+Then the kernels line (every kernel of the three paths), the card's name
+and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
 fails.
@@ -67,9 +81,19 @@ GRAD_T = 5          # grid points (5 ms) of the CPU step check holding every gra
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 SDE_SOURCE = "columnflow_torch/kernels/csrc/network_sde.cu"
 # The flagship's step settings; its solver flags (--stochastic --adaptive
-# --fused --fused-pass --select-bf16 --grad-bf16 --split2) are the port's
-# only path.
-FLAGSHIP = dict(bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
+# --fused --fused-pass --select-bf16 --grad-bf16 --split2) select the port's
+# stochastic step.
+FLAGSHIP = dict(stochastic=True, bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
+# The deterministic parity step (columnflow/tasks/parity.py defaults): the
+# reference's own network, nothing cut.
+ODE_CPA = (8, 4, 1)
+ODE_T = 1000
+ODE_B = 4
+ODE_MAX_STEPS = 3072
+ODE_WINDOW = 64     # steps of a kernel-vs-plain replay window
+ODE_SOURCE = "columnflow_torch/kernels/csrc/network_ode.cu"
+ODE_LOSS_TOL = 1e-5
+ODE_GRAD_TOL = 1e-3  # rel L2 of each gradient, card against CPU
 
 
 def emit(phase, **fields):
@@ -610,14 +634,14 @@ def parity_phases(dev, cfg):
          windows=windows, tol={"fwd_scaled": 1e-4, "seeds_rel_l2": 1e-4, "carry_rel_l2": 1e-4},
          max_abs_err=errs)
 
-    # -- 6. the main path: 3 training steps at full width -----------------------
+    # -- 6. the main path: 2 training steps at full width -----------------------
     step = parity.make_train_step(task, **FLAGSHIP)
     masks = {k: v.bool() for k, v in task.grad_mask.items()}
     params_first = {k: p.detach().cpu().clone() for k, p in task.params.items()}
     for k in ns.LAUNCHES:
         ns.LAUNCHES[k] = 0
     history, step_s = [], []
-    for i in range(3):
+    for i in range(2):
         stims_i, keys_i = make_parity_batch(gen, n_in, B, device=dev), lane_words(B)
         before = dict(ns.LAUNCHES)
         torch.cuda.synchronize()
@@ -760,6 +784,257 @@ def parity_phases(dev, cfg):
             for name in calls]
 
 
+def ode_bound(kernel, P, B, n_in, K, work, M=0):
+    """(bound_ms, bound_by) of a dopri5 kernel. ``work`` is what this run's
+    data needed: the controller attempts (selection) or the accepted steps
+    (replay). A drift evaluation of the batch is six bf16 (B, P) x (P, P)
+    products (2 B P^2 operations each, at the bf16 tensor rate) and its
+    elementwise float32 work; a drift VJP three transposed products and
+    three (P, B) x (B, P) weight-cotangent products. Bytes: each input read
+    once, each output written once; the float32 weights count once."""
+    S, N = 3 * P, 3 * P * B
+    prod = 2 * B * P * P
+    drift_f32 = B * (40 * P + 8 * S)      # rates, three-term split, stimulus, tail
+    consts = 4 * (P * P + n_in * P + 2 * P + K * B * n_in)
+    if kernel == "ode_select":
+        # 6 drifts, the stage sums (21 weighted terms) and the error norm
+        flops16 = work * 6 * 6 * prod
+        flops32 = work * (6 * drift_f32 + (3 * 21 + 3 * 6 + 8) * N)
+        nbytes = consts + 4 * N + 4 * (M + 1) + 12
+    elif kernel == "ode_replay_fwd":
+        # 7 drifts (stage 0 recomputed), the stage sums, the five dense rows
+        flops16 = work * 7 * 6 * prod
+        flops32 = work * (7 * drift_f32 + (3 * 21 + 3 * 6 + 8) * N)
+        nbytes = consts + 4 * N + 4 * (work + 1) + 4 * work * N * 6
+    else:  # ode_replay_bwd: 6 drifts, 7 drift VJPs, the cotangent sums
+        flops16 = work * (6 * 6 * prod + 7 * 6 * prod)
+        flops32 = work * (6 * drift_f32 + 7 * (B * (60 * P + 10 * S) + 30 * P * P)
+                          + (3 * 21 + 3 * 21 + 40) * N + 8 * P * P)
+        nbytes = (consts + 4 * (work + 1) + 4 * work * N * 6 + 4 * N
+                  + 4 * (P * P + n_in * P))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops16 / BF16_FLOPS + flops32 / FP32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ode_phases(dev, cfg):
+    """Phases 8-10 for the deterministic parity step; returns its kernels'
+    entries of the kernels line."""
+    import torch
+
+    from columnflow_torch.data import make_parity_batch
+    from columnflow_torch.kernels import network_ode as no
+    from columnflow_torch.solvers.fused import round_max_steps
+    from columnflow_torch.tasks import parity
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def make_task(device=dev, params=None):
+        task = parity.build_task(cfg, torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=ODE_CPA, n_inputs=4, time_steps=ODE_T,
+                                 max_steps=ODE_MAX_STEPS, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        return task
+
+    def max_abs(a, b):
+        return float((a - b).abs().max())
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    # -- 8. kernel vs plain -------------------------------------------------
+    task = make_task()
+    P, B = task.net.num_pops, ODE_B
+    S, n_in, K = 3 * P, 4, 4
+    stims = make_parity_batch(gen, n_in, B, device=dev)
+    model = parity.sde_model(task.params, task, stims)
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    sc, kv = model.sc, model.kv.contiguous()
+    w3 = no._w3(pw, sc)
+    M = round_max_steps((B, S), ODE_MAX_STEPS)
+    scfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]), max_steps=M)
+    y0 = torch.zeros(B, S, device=dev)
+    st, stats = no.ode_select(y0, pw, sc, kv, scfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_p, stats_p = no._ode_select_plain(y0, w3, sc, kv, scfg)
+    torch.cuda.synchronize()
+    plain_ms = {"ode_select": (time.perf_counter() - t0) * 1e3}
+    na, nr, ok = (int(x) for x in stats)
+    na_p, nr_p, ok_p = (int(x) for x in stats_p)
+    common = min(na, na_p)
+    d_st = (st[:common + 1] - st_p[:common + 1]).abs()
+    parted = int(torch.nonzero(d_st).min()) if bool((d_st > 0).any()) else None
+    check(ok == 1 and ok_p == 1 and M == 3078 and abs(na - na_p) <= 0.1 * na_p
+          and max_abs(st[:11], st_p[:11]) == 0.0,
+          f"ode_select: stats {stats.tolist()} vs plain {stats_p.tolist()}, max_steps {M}, "
+          f"first parted index {parted}")
+    n = na
+    stn = st[:n + 1].contiguous()
+    ys, coeffs = no.ode_replay_fwd(y0, stn, pw, sc, kv)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(ys).all()) and bool(torch.isfinite(coeffs).all()),
+          "full replay is not finite")
+
+    # Single attempts from 16 states along the replay, with 1, 1.5 and 2.5
+    # times the accepted step.
+    att = {"ratio_rel": 0.0, "h_next_rel": 0.0, "y1_max_abs": 0.0, "accepted": 0, "equal": True}
+    for r in range(16):
+        k = int(r / 16 * (n - 1))
+        t, y = st[k].clone(), ys[k].contiguous()
+        h = ((st[k + 1] - st[k]) * (1.0, 1.5, 2.5)[r % 3]).clone()
+        f0 = no.drift_split3(t, y, w3, sc, kv).contiguous()
+        a = no.ode_attempt(t, y, f0, h, pw, sc, kv, scfg)
+        a_p = no._ode_attempt_plain(t, y, f0, h, w3, sc, kv, scfg)
+        att["ratio_rel"] = max(att["ratio_rel"], float((a.ratio - a_p.ratio).abs() / a_p.ratio))
+        att["h_next_rel"] = max(att["h_next_rel"],
+                                float((a.h_next - a_p.h_next).abs() / a_p.h_next))
+        att["y1_max_abs"] = max(att["y1_max_abs"], max_abs(a.y1, a_p.y1), max_abs(a.f1, a_p.f1))
+        att["accepted"] += int(a.ratio <= 1.0)
+        att["equal"] &= bool((a.ratio <= 1.0) == (a_p.ratio <= 1.0))
+    check(att["equal"] and att["ratio_rel"] < 1e-5 and att["h_next_rel"] < 1e-6,
+          f"ode_attempt: {att}")
+
+    # The replay and its reverse sweep on windows early, in the middle and
+    # late, each from the kernel's state there.
+    W = ODE_WINDOW
+    errs = {"ode_select": float(d_st.max()), "ode_replay_fwd": 0.0, "ode_replay_bwd": 0.0}
+    windows = []
+    for k0 in (0, n // 2, n - W):
+        stw = st[k0:k0 + W + 1].contiguous()
+        ys_k, co_k = no.ode_replay_fwd(ys[k0].contiguous(), stw, pw, sc, kv)
+        ys_p, co_p = no._ode_replay_fwd_plain(ys[k0].contiguous(), stw, w3, sc, kv)
+        cobar = torch.randn(W, 5, B, S, generator=gen, device=dev)
+        yb, dw, diw = no.ode_replay_bwd(ys_p.contiguous(), cobar, stw, pw, sc, kv)
+        yb_p, dw_p, diw_p = no._ode_replay_bwd_plain(ys_p, cobar, stw, w3, sc, kv)
+        torch.cuda.synchronize()
+        e = {"ys_scaled": scaled_err(ys_k, ys_p), "coeffs_max_abs": max_abs(co_k, co_p),
+             "ybar_rel_l2": rel_l2(yb, yb_p), "d_wT_rel_l2": rel_l2(dw, dw_p),
+             "d_iwT_rel_l2": rel_l2(diw, diw_p)}
+        check(all(bool(torch.isfinite(x).all()) for x in (ys_k, co_k, yb, dw, diw))
+              and e["ys_scaled"] < 1e-6 and e["ybar_rel_l2"] < 1e-5
+              and e["d_wT_rel_l2"] < 1e-5 and e["d_iwT_rel_l2"] < 1e-5,
+              f"ode replay window at {k0}: {e}")
+        errs["ode_replay_fwd"] = max(errs["ode_replay_fwd"], max_abs(ys_k, ys_p),
+                                     max_abs(co_k, co_p))
+        errs["ode_replay_bwd"] = max(errs["ode_replay_bwd"], max_abs(yb, yb_p),
+                                     max_abs(dw, dw_p), max_abs(diw, diw_p))
+        windows.append({"start": k0, **e})
+    emit("ode_kernel_vs_plain", columns=sum(ODE_CPA), P=P, lanes=B, T=ODE_T, max_steps=M,
+         selection={"stats": [na, nr, ok], "stats_plain": [na_p, nr_p, ok_p],
+                    "common_prefix_max_abs": float(d_st.max()), "first_parted_index": parted,
+                    "first10_max_abs": max_abs(st[:11], st_p[:11])},
+         attempt={"records": 16, **att, "ratio_tol": 1e-5, "h_next_tol": 1e-6},
+         windows=windows, tol={"ys_scaled": 1e-6, "rel_l2": 1e-5}, max_abs_err=errs)
+
+    # -- 9. the main path: 5 training steps at full width ---------------------
+    step = parity.make_train_step(task)
+    masks = {k: v.bool() for k, v in task.grad_mask.items()}
+    params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+    for k in no.LAUNCHES:
+        no.LAUNCHES[k] = 0
+    history, step_s, first = [], [], None
+    for i in range(5):
+        stims_i = stims if i == 0 else make_parity_batch(gen, n_in, B, device=dev)
+        before = dict(no.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = step(stims_i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launched = {k: no.LAUNCHES[k] - before[k] for k in no.LAUNCHES}
+        check(launched == {"ode_select": 1, "ode_attempt": 0, "ode_replay_fwd": 1,
+                           "ode_replay_bwd": 1}, f"ode step {i}: launches {launched}")
+        sk = rec["stats"]
+        check(bool(sk.success) and bool(torch.isfinite(rec["loss"])),
+              f"ode step {i}: success {bool(sk.success)}, loss {rec['loss']}")
+        for k, p in task.params.items():
+            check(bool(torch.isfinite(p.grad).all()) and bool((p.grad[~masks[k]] == 0).all()),
+                  f"ode step {i}: {k} gradient not finite or off its mask")
+        if i == 0:
+            first = (rec, {k: p.grad.detach().cpu().clone() for k, p in task.params.items()})
+        history.append({"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
+                        "update_applied": bool(rec["ok"]), "naccept": int(sk.naccept),
+                        "nreject": int(sk.nreject), "seconds": step_s[-1]})
+    main_launches = dict(no.LAUNCHES)
+
+    # The first step again on the CPU with the plain versions on the card's
+    # frozen grid; then once more with every solver weight nudged by one part
+    # in 1e7, which shows how far the gradient itself is determined: the
+    # reverse sweep rounds every transposed product to bf16 (the rounding
+    # points of jax.vjp through the three-term split), so a last-bit change
+    # of an input flips roundings 2^-9 apart.
+    rec_k, grad_k = first
+    grid_k = (rec_k["stats"].step_times.cpu(), int(rec_k["stats"].naccept))
+
+    def cpu_step(params):
+        t = make_task(device="cpu", params=params)
+        t0 = time.perf_counter()
+        rec = parity.make_train_step(t)(stims.cpu(), grid=grid_k)
+        return rec, {k: p.grad.detach().clone() for k, p in t.params.items()}, \
+            time.perf_counter() - t0
+
+    rec_c, grad_c, cpu_s = cpu_step(params0)
+    nudged = {k: v if k == "output_weights" else v * (1.0 + 1e-7) for k, v in params0.items()}
+    _, grad_n, _ = cpu_step(nudged)
+    loss_rel = abs(float(rec_k["loss"]) - float(rec_c["loss"])) / abs(float(rec_c["loss"]))
+    grad_rel = {k: rel_l2(grad_k[k], grad_c[k]) for k in grad_k}
+    spread = {k: rel_l2(grad_n[k], grad_c[k]) for k in grad_k}
+    cpu_check = {"naccept": grid_k[1], "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+                 "spread_under_1e-7_nudge": spread, "cpu_seconds": cpu_s,
+                 "tol": {"loss": ODE_LOSS_TOL, "grad": ODE_GRAD_TOL}}
+    check(loss_rel < ODE_LOSS_TOL and max(grad_rel.values()) < ODE_GRAD_TOL,
+          f"card vs CPU deterministic step: {cpu_check}")
+    emit("ode_main_path", columns=sum(ODE_CPA), lanes=B, T=ODE_T, max_steps=M,
+         history=history, launches=main_launches, cpu_check=cpu_check)
+
+    # -- 10. times ----------------------------------------------------------
+    cobar = torch.randn(n, 5, B, S, generator=gen, device=dev)
+    calls = {
+        "ode_select": (lambda: no.ode_select(y0, pw, sc, kv, scfg), None),
+        "ode_replay_fwd": (lambda: no.ode_replay_fwd(y0, stn, pw, sc, kv),
+                           lambda: no._ode_replay_fwd_plain(y0, stn, w3, sc, kv)),
+        "ode_replay_bwd": (lambda: no.ode_replay_bwd(ys, cobar, stn, pw, sc, kv),
+                           lambda: no._ode_replay_bwd_plain(ys, cobar, stn, w3, sc, kv)),
+    }
+    times = {}
+    for name, (kern, plain) in calls.items():
+        times[name] = cuda_ms(kern, reps=3, warmup=1)
+        if plain is not None:
+            plain_ms[name] = cuda_ms(plain, reps=1, warmup=0)
+    serial = {"ode_select": na + nr, "ode_replay_fwd": n, "ode_replay_bwd": n}
+    bounds = {name: ode_bound(name, P, B, n_in, K, serial[name], M=M) for name in calls}
+    emit("ode_kernel_times", lanes=B, T=ODE_T, naccept=na, nreject=nr, ms=times,
+         plain_ms=plain_ms,
+         ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()})
+    step_ms = sum(step_s[1:]) * 1e3 / len(step_s[1:])
+    emit("ode_train_step", ms_per_step=step_ms, samples_per_s=B * 1e3 / step_ms,
+         step_seconds=step_s)
+    batches = [make_parity_batch(gen, n_in, B, device=dev) for _ in range(2)]
+    wall, by_kernel = device_profile(lambda i: step(batches[i]), len(batches))
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("ode_step_profile", lanes=B, profiled_wall_ms_per_step=wall, step_ms=step_ms,
+         device_busy_ms_per_step=busy if busy else "not measured",
+         idle_share=1.0 - busy / step_ms if busy else "not measured",
+         device_kernels=len(by_kernel), top_ms_per_step=dict(top))
+
+    replaces = {"ode_select": "columnflow/solvers/fused.py:238",
+                "ode_replay_fwd": "columnflow/solvers/fused.py:294",
+                "ode_replay_bwd": "columnflow/solvers/fused.py:327"}
+    return [{"name": name, "route": "cuda", "source": ODE_SOURCE, "replaces": replaces[name],
+             "launches": main_launches[name], "max_abs_err": errs[name], "ms": times[name],
+             "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None, "lanes": B,
+             "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+            for name in calls]
+
+
 def main() -> int:
     import torch
 
@@ -790,7 +1065,7 @@ def main() -> int:
     emit("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
 
     cfg = ColumnConfig.load()
-    line = wta_phases(dev, cfg) + parity_phases(dev, cfg)
+    line = wta_phases(dev, cfg) + parity_phases(dev, cfg) + ode_phases(dev, cfg)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -47,3 +47,11 @@ def lane_key_words(keys) -> torch.Tensor:
     takes) -> the (B, 2) tree key words (k0, k1) the port takes, uint32
     values in int64."""
     return torch.as_tensor(np.asarray(keys, dtype=np.uint32).astype(np.int64)).reshape(-1, 2)
+
+
+def frozen_grid_from_jax(step_times, stats, device=None):
+    """The outputs of the JAX package's dopri5 selection kernel
+    (``step_times`` (M+1,), ``stats`` = (naccept, nreject, success)) -> the
+    ``grid`` tuple ``odeint_dopri5_fused`` of the port replays."""
+    st = torch.as_tensor(np.array(step_times, dtype=np.float32), device=device)
+    return st, int(np.asarray(stats)[0])

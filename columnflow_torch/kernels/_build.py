@@ -26,10 +26,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "columnflow_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source flags. network_sde.cu rounds every float32 operation as its
-# plain PyTorch version does (see its header), so nvcc must not contract
-# multiply-adds there.
-SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"]}
+# Per-source flags. network_sde.cu and network_ode.cu round every float32
+# operation as their plain PyTorch versions do (see their headers), so nvcc
+# must not contract multiply-adds there.
+SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
+                "network_ode": ["-fmad=false"]}
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 # C entry points of each source and their argument types; every one returns
@@ -46,6 +47,12 @@ _SIGNATURES = {
         "cf_sde_attempt": [_I, _I, _I, _I, _P, _P, _I] + [_P] * 14,
         "cf_sde_replay_fwd": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
         "cf_sde_replay_bwd": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 16,
+    },
+    "network_ode": {
+        "cf_ode_select": [_I, _I, _I, _I, _P, _P, _I, _I] + [_P] * 9,
+        "cf_ode_attempt": [_I, _I, _I, _I, _P, _P] + [_P] * 13,
+        "cf_ode_replay_fwd": [_I, _I, _I, _I, _P, _I] + [_P] * 10,
+        "cf_ode_replay_bwd": [_I, _I, _I, _I, _P, _I] + [_P] * 13,
     },
 }
 

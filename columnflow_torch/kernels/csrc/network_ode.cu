@@ -1,0 +1,683 @@
+// Column-network dopri5 kernels for Hopper (sm_90a): the adaptive step-size
+// selection, the dense-output replay over the frozen grid, and the replay's
+// reverse sweep with the weight cotangents accumulated in the kernel. Plain
+// C entry points, loaded with ctypes by columnflow_torch/kernels/_build.py;
+// each returns cudaGetLastError().
+//
+// Replaces (columnflow/solvers/fused.py, the kernels of odeint_dopri5_fused):
+//   cf_ode_select      <- _make_adaptive_kernel: Hairer's initial step, the
+//                         whole accept/reject while-loop, the accepted times
+//   cf_ode_attempt     <- the same body, one controller attempt (a second
+//                         entry point, for testing the body)
+//   cf_ode_replay_fwd  <- _make_replay_chunk_kernel: the six-stage step over
+//                         the frozen grid, step-start states and CONTD5 rows
+//   cf_ode_replay_bwd  <- _make_bwd_chunk_kernel, kernel mode: the VJP of the
+//                         step and its dense rows w.r.t. state, wT and iwT
+// The JAX kernels trace any drift; these are written for the premixed
+// column-network drift with a knot stimulus and the three-term bf16 split of
+// the recurrent matrix (prepare_premixed_split / matmul_split), which each
+// kernel computes from the float32 wT into shared memory when it starts, as
+// the JAX kernels run their prepare hook inside.
+//
+// Design. These are serial chains: ~2-3 * 10^3 steps of 6-7 drift
+// evaluations, each one (B, P) x (P, P) product in six bf16 terms, and every
+// step waits for the one before. The work per step is microseconds of the
+// card's peak. What this first design does:
+//  - The selection has ONE controller for the whole (B, 3P) state (the error
+//    ratio is an RMS over all lanes), so its lanes cannot run as independent
+//    blocks. It runs as one block that holds every lane: a thread per (lane,
+//    column) in the products, a thread per element elsewhere. At the parity
+//    network's P = 104, B = 4 that is 416 busy threads, the three bf16
+//    matrices (65 KB) and ten batch states (50 KB) in shared memory. A
+//    cluster of one block per lane with the norm reduced through distributed
+//    shared memory would spread the products over B SMs; it is later work,
+//    and the one block keeps the norm's sum order trivially fixed.
+//  - The reverse sweep also runs the batch in one block, for another reason:
+//    jax.vjp rounds each product's weight cotangent x_term^T c to bf16 AFTER
+//    contracting it over the batch, so per-lane partial sums rounded one by
+//    one would be another function. A thread owns its (i, j) entries of the
+//    step's three bf16 accumulators and of the float32 sum over steps, so
+//    their sum order is fixed and no atomics are needed.
+//  - The replay's lanes are independent given the grid: one block per lane.
+// Shared memory is requested with cudaFuncSetAttribute; a batch too large
+// for one block's 227 KB makes that call fail, and the wrapper raises.
+//
+// Precision: as network_sde.cu. float32 elementwise arithmetic with
+// full-precision expf/tanhf/logf/sqrtf and IEEE division, compiled with
+// -fmad=false so every operation rounds as in the plain PyTorch version.
+// A tableau entry is a double constant rounded to float32 once; h * a_ij is
+// rounded, then (h * a_ij) * k_j is rounded again, as the JAX package's
+// weak-typed scalars round. Every product term is summed in float64 and
+// rounded to float32 once; the six terms then add in float32 in
+// matmul_split's order. The rounding points of the VJP through the bf16
+// casts are those of jax.vjp (columnflow_torch/models/network.py, "the
+// three-term split").
+
+#include "network_drift.cuh"
+
+namespace {
+
+constexpr int kStages = 7;
+
+// Dormand-Prince 4(5) and Hairer's CONTD5 weights (solvers/rk.py), each a
+// double expression rounded to float32 once.
+#define F(x) ((float)(x))
+__constant__ float kC[kStages] = {0.0f, F(1.0 / 5), F(3.0 / 10), F(4.0 / 5), F(8.0 / 9), 1.0f, 1.0f};
+__constant__ float kA[kStages][kStages - 1] = {
+    {0, 0, 0, 0, 0, 0},
+    {F(1.0 / 5), 0, 0, 0, 0, 0},
+    {F(3.0 / 40), F(9.0 / 40), 0, 0, 0, 0},
+    {F(44.0 / 45), F(-56.0 / 15), F(32.0 / 9), 0, 0, 0},
+    {F(19372.0 / 6561), F(-25360.0 / 2187), F(64448.0 / 6561), F(-212.0 / 729), 0, 0},
+    {F(9017.0 / 3168), F(-355.0 / 33), F(46732.0 / 5247), F(49.0 / 176), F(-5103.0 / 18656), 0},
+    {F(35.0 / 384), 0, F(500.0 / 1113), F(125.0 / 192), F(-2187.0 / 6784), F(11.0 / 84)},
+};
+__constant__ float kB[kStages] = {F(35.0 / 384), 0, F(500.0 / 1113), F(125.0 / 192),
+                                  F(-2187.0 / 6784), F(11.0 / 84), 0};
+__constant__ float kBErr[kStages] = {
+    F(35.0 / 384 - 5179.0 / 57600), 0, F(500.0 / 1113 - 7571.0 / 16695),
+    F(125.0 / 192 - 393.0 / 640), F(-2187.0 / 6784 - -92097.0 / 339200),
+    F(11.0 / 84 - 187.0 / 2100), F(0.0 - 1.0 / 40)};
+__constant__ float kD[kStages] = {
+    F(-12715105075.0 / 11282082432.0), 0, F(87487479700.0 / 32700410799.0),
+    F(-10690763975.0 / 1880347072.0), F(701980252875.0 / 199316789632.0),
+    F(-1453857185.0 / 822651844.0), F(69997945.0 / 29380423.0)};
+#undef F
+
+struct Sel {
+  float t_start, t_end, rtol, atol, dt0, span;  // span = t_end - t_start
+  int use_initial, max_steps;
+};
+
+// The three-term split of wT and the float32 iwT, in shared memory.
+struct W3 {
+  bf16 *hi, *mid, *lo;  // (P, P) each, row k = input population
+  float* iw;            // (n_in, P)
+};
+
+// Shared-memory scratch of one drift evaluation or drift VJP over nb lanes.
+struct Scr {
+  float *fr;           // (nb, P) rates; their derivative in the VJP
+  float *xh, *xm, *xl; // (nb, P) the rates' three bf16 terms
+  float *cc;           // (nb, P) the current's cotangent (VJP)
+  float *ext;          // (nb, kMaxInputs) stimulus
+  double* red;         // (kThreads / 32) reduction partials
+};
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? a + b : fminf(a, b);
+}
+
+__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
+  hi = bf16r(x);
+  const float r = x - hi;
+  mid = bf16r(r);
+  lo = bf16r(r - mid);
+}
+
+// Rates, their bf16 terms (and, for the VJP, the derivative and the
+// current's cotangent) and the stimulus of lanes b0..b0+nb-1 at time t.
+template <bool kVjp>
+__device__ void drift_head(const Net& n, int b0, int nb, float t, const float* y,
+                           const float* ct, const Scr& s) {
+  const int P = n.P, S = 3 * P;
+  for (int idx = threadIdx.x; idx < nb * P; idx += blockDim.x) {
+    const int b = idx / P, i = idx - b * P;
+    const float x = y[b * S + i] - y[b * S + P + i];
+    float fr, frp = 0.0f;
+    if (kVjp) fr_and_grad(x, fr, frp);
+    else fr = firing_rate(x);
+    s.fr[idx] = kVjp ? frp : fr;
+    split3(fr, s.xh[idx], s.xm[idx], s.xl[idx]);
+    if (kVjp) s.cc[idx] = ((ct[b * S + i] / n.tau_m) * n.R) * n.tau_s;
+  }
+  for (int idx = threadIdx.x; idx < nb * n.n_in; idx += blockDim.x) {
+    const int b = idx / n.n_in, m = idx - b * n.n_in;
+    s.ext[b * kMaxInputs + m] = knot_interp(n, b0 + b, m, t);
+  }
+  __syncthreads();
+}
+
+// One drift evaluation of lanes b0..b0+nb-1 at the shared time t: y -> out
+// (nb, 3P), both in shared memory. rec = x_hi W_lo + x_mid W_mid + x_lo W_hi
+// + x_hi W_mid + x_mid W_hi + x_hi W_hi, left to right. Ends with a barrier.
+__device__ void drift3(const Net& n, int b0, int nb, float t, const float* y, float* out,
+                       const W3& w, const Scr& s) {
+  const int P = n.P, S = 3 * P;
+  drift_head<false>(n, b0, nb, t, y, nullptr, s);
+  for (int idx = threadIdx.x; idx < nb * P; idx += blockDim.x) {
+    const int b = idx / P, col = idx - b * P;
+    const float *xh = s.xh + b * P, *xm = s.xm + b * P, *xl = s.xl + b * P;
+    double p1 = 0.0, p2 = 0.0, p3 = 0.0, p4 = 0.0, p5 = 0.0, p6 = 0.0;
+    for (int k = 0; k < P; ++k) {
+      const double wh = (double)__bfloat162float(w.hi[k * P + col]);
+      const double wm = (double)__bfloat162float(w.mid[k * P + col]);
+      const double wl = (double)__bfloat162float(w.lo[k * P + col]);
+      const double a = xh[k], c = xm[k], d = xl[k];
+      p1 += a * wl;
+      p2 += c * wm;
+      p3 += d * wh;
+      p4 += a * wm;
+      p5 += c * wh;
+      p6 += a * wh;
+    }
+    const float rec = (((((float)p1 + (float)p2) + (float)p3) + (float)p4) + (float)p5) + (float)p6;
+    double e = 0.0;
+    for (int m = 0; m < n.n_in; ++m)
+      e += (double)s.ext[b * kMaxInputs + m] * (double)w.iw[m * P + col];
+    const float current = (rec + (float)e) + n.bg[col];
+    const float total = current * n.tau_s;
+    const float* yb = y + b * S;
+    float* ob = out + b * S;
+    const float fr = s.fr[idx];
+    ob[col] = (-yb[col] + total * n.R) / n.tau_m;
+    ob[P + col] = (-yb[P + col] + n.adapt[col] * fr) / n.tau_a;
+    ob[2 * P + col] = (-yb[2 * P + col] + fr) / n.tau_s;
+  }
+  __syncthreads();
+}
+
+// The step's accumulators of the weight cotangents: three (P, P) arrays
+// holding bf16 values (global memory), the float32 iwT cotangent of the
+// step (shared memory). A thread owns the entries it touches.
+struct WAcc {
+  float *hi, *mid, *lo;  // (P, P)
+  float* iw;             // (n_in, P)
+};
+
+// VJP of one drift evaluation over ALL lanes (nb = the batch) at time t and
+// state y for the output cotangent ct: the state cotangent -> out, and this
+// evaluation's weight cotangents added to acc (assigned if first).
+//   state:  m = bf(c W_hi^T), q = bf(c W_mid^T), l = bf(c W_lo^T)
+//           u = bf(m + q);  r = m + bf(u - m);  x_bar = r + bf(bf(u + l) + bf(-r))
+//   weight: a = bf(x_hi^T c), b = bf(x_mid^T c), e = bf(x_lo^T c), contracted
+//           over the lanes; hi (+)= a, b, e; mid (+)= a, b; lo (+)= a, in bf16.
+__device__ void drift_vjp3(const Net& n, int nb, float t, const float* y, const float* ct,
+                           float* out, const W3& w, const Scr& s, const WAcc& acc, bool first) {
+  const int P = n.P, S = 3 * P;
+  drift_head<true>(n, 0, nb, t, y, ct, s);
+  for (int idx = threadIdx.x; idx < nb * P; idx += blockDim.x) {
+    const int b = idx / P, k = idx - b * P;
+    const float* cc = s.cc + b * P;
+    double dm = 0.0, dq = 0.0, dl = 0.0;
+    for (int j = 0; j < P; ++j) {
+      const double c = cc[j];
+      dm += c * (double)__bfloat162float(w.hi[k * P + j]);
+      dq += c * (double)__bfloat162float(w.mid[k * P + j]);
+      dl += c * (double)__bfloat162float(w.lo[k * P + j]);
+    }
+    const float m = bf16r((float)dm), q = bf16r((float)dq), l = bf16r((float)dl);
+    const float u = bf16r(m + q);
+    const float r = m + bf16r(u - m);
+    const float xbar = r + bf16r(bf16r(u + l) + bf16r(-r));
+    const float* cb = ct + b * S;
+    float* ob = out + b * S;
+    const float cv = cb[k], ca = cb[P + k], cr = cb[2 * P + k];
+    const float c_fr = (xbar + n.adapt[k] * (ca / n.tau_a)) + cr / n.tau_s;
+    const float c_x = s.fr[idx] * c_fr;
+    ob[k] = -(cv / n.tau_m) + c_x;
+    ob[P + k] = -(ca / n.tau_a) - c_x;
+    ob[2 * P + k] = -(cr / n.tau_s);
+  }
+  for (int e = threadIdx.x; e < P * P; e += blockDim.x) {
+    const int i = e / P, j = e - i * P;
+    double da = 0.0, db = 0.0, de = 0.0;
+    for (int b = 0; b < nb; ++b) {
+      const double c = s.cc[b * P + j];
+      da += (double)s.xh[b * P + i] * c;
+      db += (double)s.xm[b * P + i] * c;
+      de += (double)s.xl[b * P + i] * c;
+    }
+    const float a = bf16r((float)da), bb = bf16r((float)db), ee = bf16r((float)de);
+    if (first) {
+      acc.hi[e] = bf16r(bf16r(a + bb) + ee);
+      acc.mid[e] = bf16r(a + bb);
+      acc.lo[e] = a;
+    } else {
+      acc.hi[e] = bf16r(bf16r(bf16r(acc.hi[e] + a) + bb) + ee);
+      acc.mid[e] = bf16r(bf16r(acc.mid[e] + a) + bb);
+      acc.lo[e] = bf16r(acc.lo[e] + a);
+    }
+  }
+  for (int e = threadIdx.x; e < n.n_in * P; e += blockDim.x) {
+    const int m = e / P, j = e - m * P;
+    double d = 0.0;
+    for (int b = 0; b < nb; ++b) d += (double)s.ext[b * kMaxInputs + m] * (double)s.cc[b * P + j];
+    acc.iw[e] = first ? (float)d : acc.iw[e] + (float)d;
+  }
+  __syncthreads();
+}
+
+// Stage state i (1..6): out = y + sum_j (h a_ij) k_j over the nonzero a_ij,
+// left to right. ks[j] are (N) arrays. Ends with a barrier.
+__device__ void stage_state(int N, int i, float h, const float* y, float* const* ks, float* out) {
+  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) {
+    float v = y[idx];
+    for (int j = 0; j < i; ++j) {
+      const float a = kA[i][j];
+      if (a != 0.0f) v = v + (h * a) * ks[j][idx];
+    }
+    out[idx] = v;
+  }
+  __syncthreads();
+}
+
+// sum_j (h w_j) k_j[idx] over the nonzero w_j, left to right, the first term
+// alone where the plain version starts from it.
+__device__ __forceinline__ float weighted(const float* w, float h, float* const* ks, int idx) {
+  float v = 0.0f;
+  bool first = true;
+  for (int j = 0; j < kStages; ++j) {
+    if (w[j] != 0.0f) {
+      const float term = (h * w[j]) * ks[j][idx];
+      v = first ? term : v + term;
+      first = false;
+    }
+  }
+  return v;
+}
+
+// Root mean square over N values whose squares each thread summed into v.
+__device__ __forceinline__ float rms_of(double v, int N, double* red) {
+  return sqrtf((float)block_sum(v, red) / (float)N);
+}
+
+struct Carve {
+  float* p;
+  __device__ float* take(int nfloat) {
+    float* r = p;
+    p += nfloat;
+    return r;
+  }
+};
+
+// Lay out the weights and the scratch, split wT into its three terms, copy
+// iwT. Returns the first free float. Ends with a barrier.
+__device__ float* setup(float* sm, const Net& n, int nb, const float* __restrict__ wT,
+                        const float* __restrict__ iwT, W3* w, Scr* s) {
+  const int P = n.P;
+  bf16* wb = reinterpret_cast<bf16*>(sm);
+  w->hi = wb;
+  w->mid = wb + P * P;
+  w->lo = wb + 2 * P * P;
+  Carve c{sm + (3 * P * P + 1) / 2};
+  w->iw = c.take(n.n_in * P);
+  s->fr = c.take(nb * P);
+  s->xh = c.take(nb * P);
+  s->xm = c.take(nb * P);
+  s->xl = c.take(nb * P);
+  s->cc = c.take(nb * P);
+  s->ext = c.take(nb * kMaxInputs);
+  float* p = c.p;
+  p += ((uintptr_t)p & 4) ? 1 : 0;
+  s->red = reinterpret_cast<double*>(p);
+  p += 2 * (kThreads / 32);
+  for (int e = threadIdx.x; e < P * P; e += blockDim.x) {
+    float hi, mid, lo;
+    const float x = wT[e];
+    const bf16 h16 = __float2bfloat16_rn(x);
+    hi = __bfloat162float(h16);
+    const float r = x - hi;
+    const bf16 m16 = __float2bfloat16_rn(r);
+    mid = __bfloat162float(m16);
+    lo = r - mid;
+    w->hi[e] = h16;
+    w->mid[e] = m16;
+    w->lo[e] = __float2bfloat16_rn(lo);
+  }
+  for (int e = threadIdx.x; e < n.n_in * P; e += blockDim.x) w->iw[e] = iwT[e];
+  __syncthreads();
+  return p;
+}
+
+// Floats of shared memory that setup() lays out for nb lanes.
+size_t setup_floats(int P, int n_in, int nb) {
+  return (3 * (size_t)P * P + 1) / 2 + (size_t)n_in * P + 5 * (size_t)nb * P
+         + (size_t)nb * kMaxInputs + 1 + 2 * (kThreads / 32);
+}
+
+// ---------------------------------------------------------------------------
+// The selection
+// ---------------------------------------------------------------------------
+
+struct SelBuf {
+  float* y;            // (B, 3P) the state at t
+  float* k[kStages];   // stage derivatives; k[0] = f(t, y)
+  float* ys;           // stage state
+  float* y1;           // the fifth-order solution
+};
+
+// One attempt from (t, u.y, u.k[0]) with the step h (already clipped to the
+// horizon): fills u.k[1..6] and u.y1, returns the error ratio.
+__device__ float attempt(const Net& n, const Sel& sel, int N, float t, float h, const SelBuf& u,
+                         const W3& w, const Scr& s) {
+  for (int i = 1; i < kStages; ++i) {
+    float* dst = i == kStages - 1 ? u.y1 : u.ys;  // stage 6's state is y1 (row 6 of a is b)
+    stage_state(N, i, h, u.y, u.k, dst);
+    drift3(n, 0, n.B, t + kC[i] * h, dst, u.k[i], w, s);
+  }
+  double acc = 0.0;
+  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) {
+    const float err = weighted(kBErr, h, u.k, idx);
+    const float q = err / (sel.atol + sel.rtol * fmaxf(fabsf(u.y[idx]), fabsf(u.y1[idx])));
+    acc += (double)(q * q);
+  }
+  return rms_of(acc, N, s.red);
+}
+
+__device__ __forceinline__ float next_step(float h, float ratio) {
+  float f = 0.9f * expf((float)(-1.0 / 5) * logf(ratio));
+  if (f == f) f = fminf(fmaxf(f, 0.2f), 10.0f);
+  return h * f;
+}
+
+// Hairer's starting step from (t0, u.y, u.k[0]); uses u.ys and u.k[1].
+__device__ float initial_step(const Net& n, const Sel& sel, int N, float t0, const SelBuf& u,
+                              const W3& w, const Scr& s) {
+  double a0 = 0.0, a1 = 0.0;
+  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) {
+    const float scale = sel.atol + sel.rtol * fabsf(u.y[idx]);
+    const float q0 = u.y[idx] / scale, q1 = u.k[0][idx] / scale;
+    a0 += (double)(q0 * q0);
+    a1 += (double)(q1 * q1);
+  }
+  const float d0 = rms_of(a0, N, s.red), d1 = rms_of(a1, N, s.red);
+  const float h0 = (d0 < 1e-5f || d1 < 1e-5f) ? 1e-6f : (0.01f * d0) / d1;
+  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) u.ys[idx] = u.y[idx] + h0 * u.k[0][idx];
+  __syncthreads();
+  drift3(n, 0, n.B, t0 + h0, u.ys, u.k[1], w, s);
+  double a2 = 0.0;
+  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) {
+    const float scale = sel.atol + sel.rtol * fabsf(u.y[idx]);
+    const float q = (u.k[1][idx] - u.k[0][idx]) / scale;
+    a2 += (double)(q * q);
+  }
+  const float d2 = rms_of(a2, N, s.red) / h0;
+  const float h1 = (d1 <= 1e-15f && d2 <= 1e-15f)
+                       ? fmaxf(h0 * 1e-3f, 1e-6f)
+                       : expf((float)(1.0 / 5) * logf(0.01f / fmaxf(d1, d2)));
+  return nan_min(100.0f * h0, h1);
+}
+
+__device__ void carve_sel(float* p, int N, SelBuf* u) {
+  Carve c{p};
+  u->y = c.take(N);
+  for (int i = 0; i < kStages; ++i) u->k[i] = c.take(N);
+  u->ys = c.take(N);
+  u->y1 = c.take(N);
+}
+
+constexpr int kSelVectors = 10;
+
+__global__ void __launch_bounds__(kThreads)
+ode_select_kernel(Net n, Sel sel, const float* __restrict__ wT, const float* __restrict__ iwT,
+                  const float* __restrict__ y0, float* __restrict__ st, int* __restrict__ stats) {
+  extern __shared__ float sm[];
+  W3 w;
+  Scr s;
+  SelBuf u;
+  const int N = n.B * 3 * n.P, M = sel.max_steps;
+  carve_sel(setup(sm, n, n.B, wT, iwT, &w, &s), N, &u);
+  for (int i = threadIdx.x; i <= M; i += blockDim.x) st[i] = i == 0 ? sel.t_start : sel.t_end;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) u.y[i] = y0[i];
+  __syncthreads();
+  float t = sel.t_start;
+  drift3(n, 0, n.B, t, u.y, u.k[0], w, s);
+  float h = sel.use_initial ? initial_step(n, sel, N, t, u, w, s) : sel.dt0;
+  h = nan_min(h, sel.span);
+  int na = 0, nr = 0;
+  while (t < sel.t_end && na < M && nr < 4 * M + 64) {
+    h = nan_min(h, sel.t_end - t);
+    const float ratio = attempt(n, sel, N, t, h, u, w, s);
+    const bool accept = ratio <= 1.0f;
+    if (accept) {
+      t = t + h;
+      for (int i = threadIdx.x; i < N; i += blockDim.x) {
+        u.y[i] = u.y1[i];
+        u.k[0][i] = u.k[kStages - 1][i];
+      }
+      ++na;
+    } else {
+      ++nr;
+    }
+    if (threadIdx.x == 0) st[na] = t;
+    h = next_step(h, ratio);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    stats[0] = na;
+    stats[1] = nr;
+    stats[2] = t >= sel.t_end ? 1 : 0;
+  }
+}
+
+// One attempt from (t, y, f0) with the proposed step h: y1, f1 = k6 and
+// rec = (ratio, the step used, the next step).
+__global__ void __launch_bounds__(kThreads)
+ode_attempt_kernel(Net n, Sel sel, const float* __restrict__ wT, const float* __restrict__ iwT,
+                   const float* __restrict__ t_in, const float* __restrict__ h_in,
+                   const float* __restrict__ y, const float* __restrict__ f0,
+                   float* __restrict__ y1, float* __restrict__ f1, float* __restrict__ rec) {
+  extern __shared__ float sm[];
+  W3 w;
+  Scr s;
+  SelBuf u;
+  const int N = n.B * 3 * n.P;
+  carve_sel(setup(sm, n, n.B, wT, iwT, &w, &s), N, &u);
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    u.y[i] = y[i];
+    u.k[0][i] = f0[i];
+  }
+  __syncthreads();
+  const float t = t_in[0];
+  const float h = nan_min(h_in[0], sel.t_end - t);
+  const float ratio = attempt(n, sel, N, t, h, u, w, s);
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    y1[i] = u.y1[i];
+    f1[i] = u.k[kStages - 1][i];
+  }
+  if (threadIdx.x == 0) {
+    rec[0] = ratio;
+    rec[1] = h;
+    rec[2] = next_step(h, ratio);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The replay (one block per lane) and its reverse sweep (one block)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdVectors = 10;
+
+// Per step k < n: ys[k] = y, then the step from (st[k], y) with
+// h = st[k+1] - st[k] and its five dense rows
+//   r1 = y, r2 = dy = y1 - y, r3 = h k0 - dy, r4 = (dy - h k6) - r3,
+//   r5 = sum_j (h d_j) k_j.
+__global__ void __launch_bounds__(kThreads)
+ode_replay_fwd_kernel(Net n, int n_steps, const float* __restrict__ wT,
+                      const float* __restrict__ iwT, const float* __restrict__ st,
+                      const float* __restrict__ y0, float* __restrict__ ys,
+                      float* __restrict__ coeffs) {
+  extern __shared__ float sm[];
+  W3 w;
+  Scr s;
+  SelBuf u;
+  const int S = 3 * n.P, B = n.B, b = blockIdx.x;
+  carve_sel(setup(sm, n, 1, wT, iwT, &w, &s), S, &u);
+  for (int i = threadIdx.x; i < S; i += blockDim.x) u.y[i] = y0[(size_t)b * S + i];
+  __syncthreads();
+  for (int k = 0; k < n_steps; ++k) {
+    const float t0 = st[k], h = st[k + 1] - t0;
+    drift3(n, b, 1, t0, u.y, u.k[0], w, s);
+    for (int i = 1; i < kStages; ++i) {
+      float* dst = i == kStages - 1 ? u.y1 : u.ys;
+      stage_state(S, i, h, u.y, u.k, dst);
+      drift3(n, b, 1, t0 + kC[i] * h, dst, u.k[i], w, s);
+    }
+    float* yk = ys + ((size_t)k * B + b) * S;
+    float* ck = coeffs + ((size_t)k * 5 * B + b) * S;
+    const size_t row = (size_t)B * S;
+    for (int i = threadIdx.x; i < S; i += blockDim.x) {
+      const float y = u.y[i], y1 = u.y1[i];
+      const float dy = y1 - y;
+      const float r3 = h * u.k[0][i] - dy;
+      yk[i] = y;
+      ck[i] = y;
+      ck[row + i] = dy;
+      ck[2 * row + i] = r3;
+      ck[3 * row + i] = (dy - h * u.k[kStages - 1][i]) - r3;
+      ck[4 * row + i] = weighted(kD, h, u.k, i);
+      u.y[i] = y1;
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int kBwdVectors = 16;
+
+// Reverse sweep over steps n-1..0. Per step, with the cotangents ybar (on
+// y1, carried from the later steps) and c1..c5 (on the dense rows): rebuild
+// the stage states Y0..Y6 from ys[k], then
+//   r3bar = c3 - c4;  dybar = (c2 + c4) - r3bar;  y1bar = ybar + dybar
+//   kbar_j = (h d_j) c5;  kbar_6 -= h c4;  kbar_0 += h r3bar
+//   kbar_j += (h b_j) y1bar;  ysum = (c1 - dybar) + y1bar
+//   for i = 6..0:  g = f^T|_{Y_i} kbar_i;  ysum += g;  kbar_j += (h a_ij) g
+// and ybar = ysum. The drift VJPs' weight cotangents add in bf16 within the
+// step and fold through the split once per step into the float32 sums.
+__global__ void __launch_bounds__(kThreads)
+ode_replay_bwd_kernel(Net n, int n_steps, const float* __restrict__ wT,
+                      const float* __restrict__ iwT, const float* __restrict__ st,
+                      const float* __restrict__ ys, const float* __restrict__ cobar,
+                      float* __restrict__ ybar_out, float* __restrict__ d_wT,
+                      float* __restrict__ d_iwT, float* __restrict__ work) {
+  extern __shared__ float sm[];
+  W3 w;
+  Scr s;
+  const int P = n.P, B = n.B, N = B * 3 * P;
+  Carve c{setup(sm, n, B, wT, iwT, &w, &s)};
+  float *Y[kStages], *kk[kStages];
+  for (int i = 0; i < kStages; ++i) Y[i] = c.take(N);
+  for (int i = 0; i < kStages; ++i) kk[i] = c.take(N);
+  float* ysum = c.take(N);
+  float* g = c.take(N);
+  WAcc acc{work, work + P * P, work + 2 * P * P, c.take(n.n_in * P)};
+  for (int e = threadIdx.x; e < P * P; e += blockDim.x) d_wT[e] = 0.0f;
+  for (int e = threadIdx.x; e < n.n_in * P; e += blockDim.x) d_iwT[e] = 0.0f;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) ysum[i] = 0.0f;  // ybar of the last step
+  __syncthreads();
+  for (int k = n_steps - 1; k >= 0; --k) {
+    const float t0 = st[k], h = st[k + 1] - t0;
+    const float* yk = ys + (size_t)k * N;
+    const float* ck = cobar + (size_t)k * 5 * N;
+    for (int i = threadIdx.x; i < N; i += blockDim.x) Y[0][i] = yk[i];
+    __syncthreads();
+    drift3(n, 0, B, t0, Y[0], kk[0], w, s);
+    for (int i = 1; i < kStages; ++i) {
+      stage_state(N, i, h, Y[0], kk, Y[i]);
+      if (i < kStages - 1) drift3(n, 0, B, t0 + kC[i] * h, Y[i], kk[i], w, s);
+    }
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      const float c1 = ck[i], c2 = ck[N + i], c3 = ck[2 * N + i], c4 = ck[3 * N + i],
+                  c5 = ck[4 * N + i];
+      const float r3bar = c3 - c4;
+      const float dybar = (c2 + c4) - r3bar;
+      const float y1bar = ysum[i] + dybar;
+      for (int j = 0; j < kStages; ++j) {
+        float v = kD[j] != 0.0f ? (h * kD[j]) * c5 : 0.0f;
+        if (j == kStages - 1) v = v - h * c4;
+        if (j == 0) v = v + h * r3bar;
+        if (kB[j] != 0.0f) v = v + (h * kB[j]) * y1bar;
+        kk[j][i] = v;
+      }
+      ysum[i] = (c1 - dybar) + y1bar;
+    }
+    __syncthreads();
+    for (int i = kStages - 1; i >= 0; --i) {
+      drift_vjp3(n, B, i ? t0 + kC[i] * h : t0, Y[i], kk[i], g, w, s, acc, i == kStages - 1);
+      for (int e = threadIdx.x; e < N; e += blockDim.x) {
+        const float ge = g[e];
+        ysum[e] = ysum[e] + ge;
+        for (int j = 0; j < i; ++j) {
+          const float a = kA[i][j];
+          if (a != 0.0f) kk[j][e] = kk[j][e] + (h * a) * ge;
+        }
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < P * P; e += blockDim.x) {
+      const float lo = acc.lo[e];
+      const float r = lo + bf16r(acc.mid[e] - lo);
+      d_wT[e] = d_wT[e] + (r + bf16r(acc.hi[e] + bf16r(-r)));
+    }
+    for (int e = threadIdx.x; e < n.n_in * P; e += blockDim.x) d_iwT[e] = d_iwT[e] + acc.iw[e];
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x) ybar_out[i] = ysum[i];
+}
+
+Sel make_sel(const float* hs, int use_initial, int max_steps) {
+  return Sel{hs[0], hs[1], hs[2], hs[3], hs[4], hs[5], use_initial, max_steps};
+}
+
+template <typename Kern>
+int prepare(Kern kernel, int P, int n_in, int K, int nb, int vectors, size_t extra, size_t* bytes) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  *bytes = sizeof(float) * (setup_floats(P, n_in, nb) + (size_t)vectors * nb * 3 * P + extra);
+  return set_smem(kernel, *bytes);
+}
+
+}  // namespace
+
+extern "C" {
+
+// hc (host): tau_s, tau_m, tau_a, R, sigma, kc0[K-1], kd[K-1];
+// hs (host): t_start, t_end, rtol, atol, dt0, t_end - t_start.
+int cf_ode_select(int B, int P, int n_in, int K, const float* hc, const float* hs,
+                  int use_initial, int max_steps, const float* bg, const float* adapt,
+                  const float* wT, const float* iwT, const float* kv, const float* y0, float* st,
+                  int* stats, void* stream) {
+  size_t bytes;
+  if (int e = prepare(ode_select_kernel, P, n_in, K, B, kSelVectors, 0, &bytes)) return e;
+  ode_select_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, use_initial, max_steps), wT, iwT,
+      y0, st, stats);
+  return (int)cudaGetLastError();
+}
+
+int cf_ode_attempt(int B, int P, int n_in, int K, const float* hc, const float* hs,
+                   const float* bg, const float* adapt, const float* wT, const float* iwT,
+                   const float* kv, const float* t, const float* h, const float* y,
+                   const float* f0, float* y1, float* f1, float* rec, void* stream) {
+  size_t bytes;
+  if (int e = prepare(ode_attempt_kernel, P, n_in, K, B, kSelVectors, 0, &bytes)) return e;
+  ode_attempt_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, 0, 0), wT, iwT, t, h, y, f0, y1,
+      f1, rec);
+  return (int)cudaGetLastError();
+}
+
+int cf_ode_replay_fwd(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                      const float* bg, const float* adapt, const float* wT, const float* iwT,
+                      const float* kv, const float* st, const float* y0, float* ys,
+                      float* coeffs, void* stream) {
+  size_t bytes;
+  if (int e = prepare(ode_replay_fwd_kernel, P, n_in, K, 1, kFwdVectors, 0, &bytes)) return e;
+  if (B > 0)
+    ode_replay_fwd_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, wT, iwT, st, y0, ys, coeffs);
+  return (int)cudaGetLastError();
+}
+
+int cf_ode_replay_bwd(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                      const float* bg, const float* adapt, const float* wT, const float* iwT,
+                      const float* kv, const float* st, const float* ys, const float* cobar,
+                      float* ybar, float* d_wT, float* d_iwT, float* work, void* stream) {
+  size_t bytes;
+  if (int e = prepare(ode_replay_bwd_kernel, P, n_in, K, B, kBwdVectors, (size_t)n_in * P, &bytes))
+    return e;
+  ode_replay_bwd_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, wT, iwT, st, ys, cobar, ybar, d_wT,
+      d_iwT, work);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

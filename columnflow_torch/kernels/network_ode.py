@@ -1,0 +1,382 @@
+"""The column-network dopri5 kernels: adaptive step-size selection, the
+dense-output replay over the frozen grid, and its reverse sweep (ports of
+the three Pallas kernels of ``odeint_dopri5_fused`` in
+``columnflow/solvers/fused.py``).
+
+Each kernel is CUDA C++ in ``csrc/network_ode.cu`` (built by ``_build``)
+with a plain PyTorch version beside it that repeats its arithmetic:
+
+    wrapper         kernel             plain version          replaces (columnflow/solvers/fused.py)
+    ode_select      cf_ode_select      _ode_select_plain      _make_adaptive_kernel
+    ode_attempt     cf_ode_attempt     _ode_attempt_plain     one iteration of that kernel's body
+    ode_replay_fwd  cf_ode_replay_fwd  _ode_replay_fwd_plain  _make_replay_chunk_kernel
+    ode_replay_bwd  cf_ode_replay_bwd  _ode_replay_bwd_plain  _make_bwd_chunk_kernel, kernel mode
+
+The JAX kernels trace any drift. These compute the parity task's
+deterministic drift: ``network_drift_premixed`` with the knot stimulus and
+the three-term bf16 split of the recurrent matrix
+(``prepare_premixed_split``), which the kernels compute from the float32
+``wT`` themselves, as the JAX kernels run their ``prepare`` hook inside. One
+controller steers the whole (B, 3P) batch state, so the selection and the
+reverse sweep (whose weight cotangents are contracted over the batch before
+they are rounded to bf16) run the batch in one thread block; the replay's
+lanes are independent and run one block each.
+
+The wrappers take the plain version for tensors on the CPU; for CUDA tensors
+they launch the kernel or raise. ``LAUNCHES`` counts kernel launches (the
+plain versions count nothing).
+
+The JAX kernels cut the step sequence into chunks only because a chunk's
+rows had to fit the TPU's VMEM; device memory holds the whole replay, so
+each sweep here is one launch over the accepted steps.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from columnflow_torch.kernels.network_sde import (
+    SDEConsts,
+    _check,
+    _drift_host_consts,
+    _drift_named,
+    _host_floats,
+    _knots,
+    _lib,
+    _on_cuda,
+    _stream,
+)
+from columnflow_torch.models.column import Stimulus
+from columnflow_torch.models.network import (
+    network_drift_premixed,
+    network_drift_premixed_split_vjp,
+    prepare_premixed_split,
+    split3_fold,
+)
+from columnflow_torch.ops.arith import div
+from columnflow_torch.solvers import rk
+
+# The I controller of ``columnflow/solvers/fused.py``: factor = safety *
+# ratio^(-1/order), clipped to [DFACTOR, IFACTOR]. The CUDA kernel holds the
+# same numbers as literals.
+_SAFETY, _IFACTOR, _DFACTOR, _ORDER = 0.9, 10.0, 0.2, 5
+LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_bwd": 0}
+
+_F32 = torch.float32
+
+
+class ODESelectConfig(NamedTuple):
+    """The selection's settings, as the JAX kernel bakes them in.
+    ``max_steps`` is already rounded up (``solvers.fused.round_max_steps``)."""
+
+    t_start: float
+    t_end: float
+    rtol: float = 1e-7
+    atol: float = 1e-9
+    dt0: float | None = None
+    max_steps: int = 2048
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _w3(pw, sc: SDEConsts):
+    return prepare_premixed_split({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
+
+
+def drift_split3(t, y, w3, sc: SDEConsts, kv):
+    """The drift of all three kernels: y (B, 3P), t a scalar shared by the
+    batch, kv (K, B, n_in)."""
+    return network_drift_premixed(t, y, w3, sc.fc, Stimulus(0.0, 0.0, kv),
+                                  interp_fn=_knots(sc.knot_ts))
+
+
+def _combine(y, h, weights, ks):
+    """y + sum_j (h w_j) k_j over the nonzero w_j, left to right; from the
+    first term alone when y is None."""
+    out = y
+    for w, k in zip(weights, ks):
+        if w != 0.0:
+            term = (h * w) * k
+            out = term if out is None else out + term
+    return out
+
+
+def rk_step(f, t, y, h, f0):
+    """One dopri5 step with stage 0 given: (y1, [k0..k6], [Y0..Y6]); the
+    stages are unrolled with scalar coefficients as in ``_rk_step_u``."""
+    ks, Ys = [f0], [y]
+    for i in range(1, rk.N_STAGES):
+        Ys.append(_combine(y, h, rk.A[i], ks))
+        ks.append(f(t + rk.C[i] * h, Ys[i]))
+    return _combine(y, h, rk.B, ks), ks, Ys
+
+
+def dense_coeffs(y0, y1, h, ks):
+    """Hairer's CONTD5 rows (r1..r5) of one step."""
+    dy = y1 - y0
+    r3 = h * ks[0] - dy
+    return y0, dy, r3, dy - h * ks[-1] - r3, _combine(None, h, rk.DOPRI5_DENSE_D, ks)
+
+
+def step_with_coeffs(f, t0, h, y):
+    """The replay step: recompute stage 0, step, (y1, coeffs (5, B, 3P))."""
+    y1, ks, _ = rk_step(f, t0, y, h, f(t0, y))
+    return y1, torch.stack(dense_coeffs(y, y1, h, ks))
+
+
+def _rms(x):
+    """Root mean square over the whole batch state: the squares summed in
+    float64 and rounded to float32 once."""
+    return torch.sqrt(div((x * x).double().sum().to(x.dtype), x.numel()))
+
+
+def _pow(x, p: float):
+    return torch.exp(p * torch.log(x))
+
+
+def _rdiv(c: float, x):
+    """c / x as a division (PyTorch computes number / tensor through the
+    tensor's reciprocal)."""
+    return torch.full_like(x, c) / x
+
+
+def _next_step_size(h, ratio):
+    return h * torch.clamp(_SAFETY * _pow(ratio, -1.0 / _ORDER), _DFACTOR, _IFACTOR)
+
+
+def initial_step_size(f, t0, y0, f0, rtol, atol):
+    """Hairer's starting step, as ``_initial_step_size_k``."""
+    scale = atol + rtol * y0.abs()
+    d0, d1 = _rms(y0 / scale), _rms(f0 / scale)
+    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), 1e-6, 0.01 * d0 / d1)
+    f1 = f(t0 + h0, y0 + h0 * f0)
+    d2 = _rms((f1 - f0) / scale) / h0
+    h1 = torch.where((d1 <= 1e-15) & (d2 <= 1e-15), torch.clamp_min(h0 * 1e-3, 1e-6),
+                     _pow(_rdiv(0.01, torch.maximum(d1, d2)), 1.0 / _ORDER))
+    return torch.minimum(100.0 * h0, h1)
+
+
+class ODEAttempt(NamedTuple):
+    y1: torch.Tensor      # (B, 3P) the fifth-order solution
+    f1: torch.Tensor      # (B, 3P) its derivative (the next step's stage 0)
+    ratio: torch.Tensor   # () the error ratio over the whole batch state
+    h: torch.Tensor       # () the step used
+    h_next: torch.Tensor  # ()
+
+
+@torch.no_grad()
+def _ode_attempt_plain(t, y, f0, h, w3, sc, kv, cfg: ODESelectConfig) -> ODEAttempt:
+    """One controller attempt from (t, y, f0 = f(t, y)) with the proposed
+    step h (scalars as 0-dim tensors)."""
+    f = lambda t_, y_: drift_split3(t_, y_, w3, sc, kv)  # noqa: E731
+    h = torch.minimum(h, cfg.t_end - t)
+    y1, ks, _ = rk_step(f, t, y, h, f0)
+    err = _combine(None, h, rk.B_ERR, ks)
+    ratio = _rms(err / (cfg.atol + cfg.rtol * torch.maximum(y.abs(), y1.abs())))
+    return ODEAttempt(y1, ks[-1], ratio, h, _next_step_size(h, ratio))
+
+
+@torch.no_grad()
+def _ode_select_plain(y0, w3, sc, kv, cfg: ODESelectConfig):
+    """The selection loop: (step_times (M+1,), stats (3,) int32 = naccept,
+    nreject, success). The accept decision is read on the host once per
+    attempt."""
+    dev, M = y0.device, cfg.max_steps
+    f = lambda t_, y_: drift_split3(t_, y_, w3, sc, kv)  # noqa: E731
+    st = torch.full((M + 1,), cfg.t_end, dtype=_F32, device=dev)
+    st[0] = cfg.t_start
+    t = torch.tensor(cfg.t_start, dtype=_F32, device=dev)
+    y, f0 = y0, f(t, y0)
+    if cfg.dt0 is None:
+        h = initial_step_size(f, t, y0, f0, cfg.rtol, cfg.atol)
+    else:
+        h = torch.tensor(cfg.dt0, dtype=_F32, device=dev)
+    h = torch.clamp_max(h, cfg.t_end - cfg.t_start)
+    na = nr = 0
+    while bool(t < cfg.t_end) and na < M and nr < 4 * M + 64:
+        a = _ode_attempt_plain(t, y, f0, h, w3, sc, kv, cfg)
+        if bool(a.ratio <= 1.0):
+            t, y, f0, na = t + a.h, a.y1, a.f1, na + 1
+        else:
+            nr += 1
+        st[na] = t
+        h = a.h_next
+    stats = torch.tensor([na, nr, int(bool(t >= cfg.t_end))], dtype=torch.int32, device=dev)
+    return st, stats
+
+
+def _ode_replay_fwd_plain(y0, st, w3, sc, kv):
+    """The replay over the n = len(st) - 1 frozen steps: (ys (n, B, 3P) the
+    step-start states, coeffs (n, 5, B, 3P))."""
+    n = st.shape[0] - 1
+    f = lambda t_, y_: drift_split3(t_, y_, w3, sc, kv)  # noqa: E731
+    ys, coeffs, y = [], [], y0
+    for k in range(n):
+        ys.append(y)
+        y, co = step_with_coeffs(f, st[k], st[k + 1] - st[k], y)
+        coeffs.append(co)
+    if n == 0:
+        return y0.new_zeros((0,) + tuple(y0.shape)), y0.new_zeros((0, 5) + tuple(y0.shape))
+    return torch.stack(ys), torch.stack(coeffs)
+
+
+def step_vjp(t0, h, y, ybar, cbar, w3, sc: SDEConsts, kv):
+    """The hand-written VJP of ``step_with_coeffs`` at (t0, h, y) for the
+    cotangents ybar on y1 and cbar (5, B, 3P) on the coefficient rows:
+    (state cotangent, d wT, d iwT). The stages are rebuilt from y, then the
+    seven drift VJPs run from stage 6 down; their weight cotangents add in
+    bf16 within the step and fold through the three-term split once."""
+    f = lambda t_, y_: drift_split3(t_, y_, w3, sc, kv)  # noqa: E731
+    _, _, Ys = rk_step(f, t0, y, h, f(t0, y))
+    c1, c2, c3, c4, c5 = cbar
+    r3bar = c3 - c4
+    dybar = (c2 + c4) - r3bar
+    y1bar = ybar + dybar
+    kbar = [(h * d) * c5 if d != 0.0 else None for d in rk.DOPRI5_DENSE_D]
+    kbar[6] = kbar[6] - h * c4
+    kbar[0] = kbar[0] + h * r3bar
+    for j, b in enumerate(rk.B):
+        if b != 0.0:
+            kbar[j] = kbar[j] + (h * b) * y1bar
+    ysum = (c1 - dybar) + y1bar
+    stim, interp = Stimulus(0.0, 0.0, kv), _knots(sc.knot_ts)
+    acc = d_iwT = None
+    for i in range(rk.N_STAGES - 1, -1, -1):
+        g, acc, giw = network_drift_premixed_split_vjp(
+            t0 + rk.C[i] * h if i else t0, Ys[i], kbar[i], w3, sc.fc, stim, interp, acc)
+        ysum = ysum + g
+        d_iwT = giw if d_iwT is None else d_iwT + giw
+        for j, a in enumerate(rk.A[i]):
+            if a != 0.0:
+                kbar[j] = (h * a) * g if kbar[j] is None else kbar[j] + (h * a) * g
+    return ysum, split3_fold(acc), d_iwT
+
+
+@torch.no_grad()
+def _ode_replay_bwd_plain(ys, cobar, st, w3, sc, kv):
+    """The reverse sweep over steps n-1..0: (ybar0 (B, 3P), d wT (P, P),
+    d iwT (n_in, P)); the weight cotangents add across steps in float32."""
+    n = ys.shape[0]
+    ybar = torch.zeros_like(cobar[0, 0]) if n else cobar.new_zeros(tuple(cobar.shape[2:]))
+    P, n_in = ybar.shape[-1] // 3, kv.shape[2]
+    d_wT, d_iwT = ybar.new_zeros((P, P)), ybar.new_zeros((n_in, P))
+    for k in range(n - 1, -1, -1):
+        ybar, gw, giw = step_vjp(st[k], st[k + 1] - st[k], ys[k], ybar, cobar[k], w3, sc, kv)
+        d_wT, d_iwT = d_wT + gw, d_iwT + giw
+    return ybar, d_wT, d_iwT
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version on the CPU, kernel on CUDA, anything else raises
+# ---------------------------------------------------------------------------
+
+
+def _named(y0, pw, sc, kv):
+    B, S = y0.shape
+    P = S // 3
+    return {"y0": (y0, _F32, (B, S)), "wT": (pw["wT"], _F32, (P, P)),
+            "iwT": (pw["iwT"], _F32, (kv.shape[2], P)), **_drift_named(sc, kv, B, P)}
+
+
+def _select_host(sc: SDEConsts, cfg: ODESelectConfig):
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    hs, hs_p = _host_floats([cfg.t_start, cfg.t_end, cfg.rtol, cfg.atol,
+                             0.0 if cfg.dt0 is None else cfg.dt0, cfg.t_end - cfg.t_start])
+    return (hc, hs), hc_p, hs_p
+
+
+def _net_args(y, pw, sc, kv):
+    B, S = y.shape[-2:]
+    return (B, S // 3, kv.shape[2], kv.shape[0]), (
+        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), pw["wT"].data_ptr(),
+        pw["iwT"].data_ptr(), kv.data_ptr())
+
+
+def ode_select(y0, pw, sc: SDEConsts, kv, cfg: ODESelectConfig):
+    """The step-size selection for the batch state y0 (B, 3P) under one
+    controller: pw = {"wT" (P, P), "iwT" (n_in, P)} float32, kv (K, B,
+    n_in). Returns (step_times (M+1,) float32, stats (3,) int32 = naccept,
+    nreject, success)."""
+    if not _on_cuda(y0, _named(y0, pw, sc, kv)):
+        return _ode_select_plain(y0, _w3(pw, sc), sc, kv, cfg)
+    st = torch.empty(cfg.max_steps + 1, dtype=_F32, device=y0.device)
+    stats = torch.empty(3, dtype=torch.int32, device=y0.device)
+    keep, hc_p, hs_p = _select_host(sc, cfg)
+    dims, ptrs = _net_args(y0, pw, sc, kv)
+    _check(_lib().cf_ode_select(*dims, hc_p, hs_p, int(cfg.dt0 is None), cfg.max_steps, *ptrs,
+                                y0.data_ptr(), st.data_ptr(), stats.data_ptr(), _stream(y0)),
+           "ode_select")
+    LAUNCHES["ode_select"] += 1
+    return st, stats
+
+
+def ode_attempt(t, y, f0, h, pw, sc: SDEConsts, kv, cfg: ODESelectConfig) -> ODEAttempt:
+    """One controller attempt (the body of the selection kernel) from the
+    0-dim tensors t, h and the batch state y with f0 = f(t, y)."""
+    named = {**_named(y, pw, sc, kv), "f0": (f0, _F32, tuple(y.shape)),
+             "t": (t, _F32, ()), "h": (h, _F32, ())}
+    if not _on_cuda(y, named):
+        return _ode_attempt_plain(t, y, f0, h, _w3(pw, sc), sc, kv, cfg)
+    y1, f1 = torch.empty_like(y), torch.empty_like(y)
+    rec = torch.empty(3, dtype=_F32, device=y.device)
+    keep, hc_p, hs_p = _select_host(sc, cfg)
+    dims, ptrs = _net_args(y, pw, sc, kv)
+    _check(_lib().cf_ode_attempt(*dims, hc_p, hs_p, *ptrs, t.data_ptr(), h.data_ptr(),
+                                 y.data_ptr(), f0.data_ptr(), y1.data_ptr(), f1.data_ptr(),
+                                 rec.data_ptr(), _stream(y)), "ode_attempt")
+    LAUNCHES["ode_attempt"] += 1
+    return ODEAttempt(y1, f1, rec[0], rec[1], rec[2])
+
+
+def _replay_named(st, n):
+    return {"step_times": (st, _F32, (n + 1,))}
+
+
+def ode_replay_fwd(y0, st, pw, sc: SDEConsts, kv):
+    """The replay of the frozen grid st (n + 1,) from y0 (B, 3P): returns
+    (ys (n, B, 3P) the step-start states, coeffs (n, 5, B, 3P) the dense-
+    output rows of every step)."""
+    n = st.shape[0] - 1
+    if not _on_cuda(y0, {**_named(y0, pw, sc, kv), **_replay_named(st, n)}):
+        return _ode_replay_fwd_plain(y0, st, _w3(pw, sc), sc, kv)
+    B, S = y0.shape
+    ys = torch.empty((n, B, S), dtype=_F32, device=y0.device)
+    coeffs = torch.empty((n, 5, B, S), dtype=_F32, device=y0.device)
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    dims, ptrs = _net_args(y0, pw, sc, kv)
+    _check(_lib().cf_ode_replay_fwd(*dims, hc_p, n, *ptrs, st.data_ptr(), y0.data_ptr(),
+                                    ys.data_ptr(), coeffs.data_ptr(), _stream(y0)),
+           "ode_replay_fwd")
+    LAUNCHES["ode_replay_fwd"] += 1
+    return ys, coeffs
+
+
+def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv):
+    """The reverse sweep: ys (n, B, 3P) the step-start states, cobar (n, 5,
+    B, 3P) the cotangents of the dense-output rows. Returns (ybar0 (B, 3P),
+    d wT (P, P), d iwT (n_in, P))."""
+    n, B, S = ys.shape
+    P, n_in = S // 3, kv.shape[2]
+    named = {"ys": (ys, _F32, (n, B, S)), "cobar": (cobar, _F32, (n, 5, B, S)),
+             "wT": (pw["wT"], _F32, (P, P)), "iwT": (pw["iwT"], _F32, (n_in, P)),
+             **_drift_named(sc, kv, B, P), **_replay_named(st, n)}
+    if not _on_cuda(ys, named):
+        return _ode_replay_bwd_plain(ys, cobar, st, _w3(pw, sc), sc, kv)
+    dev = ys.device
+    ybar = torch.empty((B, S), dtype=_F32, device=dev)
+    d_wT = torch.empty((P, P), dtype=_F32, device=dev)
+    d_iwT = torch.empty((n_in, P), dtype=_F32, device=dev)
+    work = torch.empty((3, P, P), dtype=_F32, device=dev)  # the step's bf16 accumulators
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    dims, ptrs = _net_args(ys, pw, sc, kv)
+    _check(_lib().cf_ode_replay_bwd(*dims, hc_p, n, *ptrs, st.data_ptr(), ys.data_ptr(),
+                                    cobar.data_ptr(), ybar.data_ptr(), d_wT.data_ptr(),
+                                    d_iwT.data_ptr(), work.data_ptr(), _stream(ys)),
+           "ode_replay_bwd")
+    LAUNCHES["ode_replay_bwd"] += 1
+    return ybar, d_wT, d_iwT

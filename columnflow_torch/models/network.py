@@ -17,8 +17,8 @@ same way in both.
 
 The JAX package differentiates its drifts with ``jax.vjp``; the VJPs the
 port needs are written out here (``network_drift_premixed_split2_vjp``,
-``network_drift_premixed_gradbf16_vjp``), with the bf16 rounding points
-that ``jax.vjp`` of the bf16 casts has.
+``network_drift_premixed_gradbf16_vjp``, ``network_drift_premixed_split_vjp``),
+with the bf16 rounding points that ``jax.vjp`` of the bf16 casts has.
 """
 
 from __future__ import annotations
@@ -64,13 +64,22 @@ class NetworkStatic(NamedTuple):
 
 
 def _mm(a, b):
-    """a @ b summed in float64, rounded to float32 once."""
-    return torch.matmul(a.double(), b.double()).float()
+    """a @ b summed in float64, rounded to float32 once (float64 operands
+    stay float64)."""
+    return torch.matmul(a.double(), b.double()).to(a.dtype)
 
 
 def _bf(x):
-    """Round to bf16 (nearest even) and back to float32."""
-    return x.to(_BF16).float()
+    """Round to bf16 (nearest even) and back to float32. A float64 tensor
+    passes through: float64 inputs run the same formulas without their bf16
+    roundings, which is how the tests hold the hand-written VJPs against
+    autograd."""
+    return x if x.dtype == torch.float64 else x.to(_BF16).float()
+
+
+def _wide(w):
+    """A stored bf16 weight term as the float type it multiplies in."""
+    return w if w.dtype == torch.float64 else w.float()
 
 
 def make_mask_fan_in(mask: np.ndarray, num_target_blocks: int, num_source_blocks: int):
@@ -257,7 +266,10 @@ def premix_network_weights(params: dict, net: NetworkStatic) -> dict:
 
 
 def split_f32(w):
-    """3-term bf16 decomposition w ~ hi + mid + lo (bf16 tensors)."""
+    """3-term bf16 decomposition w ~ hi + mid + lo (bf16 tensors; a float64
+    w is kept whole in hi, see ``_bf``)."""
+    if w.dtype == torch.float64:
+        return w, torch.zeros_like(w), torch.zeros_like(w)
     w_hi = w.to(_BF16)
     r = w - w_hi.float()
     w_mid = r.to(_BF16)
@@ -271,7 +283,7 @@ def matmul_split(x, w_hi, w_mid, w_lo):
     r = x - x_hi
     x_mid = _bf(r)
     x_lo = _bf(r - x_mid)
-    hi, mid, lo = w_hi.float(), w_mid.float(), w_lo.float()
+    hi, mid, lo = _wide(w_hi), _wide(w_mid), _wide(w_lo)
     return (_mm(x_hi, lo) + _mm(x_mid, mid) + _mm(x_lo, hi)
             + _mm(x_hi, mid) + _mm(x_mid, hi) + _mm(x_hi, hi))
 
@@ -431,3 +443,82 @@ def network_drift_premixed_gradbf16_vjp(t, y, ct, pw, fc, stim: Stimulus,
     c_cur = _cot_current(ct[..., :P], fc)
     x_bar = _bf(_mm(c_cur, _bf(pw["wT"]).T))
     return _state_cot(y, ct, x_bar, frp, fc), (_bf(fr), _bf(ext), c_cur)
+
+
+# --- the three-term split (``prepare_premixed_split`` / ``matmul_split``) ---
+#
+# Rounding points, read off ``jax.make_jaxpr`` of the VJP of
+# ``matmul_split(x, *split_f32(w))``. Every cotangent of a bf16 operand is a
+# float32 product rounded to bf16, cotangents of one operand add in bf16 in
+# the reverse order of the forward's products, and the chain back through
+# the residual subtractions of the split rounds again. With (+) a bf16 add:
+#
+#   state side, m = bf(c hi^T), q = bf(c mid^T), l = bf(c lo^T):
+#     x_lo_bar = m;  x_mid_bar = m (+) q;  x_hi_bar = (m (+) q) (+) l
+#     u = x_mid_bar (+) -m;  r = m + u;  x_bar = r + (x_hi_bar (+) bf(-r))
+#   weight side, per product x_term^T c contracted over the batch in float32,
+#     a = bf(x_hi^T c), b = bf(x_mid^T c), e = bf(x_lo^T c):
+#     w_hi_bar = (a (+) b) (+) e;  w_mid_bar = a (+) b;  w_lo_bar = a
+#   and, once per ``split_f32`` (``split3_fold``):
+#     z = w_mid_bar (+) -w_lo_bar;  r = w_lo_bar + z
+#     w_bar = r + (w_hi_bar (+) bf(-r)).
+
+
+def split3_cotangent(c_cur, w_hi, w_mid, w_lo):
+    """Cotangent that ``matmul_split(fr, w_hi, w_mid, w_lo)`` sends to fr."""
+    m = _bf(_mm(c_cur, _wide(w_hi).T))
+    q = _bf(_mm(c_cur, _wide(w_mid).T))
+    lo = _bf(_mm(c_cur, _wide(w_lo).T))
+    x_mid_bar = _bf(m + q)
+    r = m + _bf(x_mid_bar - m)
+    return r + _bf(_bf(x_mid_bar + lo) + _bf(-r))
+
+
+def split3_terms(x):
+    """The three bf16 terms of the rates (float32 tensors holding bf16
+    values), as ``matmul_split`` splits them."""
+    x_hi = _bf(x)
+    r = x - x_hi
+    x_mid = _bf(r)
+    return x_hi, x_mid, _bf(r - x_mid)
+
+
+def split3_accumulate(acc, x, c_cur):
+    """Add one drift evaluation's weight cotangents to the running bf16
+    accumulators acc = (w_hi_bar, w_mid_bar, w_lo_bar) (float32 tensors
+    holding bf16 values, or None before the first evaluation): each
+    product's cotangent x_term^T c_cur is contracted over the batch, rounded
+    to bf16 and added in bf16, in the order the reverse pass meets the
+    forward's products."""
+    x_hi, x_mid, x_lo = (t.reshape(-1, t.shape[-1]) for t in split3_terms(x))
+    c = c_cur.reshape(-1, c_cur.shape[-1])
+    a, b, e = _bf(_mm(x_hi.T, c)), _bf(_mm(x_mid.T, c)), _bf(_mm(x_lo.T, c))
+    if acc is None:
+        return _bf(_bf(a + b) + e), _bf(a + b), a
+    hi, mid, lo = acc
+    return _bf(_bf(_bf(hi + a) + b) + e), _bf(_bf(mid + a) + b), _bf(lo + a)
+
+
+def split3_fold(acc):
+    """The cotangent of w from those of its three terms: the chain back
+    through ``split_f32``'s residual subtractions."""
+    hi, mid, lo = acc
+    r = lo + _bf(mid - lo)
+    return r + _bf(hi + _bf(-r))
+
+
+def network_drift_premixed_split_vjp(t, y, ct, pw3, fc, stim: Stimulus, interp_fn=interp_at,
+                                     acc=None):
+    """VJP of ``network_drift_premixed`` with the three-term weights
+    (``prepare_premixed_split`` output) for a batch y (B, 3P) and output
+    cotangent ct: returns (state cotangent, the bf16 weight-cotangent
+    accumulators with this evaluation added to ``acc``, d iwT). Fold the
+    accumulators with ``split3_fold`` once per ``prepare_premixed_split``;
+    d iwT = ext^T c_cur is float32 (iwT is not split)."""
+    P = fc["bg"].shape[0]
+    fr, frp = fr_and_grad(y[..., :P] - y[..., P : 2 * P])
+    ext = interp_fn(t, stim.t0, stim.dt, stim.table)
+    c_cur = _cot_current(ct[..., :P], fc)
+    x_bar = split3_cotangent(c_cur, pw3["wT_hi"], pw3["wT_mid"], pw3["wT_lo"])
+    return (_state_cot(y, ct, x_bar, frp, fc), split3_accumulate(acc, fr, c_cur),
+            _mm(ext.reshape(-1, ext.shape[-1]).T, c_cur.reshape(-1, P)))

@@ -1,6 +1,13 @@
-"""The lane-batched variable-step SRA1 replay with its gradient (port of
-``sdeint_fused`` in ``columnflow/solvers/fused.py``, the 2-D ``ts_steps``
-mode with ``arg_grads="outer"``).
+"""The fused solvers (ports of ``sdeint_fused`` and ``odeint_dopri5_fused``
+in ``columnflow/solvers/fused.py``).
+
+``odeint_dopri5_fused`` (below, second half): adaptive dopri5 with the
+selection, the dense-output replay and its reverse sweep each one kernel
+(``kernels.network_ode``), specialised to the parity task's deterministic
+drift with ``arg_grads="kernel"``.
+
+``sdeint_fused``: the lane-batched variable-step SRA1 replay with its
+gradient (the 2-D ``ts_steps`` mode with ``arg_grads="outer"``).
 
 The port specialises it to what the parity task's adaptive path integrates:
 ``network_drift_premixed`` with the split2 prepare hook
@@ -14,9 +21,17 @@ all steps outside the kernels, as in the JAX package.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from columnflow_torch.kernels.network_ode import (
+    ODESelectConfig,
+    ode_replay_bwd,
+    ode_replay_fwd,
+    ode_select,
+)
 from columnflow_torch.kernels.network_sde import SIGMA, SDEConsts, replay_bwd, replay_fwd
 from columnflow_torch.models.column import Stimulus
 from columnflow_torch.models.network import (
@@ -128,3 +143,100 @@ def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps, noise_pack,
     stride = truncation_stride(tuple(y0.shape), n, bptt_every)
     spec = (sc, kv.contiguous(), n if n_real is None else int(n_real), stride)
     return _Replay.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
+
+
+# ---------------------------------------------------------------------------
+# Fused adaptive dopri5
+# ---------------------------------------------------------------------------
+
+
+class ODESolverStats(NamedTuple):
+    """The selection's counts (0-dim tensors) and the frozen grid they
+    belong to, so that a caller can replay the same grid elsewhere."""
+
+    naccept: torch.Tensor
+    nreject: torch.Tensor
+    success: torch.Tensor
+    step_times: torch.Tensor
+
+
+def round_max_steps(state_shape, max_steps: int) -> int:
+    """``max_steps`` rounded up to a multiple of the replay chunk the JAX
+    package derives from its VMEM budget for a float32 state of
+    ``state_shape`` (``columnflow/solvers/fused.py:557-566``). The port runs
+    each sweep in one launch and needs the chunk only for this: the rounded
+    value bounds the selection loop and sizes ``step_times``."""
+    state_bytes = 4 * int(np.prod(state_shape))
+    chunk = int(max(4, min(256, (2 << 20) // (11 * state_bytes))))
+    return -(-max_steps // chunk) * chunk
+
+
+class _ODEReplay(torch.autograd.Function):
+    """Forward: ``ode_replay_fwd``; backward: ``ode_replay_bwd``. Gradients
+    reach wT, iwT and y0; the step grid is data."""
+
+    @staticmethod
+    def forward(ctx, wT, iwT, y0, st, spec):
+        sc, kv = spec
+        pw = {"wT": wT.detach().contiguous(), "iwT": iwT.detach().contiguous()}
+        ys, coeffs = ode_replay_fwd(y0.detach().contiguous(), st, pw, sc, kv)
+        ctx.spec, ctx.pw = spec, pw
+        ctx.save_for_backward(ys, st)
+        return coeffs
+
+    @staticmethod
+    def backward(ctx, coeffs_bar):
+        sc, kv = ctx.spec
+        ys, st = ctx.saved_tensors
+        ybar, d_wT, d_iwT = ode_replay_bwd(ys, coeffs_bar.to(torch.float32).contiguous(), st,
+                                           ctx.pw, sc, kv)
+        return d_wT, d_iwT, ybar, None, None
+
+
+def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e-7,
+                        atol: float = 1e-9, dt0: float | None = None, max_steps: int = 2048,
+                        grid=None, return_stats: bool = False):
+    """Adaptive dopri5 of the premixed column network over the batch state
+    y0 (B, 3P) under one shared controller, with dense output at ``ts``:
+    returns ys (len(ts), B, 3P) (and ``ODESolverStats`` with
+    ``return_stats``). ``pw`` = {"wT", "iwT"} (differentiable), ``kv`` (K,
+    B, n_in) the knot values. Gradients are discrete backpropagation
+    through the frozen accepted steps and reach pw and y0.
+
+    ``grid`` = (step_times (M+1,), naccept) skips the selection and replays
+    that frozen grid (tests hand in the JAX package's grid this way)."""
+    ts = torch.as_tensor(ts, dtype=torch.float32, device=y0.device)
+    ts_host = ts.detach().cpu()
+    max_steps = round_max_steps(tuple(y0.shape), max_steps)
+    cfg = ODESelectConfig(float(ts_host[0]), float(ts_host[-1]), rtol, atol, dt0, max_steps)
+    kv = kv.detach().contiguous()
+    if grid is None:
+        step_times, stats = ode_select(
+            y0.detach().contiguous(),
+            {k: v.detach().contiguous() for k, v in pw.items()}, sc, kv, cfg)
+        naccept, nreject, success = stats[0], stats[1], stats[2] > 0
+    else:
+        step_times = torch.as_tensor(grid[0], dtype=torch.float32, device=y0.device)
+        naccept = torch.as_tensor(grid[1], device=y0.device)
+        nreject = torch.zeros_like(naccept)
+        success = step_times[naccept.long()] >= cfg.t_end
+    # The one host read of the solve: the accepted count sizes the replay,
+    # so the sweeps skip the max_steps padding.
+    n = max(int(naccept), 1)
+    st = step_times[:n + 1].contiguous()
+    coeffs = _ODEReplay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv))     # (n, 5, B, 3P)
+
+    # Dense output: Hairer's interpolant of the step that holds each ts.
+    idx = torch.clamp(torch.searchsorted(st, ts, right=True) - 1, 0, n - 1)
+    t0s = st[idx]
+    hs = st[idx + 1] - t0s
+    pos = hs > 0
+    theta = torch.where(pos, (ts - t0s) / torch.where(pos, hs, 1.0), 0.0)
+    r1, r2, r3, r4, r5 = coeffs[idx].unbind(1)
+    th = theta[:, None, None]
+    s1 = 1.0 - th
+    ys = r1 + th * (r2 + s1 * (r3 + th * (r4 + s1 * r5)))
+    ys = torch.cat([y0[None], ys[1:]], dim=0)
+    if return_stats:
+        return ys, ODESolverStats(naccept, nreject, success, step_times)
+    return ys

@@ -1,25 +1,40 @@
-"""4-bit parity classification task (port of ``columnflow/tasks/parity.py``,
-the stochastic-adaptive fused-pass training step).
+"""4-bit parity classification task (port of ``columnflow/tasks/parity.py``:
+the deterministic fused-dopri5 training step and the stochastic-adaptive
+fused-pass one).
 
 A 3-area hierarchical column network learns to output ~20 Hz for even
 parity and ~0 for odd: readout = output-weighted mean L2/3e-family rate of
-the final column over the last 100 grid points. One training step
-integrates the batch through the Ito SDE with adaptive step-doubling SRA1:
-per-lane step-size selection in the selection kernel, one lane-batched
-replay over the frozen grids and its reverse sweep in the replay kernels,
-then the loss (scaled), masked gradients, max-prescaled global norm,
-clipping, a skip on non-finite gradients, Adam and the weight clamps.
+the final column over the last 100 grid points. Two training steps are
+ported, selected as in the JAX package:
 
-The port runs the configuration of the JAX package's flags
-``--stochastic --adaptive --fused --fused-pass --select-bf16 --grad-bf16
---split2`` (the 104-column flagship) and no other: those flags are
-accepted on the command line and select nothing; other modes are queued in
-ROADMAP.md. The Brownian paths come
-from the krng tree, as the JAX package's ``--fused-pass`` path draws them;
-each lane's tree key words are drawn from a ``torch.Generator``.
+- deterministic (the default, ``stochastic=False``): the batch is
+  integrated as one ODE state by adaptive dopri5 at rtol 1e-7 / atol 1e-9
+  (the fused engine's own tolerances) under one shared controller: step-size
+  selection, the dense-output replay and its reverse sweep each one kernel
+  (``solvers.fused.odeint_dopri5_fused``);
+- stochastic (``stochastic=True``, the 104-column flagship's flags
+  ``--stochastic --adaptive --fused --fused-pass --select-bf16 --grad-bf16
+  --split2``): the Ito SDE with adaptive step-doubling SRA1, per-lane
+  selection in the selection kernel, one lane-batched replay over the frozen
+  grids and its reverse sweep (``solvers.sde_adaptive``). The Brownian paths
+  come from the krng tree; each lane's tree key words are drawn from a
+  ``torch.Generator``.
+
+Both end in the loss (scaled), masked gradients, max-prescaled global norm,
+optional clipping, a skip on non-finite (and, unclipped, exploding)
+gradients, Adam and the weight clamps.
 
     python -m columnflow_torch.tasks.parity --smoke                # on the card
     python -m columnflow_torch.tasks.parity --smoke --device cpu
+    python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
+        --fused --fused-pass --select-bf16 --grad-bf16 --split2
+
+Every other combination of the JAX package's flags raises
+``NotImplementedError`` naming its ROADMAP.md item: ``--engine xla`` (the
+unfused ``solvers/dopri.py``), ``--engine fused-split2`` or a deterministic
+``--split2`` (the 104-column deterministic tier), ``--method`` other than
+dopri5 (the other tableaus), a stochastic run with only some of the
+flagship's flags (the XLA selection, the fixed-grid SDE).
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ from columnflow_torch.models.network import (
 )
 from columnflow_torch.ops.interp import step_table_knots
 from columnflow_torch.ops.transfer import compute_firing_rate
+from columnflow_torch.solvers.fused import odeint_dopri5_fused
 from columnflow_torch.solvers.sde_adaptive import PremixedNetworkSDE, sdeint_adaptive_batch
 from columnflow_torch.tasks.wta import linspace
 from columnflow_torch.train.optim import adam, global_norm, mask_grads
@@ -85,7 +101,7 @@ def build_task(cfg: ColumnConfig, generator: torch.Generator, lr: float = 0.1,
 
 
 def sde_model(params, task: ParityTask, stims_raw) -> PremixedNetworkSDE:
-    """The SDE the flagship integrates for a batch of input patterns: the
+    """The system both paths integrate for a batch of input patterns: the
     premixed weights (differentiable), the drift constants and, per lane,
     the knot values of its half-off, half-on stimulus."""
     fc = build_network_fused_consts(task.net, device=stims_raw.device)
@@ -95,24 +111,34 @@ def sde_model(params, task: ParityTask, stims_raw) -> PremixedNetworkSDE:
                               kv.contiguous())
 
 
-def batched_rollout(params, task: ParityTask, stims_raw, lane_words,
+def batched_rollout(params, task: ParityTask, stims_raw, lane_words=None,
                     differentiable: bool = True, adaptive_bptt_every: int | None = None,
-                    grid=None, return_stats: bool = False):
-    """Integrate a batch of input patterns on the flagship path:
-    (B, n_inputs) -> (B, T, 3P), at rtol = atol = 1e-3 with the task's
-    max_steps.
+                    grid=None, return_stats: bool = False, stochastic: bool = False):
+    """Integrate a batch of input patterns: (B, n_inputs) -> (B, T, 3P).
 
-    ``lane_words`` (B, 2): each lane's Brownian tree key words (uint32
-    values in int64). ``grid`` = (step_times, naccept, nreject) replays a
-    given frozen grid instead of selecting one."""
+    Deterministic (default): fused dopri5 over the whole batch state with
+    the task's max_steps, at the fused engine's rtol 1e-7 / atol 1e-9 (the
+    JAX package's fused path passes neither tolerance on either).
+    ``grid`` = (step_times, naccept) replays a given frozen grid.
+
+    ``stochastic``: the flagship path, at rtol = atol = 1e-3. ``lane_words``
+    (B, 2): each lane's Brownian tree key words (uint32 values in int64).
+    ``grid`` = (step_times, naccept, nreject)."""
     dev = stims_raw.device
     B = stims_raw.shape[0]
+    y0 = torch.zeros((B, 3 * task.net.num_pops), device=dev)
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         model = sde_model(params, task, stims_raw)
-        ys, stats = sdeint_adaptive_batch(
-            model, torch.zeros((B, 3 * task.net.num_pops), device=dev), task.ts,
-            torch.as_tensor(lane_words, device=dev), max_steps=task.max_steps,
-            bptt_every=adaptive_bptt_every, return_stats=True, grid=grid)
+        if stochastic:
+            ys, stats = sdeint_adaptive_batch(
+                model, y0, task.ts, torch.as_tensor(lane_words, device=dev),
+                max_steps=task.max_steps, bptt_every=adaptive_bptt_every,
+                return_stats=True, grid=grid)
+        else:
+            ys, stats = odeint_dopri5_fused(model.pw, model.sc, model.kv, y0, task.ts,
+                                            max_steps=task.max_steps, grid=grid,
+                                            return_stats=True)
+            ys = ys.transpose(0, 1)
     return (ys, stats) if return_stats else ys
 
 
@@ -131,22 +157,30 @@ def parity_targets(stims_raw, level: float = 15.0):
     return even.to(torch.float32) * TARGET_EVEN
 
 
-def make_train_step(task: ParityTask, loss_scale: float = 1.0,
+def make_train_step(task: ParityTask, stochastic: bool = False, loss_scale: float = 1.0,
                     bptt_every: int | None = None, clip_grad_norm: float | None = None):
-    """The training step of the JAX package's flags ``use_fused, stochastic,
-    adaptive, fused_pass, select_bf16, grad_bf16, split2`` (the port's only
-    path). ``train_step(stims_raw, lane_words, grid=None)`` updates
-    ``task.params`` in place (unless the update is skipped), leaves the
-    masked, clipped gradients in their ``.grad``, and returns a dict with
-    loss, out, gnorm (tensors), ok (bool) and the selection stats. Reading
-    ``ok`` waits for the device once per step."""
-    params = task.params
+    """The training step. ``stochastic=False``: the JAX package's
+    ``make_train_step(task, use_fused=True)``, deterministic fused dopri5;
+    ``train_step(stims_raw, grid=None)``. ``stochastic=True``: its flags
+    ``use_fused, stochastic, adaptive, fused_pass, select_bf16, grad_bf16,
+    split2``; ``train_step(stims_raw, lane_words, grid=None)``.
 
-    def train_step(stims_raw, lane_words, grid=None):
+    The step updates ``task.params`` in place (unless the update is
+    skipped), leaves the masked, clipped gradients in their ``.grad``, and
+    returns a dict with loss, out, gnorm (tensors), ok (bool) and the
+    selection stats. Reading ``ok`` waits for the device once per step."""
+    params = task.params
+    if bptt_every is not None and not stochastic:
+        raise ValueError("bptt_every truncates the stochastic path's reverse sweep; "
+                         "the deterministic step has no truncation")
+
+    def train_step(stims_raw, lane_words=None, grid=None):
+        if stochastic and lane_words is None:
+            raise ValueError("the stochastic step needs each lane's tree key words")
         task.optimizer.zero_grad(set_to_none=True)
         ys, stats = batched_rollout(params, task, stims_raw, lane_words,
                                     adaptive_bptt_every=bptt_every, grid=grid,
-                                    return_stats=True)
+                                    return_stats=True, stochastic=stochastic)
         out = readout(ys, params, task.net)
         loss = torch.mean(torch.abs(out - parity_targets(stims_raw)))
         (loss * loss_scale).backward()
@@ -179,12 +213,13 @@ def make_train_step(task: ParityTask, loss_scale: float = 1.0,
 def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
                  columns_per_area=(8, 4, 1), n_inputs: int = 4,
                  time_steps: int | None = None, max_steps: int | None = None,
-                 loss_scale: float = 1.0, bptt_every: int | None = None,
-                 clip_grad_norm: float | None = None, smoke: bool = False, device=None):
-    """Training run on the flagship path. Batches and the lanes' tree key
-    words are drawn from a ``torch.Generator`` seeded with ``seed``.
-    ``smoke``: 8 samples, batch 4, and unless given 200 grid points and
-    max_steps 1024 (otherwise TIME_STEPS and 3072).
+                 stochastic: bool = False, loss_scale: float = 1.0,
+                 bptt_every: int | None = None, clip_grad_norm: float | None = None,
+                 smoke: bool = False, device=None):
+    """Training run, deterministic unless ``stochastic``. Batches (and the
+    stochastic path's tree key words) are drawn from a ``torch.Generator``
+    seeded with ``seed``. ``smoke``: 8 samples, batch 4, and unless given
+    200 grid points and max_steps 1024 (otherwise TIME_STEPS and 3072).
     Returns (params, history); the last record holds the accuracy over the
     fixed-position patterns."""
     if smoke:
@@ -196,11 +231,13 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
     task = build_task(ColumnConfig.load(), gen, columns_per_area=columns_per_area,
                       n_inputs=n_inputs, time_steps=time_steps, max_steps=max_steps,
                       device=dev)
-    step = make_train_step(task, loss_scale=loss_scale, bptt_every=bptt_every,
-                           clip_grad_norm=clip_grad_norm)
+    step = make_train_step(task, stochastic=stochastic, loss_scale=loss_scale,
+                           bptt_every=bptt_every, clip_grad_norm=clip_grad_norm)
 
-    def lane_words(n):
-        return torch.randint(0, 2**32, (n, 2), generator=gen, device=dev, dtype=torch.int64)
+    def lane_words(n, g=gen):
+        if not stochastic:
+            return None
+        return torch.randint(0, 2**32, (n, 2), generator=g, device=dev, dtype=torch.int64)
 
     history = []
     for _ in range(nr_samples // batch_size):
@@ -212,15 +249,62 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
                         "nreject": rec["stats"].nreject.tolist()})
     eval_stims = torch.as_tensor(parity_combinations(n_inputs), device=dev)
     eval_gen = torch.Generator(device=dev).manual_seed(1234)
-    words = torch.randint(0, 2**32, (eval_stims.shape[0], 2), generator=eval_gen,
-                          device=dev, dtype=torch.int64)
     with torch.no_grad():
-        ys = batched_rollout(task.params, task, eval_stims, words, differentiable=False)
+        ys = batched_rollout(task.params, task, eval_stims,
+                             lane_words(eval_stims.shape[0], eval_gen),
+                             differentiable=False, stochastic=stochastic)
         out = readout(ys, task.params, task.net)
     targets = parity_targets(eval_stims)
     acc = float(torch.mean(((out > TARGET_EVEN / 2) == (targets > 0)).float()))
     history.append({"acc": acc, "readouts": out.tolist()})
     return task.params, history
+
+
+_FLAGSHIP_FLAGS = ("adaptive", "fused", "fused_pass", "select_bf16", "grad_bf16", "split2")
+
+
+def resolve_mode(args, total_columns: int) -> bool:
+    """Which of the two ported steps the JAX package's flags select: False
+    for the deterministic fused dopri5 step (``--fused`` or ``--engine
+    fused`` alone, or no solver flag below 104 columns, where the JAX
+    package's ``--engine auto`` picks that engine), True for the stochastic
+    flagship (all of its flags). Anything else raises
+    ``NotImplementedError`` naming the ROADMAP.md item that ports it."""
+    if args.method != "dopri5":
+        raise NotImplementedError(
+            f"--method {args.method}: only dopri5 is ported (ROADMAP.md A7: the other "
+            "tableaus and the unfused solvers/dopri.py)")
+    if args.stochastic:
+        missing = [f for f in _FLAGSHIP_FLAGS if not getattr(args, f)]
+        if missing or args.engine not in (None, "auto"):
+            raise NotImplementedError(
+                "the stochastic step is ported with all of --adaptive --fused --fused-pass "
+                "--select-bf16 --grad-bf16 --split2 (missing: "
+                f"{', '.join('--' + f.replace('_', '-') for f in missing) or 'none'}; "
+                f"--engine {args.engine}): the XLA selection is ROADMAP.md A5a, the "
+                "fixed-grid SDE A6")
+        return True
+    if args.engine == "xla":
+        raise NotImplementedError("--engine xla: the unfused solvers/dopri.py is not ported "
+                                  "(ROADMAP.md A7)")
+    auto = args.engine in (None, "auto") and not args.fused
+    if args.engine == "fused-split2" or args.split2 or (auto and total_columns >= 104):
+        why = ""
+        if auto and total_columns >= 104 and not args.split2:
+            why = (f"at {total_columns} columns --engine auto picks the split2 tier or, past "
+                   "312 columns, the XLA engine (--engine fused pins the ported engine): ")
+        raise NotImplementedError(
+            why + "the deterministic split2 tier (--engine fused-split2 / --split2: the "
+            "reverse sweep in emit mode with the outer weight gradients) is not ported "
+            "(ROADMAP.md B8')")
+    stray = [f for f in ("adaptive", "fused_pass", "select_bf16", "grad_bf16")
+             if getattr(args, f)]
+    if stray:
+        raise NotImplementedError(
+            f"--{stray[0].replace('_', '-')} belongs to the stochastic step (add "
+            "--stochastic and the flagship's other flags); the deterministic step takes "
+            "no solver flag (ROADMAP.md A5a)")
+    return False
 
 
 def main(argv=None):
@@ -236,8 +320,14 @@ def main(argv=None):
     for flag in ("fused", "stochastic", "adaptive", "fused-pass", "select-bf16",
                  "grad-bf16", "split2"):
         p.add_argument(f"--{flag}", action="store_true",
-                       help="accepted for the JAX package's command line and "
-                            "ignored: the port runs only this flag's path")
+                       help="the JAX package's solver flag: none (or --fused alone) runs "
+                            "the deterministic fused dopri5 step, all seven the stochastic "
+                            "flagship; any other combination raises NotImplementedError")
+    p.add_argument("--engine", choices=("auto", "fused", "xla", "fused-split2"), default=None,
+                   help="deterministic engine: auto and fused are the ported fused dopri5; "
+                        "xla and fused-split2 raise NotImplementedError")
+    p.add_argument("--method", default="dopri5",
+                   help="only dopri5 is ported; anything else raises NotImplementedError")
     p.add_argument("--bptt-every", type=int, default=None)
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--clip-grad-norm", type=float, default=None)
@@ -253,7 +343,9 @@ def main(argv=None):
            else tuple(int(x) for x in args.columns_per_area.split(",")))
     _, hist = train_parity(
         nr_samples=args.samples, batch_size=args.batch_size, seed=args.seed,
-        columns_per_area=cpa, max_steps=args.max_steps, loss_scale=args.loss_scale,
+        columns_per_area=cpa, max_steps=args.max_steps,
+        stochastic=resolve_mode(args, sum(cpa)),
+        loss_scale=args.loss_scale,
         bptt_every=args.bptt_every, clip_grad_norm=args.clip_grad_norm, smoke=args.smoke,
         device=args.device)
     final = next(h for h in reversed(hist) if "loss" in h)

@@ -1,5 +1,6 @@
-"""The CUDA kernels of ``columnflow_torch.kernels.column_step`` and
-``columnflow_torch.kernels.network_sde`` against their plain PyTorch
+"""The CUDA kernels of ``columnflow_torch.kernels.column_step``,
+``columnflow_torch.kernels.network_sde`` and
+``columnflow_torch.kernels.network_ode`` against their plain PyTorch
 versions, on the card.
 
 These tests need a CUDA device and skip without one. The chip has no JAX, so
@@ -26,6 +27,13 @@ half steps: 1e-4 of each component's largest magnitude. Reverse sweep:
 each step's seed and the carry rel L2 1e-4 (the cotangents pass through
 bf16 roundings, and a rate an ulp apart can round one element a bf16 ulp,
 2^-8, apart).
+
+Column-network dopri5 kernels, at the reference width (13 columns, P = 104,
+batch 4 under one controller, 200 grid points). Kernel and plain version sum
+every product exactly and round every float32 operation alike, so they are
+held bit for bit: the whole selection (accepted times and counts), single
+attempts, the replay's states and dense rows, the reverse sweep's state and
+weight cotangents.
 """
 
 import pytest
@@ -34,6 +42,7 @@ import torch
 from columnflow_torch.config import ColumnConfig
 from columnflow_torch.data import make_parity_batch, sample_wta_mus, wta_stim_three_phases
 from columnflow_torch.kernels import column_step as cs
+from columnflow_torch.kernels import network_ode as no
 from columnflow_torch.kernels import network_sde as ns
 from columnflow_torch.models import network as nw
 from columnflow_torch.models.wta import build_wta
@@ -332,7 +341,7 @@ def _parity_step(dev, cpa, grid=None, params=None, guard=None):
     stims = torch.tensor([[0.0, 0.0, 0.0, 15.0], [0.0, 0.0, 15.0, 15.0],
                           [0.0, 15.0, 15.0, 15.0], [15.0, 15.0, 15.0, 15.0]], device=dev)
     words = torch.tensor([[1, 2], [3, 4], [5, 6], [7, 2**32 - 1]], device=dev)
-    rec = parity.make_train_step(task, **STEP)(stims, words, grid=grid)
+    rec = parity.make_train_step(task, stochastic=True, **STEP)(stims, words, grid=grid)
     grads = {k: p.grad.detach().cpu() for k, p in task.params.items()}
     return rec, grads, params0, task
 
@@ -362,5 +371,125 @@ def test_parity_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     for name in ("_select_plain", "_attempt_plain", "_replay_fwd_plain", "_replay_bwd_plain"):
         monkeypatch.setattr(ns, name, boom)
     rec, _, _, _ = _parity_step(dev, (2, 1))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The dopri5 kernels (deterministic parity step)
+# ---------------------------------------------------------------------------
+
+ODE_STIMS = [[0.0, 0.0, 0.0, 15.0], [0.0, 0.0, 15.0, 15.0], [0.0, 15.0, 15.0, 15.0],
+             [15.0, 15.0, 15.0, 15.0]]
+
+
+@pytest.fixture
+def ode(dev):
+    from columnflow_torch.solvers.fused import round_max_steps
+
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=(8, 4, 1), n_inputs=4, time_steps=200,
+                             max_steps=1024, device=dev)
+    stims = torch.tensor(ODE_STIMS, device=dev)
+    model = parity.sde_model(task.params, task, stims)
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    P = task.net.num_pops
+    cfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]),
+                             max_steps=round_max_steps((4, 3 * P), 1024))
+    return dict(task=task, stims=stims, pw=pw, sc=model.sc, kv=model.kv.contiguous(), P=P,
+                cfg=cfg, w3=no._w3(pw, model.sc), y0=torch.zeros(4, 3 * P, device=dev))
+
+
+def test_ode_select_kernel_equals_plain(ode):
+    d = ode
+    before = no.LAUNCHES["ode_select"]
+    st, stats = no.ode_select(d["y0"], d["pw"], d["sc"], d["kv"], d["cfg"])
+    st_p, stats_p = no._ode_select_plain(d["y0"], d["w3"], d["sc"], d["kv"], d["cfg"])
+    torch.cuda.synchronize()
+    assert no.LAUNCHES["ode_select"] == before + 1
+    assert int(stats[2]) == 1 and stats.tolist() == stats_p.tolist()
+    assert torch.equal(st, st_p)
+    assert bool((st[int(stats[0]):] == d["cfg"].t_end).all())
+
+
+def test_ode_select_with_a_given_first_step_and_exhaustion(ode):
+    d = ode
+    cfg = d["cfg"]._replace(dt0=1e-5, max_steps=38)  # a first step small enough to be accepted
+    st, stats = no.ode_select(d["y0"], d["pw"], d["sc"], d["kv"], cfg)
+    st_p, stats_p = no._ode_select_plain(d["y0"], d["w3"], d["sc"], d["kv"], cfg)
+    torch.cuda.synchronize()
+    assert stats.tolist() == stats_p.tolist() and int(stats[0]) == 38 and int(stats[2]) == 0
+    assert torch.equal(st, st_p) and float(st[1]) == float(torch.tensor(1e-5))
+
+
+def test_ode_replay_kernels_equal_plain(ode):
+    d = ode
+    st, stats = no.ode_select(d["y0"], d["pw"], d["sc"], d["kv"], d["cfg"])
+    n = min(int(stats[0]), 96)
+    stn = st[:n + 1].contiguous()
+    ys, co = no.ode_replay_fwd(d["y0"], stn, d["pw"], d["sc"], d["kv"])
+    ys_p, co_p = no._ode_replay_fwd_plain(d["y0"], stn, d["w3"], d["sc"], d["kv"])
+    assert torch.isfinite(co).all() and torch.equal(ys, ys_p) and torch.equal(co, co_p)
+    gen = torch.Generator(device=ys.device).manual_seed(1)
+    cobar = torch.randn(co.shape, generator=gen, device=ys.device)
+    got = no.ode_replay_bwd(ys, cobar, stn, d["pw"], d["sc"], d["kv"])
+    want = no._ode_replay_bwd_plain(ys, cobar, stn, d["w3"], d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
+        assert torch.isfinite(g).all() and torch.equal(g, w), name
+    # An empty grid: nothing to sweep.
+    ybar, d_wT, d_iwT = no.ode_replay_bwd(ys[:0], cobar[:0], st[:1].contiguous(), d["pw"],
+                                          d["sc"], d["kv"])
+    assert not bool(ybar.any()) and not bool(d_wT.any()) and not bool(d_iwT.any())
+
+
+def test_ode_wrappers_raise_on_a_batch_too_large_for_one_block(ode):
+    d = ode
+    B = 16  # ten (B, 312) states and the split weights exceed a block's shared memory
+    kv = d["kv"][:, :1].expand(-1, B, -1).contiguous()
+    with pytest.raises(RuntimeError, match="ode_select"):
+        no.ode_select(torch.zeros(B, 3 * d["P"], device=kv.device), d["pw"], d["sc"], kv,
+                      d["cfg"])
+
+
+def _ode_step(dev, grid=None, params=None):
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=(8, 4, 1), n_inputs=4, time_steps=100,
+                             max_steps=1024, device=dev)
+    if params is not None:
+        with torch.no_grad():
+            for k, p in task.params.items():
+                p.copy_(params[k])
+    params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+    rec = parity.make_train_step(task)(torch.tensor(ODE_STIMS, device=dev), grid=grid)
+    return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}, params0, task
+
+
+def test_deterministic_parity_step_on_cuda_matches_cpu(dev):
+    before = dict(no.LAUNCHES)
+    rec, grads, params0, task = _ode_step(dev)
+    torch.cuda.synchronize()
+    for k in ("ode_select", "ode_replay_fwd", "ode_replay_bwd"):
+        assert no.LAUNCHES[k] == before[k] + 1, k
+    st = rec["stats"]
+    assert bool(st.success) and bool(torch.isfinite(rec["loss"]))
+    for k, g in grads.items():
+        assert bool((g[~task.grad_mask[k].bool().cpu()] == 0).all()), k
+    rec_c, grads_c, _, _ = _ode_step(torch.device("cpu"),
+                                     grid=(st.step_times.cpu(), int(st.naccept)),
+                                     params=params0)
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        assert float((g - grads_c[k]).norm()) <= 1e-3 * float(grads_c[k].norm()) + 1e-30, k
+
+
+def test_ode_kernels_never_reach_the_plain_versions(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_ode_select_plain", "_ode_attempt_plain", "_ode_replay_fwd_plain",
+                 "_ode_replay_bwd_plain"):
+        monkeypatch.setattr(no, name, boom)
+    rec, _, _, _ = _ode_step(dev)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))

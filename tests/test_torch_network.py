@@ -12,7 +12,12 @@ singularity; split2 within 2^-15 of that scale: its two-term split of the
 rates keeps ~16 bits, so a rate an ulp away can round its second term one
 bf16 ulp apart (measured 1.03e-5 here). The split2 step's state VJP: rel L2 1e-5 (it keeps the bf16
 rounding points of ``jax.vjp``; the plain float32 product would miss by
-~3e-3). The gradbf16 step's weight cotangent: rel L2 1e-3.
+~3e-3). The gradbf16 step's weight cotangent: rel L2 1e-3. The three-term
+split's VJP (the deterministic fused step's): its rounding points against
+``jax.vjp`` of ``matmul_split`` through ``split_f32`` on bf16-representable
+cotangent inputs, equal; in float64 the same formulas are the plain
+products (rel 1e-14). Against ``jax.vjp`` of the whole drift and of the
+dopri5 step: tests/test_torch_ode_fused.py.
 """
 
 import jax
@@ -211,3 +216,39 @@ def test_gradbf16_step_weight_cotangent_matches_jax(nets):
     for got, k in ((d_wT, "wT"), (d_iwT, "iwT")):
         w = np.asarray(want[k])
         assert np.linalg.norm(got.numpy() - w) / np.linalg.norm(w) < 1e-3, k
+
+
+def test_split3_vjp_rounding_points_equal_jax():
+    """``matmul_split`` through ``split_f32`` has no transcendental: with the
+    same float32 inputs both sides round every cotangent alike, so the
+    port's three-term VJP equals ``jax.vjp`` bit for bit."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(0, 60, (4, 24)).astype(np.float32)
+    w = (rng.normal(size=(24, 24)) * 3).astype(np.float32)
+    c = rng.normal(size=(4, 24)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x_, w_: jn.matmul_split(x_, *jn.split_f32(w_)), jnp.asarray(x),
+                     jnp.asarray(w))
+    want_x, want_w = vjp(jnp.asarray(c))
+    hi, mid, lo = tn.split_f32(torch.as_tensor(w))
+    got_x = tn.split3_cotangent(torch.as_tensor(c), hi, mid, lo)
+    got_w = tn.split3_fold(tn.split3_accumulate(None, torch.as_tensor(x), torch.as_tensor(c)))
+    np.testing.assert_array_equal(got_x.numpy(), np.asarray(want_x))
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
+    # Two products sharing one split: the cotangents add in bf16 before the fold.
+    _, vjp2 = jax.vjp(lambda w_: (lambda s: jn.matmul_split(jnp.asarray(x), *s)
+                                  + jn.matmul_split(jnp.asarray(x[::-1]), *s))(jn.split_f32(w_)),
+                      jnp.asarray(w))
+    acc = tn.split3_accumulate(None, torch.as_tensor(x[::-1].copy()), torch.as_tensor(c))
+    acc = tn.split3_accumulate(acc, torch.as_tensor(x), torch.as_tensor(c))
+    np.testing.assert_array_equal(tn.split3_fold(acc).numpy(), np.asarray(vjp2(jnp.asarray(c))[0]))
+
+
+def test_split3_in_float64_is_the_plain_product():
+    rng = np.random.default_rng(8)
+    x, w, c = (torch.as_tensor(rng.normal(size=s)) for s in ((4, 24), (24, 24), (4, 24)))
+    hi, mid, lo = tn.split_f32(w)
+    assert hi is w and not bool(mid.any()) and not bool(lo.any())
+    torch.testing.assert_close(tn.matmul_split(x, hi, mid, lo), x @ w, rtol=1e-14, atol=0)
+    torch.testing.assert_close(tn.split3_cotangent(c, hi, mid, lo), c @ w.T, rtol=1e-14, atol=0)
+    torch.testing.assert_close(tn.split3_fold(tn.split3_accumulate(None, x, c)), x.T @ c,
+                               rtol=1e-14, atol=0)

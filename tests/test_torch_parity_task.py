@@ -1,5 +1,8 @@
 """Port parity: two training steps of ``columnflow_torch.tasks.parity``
-against ``columnflow.tasks.parity.make_train_step`` with the flagship flags
+against ``columnflow.tasks.parity.make_train_step``, on each of the two
+ported paths, and the command line that selects between them.
+
+Stochastic: the flagship flags
 (stochastic, adaptive, fused, fused_pass, select_bf16, grad_bf16, split2,
 bptt_every 32, clip_grad_norm 1.0, loss_scale 1e-6), at the JAX tests'
 size: columns (2, 1), 2 inputs, 60 grid points, max_steps 512, batch 2.
@@ -11,6 +14,22 @@ JAX's lane keys; before each step it takes JAX's parameters
 1e-3, the skip decision equal, updated parameters abs 1e-5 on entries
 whose JAX gradient exceeds 1e-3 of its group's largest (Adam's first step
 is +-lr sign(g), so entries with near-zero gradients may flip sign).
+
+Deterministic: ``make_train_step(task, use_fused=True)`` (fused dopri5, the
+default of both command lines), batch 4, the same size. The port replays
+the grid JAX's selection kernel freezes for the same parameters
+(``convert.frozen_grid_from_jax``; the selection itself is held in
+tests/test_torch_ode_fused.py). Tolerances: loss rel 1e-5, the skip decision
+equal, grad norm rel 1e-2: the reverse sweep rounds every transposed
+product to bf16 on both sides, which leaves either side's own gradient
+determined to ~1e-2 (measured there). Updated parameters: abs 1e-5 on entries
+whose JAX gradient exceeds 1e-5 and 1e-2 of its group's largest (18
+entries over the two steps). This network's gradients are small (norm
+~1e-4), and below ~1e-6 Adam's first step lr g / (|g| + 1e-8) leaves the
+sign regime and passes the gradient's ~1e-2 relative noise on to the
+update (measured up to 7.9e-3 on such entries). The second step's update
+lr m / (sqrt(v) + 1e-8) depends on the ratio of the two steps' gradients, so
+the same noise moves it by up to 5.1e-5 (measured); it is held to 2e-4.
 """
 
 import os
@@ -33,7 +52,7 @@ from columnflow.solvers import sde_adaptive as jsa
 from columnflow.tasks import parity as jpt
 from columnflow.train import mask_grads as j_mask_grads
 from columnflow_torch.config import ColumnConfig
-from columnflow_torch.convert import lane_key_words, network_from_jax
+from columnflow_torch.convert import frozen_grid_from_jax, lane_key_words, network_from_jax
 from columnflow_torch.tasks import parity as tpt
 
 REPO = Path(__file__).resolve().parent.parent
@@ -112,7 +131,7 @@ def test_two_train_steps_match_jax(jax_run):
     task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(0),
                           columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
                           device="cpu")
-    step = tpt.make_train_step(task, **STEP)
+    step = tpt.make_train_step(task, stochastic=True, **STEP)
     masks = {k: v.bool() for k, v in task.grad_mask.items()}
     for i, rec in enumerate(records):
         params, _ = network_from_jax(rec["before"], jtask.net)
@@ -137,7 +156,7 @@ def test_port_step_with_its_own_selection_is_finite():
     task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(2),
                           columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
                           device="cpu")
-    step = tpt.make_train_step(task, **STEP)
+    step = tpt.make_train_step(task, stochastic=True, **STEP)
     stims = torch.tensor([[0.0, 15.0], [15.0, 15.0]])
     w0 = {k: p.detach().clone() for k, p in task.params.items()}
     out = step(stims, torch.tensor([[1, 2], [3, 2**32 - 1]]))
@@ -151,8 +170,8 @@ def test_port_step_with_its_own_selection_is_finite():
 
 def test_train_parity_on_cpu_returns_finite_history():
     params, hist = tpt.train_parity(smoke=True, device="cpu", columns_per_area=(2, 1),
-                                    n_inputs=2, time_steps=T, max_steps=M, bptt_every=32,
-                                    clip_grad_norm=1.0, loss_scale=1e-6)
+                                    n_inputs=2, time_steps=T, max_steps=M, stochastic=True,
+                                    bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
     assert len(hist) == 3 and "acc" in hist[-1]
     assert all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist[:-1])
     assert all(torch.isfinite(p).all() for p in params.values())
@@ -171,9 +190,14 @@ def test_unported_modes_raise():
     task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(0),
                           columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
                           device="cpu")
-    # The flagship's flags select nothing in the port: no other mode exists.
+    # One selector, ``stochastic``; the flagship's other flags are no
+    # arguments of the port's step.
     with pytest.raises(TypeError, match="select_bf16"):
         tpt.make_train_step(task, select_bf16=False)
+    with pytest.raises(ValueError, match="bptt_every"):
+        tpt.make_train_step(task, bptt_every=32)
+    with pytest.raises(ValueError, match="tree key words"):
+        tpt.make_train_step(task, stochastic=True)(torch.zeros(2, 2))
     with pytest.raises(NotImplementedError, match="random_fan_in"):
         build_column_network(ColumnConfig.load(), torch.Generator(), random_fan_in=True)
     with pytest.raises(TypeError, match="brownian"):
@@ -184,7 +208,9 @@ def test_new_modules_import_neither_jax_nor_columnflow():
     modules = ["columnflow_torch.models.network", "columnflow_torch.solvers.krng",
                "columnflow_torch.solvers.sde_adaptive", "columnflow_torch.solvers.fused",
                "columnflow_torch.kernels.network_sde", "columnflow_torch.tasks.parity",
-               "columnflow_torch.ops.arith"]
+               "columnflow_torch.ops.arith", "columnflow_torch.solvers.rk",
+               "columnflow_torch.kernels.network_ode", "columnflow_torch.kernels._build",
+               "columnflow_torch.convert"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -195,3 +221,141 @@ def test_new_modules_import_neither_jax_nor_columnflow():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# ---------------------------------------------------------------------------
+# The deterministic step and the command line
+# ---------------------------------------------------------------------------
+
+DET_STIMS = np.array([[0.0, 15.0], [15.0, 0.0], [15.0, 15.0], [0.0, 0.0]], np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_det_run():
+    from test_torch_ode_fused import jax_select
+
+    task = jpt.build_task(JaxConfig.load(), jax.random.PRNGKey(0), columns_per_area=(2, 1),
+                          n_inputs=2, time_steps=T, max_steps=M)
+    step = jpt.make_train_step(task, use_fused=True)
+    stims = jnp.asarray(DET_STIMS)
+
+    @jax.jit
+    def grads_of(p):
+        def loss(p):
+            ys = jpt.batched_rollout(p, task, stims, use_fused=True)
+            return jnp.mean(jnp.abs(jpt.readout(ys, p, task.net) - jpt.parity_targets(stims)))
+
+        return j_mask_grads(jax.grad(loss)(p), task.grad_mask)
+
+    params = jax.tree_util.tree_map(jnp.array, task.params)
+    opt_state = task.optimizer.init(params)
+    records = []
+    for _ in range(2):
+        before = {k: np.array(v) for k, v in params.items()}
+        grid = frozen_grid_from_jax(*jax_select(task, params))
+        grads = {k: np.asarray(v) for k, v in grads_of(params).items()}
+        params, opt_state, loss, out, gnorm, ok = step(params, opt_state, stims)
+        records.append(dict(before=before, grid=grid, grads=grads, loss=float(loss),
+                            gnorm=float(gnorm), ok=bool(ok),
+                            after={k: np.array(v) for k, v in params.items()}))
+    return task, records
+
+
+def test_two_deterministic_train_steps_match_jax(jax_det_run):
+    jtask, records = jax_det_run
+    task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(0),
+                          columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
+                          device="cpu")
+    step = tpt.make_train_step(task)
+    masks = {k: v.bool() for k, v in task.grad_mask.items()}
+    held = 0
+    for i, rec in enumerate(records):
+        params, _ = network_from_jax(rec["before"], jtask.net)
+        with torch.no_grad():
+            for k, p in task.params.items():
+                p.copy_(params[k])
+        out = step(torch.as_tensor(DET_STIMS), grid=rec["grid"])
+        assert float(out["loss"]) == pytest.approx(rec["loss"], rel=1e-5), i
+        assert float(out["gnorm"]) == pytest.approx(rec["gnorm"], rel=1e-2), i
+        assert out["ok"] == rec["ok"]
+        assert int(out["stats"].naccept) == rec["grid"][1] and bool(out["stats"].success)
+        for k, p in task.params.items():
+            g = p.grad
+            assert torch.isfinite(g).all()
+            assert bool((g[~masks[k]] == 0).all()), k
+            gj = np.abs(rec["grads"][k])
+            big = gj > max(1e-2 * gj.max(), 1e-5)
+            held += int(big.sum())
+            np.testing.assert_allclose(p.detach().numpy()[big], rec["after"][k][big],
+                                       atol=(1e-5, 2e-4)[i], err_msg=f"step {i} {k}")
+    assert held >= 8  # entries in Adam's sign regime, held to 1e-5
+
+
+def test_deterministic_step_with_its_own_selection():
+    task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(2),
+                          columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
+                          device="cpu")
+    w0 = {k: p.detach().clone() for k, p in task.params.items()}
+    out = tpt.make_train_step(task)(torch.as_tensor(DET_STIMS))
+    assert np.isfinite(float(out["loss"])) and out["ok"]
+    stats = out["stats"]
+    assert bool(stats.success) and 0 < int(stats.naccept) <= 660
+    assert tuple(stats.step_times.shape) == (661,)
+    for k, p in task.params.items():
+        off = ~task.grad_mask[k].bool()
+        assert bool((p.grad[off] == 0).all()), k
+        assert torch.equal(p.detach()[off], w0[k][off]), k
+
+
+def test_train_parity_deterministic_on_cpu_returns_finite_history():
+    params, hist = tpt.train_parity(smoke=True, device="cpu", columns_per_area=(2, 1),
+                                    n_inputs=2, time_steps=T, max_steps=M)
+    assert len(hist) == 3 and "acc" in hist[-1]
+    assert all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist[:-1])
+    assert all(isinstance(h["naccept"], int) for h in hist[:-1])
+    assert all(torch.isfinite(p).all() for p in params.values())
+
+
+FLAGSHIP_ARGV = ["--stochastic", "--adaptive", "--fused", "--fused-pass", "--select-bf16",
+                 "--grad-bf16", "--split2"]
+
+
+def _parse(argv):
+    """The namespace ``main`` hands ``resolve_mode`` for a command line."""
+    seen = {}
+    orig = tpt.train_parity
+    tpt.train_parity = lambda **kw: (seen.update(kw), ({}, [{"loss": 0.0}, {"acc": 0.0}]))[1]
+    try:
+        tpt.main(argv)
+    finally:
+        tpt.train_parity = orig
+    return seen
+
+
+@pytest.mark.parametrize("argv,stochastic", [
+    ([], False), (["--fused"], False), (["--engine", "fused"], False),
+    (["--engine", "auto"], False),
+    (["--engine", "fused", "--columns-per-area", "64,32,8"], False),
+    (FLAGSHIP_ARGV, True), (FLAGSHIP_ARGV + ["--columns-per-area", "64,32,8"], True)])
+def test_command_line_selects_the_step(argv, stochastic, capsys):
+    seen = _parse(argv + ["--smoke", "--device", "cpu"])
+    assert seen["stochastic"] is stochastic and seen["smoke"] and seen["device"] == "cpu"
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--split2"], "B8'"), (["--engine", "fused-split2"], "B8'"),
+    (["--columns-per-area", "64,32,8"], "B8'"),
+    (["--engine", "xla"], "A7"), (["--method", "tsit5"], "A7"),
+    (["--stochastic"], "A5a"), (["--stochastic", "--adaptive", "--fused"], "A5a"),
+    (FLAGSHIP_ARGV[:-1], "A5a"), (["--select-bf16"], "A5a"), (["--fused-pass", "--fused"], "A5a")])
+def test_unported_command_lines_raise(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        _parse(argv + ["--smoke", "--device", "cpu"])
+
+
+def test_command_line_has_no_tolerance_options():
+    # The fused path runs 1e-7 / 1e-9 whatever the task says, as the JAX
+    # package's does; the port offers no option that would be ignored.
+    for flag in ("--rtol", "--atol"):
+        with pytest.raises(SystemExit):
+            tpt.main([flag, "1e-5", "--smoke", "--device", "cpu"])
