@@ -49,10 +49,12 @@ _SIGNATURES = {
         "cf_sde_replay_bwd": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 16,
     },
     "network_ode": {
-        "cf_ode_select": [_I, _I, _I, _I, _P, _P, _I, _I] + [_P] * 9,
-        "cf_ode_attempt": [_I, _I, _I, _I, _P, _P] + [_P] * 13,
         "cf_ode_replay_fwd": [_I, _I, _I, _I, _P, _I] + [_P] * 10,
         "cf_ode_replay_bwd": [_I, _I, _I, _I, _P, _I] + [_P] * 13,
+        "cf_ode_select": [_I, _I, _I, _I, _P, _P, _I, _I] + [_P] * 12,
+        "cf_ode_attempt": [_I, _I, _I, _I, _P, _P] + [_P] * 16,
+        "cf_ode_replay_fwd_split2": [_I, _I, _I, _I, _P, _I] + [_P] * 12,
+        "cf_ode_replay_bwd_emit": [_I, _I, _I, _I, _P, _I] + [_P] * 15,
     },
 }
 

@@ -1,46 +1,55 @@
 // Column-network dopri5 kernels for Hopper (sm_90a): the adaptive step-size
 // selection, the dense-output replay over the frozen grid, and the replay's
-// reverse sweep with the weight cotangents accumulated in the kernel. Plain
-// C entry points, loaded with ctypes by columnflow_torch/kernels/_build.py;
-// each returns cudaGetLastError().
+// reverse sweep. Plain C entry points, loaded with ctypes by
+// columnflow_torch/kernels/_build.py; each returns cudaGetLastError().
 //
 // Replaces (columnflow/solvers/fused.py, the kernels of odeint_dopri5_fused):
-//   cf_ode_select      <- _make_adaptive_kernel: Hairer's initial step, the
-//                         whole accept/reject while-loop, the accepted times
-//   cf_ode_attempt     <- the same body, one controller attempt (a second
-//                         entry point, for testing the body)
-//   cf_ode_replay_fwd  <- _make_replay_chunk_kernel: the six-stage step over
-//                         the frozen grid, step-start states and CONTD5 rows
-//   cf_ode_replay_bwd  <- _make_bwd_chunk_kernel, kernel mode: the VJP of the
-//                         step and its dense rows w.r.t. state, wT and iwT
+//   cf_ode_select             <- _make_adaptive_kernel: Hairer's initial step,
+//                                the whole accept/reject while-loop, the
+//                                accepted times, on the three-term split (the
+//                                f32-exact engine's drift, and the split2
+//                                tier's select_func), at any width
+//   cf_ode_attempt            <- the same body, one controller attempt (a
+//                                second entry point, for testing the body)
+//   cf_ode_replay_fwd         <- _make_replay_chunk_kernel: the six-stage step
+//                                over the frozen grid, step-start states and
+//                                CONTD5 rows, three-term split
+//   cf_ode_replay_bwd         <- _make_bwd_chunk_kernel, kernel mode: the VJP of
+//                                the step and its dense rows w.r.t. state, wT
+//                                and iwT, three-term split
+//   cf_ode_replay_fwd_split2  <- _make_replay_chunk_kernel with
+//                                prepare_premixed_split2 (the fused-split2 tier)
+//   cf_ode_replay_bwd_emit    <- _make_bwd_chunk_kernel(emit_steps=True,
+//                                diff_idx=()): the state cotangent alone and
+//                                each step's output cotangent, two-term split
 // The JAX kernels trace any drift; these are written for the premixed
-// column-network drift with a knot stimulus and the three-term bf16 split of
-// the recurrent matrix (prepare_premixed_split / matmul_split), which each
-// kernel computes from the float32 wT into shared memory when it starts, as
-// the JAX kernels run their prepare hook inside.
+// column-network drift with a knot stimulus and a bf16 split of the
+// recurrent matrix: the three-term one (prepare_premixed_split /
+// matmul_split) or the two-term one (prepare_premixed_split2 /
+// matmul_split2).
 //
 // Design. These are serial chains: ~2-3 * 10^3 steps of 6-7 drift
-// evaluations, each one (B, P) x (P, P) product in six bf16 terms, and every
-// step waits for the one before. The work per step is microseconds of the
-// card's peak. What this first design does:
-//  - The selection has ONE controller for the whole (B, 3P) state (the error
-//    ratio is an RMS over all lanes), so its lanes cannot run as independent
-//    blocks. It runs as one block that holds every lane: a thread per (lane,
-//    column) in the products, a thread per element elsewhere. At the parity
-//    network's P = 104, B = 4 that is 416 busy threads, the three bf16
-//    matrices (65 KB) and ten batch states (50 KB) in shared memory. A
-//    cluster of one block per lane with the norm reduced through distributed
-//    shared memory would spread the products over B SMs; it is later work,
-//    and the one block keeps the norm's sum order trivially fixed.
-//  - The reverse sweep also runs the batch in one block, for another reason:
-//    jax.vjp rounds each product's weight cotangent x_term^T c to bf16 AFTER
-//    contracting it over the batch, so per-lane partial sums rounded one by
-//    one would be another function. A thread owns its (i, j) entries of the
-//    step's three bf16 accumulators and of the float32 sum over steps, so
-//    their sum order is fixed and no atomics are needed.
-//  - The replay's lanes are independent given the grid: one block per lane.
-// Shared memory is requested with cudaFuncSetAttribute; a batch too large
-// for one block's 227 KB makes that call fail, and the wrapper raises.
+// evaluations, each one (B, P) x (P, P) product in six or three bf16 terms,
+// and every step waits for the one before. The work per step is
+// microseconds of the card's peak. Two designs:
+//  - The f32-exact engine's replay and reverse sweep at the reference width
+//    (P = 104): one block per lane (replay) or for the batch (sweep), the
+//    three bf16 matrices split from the float32 wT into shared memory when
+//    the kernel starts. The reverse sweep runs the batch in one block
+//    because jax.vjp rounds each product's weight cotangent x_term^T c to
+//    bf16 AFTER contracting it over the batch, so per-lane partial sums
+//    rounded one by one would be another function. A thread owns its (i, j)
+//    entries of the step's three bf16 accumulators and of the float32 sum
+//    over steps, so their sum order is fixed and no atomics are needed.
+//    Shared memory is requested with cudaFuncSetAttribute; a batch too large
+//    for one block's 227 KB makes that call fail, and the wrapper raises.
+//  - The selection (both tiers) and the split2 tier's replay and emit-mode
+//    sweep: a team of blocks (one thread-block cluster) per lane, or for
+//    the batch in the selection, the weights read from L2, the states in
+//    global memory (the second half of this file says how). The selection
+//    has ONE controller for the whole (B, 3P) state (the error ratio is an
+//    RMS over all lanes), so its team holds every lane and reduces the norm
+//    over its blocks in a fixed order.
 //
 // Precision: as network_sde.cu. float32 elementwise arithmetic with
 // full-precision expf/tanhf/logf/sqrtf and IEEE division, compiled with
@@ -54,6 +63,8 @@
 // three-term split").
 
 #include "network_drift.cuh"
+
+#include <cooperative_groups.h>
 
 namespace {
 
@@ -277,11 +288,6 @@ __device__ __forceinline__ float weighted(const float* w, float h, float* const*
   return v;
 }
 
-// Root mean square over N values whose squares each thread summed into v.
-__device__ __forceinline__ float rms_of(double v, int N, double* red) {
-  return sqrtf((float)block_sum(v, red) / (float)N);
-}
-
 struct Carve {
   float* p;
   __device__ float* take(int nfloat) {
@@ -337,7 +343,7 @@ size_t setup_floats(int P, int n_in, int nb) {
 }
 
 // ---------------------------------------------------------------------------
-// The selection
+// The step's state vectors and the I controller
 // ---------------------------------------------------------------------------
 
 struct SelBuf {
@@ -347,56 +353,10 @@ struct SelBuf {
   float* y1;           // the fifth-order solution
 };
 
-// One attempt from (t, u.y, u.k[0]) with the step h (already clipped to the
-// horizon): fills u.k[1..6] and u.y1, returns the error ratio.
-__device__ float attempt(const Net& n, const Sel& sel, int N, float t, float h, const SelBuf& u,
-                         const W3& w, const Scr& s) {
-  for (int i = 1; i < kStages; ++i) {
-    float* dst = i == kStages - 1 ? u.y1 : u.ys;  // stage 6's state is y1 (row 6 of a is b)
-    stage_state(N, i, h, u.y, u.k, dst);
-    drift3(n, 0, n.B, t + kC[i] * h, dst, u.k[i], w, s);
-  }
-  double acc = 0.0;
-  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) {
-    const float err = weighted(kBErr, h, u.k, idx);
-    const float q = err / (sel.atol + sel.rtol * fmaxf(fabsf(u.y[idx]), fabsf(u.y1[idx])));
-    acc += (double)(q * q);
-  }
-  return rms_of(acc, N, s.red);
-}
-
 __device__ __forceinline__ float next_step(float h, float ratio) {
   float f = 0.9f * expf((float)(-1.0 / 5) * logf(ratio));
   if (f == f) f = fminf(fmaxf(f, 0.2f), 10.0f);
   return h * f;
-}
-
-// Hairer's starting step from (t0, u.y, u.k[0]); uses u.ys and u.k[1].
-__device__ float initial_step(const Net& n, const Sel& sel, int N, float t0, const SelBuf& u,
-                              const W3& w, const Scr& s) {
-  double a0 = 0.0, a1 = 0.0;
-  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) {
-    const float scale = sel.atol + sel.rtol * fabsf(u.y[idx]);
-    const float q0 = u.y[idx] / scale, q1 = u.k[0][idx] / scale;
-    a0 += (double)(q0 * q0);
-    a1 += (double)(q1 * q1);
-  }
-  const float d0 = rms_of(a0, N, s.red), d1 = rms_of(a1, N, s.red);
-  const float h0 = (d0 < 1e-5f || d1 < 1e-5f) ? 1e-6f : (0.01f * d0) / d1;
-  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) u.ys[idx] = u.y[idx] + h0 * u.k[0][idx];
-  __syncthreads();
-  drift3(n, 0, n.B, t0 + h0, u.ys, u.k[1], w, s);
-  double a2 = 0.0;
-  for (int idx = threadIdx.x; idx < N; idx += blockDim.x) {
-    const float scale = sel.atol + sel.rtol * fabsf(u.y[idx]);
-    const float q = (u.k[1][idx] - u.k[0][idx]) / scale;
-    a2 += (double)(q * q);
-  }
-  const float d2 = rms_of(a2, N, s.red) / h0;
-  const float h1 = (d1 <= 1e-15f && d2 <= 1e-15f)
-                       ? fmaxf(h0 * 1e-3f, 1e-6f)
-                       : expf((float)(1.0 / 5) * logf(0.01f / fmaxf(d1, d2)));
-  return nan_min(100.0f * h0, h1);
 }
 
 __device__ void carve_sel(float* p, int N, SelBuf* u) {
@@ -405,82 +365,6 @@ __device__ void carve_sel(float* p, int N, SelBuf* u) {
   for (int i = 0; i < kStages; ++i) u->k[i] = c.take(N);
   u->ys = c.take(N);
   u->y1 = c.take(N);
-}
-
-constexpr int kSelVectors = 10;
-
-__global__ void __launch_bounds__(kThreads)
-ode_select_kernel(Net n, Sel sel, const float* __restrict__ wT, const float* __restrict__ iwT,
-                  const float* __restrict__ y0, float* __restrict__ st, int* __restrict__ stats) {
-  extern __shared__ float sm[];
-  W3 w;
-  Scr s;
-  SelBuf u;
-  const int N = n.B * 3 * n.P, M = sel.max_steps;
-  carve_sel(setup(sm, n, n.B, wT, iwT, &w, &s), N, &u);
-  for (int i = threadIdx.x; i <= M; i += blockDim.x) st[i] = i == 0 ? sel.t_start : sel.t_end;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) u.y[i] = y0[i];
-  __syncthreads();
-  float t = sel.t_start;
-  drift3(n, 0, n.B, t, u.y, u.k[0], w, s);
-  float h = sel.use_initial ? initial_step(n, sel, N, t, u, w, s) : sel.dt0;
-  h = nan_min(h, sel.span);
-  int na = 0, nr = 0;
-  while (t < sel.t_end && na < M && nr < 4 * M + 64) {
-    h = nan_min(h, sel.t_end - t);
-    const float ratio = attempt(n, sel, N, t, h, u, w, s);
-    const bool accept = ratio <= 1.0f;
-    if (accept) {
-      t = t + h;
-      for (int i = threadIdx.x; i < N; i += blockDim.x) {
-        u.y[i] = u.y1[i];
-        u.k[0][i] = u.k[kStages - 1][i];
-      }
-      ++na;
-    } else {
-      ++nr;
-    }
-    if (threadIdx.x == 0) st[na] = t;
-    h = next_step(h, ratio);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    stats[0] = na;
-    stats[1] = nr;
-    stats[2] = t >= sel.t_end ? 1 : 0;
-  }
-}
-
-// One attempt from (t, y, f0) with the proposed step h: y1, f1 = k6 and
-// rec = (ratio, the step used, the next step).
-__global__ void __launch_bounds__(kThreads)
-ode_attempt_kernel(Net n, Sel sel, const float* __restrict__ wT, const float* __restrict__ iwT,
-                   const float* __restrict__ t_in, const float* __restrict__ h_in,
-                   const float* __restrict__ y, const float* __restrict__ f0,
-                   float* __restrict__ y1, float* __restrict__ f1, float* __restrict__ rec) {
-  extern __shared__ float sm[];
-  W3 w;
-  Scr s;
-  SelBuf u;
-  const int N = n.B * 3 * n.P;
-  carve_sel(setup(sm, n, n.B, wT, iwT, &w, &s), N, &u);
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    u.y[i] = y[i];
-    u.k[0][i] = f0[i];
-  }
-  __syncthreads();
-  const float t = t_in[0];
-  const float h = nan_min(h_in[0], sel.t_end - t);
-  const float ratio = attempt(n, sel, N, t, h, u, w, s);
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    y1[i] = u.y1[i];
-    f1[i] = u.k[kStages - 1][i];
-  }
-  if (threadIdx.x == 0) {
-    rec[0] = ratio;
-    rec[1] = h;
-    rec[2] = next_step(h, ratio);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -625,35 +509,647 @@ int prepare(Kern kernel, int P, int n_in, int K, int nb, int vectors, size_t ext
   return set_smem(kernel, *bytes);
 }
 
+
+// ---------------------------------------------------------------------------
+// Teams: the selection at any width and the split2 tier, a team of kCluster
+// blocks per lane (per batch in the selection), the weights streamed from L2
+// ---------------------------------------------------------------------------
+//
+// At P = 832 (104 columns) nothing of a step fits one block: the three-term
+// matrices are 4.15 MB, the two-term ones 2.77 MB, and the selection's ten
+// batch states 400 KB. So a drift evaluation is spread over the kCluster
+// blocks of one thread-block cluster (a "team"): block r owns the
+// populations [r P/kCluster, (r+1) P/kCluster) of every lane it holds,
+// i.e. their v, a and r entries, and every elementwise operation of the
+// step on them. The state vectors live in global memory (L2), each block
+// touching only its own entries, so a block barrier orders them. Per drift
+// evaluation a block computes the rates of its populations, splits them
+// into bf16 terms and stores those into every block's shared memory
+// (distributed shared memory), one cluster barrier, then each block runs
+// the (P, P) products for its own output columns, reading the matrices
+// from global memory (L2-resident: the card has 50 MB). A VJP exchanges
+// the current's cotangent the same way and runs the transposed products on
+// transposed copies of the two-term matrices. The exchange buffers are
+// double-buffered: a block writes buffer p of exchange n only after the
+// barrier of exchange n-1, which every block reaches after its products of
+// exchange n-2, the last reads of buffer p. The selection's error norm is
+// a block sum per block, stored into every block and summed in rank order,
+// so every block takes the same accept decision from the same bits.
+//
+// Where the time goes: each product is a matrix-vector product per lane
+// (2 P^2 operations, 0.7-1.4 MB of bf16 weights from L2), so a step is
+// latency- and L2-bound on 8 SMs per team; the four lanes of the replay and
+// its reverse sweep run as four teams (32 SMs). The sums are float64 as
+// above (bf16 times bf16 or float32 terms are exact in float64), split
+// over up to kMaxSplit thread groups along k when a block has fewer output
+// columns than threads; the groups' partial sums add in group order.
+
+namespace cg = cooperative_groups;
+
+constexpr int kCluster = 8;
+constexpr int kMaxSplit = 8;
+constexpr int kSelLanes = 4;  // lanes per thread in the selection's products
+
+// The weights in global memory.
+struct Wg {
+  const bf16 *hi, *mid, *lo;  // (P, P) terms of wT (lo: the three-term split only)
+  const bf16 *hiT, *midT;     // their transposes (the reverse sweep)
+  const float* iw;            // (n_in, P)
+};
+
+// One block's share of a team, and its shared memory.
+struct Team {
+  int rank, c0, nc;     // this block owns populations [c0, c0 + nc)
+  int nb, b0, S;        // lanes b0 .. b0 + nb - 1 of the knot table; S = 3P
+  int par, rpar;        // exchange and reduction buffer in use
+  unsigned char* ex[2]; // exchange buffers: bf16 terms (term, lane, P) or float (lane, P)
+  float* fr;            // (nb, nc) own rates, or their derivative in a VJP
+  float* ext;           // (nb, kMaxInputs) stimulus
+  double* part;         // (G, output slots, lanes per thread, np) partial sums of the k groups
+  double* red;          // (kThreads / 32) block reduction
+  double* cred;         // (2, kCluster) team reduction
+};
+
+__host__ __device__ inline int split_of(int nout) {
+  const int g = kThreads / nout;
+  return 2 * nout <= kThreads ? (g < kMaxSplit ? g : kMaxSplit) : 1;
+}
+
+__host__ __device__ inline size_t ex_bytes(int P, int nb, int nterms) {
+  const size_t t = (size_t)nterms * nb * P * sizeof(bf16), f = (size_t)nb * P * sizeof(float);
+  return ((t > f ? t : f) + 15) / 16 * 16;
+}
+
+// Output slots of a block's products: a thread computes one population for
+// lb lanes (the selection: 4, so one weight load serves four lanes).
+__host__ __device__ inline int out_slots(int nb, int nc, int lb) { return (nb + lb - 1) / lb * nc; }
+
+// Bytes of shared memory a team block uses: nterms bf16 terms exchanged per
+// drift evaluation, np products per output, lb lanes per thread.
+size_t team_smem(int P, int nb, int nterms, int np, int lb) {
+  const int nc = P / kCluster, nout = out_slots(nb, nc, lb), G = split_of(nout);
+  const size_t d = (G > 1 ? (size_t)G * nout * lb * np : 0) + kThreads / 32 + 2 * kCluster;
+  const size_t f = (size_t)nb * nc + (size_t)nb * kMaxInputs;
+  return (d * sizeof(double) + f * sizeof(float) + 15) / 16 * 16 + 2 * ex_bytes(P, nb, nterms);
+}
+
+__device__ void team_init(Team& T, unsigned char* sm, int P, int nb, int b0, int nterms,
+                          int np, int lb) {
+  T.rank = (int)cg::this_cluster().block_rank();
+  T.nc = P / kCluster;
+  T.c0 = T.rank * T.nc;
+  T.nb = nb;
+  T.b0 = b0;
+  T.S = 3 * P;
+  T.par = T.rpar = 0;
+  const int nout = out_slots(nb, T.nc, lb), G = split_of(nout);
+  double* d = reinterpret_cast<double*>(sm);
+  T.part = d;
+  d += G > 1 ? (size_t)G * nout * lb * np : 0;
+  T.red = d;
+  d += kThreads / 32;
+  T.cred = d;
+  d += 2 * kCluster;
+  float* f = reinterpret_cast<float*>(d);
+  T.fr = f;
+  f += nb * T.nc;
+  T.ext = f;
+  f += nb * kMaxInputs;
+  unsigned char* e = sm + ((reinterpret_cast<unsigned char*>(f) - sm) + 15) / 16 * 16;
+  T.ex[0] = e;
+  T.ex[1] = e + ex_bytes(P, nb, nterms);
+  // Every block of the cluster has started before any writes into another's
+  // shared memory. (None writes after its last cluster barrier, so a block
+  // may leave when it is done.)
+  cg::this_cluster().sync();
+}
+
+// Offset in a (nb, 3P) state of this block's own element e (0 <= e < 3 nb nc).
+__device__ __forceinline__ int own_off(const Team& T, int P, int e) {
+  const int per = 3 * T.nc;
+  const int b = e / per, r = e - b * per, comp = r / T.nc;
+  return b * T.S + comp * P + T.c0 + (r - comp * T.nc);
+}
+
+__device__ __forceinline__ int own_count(const Team& T) { return 3 * T.nb * T.nc; }
+
+// Sum of v over every thread of the team, the same double in every block.
+__device__ double team_sum(Team& T, double v) {
+  cg::cluster_group cl = cg::this_cluster();
+  const double tot = block_sum(v, T.red);
+  if (threadIdx.x == 0)
+    for (int q = 0; q < kCluster; ++q)
+      cl.map_shared_rank(T.cred, q)[T.rpar * kCluster + T.rank] = tot;
+  cl.sync();
+  double all = 0.0;
+  for (int q = 0; q < kCluster; ++q) all += T.cred[T.rpar * kCluster + q];
+  T.rpar ^= 1;
+  return all;
+}
+
+__device__ __forceinline__ double bfd(bf16 x) { return (double)__bfloat162float(x); }
+
+// The rates of the own populations of every lane at y, split into NT bf16
+// terms and stored into every block's exchange buffer; the stimulus at t.
+// Ends with the cluster barrier.
+template <int NT>
+__device__ void share_terms(const Net& n, Team& T, float t, const float* y) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int P = n.P, nb = T.nb;
+  bf16* mine = reinterpret_cast<bf16*>(T.ex[T.par]);
+  for (int e = threadIdx.x; e < nb * T.nc; e += blockDim.x) {
+    const int b = e / T.nc, c = T.c0 + (e - b * T.nc);
+    const float fr = firing_rate(y[b * T.S + c] - y[b * T.S + P + c]);
+    T.fr[e] = fr;
+    bf16 term[NT];
+    const float hi = bf16r(fr);
+    term[0] = __float2bfloat16_rn(fr);
+    if constexpr (NT == 2) {
+      term[1] = __float2bfloat16_rn(fr - hi);
+    } else {
+      const float r = fr - hi;
+      const float mid = bf16r(r);
+      term[1] = __float2bfloat16_rn(r);
+      term[2] = __float2bfloat16_rn(r - mid);
+    }
+    for (int q = 0; q < kCluster; ++q) {
+      bf16* dst = cl.map_shared_rank(mine, q);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) dst[((size_t)j * nb + b) * P + c] = term[j];
+    }
+  }
+  for (int idx = threadIdx.x; idx < nb * n.n_in; idx += blockDim.x) {
+    const int b = idx / n.n_in, m = idx - b * n.n_in;
+    T.ext[b * kMaxInputs + m] = knot_interp(n, T.b0 + b, m, t);
+  }
+  cl.sync();
+}
+
+// The drift's output at own column col of lane b from its product sums p:
+// three-term (NP = 6) rec = x_hi W_lo + x_mid W_mid + x_lo W_hi + x_hi W_mid
+// + x_mid W_hi + x_hi W_hi, two-term (NP = 3) rec = x_hi W_hi + x_hi W_mid +
+// x_mid W_hi, each rounded to float32 and added left to right.
+template <int NP>
+__device__ void drift_out(const Net& n, const Team& T, int b, int col, int oo, const double* p,
+                          const float* y, float* out, const Wg& w) {
+  const int P = n.P;
+  float rec = (float)p[0];
+#pragma unroll
+  for (int j = 1; j < NP; ++j) rec = rec + (float)p[j];
+  double e = 0.0;
+  for (int m = 0; m < n.n_in; ++m)
+    e = fma((double)T.ext[b * kMaxInputs + m], (double)w.iw[(size_t)m * P + col], e);
+  const float current = (rec + (float)e) + n.bg[col];
+  const float total = current * n.tau_s;
+  const size_t base = (size_t)b * T.S;
+  const float fr = T.fr[oo];
+  out[base + col] = (-y[base + col] + total * n.R) / n.tau_m;
+  out[base + P + col] = (-y[base + P + col] + n.adapt[col] * fr) / n.tau_a;
+  out[base + 2 * P + col] = (-y[base + 2 * P + col] + fr) / n.tau_s;
+}
+
+// One drift evaluation of the team's lanes at the shared time t: y -> out
+// (nb, 3P), both in global memory, own entries only; NT = 3: the three-term
+// split, NT = 2: the two-term one. A thread computes one population for LB
+// lanes at a time, over one of G groups of k. Ends with a block barrier.
+template <int NT, int LB>
+__device__ void drift_team(const Net& n, Team& T, float t, const float* y, float* out,
+                           const Wg& w) {
+  constexpr int NP = NT == 3 ? 6 : 3;
+  share_terms<NT>(n, T, t, y);
+  const int P = n.P, nb = T.nb, nout = out_slots(nb, T.nc, LB), G = split_of(nout);
+  const int kc = (P + G - 1) / G;
+  const bf16* X = reinterpret_cast<const bf16*>(T.ex[T.par]);
+  for (int o = threadIdx.x; o < nout * G; o += blockDim.x) {
+    const int g = o / nout, oo = o - g * nout, grp = oo / T.nc, col = T.c0 + (oo - grp * T.nc);
+    const int b0 = grp * LB, nl = min(LB, nb - b0);
+    double p[LB][NP];
+#pragma unroll
+    for (int l = 0; l < LB; ++l) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) p[l][j] = 0.0;
+    }
+    const int k1 = min(P, (g + 1) * kc);
+#pragma unroll 4
+    for (int k = g * kc; k < k1; ++k) {
+      const size_t at = (size_t)k * P + col;
+      const double wh = bfd(w.hi[at]), wm = bfd(w.mid[at]);
+      double wl = 0.0;
+      if constexpr (NT == 3) wl = bfd(w.lo[at]);
+#pragma unroll
+      for (int l = 0; l < LB; ++l) {
+        if (l < nl) {
+          const int b = b0 + l;
+          const double a = bfd(X[(size_t)b * P + k]), c = bfd(X[((size_t)nb + b) * P + k]);
+          if constexpr (NT == 3) {
+            const double d = bfd(X[((size_t)2 * nb + b) * P + k]);
+            p[l][0] = fma(a, wl, p[l][0]);
+            p[l][1] = fma(c, wm, p[l][1]);
+            p[l][2] = fma(d, wh, p[l][2]);
+            p[l][3] = fma(a, wm, p[l][3]);
+            p[l][4] = fma(c, wh, p[l][4]);
+            p[l][5] = fma(a, wh, p[l][5]);
+          } else {
+            p[l][0] = fma(a, wh, p[l][0]);
+            p[l][1] = fma(a, wm, p[l][1]);
+            p[l][2] = fma(c, wh, p[l][2]);
+          }
+        }
+      }
+    }
+    if (G == 1) {
+      for (int l = 0; l < nl; ++l)
+        drift_out<NP>(n, T, b0 + l, col, (b0 + l) * T.nc + (col - T.c0), p[l], y, out, w);
+    } else {
+#pragma unroll
+      for (int l = 0; l < LB; ++l) {
+#pragma unroll
+        for (int j = 0; j < NP; ++j) T.part[(((size_t)g * nout + oo) * LB + l) * NP + j] = p[l][j];
+      }
+    }
+  }
+  if (G > 1) {
+    __syncthreads();
+    for (int oo = threadIdx.x; oo < nout; oo += blockDim.x) {
+      const int grp = oo / T.nc, col = T.c0 + (oo - grp * T.nc);
+      const int b0 = grp * LB, nl = min(LB, nb - b0);
+      for (int l = 0; l < nl; ++l) {
+        double q[NP];
+#pragma unroll
+        for (int j = 0; j < NP; ++j) q[j] = T.part[((size_t)oo * LB + l) * NP + j];
+        for (int g = 1; g < G; ++g) {
+#pragma unroll
+          for (int j = 0; j < NP; ++j) q[j] += T.part[(((size_t)g * nout + oo) * LB + l) * NP + j];
+        }
+        drift_out<NP>(n, T, b0 + l, col, (b0 + l) * T.nc + (col - T.c0), q, y, out, w);
+      }
+    }
+  }
+  T.par ^= 1;
+  __syncthreads();
+}
+
+// The state cotangent of one two-term drift evaluation at y for the output
+// cotangent ct -> out, own entries, with jax.vjp's rounding points:
+// m = bf16(c W_hi^T), q = bf16(c W_mid^T), x_bar = m + bf16(bf16(m + q) - m).
+// Ends with a block barrier.
+__device__ void vjp2_out(const Net& n, const Team& T, int b, int k, int oo, double dm, double dq,
+                         const float* ct, float* out) {
+  const int P = n.P;
+  const float m = bf16r((float)dm), q = bf16r((float)dq);
+  const float xbar = m + bf16r(bf16r(m + q) - m);
+  const size_t base = (size_t)b * T.S;
+  const float cv = ct[base + k], ca = ct[base + P + k], cr = ct[base + 2 * P + k];
+  const float c_fr = (xbar + n.adapt[k] * (ca / n.tau_a)) + cr / n.tau_s;
+  const float c_x = T.fr[oo] * c_fr;
+  out[base + k] = -(cv / n.tau_m) + c_x;
+  out[base + P + k] = -(ca / n.tau_a) - c_x;
+  out[base + 2 * P + k] = -(cr / n.tau_s);
+}
+
+__device__ void vjp2_team(const Net& n, Team& T, const float* y, const float* ct, float* out,
+                          const Wg& w) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int P = n.P, nb = T.nb;
+  float* mine = reinterpret_cast<float*>(T.ex[T.par]);
+  for (int e = threadIdx.x; e < nb * T.nc; e += blockDim.x) {
+    const int b = e / T.nc, c = T.c0 + (e - b * T.nc);
+    float fr, frp;
+    fr_and_grad(y[b * T.S + c] - y[b * T.S + P + c], fr, frp);
+    T.fr[e] = frp;
+    const float cc = ((ct[b * T.S + c] / n.tau_m) * n.R) * n.tau_s;
+    for (int q = 0; q < kCluster; ++q) cl.map_shared_rank(mine, q)[(size_t)b * P + c] = cc;
+  }
+  cl.sync();
+  const float* C = mine;
+  const int nout = nb * T.nc, G = split_of(nout), kc = (P + G - 1) / G;
+  for (int o = threadIdx.x; o < nout * G; o += blockDim.x) {
+    const int g = o / nout, oo = o - g * nout, b = oo / T.nc, k = T.c0 + (oo - b * T.nc);
+    const float* cb = C + (size_t)b * P;
+    double dm = 0.0, dq = 0.0;
+    const int j1 = min(P, (g + 1) * kc);
+#pragma unroll 4
+    for (int j = g * kc; j < j1; ++j) {
+      const size_t at = (size_t)j * P + k;
+      const double c = cb[j];
+      dm = fma(c, bfd(w.hiT[at]), dm);
+      dq = fma(c, bfd(w.midT[at]), dq);
+    }
+    if (G == 1) {
+      vjp2_out(n, T, b, k, oo, dm, dq, ct, out);
+    } else {
+      T.part[((size_t)g * nout + oo) * 2] = dm;
+      T.part[((size_t)g * nout + oo) * 2 + 1] = dq;
+    }
+  }
+  if (G > 1) {
+    __syncthreads();
+    for (int oo = threadIdx.x; oo < nout; oo += blockDim.x) {
+      double dm = T.part[(size_t)oo * 2], dq = T.part[(size_t)oo * 2 + 1];
+      for (int g = 1; g < G; ++g) {
+        dm += T.part[((size_t)g * nout + oo) * 2];
+        dq += T.part[((size_t)g * nout + oo) * 2 + 1];
+      }
+      const int b = oo / T.nc;
+      vjp2_out(n, T, b, T.c0 + (oo - b * T.nc), oo, dm, dq, ct, out);
+    }
+  }
+  T.par ^= 1;
+  __syncthreads();
+}
+
+// Stage state i over the own entries: out = y + sum_j (h a_ij) k_j.
+__device__ void stage_own(const Team& T, int P, int i, float h, const float* y,
+                          float* const* ks, float* out) {
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, P, e);
+    float v = y[off];
+    for (int j = 0; j < i; ++j) {
+      const float a = kA[i][j];
+      if (a != 0.0f) v = v + (h * a) * ks[j][off];
+    }
+    out[off] = v;
+  }
+  __syncthreads();
+}
+
+__device__ float attempt_team(const Net& n, Team& T, const Sel& sel, int N, float t, float h,
+                              const SelBuf& u, const Wg& w) {
+  for (int i = 1; i < kStages; ++i) {
+    float* dst = i == kStages - 1 ? u.y1 : u.ys;
+    stage_own(T, n.P, i, h, u.y, u.k, dst);
+    drift_team<3, kSelLanes>(n, T, t + kC[i] * h, dst, u.k[i], w);
+  }
+  double acc = 0.0;
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, n.P, e);
+    const float err = weighted(kBErr, h, u.k, off);
+    const float q = err / (sel.atol + sel.rtol * fmaxf(fabsf(u.y[off]), fabsf(u.y1[off])));
+    acc += (double)(q * q);
+  }
+  return sqrtf((float)team_sum(T, acc) / (float)N);
+}
+
+__device__ float initial_step_team(const Net& n, Team& T, const Sel& sel, int N, float t0,
+                                   const SelBuf& u, const Wg& w) {
+  double a0 = 0.0, a1 = 0.0;
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, n.P, e);
+    const float scale = sel.atol + sel.rtol * fabsf(u.y[off]);
+    const float q0 = u.y[off] / scale, q1 = u.k[0][off] / scale;
+    a0 += (double)(q0 * q0);
+    a1 += (double)(q1 * q1);
+  }
+  const float d0 = sqrtf((float)team_sum(T, a0) / (float)N);
+  const float d1 = sqrtf((float)team_sum(T, a1) / (float)N);
+  const float h0 = (d0 < 1e-5f || d1 < 1e-5f) ? 1e-6f : (0.01f * d0) / d1;
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, n.P, e);
+    u.ys[off] = u.y[off] + h0 * u.k[0][off];
+  }
+  __syncthreads();
+  drift_team<3, kSelLanes>(n, T, t0 + h0, u.ys, u.k[1], w);
+  double a2 = 0.0;
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, n.P, e);
+    const float scale = sel.atol + sel.rtol * fabsf(u.y[off]);
+    const float q = (u.k[1][off] - u.k[0][off]) / scale;
+    a2 += (double)(q * q);
+  }
+  const float d2 = sqrtf((float)team_sum(T, a2) / (float)N) / h0;
+  const float h1 = (d1 <= 1e-15f && d2 <= 1e-15f)
+                       ? fmaxf(h0 * 1e-3f, 1e-6f)
+                       : expf((float)(1.0 / 5) * logf(0.01f / fmaxf(d1, d2)));
+  return nan_min(100.0f * h0, h1);
+}
+
+// The batch's ten state vectors, in global memory, N floats each.
+__device__ void carve_global(float* p, int N, SelBuf* u) {
+  u->y = p;
+  for (int i = 0; i < kStages; ++i) u->k[i] = p + (size_t)(1 + i) * N;
+  u->ys = p + (size_t)8 * N;
+  u->y1 = p + (size_t)9 * N;
+}
+
+// B6 at any width: the whole selection of the batch on the three-term split,
+// one team.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+ode_select_kernel(Net n, Sel sel, Wg w, const float* __restrict__ y0, float* scr,
+                     float* __restrict__ st, int* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team T;
+  team_init(T, smt, n.P, n.B, 0, 3, 6, kSelLanes);
+  SelBuf u;
+  const int N = n.B * T.S, M = sel.max_steps;
+  carve_global(scr, N, &u);
+  const bool lead = T.rank == 0;
+  if (lead)
+    for (int i = threadIdx.x; i <= M; i += blockDim.x) st[i] = i == 0 ? sel.t_start : sel.t_end;
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, n.P, e);
+    u.y[off] = y0[off];
+  }
+  __syncthreads();
+  float t = sel.t_start;
+  drift_team<3, kSelLanes>(n, T, t, u.y, u.k[0], w);
+  float h = sel.use_initial ? initial_step_team(n, T, sel, N, t, u, w) : sel.dt0;
+  h = nan_min(h, sel.span);
+  int na = 0, nr = 0;
+  while (t < sel.t_end && na < M && nr < 4 * M + 64) {
+    h = nan_min(h, sel.t_end - t);
+    const float ratio = attempt_team(n, T, sel, N, t, h, u, w);
+    if (ratio <= 1.0f) {
+      t = t + h;
+      for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+        const int off = own_off(T, n.P, e);
+        u.y[off] = u.y1[off];
+        u.k[0][off] = u.k[kStages - 1][off];
+      }
+      ++na;
+    } else {
+      ++nr;
+    }
+    if (lead && threadIdx.x == 0) st[na] = t;
+    h = next_step(h, ratio);
+    __syncthreads();
+  }
+  if (lead && threadIdx.x == 0) {
+    stats[0] = na;
+    stats[1] = nr;
+    stats[2] = t >= sel.t_end ? 1 : 0;
+  }
+}
+
+// One attempt of that kernel's loop: y1, f1 = k6, rec = (ratio, h, next h).
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+ode_attempt_kernel(Net n, Sel sel, Wg w, const float* __restrict__ t_in,
+                      const float* __restrict__ h_in, const float* __restrict__ y,
+                      const float* __restrict__ f0, float* scr, float* __restrict__ y1,
+                      float* __restrict__ f1, float* __restrict__ rec) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team T;
+  team_init(T, smt, n.P, n.B, 0, 3, 6, kSelLanes);
+  SelBuf u;
+  const int N = n.B * T.S;
+  carve_global(scr, N, &u);
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, n.P, e);
+    u.y[off] = y[off];
+    u.k[0][off] = f0[off];
+  }
+  __syncthreads();
+  const float t = t_in[0];
+  const float h = nan_min(h_in[0], sel.t_end - t);
+  const float ratio = attempt_team(n, T, sel, N, t, h, u, w);
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, n.P, e);
+    y1[off] = u.y1[off];
+    f1[off] = u.k[kStages - 1][off];
+  }
+  if (T.rank == 0 && threadIdx.x == 0) {
+    rec[0] = ratio;
+    rec[1] = h;
+    rec[2] = next_step(h, ratio);
+  }
+}
+
+// B7, two-term split: lane blockIdx.x / kCluster, one team each. The step
+// and its rows as ode_replay_fwd_kernel.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+ode_replay_fwd_split2_kernel(Net n, int n_steps, Wg w, const float* __restrict__ st,
+                             const float* __restrict__ y0, float* scr, float* __restrict__ ys,
+                             float* __restrict__ coeffs) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team T;
+  const int b = blockIdx.x / kCluster;
+  team_init(T, smt, n.P, 1, b, 2, 3, 1);
+  const int S = T.S, B = n.B;
+  SelBuf u;
+  carve_global(scr + (size_t)b * 10 * S, S, &u);
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, n.P, e);
+    u.y[off] = y0[(size_t)b * S + off];
+  }
+  __syncthreads();
+  const size_t row = (size_t)B * S;
+  for (int k = 0; k < n_steps; ++k) {
+    const float t0 = st[k], h = st[k + 1] - t0;
+    drift_team<2, 1>(n, T, t0, u.y, u.k[0], w);
+    for (int i = 1; i < kStages; ++i) {
+      float* dst = i == kStages - 1 ? u.y1 : u.ys;
+      stage_own(T, n.P, i, h, u.y, u.k, dst);
+      drift_team<2, 1>(n, T, t0 + kC[i] * h, dst, u.k[i], w);
+    }
+    float* yk = ys + ((size_t)k * B + b) * S;
+    float* ck = coeffs + ((size_t)k * 5 * B + b) * S;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int i = own_off(T, n.P, e);
+      const float y = u.y[i], y1 = u.y1[i];
+      const float dy = y1 - y;
+      const float r3 = h * u.k[0][i] - dy;
+      yk[i] = y;
+      ck[i] = y;
+      ck[row + i] = dy;
+      ck[2 * row + i] = r3;
+      ck[3 * row + i] = (dy - h * u.k[kStages - 1][i]) - r3;
+      ck[4 * row + i] = weighted(kD, h, u.k, i);
+      u.y[i] = y1;
+    }
+    __syncthreads();
+  }
+}
+
+// B8', emit mode, two-term split: the reverse sweep of the state cotangent
+// alone, lane blockIdx.x / kCluster. Per step k (n-1 down to 0) it first
+// writes ybar_steps[k] = the cotangent on the step's output from the later
+// steps, then runs the step's VJP as ode_replay_bwd_kernel does, without
+// the weight cotangents.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+ode_replay_bwd_emit_kernel(Net n, int n_steps, Wg w, const float* __restrict__ st,
+                           const float* __restrict__ ys, const float* __restrict__ cobar,
+                           float* scr, float* __restrict__ ybar_out,
+                           float* __restrict__ ybar_steps) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team T;
+  const int b = blockIdx.x / kCluster;
+  team_init(T, smt, n.P, 1, b, 2, 3, 1);
+  const int S = T.S, B = n.B;
+  const size_t N = (size_t)B * S;
+  float* base = scr + (size_t)b * 16 * S;
+  float *Y[kStages], *kk[kStages];
+  for (int i = 0; i < kStages; ++i) {
+    Y[i] = base + (size_t)i * S;
+    kk[i] = base + (size_t)(kStages + i) * S;
+  }
+  float* ysum = base + (size_t)14 * S;
+  float* g = base + (size_t)15 * S;
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) ysum[own_off(T, n.P, e)] = 0.0f;
+  __syncthreads();
+  for (int k = n_steps - 1; k >= 0; --k) {
+    const float t0 = st[k], h = st[k + 1] - t0;
+    const float* yk = ys + ((size_t)k * B + b) * S;
+    const float* ck = cobar + ((size_t)k * 5 * B + b) * S;
+    float* sk = ybar_steps + ((size_t)k * B + b) * S;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int i = own_off(T, n.P, e);
+      Y[0][i] = yk[i];
+      sk[i] = ysum[i];
+    }
+    __syncthreads();
+    drift_team<2, 1>(n, T, t0, Y[0], kk[0], w);
+    for (int i = 1; i < kStages; ++i) {
+      stage_own(T, n.P, i, h, Y[0], kk, Y[i]);
+      if (i < kStages - 1) drift_team<2, 1>(n, T, t0 + kC[i] * h, Y[i], kk[i], w);
+    }
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int i = own_off(T, n.P, e);
+      const float c1 = ck[i], c2 = ck[N + i], c3 = ck[2 * N + i], c4 = ck[3 * N + i],
+                  c5 = ck[4 * N + i];
+      const float r3bar = c3 - c4;
+      const float dybar = (c2 + c4) - r3bar;
+      const float y1bar = ysum[i] + dybar;
+      for (int j = 0; j < kStages; ++j) {
+        float v = kD[j] != 0.0f ? (h * kD[j]) * c5 : 0.0f;
+        if (j == kStages - 1) v = v - h * c4;
+        if (j == 0) v = v + h * r3bar;
+        if (kB[j] != 0.0f) v = v + (h * kB[j]) * y1bar;
+        kk[j][i] = v;
+      }
+      ysum[i] = (c1 - dybar) + y1bar;
+    }
+    __syncthreads();
+    for (int s = kStages - 1; s >= 0; --s) {
+      vjp2_team(n, T, Y[s], kk[s], g, w);
+      for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+        const int i = own_off(T, n.P, e);
+        const float ge = g[i];
+        ysum[i] = ysum[i] + ge;
+        for (int j = 0; j < s; ++j) {
+          const float a = kA[s][j];
+          if (a != 0.0f) kk[j][i] = kk[j][i] + (h * a) * ge;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int i = own_off(T, n.P, e);
+    ybar_out[(size_t)b * S + i] = ysum[i];
+  }
+}
+
+template <typename Kern>
+int team_prepare(Kern kernel, int P, int n_in, int K, int nb, int nterms, int np, int lb,
+                 size_t* bytes) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  if (P % kCluster) return (int)cudaErrorInvalidValue;
+  *bytes = team_smem(P, nb, nterms, np, lb);
+  return set_smem(kernel, *bytes);
+}
+
 }  // namespace
 
 extern "C" {
-
-// hc (host): tau_s, tau_m, tau_a, R, sigma, kc0[K-1], kd[K-1];
-// hs (host): t_start, t_end, rtol, atol, dt0, t_end - t_start.
-int cf_ode_select(int B, int P, int n_in, int K, const float* hc, const float* hs,
-                  int use_initial, int max_steps, const float* bg, const float* adapt,
-                  const float* wT, const float* iwT, const float* kv, const float* y0, float* st,
-                  int* stats, void* stream) {
-  size_t bytes;
-  if (int e = prepare(ode_select_kernel, P, n_in, K, B, kSelVectors, 0, &bytes)) return e;
-  ode_select_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
-      make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, use_initial, max_steps), wT, iwT,
-      y0, st, stats);
-  return (int)cudaGetLastError();
-}
-
-int cf_ode_attempt(int B, int P, int n_in, int K, const float* hc, const float* hs,
-                   const float* bg, const float* adapt, const float* wT, const float* iwT,
-                   const float* kv, const float* t, const float* h, const float* y,
-                   const float* f0, float* y1, float* f1, float* rec, void* stream) {
-  size_t bytes;
-  if (int e = prepare(ode_attempt_kernel, P, n_in, K, B, kSelVectors, 0, &bytes)) return e;
-  ode_attempt_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
-      make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, 0, 0), wT, iwT, t, h, y, f0, y1,
-      f1, rec);
-  return (int)cudaGetLastError();
-}
 
 int cf_ode_replay_fwd(int B, int P, int n_in, int K, const float* hc, int n_steps,
                       const float* bg, const float* adapt, const float* wT, const float* iwT,
@@ -677,6 +1173,68 @@ int cf_ode_replay_bwd(int B, int P, int n_in, int K, const float* hc, int n_step
   ode_replay_bwd_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
       make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, wT, iwT, st, ys, cobar, ybar, d_wT,
       d_iwT, work);
+  return (int)cudaGetLastError();
+}
+
+// The split2 tier. hi/mid/lo: bf16 (P, P) terms of wT; hiT/midT their
+// transposes; iw float32 (n_in, P); scr: global scratch for the state
+// vectors (10 B 3P floats; 16 B 3P for the reverse sweep).
+// hc (host): tau_s, tau_m, tau_a, R, sigma, kc0[K-1], kd[K-1];
+// hs (host): t_start, t_end, rtol, atol, dt0, t_end - t_start.
+int cf_ode_select(int B, int P, int n_in, int K, const float* hc, const float* hs,
+                     int use_initial, int max_steps, const float* bg, const float* adapt,
+                     const void* hi, const void* mid, const void* lo, const float* iw,
+                     const float* kv, const float* y0, float* scr, float* st, int* stats,
+                     void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(ode_select_kernel, P, n_in, K, B, 3, 6, kSelLanes, &bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, iw};
+  ode_select_kernel<<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, use_initial, max_steps), w, y0,
+      scr, st, stats);
+  return (int)cudaGetLastError();
+}
+
+int cf_ode_attempt(int B, int P, int n_in, int K, const float* hc, const float* hs,
+                      const float* bg, const float* adapt, const void* hi, const void* mid,
+                      const void* lo, const float* iw, const float* kv, const float* t,
+                      const float* h, const float* y, const float* f0, float* scr, float* y1,
+                      float* f1, float* rec, void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(ode_attempt_kernel, P, n_in, K, B, 3, 6, kSelLanes, &bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, iw};
+  ode_attempt_kernel<<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, 0, 0), w, t, h, y, f0, scr, y1,
+      f1, rec);
+  return (int)cudaGetLastError();
+}
+
+int cf_ode_replay_fwd_split2(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                             const float* bg, const float* adapt, const void* hi,
+                             const void* mid, const float* iw, const float* kv, const float* st,
+                             const float* y0, float* scr, float* ys, float* coeffs,
+                             void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(ode_replay_fwd_split2_kernel, P, n_in, K, 1, 2, 3, 1, &bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, nullptr, nullptr, iw};
+  if (B > 0)
+    ode_replay_fwd_split2_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, y0, scr, ys, coeffs);
+  return (int)cudaGetLastError();
+}
+
+int cf_ode_replay_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                           const float* bg, const float* adapt, const void* hi, const void* mid,
+                           const void* hiT, const void* midT, const float* iw, const float* kv,
+                           const float* st, const float* ys, const float* cobar, float* scr,
+                           float* ybar, float* ybar_steps, void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(ode_replay_bwd_emit_kernel, P, n_in, K, 1, 2, 3, 1, &bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, (const bf16*)hiT, (const bf16*)midT, iw};
+  if (B > 0)
+    ode_replay_bwd_emit_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, ys, cobar, scr, ybar,
+        ybar_steps);
   return (int)cudaGetLastError();
 }
 

@@ -6,21 +6,36 @@ the three Pallas kernels of ``odeint_dopri5_fused`` in
 Each kernel is CUDA C++ in ``csrc/network_ode.cu`` (built by ``_build``)
 with a plain PyTorch version beside it that repeats its arithmetic:
 
-    wrapper         kernel             plain version          replaces (columnflow/solvers/fused.py)
-    ode_select      cf_ode_select      _ode_select_plain      _make_adaptive_kernel
-    ode_attempt     cf_ode_attempt     _ode_attempt_plain     one iteration of that kernel's body
-    ode_replay_fwd  cf_ode_replay_fwd  _ode_replay_fwd_plain  _make_replay_chunk_kernel
-    ode_replay_bwd  cf_ode_replay_bwd  _ode_replay_bwd_plain  _make_bwd_chunk_kernel, kernel mode
+    wrapper               kernel                     plain version               replaces (columnflow/solvers/fused.py)
+    ode_select            cf_ode_select              _ode_select_plain           _make_adaptive_kernel
+    ode_attempt           cf_ode_attempt             _ode_attempt_plain          one iteration of that kernel's body
+    ode_replay_fwd        cf_ode_replay_fwd          _ode_replay_fwd_plain       _make_replay_chunk_kernel
+    ode_replay_bwd        cf_ode_replay_bwd          _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode
+    ode_replay_fwd_split2 cf_ode_replay_fwd_split2   _ode_replay_fwd_plain       _make_replay_chunk_kernel, split2
+    ode_replay_bwd_emit   cf_ode_replay_bwd_emit     _ode_replay_bwd_emit_plain  _make_bwd_chunk_kernel, emit mode
 
 The JAX kernels trace any drift. These compute the parity task's
-deterministic drift: ``network_drift_premixed`` with the knot stimulus and
-the three-term bf16 split of the recurrent matrix
-(``prepare_premixed_split``), which the kernels compute from the float32
-``wT`` themselves, as the JAX kernels run their ``prepare`` hook inside. One
-controller steers the whole (B, 3P) batch state, so the selection and the
-reverse sweep (whose weight cotangents are contracted over the batch before
-they are rounded to bf16) run the batch in one thread block; the replay's
-lanes are independent and run one block each.
+deterministic drift: ``network_drift_premixed`` with the knot stimulus and a
+bf16 split of the recurrent matrix. The selection runs on the three-term
+split (``prepare_premixed_split``) in both tiers: the f32-exact engine's
+drift, and the split2 tier's ``select_func`` on ``select_args``; its wrapper
+takes the split with PyTorch ops (the values the JAX kernel's prepare hook
+computes inside). ``ode_replay_fwd`` and ``ode_replay_bwd`` are the exact
+engine's replay and kernel-mode sweep at the reference width: they split the
+float32 ``wT`` themselves into shared memory, and the sweep runs the batch
+in one block (its weight cotangents are contracted over the batch before
+they are rounded to bf16). ``ode_replay_fwd_split2`` and
+``ode_replay_bwd_emit`` are the ``fused-split2`` tier, on the two-term split
+(``prepare_premixed_split2``); the sweep is the emit mode: the state
+cotangent alone, with each step's output cotangent written out for the
+weight gradients outside the kernels (``solvers.fused.ode_outer_arg_grads``).
+
+Where nothing of a step fits one block (P = 832: 4.15 MB of three-term
+weights), the selection and the split2 tier's kernels keep the weights in
+global memory (L2) and spread each drift evaluation over a team of blocks
+(one thread-block cluster): one team for the selection's batch (one
+controller steers the whole (B, 3P) state), one per lane for the replay and
+the sweep.
 
 The wrappers take the plain version for tensors on the CPU; for CUDA tensors
 they launch the kernel or raise. ``LAUNCHES`` counts kernel launches (the
@@ -51,8 +66,11 @@ from columnflow_torch.kernels.network_sde import (
 from columnflow_torch.models.column import Stimulus
 from columnflow_torch.models.network import (
     network_drift_premixed,
+    network_drift_premixed_split2_vjp,
+    network_drift_premixed_split2_weight_vjp,
     network_drift_premixed_split_vjp,
     prepare_premixed_split,
+    split2_fold,
     split3_fold,
 )
 from columnflow_torch.ops.arith import div
@@ -62,9 +80,10 @@ from columnflow_torch.solvers import rk
 # ratio^(-1/order), clipped to [DFACTOR, IFACTOR]. The CUDA kernel holds the
 # same numbers as literals.
 _SAFETY, _IFACTOR, _DFACTOR, _ORDER = 0.9, 10.0, 0.2, 5
-LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_bwd": 0}
+LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_bwd": 0,
+            "ode_replay_fwd_split2": 0, "ode_replay_bwd_emit": 0}
 
-_F32 = torch.float32
+_F32, _BF16 = torch.float32, torch.bfloat16
 
 
 class ODESelectConfig(NamedTuple):
@@ -88,10 +107,13 @@ def _w3(pw, sc: SDEConsts):
     return prepare_premixed_split({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
 
 
-def drift_split3(t, y, w3, sc: SDEConsts, kv):
-    """The drift of all three kernels: y (B, 3P), t a scalar shared by the
-    batch, kv (K, B, n_in)."""
-    return network_drift_premixed(t, y, w3, sc.fc, Stimulus(0.0, 0.0, kv),
+def ode_drift(t, y, w, sc: SDEConsts, kv):
+    """The drift of every dopri5 kernel: y (B, 3P), t a scalar shared by the
+    batch (or (n, 1, 1) for n batched steps), kv (K, B, n_in). ``w`` holds
+    the three-term split of wT (``prepare_premixed_split``) or the two-term
+    one (``prepare_premixed_split2``); ``network_drift_premixed`` takes the
+    matching product."""
+    return network_drift_premixed(t, y, w, sc.fc, Stimulus(0.0, 0.0, kv),
                                   interp_fn=_knots(sc.knot_ts))
 
 
@@ -173,7 +195,7 @@ class ODEAttempt(NamedTuple):
 def _ode_attempt_plain(t, y, f0, h, w3, sc, kv, cfg: ODESelectConfig) -> ODEAttempt:
     """One controller attempt from (t, y, f0 = f(t, y)) with the proposed
     step h (scalars as 0-dim tensors)."""
-    f = lambda t_, y_: drift_split3(t_, y_, w3, sc, kv)  # noqa: E731
+    f = lambda t_, y_: ode_drift(t_, y_, w3, sc, kv)  # noqa: E731
     h = torch.minimum(h, cfg.t_end - t)
     y1, ks, _ = rk_step(f, t, y, h, f0)
     err = _combine(None, h, rk.B_ERR, ks)
@@ -187,7 +209,7 @@ def _ode_select_plain(y0, w3, sc, kv, cfg: ODESelectConfig):
     nreject, success). The accept decision is read on the host once per
     attempt."""
     dev, M = y0.device, cfg.max_steps
-    f = lambda t_, y_: drift_split3(t_, y_, w3, sc, kv)  # noqa: E731
+    f = lambda t_, y_: ode_drift(t_, y_, w3, sc, kv)  # noqa: E731
     st = torch.full((M + 1,), cfg.t_end, dtype=_F32, device=dev)
     st[0] = cfg.t_start
     t = torch.tensor(cfg.t_start, dtype=_F32, device=dev)
@@ -214,7 +236,7 @@ def _ode_replay_fwd_plain(y0, st, w3, sc, kv):
     """The replay over the n = len(st) - 1 frozen steps: (ys (n, B, 3P) the
     step-start states, coeffs (n, 5, B, 3P))."""
     n = st.shape[0] - 1
-    f = lambda t_, y_: drift_split3(t_, y_, w3, sc, kv)  # noqa: E731
+    f = lambda t_, y_: ode_drift(t_, y_, w3, sc, kv)  # noqa: E731
     ys, coeffs, y = [], [], y0
     for k in range(n):
         ys.append(y)
@@ -225,15 +247,23 @@ def _ode_replay_fwd_plain(y0, st, w3, sc, kv):
     return torch.stack(ys), torch.stack(coeffs)
 
 
-def step_vjp(t0, h, y, ybar, cbar, w3, sc: SDEConsts, kv):
+def step_vjp(t0, h, y, ybar, cbar, w, sc: SDEConsts, kv, weights: bool = True):
     """The hand-written VJP of ``step_with_coeffs`` at (t0, h, y) for the
     cotangents ybar on y1 and cbar (5, B, 3P) on the coefficient rows:
-    (state cotangent, d wT, d iwT). The stages are rebuilt from y, then the
-    seven drift VJPs run from stage 6 down; their weight cotangents add in
-    bf16 within the step and fold through the three-term split once."""
-    f = lambda t_, y_: drift_split3(t_, y_, w3, sc, kv)  # noqa: E731
+    (state cotangent, d wT, d iwT), or the state cotangent alone with
+    ``weights=False``. ``w`` is the three-term split (kernel mode) or the
+    two-term one (``prepare_premixed_split2``). The stages are rebuilt from
+    y, then the seven drift VJPs run from stage 6 down; their weight
+    cotangents add in bf16 within the step and fold through the split once.
+    Leading axes before (B, 3P) batch separate steps (t0 and h then carry
+    them as (n, 1, 1)); each step keeps its own accumulators."""
+    f = lambda t_, y_: ode_drift(t_, y_, w, sc, kv)  # noqa: E731
+    if "wT_lo" in w:
+        vjp, fold = network_drift_premixed_split_vjp, split3_fold
+    else:
+        vjp, fold = network_drift_premixed_split2_weight_vjp, split2_fold
     _, _, Ys = rk_step(f, t0, y, h, f(t0, y))
-    c1, c2, c3, c4, c5 = cbar
+    c1, c2, c3, c4, c5 = cbar.unbind(-3)
     r3bar = c3 - c4
     dybar = (c2 + c4) - r3bar
     y1bar = ybar + dybar
@@ -247,14 +277,17 @@ def step_vjp(t0, h, y, ybar, cbar, w3, sc: SDEConsts, kv):
     stim, interp = Stimulus(0.0, 0.0, kv), _knots(sc.knot_ts)
     acc = d_iwT = None
     for i in range(rk.N_STAGES - 1, -1, -1):
-        g, acc, giw = network_drift_premixed_split_vjp(
-            t0 + rk.C[i] * h if i else t0, Ys[i], kbar[i], w3, sc.fc, stim, interp, acc)
+        if weights:
+            g, acc, giw = vjp(t0 + rk.C[i] * h if i else t0, Ys[i], kbar[i], w, sc.fc, stim,
+                              interp, acc)
+            d_iwT = giw if d_iwT is None else d_iwT + giw
+        else:
+            g = network_drift_premixed_split2_vjp(Ys[i], kbar[i], w, sc.fc)
         ysum = ysum + g
-        d_iwT = giw if d_iwT is None else d_iwT + giw
         for j, a in enumerate(rk.A[i]):
             if a != 0.0:
                 kbar[j] = (h * a) * g if kbar[j] is None else kbar[j] + (h * a) * g
-    return ysum, split3_fold(acc), d_iwT
+    return (ysum, fold(acc), d_iwT) if weights else ysum
 
 
 @torch.no_grad()
@@ -269,6 +302,22 @@ def _ode_replay_bwd_plain(ys, cobar, st, w3, sc, kv):
         ybar, gw, giw = step_vjp(st[k], st[k + 1] - st[k], ys[k], ybar, cobar[k], w3, sc, kv)
         d_wT, d_iwT = d_wT + gw, d_iwT + giw
     return ybar, d_wT, d_iwT
+
+
+@torch.no_grad()
+def _ode_replay_bwd_emit_plain(ys, cobar, st, w2, sc, kv):
+    """The emit-mode reverse sweep over steps n-1..0, the state cotangent
+    alone: (ybar0 (B, 3P), ybar_steps (n, B, 3P)); ybar_steps[k] is the
+    cotangent on step k's output that the later steps send back, written
+    before step k's VJP."""
+    n = ys.shape[0]
+    ybar = cobar.new_zeros(tuple(cobar.shape[2:]))
+    ybar_steps = torch.empty_like(ys)
+    for k in range(n - 1, -1, -1):
+        ybar_steps[k] = ybar
+        ybar = step_vjp(st[k], st[k + 1] - st[k], ys[k], ybar, cobar[k], w2, sc, kv,
+                        weights=False)
+    return ybar, ybar_steps
 
 
 # ---------------------------------------------------------------------------
@@ -295,42 +344,6 @@ def _net_args(y, pw, sc, kv):
     return (B, S // 3, kv.shape[2], kv.shape[0]), (
         sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), pw["wT"].data_ptr(),
         pw["iwT"].data_ptr(), kv.data_ptr())
-
-
-def ode_select(y0, pw, sc: SDEConsts, kv, cfg: ODESelectConfig):
-    """The step-size selection for the batch state y0 (B, 3P) under one
-    controller: pw = {"wT" (P, P), "iwT" (n_in, P)} float32, kv (K, B,
-    n_in). Returns (step_times (M+1,) float32, stats (3,) int32 = naccept,
-    nreject, success)."""
-    if not _on_cuda(y0, _named(y0, pw, sc, kv)):
-        return _ode_select_plain(y0, _w3(pw, sc), sc, kv, cfg)
-    st = torch.empty(cfg.max_steps + 1, dtype=_F32, device=y0.device)
-    stats = torch.empty(3, dtype=torch.int32, device=y0.device)
-    keep, hc_p, hs_p = _select_host(sc, cfg)
-    dims, ptrs = _net_args(y0, pw, sc, kv)
-    _check(_lib().cf_ode_select(*dims, hc_p, hs_p, int(cfg.dt0 is None), cfg.max_steps, *ptrs,
-                                y0.data_ptr(), st.data_ptr(), stats.data_ptr(), _stream(y0)),
-           "ode_select")
-    LAUNCHES["ode_select"] += 1
-    return st, stats
-
-
-def ode_attempt(t, y, f0, h, pw, sc: SDEConsts, kv, cfg: ODESelectConfig) -> ODEAttempt:
-    """One controller attempt (the body of the selection kernel) from the
-    0-dim tensors t, h and the batch state y with f0 = f(t, y)."""
-    named = {**_named(y, pw, sc, kv), "f0": (f0, _F32, tuple(y.shape)),
-             "t": (t, _F32, ()), "h": (h, _F32, ())}
-    if not _on_cuda(y, named):
-        return _ode_attempt_plain(t, y, f0, h, _w3(pw, sc), sc, kv, cfg)
-    y1, f1 = torch.empty_like(y), torch.empty_like(y)
-    rec = torch.empty(3, dtype=_F32, device=y.device)
-    keep, hc_p, hs_p = _select_host(sc, cfg)
-    dims, ptrs = _net_args(y, pw, sc, kv)
-    _check(_lib().cf_ode_attempt(*dims, hc_p, hs_p, *ptrs, t.data_ptr(), h.data_ptr(),
-                                 y.data_ptr(), f0.data_ptr(), y1.data_ptr(), f1.data_ptr(),
-                                 rec.data_ptr(), _stream(y)), "ode_attempt")
-    LAUNCHES["ode_attempt"] += 1
-    return ODEAttempt(y1, f1, rec[0], rec[1], rec[2])
 
 
 def _replay_named(st, n):
@@ -380,3 +393,135 @@ def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv):
            "ode_replay_bwd")
     LAUNCHES["ode_replay_bwd"] += 1
     return ybar, d_wT, d_iwT
+
+
+# ---------------------------------------------------------------------------
+# Team kernels: the selection (both tiers) and the split2 tier's replay and
+# sweep; the weights stream from L2, each lane (the selection: the batch)
+# spread over a cluster of blocks
+# ---------------------------------------------------------------------------
+
+
+def _split_named(w, P, n_in, terms):
+    return {**{k: (w[k], _BF16, (P, P)) for k in terms}, "iwT": (w["iwT"], _F32, (n_in, P))}
+
+
+def _w_ptrs(w, terms):
+    return tuple(w[k].data_ptr() for k in terms) + (w["iwT"].data_ptr(),)
+
+
+_W3, _W2 = ("wT_hi", "wT_mid", "wT_lo"), ("wT_hi", "wT_mid")
+
+
+def _consts(sc, kv):
+    return sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), kv.data_ptr()
+
+
+def _w3_cuda(pw, sc: SDEConsts):
+    """The three-term split the selection kernel reads from global memory,
+    taken outside the kernel with the PyTorch ops of ``split_f32`` (the same
+    values the JAX kernel's in-kernel prepare hook, or the split2 tier's
+    ``select_args``, hold)."""
+    return {k: v.contiguous() for k, v in _w3(pw, sc).items()}
+
+
+def ode_select(y0, pw, sc: SDEConsts, kv, cfg: ODESelectConfig):
+    """The step-size selection for the batch state y0 (B, 3P) under one
+    controller, on the three-term split of ``pw`` = {"wT" (P, P), "iwT"
+    (n_in, P)} float32: the f32-exact engine's selection and the split2
+    tier's (``select_func`` on ``prepare_premixed_split``). kv (K, B, n_in).
+    Returns (step_times (M+1,) float32, stats (3,) int32 = naccept, nreject,
+    success)."""
+    if not _on_cuda(y0, _named(y0, pw, sc, kv)):
+        return _ode_select_plain(y0, _w3(pw, sc), sc, kv, cfg)
+    B, S = y0.shape
+    P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
+    dev = y0.device
+    st = torch.empty(cfg.max_steps + 1, dtype=_F32, device=dev)
+    stats = torch.empty(3, dtype=torch.int32, device=dev)
+    scratch = torch.empty(10 * B * S, dtype=_F32, device=dev)
+    w3 = _w3_cuda(pw, sc)
+    keep, hc_p, hs_p = _select_host(sc, cfg)
+    bg, adapt, kvp = _consts(sc, kv)
+    _check(_lib().cf_ode_select(B, P, n_in, K, hc_p, hs_p, int(cfg.dt0 is None), cfg.max_steps,
+                                bg, adapt, *_w_ptrs(w3, _W3), kvp, y0.data_ptr(),
+                                scratch.data_ptr(), st.data_ptr(), stats.data_ptr(),
+                                _stream(y0)), "ode_select")
+    LAUNCHES["ode_select"] += 1
+    return st, stats
+
+
+def ode_attempt(t, y, f0, h, pw, sc: SDEConsts, kv, cfg: ODESelectConfig) -> ODEAttempt:
+    """One controller attempt (the body of the selection kernel) from the
+    0-dim tensors t, h and the batch state y with f0 = f(t, y)."""
+    named = {**_named(y, pw, sc, kv), "f0": (f0, _F32, tuple(y.shape)),
+             "t": (t, _F32, ()), "h": (h, _F32, ())}
+    if not _on_cuda(y, named):
+        return _ode_attempt_plain(t, y, f0, h, _w3(pw, sc), sc, kv, cfg)
+    B, S = y.shape
+    P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
+    y1, f1 = torch.empty_like(y), torch.empty_like(y)
+    rec = torch.empty(3, dtype=_F32, device=y.device)
+    scratch = torch.empty(10 * B * S, dtype=_F32, device=y.device)
+    w3 = _w3_cuda(pw, sc)
+    keep, hc_p, hs_p = _select_host(sc, cfg)
+    bg, adapt, kvp = _consts(sc, kv)
+    _check(_lib().cf_ode_attempt(B, P, n_in, K, hc_p, hs_p, bg, adapt, *_w_ptrs(w3, _W3), kvp,
+                                 t.data_ptr(), h.data_ptr(), y.data_ptr(), f0.data_ptr(),
+                                 scratch.data_ptr(), y1.data_ptr(), f1.data_ptr(), rec.data_ptr(),
+                                 _stream(y)), "ode_attempt")
+    LAUNCHES["ode_attempt"] += 1
+    return ODEAttempt(y1, f1, rec[0], rec[1], rec[2])
+
+
+def ode_replay_fwd_split2(y0, st, w2, sc: SDEConsts, kv):
+    """The replay of the frozen grid st (n + 1,) from y0 (B, 3P) with the
+    two-term split (``prepare_premixed_split2`` output): (ys (n, B, 3P) the
+    step-start states, coeffs (n, 5, B, 3P) the dense-output rows)."""
+    B, S = y0.shape
+    P, n_in, K, n = S // 3, kv.shape[2], kv.shape[0], st.shape[0] - 1
+    named = {"y0": (y0, _F32, (B, S)), **_split_named(w2, P, n_in, _W2),
+             **_drift_named(sc, kv, B, P), **_replay_named(st, n)}
+    if not _on_cuda(y0, named):
+        return _ode_replay_fwd_plain(y0, st, w2, sc, kv)
+    dev = y0.device
+    ys = torch.empty((n, B, S), dtype=_F32, device=dev)
+    coeffs = torch.empty((n, 5, B, S), dtype=_F32, device=dev)
+    scratch = torch.empty(10 * B * S, dtype=_F32, device=dev)
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    bg, adapt, kvp = _consts(sc, kv)
+    _check(_lib().cf_ode_replay_fwd_split2(B, P, n_in, K, hc_p, n, bg, adapt, *_w_ptrs(w2, _W2),
+                                           kvp, st.data_ptr(), y0.data_ptr(),
+                                           scratch.data_ptr(), ys.data_ptr(), coeffs.data_ptr(),
+                                           _stream(y0)), "ode_replay_fwd_split2")
+    LAUNCHES["ode_replay_fwd_split2"] += 1
+    return ys, coeffs
+
+
+def ode_replay_bwd_emit(ys, cobar, st, w2, sc: SDEConsts, kv):
+    """The emit-mode reverse sweep of ``ode_replay_fwd_split2``: ys (n, B,
+    3P) the step-start states, cobar (n, 5, B, 3P) the cotangents of the
+    dense rows. Returns (ybar0 (B, 3P), ybar_steps (n, B, 3P)), ybar_steps[k]
+    the cotangent on step k's output from the later steps."""
+    n, B, S = ys.shape
+    P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
+    named = {"ys": (ys, _F32, (n, B, S)), "cobar": (cobar, _F32, (n, 5, B, S)),
+             **_split_named(w2, P, n_in, _W2), **_drift_named(sc, kv, B, P),
+             **_replay_named(st, n)}
+    if not _on_cuda(ys, named):
+        return _ode_replay_bwd_emit_plain(ys, cobar, st, w2, sc, kv)
+    dev = ys.device
+    ybar = torch.empty((B, S), dtype=_F32, device=dev)
+    ybar_steps = torch.empty_like(ys)
+    scratch = torch.empty(16 * B * S, dtype=_F32, device=dev)
+    hiT, midT = (w2[k].T.contiguous() for k in _W2)
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    bg, adapt, kvp = _consts(sc, kv)
+    _check(_lib().cf_ode_replay_bwd_emit(B, P, n_in, K, hc_p, n, bg, adapt, *_w_ptrs(w2, _W2)[:2],
+                                         hiT.data_ptr(), midT.data_ptr(), w2["iwT"].data_ptr(),
+                                         kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),
+                                         scratch.data_ptr(), ybar.data_ptr(),
+                                         ybar_steps.data_ptr(), _stream(ys)),
+           "ode_replay_bwd_emit")
+    LAUNCHES["ode_replay_bwd_emit"] += 1
+    return ybar, ybar_steps

@@ -426,6 +426,62 @@ def network_drift_premixed_split2_vjp(y, ct, pw2, fc):
                       frp, fc)
 
 
+# --- the two-term split's weight cotangent (``prepare_premixed_split2``) ---
+#
+# Rounding points, read off ``jax.make_jaxpr`` of the VJP of two
+# ``matmul_split2`` products sharing one ``prepare_premixed_split2``. Per
+# product, x_term^T c is contracted over the batch in float32 and rounded to
+# bf16: a = bf(x_hi^T c), b = bf(x_mid^T c). The reverse pass meets a drift
+# evaluation's products last to first, so with (+) a bf16 add
+#     w_hi_bar (+)= b, then (+)= a;   w_mid_bar (+)= a
+# (the first evaluation met assigns w_hi_bar = b (+) a, w_mid_bar = a), and,
+# once per ``prepare_premixed_split2`` (``split2_fold``), the chain back
+# through mid = bf(w - hi):  w_bar = w_mid_bar + (w_hi_bar (+) -w_mid_bar).
+
+
+def split2_terms(x):
+    """The two bf16 terms of the rates, as ``matmul_split2`` splits them."""
+    x_hi = _bf(x)
+    return x_hi, _bf(x - x_hi)
+
+
+def split2_accumulate(acc, x, c_cur):
+    """Add one drift evaluation's weight cotangents to the bf16
+    accumulators acc = (w_hi_bar, w_mid_bar) (None before the first). x and
+    c_cur are (..., B, P): each product is contracted over the batch axis B
+    alone, so leading axes (steps) keep their own accumulators."""
+    x_hi, x_mid = split2_terms(x)
+    a = _bf(_mm(x_hi.transpose(-1, -2), c_cur))
+    b = _bf(_mm(x_mid.transpose(-1, -2), c_cur))
+    if acc is None:
+        return _bf(b + a), a
+    hi, mid = acc
+    return _bf(_bf(hi + b) + a), _bf(mid + a)
+
+
+def split2_fold(acc):
+    """The cotangent of w from those of its two terms."""
+    hi, mid = acc
+    return mid + _bf(hi - mid)
+
+
+def network_drift_premixed_split2_weight_vjp(t, y, ct, pw2, fc, stim: Stimulus,
+                                             interp_fn=interp_at, acc=None):
+    """VJP of ``network_drift_premixed`` with the two-term weights for y
+    (..., B, 3P) and output cotangent ct: returns (state cotangent, the bf16
+    accumulators with this evaluation added to ``acc``, d iwT (..., n_in,
+    P)). Leading axes before B are separate evaluations (steps); fold the
+    accumulators with ``split2_fold`` once per ``prepare_premixed_split2``.
+    d iwT = ext^T c_cur in float32 (iwT is not split)."""
+    P = fc["bg"].shape[0]
+    fr, frp = fr_and_grad(y[..., :P] - y[..., P : 2 * P])
+    ext = interp_fn(t, stim.t0, stim.dt, stim.table)
+    c_cur = _cot_current(ct[..., :P], fc)
+    x_bar = split2_cotangent(c_cur, pw2["wT_hi"], pw2["wT_mid"])
+    return (_state_cot(y, ct, x_bar, frp, fc), split2_accumulate(acc, fr, c_cur),
+            _mm(ext.transpose(-1, -2), c_cur))
+
+
 def network_drift_premixed_gradbf16_vjp(t, y, ct, pw, fc, stim: Stimulus,
                                         interp_fn=interp_at):
     """VJP of ``network_drift_premixed_gradbf16`` for a batch of rows

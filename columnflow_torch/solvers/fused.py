@@ -4,7 +4,10 @@ in ``columnflow/solvers/fused.py``).
 ``odeint_dopri5_fused`` (below, second half): adaptive dopri5 with the
 selection, the dense-output replay and its reverse sweep each one kernel
 (``kernels.network_ode``), specialised to the parity task's deterministic
-drift with ``arg_grads="kernel"``.
+drift: the f32-exact engine (three-term split, weight gradients in the
+reverse-sweep kernel) and the ``fused-split2`` tier (two-term split, the
+reverse sweep in emit mode, weight gradients outside the kernels,
+``ode_outer_arg_grads``).
 
 ``sdeint_fused``: the lane-batched variable-step SRA1 replay with its
 gradient (the 2-D ``ts_steps`` mode with ``arg_grads="outer"``).
@@ -29,8 +32,11 @@ import torch
 from columnflow_torch.kernels.network_ode import (
     ODESelectConfig,
     ode_replay_bwd,
+    ode_replay_bwd_emit,
     ode_replay_fwd,
+    ode_replay_fwd_split2,
     ode_select,
+    step_vjp,
 )
 from columnflow_torch.kernels.network_sde import SIGMA, SDEConsts, replay_bwd, replay_fwd
 from columnflow_torch.models.column import Stimulus
@@ -193,9 +199,87 @@ class _ODEReplay(torch.autograd.Function):
         return d_wT, d_iwT, ybar, None, None
 
 
+# The differentiable weights' size above which ``arg_grads="auto"`` takes
+# the weight gradients outside the reverse sweep (columnflow/solvers/fused.py:
+# 571-574): more than 1 MiB.
+OUTER_ARG_BYTES = 1 << 20
+
+
+def outer_by_default(P: int, n_in: int) -> bool:
+    """Whether ``arg_grads="auto"`` takes the weight gradients outside the
+    reverse sweep for P populations and n_in inputs: the float32 wT (P, P)
+    and iwT (n_in, P) hold more than 1 MiB."""
+    return 4 * (P * P + n_in * P) > OUTER_ARG_BYTES
+
+
+def resolve_arg_grads(pw: dict, arg_grads: str = "auto") -> str:
+    """JAX's rule for where the weight gradients are taken: ``"auto"`` is
+    ``"outer"`` when the differentiable weights hold more than 1 MiB, else
+    ``"kernel"``."""
+    if arg_grads not in ("auto", "kernel", "outer"):
+        raise ValueError(f"unknown arg_grads mode: {arg_grads!r}")
+    if arg_grads != "auto":
+        return arg_grads
+    return "outer" if outer_by_default(*pw["wT"].shape[:1], pw["iwT"].shape[0]) else "kernel"
+
+
+def ode_outer_arg_grads(ys, ybar_steps, cobar, st, pw: dict, sc: SDEConsts, kv,
+                        block: int = 128):
+    """The weight gradients of the split2 replay (``_outer_arg_grads``,
+    ``columnflow/solvers/fused.py:645-686``): for every accepted step k,
+    the VJP of the replay step at (ys[k], st[k], st[k+1] - st[k]) with
+    respect to wT and iwT through ``prepare_premixed_split2``, fed the
+    cotangent ybar_steps[k] on the step's output and cobar[k] on its dense
+    rows; summed over the steps in float32. The steps run ``block`` at a
+    time as one batched ``step_vjp``; each keeps its own bf16 accumulators,
+    folded through the split once per step, as ``jax.vmap`` of ``jax.vjp``
+    does. Only the n accepted steps are passed, so there is no padding.
+    A block's temporaries are (block, P, P) float64 (0.7 GB at P = 832); the
+    pass is a few hundred PyTorch launches per block whatever its size, so
+    large blocks keep the launches' share small."""
+    w2 = prepare_premixed_split2({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
+    d_wT = torch.zeros_like(pw["wT"], dtype=torch.float32)
+    d_iwT = torch.zeros_like(pw["iwT"], dtype=torch.float32)
+    t0s, hs = st[:-1], st[1:] - st[:-1]
+    for s in range(0, ys.shape[0], block):
+        sl = slice(s, s + block)
+        _, gw, giw = step_vjp(t0s[sl, None, None], hs[sl, None, None], ys[sl], ybar_steps[sl],
+                              cobar[sl], w2, sc, kv)
+        d_wT += gw.sum(0)
+        d_iwT += giw.sum(0)
+    return d_wT, d_iwT
+
+
+class _ODEReplaySplit2(torch.autograd.Function):
+    """The split2 tier with ``arg_grads="outer"``. Forward:
+    ``ode_replay_fwd_split2``; backward: ``ode_replay_bwd_emit`` for the
+    state cotangent and each step's output cotangent, then
+    ``ode_outer_arg_grads`` for wT and iwT."""
+
+    @staticmethod
+    def forward(ctx, wT, iwT, y0, st, spec):
+        sc, kv = spec
+        pw = {"wT": wT.detach(), "iwT": iwT.detach()}
+        w2 = {k: v.contiguous() for k, v in prepare_premixed_split2(pw, sc.fc)[0].items()}
+        ys, coeffs = ode_replay_fwd_split2(y0.detach().contiguous(), st, w2, sc, kv)
+        ctx.spec, ctx.pw, ctx.w2 = spec, pw, w2
+        ctx.save_for_backward(ys, st)
+        return coeffs
+
+    @staticmethod
+    def backward(ctx, coeffs_bar):
+        sc, kv = ctx.spec
+        ys, st = ctx.saved_tensors
+        cobar = coeffs_bar.to(torch.float32).contiguous()
+        ybar, ybar_steps = ode_replay_bwd_emit(ys, cobar, st, ctx.w2, sc, kv)
+        d_wT, d_iwT = ode_outer_arg_grads(ys, ybar_steps, cobar, st, ctx.pw, sc, kv)
+        return d_wT, d_iwT, ybar, None, None
+
+
 def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e-7,
                         atol: float = 1e-9, dt0: float | None = None, max_steps: int = 2048,
-                        grid=None, return_stats: bool = False):
+                        grid=None, return_stats: bool = False, split2: bool = False,
+                        arg_grads: str = "auto"):
     """Adaptive dopri5 of the premixed column network over the batch state
     y0 (B, 3P) under one shared controller, with dense output at ``ts``:
     returns ys (len(ts), B, 3P) (and ``ODESolverStats`` with
@@ -203,14 +287,36 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
     B, n_in) the knot values. Gradients are discrete backpropagation
     through the frozen accepted steps and reach pw and y0.
 
+    ``split2=False``: the f32-exact engine, the three-term split
+    (``prepare_premixed_split``) everywhere, the weight gradients inside the
+    reverse-sweep kernel. ``split2=True``: the JAX package's ``fused-split2``
+    tier (``columnflow/tasks/parity.py:452-484``): the selection keeps the
+    three-term drift on a split taken outside the kernel, so the frozen grid
+    is the exact engine's; values and gradients use the two-term split
+    (``prepare_premixed_split2``). ``arg_grads`` as in the JAX package
+    (``resolve_arg_grads``); the split2 tier is ported with ``"outer"``
+    only (the reverse sweep in emit mode, then ``ode_outer_arg_grads``), and
+    ``"kernel"`` raises. The exact engine takes its weight gradients in the
+    kernel whatever ``arg_grads`` says: the two modes sum the same per-step
+    VJPs, in another order.
+
     ``grid`` = (step_times (M+1,), naccept) skips the selection and replays
     that frozen grid (tests hand in the JAX package's grid this way)."""
+    if resolve_arg_grads(pw, arg_grads) == "kernel" and split2:
+        raise NotImplementedError(
+            "the split2 tier with its weight gradients in the reverse-sweep kernel "
+            "(arg_grads='kernel', or 'auto' with weights of at most 1 MiB: 63 columns or "
+            "fewer with 4 inputs) is not ported: ROADMAP.md B8s (B8 kernel mode with the "
+            "split2 prepare); "
+            "arg_grads='outer' runs the ported tier")
     ts = torch.as_tensor(ts, dtype=torch.float32, device=y0.device)
     ts_host = ts.detach().cpu()
     max_steps = round_max_steps(tuple(y0.shape), max_steps)
     cfg = ODESelectConfig(float(ts_host[0]), float(ts_host[-1]), rtol, atol, dt0, max_steps)
     kv = kv.detach().contiguous()
     if grid is None:
+        # Both tiers select on the three-term split (the split2 tier's
+        # select_func), so the frozen grid is the exact engine's.
         step_times, stats = ode_select(
             y0.detach().contiguous(),
             {k: v.detach().contiguous() for k, v in pw.items()}, sc, kv, cfg)
@@ -224,7 +330,8 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
     # so the sweeps skip the max_steps padding.
     n = max(int(naccept), 1)
     st = step_times[:n + 1].contiguous()
-    coeffs = _ODEReplay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv))     # (n, 5, B, 3P)
+    replay = _ODEReplaySplit2 if split2 else _ODEReplay
+    coeffs = replay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv))     # (n, 5, B, 3P)
 
     # Dense output: Hairer's interpolant of the step that holds each ts.
     idx = torch.clamp(torch.searchsorted(st, ts, right=True) - 1, 0, n - 1)

@@ -11,7 +11,10 @@ ported, selected as in the JAX package:
   integrated as one ODE state by adaptive dopri5 at rtol 1e-7 / atol 1e-9
   (the fused engine's own tolerances) under one shared controller: step-size
   selection, the dense-output replay and its reverse sweep each one kernel
-  (``solvers.fused.odeint_dopri5_fused``);
+  (``solvers.fused.odeint_dopri5_fused``). Below 104 columns the f32-exact
+  engine; from 104 through 312 columns (``split2=True``) the
+  ``fused-split2`` tier, whose weight gradients are taken outside the
+  kernels;
 - stochastic (``stochastic=True``, the 104-column flagship's flags
   ``--stochastic --adaptive --fused --fused-pass --select-bf16 --grad-bf16
   --split2``): the Ito SDE with adaptive step-doubling SRA1, per-lane
@@ -25,16 +28,18 @@ optional clipping, a skip on non-finite (and, unclipped, exploding)
 gradients, Adam and the weight clamps.
 
     python -m columnflow_torch.tasks.parity --smoke                # on the card
+    python -m columnflow_torch.tasks.parity --smoke --columns-per-area 64,32,8  # split2 tier
     python -m columnflow_torch.tasks.parity --smoke --device cpu
     python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
         --fused --fused-pass --select-bf16 --grad-bf16 --split2
 
 Every other combination of the JAX package's flags raises
-``NotImplementedError`` naming its ROADMAP.md item: ``--engine xla`` (the
-unfused ``solvers/dopri.py``), ``--engine fused-split2`` or a deterministic
-``--split2`` (the 104-column deterministic tier), ``--method`` other than
-dopri5 (the other tableaus), a stochastic run with only some of the
-flagship's flags (the XLA selection, the fixed-grid SDE).
+``NotImplementedError`` naming its ROADMAP.md item: ``--engine xla`` or past
+312 columns (the unfused ``solvers/dopri.py``), the split2 tier at 63
+columns or fewer (its weight gradients in the kernel), ``--method`` other
+than dopri5 (the other tableaus), a stochastic run with only some of the
+flagship's flags (the XLA selection, the fixed-grid SDE). ``--split2``
+without ``--fused`` is a ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from columnflow_torch.models.network import (
 )
 from columnflow_torch.ops.interp import step_table_knots
 from columnflow_torch.ops.transfer import compute_firing_rate
-from columnflow_torch.solvers.fused import odeint_dopri5_fused
+from columnflow_torch.solvers.fused import odeint_dopri5_fused, outer_by_default
 from columnflow_torch.solvers.sde_adaptive import PremixedNetworkSDE, sdeint_adaptive_batch
 from columnflow_torch.tasks.wta import linspace
 from columnflow_torch.train.optim import adam, global_norm, mask_grads
@@ -113,12 +118,14 @@ def sde_model(params, task: ParityTask, stims_raw) -> PremixedNetworkSDE:
 
 def batched_rollout(params, task: ParityTask, stims_raw, lane_words=None,
                     differentiable: bool = True, adaptive_bptt_every: int | None = None,
-                    grid=None, return_stats: bool = False, stochastic: bool = False):
+                    grid=None, return_stats: bool = False, stochastic: bool = False,
+                    split2: bool = False):
     """Integrate a batch of input patterns: (B, n_inputs) -> (B, T, 3P).
 
     Deterministic (default): fused dopri5 over the whole batch state with
     the task's max_steps, at the fused engine's rtol 1e-7 / atol 1e-9 (the
-    JAX package's fused path passes neither tolerance on either).
+    JAX package's fused path passes neither tolerance on either); with
+    ``split2`` the ``fused-split2`` tier.
     ``grid`` = (step_times, naccept) replays a given frozen grid.
 
     ``stochastic``: the flagship path, at rtol = atol = 1e-3. ``lane_words``
@@ -137,7 +144,7 @@ def batched_rollout(params, task: ParityTask, stims_raw, lane_words=None,
         else:
             ys, stats = odeint_dopri5_fused(model.pw, model.sc, model.kv, y0, task.ts,
                                             max_steps=task.max_steps, grid=grid,
-                                            return_stats=True)
+                                            return_stats=True, split2=split2)
             ys = ys.transpose(0, 1)
     return (ys, stats) if return_stats else ys
 
@@ -158,12 +165,15 @@ def parity_targets(stims_raw, level: float = 15.0):
 
 
 def make_train_step(task: ParityTask, stochastic: bool = False, loss_scale: float = 1.0,
-                    bptt_every: int | None = None, clip_grad_norm: float | None = None):
+                    bptt_every: int | None = None, clip_grad_norm: float | None = None,
+                    split2: bool = False):
     """The training step. ``stochastic=False``: the JAX package's
-    ``make_train_step(task, use_fused=True)``, deterministic fused dopri5;
-    ``train_step(stims_raw, grid=None)``. ``stochastic=True``: its flags
-    ``use_fused, stochastic, adaptive, fused_pass, select_bf16, grad_bf16,
-    split2``; ``train_step(stims_raw, lane_words, grid=None)``.
+    ``make_train_step(task, use_fused=True)``, deterministic fused dopri5,
+    or with ``split2`` its ``make_train_step(task, use_fused=True,
+    split2=True)``, the ``fused-split2`` tier; ``train_step(stims_raw,
+    grid=None)``. ``stochastic=True``: its flags ``use_fused, stochastic, adaptive,
+    fused_pass, select_bf16, grad_bf16, split2``; ``train_step(stims_raw,
+    lane_words, grid=None)``.
 
     The step updates ``task.params`` in place (unless the update is
     skipped), leaves the masked, clipped gradients in their ``.grad``, and
@@ -173,6 +183,9 @@ def make_train_step(task: ParityTask, stochastic: bool = False, loss_scale: floa
     if bptt_every is not None and not stochastic:
         raise ValueError("bptt_every truncates the stochastic path's reverse sweep; "
                          "the deterministic step has no truncation")
+    if stochastic and split2:
+        raise ValueError("split2 selects the deterministic engine's tier; the stochastic "
+                         "step always runs its own split2 replay")
 
     def train_step(stims_raw, lane_words=None, grid=None):
         if stochastic and lane_words is None:
@@ -180,7 +193,8 @@ def make_train_step(task: ParityTask, stochastic: bool = False, loss_scale: floa
         task.optimizer.zero_grad(set_to_none=True)
         ys, stats = batched_rollout(params, task, stims_raw, lane_words,
                                     adaptive_bptt_every=bptt_every, grid=grid,
-                                    return_stats=True, stochastic=stochastic)
+                                    return_stats=True, stochastic=stochastic,
+                                    split2=split2)
         out = readout(ys, params, task.net)
         loss = torch.mean(torch.abs(out - parity_targets(stims_raw)))
         (loss * loss_scale).backward()
@@ -215,8 +229,9 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
                  time_steps: int | None = None, max_steps: int | None = None,
                  stochastic: bool = False, loss_scale: float = 1.0,
                  bptt_every: int | None = None, clip_grad_norm: float | None = None,
-                 smoke: bool = False, device=None):
-    """Training run, deterministic unless ``stochastic``. Batches (and the
+                 smoke: bool = False, device=None, split2: bool = False):
+    """Training run, deterministic unless ``stochastic`` (with ``split2``
+    the deterministic ``fused-split2`` tier). Batches (and the
     stochastic path's tree key words) are drawn from a ``torch.Generator``
     seeded with ``seed``. ``smoke``: 8 samples, batch 4, and unless given
     200 grid points and max_steps 1024 (otherwise TIME_STEPS and 3072).
@@ -232,7 +247,8 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
                       n_inputs=n_inputs, time_steps=time_steps, max_steps=max_steps,
                       device=dev)
     step = make_train_step(task, stochastic=stochastic, loss_scale=loss_scale,
-                           bptt_every=bptt_every, clip_grad_norm=clip_grad_norm)
+                           bptt_every=bptt_every, clip_grad_norm=clip_grad_norm,
+                           split2=split2)
 
     def lane_words(n, g=gen):
         if not stochastic:
@@ -252,7 +268,7 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
     with torch.no_grad():
         ys = batched_rollout(task.params, task, eval_stims,
                              lane_words(eval_stims.shape[0], eval_gen),
-                             differentiable=False, stochastic=stochastic)
+                             differentiable=False, stochastic=stochastic, split2=split2)
         out = readout(ys, task.params, task.net)
     targets = parity_targets(eval_stims)
     acc = float(torch.mean(((out > TARGET_EVEN / 2) == (targets > 0)).float()))
@@ -261,14 +277,21 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
 
 
 _FLAGSHIP_FLAGS = ("adaptive", "fused", "fused_pass", "select_bf16", "grad_bf16", "split2")
+# resolve_engine's bands (columnflow/tasks/parity.py:725-726): the split2
+# tier from 104 through 312 columns, the XLA engine past that.
+_SPLIT2_MIN_COLUMNS, _FUSED_MAX_COLUMNS = 104, 312
 
 
-def resolve_mode(args, total_columns: int) -> bool:
-    """Which of the two ported steps the JAX package's flags select: False
-    for the deterministic fused dopri5 step (``--fused`` or ``--engine
-    fused`` alone, or no solver flag below 104 columns, where the JAX
-    package's ``--engine auto`` picks that engine), True for the stochastic
-    flagship (all of its flags). Anything else raises
+def resolve_mode(args, total_columns: int) -> dict:
+    """The ported step that the JAX package's flags select, as
+    ``train_parity``'s ``stochastic`` and ``split2``. As in the JAX command
+    line, any explicit solver flag overrides ``--engine``: ``--fused``
+    alone is the f32-exact engine, ``--fused --split2`` the split2 tier,
+    ``--split2`` without ``--fused`` a ValueError (the JAX package's
+    ``batched_rollout`` refuses it). Without such a flag ``--engine`` (auto
+    by default) picks: fused, fused-split2, or by the column count the
+    exact engine below 104 columns and the split2 tier through 312. The
+    stochastic flagship takes all seven of its flags. Anything else raises
     ``NotImplementedError`` naming the ROADMAP.md item that ports it."""
     if args.method != "dopri5":
         raise NotImplementedError(
@@ -283,28 +306,34 @@ def resolve_mode(args, total_columns: int) -> bool:
                 f"{', '.join('--' + f.replace('_', '-') for f in missing) or 'none'}; "
                 f"--engine {args.engine}): the XLA selection is ROADMAP.md A5a, the "
                 "fixed-grid SDE A6")
-        return True
-    if args.engine == "xla":
-        raise NotImplementedError("--engine xla: the unfused solvers/dopri.py is not ported "
-                                  "(ROADMAP.md A7)")
-    auto = args.engine in (None, "auto") and not args.fused
-    if args.engine == "fused-split2" or args.split2 or (auto and total_columns >= 104):
-        why = ""
-        if auto and total_columns >= 104 and not args.split2:
-            why = (f"at {total_columns} columns --engine auto picks the split2 tier or, past "
-                   "312 columns, the XLA engine (--engine fused pins the ported engine): ")
-        raise NotImplementedError(
-            why + "the deterministic split2 tier (--engine fused-split2 / --split2: the "
-            "reverse sweep in emit mode with the outer weight gradients) is not ported "
-            "(ROADMAP.md B8')")
+        return {"stochastic": True, "split2": False}
     stray = [f for f in ("adaptive", "fused_pass", "select_bf16", "grad_bf16")
              if getattr(args, f)]
     if stray:
         raise NotImplementedError(
             f"--{stray[0].replace('_', '-')} belongs to the stochastic step (add "
             "--stochastic and the flagship's other flags); the deterministic step takes "
-            "no solver flag (ROADMAP.md A5a)")
-    return False
+            "no other solver flag (ROADMAP.md A5a)")
+    if args.split2 and not args.fused:
+        raise ValueError("split2 is the fused engines' scale tier; it requires --fused "
+                         "(or --engine fused-split2)")
+    if args.fused:
+        split2 = args.split2
+    else:
+        engine = args.engine or "auto"
+        if engine == "xla" or (engine == "auto" and total_columns > _FUSED_MAX_COLUMNS):
+            raise NotImplementedError(
+                f"--engine {engine} at {total_columns} columns: the XLA engine (the unfused "
+                "solvers/dopri.py) is not ported (ROADMAP.md A7)")
+        split2 = engine == "fused-split2" or (
+            engine == "auto" and total_columns >= _SPLIT2_MIN_COLUMNS)
+    if split2 and not outer_by_default(8 * total_columns, 4):
+        raise NotImplementedError(
+            f"the split2 tier at {total_columns} columns takes its weight gradients in the "
+            "reverse-sweep kernel (arg_grads 'auto' -> 'kernel': the weights hold at most "
+            "1 MiB), which is not ported: ROADMAP.md B8s (B8 kernel mode with the split2 "
+            "prepare)")
+    return {"stochastic": False, "split2": split2}
 
 
 def main(argv=None):
@@ -320,12 +349,14 @@ def main(argv=None):
     for flag in ("fused", "stochastic", "adaptive", "fused-pass", "select-bf16",
                  "grad-bf16", "split2"):
         p.add_argument(f"--{flag}", action="store_true",
-                       help="the JAX package's solver flag: none (or --fused alone) runs "
-                            "the deterministic fused dopri5 step, all seven the stochastic "
-                            "flagship; any other combination raises NotImplementedError")
+                       help="the JAX package's solver flag: --fused alone runs the "
+                            "f32-exact fused dopri5 step, --fused --split2 its split2 tier, "
+                            "all seven the stochastic flagship; any other combination "
+                            "raises")
     p.add_argument("--engine", choices=("auto", "fused", "xla", "fused-split2"), default=None,
-                   help="deterministic engine: auto and fused are the ported fused dopri5; "
-                        "xla and fused-split2 raise NotImplementedError")
+                   help="deterministic engine when no solver flag is given: auto (by "
+                        "the column count: fused below 104, fused-split2 through 312), "
+                        "fused, fused-split2; xla raises NotImplementedError")
     p.add_argument("--method", default="dopri5",
                    help="only dopri5 is ported; anything else raises NotImplementedError")
     p.add_argument("--bptt-every", type=int, default=None)
@@ -344,7 +375,7 @@ def main(argv=None):
     _, hist = train_parity(
         nr_samples=args.samples, batch_size=args.batch_size, seed=args.seed,
         columns_per_area=cpa, max_steps=args.max_steps,
-        stochastic=resolve_mode(args, sum(cpa)),
+        **resolve_mode(args, sum(cpa)),
         loss_scale=args.loss_scale,
         bptt_every=args.bptt_every, clip_grad_norm=args.clip_grad_norm, smoke=args.smoke,
         device=args.device)

@@ -31,9 +31,11 @@ bf16 roundings, and a rate an ulp apart can round one element a bf16 ulp,
 Column-network dopri5 kernels, at the reference width (13 columns, P = 104,
 batch 4 under one controller, 200 grid points). Kernel and plain version sum
 every product exactly and round every float32 operation alike, so they are
-held bit for bit: the whole selection (accepted times and counts), single
-attempts, the replay's states and dense rows, the reverse sweep's state and
-weight cotangents.
+held bit for bit: the whole selection (accepted times and counts, 4 and 16
+lanes), single attempts, the replay's states and dense rows, the reverse
+sweep's state and weight cotangents; the split2 tier's replay and emit-mode
+sweep; its train step against the same step on the CPU (loss rel 1e-5,
+gradients rel L2 1e-3, as the exact step's).
 """
 
 import pytest
@@ -445,11 +447,13 @@ def test_ode_replay_kernels_equal_plain(ode):
 
 def test_ode_wrappers_raise_on_a_batch_too_large_for_one_block(ode):
     d = ode
-    B = 16  # ten (B, 312) states and the split weights exceed a block's shared memory
+    B = 16  # sixteen (B, 312) states and the split weights exceed a block's shared memory
     kv = d["kv"][:, :1].expand(-1, B, -1).contiguous()
-    with pytest.raises(RuntimeError, match="ode_select"):
-        no.ode_select(torch.zeros(B, 3 * d["P"], device=kv.device), d["pw"], d["sc"], kv,
-                      d["cfg"])
+    st = torch.linspace(0.0, 1e-3, 3, device=kv.device)
+    with pytest.raises(RuntimeError, match="ode_replay_bwd"):
+        no.ode_replay_bwd(torch.zeros(2, B, 3 * d["P"], device=kv.device),
+                          torch.zeros(2, 5, B, 3 * d["P"], device=kv.device), st, d["pw"],
+                          d["sc"], kv)
 
 
 def _ode_step(dev, grid=None, params=None):
@@ -491,5 +495,95 @@ def test_ode_kernels_never_reach_the_plain_versions(dev, monkeypatch):
                  "_ode_replay_bwd_plain"):
         monkeypatch.setattr(no, name, boom)
     rec, _, _, _ = _ode_step(dev)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The split2 tier's kernels (teams of blocks, weights from L2), at the
+# reference width so that the plain versions stay quick; chip_smoke.py holds
+# them at 104 columns.
+# ---------------------------------------------------------------------------
+
+
+def test_ode_select_takes_16_lanes(ode):
+    """All 16 four-bit patterns as one batch state: the selection's team
+    holds them (a selection that holds the batch in one block runs out of
+    shared memory past ~6 lanes at 13 columns)."""
+    d = ode
+    B = 16
+    kv = d["kv"][:, :1].expand(-1, B, -1).contiguous()
+    y0 = torch.zeros(B, 3 * d["P"], device=kv.device)
+    st, stats = no.ode_select(y0, d["pw"], d["sc"], kv, d["cfg"])
+    st_p, stats_p = no._ode_select_plain(y0, d["w3"], d["sc"], kv, d["cfg"])
+    torch.cuda.synchronize()
+    assert int(stats[2]) == 1 and stats.tolist() == stats_p.tolist() and torch.equal(st, st_p)
+    t, y = st[5].clone(), torch.rand(y0.shape, device=kv.device) * 10
+    f0 = no.ode_drift(t, y, d["w3"], d["sc"], kv).contiguous()
+    h = (st[6] - st[5]) * 3.0
+    a = no.ode_attempt(t, y, f0, h, d["pw"], d["sc"], kv, d["cfg"])
+    a_p = no._ode_attempt_plain(t, y, f0, h, d["w3"], d["sc"], kv, d["cfg"])
+    for g, w in zip(a, a_p):
+        assert torch.equal(g, w)
+
+
+def test_ode_split2_replay_kernels_equal_plain(ode):
+    d = ode
+    w2 = {k: v.contiguous() for k, v in nw.prepare_premixed_split2(d["pw"], d["sc"].fc)[0].items()}
+    st, stats = no.ode_select(d["y0"], d["pw"], d["sc"], d["kv"], d["cfg"])
+    n = min(int(stats[0]), 64)
+    stn = st[:n + 1].contiguous()
+    ys, co = no.ode_replay_fwd_split2(d["y0"], stn, w2, d["sc"], d["kv"])
+    ys_p, co_p = no._ode_replay_fwd_plain(d["y0"], stn, w2, d["sc"], d["kv"])
+    assert torch.isfinite(co).all() and torch.equal(ys, ys_p) and torch.equal(co, co_p)
+    gen = torch.Generator(device=ys.device).manual_seed(1)
+    cobar = torch.randn(co.shape, generator=gen, device=ys.device)
+    got = no.ode_replay_bwd_emit(ys, cobar, stn, w2, d["sc"], d["kv"])
+    want = no._ode_replay_bwd_emit_plain(ys, cobar, stn, w2, d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("ybar", "ybar_steps")):
+        assert torch.isfinite(g).all() and torch.equal(g, w), name
+
+
+def _split2_step(dev, monkeypatch, grid=None, params=None):
+    from columnflow_torch.solvers import fused
+
+    monkeypatch.setattr(fused, "OUTER_ARG_BYTES", 0)  # outer mode at 13 columns
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=(8, 4, 1), n_inputs=4, time_steps=100,
+                             max_steps=1024, device=dev)
+    if params is not None:
+        with torch.no_grad():
+            for k, p in task.params.items():
+                p.copy_(params[k])
+    params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+    step = parity.make_train_step(task, split2=True)
+    rec = step(torch.tensor(ODE_STIMS, device=dev), grid=grid)
+    return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}, params0
+
+
+def test_split2_parity_step_on_cuda_matches_cpu(dev, monkeypatch):
+    before = dict(no.LAUNCHES)
+    rec, grads, params0 = _split2_step(dev, monkeypatch)
+    torch.cuda.synchronize()
+    for k in ("ode_select", "ode_replay_fwd_split2", "ode_replay_bwd_emit"):
+        assert no.LAUNCHES[k] == before[k] + 1, k
+    st = rec["stats"]
+    assert bool(st.success) and bool(torch.isfinite(rec["loss"]))
+    rec_c, grads_c, _ = _split2_step(torch.device("cpu"), monkeypatch,
+                                     grid=(st.step_times.cpu(), int(st.naccept)), params=params0)
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        assert float((g - grads_c[k]).norm()) <= 1e-3 * float(grads_c[k].norm()) + 1e-30, k
+
+
+def test_split2_kernels_never_reach_the_plain_versions(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_ode_select_plain", "_ode_attempt_plain", "_ode_replay_fwd_plain",
+                 "_ode_replay_bwd_emit_plain"):
+        monkeypatch.setattr(no, name, boom)
+    rec, _, _ = _split2_step(dev, monkeypatch)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))

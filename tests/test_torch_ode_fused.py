@@ -208,7 +208,7 @@ def test_step_vjp_matches_autograd_in_float64(setup):
     iwT = s["pw"]["iwT"].double().requires_grad_(True)
     t0, h = torch.tensor(0.0295, dtype=torch.float64), torch.tensor(3e-4, dtype=torch.float64)
     w3 = tn.prepare_premixed_split({"wT": wT, "iwT": iwT}, fc64)[0]
-    y1, co = no.step_with_coeffs(lambda t_, y_: no.drift_split3(t_, y_, w3, sc64, kv64), t0, h, y)
+    y1, co = no.step_with_coeffs(lambda t_, y_: no.ode_drift(t_, y_, w3, sc64, kv64), t0, h, y)
     gen = torch.Generator().manual_seed(3)
     ybar = torch.randn(y1.shape, generator=gen, dtype=torch.float64)
     cbar = torch.randn(co.shape, generator=gen, dtype=torch.float64)
@@ -228,7 +228,7 @@ def test_initial_step_matches_jax(setup):
     want = float(jf._initial_step_size_k(s["drift"], 0.0, y0, s["drift"](0.0, y0, *args),
                                          1e-7, 1e-9, *args))
     w3 = tn.prepare_premixed_split(s["pw"], s["sc"].fc)[0]
-    f = lambda t_, y_: no.drift_split3(t_, y_, w3, s["sc"], s["kv"])  # noqa: E731
+    f = lambda t_, y_: no.ode_drift(t_, y_, w3, s["sc"], s["kv"])  # noqa: E731
     t0, y0t = torch.tensor(0.0), torch.zeros_like(torch.as_tensor(s["y"]))
     got = float(no.initial_step_size(f, t0, y0t, f(t0, y0t), 1e-7, 1e-9))
     assert got == pytest.approx(want, rel=1e-3)

@@ -332,24 +332,39 @@ def _parse(argv):
     return seen
 
 
-@pytest.mark.parametrize("argv,stochastic", [
-    ([], False), (["--fused"], False), (["--engine", "fused"], False),
-    (["--engine", "auto"], False),
-    (["--engine", "fused", "--columns-per-area", "64,32,8"], False),
-    (FLAGSHIP_ARGV, True), (FLAGSHIP_ARGV + ["--columns-per-area", "64,32,8"], True)])
-def test_command_line_selects_the_step(argv, stochastic, capsys):
+@pytest.mark.parametrize("argv,stochastic,split2", [
+    ([], False, False), (["--fused"], False, False), (["--engine", "fused"], False, False),
+    (["--engine", "auto"], False, False),
+    (["--engine", "fused", "--columns-per-area", "64,32,8"], False, False),
+    (FLAGSHIP_ARGV, True, False), (FLAGSHIP_ARGV + ["--columns-per-area", "64,32,8"], True, False),
+    # The fused-split2 tier: auto from 104 through 312 columns, or pinned.
+    (["--columns-per-area", "64,32,8"], False, True),
+    (["--engine", "fused-split2", "--columns-per-area", "64,32,8"], False, True),
+    (["--fused", "--split2", "--columns-per-area", "64,32,8"], False, True),
+    (["--columns-per-area", "192,96,24"], False, True),
+    (["--fused", "--columns-per-area", "64,32,8"], False, False)])
+def test_command_line_selects_the_step(argv, stochastic, split2, capsys):
     seen = _parse(argv + ["--smoke", "--device", "cpu"])
-    assert seen["stochastic"] is stochastic and seen["smoke"] and seen["device"] == "cpu"
+    assert seen["stochastic"] is stochastic and seen["split2"] is split2
+    assert seen["smoke"] and seen["device"] == "cpu"
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--split2"], "B8'"), (["--engine", "fused-split2"], "B8'"),
-    (["--columns-per-area", "64,32,8"], "B8'"),
-    (["--engine", "xla"], "A7"), (["--method", "tsit5"], "A7"),
-    (["--stochastic"], "A5a"), (["--stochastic", "--adaptive", "--fused"], "A5a"),
-    (FLAGSHIP_ARGV[:-1], "A5a"), (["--select-bf16"], "A5a"), (["--fused-pass", "--fused"], "A5a")])
-def test_unported_command_lines_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("argv,exc,item", [
+    (["--split2"], ValueError, "requires --fused"),
+    (["--engine", "fused-split2"], NotImplementedError, "B8s"),
+    (["--fused", "--split2"], NotImplementedError, "B8s"),
+    (["--columns-per-area", "256,128,32"], NotImplementedError, "A7"),
+    (["--engine", "xla"], NotImplementedError, "A7"),
+    (["--method", "tsit5"], NotImplementedError, "A7"),
+    (["--stochastic"], NotImplementedError, "A5a"),
+    (["--stochastic", "--adaptive", "--fused"], NotImplementedError, "A5a"),
+    (FLAGSHIP_ARGV[:-1], NotImplementedError, "A5a"),
+    (["--select-bf16"], NotImplementedError, "A5a"),
+    (["--fused-pass", "--fused"], NotImplementedError, "A5a")])
+def test_unported_command_lines_raise(argv, exc, item):
+    # At the default 13 columns the split2 tier would take its weight
+    # gradients in the kernel (B8s); past 312 columns auto picks XLA (A7).
+    with pytest.raises(exc, match=item):
         _parse(argv + ["--smoke", "--device", "cpu"])
 
 
