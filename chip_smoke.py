@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's training steps on one CUDA card: the WTA
 step, the 104-column stochastic-adaptive parity step, the deterministic
-fused-dopri5 parity step and its 104-column fused-split2 tier.
+fused-dopri5 parity step and its 104-column fused-split2 tier, and the XOR
+task's deterministic and stochastic steps.
 
     python3 chip_smoke.py
 
@@ -70,7 +71,23 @@ gradients outside the kernels):
 15. the command line: python -m columnflow_torch.tasks.parity
    --columns-per-area 64,32,8 --smoke --max-steps 4096 trains the tier on
    the card.
-Then the kernels line (every kernel of the four paths), the card's name
+XOR (3 columns = 24 populations, state 72, the four conditions as one batch,
+1000 grid points over 1 s, max_steps 3072 -> 3135; deterministic dopri5 at
+rtol 1e-7 / atol 1e-9, and SRA1 on the uniform grid with sigma = 10 on the
+membrane block):
+16. kernel vs plain, bit for bit: the whole selection over the second, 16
+   single attempts, the replay over the card's grid, the kernel-mode sweep on
+   256-step windows early, in the middle and late, the SDE and its sweep
+   over all 999 steps.
+17. main path: 3 deterministic and 3 stochastic train steps through
+   make_train_step, one launch of each of their kernels per step and none of
+   anything else; the evaluation of the four conditions.
+18. card vs CPU: each engine's first step again on the CPU with the plain
+   versions on the card's grid and noise (loss, gradients), beside the
+   card's own gradient spread under a 1e-7 nudge of the weights.
+19. times: each kernel's device time, ns per serial step, its bound, its
+   plain version's time; both train steps' times and profiles.
+Then the kernels line (every kernel of the five paths), the card's name
 and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -1437,6 +1454,346 @@ def split2_phases(dev, cfg):
                  "ms_window": window_ms[name]} if name in window_ms else {})}
             for name in calls]
 
+# The XOR task (columnflow/tasks/xor.py build_task defaults, the reference's
+# scripts/xor_ode.py): 3 columns = 24 populations, state 72, the four
+# conditions as one (4, 72) batch, 1000 grid points over 1 s, max_steps 3072
+# (rounded to 3135); deterministic dopri5 at rtol 1e-7 / atol 1e-9, or SRA1 on
+# the uniform grid (999 steps) with sigma = 10 on the membrane block.
+XOR_T = 1000
+XOR_MAX_STEPS = 3072
+XOR_SOURCES = {"ode": "columnflow_torch/kernels/csrc/xor_ode.cu",
+               "sde": "columnflow_torch/kernels/csrc/xor_sde.cu"}
+XOR_P, XOR_S, XOR_B, XOR_K = 24, 72, 4, 4
+XOR_LOSS_TOL, XOR_GRAD_TOL = 1e-5, 1e-3
+XOR_WINDOW = 256    # steps of each kernel-vs-plain window of the dopri5 sweep
+
+
+def xor_bound(kernel, work, M=0):
+    """(bound_ms, bound_by) of an XOR kernel; ``work`` is what this run's
+    data needed: the controller attempts (selection), the accepted steps
+    (replay, sweep) or the grid's steps (SDE). A drift evaluation of the
+    batch: the 24 x 24 recurrent product (2 P^2 per lane) and ~35 P
+    elementwise operations per lane; a drift VJP: the transposed product, the
+    rows' contraction over the lanes and ~40 P elementwise. All float32-rate
+    operations. Bytes: each input read once, each output written once."""
+    B, P, N = XOR_B, XOR_P, XOR_B * XOR_S
+    drift = B * (2 * P * P + 35 * P)
+    vjp = B * (2 * P * P + 40 * P) + 4 * B * 48
+    consts = 4 * (P * P + 2 * P + 48 + XOR_K * B * 32)
+    if kernel == "xor_select":  # 6 drifts, the stage sums, the error norm
+        flops = work * (6 * drift + (2 * 21 + 2 * 6 + 8) * N)
+        nbytes = consts + 4 * N + 4 * (M + 1) + 12
+    elif kernel == "xor_replay_fwd":  # 7 drifts, the stage sums, the five rows
+        flops = work * (7 * drift + (2 * 21 + 2 * 6 + 20) * N)
+        nbytes = consts + 4 * N + 4 * (work + 1) + 4 * work * N * 6
+    elif kernel == "xor_replay_bwd":  # 6 drifts, 7 VJPs, the cotangent sums
+        flops = work * (6 * drift + 7 * vjp + (2 * 21 + 2 * 21 + 40) * N)
+        nbytes = consts + 4 * (work + 1) + 4 * work * N * 6 + 4 * N + 4 * 48
+    elif kernel == "xor_sde_fwd":  # 2 drifts and the SRA1 combination
+        flops = work * (2 * drift + 16 * N)
+        nbytes = consts + 4 * work * (1 + 2 * B) + 4 * N + 4 * (work + 1) * N
+    else:  # xor_sde_bwd: 1 drift, 2 VJPs and the step's cotangent sums
+        flops = work * (drift + 2 * vjp + 16 * N)
+        nbytes = consts + 4 * work * (1 + B) + 8 * (work + 1) * N + 4 * N + 4 * 48
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def xor_phases(dev, cfg):
+    """Phases 16-19 for the XOR task's two train steps; returns their
+    kernels' entries of the kernels line."""
+    import torch
+
+    from columnflow_torch.data import xor_conditions
+    from columnflow_torch.kernels import column_step as cs
+    from columnflow_torch.kernels import network_ode as no
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.kernels import xor_ode as xo
+    from columnflow_torch.kernels import xor_sde as xs
+    from columnflow_torch.models.xor import split_xor_params
+    from columnflow_torch.solvers.fused import round_max_steps, uniform_step_times
+    from columnflow_torch.solvers.sde import brownian_pack
+    from columnflow_torch.tasks import xor as xt
+
+    counters = {"xor_ode": xo.LAUNCHES, "xor_sde": xs.LAUNCHES, "network_ode": no.LAUNCHES,
+                "network_sde": ns.LAUNCHES, "column_step": cs.LAUNCHES}
+
+    def make_task(device=dev, params=None):
+        task = xt.build_task(cfg, torch.Generator(device=device).manual_seed(0), time_steps=XOR_T,
+                             max_steps=XOR_MAX_STEPS, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        return task
+
+    def max_abs(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def rows_err(got, want):
+        return max(max_abs(got[k], want[k]) for k in got)
+
+    def equal(got, want):
+        if isinstance(got, dict):
+            return all(torch.equal(got[k], want[k]) for k in got)
+        return torch.equal(got, want)
+
+    # -- 16. kernels vs plain versions at full width --------------------------
+    gen = torch.Generator(device=dev).manual_seed(3)
+    task = make_task()
+    conds = torch.as_tensor(xor_conditions(), device=dev)
+    sc, kv = xt.drift_inputs(task, conds)
+    pf = {k: v.detach().contiguous() for k, v in split_xor_params(task.params).items()}
+    B, S = XOR_B, XOR_S
+    M = round_max_steps((B, S), XOR_MAX_STEPS)
+    scfg = xo.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]), max_steps=M)
+    y0 = torch.zeros(B, S, device=dev)
+    plain_ms = {}
+    st, stats = xo.xor_select(y0, pf, sc, kv, scfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_p, stats_p = xo._xor_select_plain(y0, pf, sc, kv, scfg)
+    torch.cuda.synchronize()
+    plain_ms["xor_select"] = (time.perf_counter() - t0) * 1e3
+    na, nr, ok = (int(x) for x in stats)
+    na_p = int(stats_p[0])
+    sel_equal = stats.tolist() == stats_p.tolist() and equal(st, st_p)
+    # The error norm's float64 sum runs in thread order in the kernel and in
+    # PyTorch's order in the plain version: at rtol 1e-7 one float32 ulp of
+    # a norm can move the grid, so the selection is held bit for bit only up
+    # to where the grids part, and by its counts.
+    d_st = (st[:min(na, na_p) + 1] - st_p[:min(na, na_p) + 1]).abs()
+    parted = int(torch.nonzero(d_st).min()) if bool((d_st > 0).any()) else None
+    check(ok == 1 and int(stats_p[2]) == 1 and M == 3135 and abs(na - na_p) <= 0.01 * na_p + 1
+          and equal(st[:11], st_p[:11]),
+          f"xor_select: stats {stats.tolist()} vs plain {stats_p.tolist()}, max_steps {M}, "
+          f"first parted index {parted}")
+    stn = st[:na + 1].contiguous()
+    ys, co = xo.xor_replay_fwd(y0, stn, pf, sc, kv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys_p, co_p = xo._xor_replay_fwd_plain(y0, stn, pf, sc, kv)
+    torch.cuda.synchronize()
+    plain_ms["xor_replay_fwd"] = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(co).all()) and equal(ys, ys_p) and equal(co, co_p),
+          f"xor_replay_fwd: ys {max_abs(ys, ys_p)}, coeffs {max_abs(co, co_p)}")
+    errs = {"xor_select": float(d_st.max()),
+            "xor_replay_fwd": max(max_abs(ys, ys_p), max_abs(co, co_p))}
+
+    att = {"equal": True, "accepted": 0}
+    for r in range(16):
+        k = int(r / 16 * (na - 1))
+        t, y = st[k].clone(), ys[k].contiguous()
+        h = ((st[k + 1] - st[k]) * (1.0, 1.5, 2.5)[r % 3]).clone()
+        f0 = xo.xor_ode_drift(t, y, pf, sc, kv).contiguous()
+        a = xo.xor_attempt(t, y, f0, h, pf, sc, kv, scfg)
+        a_p = xo._xor_attempt_plain(t, y, f0, h, pf, sc, kv, scfg)
+        att["equal"] &= all(equal(g, w) for g, w in zip(a, a_p))
+        att["accepted"] += int(a.ratio <= 1.0)
+    check(att["equal"], f"xor_attempt: {att}")
+
+    # The reverse sweep: the whole grid on the card, the plain version on
+    # windows early, in the middle and late (from the kernel's states there).
+    cobar = torch.randn(co.shape, generator=gen, device=dev)
+    ybar, rows = xo.xor_replay_bwd(ys, cobar, stn, pf, sc, kv)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(ybar).all()) and all(bool(torch.isfinite(v).all())
+                                                   for v in rows.values()),
+          "xor_replay_bwd over the whole grid is not finite")
+    W = XOR_WINDOW
+    windows, errs["xor_replay_bwd"] = [], 0.0
+    for k0 in (0, na // 2, na - W):
+        sw = slice(k0, k0 + W)
+        stw = stn[k0:k0 + W + 1].contiguous()
+        yb, rw = xo.xor_replay_bwd(ys[sw].contiguous(), cobar[sw].contiguous(), stw, pf, sc, kv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yb_p, rw_p = xo._xor_replay_bwd_plain(ys[sw], cobar[sw], stw, pf, sc, kv)
+        torch.cuda.synchronize()
+        plain_ms.setdefault("xor_replay_bwd_window", (time.perf_counter() - t0) * 1e3)
+        same = equal(yb, yb_p) and equal(rw, rw_p)
+        check(same, f"xor_replay_bwd window at {k0}: ybar {rel_l2(yb, yb_p)}")
+        errs["xor_replay_bwd"] = max(errs["xor_replay_bwd"], max_abs(yb, yb_p), rows_err(rw, rw_p))
+        windows.append({"start": k0, "bit_for_bit": same})
+
+    t0s, h = uniform_step_times(task.ts, (B, S))
+    _, i1, i10, _, _ = brownian_pack(gen, task.ts, (B,))
+    i1, i10 = i1.contiguous(), i10.contiguous()
+    yss = xs.xor_sde_fwd(y0, t0s, h, i1, i10, pf, sc, kv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yss_p = xs._xor_sde_fwd_plain(y0, t0s, h, i1, i10, pf, sc, kv)
+    torch.cuda.synchronize()
+    plain_ms["xor_sde_fwd"] = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(yss).all()) and equal(yss, yss_p),
+          f"xor_sde_fwd: {max_abs(yss, yss_p)}")
+    ysbar = torch.randn(yss.shape, generator=gen, device=dev)
+    ybs, rws = xs.xor_sde_bwd(yss, ysbar, t0s, h, i10, pf, sc, kv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ybs_p, rws_p = xs._xor_sde_bwd_plain(yss, ysbar, t0s, h, i10, pf, sc, kv)
+    torch.cuda.synchronize()
+    plain_ms["xor_sde_bwd"] = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(ybs).all()) and equal(ybs, ybs_p) and equal(rws, rws_p),
+          f"xor_sde_bwd: ybar {rel_l2(ybs, ybs_p)}")
+    errs["xor_sde_fwd"] = max_abs(yss, yss_p)
+    errs["xor_sde_bwd"] = max(max_abs(ybs, ybs_p), rows_err(rws, rws_p))
+    emit("xor_kernel_vs_plain", P=XOR_P, lanes=B, T=XOR_T, max_steps=M,
+         selection={"stats": [na, nr, ok], "stats_plain": stats_p.tolist(),
+                    "bit_for_bit": sel_equal, "first_parted_index": parted},
+         attempt={"records": 16, **att}, sweep_windows=windows, window_steps=W,
+         sde_steps=XOR_T - 1, tol="bit for bit", max_abs_err=errs)
+
+    # -- 17. the main path: 3 deterministic and 3 stochastic train steps ------
+    history, step_s, first = {False: [], True: []}, {False: [], True: []}, {}
+    masks = {k: v.bool().expand_as(task.params[k]) for k, v in task.grad_mask.items()}
+    main_launches = {}
+    for stochastic in (False, True):
+        step = xt.make_train_step(task, stochastic=stochastic)
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        for i in range(3):
+            conds_i = conds[torch.randperm(4, generator=gen, device=dev)]
+            noise = None
+            if stochastic:
+                _, n1, n10, _, _ = brownian_pack(gen, task.ts, (B, 1))
+                noise = (n1, n10)
+            params_i = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+            before = {m: dict(c) for m, c in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = step(conds_i, noise=noise)
+            torch.cuda.synchronize()
+            step_s[stochastic].append(time.perf_counter() - t0)
+            launched = {k: c[k] - before[m][k] for m, c in counters.items() for k in c
+                        if c[k] != before[m][k]}
+            want = ({"xor_sde_fwd": 1, "xor_sde_bwd": 1} if stochastic
+                    else {"xor_select": 1, "xor_replay_fwd": 1, "xor_replay_bwd": 1})
+            check(launched == want, f"xor step {i} (stochastic {stochastic}): launches {launched}")
+            check(bool(torch.isfinite(rec["loss"])), f"xor step {i}: loss {rec['loss']}")
+            for k, p in task.params.items():
+                check(bool(torch.isfinite(p.grad).all()) and bool((p.grad[~masks[k]] == 0).all()),
+                      f"xor step {i}: {k} gradient not finite or off its mask")
+            entry = {"loss": float(rec["loss"]), "seconds": step_s[stochastic][-1]}
+            if not stochastic:
+                sk = rec["stats"]
+                check(bool(sk.success), f"xor step {i}: the selection did not reach 1 s")
+                entry.update(naccept=int(sk.naccept), nreject=int(sk.nreject))
+            history[stochastic].append(entry)
+            if i == 0:
+                grid = None if stochastic else (rec["stats"].step_times.cpu(),
+                                                int(rec["stats"].naccept))
+                first[stochastic] = dict(
+                    conds=conds_i, noise=noise, grid=grid, params=params_i, loss=float(rec["loss"]),
+                    grads={k: p.grad.detach().cpu().clone() for k, p in task.params.items()})
+        main_launches.update({k: v for m in ("xor_ode", "xor_sde")
+                              for k, v in counters[m].items() if v})
+    final_c, test_loss = xt.evaluate(task, conds)
+    check(bool(torch.isfinite(final_c).all()), "xor evaluation not finite")
+
+    # -- 18. the card against the CPU on the card's grid and noise ------------
+    cpu_check = {}
+    for stochastic in (False, True):
+        f = first[stochastic]
+
+        def run(device, params, f=f, stochastic=stochastic):
+            t = make_task(device=device, params=params)
+            noise = None if f["noise"] is None else tuple(x.to(device) for x in f["noise"])
+            grid = f["grid"] if device == "cpu" or f["grid"] is None else (
+                f["grid"][0].to(device), f["grid"][1])
+            rec = xt.make_train_step(t, stochastic=stochastic)(f["conds"].to(device), noise=noise,
+                                                               grid=grid)
+            return float(rec["loss"]), {k: p.grad.detach().cpu().clone()
+                                        for k, p in t.params.items()}
+
+        t0 = time.perf_counter()
+        loss_c, grads_c = run("cpu", f["params"])
+        cpu_s = time.perf_counter() - t0
+        nudged = {k: v * (1.0 + 1e-7) for k, v in f["params"].items()}
+        _, grads_n = run(dev, nudged)
+        loss_rel = abs(f["loss"] - loss_c) / abs(loss_c)
+        grad_rel = {k: rel_l2(f["grads"][k], grads_c[k]) for k in grads_c}
+        spread = {k: rel_l2(grads_n[k], f["grads"][k]) for k in grads_c}
+        cpu_check["stochastic" if stochastic else "deterministic"] = {
+            "loss_rel": loss_rel, "grad_rel_l2": grad_rel, "card_spread_under_1e-7_nudge": spread,
+            "cpu_seconds": cpu_s}
+        check(loss_rel < XOR_LOSS_TOL and max(grad_rel.values()) < XOR_GRAD_TOL,
+              f"card vs CPU XOR step (stochastic {stochastic}): {cpu_check}")
+    emit("xor_main_path", lanes=B, T=XOR_T, max_steps=M, history={
+        "deterministic": history[False], "stochastic": history[True]},
+        launches=main_launches, eval={"final_fr_C": final_c.tolist(), "loss": float(test_loss)},
+        cpu_check=cpu_check, tol={"loss": XOR_LOSS_TOL, "grad": XOR_GRAD_TOL})
+
+    # -- 19. times -------------------------------------------------------------
+    calls = {
+        "xor_select": lambda: xo.xor_select(y0, pf, sc, kv, scfg),
+        "xor_replay_fwd": lambda: xo.xor_replay_fwd(y0, stn, pf, sc, kv),
+        "xor_replay_bwd": lambda: xo.xor_replay_bwd(ys, cobar, stn, pf, sc, kv),
+        "xor_sde_fwd": lambda: xs.xor_sde_fwd(y0, t0s, h, i1, i10, pf, sc, kv),
+        "xor_sde_bwd": lambda: xs.xor_sde_bwd(yss, ysbar, t0s, h, i10, pf, sc, kv),
+    }
+    times = {name: cuda_ms(fn, reps=5, warmup=1, device_time=True) for name, fn in calls.items()}
+    swin = slice(0, W)
+    bwd_window_ms = cuda_ms(lambda: xo.xor_replay_bwd(ys[swin].contiguous(),
+                                                      cobar[swin].contiguous(),
+                                                      stn[:W + 1].contiguous(), pf, sc, kv),
+                            reps=5, warmup=1, device_time=True)
+    serial = {"xor_select": na + nr, "xor_replay_fwd": na, "xor_replay_bwd": na,
+              "xor_sde_fwd": XOR_T - 1, "xor_sde_bwd": XOR_T - 1}
+    bounds = {name: xor_bound(name, serial[name], M=M) for name in calls}
+    plain_ms["xor_replay_bwd"] = plain_ms.pop("xor_replay_bwd_window")
+    emit("xor_kernel_times", lanes=B, T=XOR_T, naccept=na, nreject=nr, ms=times,
+         plain_ms=plain_ms, plain_ms_at={"xor_replay_bwd": f"{W} steps (kernel there: "
+                                                           f"{bwd_window_ms} ms)"},
+         ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()})
+    step_ms = {}
+    for stochastic in (False, True):
+        step = xt.make_train_step(task, stochastic=stochastic)
+        noises = [None] * 5
+        if stochastic:
+            noises = [brownian_pack(gen, task.ts, (B, 1))[1:3] for _ in range(5)]
+        step(conds, noise=noises[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(5):
+            step(conds, noise=noises[i])
+        torch.cuda.synchronize()
+        key = "stochastic" if stochastic else "deterministic"
+        step_ms[key] = (time.perf_counter() - t0) * 1e3 / 5
+        wall, by_kernel = device_profile(lambda i: step(conds, noise=noises[i]), 3)
+        busy = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        emit("xor_step_profile", engine=key, lanes=B, step_ms=step_ms[key],
+             samples_per_s=B * 1e3 / step_ms[key], profiled_wall_ms_per_step=wall,
+             device_busy_ms_per_step=busy if busy else "not measured",
+             idle_share=1.0 - busy / step_ms[key] if busy else "not measured",
+             device_kernels=len(by_kernel), top_ms_per_step=dict(top))
+
+    replaces = {"xor_select": "columnflow/solvers/fused.py:238",
+                "xor_replay_fwd": "columnflow/solvers/fused.py:294",
+                "xor_replay_bwd": "columnflow/solvers/fused.py:327",
+                "xor_sde_fwd": "columnflow/solvers/fused.py:845",
+                "xor_sde_bwd": "columnflow/solvers/fused.py:920"}
+    path = {"xor_select": "XOR deterministic", "xor_replay_fwd": "XOR deterministic",
+            "xor_replay_bwd": "XOR deterministic", "xor_sde_fwd": "XOR stochastic (fixed grid)",
+            "xor_sde_bwd": "XOR stochastic (fixed grid)"}
+    return [{"name": name, "route": "cuda",
+             "source": XOR_SOURCES["sde" if "sde" in name else "ode"],
+             "replaces": replaces[name], "launches": main_launches[name],
+             "max_abs_err": errs[name], "ms": times[name], "plain_ms": plain_ms[name],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+             "lanes": B, "path": path[name],
+             "ns_per_serial_step": times[name] * 1e6 / serial[name],
+             **({"plain_ms_at": f"{W} steps (ms_window: the kernel there)",
+                 "ms_window": bwd_window_ms} if name == "xor_replay_bwd" else {})}
+            for name in calls]
+
 
 def main() -> int:
     import torch
@@ -1469,7 +1826,7 @@ def main() -> int:
 
     cfg = ColumnConfig.load()
     line = (wta_phases(dev, cfg) + parity_phases(dev, cfg) + ode_phases(dev, cfg)
-            + split2_phases(dev, cfg))
+            + split2_phases(dev, cfg) + xor_phases(dev, cfg))
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -55,3 +55,14 @@ def frozen_grid_from_jax(step_times, stats, device=None):
     ``grid`` tuple ``odeint_dopri5_fused`` of the port replays."""
     st = torch.as_tensor(np.array(step_times, dtype=np.float32), device=device)
     return st, int(np.asarray(stats)[0])
+
+
+def xor_network_from_jax(params_np: dict, net, device=None):
+    """The JAX package's XOR network (params dict with ``ff_w0``/``ff_w1``,
+    ``XORNetwork`` of numpy areas) -> the port's (float32 tensors on
+    ``device``, the port's ``XORNetwork``)."""
+    from columnflow_torch.models.xor import XORNetwork
+
+    areas = [area_from_jax(getattr(net, f), device) for f in ("area0", "area1", "consts")]
+    return params_from_jax(params_np, device), XORNetwork(
+        *areas, np.array(net.ff_source_mask, np.float32), np.array(net.ff_target_mask, np.float32))

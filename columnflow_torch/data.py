@@ -108,3 +108,28 @@ def parity_stim_table(stim_raw, time_steps: int):
     on = (torch.arange(time_steps, device=stim_raw.device)
           >= time_steps // 2).to(stim_raw.dtype)
     return on[:, None] * stim_raw[None, :]
+
+
+# ---------------------------------------------------------------------------
+# XOR (port of the XOR part of ``columnflow/data.py``)
+# ---------------------------------------------------------------------------
+
+
+def xor_conditions() -> np.ndarray:
+    """The four XOR input conditions in Hz: (20, 0) and (0, 20) are
+    "different", (20, 20) and (0, 0) "same"."""
+    return np.array([[20.0, 0.0], [0.0, 20.0], [20.0, 20.0], [0.0, 0.0]], dtype=np.float32)
+
+
+def prep_xor_stim(cond, time_steps: int, num_pops: int = 16):
+    """XOR stimulus table (..., T, 2, 16) of conditions (..., 2): zeros for
+    the first half, then the stimulus; the second slot carries the
+    column-swapped copy, so both input columns see both stimuli."""
+    cond = torch.as_tensor(cond)
+    stim = torch.zeros(cond.shape[:-1] + (num_pops,), dtype=cond.dtype, device=cond.device)
+    stim[..., _WTA_STIM_IDX_A] = cond[..., 0:1]
+    stim[..., _WTA_STIM_IDX_B] = cond[..., 1:2]
+    half = num_pops // 2
+    pair = torch.stack([stim, torch.cat([stim[..., half:], stim[..., :half]], dim=-1)], dim=-2)
+    on = (torch.arange(time_steps, device=cond.device) >= time_steps // 2).to(cond.dtype)
+    return on[:, None, None] * pair[..., None, :, :]

@@ -62,43 +62,12 @@
 // casts are those of jax.vjp (columnflow_torch/models/network.py, "the
 // three-term split").
 
+#include "dopri5.cuh"
 #include "network_drift.cuh"
 
 #include <cooperative_groups.h>
 
 namespace {
-
-constexpr int kStages = 7;
-
-// Dormand-Prince 4(5) and Hairer's CONTD5 weights (solvers/rk.py), each a
-// double expression rounded to float32 once.
-#define F(x) ((float)(x))
-__constant__ float kC[kStages] = {0.0f, F(1.0 / 5), F(3.0 / 10), F(4.0 / 5), F(8.0 / 9), 1.0f, 1.0f};
-__constant__ float kA[kStages][kStages - 1] = {
-    {0, 0, 0, 0, 0, 0},
-    {F(1.0 / 5), 0, 0, 0, 0, 0},
-    {F(3.0 / 40), F(9.0 / 40), 0, 0, 0, 0},
-    {F(44.0 / 45), F(-56.0 / 15), F(32.0 / 9), 0, 0, 0},
-    {F(19372.0 / 6561), F(-25360.0 / 2187), F(64448.0 / 6561), F(-212.0 / 729), 0, 0},
-    {F(9017.0 / 3168), F(-355.0 / 33), F(46732.0 / 5247), F(49.0 / 176), F(-5103.0 / 18656), 0},
-    {F(35.0 / 384), 0, F(500.0 / 1113), F(125.0 / 192), F(-2187.0 / 6784), F(11.0 / 84)},
-};
-__constant__ float kB[kStages] = {F(35.0 / 384), 0, F(500.0 / 1113), F(125.0 / 192),
-                                  F(-2187.0 / 6784), F(11.0 / 84), 0};
-__constant__ float kBErr[kStages] = {
-    F(35.0 / 384 - 5179.0 / 57600), 0, F(500.0 / 1113 - 7571.0 / 16695),
-    F(125.0 / 192 - 393.0 / 640), F(-2187.0 / 6784 - -92097.0 / 339200),
-    F(11.0 / 84 - 187.0 / 2100), F(0.0 - 1.0 / 40)};
-__constant__ float kD[kStages] = {
-    F(-12715105075.0 / 11282082432.0), 0, F(87487479700.0 / 32700410799.0),
-    F(-10690763975.0 / 1880347072.0), F(701980252875.0 / 199316789632.0),
-    F(-1453857185.0 / 822651844.0), F(69997945.0 / 29380423.0)};
-#undef F
-
-struct Sel {
-  float t_start, t_end, rtol, atol, dt0, span;  // span = t_end - t_start
-  int use_initial, max_steps;
-};
 
 // The three-term split of wT and the float32 iwT, in shared memory.
 struct W3 {
@@ -114,10 +83,6 @@ struct Scr {
   float *ext;          // (nb, kMaxInputs) stimulus
   double* red;         // (kThreads / 32) reduction partials
 };
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
-}
 
 __device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
   hi = bf16r(x);
@@ -353,12 +318,6 @@ struct SelBuf {
   float* y1;           // the fifth-order solution
 };
 
-__device__ __forceinline__ float next_step(float h, float ratio) {
-  float f = 0.9f * expf((float)(-1.0 / 5) * logf(ratio));
-  if (f == f) f = fminf(fmaxf(f, 0.2f), 10.0f);
-  return h * f;
-}
-
 __device__ void carve_sel(float* p, int N, SelBuf* u) {
   Carve c{p};
   u->y = c.take(N);
@@ -496,10 +455,6 @@ ode_replay_bwd_kernel(Net n, int n_steps, const float* __restrict__ wT,
     for (int e = threadIdx.x; e < n.n_in * P; e += blockDim.x) d_iwT[e] = d_iwT[e] + acc.iw[e];
   }
   for (int i = threadIdx.x; i < N; i += blockDim.x) ybar_out[i] = ysum[i];
-}
-
-Sel make_sel(const float* hs, int use_initial, int max_steps) {
-  return Sel{hs[0], hs[1], hs[2], hs[3], hs[4], hs[5], use_initial, max_steps};
 }
 
 template <typename Kern>

@@ -192,10 +192,9 @@ class ODEAttempt(NamedTuple):
 
 
 @torch.no_grad()
-def _ode_attempt_plain(t, y, f0, h, w3, sc, kv, cfg: ODESelectConfig) -> ODEAttempt:
-    """One controller attempt from (t, y, f0 = f(t, y)) with the proposed
-    step h (scalars as 0-dim tensors)."""
-    f = lambda t_, y_: ode_drift(t_, y_, w3, sc, kv)  # noqa: E731
+def attempt_plain(f, t, y, f0, h, cfg: ODESelectConfig) -> ODEAttempt:
+    """One controller attempt of the drift f from (t, y, f0 = f(t, y)) with
+    the proposed step h (scalars as 0-dim tensors)."""
     h = torch.minimum(h, cfg.t_end - t)
     y1, ks, _ = rk_step(f, t, y, h, f0)
     err = _combine(None, h, rk.B_ERR, ks)
@@ -204,12 +203,11 @@ def _ode_attempt_plain(t, y, f0, h, w3, sc, kv, cfg: ODESelectConfig) -> ODEAtte
 
 
 @torch.no_grad()
-def _ode_select_plain(y0, w3, sc, kv, cfg: ODESelectConfig):
-    """The selection loop: (step_times (M+1,), stats (3,) int32 = naccept,
-    nreject, success). The accept decision is read on the host once per
-    attempt."""
+def select_plain(f, y0, cfg: ODESelectConfig):
+    """The selection loop of the drift f from y0: (step_times (M+1,),
+    stats (3,) int32 = naccept, nreject, success). The accept decision is
+    read on the host once per attempt."""
     dev, M = y0.device, cfg.max_steps
-    f = lambda t_, y_: ode_drift(t_, y_, w3, sc, kv)  # noqa: E731
     st = torch.full((M + 1,), cfg.t_end, dtype=_F32, device=dev)
     st[0] = cfg.t_start
     t = torch.tensor(cfg.t_start, dtype=_F32, device=dev)
@@ -221,7 +219,7 @@ def _ode_select_plain(y0, w3, sc, kv, cfg: ODESelectConfig):
     h = torch.clamp_max(h, cfg.t_end - cfg.t_start)
     na = nr = 0
     while bool(t < cfg.t_end) and na < M and nr < 4 * M + 64:
-        a = _ode_attempt_plain(t, y, f0, h, w3, sc, kv, cfg)
+        a = attempt_plain(f, t, y, f0, h, cfg)
         if bool(a.ratio <= 1.0):
             t, y, f0, na = t + a.h, a.y1, a.f1, na + 1
         else:
@@ -232,11 +230,24 @@ def _ode_select_plain(y0, w3, sc, kv, cfg: ODESelectConfig):
     return st, stats
 
 
-def _ode_replay_fwd_plain(y0, st, w3, sc, kv):
-    """The replay over the n = len(st) - 1 frozen steps: (ys (n, B, 3P) the
-    step-start states, coeffs (n, 5, B, 3P))."""
+def _network_f(w3, sc, kv):
+    return lambda t_, y_: ode_drift(t_, y_, w3, sc, kv)
+
+
+def _ode_attempt_plain(t, y, f0, h, w3, sc, kv, cfg: ODESelectConfig) -> ODEAttempt:
+    """One controller attempt of the network drift."""
+    return attempt_plain(_network_f(w3, sc, kv), t, y, f0, h, cfg)
+
+
+def _ode_select_plain(y0, w3, sc, kv, cfg: ODESelectConfig):
+    """The selection loop of the network drift."""
+    return select_plain(_network_f(w3, sc, kv), y0, cfg)
+
+
+def replay_fwd_plain(f, y0, st):
+    """The replay of the drift f over the n = len(st) - 1 frozen steps:
+    (ys (n, B, S) the step-start states, coeffs (n, 5, B, S))."""
     n = st.shape[0] - 1
-    f = lambda t_, y_: ode_drift(t_, y_, w3, sc, kv)  # noqa: E731
     ys, coeffs, y = [], [], y0
     for k in range(n):
         ys.append(y)
@@ -247,21 +258,17 @@ def _ode_replay_fwd_plain(y0, st, w3, sc, kv):
     return torch.stack(ys), torch.stack(coeffs)
 
 
-def step_vjp(t0, h, y, ybar, cbar, w, sc: SDEConsts, kv, weights: bool = True):
-    """The hand-written VJP of ``step_with_coeffs`` at (t0, h, y) for the
-    cotangents ybar on y1 and cbar (5, B, 3P) on the coefficient rows:
-    (state cotangent, d wT, d iwT), or the state cotangent alone with
-    ``weights=False``. ``w`` is the three-term split (kernel mode) or the
-    two-term one (``prepare_premixed_split2``). The stages are rebuilt from
-    y, then the seven drift VJPs run from stage 6 down; their weight
-    cotangents add in bf16 within the step and fold through the split once.
-    Leading axes before (B, 3P) batch separate steps (t0 and h then carry
-    them as (n, 1, 1)); each step keeps its own accumulators."""
-    f = lambda t_, y_: ode_drift(t_, y_, w, sc, kv)  # noqa: E731
-    if "wT_lo" in w:
-        vjp, fold = network_drift_premixed_split_vjp, split3_fold
-    else:
-        vjp, fold = network_drift_premixed_split2_weight_vjp, split2_fold
+def _ode_replay_fwd_plain(y0, st, w3, sc, kv):
+    """The replay of the network drift."""
+    return replay_fwd_plain(_network_f(w3, sc, kv), y0, st)
+
+
+def rk_step_vjp(f, vjp, t0, h, y, ybar, cbar):
+    """The VJP of ``step_with_coeffs`` of the drift f at (t0, h, y) for the
+    cotangents ybar on y1 and cbar (5, B, S) on the coefficient rows: the
+    state cotangent. The stages are rebuilt from y, then ``vjp(t, Y_i,
+    kbar_i)``, the drift's VJP at stage i, runs from stage 6 down (the
+    caller's closure takes any weight cotangents)."""
     _, _, Ys = rk_step(f, t0, y, h, f(t0, y))
     c1, c2, c3, c4, c5 = cbar.unbind(-3)
     r3bar = c3 - c4
@@ -274,20 +281,42 @@ def step_vjp(t0, h, y, ybar, cbar, w, sc: SDEConsts, kv, weights: bool = True):
         if b != 0.0:
             kbar[j] = kbar[j] + (h * b) * y1bar
     ysum = (c1 - dybar) + y1bar
-    stim, interp = Stimulus(0.0, 0.0, kv), _knots(sc.knot_ts)
-    acc = d_iwT = None
     for i in range(rk.N_STAGES - 1, -1, -1):
-        if weights:
-            g, acc, giw = vjp(t0 + rk.C[i] * h if i else t0, Ys[i], kbar[i], w, sc.fc, stim,
-                              interp, acc)
-            d_iwT = giw if d_iwT is None else d_iwT + giw
-        else:
-            g = network_drift_premixed_split2_vjp(Ys[i], kbar[i], w, sc.fc)
+        g = vjp(t0 + rk.C[i] * h if i else t0, Ys[i], kbar[i])
         ysum = ysum + g
         for j, a in enumerate(rk.A[i]):
             if a != 0.0:
                 kbar[j] = (h * a) * g if kbar[j] is None else kbar[j] + (h * a) * g
-    return (ysum, fold(acc), d_iwT) if weights else ysum
+    return ysum
+
+
+def step_vjp(t0, h, y, ybar, cbar, w, sc: SDEConsts, kv, weights: bool = True):
+    """The hand-written VJP of ``step_with_coeffs`` of the network drift
+    (``rk_step_vjp``): (state cotangent, d wT, d iwT), or the state
+    cotangent alone with ``weights=False``. ``w`` is the three-term split
+    (kernel mode) or the two-term one (``prepare_premixed_split2``). The
+    seven drift VJPs' weight cotangents add in bf16 within the step and fold
+    through the split once. Leading axes before (B, 3P) batch separate steps
+    (t0 and h then carry them as (n, 1, 1)); each step keeps its own
+    accumulators."""
+    f = _network_f(w, sc, kv)
+    if not weights:
+        return rk_step_vjp(f, lambda t, Y, kb: network_drift_premixed_split2_vjp(Y, kb, w, sc.fc),
+                           t0, h, y, ybar, cbar)
+    if "wT_lo" in w:
+        vjp, fold = network_drift_premixed_split_vjp, split3_fold
+    else:
+        vjp, fold = network_drift_premixed_split2_weight_vjp, split2_fold
+    stim, interp = Stimulus(0.0, 0.0, kv), _knots(sc.knot_ts)
+    acc = [None, None]  # the bf16 accumulators of wT, d iwT
+
+    def drift_vjp(t, Y, kb):
+        g, acc[0], giw = vjp(t, Y, kb, w, sc.fc, stim, interp, acc[0])
+        acc[1] = giw if acc[1] is None else acc[1] + giw
+        return g
+
+    ysum = rk_step_vjp(f, drift_vjp, t0, h, y, ybar, cbar)
+    return ysum, fold(acc[0]), acc[1]
 
 
 @torch.no_grad()

@@ -20,6 +20,11 @@ sigma = 10, with the weight gradients taken through the bf16 substitute
 kernel (B3); backward: the reverse-sweep kernel (B4) for the state
 cotangent and its per-step seeds, then the weight-gradient contraction over
 all steps outside the kernels, as in the JAX package.
+
+The XOR task's drift (``xor_drift_batched``) has its own two entry points,
+in kernel mode: ``xor_odeint_dopri5_fused`` (the kernels of
+``kernels.xor_ode``) and ``xor_sdeint_fused``, the uniform-grid SDE with
+one scalar Brownian per lane (``kernels.xor_sde``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from columnflow_torch.kernels.network_ode import (
     step_vjp,
 )
 from columnflow_torch.kernels.network_sde import SIGMA, SDEConsts, replay_bwd, replay_fwd
+from columnflow_torch.kernels.xor_ode import xor_replay_bwd, xor_replay_fwd, xor_select
+from columnflow_torch.kernels.xor_sde import xor_sde_bwd, xor_sde_fwd
 from columnflow_torch.models.column import Stimulus
 from columnflow_torch.models.network import (
     _bf,
@@ -46,24 +53,44 @@ from columnflow_torch.models.network import (
     network_drift_premixed_gradbf16_vjp,
     prepare_premixed_split2,
 )
+from columnflow_torch.models.xor import PF_KEYS
 from columnflow_torch.ops.arith import div
 from columnflow_torch.ops.interp import interp_knots
+
+
+def sde_chunk(state_shape, n_steps: int) -> int:
+    """The step chunk of ``sdeint_fused`` for a float32 state of
+    ``state_shape`` (its VMEM heuristic, ``columnflow/solvers/fused.py:
+    1213-1229``). The port runs each sweep in one launch and needs the chunk
+    only where the JAX package's arithmetic depends on it."""
+    state_bytes = 4 * int(np.prod(state_shape))
+    floor = 4 if state_bytes > (32 << 10) else 16
+    return min(int(max(floor, min(1024, (2 << 20) // (6 * state_bytes)))), n_steps)
 
 
 def truncation_stride(state_shape, n_steps: int, bptt_every: int | None = None) -> int:
     """The backward sweep zeroes the state cotangent after every step k
     with k % stride == 0 (0: never). JAX zeroes it at the start of every
     kc-th chunk, the remainder chunk included, i.e. at multiples of
-    chunk * kc, with the chunk of its VMEM heuristic for a float32 state of
-    ``state_shape`` (``columnflow/solvers/fused.py:1213-1235``). The port
-    runs each sweep in one launch and needs the chunk only for this."""
+    chunk * kc (``sde_chunk``, capped at ``bptt_every``)."""
     if bptt_every is None:
         return 0
-    state_bytes = 4 * int(np.prod(state_shape))
-    floor = 4 if state_bytes > (32 << 10) else 16
-    chunk = int(max(floor, min(1024, (2 << 20) // (6 * state_bytes))))
-    chunk = min(chunk, max(1, bptt_every), n_steps)
+    chunk = min(sde_chunk(state_shape, n_steps), max(1, bptt_every))
     return chunk * max(1, round(bptt_every / chunk))
+
+
+def uniform_step_times(ts, state_shape):
+    """(t0s (n,) float32 on ts' device, h) of the uniform-grid SDE kernel:
+    h = ts[1] - ts[0] in float32, and step i of chunk c (its first step
+    off = c * chunk) at (float32(off) h + ts[0]) + float32(i - off) h, in
+    float32, as ``_make_sde_chunk_kernel`` computes it."""
+    ts = torch.as_tensor(ts, dtype=torch.float32)
+    n = ts.shape[0] - 1
+    h, t_base = float(ts[1] - ts[0]), float(ts[0])
+    k = torch.arange(n)
+    off = k // sde_chunk(state_shape, n) * sde_chunk(state_shape, n)
+    t0s = (off.to(torch.float32) * h + t_base) + (k - off).to(torch.float32) * h
+    return t0s.to(ts.device), h
 
 
 def outer_arg_grads(ys_prev, seeds, t0s, hs, i10, pw, sc: SDEConsts, kv,
@@ -309,17 +336,30 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
             "fewer with 4 inputs) is not ported: ROADMAP.md B8s (B8 kernel mode with the "
             "split2 prepare); "
             "arg_grads='outer' runs the ported tier")
+    kv = kv.detach().contiguous()
+
+    def select(cfg):
+        # Both tiers select on the three-term split (the split2 tier's
+        # select_func), so the frozen grid is the exact engine's.
+        return ode_select(y0.detach().contiguous(),
+                          {k: v.detach().contiguous() for k, v in pw.items()}, sc, kv, cfg)
+
+    replay = _ODEReplaySplit2 if split2 else _ODEReplay
+    return _dopri5_solve(select, lambda st: replay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv)),
+                         y0, ts, rtol, atol, dt0, max_steps, grid, return_stats)
+
+
+def _dopri5_solve(select, replay, y0, ts, rtol, atol, dt0, max_steps, grid, return_stats):
+    """What both dopri5 engines share: the selection (``select(cfg)`` ->
+    (step_times, stats)) or the given ``grid``, the one host read of
+    naccept, the replay (``replay(st)`` -> coeffs (n, 5, *y0.shape), an
+    autograd.Function) and the dense output at ``ts`` in PyTorch ops."""
     ts = torch.as_tensor(ts, dtype=torch.float32, device=y0.device)
     ts_host = ts.detach().cpu()
     max_steps = round_max_steps(tuple(y0.shape), max_steps)
     cfg = ODESelectConfig(float(ts_host[0]), float(ts_host[-1]), rtol, atol, dt0, max_steps)
-    kv = kv.detach().contiguous()
     if grid is None:
-        # Both tiers select on the three-term split (the split2 tier's
-        # select_func), so the frozen grid is the exact engine's.
-        step_times, stats = ode_select(
-            y0.detach().contiguous(),
-            {k: v.detach().contiguous() for k, v in pw.items()}, sc, kv, cfg)
+        step_times, stats = select(cfg)
         naccept, nreject, success = stats[0], stats[1], stats[2] > 0
     else:
         step_times = torch.as_tensor(grid[0], dtype=torch.float32, device=y0.device)
@@ -330,8 +370,7 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
     # so the sweeps skip the max_steps padding.
     n = max(int(naccept), 1)
     st = step_times[:n + 1].contiguous()
-    replay = _ODEReplaySplit2 if split2 else _ODEReplay
-    coeffs = replay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv))     # (n, 5, B, 3P)
+    coeffs = replay(st)  # (n, 5, B, S)
 
     # Dense output: Hairer's interpolant of the step that holds each ts.
     idx = torch.clamp(torch.searchsorted(st, ts, right=True) - 1, 0, n - 1)
@@ -347,3 +386,116 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
     if return_stats:
         return ys, ODESolverStats(naccept, nreject, success, step_times)
     return ys
+
+
+# ---------------------------------------------------------------------------
+# The XOR drift: fused dopri5 and the uniform-grid SDE, kernel mode
+# ---------------------------------------------------------------------------
+
+
+def xor_arg_grads(pf: dict, arg_grads: str = "auto", sde: bool = False) -> str:
+    """JAX's ``arg_grads`` rule for the XOR rows (``columnflow/solvers/
+    fused.py:571-576, 1192-1206``): "outer" when the differentiable args
+    hold more than 1 MiB (or, in the SDE, one of them is 1-D), else
+    "kernel". The four rows hold 192 bytes, so "auto" is "kernel"; only
+    kernel mode is ported, "outer" raises."""
+    if arg_grads not in ("auto", "kernel", "outer"):
+        raise ValueError(f"unknown arg_grads mode: {arg_grads!r}")
+    if arg_grads == "auto":
+        big = sum(4 * v.numel() for v in pf.values()) > OUTER_ARG_BYTES
+        arg_grads = "outer" if big or (sde and any(v.dim() < 2 for v in pf.values())) else "kernel"
+    if arg_grads == "outer":
+        raise NotImplementedError(
+            "the XOR drift's weight gradients outside the reverse sweep (arg_grads='outer': "
+            "emit mode and step-batched VJPs) are not ported: ROADMAP.md B, the XOR drift in "
+            "outer mode")
+    return arg_grads
+
+
+class _XORODEReplay(torch.autograd.Function):
+    """Forward: ``xor_replay_fwd``; backward: ``xor_replay_bwd``. Gradients
+    reach the four rows and y0; the step grid is data."""
+
+    @staticmethod
+    def forward(ctx, w00, w01, w10, w11, y0, st, spec):
+        sc, kv = spec
+        pf = {k: v.detach().contiguous() for k, v in zip(PF_KEYS, (w00, w01, w10, w11))}
+        ys, coeffs = xor_replay_fwd(y0.detach().contiguous(), st, pf, sc, kv)
+        ctx.spec, ctx.pf = spec, pf
+        ctx.save_for_backward(ys, st)
+        return coeffs
+
+    @staticmethod
+    def backward(ctx, coeffs_bar):
+        sc, kv = ctx.spec
+        ys, st = ctx.saved_tensors
+        ybar, rows = xor_replay_bwd(ys, coeffs_bar.to(torch.float32).contiguous(), st, ctx.pf,
+                                    sc, kv)
+        return (*(rows[k] for k in PF_KEYS), ybar, None, None)
+
+
+def xor_odeint_dopri5_fused(pf: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e-7,
+                            atol: float = 1e-9, dt0: float | None = None,
+                            max_steps: int = 2048, grid=None, return_stats: bool = False,
+                            arg_grads: str = "auto"):
+    """``odeint_dopri5_fused`` of the XOR drift (``xor_drift_batched`` with
+    the knot stimulus): adaptive dopri5 over the batch state y0 (B, 72)
+    under one shared controller, dense output at ``ts``; returns ys
+    (len(ts), B, 72) (and ``ODESolverStats`` with ``return_stats``).
+    ``pf`` = {"w00", "w01", "w10", "w11"} (differentiable, from
+    ``split_xor_params``), ``sc`` = (``build_xor_fused_consts``, knot
+    times), kv (K, B, 32). Gradients are discrete backpropagation through
+    the frozen accepted steps, in kernel mode (``xor_arg_grads``), and
+    reach pf and y0. ``grid`` = (step_times (M+1,), naccept) skips the
+    selection and replays that frozen grid."""
+    xor_arg_grads(pf, arg_grads)
+    kv = kv.detach().contiguous()
+
+    def select(cfg):
+        return xor_select(y0.detach().contiguous(),
+                          {k: v.detach().contiguous() for k, v in pf.items()}, sc, kv, cfg)
+
+    def replay(st):
+        return _XORODEReplay.apply(*(pf[k] for k in PF_KEYS), y0, st, (sc, kv))
+
+    return _dopri5_solve(select, replay, y0, ts, rtol, atol, dt0, max_steps, grid, return_stats)
+
+
+class _XORSDERollout(torch.autograd.Function):
+    """Forward: ``xor_sde_fwd``; backward: ``xor_sde_bwd``. Gradients reach
+    the four rows and y0; the grid and the noise are data."""
+
+    @staticmethod
+    def forward(ctx, w00, w01, w10, w11, y0, t0s, i1, i10, spec):
+        sc, kv, h = spec
+        pf = {k: v.detach().contiguous() for k, v in zip(PF_KEYS, (w00, w01, w10, w11))}
+        ys = xor_sde_fwd(y0.detach().contiguous(), t0s, h, i1, i10, pf, sc, kv)
+        ctx.spec, ctx.pf = spec, pf
+        ctx.save_for_backward(ys, t0s, i10)
+        return ys
+
+    @staticmethod
+    def backward(ctx, ys_bar):
+        sc, kv, h = ctx.spec
+        ys, t0s, i10 = ctx.saved_tensors
+        ys_bar = ys_bar.to(torch.float32).contiguous()
+        ybar, rows = xor_sde_bwd(ys, ys_bar, t0s, h, i10, ctx.pf, sc, kv)
+        return (*(rows[k] for k in PF_KEYS), ybar + ys_bar[0], None, None, None, None)
+
+
+def xor_sdeint_fused(pf: dict, sc: SDEConsts, kv, y0, ts, noise_pack, arg_grads: str = "auto"):
+    """``sdeint_fused(method="srk", noise_shape=(B, 1))`` of the XOR drift
+    on the uniform grid ``ts``: SRA1 with the membrane-only diffusion sigma
+    = 10, each lane driven by one scalar Brownian motion. ``noise_pack`` =
+    (i1, i10), each (T-1, B) or (T-1, B, 1) (from ``solvers.sde.
+    brownian_pack(generator, ts, (B, 1))``, or the JAX package's pack).
+    Returns ys (T, B, 72) with ys[0] = y0; gradients reach pf and y0 in
+    kernel mode (``xor_arg_grads``)."""
+    xor_arg_grads(pf, arg_grads, sde=True)
+    B = y0.shape[0]
+    t0s, h = uniform_step_times(ts, tuple(y0.shape))
+    t0s = t0s.to(y0.device)
+    i1, i10 = (torch.as_tensor(x, dtype=torch.float32, device=y0.device)
+               .reshape(t0s.shape[0], B).contiguous() for x in noise_pack)
+    return _XORSDERollout.apply(*(pf[k] for k in PF_KEYS), y0, t0s, i1, i10,
+                                (sc, kv.detach().contiguous(), h))

@@ -17,6 +17,8 @@ from typing import Callable
 
 import torch
 
+from columnflow_torch.ops.arith import div
+
 
 def brownian_pack(generator: torch.Generator, ts, noise_shape, dtype=torch.float32):
     """Per-step stochastic integrals for strong-1.5 SRK schemes.
@@ -45,7 +47,9 @@ def brownian_pack(generator: torch.Generator, ts, noise_shape, dtype=torch.float
 
 def _sra1_step(drift, diffusion, t, y, h, i1, i10, args):
     """One SRA1 step (2 drift + 2 diffusion evaluations), additive noise.
-    h == 0 safe (an exact no-op). ``i1``/``i10`` have the lane shape."""
+    h == 0 safe (an exact no-op). ``i1``/``i10`` have the lane shape. The
+    thirds divide through ``ops.arith.div``, so the step rounds as a
+    division on every device."""
     i10_h = (i10 / torch.where(h > 0, h, 1.0)).unsqueeze(-1)
     i1 = i1.unsqueeze(-1)
     g_end = diffusion(t + h, y, *args)
@@ -54,7 +58,7 @@ def _sra1_step(drift, diffusion, t, y, h, i1, i10, args):
     h2 = y + 0.75 * h * f1 + 1.5 * i10_h * g_end
     f2 = drift(t + 0.75 * h, h2, *args)
     return (
-        y + h * (f1 / 3.0 + 2.0 * f2 / 3.0)
+        y + h * (div(f1, 3.0) + div(2.0 * f2, 3.0))
         + (i1 - i10_h) * g_end + i10_h * g_start
     )
 

@@ -36,6 +36,14 @@ lanes), single attempts, the replay's states and dense rows, the reverse
 sweep's state and weight cotangents; the split2 tier's replay and emit-mode
 sweep; its train step against the same step on the CPU (loss rel 1e-5,
 gradients rel L2 1e-3, as the exact step's).
+
+XOR kernels (the XOR network, the four conditions as one batch, 200 grid
+points). Kernel and plain version sum every product in one order and round
+every float32 operation alike, so they are held bit for bit: the dopri5
+selection, single attempts, the replay and its kernel-mode sweep, the
+uniform-grid SDE and its kernel-mode sweep; both train steps against the
+same step on the CPU on the card's grid and noise (loss rel 1e-5, gradients
+rel L2 1e-3), with exactly one launch of each of their kernels.
 """
 
 import pytest
@@ -46,6 +54,8 @@ from columnflow_torch.data import make_parity_batch, sample_wta_mus, wta_stim_th
 from columnflow_torch.kernels import column_step as cs
 from columnflow_torch.kernels import network_ode as no
 from columnflow_torch.kernels import network_sde as ns
+from columnflow_torch.kernels import xor_ode as xo
+from columnflow_torch.kernels import xor_sde as xs
 from columnflow_torch.models import network as nw
 from columnflow_torch.models.wta import build_wta
 from columnflow_torch.ops.interp import step_table_knots
@@ -53,6 +63,7 @@ from columnflow_torch.ops.losses import huber_trajectory_loss_wta
 from columnflow_torch.solvers.sde import brownian_pack
 from columnflow_torch.solvers.sde_adaptive import _replay_grid, _sde_key_words, select_config
 from columnflow_torch.tasks import parity
+from columnflow_torch.tasks import xor as xor_task
 from columnflow_torch.tasks.wta import DT, linspace
 
 pytestmark = pytest.mark.cuda
@@ -587,3 +598,141 @@ def test_split2_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     rec, _, _ = _split2_step(dev, monkeypatch)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The XOR kernels (dopri5 and the uniform-grid SDE, kernel mode)
+# ---------------------------------------------------------------------------
+
+XOR_T = 200
+
+
+def _xor_task(device, params=None):
+    task = xor_task.build_task(ColumnConfig.load(), torch.Generator(device=device).manual_seed(0),
+                               time_steps=XOR_T, max_steps=1024, device=device)
+    if params is not None:
+        with torch.no_grad():
+            for k, p in task.params.items():
+                p.copy_(params[k])
+    return task
+
+
+@pytest.fixture
+def xor(dev):
+    from columnflow_torch.data import xor_conditions
+    from columnflow_torch.models.xor import split_xor_params
+    from columnflow_torch.solvers.fused import round_max_steps, uniform_step_times
+
+    task = _xor_task(dev)
+    conds = torch.as_tensor(xor_conditions(), device=dev)
+    sc, kv = xor_task.drift_inputs(task, conds)
+    pf = {k: v.detach().contiguous() for k, v in split_xor_params(task.params).items()}
+    cfg = no.ODESelectConfig(0.0, float(task.ts[-1]), max_steps=round_max_steps((4, 72), 1024))
+    t0s, h = uniform_step_times(task.ts, (4, 72))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    _, i1, i10, _, _ = brownian_pack(gen, task.ts, (4,))
+    return dict(task=task, conds=conds, sc=sc, kv=kv, pf=pf, cfg=cfg, t0s=t0s, h=h, gen=gen,
+                i1=i1.contiguous(), i10=i10.contiguous(), y0=torch.zeros(4, 72, device=dev))
+
+
+def test_xor_select_and_attempts_equal_plain(xor):
+    d = xor
+    before = xo.LAUNCHES["xor_select"]
+    st, stats = xo.xor_select(d["y0"], d["pf"], d["sc"], d["kv"], d["cfg"])
+    st_p, stats_p = xo._xor_select_plain(d["y0"], d["pf"], d["sc"], d["kv"], d["cfg"])
+    torch.cuda.synchronize()
+    assert xo.LAUNCHES["xor_select"] == before + 1
+    assert int(stats[2]) == 1 and stats.tolist() == stats_p.tolist() and torch.equal(st, st_p)
+    n = int(stats[0])
+    ys, _ = xo._xor_replay_fwd_plain(d["y0"], st[:n + 1].contiguous(), d["pf"], d["sc"], d["kv"])
+    for k, stretch in ((0, 1.0), (n // 3, 2.5), (n // 2, 1.5), (n - 2, 4.0)):
+        t, y = st[k].clone(), ys[k].contiguous()
+        h = ((st[k + 1] - st[k]) * stretch).clone()
+        f0 = xo.xor_ode_drift(t, y, d["pf"], d["sc"], d["kv"]).contiguous()
+        a = xo.xor_attempt(t, y, f0, h, d["pf"], d["sc"], d["kv"], d["cfg"])
+        a_p = xo._xor_attempt_plain(t, y, f0, h, d["pf"], d["sc"], d["kv"], d["cfg"])
+        for got, want in zip(a, a_p):
+            assert torch.equal(got, want), k
+
+
+def test_xor_replay_kernels_equal_plain(xor):
+    d = xor
+    st, stats = xo.xor_select(d["y0"], d["pf"], d["sc"], d["kv"], d["cfg"])
+    stn = st[:int(stats[0]) + 1].contiguous()
+    ys, co = xo.xor_replay_fwd(d["y0"], stn, d["pf"], d["sc"], d["kv"])
+    ys_p, co_p = xo._xor_replay_fwd_plain(d["y0"], stn, d["pf"], d["sc"], d["kv"])
+    assert torch.isfinite(co).all() and torch.equal(ys, ys_p) and torch.equal(co, co_p)
+    cobar = torch.randn(co.shape, generator=d["gen"], device=co.device)
+    yb, rows = xo.xor_replay_bwd(ys, cobar, stn, d["pf"], d["sc"], d["kv"])
+    yb_p, rows_p = xo._xor_replay_bwd_plain(ys, cobar, stn, d["pf"], d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(yb).all() and torch.equal(yb, yb_p)
+    for k in rows:
+        assert torch.equal(rows[k], rows_p[k]), k
+
+
+def test_xor_sde_kernels_equal_plain(xor):
+    d = xor
+    args = (d["t0s"], d["h"])
+    ys = xs.xor_sde_fwd(d["y0"], *args, d["i1"], d["i10"], d["pf"], d["sc"], d["kv"])
+    ys_p = xs._xor_sde_fwd_plain(d["y0"], *args, d["i1"], d["i10"], d["pf"], d["sc"], d["kv"])
+    assert torch.isfinite(ys).all() and torch.equal(ys, ys_p)
+    ysbar = torch.randn(ys.shape, generator=d["gen"], device=ys.device)
+    yb, rows = xs.xor_sde_bwd(ys, ysbar, *args, d["i10"], d["pf"], d["sc"], d["kv"])
+    yb_p, rows_p = xs._xor_sde_bwd_plain(ys, ysbar, *args, d["i10"], d["pf"], d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(yb).all() and torch.equal(yb, yb_p)
+    for k in rows:
+        assert torch.equal(rows[k], rows_p[k]), k
+
+
+def _xor_step(device, stochastic, params=None, grid=None, noise=None):
+    from columnflow_torch.data import xor_conditions
+
+    task = _xor_task(device, params)
+    params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+    conds = torch.as_tensor(xor_conditions(), device=device)
+    if stochastic and noise is None:
+        gen = torch.Generator(device=device).manual_seed(9)
+        _, i1, i10, _, _ = brownian_pack(gen, task.ts, (4, 1))
+        noise = (i1, i10)
+    rec = xor_task.make_train_step(task, stochastic=stochastic)(conds, noise=noise, grid=grid)
+    return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}, params0, noise
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_xor_steps_on_cuda_match_cpu(dev, stochastic):
+    counters = (xo.LAUNCHES, xs.LAUNCHES, no.LAUNCHES, ns.LAUNCHES, cs.LAUNCHES)
+    before = [dict(c) for c in counters]
+    rec, grads, params0, noise = _xor_step(dev, stochastic)
+    torch.cuda.synchronize()
+    launched = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
+    want = ({"xor_sde_fwd": 1, "xor_sde_bwd": 1} if stochastic else
+            {"xor_select": 1, "xor_replay_fwd": 1, "xor_replay_bwd": 1})
+    assert launched == want
+    assert bool(torch.isfinite(rec["loss"]))
+    grid = None
+    if not stochastic:
+        assert bool(rec["stats"].success)
+        grid = (rec["stats"].step_times.cpu(), int(rec["stats"].naccept))
+    rec_c, grads_c, _, _ = _xor_step(torch.device("cpu"), stochastic, params=params0, grid=grid,
+                                     noise=None if noise is None else
+                                     tuple(x.cpu() for x in noise))
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        assert float((g - grads_c[k]).norm()) <= 1e-3 * float(grads_c[k].norm()) + 1e-30, k
+
+
+def test_xor_kernels_never_reach_the_plain_versions(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for mod, names in ((xo, ("_xor_select_plain", "_xor_attempt_plain", "_xor_replay_fwd_plain",
+                             "_xor_replay_bwd_plain")),
+                       (xs, ("_xor_sde_fwd_plain", "_xor_sde_bwd_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, boom)
+    for stochastic in (False, True):
+        rec, _, _, _ = _xor_step(dev, stochastic)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(rec["loss"]))
