@@ -125,11 +125,6 @@ __device__ double xsum(double v, double* red) {
   return total;
 }
 
-// Stimulus slot entry m (0..31) of lane b at time t.
-__device__ __forceinline__ float ext_at(const Net& n, int b, int m, float t) {
-  return knot_interp(n, b, m, t);
-}
-
 // One drift evaluation at time t for this thread's (b, p): y = (v, a, r) ->
 // out = (dv, da, dr). Two barriers.
 __device__ void xor_drift(const Net& n, const XSh& s, const Me& me, float t, const float* y,
@@ -149,8 +144,8 @@ __device__ void xor_drift(const Net& n, const XSh& s, const Me& me, float t, con
     const float rec = (float)Tree<kXP>::sum(q);
     float ff;
     if (me.p < kXA0) {
-      ff = ext_at(n, me.b, me.p, t) * s.rows[me.p]
-           + ext_at(n, me.b, kXA0 + me.p, t) * s.rows[kXA0 + me.p];
+      ff = knot_interp(n, me.b, me.p, t) * s.rows[me.p]
+           + knot_interp(n, me.b, kXA0 + me.p, t) * s.rows[kXA0 + me.p];
     } else {
       const int k = me.p - kXA0;
       ff = kFFGain * (frb[kSrcA] * s.rows[32 + k] + frb[kSrcB] * s.rows[40 + k]);
@@ -201,8 +196,8 @@ __device__ void xor_drift_vjp(const Net& n, const XSh& s, const Me& me, float t,
       for (int b = 0; b < n.B; ++b) {
         const float c = s.cc[b * kXP + me.p];
         if (me.p < kXA0) {
-          e0[b] = (double)c * (double)ext_at(n, b, me.p, t);
-          e1[b] = (double)c * (double)ext_at(n, b, kXA0 + me.p, t);
+          e0[b] = (double)c * (double)knot_interp(n, b, me.p, t);
+          e1[b] = (double)c * (double)knot_interp(n, b, kXA0 + me.p, t);
         } else {
           const float sb = kFFGain * c;
           e0[b] = (double)sb * (double)s.fr[b * kXP + kSrcA];

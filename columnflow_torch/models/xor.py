@@ -56,28 +56,16 @@ class XORNetwork(NamedTuple):
     ff_target_mask: np.ndarray
 
 
-def xor_areas(cfg: ColumnConfig, areas=("mt", "mt")):
-    """The three areas of the network (numpy), lateral weights removed from
-    area 0."""
-    area0 = build_area_params(cfg, areas[0], 2, small_network=True)
-    area1 = build_area_params(cfg, areas[1], 1, small_network=True)
-    consts = build_area_params(cfg, "mt", 3, small_network=False)
-    area0 = area0._replace(recurrent_weights=area0.recurrent_weights * area0.internal_mask)
-    return area0, area1, consts
-
-
-def xor_network(area0, area1, consts, device=None) -> XORNetwork:
-    """An ``XORNetwork`` of three numpy areas, float32 tensors on ``device``."""
-    return XORNetwork(area_to_torch(area0, device), area_to_torch(area1, device),
-                      area_to_torch(consts, device), FF_SOURCE_MASK, FF_TARGET_MASK)
-
-
 def build_xor_network(cfg: ColumnConfig, generator: torch.Generator, areas=("mt", "mt"),
                       init_std: float = 0.1, device=None):
     """(params, net): the trainable ff vectors and the static structure.
     The feedforward weights start at |N(anatomical ff weights, init_std)|
     masked to L4e/L4i targets, drawn from ``generator``."""
-    area0, area1, consts = xor_areas(cfg, areas)
+    area0 = build_area_params(cfg, areas[0], 2, small_network=True)
+    area1 = build_area_params(cfg, areas[1], 1, small_network=True)
+    consts = build_area_params(cfg, "mt", 3, small_network=False)
+    # Lateral connectivity removed.
+    area0 = area0._replace(recurrent_weights=area0.recurrent_weights * area0.internal_mask)
 
     def init_ff(area):
         base = torch.as_tensor(np.asarray(area.feedforward_weights, np.float32))
@@ -88,7 +76,9 @@ def build_xor_network(cfg: ColumnConfig, generator: torch.Generator, areas=("mt"
 
     params = {"ff_w0": init_ff(area0),  # (2, 16): input i -> area-0 pops
               "ff_w1": init_ff(area1)}  # (2, 8): column A/B -> column C
-    return params, xor_network(area0, area1, consts, device)
+    net = XORNetwork(*(area_to_torch(a, device) for a in (area0, area1, consts)),
+                     FF_SOURCE_MASK, FF_TARGET_MASK)
+    return params, net
 
 
 def xor_drift(t, y, params, net: XORNetwork, stim: Stimulus, interp_fn=interp_at):

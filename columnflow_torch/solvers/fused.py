@@ -87,8 +87,8 @@ def uniform_step_times(ts, state_shape):
     ts = torch.as_tensor(ts, dtype=torch.float32)
     n = ts.shape[0] - 1
     h, t_base = float(ts[1] - ts[0]), float(ts[0])
-    k = torch.arange(n)
-    off = k // sde_chunk(state_shape, n) * sde_chunk(state_shape, n)
+    k, chunk = torch.arange(n), sde_chunk(state_shape, n)
+    off = k // chunk * chunk
     t0s = (off.to(torch.float32) * h + t_base) + (k - off).to(torch.float32) * h
     return t0s.to(ts.device), h
 

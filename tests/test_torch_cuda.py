@@ -626,7 +626,7 @@ def xor(dev):
     task = _xor_task(dev)
     conds = torch.as_tensor(xor_conditions(), device=dev)
     sc, kv = xor_task.drift_inputs(task, conds)
-    pf = {k: v.detach().contiguous() for k, v in split_xor_params(task.params).items()}
+    pf = {k: v.detach().clone() for k, v in split_xor_params(task.params).items()}
     cfg = no.ODESelectConfig(0.0, float(task.ts[-1]), max_steps=round_max_steps((4, 72), 1024))
     t0s, h = uniform_step_times(task.ts, (4, 72))
     gen = torch.Generator(device=dev).manual_seed(5)

@@ -201,8 +201,9 @@ def _drift_scale(s, y, lanes=slice(None)):
 
 @pytest.mark.parametrize("t", [0.0, 0.0295, 0.03, 0.05])
 def test_drift_batched_matches_jax(setup, t):
-    """1e-6 of each component's sum of absolute terms (measured <= 6e-8):
-    the recurrent sums round in another order than XLA's."""
+    """1e-6 of each component's sum of absolute terms (measured <= 8.0e-7,
+    inside the stimulus' ramp): the recurrent sums round in another order
+    than XLA's."""
     s = setup
     got = xo.xor_ode_drift(torch.tensor(t), torch.as_tensor(s["y"]), s["pf"], s["sc"], s["kv"])
     want = s["jdrift"](jnp.float32(t), jnp.asarray(s["y"]), *s["jargs"])
@@ -255,7 +256,7 @@ def test_drift_vjp_matches_autograd_in_float64(setup, t):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_drift_vjp_matches_jax_vjp(setup, seed):
     """Against ``jax.vjp`` of the JAX drift in float32: the rows rel L2
-    1e-6 (measured <= 3.4e-7). The state cotangent cannot hold 1e-6: the
+    1e-6 (measured <= 3.6e-7). The state cotangent cannot hold 1e-6: the
     firing rate's derivative cancels (sden - xn dden), and the port's
     closed form rounds it ~3e-7 (median, relative) from float64 where
     ``jax.grad`` of the guarded rate rounds it ~7.5e-7, so the two differ
