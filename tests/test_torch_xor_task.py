@@ -41,7 +41,6 @@ from columnflow.config import ColumnConfig as JaxConfig
 from columnflow.solvers.sde import _brownian_pack
 from columnflow.tasks import xor as jxt
 from columnflow.train import mask_grads as j_mask_grads
-from columnflow_torch.config import ColumnConfig
 from columnflow_torch.convert import frozen_grid_from_jax, xor_network_from_jax
 from columnflow_torch.tasks import xor as txt
 from test_torch_xor_model import jax_xor_select, port_task, rel_l2
