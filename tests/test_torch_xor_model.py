@@ -327,7 +327,7 @@ def test_whole_selection_by_counts(setup):
     an error estimate near 1, and a 1e-7 nudge of the weights moves the
     port's own count between 14 and 18 and JAX's between 16 and 23 (ROADMAP.md
     section C); it is held within 5% of the accepted steps (measured 17
-    against 23). The first accepted step (measured 1.0% apart) comes from
+    against 23), beside the port's own spread under a 1e-7 nudge. The first accepted step (measured 1.0% apart) comes from
     Hairer's initial step, whose d2 divides the difference of two drifts
     1e-6 s apart by atol 1e-9 from the zero state: rounding noise under a
     fifth root; held to 2%."""
@@ -339,6 +339,10 @@ def test_whole_selection_by_counts(setup):
     na_j, nr_j, ok_j = (int(x) for x in s["jgrid"][1])
     assert ok == ok_j == 1 and cfg.max_steps == 660
     assert abs(na - na_j) <= 0.05 * na_j and abs(nr - nr_j) <= 0.05 * na_j
+    # The spread beside it: the port's own nreject under 1e-7 nudges.
+    nudged = [int(xo.xor_select(torch.zeros(B, 72), {k: v * (1.0 + e) for k, v in s["pf"].items()},
+                                s["sc"], s["kv"], cfg)[1][1]) for e in (1e-7, -1e-7)]
+    assert max(nudged + [nr]) - min(nudged + [nr]) >= 2
     assert abs(float(st[1]) - float(s["jgrid"][0][1])) <= 2e-2 * float(s["jgrid"][0][1])
 
 
