@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's training steps on one CUDA card: the WTA
 step, the 104-column stochastic-adaptive parity step, the deterministic
-fused-dopri5 parity step and its 104-column fused-split2 tier, and the XOR
-task's deterministic and stochastic steps.
+fused-dopri5 parity step and its 104-column fused-split2 tier, the XOR
+task's deterministic and stochastic steps, and the Hopf task's step.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every path
+    python3 chip_smoke.py hopf xor     # only the named paths (wta, parity, ode,
+                                       # split2, xor, hopf), for probing one
 
 Phases, each printing one JSON line; any failure raises and the script exits
 non-zero without printing a result:
@@ -88,7 +90,23 @@ membrane block):
    card's own gradient spread under a 1e-7 nudge of the weights.
 19. times: each kernel's device time, ns per serial step, its bound, its
    plain version's time; both train steps' times and profiles.
-Then the kernels line (every kernel of the five paths), the card's name
+Hopf (the MLP 3 -> 100 -> 100 -> 100 -> 2, batch 32 as one (32, 2) state
+under one controller, 1000 grid points over 25 s, max_steps 1024, dopri5 at
+rtol 1e-7 / atol 1e-9, targets from make_hopf_dataset):
+20. kernel vs plain, bit for bit: the whole selection (by its counts within
+   1% and its first 10 accepted times where the grids part, and reported as
+   bit for bit or not), 16 single attempts along the replay, the replay and
+   the kernel-mode sweep over the whole grid.
+21. main path: 3 train steps through make_train_step, one launch of each of
+   the three kernels per step and none of anything else, and the validation
+   forward; the first step again on the CPU with the plain versions on the
+   card's grid (loss, gradients), beside the card's own gradient spread
+   under a 1e-7 nudge of the weights.
+22. times: each kernel's device time, ns per serial step, its bound, its
+   plain version's time; the train step's time and profile (each timed step
+   from the seed weights).
+23. the command line: python -m columnflow_torch.tasks.bifurcation --smoke.
+Then the kernels line (every kernel of the six paths), the card's name
 and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -193,19 +211,29 @@ def cuda_ms(fn, reps, warmup=1, device_time=False):
 
 def device_profile(run, n):
     """Device time by kernel (ms per call) of ``run(i)`` for i < n under
-    torch.profiler, and the profiled wall time per call."""
+    torch.profiler, and the profiled wall time per call. One call before
+    them is traced and dropped (the profiler's warm-up): the card's first
+    ~0.1 s under a newly started profiler can go unrecorded, which took the
+    first step's earlier kernels out of the sums."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    traced = []  # the key averages of the n active calls, taken when their cycle ends
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n, repeat=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+        run(0)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for i in range(n):
             run(i)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
         wall = (time.perf_counter() - t0) * 1e3 / n
     by_kernel = {}
-    for ev in prof.key_averages():
+    for ev in (traced[0] if traced else []):
         dev_us = getattr(ev, "self_device_time_total", 0.0)
         if (dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(ev, "is_user_annotation", False)):
@@ -1869,6 +1897,294 @@ def xor_phases(dev, cfg):
             for name in calls]
 
 
+# The Hopf task (columnflow/tasks/bifurcation.py build_task / train_bifurcation
+# defaults, scripts/bifurcation_ode.py:179-210): the MLP 3 -> 100 -> 100 ->
+# 100 -> 2 (20,802 parameters), batch 32 as one (32, 2) state under one
+# controller, 1000 grid points over 25 s, max_steps 1024, dopri5 at rtol 1e-7
+# / atol 1e-9, SmoothL1, RMSprop(lr 1e-3, alpha 0.99). Nothing cut.
+HOPF_T, HOPF_SPAN, HOPF_B, HOPF_MAX_STEPS = 1000, 25.0, 32, 1024
+HOPF_SOURCE = "columnflow_torch/kernels/csrc/hopf_ode.cu"
+HOPF_LOSS_TOL, HOPF_GRAD_TOL = 1e-5, 1e-3
+
+
+def hopf_bound(kernel, work, T=HOPF_T, M=0):
+    """(bound_ms, bound_by) of a Hopf kernel; ``work`` is what this run's data
+    needed: the controller attempts (selection) or the accepted steps
+    (replay, sweep). A drift evaluation of the batch is the MLP's products,
+    2 B (3 H + 2 H^2 + 2 H) float32 operations, plus ~4 B H for the biases
+    and ReLUs; a drift VJP's products are twice that (the transposed
+    products and the weight cotangents contracted over the lanes). The
+    selection takes 6 drifts per attempt, the replay 7 per step, the sweep 7
+    drifts (the stage states and each stage's activations) and 7 VJPs per
+    step. All float32-rate operations. Bytes: each input read once, each
+    output written once."""
+    from columnflow_torch.models.hopf import MLP_SIZES
+
+    B, H = HOPF_B, MLP_SIZES[1]
+    N = 2 * B
+    n_params = sum(a * b + b for a, b in zip(MLP_SIZES[:-1], MLP_SIZES[1:]))
+    drift = 2 * B * (3 * H + 2 * H * H + 2 * H) + 4 * B * H
+    inputs = 4 * (n_params + T * B)
+    if kernel == "hopf_select":
+        flops = work * (6 * drift + (2 * 21 + 2 * 6 + 8) * N)
+        nbytes = inputs + 4 * N + 4 * (M + 1) + 12
+    elif kernel == "hopf_replay_fwd":
+        flops = work * (7 * drift + (2 * 21 + 2 * 6 + 20) * N)
+        nbytes = inputs + 4 * N + 4 * (work + 1) + 4 * work * N * 6
+    else:  # hopf_replay_bwd
+        flops = work * (7 * drift + 7 * 2 * drift + (2 * 21 + 2 * 21 + 40) * N)
+        nbytes = inputs + 4 * (work + 1) + 4 * work * N * 6 + 4 * N + 4 * n_params
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hopf_phases(dev, cfg):
+    """Phases 20-23 for the Hopf task's train step; returns its kernels'
+    entries of the kernels line."""
+    import torch
+
+    from columnflow_torch.data import make_hopf_dataset
+    from columnflow_torch.kernels import column_step as cs
+    from columnflow_torch.kernels import hopf_ode as ho
+    from columnflow_torch.kernels import network_ode as no
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.kernels import xor_ode as xo
+    from columnflow_torch.kernels import xor_sde as xs
+    from columnflow_torch.solvers.fused import round_max_steps
+    from columnflow_torch.tasks import bifurcation as bt
+
+    counters = {"hopf_ode": ho.LAUNCHES, "xor_ode": xo.LAUNCHES, "xor_sde": xs.LAUNCHES,
+                "network_ode": no.LAUNCHES, "network_sde": ns.LAUNCHES,
+                "column_step": cs.LAUNCHES}
+    B = HOPF_B
+
+    def make_task(device=dev, params=None):
+        task = bt.build_task(torch.Generator(device=device).manual_seed(0), time_points=HOPF_T,
+                             total_time=HOPF_SPAN, max_steps=HOPF_MAX_STEPS, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for layer, src in zip(task.params, params):
+                    for k, p in layer.items():
+                        p.copy_(src[k])
+        return task
+
+    def leaves(params):
+        return {f"{i}.{k}": layer[k] for i, layer in enumerate(params) for k in ("w", "b")}
+
+    def max_abs(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def equal(got, want):
+        if isinstance(got, list):
+            return all(torch.equal(g[k], w[k]) for g, w in zip(got, want) for k in g)
+        return torch.equal(got, want)
+
+    # -- 20. kernels vs plain versions at full width --------------------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    task = make_task()
+    ds = make_hopf_dataset(gen, 2 * B, task.ts, device=dev)  # two batches
+    batch = ds[:, :B]
+    mu = ho.MuTable(batch[:, :, 2].contiguous(), 0.0, task.dt)
+    y0 = batch[0, :, :2].contiguous()
+    # Copies: the main path below trains task.params in place.
+    params = [{k: v.detach().clone() for k, v in layer.items()} for layer in task.params]
+    M = round_max_steps((B, 2), HOPF_MAX_STEPS)
+    scfg = ho.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]), max_steps=M)
+    plain_ms = {}
+    st, stats = ho.hopf_select(y0, params, mu, scfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_p, stats_p = ho._hopf_select_plain(y0, params, mu, scfg)
+    torch.cuda.synchronize()
+    plain_ms["hopf_select"] = (time.perf_counter() - t0) * 1e3
+    na, nr, ok = (int(x) for x in stats)
+    na_p = int(stats_p[0])
+    sel_equal = stats.tolist() == stats_p.tolist() and equal(st, st_p)
+    # The error norm's float64 sum runs in the kernel's warp order and in
+    # PyTorch's order in the plain version: one float32 ulp of a norm can
+    # move the grid at rtol 1e-7, so the selection is held bit for bit up to
+    # where the grids part, and by its counts.
+    d_st = (st[:min(na, na_p) + 1] - st_p[:min(na, na_p) + 1]).abs()
+    parted = int(torch.nonzero(d_st).min()) if bool((d_st > 0).any()) else None
+    check(ok == 1 and int(stats_p[2]) == 1 and M == 1024 and abs(na - na_p) <= 0.01 * na_p + 1
+          and equal(st[:11], st_p[:11]),
+          f"hopf_select: stats {stats.tolist()} vs plain {stats_p.tolist()}, max_steps {M}, "
+          f"first parted index {parted}")
+    stn = st[:na + 1].contiguous()
+    ys, co = ho.hopf_replay_fwd(y0, stn, params, mu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys_p, co_p = ho._hopf_replay_fwd_plain(y0, stn, params, mu)
+    torch.cuda.synchronize()
+    plain_ms["hopf_replay_fwd"] = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(co).all()) and equal(ys, ys_p) and equal(co, co_p),
+          f"hopf_replay_fwd over the whole grid: ys {max_abs(ys, ys_p)}, rows {max_abs(co, co_p)}")
+    errs = {"hopf_select": float(d_st.max()), "hopf_replay_fwd": max(max_abs(ys, ys_p),
+                                                                     max_abs(co, co_p))}
+    att = {"equal": True, "accepted": 0}
+    for r in range(16):
+        k = int(r / 16 * (na - 1))
+        t, y = st[k].clone(), ys[k].contiguous()
+        h = ((st[k + 1] - st[k]) * (1.0, 1.5, 2.5)[r % 3]).clone()
+        f0 = ho.hopf_ode_drift(t, y, params, mu).contiguous()
+        a = ho.hopf_attempt(t, y, f0, h, params, mu, scfg)
+        a_p = ho._hopf_attempt_plain(t, y, f0, h, params, mu, scfg)
+        att["equal"] &= all(equal(g, w) for g, w in zip(a, a_p))
+        att["accepted"] += int(a.ratio <= 1.0)
+    check(att["equal"], f"hopf_attempt: {att}")
+    cobar = torch.randn(co.shape, generator=gen, device=dev)
+    ybar, grads = ho.hopf_replay_bwd(ys, cobar, stn, params, mu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ybar_p, grads_p = ho._hopf_replay_bwd_plain(ys, cobar, stn, params, mu)
+    torch.cuda.synchronize()
+    plain_ms["hopf_replay_bwd"] = (time.perf_counter() - t0) * 1e3
+    bwd_equal = equal(ybar, ybar_p) and equal(grads, grads_p)
+    check(bool(torch.isfinite(ybar).all()) and bwd_equal,
+          f"hopf_replay_bwd over the whole grid: ybar {rel_l2(ybar, ybar_p)}")
+    errs["hopf_replay_bwd"] = max([max_abs(ybar, ybar_p)] + [
+        max_abs(g[k], w[k]) for g, w in zip(grads, grads_p) for k in g])
+    emit("hopf_kernel_vs_plain", lanes=B, T=HOPF_T, max_steps=M,
+         selection={"stats": [na, nr, ok], "stats_plain": stats_p.tolist(),
+                    "bit_for_bit": sel_equal, "first_parted_index": parted},
+         attempt={"records": 16, **att}, replay_steps=na, sweep_steps=na,
+         tol="bit for bit", max_abs_err=errs)
+
+    # -- 21. the main path: 3 train steps from make_hopf_dataset --------------
+    step = bt.make_train_step(task)
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    history, first = [], None
+    for i in range(3):
+        true_y = ds[:, torch.randperm(2 * B, generator=gen, device=dev)[:B]]
+        params_i = [{k: p.detach().cpu().clone() for k, p in layer.items()}
+                    for layer in task.params]
+        before = {m: dict(c) for m, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = step(true_y)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: c[k] - before[m][k] for m, c in counters.items() for k in c
+                    if c[k] != before[m][k]}
+        want = {"hopf_select": 1, "hopf_replay_fwd": 1, "hopf_replay_bwd": 1}
+        check(launched == want, f"hopf step {i}: launches {launched}")
+        sk = rec["stats"]
+        check(bool(torch.isfinite(rec["loss"])) and bool(sk.success),
+              f"hopf step {i}: loss {rec['loss']}, success {bool(sk.success)}")
+        check(all(bool(torch.isfinite(p.grad).all()) for layer in task.params
+                  for p in layer.values()), f"hopf step {i}: gradient not finite")
+        history.append({"loss": float(rec["loss"]), "seconds": seconds,
+                        "naccept": int(sk.naccept), "nreject": int(sk.nreject)})
+        if i == 0:
+            first = dict(true_y=true_y, params=params_i, loss=float(rec["loss"]),
+                         grid=(sk.step_times.cpu(), int(sk.naccept)),
+                         grads=leaves([{k: p.grad.detach().cpu().clone()
+                                        for k, p in layer.items()} for layer in task.params]))
+    main_launches = {k: v for k, v in ho.LAUNCHES.items() if v}
+    val_loss = bt.validation_loss(task, ds[:, B:B + 1])
+    check(bool(torch.isfinite(val_loss)), f"hopf validation loss {val_loss}")
+
+    # The first step again on the CPU with the plain versions on the card's
+    # frozen grid, beside the card's own gradient spread when the weights
+    # move by one part in 1e7.
+    def one_step(device, params_src, grid):
+        t = make_task(device=device, params=params_src)
+        t0 = time.perf_counter()
+        rec = bt.make_train_step(t)(first["true_y"].to(device),
+                                    grid=(grid[0].to(device), grid[1]))
+        grads = leaves([{k: p.grad.detach().cpu().clone() for k, p in layer.items()}
+                        for layer in t.params])
+        return float(rec["loss"]), grads, time.perf_counter() - t0
+
+    loss_c, grads_c, cpu_s = one_step("cpu", first["params"], first["grid"])
+    nudged = [{k: v * (1.0 + 1e-7) for k, v in layer.items()} for layer in first["params"]]
+    loss_n, grads_n, _ = one_step(dev, nudged, first["grid"])
+    cpu_check = {"naccept": first["grid"][1],
+                 "loss_rel": abs(first["loss"] - loss_c) / abs(loss_c),
+                 "grad_rel_l2": {k: rel_l2(first["grads"][k], grads_c[k]) for k in grads_c},
+                 "card_grad_spread_under_1e-7_nudge": {
+                     k: rel_l2(grads_n[k], first["grads"][k]) for k in grads_c},
+                 "cpu_seconds": cpu_s, "tol": {"loss": HOPF_LOSS_TOL, "grad": HOPF_GRAD_TOL}}
+    check(cpu_check["loss_rel"] < HOPF_LOSS_TOL
+          and max(cpu_check["grad_rel_l2"].values()) < HOPF_GRAD_TOL,
+          f"card vs CPU Hopf step: {cpu_check}")
+    emit("hopf_main_path", lanes=B, T=HOPF_T, max_steps=M, history=history,
+         launches=main_launches, val_loss=float(val_loss), cpu_check=cpu_check)
+
+    # -- 22. times -------------------------------------------------------------
+    calls = {
+        "hopf_select": lambda: ho.hopf_select(y0, params, mu, scfg),
+        "hopf_replay_fwd": lambda: ho.hopf_replay_fwd(y0, stn, params, mu),
+        "hopf_replay_bwd": lambda: ho.hopf_replay_bwd(ys, cobar, stn, params, mu),
+    }
+    times = {name: cuda_ms(fn, reps=5, warmup=1, device_time=True) for name, fn in calls.items()}
+    serial = {"hopf_select": na + nr, "hopf_replay_fwd": na, "hopf_replay_bwd": na}
+    bounds = {name: hopf_bound(name, serial[name], M=M) for name in calls}
+    emit("hopf_kernel_times", lanes=B, T=HOPF_T, naccept=na, nreject=nr, ms=times,
+         plain_ms=plain_ms, ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()})
+    # Every timed step starts from the seed weights again, so that each one
+    # replays the same grid: a training run's steps grow with the accepted
+    # count (the main path's three steps above).
+    task = make_task()
+    step = bt.make_train_step(task)
+    seed_params = [{k: p.detach().clone() for k, p in layer.items()} for layer in task.params]
+
+    def seed_step(i=0):
+        with torch.no_grad():
+            for layer, src in zip(task.params, seed_params):
+                for k, p in layer.items():
+                    p.copy_(src[k])
+        return step(batch)
+
+    rec0 = seed_step()
+    step_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seed_step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    step_ms = sum(step_s) * 1e3 / len(step_s)
+    wall, by_kernel = device_profile(seed_step, 3)
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    emit("hopf_step_profile", lanes=B, naccept=int(rec0["stats"].naccept),
+         nreject=int(rec0["stats"].nreject), step_ms=step_ms, samples_per_s=B * 1e3 / step_ms,
+         profiled_wall_ms_per_step=wall,
+         device_busy_ms_per_step=busy if busy else "not measured",
+         idle_share=1.0 - busy / step_ms if busy else "not measured",
+         device_kernels=len(by_kernel), top_ms_per_step=dict(top))
+
+    # -- 23. the command line ---------------------------------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "columnflow_torch.tasks.bifurcation", "--smoke"],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    check(out.returncode == 0 and last.startswith("final loss"),
+          f"bifurcation --smoke: rc {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    check(all(x == x and abs(x) != float("inf") for x in [float(last.split()[-1])]),
+          f"bifurcation --smoke: {last}")
+    emit("hopf_command_line", argv="--smoke", seconds=time.perf_counter() - t0, result=last)
+
+    replaces = {"hopf_select": "columnflow/solvers/fused.py:238",
+                "hopf_replay_fwd": "columnflow/solvers/fused.py:294",
+                "hopf_replay_bwd": "columnflow/solvers/fused.py:327"}
+    return [{"name": name, "route": "cuda", "source": HOPF_SOURCE, "replaces": replaces[name],
+             "launches": main_launches[name], "max_abs_err": errs[name], "ms": times[name],
+             "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": "Hopf",
+             "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+            for name in calls]
+
+
 def main() -> int:
     import torch
 
@@ -1899,8 +2215,13 @@ def main() -> int:
     emit("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
 
     cfg = ColumnConfig.load()
-    line = (wta_phases(dev, cfg) + parity_phases(dev, cfg) + ode_phases(dev, cfg)
-            + split2_phases(dev, cfg) + xor_phases(dev, cfg))
+    # With arguments, only the named paths run (for probing one path); the
+    # driver runs every path, with none.
+    paths = {"wta": wta_phases, "parity": parity_phases, "ode": ode_phases,
+             "split2": split2_phases, "xor": xor_phases, "hopf": hopf_phases}
+    chosen = sys.argv[1:] or list(paths)
+    check(all(p in paths for p in chosen), f"unknown paths {chosen}: choose from {list(paths)}")
+    line = [entry for p in chosen for entry in paths[p](dev, cfg)]
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

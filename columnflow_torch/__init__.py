@@ -8,12 +8,14 @@ neither ``jax`` nor ``columnflow``.
 Layering mirrors the JAX package:
     config   -> typed TOML loading (shared ``config/model.toml``)
     ops      -> transfer function, interpolation, losses
-    models   -> WTA column model, Wong-Wang target generator
-    data     -> WTA stimulus tables and dataset
-    solvers  -> fixed-step SRA1 ``sdeint`` (pure torch, autograd)
+    models   -> WTA column model, Wong-Wang target generator, column network,
+                XOR network, Hopf MLP
+    data     -> stimulus tables and datasets (WTA, parity, XOR, Hopf)
+    solvers  -> SRA1 ``sdeint``, the adaptive SDE, the fused solvers, the
+                per-lane dopri5 forward
     kernels  -> CUDA kernels with their plain PyTorch versions
-    train    -> gradient masks, norms, clamps, torch RMSprop
-    tasks    -> the WTA training task
+    train    -> gradient masks, norms, clamps, torch RMSprop, Adam
+    tasks    -> the WTA, parity, XOR and Hopf training tasks
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Float32 throughout, with TF32 off for matrix products and convolutions.

@@ -66,3 +66,9 @@ def xor_network_from_jax(params_np: dict, net, device=None):
     areas = [area_from_jax(getattr(net, f), device) for f in ("area0", "area1", "consts")]
     return params_from_jax(params_np, device), XORNetwork(
         *areas, np.array(net.ff_source_mask, np.float32), np.array(net.ff_target_mask, np.float32))
+
+
+def hopf_params_from_jax(params_np, device=None) -> list:
+    """The JAX package's Hopf MLP parameters (a list of ``{"w", "b"}``
+    arrays) -> the port's list of float32 tensors on ``device``."""
+    return [params_from_jax(layer, device) for layer in params_np]

@@ -1,10 +1,13 @@
-"""WTA and parity stimuli and datasets (port of the WTA and parity parts of
+"""WTA, parity, XOR and Hopf stimuli and datasets (port of
 ``columnflow/data.py``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from columnflow_torch.ops.interp import interp_at_lanes
+from columnflow_torch.solvers.dopri import odeint_dopri5_lanes
 
 # Stimulus targets L4e/L4i of each column: indices 2,3 (column A) and
 # 10,11 (column B) in the 16-population layout. Slices, not index lists: a
@@ -133,3 +136,50 @@ def prep_xor_stim(cond, time_steps: int, num_pops: int = 16):
     pair = torch.stack([stim, torch.cat([stim[..., half:], stim[..., :half]], dim=-1)], dim=-2)
     on = (torch.arange(time_steps, device=cond.device) >= time_steps // 2).to(cond.dtype)
     return on[:, None, None] * pair[..., None, :, :]
+
+
+# ---------------------------------------------------------------------------
+# Hopf bifurcation (port of the Hopf part of columnflow/data.py)
+# ---------------------------------------------------------------------------
+
+HOPF_OMEGA = 1.0
+HOPF_SINE_AMP = 1.0
+HOPF_SINE_FREQ = 0.25
+
+
+def hopf_dynamics(t, state, mu_t):
+    """Supercritical Hopf normal form with drive mu(t)."""
+    x, y = state[..., 0], state[..., 1]
+    rad = mu_t - x * x - y * y
+    dx = rad * x - HOPF_OMEGA * y
+    dy = rad * y + HOPF_OMEGA * x
+    return torch.stack([dx, dy], dim=-1)
+
+
+def _hopf_solve(y0s, mus, ts, max_steps: int = 4096, return_stats: bool = False):
+    """Integrate ground-truth Hopf trajectories: y0s (N, 2), mus (T, N) ->
+    (T, N, 2); each trajectory under its own dopri5 controller at rtol 1e-7
+    / atol 1e-9, its drive mu interpolated from its column of ``mus``."""
+    ts = torch.as_tensor(ts, dtype=torch.float32, device=y0s.device)
+    t0, dt = float(ts[0]), float(ts[1] - ts[0])
+
+    def f(t, y):  # t (N,): each lane's own time
+        return hopf_dynamics(t, y, interp_at_lanes(t, t0, dt, mus))
+
+    return odeint_dopri5_lanes(f, y0s, ts, max_steps=max_steps, return_stats=return_stats)
+
+
+def make_hopf_dataset(generator: torch.Generator, n_samples: int, ts, max_steps: int = 4096,
+                      device=None):
+    """Ground-truth Hopf dataset (T, N, 3), channels (x, y, mu), on
+    ``device``: start points U(-2, 2)^2 and random-phase sine drives mu(t) =
+    sin(0.25 t + c), c ~ U(-pi, pi), drawn from ``generator`` and integrated
+    with the per-lane adaptive dopri5 (``solvers.dopri``)."""
+    ts = torch.as_tensor(ts, dtype=torch.float32).to(device)
+    u = torch.rand((n_samples, 2), generator=generator, device=generator.device)
+    y0s = (-2.0 + 4.0 * u).to(device)
+    c = torch.rand((n_samples,), generator=generator, device=generator.device)
+    phases = (-np.pi + 2.0 * np.pi * c).to(device)
+    mus = HOPF_SINE_AMP * torch.sin(ts[:, None] * HOPF_SINE_FREQ + phases[None, :])
+    ys = _hopf_solve(y0s, mus, ts, max_steps=max_steps)
+    return torch.cat([ys, mus[..., None]], dim=-1)

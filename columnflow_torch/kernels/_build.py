@@ -26,12 +26,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "columnflow_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source flags. network_sde.cu, network_ode.cu, xor_ode.cu and xor_sde.cu
-# round every float32 operation as their plain PyTorch versions do (see their
-# headers), so nvcc must not contract multiply-adds there.
+# Per-source flags. Every source but column_step.cu rounds each float32
+# operation as its plain PyTorch version does (see their headers), so nvcc
+# must not contract multiply-adds there.
 SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
                 "network_ode": ["-fmad=false"], "xor_ode": ["-fmad=false"],
-                "xor_sde": ["-fmad=false"]}
+                "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"]}
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 # C entry points of each source and their argument types; every one returns
@@ -66,6 +66,12 @@ _SIGNATURES = {
     "xor_sde": {
         "cf_xor_sde_fwd": [_I, _I, _P, _I, _F] + [_P] * 9,
         "cf_xor_sde_bwd": [_I, _I, _P, _I, _F] + [_P] * 10,
+    },
+    "hopf_ode": {
+        "cf_hopf_select": [_I, _I, _P, _P, _I, _I] + [_P] * 6,
+        "cf_hopf_attempt": [_I, _I, _P, _P] + [_P] * 10,
+        "cf_hopf_replay_fwd": [_I, _I, _P, _I] + [_P] * 7,
+        "cf_hopf_replay_bwd": [_I, _I, _P, _I] + [_P] * 9,
     },
 }
 

@@ -1,5 +1,8 @@
-"""Stimulus lookup (port of ``interp_at``, ``interp_knots`` and
-``step_table_knots`` in ``columnflow/ops/interp.py``)."""
+"""Stimulus lookup (port of ``interp_at``, ``interp_at_onehot``,
+``interp_knots`` and ``step_table_knots`` in ``columnflow/ops/interp.py``).
+
+Positions divide through ``ops.arith.div``, so a lookup rounds as IEEE
+division on every device, as the CUDA kernels' lookups do."""
 
 from __future__ import annotations
 
@@ -13,13 +16,42 @@ def interp_at(x, t0, dt, fp):
     grid t0 + dt*arange(T), clamped to the table's range; O(1) index."""
     T = fp.shape[0]
     x = torch.as_tensor(x, dtype=fp.dtype, device=fp.device)
-    pos = torch.clamp((x - t0) / dt, 0.0, T - 1.0)
-    idx = torch.clamp(torch.floor(pos).to(torch.int64), 0, T - 2)
+    pos, idx = _position(x, t0, dt, T)
     frac = pos - idx
     y0 = fp[idx]
     y1 = fp[idx + 1]
     frac = torch.reshape(frac, frac.shape + (1,) * (fp.ndim - 1))
     return y0 + frac * (y1 - y0)
+
+
+def _position(x, t0, dt, T: int):
+    """(pos clamped to [0, T-1], the bracketing row clamped to [0, T-2])."""
+    pos = torch.clamp(div(x - t0, dt), 0.0, T - 1.0)
+    return pos, torch.clamp(torch.floor(pos).to(torch.int64), 0, T - 2)
+
+
+def interp_at_lanes(x, t0, dt, fp):
+    """``interp_at`` of every lane at its own time: x (N,), fp (T, N) ->
+    (N,); lane n reads column n at x[n] (``jax.vmap`` of ``interp_at`` over
+    the lanes)."""
+    T = fp.shape[0]
+    pos, idx = _position(x.to(fp.dtype), t0, dt, T)
+    lanes = torch.arange(fp.shape[1], device=fp.device)
+    y0 = fp[idx, lanes]
+    return y0 + (pos - idx) * (fp[idx + 1, lanes] - y0)
+
+
+def interp_at_onehot(x, t0, dt, fp):
+    """``interp_at`` in the one-hot blend's form that the JAX package's fused
+    solvers use: (1 - frac) fp[idx] + frac fp[idx + 1], each product and
+    the sum rounded in fp's type. Same lookup as ``interp_at``, other
+    roundings; the fused Hopf kernels compute this form."""
+    T = fp.shape[0]
+    x = torch.as_tensor(x, dtype=fp.dtype, device=fp.device)
+    pos, idx = _position(x, t0, dt, T)
+    frac = pos - idx
+    frac = torch.reshape(frac, frac.shape + (1,) * (fp.ndim - 1))
+    return (1.0 - frac) * fp[idx] + frac * fp[idx + 1]
 
 
 def knot_constants(knot_ts):

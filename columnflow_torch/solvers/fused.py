@@ -24,7 +24,9 @@ all steps outside the kernels, as in the JAX package.
 The XOR task's drift (``xor_drift_batched``) has its own two entry points,
 in kernel mode: ``xor_odeint_dopri5_fused`` (the kernels of
 ``kernels.xor_ode``) and ``xor_sdeint_fused``, the uniform-grid SDE with
-one scalar Brownian per lane (``kernels.xor_sde``).
+one scalar Brownian per lane (``kernels.xor_sde``). The Hopf task's MLP
+drift (``hopf_mlp_drift``) has ``hopf_odeint_dopri5_fused`` (the kernels
+of ``kernels.hopf_ode``), in kernel mode.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from columnflow_torch.kernels.network_ode import (
     ode_select,
     step_vjp,
 )
+from columnflow_torch.kernels.hopf_ode import MuTable, hopf_replay_bwd, hopf_replay_fwd, hopf_select
 from columnflow_torch.kernels.network_sde import SIGMA, SDEConsts, replay_bwd, replay_fwd
 from columnflow_torch.kernels.xor_ode import xor_replay_bwd, xor_replay_fwd, xor_select
 from columnflow_torch.kernels.xor_sde import xor_sde_bwd, xor_sde_fwd
@@ -53,6 +56,7 @@ from columnflow_torch.models.network import (
     network_drift_premixed_gradbf16_vjp,
     prepare_premixed_split2,
 )
+from columnflow_torch.models.hopf import PARAM_KEYS
 from columnflow_torch.models.xor import PF_KEYS
 from columnflow_torch.ops.arith import div
 from columnflow_torch.ops.interp import interp_knots
@@ -499,3 +503,77 @@ def xor_sdeint_fused(pf: dict, sc: SDEConsts, kv, y0, ts, noise_pack, arg_grads:
                .reshape(t0s.shape[0], B).contiguous() for x in noise_pack)
     return _XORSDERollout.apply(*(pf[k] for k in PF_KEYS), y0, t0s, i1, i10,
                                 (sc, kv.detach().contiguous(), h))
+
+
+# ---------------------------------------------------------------------------
+# The Hopf MLP drift: fused dopri5, kernel mode
+# ---------------------------------------------------------------------------
+
+
+def hopf_arg_grads(params, arg_grads: str = "auto") -> str:
+    """JAX's ``arg_grads`` rule for the MLP parameters (``columnflow/solvers/
+    fused.py:571-574``): "outer" when they hold more than 1 MiB, else
+    "kernel". The reference MLP holds 83 KB, so "auto" is "kernel"; only
+    kernel mode is ported, "outer" raises."""
+    if arg_grads not in ("auto", "kernel", "outer"):
+        raise ValueError(f"unknown arg_grads mode: {arg_grads!r}")
+    if arg_grads == "auto":
+        big = sum(4 * layer[k].numel() for layer in params for k in PARAM_KEYS) > OUTER_ARG_BYTES
+        arg_grads = "outer" if big else "kernel"
+    if arg_grads == "outer":
+        raise NotImplementedError(
+            "the Hopf MLP's parameter gradients outside the reverse sweep (arg_grads='outer': "
+            "emit mode and step-batched VJPs, parameters over 1 MiB) are not ported: "
+            "ROADMAP.md B8ho")
+    return arg_grads
+
+
+class _HopfODEReplay(torch.autograd.Function):
+    """Forward: ``hopf_replay_fwd``; backward: ``hopf_replay_bwd``.
+    Gradients reach y0 and the eight parameter tensors; the step grid and
+    the mu table are data."""
+
+    @staticmethod
+    def forward(ctx, y0, st, mu, *leaves):
+        params = [{k: v.detach().contiguous() for k, v in zip(PARAM_KEYS, leaves[i:i + 2])}
+                  for i in range(0, len(leaves), 2)]
+        ys, coeffs = hopf_replay_fwd(y0.detach().contiguous(), st, params, mu)
+        ctx.mu, ctx.params = mu, params
+        ctx.save_for_backward(ys, st)
+        return coeffs
+
+    @staticmethod
+    def backward(ctx, coeffs_bar):
+        ys, st = ctx.saved_tensors
+        ybar, grads = hopf_replay_bwd(ys, coeffs_bar.to(torch.float32).contiguous(), st,
+                                      ctx.params, ctx.mu)
+        return (ybar, None, None, *(g[k] for g in grads for k in PARAM_KEYS))
+
+
+def hopf_odeint_dopri5_fused(params, mu_table, dt: float, y0, ts, *, rtol: float = 1e-7,
+                             atol: float = 1e-9, dt0: float | None = None,
+                             max_steps: int = 2048, grid=None, return_stats: bool = False,
+                             arg_grads: str = "auto"):
+    """``odeint_dopri5_fused`` of the Hopf MLP drift (``hopf_mlp_drift`` with
+    the one-hot blend lookup of mu, ``nondiff_args=(1,)``): adaptive dopri5
+    over the batch state y0 (B, 2) under one shared controller, dense
+    output at ``ts``; returns ys (len(ts), B, 2) (and ``ODESolverStats``
+    with ``return_stats``). ``params``: the list of ``{"w", "b"}``
+    (differentiable); ``mu_table`` (T, B) the drive on the grid dt *
+    arange(T) (data). Gradients are discrete backpropagation through the
+    frozen accepted steps, in kernel mode (``hopf_arg_grads``), and reach
+    params and y0. ``grid`` = (step_times (M+1,), naccept) skips the
+    selection and replays that frozen grid."""
+    hopf_arg_grads(params, arg_grads)
+    mu = MuTable(mu_table.detach().to(torch.float32).contiguous(), 0.0, float(dt))
+    leaves = [layer[k] for layer in params for k in PARAM_KEYS]
+
+    def select(cfg):
+        return hopf_select(y0.detach().contiguous(),
+                           [{k: v.detach() for k, v in layer.items()} for layer in params],
+                           mu, cfg)
+
+    def replay(st):
+        return _HopfODEReplay.apply(y0, st, mu, *leaves)
+
+    return _dopri5_solve(select, replay, y0, ts, rtol, atol, dt0, max_steps, grid, return_stats)

@@ -38,8 +38,13 @@ Every other combination of the JAX package's flags raises
 312 columns (the unfused ``solvers/dopri.py``), the split2 tier at 63
 columns or fewer (its weight gradients in the kernel), ``--method`` other
 than dopri5 (the other tableaus), a stochastic run with only some of the
-flagship's flags (the XLA selection, the fixed-grid SDE). ``--split2``
-without ``--fused`` is a ValueError, as in the JAX package.
+flagship's flags (the fixed-grid SDE A6a, the XLA selection A5a),
+``--random-fan-in``/``--legacy-host-rng`` (A3), ``--position-invariant``
+and ``--reference-rails`` (A6b), and checkpoints, metrics, profiles and
+evaluation (``--metrics-out``, ``--profile-dir``, ``--checkpoint-out``,
+``--resume``, ``--eval``, ``--eval-demo``: A9). ``--split2`` without
+``--fused`` is a ValueError, as in the JAX package. There is no
+``--rtol``/``--atol``: the fused path runs 1e-7 / 1e-9 whatever they say.
 """
 
 from __future__ import annotations
@@ -293,19 +298,42 @@ def resolve_mode(args, total_columns: int) -> dict:
     exact engine below 104 columns and the split2 tier through 312. The
     stochastic flagship takes all seven of its flags. Anything else raises
     ``NotImplementedError`` naming the ROADMAP.md item that ports it."""
+    unported = [
+        (args.random_fan_in or args.legacy_host_rng,
+         "--random-fan-in/--legacy-host-rng: randomized fan-in masks are not ported "
+         "(ROADMAP.md A3)"),
+        (args.position_invariant,
+         "--position-invariant: training on all 2^n patterns is not ported (ROADMAP.md A6b)"),
+        (args.reference_rails,
+         "--reference-rails: stepping on a non-finite gradient is not ported (ROADMAP.md A6b)"),
+        (any(getattr(args, f) is not None for f in
+             ("metrics_out", "profile_dir", "checkpoint_out", "resume", "eval_ckpt"))
+         or args.eval_demo,
+         "--metrics-out/--profile-dir/--checkpoint-out/--resume/--eval/--eval-demo: metrics, "
+         "profiles, checkpoints and evaluation are not ported (ROADMAP.md A9)"),
+    ]
+    for hit, why in unported:
+        if hit:
+            raise NotImplementedError(why)
     if args.method != "dopri5":
         raise NotImplementedError(
             f"--method {args.method}: only dopri5 is ported (ROADMAP.md A7: the other "
             "tableaus and the unfused solvers/dopri.py)")
     if args.stochastic:
         missing = [f for f in _FLAGSHIP_FLAGS if not getattr(args, f)]
+        if not args.adaptive:
+            raise NotImplementedError(
+                "--stochastic without --adaptive (alone or with --fused): the fixed-grid SDE "
+                "step is not ported (ROADMAP.md A6a); the ported stochastic step takes all of "
+                "--adaptive --fused --fused-pass --select-bf16 --grad-bf16 --split2, and the "
+                "adaptive step's XLA selection is ROADMAP.md A5a")
         if missing or args.engine not in (None, "auto"):
             raise NotImplementedError(
                 "the stochastic step is ported with all of --adaptive --fused --fused-pass "
                 "--select-bf16 --grad-bf16 --split2 (missing: "
                 f"{', '.join('--' + f.replace('_', '-') for f in missing) or 'none'}; "
-                f"--engine {args.engine}): the XLA selection is ROADMAP.md A5a, the "
-                "fixed-grid SDE A6")
+                f"--engine {args.engine}): the adaptive step's XLA selection (--adaptive "
+                "without --fused-pass) is ROADMAP.md A5a")
         return {"stochastic": True, "split2": False}
     stray = [f for f in ("adaptive", "fused_pass", "select_bf16", "grad_bf16")
              if getattr(args, f)]
@@ -366,6 +394,13 @@ def main(argv=None):
     p.add_argument("--columns-per-area", default=None, metavar="N,N,...",
                    help="comma-separated columns per area (default 8,4,1; "
                         "64,32,8 for the 104-column flagship)")
+    for flag in ("random-fan-in", "legacy-host-rng", "position-invariant", "reference-rails",
+                 "eval-demo"):
+        p.add_argument(f"--{flag}", action="store_true", help="not ported: raises")
+    for flag in ("--metrics-out", "--profile-dir", "--checkpoint-out", "--resume"):
+        p.add_argument(flag, default=None, help="not ported: raises")
+    p.add_argument("--eval", default=None, metavar="CKPT", dest="eval_ckpt",
+                   help="not ported: raises")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")

@@ -44,6 +44,15 @@ selection, single attempts, the replay and its kernel-mode sweep, the
 uniform-grid SDE and its kernel-mode sweep; both train steps against the
 same step on the CPU on the card's grid and noise (loss rel 1e-5, gradients
 rel L2 1e-3), with exactly one launch of each of their kernels.
+
+Hopf kernels (the MLP 3 -> 100 -> 100 -> 100 -> 2, 32 lanes of
+``make_hopf_dataset`` under one controller, 200 grid points over 5 s).
+Kernel and plain version sum every product exactly in float64 in one order
+and round every float32 operation alike, so they are held bit for bit: the
+selection, single attempts, the replay and its kernel-mode sweep; the train
+step against the same step on the CPU on the card's grid (loss rel 1e-5,
+gradients rel L2 1e-3), with exactly one launch of each kernel; the wrappers
+refuse other widths and more than 32 lanes.
 """
 
 import pytest
@@ -52,6 +61,7 @@ import torch
 from columnflow_torch.config import ColumnConfig
 from columnflow_torch.data import make_parity_batch, sample_wta_mus, wta_stim_three_phases
 from columnflow_torch.kernels import column_step as cs
+from columnflow_torch.kernels import hopf_ode as ho
 from columnflow_torch.kernels import network_ode as no
 from columnflow_torch.kernels import network_sde as ns
 from columnflow_torch.kernels import xor_ode as xo
@@ -62,6 +72,7 @@ from columnflow_torch.ops.interp import step_table_knots
 from columnflow_torch.ops.losses import huber_trajectory_loss_wta
 from columnflow_torch.solvers.sde import brownian_pack
 from columnflow_torch.solvers.sde_adaptive import _replay_grid, _sde_key_words, select_config
+from columnflow_torch.tasks import bifurcation
 from columnflow_torch.tasks import parity
 from columnflow_torch.tasks import xor as xor_task
 from columnflow_torch.tasks.wta import DT, linspace
@@ -736,3 +747,124 @@ def test_xor_kernels_never_reach_the_plain_versions(dev, monkeypatch):
         rec, _, _, _ = _xor_step(dev, stochastic)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The Hopf kernels (dopri5 on the MLP drift, kernel mode)
+# ---------------------------------------------------------------------------
+
+HOPF_T, HOPF_SPAN = 200, 5.0
+
+
+def _hopf_task(device, params=None):
+    task = bifurcation.build_task(torch.Generator(device=device).manual_seed(0),
+                                  time_points=HOPF_T, total_time=HOPF_SPAN, max_steps=1024,
+                                  device=device)
+    if params is not None:
+        with torch.no_grad():
+            for layer, src in zip(task.params, params):
+                for k, p in layer.items():
+                    p.copy_(src[k])
+    return task
+
+
+@pytest.fixture
+def hopf(dev):
+    from columnflow_torch.data import make_hopf_dataset
+
+    task = _hopf_task(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    true_y = make_hopf_dataset(gen, 32, task.ts, device=dev)
+    params = [{k: v.detach().clone() for k, v in layer.items()} for layer in task.params]
+    mu = ho.MuTable(true_y[:, :, 2].contiguous(), 0.0, task.dt)
+    cfg = no.ODESelectConfig(0.0, float(task.ts[-1]), max_steps=1024)
+    return dict(task=task, true_y=true_y, params=params, mu=mu, cfg=cfg, gen=gen,
+                y0=true_y[0, :, :2].contiguous())
+
+
+def test_hopf_select_and_attempts_equal_plain(hopf):
+    d = hopf
+    before = ho.LAUNCHES["hopf_select"]
+    st, stats = ho.hopf_select(d["y0"], d["params"], d["mu"], d["cfg"])
+    st_p, stats_p = ho._hopf_select_plain(d["y0"], d["params"], d["mu"], d["cfg"])
+    torch.cuda.synchronize()
+    assert ho.LAUNCHES["hopf_select"] == before + 1
+    assert int(stats[2]) == 1 and stats.tolist() == stats_p.tolist() and torch.equal(st, st_p)
+    n = int(stats[0])
+    ys, _ = ho._hopf_replay_fwd_plain(d["y0"], st[:n + 1].contiguous(), d["params"], d["mu"])
+    for k, stretch in ((0, 1.0), (n // 3, 2.5), (n // 2, 1.5), (n - 2, 4.0)):
+        t, y = st[k].clone(), ys[k].contiguous()
+        h = ((st[k + 1] - st[k]) * stretch).clone()
+        f0 = ho.hopf_ode_drift(t, y, d["params"], d["mu"]).contiguous()
+        a = ho.hopf_attempt(t, y, f0, h, d["params"], d["mu"], d["cfg"])
+        a_p = ho._hopf_attempt_plain(t, y, f0, h, d["params"], d["mu"], d["cfg"])
+        for got, want in zip(a, a_p):
+            assert torch.equal(got, want), k
+
+
+def test_hopf_replay_kernels_equal_plain(hopf):
+    d = hopf
+    st, stats = ho.hopf_select(d["y0"], d["params"], d["mu"], d["cfg"])
+    stn = st[:int(stats[0]) + 1].contiguous()
+    ys, co = ho.hopf_replay_fwd(d["y0"], stn, d["params"], d["mu"])
+    ys_p, co_p = ho._hopf_replay_fwd_plain(d["y0"], stn, d["params"], d["mu"])
+    assert torch.isfinite(co).all() and torch.equal(ys, ys_p) and torch.equal(co, co_p)
+    cobar = torch.randn(co.shape, generator=d["gen"], device=co.device)
+    yb, grads = ho.hopf_replay_bwd(ys, cobar, stn, d["params"], d["mu"])
+    yb_p, grads_p = ho._hopf_replay_bwd_plain(ys, cobar, stn, d["params"], d["mu"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(yb).all() and torch.equal(yb, yb_p)
+    for i, (g, g_p) in enumerate(zip(grads, grads_p)):
+        for k in g:
+            assert torch.equal(g[k], g_p[k]), (i, k)
+
+
+def test_hopf_wrappers_refuse_other_widths_and_lanes(hopf):
+    from columnflow_torch.models.hopf import build_hopf_mlp
+
+    d = hopf
+    narrow = build_hopf_mlp(torch.Generator(device=d["y0"].device).manual_seed(1),
+                            sizes=(3, 16, 16, 16, 2), device=d["y0"].device)
+    with pytest.raises(ValueError, match="MLP"):
+        ho.hopf_select(d["y0"], narrow, d["mu"], d["cfg"])
+    y0 = torch.zeros(33, 2, device=d["y0"].device)
+    mu = ho.MuTable(torch.zeros(HOPF_T, 33, device=d["y0"].device), 0.0, d["mu"].dt)
+    with pytest.raises(ValueError, match="lanes"):
+        ho.hopf_replay_fwd(y0, torch.zeros(2, device=y0.device), d["params"], mu)
+
+
+def _hopf_step(device, true_y, params=None, grid=None):
+    task = _hopf_task(device, params)
+    params0 = [{k: p.detach().cpu().clone() for k, p in layer.items()} for layer in task.params]
+    rec = bifurcation.make_train_step(task)(true_y.to(device), grid=grid)
+    grads = [{k: p.grad.detach().cpu() for k, p in layer.items()} for layer in task.params]
+    return rec, grads, params0
+
+
+def test_hopf_step_on_cuda_matches_cpu(hopf):
+    counters = (ho.LAUNCHES, xo.LAUNCHES, xs.LAUNCHES, no.LAUNCHES, ns.LAUNCHES, cs.LAUNCHES)
+    before = [dict(c) for c in counters]
+    rec, grads, params0 = _hopf_step(hopf["y0"].device, hopf["true_y"])
+    torch.cuda.synchronize()
+    launched = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
+    assert launched == {"hopf_select": 1, "hopf_replay_fwd": 1, "hopf_replay_bwd": 1}
+    assert bool(torch.isfinite(rec["loss"])) and bool(rec["stats"].success)
+    grid = (rec["stats"].step_times.cpu(), int(rec["stats"].naccept))
+    rec_c, grads_c, _ = _hopf_step(torch.device("cpu"), hopf["true_y"].cpu(), params=params0,
+                                   grid=grid)
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for g, g_c in zip(grads, grads_c):
+        for k in g:
+            assert float((g[k] - g_c[k]).norm()) <= 1e-3 * float(g_c[k].norm()) + 1e-30, k
+
+
+def test_hopf_kernels_never_reach_the_plain_versions(hopf, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_hopf_select_plain", "_hopf_attempt_plain", "_hopf_replay_fwd_plain",
+                 "_hopf_replay_bwd_plain"):
+        monkeypatch.setattr(ho, name, boom)
+    rec, _, _ = _hopf_step(hopf["y0"].device, hopf["true_y"])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(rec["loss"]))

@@ -360,7 +360,24 @@ def test_command_line_selects_the_step(argv, stochastic, split2, capsys):
     (["--stochastic", "--adaptive", "--fused"], NotImplementedError, "A5a"),
     (FLAGSHIP_ARGV[:-1], NotImplementedError, "A5a"),
     (["--select-bf16"], NotImplementedError, "A5a"),
-    (["--fused-pass", "--fused"], NotImplementedError, "A5a")])
+    (["--fused-pass", "--fused"], NotImplementedError, "A5a"),
+    # The fixed-grid SDE step (--stochastic alone or with --fused) is A6a;
+    # the adaptive step without --fused-pass keeps A5a.
+    (["--stochastic"], NotImplementedError, "A6a"),
+    (["--stochastic", "--fused"], NotImplementedError, "A6a"),
+    (["--stochastic", "--adaptive"], NotImplementedError, "A5a"),
+    # The JAX package's other flags are accepted and raise, naming their item.
+    (["--random-fan-in"], NotImplementedError, "A3"),
+    (["--random-fan-in", "--legacy-host-rng"], NotImplementedError, "A3"),
+    (["--legacy-host-rng"], NotImplementedError, "A3"),
+    (["--position-invariant"], NotImplementedError, "A6b"),
+    (["--reference-rails"], NotImplementedError, "A6b"),
+    (["--metrics-out", "m.jsonl"], NotImplementedError, "A9"),
+    (["--profile-dir", "prof"], NotImplementedError, "A9"),
+    (["--checkpoint-out", "ck"], NotImplementedError, "A9"),
+    (["--resume", "ck"], NotImplementedError, "A9"),
+    (["--eval", "ck.npz"], NotImplementedError, "A9"),
+    (["--eval-demo"], NotImplementedError, "A9")])
 def test_unported_command_lines_raise(argv, exc, item):
     # At the default 13 columns the split2 tier would take its weight
     # gradients in the kernel (B8s); past 312 columns auto picks XLA (A7).
