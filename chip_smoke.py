@@ -4,9 +4,7 @@ step, the 104-column stochastic-adaptive parity step, the deterministic
 fused-dopri5 parity step and its 104-column fused-split2 tier, the XOR
 task's deterministic and stochastic steps, and the Hopf task's step.
 
-    python3 chip_smoke.py              # every path
-    python3 chip_smoke.py hopf xor     # only the named paths (wta, parity, ode,
-                                       # split2, xor, hopf), for probing one
+    python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and the script exits
 non-zero without printing a result:
@@ -100,8 +98,9 @@ rtol 1e-7 / atol 1e-9, targets from make_hopf_dataset):
 21. main path: 3 train steps through make_train_step, one launch of each of
    the three kernels per step and none of anything else, and the validation
    forward; the first step again on the CPU with the plain versions on the
-   card's grid (loss, gradients), beside the card's own gradient spread
-   under a 1e-7 nudge of the weights.
+   card's grid: the loss within 1e-5, each gradient within the larger of
+   1e-5 and ten times the card's own spread under a 1e-7 nudge of the
+   weights.
 22. times: each kernel's device time, ns per serial step, its bound, its
    plain version's time; the train step's time and profile (each timed step
    from the seed weights).
@@ -1904,7 +1903,11 @@ def xor_phases(dev, cfg):
 # / atol 1e-9, SmoothL1, RMSprop(lr 1e-3, alpha 0.99). Nothing cut.
 HOPF_T, HOPF_SPAN, HOPF_B, HOPF_MAX_STEPS = 1000, 25.0, 32, 1024
 HOPF_SOURCE = "columnflow_torch/kernels/csrc/hopf_ode.cu"
-HOPF_LOSS_TOL, HOPF_GRAD_TOL = 1e-5, 1e-3
+# Card against CPU: the loss within HOPF_LOSS_TOL, each gradient within
+# HOPF_GRAD_TOL or ten times the card's own spread under a 1e-7 nudge of the
+# weights, whichever is larger (the replay and sweep need no exp or log: only
+# the grid's float32 times and the dense output's division round apart).
+HOPF_LOSS_TOL, HOPF_GRAD_TOL = 1e-5, 1e-5
 
 
 def hopf_bound(kernel, work, T=HOPF_T, M=0):
@@ -2104,14 +2107,15 @@ def hopf_phases(dev, cfg):
     loss_c, grads_c, cpu_s = one_step("cpu", first["params"], first["grid"])
     nudged = [{k: v * (1.0 + 1e-7) for k, v in layer.items()} for layer in first["params"]]
     loss_n, grads_n, _ = one_step(dev, nudged, first["grid"])
+    spread = {k: rel_l2(grads_n[k], first["grads"][k]) for k in grads_c}
+    grad_tol = {k: max(HOPF_GRAD_TOL, 10.0 * spread[k]) for k in grads_c}
     cpu_check = {"naccept": first["grid"][1],
                  "loss_rel": abs(first["loss"] - loss_c) / abs(loss_c),
                  "grad_rel_l2": {k: rel_l2(first["grads"][k], grads_c[k]) for k in grads_c},
-                 "card_grad_spread_under_1e-7_nudge": {
-                     k: rel_l2(grads_n[k], first["grads"][k]) for k in grads_c},
-                 "cpu_seconds": cpu_s, "tol": {"loss": HOPF_LOSS_TOL, "grad": HOPF_GRAD_TOL}}
+                 "card_grad_spread_under_1e-7_nudge": spread, "cpu_seconds": cpu_s,
+                 "tol": {"loss": HOPF_LOSS_TOL, "grad": grad_tol}}
     check(cpu_check["loss_rel"] < HOPF_LOSS_TOL
-          and max(cpu_check["grad_rel_l2"].values()) < HOPF_GRAD_TOL,
+          and all(cpu_check["grad_rel_l2"][k] < grad_tol[k] for k in grads_c),
           f"card vs CPU Hopf step: {cpu_check}")
     emit("hopf_main_path", lanes=B, T=HOPF_T, max_steps=M, history=history,
          launches=main_launches, val_loss=float(val_loss), cpu_check=cpu_check)
@@ -2215,13 +2219,8 @@ def main() -> int:
     emit("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
 
     cfg = ColumnConfig.load()
-    # With arguments, only the named paths run (for probing one path); the
-    # driver runs every path, with none.
-    paths = {"wta": wta_phases, "parity": parity_phases, "ode": ode_phases,
-             "split2": split2_phases, "xor": xor_phases, "hopf": hopf_phases}
-    chosen = sys.argv[1:] or list(paths)
-    check(all(p in paths for p in chosen), f"unknown paths {chosen}: choose from {list(paths)}")
-    line = [entry for p in chosen for entry in paths[p](dev, cfg)]
+    line = (wta_phases(dev, cfg) + parity_phases(dev, cfg) + ode_phases(dev, cfg)
+            + split2_phases(dev, cfg) + xor_phases(dev, cfg) + hopf_phases(dev, cfg))
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,13 +1,17 @@
-// The dopri5 pieces every dopri5 kernel shares (network_ode.cu, xor_ode.cu):
-// the Dormand-Prince 4(5) tableau with Hairer's CONTD5 weights
+// The dopri5 pieces every dopri5 kernel shares (network_ode.cu, xor_ode.cu,
+// hopf_ode.cu): the Dormand-Prince 4(5) tableau with Hairer's CONTD5 weights
 // (columnflow_torch/solvers/rk.py), the selection's settings and its I
-// controller (kernels/network_ode.py _next_step_size). Included once per
+// controller (kernels/network_ode.py _next_step_size), a component's stage
+// state and weighted stage sum as the plain versions round them, and the
+// block-wide float64 sum of the error norm (block_sum.cuh). Included once per
 // source; every source is its own library, so the definitions live in an
 // unnamed namespace.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "block_sum.cuh"
 
 namespace {
 
@@ -60,6 +64,33 @@ __device__ __forceinline__ float next_step(float h, float ratio) {
   float f = 0.9f * expf((float)(-1.0 / 5) * logf(ratio));
   if (f == f) f = fminf(fmaxf(f, 0.2f), 10.0f);
   return h * f;
+}
+
+// Stage state i (1..6) of one component:
+// y + sum_j (h a_ij) k_j over the nonzero a_ij, left to right.
+__device__ __forceinline__ float stage(int i, float h, float y, const float (&k)[kStages]) {
+  float v = y;
+  for (int j = 0; j < i; ++j) {
+    const float a = kA[i][j];
+    if (a != 0.0f) v = v + (h * a) * k[j];
+  }
+  return v;
+}
+
+// sum_j (h w_j) k_j of one component over the nonzero w_j, left to right,
+// from the first term alone (network_ode.py _combine(None, ...)).
+__device__ __forceinline__ float weighted(const float* w, float h, const float (&k)[kStages]) {
+  float v = 0.0f;
+  bool first = true;
+#pragma unroll
+  for (int j = 0; j < kStages; ++j) {
+    if (w[j] != 0.0f) {
+      const float term = (h * w[j]) * k[j];
+      v = first ? term : v + term;
+      first = false;
+    }
+  }
+  return v;
 }
 
 }  // namespace

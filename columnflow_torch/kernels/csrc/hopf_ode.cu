@@ -43,8 +43,8 @@
 // float32 over a step's seven VJPs from stage 6 down and over the steps from
 // the last back. The stage sums, the error norm and the cotangent sums round
 // as kernels/network_ode.py's plain versions (rk_step, dense_coeffs, _rms,
-// rk_step_vjp); the error norm's squares add in float64 in thread order and
-// round once.
+// rk_step_vjp); the error norm's squares add in float64 in block_sum's
+// order and round once.
 
 #include "dopri5.cuh"
 
@@ -100,12 +100,12 @@ struct Net {
 struct Sh {
   double *inp, *a1, *a2, *a3;  // (B, 3), (B, kH) x 3: activations as doubles
   double *dz0, *dz1;           // (B, kH) x 2: layer cotangents (reverse sweep only)
-  double* red;                 // (2) the error norm's warp sums
+  double* red;                 // (kThreads / 32) the error norm's warp sums
   float *w1, *b1, *w2, *b2, *w3, *b3, *w4, *b4;
 };
 
 size_t sh_bytes(int B, bool bwd) {
-  const size_t d = (size_t)B * (3 + 3 * kH) + (bwd ? 2 * (size_t)B * kH : 0) + 2;
+  const size_t d = (size_t)B * (3 + 3 * kH) + (bwd ? 2 * (size_t)B * kH : 0) + kThreads / 32;
   const size_t f = 3 * kH + kH + 2 * (kH * kWS + kH) + 2 * kH + 2;
   return d * sizeof(double) + f * sizeof(float);
 }
@@ -123,7 +123,7 @@ __device__ Sh sh_load(unsigned char* sm, int B, bool bwd, const float* __restric
   s.dz0 = bwd ? d : nullptr;
   s.dz1 = bwd ? d + B * kH : nullptr;
   s.red = bwd ? d + 2 * B * kH : d;
-  float* f = reinterpret_cast<float*>(s.red + 2);
+  float* f = reinterpret_cast<float*>(s.red + kThreads / 32);
   s.w1 = f;
   s.b1 = s.w1 + 3 * kH;
   s.w2 = s.b1 + kH;
@@ -268,44 +268,10 @@ __device__ float drift_vjp(const Net& n, const Sh& s, float t, float y_c, float 
 }
 
 // The RMS of this thread's value q over the N = 2B components (threads
-// c >= N hold 0): the squares in float64, warp sums, then the two warps.
+// c >= N add 0): the squares in float64, summed over the block.
 __device__ float rms(const Sh& s, float q, int N) {
-  double v = (int)threadIdx.x < N ? (double)(q * q) : 0.0;
-  if (threadIdx.x < 64) {
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if ((threadIdx.x & 31) == 0) s.red[threadIdx.x >> 5] = v;
-  }
-  __syncthreads();
-  const double total = s.red[0] + s.red[1];
-  __syncthreads();
-  return sqrtf((float)total / (float)N);
-}
-
-// Stage state i (1..6) of this thread's component:
-// y + sum_j (h a_ij) k_j over the nonzero a_ij, left to right.
-__device__ __forceinline__ float stage(int i, float h, float y, const float (&k)[kStages]) {
-  float v = y;
-  for (int j = 0; j < i; ++j) {
-    const float a = kA[i][j];
-    if (a != 0.0f) v = v + (h * a) * k[j];
-  }
-  return v;
-}
-
-// sum_j (h w_j) k_j over the nonzero w_j, left to right, from the first
-// term alone (network_ode.py _combine(None, ...)).
-__device__ __forceinline__ float weighted(const float* w, float h, const float (&k)[kStages]) {
-  float v = 0.0f;
-  bool first = true;
-#pragma unroll
-  for (int j = 0; j < kStages; ++j) {
-    if (w[j] != 0.0f) {
-      const float term = (h * w[j]) * k[j];
-      v = first ? term : v + term;
-      first = false;
-    }
-  }
-  return v;
+  const double v = (int)threadIdx.x < N ? (double)(q * q) : 0.0;
+  return sqrtf((float)block_sum(v, s.red) / (float)N);
 }
 
 // One attempt from (t, y, k[0] = f(t, y)) with the step h: the stages

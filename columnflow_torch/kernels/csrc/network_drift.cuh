@@ -1,7 +1,7 @@
 // What the column-network kernels share (network_sde.cu, network_ode.cu):
 // the drift's constants, the firing rate and its derivative, the knot
-// stimulus, bf16 rounding, the block-wide float64 sum, and the host-side
-// helpers that fill the constants and size the shared memory. Included once
+// stimulus, bf16 rounding, the block-wide float64 sum (block_sum.cuh), and
+// the host-side helpers that fill the constants and size the shared memory. Included once
 // per source; every source is its own library, so the definitions live in an
 // unnamed namespace.
 
@@ -10,6 +10,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "block_sum.cuh"
 
 namespace {
 
@@ -71,19 +73,6 @@ __device__ __forceinline__ float knot_interp(const Net& n, int b, int m, float t
     out = out + frac * (v1 - v0);
   }
   return out;
-}
-
-// Block-wide sum of v over the block, in float64, in a fixed order.
-__device__ double block_sum(double v, double* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  double total = 0.0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += red[w];
-  __syncthreads();
-  return total;
 }
 
 Net make_net(int B, int P, int n_in, int K, const float* hc, const float* bg,
