@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's training steps on one CUDA card: the WTA
-step, the 104-column stochastic-adaptive parity step, the deterministic
-fused-dopri5 parity step and its 104-column fused-split2 tier, the XOR
-task's deterministic and stochastic steps, and the Hopf task's step.
+step, the 104-column stochastic-adaptive parity step (--fused-pass), the
+deterministic fused-dopri5 parity step and its 104-column fused-split2
+tier, the XOR task's deterministic and stochastic steps, the Hopf task's
+step, the 13-column fixed-grid and adaptive stochastic parity steps, and
+bench.py's 104-column stochastic-adaptive configuration.
 
     python3 chip_smoke.py
 
@@ -30,9 +32,9 @@ points over 1 s, max_steps 16384, the flagship's flags):
    replay and its reverse sweep on 64-half-step windows early, in the middle
    and late in the full-horizon replay.
 6. main path: 2 training steps through the kernels, the launch counters
-   asserted per step; a step over 100 grid points repeated on the CPU with
-   the plain versions on the card's frozen grid and lane words, over 5 and
-   100 grid points.
+   asserted per step; a step repeated on the CPU with the plain versions on
+   the card's frozen grid and lane words: at 104 columns over 5 grid points
+   (every gradient) and 50 (the output weights), at 13 columns over 100.
 7. times: each kernel's device time at the main path's shapes, its bound
    and ns per serial step, its plain version's time over 100 grid points,
    the train step's wall time, and a profile of a step over 100 points.
@@ -59,11 +61,11 @@ gradients outside the kernels):
    full second needs ~1.3e4 attempts), single attempts from states along
    the replay, the replay and the emit-mode sweep on 64-step windows early,
    in the middle and late; 16 lanes through the selection and the replay.
-12. main path: 3 training steps through make_train_step(task, split2=True),
+12. main path: 2 training steps through make_train_step(task, split2=True),
    one launch of each of the tier's three kernels per step.
 13. card vs CPU: one step over 5 grid points on the card's frozen grid
    (loss, gradients and the CPU's own spread under a 1e-7 nudge), and one
-   at 13 columns over 100 points; the gradient's norm over 50 and 200
+   at 13 columns over 50 points; the gradient's norm over 50 and 200
    points.
 14. times: each kernel, ns per serial step, its bound, its plain version on a
    short window, the outer weight-gradient pass, the train step, and a
@@ -105,7 +107,39 @@ rtol 1e-7 / atol 1e-9, targets from make_hopf_dataset):
    plain version's time; the train step's time and profile (each timed step
    from the seed weights).
 23. the command line: python -m columnflow_torch.tasks.bifurcation --smoke.
-Then the kernels line (every kernel of the six paths), the card's name
+Stochastic parity at 13 columns (104 populations, state 312, 4 lanes, 1000
+grid points over 1 s, the three-term split in kernel mode): the fixed-grid
+SDE step (--stochastic: SRA1 on the uniform grid, 999 steps, B3t and B4't)
+and the adaptive step with the XLA selection (--stochastic --adaptive: the
+jax.random tree, the float32 drift, max_steps 3072, then B3t and B4't on
+the lanes' grids):
+24. kernel vs plain, bit for bit: the selection over 25 grid points, 16
+   attempts along the replay, B3t over the whole lane-batched replay, B4't
+   on 64-half-step windows early, in the middle and late, and both over all
+   999 steps of the uniform grid.
+25. main path: 3 train steps of each through make_train_step, one launch of
+   each of their kernels per step and none of anything else; each first
+   step again on the CPU on the card's grid and noise (the fixed grid over
+   the full second, the adaptive step over 100 points): the loss within
+   1e-5, each gradient within the larger of 1e-3 and ten times the card's
+   own spread under a 1e-7 nudge of the weights.
+26. times: each kernel's device time, ns per serial step, its bound, its
+   plain version's time; both steps' times and profiles.
+27. the command lines: --smoke --stochastic and --smoke --stochastic
+   --adaptive.
+bench.py's primary configuration (104 columns, 4 lanes, 1000 grid points,
+max_steps 16384, --stochastic --adaptive under --engine auto: the jax.random
+tree's selection on the select16 drift, then B3 lanes, B4 emit and the outer
+gradbf16 pass; bptt 32, clip 1.0, loss scale 1e-6):
+28. main path: 2 train steps at full width, one launch of each of the three
+   kernels per step; one step over 5 grid points again on the CPU on the
+   card's grid.
+29. kernel vs plain: the selection of two lanes over 25 grid points (bit for
+   bit, or its counts within 1%), 8 attempts along the first step's replay.
+30. times: the selection's device time, bound and ns per attempt, the step's
+   time and a profile over 100 points; the command line (--smoke
+   --stochastic --adaptive --columns-per-area 64,32,8 and the bench flags).
+Then the kernels line (every kernel of the eight paths), the card's name
 and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -135,12 +169,14 @@ PARITY_B = 4
 PARITY_MAX_STEPS = 16384
 SHORT_T = 100       # grid points of the CPU step check and the plain versions' times
 GRAD_T = 5          # grid points (5 ms) of the CPU step check holding every gradient
+OUT_T = 50          # grid points of the 104-column CPU step check holding the output weights
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 SDE_SOURCE = "columnflow_torch/kernels/csrc/network_sde.cu"
 # The flagship's step settings; its solver flags (--stochastic --adaptive
 # --fused --fused-pass --select-bf16 --grad-bf16 --split2) select the port's
 # stochastic step.
-FLAGSHIP = dict(stochastic=True, bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
+FLAGSHIP = dict(stochastic=True, adaptive=True, fused_pass=True, select_bf16=True,
+                grad_bf16=True, split2=True, bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
 # The deterministic parity step (columnflow/tasks/parity.py defaults): the
 # reference's own network, nothing cut.
 ODE_CPA = (8, 4, 1)
@@ -185,6 +221,21 @@ def scaled_err(got, want):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def run_command_line(task, argv, timeout=600):
+    """``python -m columnflow_torch.tasks.<task>`` with argv on the card,
+    which must exit 0 with its "final loss" line: that line and the
+    seconds it took."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"columnflow_torch.tasks.{task}", *argv],
+                         capture_output=True, text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    check(out.returncode == 0 and last.startswith("final loss"),
+          f"{task} {' '.join(argv)}: rc {out.returncode}\n{out.stdout[-2000:]}\n"
+          f"{out.stderr[-4000:]}")
+    return last, time.perf_counter() - t0
 
 
 def cuda_ms(fn, reps, warmup=1, device_time=False):
@@ -755,8 +806,9 @@ def parity_phases(dev, cfg):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         launched = {k: ns.LAUNCHES[k] - before[k] for k in ns.LAUNCHES}
-        check(launched == {"sde_select": 1, "sde_attempt": 0, "sde_replay_fwd": 1,
-                           "sde_replay_bwd": 1}, f"step {i}: launches {launched}")
+        check(launched == {**dict.fromkeys(ns.LAUNCHES, 0), "sde_select": 1,
+                           "sde_replay_fwd": 1, "sde_replay_bwd": 1},
+              f"step {i}: launches {launched}")
         stats = rec["stats"]
         check(bool(stats.success.all()) and bool(torch.isfinite(rec["loss"])),
               f"step {i}: success {stats.success.tolist()}, loss {rec['loss']}")
@@ -773,11 +825,11 @@ def parity_phases(dev, cfg):
     # compared as computed). Over GRAD_T grid points
     # (5 ms) every gradient is held at 104 columns, so the reverse sweep and
     # the weight-gradient contraction at P = 832 are compared through the
-    # step. Over SHORT_T points the solver's weight gradients are
+    # step. Over OUT_T points the solver's weight gradients are
     # ill-conditioned at 104 columns: the CPU's own gradient moves by O(1)
     # when the weights move by one part in 1e7 ("spread"), so the loss and
-    # the output-weight gradient are held there; at 13 columns every
-    # gradient.
+    # the output-weight gradient are held there; at 13 columns over SHORT_T
+    # points every gradient.
     check_flags = {**FLAGSHIP, "clip_grad_norm": None}
 
     def step_grads(cpa, T_check, device, params, grid=None):
@@ -793,7 +845,7 @@ def parity_phases(dev, cfg):
     cpu = torch.device("cpu")
     cpu_check = {}
     for cpa, T_check, held_keys in ((PARITY_CPA, GRAD_T, None),
-                                    (PARITY_CPA, SHORT_T, ("output_weights",)),
+                                    (PARITY_CPA, OUT_T, ("output_weights",)),
                                     ((8, 4, 1), SHORT_T, None)):
         src = make_task(T_check, cpa=cpa).params if cpa != PARITY_CPA else params_first
         params0 = {k: p.detach().cpu().clone() for k, p in src.items()}
@@ -1333,7 +1385,7 @@ def split2_phases(dev, cfg):
          attempt={"records": 16, **att, "ratio_tol": 1e-5, "h_next_tol": 1e-6},
          windows=windows, tol={"ys_scaled": 1e-6, "rel_l2": 1e-5}, max_abs_err=errs)
 
-    # -- 12. the main path: 3 training steps at full width ---------------------
+    # -- 12. the main path: 2 training steps at full width ---------------------
     step = parity.make_train_step(task, split2=True)
     masks = {k: v.bool() for k, v in task.grad_mask.items()}
     params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
@@ -1342,7 +1394,7 @@ def split2_phases(dev, cfg):
     for k in no.LAUNCHES:
         no.LAUNCHES[k] = 0
     history, step_s = [], []
-    for i in range(3):
+    for i in range(2):
         stims_i = stims if i == 0 else make_parity_batch(gen, n_in, B, device=dev)
         before = dict(no.LAUNCHES)
         prev = {k: p.detach().clone() for k, p in task.params.items()}
@@ -1390,12 +1442,12 @@ def split2_phases(dev, cfg):
     # columns the stiff network amplifies that even over 5 ms (a 1e-7 change
     # of the weights moves the CPU's own gradient by ~0.1). So each gradient
     # is held within twice that spread, or 1e-3 where the spread is smaller;
-    # also at 13 columns over 100 points (outer mode forced there: "auto"
+    # also at 13 columns over 50 points (outer mode forced there: "auto"
     # takes kernel mode at that size).
     from columnflow_torch.solvers import fused
 
     cpu_check = {"tol": {"loss": ODE_LOSS_TOL, "grad": "max(1e-3, 2 x spread)"}}
-    for cpa, T_c in ((S2_CPA, S2_GRAD_T), ((8, 4, 1), 100)):
+    for cpa, T_c in ((S2_CPA, S2_GRAD_T), ((8, 4, 1), 50)):
         small = cpa != S2_CPA
         saved = fused.OUTER_ARG_BYTES
         fused.OUTER_ARG_BYTES = 0 if small else saved
@@ -1478,17 +1530,9 @@ def split2_phases(dev, cfg):
          device_kernels=len(by_kernel), top_ms_per_step=dict(top))
 
     # -- 15. the command line trains the tier on the card ----------------------
-    t0 = time.perf_counter()
     argv = ["--columns-per-area", "64,32,8", "--smoke", "--max-steps", "4096"]
-    proc = subprocess.run([sys.executable, "-m", "columnflow_torch.tasks.parity", *argv],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=900)
-    last = (proc.stdout.strip().splitlines() or [""])[-1]
-    check(proc.returncode == 0 and last.startswith("final loss"),
-          f"parity {' '.join(argv)}: rc {proc.returncode}\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    emit("split2_command_line", argv=" ".join(argv),
-         seconds=time.perf_counter() - t0, last_line=last)
+    last, secs = run_command_line("parity", argv, timeout=900)
+    emit("split2_command_line", argv=" ".join(argv), seconds=secs, last_line=last)
 
     replaces = {"ode_select": "columnflow/solvers/fused.py:238",
                 "ode_replay_fwd_split2": "columnflow/solvers/fused.py:294",
@@ -2167,16 +2211,10 @@ def hopf_phases(dev, cfg):
          device_kernels=len(by_kernel), top_ms_per_step=dict(top))
 
     # -- 23. the command line ---------------------------------------------------
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "columnflow_torch.tasks.bifurcation", "--smoke"],
-                         capture_output=True, text=True, timeout=300,
-                         cwd=os.path.dirname(os.path.abspath(__file__)))
-    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
-    check(out.returncode == 0 and last.startswith("final loss"),
-          f"bifurcation --smoke: rc {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    last, secs = run_command_line("bifurcation", ["--smoke"], timeout=300)
     check(all(x == x and abs(x) != float("inf") for x in [float(last.split()[-1])]),
           f"bifurcation --smoke: {last}")
-    emit("hopf_command_line", argv="--smoke", seconds=time.perf_counter() - t0, result=last)
+    emit("hopf_command_line", argv="--smoke", seconds=secs, result=last)
 
     replaces = {"hopf_select": "columnflow/solvers/fused.py:238",
                 "hopf_replay_fwd": "columnflow/solvers/fused.py:294",
@@ -2187,6 +2225,561 @@ def hopf_phases(dev, cfg):
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": "Hopf",
              "ns_per_serial_step": times[name] * 1e6 / serial[name]}
             for name in calls]
+
+
+# Stochastic parity at 13 columns (the reference's topology): the fixed-grid
+# SDE step (--stochastic) and the XLA selection's adaptive step
+# (--stochastic --adaptive), both on the three-term split in kernel mode.
+S13_CPA = (8, 4, 1)
+S13_T = 1000
+S13_B = 4
+S13_MAX_STEPS = 3072  # the command line's default, task.max_steps
+S13_W = 64            # half steps of each window of the reverse sweep held against its plain version
+S13_LOSS_TOL = 1e-5
+S13_GRAD_TOL = 1e-3   # rel L2 of each gradient, card against CPU (or ten times the card's spread)
+# bench.py's primary configuration: the 104-column step without --fused-pass.
+BENCH = dict(stochastic=True, adaptive=True, select_bf16=True, grad_bf16=True, split2=True,
+             bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
+JAX_NORMAL_OPS = 300  # a jax.random normal: two Threefry-2x32 hashes and an erf_inv
+BENCH_SEL_T = 25      # grid points of the whole jax-tree selections held against their plain loop
+
+
+def jax_select_bound(P, B, n_in, K, attempts, M, f32: bool):
+    """(bound_ms, bound_by) of the selection on the jax.random tree: per
+    attempt 5 drift evaluations (one (P, P) product each: float32 weights at
+    the float32 rate, or select16's bf16 at the bf16 rate), 3 SRA1 updates,
+    the error norm, and 44 normals (two tree walks of 21 and two interval
+    normals). Bytes: the weights once, y0, the key words and the grids."""
+    S, prod = 3 * P, 2 * P * P
+    ops32 = attempts * (5 * (30 * P + 8 * S) + 36 * S + 44 * JAX_NORMAL_OPS)
+    ops16 = 0.0
+    if f32:
+        ops32 += attempts * 5 * prod
+    else:
+        ops16 = attempts * 5 * prod
+    wbytes = (4 if f32 else 2) * (P * P + n_in * P)
+    nbytes = wbytes + 4 * (2 * P + K * B * n_in) + 4 * B * S + 16 * B + 4 * B * (M + 1) + 12 * B
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops16 / BF16_FLOPS + ops32 / FP32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sde3_bound(kernel, P, B, n_in, K, steps, n):
+    """(bound_ms, bound_by) of the three-term sweeps for ``steps`` real
+    steps of all lanes (lanes x steps): a forward step is 2 drift
+    evaluations of six bf16 products (2 P^2 each); a reverse step one drift
+    and two VJPs of three state-side and three weight-side products, and
+    the fold of the weight cotangents (~10 P^2 operations). Bytes: wT and
+    iwT (float32) once, the grid and noise of the real steps, the states
+    (and cotangents) written or read once."""
+    S, prod = 3 * P, 2 * P * P
+    consts = 4 * (2 * P + K * B * n_in) + 4 * (P * P + n_in * P)
+    if kernel == "sde3_fwd":
+        ops16 = steps * 2 * 6 * prod
+        ops32 = steps * (2 * (30 * P + 8 * S) + 10 * S)
+        nbytes = consts + 4 * B * S + 16 * steps + 4 * (n + 1) * B * S
+    else:
+        ops16 = steps * 18 * prod
+        ops32 = steps * (30 * P + 2 * (20 * P + 10 * S) + 12 * S) + (steps / B) * 10 * P * P
+        nbytes = consts + 12 * steps + 2 * 4 * steps * S + 4 * B * S + 4 * (P * P + n_in * P)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops16 / BF16_FLOPS + ops32 / FP32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stochastic13_phases(dev, cfg):
+    """Phases 24-27: the fixed-grid SDE step and the XLA selection's
+    adaptive step at 13 columns; returns their kernels' entries of the
+    kernels line."""
+    import torch
+
+    from columnflow_torch.data import make_parity_batch
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.solvers import sde_adaptive as sa
+    from columnflow_torch.solvers.fused import sweep_chunk, uniform_step_times
+    from columnflow_torch.solvers.sde import brownian_pack
+    from columnflow_torch.tasks import parity
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B = S13_B
+
+    def make_task(time_steps=S13_T, device=dev, params=None):
+        task = parity.build_task(cfg, torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=S13_CPA, time_steps=time_steps,
+                                 max_steps=S13_MAX_STEPS, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        return task
+
+    def lane_keys(n=B):
+        return torch.randint(0, 2**32, (n, 2), generator=gen, device=dev, dtype=torch.int64)
+
+    def noise_pack(ts):
+        _, i1, i10, _, _ = brownian_pack(gen, ts, (B, 1))
+        return i1, i10
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def equal(got, want):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    # -- 24. kernel vs plain -----------------------------------------------------
+    task = make_task()
+    P = task.net.num_pops
+    S, n_in, K = 3 * P, 4, 4
+    stims = make_parity_batch(gen, n_in, B, device=dev)
+    model = parity.sde_model(task.params, task, stims)
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    scfg = sa.select_config(task.ts, max_steps=S13_MAX_STEPS, brownian="jax", drift="f32")
+    words = sa._sde_key_words(lane_keys(), "jax")
+    y0 = torch.zeros(B, S, device=dev)
+    st, na, nr, ok = ns.select_pass(y0, words, pw, model.sc, model.kv, scfg)
+    ht, dw, i10 = sa._replay_grid(st, words, scfg.t_start, scfg.t_end, scfg.depth, "jax")
+    lanes_grid = (ht[:, :-1].T.contiguous(), (ht[:, 1:] - ht[:, :-1]).T.contiguous(),
+                  dw.T.contiguous(), i10.T.contiguous())
+    n_real = 2 * int(na.max())
+    plain_ms, errs, same = {}, {}, {}
+    ys_l = ns.replay3_fwd(y0, *lanes_grid, n_real, pw, model.sc, model.kv)
+    ys_lp, plain_ms["sde3_fwd_lanes"] = timed(lambda: ns._replay3_fwd_plain(
+        y0, *lanes_grid, n_real, pw, model.sc, model.kv))
+    errs["sde3_fwd_lanes"] = float((ys_l - ys_lp).abs().max())
+    same["sde3_fwd_lanes"] = bool(torch.equal(ys_l, ys_lp))
+    check(bool(torch.isfinite(ys_l).all()) and errs["sde3_fwd_lanes"] == 0.0,
+          f"B3t lanes against its plain version: max abs {errs['sde3_fwd_lanes']}")
+
+    # The whole selection over BENCH_SEL_T grid points, kernel and plain loop.
+    task_s = make_task(BENCH_SEL_T, params=task.params)
+    model_s = parity.sde_model(task_s.params, task_s, stims)
+    scfg_s = sa.select_config(task_s.ts, max_steps=S13_MAX_STEPS, brownian="jax", drift="f32")
+    sel_k = ns.select_pass(y0, words, pw, model_s.sc, model_s.kv, scfg_s)
+    sel_p, plain_ms["sde_select_jax_f32"] = timed(
+        lambda: ns._select_plain(y0, words, pw, model_s.sc, model_s.kv, scfg_s))
+    same["sde_select_jax_f32"] = equal(sel_k, sel_p)
+    errs["sde_select_jax_f32"] = float((sel_k[0] - sel_p[0]).abs().max())
+    check(same["sde_select_jax_f32"] and bool(sel_k[3].all()),
+          f"jax-tree selection (f32) over {BENCH_SEL_T} points: naccept {sel_k[1].tolist()} "
+          f"vs {sel_p[1].tolist()}, nreject {sel_k[2].tolist()} vs {sel_p[2].tolist()}")
+    # 16 attempts from states along the full replay, at 1, 1.5 and 2 times the accepted step.
+    N = 16
+    li = torch.arange(N, device=dev) % B
+    ri = torch.tensor([2 * int((r // B) / (N // B) * (int(na[r % B]) - 1)) for r in range(N)],
+                      device=dev)
+    fac = torch.tensor([1.0 + 0.5 * ((r // B) % 3) for r in range(N)], device=dev)[:, None]
+    t1 = st[li, ri // 2][:, None].contiguous()
+    h = ((st[li, ri // 2 + 1][:, None] - t1) * fac).contiguous()
+    w_r, kv_r = words[li].contiguous(), model.kv[:, li].contiguous()
+    w_t1 = ns._tree(w_r, scfg).evaluate(t1).contiguous()
+    att_args = (t1, ys_l[ri, li].contiguous(), h, torch.full((N, 1), 0.7, device=dev), w_t1, w_r,
+                pw, model.sc, kv_r, scfg)
+    att, att_p = ns.select_attempt(*att_args), ns._attempt_plain(*att_args)
+    same["sde_attempt_jax_f32"] = equal(att, att_p)
+    check(same["sde_attempt_jax_f32"], "jax-tree attempts (f32) against the plain body")
+
+    # The reverse sweep on windows early, in the middle and late of the replay.
+    chunk = sweep_chunk((B, S), lanes_grid[0].shape[0])
+    errs["sde3_bwd_lanes"], same["sde3_bwd_lanes"], bwd_lanes_plain = 0.0, True, []
+    for k0 in (0, (n_real // 2) & ~1, n_real - S13_W):
+        win = tuple(x[k0:k0 + S13_W].contiguous() for x in lanes_grid)
+        ysbar = torch.randn(S13_W, B, S, generator=gen, device=dev)
+        bwd = (ys_l[k0:k0 + S13_W].contiguous(), ysbar, win[0], win[1], win[3], S13_W, 0,
+               chunk, pw, model.sc, model.kv)
+        got = ns.replay3_bwd(*bwd)
+        want, ms = timed(lambda: ns._replay3_bwd_plain(*bwd))
+        bwd_lanes_plain.append(ms)
+        errs["sde3_bwd_lanes"] = max(errs["sde3_bwd_lanes"],
+                                     max(float((g - w).abs().max()) for g, w in zip(got, want)))
+        same["sde3_bwd_lanes"] &= equal(got, want)
+    plain_ms["sde3_bwd_lanes"] = sum(bwd_lanes_plain) / len(bwd_lanes_plain)
+    check(same["sde3_bwd_lanes"], f"B4't lanes windows: max abs {errs['sde3_bwd_lanes']}")
+
+    # The uniform grid: all 999 steps, forward and reverse sweep.
+    t0u, hu = uniform_step_times(task.ts, (B, S))
+    t0u = t0u.to(dev)
+    hs_u = torch.full_like(t0u, hu)
+    n_u = t0u.shape[0]
+    i1u, i10u = (x.reshape(n_u, B).contiguous() for x in noise_pack(task.ts))
+    fwd_u = (t0u, hs_u, i1u, i10u, n_u, pw, model.sc, model.kv)
+    ys_u = ns.replay3_fwd(y0, *fwd_u)
+    ys_up, plain_ms["sde3_fwd_uniform"] = timed(lambda: ns._replay3_fwd_plain(y0, *fwd_u))
+    ysbar_u = torch.randn(n_u, B, S, generator=gen, device=dev)
+    bwd_u = (ys_u[:-1].contiguous(), ysbar_u, t0u, hs_u, i10u, n_u, 0, sweep_chunk((B, S), n_u),
+             pw, model.sc, model.kv)
+    got_u = ns.replay3_bwd(*bwd_u)
+    want_u, plain_ms["sde3_bwd_uniform"] = timed(lambda: ns._replay3_bwd_plain(*bwd_u))
+    errs["sde3_fwd_uniform"] = float((ys_u - ys_up).abs().max())
+    errs["sde3_bwd_uniform"] = max(float((g - w).abs().max()) for g, w in zip(got_u, want_u))
+    same["sde3_fwd_uniform"] = bool(torch.equal(ys_u, ys_up))
+    same["sde3_bwd_uniform"] = equal(got_u, want_u)
+    check(same["sde3_fwd_uniform"] and same["sde3_bwd_uniform"],
+          f"B3t/B4't uniform against their plain versions: {errs}")
+    emit("stochastic13_kernel_vs_plain", columns=sum(S13_CPA), P=P, lanes=B, T=S13_T,
+         max_steps=S13_MAX_STEPS, selection={"naccept": na.tolist(), "nreject": nr.tolist(),
+                                             "success": ok.tolist(), "n_real": n_real,
+                                             "short_T": BENCH_SEL_T,
+                                             "short_naccept": sel_k[1].tolist(),
+                                             "short_nreject": sel_k[2].tolist()},
+         attempts=N, sweep_windows=S13_W, chunk=chunk, bit_for_bit=same, max_abs_err=errs,
+         plain_ms=plain_ms)
+
+    # -- 25. main path: 3 fixed-grid and 3 adaptive train steps --------------------
+    history, main_launches, first, step_s = {}, {}, {}, {}
+    for name, flags in (("fixed_grid", dict(stochastic=True)),
+                        ("xla_selection", dict(stochastic=True, adaptive=True))):
+        task = make_task()
+        step = parity.make_train_step(task, **flags)
+        for k in ns.LAUNCHES:
+            ns.LAUNCHES[k] = 0
+        history[name], step_s[name] = [], []
+        for i in range(3):
+            stims_i = make_parity_batch(gen, n_in, B, device=dev)
+            keys_i = lane_keys() if "adaptive" in flags else None
+            noise_i = None if keys_i is not None else noise_pack(task.ts)
+            params_i = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+            before = dict(ns.LAUNCHES)
+            rec, ms = timed(lambda: step(stims_i, keys_i, noise=noise_i))
+            step_s[name].append(ms / 1e3)
+            launched = {k: ns.LAUNCHES[k] - before[k] for k in ns.LAUNCHES
+                        if ns.LAUNCHES[k] != before[k]}
+            want = {"sde3_fwd": 1, "sde3_bwd": 1}
+            if keys_i is not None:
+                want["sde_select"] = 1
+            check(launched == want, f"{name} step {i}: launches {launched}")
+            check(bool(torch.isfinite(rec["loss"])), f"{name} step {i}: loss {rec['loss']}")
+            entry = {"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
+                     "update_applied": bool(rec["ok"]), "seconds": ms / 1e3}
+            if rec["stats"] is not None:
+                entry.update(naccept=rec["stats"].naccept.tolist(),
+                             nreject=rec["stats"].nreject.tolist(),
+                             success=rec["stats"].success.tolist())
+            history[name].append(entry)
+            if i == 0:
+                first[name] = dict(stims=stims_i, keys=keys_i, noise=noise_i, params=params_i)
+        main_launches[name] = {k: v for k, v in ns.LAUNCHES.items() if v}
+
+    # The card against the CPU: the fixed-grid step over the full second, the
+    # adaptive step over SHORT_T points (its replay on the CPU takes ~4 s per
+    # 100 points), each on the card's grid and noise, beside the card's own
+    # spread under a 1e-7 nudge of the weights.
+    cpu_check = {}
+    for name, flags, T_check in (("fixed_grid", dict(stochastic=True), S13_T),
+                                 ("xla_selection", dict(stochastic=True, adaptive=True),
+                                  SHORT_T)):
+        f = first[name]
+
+        def one(device, params, grid=None):
+            t = make_task(T_check, device=device, params=params)
+            noise = None if f["noise"] is None else tuple(x.to(device) for x in f["noise"])
+            keys = None if f["keys"] is None else f["keys"].to(device)
+            t0 = time.perf_counter()
+            rec = parity.make_train_step(t, **flags)(f["stims"].to(device), keys, noise=noise,
+                                                     grid=grid)
+            grads = {k: p.grad.detach().cpu().clone() for k, p in t.params.items()}
+            return rec, grads, time.perf_counter() - t0
+
+        rec_k, grads_k, _ = one(dev, f["params"])
+        grid = None
+        if rec_k["stats"] is not None:
+            sk = rec_k["stats"]
+            grid = tuple(x.cpu() for x in (sk.step_times, sk.naccept, sk.nreject))
+        rec_c, grads_c, cpu_s = one("cpu", f["params"], grid)
+        nudged = {k: v * (1.0 + 1e-7) for k, v in f["params"].items()}
+        _, grads_n, _ = one(dev, nudged, None if grid is None
+                            else tuple(x.to(dev) for x in grid))
+        spread = {k: rel_l2(grads_n[k], grads_k[k]) for k in grads_k}
+        grad_tol = {k: max(S13_GRAD_TOL, 10.0 * spread[k]) for k in grads_k}
+        entry = {"T": T_check, "loss_rel": abs(float(rec_k["loss"]) - float(rec_c["loss"]))
+                 / abs(float(rec_c["loss"])),
+                 "grad_rel_l2": {k: rel_l2(grads_k[k], grads_c[k]) for k in grads_k},
+                 "card_grad_spread_under_1e-7_nudge": spread, "cpu_seconds": cpu_s,
+                 "tol": {"loss": S13_LOSS_TOL, "grad": grad_tol}}
+        check(entry["loss_rel"] < S13_LOSS_TOL
+              and all(entry["grad_rel_l2"][k] < grad_tol[k] for k in grads_k),
+              f"card vs CPU {name} step: {entry}")
+        cpu_check[name] = entry
+    emit("stochastic13_main_path", columns=sum(S13_CPA), lanes=B, T=S13_T,
+         max_steps=S13_MAX_STEPS, history=history, launches=main_launches, cpu_check=cpu_check)
+
+    # -- 26. times -----------------------------------------------------------------
+    ysbar_l = torch.randn(lanes_grid[0].shape[0], B, S, generator=gen, device=dev)
+    calls = {
+        "sde_select_jax_f32": lambda: ns.select_pass(y0, words, pw, model.sc, model.kv, scfg),
+        "sde3_fwd_lanes": lambda: ns.replay3_fwd(y0, *lanes_grid, n_real, pw, model.sc, model.kv),
+        "sde3_bwd_lanes": lambda: ns.replay3_bwd(ys_l[:-1], ysbar_l, lanes_grid[0],
+                                                 lanes_grid[1], lanes_grid[3], n_real, 0, chunk,
+                                                 pw, model.sc, model.kv),
+        "sde3_fwd_uniform": lambda: ns.replay3_fwd(y0, *fwd_u),
+        "sde3_bwd_uniform": lambda: ns.replay3_bwd(*bwd_u),
+    }
+    times = {name: cuda_ms(fn, reps=3, warmup=1, device_time=True) for name, fn in calls.items()}
+    attempts = int((na + nr).sum())
+    serial = {"sde_select_jax_f32": int((na + nr).max()), "sde3_fwd_lanes": n_real,
+              "sde3_bwd_lanes": n_real, "sde3_fwd_uniform": n_u, "sde3_bwd_uniform": n_u}
+    real_steps = int(2 * na.sum())
+    bounds = {"sde_select_jax_f32": jax_select_bound(P, B, n_in, K, attempts, S13_MAX_STEPS,
+                                                     True),
+              "sde3_fwd_lanes": sde3_bound("sde3_fwd", P, B, n_in, K, real_steps,
+                                           lanes_grid[0].shape[0]),
+              "sde3_bwd_lanes": sde3_bound("sde3_bwd", P, B, n_in, K, real_steps,
+                                           lanes_grid[0].shape[0]),
+              "sde3_fwd_uniform": sde3_bound("sde3_fwd", P, B, n_in, K, B * n_u, n_u),
+              "sde3_bwd_uniform": sde3_bound("sde3_bwd", P, B, n_in, K, B * n_u, n_u)}
+    plain_ms["sde_select_jax_f32_at"] = f"{BENCH_SEL_T} grid points"
+    plain_ms["sde3_bwd_lanes_at"] = f"{S13_W} half steps"
+    emit("stochastic13_kernel_times", lanes=B, T=S13_T, attempts=attempts,
+         real_half_steps=real_steps, ms=times, plain_ms=plain_ms,
+         ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()})
+    profiles = {}
+    for name, flags in (("fixed_grid", dict(stochastic=True)),
+                        ("xla_selection", dict(stochastic=True, adaptive=True))):
+        task = make_task()
+        step = parity.make_train_step(task, **flags)
+        seed = {k: p.detach().clone() for k, p in task.params.items()}
+        f = first[name]
+
+        def seed_step(i=0, step=step, task=task, seed=seed, f=f):
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(seed[k])
+            return step(f["stims"], f["keys"], noise=f["noise"])
+
+        seed_step()
+        step_ms = sum(timed(seed_step)[1] for _ in range(3)) / 3
+        wall, by_kernel = device_profile(seed_step, 2)
+        busy = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        profiles[name] = {"step_ms": step_ms, "samples_per_s": B * 1e3 / step_ms,
+                          "profiled_wall_ms_per_step": wall,
+                          "device_busy_ms_per_step": busy if busy else "not measured",
+                          "idle_share": 1.0 - busy / step_ms if busy else "not measured",
+                          "top_ms_per_step": dict(top)}
+    emit("stochastic13_step_profile", lanes=B, T=S13_T, **profiles)
+
+    # -- 27. the command lines -------------------------------------------------------
+    lines = {}
+    for argv in (["--smoke", "--stochastic"], ["--smoke", "--stochastic", "--adaptive"]):
+        last, secs = run_command_line("parity", argv)
+        lines[" ".join(argv)] = {"result": last, "seconds": secs}
+    emit("stochastic13_command_lines", runs=lines)
+
+    launches = {"sde_select_jax_f32": main_launches["xla_selection"]["sde_select"],
+                "sde3_fwd_lanes": main_launches["xla_selection"]["sde3_fwd"],
+                "sde3_bwd_lanes": main_launches["xla_selection"]["sde3_bwd"],
+                "sde3_fwd_uniform": main_launches["fixed_grid"]["sde3_fwd"],
+                "sde3_bwd_uniform": main_launches["fixed_grid"]["sde3_bwd"]}
+    paths = {"sde_select_jax_f32": "parity13 --stochastic --adaptive",
+             "sde3_fwd_lanes": "parity13 --stochastic --adaptive",
+             "sde3_bwd_lanes": "parity13 --stochastic --adaptive",
+             "sde3_fwd_uniform": "parity13 --stochastic", "sde3_bwd_uniform": "parity13 --stochastic"}
+    replaces = {"sde_select_jax_f32": "columnflow/solvers/sde_adaptive.py:318",
+                "sde3_fwd_lanes": "columnflow/solvers/fused.py:845",
+                "sde3_bwd_lanes": "columnflow/solvers/fused.py:920",
+                "sde3_fwd_uniform": "columnflow/solvers/fused.py:845",
+                "sde3_bwd_uniform": "columnflow/solvers/fused.py:920"}
+    return [{"name": name, "route": "cuda", "source": SDE_SOURCE, "replaces": replaces[name],
+             "launches": launches[name], "max_abs_err": errs[name], "ms": times[name],
+             "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": paths[name],
+             "bit_for_bit": same[name],
+             "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+            for name in calls]
+
+
+def bench104_phases(dev, cfg):
+    """Phases 28-30: bench.py's primary configuration, the 104-column
+    stochastic-adaptive step without --fused-pass (the jax.random tree's
+    selection with the select16 drift, then B3, B4 emit and the outer
+    weight-gradient pass); returns the selection's entry of the kernels
+    line."""
+    import torch
+
+    from columnflow_torch.data import make_parity_batch
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.models.network import premix_select16, prepare_premixed_split2
+    from columnflow_torch.solvers import sde_adaptive as sa
+    from columnflow_torch.tasks import parity
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, n_in, K = PARITY_B, 4, 4
+
+    def make_task(time_steps=PARITY_T, device=dev, params=None):
+        task = parity.build_task(cfg, torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=PARITY_CPA, time_steps=time_steps,
+                                 max_steps=PARITY_MAX_STEPS, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        return task
+
+    def lane_keys(n=B):
+        return torch.randint(0, 2**32, (n, 2), generator=gen, device=dev, dtype=torch.int64)
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    # -- 28. main path: 2 train steps at full width --------------------------------
+    task = make_task()
+    P = task.net.num_pops
+    S = 3 * P
+    step = parity.make_train_step(task, **BENCH)
+    for k in ns.LAUNCHES:
+        ns.LAUNCHES[k] = 0
+    history, step_s, first = [], [], None
+    for i in range(2):
+        stims_i, keys_i = make_parity_batch(gen, n_in, B, device=dev), lane_keys()
+        params_i = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+        before = dict(ns.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = step(stims_i, keys_i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launched = {k: ns.LAUNCHES[k] - before[k] for k in ns.LAUNCHES
+                    if ns.LAUNCHES[k] != before[k]}
+        check(launched == {"sde_select": 1, "sde_replay_fwd": 1, "sde_replay_bwd": 1},
+              f"bench step {i}: launches {launched}")
+        st = rec["stats"]
+        check(bool(st.success.all()) and bool(torch.isfinite(rec["loss"])),
+              f"bench step {i}: success {st.success.tolist()}, loss {rec['loss']}")
+        history.append({"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
+                        "update_applied": bool(rec["ok"]), "naccept": st.naccept.tolist(),
+                        "nreject": st.nreject.tolist(), "seconds": step_s[-1]})
+        if i == 0:
+            first = dict(stims=stims_i, keys=keys_i, params=params_i, stats=st)
+    main_launches = dict(ns.LAUNCHES)
+
+    # The card against the CPU over GRAD_T grid points (every gradient), on
+    # the card's grid and lane keys, beside the card's own nudge spread.
+    def one(device, params, grid=None):
+        t = make_task(GRAD_T, device=device, params=params)
+        rec = parity.make_train_step(t, **{**BENCH, "clip_grad_norm": None})(
+            first["stims"].to(device), first["keys"].to(device), grid=grid)
+        return rec, {k: p.grad.detach().cpu().clone() for k, p in t.params.items()}
+
+    rec_k, grads_k = one(dev, first["params"])
+    sk = rec_k["stats"]
+    grid = (sk.step_times, sk.naccept, sk.nreject)
+    t0 = time.perf_counter()
+    rec_c, grads_c = one("cpu", first["params"], tuple(x.cpu() for x in grid))
+    cpu_s = time.perf_counter() - t0
+    _, grads_n = one(dev, {k: v * (1.0 + 1e-7) for k, v in first["params"].items()}, grid)
+    spread = {k: rel_l2(grads_n[k], grads_k[k]) for k in grads_k}
+    grad_tol = {k: max(1e-3, 10.0 * spread[k]) for k in grads_k}
+    cpu_check = {"T": GRAD_T, "naccept": sk.naccept.tolist(),
+                 "loss_rel": abs(float(rec_k["loss"]) - float(rec_c["loss"]))
+                 / abs(float(rec_c["loss"])),
+                 "grad_rel_l2": {k: rel_l2(grads_k[k], grads_c[k]) for k in grads_k},
+                 "card_grad_spread_under_1e-7_nudge": spread, "cpu_seconds": cpu_s,
+                 "tol": {"loss": 1e-4, "grad": grad_tol}}
+    check(cpu_check["loss_rel"] < 1e-4
+          and all(cpu_check["grad_rel_l2"][k] < grad_tol[k] for k in grads_k),
+          f"card vs CPU bench step: {cpu_check}")
+    emit("bench104_main_path", columns=sum(PARITY_CPA), lanes=B, T=PARITY_T,
+         max_steps=PARITY_MAX_STEPS, flags=BENCH, history=history, launches=main_launches,
+         cpu_check=cpu_check)
+
+    # -- 29. kernel vs plain: the selection (select16) --------------------------------
+    model = parity.sde_model(task.params, task, first["stims"])
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    w16 = premix_select16(pw)
+    words = sa._sde_key_words(first["keys"], "jax")
+    scfg = sa.select_config(task.ts, max_steps=PARITY_MAX_STEPS, brownian="jax",
+                            drift="select16")
+    y0 = torch.zeros(B, S, device=dev)
+    # The whole selection of two lanes over BENCH_SEL_T grid points.
+    task_s = make_task(BENCH_SEL_T, params=task.params)
+    model_s = parity.sde_model(task_s.params, task_s, first["stims"][:2])
+    scfg_s = sa.select_config(task_s.ts, max_steps=PARITY_MAX_STEPS, brownian="jax",
+                              drift="select16")
+    sel_k = ns.select_pass(y0[:2], words[:2].contiguous(), w16, model_s.sc, model_s.kv, scfg_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sel_p = ns._select_plain(y0[:2], words[:2].contiguous(), w16, model_s.sc, model_s.kv, scfg_s)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(g, w) for g, w in zip(sel_k, sel_p))
+    e_na = float(((sel_k[1] - sel_p[1]).abs().float() / sel_p[1].float()).max())
+    e_t10 = float(((sel_k[0][:, :11] - sel_p[0][:, :11]).abs()
+                   / sel_p[0][:, :11].clamp_min(1e-30)).max())
+    check(bool(sel_k[3].all()) and e_na < 0.01 and e_t10 < 1e-6,
+          f"jax-tree selection (select16) over {BENCH_SEL_T} points: {sel_k[1].tolist()} vs "
+          f"{sel_p[1].tolist()}")
+    # 8 attempts from states along the main path's first replay.
+    st = first["stats"].step_times
+    na0 = first["stats"].naccept
+    ht, dw, i10 = sa._replay_grid(st, words, scfg.t_start, scfg.t_end, scfg.depth, "jax")
+    w2 = {k: v.contiguous() for k, v in
+          prepare_premixed_split2(pw, model.sc.fc)[0].items()}
+    grid_f = (ht[:, :-1].T.contiguous(), (ht[:, 1:] - ht[:, :-1]).T.contiguous(),
+              dw.T.contiguous(), i10.T.contiguous())
+    ys = ns.replay_fwd(y0, *grid_f, 2 * int(na0.max()), w2, model.sc, model.kv)
+    N = 8
+    li = torch.arange(N, device=dev) % B
+    ri = torch.tensor([2 * int((r // B) / 2 * (int(na0[r % B]) - 1)) for r in range(N)],
+                      device=dev)
+    t1 = st[li, ri // 2][:, None].contiguous()
+    h = (st[li, ri // 2 + 1][:, None] - t1).contiguous()
+    w_r, kv_r = words[li].contiguous(), model.kv[:, li].contiguous()
+    att_args = (t1, ys[ri, li].contiguous(), h, torch.full((N, 1), 0.7, device=dev),
+                ns._tree(w_r, scfg).evaluate(t1).contiguous(), w_r, w16, model.sc, kv_r, scfg)
+    att, att_p = ns.select_attempt(*att_args), ns._attempt_plain(*att_args)
+    att_same = all(torch.equal(g, w) for g, w in zip(att, att_p))
+    e_err = float(((att.err - att_p.err).abs() / att_p.err.clamp_min(1e-30)).max())
+    check(bool(torch.equal(att.accept, att_p.accept)) and e_err < 1e-5,
+          f"jax-tree attempts (select16): err rel {e_err}")
+    emit("bench104_kernel_vs_plain", selection={"T": BENCH_SEL_T, "lanes": 2,
+                                                "naccept": sel_k[1].tolist(),
+                                                "naccept_plain": sel_p[1].tolist(),
+                                                "nreject": sel_k[2].tolist(),
+                                                "nreject_plain": sel_p[2].tolist(),
+                                                "bit_for_bit": same, "first10_rel": e_t10},
+         attempts={"records": N, "bit_for_bit": att_same, "err_rel": e_err},
+         plain_ms_at_short_horizon=plain_ms)
+
+    # -- 30. times, profile and the command line --------------------------------------
+    ms = cuda_ms(lambda: ns.select_pass(y0, words, w16, model.sc, model.kv, scfg), reps=1,
+                 warmup=0)
+    attempts = int((first["stats"].naccept + first["stats"].nreject).sum())
+    bound = jax_select_bound(P, B, n_in, K, attempts, PARITY_MAX_STEPS, False)
+    serial = int((first["stats"].naccept + first["stats"].nreject).max())
+    step_ms = sum(step_s[1:]) * 1e3 / len(step_s[1:])
+    short_ms, wall, by_kernel = short_profile(
+        parity.make_train_step(make_task(SHORT_T), **BENCH),
+        (make_parity_batch(gen, n_in, B, device=dev), lane_keys()))
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("bench104_step", ms_per_step=step_ms, samples_per_s=B * 1e3 / step_ms,
+         select_ms=ms, attempts=attempts, select_bound_ms=bound[0], select_bound_by=bound[1],
+         select_ns_per_attempt=ms * 1e6 / serial,
+         profile={"T": SHORT_T, "step_ms": short_ms, "profiled_wall_ms_per_step": wall,
+                  "device_busy_ms_per_step": busy if busy else "not measured",
+                  "idle_share": 1.0 - busy / short_ms if busy else "not measured",
+                  "top_ms_per_step": dict(top)})
+    argv = ["--smoke", "--stochastic", "--adaptive", "--columns-per-area", "64,32,8",
+            "--bptt-every", "32", "--clip-grad-norm", "1.0", "--loss-scale", "1e-6",
+            "--max-steps", "16384"]
+    last, secs = run_command_line("parity", argv, timeout=900)
+    emit("bench104_command_line", argv=" ".join(argv), seconds=secs, result=last)
+    return [{"name": "sde_select_jax_select16", "route": "cuda", "source": SDE_SOURCE,
+             "replaces": "columnflow/solvers/sde_adaptive.py:318",
+             "launches": main_launches["sde_select"],
+             "max_abs_err": float((sel_k[0] - sel_p[0]).abs().max()), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": None, "lanes": B, "path": "parity104 bench (--stochastic --adaptive)",
+             "bit_for_bit": same, "plain_ms_at": f"{BENCH_SEL_T} grid points, 2 lanes",
+             "ns_per_serial_step": ms * 1e6 / serial}]
 
 
 def main() -> int:
@@ -2220,7 +2813,8 @@ def main() -> int:
 
     cfg = ColumnConfig.load()
     line = (wta_phases(dev, cfg) + parity_phases(dev, cfg) + ode_phases(dev, cfg)
-            + split2_phases(dev, cfg) + xor_phases(dev, cfg) + hopf_phases(dev, cfg))
+            + split2_phases(dev, cfg) + xor_phases(dev, cfg) + hopf_phases(dev, cfg)
+            + stochastic13_phases(dev, cfg) + bench104_phases(dev, cfg))
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

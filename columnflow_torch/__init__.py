@@ -11,7 +11,8 @@ Layering mirrors the JAX package:
     models   -> WTA column model, Wong-Wang target generator, column network,
                 XOR network, Hopf MLP
     data     -> stimulus tables and datasets (WTA, parity, XOR, Hopf)
-    solvers  -> SRA1 ``sdeint``, the adaptive SDE, the fused solvers, the
+    solvers  -> SRA1 ``sdeint``, ``jax.random`` on raw keys and the Brownian
+                paths on them, the adaptive SDE, the fused solvers, the
                 per-lane dopri5 forward
     kernels  -> CUDA kernels with their plain PyTorch versions
     train    -> gradient masks, norms, clamps, torch RMSprop, Adam

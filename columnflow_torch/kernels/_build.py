@@ -44,10 +44,12 @@ _SIGNATURES = {
         "cf_wta_wbar_reduce": [_I, _P, _P, _P],
     },
     "network_sde": {
-        "cf_sde_select": [_I, _I, _I, _I, _P, _P, _I, _I] + [_P] * 10,
-        "cf_sde_attempt": [_I, _I, _I, _I, _P, _P, _I] + [_P] * 14,
+        "cf_sde_select": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _I] + [_P] * 10,
+        "cf_sde_attempt": [_I, _I, _I, _I, _P, _P, _I, _I, _I] + [_P] * 14,
         "cf_sde_replay_fwd": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
         "cf_sde_replay_bwd": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 16,
+        "cf_sde3_fwd": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 12,
+        "cf_sde3_bwd": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 15,
     },
     "network_ode": {
         "cf_ode_replay_fwd": [_I, _I, _I, _I, _P, _I] + [_P] * 10,

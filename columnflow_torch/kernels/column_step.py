@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from columnflow_torch.models.column import AreaParams, Stimulus
+from columnflow_torch.ops.arith import div
 
 _GAIN, _THRESH, _D, _CLAMP = 48.0, 981.0, 0.0089, 80.0
 
@@ -46,7 +47,7 @@ LAUNCHES = {"drift": 0, "rollout_fwd": 0, "rollout_bwd": 0, "wbar_reduce": 0}
 
 def _firing_rate(x):
     xn = _GAIN * x - _THRESH
-    e = torch.exp(_CLAMP * torch.tanh((-_D * xn) / _CLAMP))
+    e = torch.exp(_CLAMP * torch.tanh(div(-_D * xn, _CLAMP)))
     den = 1.0 - e
     near = torch.abs(den) < 1e-12
     return torch.where(near, 1.0 / _D, xn / torch.where(near, 1.0, den))
@@ -59,7 +60,7 @@ def _fr_and_grad(x):
     removable singularity xn=0 the limits are phi=1/d, phi'=48/2.
     """
     xn = _GAIN * x - _THRESH
-    th = torch.tanh((-_D * xn) / _CLAMP)
+    th = torch.tanh(div(-_D * xn, _CLAMP))
     e = torch.exp(_CLAMP * th)
     den = 1.0 - e
     near = torch.abs(den) < 1e-12
@@ -79,9 +80,9 @@ def _drift_plain(scalars, y, s, w, consts):
     fr = _firing_rate(v - a)
     rec = fr @ w.T
     cur = (consts[1] * s + consts[0] + rec) * tau_s
-    dv = (-v + cur * R) / tau_m
-    da = (-a + consts[2] * fr) / tau_a
-    dr = (-r + fr) / tau_s
+    dv = div(-v + cur * R, tau_m)
+    da = div(-a + consts[2] * fr, tau_a)
+    dr = div(-r + fr, tau_s)
     return torch.cat([dv, da, dr], dim=1)
 
 
@@ -109,13 +110,13 @@ def _rollout_fwd_plain(h, scalars, w, consts, g, y0, stim, i1, i10):
         s1 = stim[min(i + 1, T - 1)]
         s_mid = s0 + 0.75 * (s1 - s0)
         n1 = i1[i][:, None]
-        i10_h = (i10[i] / h)[:, None]
+        i10_h = div(i10[i], h)[:, None]
         f1 = _drift_plain(scalars, y, s0, w, consts)
         h2 = y + 0.75 * h * f1 + 1.5 * i10_h * g
         f2 = _drift_plain(scalars, h2, s_mid, w, consts)
         # Constant diffusion: the two g evaluations of SRA1 coincide, so the
         # stochastic terms reduce to i1 * g.
-        y = y + h * (f1 / 3.0 + 2.0 * f2 / 3.0) + n1 * g
+        y = y + h * (div(f1, 3.0) + div(2.0 * f2, 3.0)) + n1 * g
         out[i + 1] = y
     return out
 
@@ -129,11 +130,11 @@ def _drift_vjp(scalars, y, cot, w, consts):
     fr, frp = _fr_and_grad(v - a)
     # rec[b,p] = sum_q fr[b,q] w[p,q]; dv/drec = R*tau_s/tau_m (diagonal).
     rec_bar = cv * (R * tau_s / tau_m)
-    fr_bar = rec_bar @ w + ca * (consts[2] / tau_a) + cr / tau_s
+    fr_bar = rec_bar @ w + ca * div(consts[2], tau_a) + div(cr, tau_s)
     x_bar = frp * fr_bar
-    yb_v = -cv / tau_m + x_bar
-    yb_a = -ca / tau_a - x_bar
-    yb_r = -cr / tau_s
+    yb_v = div(-cv, tau_m) + x_bar
+    yb_a = div(-ca, tau_a) - x_bar
+    yb_r = div(-cr, tau_s)
     w_bar = rec_bar.T @ fr
     return torch.cat([yb_v, yb_a, yb_r], dim=1), w_bar
 
@@ -153,14 +154,17 @@ def _rollout_bwd_plain(h, scalars, w, consts, g, stim, i10, ys, ysbar, cin):
     K = ys.shape[0]
     c = cin
     wbar = torch.zeros_like(w)
+    # The kernel's step constants 2h/3 and h/3, each rounded in the state's type.
+    c2 = float(div(torch.tensor(2.0 * h, dtype=cin.dtype), 3.0))
+    c1 = float(div(torch.tensor(h, dtype=cin.dtype), 3.0))
     for k in range(K - 1, -1, -1):
         y = ys[k]
-        i10_h = (i10[k] / h)[:, None]
+        i10_h = div(i10[k], h)[:, None]
         f1 = _drift_plain(scalars, y, stim[k], w, consts)
         h2 = y + 0.75 * h * f1 + 1.5 * i10_h * g
-        f2_bar = (2.0 * h / 3.0) * c
+        f2_bar = c2 * c
         h2_bar, wb2 = _drift_vjp(scalars, h2, f2_bar, w, consts)
-        f1_bar = (h / 3.0) * c + 0.75 * h * h2_bar
+        f1_bar = c1 * c + 0.75 * h * h2_bar
         y_bar, wb1 = _drift_vjp(scalars, y, f1_bar, w, consts)
         c = c + h2_bar + y_bar + ysbar[k]
         wbar = wbar + wb1 + wb2

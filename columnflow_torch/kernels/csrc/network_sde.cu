@@ -6,7 +6,9 @@
 //
 // Replaces (columnflow/solvers/):
 //   cf_sde_select      <- sde_adaptive.py _make_sde_adaptive_kernel (B5): the
-//                         whole selection while-loop of one lane
+//                         whole selection while-loop of one lane on the krng
+//                         tree; and, on the jax.random tree, the XLA
+//                         selection (_adaptive_pass, no Pallas kernel)
 //   cf_sde_attempt     <- the same body, one controller attempt per record
 //                         (a second entry point, for testing the body)
 //   cf_sde_replay_fwd  <- fused.py _make_sde_chunk_kernel, variable_h="lanes"
@@ -14,10 +16,16 @@
 //   cf_sde_replay_bwd  <- fused.py _make_sde_bwd_chunk_kernel, emit_steps,
 //                         lanes (B4): the step VJP w.r.t. the state, emitting
 //                         each step's total cotangent (seed)
+//   cf_sde3_fwd        <- _make_sde_chunk_kernel on the three-term split,
+//                         lanes or the uniform grid (B3t)
+//   cf_sde3_bwd        <- _make_sde_bwd_chunk_kernel in kernel mode on the
+//                         three-term split (B4't): the state cotangent and the
+//                         wT / iwT cotangents in the kernel
 // The JAX kernels trace any drift; these are written for the premixed
 // column-network drift (network_drift_premixed) with a knot stimulus and
-// constant diffusion: select16 weights (bf16) in the selection, the split2
-// weights (bf16 hi + mid) in the replay and its reverse sweep.
+// constant diffusion: select16 (bf16) or float32 weights in the selection,
+// the split2 weights (bf16 hi + mid) in the replay and its emit-mode sweep,
+// the three-term split (split3_drift.cuh) in B3t and B4't.
 //
 // What bounds them on this card: long serial chains. The selection runs
 // ~10^4 controller attempts per lane, each 5 drift evaluations (one
@@ -30,7 +38,11 @@
 // the weights read from L2 (2.8 MB of bf16 hi + mid stays resident there)
 // at every product; lanes run in parallel on separate SMs. Spreading one
 // lane's product over the SMs of a cluster (the matrix in distributed
-// shared memory) is later work.
+// shared memory) is later work. The three-term sweeps serve the small
+// widths (13 columns: 2 * 10^3 to 10^4 steps of 104 populations): the
+// split weights in shared memory (65 KB at P = 104), B3t one block per
+// lane, B4't the batch in one block, because jax.vjp contracts each
+// product's weight cotangent over the lanes before rounding it to bf16.
 //
 // Precision. Elementwise arithmetic is float32 with full-precision
 // expf/tanhf/logf/sqrtf and IEEE division, compiled with -fmad=false so
@@ -43,7 +55,7 @@
 // (torch float64 matmul) agree bit for bit apart from rare ties, and the
 // bf16 roundings of the reverse sweep's cotangents round the same way.
 
-#include "network_drift.cuh"
+#include "split3_drift.cuh"
 
 namespace {
 
@@ -61,39 +73,52 @@ struct Scratch {
   float* ext;  // (n_in) stimulus
   double* red; // (kThreads / 32) reduction partials
   float* scal; // (8) broadcast scalars
+  float* zb;   // (2 (kMaxDepth + 1)) the jax tree's normals of two queries
 };
 
+// The drift's weight formats: the selection's bf16 copy (select16: rec =
+// bf16(fr) W16, e = bf16(ext) iwT16), the replay's two-term split (split2:
+// rec = (x_hi W_hi + x_hi W_mid) + x_mid W_hi, e = ext iwT), and float32
+// weights (the f32 selection drift network_drift_premixed: rec = fr wT,
+// e = ext iwT).
+enum Mode { kSel16 = 0, kSplit2 = 1, kF32 = 2 };
+
 // One drift evaluation of lane b at time t, state y -> out (all 3P), by the
-// whole block. kSplit2: rec = (x_hi W_hi + x_hi W_mid) + x_mid W_hi and
-// e = ext iwT (float32 iwT); otherwise (select16) rec = bf16(fr) W16 and
-// e = bf16(ext) iwT16. Ends with a barrier.
-template <bool kSplit2>
+// whole block, with the weights w0 (and w1, split2's mid term) and iw in
+// kMode's format. Ends with a barrier.
+template <int kMode>
 __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
-                      const bf16* __restrict__ w0, const bf16* __restrict__ w1,
+                      const void* __restrict__ w0, const void* __restrict__ w1,
                       const void* __restrict__ iw, const Scratch& s) {
   const int P = n.P;
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     const float fr = firing_rate(y[i] - y[P + i]);
     s.fr[i] = fr;
-    const float hi = bf16r(fr);
-    s.xa[i] = hi;
-    if (kSplit2) s.xb[i] = bf16r(fr - hi);
+    if (kMode == kF32) {
+      s.xa[i] = fr;
+    } else {
+      const float hi = bf16r(fr);
+      s.xa[i] = hi;
+      if (kMode == kSplit2) s.xb[i] = bf16r(fr - hi);
+    }
   }
   if (threadIdx.x < n.n_in) {
     const float e = knot_interp(n, b, threadIdx.x, t);
-    s.ext[threadIdx.x] = kSplit2 ? e : bf16r(e);
+    s.ext[threadIdx.x] = kMode == kSel16 ? bf16r(e) : e;
   }
   __syncthreads();
   for (int c = threadIdx.x; c < P / 2; c += blockDim.x) {
     double p1a = 0.0, p1b = 0.0, p2a = 0.0, p2b = 0.0, p3a = 0.0, p3b = 0.0;
     const __nv_bfloat162* wr0 = reinterpret_cast<const __nv_bfloat162*>(w0) + c;
     const __nv_bfloat162* wr1 = reinterpret_cast<const __nv_bfloat162*>(w1) + c;
+    const float2* wf = reinterpret_cast<const float2*>(w0) + c;
     for (int k = 0; k < P; ++k) {
-      const float2 wh = __bfloat1622float2(wr0[(size_t)k * (P / 2)]);
+      const float2 wh = kMode == kF32 ? wf[(size_t)k * (P / 2)]
+                                      : __bfloat1622float2(wr0[(size_t)k * (P / 2)]);
       const double xa = s.xa[k];
       p1a += xa * (double)wh.x;
       p1b += xa * (double)wh.y;
-      if (kSplit2) {
+      if (kMode == kSplit2) {
         const float2 wm = __bfloat1622float2(wr1[(size_t)k * (P / 2)]);
         const double xb = s.xb[k];
         p2a += xa * (double)wm.x;
@@ -105,13 +130,15 @@ __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = 2 * c + j;
-      const float rec = kSplit2 ? ((float)(j ? p1b : p1a) + (float)(j ? p2b : p2a))
-                                      + (float)(j ? p3b : p3a)
-                                : (float)(j ? p1b : p1a);
+      const float rec = kMode == kSplit2
+                            ? ((float)(j ? p1b : p1a) + (float)(j ? p2b : p2a))
+                                  + (float)(j ? p3b : p3a)
+                            : (float)(j ? p1b : p1a);
       double e = 0.0;
       for (int m = 0; m < n.n_in; ++m) {
-        const float w = kSplit2 ? static_cast<const float*>(iw)[(size_t)m * P + col]
-                                : __bfloat162float(static_cast<const bf16*>(iw)[(size_t)m * P + col]);
+        const float w = kMode == kSel16
+                            ? __bfloat162float(static_cast<const bf16*>(iw)[(size_t)m * P + col])
+                            : static_cast<const float*>(iw)[(size_t)m * P + col];
         e += (double)s.ext[m] * (double)w;
       }
       const float current = (rec + (float)e) + n.bg[col];
@@ -172,12 +199,20 @@ __device__ void drift_vjp(const Net& n, const float* y, const float* ct, float* 
 }
 
 // ---------------------------------------------------------------------------
-// Counter-based RNG and Brownian tree (solvers/krng.py), one thread per walk
+// Counter-based RNG and the two Brownian trees. The krng tree
+// (solvers/krng.py) is walked by one thread per query; the jax.random tree
+// (solvers/brownian.py VirtualBrownianTree over solvers/jrandom.py) draws
+// its 21 normals on 21 threads, since a normal costs two Threefry hashes
+// and an erf_inv, and one thread then combines them.
 // ---------------------------------------------------------------------------
+
+enum Tree { kKrng = 0, kJax = 1 };
+constexpr int kMaxDepth = 31;  // bisection codes fit 32 bits
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
 
-__device__ uint32_t threefry_x0(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1) {
+// Threefry-2x32, 20 rounds: (x0, x1) <- hash of the counter pair under (k0, k1).
+__device__ void threefry2(uint32_t k0, uint32_t k1, uint32_t& x0, uint32_t& x1) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
   x0 += ks[0];
@@ -192,6 +227,10 @@ __device__ uint32_t threefry_x0(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t 
     x0 += ks[(r + 1) % 3];
     x1 += ks[(r + 2) % 3] + (uint32_t)(r + 1);
   }
+}
+
+__device__ __forceinline__ uint32_t threefry_x0(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1) {
+  threefry2(k0, k1, x0, x1);
   return x0;
 }
 
@@ -255,6 +294,100 @@ __device__ float tree_eval(uint32_t k0, uint32_t k1, float t, float t0, float t1
   return wl + frac * (wr - wl);
 }
 
+// XLA's float32 erf_inv (Giles): w = -log1p(-x^2), a degree-8 polynomial in
+// w - 2.5 (w < 5) or sqrt(w) - 3, times x; +-inf at +-1.
+__device__ float erf_inv_xla(float x) {
+  const float lt5[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f,
+                        0.00021858087f, -0.00125372503f, -0.00417768164f, 0.246640727f,
+                        1.50140941f};
+  const float ge5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f, -0.00367342844f,
+                        0.00573950773f, -0.0076224613f, 0.00943887047f, 1.00167406f,
+                        2.83297682f};
+  float w = -log1pf(-(x * x));
+  const bool lt = w < 5.0f;
+  w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
+  float p = lt ? lt5[0] : ge5[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = (lt ? lt5[i] : ge5[i]) + p * w;
+  return fabsf(x) == 1.0f ? x * INFINITY : p * x;
+}
+
+// jax.random.normal(key, (), float32): the uniform on (nextafter(-1, 0), 1)
+// from the xor of the two words hashed from the counter (0, 0), then
+// sqrt(2) erf_inv.
+__device__ float jax_normal(uint32_t k0, uint32_t k1) {
+  uint32_t a = 0u, b = 0u;
+  threefry2(k0, k1, a, b);
+  const uint32_t bits = a ^ b;
+  const float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  const float lo = -0.99999994039535522461f;
+  return (float)1.4142135623730951 * erf_inv_xla(fmaxf(f * 2.0f + lo, lo));
+}
+
+// normal(fold_in(key, d)).
+__device__ __forceinline__ float jax_fold_normal(uint32_t k0, uint32_t k1, uint32_t d) {
+  uint32_t a = 0u;
+  threefry2(k0, k1, a, d);
+  return jax_normal(a, d);
+}
+
+// _interval_normal: normal(fold_in(fold_in(j, bits(ta)), bits(tb))).
+__device__ float jax_interval_normal(uint32_t j0, uint32_t j1, float ta, float tb) {
+  uint32_t a = 0u, b = __float_as_uint(ta);
+  threefry2(j0, j1, a, b);
+  uint32_t c = 0u, d = __float_as_uint(tb);
+  threefry2(a, b, c, d);
+  return jax_normal(c, d);
+}
+
+// The fold_in datum of the jax tree's draw lvl for time t: 0 for the right
+// end W(t1) (lvl 0), else the code of bisection lvl - 1's midpoint on t's
+// path.
+__device__ uint32_t jt_code(float t, float t0, float t1, int lvl) {
+  if (lvl == 0) return 0u;
+  t = fminf(fmaxf(t, t0), t1);
+  float tl = t0, tr = t1;
+  uint32_t code = 0u;
+  for (int d = 0; d < lvl - 1; ++d) {
+    const float tm = 0.5f * (tl + tr);
+    if (t < tm) {
+      tr = tm;
+      code = code * 2u + 1u;
+    } else {
+      tl = tm;
+      code = code * 2u + 2u;
+    }
+  }
+  return code * 2u + 1u;
+}
+
+// W(t) of the jax tree from its depth + 1 normals z (lvl order).
+__device__ float jt_combine(float t, float t0, float t1, int depth, const float* z) {
+  t = fminf(fmaxf(t, t0), t1);
+  const float w_right = z[0] * sqrtf(t1 - t0);
+  float tl = t0, tr = t1, wl = 0.0f, wr = w_right;
+  for (int d = 0; d < depth; ++d) {
+    const float tm = 0.5f * (tl + tr);
+    const float wm = 0.5f * (wl + wr) + (0.5f * sqrtf(tr - tl)) * z[1 + d];
+    if (t < tm) {
+      tr = tm;
+      wr = wm;
+    } else {
+      tl = tm;
+      wl = wm;
+    }
+  }
+  const float frac = tr > tl ? (t - tl) / (tr - tl) : 0.0f;
+  return wl + frac * (wr - wl);
+}
+
+// W(t) of the jax tree by one thread.
+__device__ float jt_eval(uint32_t k0, uint32_t k1, float t, float t0, float t1, int depth) {
+  float z[kMaxDepth + 1];
+  for (int l = 0; l <= depth; ++l) z[l] = jax_fold_normal(k0, k1, jt_code(t, t0, t1, l));
+  return jt_combine(t, t0, t1, depth, z);
+}
+
 // ---------------------------------------------------------------------------
 // The selection: SRA1 step doubling, RMS error, PI controller
 // ---------------------------------------------------------------------------
@@ -276,26 +409,61 @@ __device__ __forceinline__ float sra1_final(float y, float f1, float f2, float h
   return ((y + h * (f1 / 3.0f + (2.0f * f2) / 3.0f)) + (dw - i10h) * sigma) + i10h * sigma;
 }
 
+// W(t) of a lane's tree, by one thread (kw: the lane's key words).
+template <int kTree>
+__device__ float lane_w(const Sel& sel, const uint32_t* kw, float t) {
+  return kTree == kKrng ? tree_eval(kw[0], kw[1], t, sel.t_start, sel.t_end, sel.depth)
+                        : jt_eval(kw[0], kw[1], t, sel.t_start, sel.t_end, sel.depth);
+}
+
+// The Brownian data of an attempt from t: s.scal[0..3] = W(tm), W(te), and
+// the interval normals of [t, tm] and [tm, te]. Ends with a barrier.
+template <int kTree>
+__device__ void draw_noise(const Sel& sel, const uint32_t* kw, float t, float tm, float te,
+                           const Scratch& s) {
+  if (kTree == kKrng) {
+    if (threadIdx.x < 4) {
+      float v;
+      if (threadIdx.x == 0) v = tree_eval(kw[0], kw[1], tm, sel.t_start, sel.t_end, sel.depth);
+      else if (threadIdx.x == 1) v = tree_eval(kw[0], kw[1], te, sel.t_start, sel.t_end, sel.depth);
+      else if (threadIdx.x == 2) v = normal2(kw[2], kw[3], t_code(t, sel.t_start, sel.t_end),
+                                             t_code(tm, sel.t_start, sel.t_end));
+      else v = normal2(kw[2], kw[3], t_code(tm, sel.t_start, sel.t_end),
+                       t_code(te, sel.t_start, sel.t_end));
+      s.scal[threadIdx.x] = v;
+    }
+  } else {
+    const int nz = sel.depth + 1;
+    for (int q = threadIdx.x; q < 2 * nz + 2; q += blockDim.x) {
+      if (q < 2 * nz) {
+        const int e = q / nz;
+        s.zb[q] = jax_fold_normal(kw[0], kw[1], jt_code(e ? te : tm, sel.t_start, sel.t_end,
+                                                        q - e * nz));
+      } else if (q == 2 * nz) {
+        s.scal[2] = jax_interval_normal(kw[2], kw[3], t, tm);
+      } else {
+        s.scal[3] = jax_interval_normal(kw[2], kw[3], tm, te);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 2)
+      s.scal[threadIdx.x] = jt_combine(threadIdx.x ? te : tm, sel.t_start, sel.t_end, sel.depth,
+                                       s.zb + threadIdx.x * nz);
+  }
+  __syncthreads();
+}
+
 // One step-doubling attempt from (t, y) with step h and W(t) = w0: writes the
 // two-half-step solution into buf.yn, returns the scaled RMS error and W(t+h).
+template <int kTree, int kMode>
 __device__ float attempt(const Net& n, const Sel& sel, int b, const uint32_t* kw, float t, float h,
-                         float w0, const bf16* w16, const bf16* iw16, const SelBuf& u,
+                         float w0, const void* w, const void* iw, const SelBuf& u,
                          const Scratch& s, float& w1_out) {
   const int S = 3 * n.P;
   const float tm = t + 0.5f * h;
   const float te = t + h;
   const float hh = 0.5f * h;
-  if (threadIdx.x < 4) {
-    float v;
-    if (threadIdx.x == 0) v = tree_eval(kw[0], kw[1], tm, sel.t_start, sel.t_end, sel.depth);
-    else if (threadIdx.x == 1) v = tree_eval(kw[0], kw[1], te, sel.t_start, sel.t_end, sel.depth);
-    else if (threadIdx.x == 2) v = normal2(kw[2], kw[3], t_code(t, sel.t_start, sel.t_end),
-                                           t_code(tm, sel.t_start, sel.t_end));
-    else v = normal2(kw[2], kw[3], t_code(tm, sel.t_start, sel.t_end),
-                     t_code(te, sel.t_start, sel.t_end));
-    s.scal[threadIdx.x] = v;
-  }
-  __syncthreads();
+  draw_noise<kTree>(sel, kw, t, tm, te, s);
   const float wm = s.scal[0], w1 = s.scal[1], za = s.scal[2], zb = s.scal[3];
   __syncthreads();
   w1_out = w1;
@@ -307,11 +475,11 @@ __device__ float attempt(const Net& n, const Sel& sel, int b, const uint32_t* kw
   const float sg = n.sigma;
 
   // Full step.
-  drift<false>(n, b, t, u.y, u.f1, w16, nullptr, iw16, s);
+  drift<kMode>(n, b, t, u.y, u.f1, w, nullptr, iw, s);
   const float i10h_f = i10_f / (h > 0.0f ? h : 1.0f);
   stage2_state(S, u.y, u.f1, h, i10h_f, sg, u.hst);
   __syncthreads();
-  drift<false>(n, b, t + 0.75f * h, u.hst, u.f, w16, nullptr, iw16, s);
+  drift<kMode>(n, b, t + 0.75f * h, u.hst, u.f, w, nullptr, iw, s);
   const float dw_f = dw_a + dw_b;
   for (int i = threadIdx.x; i < S; i += blockDim.x)
     u.yf[i] = sra1_final(u.y[i], u.f1[i], u.f[i], h, dw_f, i10h_f, sg);
@@ -319,17 +487,17 @@ __device__ float attempt(const Net& n, const Sel& sel, int b, const uint32_t* kw
   const float i10h_a = i10_a / (hh > 0.0f ? hh : 1.0f);
   stage2_state(S, u.y, u.f1, hh, i10h_a, sg, u.hst);
   __syncthreads();
-  drift<false>(n, b, t + 0.75f * hh, u.hst, u.f, w16, nullptr, iw16, s);
+  drift<kMode>(n, b, t + 0.75f * hh, u.hst, u.f, w, nullptr, iw, s);
   for (int i = threadIdx.x; i < S; i += blockDim.x)
     u.yh[i] = sra1_final(u.y[i], u.f1[i], u.f[i], hh, dw_a, i10h_a, sg);
   __syncthreads();
   // Second half step from t + h/2.
   const float th = t + 0.5f * h;
-  drift<false>(n, b, th, u.yh, u.g1, w16, nullptr, iw16, s);
+  drift<kMode>(n, b, th, u.yh, u.g1, w, nullptr, iw, s);
   const float i10h_b = i10_b / (hh > 0.0f ? hh : 1.0f);
   stage2_state(S, u.yh, u.g1, hh, i10h_b, sg, u.hst);
   __syncthreads();
-  drift<false>(n, b, th + 0.75f * hh, u.hst, u.f, w16, nullptr, iw16, s);
+  drift<kMode>(n, b, th + 0.75f * hh, u.hst, u.f, w, nullptr, iw, s);
   double acc = 0.0;
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     const float yn = sra1_final(u.yh[i], u.g1[i], u.f[i], hh, dw_b, i10h_b, sg);
@@ -377,16 +545,19 @@ __device__ void carve(float* sm, int P, int n_in, SelBuf* u, Scratch* s) {
   s->aux = p; p += P;
   s->ext = p; p += kMaxInputs;
   s->scal = p; p += 8;
+  s->zb = p; p += 2 * (kMaxDepth + 1);
   s->red = reinterpret_cast<double*>(p + ((uintptr_t)p & 4 ? 1 : 0));
 }
 
 size_t scratch_bytes(int P) {
-  return sizeof(float) * (4 * (size_t)P + kMaxInputs + 8 + 1) + sizeof(double) * (kThreads / 32);
+  return sizeof(float) * (4 * (size_t)P + kMaxInputs + 8 + 2 * (kMaxDepth + 1) + 1)
+         + sizeof(double) * (kThreads / 32);
 }
 
-// B5: the whole selection loop of lane blockIdx.x.
+// B5 (and the XLA selection): the whole selection loop of lane blockIdx.x.
+template <int kTree, int kMode>
 __global__ void __launch_bounds__(kThreads)
-sde_select_kernel(Net n, Sel sel, const bf16* __restrict__ w16, const bf16* __restrict__ iw16,
+sde_select_kernel(Net n, Sel sel, const void* __restrict__ w, const void* __restrict__ iw,
                   const int* __restrict__ words, const float* __restrict__ y0,
                   float* __restrict__ st, int* __restrict__ stats) {
   extern __shared__ float sm[];
@@ -401,7 +572,7 @@ sde_select_kernel(Net n, Sel sel, const bf16* __restrict__ w16, const bf16* __re
   for (int i = threadIdx.x; i < S; i += blockDim.x) u.y[i] = y0[(size_t)b * S + i];
   if (threadIdx.x == 0) {
     st_b[0] = sel.t_start;
-    s.scal[4] = tree_eval(kw[0], kw[1], sel.t_start, sel.t_start, sel.t_end, sel.depth);
+    s.scal[4] = lane_w<kTree>(sel, kw, sel.t_start);
   }
   __syncthreads();
   float w_t1 = s.scal[4];
@@ -412,7 +583,7 @@ sde_select_kernel(Net n, Sel sel, const bf16* __restrict__ w16, const bf16* __re
     float hc = fminf(h, sel.t_end - t1);
     hc = (t1 + hc) - t1;
     float w1;
-    const float err = attempt(n, sel, b, kw, t1, hc, w_t1, w16, iw16, u, s, w1);
+    const float err = attempt<kTree, kMode>(n, sel, b, kw, t1, hc, w_t1, w, iw, u, s, w1);
     const Control c = control(sel, err, hc, err_prev);
     const float t_new = c.accept ? t1 + hc : t1;
     na += c.accept ? 1 : 0;
@@ -437,8 +608,9 @@ sde_select_kernel(Net n, Sel sel, const bf16* __restrict__ w16, const bf16* __re
 // One controller attempt per record r = blockIdx.x, from (t1, y1, h,
 // err_prev, W(t1)): rec[r] = (err, accept, h used, h next, t new, W(t+h)),
 // y_new[r] = the two-half-step solution.
+template <int kTree, int kMode>
 __global__ void __launch_bounds__(kThreads)
-sde_attempt_kernel(Net n, Sel sel, const bf16* __restrict__ w16, const bf16* __restrict__ iw16,
+sde_attempt_kernel(Net n, Sel sel, const void* __restrict__ w, const void* __restrict__ iw,
                    const int* __restrict__ words, const float* __restrict__ t1s,
                    const float* __restrict__ y1, const float* __restrict__ hs,
                    const float* __restrict__ err_prev, const float* __restrict__ w_t1,
@@ -456,7 +628,7 @@ sde_attempt_kernel(Net n, Sel sel, const bf16* __restrict__ w16, const bf16* __r
   float hc = fminf(hs[r], sel.t_end - t1);
   hc = (t1 + hc) - t1;
   float w1;
-  const float err = attempt(n, sel, r, kw, t1, hc, w_t1[r], w16, iw16, u, s, w1);
+  const float err = attempt<kTree, kMode>(n, sel, r, kw, t1, hc, w_t1[r], w, iw, u, s, w1);
   const Control c = control(sel, err, hc, err_prev[r]);
   for (int i = threadIdx.x; i < S; i += blockDim.x) y_new[(size_t)r * S + i] = u.yn[i];
   if (threadIdx.x == 0) {
@@ -581,8 +753,204 @@ sde_replay_bwd_kernel(Net n, Replay rp, const bf16* __restrict__ w_hi,
   for (int i = threadIdx.x; i < S; i += blockDim.x) ybar_out[(size_t)b * S + i] = yb[i];
 }
 
+// ---------------------------------------------------------------------------
+// The three-term sweeps: SRA1 on the three-term split over each lane's grid
+// (B3t) and its reverse sweep with the weight cotangents in the kernel
+// (B4't). The weights are split from the float32 wT into shared memory when
+// the kernel starts (split3_drift.cuh), as the f32-exact dopri5 kernels do.
+// ---------------------------------------------------------------------------
+
+// The step grid: per lane (lanes: t0s, hs (n, B)) or one for every lane
+// (the uniform grid: t0s, hs (n,)); i1, i10 (n, B) per lane.
+struct Grid3 {
+  int n_steps, n_real, lanes;
+  const float *t0s, *hs, *i1, *i10;
+  __device__ __forceinline__ size_t at(int k, int b, int B) const {
+    return lanes ? (size_t)k * B + b : (size_t)k;
+  }
+};
+
+// B3t: lane b = blockIdx.x. ys[0] = y0, ys[k + 1] after step k; rows past
+// n_real hold the carried state (h == 0 padding is a no-op).
+__global__ void __launch_bounds__(kThreads)
+sde3_fwd_kernel(Net n, Grid3 g, const float* __restrict__ wT, const float* __restrict__ iwT,
+                const float* __restrict__ y0, float* __restrict__ ys) {
+  extern __shared__ float sm[];
+  W3 w;
+  Scr s;
+  const int P = n.P, S = 3 * P, B = n.B, b = blockIdx.x;
+  Carve c{setup(sm, n, 1, wT, iwT, &w, &s)};
+  float* y = c.take(S);
+  float* f1 = c.take(S);
+  float* h2 = c.take(S);
+  float* f2 = c.take(S);
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    y[i] = y0[(size_t)b * S + i];
+    ys[(size_t)b * S + i] = y[i];
+  }
+  __syncthreads();
+  for (int k = 0; k < g.n_real; ++k) {
+    const float t0 = g.t0s[g.at(k, b, B)], h = g.hs[g.at(k, b, B)];
+    const float di1 = g.i1[(size_t)k * B + b];
+    const float i10h = g.i10[(size_t)k * B + b] / (h > 0.0f ? h : 1.0f);
+    drift3(n, b, 1, t0, y, f1, w, s);
+    stage2_state(S, y, f1, h, i10h, n.sigma, h2);
+    __syncthreads();
+    drift3(n, b, 1, t0 + 0.75f * h, h2, f2, w, s);
+    float* out = ys + ((size_t)(k + 1) * B + b) * S;
+    for (int i = threadIdx.x; i < S; i += blockDim.x) {
+      y[i] = sra1_final(y[i], f1[i], f2[i], h, di1, i10h, n.sigma);
+      out[i] = y[i];
+    }
+    __syncthreads();
+  }
+  for (int k = g.n_real; k < g.n_steps; ++k) {
+    float* out = ys + ((size_t)(k + 1) * B + b) * S;
+    for (int i = threadIdx.x; i < S; i += blockDim.x) out[i] = y[i];
+  }
+}
+
+// B4't: the batch in one block (jax.vjp contracts each product's weight
+// cotangent over the lanes before its bf16 rounding). Over steps
+// n_real-1..0, with c = ybar + ysbar[k] and lane b's t0, h, i10h:
+//   f1 = f(t0, y);  h2 = (y + (0.75 h) f1) + (1.5 i10h) sigma
+//   c_h2 = f^T|_{t0 + 0.75 h, h2} (((h c) / 3) 2)          (weights: assign)
+//   c_y  = f^T|_{t0, y} ((h c) / 3 + (0.75 h) c_h2)         (weights: add)
+//   ybar = (c + c_h2) + c_y, zeroed after every step k with k % stride == 0.
+// Each step's bf16 accumulators fold through the split once into a float32
+// chunk sum; the chunk sum is added to d_wT after the chunk's first step
+// (k % chunk == 0), as the JAX kernel sums each chunk's steps and then the
+// chunks. The same for d_iwT (float32 throughout).
+__global__ void __launch_bounds__(kThreads)
+sde3_bwd_kernel(Net n, Grid3 g, int stride, int chunk, const float* __restrict__ wT,
+                const float* __restrict__ iwT, const float* __restrict__ ys_prev,
+                const float* __restrict__ ysbar, float* __restrict__ ybar_out,
+                float* __restrict__ d_wT, float* __restrict__ d_iwT, float* __restrict__ work) {
+  extern __shared__ float sm[];
+  W3 w;
+  Scr s;
+  const int P = n.P, B = n.B, S = 3 * P, N = B * S, PP = P * P, NI = n.n_in * P;
+  Carve c{setup(sm, n, B, wT, iwT, &w, &s)};
+  float* y = c.take(N);
+  float* f1 = c.take(N);
+  float* h2 = c.take(N);
+  float* cc = c.take(N);
+  float* cw = c.take(N);
+  float* ch2 = c.take(N);
+  float* cy = c.take(N);
+  float* yb = c.take(N);
+  float* tl = c.take(B);   // lane times t0
+  float* t2 = c.take(B);   // t0 + 0.75 h
+  float* hl = c.take(B);   // h
+  float* ih = c.take(B);   // i10 / h
+  float* chunk_iw = c.take(NI);
+  const WAcc acc{work, work + PP, work + 2 * PP, c.take(NI)};
+  float* chunk_w = work + 3 * PP;
+  for (int e = threadIdx.x; e < PP; e += blockDim.x) {
+    d_wT[e] = 0.0f;
+    chunk_w[e] = 0.0f;
+  }
+  for (int e = threadIdx.x; e < NI; e += blockDim.x) {
+    d_iwT[e] = 0.0f;
+    chunk_iw[e] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x) yb[i] = 0.0f;
+  __syncthreads();
+  for (int k = g.n_real - 1; k >= 0; --k) {
+    if (threadIdx.x < B) {
+      const int b = threadIdx.x;
+      const float t0 = g.t0s[g.at(k, b, B)], h = g.hs[g.at(k, b, B)];
+      tl[b] = t0;
+      t2[b] = t0 + 0.75f * h;
+      hl[b] = h;
+      ih[b] = g.i10[(size_t)k * B + b] / (h > 0.0f ? h : 1.0f);
+    }
+    const float* yk = ys_prev + (size_t)k * N;
+    const float* sbk = ysbar + (size_t)k * N;
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      y[i] = yk[i];
+      cc[i] = yb[i] + sbk[i];
+    }
+    __syncthreads();
+    drift3(n, 0, B, 0.0f, y, f1, w, s, tl);
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      const int b = i / S;
+      const float h = hl[b];
+      h2[i] = (y[i] + (0.75f * h) * f1[i]) + (1.5f * ih[b]) * n.sigma;
+      cw[i] = ((h * cc[i]) / 3.0f) * 2.0f;
+    }
+    __syncthreads();
+    drift_vjp3(n, B, 0.0f, h2, cw, ch2, w, s, acc, true, t2);
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      const float h = hl[i / S];
+      cw[i] = (h * cc[i]) / 3.0f + (0.75f * h) * ch2[i];
+    }
+    __syncthreads();
+    drift_vjp3(n, B, 0.0f, y, cw, cy, w, s, acc, false, tl);
+    const bool cut = stride > 0 && k % stride == 0;
+    for (int i = threadIdx.x; i < N; i += blockDim.x) yb[i] = cut ? 0.0f : (cc[i] + ch2[i]) + cy[i];
+    const bool fold = k % chunk == 0;
+    for (int e = threadIdx.x; e < PP; e += blockDim.x) {
+      const float lo = acc.lo[e];
+      const float r = lo + bf16r(acc.mid[e] - lo);
+      const float sum = chunk_w[e] + (r + bf16r(acc.hi[e] + bf16r(-r)));
+      if (fold) d_wT[e] = d_wT[e] + sum;
+      chunk_w[e] = fold ? 0.0f : sum;
+    }
+    for (int e = threadIdx.x; e < NI; e += blockDim.x) {
+      const float sum = chunk_iw[e] + acc.iw[e];
+      if (fold) d_iwT[e] = d_iwT[e] + sum;
+      chunk_iw[e] = fold ? 0.0f : sum;
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x) ybar_out[i] = yb[i];
+}
+
 Sel make_sel(const float* hs, int max_steps, int depth) {
   return Sel{hs[0], hs[1], hs[2], hs[3], hs[4], hs[5], max_steps, depth};
+}
+
+// Launch kernel<kTree, kMode> for the tree (kKrng, kJax) and drift (kSel16,
+// kF32) the host asks for; anything else is an invalid value.
+template <template <int, int> class L, typename... A>
+int dispatch_select(int tree, int mode, A... a) {
+  if (tree == kKrng && mode == kSel16) return L<kKrng, kSel16>::run(a...);
+  if (tree == kKrng && mode == kF32) return L<kKrng, kF32>::run(a...);
+  if (tree == kJax && mode == kSel16) return L<kJax, kSel16>::run(a...);
+  if (tree == kJax && mode == kF32) return L<kJax, kF32>::run(a...);
+  return (int)cudaErrorInvalidValue;
+}
+
+size_t select_bytes(int P) { return sizeof(float) * 8 * 3 * (size_t)P + scratch_bytes(P); }
+
+template <int kTree, int kMode>
+struct SelectLaunch {
+  static int run(int B, Net n, Sel sel, const void* w, const void* iw, const int* words,
+                 const float* y0, float* st, int* stats, cudaStream_t stream) {
+    const size_t bytes = select_bytes(n.P);
+    if (int e = set_smem(sde_select_kernel<kTree, kMode>, bytes)) return e;
+    sde_select_kernel<kTree, kMode><<<B, kThreads, bytes, stream>>>(n, sel, w, iw, words, y0, st,
+                                                                     stats);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int kTree, int kMode>
+struct AttemptLaunch {
+  static int run(int N, Net n, Sel sel, const void* w, const void* iw, const int* words,
+                 const float* t1, const float* y1, const float* h, const float* err_prev,
+                 const float* w_t1, float* y_new, float* rec, cudaStream_t stream) {
+    const size_t bytes = select_bytes(n.P);
+    if (int e = set_smem(sde_attempt_kernel<kTree, kMode>, bytes)) return e;
+    sde_attempt_kernel<kTree, kMode><<<N, kThreads, bytes, stream>>>(
+        n, sel, w, iw, words, t1, y1, h, err_prev, w_t1, y_new, rec);
+    return (int)cudaGetLastError();
+  }
+};
+
+int check_depth(int depth) {
+  return depth < 1 || depth > kMaxDepth ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // namespace
@@ -590,31 +958,65 @@ Sel make_sel(const float* hs, int max_steps, int depth) {
 extern "C" {
 
 // hc (host): tau_s, tau_m, tau_a, R, sigma, kc0[K-1], kd[K-1];
-// hs (host): t_start, t_end, rtol, atol, h0, dt_min.
+// hs (host): t_start, t_end, rtol, atol, h0, dt_min; tree: 0 krng, 1 jax;
+// mode: 0 select16 (w, iw bf16), 2 float32 (w, iw float32).
 int cf_sde_select(int B, int P, int n_in, int K, const float* hc, const float* hs, int max_steps,
-                  int depth, const float* bg, const float* adapt, const void* w16,
-                  const void* iw16, const float* kv, const int* words, const float* y0,
-                  float* st, int* stats, void* stream) {
+                  int depth, int tree, int mode, const float* bg, const float* adapt,
+                  const void* w, const void* iw, const float* kv, const int* words,
+                  const float* y0, float* st, int* stats, void* stream) {
   if (int e = check_shape(P, n_in, K)) return e;
-  const size_t bytes = sizeof(float) * 8 * 3 * (size_t)P + scratch_bytes(P);
-  if (int e = set_smem(sde_select_kernel, bytes)) return e;
-  sde_select_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, max_steps, depth),
-      (const bf16*)w16, (const bf16*)iw16, words, y0, st, stats);
-  return (int)cudaGetLastError();
+  if (int e = check_depth(depth)) return e;
+  return dispatch_select<SelectLaunch>(tree, mode, B, make_net(B, P, n_in, K, hc, bg, adapt, kv),
+                                       make_sel(hs, max_steps, depth), w, iw, words, y0, st,
+                                       stats, (cudaStream_t)stream);
 }
 
 int cf_sde_attempt(int N, int P, int n_in, int K, const float* hc, const float* hs, int depth,
-                   const float* bg, const float* adapt, const void* w16, const void* iw16,
-                   const float* kv, const int* words, const float* t1, const float* y1,
-                   const float* h, const float* err_prev, const float* w_t1, float* y_new,
-                   float* rec, void* stream) {
+                   int tree, int mode, const float* bg, const float* adapt, const void* w,
+                   const void* iw, const float* kv, const int* words, const float* t1,
+                   const float* y1, const float* h, const float* err_prev, const float* w_t1,
+                   float* y_new, float* rec, void* stream) {
   if (int e = check_shape(P, n_in, K)) return e;
-  const size_t bytes = sizeof(float) * 8 * 3 * (size_t)P + scratch_bytes(P);
-  if (int e = set_smem(sde_attempt_kernel, bytes)) return e;
-  sde_attempt_kernel<<<N, kThreads, bytes, (cudaStream_t)stream>>>(
-      make_net(N, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, 0, depth), (const bf16*)w16,
-      (const bf16*)iw16, words, t1, y1, h, err_prev, w_t1, y_new, rec);
+  if (int e = check_depth(depth)) return e;
+  return dispatch_select<AttemptLaunch>(tree, mode, N, make_net(N, P, n_in, K, hc, bg, adapt, kv),
+                                        make_sel(hs, 0, depth), w, iw, words, t1, y1, h,
+                                        err_prev, w_t1, y_new, rec, (cudaStream_t)stream);
+}
+
+// The three-term sweeps. lanes: t0s, hs are (n_steps, B), else (n_steps,);
+// i1, i10 (n_steps, B); ys (n_steps + 1, B, 3P); wT (P, P) and iwT (n_in, P)
+// float32. A batch too large for one block's shared memory (the reverse
+// sweep holds every lane) fails cudaFuncSetAttribute: the wrapper raises.
+int cf_sde3_fwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                int lanes, const float* bg, const float* adapt, const float* wT,
+                const float* iwT, const float* kv, const float* t0s, const float* hs,
+                const float* i1, const float* i10, const float* y0, float* ys, void* stream) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  const size_t bytes = sizeof(float) * (setup_floats(P, n_in, 1) + 4 * 3 * (size_t)P);
+  if (int e = set_smem(sde3_fwd_kernel, bytes)) return e;
+  const Grid3 g{n_steps, n_real, lanes, t0s, hs, i1, i10};
+  sde3_fwd_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), g, wT, iwT, y0, ys);
+  return (int)cudaGetLastError();
+}
+
+// ys_prev, ysbar (n_steps, B, 3P); ybar (B, 3P); d_wT (P, P), d_iwT (n_in, P);
+// work: 4 P^2 floats of device memory (the step's three bf16 accumulators
+// and the chunk's float32 sum).
+int cf_sde3_bwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                int lanes, int stride, int chunk, const float* bg, const float* adapt,
+                const float* wT, const float* iwT, const float* kv, const float* t0s,
+                const float* hs, const float* i10, const float* ys_prev, const float* ysbar,
+                float* ybar, float* d_wT, float* d_iwT, float* work, void* stream) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * (setup_floats(P, n_in, B) + 8 * (size_t)B * 3 * P
+                                        + 4 * (size_t)B + 2 * (size_t)n_in * P);
+  if (int e = set_smem(sde3_bwd_kernel, bytes)) return e;
+  const Grid3 g{n_steps, n_real, lanes, t0s, hs, nullptr, i10};
+  sde3_bwd_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, chunk, wT, iwT, ys_prev, ysbar,
+      ybar, d_wT, d_iwT, work);
   return (int)cudaGetLastError();
 }
 

@@ -1,22 +1,34 @@
 """The column-network SDE kernels: adaptive step-size selection, the replay
 over the frozen step grids, and its reverse sweep (ports of the Pallas
-kernels B5, B3 and B4 of ``columnflow/solvers``).
+kernels B5, B3 and B4 of ``columnflow/solvers``, and of the XLA selection
+loop ``_adaptive_pass`` as a kernel).
 
 Each kernel is CUDA C++ in ``csrc/network_sde.cu`` (built by ``_build``)
 with a plain PyTorch version beside it that repeats its arithmetic:
 
     wrapper         kernel              plain version      replaces (columnflow/solvers/)
-    select_pass     cf_sde_select       _select_plain      sde_adaptive.py _make_sde_adaptive_kernel (B5)
-    select_attempt  cf_sde_attempt      _attempt_plain     one iteration of that kernel's body
+    select_pass     cf_sde_select       _select_plain      sde_adaptive.py _make_sde_adaptive_kernel (B5),
+                                                           and the XLA selection _adaptive_pass
+    select_attempt  cf_sde_attempt      _attempt_plain     one iteration of that loop's body
     replay_fwd      cf_sde_replay_fwd   _replay_fwd_plain  fused.py _make_sde_chunk_kernel, lanes (B3)
     replay_bwd      cf_sde_replay_bwd   _replay_bwd_plain  fused.py _make_sde_bwd_chunk_kernel, emit (B4)
+    replay3_fwd     cf_sde3_fwd         _replay3_fwd_plain _make_sde_chunk_kernel on the three-term
+                                                           split, lanes or uniform grid (B3t)
+    replay3_bwd     cf_sde3_bwd         _replay3_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
+                                                           three-term split (B4't)
 
 The JAX kernels trace any drift. These compute the parity task's drift:
 ``network_drift_premixed`` with the knot stimulus and the constant
-diffusion sigma = 10; the selection with the bf16 weights of
-``premix_select16``, the replay and its reverse sweep with the two-term
-split of ``prepare_premixed_split2``. Lanes are independent: each kernel
-runs one thread block per lane.
+diffusion sigma = 10. The selection (``SelectConfig``) draws from the krng
+tree (``brownian="kernel"``, the JAX package's in-kernel pass) or from the
+``jax.random`` tree (``brownian="jax"``, its XLA pass), on the bf16 weights
+of ``premix_select16`` (``drift="select16"``) or the float32 ones
+(``drift="f32"``). The split2 replay and its emit-mode sweep run on the
+two-term split of ``prepare_premixed_split2``; the three-term ones on
+``prepare_premixed_split``, with the weight cotangents in the sweep. The
+selection and the split2 sweeps run one thread block per lane; the
+three-term reverse sweep holds the batch in one block, because jax.vjp
+contracts each weight cotangent over the lanes before rounding it to bf16.
 
 The wrappers take the plain version for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise. ``LAUNCHES`` counts kernel
@@ -25,7 +37,9 @@ launches (the plain versions count nothing).
 The JAX kernels cut the horizon into chunks only because the trajectory had
 to fit the TPU's VMEM; device memory holds the whole (n + 1, B, 3P)
 replay, so each sweep here is one launch. Truncated BPTT still zeroes the
-cotangent at the step indices JAX's chunking gives (``stride``).
+cotangent at the step indices JAX's chunking gives (``stride``), and the
+three-term sweep sums the weight cotangents chunk by chunk as JAX does
+(``chunk``).
 """
 
 from __future__ import annotations
@@ -41,9 +55,13 @@ from columnflow_torch.models.network import (
     network_drift_premixed,
     network_drift_premixed_select16,
     network_drift_premixed_split2_vjp,
+    network_drift_premixed_split_vjp,
+    prepare_premixed_split,
+    split3_fold,
 )
 from columnflow_torch.ops.arith import div
 from columnflow_torch.ops.interp import interp_knots, knot_constants
+from columnflow_torch.solvers import brownian as brownian_paths
 from columnflow_torch.solvers.krng import KernelBrownianTree, interval_normal
 
 SIGMA = NETWORK_NOISE_STD
@@ -53,7 +71,11 @@ SIGMA = NETWORK_NOISE_STD
 # same numbers as literals.
 _SAFETY, _IFACTOR, _DFACTOR = 0.9, 5.0, 0.2
 _PI_A, _PI_B, _ERR_EXP = 0.5, 0.25, 0.5
-LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_replay_fwd": 0, "sde_replay_bwd": 0}
+LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_replay_fwd": 0, "sde_replay_bwd": 0,
+            "sde3_fwd": 0, "sde3_bwd": 0}
+# The kernels' codes of the two trees and of the selection drifts.
+TREES = {"kernel": 0, "jax": 1}
+SELECT_DRIFTS = {"select16": 0, "f32": 2}
 
 _F32, _BF16, _I64 = torch.float32, torch.bfloat16, torch.int64
 
@@ -67,7 +89,9 @@ class SDEConsts(NamedTuple):
 
 
 class SelectConfig(NamedTuple):
-    """The selection's settings, as the JAX kernel bakes them in."""
+    """The selection's settings, as the JAX kernel bakes them in, and its
+    Brownian tree ("kernel": krng, "jax": jax.random) and drift
+    ("select16": bf16 weights, "f32")."""
 
     t_start: float
     t_end: float
@@ -77,6 +101,8 @@ class SelectConfig(NamedTuple):
     max_steps: int = 16384
     depth: int = 20
     dt_min: float = 0.0
+    brownian: str = "kernel"
+    drift: str = "select16"
 
 
 # ---------------------------------------------------------------------------
@@ -88,9 +114,12 @@ def _knots(knot_ts):
     return lambda t, t0, dt, v: interp_knots(t, knot_ts, v)
 
 
-def drift_split2(t, y, w2, sc: SDEConsts, kv):
-    """The replay drift: y (B, 3P), t (B, 1), kv (K, B, n_in)."""
-    return network_drift_premixed(t, y, w2, sc.fc, Stimulus(0.0, 0.0, kv),
+def drift_premixed(t, y, pw, sc: SDEConsts, kv):
+    """The drift on premixed weights in any of their formats: y (B, 3P),
+    t (B, 1) or a scalar, kv (K, B, n_in). ``pw`` = {"wT", "iwT"} float32
+    (the f32 selection drift), or the output of ``prepare_premixed_split``
+    (the three-term replay) or ``prepare_premixed_split2`` (split2)."""
+    return network_drift_premixed(t, y, pw, sc.fc, Stimulus(0.0, 0.0, kv),
                                   interp_fn=_knots(sc.knot_ts))
 
 
@@ -114,7 +143,7 @@ def sra1_step(drift, t0, h, y, dw, i10, sigma: float = SIGMA):
 def step_vjp_split2(t0, h, y, i10, c, w2, sc: SDEConsts, kv, sigma: float = SIGMA):
     """State cotangent of one replay step (``sra1_step`` with the split2
     drift) for the cotangent c of its output."""
-    drift = lambda t, x: drift_split2(t, x, w2, sc, kv)  # noqa: E731
+    drift = lambda t, x: drift_premixed(t, x, w2, sc, kv)  # noqa: E731
     i10_h = i10 / torch.where(h > 0, h, 1.0)
     h2 = y + (0.75 * h) * drift(t0, y) + (1.5 * i10_h) * sigma
     c3 = div(h * c, 3.0)
@@ -123,16 +152,43 @@ def step_vjp_split2(t0, h, y, i10, c, w2, sc: SDEConsts, kv, sigma: float = SIGM
     return (c + c_h2) + c_y
 
 
-def _replay_fwd_plain(y0, t0s, hs, i1, i10, n_real, w2, sc, kv):
+def step_vjp_split3(t0, h, y, i10, c, w3, sc: SDEConsts, kv, sigma: float = SIGMA):
+    """The VJP of one three-term replay step for the cotangent c of its
+    output: (state cotangent, the step's d wT, its d iwT). The second
+    stage's drift is met first: its weight cotangents open the step's bf16
+    accumulators, the first stage's add to them, and they fold through the
+    split once (``split3_fold``), as ``jax.vjp`` of the step does."""
+    stim = Stimulus(0.0, 0.0, kv)
+    interp = _knots(sc.knot_ts)
+    i10_h = i10 / torch.where(h > 0, h, 1.0)
+    h2 = y + (0.75 * h) * drift_premixed(t0, y, w3, sc, kv) + (1.5 * i10_h) * sigma
+    c3 = div(h * c, 3.0)
+    c_h2, acc, d_iw2 = network_drift_premixed_split_vjp(t0 + 0.75 * h, h2, c3 * 2.0, w3, sc.fc,
+                                                        stim, interp_fn=interp)
+    c_y, acc, d_iw1 = network_drift_premixed_split_vjp(t0, y, c3 + (0.75 * h) * c_h2, w3, sc.fc,
+                                                       stim, interp_fn=interp, acc=acc)
+    return (c + c_h2) + c_y, split3_fold(acc), d_iw2 + d_iw1
+
+
+def _lane_times(t0s, hs, k, B):
+    """Step k's (t0, h) per lane, (B, 1): a row of (n, B) per-lane times,
+    or the uniform grid's (n,) times for every lane."""
+    if t0s.dim() == 1:
+        return t0s[k].expand(B, 1), hs[k].expand(B, 1)
+    return t0s[k, :, None], hs[k, :, None]
+
+
+def _replay_fwd_plain(y0, t0s, hs, i1, i10, n_real, w, sc, kv):
     """ys (n + 1, B, 3P): ys[0] = y0, ys[k + 1] after step k; rows past
-    n_real hold the carried state."""
-    n = t0s.shape[0]
+    n_real hold the carried state. ``w`` in a replay format of
+    ``drift_premixed`` (split2, or the three-term split)."""
+    n, B = t0s.shape[0], y0.shape[0]
     ys = torch.empty((n + 1,) + tuple(y0.shape), dtype=_F32, device=y0.device)
     ys[0] = y = y0
-    drift = lambda t, x: drift_split2(t, x, w2, sc, kv)  # noqa: E731
+    drift = lambda t, x: drift_premixed(t, x, w, sc, kv)  # noqa: E731
     for k in range(n_real):
-        y = sra1_step(drift, t0s[k, :, None], hs[k, :, None], y, i1[k, :, None],
-                      i10[k, :, None])
+        t0, h = _lane_times(t0s, hs, k, B)
+        y = sra1_step(drift, t0, h, y, i1[k, :, None], i10[k, :, None])
         ys[k + 1] = y
     ys[n_real + 1:] = y
     return ys
@@ -154,9 +210,66 @@ def _replay_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, w2, sc, kv):
     return ybar, seeds
 
 
+def _replay3_fwd_plain(y0, t0s, hs, i1, i10, n_real, pw, sc, kv):
+    """B3t's plain version: ``_replay_fwd_plain`` on the three-term split of
+    pw = {"wT", "iwT"} (float32)."""
+    w3 = prepare_premixed_split(pw, sc.fc)[0]
+    return _replay_fwd_plain(y0, t0s, hs, i1, i10, n_real, w3, sc, kv)
+
+
+@torch.no_grad()
+def _replay3_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, chunk, pw, sc, kv):
+    """B4't's plain version, over steps n_real-1..0 with the seed ybar +
+    ysbar[k] on step k's output: (ybar, d wT, d iwT). The carry is zeroed
+    after every step k with k % stride == 0; the steps' weight cotangents
+    add in float32 within each chunk of ``chunk`` steps, and the chunk sums
+    are added after the chunk's first step (k % chunk == 0)."""
+    w3 = prepare_premixed_split(pw, sc.fc)[0]
+    B = ys_prev.shape[1]
+    ybar = torch.zeros_like(ys_prev[0])
+    d = [torch.zeros_like(pw["wT"]), torch.zeros_like(pw["iwT"])]
+    part = [torch.zeros_like(pw["wT"]), torch.zeros_like(pw["iwT"])]
+    for k in range(n_real - 1, -1, -1):
+        t0, h = _lane_times(t0s, hs, k, B)
+        ybar, g_w, g_iw = step_vjp_split3(t0, h, ys_prev[k], i10[k, :, None], ybar + ysbar[k],
+                                          w3, sc, kv)
+        if stride and k % stride == 0:
+            ybar = torch.zeros_like(ybar)
+        part = [part[0] + g_w, part[1] + g_iw]
+        if k % chunk == 0:
+            d = [d[0] + part[0], d[1] + part[1]]
+            part = [torch.zeros_like(p) for p in part]
+    return ybar, d[0], d[1]
+
+
+def lane_noise(words, t_start, t_end, depth, brownian: str = "kernel"):
+    """(tree, i10_draw) of lanes with key words (B, 4) (k0, k1, j0, j1):
+    the krng tree and interval normals (``brownian="kernel"``) or the
+    ``jax.random`` ones (``"jax"``) on [t_start, t_end]. ``tree.evaluate``
+    and ``i10_draw`` take (B, k) times."""
+    if brownian == "jax":
+        t0, t1 = (torch.tensor(t, dtype=_F32, device=words.device) for t in (t_start, t_end))
+        tree = brownian_paths.VirtualBrownianTree(t0, t1, words[:, None, 0:2], depth=depth)
+        key = words[:, None, 2:4]
+        return tree, lambda ta, tb: brownian_paths.interval_normal(key, ta, tb)
+    if brownian != "kernel":
+        raise ValueError(f"unknown brownian backend: {brownian!r}")
+    tree = KernelBrownianTree(t_start, t_end, words[:, 0:1], words[:, 1:2], depth=depth)
+    return tree, lambda ta, tb: interval_normal(words[:, 2:3], words[:, 3:4], ta, tb, t_start,
+                                                t_end)
+
+
 def _tree(words, cfg: SelectConfig):
-    return KernelBrownianTree(cfg.t_start, cfg.t_end, words[:, 0:1], words[:, 1:2],
-                              depth=cfg.depth)
+    """The lanes' Brownian trees of ``cfg``'s backend."""
+    return lane_noise(words, cfg.t_start, cfg.t_end, cfg.depth, cfg.brownian)[0]
+
+
+def _select_drift(w, sc, kv, cfg: SelectConfig):
+    if cfg.drift == "select16":
+        return lambda t, x: drift_select16(t, x, w, sc, kv)
+    if cfg.drift == "f32":
+        return lambda t, x: drift_premixed(t, x, w, sc, kv)
+    raise ValueError(f"unknown selection drift {cfg.drift!r}")
 
 
 class Attempt(NamedTuple):
@@ -171,24 +284,25 @@ class Attempt(NamedTuple):
 
 
 @torch.no_grad()
-def _attempt_plain(t1, y1, h, err_prev, w_t1, words, w16, sc, kv, cfg: SelectConfig):
+def _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg: SelectConfig):
     """One controller attempt per lane (t1, h, err_prev, w_t1 (B, 1)):
-    step doubling with three SRA1 steps on the tree's Brownian data, the
-    RMS error, the PI controller with exp(p log x) powers."""
+    step doubling with three SRA1 steps on the tree's Brownian data (the
+    JAX package's ``_sra1_doubling``: the full step and the first half step
+    share f1), the RMS error, the PI controller with exp(p log x) powers.
+    ``w``: the selection weights in ``cfg.drift``'s format."""
     h = torch.minimum(h, cfg.t_end - t1)
     h = (t1 + h) - t1  # the representable difference
     tm, te, hh = t1 + 0.5 * h, t1 + h, 0.5 * h
-    w = _tree(words, cfg).evaluate(torch.cat([tm, te], dim=1))
-    wm, w1 = w[:, 0:1], w[:, 1:2]
-    j0, j1 = words[:, 2:3], words[:, 3:4]
-    za = interval_normal(j0, j1, t1, tm, cfg.t_start, cfg.t_end)
-    zb = interval_normal(j0, j1, tm, te, cfg.t_start, cfg.t_end)
+    tree, i10_draw = lane_noise(words, cfg.t_start, cfg.t_end, cfg.depth, cfg.brownian)
+    w_mt = tree.evaluate(torch.cat([tm, te], dim=1))
+    wm, w1 = w_mt[:, 0:1], w_mt[:, 1:2]
+    za, zb = i10_draw(t1, tm), i10_draw(tm, te)
     dw_a, dw_b = wm - w_t1, w1 - wm
     sq = torch.sqrt(div(hh, 12.0))
     i10_a = hh * (0.5 * dw_a + sq * za)
     i10_b = hh * (0.5 * dw_b + sq * zb)
     i10_f = i10_a + i10_b + hh * dw_a
-    drift = lambda t, x: drift_select16(t, x, w16, sc, kv)  # noqa: E731
+    drift = _select_drift(w, sc, kv, cfg)
     y_full = sra1_step(drift, t1, h, y1, dw_a + dw_b, i10_f)
     y_half = sra1_step(drift, t1, 0.5 * h, y1, dw_a, i10_a)
     y_half2 = sra1_step(drift, t1 + 0.5 * h, 0.5 * h, y_half, dw_b, i10_b)
@@ -207,7 +321,7 @@ def _attempt_plain(t1, y1, h, err_prev, w_t1, words, w16, sc, kv, cfg: SelectCon
 
 
 @torch.no_grad()
-def _select_plain(y0, words, w16, sc, kv, cfg: SelectConfig):
+def _select_plain(y0, words, w, sc, kv, cfg: SelectConfig):
     """The selection loop, vectorised over lanes with per-lane masks:
     returns (step_times (B, M+1), naccept, nreject, success)."""
     B, dev = y0.shape[0], y0.device
@@ -226,7 +340,7 @@ def _select_plain(y0, words, w16, sc, kv, cfg: SelectConfig):
         active = (t1[:, 0] < cfg.t_end) & (na + nr < M)
         if not bool(active.any()):
             break
-        a = _attempt_plain(t1, y1, h, err_prev, w_t1, words, w16, sc, kv, cfg)
+        a = _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg)
         act = active[:, None]
         acc = a.accept & act
         na = na + acc[:, 0]
@@ -308,54 +422,67 @@ def _select_host(sc: SDEConsts, cfg: SelectConfig):
     return (hc, hs), hc_p, hs_p
 
 
-def select_pass(y0, words, w16, sc: SDEConsts, kv, cfg: SelectConfig):
+def _select_named(w, kv, P, cfg: SelectConfig):
+    """The selection weights' contract for ``cfg.drift``, and their two
+    tensors (the recurrent and the input matrix)."""
+    if cfg.brownian not in TREES:
+        raise ValueError(f"unknown brownian backend {cfg.brownian!r}")
+    if cfg.drift not in SELECT_DRIFTS:
+        raise ValueError(f"unknown selection drift {cfg.drift!r}")
+    keys, dtype = (("wT16", "iwT16"), _BF16) if cfg.drift == "select16" else (("wT", "iwT"), _F32)
+    named = {keys[0]: (w[keys[0]], dtype, (P, P)), keys[1]: (w[keys[1]], dtype, (kv.shape[2], P))}
+    return named, (w[keys[0]], w[keys[1]])
+
+
+def select_pass(y0, words, w, sc: SDEConsts, kv, cfg: SelectConfig):
     """The step-size selection of every lane: y0 (B, 3P), words (B, 4)
-    (k0, k1, j0, j1 as int64), w16 from ``premix_select16``, kv (K, B,
-    n_in). Returns (step_times (B, M+1), naccept, nreject (B,) int32,
-    success (B,) bool)."""
+    (k0, k1, j0, j1 as int64: the tree's key and the space-time integrals'
+    key of ``cfg.brownian``), ``w`` the selection weights (``premix_select16``
+    for ``cfg.drift`` "select16", the float32 {"wT", "iwT"} for "f32"), kv
+    (K, B, n_in). Returns (step_times (B, M+1), naccept, nreject (B,)
+    int32, success (B,) bool)."""
     B, S = y0.shape
     P = S // 3
-    named = {"y0": (y0, _F32, (B, S)), "words": (words, _I64, (B, 4)),
-             "wT16": (w16["wT16"], _BF16, (P, P)),
-             "iwT16": (w16["iwT16"], _BF16, (kv.shape[2], P)),
+    w_named, (w0, iw) = _select_named(w, kv, P, cfg)
+    named = {"y0": (y0, _F32, (B, S)), "words": (words, _I64, (B, 4)), **w_named,
              **_drift_named(sc, kv, B, P)}
     if not _on_cuda(y0, named):
-        return _select_plain(y0, words, w16, sc, kv, cfg)
+        return _select_plain(y0, words, w, sc, kv, cfg)
     st = torch.empty((B, cfg.max_steps + 1), dtype=_F32, device=y0.device)
     stats = torch.empty((B, 3), dtype=torch.int32, device=y0.device)
     keep, hc_p, hs_p = _select_host(sc, cfg)
     w32 = _words32(words)
     _check(_lib().cf_sde_select(
         B, P, kv.shape[2], kv.shape[0], hc_p, hs_p, cfg.max_steps, cfg.depth,
-        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), w16["wT16"].data_ptr(),
-        w16["iwT16"].data_ptr(), kv.data_ptr(), w32.data_ptr(), y0.data_ptr(), st.data_ptr(),
-        stats.data_ptr(), _stream(y0)), "sde_select")
+        TREES[cfg.brownian], SELECT_DRIFTS[cfg.drift], sc.fc["bg"].data_ptr(),
+        sc.fc["adapt"].data_ptr(), w0.data_ptr(), iw.data_ptr(), kv.data_ptr(), w32.data_ptr(),
+        y0.data_ptr(), st.data_ptr(), stats.data_ptr(), _stream(y0)), "sde_select")
     LAUNCHES["sde_select"] += 1
     return st, stats[:, 0], stats[:, 1], stats[:, 2] > 0
 
 
-def select_attempt(t1, y1, h, err_prev, w_t1, words, w16, sc: SDEConsts, kv,
+def select_attempt(t1, y1, h, err_prev, w_t1, words, w, sc: SDEConsts, kv,
                    cfg: SelectConfig) -> Attempt:
     """One controller attempt for each of N records (t1, h, err_prev, w_t1
     (N, 1); y1 (N, 3P)): the body of the selection kernel."""
     N, S = y1.shape
     P = S // 3
+    w_named, (w0, iw) = _select_named(w, kv, P, cfg)
     named = {"y1": (y1, _F32, (N, S)), "t1": (t1, _F32, (N, 1)), "h": (h, _F32, (N, 1)),
              "err_prev": (err_prev, _F32, (N, 1)), "w_t1": (w_t1, _F32, (N, 1)),
-             "words": (words, _I64, (N, 4)), "wT16": (w16["wT16"], _BF16, (P, P)),
-             "iwT16": (w16["iwT16"], _BF16, (kv.shape[2], P)), **_drift_named(sc, kv, N, P)}
+             "words": (words, _I64, (N, 4)), **w_named, **_drift_named(sc, kv, N, P)}
     if not _on_cuda(y1, named):
-        return _attempt_plain(t1, y1, h, err_prev, w_t1, words, w16, sc, kv, cfg)
+        return _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg)
     y_new = torch.empty_like(y1)
     rec = torch.empty((N, 6), dtype=_F32, device=y1.device)
     keep, hc_p, hs_p = _select_host(sc, cfg)
     w32 = _words32(words)
     _check(_lib().cf_sde_attempt(
-        N, P, kv.shape[2], kv.shape[0], hc_p, hs_p, cfg.depth, sc.fc["bg"].data_ptr(),
-        sc.fc["adapt"].data_ptr(), w16["wT16"].data_ptr(), w16["iwT16"].data_ptr(),
-        kv.data_ptr(), w32.data_ptr(), t1.data_ptr(), y1.data_ptr(), h.data_ptr(),
-        err_prev.data_ptr(), w_t1.data_ptr(), y_new.data_ptr(), rec.data_ptr(),
-        _stream(y1)), "sde_attempt")
+        N, P, kv.shape[2], kv.shape[0], hc_p, hs_p, cfg.depth, TREES[cfg.brownian],
+        SELECT_DRIFTS[cfg.drift], sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
+        w0.data_ptr(), iw.data_ptr(), kv.data_ptr(), w32.data_ptr(), t1.data_ptr(),
+        y1.data_ptr(), h.data_ptr(), err_prev.data_ptr(), w_t1.data_ptr(), y_new.data_ptr(),
+        rec.data_ptr(), _stream(y1)), "sde_attempt")
     LAUNCHES["sde_attempt"] += 1
     col = [rec[:, i:i + 1] for i in range(6)]
     err_c = torch.clamp_min(col[0], 1e-10)
@@ -416,3 +543,68 @@ def replay_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride, w2, sc: SDECon
         "sde_replay_bwd")
     LAUNCHES["sde_replay_bwd"] += 1
     return ybar, seeds
+
+
+def _replay3_named(t0s, hs, i10, pw, sc, kv, B, P, n_real):
+    n = t0s.shape[0]
+    if not 0 <= n_real <= n:
+        raise ValueError(f"n_real must lie in [0, {n}], got {n_real}")
+    grid = (n, B) if t0s.dim() == 2 else (n,)
+    return {"t0s": (t0s, _F32, grid), "hs": (hs, _F32, grid), "i10": (i10, _F32, (n, B)),
+            "wT": (pw["wT"], _F32, (P, P)), "iwT": (pw["iwT"], _F32, (kv.shape[2], P)),
+            **_drift_named(sc, kv, B, P)}
+
+
+def replay3_fwd(y0, t0s, hs, i1, i10, n_real: int, pw, sc: SDEConsts, kv):
+    """SRA1 on the three-term split of pw = {"wT", "iwT"} (float32): y0
+    (B, 3P); t0s, hs (n, B) each lane's step times and sizes, or (n,) the
+    uniform grid's for every lane; i1, i10 (n, B). The first ``n_real``
+    steps are integrated, the rest are h == 0 padding. Returns ys
+    (n + 1, B, 3P)."""
+    B, S = y0.shape
+    P, n = S // 3, t0s.shape[0]
+    named = {"y0": (y0, _F32, (B, S)), "i1": (i1, _F32, (n, B)),
+             **_replay3_named(t0s, hs, i10, pw, sc, kv, B, P, n_real)}
+    if not _on_cuda(y0, named):
+        return _replay3_fwd_plain(y0, t0s, hs, i1, i10, n_real, pw, sc, kv)
+    ys = torch.empty((n + 1, B, S), dtype=_F32, device=y0.device)
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    _check(_lib().cf_sde3_fwd(
+        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
+        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), pw["wT"].data_ptr(),
+        pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i1.data_ptr(),
+        i10.data_ptr(), y0.data_ptr(), ys.data_ptr(), _stream(y0)), "sde3_fwd")
+    LAUNCHES["sde3_fwd"] += 1
+    return ys
+
+
+def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: int, pw,
+                sc: SDEConsts, kv):
+    """The kernel-mode reverse sweep of ``replay3_fwd``: ys_prev (n, B, 3P)
+    the states before each step, ysbar (n, B, 3P) the direct cotangents on
+    each step's output. Returns (ybar (B, 3P) before step 0, d wT, d iwT).
+    ``stride``: truncation (0: none); ``chunk``: the steps whose weight
+    cotangents the JAX kernel sums before adding them to the total."""
+    n, B, S = ys_prev.shape
+    P = S // 3
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    named = {"ys_prev": (ys_prev, _F32, (n, B, S)), "ysbar": (ysbar, _F32, (n, B, S)),
+             **_replay3_named(t0s, hs, i10, pw, sc, kv, B, P, n_real)}
+    if not _on_cuda(ys_prev, named):
+        return _replay3_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, chunk, pw, sc,
+                                  kv)
+    dev = ys_prev.device
+    ybar = torch.empty((B, S), dtype=_F32, device=dev)
+    d_wT = torch.empty((P, P), dtype=_F32, device=dev)
+    d_iwT = torch.empty((kv.shape[2], P), dtype=_F32, device=dev)
+    work = torch.empty((4, P, P), dtype=_F32, device=dev)
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    _check(_lib().cf_sde3_bwd(
+        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
+        int(stride or 0), int(chunk), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
+        pw["wT"].data_ptr(), pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(),
+        hs.data_ptr(), i10.data_ptr(), ys_prev.data_ptr(), ysbar.data_ptr(), ybar.data_ptr(),
+        d_wT.data_ptr(), d_iwT.data_ptr(), work.data_ptr(), _stream(ys_prev)), "sde3_bwd")
+    LAUNCHES["sde3_bwd"] += 1
+    return ybar, d_wT, d_iwT

@@ -9,17 +9,22 @@ reverse-sweep kernel) and the ``fused-split2`` tier (two-term split, the
 reverse sweep in emit mode, weight gradients outside the kernels,
 ``ode_outer_arg_grads``).
 
-``sdeint_fused``: the lane-batched variable-step SRA1 replay with its
-gradient (the 2-D ``ts_steps`` mode with ``arg_grads="outer"``).
+``sdeint_fused``: fixed-grid SRA1 with its gradient, specialised to what
+the parity task integrates: ``network_drift_premixed`` with the knot
+stimulus and the constant diffusion sigma = 10, lane-batched on per-lane
+step grids (the 2-D ``ts_steps`` mode, the adaptive replay's engine) or on
+one uniform grid (``ts``). The weight gradients are resolved as in the JAX
+package (``resolve_sde_arg_grads``), and two tiers are ported:
 
-The port specialises it to what the parity task's adaptive path integrates:
-``network_drift_premixed`` with the split2 prepare hook
-(``prepare_premixed_split2``), the knot stimulus and the constant diffusion
-sigma = 10, with the weight gradients taken through the bf16 substitute
-``network_drift_premixed_gradbf16`` (``vjp_drift``). Forward: the replay
-kernel (B3); backward: the reverse-sweep kernel (B4) for the state
-cotangent and its per-step seeds, then the weight-gradient contraction over
-all steps outside the kernels, as in the JAX package.
+- the three-term split (``prepare="split"``, ``prepare_premixed_split``) in
+  kernel mode: the sweep kernel B3t forward, the reverse-sweep kernel B4't
+  with the weight cotangents in it (``_Replay3``); both grid modes;
+- the two-term split (``prepare="split2"``) in outer mode with the bf16
+  substitute ``network_drift_premixed_gradbf16`` for the weight gradients
+  (``vjp_drift="gradbf16"``): the replay kernel B3, the emit-mode sweep B4
+  for the state cotangent and its per-step seeds, then the weight-gradient
+  contraction over all steps outside the kernels (``_Replay``); per-lane
+  grids.
 
 The XOR task's drift (``xor_drift_batched``) has its own two entry points,
 in kernel mode: ``xor_odeint_dopri5_fused`` (the kernels of
@@ -46,7 +51,14 @@ from columnflow_torch.kernels.network_ode import (
     step_vjp,
 )
 from columnflow_torch.kernels.hopf_ode import MuTable, hopf_replay_bwd, hopf_replay_fwd, hopf_select
-from columnflow_torch.kernels.network_sde import SIGMA, SDEConsts, replay_bwd, replay_fwd
+from columnflow_torch.kernels.network_sde import (
+    SIGMA,
+    SDEConsts,
+    replay3_bwd,
+    replay3_fwd,
+    replay_bwd,
+    replay_fwd,
+)
 from columnflow_torch.kernels.xor_ode import xor_replay_bwd, xor_replay_fwd, xor_select
 from columnflow_torch.kernels.xor_sde import xor_sde_bwd, xor_sde_fwd
 from columnflow_torch.models.column import Stimulus
@@ -72,14 +84,22 @@ def sde_chunk(state_shape, n_steps: int) -> int:
     return min(int(max(floor, min(1024, (2 << 20) // (6 * state_bytes)))), n_steps)
 
 
+def sweep_chunk(state_shape, n_steps: int, bptt_every: int | None = None) -> int:
+    """``sde_chunk`` capped at ``bptt_every``, as ``sdeint_fused`` caps it:
+    the steps whose weight cotangents the JAX kernel-mode sweep sums before
+    adding them to the total."""
+    chunk = sde_chunk(state_shape, n_steps)
+    return chunk if bptt_every is None else min(chunk, max(1, bptt_every))
+
+
 def truncation_stride(state_shape, n_steps: int, bptt_every: int | None = None) -> int:
     """The backward sweep zeroes the state cotangent after every step k
     with k % stride == 0 (0: never). JAX zeroes it at the start of every
     kc-th chunk, the remainder chunk included, i.e. at multiples of
-    chunk * kc (``sde_chunk``, capped at ``bptt_every``)."""
+    chunk * kc (``sweep_chunk``)."""
     if bptt_every is None:
         return 0
-    chunk = min(sde_chunk(state_shape, n_steps), max(1, bptt_every))
+    chunk = sweep_chunk(state_shape, n_steps, bptt_every)
     return chunk * max(1, round(bptt_every / chunk))
 
 
@@ -157,29 +177,137 @@ class _Replay(torch.autograd.Function):
         return d_wT, d_iwT, ybar + ys_bar[0], None, None, None, None, None
 
 
-def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps, noise_pack,
-                 bptt_every: int | None = None, n_real: int | None = None):
-    """Lane-batched variable-step SRA1: y0 (B, 3P) packs B lanes, each
-    advancing its own step grid row of ``ts_steps`` (B, n + 1);
-    ``noise_pack`` = (dw, i10), each (n, B). ``pw`` = {"wT", "iwT"} (the
-    differentiable premixed weights), ``kv`` (K, B, n_in) the knot values.
-    ``n_real``: the leading real steps (the rest must be h == 0 padding
-    with zero noise and zero cotangents), an int read on the host.
-    ``bptt_every`` (in steps of this grid) truncates the reverse sweep where
-    the JAX package's chunking does. Returns ys (n + 1, B, 3P); ys[i, b]
-    is lane b's state at its own ts_steps[b, i]."""
-    ts_steps = ts_steps.to(torch.float32)
-    B = ts_steps.shape[0]
-    if tuple(y0.shape[:1]) != (B,):
-        raise ValueError(f"lane-batched ts_steps rows ({B}) must match y0's "
-                         f"leading lane axis ({y0.shape[0]})")
-    n = ts_steps.shape[1] - 1
-    dw, i10 = (x.to(torch.float32).contiguous() for x in noise_pack)
-    t0s = ts_steps[:, :-1].T.contiguous()
-    hs = (ts_steps[:, 1:] - ts_steps[:, :-1]).T.contiguous()
+class _Replay3(torch.autograd.Function):
+    """The three-term split in kernel mode. Forward: ``replay3_fwd`` (B3t);
+    backward: ``replay3_bwd`` (B4't), the weight gradients in the kernel.
+    Gradients reach wT, iwT and y0; the step grid and the noise are data."""
+
+    @staticmethod
+    def forward(ctx, wT, iwT, y0, t0s, hs, i1, i10, spec):
+        sc, kv, n_real, stride, chunk = spec
+        pw = {"wT": wT.detach().contiguous(), "iwT": iwT.detach().contiguous()}
+        ys = replay3_fwd(y0.detach().contiguous(), t0s, hs, i1, i10, n_real, pw, sc, kv)
+        ctx.spec, ctx.pw = spec, pw
+        ctx.save_for_backward(ys, t0s, hs, i10)
+        return ys
+
+    @staticmethod
+    def backward(ctx, ys_bar):
+        sc, kv, n_real, stride, chunk = ctx.spec
+        ys, t0s, hs, i10 = ctx.saved_tensors
+        ys_bar = ys_bar.to(torch.float32).contiguous()
+        ybar, d_wT, d_iwT = replay3_bwd(ys[:-1], ys_bar[1:], t0s, hs, i10, n_real, stride, chunk,
+                                        ctx.pw, sc, kv)
+        return d_wT, d_iwT, ybar + ys_bar[0], None, None, None, None, None
+
+
+def resolve_sde_arg_grads(pw: dict, arg_grads: str = "auto", vjp_drift: str | None = None) -> str:
+    """JAX's rule for where ``sdeint_fused`` takes the weight gradients
+    (``columnflow/solvers/fused.py:1192-1206``): ``"auto"`` is ``"outer"``
+    when the differentiable weights hold more than 1 MiB, a substitute
+    ``vjp_drift`` is given, or a weight is 1-D; else ``"kernel"``. A
+    substitute applies to the outer sweep only."""
+    if arg_grads not in ("auto", "kernel", "outer"):
+        raise ValueError(f"unknown arg_grads mode: {arg_grads!r}")
+    if arg_grads == "auto":
+        big = sum(4 * v.numel() for v in pw.values()) > OUTER_ARG_BYTES
+        one_d = any(v.dim() < 2 for v in pw.values())
+        arg_grads = "outer" if big or vjp_drift is not None or one_d else "kernel"
+    if vjp_drift is not None and arg_grads != "outer":
+        raise ValueError("vjp_drift applies to the outer arg-gradient sweep only (arg_grads "
+                         f"resolved to {arg_grads!r})")
+    return arg_grads
+
+
+def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
+    """Which ported tier computes ``sdeint_fused``'s gradients: "split"
+    (kernel mode, B3t/B4't) or "split2" (outer mode with the gradbf16
+    substitute, B3/B4 on per-lane grids). Anything else raises naming its
+    ROADMAP.md item."""
+    if prepare not in ("split", "split2"):
+        raise ValueError(f"unknown prepare {prepare!r}: use 'split' (prepare_premixed_split) or "
+                         "'split2' (prepare_premixed_split2)")
+    if vjp_drift not in (None, "gradbf16"):
+        raise ValueError(f"unknown vjp_drift {vjp_drift!r}: use None or 'gradbf16'")
+    mode = resolve_sde_arg_grads(pw, arg_grads, vjp_drift)
+    if prepare == "split" and mode == "kernel":
+        return "split"
+    if prepare == "split2" and mode == "outer" and vjp_drift == "gradbf16" and lanes:
+        return "split2"
+    if prepare == "split":
+        why = ("the three-term split with its weight gradients outside the sweep (arg_grads "
+               "'outer': B4 in emit mode on the three-term split and the outer weight-gradient "
+               "pass) is not ported: ROADMAP.md A5b, kernel B4t")
+    elif mode == "kernel":
+        why = ("the two-term split with its weight gradients in the sweep (arg_grads 'kernel') is "
+               "not ported: ROADMAP.md A5b, kernel B4s")
+    elif vjp_drift is None:
+        why = ("the two-term split's exact outer weight gradients (arg_grads 'outer' without the "
+               "gradbf16 substitute) are not ported: ROADMAP.md A5b")
+    else:
+        why = ("the two-term split on the uniform grid is not ported (the JAX package's fixed-grid "
+               "step takes the three-term split): ROADMAP.md A5b")
+    raise NotImplementedError(why)
+
+
+def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps=None, noise_pack=None,
+                 bptt_every: int | None = None, n_real: int | None = None, *, ts=None,
+                 prepare: str = "split2", vjp_drift: str | None = "gradbf16",
+                 arg_grads: str = "auto"):
+    """SRA1 of the premixed network, lane-batched: y0 (B, 3P) packs B
+    lanes. Either ``ts_steps`` (B, n + 1), each lane advancing its own step
+    grid row (the adaptive replay's engine), or ``ts`` (n + 1,), the uniform
+    grid of every lane (the fixed-grid step; step times as the JAX kernel
+    computes them, ``uniform_step_times``). ``noise_pack`` = (dw, i10),
+    each (n, B) (or (n, B, 1)). ``pw`` = {"wT", "iwT"} (the differentiable
+    premixed weights), ``kv`` (K, B, n_in) the knot values.
+
+    ``prepare`` ("split": ``prepare_premixed_split``, "split2":
+    ``prepare_premixed_split2``), ``vjp_drift`` (None or "gradbf16":
+    ``network_drift_premixed_gradbf16`` for the outer weight gradients) and
+    ``arg_grads`` as in the JAX package (``resolve_sde_arg_grads``); the
+    ported tiers are the three-term split in kernel mode and the two-term
+    split in outer mode with the gradbf16 substitute (``sde_tier``). The
+    defaults are the flagship's replay.
+
+    ``n_real`` (per-lane grids): the leading real steps (the rest must be
+    h == 0 padding with zero noise and zero cotangents), an int read on the
+    host. ``bptt_every`` (in steps of this grid) truncates the reverse sweep
+    where the JAX package's chunking does. Returns ys (n + 1, B, 3P);
+    ys[i, b] is lane b's state at its own i-th grid time."""
+    if (ts_steps is None) == (ts is None):
+        raise ValueError("give either ts_steps (per-lane grids) or ts (the uniform grid)")
+    B = y0.shape[0]
+    if ts_steps is not None:
+        ts_steps = ts_steps.to(torch.float32)
+        if ts_steps.dim() != 2:
+            raise NotImplementedError(
+                "the per-sample variable-grid mode (1-D ts_steps) is not ported: ROADMAP.md B, "
+                "B3/B4 in the per-sample variable-grid mode")
+        if tuple(y0.shape[:1]) != tuple(ts_steps.shape[:1]):
+            raise ValueError(f"lane-batched ts_steps rows ({ts_steps.shape[0]}) must match y0's "
+                             f"leading lane axis ({y0.shape[0]})")
+        n = ts_steps.shape[1] - 1
+        t0s = ts_steps[:, :-1].T.contiguous()
+        hs = (ts_steps[:, 1:] - ts_steps[:, :-1]).T.contiguous()
+    else:
+        if n_real is not None:
+            raise ValueError("n_real applies to per-lane grids only")
+        t0s, h = uniform_step_times(ts, tuple(y0.shape))
+        t0s = t0s.to(y0.device)
+        n = t0s.shape[0]
+        hs = torch.full_like(t0s, h)
+    tier = sde_tier(pw, prepare, vjp_drift, arg_grads, ts_steps is not None)
+    dw, i10 = (torch.as_tensor(x, dtype=torch.float32, device=y0.device).reshape(n, B)
+               .contiguous() for x in noise_pack)
+    n_real = n if n_real is None else int(n_real)
     stride = truncation_stride(tuple(y0.shape), n, bptt_every)
-    spec = (sc, kv.contiguous(), n if n_real is None else int(n_real), stride)
-    return _Replay.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
+    if tier == "split":
+        spec = (sc, kv.contiguous(), n_real, stride,
+                sweep_chunk(tuple(y0.shape), n, bptt_every))
+        return _Replay3.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
+    return _Replay.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10,
+                         (sc, kv.contiguous(), n_real, stride))
 
 
 # ---------------------------------------------------------------------------

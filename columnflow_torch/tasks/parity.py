@@ -1,50 +1,63 @@
 """4-bit parity classification task (port of ``columnflow/tasks/parity.py``:
-the deterministic fused-dopri5 training step and the stochastic-adaptive
-fused-pass one).
+the fused engines' training steps).
 
 A 3-area hierarchical column network learns to output ~20 Hz for even
 parity and ~0 for odd: readout = output-weighted mean L2/3e-family rate of
-the final column over the last 100 grid points. Two training steps are
-ported, selected as in the JAX package:
+the final column over the last 100 grid points. The training steps are
+selected by the JAX package's flags (``make_train_step``):
 
-- deterministic (the default, ``stochastic=False``): the batch is
-  integrated as one ODE state by adaptive dopri5 at rtol 1e-7 / atol 1e-9
-  (the fused engine's own tolerances) under one shared controller: step-size
-  selection, the dense-output replay and its reverse sweep each one kernel
+- deterministic (the default): the batch is integrated as one ODE state by
+  adaptive dopri5 at rtol 1e-7 / atol 1e-9 (the fused engine's own
+  tolerances) under one shared controller: step-size selection, the
+  dense-output replay and its reverse sweep each one kernel
   (``solvers.fused.odeint_dopri5_fused``). Below 104 columns the f32-exact
   engine; from 104 through 312 columns (``split2=True``) the
   ``fused-split2`` tier, whose weight gradients are taken outside the
   kernels;
-- stochastic (``stochastic=True``, the 104-column flagship's flags
-  ``--stochastic --adaptive --fused --fused-pass --select-bf16 --grad-bf16
-  --split2``): the Ito SDE with adaptive step-doubling SRA1, per-lane
-  selection in the selection kernel, one lane-batched replay over the frozen
-  grids and its reverse sweep (``solvers.sde_adaptive``). The Brownian paths
-  come from the krng tree; each lane's tree key words are drawn from a
-  ``torch.Generator``.
+- ``stochastic``: the Ito SDE (sigma = 10 on the whole state, one scalar
+  Brownian per lane). On the fixed grid (SRA1 over ``task.ts`` through
+  ``solvers.fused.sdeint_fused``, the three-term split in kernel mode), or
+  with ``adaptive``: step-doubling SRA1 with a PI controller per lane
+  (``solvers.sde_adaptive.sdeint_adaptive_batch``), then one lane-batched
+  replay over the frozen grids and its reverse sweep. ``fused_pass``: the
+  selection draws from the krng tree (the JAX package's in-kernel pass);
+  otherwise from the ``jax.random`` tree (its XLA pass). ``select_bf16``:
+  the bf16 selection drift; ``split2`` with ``grad_bf16``: the two-term
+  replay with the bf16 weight gradients outside the kernels; neither: the
+  three-term replay with the weight gradients in its reverse sweep.
 
-Both end in the loss (scaled), masked gradients, max-prescaled global norm,
+All end in the loss (scaled), masked gradients, max-prescaled global norm,
 optional clipping, a skip on non-finite (and, unclipped, exploding)
-gradients, Adam and the weight clamps.
+gradients, Adam and the weight clamps. Each lane's Brownian tree key (raw
+key data) or the fixed grid's noise pack is drawn from a
+``torch.Generator`` (``train_parity``), or handed in (the tests hand in the
+JAX package's).
 
     python -m columnflow_torch.tasks.parity --smoke                # on the card
     python -m columnflow_torch.tasks.parity --smoke --columns-per-area 64,32,8  # split2 tier
     python -m columnflow_torch.tasks.parity --smoke --device cpu
+    python -m columnflow_torch.tasks.parity --smoke --stochastic   # the fixed-grid SDE
+    python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive
+    python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
+        --columns-per-area 64,32,8 --max-steps 16384 --bptt-every 32 \
+        --clip-grad-norm 1.0 --loss-scale 1e-6     # bench.py's primary configuration
     python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
         --fused --fused-pass --select-bf16 --grad-bf16 --split2
 
-Every other combination of the JAX package's flags raises
-``NotImplementedError`` naming its ROADMAP.md item: ``--engine xla`` or past
-312 columns (the unfused ``solvers/dopri.py``), the split2 tier at 63
-columns or fewer (its weight gradients in the kernel), ``--method`` other
-than dopri5 (the other tableaus), a stochastic run with only some of the
-flagship's flags (the fixed-grid SDE A6a, the XLA selection A5a),
-``--random-fan-in``/``--legacy-host-rng`` (A3), ``--position-invariant``
-and ``--reference-rails`` (A6b), and checkpoints, metrics, profiles and
-evaluation (``--metrics-out``, ``--profile-dir``, ``--checkpoint-out``,
-``--resume``, ``--eval``, ``--eval-demo``: A9). ``--split2`` without
-``--fused`` is a ValueError, as in the JAX package. There is no
-``--rtol``/``--atol``: the fused path runs 1e-7 / 1e-9 whatever they say.
+``resolve_mode`` resolves the command line's flags as the JAX package's
+``main`` does (explicit engine flags switch ``--engine`` off). Every
+combination that resolves to an unported path raises
+``NotImplementedError`` naming its ROADMAP.md item: the XLA engine
+(``--engine xla``, past 312 columns, an explicit flag without ``--fused``,
+the stochastic-adaptive step past 8 lanes at 104 columns or more: A7), the
+split2 tier at 63 columns or fewer (B8s), ``--method`` other than dopri5
+(A7), the fixed-grid SDE from 64 columns on (A6a), the adaptive replay's
+other weight-gradient tiers (A5b), ``--random-fan-in``/``--legacy-host-rng``
+(A3), ``--position-invariant`` and ``--reference-rails`` (A6b), and
+checkpoints, metrics, profiles and evaluation (A9). A flag that the JAX
+package would reject is a ValueError; so is one that it would ignore.
+There is no ``--rtol``/``--atol``: the fused path runs 1e-7 / 1e-9 whatever
+they say.
 """
 
 from __future__ import annotations
@@ -64,8 +77,18 @@ from columnflow_torch.models.network import (
 )
 from columnflow_torch.ops.interp import step_table_knots
 from columnflow_torch.ops.transfer import compute_firing_rate
-from columnflow_torch.solvers.fused import odeint_dopri5_fused, outer_by_default
-from columnflow_torch.solvers.sde_adaptive import PremixedNetworkSDE, sdeint_adaptive_batch
+from columnflow_torch.solvers.fused import (
+    sde_tier,
+    odeint_dopri5_fused,
+    outer_by_default,
+    sdeint_fused,
+)
+from columnflow_torch.solvers.sde import brownian_pack
+from columnflow_torch.solvers.sde_adaptive import (
+    PremixedNetworkSDE,
+    resolve_selection,
+    sdeint_adaptive_batch,
+)
 from columnflow_torch.tasks.wta import linspace
 from columnflow_torch.train.optim import adam, global_norm, mask_grads
 
@@ -121,35 +144,92 @@ def sde_model(params, task: ParityTask, stims_raw) -> PremixedNetworkSDE:
                               kv.contiguous())
 
 
+class Flags(NamedTuple):
+    """The JAX package's solver flags of the fused engines (``use_fused`` is
+    implied: the port has no XLA engine)."""
+
+    stochastic: bool = False
+    adaptive: bool = False
+    fused_pass: bool = False
+    select_bf16: bool = False
+    grad_bf16: bool = False
+    split2: bool = False
+
+
+def check_flags(f: Flags, total_columns: int | None = None) -> None:
+    """Refuse what the JAX package's ``batched_rollout`` refuses (ValueError)
+    and what it would ignore, and, given the column count, what resolves to
+    an unported tier (NotImplementedError naming its ROADMAP.md item)."""
+    if (f.fused_pass or f.grad_bf16) and not (f.stochastic and f.adaptive):
+        raise ValueError("fused_pass and grad_bf16 require stochastic=True and adaptive=True")
+    if f.split2 and f.stochastic and not f.adaptive:
+        raise ValueError("split2 is the fused engines' scale tier; it requires the deterministic "
+                         "path or stochastic=True with adaptive=True")
+    if f.adaptive and not f.stochastic:
+        raise ValueError("adaptive applies to the stochastic step (the deterministic step is "
+                         "adaptive dopri5 already)")
+    if f.select_bf16 and not f.adaptive:
+        raise ValueError("select_bf16 picks the adaptive selection's drift; without adaptive "
+                         "it would be ignored")
+    if total_columns is None or not f.stochastic:
+        return
+    P = 8 * total_columns
+    meta = {"wT": torch.empty(P, P, device="meta"), "iwT": torch.empty(4, P, device="meta")}
+    if not f.adaptive:
+        if outer_by_default(P, 4):
+            raise NotImplementedError(
+                f"the fixed-grid SDE step at {total_columns} columns takes its weight gradients "
+                "outside the sweep (arg_grads 'auto' -> 'outer': the weights hold more than "
+                "1 MiB), which is not ported: ROADMAP.md A6a (rest), kernel B4t")
+        return
+    resolve_selection(f.fused_pass, None, f.select_bf16)
+    sde_tier(meta, "split2" if f.split2 else "split", "gradbf16" if f.grad_bf16 else None,
+              "auto", True)
+
+
 def batched_rollout(params, task: ParityTask, stims_raw, lane_words=None,
                     differentiable: bool = True, adaptive_bptt_every: int | None = None,
-                    grid=None, return_stats: bool = False, stochastic: bool = False,
-                    split2: bool = False):
+                    grid=None, return_stats: bool = False, noise=None, **flags):
     """Integrate a batch of input patterns: (B, n_inputs) -> (B, T, 3P).
 
-    Deterministic (default): fused dopri5 over the whole batch state with
-    the task's max_steps, at the fused engine's rtol 1e-7 / atol 1e-9 (the
-    JAX package's fused path passes neither tolerance on either); with
-    ``split2`` the ``fused-split2`` tier.
-    ``grid`` = (step_times, naccept) replays a given frozen grid.
+    ``flags`` (``Flags``'s fields) select the engine. Deterministic
+    (default): fused dopri5 over the whole batch state with the task's
+    max_steps, at the fused engine's rtol 1e-7 / atol 1e-9 (the JAX
+    package's fused path passes neither tolerance on either); with
+    ``split2`` the ``fused-split2`` tier. ``grid`` = (step_times, naccept)
+    replays a given frozen grid.
 
-    ``stochastic``: the flagship path, at rtol = atol = 1e-3. ``lane_words``
-    (B, 2): each lane's Brownian tree key words (uint32 values in int64).
-    ``grid`` = (step_times, naccept, nreject)."""
+    ``stochastic`` without ``adaptive``: SRA1 on the uniform grid of
+    ``task.ts``, driven by ``noise`` = (i1, i10), each (T-1, B) (or (T-1,
+    B, 1)). With ``adaptive``: rtol = atol = 1e-3, ``lane_words`` (B, 2)
+    each lane's raw key; ``grid`` = (step_times, naccept, nreject)."""
+    f = Flags(**flags)
+    check_flags(f)
     dev = stims_raw.device
     B = stims_raw.shape[0]
     y0 = torch.zeros((B, 3 * task.net.num_pops), device=dev)
+    stats = None
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         model = sde_model(params, task, stims_raw)
-        if stochastic:
+        if f.stochastic and f.adaptive:
+            if lane_words is None:
+                raise ValueError("the adaptive step needs each lane's tree key words (raw key "
+                                 "data, (B, 2))")
             ys, stats = sdeint_adaptive_batch(
                 model, y0, task.ts, torch.as_tensor(lane_words, device=dev),
                 max_steps=task.max_steps, bptt_every=adaptive_bptt_every,
-                return_stats=True, grid=grid)
+                return_stats=True, grid=grid, fused_pass=f.fused_pass,
+                select_bf16=f.select_bf16, prepare="split2" if f.split2 else "split",
+                grad_bf16=f.grad_bf16)
+        elif f.stochastic:
+            if noise is None:
+                raise ValueError("the fixed-grid step needs its noise pack (i1, i10)")
+            ys = sdeint_fused(model.pw, model.sc, model.kv, y0, ts=task.ts, noise_pack=noise,
+                              prepare="split", vjp_drift=None).transpose(0, 1)
         else:
             ys, stats = odeint_dopri5_fused(model.pw, model.sc, model.kv, y0, task.ts,
                                             max_steps=task.max_steps, grid=grid,
-                                            return_stats=True, split2=split2)
+                                            return_stats=True, split2=f.split2)
             ys = ys.transpose(0, 1)
     return (ys, stats) if return_stats else ys
 
@@ -169,37 +249,33 @@ def parity_targets(stims_raw, level: float = 15.0):
     return even.to(torch.float32) * TARGET_EVEN
 
 
-def make_train_step(task: ParityTask, stochastic: bool = False, loss_scale: float = 1.0,
-                    bptt_every: int | None = None, clip_grad_norm: float | None = None,
-                    split2: bool = False):
-    """The training step. ``stochastic=False``: the JAX package's
-    ``make_train_step(task, use_fused=True)``, deterministic fused dopri5,
-    or with ``split2`` its ``make_train_step(task, use_fused=True,
-    split2=True)``, the ``fused-split2`` tier; ``train_step(stims_raw,
-    grid=None)``. ``stochastic=True``: its flags ``use_fused, stochastic, adaptive,
-    fused_pass, select_bf16, grad_bf16, split2``; ``train_step(stims_raw,
-    lane_words, grid=None)``.
+def make_train_step(task: ParityTask, loss_scale: float = 1.0, bptt_every: int | None = None,
+                    clip_grad_norm: float | None = None, **flags):
+    """The JAX package's ``make_train_step(task, use_fused=True, **flags)``
+    with ``flags`` the fields of ``Flags``: the deterministic fused dopri5
+    (no flags; ``split2``: the ``fused-split2`` tier), the fixed-grid SDE
+    (``stochastic``), or the stochastic-adaptive step (``stochastic``,
+    ``adaptive`` and its tiers). ``train_step(stims_raw, lane_words=None,
+    grid=None, noise=None)``: the adaptive step takes each lane's raw key
+    (``lane_words`` (B, 2)), the fixed-grid step its noise pack.
 
     The step updates ``task.params`` in place (unless the update is
     skipped), leaves the masked, clipped gradients in their ``.grad``, and
     returns a dict with loss, out, gnorm (tensors), ok (bool) and the
-    selection stats. Reading ``ok`` waits for the device once per step."""
+    selection stats (None on the fixed grid). Reading ``ok`` waits for the
+    device once per step."""
     params = task.params
-    if bptt_every is not None and not stochastic:
-        raise ValueError("bptt_every truncates the stochastic path's reverse sweep; "
-                         "the deterministic step has no truncation")
-    if stochastic and split2:
-        raise ValueError("split2 selects the deterministic engine's tier; the stochastic "
-                         "step always runs its own split2 replay")
+    f = Flags(**flags)
+    check_flags(f)
+    if bptt_every is not None and not f.adaptive:
+        raise ValueError("bptt_every truncates the adaptive replay's reverse sweep; the "
+                         "deterministic and fixed-grid steps have no truncation")
 
-    def train_step(stims_raw, lane_words=None, grid=None):
-        if stochastic and lane_words is None:
-            raise ValueError("the stochastic step needs each lane's tree key words")
+    def train_step(stims_raw, lane_words=None, grid=None, noise=None):
         task.optimizer.zero_grad(set_to_none=True)
         ys, stats = batched_rollout(params, task, stims_raw, lane_words,
                                     adaptive_bptt_every=bptt_every, grid=grid,
-                                    return_stats=True, stochastic=stochastic,
-                                    split2=split2)
+                                    return_stats=True, noise=noise, **f._asdict())
         out = readout(ys, params, task.net)
         loss = torch.mean(torch.abs(out - parity_targets(stims_raw)))
         (loss * loss_scale).backward()
@@ -232,16 +308,16 @@ def make_train_step(task: ParityTask, stochastic: bool = False, loss_scale: floa
 def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
                  columns_per_area=(8, 4, 1), n_inputs: int = 4,
                  time_steps: int | None = None, max_steps: int | None = None,
-                 stochastic: bool = False, loss_scale: float = 1.0,
-                 bptt_every: int | None = None, clip_grad_norm: float | None = None,
-                 smoke: bool = False, device=None, split2: bool = False):
-    """Training run, deterministic unless ``stochastic`` (with ``split2``
-    the deterministic ``fused-split2`` tier). Batches (and the
-    stochastic path's tree key words) are drawn from a ``torch.Generator``
-    seeded with ``seed``. ``smoke``: 8 samples, batch 4, and unless given
-    200 grid points and max_steps 1024 (otherwise TIME_STEPS and 3072).
-    Returns (params, history); the last record holds the accuracy over the
-    fixed-position patterns."""
+                 loss_scale: float = 1.0, bptt_every: int | None = None,
+                 clip_grad_norm: float | None = None, smoke: bool = False, device=None,
+                 **flags):
+    """Training run with the step ``flags`` select (``make_train_step``).
+    Batches, each adaptive lane's raw key and the fixed grid's noise packs
+    are drawn from a ``torch.Generator`` seeded with ``seed``. ``smoke``: 8
+    samples, batch 4, and unless given 200 grid points and max_steps 1024
+    (otherwise TIME_STEPS and 3072). Returns (params, history); the last
+    record holds the accuracy over the fixed-position patterns."""
+    f = Flags(**flags)
     if smoke:
         nr_samples, batch_size = 8, 4
     time_steps = time_steps or (200 if smoke else TIME_STEPS)
@@ -251,29 +327,36 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
     task = build_task(ColumnConfig.load(), gen, columns_per_area=columns_per_area,
                       n_inputs=n_inputs, time_steps=time_steps, max_steps=max_steps,
                       device=dev)
-    step = make_train_step(task, stochastic=stochastic, loss_scale=loss_scale,
-                           bptt_every=bptt_every, clip_grad_norm=clip_grad_norm,
-                           split2=split2)
+    step = make_train_step(task, loss_scale=loss_scale, bptt_every=bptt_every,
+                           clip_grad_norm=clip_grad_norm, **f._asdict())
 
-    def lane_words(n, g=gen):
-        if not stochastic:
-            return None
-        return torch.randint(0, 2**32, (n, 2), generator=g, device=dev, dtype=torch.int64)
+    def draws(n, g=gen):
+        """(lane keys, noise pack) of a batch of n lanes for this step."""
+        if f.stochastic and f.adaptive:
+            return torch.randint(0, 2**32, (n, 2), generator=g, device=dev,
+                                 dtype=torch.int64), None
+        if f.stochastic:
+            _, i1, i10, _, _ = brownian_pack(g, task.ts, (n, 1))
+            return None, (i1, i10)
+        return None, None
 
     history = []
     for _ in range(nr_samples // batch_size):
         stims = make_parity_batch(gen, n_inputs, batch_size, device=dev)
-        rec = step(stims, lane_words(batch_size))
-        history.append({"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
-                        "update_applied": int(rec["ok"]),
-                        "naccept": rec["stats"].naccept.tolist(),
-                        "nreject": rec["stats"].nreject.tolist()})
+        keys, noise = draws(batch_size)
+        rec = step(stims, keys, noise=noise)
+        stats = rec["stats"]
+        entry = {"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
+                 "update_applied": int(rec["ok"])}
+        if stats is not None:
+            entry.update(naccept=stats.naccept.tolist(), nreject=stats.nreject.tolist())
+        history.append(entry)
     eval_stims = torch.as_tensor(parity_combinations(n_inputs), device=dev)
     eval_gen = torch.Generator(device=dev).manual_seed(1234)
     with torch.no_grad():
-        ys = batched_rollout(task.params, task, eval_stims,
-                             lane_words(eval_stims.shape[0], eval_gen),
-                             differentiable=False, stochastic=stochastic, split2=split2)
+        keys, noise = draws(eval_stims.shape[0], eval_gen)
+        ys = batched_rollout(task.params, task, eval_stims, keys, differentiable=False,
+                             noise=noise, **f._asdict())
         out = readout(ys, task.params, task.net)
     targets = parity_targets(eval_stims)
     acc = float(torch.mean(((out > TARGET_EVEN / 2) == (targets > 0)).float()))
@@ -281,23 +364,50 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
     return task.params, history
 
 
-_FLAGSHIP_FLAGS = ("adaptive", "fused", "fused_pass", "select_bf16", "grad_bf16", "split2")
 # resolve_engine's bands (columnflow/tasks/parity.py:725-726): the split2
-# tier from 104 through 312 columns, the XLA engine past that.
-_SPLIT2_MIN_COLUMNS, _FUSED_MAX_COLUMNS = 104, 312
+# tier from 104 through 312 columns, the XLA engine past that; the
+# stochastic-adaptive step takes XLA past 8 lanes from 104 columns on.
+_SPLIT2_MIN_COLUMNS, _FUSED_MAX_COLUMNS, _FUSED_MAX_LANES = 104, 312, 8
+_ENGINE_FLAGS = ("fused", "split2", "select_bf16", "grad_bf16", "fused_pass")
+
+
+def resolve_engine(engine: str, total_columns: int, stochastic: bool = False,
+                   adaptive: bool = False, batch_size: int | None = None) -> dict:
+    """The JAX package's ``resolve_engine`` (``columnflow/tasks/parity.py:
+    729-788``): the flags {use_fused, split2, select_bf16, grad_bf16} that
+    ``--engine`` picks for the network's size."""
+    base = dict(use_fused=False, split2=False, select_bf16=False, grad_bf16=False)
+    if engine == "xla":
+        return base
+    if engine == "fused":
+        return dict(base, use_fused=True)
+    if engine == "fused-split2":
+        return dict(base, use_fused=True, split2=True)
+    if engine != "auto":
+        raise ValueError(f"unknown engine {engine!r}: use auto|xla|fused|fused-split2")
+    if (stochastic and adaptive and batch_size is not None and batch_size > _FUSED_MAX_LANES
+            and total_columns >= _SPLIT2_MIN_COLUMNS):
+        return dict(base, select_bf16=True)
+    if total_columns > _FUSED_MAX_COLUMNS:
+        return base
+    if total_columns >= _SPLIT2_MIN_COLUMNS:
+        flags = dict(base, use_fused=True, split2=not stochastic or adaptive)
+        if stochastic and adaptive:
+            flags.update(select_bf16=True, grad_bf16=True)
+        return flags
+    return dict(base, use_fused=True)
 
 
 def resolve_mode(args, total_columns: int) -> dict:
-    """The ported step that the JAX package's flags select, as
-    ``train_parity``'s ``stochastic`` and ``split2``. As in the JAX command
-    line, any explicit solver flag overrides ``--engine``: ``--fused``
-    alone is the f32-exact engine, ``--fused --split2`` the split2 tier,
-    ``--split2`` without ``--fused`` a ValueError (the JAX package's
-    ``batched_rollout`` refuses it). Without such a flag ``--engine`` (auto
-    by default) picks: fused, fused-split2, or by the column count the
-    exact engine below 104 columns and the split2 tier through 312. The
-    stochastic flagship takes all seven of its flags. Anything else raises
-    ``NotImplementedError`` naming the ROADMAP.md item that ports it."""
+    """The ported step that the JAX package's command line selects, as
+    ``train_parity``'s flags (``Flags``). As in the JAX ``main``, any
+    explicit engine flag (``--fused``, ``--split2``, ``--select-bf16``,
+    ``--grad-bf16``, ``--fused-pass``) switches ``--engine`` off; otherwise
+    ``resolve_engine`` picks by the column count (and, for the
+    stochastic-adaptive step, the batch size). What the JAX package would
+    refuse or ignore is a ValueError; what resolves to an unported path
+    raises ``NotImplementedError`` naming the ROADMAP.md item that ports
+    it."""
     unported = [
         (args.random_fan_in or args.legacy_host_rng,
          "--random-fan-in/--legacy-host-rng: randomized fan-in masks are not ported "
@@ -319,49 +429,40 @@ def resolve_mode(args, total_columns: int) -> dict:
         raise NotImplementedError(
             f"--method {args.method}: only dopri5 is ported (ROADMAP.md A7: the other "
             "tableaus and the unfused solvers/dopri.py)")
-    if args.stochastic:
-        missing = [f for f in _FLAGSHIP_FLAGS if not getattr(args, f)]
-        if not args.adaptive:
-            raise NotImplementedError(
-                "--stochastic without --adaptive (alone or with --fused): the fixed-grid SDE "
-                "step is not ported (ROADMAP.md A6a); the ported stochastic step takes all of "
-                "--adaptive --fused --fused-pass --select-bf16 --grad-bf16 --split2, and the "
-                "adaptive step's XLA selection is ROADMAP.md A5a")
-        if missing or args.engine not in (None, "auto"):
-            raise NotImplementedError(
-                "the stochastic step is ported with all of --adaptive --fused --fused-pass "
-                "--select-bf16 --grad-bf16 --split2 (missing: "
-                f"{', '.join('--' + f.replace('_', '-') for f in missing) or 'none'}; "
-                f"--engine {args.engine}): the adaptive step's XLA selection (--adaptive "
-                "without --fused-pass) is ROADMAP.md A5a")
-        return {"stochastic": True, "split2": False}
-    stray = [f for f in ("adaptive", "fused_pass", "select_bf16", "grad_bf16")
-             if getattr(args, f)]
-    if stray:
-        raise NotImplementedError(
-            f"--{stray[0].replace('_', '-')} belongs to the stochastic step (add "
-            "--stochastic and the flagship's other flags); the deterministic step takes "
-            "no other solver flag (ROADMAP.md A5a)")
-    if args.split2 and not args.fused:
-        raise ValueError("split2 is the fused engines' scale tier; it requires --fused "
-                         "(or --engine fused-split2)")
-    if args.fused:
-        split2 = args.split2
+    flags = {k: bool(getattr(args, k)) for k in Flags._fields}
+    if any(getattr(args, f) for f in _ENGINE_FLAGS):
+        use_fused, engine = args.fused, "manual flags"
     else:
         engine = args.engine or "auto"
-        if engine == "xla" or (engine == "auto" and total_columns > _FUSED_MAX_COLUMNS):
-            raise NotImplementedError(
-                f"--engine {engine} at {total_columns} columns: the XLA engine (the unfused "
-                "solvers/dopri.py) is not ported (ROADMAP.md A7)")
-        split2 = engine == "fused-split2" or (
-            engine == "auto" and total_columns >= _SPLIT2_MIN_COLUMNS)
-    if split2 and not outer_by_default(8 * total_columns, 4):
+        picked = resolve_engine(engine, total_columns, args.stochastic, args.adaptive,
+                                args.batch_size)
+        use_fused, flags["split2"] = picked["use_fused"], picked["split2"]
+        for k in ("select_bf16", "grad_bf16"):
+            flags[k] = flags[k] or picked[k]
+    f = Flags(**flags)
+    if f.fused_pass and not (f.stochastic and f.adaptive and use_fused):
+        raise ValueError("fused_pass requires stochastic=True, adaptive=True and use_fused=True "
+                         "(--stochastic --adaptive --fused)")
+    if f.grad_bf16 and not (f.stochastic and f.adaptive and use_fused):
+        raise ValueError("grad_bf16 requires stochastic=True, adaptive=True and use_fused=True "
+                         "(--stochastic --adaptive --fused)")
+    if f.split2 and not (use_fused and (not f.stochastic or f.adaptive)):
+        raise ValueError("split2 is the fused engines' scale tier; it requires --fused (or "
+                         "--engine fused-split2) and either the deterministic path or "
+                         "--stochastic --adaptive")
+    if not use_fused:
+        raise NotImplementedError(
+            f"{engine} at {total_columns} columns resolves to the XLA engine (the unfused "
+            "solvers/dopri.py, sdeint and sdeint_adaptive_batch), which is not ported "
+            "(ROADMAP.md A7)")
+    check_flags(f, total_columns)
+    if f.split2 and not f.stochastic and not outer_by_default(8 * total_columns, 4):
         raise NotImplementedError(
             f"the split2 tier at {total_columns} columns takes its weight gradients in the "
             "reverse-sweep kernel (arg_grads 'auto' -> 'kernel': the weights hold at most "
             "1 MiB), which is not ported: ROADMAP.md B8s (B8 kernel mode with the split2 "
             "prepare)")
-    return {"stochastic": False, "split2": split2}
+    return f._asdict()
 
 
 def main(argv=None):
@@ -377,14 +478,13 @@ def main(argv=None):
     for flag in ("fused", "stochastic", "adaptive", "fused-pass", "select-bf16",
                  "grad-bf16", "split2"):
         p.add_argument(f"--{flag}", action="store_true",
-                       help="the JAX package's solver flag: --fused alone runs the "
-                            "f32-exact fused dopri5 step, --fused --split2 its split2 tier, "
-                            "all seven the stochastic flagship; any other combination "
-                            "raises")
+                       help="the JAX package's solver flag, resolved as its command line "
+                            "does (resolve_mode); a combination that resolves to an "
+                            "unported path raises")
     p.add_argument("--engine", choices=("auto", "fused", "xla", "fused-split2"), default=None,
-                   help="deterministic engine when no solver flag is given: auto (by "
-                        "the column count: fused below 104, fused-split2 through 312), "
-                        "fused, fused-split2; xla raises NotImplementedError")
+                   help="engine when no explicit engine flag is given: auto (by the column "
+                        "count: fused below 104, fused-split2 through 312), fused, "
+                        "fused-split2; xla raises NotImplementedError")
     p.add_argument("--method", default="dopri5",
                    help="only dopri5 is ported; anything else raises NotImplementedError")
     p.add_argument("--bptt-every", type=int, default=None)
@@ -393,7 +493,7 @@ def main(argv=None):
     p.add_argument("--loss-scale", type=float, default=1.0)
     p.add_argument("--columns-per-area", default=None, metavar="N,N,...",
                    help="comma-separated columns per area (default 8,4,1; "
-                        "64,32,8 for the 104-column flagship)")
+                        "64,32,8 for the 104-column configurations)")
     for flag in ("random-fan-in", "legacy-host-rng", "position-invariant", "reference-rails",
                  "eval-demo"):
         p.add_argument(f"--{flag}", action="store_true", help="not ported: raises")

@@ -211,6 +211,9 @@ def test_cuda_tensors_never_reach_the_plain_version(dev, monkeypatch):
 
 FULL = (64, 32, 8)  # the 104-column flagship: P = 832, state 2496
 STEP = dict(bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
+# The 104-column flagship's flags (--fused-pass).
+FLAGSHIP_FLAGS = dict(stochastic=True, adaptive=True, fused_pass=True, select_bf16=True,
+                      grad_bf16=True, split2=True)
 
 
 def _net_inputs(dev, cpa=FULL, n_in=4, B=4, T=1000, seed=0):
@@ -365,7 +368,7 @@ def _parity_step(dev, cpa, grid=None, params=None, guard=None):
     stims = torch.tensor([[0.0, 0.0, 0.0, 15.0], [0.0, 0.0, 15.0, 15.0],
                           [0.0, 15.0, 15.0, 15.0], [15.0, 15.0, 15.0, 15.0]], device=dev)
     words = torch.tensor([[1, 2], [3, 4], [5, 6], [7, 2**32 - 1]], device=dev)
-    rec = parity.make_train_step(task, stochastic=True, **STEP)(stims, words, grid=grid)
+    rec = parity.make_train_step(task, **FLAGSHIP_FLAGS, **STEP)(stims, words, grid=grid)
     grads = {k: p.grad.detach().cpu() for k, p in task.params.items()}
     return rec, grads, params0, task
 
@@ -397,6 +400,162 @@ def test_parity_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     rec, _, _, _ = _parity_step(dev, (2, 1))
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The XLA selection on the jax.random tree, and the three-term sweeps
+# ---------------------------------------------------------------------------
+
+
+def _jax_inputs(dev, cpa, T):
+    """The selection's inputs with the jax.random tree's key words and the
+    drift its width takes: float32 below 104 columns, select16 from 104."""
+    d = _net_inputs(dev, cpa=cpa, T=T)
+    keys = torch.randint(0, 2**32, (4, 2), generator=d["gen"], device=dev, dtype=torch.int64)
+    drift = "select16" if sum(cpa) >= 104 else "f32"
+    cfg = select_config(d["ts"], max_steps=4096, brownian="jax", drift=drift)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=cpa,
+                                          n_inputs=4, device=dev)
+    pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
+    w = d["w16"] if drift == "select16" else pw
+    return d, _sde_key_words(keys, "jax"), cfg, w, pw
+
+
+@pytest.mark.parametrize("cpa", [(8, 4, 1), (64, 32, 8)])
+def test_jax_tree_selection_kernel_matches_plain_bit_for_bit(dev, cpa):
+    d, words, cfg, w, _ = _jax_inputs(dev, cpa, T=50)
+    y0 = torch.zeros(4, 3 * d["P"], device=dev)
+    before = ns.LAUNCHES["sde_select"]
+    got = ns.select_pass(y0, words, w, d["sc"], d["kv"], cfg)
+    torch.cuda.synchronize()
+    assert ns.LAUNCHES["sde_select"] == before + 1
+    want = ns._select_plain(y0, words, w, d["sc"], d["kv"], cfg)
+    assert bool(got[3].all())
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+
+
+def test_jax_tree_attempt_kernel_matches_plain_bit_for_bit(dev):
+    d, words, cfg, w, _ = _jax_inputs(dev, (8, 4, 1), T=1000)
+    N, gen = 16, d["gen"]
+    lane = torch.arange(N, device=dev) % 4
+    words, kv = words[lane].contiguous(), d["kv"][:, lane].contiguous()
+    y1 = _states(gen, N, d["P"], dev)
+    t1 = (0.9 * torch.rand(N, 1, generator=gen, device=dev)).contiguous()
+    h = (1e-6 * 10.0 ** (torch.arange(N, device=dev)[:, None] % 4)).contiguous()
+    err_prev = torch.full((N, 1), 0.7, device=dev)
+    w_t1 = ns._tree(words, cfg).evaluate(t1).contiguous()
+    got = ns.select_attempt(t1, y1, h, err_prev, w_t1, words, w, d["sc"], kv, cfg)
+    want = ns._attempt_plain(t1, y1, h, err_prev, w_t1, words, w, d["sc"], kv, cfg)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("lanes", [True, False])
+def test_sde3_kernels_match_plain_bit_for_bit(dev, lanes):
+    """B3t and B4't at 13 columns: per-lane grids (a selection's, with the
+    jax.random tree's noise, the padding past the longest lane skipped) or
+    the uniform grid (every lane the same times)."""
+    from columnflow_torch.solvers.fused import uniform_step_times
+
+    d, words, cfg, w, pw = _jax_inputs(dev, (8, 4, 1), T=100)
+    B, P = 4, d["P"]
+    y0 = torch.zeros(B, 3 * P, device=dev)
+    if lanes:
+        st, na, _, _ = ns.select_pass(y0, words, w, d["sc"], d["kv"], cfg)
+        ht, dw, i10 = _replay_grid(st, words, cfg.t_start, cfg.t_end, cfg.depth, "jax")
+        t0s, hs = ht[:, :-1].T.contiguous(), (ht[:, 1:] - ht[:, :-1]).T.contiguous()
+        dw, i10 = dw.T.contiguous(), i10.T.contiguous()
+        n_real = 2 * int(na.max())
+    else:
+        t0s, h = uniform_step_times(d["ts"], (B, 3 * P))
+        t0s = t0s.to(dev)
+        hs = torch.full_like(t0s, h)
+        _, dw, i10, _, _ = brownian_pack(d["gen"], d["ts"], (B, 1))
+        dw, i10 = dw.reshape(-1, B).contiguous(), i10.reshape(-1, B).contiguous()
+        n_real = t0s.shape[0]
+    before = dict(ns.LAUNCHES)
+    fwd = (t0s, hs, dw, i10, n_real, pw, d["sc"], d["kv"])
+    ys = ns.replay3_fwd(y0, *fwd)
+    ysbar = torch.randn((t0s.shape[0],) + tuple(y0.shape), generator=d["gen"], device=dev)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n_real, 16, 10, pw, d["sc"], d["kv"])
+    got = ns.replay3_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert ns.LAUNCHES["sde3_fwd"] == before["sde3_fwd"] + 1
+    assert ns.LAUNCHES["sde3_bwd"] == before["sde3_bwd"] + 1
+    assert torch.equal(ys, ns._replay3_fwd_plain(y0, *fwd))
+    for g, p in zip(got, ns._replay3_bwd_plain(*bwd)):
+        assert torch.isfinite(g).all() and torch.equal(g, p)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_stochastic_13_column_steps_on_cuda_match_cpu(dev, adaptive, monkeypatch):
+    """The fixed-grid step (B3t, B4't on the uniform grid) and the XLA
+    selection's step (the jax-tree selection, B3t, B4't on per-lane grids)
+    through make_train_step, one launch of each kernel and no plain
+    version; the same step on the CPU on the card's grid and noise: the
+    loss within 1e-5, each gradient within the larger of 3e-2 and ten times
+    the card's own spread under a 1e-7 nudge of the weights (over these 100
+    points the fixed grid's input and lateral gradients move by 6% under
+    such a nudge on the card)."""
+    flags = dict(stochastic=True, adaptive=adaptive)
+
+    def step_on(device, params=None, grid=None, noise=None):
+        task = parity.build_task(ColumnConfig.load(),
+                                 torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=(8, 4, 1), time_steps=100, max_steps=3072,
+                                 device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        stims = torch.tensor(ODE_STIMS, device=device)
+        keys = torch.tensor([[1, 2], [3, 4], [5, 6], [7, 2**32 - 1]], device=device)
+        if not adaptive and noise is None:
+            _, i1, i10, _, _ = brownian_pack(torch.Generator(device=device).manual_seed(3),
+                                             task.ts, (4, 1))
+            noise = (i1, i10)
+        rec = parity.make_train_step(task, **flags)(
+            stims, keys if adaptive else None, grid=grid,
+            noise=None if noise is None else tuple(x.to(device) for x in noise))
+        return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}, task, noise
+
+    gen0 = torch.Generator(device=dev).manual_seed(0)
+    params0 = {k: p.detach().cpu().clone() for k, p in parity.build_task(
+        ColumnConfig.load(), gen0, columns_per_area=(8, 4, 1), time_steps=100,
+        device=dev).params.items()}
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    with monkeypatch.context() as m:
+        for name in ("_select_plain", "_replay_fwd_plain", "_replay3_bwd_plain"):
+            m.setattr(ns, name, boom)
+        before = dict(ns.LAUNCHES)
+        rec, grads, task, noise = step_on(dev)
+        torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    want = {"sde3_fwd": 1, "sde3_bwd": 1}
+    if adaptive:
+        want["sde_select"] = 1
+    assert launched == want
+    assert bool(torch.isfinite(rec["loss"]))
+    grid = None
+    if adaptive:
+        st = rec["stats"]
+        grid = tuple(x.cpu() for x in (st.step_times, st.naccept, st.nreject))
+    rec_c, grads_c, _, _ = step_on(torch.device("cpu"), params=params0, grid=grid,
+                                   noise=None if noise is None else tuple(x.cpu() for x in noise))
+    _, grads_n, _, _ = step_on(dev, params={k: v * (1.0 + 1e-7) for k, v in params0.items()},
+                               grid=None if grid is None else tuple(x.to(dev) for x in grid),
+                               noise=noise)
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        spread = float((grads_n[k] - g).norm()) / float(g.norm())
+        err = float((g - grads_c[k]).norm()) / float(grads_c[k].norm())
+        assert err <= max(3e-2, 10.0 * spread), (k, err, spread)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,12 @@
-"""Port parity: two training steps of ``columnflow_torch.tasks.parity``
-against ``columnflow.tasks.parity.make_train_step``, on each of the two
-ported paths, and the command line that selects between them.
+"""Port parity: training steps of ``columnflow_torch.tasks.parity``
+against ``columnflow.tasks.parity.make_train_step`` on each ported path,
+and the command line that selects between them.
+
+Fixed-grid SDE (``--stochastic``) and the XLA selection's adaptive step
+(``--stochastic --adaptive`` below 104 columns): one step each at 3
+columns, batch 4, 60 grid points, on JAX's noise pack, and, adaptive,
+JAX's frozen grids and lane keys (``test_torch_sde_jaxtree.build_setup``);
+tolerances at ``test_stochastic_step_matches_jax``.
 
 Stochastic: the flagship flags
 (stochastic, adaptive, fused, fused_pass, select_bf16, grad_bf16, split2,
@@ -57,9 +63,11 @@ from columnflow_torch.tasks import parity as tpt
 
 REPO = Path(__file__).resolve().parent.parent
 T, B, M = 60, 2, 512
+B_SDE = 4
 FLAGS = dict(use_fused=True, stochastic=True, adaptive=True, fused_pass=True,
              select_bf16=True, grad_bf16=True, split2=True)
 STEP = dict(bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
+PORT_FLAGS = {k: v for k, v in FLAGS.items() if k != "use_fused"}
 
 
 def _jax_grid(task, params, stims, keys):
@@ -131,7 +139,7 @@ def test_two_train_steps_match_jax(jax_run):
     task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(0),
                           columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
                           device="cpu")
-    step = tpt.make_train_step(task, stochastic=True, **STEP)
+    step = tpt.make_train_step(task, **PORT_FLAGS, **STEP)
     masks = {k: v.bool() for k, v in task.grad_mask.items()}
     for i, rec in enumerate(records):
         params, _ = network_from_jax(rec["before"], jtask.net)
@@ -152,11 +160,107 @@ def test_two_train_steps_match_jax(jax_run):
                                        err_msg=f"step {i} {k}")
 
 
+SDE_STIMS = np.array([[0.0, 15.0], [15.0, 0.0], [15.0, 15.0], [0.0, 0.0]], np.float32)
+SDE_MODES = {"fixed_grid": dict(stochastic=True),
+             "xla_selection": dict(stochastic=True, adaptive=True)}
+
+
+@pytest.fixture(scope="module")
+def jax_sde_runs():
+    """One JAX train step of each of the two stochastic steps of this slice
+    at 13 columns' flags (``--stochastic`` and ``--stochastic --adaptive``),
+    with what the port needs to repeat it: the fixed grid's noise pack
+    (``_brownian_pack`` of the step's key), or the lanes' keys and JAX's
+    frozen grids (its XLA selection on the jax.random tree); and JAX's
+    masked gradients at the parameters and at a 1e-7 nudge of them."""
+    from columnflow.solvers.sde import _brownian_pack
+    from test_torch_sde_jaxtree import build_setup
+
+    task = jpt.build_task(JaxConfig.load(), jax.random.PRNGKey(0), columns_per_area=(2, 1),
+                          n_inputs=2, time_steps=T, max_steps=M)
+    stims = jnp.asarray(SDE_STIMS)
+    key = jax.random.PRNGKey(30)
+    runs = {}
+    for name, flags in SDE_MODES.items():
+        @jax.jit
+        def grads_of(p, flags=flags):
+            def loss(p):
+                ys = jpt.batched_rollout(p, task, stims, key=key, use_fused=True, **flags)
+                return jnp.mean(jnp.abs(jpt.readout(ys, p, task.net) - jpt.parity_targets(stims)))
+
+            return j_mask_grads(jax.grad(loss)(p), task.grad_mask)
+
+        params = jax.tree_util.tree_map(jnp.array, task.params)
+        nudged = {k: v * (1.0 + 1e-7) for k, v in params.items()}
+        rec = dict(before={k: np.array(v) for k, v in params.items()},
+                   grads={k: np.asarray(v) for k, v in grads_of(params).items()},
+                   grads_nudged={k: np.asarray(v) for k, v in grads_of(nudged).items()})
+        step = jpt.make_train_step(task, use_fused=True, **flags)
+        _, _, loss, _, gnorm, ok = step(params, task.optimizer.init(params), stims, key)
+        rec.update(loss=float(loss), gnorm=float(gnorm), ok=bool(ok))
+        if "adaptive" in flags:
+            keys = jax.random.split(key, B_SDE)
+            rec["keys"] = keys
+            rec["grid"] = build_setup(keys=keys, stims=SDE_STIMS)["grid"][:3]
+        else:
+            _, i1, i10, _, _ = _brownian_pack(key, task.ts, (B_SDE, 1), jnp.float32)
+            rec["noise"] = (np.asarray(i1), np.asarray(i10))
+        runs[name] = rec
+    return task, runs
+
+
+@pytest.mark.parametrize("mode", list(SDE_MODES))
+def test_stochastic_step_matches_jax(jax_sde_runs, mode):
+    """The port's step against JAX's on JAX's noise (and, adaptive, JAX's
+    frozen grids and lane keys): loss rel 1e-5, the skip decision equal,
+    each masked gradient within rel L2 3e-2 (the kernel-mode precedent)
+    plus twice the larger of the two sides' own spreads under a 1e-7 nudge
+    of the weights. Measured: fixed grid <= 3.5e-3 (feedforward; the
+    spreads up to 1.6e-3), the XLA selection's step <= 4.3e-4 (JAX's own
+    spread up to 3.6e-3); losses 1e-7 apart."""
+    jtask, runs = jax_sde_runs
+    rec = runs[mode]
+    task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(0),
+                          columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
+                          device="cpu")
+
+    def port_step(scale):
+        params, _ = network_from_jax({k: v * scale for k, v in rec["before"].items()}, jtask.net)
+        with torch.no_grad():
+            for k, p in task.params.items():
+                p.copy_(params[k])
+        step = tpt.make_train_step(task, **SDE_MODES[mode])
+        if "grid" in rec:
+            out = step(torch.as_tensor(SDE_STIMS), lane_key_words(rec["keys"]),
+                       grid=tuple(torch.as_tensor(np.array(x)) for x in rec["grid"]))
+        else:
+            out = step(torch.as_tensor(SDE_STIMS), noise=tuple(torch.as_tensor(x)
+                                                               for x in rec["noise"]))
+        return out, {k: p.grad.detach().numpy().copy() for k, p in task.params.items()}
+
+    out, grads = port_step(1.0)
+    _, grads_n = port_step(np.float32(1.0 + 1e-7))
+    assert float(out["loss"]) == pytest.approx(rec["loss"], rel=1e-5)
+    assert out["ok"] == rec["ok"]
+    for k, g in grads.items():
+        want = rec["grads"][k]
+        if not np.any(want):
+            assert not np.any(g), k
+            continue
+        spread = max(_rel(grads_n[k], g), _rel(rec["grads_nudged"][k], want))
+        assert np.isfinite(g).all()
+        assert _rel(g, want) < 3e-2 + 2 * spread, (k, _rel(g, want), spread)
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(np.asarray(a, np.float64) - b) / np.linalg.norm(b))
+
+
 def test_port_step_with_its_own_selection_is_finite():
     task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(2),
                           columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
                           device="cpu")
-    step = tpt.make_train_step(task, stochastic=True, **STEP)
+    step = tpt.make_train_step(task, **PORT_FLAGS, **STEP)
     stims = torch.tensor([[0.0, 15.0], [15.0, 15.0]])
     w0 = {k: p.detach().clone() for k, p in task.params.items()}
     out = step(stims, torch.tensor([[1, 2], [3, 2**32 - 1]]))
@@ -170,7 +274,7 @@ def test_port_step_with_its_own_selection_is_finite():
 
 def test_train_parity_on_cpu_returns_finite_history():
     params, hist = tpt.train_parity(smoke=True, device="cpu", columns_per_area=(2, 1),
-                                    n_inputs=2, time_steps=T, max_steps=M, stochastic=True,
+                                    n_inputs=2, time_steps=T, max_steps=M, **PORT_FLAGS,
                                     bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
     assert len(hist) == 3 and "acc" in hist[-1]
     assert all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist[:-1])
@@ -190,18 +294,22 @@ def test_unported_modes_raise():
     task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(0),
                           columns_per_area=(2, 1), n_inputs=2, time_steps=T, max_steps=M,
                           device="cpu")
-    # One selector, ``stochastic``; the flagship's other flags are no
-    # arguments of the port's step.
-    with pytest.raises(TypeError, match="select_bf16"):
-        tpt.make_train_step(task, select_bf16=False)
+    # The JAX package's solver flags, checked as its batched_rollout checks
+    # them; a flag it would ignore is refused too.
+    with pytest.raises(ValueError, match="select_bf16"):
+        tpt.make_train_step(task, select_bf16=True)
+    with pytest.raises(TypeError, match="use_fused"):
+        tpt.make_train_step(task, use_fused=True)
     with pytest.raises(ValueError, match="bptt_every"):
         tpt.make_train_step(task, bptt_every=32)
     with pytest.raises(ValueError, match="tree key words"):
+        tpt.make_train_step(task, stochastic=True, adaptive=True)(torch.zeros(2, 2))
+    with pytest.raises(ValueError, match="noise pack"):
         tpt.make_train_step(task, stochastic=True)(torch.zeros(2, 2))
     with pytest.raises(NotImplementedError, match="random_fan_in"):
         build_column_network(ColumnConfig.load(), torch.Generator(), random_fan_in=True)
-    with pytest.raises(TypeError, match="brownian"):
-        _noise_backend(torch.zeros(1, 4, dtype=torch.int64), 0.0, 1.0, 20, brownian="jax")
+    with pytest.raises(ValueError, match="brownian"):
+        _noise_backend(torch.zeros(1, 4, dtype=torch.int64), 0.0, 1.0, 20, brownian="xla")
 
 
 def test_new_modules_import_neither_jax_nor_columnflow():
@@ -210,7 +318,8 @@ def test_new_modules_import_neither_jax_nor_columnflow():
                "columnflow_torch.kernels.network_sde", "columnflow_torch.tasks.parity",
                "columnflow_torch.ops.arith", "columnflow_torch.solvers.rk",
                "columnflow_torch.kernels.network_ode", "columnflow_torch.kernels._build",
-               "columnflow_torch.convert"]
+               "columnflow_torch.convert", "columnflow_torch.solvers.jrandom",
+               "columnflow_torch.solvers.brownian"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -336,7 +445,7 @@ def _parse(argv):
     ([], False, False), (["--fused"], False, False), (["--engine", "fused"], False, False),
     (["--engine", "auto"], False, False),
     (["--engine", "fused", "--columns-per-area", "64,32,8"], False, False),
-    (FLAGSHIP_ARGV, True, False), (FLAGSHIP_ARGV + ["--columns-per-area", "64,32,8"], True, False),
+    (FLAGSHIP_ARGV, True, True), (FLAGSHIP_ARGV + ["--columns-per-area", "64,32,8"], True, True),
     # The fused-split2 tier: auto from 104 through 312 columns, or pinned.
     (["--columns-per-area", "64,32,8"], False, True),
     (["--engine", "fused-split2", "--columns-per-area", "64,32,8"], False, True),
@@ -349,6 +458,35 @@ def test_command_line_selects_the_step(argv, stochastic, split2, capsys):
     assert seen["smoke"] and seen["device"] == "cpu"
 
 
+FIXED = dict(stochastic=True)
+XLA_SELECTION = dict(stochastic=True, adaptive=True)
+BENCH = dict(stochastic=True, adaptive=True, select_bf16=True, grad_bf16=True, split2=True)
+
+
+@pytest.mark.parametrize("argv,mode", [
+    # The fixed-grid SDE step: --stochastic alone, with --fused, or the
+    # engine named (auto picks the fused engine below 104 columns).
+    (["--stochastic"], FIXED), (["--stochastic", "--fused"], FIXED),
+    (["--stochastic", "--engine", "auto"], FIXED),
+    # The stochastic-adaptive step with the XLA selection (jax.random tree)
+    # and the three-term replay below 104 columns...
+    (["--stochastic", "--adaptive"], XLA_SELECTION),
+    (["--stochastic", "--adaptive", "--fused"], XLA_SELECTION),
+    (["--stochastic", "--adaptive", "--fused", "--select-bf16"],
+     dict(XLA_SELECTION, select_bf16=True)),
+    # ... and bench.py's primary configuration at 104 columns: --engine auto
+    # adds the bf16 tiers and split2, as the explicit flags do.
+    (["--stochastic", "--adaptive", "--columns-per-area", "64,32,8"], BENCH),
+    (["--stochastic", "--adaptive", "--fused", "--select-bf16", "--grad-bf16", "--split2",
+      "--columns-per-area", "64,32,8"], BENCH),
+    (["--stochastic", "--adaptive", "--batch-size", "8", "--columns-per-area", "64,32,8"], BENCH),
+    (FLAGSHIP_ARGV, dict(BENCH, fused_pass=True))])
+def test_command_line_resolves_the_stochastic_steps(argv, mode):
+    seen = _parse(argv + ["--smoke", "--device", "cpu"])
+    want = {k: bool(mode.get(k, False)) for k in tpt.Flags._fields}
+    assert {k: seen[k] for k in tpt.Flags._fields} == want
+
+
 @pytest.mark.parametrize("argv,exc,item", [
     (["--split2"], ValueError, "requires --fused"),
     (["--engine", "fused-split2"], NotImplementedError, "B8s"),
@@ -356,16 +494,22 @@ def test_command_line_selects_the_step(argv, stochastic, split2, capsys):
     (["--columns-per-area", "256,128,32"], NotImplementedError, "A7"),
     (["--engine", "xla"], NotImplementedError, "A7"),
     (["--method", "tsit5"], NotImplementedError, "A7"),
-    (["--stochastic"], NotImplementedError, "A5a"),
-    (["--stochastic", "--adaptive", "--fused"], NotImplementedError, "A5a"),
-    (FLAGSHIP_ARGV[:-1], NotImplementedError, "A5a"),
-    (["--select-bf16"], NotImplementedError, "A5a"),
-    (["--fused-pass", "--fused"], NotImplementedError, "A5a"),
-    # The fixed-grid SDE step (--stochastic alone or with --fused) is A6a;
-    # the adaptive step without --fused-pass keeps A5a.
-    (["--stochastic"], NotImplementedError, "A6a"),
-    (["--stochastic", "--fused"], NotImplementedError, "A6a"),
-    (["--stochastic", "--adaptive"], NotImplementedError, "A5a"),
+    # --fused-pass without --split2 replays on the three-term split with
+    # the gradbf16 weight gradients outside (B4 emit on that split); an
+    # explicit flag without --fused is the XLA engine; --fused-pass alone
+    # is refused, as the JAX package's batched_rollout refuses it.
+    (FLAGSHIP_ARGV[:-1], NotImplementedError, "B4t"),
+    (FLAGSHIP_ARGV[:3] + ["--fused-pass", "--grad-bf16", "--split2"], NotImplementedError,
+     "B5t"),
+    (["--select-bf16"], NotImplementedError, "A7"),
+    (["--fused-pass", "--fused"], ValueError, "fused_pass requires"),
+    (["--adaptive"], ValueError, "adaptive applies"),
+    # From 64 columns the fixed-grid step takes its weight gradients
+    # outside the sweep (A6a's rest); past 8 lanes at 104 columns the
+    # stochastic-adaptive step resolves to the XLA engine (A7).
+    (["--stochastic", "--columns-per-area", "64,32,8"], NotImplementedError, "A6a"),
+    (["--stochastic", "--adaptive", "--batch-size", "16", "--columns-per-area", "64,32,8"],
+     NotImplementedError, "A7"),
     # The JAX package's other flags are accepted and raise, naming their item.
     (["--random-fan-in"], NotImplementedError, "A3"),
     (["--random-fan-in", "--legacy-host-rng"], NotImplementedError, "A3"),

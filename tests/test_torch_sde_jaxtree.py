@@ -1,0 +1,427 @@
+"""Port parity: ``jax.random`` on raw keys (``columnflow_torch.solvers.jrandom``),
+the Brownian paths on them (``solvers.brownian``), and the adaptive SDE
+selection on the ``jax.random`` tree (``brownian="jax"``, the JAX package's
+XLA pass) with its replay, against ``jax.random``,
+``columnflow.solvers.brownian`` and ``columnflow.solvers.sde_adaptive``.
+
+Size: columns (2, 1), 2 inputs, batch 4, 60 grid points, max_steps 512,
+the selection's float32 drift (``network_drift_premixed``) and the
+three-term replay, as ``--stochastic --adaptive`` runs below 104 columns.
+Keys pass unchanged: the JAX key data (uint32 (2,)) is the port's key.
+
+Tolerances, each measured here:
+- keys, ``fold_in``, ``split`` and the uniform bits: bit for bit;
+- ``normal`` and the interval normals: within 4 ulp (the port's log1p and
+  XLA's differ by an ulp in ``erf_inv``; measured 3 ulp);
+- ``VirtualBrownianTree.evaluate``: 1e-6 absolute over 1000 times per key;
+- one attempt's error ratio and next step: rel 1e-3;
+- the whole selection: the batch's accepted count within 2%, the rejected
+  count within 5% of the accepted plus twice the port's own spread under a
+  1e-7 nudge of the weights; per lane the accepted count within 2% plus
+  twice that spread (the grids part where an error estimate an ulp apart
+  flips a decision, and a nudge moves a lane's count by up to 4%);
+- the replay on JAX's frozen grid with JAX's noise: 1e-5 of each
+  component's largest magnitude.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from columnflow.config import ColumnConfig as JaxConfig
+from columnflow.models import network as jn
+from columnflow.models.column import Stimulus as JStim
+from columnflow.ops.interp import interp_knots as j_knots
+from columnflow.ops.interp import step_table_knots as j_step_knots
+from columnflow.solvers import brownian as jb
+from columnflow.solvers import sde_adaptive as jsa
+from columnflow.tasks import parity as jpt
+from columnflow_torch.config import ColumnConfig
+from columnflow_torch.convert import lane_key_words, network_from_jax
+from columnflow_torch.kernels import network_sde as ns
+from columnflow_torch.models import network as tn
+from columnflow_torch.solvers import brownian as tb
+from columnflow_torch.solvers import jrandom as jr
+from columnflow_torch.solvers import sde_adaptive as tsa
+from columnflow_torch.tasks import parity as tpt
+
+T, B, N_IN, M = 60, 4, 2, 512
+STIMS = np.array([[0.0, 15.0], [15.0, 0.0], [15.0, 15.0], [0.0, 0.0]], np.float32)
+
+
+def _key(k):
+    return torch.as_tensor(np.asarray(k).astype(np.int64))
+
+
+def _ulps(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+def _scaled(got, want):
+    want = np.asarray(want)
+    scale = np.abs(want).reshape(-1, want.shape[-1]).max(0)
+    return float(np.max(np.abs(np.asarray(got) - want) / np.maximum(scale, 1e-30)))
+
+
+# ---------------------------------------------------------------------------
+# jax.random
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1, -1, -7])
+def test_prng_key_equals_jax(seed):
+    want = np.asarray(jax.random.key_data(jax.random.PRNGKey(seed))).astype(np.int64)
+    np.testing.assert_array_equal(jr.prng_key(seed).numpy(), want)
+
+
+@pytest.mark.parametrize("data", [0, 5, 0x51DE, 2**31 + 3, 2**32 - 1])
+def test_fold_in_equals_jax(data):
+    k = jax.random.PRNGKey(7)
+    want = np.asarray(jax.random.fold_in(k, data)).astype(np.int64)
+    np.testing.assert_array_equal(jr.fold_in(_key(k), data).numpy(), want)
+
+
+def test_split_and_bits_equal_jax():
+    k = jax.random.PRNGKey(11)
+    np.testing.assert_array_equal(jr.split(_key(k), 5).numpy(),
+                                  np.asarray(jax.random.split(k, 5)).astype(np.int64))
+    np.testing.assert_array_equal(jr.random_bits(_key(k), (3, 4)).numpy(),
+                                  np.asarray(jax.random.bits(k, (3, 4))).astype(np.int64))
+    ks = jax.random.split(jax.random.PRNGKey(2), 6)   # a batch of keys, one draw each
+    want = np.asarray(jax.vmap(lambda kk: jax.random.bits(kk, (2,)))(ks)).astype(np.int64)
+    np.testing.assert_array_equal(jr.random_bits(_key(ks), (2,)).numpy(), want)
+
+
+def test_uniform_equals_jax_bit_for_bit():
+    ks = jax.random.split(jax.random.PRNGKey(3), 20000)
+    want = np.asarray(jax.vmap(lambda kk: jax.random.uniform(kk, ()))(ks))
+    np.testing.assert_array_equal(jr.uniform(_key(ks)).numpy(), want)
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    want = np.asarray(jax.vmap(lambda kk: jax.random.uniform(kk, (), minval=lo, maxval=1.0))(ks))
+    np.testing.assert_array_equal(jr.uniform(_key(ks), (), float(lo), 1.0).numpy(), want)
+
+
+def test_normal_within_4_ulp():
+    ks = jax.random.split(jax.random.PRNGKey(4), 20000)
+    want = np.asarray(jax.vmap(lambda kk: jax.random.normal(kk, ()))(ks))
+    assert _ulps(jr.normal(_key(ks)).numpy(), want).max() <= 4
+    k = jax.random.PRNGKey(9)
+    assert _ulps(jr.normal(_key(k), (7,)).numpy(), np.asarray(jax.random.normal(k, (7,)))).max() <= 4
+
+
+def test_erf_inv_is_xlas_polynomial():
+    x = np.linspace(-0.9999999, 0.9999999, 200001, dtype=np.float32)
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
+    got = jr.erf_inv(torch.as_tensor(x)).numpy()
+    assert _ulps(got, want).max() <= 4
+    # torch.erfinv is another approximation: it is not what XLA computes.
+    assert _ulps(torch.erfinv(torch.as_tensor(x)).numpy(), want).max() > 4
+    assert np.isinf(jr.erf_inv(torch.tensor([-1.0, 1.0]))).all()
+
+
+# ---------------------------------------------------------------------------
+# Brownian paths
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 3, 17])
+def test_tree_evaluate_within_1e6(seed):
+    key = jax.random.PRNGKey(seed)
+    t0, t1 = jnp.float32(0.0), jnp.float32(0.999)
+    tree = jb.VirtualBrownianTree(t0=t0, t1=t1, key=key, depth=20)
+    ts = np.sort(np.random.default_rng(seed).uniform(-0.1, 1.1, 1000)).astype(np.float32)
+    want = np.asarray(jax.vmap(tree.evaluate)(jnp.asarray(ts)))
+    got = tb.VirtualBrownianTree(torch.tensor(0.0), torch.tensor(0.999), _key(key), 20)
+    assert np.abs(got.evaluate(torch.as_tensor(ts)).numpy() - want).max() < 1e-6
+
+
+def test_tree_batched_over_lanes_equals_one_key_at_a_time():
+    keys = jax.random.split(jax.random.PRNGKey(1), 3)
+    ts = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (3, 50)).astype(np.float32))
+    lanes = tb.VirtualBrownianTree(torch.tensor(0.0), torch.tensor(1.0), _key(keys)[:, None], 20)
+    got = lanes.evaluate(ts)
+    for b in range(3):
+        one = tb.VirtualBrownianTree(torch.tensor(0.0), torch.tensor(1.0), _key(keys[b]), 20)
+        assert torch.equal(got[b], one.evaluate(ts[b]))
+
+
+def test_interval_normal_within_4_ulp():
+    key = jax.random.fold_in(jax.random.PRNGKey(5), 0x51DE)
+    ts = np.sort(np.random.default_rng(5).uniform(0, 1, 1001)).astype(np.float32)
+    want = np.asarray(jax.vmap(lambda a, b: jsa._interval_normal(key, a, b, jnp.float32))(
+        jnp.asarray(ts[:-1]), jnp.asarray(ts[1:])))
+    got = tsa._interval_normal(_key(key), torch.as_tensor(ts[:-1]), torch.as_tensor(ts[1:]))
+    assert _ulps(got.numpy(), want).max() <= 4
+
+
+def test_brownian_interval_and_path_match_jax():
+    key = jax.random.PRNGKey(6)
+    grid = np.linspace(0, 1, 61, dtype=np.float32)
+    for jpath, tpath in ((jb.brownian_path(0.0, 1.0, key=key), tb.brownian_path(0.0, 1.0, key=_key(key))),
+                         (jb.BrownianInterval(0.0, 1.0, entropy=3),
+                          tb.BrownianInterval(0.0, 1.0, entropy=3))):
+        assert abs(float(jpath(0.3)) - float(tpath(0.3))) < 1e-6
+        assert abs(float(jpath(0.2, 0.7)) - float(tpath(0.2, 0.7))) < 1e-6
+        want = [np.asarray(x) for x in jpath.pack(jnp.asarray(grid))]
+        got = [x.numpy() for x in tpath.pack(torch.as_tensor(grid))]
+        for g, w in zip(got, want):
+            assert np.abs(g - w).max() < 1e-6
+    w_j, u_j = jb.brownian_path(0.0, 1.0, key=key).space_time(0.25, 0.5)
+    w_t, u_t = tb.brownian_path(0.0, 1.0, key=_key(key)).space_time(0.25, 0.5)
+    assert abs(float(w_j) - float(w_t)) < 1e-6 and abs(float(u_j) - float(u_t)) < 1e-7
+    with pytest.raises(ValueError, match="space-time"):
+        tb.BrownianInterval(0.0, 1.0).space_time(0.0, 0.5)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tb.brownian_path(0.0, 1.0, shape=(3,))
+
+
+def test_step_increments_and_counter_normal_match_jax():
+    key = jax.random.PRNGKey(8)
+    hs = np.full(20, 0.05, np.float32)
+    want = np.asarray(jb.step_increments(key, 20, jnp.asarray(hs)))
+    assert np.abs(tb.step_increments(_key(key), 20, torch.as_tensor(hs)).numpy() - want).max() < 1e-6
+    assert _ulps(tb.normal(_key(key), 17).numpy(), np.asarray(jb.normal(key, 17))).max() <= 4
+
+
+# ---------------------------------------------------------------------------
+# The XLA selection and the replay on the jax.random tree
+# ---------------------------------------------------------------------------
+
+
+def build_setup(keys=None, stims=STIMS):
+    """The JAX task and its port at this file's size, with JAX's XLA
+    selection on the jax.random tree (float32 drift) for the lanes' ``keys``
+    and patterns ``stims``: its frozen grids, the keys and the port's key
+    words (``test_torch_sde_split3`` and ``test_torch_parity_task`` use it
+    too)."""
+    jtask = jpt.build_task(JaxConfig.load(), jax.random.PRNGKey(0), columns_per_area=(2, 1),
+                           n_inputs=N_IN, time_steps=T, max_steps=M)
+    if keys is None:
+        keys = jax.random.split(jax.random.PRNGKey(5), B)
+    dt, P = jtask.dt, jtask.net.num_pops
+    jfc = jn.build_network_fused_consts(jtask.net)
+    kts, _ = j_step_knots(T, dt, jnp.zeros(N_IN), jnp.zeros(N_IN))
+    jpw = jn.premix_network_weights(jtask.params, jtask.net)
+    kv_all = jax.vmap(lambda s: j_step_knots(T, dt, jnp.zeros_like(s), s)[1])(jnp.asarray(stims))
+
+    def drift(fn):
+        return lambda t, y, pw, fc, kv: fn(t, y, pw, fc, JStim(0.0, dt, kv),
+                                           interp_fn=lambda t_, a, b, v: j_knots(t_, kts, v))
+
+    a_diff = lambda t, y, pw, fc, kv: jnp.full_like(y, jn.NETWORK_NOISE_STD)  # noqa: E731
+    ts = jtask.ts
+
+    def select(pw):
+        def one_pass(y0_b, key_b, kv_b):
+            (stp, ee, wi, dbl, _, t0_, t1_, tree, i10_draw, h0) = jsa._setup(
+                "sra1", y0_b, ts, key_b, None, 20, brownian="jax")
+            c = jsa._adaptive_pass(stp, ee, wi, drift(jn.network_drift_premixed), a_diff, y0_b,
+                                   t0_, t1_, tree, i10_draw, 1e-3, 1e-3, h0, M, (pw, jfc, kv_b),
+                                   controller="pi", doubling=dbl)
+            return c.step_times, c.naccept, c.nreject, c.t1
+
+        return jax.jit(jax.vmap(one_pass))(jnp.zeros((B, 1, 3 * P)), keys, kv_all[:, :, None, :])
+
+    st, na, nr, t1s = select(jpw)
+    params, net = network_from_jax({k: np.asarray(v) for k, v in jtask.params.items()}, jtask.net)
+    task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(0),
+                          columns_per_area=(2, 1), n_inputs=N_IN, time_steps=T, max_steps=M,
+                          device="cpu")
+    with torch.no_grad():
+        for k, p in task.params.items():
+            p.copy_(params[k])
+    model = tpt.sde_model(task.params, task, torch.as_tensor(stims))
+    t0, t1 = float(ts[0]), float(ts[-1])
+    cfg = tsa.select_config(task.ts, max_steps=M, brownian="jax", drift="f32")
+    return dict(jtask=jtask, task=task, keys=keys, jfc=jfc, jpw=jpw, kv_all=kv_all,
+                drift=drift, a_diff=a_diff, t0=t0, t1=t1, model=model, cfg=cfg, P=P,
+                grid=(np.asarray(st), np.asarray(na), np.asarray(nr), np.asarray(t1s)),
+                words=tsa._sde_key_words(lane_key_words(keys), "jax"))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return build_setup()
+
+
+def test_lane_key_words_are_the_jax_keys_and_their_fold():
+    keys = jax.random.split(jax.random.PRNGKey(5), B)
+    words = tsa._sde_key_words(lane_key_words(keys), "jax").numpy()
+    np.testing.assert_array_equal(words[:, :2], np.asarray(keys).astype(np.int64))
+    want = np.asarray(jax.vmap(lambda k: jax.random.fold_in(k, 0x51DE))(keys)).astype(np.int64)
+    np.testing.assert_array_equal(words[:, 2:], want)
+
+
+@pytest.mark.parametrize("drift", ["f32", "select16"])
+def test_one_attempt_matches_jax_body(setup, drift):
+    """From states whose rates lie in the linear regime or near zero (where
+    the select16 drift's bf16 rounding of a rate is the same on both sides),
+    at three times and three steps per lane: the same decision, err and the
+    next h rel 1e-3 where err lies near the decision (0.3..20, below the
+    controller's clip), and the new state within 1e-5 of its scale."""
+    s = setup
+    P, model = s["P"], s["model"]
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    w = tn.premix_select16(pw) if drift == "select16" else pw
+    jw = jn.premix_select16(s["jpw"]) if drift == "select16" else s["jpw"]
+    fn = jn.network_drift_premixed_select16 if drift == "select16" else jn.network_drift_premixed
+    cfg = s["cfg"]._replace(drift=drift)
+    rng = np.random.default_rng(3)
+    decisions, rel = set(), [0.0]
+    for b in range(B):
+        key_b, kv_b = s["keys"][b], s["kv_all"][b][:, None, :]
+        tree, i10_draw = jsa._noise_backend(key_b, jnp.float32(s["t0"]), jnp.float32(s["t1"]), 20,
+                                            jnp.float32, "jax")
+        body = jax.jit(jsa._make_body(jsa._sra1_step, 0.5, True, s["drift"](fn), s["a_diff"],
+                                      jnp.float32(s["t1"]), tree, i10_draw, 1e-3, 1e-3,
+                                      jnp.float32, (jw, s["jfc"], kv_b), controller="pi",
+                                      doubling=jsa._sra1_doubling))
+        for t1 in (0.003, 0.031, 0.05):
+            a = rng.uniform(0, 5, (1, P))
+            v = a + np.where(rng.random((1, P)) < 0.5, rng.uniform(75, 150, (1, P)),
+                             rng.uniform(-60, -25, (1, P)))
+            y1 = np.concatenate([v, a, rng.uniform(0, 50, (1, P))], 1).astype(np.float32)
+            for h in (2e-6, 5e-6, 1e-5):
+                t1f, hf = np.float32(t1), np.float32(h)
+                w_t1 = tree.evaluate(jnp.float32(t1f))
+                c = jsa._Carry(t0=jnp.float32(t1f), y0=jnp.asarray(y1), t1=jnp.float32(t1f),
+                               y1=jnp.asarray(y1), h=jnp.float32(hf), step_times=jnp.zeros(8),
+                               naccept=jnp.int32(0), nreject=jnp.int32(0),
+                               err_prev=jnp.float32(0.7), w_t1=w_t1)
+                out = body(c)
+                got = ns.select_attempt(
+                    torch.tensor([[t1f]]), torch.as_tensor(y1), torch.tensor([[hf]]),
+                    torch.tensor([[0.7]]), torch.tensor([[float(w_t1)]]), s["words"][b:b + 1],
+                    w, model.sc, model.kv[:, b:b + 1].contiguous(), cfg)
+                accept = int(out.naccept) == 1
+                decisions.add(accept)
+                assert bool(got.accept) == accept
+                assert float(got.t_new) == float(out.t1)
+                assert abs(float(got.w1) - float(out.w_t1 if accept else
+                                                tree.evaluate(jnp.float32(t1f + hf)))) < 1e-6
+                err_jax = (float(out.err_prev) if accept
+                           else (0.9 * float(hf) / float(out.h)) ** 2)
+                h_rel = abs(float(got.h_next) / float(out.h) - 1)
+                if 0.3 <= err_jax < 20.0:
+                    rel += [h_rel, abs(float(got.err) / err_jax - 1)]
+                else:
+                    assert h_rel < 1e-3
+                if accept:
+                    want = np.asarray(out.y1)
+                    assert np.max(np.abs(got.y_new.numpy() - want)) <= 1e-5 * np.abs(want).max()
+    assert decisions == {True, False}
+    assert max(rel) < 1e-3, max(rel)
+
+
+def test_whole_selection_matches_jax_statistically(setup):
+    """The batch's accepted count within 2% of JAX's (measured 1618 against
+    1614), its rejected count within 5% of JAX's accepted count plus twice
+    the port's own spread (measured 285 against 317). Per lane the grids
+    part where an error estimate an ulp apart flips a decision, and from
+    there the two runs draw other noise: a 1e-7 nudge of the weights moves
+    the port's own per-lane counts by up to 17 accepted and 18 rejected
+    steps (403 -> 396, 389 -> 406, ...), so per lane the accepted count
+    cannot hold 2% (lanes 389 and 417 against JAX's 405 and 401, 4%): it is
+    held within 2% plus twice that spread (ROADMAP.md section C)."""
+    s = setup
+    st_j, na_j, nr_j, t1_j = s["grid"]
+    model, P = s["model"], s["P"]
+    y0 = torch.zeros(B, 3 * P)
+
+    def port(scale):
+        pw = {k: v.detach().contiguous() * scale for k, v in model.pw.items()}
+        return ns._select_plain(y0, s["words"], pw, model.sc, model.kv, s["cfg"])
+
+    st, na, nr, ok = port(1.0)
+    _, na_n, nr_n, _ = port(1.0 + 1e-7)
+    assert ok.all() and (t1_j >= s["t1"]).all()
+    assert (st[torch.arange(B), na.long()] == s["t1"]).all()
+    assert (torch.diff(st, dim=1) >= 0).all()
+    spread_a = float((na_n - na).abs().max())
+    spread_r = float((nr_n - nr).abs().max())
+    na, nr = na.numpy().astype(float), nr.numpy().astype(float)
+    assert abs(na.sum() - na_j.sum()) <= 0.02 * na_j.sum(), (na, na_j)
+    assert abs(nr.sum() - nr_j.sum()) <= 0.05 * na_j.sum() + 2 * spread_r, (nr, nr_j)
+    assert np.all(np.abs(na - na_j) <= 0.02 * na_j + 2 * spread_a), (na, na_j, spread_a)
+    assert np.all(np.abs(nr - nr_j) <= 0.05 * na_j + 2 * spread_r), (nr, nr_j, spread_r)
+
+
+def _jax_replay_noise(s):
+    st = jnp.asarray(s["grid"][0])
+    mids = st[:, :-1] + 0.5 * (st[:, 1:] - st[:, :-1])
+    ht = jnp.concatenate([jnp.stack([st[:, :-1], mids], axis=2).reshape(B, -1), st[:, -1:]],
+                         axis=1)
+
+    def per_lane(key_b, ht_b):
+        tree, i10_draw = jsa._noise_backend(key_b, jnp.float32(s["t0"]), jnp.float32(s["t1"]), 20,
+                                            jnp.float32, "jax")
+        w = jax.vmap(tree.evaluate)(ht_b)
+        dw = w[1:] - w[:-1]
+        za = jax.vmap(i10_draw)(ht_b[:-1], ht_b[1:])
+        hh = ht_b[1:] - ht_b[:-1]
+        return dw, hh * (0.5 * dw + jnp.sqrt(hh / 12.0) * za)
+
+    dw, i10 = jax.jit(jax.vmap(per_lane))(s["keys"], ht)
+    return ht, dw, i10
+
+
+def test_replay_noise_matches_jax(setup):
+    s = setup
+    ht_j, dw_j, i10_j = _jax_replay_noise(s)
+    ht, dw, i10 = tsa._replay_grid(torch.as_tensor(s["grid"][0]), s["words"], s["t0"], s["t1"],
+                                   20, "jax")
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(ht_j))
+    scale = float(np.sqrt(s["t1"] - s["t0"]))
+    assert np.max(np.abs(dw.numpy() - np.asarray(dw_j))) < 1e-6 * scale
+    assert np.max(np.abs(i10.numpy() - np.asarray(i10_j))) < 1e-6 * scale * 1e-3
+
+
+def test_replay_on_jax_grid_matches_jax(setup):
+    """The three-term replay over JAX's frozen grids with the jax.random
+    noise, states interpolated onto ts: within 1e-5 of each component's
+    largest magnitude (measured 2e-7)."""
+    s = setup
+    st, na = (jnp.asarray(x) for x in s["grid"][:2])
+    P = s["P"]
+    want = jsa._replay_pass_fused_batch(
+        "sra1", True, s["drift"](jn.network_drift_premixed), s["a_diff"], jnp.zeros((B, 3 * P)),
+        s["jtask"].ts, st, na, M, s["keys"],
+        (s["jpw"], s["jfc"], jnp.moveaxis(s["kv_all"], 0, 1)), "jax", 20, s["jtask"].ts[0],
+        s["jtask"].ts[-1], interpret=True, nondiff_args=(1, 2), prepare=jn.prepare_premixed_split)
+    m = s["model"]
+    got = tsa.sdeint_adaptive_batch(
+        m, torch.zeros(B, 3 * P), s["task"].ts, lane_key_words(s["keys"]), max_steps=M,
+        grid=tuple(torch.as_tensor(x) for x in s["grid"][:3]), fused_pass=False,
+        select_bf16=False, prepare="split", grad_bf16=False)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _scaled(got.detach().numpy(), want) < 1e-5
+
+
+def test_frozen_grid_composes_selection_and_replay(setup):
+    """``sde_select_grid`` reproduces its grids bit for bit; ``sdeint_replay``
+    on them is ``sdeint_adaptive_batch``'s result."""
+    s = setup
+    m, P = s["model"], s["P"]
+    y0, keys = torch.zeros(B, 3 * P), lane_key_words(s["keys"])
+    g1 = tsa.sde_select_grid(m, y0, s["task"].ts, keys, max_steps=M)
+    g2 = tsa.sde_select_grid(m, y0, s["task"].ts, keys, max_steps=M)
+    assert torch.equal(g1.step_times, g2.step_times) and torch.equal(g1.naccept, g2.naccept)
+    assert bool(g1.stats.success.all())
+    ys = tsa.sdeint_replay(m, y0, s["task"].ts, keys, g1)
+    want = tsa.sdeint_adaptive_batch(m, y0, s["task"].ts, keys, max_steps=M, fused_pass=False,
+                                     select_bf16=False, prepare="split", grad_bf16=False)
+    assert torch.equal(ys, want)
+
+
+def test_selection_settings_are_checked():
+    with pytest.raises(ValueError, match="kernel"):
+        tsa.resolve_selection(True, "jax", True)
+    with pytest.raises(NotImplementedError, match="B5t"):
+        tsa.resolve_selection(True, None, False)
+    assert tsa.resolve_selection(False, None, False) == ("jax", "f32")
+    assert tsa.resolve_selection(True, None, True) == ("kernel", "select16")
+    with pytest.raises(ValueError, match="brownian"):
+        tsa._sde_key_words(torch.zeros(1, 2, dtype=torch.int64), "xla")
