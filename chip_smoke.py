@@ -3,8 +3,9 @@
 step, the 104-column stochastic-adaptive parity step (--fused-pass), the
 deterministic fused-dopri5 parity step and its 104-column fused-split2
 tier, the XOR task's deterministic and stochastic steps, the Hopf task's
-step, the 13-column fixed-grid and adaptive stochastic parity steps, and
-bench.py's 104-column stochastic-adaptive configuration.
+step, the 13-column fixed-grid and adaptive stochastic parity steps,
+bench.py's 104-column stochastic-adaptive configuration, and the
+104-column fixed-grid stochastic parity step (outer mode).
 
     python3 chip_smoke.py
 
@@ -139,7 +140,27 @@ gradbf16 pass; bptt 32, clip 1.0, loss scale 1e-6):
 30. times: the selection's device time, bound and ns per attempt, the step's
    time and a profile over 100 points; the command line (--smoke
    --stochastic --adaptive --columns-per-area 64,32,8 and the bench flags).
-Then the kernels line (every kernel of the eight paths), the card's name
+The fixed-grid stochastic parity step at 104 columns (--stochastic
+--columns-per-area 64,32,8: 4 lanes, SRA1 on the 999-step uniform grid,
+the three-term split, the weight gradients outside the sweep: B3t-team,
+B4t, the outer pass):
+31. kernel vs plain, bit for bit: B3t-team and B4t on three 64-step windows
+   (early, middle, late) of the uniform grid, on a 16-step window of
+   per-lane grids from a lanes replay (bench.py's selection over 25
+   points), and on an 8-step window at 312 columns.
+32. main path: 2 train steps through make_train_step(task, stochastic=True),
+   one launch of B3t-team and of B4t per step and of nothing else.
+33. card vs CPU: the first step again on the CPU with the plain versions on
+   the card's noise over 5 points (every gradient) and 50 (the output
+   weights), within the larger of 3e-2 and ten times the card's own spread
+   under a 1e-7 nudge; SRA1 at h = 1 ms runs off at this width from the
+   fourth step (as in the JAX package), and a gradient that is not finite
+   on the CPU must not be finite on the card either.
+34. times: each kernel's device time over the whole grid, ns per step, its
+   bound, its plain version's time on a window; the outer pass; the train
+   step's time and a profile with its idle share; the command line
+   (--smoke --stochastic --columns-per-area 64,32,8).
+Then the kernels line (every kernel of the nine paths), the card's name
 and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -2267,17 +2288,23 @@ def jax_select_bound(P, B, n_in, K, attempts, M, f32: bool):
 def sde3_bound(kernel, P, B, n_in, K, steps, n):
     """(bound_ms, bound_by) of the three-term sweeps for ``steps`` real
     steps of all lanes (lanes x steps): a forward step is 2 drift
-    evaluations of six bf16 products (2 P^2 each); a reverse step one drift
-    and two VJPs of three state-side and three weight-side products, and
-    the fold of the weight cotangents (~10 P^2 operations). Bytes: wT and
-    iwT (float32) once, the grid and noise of the real steps, the states
-    (and cotangents) written or read once."""
+    evaluations of six bf16 products (2 P^2 each); a kernel-mode reverse
+    step one drift and two VJPs of three state-side and three weight-side
+    products, and the fold of the weight cotangents (~10 P^2 operations);
+    an emit-mode step (``sde3_bwd_emit``) the drift and the state-side
+    products only, with its seeds written. Bytes: wT and iwT (float32)
+    once, the grid and noise of the real steps, the states (and cotangents)
+    written or read once."""
     S, prod = 3 * P, 2 * P * P
     consts = 4 * (2 * P + K * B * n_in) + 4 * (P * P + n_in * P)
     if kernel == "sde3_fwd":
         ops16 = steps * 2 * 6 * prod
         ops32 = steps * (2 * (30 * P + 8 * S) + 10 * S)
         nbytes = consts + 4 * B * S + 16 * steps + 4 * (n + 1) * B * S
+    elif kernel == "sde3_bwd_emit":  # no weight cotangents: a drift and two state VJPs
+        ops16 = steps * 12 * prod
+        ops32 = steps * (30 * P + 2 * (20 * P + 10 * S) + 12 * S)
+        nbytes = consts + 12 * steps + 3 * 4 * steps * S + 4 * B * S
     else:
         ops16 = steps * 18 * prod
         ops32 = steps * (30 * P + 2 * (20 * P + 10 * S) + 12 * S) + (steps / B) * 10 * P * P
@@ -2782,6 +2809,297 @@ def bench104_phases(dev, cfg):
              "ns_per_serial_step": ms * 1e6 / serial}]
 
 
+# The fixed-grid stochastic parity step at bench.py's width (columns (64, 32,
+# 8), columnflow/tasks/parity.py:197-231, 771-788): SRA1 on the 999-step
+# uniform grid of 1 s, one scalar Brownian per lane, the three-term split;
+# from 64 columns the weights hold more than 1 MiB, so the weight gradients
+# are taken outside the reverse sweep (B3t-team, B4t, the outer pass).
+FG_CPA = (64, 32, 8)
+FG_WIDE_CPA = (192, 96, 24)  # 312 columns, the widest the fused engine takes
+FG_W = 64           # steps of each uniform kernel-vs-plain window at 104 columns
+FG_LANES_W = 16     # steps of the per-lane window
+FG_WIDE_W = 8       # steps of the 312-column window
+FG_SOURCE = SDE_SOURCE
+
+
+def outer_bound(P, B, n_in, K, steps):
+    """(bound_ms, bound_by) of the outer weight-gradient pass over ``steps``
+    steps: per step one drift (six products) and two drift VJPs (three
+    state-side and three weight-side products each), 18 products of
+    2 B P^2 operations, counted at the float32 rate; bytes: the states and
+    seeds read once, the weights and the two gradients once."""
+    S = 3 * P
+    ops = steps * 18 * 2 * B * P * P
+    nbytes = 2 * 4 * steps * B * S + 8 * (P * P + n_in * P) + 4 * (2 * P + K * B * n_in)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fixedgrid104_phases(dev, cfg):
+    """Phases 31-34: the fixed-grid stochastic parity step at 104 columns
+    (``--stochastic --columns-per-area 64,32,8``, outer mode); returns the
+    entries of B3t-team and B4t for the kernels line."""
+    import torch
+
+    from columnflow_torch.data import make_parity_batch
+    from columnflow_torch.kernels import column_step, hopf_ode, network_ode, xor_ode, xor_sde
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.models.network import premix_select16
+    from columnflow_torch.solvers import fused as sf
+    from columnflow_torch.solvers import sde_adaptive as sa
+    from columnflow_torch.solvers.sde import brownian_pack
+    from columnflow_torch.tasks import parity
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, n_in, K = PARITY_B, 4, 4
+    counters = (column_step.LAUNCHES, ns.LAUNCHES, network_ode.LAUNCHES, xor_ode.LAUNCHES,
+                xor_sde.LAUNCHES, hopf_ode.LAUNCHES)
+
+    def make_task(time_steps=PARITY_T, device=dev, params=None, cpa=FG_CPA):
+        task = parity.build_task(cfg, torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=cpa, time_steps=time_steps, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        return task
+
+    def uniform(task, noise=None):
+        t0s, h = sf.uniform_step_times(task.ts, (B, 3 * task.net.num_pops))
+        t0s = t0s.to(dev)
+        n = t0s.shape[0]
+        if noise is None:
+            _, i1, i10, _, _ = brownian_pack(gen, task.ts, (B, 1))
+            noise = (i1, i10)
+        i1, i10 = (x.reshape(n, B).contiguous() for x in noise)
+        return t0s, torch.full_like(t0s, h), i1, i10
+
+    def win(x, k0, w):
+        return x[k0:k0 + w].contiguous()
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def compare(name, got, want):
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        same[name] = all(torch.equal(g, w) for g, w in zip(got, want))
+        errs[name] = max(errs.get(name, 0.0), max(float((g - w).abs().max())
+                                                  for g, w in zip(got, want)))
+        check(same[name] and all(bool(torch.isfinite(g).all()) for g in got),
+              f"{name} against its plain version: max abs {errs[name]}")
+
+    # -- 31. kernel vs plain, bit for bit --------------------------------------------
+    task = make_task()
+    P = task.net.num_pops
+    S = 3 * P
+    stims = make_parity_batch(gen, n_in, B, device=dev)
+    model = parity.sde_model(task.params, task, stims)
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    grid_u = uniform(task)
+    n = grid_u[0].shape[0]
+    y0 = torch.zeros(B, S, device=dev)
+    check(ns.sde3_fwd_route(P, n_in) == "team", "104 columns must take B3t-team")
+    ys = ns.replay3_fwd(y0, *grid_u, n, pw, model.sc, model.kv)
+    ysbar = torch.randn(n, B, S, generator=gen, device=dev)
+    same, errs, plain_ms, windows = {}, {}, {}, []
+    for k0 in (0, (n // 2) & ~7, n - FG_W):
+        g = tuple(win(x, k0, FG_W) for x in grid_u)
+        fwd = (g[0], g[1], g[2], g[3], FG_W, pw, model.sc, model.kv)
+        got = ns.replay3_fwd(ys[k0].contiguous(), *fwd)
+        want, ms_f = timed(lambda: ns._replay3_fwd_plain(ys[k0].contiguous(), *fwd))
+        compare("sde3_fwd_team", got, want)
+        check(torch.equal(got, ys[k0:k0 + FG_W + 1]), "B3t-team window against its whole sweep")
+        bwd = (win(ys, k0, FG_W), win(ysbar, k0, FG_W), g[0], g[1], g[3], FG_W, 0, pw, model.sc,
+               model.kv)
+        got = ns.replay3_bwd_emit(*bwd)
+        want, ms_b = timed(lambda: ns._replay3_bwd_emit_plain(*bwd))
+        compare("sde3_bwd_emit", got, want)
+        windows.append(k0)
+        plain_ms["sde3_fwd_team"], plain_ms["sde3_bwd_emit"] = ms_f, ms_b
+    # Per-lane grids from a lanes replay: bench.py's selection over
+    # BENCH_SEL_T points, its half-step grid and noise, one window of it.
+    task_s = make_task(BENCH_SEL_T, params=task.params)
+    model_s = parity.sde_model(task_s.params, task_s, stims)
+    scfg = sa.select_config(task_s.ts, max_steps=PARITY_MAX_STEPS, brownian="jax",
+                            drift="select16")
+    words = sa._sde_key_words(torch.randint(0, 2**32, (B, 2), generator=gen, device=dev,
+                                            dtype=torch.int64), "jax")
+    st, na, _, _ = ns.select_pass(y0, words, premix_select16(pw), model_s.sc, model_s.kv, scfg)
+    ht, dw, i10 = sa._replay_grid(st, words, scfg.t_start, scfg.t_end, scfg.depth, "jax")
+    n_l = 2 * int(na.max())
+    grid_l = tuple(x.contiguous() for x in (ht[:, :n_l].T, (ht[:, 1:n_l + 1] - ht[:, :n_l]).T,
+                                            dw[:, :n_l].T, i10[:, :n_l].T))
+    ys_l = ns.replay3_fwd(y0, *grid_l, n_l, pw, model_s.sc, model_s.kv)
+    k0 = (n_l // 2) & ~1
+    g = tuple(win(x, k0, FG_LANES_W) for x in grid_l)
+    fwd = (g[0], g[1], g[2], g[3], FG_LANES_W, pw, model_s.sc, model_s.kv)
+    compare("sde3_fwd_team", ns.replay3_fwd(ys_l[k0].contiguous(), *fwd),
+            ns._replay3_fwd_plain(ys_l[k0].contiguous(), *fwd))
+    ysbar_l = torch.randn(FG_LANES_W, B, S, generator=gen, device=dev)
+    bwd = (win(ys_l, k0, FG_LANES_W), ysbar_l, g[0], g[1], g[3], FG_LANES_W, 0, pw, model_s.sc,
+           model_s.kv)
+    compare("sde3_bwd_emit", ns.replay3_bwd_emit(*bwd), ns._replay3_bwd_emit_plain(*bwd))
+    # 312 columns: one window from states in the rates' working range.
+    task_w = make_task(cpa=FG_WIDE_CPA)
+    P_w = task_w.net.num_pops
+    model_w = parity.sde_model(task_w.params, task_w, stims)
+    pw_w = {k: v.detach().contiguous() for k, v in model_w.pw.items()}
+    grid_w = tuple(win(x, n // 2, FG_WIDE_W) for x in uniform(task_w))
+    a = 5.0 * torch.rand(B, P_w, generator=gen, device=dev)
+    y_w = torch.cat([a + 80.0 * torch.rand(B, P_w, generator=gen, device=dev) - 40.0, a,
+                     40.0 * torch.rand(B, P_w, generator=gen, device=dev)], dim=1)
+    fwd = (*grid_w, FG_WIDE_W, pw_w, model_w.sc, model_w.kv)
+    ys_w = ns.replay3_fwd(y_w, *fwd)
+    compare("sde3_fwd_team_312", ys_w, ns._replay3_fwd_plain(y_w, *fwd))
+    bwd = (ys_w[:-1].contiguous(), torch.randn(FG_WIDE_W, B, 3 * P_w, generator=gen, device=dev),
+           grid_w[0], grid_w[1], grid_w[3], FG_WIDE_W, 0, pw_w, model_w.sc, model_w.kv)
+    compare("sde3_bwd_emit_312", ns.replay3_bwd_emit(*bwd), ns._replay3_bwd_emit_plain(*bwd))
+    emit("fixedgrid104_kernel_vs_plain", columns=sum(FG_CPA), P=P, lanes=B, T=PARITY_T,
+         steps=n, uniform_windows={"start": windows, "steps": FG_W},
+         lanes_window={"selection_T": BENCH_SEL_T, "naccept": na.tolist(), "n_real": n_l,
+                       "start": k0, "steps": FG_LANES_W},
+         wide={"columns": sum(FG_WIDE_CPA), "P": P_w, "steps": FG_WIDE_W},
+         bit_for_bit=same, max_abs_err=errs, plain_ms_per_window=plain_ms)
+    del task_w, model_w, pw_w, ys_w
+
+    # -- 32. main path: 2 train steps through make_train_step --------------------------
+    task = make_task()
+    step = parity.make_train_step(task, stochastic=True)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    history, step_s, first = [], [], None
+    for i in range(2):
+        stims_i = make_parity_batch(gen, n_in, B, device=dev)
+        _, i1, i10, _, _ = brownian_pack(gen, task.ts, (B, 1))
+        params_i = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+        before = [dict(c) for c in counters]
+        rec, ms = timed(lambda: step(stims_i, noise=(i1, i10)))
+        step_s.append(ms / 1e3)
+        moved = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
+        check(moved == {"sde3_fwd_team": 1, "sde3_bwd_emit": 1}, f"fixed-grid step {i}: {moved}")
+        check(bool(torch.isfinite(rec["loss"])), f"fixed-grid step {i}: loss {rec['loss']}")
+        history.append({"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
+                        "update_applied": bool(rec["ok"]), "seconds": ms / 1e3})
+        if i == 0:
+            first = dict(stims=stims_i, params=params_i)
+    main_launches = {k: v for c in counters for k, v in c.items() if v}
+
+    # -- 33. card against CPU over short horizons --------------------------------------
+    # At 104 columns the gradients are ill-conditioned (a 1e-7 nudge of the
+    # weights moves them by O(1) over 100 points), so every gradient is
+    # held over GRAD_T points and the output weights' over OUT_T, each
+    # against the card's own spread under such a nudge; the noise is the
+    # card's pack for that grid. SRA1 at h = 1 ms runs off at this width
+    # from the fourth step, in the JAX package too (RESULTS.md: max|y|
+    # 2.9e10): a gradient that is not finite on the CPU must not be finite
+    # on the card either, and is reported; the loss is held within the
+    # larger of 1e-5 and ten times its own nudge spread.
+    def one(device, params, T_check, noise):
+        t = make_task(T_check, device=device, params=params)
+        rec = parity.make_train_step(t, stochastic=True)(
+            first["stims"].to(device), noise=tuple(x.to(device) for x in noise))
+        return rec, {k: p.grad.detach().cpu().clone() for k, p in t.params.items()}
+
+    def finite(x):
+        return bool(torch.isfinite(x).all())
+
+    cpu_check = {}
+    for T_check, held in ((GRAD_T, None), (OUT_T, ("output_weights",))):
+        _, i1, i10, _, _ = brownian_pack(gen, make_task(T_check).ts, (B, 1))
+        rec_k, grads_k = one(dev, first["params"], T_check, (i1, i10))
+        t0 = time.perf_counter()
+        rec_c, grads_c = one("cpu", first["params"], T_check, (i1, i10))
+        cpu_s = time.perf_counter() - t0
+        rec_n, grads_n = one(dev, {k: v * (1.0 + 1e-7) for k, v in first["params"].items()},
+                             T_check, (i1, i10))
+        keys = [k for k in (held or grads_k) if finite(grads_c[k])]
+        not_finite = [k for k in (held or grads_k) if not finite(grads_c[k])]
+        spread = {k: rel_l2(grads_n[k], grads_k[k]) for k in keys}
+        tol = {k: max(3e-2, 10.0 * spread[k]) for k in keys}
+        loss_k, loss_c, loss_n = (float(r["loss"]) for r in (rec_k, rec_c, rec_n))
+        loss_tol = max(1e-5, 10.0 * abs(loss_n - loss_k) / abs(loss_k))
+        entry = {"T": T_check, "held": keys, "not_finite_on_either": not_finite,
+                 "loss": loss_k, "loss_rel": abs(loss_k - loss_c) / abs(loss_c),
+                 "loss_tol": loss_tol, "grad_norm": float(rec_k["gnorm"]),
+                 "grad_rel_l2": {k: rel_l2(grads_k[k], grads_c[k]) for k in keys},
+                 "card_grad_spread_under_1e-7_nudge": spread, "tol": tol, "cpu_seconds": cpu_s}
+        check(entry["loss_rel"] < loss_tol
+              and all(entry["grad_rel_l2"][k] < tol[k] for k in keys)
+              and not any(finite(grads_k[k]) for k in not_finite),
+              f"card vs CPU fixed-grid step at 104 columns: {entry}")
+        cpu_check[f"{T_check}_points"] = entry
+    emit("fixedgrid104_main_path", columns=sum(FG_CPA), lanes=B, T=PARITY_T, history=history,
+         launches=main_launches, cpu_check=cpu_check)
+
+    # -- 34. times, profile and the command line -----------------------------------
+    model = parity.sde_model(task.params, task, first["stims"])
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    ys = ns.replay3_fwd(y0, *grid_u, n, pw, model.sc, model.kv)
+    _, seeds = ns.replay3_bwd_emit(ys[:-1], ysbar, grid_u[0], grid_u[1], grid_u[3], n, 0, pw,
+                                   model.sc, model.kv)
+    t0o, ho = sf.outer_step_times(task.ts)
+    t0o = t0o.to(dev)
+    calls = {
+        "sde3_fwd_team": lambda: ns.replay3_fwd(y0, *grid_u, n, pw, model.sc, model.kv),
+        "sde3_bwd_emit": lambda: ns.replay3_bwd_emit(ys[:-1], ysbar, grid_u[0], grid_u[1],
+                                                     grid_u[3], n, 0, pw, model.sc, model.kv),
+        "outer_arg_grads_split3": lambda: sf.outer_arg_grads_split3(
+            ys[:-1], seeds, t0o, torch.full_like(t0o, ho), grid_u[3], pw, model.sc, model.kv),
+    }
+    times = {name: cuda_ms(fn, reps=2, warmup=1) for name, fn in calls.items()}
+    bounds = {"sde3_fwd_team": sde3_bound("sde3_fwd", P, B, n_in, K, B * n, n),
+              "sde3_bwd_emit": sde3_bound("sde3_bwd_emit", P, B, n_in, K, B * n, n),
+              "outer_arg_grads_split3": outer_bound(P, B, n_in, K, n)}
+    step_ms = step_s[-1] * 1e3
+    seed = {k: p.detach().clone() for k, p in task.params.items()}
+    _, i1p, i10p, _, _ = brownian_pack(gen, task.ts, (B, 1))
+
+    def seed_step(i=0):
+        with torch.no_grad():
+            for k, p in task.params.items():
+                p.copy_(seed[k])
+        return step(first["stims"], noise=(i1p, i10p))
+
+    seed_step()
+    seed_ms = timed(seed_step)[1]
+    wall, by_kernel = device_profile(seed_step, 1)
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit("fixedgrid104_times", lanes=B, T=PARITY_T, steps=n, ms=times,
+         ns_per_step={k: v * 1e6 / n for k, v in times.items()},
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()},
+         plain_ms={**plain_ms, "at": f"{FG_W} steps"},
+         step={"ms": step_ms, "samples_per_s": B * 1e3 / step_ms, "seconds": step_s},
+         profile={"step_ms": seed_ms, "profiled_wall_ms_per_step": wall,
+                  "device_busy_ms_per_step": busy if busy else "not measured",
+                  "idle_share": 1.0 - busy / seed_ms if busy else "not measured",
+                  "top_ms_per_step": dict(top)})
+    argv = ["--smoke", "--stochastic", "--columns-per-area", "64,32,8"]
+    last, secs = run_command_line("parity", argv)
+    emit("fixedgrid104_command_line", argv=" ".join(argv), seconds=secs, result=last)
+    path = "parity104 --stochastic (fixed grid, outer mode)"
+    return [{"name": name, "route": "cuda", "source": FG_SOURCE,
+             "replaces": ("columnflow/solvers/fused.py:845" if name == "sde3_fwd_team"
+                          else "columnflow/solvers/fused.py:920"),
+             "launches": main_launches[name], "max_abs_err": errs[name], "ms": times[name],
+             "plain_ms": plain_ms[name], "plain_ms_at": f"{FG_W} steps",
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+             "lanes": B, "path": path, "bit_for_bit": same[name],
+             "bit_for_bit_312_columns": same[name + "_312"],
+             "ns_per_serial_step": times[name] * 1e6 / n}
+            for name in ("sde3_fwd_team", "sde3_bwd_emit")]
+
 def main() -> int:
     import torch
 
@@ -2814,7 +3132,8 @@ def main() -> int:
     cfg = ColumnConfig.load()
     line = (wta_phases(dev, cfg) + parity_phases(dev, cfg) + ode_phases(dev, cfg)
             + split2_phases(dev, cfg) + xor_phases(dev, cfg) + hopf_phases(dev, cfg)
-            + stochastic13_phases(dev, cfg) + bench104_phases(dev, cfg))
+            + stochastic13_phases(dev, cfg) + bench104_phases(dev, cfg)
+            + fixedgrid104_phases(dev, cfg))
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

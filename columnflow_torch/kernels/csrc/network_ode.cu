@@ -46,7 +46,7 @@
 //  - The selection (both tiers) and the split2 tier's replay and emit-mode
 //    sweep: a team of blocks (one thread-block cluster) per lane, or for
 //    the batch in the selection, the weights read from L2, the states in
-//    global memory (the second half of this file says how). The selection
+//    global memory (team.cuh says how). The selection
 //    has ONE controller for the whole (B, 3P) state (the error ratio is an
 //    RMS over all lanes), so its team holds every lane and reduces the norm
 //    over its blocks in a fixed order.
@@ -64,8 +64,7 @@
 
 #include "dopri5.cuh"
 #include "split3_drift.cuh"
-
-#include <cooperative_groups.h>
+#include "team.cuh"
 
 namespace {
 
@@ -257,352 +256,12 @@ int prepare(Kern kernel, int P, int n_in, int K, int nb, int vectors, size_t ext
 
 
 // ---------------------------------------------------------------------------
-// Teams: the selection at any width and the split2 tier, a team of kCluster
-// blocks per lane (per batch in the selection), the weights streamed from L2
+// Teams (team.cuh): the selection at any width and the split2 tier, a team
+// of kCluster blocks per lane (per batch in the selection), the weights
+// streamed from L2
 // ---------------------------------------------------------------------------
-//
-// At P = 832 (104 columns) nothing of a step fits one block: the three-term
-// matrices are 4.15 MB, the two-term ones 2.77 MB, and the selection's ten
-// batch states 400 KB. So a drift evaluation is spread over the kCluster
-// blocks of one thread-block cluster (a "team"): block r owns the
-// populations [r P/kCluster, (r+1) P/kCluster) of every lane it holds,
-// i.e. their v, a and r entries, and every elementwise operation of the
-// step on them. The state vectors live in global memory (L2), each block
-// touching only its own entries, so a block barrier orders them. Per drift
-// evaluation a block computes the rates of its populations, splits them
-// into bf16 terms and stores those into every block's shared memory
-// (distributed shared memory), one cluster barrier, then each block runs
-// the (P, P) products for its own output columns, reading the matrices
-// from global memory (L2-resident: the card has 50 MB). A VJP exchanges
-// the current's cotangent the same way and runs the transposed products on
-// transposed copies of the two-term matrices. The exchange buffers are
-// double-buffered: a block writes buffer p of exchange n only after the
-// barrier of exchange n-1, which every block reaches after its products of
-// exchange n-2, the last reads of buffer p. The selection's error norm is
-// a block sum per block, stored into every block and summed in rank order,
-// so every block takes the same accept decision from the same bits.
-//
-// Where the time goes: each product is a matrix-vector product per lane
-// (2 P^2 operations, 0.7-1.4 MB of bf16 weights from L2), so a step is
-// latency- and L2-bound on 8 SMs per team; the four lanes of the replay and
-// its reverse sweep run as four teams (32 SMs). The sums are float64 as
-// above (bf16 times bf16 or float32 terms are exact in float64), split
-// over up to kMaxSplit thread groups along k when a block has fewer output
-// columns than threads; the groups' partial sums add in group order.
 
-namespace cg = cooperative_groups;
-
-constexpr int kCluster = 8;
-constexpr int kMaxSplit = 8;
 constexpr int kSelLanes = 4;  // lanes per thread in the selection's products
-
-// The weights in global memory.
-struct Wg {
-  const bf16 *hi, *mid, *lo;  // (P, P) terms of wT (lo: the three-term split only)
-  const bf16 *hiT, *midT;     // their transposes (the reverse sweep)
-  const float* iw;            // (n_in, P)
-};
-
-// One block's share of a team, and its shared memory.
-struct Team {
-  int rank, c0, nc;     // this block owns populations [c0, c0 + nc)
-  int nb, b0, S;        // lanes b0 .. b0 + nb - 1 of the knot table; S = 3P
-  int par, rpar;        // exchange and reduction buffer in use
-  unsigned char* ex[2]; // exchange buffers: bf16 terms (term, lane, P) or float (lane, P)
-  float* fr;            // (nb, nc) own rates, or their derivative in a VJP
-  float* ext;           // (nb, kMaxInputs) stimulus
-  double* part;         // (G, output slots, lanes per thread, np) partial sums of the k groups
-  double* red;          // (kThreads / 32) block reduction
-  double* cred;         // (2, kCluster) team reduction
-};
-
-__host__ __device__ inline int split_of(int nout) {
-  const int g = kThreads / nout;
-  return 2 * nout <= kThreads ? (g < kMaxSplit ? g : kMaxSplit) : 1;
-}
-
-__host__ __device__ inline size_t ex_bytes(int P, int nb, int nterms) {
-  const size_t t = (size_t)nterms * nb * P * sizeof(bf16), f = (size_t)nb * P * sizeof(float);
-  return ((t > f ? t : f) + 15) / 16 * 16;
-}
-
-// Output slots of a block's products: a thread computes one population for
-// lb lanes (the selection: 4, so one weight load serves four lanes).
-__host__ __device__ inline int out_slots(int nb, int nc, int lb) { return (nb + lb - 1) / lb * nc; }
-
-// Bytes of shared memory a team block uses: nterms bf16 terms exchanged per
-// drift evaluation, np products per output, lb lanes per thread.
-size_t team_smem(int P, int nb, int nterms, int np, int lb) {
-  const int nc = P / kCluster, nout = out_slots(nb, nc, lb), G = split_of(nout);
-  const size_t d = (G > 1 ? (size_t)G * nout * lb * np : 0) + kThreads / 32 + 2 * kCluster;
-  const size_t f = (size_t)nb * nc + (size_t)nb * kMaxInputs;
-  return (d * sizeof(double) + f * sizeof(float) + 15) / 16 * 16 + 2 * ex_bytes(P, nb, nterms);
-}
-
-__device__ void team_init(Team& T, unsigned char* sm, int P, int nb, int b0, int nterms,
-                          int np, int lb) {
-  T.rank = (int)cg::this_cluster().block_rank();
-  T.nc = P / kCluster;
-  T.c0 = T.rank * T.nc;
-  T.nb = nb;
-  T.b0 = b0;
-  T.S = 3 * P;
-  T.par = T.rpar = 0;
-  const int nout = out_slots(nb, T.nc, lb), G = split_of(nout);
-  double* d = reinterpret_cast<double*>(sm);
-  T.part = d;
-  d += G > 1 ? (size_t)G * nout * lb * np : 0;
-  T.red = d;
-  d += kThreads / 32;
-  T.cred = d;
-  d += 2 * kCluster;
-  float* f = reinterpret_cast<float*>(d);
-  T.fr = f;
-  f += nb * T.nc;
-  T.ext = f;
-  f += nb * kMaxInputs;
-  unsigned char* e = sm + ((reinterpret_cast<unsigned char*>(f) - sm) + 15) / 16 * 16;
-  T.ex[0] = e;
-  T.ex[1] = e + ex_bytes(P, nb, nterms);
-  // Every block of the cluster has started before any writes into another's
-  // shared memory. (None writes after its last cluster barrier, so a block
-  // may leave when it is done.)
-  cg::this_cluster().sync();
-}
-
-// Offset in a (nb, 3P) state of this block's own element e (0 <= e < 3 nb nc).
-__device__ __forceinline__ int own_off(const Team& T, int P, int e) {
-  const int per = 3 * T.nc;
-  const int b = e / per, r = e - b * per, comp = r / T.nc;
-  return b * T.S + comp * P + T.c0 + (r - comp * T.nc);
-}
-
-__device__ __forceinline__ int own_count(const Team& T) { return 3 * T.nb * T.nc; }
-
-// Sum of v over every thread of the team, the same double in every block.
-__device__ double team_sum(Team& T, double v) {
-  cg::cluster_group cl = cg::this_cluster();
-  const double tot = block_sum(v, T.red);
-  if (threadIdx.x == 0)
-    for (int q = 0; q < kCluster; ++q)
-      cl.map_shared_rank(T.cred, q)[T.rpar * kCluster + T.rank] = tot;
-  cl.sync();
-  double all = 0.0;
-  for (int q = 0; q < kCluster; ++q) all += T.cred[T.rpar * kCluster + q];
-  T.rpar ^= 1;
-  return all;
-}
-
-__device__ __forceinline__ double bfd(bf16 x) { return (double)__bfloat162float(x); }
-
-// The rates of the own populations of every lane at y, split into NT bf16
-// terms and stored into every block's exchange buffer; the stimulus at t.
-// Ends with the cluster barrier.
-template <int NT>
-__device__ void share_terms(const Net& n, Team& T, float t, const float* y) {
-  cg::cluster_group cl = cg::this_cluster();
-  const int P = n.P, nb = T.nb;
-  bf16* mine = reinterpret_cast<bf16*>(T.ex[T.par]);
-  for (int e = threadIdx.x; e < nb * T.nc; e += blockDim.x) {
-    const int b = e / T.nc, c = T.c0 + (e - b * T.nc);
-    const float fr = firing_rate(y[b * T.S + c] - y[b * T.S + P + c]);
-    T.fr[e] = fr;
-    bf16 term[NT];
-    const float hi = bf16r(fr);
-    term[0] = __float2bfloat16_rn(fr);
-    if constexpr (NT == 2) {
-      term[1] = __float2bfloat16_rn(fr - hi);
-    } else {
-      const float r = fr - hi;
-      const float mid = bf16r(r);
-      term[1] = __float2bfloat16_rn(r);
-      term[2] = __float2bfloat16_rn(r - mid);
-    }
-    for (int q = 0; q < kCluster; ++q) {
-      bf16* dst = cl.map_shared_rank(mine, q);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) dst[((size_t)j * nb + b) * P + c] = term[j];
-    }
-  }
-  for (int idx = threadIdx.x; idx < nb * n.n_in; idx += blockDim.x) {
-    const int b = idx / n.n_in, m = idx - b * n.n_in;
-    T.ext[b * kMaxInputs + m] = knot_interp(n, T.b0 + b, m, t);
-  }
-  cl.sync();
-}
-
-// The drift's output at own column col of lane b from its product sums p:
-// three-term (NP = 6) rec = x_hi W_lo + x_mid W_mid + x_lo W_hi + x_hi W_mid
-// + x_mid W_hi + x_hi W_hi, two-term (NP = 3) rec = x_hi W_hi + x_hi W_mid +
-// x_mid W_hi, each rounded to float32 and added left to right.
-template <int NP>
-__device__ void drift_out(const Net& n, const Team& T, int b, int col, int oo, const double* p,
-                          const float* y, float* out, const Wg& w) {
-  const int P = n.P;
-  float rec = (float)p[0];
-#pragma unroll
-  for (int j = 1; j < NP; ++j) rec = rec + (float)p[j];
-  double e = 0.0;
-  for (int m = 0; m < n.n_in; ++m)
-    e = fma((double)T.ext[b * kMaxInputs + m], (double)w.iw[(size_t)m * P + col], e);
-  const float current = (rec + (float)e) + n.bg[col];
-  const float total = current * n.tau_s;
-  const size_t base = (size_t)b * T.S;
-  const float fr = T.fr[oo];
-  out[base + col] = (-y[base + col] + total * n.R) / n.tau_m;
-  out[base + P + col] = (-y[base + P + col] + n.adapt[col] * fr) / n.tau_a;
-  out[base + 2 * P + col] = (-y[base + 2 * P + col] + fr) / n.tau_s;
-}
-
-// One drift evaluation of the team's lanes at the shared time t: y -> out
-// (nb, 3P), both in global memory, own entries only; NT = 3: the three-term
-// split, NT = 2: the two-term one. A thread computes one population for LB
-// lanes at a time, over one of G groups of k. Ends with a block barrier.
-template <int NT, int LB>
-__device__ void drift_team(const Net& n, Team& T, float t, const float* y, float* out,
-                           const Wg& w) {
-  constexpr int NP = NT == 3 ? 6 : 3;
-  share_terms<NT>(n, T, t, y);
-  const int P = n.P, nb = T.nb, nout = out_slots(nb, T.nc, LB), G = split_of(nout);
-  const int kc = (P + G - 1) / G;
-  const bf16* X = reinterpret_cast<const bf16*>(T.ex[T.par]);
-  for (int o = threadIdx.x; o < nout * G; o += blockDim.x) {
-    const int g = o / nout, oo = o - g * nout, grp = oo / T.nc, col = T.c0 + (oo - grp * T.nc);
-    const int b0 = grp * LB, nl = min(LB, nb - b0);
-    double p[LB][NP];
-#pragma unroll
-    for (int l = 0; l < LB; ++l) {
-#pragma unroll
-      for (int j = 0; j < NP; ++j) p[l][j] = 0.0;
-    }
-    const int k1 = min(P, (g + 1) * kc);
-#pragma unroll 4
-    for (int k = g * kc; k < k1; ++k) {
-      const size_t at = (size_t)k * P + col;
-      const double wh = bfd(w.hi[at]), wm = bfd(w.mid[at]);
-      double wl = 0.0;
-      if constexpr (NT == 3) wl = bfd(w.lo[at]);
-#pragma unroll
-      for (int l = 0; l < LB; ++l) {
-        if (l < nl) {
-          const int b = b0 + l;
-          const double a = bfd(X[(size_t)b * P + k]), c = bfd(X[((size_t)nb + b) * P + k]);
-          if constexpr (NT == 3) {
-            const double d = bfd(X[((size_t)2 * nb + b) * P + k]);
-            p[l][0] = fma(a, wl, p[l][0]);
-            p[l][1] = fma(c, wm, p[l][1]);
-            p[l][2] = fma(d, wh, p[l][2]);
-            p[l][3] = fma(a, wm, p[l][3]);
-            p[l][4] = fma(c, wh, p[l][4]);
-            p[l][5] = fma(a, wh, p[l][5]);
-          } else {
-            p[l][0] = fma(a, wh, p[l][0]);
-            p[l][1] = fma(a, wm, p[l][1]);
-            p[l][2] = fma(c, wh, p[l][2]);
-          }
-        }
-      }
-    }
-    if (G == 1) {
-      for (int l = 0; l < nl; ++l)
-        drift_out<NP>(n, T, b0 + l, col, (b0 + l) * T.nc + (col - T.c0), p[l], y, out, w);
-    } else {
-#pragma unroll
-      for (int l = 0; l < LB; ++l) {
-#pragma unroll
-        for (int j = 0; j < NP; ++j) T.part[(((size_t)g * nout + oo) * LB + l) * NP + j] = p[l][j];
-      }
-    }
-  }
-  if (G > 1) {
-    __syncthreads();
-    for (int oo = threadIdx.x; oo < nout; oo += blockDim.x) {
-      const int grp = oo / T.nc, col = T.c0 + (oo - grp * T.nc);
-      const int b0 = grp * LB, nl = min(LB, nb - b0);
-      for (int l = 0; l < nl; ++l) {
-        double q[NP];
-#pragma unroll
-        for (int j = 0; j < NP; ++j) q[j] = T.part[((size_t)oo * LB + l) * NP + j];
-        for (int g = 1; g < G; ++g) {
-#pragma unroll
-          for (int j = 0; j < NP; ++j) q[j] += T.part[(((size_t)g * nout + oo) * LB + l) * NP + j];
-        }
-        drift_out<NP>(n, T, b0 + l, col, (b0 + l) * T.nc + (col - T.c0), q, y, out, w);
-      }
-    }
-  }
-  T.par ^= 1;
-  __syncthreads();
-}
-
-// The state cotangent of one two-term drift evaluation at y for the output
-// cotangent ct -> out, own entries, with jax.vjp's rounding points:
-// m = bf16(c W_hi^T), q = bf16(c W_mid^T), x_bar = m + bf16(bf16(m + q) - m).
-// Ends with a block barrier.
-__device__ void vjp2_out(const Net& n, const Team& T, int b, int k, int oo, double dm, double dq,
-                         const float* ct, float* out) {
-  const int P = n.P;
-  const float m = bf16r((float)dm), q = bf16r((float)dq);
-  const float xbar = m + bf16r(bf16r(m + q) - m);
-  const size_t base = (size_t)b * T.S;
-  const float cv = ct[base + k], ca = ct[base + P + k], cr = ct[base + 2 * P + k];
-  const float c_fr = (xbar + n.adapt[k] * (ca / n.tau_a)) + cr / n.tau_s;
-  const float c_x = T.fr[oo] * c_fr;
-  out[base + k] = -(cv / n.tau_m) + c_x;
-  out[base + P + k] = -(ca / n.tau_a) - c_x;
-  out[base + 2 * P + k] = -(cr / n.tau_s);
-}
-
-__device__ void vjp2_team(const Net& n, Team& T, const float* y, const float* ct, float* out,
-                          const Wg& w) {
-  cg::cluster_group cl = cg::this_cluster();
-  const int P = n.P, nb = T.nb;
-  float* mine = reinterpret_cast<float*>(T.ex[T.par]);
-  for (int e = threadIdx.x; e < nb * T.nc; e += blockDim.x) {
-    const int b = e / T.nc, c = T.c0 + (e - b * T.nc);
-    float fr, frp;
-    fr_and_grad(y[b * T.S + c] - y[b * T.S + P + c], fr, frp);
-    T.fr[e] = frp;
-    const float cc = ((ct[b * T.S + c] / n.tau_m) * n.R) * n.tau_s;
-    for (int q = 0; q < kCluster; ++q) cl.map_shared_rank(mine, q)[(size_t)b * P + c] = cc;
-  }
-  cl.sync();
-  const float* C = mine;
-  const int nout = nb * T.nc, G = split_of(nout), kc = (P + G - 1) / G;
-  for (int o = threadIdx.x; o < nout * G; o += blockDim.x) {
-    const int g = o / nout, oo = o - g * nout, b = oo / T.nc, k = T.c0 + (oo - b * T.nc);
-    const float* cb = C + (size_t)b * P;
-    double dm = 0.0, dq = 0.0;
-    const int j1 = min(P, (g + 1) * kc);
-#pragma unroll 4
-    for (int j = g * kc; j < j1; ++j) {
-      const size_t at = (size_t)j * P + k;
-      const double c = cb[j];
-      dm = fma(c, bfd(w.hiT[at]), dm);
-      dq = fma(c, bfd(w.midT[at]), dq);
-    }
-    if (G == 1) {
-      vjp2_out(n, T, b, k, oo, dm, dq, ct, out);
-    } else {
-      T.part[((size_t)g * nout + oo) * 2] = dm;
-      T.part[((size_t)g * nout + oo) * 2 + 1] = dq;
-    }
-  }
-  if (G > 1) {
-    __syncthreads();
-    for (int oo = threadIdx.x; oo < nout; oo += blockDim.x) {
-      double dm = T.part[(size_t)oo * 2], dq = T.part[(size_t)oo * 2 + 1];
-      for (int g = 1; g < G; ++g) {
-        dm += T.part[((size_t)g * nout + oo) * 2];
-        dq += T.part[((size_t)g * nout + oo) * 2 + 1];
-      }
-      const int b = oo / T.nc;
-      vjp2_out(n, T, b, T.c0 + (oo - b * T.nc), oo, dm, dq, ct, out);
-    }
-  }
-  T.par ^= 1;
-  __syncthreads();
-}
 
 // Stage state i over the own entries: out = y + sum_j (h a_ij) k_j.
 __device__ void stage_own(const Team& T, int P, int i, float h, const float* y,
@@ -884,15 +543,6 @@ ode_replay_bwd_emit_kernel(Net n, int n_steps, Wg w, const float* __restrict__ s
   }
 }
 
-template <typename Kern>
-int team_prepare(Kern kernel, int P, int n_in, int K, int nb, int nterms, int np, int lb,
-                 size_t* bytes) {
-  if (int e = check_shape(P, n_in, K)) return e;
-  if (P % kCluster) return (int)cudaErrorInvalidValue;
-  *bytes = team_smem(P, nb, nterms, np, lb);
-  return set_smem(kernel, *bytes);
-}
-
 }  // namespace
 
 extern "C" {
@@ -934,7 +584,7 @@ int cf_ode_select(int B, int P, int n_in, int K, const float* hc, const float* h
                      void* stream) {
   size_t bytes;
   if (int e = team_prepare(ode_select_kernel, P, n_in, K, B, 3, 6, kSelLanes, &bytes)) return e;
-  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, iw};
+  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, nullptr, iw};
   ode_select_kernel<<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
       make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, use_initial, max_steps), w, y0,
       scr, st, stats);
@@ -948,7 +598,7 @@ int cf_ode_attempt(int B, int P, int n_in, int K, const float* hc, const float* 
                       float* f1, float* rec, void* stream) {
   size_t bytes;
   if (int e = team_prepare(ode_attempt_kernel, P, n_in, K, B, 3, 6, kSelLanes, &bytes)) return e;
-  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, iw};
+  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, nullptr, iw};
   ode_attempt_kernel<<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
       make_net(B, P, n_in, K, hc, bg, adapt, kv), make_sel(hs, 0, 0), w, t, h, y, f0, scr, y1,
       f1, rec);
@@ -962,7 +612,7 @@ int cf_ode_replay_fwd_split2(int B, int P, int n_in, int K, const float* hc, int
                              void* stream) {
   size_t bytes;
   if (int e = team_prepare(ode_replay_fwd_split2_kernel, P, n_in, K, 1, 2, 3, 1, &bytes)) return e;
-  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, nullptr, nullptr, iw};
+  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, nullptr, nullptr, nullptr, iw};
   if (B > 0)
     ode_replay_fwd_split2_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
         make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, y0, scr, ys, coeffs);
@@ -976,7 +626,8 @@ int cf_ode_replay_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n
                            float* ybar, float* ybar_steps, void* stream) {
   size_t bytes;
   if (int e = team_prepare(ode_replay_bwd_emit_kernel, P, n_in, K, 1, 2, 3, 1, &bytes)) return e;
-  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, (const bf16*)hiT, (const bf16*)midT, iw};
+  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, (const bf16*)hiT, (const bf16*)midT,
+             nullptr, iw};
   if (B > 0)
     ode_replay_bwd_emit_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
         make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, ys, cobar, scr, ybar,

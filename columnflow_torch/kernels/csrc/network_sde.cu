@@ -21,6 +21,12 @@
 //   cf_sde3_bwd        <- _make_sde_bwd_chunk_kernel in kernel mode on the
 //                         three-term split (B4't): the state cotangent and the
 //                         wT / iwT cotangents in the kernel
+//   cf_sde3_fwd_team   <- B3t as a team of blocks per lane (B3t-team), for
+//                         widths whose three-term weights do not fit a block
+//   cf_sde3_bwd_emit   <- _make_sde_bwd_chunk_kernel, emit_steps, on the
+//                         three-term split (B4t): the state cotangent alone
+//                         and each step's total output cotangent (seed), a
+//                         team of blocks per lane
 // The JAX kernels trace any drift; these are written for the premixed
 // column-network drift (network_drift_premixed) with a knot stimulus and
 // constant diffusion: select16 (bf16) or float32 weights in the selection,
@@ -43,6 +49,13 @@
 // split weights in shared memory (65 KB at P = 104), B3t one block per
 // lane, B4't the batch in one block, because jax.vjp contracts each
 // product's weight cotangent over the lanes before rounding it to bf16.
+// From ~24 columns the three-term weights (6 P^2 bytes) no longer fit a
+// block: B3t-team and B4t run each lane on a team of 8 blocks (team.cuh),
+// the six bf16 (P, P) terms and transposes streamed from L2 (8.3 MB at
+// P = 832), the lane's state vectors in global memory. B4t forms no weight
+// cotangent, so its lanes are independent: the weight gradients are taken
+// outside the kernel from the seeds it emits (solvers/fused.py
+// outer_arg_grads_split3).
 //
 // Precision. Elementwise arithmetic is float32 with full-precision
 // expf/tanhf/logf/sqrtf and IEEE division, compiled with -fmad=false so
@@ -56,6 +69,7 @@
 // bf16 roundings of the reverse sweep's cotangents round the same way.
 
 #include "split3_drift.cuh"
+#include "team.cuh"
 
 namespace {
 
@@ -907,6 +921,131 @@ sde3_bwd_kernel(Net n, Grid3 g, int stride, int chunk, const float* __restrict__
   for (int i = threadIdx.x; i < N; i += blockDim.x) ybar_out[i] = yb[i];
 }
 
+// ---------------------------------------------------------------------------
+// The three-term sweeps as teams (team.cuh): lane blockIdx.x / kCluster, one
+// team of kCluster blocks each, the split's terms in global memory (L2), the
+// lane's state vectors in global scratch, each block touching its own
+// populations' entries only.
+// ---------------------------------------------------------------------------
+
+// B3t-team: the step and the rows of sde3_fwd_kernel. scr: 4 (3P) floats
+// per lane (y, f1, h2, f2).
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+sde3_fwd_team_kernel(Net n, Grid3 g, Wg w, const float* __restrict__ y0, float* scr,
+                     float* __restrict__ ys) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team T;
+  const int b = blockIdx.x / kCluster;
+  team_init(T, smt, n.P, 1, b, 3, 6, 1);
+  const int P = n.P, S = T.S, B = n.B;
+  float* y = scr + (size_t)b * 4 * S;
+  float* f1 = y + S;
+  float* h2 = f1 + S;
+  float* f2 = h2 + S;
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, P, e);
+    y[off] = y0[(size_t)b * S + off];
+    ys[(size_t)b * S + off] = y[off];
+  }
+  __syncthreads();
+  for (int k = 0; k < g.n_real; ++k) {
+    const float t0 = g.t0s[g.at(k, b, B)], h = g.hs[g.at(k, b, B)];
+    const float di1 = g.i1[(size_t)k * B + b];
+    const float i10h = g.i10[(size_t)k * B + b] / (h > 0.0f ? h : 1.0f);
+    drift_team<3, 1>(n, T, t0, y, f1, w);
+    const float a = 0.75f * h, kk = 1.5f * i10h;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      h2[off] = (y[off] + a * f1[off]) + kk * n.sigma;
+    }
+    __syncthreads();
+    drift_team<3, 1>(n, T, t0 + 0.75f * h, h2, f2, w);
+    float* out = ys + ((size_t)(k + 1) * B + b) * S;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      y[off] = sra1_final(y[off], f1[off], f2[off], h, di1, i10h, n.sigma);
+      out[off] = y[off];
+    }
+    __syncthreads();
+  }
+  for (int k = g.n_real; k < g.n_steps; ++k) {
+    float* out = ys + ((size_t)(k + 1) * B + b) * S;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      out[off] = y[off];
+    }
+  }
+}
+
+// B4t: the state-only reverse sweep (emit mode). Over steps n_real-1..0,
+// with c = ybar + ysbar[k] written to seeds[k] (the total cotangent on step
+// k's output) and lane b's t0, h, i10h:
+//   f1 = f(t0, y);  h2 = (y + (0.75 h) f1) + (1.5 i10h) sigma
+//   c_h2 = f^T|_{h2} (((h c) / 3) 2);  c_y = f^T|_y ((h c) / 3 + (0.75 h) c_h2)
+//   ybar = (c + c_h2) + c_y, zeroed after every step k with k % stride == 0,
+// the order of step_vjp_split3. Rows of seeds from n_real on are zero, as
+// the JAX kernel zero-fills them. scr: 7 (3P) floats per lane.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+sde3_bwd_emit_kernel(Net n, Grid3 g, int stride, Wg w, const float* __restrict__ ys_prev,
+                     const float* __restrict__ ysbar, float* scr, float* __restrict__ ybar_out,
+                     float* __restrict__ seeds) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team T;
+  const int b = blockIdx.x / kCluster;
+  team_init(T, smt, n.P, 1, b, 3, 6, 1);
+  const int P = n.P, S = T.S, B = n.B;
+  float* f1 = scr + (size_t)b * 7 * S;
+  float* h2 = f1 + S;
+  float* cc = h2 + S;
+  float* cw = cc + S;
+  float* ch2 = cw + S;
+  float* cy = ch2 + S;
+  float* yb = cy + S;
+  for (int k = g.n_real; k < g.n_steps; ++k) {
+    float* o = seeds + ((size_t)k * B + b) * S;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) o[own_off(T, P, e)] = 0.0f;
+  }
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) yb[own_off(T, P, e)] = 0.0f;
+  __syncthreads();
+  for (int k = g.n_real - 1; k >= 0; --k) {
+    const float t0 = g.t0s[g.at(k, b, B)], h = g.hs[g.at(k, b, B)];
+    const float i10h = g.i10[(size_t)k * B + b] / (h > 0.0f ? h : 1.0f);
+    const size_t kb = ((size_t)k * B + b) * S;
+    const float* y = ys_prev + kb;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      cc[off] = yb[off] + ysbar[kb + off];
+      seeds[kb + off] = cc[off];
+    }
+    __syncthreads();
+    drift_team<3, 1>(n, T, t0, y, f1, w);
+    const float a = 0.75f * h, kk = 1.5f * i10h;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      h2[off] = (y[off] + a * f1[off]) + kk * n.sigma;
+      cw[off] = ((h * cc[off]) / 3.0f) * 2.0f;
+    }
+    __syncthreads();
+    vjp3_team(n, T, h2, cw, ch2, w);
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      cw[off] = (h * cc[off]) / 3.0f + a * ch2[off];
+    }
+    __syncthreads();
+    vjp3_team(n, T, y, cw, cy, w);
+    const bool cut = stride > 0 && k % stride == 0;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      yb[off] = cut ? 0.0f : (cc[off] + ch2[off]) + cy[off];
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, P, e);
+    ybar_out[(size_t)b * S + off] = yb[off];
+  }
+}
+
 Sel make_sel(const float* hs, int max_steps, int depth) {
   return Sel{hs[0], hs[1], hs[2], hs[3], hs[4], hs[5], max_steps, depth};
 }
@@ -1017,6 +1156,46 @@ int cf_sde3_bwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int
   sde3_bwd_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
       make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, chunk, wT, iwT, ys_prev, ysbar,
       ybar, d_wT, d_iwT, work);
+  return (int)cudaGetLastError();
+}
+
+// The three-term sweeps as teams (B3t-team, B4t). hi, mid, lo: the bf16
+// (P, P) terms of wT (prepare_premixed_split); hiT, midT, loT their
+// transposes; iwT float32 (n_in, P); lanes, t0s, hs, i1, i10 as cf_sde3_fwd;
+// scr: global scratch, 4 (fwd) or 7 (bwd) B 3P floats. P must be a
+// multiple of 8.
+int cf_sde3_fwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                     int lanes, const float* bg, const float* adapt, const void* hi,
+                     const void* mid, const void* lo, const float* iwT, const float* kv,
+                     const float* t0s, const float* hs, const float* i1, const float* i10,
+                     const float* y0, float* scr, float* ys, void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(sde3_fwd_team_kernel, P, n_in, K, 1, 3, 6, 1, &bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, nullptr, iwT};
+  const Grid3 g{n_steps, n_real, lanes, t0s, hs, i1, i10};
+  if (B > 0)
+    sde3_fwd_team_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), g, w, y0, scr, ys);
+  return (int)cudaGetLastError();
+}
+
+// ys_prev, ysbar, seeds (n_steps, B, 3P); ybar (B, 3P); stride: truncation
+// every stride steps (0: none).
+int cf_sde3_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                     int lanes, int stride, const float* bg, const float* adapt, const void* hi,
+                     const void* mid, const void* lo, const void* hiT, const void* midT,
+                     const void* loT, const float* iwT, const float* kv, const float* t0s,
+                     const float* hs, const float* i10, const float* ys_prev,
+                     const float* ysbar, float* scr, float* ybar, float* seeds, void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(sde3_bwd_emit_kernel, P, n_in, K, 1, 3, 6, 1, &bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, (const bf16*)hiT,
+             (const bf16*)midT, (const bf16*)loT, iwT};
+  const Grid3 g{n_steps, n_real, lanes, t0s, hs, nullptr, i10};
+  if (B > 0)
+    sde3_bwd_emit_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, w, ys_prev, ysbar, scr, ybar,
+        seeds);
   return (int)cudaGetLastError();
 }
 

@@ -13,9 +13,14 @@ with a plain PyTorch version beside it that repeats its arithmetic:
     replay_fwd      cf_sde_replay_fwd   _replay_fwd_plain  fused.py _make_sde_chunk_kernel, lanes (B3)
     replay_bwd      cf_sde_replay_bwd   _replay_bwd_plain  fused.py _make_sde_bwd_chunk_kernel, emit (B4)
     replay3_fwd     cf_sde3_fwd         _replay3_fwd_plain _make_sde_chunk_kernel on the three-term
-                                                           split, lanes or uniform grid (B3t)
+                    (cf_sde3_fwd_team)                     split, lanes or uniform grid (B3t; as a
+                                                           team, B3t-team: ``sde3_fwd_route``)
     replay3_bwd     cf_sde3_bwd         _replay3_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
                                                            three-term split (B4't)
+    replay3_bwd_emit
+                    cf_sde3_bwd_emit    _replay3_bwd_emit_plain
+                                                           the same body, emit mode, three-term
+                                                           split (B4t)
 
 The JAX kernels trace any drift. These compute the parity task's drift:
 ``network_drift_premixed`` with the knot stimulus and the constant
@@ -25,10 +30,14 @@ tree (``brownian="kernel"``, the JAX package's in-kernel pass) or from the
 of ``premix_select16`` (``drift="select16"``) or the float32 ones
 (``drift="f32"``). The split2 replay and its emit-mode sweep run on the
 two-term split of ``prepare_premixed_split2``; the three-term ones on
-``prepare_premixed_split``, with the weight cotangents in the sweep. The
-selection and the split2 sweeps run one thread block per lane; the
-three-term reverse sweep holds the batch in one block, because jax.vjp
-contracts each weight cotangent over the lanes before rounding it to bf16.
+``prepare_premixed_split``, with the weight cotangents in the sweep (kernel
+mode) or outside it (emit mode: the state cotangent and each step's seed).
+The selection and the split2 sweeps run one thread block per lane; the
+three-term kernel-mode reverse sweep holds the batch in one block, because
+jax.vjp contracts each weight cotangent over the lanes before rounding it
+to bf16. Where the three-term weights do not fit a block (from ~24 columns),
+the forward and the emit-mode sweep run each lane on a team of 8 blocks
+with the weights in L2.
 
 The wrappers take the plain version for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise. ``LAUNCHES`` counts kernel
@@ -72,7 +81,11 @@ SIGMA = NETWORK_NOISE_STD
 _SAFETY, _IFACTOR, _DFACTOR = 0.9, 5.0, 0.2
 _PI_A, _PI_B, _ERR_EXP = 0.5, 0.25, 0.5
 LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_replay_fwd": 0, "sde_replay_bwd": 0,
-            "sde3_fwd": 0, "sde3_bwd": 0}
+            "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0}
+# What a thread block can hold (sm_90: 227 KB of shared memory), and the
+# kernels' layout constants (csrc/network_drift.cuh kThreads, kMaxInputs).
+SMEM_BLOCK_BYTES = 232448
+_THREADS, _MAX_INPUTS = 512, 16
 # The kernels' codes of the two trees and of the selection drifts.
 TREES = {"kernel": 0, "jax": 1}
 SELECT_DRIFTS = {"select16": 0, "f32": 2}
@@ -240,6 +253,27 @@ def _replay3_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, chunk, pw, 
             d = [d[0] + part[0], d[1] + part[1]]
             part = [torch.zeros_like(p) for p in part]
     return ybar, d[0], d[1]
+
+
+@torch.no_grad()
+def _replay3_bwd_emit_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, pw, sc, kv):
+    """B4t's plain version, over steps n_real-1..0: (ybar, seeds), seeds[k]
+    = ybar + ysbar[k], the total cotangent on step k's output; the state
+    output of ``step_vjp_split3`` carries the sweep (its weight cotangents
+    are dropped), zeroed after every step k with k % stride == 0. Rows past
+    n_real are zero."""
+    w3 = prepare_premixed_split(pw, sc.fc)[0]
+    B = ys_prev.shape[1]
+    ybar = torch.zeros_like(ys_prev[0])
+    seeds = torch.zeros_like(ys_prev)
+    for k in range(n_real - 1, -1, -1):
+        t0, h = _lane_times(t0s, hs, k, B)
+        c = ybar + ysbar[k]
+        seeds[k] = c
+        ybar = step_vjp_split3(t0, h, ys_prev[k], i10[k, :, None], c, w3, sc, kv)[0]
+        if stride and k % stride == 0:
+            ybar = torch.zeros_like(ybar)
+    return ybar, seeds
 
 
 def lane_noise(words, t_start, t_end, depth, brownian: str = "kernel"):
@@ -555,12 +589,34 @@ def _replay3_named(t0s, hs, i10, pw, sc, kv, B, P, n_real):
             **_drift_named(sc, kv, B, P)}
 
 
+def sde3_fwd_route(P: int, n_in: int) -> str:
+    """Which kernel computes ``replay3_fwd`` on the card, by shape alone:
+    "block" (B3t, ``cf_sde3_fwd``) where one lane's three-term weights
+    (6 P^2 bytes), iwT and four state vectors fit the 232,448 bytes of
+    shared memory a block can use (``setup_floats`` of
+    csrc/split3_drift.cuh plus 4 (3P) floats), else "team" (B3t-team,
+    ``cf_sde3_fwd_team``: a team of 8 blocks per lane, the weights streamed
+    from L2). With 4 inputs that is "block" through 23 columns (P = 184)
+    and "team" from 24; 13 columns take "block", 64 through 312 "team"."""
+    floats = ((3 * P * P + 1) // 2 + n_in * P + 5 * P + _MAX_INPUTS + 1 + 2 * (_THREADS // 32)
+              + 4 * 3 * P)
+    return "block" if 4 * floats <= SMEM_BLOCK_BYTES else "team"
+
+
+def _split3_terms(pw, sc: SDEConsts):
+    """The bf16 (P, P) terms hi, mid, lo of ``prepare_premixed_split``
+    (the split the one-block kernels take in shared memory), contiguous."""
+    w3 = prepare_premixed_split(pw, sc.fc)[0]
+    return tuple(w3[k].contiguous() for k in ("wT_hi", "wT_mid", "wT_lo"))
+
+
 def replay3_fwd(y0, t0s, hs, i1, i10, n_real: int, pw, sc: SDEConsts, kv):
     """SRA1 on the three-term split of pw = {"wT", "iwT"} (float32): y0
     (B, 3P); t0s, hs (n, B) each lane's step times and sizes, or (n,) the
     uniform grid's for every lane; i1, i10 (n, B). The first ``n_real``
     steps are integrated, the rest are h == 0 padding. Returns ys
-    (n + 1, B, 3P)."""
+    (n + 1, B, 3P). On the card B3t or B3t-team, as ``sde3_fwd_route``
+    decides by shape before the launch."""
     B, S = y0.shape
     P, n = S // 3, t0s.shape[0]
     named = {"y0": (y0, _F32, (B, S)), "i1": (i1, _F32, (n, B)),
@@ -569,13 +625,59 @@ def replay3_fwd(y0, t0s, hs, i1, i10, n_real: int, pw, sc: SDEConsts, kv):
         return _replay3_fwd_plain(y0, t0s, hs, i1, i10, n_real, pw, sc, kv)
     ys = torch.empty((n + 1, B, S), dtype=_F32, device=y0.device)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
-    _check(_lib().cf_sde3_fwd(
-        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
-        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), pw["wT"].data_ptr(),
+    lanes = int(t0s.dim() == 2)
+    if sde3_fwd_route(P, kv.shape[2]) == "block":
+        _check(_lib().cf_sde3_fwd(
+            B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), lanes,
+            sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), pw["wT"].data_ptr(),
+            pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i1.data_ptr(),
+            i10.data_ptr(), y0.data_ptr(), ys.data_ptr(), _stream(y0)), "sde3_fwd")
+        LAUNCHES["sde3_fwd"] += 1
+        return ys
+    hi, mid, lo = _split3_terms(pw, sc)
+    scr = torch.empty((B, 4, S), dtype=_F32, device=y0.device)
+    _check(_lib().cf_sde3_fwd_team(
+        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), lanes, sc.fc["bg"].data_ptr(),
+        sc.fc["adapt"].data_ptr(), hi.data_ptr(), mid.data_ptr(), lo.data_ptr(),
         pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i1.data_ptr(),
-        i10.data_ptr(), y0.data_ptr(), ys.data_ptr(), _stream(y0)), "sde3_fwd")
-    LAUNCHES["sde3_fwd"] += 1
+        i10.data_ptr(), y0.data_ptr(), scr.data_ptr(), ys.data_ptr(), _stream(y0)),
+        "sde3_fwd_team")
+    LAUNCHES["sde3_fwd_team"] += 1
     return ys
+
+
+def replay3_bwd_emit(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, pw,
+                     sc: SDEConsts, kv):
+    """The emit-mode reverse sweep of ``replay3_fwd`` (B4t): the state
+    cotangent alone. ys_prev (n, B, 3P) the states before each step, ysbar
+    (n, B, 3P) the direct cotangents on each step's output; t0s, hs (n, B)
+    or (n,) as ``replay3_fwd``. Returns (ybar (B, 3P) before step 0, seeds
+    (n, B, 3P)): seeds[k] is the total cotangent on step k's output, from
+    which the weight gradients are taken outside (``solvers.fused.
+    outer_arg_grads_split3``); rows past n_real are zero. ``stride``:
+    truncation (0: none). One team of 8 blocks per lane, at any width."""
+    n, B, S = ys_prev.shape
+    P = S // 3
+    named = {"ys_prev": (ys_prev, _F32, (n, B, S)), "ysbar": (ysbar, _F32, (n, B, S)),
+             **_replay3_named(t0s, hs, i10, pw, sc, kv, B, P, n_real)}
+    if not _on_cuda(ys_prev, named):
+        return _replay3_bwd_emit_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, pw, sc, kv)
+    dev = ys_prev.device
+    ybar = torch.empty((B, S), dtype=_F32, device=dev)
+    seeds = torch.empty_like(ys_prev)
+    scr = torch.empty((B, 7, S), dtype=_F32, device=dev)
+    terms = _split3_terms(pw, sc)
+    hiT, midT, loT = (t.T.contiguous() for t in terms)
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    _check(_lib().cf_sde3_bwd_emit(
+        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
+        int(stride or 0), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
+        *(t.data_ptr() for t in terms), hiT.data_ptr(), midT.data_ptr(), loT.data_ptr(),
+        pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(),
+        ys_prev.data_ptr(), ysbar.data_ptr(), scr.data_ptr(), ybar.data_ptr(),
+        seeds.data_ptr(), _stream(ys_prev)), "sde3_bwd_emit")
+    LAUNCHES["sde3_bwd_emit"] += 1
+    return ybar, seeds
 
 
 def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: int, pw,

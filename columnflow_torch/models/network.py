@@ -545,10 +545,10 @@ def split3_accumulate(acc, x, c_cur):
     holding bf16 values, or None before the first evaluation): each
     product's cotangent x_term^T c_cur is contracted over the batch, rounded
     to bf16 and added in bf16, in the order the reverse pass meets the
-    forward's products."""
-    x_hi, x_mid, x_lo = (t.reshape(-1, t.shape[-1]) for t in split3_terms(x))
-    c = c_cur.reshape(-1, c_cur.shape[-1])
-    a, b, e = _bf(_mm(x_hi.T, c)), _bf(_mm(x_mid.T, c)), _bf(_mm(x_lo.T, c))
+    forward's products. x and c_cur are (..., B, P): each product is
+    contracted over the batch axis B alone, so leading axes (steps) keep
+    their own accumulators."""
+    a, b, e = (_bf(_mm(t.transpose(-1, -2), c_cur)) for t in split3_terms(x))
     if acc is None:
         return _bf(_bf(a + b) + e), _bf(a + b), a
     hi, mid, lo = acc
@@ -566,15 +566,17 @@ def split3_fold(acc):
 def network_drift_premixed_split_vjp(t, y, ct, pw3, fc, stim: Stimulus, interp_fn=interp_at,
                                      acc=None):
     """VJP of ``network_drift_premixed`` with the three-term weights
-    (``prepare_premixed_split`` output) for a batch y (B, 3P) and output
-    cotangent ct: returns (state cotangent, the bf16 weight-cotangent
-    accumulators with this evaluation added to ``acc``, d iwT). Fold the
-    accumulators with ``split3_fold`` once per ``prepare_premixed_split``;
-    d iwT = ext^T c_cur is float32 (iwT is not split)."""
+    (``prepare_premixed_split`` output) for a batch y (..., B, 3P) and
+    output cotangent ct: returns (state cotangent, the bf16 weight-cotangent
+    accumulators with this evaluation added to ``acc``, d iwT (..., n_in,
+    P)). Leading axes before B are separate evaluations (steps), each
+    contracted over its own batch. Fold the accumulators with
+    ``split3_fold`` once per ``prepare_premixed_split``; d iwT = ext^T c_cur
+    is float32 (iwT is not split)."""
     P = fc["bg"].shape[0]
     fr, frp = fr_and_grad(y[..., :P] - y[..., P : 2 * P])
-    ext = interp_fn(t, stim.t0, stim.dt, stim.table)
+    ext = interp_fn(t, stim.t0, stim.dt, stim.table).expand(*y.shape[:-1], -1)
     c_cur = _cot_current(ct[..., :P], fc)
     x_bar = split3_cotangent(c_cur, pw3["wT_hi"], pw3["wT_mid"], pw3["wT_lo"])
     return (_state_cot(y, ct, x_bar, frp, fc), split3_accumulate(acc, fr, c_cur),
-            _mm(ext.reshape(-1, ext.shape[-1]).T, c_cur.reshape(-1, P)))
+            _mm(ext.transpose(-1, -2), c_cur))

@@ -19,6 +19,12 @@ package (``resolve_sde_arg_grads``), and two tiers are ported:
 - the three-term split (``prepare="split"``, ``prepare_premixed_split``) in
   kernel mode: the sweep kernel B3t forward, the reverse-sweep kernel B4't
   with the weight cotangents in it (``_Replay3``); both grid modes;
+- the three-term split in outer mode on the uniform grid (the fixed-grid
+  step from 64 columns, where the weights hold more than 1 MiB): B3t-team
+  forward (B3t where the weights fit a block), the emit-mode sweep B4t for
+  the state cotangent and each step's seed, then the exact step-batched
+  weight VJPs outside the kernels (``outer_arg_grads_split3``,
+  ``_Replay3Outer``);
 - the two-term split (``prepare="split2"``) in outer mode with the bf16
   substitute ``network_drift_premixed_gradbf16`` for the weight gradients
   (``vjp_drift="gradbf16"``): the replay kernel B3, the emit-mode sweep B4
@@ -55,9 +61,11 @@ from columnflow_torch.kernels.network_sde import (
     SIGMA,
     SDEConsts,
     replay3_bwd,
+    replay3_bwd_emit,
     replay3_fwd,
     replay_bwd,
     replay_fwd,
+    step_vjp_split3,
 )
 from columnflow_torch.kernels.xor_ode import xor_replay_bwd, xor_replay_fwd, xor_select
 from columnflow_torch.kernels.xor_sde import xor_sde_bwd, xor_sde_fwd
@@ -66,6 +74,7 @@ from columnflow_torch.models.network import (
     _bf,
     network_drift_premixed_gradbf16,
     network_drift_premixed_gradbf16_vjp,
+    prepare_premixed_split,
     prepare_premixed_split2,
 )
 from columnflow_torch.models.hopf import PARAM_KEYS
@@ -115,6 +124,64 @@ def uniform_step_times(ts, state_shape):
     off = k // chunk * chunk
     t0s = (off.to(torch.float32) * h + t_base) + (k - off).to(torch.float32) * h
     return t0s.to(ts.device), h
+
+
+def outer_step_times(ts):
+    """(t0s (n,) float32 on ts' device, h) of the uniform grid as the JAX
+    package's outer weight-gradient pass computes them: t_base + h k in
+    float32 (``_outer_sde_arg_grads``, ``columnflow/solvers/fused.py:1396``),
+    which can lie an ulp from the sweep kernels' chunked times
+    (``uniform_step_times``)."""
+    ts = torch.as_tensor(ts, dtype=torch.float32)
+    n = ts.shape[0] - 1
+    h, t_base = float(ts[1] - ts[0]), float(ts[0])
+    return (torch.arange(n, dtype=torch.float32) * h + t_base).to(ts.device), h
+
+
+# Float32 bytes of one (P, P) temporary per step that a sub-block of
+# ``outer_arg_grads_split3`` may hold: its peak is about a dozen of them.
+OUTER_SUB_BYTES = 128 << 20
+
+
+def outer_arg_grads_split3(ys_prev, seeds, t0s, hs, i10, pw, sc: SDEConsts, kv,
+                           block: int = 256):
+    """The exact weight gradients (d wT, d iwT) of the three-term replay in
+    outer mode: ``_outer_sde_arg_grads`` with ``vjp_step=None``
+    (``columnflow/solvers/fused.py:1373-1437``). For every step k the VJP of
+    one SRA1 step at ys_prev[k] through ``prepare_premixed_split`` for the
+    step's total output cotangent seeds[k] (``step_vjp_split3``: the second
+    stage's drift first, then the first's; each product's cotangent
+    contracted over the lanes of its own step in float64, rounded to bf16
+    and accumulated per step, folded once per step; d iwT in float32).
+    t0s, hs (n,) (the uniform grid, ``outer_step_times``) or (n, B);
+    i10 (n, B). The steps' cotangents are summed in float32 over blocks of
+    min(block, n) steps, and each block's sum is added to the total, as
+    JAX's scan over 256-step blocks does (its in-block order is XLA's; here
+    sub-blocks of as many steps as keep one (P, P) float32 temporary per
+    step under ``OUTER_SUB_BYTES``). PyTorch ops: the JAX package computes
+    this in XLA, outside any Pallas kernel."""
+    n, B, S = ys_prev.shape
+    P = S // 3
+    w3 = prepare_premixed_split({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
+    d_wT = torch.zeros_like(pw["wT"], dtype=torch.float32)
+    d_iwT = torch.zeros_like(pw["iwT"], dtype=torch.float32)
+    blk = max(1, min(block, n))
+    sub = max(1, min(blk, OUTER_SUB_BYTES // (4 * P * P)))
+    lanes = t0s.dim() == 2
+    for b0 in range(0, n, blk):
+        b1 = min(b0 + blk, n)
+        part_w, part_iw = torch.zeros_like(d_wT), torch.zeros_like(d_iwT)
+        for s0 in range(b0, b1, sub):
+            sl = slice(s0, min(s0 + sub, b1))
+            t0 = t0s[sl, :, None] if lanes else t0s[sl, None, None]
+            h = hs[sl, :, None] if lanes else hs[sl, None, None]
+            _, g_w, g_iw = step_vjp_split3(t0, h, ys_prev[sl], i10[sl, :, None], seeds[sl], w3,
+                                           sc, kv)
+            part_w += g_w.sum(0)
+            part_iw += g_iw.sum(0)
+        d_wT += part_w
+        d_iwT += part_iw
+    return d_wT, d_iwT
 
 
 def outer_arg_grads(ys_prev, seeds, t0s, hs, i10, pw, sc: SDEConsts, kv,
@@ -201,6 +268,35 @@ class _Replay3(torch.autograd.Function):
         return d_wT, d_iwT, ybar + ys_bar[0], None, None, None, None, None
 
 
+class _Replay3Outer(torch.autograd.Function):
+    """The three-term split in outer mode on the uniform grid. Forward:
+    ``replay3_fwd`` (B3t-team, or B3t by ``sde3_fwd_route``); backward:
+    ``replay3_bwd_emit`` (B4t) for the state cotangent and each step's seed,
+    then ``outer_arg_grads_split3`` on the states before each step and the
+    seeds. Gradients reach wT, iwT and y0; the grid and the noise are data.
+    ``spec``'s ``outer`` = (t0s, hs) of the outer pass (``outer_step_times``)."""
+
+    @staticmethod
+    def forward(ctx, wT, iwT, y0, t0s, hs, i1, i10, spec):
+        sc, kv, n_real = spec[:3]
+        pw = {"wT": wT.detach().contiguous(), "iwT": iwT.detach().contiguous()}
+        ys = replay3_fwd(y0.detach().contiguous(), t0s, hs, i1, i10, n_real, pw, sc, kv)
+        ctx.spec, ctx.pw = spec, pw
+        ctx.save_for_backward(ys, t0s, hs, i10)
+        return ys
+
+    @staticmethod
+    def backward(ctx, ys_bar):
+        sc, kv, n_real, stride, (t0_o, h_o) = ctx.spec
+        ys, t0s, hs, i10 = ctx.saved_tensors
+        ys_bar = ys_bar.to(torch.float32).contiguous()
+        ybar, seeds = replay3_bwd_emit(ys[:-1], ys_bar[1:], t0s, hs, i10, n_real, stride, ctx.pw,
+                                       sc, kv)
+        d_wT, d_iwT = outer_arg_grads_split3(ys[:n_real], seeds[:n_real], t0_o[:n_real],
+                                             h_o[:n_real], i10[:n_real], ctx.pw, sc, kv)
+        return d_wT, d_iwT, ybar + ys_bar[0], None, None, None, None, None
+
+
 def resolve_sde_arg_grads(pw: dict, arg_grads: str = "auto", vjp_drift: str | None = None) -> str:
     """JAX's rule for where ``sdeint_fused`` takes the weight gradients
     (``columnflow/solvers/fused.py:1192-1206``): ``"auto"`` is ``"outer"``
@@ -221,9 +317,10 @@ def resolve_sde_arg_grads(pw: dict, arg_grads: str = "auto", vjp_drift: str | No
 
 def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
     """Which ported tier computes ``sdeint_fused``'s gradients: "split"
-    (kernel mode, B3t/B4't) or "split2" (outer mode with the gradbf16
-    substitute, B3/B4 on per-lane grids). Anything else raises naming its
-    ROADMAP.md item."""
+    (kernel mode, B3t/B4't), "split-outer" (outer mode on the uniform grid
+    with the exact weight VJPs: B3t-team, B4t, ``outer_arg_grads_split3``)
+    or "split2" (outer mode with the gradbf16 substitute, B3/B4 on per-lane
+    grids). Anything else raises naming its ROADMAP.md item."""
     if prepare not in ("split", "split2"):
         raise ValueError(f"unknown prepare {prepare!r}: use 'split' (prepare_premixed_split) or "
                          "'split2' (prepare_premixed_split2)")
@@ -232,12 +329,15 @@ def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
     mode = resolve_sde_arg_grads(pw, arg_grads, vjp_drift)
     if prepare == "split" and mode == "kernel":
         return "split"
+    if prepare == "split" and mode == "outer" and vjp_drift is None and not lanes:
+        return "split-outer"
     if prepare == "split2" and mode == "outer" and vjp_drift == "gradbf16" and lanes:
         return "split2"
     if prepare == "split":
         why = ("the three-term split with its weight gradients outside the sweep (arg_grads "
-               "'outer': B4 in emit mode on the three-term split and the outer weight-gradient "
-               "pass) is not ported: ROADMAP.md A5b, kernel B4t")
+               "'outer') on per-lane grids or with the gradbf16 substitute (B4 in emit mode on "
+               "the three-term split in lanes mode, and that outer weight-gradient pass) is not "
+               "ported: ROADMAP.md A5b, kernel B4t")
     elif mode == "kernel":
         why = ("the two-term split with its weight gradients in the sweep (arg_grads 'kernel') is "
                "not ported: ROADMAP.md A5b, kernel B4s")
@@ -266,9 +366,10 @@ def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps=None, noise_pack=None
     ``prepare_premixed_split2``), ``vjp_drift`` (None or "gradbf16":
     ``network_drift_premixed_gradbf16`` for the outer weight gradients) and
     ``arg_grads`` as in the JAX package (``resolve_sde_arg_grads``); the
-    ported tiers are the three-term split in kernel mode and the two-term
-    split in outer mode with the gradbf16 substitute (``sde_tier``). The
-    defaults are the flagship's replay.
+    ported tiers are the three-term split in kernel mode, the three-term
+    split in outer mode on the uniform grid, and the two-term split in outer
+    mode with the gradbf16 substitute (``sde_tier``). The defaults are the
+    flagship's replay.
 
     ``n_real`` (per-lane grids): the leading real steps (the rest must be
     h == 0 padding with zero noise and zero cotangents), an int read on the
@@ -306,6 +407,11 @@ def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps=None, noise_pack=None
         spec = (sc, kv.contiguous(), n_real, stride,
                 sweep_chunk(tuple(y0.shape), n, bptt_every))
         return _Replay3.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
+    if tier == "split-outer":
+        t0_o, h_o = outer_step_times(ts)
+        t0_o = t0_o.to(y0.device)
+        spec = (sc, kv.contiguous(), n_real, stride, (t0_o, torch.full_like(t0_o, h_o)))
+        return _Replay3Outer.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
     return _Replay.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10,
                          (sc, kv.contiguous(), n_real, stride))
 

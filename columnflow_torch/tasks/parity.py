@@ -16,7 +16,10 @@ selected by the JAX package's flags (``make_train_step``):
   kernels;
 - ``stochastic``: the Ito SDE (sigma = 10 on the whole state, one scalar
   Brownian per lane). On the fixed grid (SRA1 over ``task.ts`` through
-  ``solvers.fused.sdeint_fused``, the three-term split in kernel mode), or
+  ``solvers.fused.sdeint_fused`` on the three-term split: below 64 columns
+  in kernel mode, from 64 through 312 columns, where the weights hold more
+  than 1 MiB, in outer mode, the weight gradients taken outside the
+  reverse sweep as the JAX package takes them), or
   with ``adaptive``: step-doubling SRA1 with a PI controller per lane
   (``solvers.sde_adaptive.sdeint_adaptive_batch``), then one lane-batched
   replay over the frozen grids and its reverse sweep. ``fused_pass``: the
@@ -37,6 +40,7 @@ JAX package's).
     python -m columnflow_torch.tasks.parity --smoke --columns-per-area 64,32,8  # split2 tier
     python -m columnflow_torch.tasks.parity --smoke --device cpu
     python -m columnflow_torch.tasks.parity --smoke --stochastic   # the fixed-grid SDE
+    python -m columnflow_torch.tasks.parity --smoke --stochastic --columns-per-area 64,32,8
     python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive
     python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
         --columns-per-area 64,32,8 --max-steps 16384 --bptt-every 32 \
@@ -51,8 +55,8 @@ combination that resolves to an unported path raises
 (``--engine xla``, past 312 columns, an explicit flag without ``--fused``,
 the stochastic-adaptive step past 8 lanes at 104 columns or more: A7), the
 split2 tier at 63 columns or fewer (B8s), ``--method`` other than dopri5
-(A7), the fixed-grid SDE from 64 columns on (A6a), the adaptive replay's
-other weight-gradient tiers (A5b), ``--random-fan-in``/``--legacy-host-rng``
+(A7), the adaptive replay's other weight-gradient tiers (A5b),
+``--random-fan-in``/``--legacy-host-rng``
 (A3), ``--position-invariant`` and ``--reference-rails`` (A6b), and
 checkpoints, metrics, profiles and evaluation (A9). A flag that the JAX
 package would reject is a ValueError; so is one that it would ignore.
@@ -171,17 +175,10 @@ def check_flags(f: Flags, total_columns: int | None = None) -> None:
     if f.select_bf16 and not f.adaptive:
         raise ValueError("select_bf16 picks the adaptive selection's drift; without adaptive "
                          "it would be ignored")
-    if total_columns is None or not f.stochastic:
-        return
+    if total_columns is None or not (f.stochastic and f.adaptive):
+        return  # the fixed-grid step has a ported tier at every fused width
     P = 8 * total_columns
     meta = {"wT": torch.empty(P, P, device="meta"), "iwT": torch.empty(4, P, device="meta")}
-    if not f.adaptive:
-        if outer_by_default(P, 4):
-            raise NotImplementedError(
-                f"the fixed-grid SDE step at {total_columns} columns takes its weight gradients "
-                "outside the sweep (arg_grads 'auto' -> 'outer': the weights hold more than "
-                "1 MiB), which is not ported: ROADMAP.md A6a (rest), kernel B4t")
-        return
     resolve_selection(f.fused_pass, None, f.select_bf16)
     sde_tier(meta, "split2" if f.split2 else "split", "gradbf16" if f.grad_bf16 else None,
               "auto", True)
@@ -200,9 +197,12 @@ def batched_rollout(params, task: ParityTask, stims_raw, lane_words=None,
     replays a given frozen grid.
 
     ``stochastic`` without ``adaptive``: SRA1 on the uniform grid of
-    ``task.ts``, driven by ``noise`` = (i1, i10), each (T-1, B) (or (T-1,
-    B, 1)). With ``adaptive``: rtol = atol = 1e-3, ``lane_words`` (B, 2)
-    each lane's raw key; ``grid`` = (step_times, naccept, nreject)."""
+    ``task.ts`` on the three-term split, driven by ``noise`` = (i1, i10),
+    each (T-1, B) (or (T-1, B, 1)); ``arg_grads`` "auto" takes the weight
+    gradients in the reverse sweep below 64 columns and outside it from 64
+    on, as the JAX package does. With ``adaptive``: rtol = atol = 1e-3,
+    ``lane_words`` (B, 2) each lane's raw key; ``grid`` = (step_times,
+    naccept, nreject)."""
     f = Flags(**flags)
     check_flags(f)
     dev = stims_raw.device
@@ -483,8 +483,10 @@ def main(argv=None):
                             "unported path raises")
     p.add_argument("--engine", choices=("auto", "fused", "xla", "fused-split2"), default=None,
                    help="engine when no explicit engine flag is given: auto (by the column "
-                        "count: fused below 104, fused-split2 through 312), fused, "
-                        "fused-split2; xla raises NotImplementedError")
+                        "count: fused below 104, fused-split2 through 312; with --stochastic "
+                        "the fused fixed-grid SDE through 312, its weight gradients outside "
+                        "the sweep from 64 columns), fused, fused-split2; xla raises "
+                        "NotImplementedError")
     p.add_argument("--method", default="dopri5",
                    help="only dopri5 is ported; anything else raises NotImplementedError")
     p.add_argument("--bptt-every", type=int, default=None)

@@ -28,6 +28,13 @@ each step's seed and the carry rel L2 1e-4 (the cotangents pass through
 bf16 roundings, and a rate an ulp apart can round one element a bf16 ulp,
 2^-8, apart).
 
+The three-term sweeps as teams (B3t-team, B4t) at 104 and 312 columns on
+short uniform and per-lane windows: bit for bit against their plain
+versions, one launch each; the forward kernel picked by shape (the one-block
+B3t at 13 columns, the team from 24); the 104-column fixed-grid step against
+the same step on the CPU (loss rel 1e-5, gradients within the larger of 3e-2
+and ten times the card's own nudge spread).
+
 Column-network dopri5 kernels, at the reference width (13 columns, P = 104,
 batch 4 under one controller, 200 grid points). Kernel and plain version sum
 every product exactly and round every float32 operation alike, so they are
@@ -553,6 +560,134 @@ def test_stochastic_13_column_steps_on_cuda_match_cpu(dev, adaptive, monkeypatch
                                noise=noise)
     assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
     for k, g in grads.items():
+        spread = float((grads_n[k] - g).norm()) / float(g.norm())
+        err = float((g - grads_c[k]).norm()) / float(grads_c[k].norm())
+        assert err <= max(3e-2, 10.0 * spread), (k, err, spread)
+
+
+def _team_grid(dev, gen, B, P, n, lanes, ts):
+    """A window of n steps: the uniform grid's first n steps, or per-lane
+    grids with each lane's own step sizes (0.2-1 ms), with Brownian data of
+    those steps; start states from the rate regimes of ``_states``."""
+    from columnflow_torch.solvers.fused import uniform_step_times
+
+    if lanes:
+        hs = (2e-4 + 8e-4 * torch.rand(n, B, generator=gen, device=dev)).contiguous()
+        t0s = (torch.cumsum(hs, 0) - hs + 0.3).contiguous()
+        h = hs
+    else:
+        t0s, h0 = uniform_step_times(ts, (B, 3 * P))
+        t0s = t0s[:n].to(dev).contiguous()
+        hs = torch.full_like(t0s, h0)
+        h = hs[:, None].expand(n, B)
+    dw = torch.randn(n, B, generator=gen, device=dev) * h.sqrt()
+    i10 = h * (0.5 * dw + (h / 12.0).sqrt() * torch.randn(n, B, generator=gen, device=dev))
+    return t0s, hs, dw.contiguous(), i10.contiguous()
+
+
+@pytest.mark.parametrize("cpa,lanes", [((64, 32, 8), False), ((64, 32, 8), True),
+                                       ((192, 96, 24), False)])
+def test_sde3_team_kernels_match_plain_bit_for_bit(dev, cpa, lanes):
+    """B3t-team and B4t (the emit-mode sweep with truncation every 5 steps)
+    at 104 and 312 columns on short windows, against their plain versions:
+    bit for bit, one launch each."""
+    d = _net_inputs(dev, cpa=cpa, T=1000)
+    gen, B, P = d["gen"], 4, d["P"]
+    params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=cpa,
+                                          n_inputs=4, device=dev)
+    pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
+    n = 8 if sum(cpa) > 104 else 16
+    t0s, hs, dw, i10 = _team_grid(dev, gen, B, P, n, lanes, d["ts"])
+    y0 = _states(gen, B, P, dev)
+    before = dict(ns.LAUNCHES)
+    fwd = (t0s, hs, dw, i10, n - 2, pw, d["sc"], d["kv"])
+    ys = ns.replay3_fwd(y0, *fwd)
+    ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n - 2, 5, pw, d["sc"], d["kv"])
+    got = ns.replay3_bwd_emit(*bwd)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched == {"sde3_fwd_team": 1, "sde3_bwd_emit": 1}
+    assert torch.isfinite(ys).all() and torch.equal(ys, ns._replay3_fwd_plain(y0, *fwd))
+    for g, p in zip(got, ns._replay3_bwd_emit_plain(*bwd)):
+        assert torch.isfinite(g).all() and torch.equal(g, p)
+
+
+def test_sde3_forward_takes_the_kernel_its_shape_picks(dev):
+    """The one-block B3t at 13 columns, B3t-team at 64, by shape alone; both
+    agree with the plain version bit for bit."""
+    from columnflow_torch.solvers.fused import uniform_step_times
+
+    for cpa, kernel in (((8, 4, 1), "sde3_fwd"), ((32, 24, 8), "sde3_fwd_team")):
+        d = _net_inputs(dev, cpa=cpa, T=100)
+        gen, B, P = d["gen"], 4, d["P"]
+        assert ns.sde3_fwd_route(P, 4) == ("block" if kernel == "sde3_fwd" else "team")
+        params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=cpa,
+                                              n_inputs=4, device=dev)
+        pw = {k: v.detach().contiguous()
+              for k, v in nw.premix_network_weights(params, net).items()}
+        t0s, h = uniform_step_times(d["ts"], (B, 3 * P))
+        t0s = t0s.to(dev)
+        n = t0s.shape[0]
+        dw = torch.randn(n, B, generator=gen, device=dev) * h ** 0.5
+        fwd = (t0s, torch.full_like(t0s, h), dw, torch.zeros_like(dw), n, pw, d["sc"], d["kv"])
+        before = ns.LAUNCHES[kernel]
+        ys = ns.replay3_fwd(torch.zeros(B, 3 * P, device=dev), *fwd)
+        torch.cuda.synchronize()
+        assert ns.LAUNCHES[kernel] == before + 1
+        assert torch.equal(ys, ns._replay3_fwd_plain(torch.zeros(B, 3 * P, device=dev), *fwd))
+
+
+def test_fixed_grid_104_column_step_on_cuda_matches_cpu(dev, monkeypatch):
+    """The fixed-grid step at 104 columns (outer mode) over 4 grid points
+    through make_train_step: exactly one B3t-team and one B4t launch and no
+    plain version; the same step on the CPU with the plain versions on the
+    card's noise: loss rel 1e-5, each gradient within the larger of 3e-2
+    and ten times the card's own spread under a 1e-7 nudge of the weights
+    (gradients at this width are ill-conditioned, ROADMAP.md section C).
+    From grid point 4 SRA1 at h = 1 ms runs off at this width, in the JAX
+    package too (|y| ~ 1e3 at 4 ms, ~1e6 at 5 ms), so the horizon ends
+    before it."""
+    def step_on(device, params=None, noise=None):
+        task = parity.build_task(ColumnConfig.load(),
+                                 torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=(64, 32, 8), time_steps=4, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        if noise is None:
+            _, i1, i10, _, _ = brownian_pack(torch.Generator(device=device).manual_seed(3),
+                                             task.ts, (4, 1))
+            noise = (i1, i10)
+        rec = parity.make_train_step(task, stochastic=True)(
+            torch.tensor(ODE_STIMS, device=device), noise=tuple(x.to(device) for x in noise))
+        return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}, task, noise
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    with monkeypatch.context() as m:
+        for name in ("_replay3_fwd_plain", "_replay3_bwd_emit_plain", "_replay3_bwd_plain"):
+            m.setattr(ns, name, boom)
+        before = dict(ns.LAUNCHES)
+        rec, grads, task, noise = step_on(dev)
+        torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched == {"sde3_fwd_team": 1, "sde3_bwd_emit": 1}
+    assert bool(torch.isfinite(rec["loss"]))
+    params0 = {k: p.detach().cpu().clone() for k, p in parity.build_task(
+        ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+        columns_per_area=(64, 32, 8), time_steps=4, device=dev).params.items()}
+    rec_c, grads_c, _, _ = step_on(torch.device("cpu"), params=params0,
+                                   noise=tuple(x.cpu() for x in noise))
+    _, grads_n, _, _ = step_on(dev, params={k: v * (1.0 + 1e-7) for k, v in params0.items()},
+                               noise=noise)
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        if not bool(grads_c[k].any()):  # the stimulus' weights before it is on
+            assert not bool(g.any()), k
+            continue
         spread = float((grads_n[k] - g).norm()) / float(g.norm())
         err = float((g - grads_c[k]).norm()) / float(grads_c[k].norm())
         assert err <= max(3e-2, 10.0 * spread), (k, err, spread)

@@ -480,7 +480,12 @@ BENCH = dict(stochastic=True, adaptive=True, select_bf16=True, grad_bf16=True, s
     (["--stochastic", "--adaptive", "--fused", "--select-bf16", "--grad-bf16", "--split2",
       "--columns-per-area", "64,32,8"], BENCH),
     (["--stochastic", "--adaptive", "--batch-size", "8", "--columns-per-area", "64,32,8"], BENCH),
-    (FLAGSHIP_ARGV, dict(BENCH, fused_pass=True))])
+    (FLAGSHIP_ARGV, dict(BENCH, fused_pass=True)),
+    # From 64 through 312 columns --stochastic is the fused fixed-grid SDE
+    # too (resolve_engine: use_fused, no split2), its weight gradients taken
+    # outside the sweep (arg_grads "auto" -> "outer").
+    (["--stochastic", "--columns-per-area", "64,32,8"], FIXED),
+    (["--stochastic", "--columns-per-area", "192,96,24"], FIXED)])
 def test_command_line_resolves_the_stochastic_steps(argv, mode):
     seen = _parse(argv + ["--smoke", "--device", "cpu"])
     want = {k: bool(mode.get(k, False)) for k in tpt.Flags._fields}
@@ -504,10 +509,9 @@ def test_command_line_resolves_the_stochastic_steps(argv, mode):
     (["--select-bf16"], NotImplementedError, "A7"),
     (["--fused-pass", "--fused"], ValueError, "fused_pass requires"),
     (["--adaptive"], ValueError, "adaptive applies"),
-    # From 64 columns the fixed-grid step takes its weight gradients
-    # outside the sweep (A6a's rest); past 8 lanes at 104 columns the
-    # stochastic-adaptive step resolves to the XLA engine (A7).
-    (["--stochastic", "--columns-per-area", "64,32,8"], NotImplementedError, "A6a"),
+    # Past 312 columns the fixed-grid step resolves to the XLA engine (A7),
+    # and so does the stochastic-adaptive step past 8 lanes at 104 columns.
+    (["--stochastic", "--columns-per-area", "192,96,25"], NotImplementedError, "A7"),
     (["--stochastic", "--adaptive", "--batch-size", "16", "--columns-per-area", "64,32,8"],
      NotImplementedError, "A7"),
     # The JAX package's other flags are accepted and raise, naming their item.

@@ -276,18 +276,24 @@ def test_lanes_replay_loss_and_gradients_on_jax_grid(setup, bptt_every):
     ((2, 1), "split", "gradbf16", "auto", "B4t"),
     ((2, 1), "split2", None, "auto", "B4s"),
     ((64, 32, 8), "split2", None, "auto", "A5b"),
-    ((2, 1), "split", "gradbf16", "kernel", ValueError)])
+    ((2, 1), "split", "gradbf16", "kernel", ValueError),
+    # The uniform grid (the fixed-grid step): the three-term split in outer
+    # mode is ported there, on per-lane grids it raises B4t (above).
+    ((64, 32, 8), "split", None, "auto", "split-outer"),
+    ((2, 1), "split", None, "outer", "split-outer"),
+    ((192, 96, 24), "split", None, "auto", "split-outer")])
 def test_sdeint_fused_resolves_its_tier_as_jax(cpa, prepare, vjp, arg_grads, want):
     P = 8 * sum(cpa)
     pw = {"wT": torch.empty(P, P, device="meta"), "iwT": torch.empty(4, P, device="meta")}
+    lanes = want != "split-outer"
     if want is ValueError:
         with pytest.raises(ValueError, match="vjp_drift"):
-            tf.sde_tier(pw, prepare, vjp, arg_grads, True)
-    elif want in ("split", "split2"):
-        assert tf.sde_tier(pw, prepare, vjp, arg_grads, True) == want
+            tf.sde_tier(pw, prepare, vjp, arg_grads, lanes)
+    elif want in ("split", "split2", "split-outer"):
+        assert tf.sde_tier(pw, prepare, vjp, arg_grads, lanes) == want
     else:
         with pytest.raises(NotImplementedError, match=want):
-            tf.sde_tier(pw, prepare, vjp, arg_grads, True)
+            tf.sde_tier(pw, prepare, vjp, arg_grads, lanes)
 
 
 def test_sdeint_fused_takes_one_grid(setup):
