@@ -52,6 +52,7 @@ _SIGNATURES = {
         "cf_sde3_bwd": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 15,
         "cf_sde3_fwd_team": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 15,
         "cf_sde3_bwd_emit": [_I, _I, _I, _I, _P, _I, _I, _I, _I] + [_P] * 19,
+        "cf_sde3_bwd_team": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 21,
     },
     "network_ode": {
         "cf_ode_replay_fwd": [_I, _I, _I, _I, _P, _I] + [_P] * 10,

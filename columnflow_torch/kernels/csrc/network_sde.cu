@@ -27,6 +27,11 @@
 //                         three-term split (B4t): the state cotangent alone
 //                         and each step's total output cotangent (seed), a
 //                         team of blocks per lane
+//   cf_sde3_bwd_team   <- B4't as one team of blocks for the whole batch
+//                         (B4't-team), for widths whose three-term weights and
+//                         batch do not fit a block (through 63 columns)
+// and cf_sde_select / cf_sde_attempt on the three-term split (kSplit3, B5t):
+// _make_sde_adaptive_kernel with select_prepare=prepare_premixed_split.
 // The JAX kernels trace any drift; these are written for the premixed
 // column-network drift (network_drift_premixed) with a knot stimulus and
 // constant diffusion: select16 (bf16) or float32 weights in the selection,
@@ -55,7 +60,10 @@
 // P = 832), the lane's state vectors in global memory. B4t forms no weight
 // cotangent, so its lanes are independent: the weight gradients are taken
 // outside the kernel from the seeds it emits (solvers/fused.py
-// outer_arg_grads_split3).
+// outer_arg_grads_split3). Where the weights hold at most 1 MiB (through 63
+// columns) the JAX package forms them in the sweep: past one block's
+// capacity (~20 columns at 4 lanes) B4't-team runs the batch on one team,
+// each block forming the weight cotangents of its own output columns.
 //
 // Precision. Elementwise arithmetic is float32 with full-precision
 // expf/tanhf/logf/sqrtf and IEEE division, compiled with -fmad=false so
@@ -92,10 +100,13 @@ struct Scratch {
 
 // The drift's weight formats: the selection's bf16 copy (select16: rec =
 // bf16(fr) W16, e = bf16(ext) iwT16), the replay's two-term split (split2:
-// rec = (x_hi W_hi + x_hi W_mid) + x_mid W_hi, e = ext iwT), and float32
+// rec = (x_hi W_hi + x_hi W_mid) + x_mid W_hi, e = ext iwT), float32
 // weights (the f32 selection drift network_drift_premixed: rec = fr wT,
-// e = ext iwT).
-enum Mode { kSel16 = 0, kSplit2 = 1, kF32 = 2 };
+// e = ext iwT), and the three-term split (split3: w0 holds the bf16 terms
+// hi, mid, lo of prepare_premixed_split one after the other; rec = x_hi W_lo
+// + x_mid W_mid + x_lo W_hi + x_hi W_mid + x_mid W_hi + x_hi W_hi, left to
+// right, the order of split3_drift.cuh's drift3; e = ext iwT).
+enum Mode { kSel16 = 0, kSplit2 = 1, kF32 = 2, kSplit3 = 3 };
 
 // One drift evaluation of lane b at time t, state y -> out (all 3P), by the
 // whole block, with the weights w0 (and w1, split2's mid term) and iw in
@@ -110,6 +121,8 @@ __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
     s.fr[i] = fr;
     if (kMode == kF32) {
       s.xa[i] = fr;
+    } else if (kMode == kSplit3) {
+      split3(fr, s.xa[i], s.xb[i], s.aux[i]);
     } else {
       const float hi = bf16r(fr);
       s.xa[i] = hi;
@@ -121,15 +134,37 @@ __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
     s.ext[threadIdx.x] = kMode == kSel16 ? bf16r(e) : e;
   }
   __syncthreads();
+  const size_t PP2 = (size_t)P * (P / 2);  // bf16 pairs of one (P, P) term
   for (int c = threadIdx.x; c < P / 2; c += blockDim.x) {
     double p1a = 0.0, p1b = 0.0, p2a = 0.0, p2b = 0.0, p3a = 0.0, p3b = 0.0;
+    double p4a = 0.0, p4b = 0.0, p5a = 0.0, p5b = 0.0, p6a = 0.0, p6b = 0.0;
     const __nv_bfloat162* wr0 = reinterpret_cast<const __nv_bfloat162*>(w0) + c;
-    const __nv_bfloat162* wr1 = reinterpret_cast<const __nv_bfloat162*>(w1) + c;
+    const __nv_bfloat162* wr1 =
+        kMode == kSplit3 ? wr0 + PP2 : reinterpret_cast<const __nv_bfloat162*>(w1) + c;
+    const __nv_bfloat162* wr2 = wr0 + 2 * PP2;  // split3's lo term
     const float2* wf = reinterpret_cast<const float2*>(w0) + c;
     for (int k = 0; k < P; ++k) {
       const float2 wh = kMode == kF32 ? wf[(size_t)k * (P / 2)]
                                       : __bfloat1622float2(wr0[(size_t)k * (P / 2)]);
       const double xa = s.xa[k];
+      if (kMode == kSplit3) {
+        const float2 wm = __bfloat1622float2(wr1[(size_t)k * (P / 2)]);
+        const float2 wl = __bfloat1622float2(wr2[(size_t)k * (P / 2)]);
+        const double xb = s.xb[k], xc = s.aux[k];
+        p1a += xa * (double)wl.x;
+        p1b += xa * (double)wl.y;
+        p2a += xb * (double)wm.x;
+        p2b += xb * (double)wm.y;
+        p3a += xc * (double)wh.x;
+        p3b += xc * (double)wh.y;
+        p4a += xa * (double)wm.x;
+        p4b += xa * (double)wm.y;
+        p5a += xb * (double)wh.x;
+        p5b += xb * (double)wh.y;
+        p6a += xa * (double)wh.x;
+        p6b += xa * (double)wh.y;
+        continue;
+      }
       p1a += xa * (double)wh.x;
       p1b += xa * (double)wh.y;
       if (kMode == kSplit2) {
@@ -144,10 +179,13 @@ __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = 2 * c + j;
-      const float rec = kMode == kSplit2
-                            ? ((float)(j ? p1b : p1a) + (float)(j ? p2b : p2a))
-                                  + (float)(j ? p3b : p3a)
-                            : (float)(j ? p1b : p1a);
+      float rec = kMode == kSplit2
+                      ? ((float)(j ? p1b : p1a) + (float)(j ? p2b : p2a))
+                            + (float)(j ? p3b : p3a)
+                      : (float)(j ? p1b : p1a);
+      if (kMode == kSplit3)
+        rec = (((((float)(j ? p1b : p1a) + (float)(j ? p2b : p2a)) + (float)(j ? p3b : p3a))
+                + (float)(j ? p4b : p4a)) + (float)(j ? p5b : p5a)) + (float)(j ? p6b : p6a);
       double e = 0.0;
       for (int m = 0; m < n.n_in; ++m) {
         const float w = kMode == kSel16
@@ -1046,18 +1084,224 @@ sde3_bwd_emit_kernel(Net n, Grid3 g, int stride, Wg w, const float* __restrict__
   }
 }
 
+// B4't-team: B4't as one team of kCluster blocks for the whole batch, for
+// widths whose three-term weights do not fit one block (sde3_bwd_route). The
+// split's terms stay in L2, every lane's state vectors live in global scratch,
+// block r owns populations [c0, c0 + nc) of every lane. The weight
+// cotangents are the design problem: jax.vjp contracts each product's
+// weight cotangent over the lanes before its bf16 rounding, so the lanes
+// cannot run as independent teams as in B4t. Each block owns the
+// weight-cotangent entries of its own OUTPUT populations (columns j) for
+// every input row i: both VJPs of a step store the rates' three bf16 terms
+// and the current's cotangent of their own populations into every block's
+// shared memory (WX, one buffer per VJP), and after the step each block
+// contracts, for its entries, the terms of row i against the cotangents of
+// column j over the lanes in float64, in lane order, rounds to bf16, opens
+// the step's accumulators with the second stage's products and adds the
+// first stage's, folds once (split3_fold) and adds the fold to its chunk sum
+// (global work). No value crosses a block boundary in a sum, so the result
+// is B4't's and the plain version's bit for bit. d_iwT's columns the same
+// way, in float32.
+
+// One VJP's exchange for the weight cotangents.
+struct WX {
+  bf16* x;     // (3, nb, P) the rates' bf16 terms, every population
+  float* c;    // (nb, P) the current's cotangent, every population
+  float* ext;  // (nb, kMaxInputs) the stimulus at each lane's time (this block's own copy)
+};
+
+__host__ __device__ inline size_t wx_bytes(int P, int nb) {
+  const size_t x = ((size_t)3 * nb * P * sizeof(bf16) + 15) / 16 * 16;
+  return x + (size_t)nb * (P + kMaxInputs) * sizeof(float);
+}
+
+__device__ WX wx_at(unsigned char* p, int P, int nb) {
+  WX x;
+  x.x = reinterpret_cast<bf16*>(p);
+  x.c = reinterpret_cast<float*>(p + ((size_t)3 * nb * P * sizeof(bf16) + 15) / 16 * 16);
+  x.ext = x.c + (size_t)nb * P;
+  return x;
+}
+
+// The state cotangent of one drift evaluation of the team's lanes at y for
+// the output cotangent ct -> out (own entries), as vjp3_team, exchanging
+// into x both the current's cotangent and the rates' three bf16 terms of the
+// own populations, and the stimulus at each lane's time tl[b] (for d iwT).
+// Ends with a block barrier.
+__device__ void vjp3_team_w(const Net& n, Team& T, const float* tl, const float* y,
+                            const float* ct, float* out, const Wg& w, const WX& x) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int P = n.P, nb = T.nb;
+  for (int e = threadIdx.x; e < nb * T.nc; e += blockDim.x) {
+    const int b = e / T.nc, c = T.c0 + (e - b * T.nc);
+    float fr, frp, hi, mid, lo;
+    fr_and_grad(y[b * T.S + c] - y[b * T.S + P + c], fr, frp);
+    T.fr[e] = frp;
+    split3(fr, hi, mid, lo);
+    const bf16 th = __float2bfloat16_rn(hi), tm = __float2bfloat16_rn(mid),
+               tlo = __float2bfloat16_rn(lo);
+    const float cc = ((ct[b * T.S + c] / n.tau_m) * n.R) * n.tau_s;
+    for (int q = 0; q < kCluster; ++q) {
+      bf16* dx = cl.map_shared_rank(x.x, q);
+      dx[(size_t)b * P + c] = th;
+      dx[((size_t)nb + b) * P + c] = tm;
+      dx[((size_t)2 * nb + b) * P + c] = tlo;
+      cl.map_shared_rank(x.c, q)[(size_t)b * P + c] = cc;
+    }
+  }
+  for (int idx = threadIdx.x; idx < nb * n.n_in; idx += blockDim.x) {
+    const int b = idx / n.n_in, m = idx - b * n.n_in;
+    x.ext[b * kMaxInputs + m] = knot_interp(n, b, m, tl[b]);
+  }
+  cl.sync();
+  vjp_products<3>(n, T, x.c, ct, out, w);
+  __syncthreads();
+}
+
+// Over steps n_real-1..0, as sde3_bwd_kernel. scr: 7 B 3P floats (f1, h2,
+// c, cw, c_h2, c_y, ybar); work: P^2 + n_in P floats (the chunk sums of
+// d_wT and d_iwT). team_bytes: the Team's shared memory (team_smem), after
+// which lie the two WX buffers and the lanes' step scalars.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+sde3_bwd_team_kernel(Net n, Grid3 g, int stride, int chunk, Wg w, int team_bytes,
+                     const float* __restrict__ ys_prev, const float* __restrict__ ysbar,
+                     float* scr, float* __restrict__ ybar_out, float* __restrict__ d_wT,
+                     float* __restrict__ d_iwT, float* work) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team T;
+  const int B = n.B;
+  team_init(T, smt, n.P, B, 0, 3, 6, 1);
+  const int P = n.P, S = T.S, N = B * S, nc = T.nc, c0 = T.c0, NI = n.n_in;
+  unsigned char* p = smt + team_bytes;
+  const WX wx2 = wx_at(p, P, B);  // the second stage's VJP (at h2), met first
+  p += wx_bytes(P, B);
+  const WX wx1 = wx_at(p, P, B);  // the first stage's VJP (at y)
+  p += wx_bytes(P, B);
+  float* tl = reinterpret_cast<float*>(p);  // lane times t0
+  float* t2 = tl + B;                       // t0 + 0.75 h
+  float* hl = t2 + B;                       // h
+  float* ih = hl + B;                       // i10 / h
+  float* f1 = scr;
+  float* h2 = f1 + N;
+  float* cc = h2 + N;
+  float* cw = cc + N;
+  float* ch2 = cw + N;
+  float* cy = ch2 + N;
+  float* yb = cy + N;
+  float* chunk_w = work;
+  float* chunk_iw = work + (size_t)P * P;
+  for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
+    const int i = e / nc;
+    const size_t at = (size_t)i * P + c0 + (e - i * nc);
+    d_wT[at] = 0.0f;
+    chunk_w[at] = 0.0f;
+  }
+  for (int e = threadIdx.x; e < NI * nc; e += blockDim.x) {
+    const int m = e / nc;
+    const size_t at = (size_t)m * P + c0 + (e - m * nc);
+    d_iwT[at] = 0.0f;
+    chunk_iw[at] = 0.0f;
+  }
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) yb[own_off(T, P, e)] = 0.0f;
+  __syncthreads();
+  for (int k = g.n_real - 1; k >= 0; --k) {
+    if (threadIdx.x < B) {
+      const int b = threadIdx.x;
+      const float t0 = g.t0s[g.at(k, b, B)], h = g.hs[g.at(k, b, B)];
+      tl[b] = t0;
+      t2[b] = t0 + 0.75f * h;
+      hl[b] = h;
+      ih[b] = g.i10[(size_t)k * B + b] / (h > 0.0f ? h : 1.0f);
+    }
+    const float* y = ys_prev + (size_t)k * N;
+    const float* sbk = ysbar + (size_t)k * N;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      cc[off] = yb[off] + sbk[off];
+    }
+    __syncthreads();
+    drift_team<3, 1>(n, T, 0.0f, y, f1, w, tl);
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      const int b = off / S;
+      const float h = hl[b];
+      h2[off] = (y[off] + (0.75f * h) * f1[off]) + (1.5f * ih[b]) * n.sigma;
+      cw[off] = ((h * cc[off]) / 3.0f) * 2.0f;
+    }
+    __syncthreads();
+    vjp3_team_w(n, T, t2, h2, cw, ch2, w, wx2);
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      const float h = hl[off / S];
+      cw[off] = (h * cc[off]) / 3.0f + (0.75f * h) * ch2[off];
+    }
+    __syncthreads();
+    vjp3_team_w(n, T, tl, y, cw, cy, w, wx1);
+    const bool cut = stride > 0 && k % stride == 0;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int off = own_off(T, P, e);
+      yb[off] = cut ? 0.0f : (cc[off] + ch2[off]) + cy[off];
+    }
+    // The step's weight cotangents of the own columns, every row.
+    const bool fold = k % chunk == 0;
+    for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
+      const int i = e / nc, j = c0 + (e - i * nc);
+      double a2 = 0.0, b2 = 0.0, e2 = 0.0, a1 = 0.0, b1 = 0.0, e1 = 0.0;
+      for (int b = 0; b < B; ++b) {
+        const double q2 = wx2.c[(size_t)b * P + j], q1 = wx1.c[(size_t)b * P + j];
+        a2 += bfd(wx2.x[(size_t)b * P + i]) * q2;
+        b2 += bfd(wx2.x[((size_t)B + b) * P + i]) * q2;
+        e2 += bfd(wx2.x[((size_t)2 * B + b) * P + i]) * q2;
+        a1 += bfd(wx1.x[(size_t)b * P + i]) * q1;
+        b1 += bfd(wx1.x[((size_t)B + b) * P + i]) * q1;
+        e1 += bfd(wx1.x[((size_t)2 * B + b) * P + i]) * q1;
+      }
+      const float a = bf16r((float)a2), bb = bf16r((float)b2), ee = bf16r((float)e2);
+      float hi = bf16r(bf16r(a + bb) + ee), mid = bf16r(a + bb), lo = a;
+      const float a_ = bf16r((float)a1), b_ = bf16r((float)b1), e_ = bf16r((float)e1);
+      hi = bf16r(bf16r(bf16r(hi + a_) + b_) + e_);
+      mid = bf16r(bf16r(mid + a_) + b_);
+      lo = bf16r(lo + a_);
+      const float r = lo + bf16r(mid - lo);
+      const size_t at = (size_t)i * P + j;
+      const float sum = chunk_w[at] + (r + bf16r(hi + bf16r(-r)));
+      if (fold) d_wT[at] = d_wT[at] + sum;
+      chunk_w[at] = fold ? 0.0f : sum;
+    }
+    for (int e = threadIdx.x; e < NI * nc; e += blockDim.x) {
+      const int m = e / nc, j = c0 + (e - m * nc);
+      double d2 = 0.0, d1 = 0.0;
+      for (int b = 0; b < B; ++b) {
+        d2 += (double)wx2.ext[b * kMaxInputs + m] * (double)wx2.c[(size_t)b * P + j];
+        d1 += (double)wx1.ext[b * kMaxInputs + m] * (double)wx1.c[(size_t)b * P + j];
+      }
+      const size_t at = (size_t)m * P + j;
+      const float sum = chunk_iw[at] + ((float)d2 + (float)d1);
+      if (fold) d_iwT[at] = d_iwT[at] + sum;
+      chunk_iw[at] = fold ? 0.0f : sum;
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int off = own_off(T, P, e);
+    ybar_out[off] = yb[off];
+  }
+}
+
 Sel make_sel(const float* hs, int max_steps, int depth) {
   return Sel{hs[0], hs[1], hs[2], hs[3], hs[4], hs[5], max_steps, depth};
 }
 
 // Launch kernel<kTree, kMode> for the tree (kKrng, kJax) and drift (kSel16,
-// kF32) the host asks for; anything else is an invalid value.
+// kF32; kSplit3 on the krng tree only, the in-kernel pass's) the host asks
+// for; anything else is an invalid value.
 template <template <int, int> class L, typename... A>
 int dispatch_select(int tree, int mode, A... a) {
   if (tree == kKrng && mode == kSel16) return L<kKrng, kSel16>::run(a...);
   if (tree == kKrng && mode == kF32) return L<kKrng, kF32>::run(a...);
   if (tree == kJax && mode == kSel16) return L<kJax, kSel16>::run(a...);
   if (tree == kJax && mode == kF32) return L<kJax, kF32>::run(a...);
+  if (tree == kKrng && mode == kSplit3) return L<kKrng, kSplit3>::run(a...);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1098,7 +1342,8 @@ extern "C" {
 
 // hc (host): tau_s, tau_m, tau_a, R, sigma, kc0[K-1], kd[K-1];
 // hs (host): t_start, t_end, rtol, atol, h0, dt_min; tree: 0 krng, 1 jax;
-// mode: 0 select16 (w, iw bf16), 2 float32 (w, iw float32).
+// mode: 0 select16 (w, iw bf16), 2 float32 (w, iw float32), 3 split3 (w the
+// bf16 terms hi, mid, lo, 3 P^2 values in that order; iw float32; krng only).
 int cf_sde_select(int B, int P, int n_in, int K, const float* hc, const float* hs, int max_steps,
                   int depth, int tree, int mode, const float* bg, const float* adapt,
                   const void* w, const void* iw, const float* kv, const int* words,
@@ -1196,6 +1441,30 @@ int cf_sde3_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps
     sde3_bwd_emit_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
         make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, w, ys_prev, ysbar, scr, ybar,
         seeds);
+  return (int)cudaGetLastError();
+}
+
+// B4't-team (the batch on one team: sde3_bwd_kernel's sweep, the terms
+// in L2). hi..loT, iwT as cf_sde3_bwd_emit; the rest as cf_sde3_bwd; scr: 7 B
+// 3P floats; work: P^2 + n_in P floats. P must be a multiple of 8.
+int cf_sde3_bwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                     int lanes, int stride, int chunk, const float* bg, const float* adapt,
+                     const void* hi, const void* mid, const void* lo, const void* hiT,
+                     const void* midT, const void* loT, const float* iwT, const float* kv,
+                     const float* t0s, const float* hs, const float* i10,
+                     const float* ys_prev, const float* ysbar, float* scr, float* ybar,
+                     float* d_wT, float* d_iwT, float* work, void* stream) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  if (P % kCluster || chunk < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t team = team_smem(P, B, 3, 6, 1);
+  const size_t bytes = team + 2 * wx_bytes(P, B) + 4 * sizeof(float) * (size_t)B;
+  if (int e = set_smem(sde3_bwd_team_kernel, bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, (const bf16*)hiT,
+             (const bf16*)midT, (const bf16*)loT, iwT};
+  const Grid3 g{n_steps, n_real, lanes, t0s, hs, nullptr, i10};
+  sde3_bwd_team_kernel<<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, chunk, w, (int)team, ys_prev,
+      ysbar, scr, ybar, d_wT, d_iwT, work);
   return (int)cudaGetLastError();
 }
 

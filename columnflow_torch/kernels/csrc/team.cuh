@@ -148,10 +148,11 @@ __device__ double team_sum(Team& T, double v) {
 __device__ __forceinline__ double bfd(bf16 x) { return (double)__bfloat162float(x); }
 
 // The rates of the own populations of every lane at y, split into NT bf16
-// terms and stored into every block's exchange buffer; the stimulus at t.
-// Ends with the cluster barrier.
+// terms and stored into every block's exchange buffer; the stimulus at t
+// (or lane b at its own time tl[b]). Ends with the cluster barrier.
 template <int NT>
-__device__ void share_terms(const Net& n, Team& T, float t, const float* y) {
+__device__ void share_terms(const Net& n, Team& T, float t, const float* y,
+                            const float* tl = nullptr) {
   cg::cluster_group cl = cg::this_cluster();
   const int P = n.P, nb = T.nb;
   bf16* mine = reinterpret_cast<bf16*>(T.ex[T.par]);
@@ -178,7 +179,7 @@ __device__ void share_terms(const Net& n, Team& T, float t, const float* y) {
   }
   for (int idx = threadIdx.x; idx < nb * n.n_in; idx += blockDim.x) {
     const int b = idx / n.n_in, m = idx - b * n.n_in;
-    T.ext[b * kMaxInputs + m] = knot_interp(n, T.b0 + b, m, t);
+    T.ext[b * kMaxInputs + m] = knot_interp(n, T.b0 + b, m, tl ? tl[b] : t);
   }
   cl.sync();
 }
@@ -206,15 +207,16 @@ __device__ void drift_out(const Net& n, const Team& T, int b, int col, int oo, c
   out[base + 2 * P + col] = (-y[base + 2 * P + col] + fr) / n.tau_s;
 }
 
-// One drift evaluation of the team's lanes at the shared time t: y -> out
-// (nb, 3P), both in global memory, own entries only; NT = 3: the three-term
-// split, NT = 2: the two-term one. A thread computes one population for LB
-// lanes at a time, over one of G groups of k. Ends with a block barrier.
+// One drift evaluation of the team's lanes at the shared time t (or lane b
+// at tl[b]): y -> out (nb, 3P), both in global memory, own entries only;
+// NT = 3: the three-term split, NT = 2: the two-term one. A thread computes
+// one population for LB lanes at a time, over one of G groups of k. Ends
+// with a block barrier.
 template <int NT, int LB>
 __device__ void drift_team(const Net& n, Team& T, float t, const float* y, float* out,
-                           const Wg& w) {
+                           const Wg& w, const float* tl = nullptr) {
   constexpr int NP = NT == 3 ? 6 : 3;
-  share_terms<NT>(n, T, t, y);
+  share_terms<NT>(n, T, t, y, tl);
   const int P = n.P, nb = T.nb, nout = out_slots(nb, T.nc, LB), G = split_of(nout);
   const int kc = (P + G - 1) / G;
   const bf16* X = reinterpret_cast<const bf16*>(T.ex[T.par]);
@@ -314,6 +316,57 @@ __device__ void vjp_out(const Net& n, const Team& T, int b, int k, int oo, const
   out[base + k] = -(cv / n.tau_m) + c_x;
   out[base + P + k] = -(ca / n.tau_a) - c_x;
   out[base + 2 * P + k] = -(cr / n.tau_s);
+}
+
+// The transposed products of a drift VJP for the own populations of every
+// lane, given the current's cotangent C (nb, P) of every population in this
+// block's shared memory and the rates' derivative of the own populations in
+// T.fr: the state cotangent -> out (own entries), over up to kMaxSplit groups
+// of j. Ends without a barrier after its last writes to out. For VJPs that
+// exchange more than C (network_sde.cu's B4't-team); vjp_team keeps the same
+// loop inline: calling this from it took the split2 tier's B8' from 108
+// registers to 64 with spills and 41% more time per step on the H100.
+template <int NT>
+__device__ __forceinline__ void vjp_products(const Net& n, Team& T, const float* C,
+                                             const float* ct, float* out, const Wg& w) {
+  const int P = n.P, nb = T.nb;
+  const int nout = nb * T.nc, G = split_of(nout), kc = (P + G - 1) / G;
+  for (int o = threadIdx.x; o < nout * G; o += blockDim.x) {
+    const int g = o / nout, oo = o - g * nout, b = oo / T.nc, k = T.c0 + (oo - b * T.nc);
+    const float* cb = C + (size_t)b * P;
+    double d[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) d[j] = 0.0;
+    const int j1 = min(P, (g + 1) * kc);
+#pragma unroll 4
+    for (int j = g * kc; j < j1; ++j) {
+      const size_t at = (size_t)j * P + k;
+      const double c = cb[j];
+      d[0] = fma(c, bfd(w.hiT[at]), d[0]);
+      d[1] = fma(c, bfd(w.midT[at]), d[1]);
+      if constexpr (NT == 3) d[2] = fma(c, bfd(w.loT[at]), d[2]);
+    }
+    if (G == 1) {
+      vjp_out<NT>(n, T, b, k, oo, d, ct, out);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) T.part[((size_t)g * nout + oo) * NT + j] = d[j];
+    }
+  }
+  if (G > 1) {
+    __syncthreads();
+    for (int oo = threadIdx.x; oo < nout; oo += blockDim.x) {
+      double d[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) d[j] = T.part[(size_t)oo * NT + j];
+      for (int g = 1; g < G; ++g) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) d[j] += T.part[((size_t)g * nout + oo) * NT + j];
+      }
+      const int b = oo / T.nc;
+      vjp_out<NT>(n, T, b, T.c0 + (oo - b * T.nc), oo, d, ct, out);
+    }
+  }
 }
 
 // The state cotangent of one drift evaluation of the team's lanes at y for

@@ -7,8 +7,9 @@ Each kernel is CUDA C++ in ``csrc/network_sde.cu`` (built by ``_build``)
 with a plain PyTorch version beside it that repeats its arithmetic:
 
     wrapper         kernel              plain version      replaces (columnflow/solvers/)
-    select_pass     cf_sde_select       _select_plain      sde_adaptive.py _make_sde_adaptive_kernel (B5),
-                                                           and the XLA selection _adaptive_pass
+    select_pass     cf_sde_select       _select_plain      sde_adaptive.py _make_sde_adaptive_kernel (B5;
+                                                           on the three-term split, B5t), and the
+                                                           XLA selection _adaptive_pass
     select_attempt  cf_sde_attempt      _attempt_plain     one iteration of that loop's body
     replay_fwd      cf_sde_replay_fwd   _replay_fwd_plain  fused.py _make_sde_chunk_kernel, lanes (B3)
     replay_bwd      cf_sde_replay_bwd   _replay_bwd_plain  fused.py _make_sde_bwd_chunk_kernel, emit (B4)
@@ -16,7 +17,8 @@ with a plain PyTorch version beside it that repeats its arithmetic:
                     (cf_sde3_fwd_team)                     split, lanes or uniform grid (B3t; as a
                                                            team, B3t-team: ``sde3_fwd_route``)
     replay3_bwd     cf_sde3_bwd         _replay3_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
-                                                           three-term split (B4't)
+                    (cf_sde3_bwd_team)                     three-term split (B4't; as a team,
+                                                           B4't-team: ``sde3_bwd_route``)
     replay3_bwd_emit
                     cf_sde3_bwd_emit    _replay3_bwd_emit_plain
                                                            the same body, emit mode, three-term
@@ -27,17 +29,21 @@ The JAX kernels trace any drift. These compute the parity task's drift:
 diffusion sigma = 10. The selection (``SelectConfig``) draws from the krng
 tree (``brownian="kernel"``, the JAX package's in-kernel pass) or from the
 ``jax.random`` tree (``brownian="jax"``, its XLA pass), on the bf16 weights
-of ``premix_select16`` (``drift="select16"``) or the float32 ones
-(``drift="f32"``). The split2 replay and its emit-mode sweep run on the
+of ``premix_select16`` (``drift="select16"``), the float32 ones
+(``drift="f32"``) or, in the in-kernel pass, the three-term split of
+``prepare_premixed_split`` (``drift="split3"``, ``select_weights_split3``).
+The split2 replay and its emit-mode sweep run on the
 two-term split of ``prepare_premixed_split2``; the three-term ones on
 ``prepare_premixed_split``, with the weight cotangents in the sweep (kernel
 mode) or outside it (emit mode: the state cotangent and each step's seed).
 The selection and the split2 sweeps run one thread block per lane; the
 three-term kernel-mode reverse sweep holds the batch in one block, because
 jax.vjp contracts each weight cotangent over the lanes before rounding it
-to bf16. Where the three-term weights do not fit a block (from ~24 columns),
-the forward and the emit-mode sweep run each lane on a team of 8 blocks
-with the weights in L2.
+to bf16, or, where the batch and the weights do not fit a block (from ~20
+columns at 4 lanes), in one team of 8 blocks, each forming the weight
+cotangents of its own output columns. Where the three-term weights do not
+fit a block (from ~24 columns), the forward and the emit-mode sweep run
+each lane on a team of 8 blocks with the weights in L2.
 
 The wrappers take the plain version for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise. ``LAUNCHES`` counts kernel
@@ -81,14 +87,15 @@ SIGMA = NETWORK_NOISE_STD
 _SAFETY, _IFACTOR, _DFACTOR = 0.9, 5.0, 0.2
 _PI_A, _PI_B, _ERR_EXP = 0.5, 0.25, 0.5
 LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_replay_fwd": 0, "sde_replay_bwd": 0,
-            "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0}
+            "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0,
+            "sde3_bwd_team": 0}
 # What a thread block can hold (sm_90: 227 KB of shared memory), and the
 # kernels' layout constants (csrc/network_drift.cuh kThreads, kMaxInputs).
 SMEM_BLOCK_BYTES = 232448
 _THREADS, _MAX_INPUTS = 512, 16
 # The kernels' codes of the two trees and of the selection drifts.
 TREES = {"kernel": 0, "jax": 1}
-SELECT_DRIFTS = {"select16": 0, "f32": 2}
+SELECT_DRIFTS = {"select16": 0, "f32": 2, "split3": 3}
 
 _F32, _BF16, _I64 = torch.float32, torch.bfloat16, torch.int64
 
@@ -298,10 +305,20 @@ def _tree(words, cfg: SelectConfig):
     return lane_noise(words, cfg.t_start, cfg.t_end, cfg.depth, cfg.brownian)[0]
 
 
+def select_weights_split3(pw, sc: SDEConsts) -> dict:
+    """The selection weights of ``drift="split3"``: the bf16 terms of
+    ``prepare_premixed_split`` as one contiguous (3, P, P) tensor ``w3``
+    (hi, mid, lo; the kernel reads them through one pointer), the plain
+    drift's ``wT_hi``/``wT_mid``/``wT_lo`` views of it, and iwT (float32)."""
+    w3 = torch.stack(_split3_terms(pw, sc))
+    return {"w3": w3, "wT_hi": w3[0], "wT_mid": w3[1], "wT_lo": w3[2],
+            "iwT": pw["iwT"].contiguous()}
+
+
 def _select_drift(w, sc, kv, cfg: SelectConfig):
     if cfg.drift == "select16":
         return lambda t, x: drift_select16(t, x, w, sc, kv)
-    if cfg.drift == "f32":
+    if cfg.drift in ("f32", "split3"):
         return lambda t, x: drift_premixed(t, x, w, sc, kv)
     raise ValueError(f"unknown selection drift {cfg.drift!r}")
 
@@ -463,6 +480,12 @@ def _select_named(w, kv, P, cfg: SelectConfig):
         raise ValueError(f"unknown brownian backend {cfg.brownian!r}")
     if cfg.drift not in SELECT_DRIFTS:
         raise ValueError(f"unknown selection drift {cfg.drift!r}")
+    if cfg.drift == "split3":
+        if cfg.brownian != "kernel":
+            raise ValueError("the three-term selection drift is the in-kernel pass's: it draws "
+                             "from the 'kernel' (krng) tree")
+        named = {"w3": (w["w3"], _BF16, (3, P, P)), "iwT": (w["iwT"], _F32, (kv.shape[2], P))}
+        return named, (w["w3"], w["iwT"])
     keys, dtype = (("wT16", "iwT16"), _BF16) if cfg.drift == "select16" else (("wT", "iwT"), _F32)
     named = {keys[0]: (w[keys[0]], dtype, (P, P)), keys[1]: (w[keys[1]], dtype, (kv.shape[2], P))}
     return named, (w[keys[0]], w[keys[1]])
@@ -472,7 +495,8 @@ def select_pass(y0, words, w, sc: SDEConsts, kv, cfg: SelectConfig):
     """The step-size selection of every lane: y0 (B, 3P), words (B, 4)
     (k0, k1, j0, j1 as int64: the tree's key and the space-time integrals'
     key of ``cfg.brownian``), ``w`` the selection weights (``premix_select16``
-    for ``cfg.drift`` "select16", the float32 {"wT", "iwT"} for "f32"), kv
+    for ``cfg.drift`` "select16", the float32 {"wT", "iwT"} for "f32",
+    ``select_weights_split3`` for "split3"), kv
     (K, B, n_in). Returns (step_times (B, M+1), naccept, nreject (B,)
     int32, success (B,) bool)."""
     B, S = y0.shape
@@ -680,13 +704,30 @@ def replay3_bwd_emit(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, pw,
     return ybar, seeds
 
 
+def sde3_bwd_route(P: int, n_in: int, B: int) -> str:
+    """Which kernel computes ``replay3_bwd`` on the card, by shape alone:
+    "block" (B4't, ``cf_sde3_bwd``) where the three-term weights (6 P^2
+    bytes), iwT, the drift's scratch for B lanes (``setup_floats`` of
+    csrc/split3_drift.cuh), the sweep's eight (B, 3P) buffers, four lane
+    scalars and two (n_in, P) accumulators fit the 232,448 bytes of shared
+    memory a block can use, else "team" (B4't-team, ``cf_sde3_bwd_team``:
+    the batch on one team of 8 blocks, the weights streamed from L2). With
+    4 inputs and 4 lanes that is "block" through 19 columns (P = 152) and
+    "team" from 20; fewer lanes move the edge up, more move it down."""
+    floats = ((3 * P * P + 1) // 2 + n_in * P + 5 * B * P + B * _MAX_INPUTS + 1
+              + 2 * (_THREADS // 32) + 8 * B * 3 * P + 4 * B + 2 * n_in * P)
+    return "block" if 4 * floats <= SMEM_BLOCK_BYTES else "team"
+
+
 def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: int, pw,
                 sc: SDEConsts, kv):
     """The kernel-mode reverse sweep of ``replay3_fwd``: ys_prev (n, B, 3P)
     the states before each step, ysbar (n, B, 3P) the direct cotangents on
     each step's output. Returns (ybar (B, 3P) before step 0, d wT, d iwT).
     ``stride``: truncation (0: none); ``chunk``: the steps whose weight
-    cotangents the JAX kernel sums before adding them to the total."""
+    cotangents the JAX kernel sums before adding them to the total. On the
+    card B4't or B4't-team, as ``sde3_bwd_route`` decides by shape before
+    the launch."""
     n, B, S = ys_prev.shape
     P = S // 3
     if chunk < 1:
@@ -700,8 +741,23 @@ def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: i
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     d_wT = torch.empty((P, P), dtype=_F32, device=dev)
     d_iwT = torch.empty((kv.shape[2], P), dtype=_F32, device=dev)
-    work = torch.empty((4, P, P), dtype=_F32, device=dev)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
+    if sde3_bwd_route(P, kv.shape[2], B) == "team":
+        terms = _split3_terms(pw, sc)
+        hiT, midT, loT = (t.T.contiguous() for t in terms)
+        scr = torch.empty((7, B, S), dtype=_F32, device=dev)
+        work = torch.empty((P + kv.shape[2], P), dtype=_F32, device=dev)
+        _check(_lib().cf_sde3_bwd_team(
+            B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
+            int(stride or 0), int(chunk), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
+            *(t.data_ptr() for t in terms), hiT.data_ptr(), midT.data_ptr(), loT.data_ptr(),
+            pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(),
+            ys_prev.data_ptr(), ysbar.data_ptr(), scr.data_ptr(), ybar.data_ptr(),
+            d_wT.data_ptr(), d_iwT.data_ptr(), work.data_ptr(), _stream(ys_prev)),
+            "sde3_bwd_team")
+        LAUNCHES["sde3_bwd_team"] += 1
+        return ybar, d_wT, d_iwT
+    work = torch.empty((4, P, P), dtype=_F32, device=dev)
     _check(_lib().cf_sde3_bwd(
         B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
         int(stride or 0), int(chunk), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),

@@ -14,17 +14,22 @@ the parity task integrates: ``network_drift_premixed`` with the knot
 stimulus and the constant diffusion sigma = 10, lane-batched on per-lane
 step grids (the 2-D ``ts_steps`` mode, the adaptive replay's engine) or on
 one uniform grid (``ts``). The weight gradients are resolved as in the JAX
-package (``resolve_sde_arg_grads``), and two tiers are ported:
+package (``resolve_sde_arg_grads``), and these tiers are ported
+(``sde_tier``):
 
 - the three-term split (``prepare="split"``, ``prepare_premixed_split``) in
   kernel mode: the sweep kernel B3t forward, the reverse-sweep kernel B4't
-  with the weight cotangents in it (``_Replay3``); both grid modes;
-- the three-term split in outer mode on the uniform grid (the fixed-grid
-  step from 64 columns, where the weights hold more than 1 MiB): B3t-team
+  (B4't-team where the batch and the weights do not fit a block) with the
+  weight cotangents in it (``_Replay3``); both grid modes;
+- the three-term split in outer mode (the fixed-grid step from 64 columns,
+  where the weights hold more than 1 MiB, and the adaptive replay's
+  f32-exact engine there or under the gradbf16 substitute): B3t-team
   forward (B3t where the weights fit a block), the emit-mode sweep B4t for
-  the state cotangent and each step's seed, then the exact step-batched
-  weight VJPs outside the kernels (``outer_arg_grads_split3``,
-  ``_Replay3Outer``);
+  the state cotangent and each step's seed, then the weight VJPs outside
+  the kernels on the steps' own times (``_Replay3Outer``): exact
+  (``outer_arg_grads_split3``) on the uniform grid or per-lane grids, or,
+  with ``vjp_drift="gradbf16"`` on per-lane grids, the bf16 substitute
+  (``outer_arg_grads``);
 - the two-term split (``prepare="split2"``) in outer mode with the bf16
   substitute ``network_drift_premixed_gradbf16`` for the weight gradients
   (``vjp_drift="gradbf16"``): the replay kernel B3, the emit-mode sweep B4
@@ -216,6 +221,18 @@ def outer_arg_grads(ys_prev, seeds, t0s, hs, i10, pw, sc: SDEConsts, kv,
     return d_wT, d_iwT
 
 
+def _carried_cotangent(ys_bar, n_real: int):
+    """The replay's rows past n_real hold the carried state ys[n_real]:
+    their cotangents add to that row's before the reverse sweep, which
+    reads the rows up to n_real only."""
+    ys_bar = ys_bar.to(torch.float32).contiguous()
+    if n_real + 1 >= ys_bar.shape[0]:
+        return ys_bar
+    ys_bar = ys_bar.clone()
+    ys_bar[n_real] += ys_bar[n_real + 1:].sum(0)
+    return ys_bar
+
+
 class _Replay(torch.autograd.Function):
     """Forward: ``replay_fwd`` (B3). Backward: ``replay_bwd`` (B4), then
     ``outer_arg_grads``. Gradients reach wT, iwT and y0; the step grid and
@@ -235,7 +252,7 @@ class _Replay(torch.autograd.Function):
     def backward(ctx, ys_bar):
         sc, kv, n_real, stride = ctx.spec
         wT, iwT, ys, t0s, hs, i10 = ctx.saved_tensors
-        ys_bar = ys_bar.to(torch.float32).contiguous()
+        ys_bar = _carried_cotangent(ys_bar, n_real)
         ybar, seeds = replay_bwd(ys[:-1], ys_bar[1:], t0s, hs, i10, n_real, stride,
                                  ctx.w2, sc, kv)
         pw = {"wT": wT.detach(), "iwT": iwT.detach()}
@@ -262,19 +279,21 @@ class _Replay3(torch.autograd.Function):
     def backward(ctx, ys_bar):
         sc, kv, n_real, stride, chunk = ctx.spec
         ys, t0s, hs, i10 = ctx.saved_tensors
-        ys_bar = ys_bar.to(torch.float32).contiguous()
+        ys_bar = _carried_cotangent(ys_bar, n_real)
         ybar, d_wT, d_iwT = replay3_bwd(ys[:-1], ys_bar[1:], t0s, hs, i10, n_real, stride, chunk,
                                         ctx.pw, sc, kv)
         return d_wT, d_iwT, ybar + ys_bar[0], None, None, None, None, None
 
 
 class _Replay3Outer(torch.autograd.Function):
-    """The three-term split in outer mode on the uniform grid. Forward:
-    ``replay3_fwd`` (B3t-team, or B3t by ``sde3_fwd_route``); backward:
-    ``replay3_bwd_emit`` (B4t) for the state cotangent and each step's seed,
-    then ``outer_arg_grads_split3`` on the states before each step and the
-    seeds. Gradients reach wT, iwT and y0; the grid and the noise are data.
-    ``spec``'s ``outer`` = (t0s, hs) of the outer pass (``outer_step_times``)."""
+    """The three-term split in outer mode. Forward: ``replay3_fwd``
+    (B3t-team, or B3t by ``sde3_fwd_route``); backward: ``replay3_bwd_emit``
+    (B4t) for the state cotangent and each step's seed, then the weight VJPs
+    on the states before each step and the seeds: ``outer_arg_grads_split3``
+    (exact), or ``outer_arg_grads`` (``vjp_drift`` "gradbf16"). Gradients
+    reach wT, iwT and y0; the grid and the noise are data. ``spec``'s
+    ``outer`` = (t0s, hs) of the outer pass: ``outer_step_times`` on the
+    uniform grid, the lanes' own (n, B) times on per-lane grids."""
 
     @staticmethod
     def forward(ctx, wT, iwT, y0, t0s, hs, i1, i10, spec):
@@ -287,13 +306,14 @@ class _Replay3Outer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ys_bar):
-        sc, kv, n_real, stride, (t0_o, h_o) = ctx.spec
+        sc, kv, n_real, stride, (t0_o, h_o), vjp_drift = ctx.spec
         ys, t0s, hs, i10 = ctx.saved_tensors
-        ys_bar = ys_bar.to(torch.float32).contiguous()
+        ys_bar = _carried_cotangent(ys_bar, n_real)
         ybar, seeds = replay3_bwd_emit(ys[:-1], ys_bar[1:], t0s, hs, i10, n_real, stride, ctx.pw,
                                        sc, kv)
-        d_wT, d_iwT = outer_arg_grads_split3(ys[:n_real], seeds[:n_real], t0_o[:n_real],
-                                             h_o[:n_real], i10[:n_real], ctx.pw, sc, kv)
+        outer = outer_arg_grads if vjp_drift == "gradbf16" else outer_arg_grads_split3
+        d_wT, d_iwT = outer(ys[:n_real], seeds[:n_real], t0_o[:n_real], h_o[:n_real],
+                            i10[:n_real], ctx.pw, sc, kv)
         return d_wT, d_iwT, ybar + ys_bar[0], None, None, None, None, None
 
 
@@ -316,11 +336,21 @@ def resolve_sde_arg_grads(pw: dict, arg_grads: str = "auto", vjp_drift: str | No
 
 
 def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
-    """Which ported tier computes ``sdeint_fused``'s gradients: "split"
-    (kernel mode, B3t/B4't), "split-outer" (outer mode on the uniform grid
-    with the exact weight VJPs: B3t-team, B4t, ``outer_arg_grads_split3``)
-    or "split2" (outer mode with the gradbf16 substitute, B3/B4 on per-lane
-    grids). Anything else raises naming its ROADMAP.md item."""
+    """Which ported tier computes ``sdeint_fused``'s gradients:
+
+    - "split": the three-term split in kernel mode (B3t or B3t-team, B4't or
+      B4't-team), either grid;
+    - "split-outer": the three-term split in outer mode (B3t or B3t-team,
+      B4t, then the weight VJPs outside the sweep): on the uniform grid
+      exact at the outer pass's times (``outer_arg_grads_split3``; the
+      fixed-grid step from 64 columns); on per-lane grids at the lanes' own
+      step times, exact (the adaptive replay's f32-exact engine from 64
+      columns) or with the gradbf16 substitute (``outer_arg_grads``:
+      ``--grad-bf16`` without ``--split2``);
+    - "split2": the two-term split in outer mode with the gradbf16
+      substitute (B3, B4 and ``outer_arg_grads`` on per-lane grids).
+
+    Anything else raises naming its ROADMAP.md item."""
     if prepare not in ("split", "split2"):
         raise ValueError(f"unknown prepare {prepare!r}: use 'split' (prepare_premixed_split) or "
                          "'split2' (prepare_premixed_split2)")
@@ -329,15 +359,14 @@ def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
     mode = resolve_sde_arg_grads(pw, arg_grads, vjp_drift)
     if prepare == "split" and mode == "kernel":
         return "split"
-    if prepare == "split" and mode == "outer" and vjp_drift is None and not lanes:
+    if prepare == "split" and (vjp_drift is None or lanes):
         return "split-outer"
     if prepare == "split2" and mode == "outer" and vjp_drift == "gradbf16" and lanes:
         return "split2"
     if prepare == "split":
-        why = ("the three-term split with its weight gradients outside the sweep (arg_grads "
-               "'outer') on per-lane grids or with the gradbf16 substitute (B4 in emit mode on "
-               "the three-term split in lanes mode, and that outer weight-gradient pass) is not "
-               "ported: ROADMAP.md A5b, kernel B4t")
+        why = ("the gradbf16 substitute on the uniform grid is not ported (the JAX package's "
+               "fixed-grid step never passes vjp_drift): ROADMAP.md B, the substitute on the "
+               "uniform grid")
     elif mode == "kernel":
         why = ("the two-term split with its weight gradients in the sweep (arg_grads 'kernel') is "
                "not ported: ROADMAP.md A5b, kernel B4s")
@@ -346,7 +375,8 @@ def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
                "gradbf16 substitute) are not ported: ROADMAP.md A5b")
     else:
         why = ("the two-term split on the uniform grid is not ported (the JAX package's fixed-grid "
-               "step takes the three-term split): ROADMAP.md A5b")
+               "step takes the three-term split): ROADMAP.md B, the two-term split on the "
+               "uniform grid")
     raise NotImplementedError(why)
 
 
@@ -366,10 +396,8 @@ def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps=None, noise_pack=None
     ``prepare_premixed_split2``), ``vjp_drift`` (None or "gradbf16":
     ``network_drift_premixed_gradbf16`` for the outer weight gradients) and
     ``arg_grads`` as in the JAX package (``resolve_sde_arg_grads``); the
-    ported tiers are the three-term split in kernel mode, the three-term
-    split in outer mode on the uniform grid, and the two-term split in outer
-    mode with the gradbf16 substitute (``sde_tier``). The defaults are the
-    flagship's replay.
+    ported tiers are ``sde_tier``'s. The defaults are the flagship's
+    replay.
 
     ``n_real`` (per-lane grids): the leading real steps (the rest must be
     h == 0 padding with zero noise and zero cotangents), an int read on the
@@ -408,9 +436,13 @@ def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps=None, noise_pack=None
                 sweep_chunk(tuple(y0.shape), n, bptt_every))
         return _Replay3.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
     if tier == "split-outer":
-        t0_o, h_o = outer_step_times(ts)
-        t0_o = t0_o.to(y0.device)
-        spec = (sc, kv.contiguous(), n_real, stride, (t0_o, torch.full_like(t0_o, h_o)))
+        if ts_steps is None:
+            t0_o, h_o = outer_step_times(ts)
+            t0_o = t0_o.to(y0.device)
+            outer = (t0_o, torch.full_like(t0_o, h_o))
+        else:  # the arrays the kernels stepped on, as the JAX package's lanes mode takes them
+            outer = (t0s, hs)
+        spec = (sc, kv.contiguous(), n_real, stride, outer, vjp_drift)
         return _Replay3Outer.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
     return _Replay.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10,
                          (sc, kv.contiguous(), n_real, stride))

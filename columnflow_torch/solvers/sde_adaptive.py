@@ -15,16 +15,19 @@ Two selections, as in the JAX package, both a CUDA kernel per lane
 ``_adaptive_pass``/``_make_body``/``_sra1_doubling``):
 
 - ``fused_pass=True`` (the JAX package's in-kernel pass, B5): the krng tree
-  (``brownian="kernel"``), the bf16 selection drift;
+  (``brownian="kernel"``), the bf16 selection drift (``select_bf16``) or
+  the three-term split of ``prepare_premixed_split`` (B5t, the JAX
+  package's ``select_prepare``);
 - ``fused_pass=False`` (its XLA pass): the ``jax.random`` tree
   (``brownian="jax"``, by default) or the krng tree, the bf16 or the float32
   selection drift (``select_bf16``).
 
-The replay: the three-term split in kernel mode (``prepare="split"``, the
-f32-exact replay below 64 columns) or the two-term split with the gradbf16
-weight gradients outside the kernels (``prepare="split2"``,
-``grad_bf16``), per ``sdeint_fused``. The defaults are the 104-column
-``--fused-pass`` flagship's. Keys are raw key data (B, 2), uint32 words in
+The replay: the three-term split (``prepare="split"``, the f32-exact
+replay: in kernel mode through 63 columns, in outer mode from 64, its outer
+weight gradients exact or, with ``grad_bf16``, the gradbf16 substitute) or
+the two-term split with the gradbf16 weight gradients outside the kernels
+(``prepare="split2"``, ``grad_bf16``), per ``sdeint_fused``. The defaults
+are the 104-column ``--fused-pass`` flagship's. Keys are raw key data (B, 2), uint32 words in
 int64: a JAX key passes unchanged, and both packages then draw the same
 paths.
 
@@ -39,7 +42,13 @@ from typing import NamedTuple
 
 import torch
 
-from columnflow_torch.kernels.network_sde import SDEConsts, SelectConfig, lane_noise, select_pass
+from columnflow_torch.kernels.network_sde import (
+    SDEConsts,
+    SelectConfig,
+    lane_noise,
+    select_pass,
+    select_weights_split3,
+)
 from columnflow_torch.models.network import premix_select16
 from columnflow_torch.ops.arith import div
 from columnflow_torch.solvers import jrandom, krng
@@ -92,7 +101,12 @@ def _adaptive_pass(model: PremixedNetworkSDE, y0, words, cfg: SelectConfig):
     with ``cfg``'s tree and drift: (step_times (B, M+1), naccept, nreject,
     success)."""
     pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
-    w = premix_select16(pw) if cfg.drift == "select16" else pw
+    if cfg.drift == "select16":
+        w = premix_select16(pw)
+    elif cfg.drift == "split3":
+        w = select_weights_split3(pw, model.sc)
+    else:
+        w = pw
     return select_pass(y0.detach().contiguous(), words, w, model.sc,
                        model.kv.detach().contiguous(), cfg)
 
@@ -166,17 +180,18 @@ def select_config(ts, rtol: float = 1e-3, atol: float = 1e-3, dt0: float | None 
 
 def resolve_selection(fused_pass: bool, brownian: str | None, select_bf16: bool) -> tuple:
     """(brownian, drift) of the selection, as the JAX package resolves
-    them: the in-kernel pass implies the krng tree."""
+    them: the in-kernel pass implies the krng tree, and without
+    ``select_bf16`` it selects on the three-term split
+    (``select_prepare=prepare_premixed_split``: "split3"); the XLA pass on
+    the float32 weights ("f32")."""
     if brownian is None:
         brownian = "kernel" if fused_pass else "jax"
     if fused_pass and brownian != "kernel":
         raise ValueError("fused_pass=True requires the 'kernel' Brownian backend (the pass "
                          "evaluates the tree in-kernel)")
-    if fused_pass and not select_bf16:
-        raise NotImplementedError(
-            "the in-kernel selection on the three-term split (fused_pass without select_bf16) "
-            "is not ported: ROADMAP.md A5b, kernel B5t")
-    return brownian, "select16" if select_bf16 else "f32"
+    if select_bf16:
+        return brownian, "select16"
+    return brownian, "split3" if fused_pass else "f32"
 
 
 def sdeint_adaptive_batch(model: PremixedNetworkSDE, y0, ts, keys, *, rtol: float = 1e-3,

@@ -25,9 +25,12 @@ selected by the JAX package's flags (``make_train_step``):
   replay over the frozen grids and its reverse sweep. ``fused_pass``: the
   selection draws from the krng tree (the JAX package's in-kernel pass);
   otherwise from the ``jax.random`` tree (its XLA pass). ``select_bf16``:
-  the bf16 selection drift; ``split2`` with ``grad_bf16``: the two-term
-  replay with the bf16 weight gradients outside the kernels; neither: the
-  three-term replay with the weight gradients in its reverse sweep.
+  the bf16 selection drift, else the float32 one (the in-kernel pass: the
+  three-term split); ``split2`` with ``grad_bf16``: the two-term replay
+  with the bf16 weight gradients outside the kernels; otherwise the
+  three-term replay, its weight gradients in the reverse sweep through 63
+  columns and outside it from 64 (exact, or with ``grad_bf16`` the bf16
+  substitute, which takes them outside at every width).
 
 All end in the loss (scaled), masked gradients, max-prescaled global norm,
 optional clipping, a skip on non-finite (and, unclipped, exploding)
@@ -47,6 +50,10 @@ JAX package's).
         --clip-grad-norm 1.0 --loss-scale 1e-6     # bench.py's primary configuration
     python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
         --fused --fused-pass --select-bf16 --grad-bf16 --split2
+    python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
+        --engine fused --columns-per-area 64,32,8 --max-steps 16384 --bptt-every 32 \
+        --clip-grad-norm 1.0 --loss-scale 1e-6     # the f32-exact engine at 104 columns
+    python -m columnflow_torch.tasks.parity --smoke --stochastic --columns-per-area 16,8,8
 
 ``resolve_mode`` resolves the command line's flags as the JAX package's
 ``main`` does (explicit engine flags switch ``--engine`` off). Every
@@ -55,7 +62,8 @@ combination that resolves to an unported path raises
 (``--engine xla``, past 312 columns, an explicit flag without ``--fused``,
 the stochastic-adaptive step past 8 lanes at 104 columns or more: A7), the
 split2 tier at 63 columns or fewer (B8s), ``--method`` other than dopri5
-(A7), the adaptive replay's other weight-gradient tiers (A5b),
+(A7), the split2 replay without ``--grad-bf16`` (A5b: B4s in kernel mode,
+the exact split2 outer pass from 64 columns),
 ``--random-fan-in``/``--legacy-host-rng``
 (A3), ``--position-invariant`` and ``--reference-rails`` (A6b), and
 checkpoints, metrics, profiles and evaluation (A9). A flag that the JAX

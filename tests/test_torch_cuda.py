@@ -33,7 +33,11 @@ short uniform and per-lane windows: bit for bit against their plain
 versions, one launch each; the forward kernel picked by shape (the one-block
 B3t at 13 columns, the team from 24); the 104-column fixed-grid step against
 the same step on the CPU (loss rel 1e-5, gradients within the larger of 3e-2
-and ten times the card's own nudge spread).
+and ten times the card's own nudge spread). The selection on the three-term
+split (B5t) at 13 and 104 columns and B4't-team at 32 and 63 columns (and
+against B4't at 13): bit for bit; the adaptive step's new tiers at 13
+columns against the same step on the CPU (loss rel 1e-5, gradients within
+the larger of 1e-3 and ten times the card's own nudge spread).
 
 Column-network dopri5 kernels, at the reference width (13 columns, P = 104,
 batch 4 under one controller, 200 grid points). Kernel and plain version sum
@@ -691,6 +695,167 @@ def test_fixed_grid_104_column_step_on_cuda_matches_cpu(dev, monkeypatch):
         spread = float((grads_n[k] - g).norm()) / float(g.norm())
         err = float((g - grads_c[k]).norm()) / float(grads_c[k].norm())
         assert err <= max(3e-2, 10.0 * spread), (k, err, spread)
+
+
+def _krng_inputs(dev, cpa, T):
+    """The in-kernel pass's inputs on the three-term split (B5t): the krng
+    tree's key words, ``select_weights_split3`` of the network's weights."""
+    d = _net_inputs(dev, cpa=cpa, T=T)
+    keys = torch.randint(0, 2**32, (4, 2), generator=d["gen"], device=dev, dtype=torch.int64)
+    params, net = nw.build_column_network(ColumnConfig.load(),
+                                          torch.Generator(device=dev).manual_seed(0),
+                                          columns_per_area=cpa, n_inputs=4, device=dev)
+    pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
+    cfg = select_config(d["ts"], max_steps=4096, brownian="kernel", drift="split3")
+    return d, _sde_key_words(keys, "kernel"), cfg, ns.select_weights_split3(pw, d["sc"]), pw
+
+
+@pytest.mark.parametrize("cpa,T", [((8, 4, 1), 100), ((64, 32, 8), 10)])
+def test_split3_selection_kernels_match_plain_bit_for_bit(dev, cpa, T):
+    """B5t (the selection on the three-term split, krng tree) at 13 and 104
+    columns: the whole selection over T grid points and 8 single attempts
+    from states in the rates' regimes, bit for bit against the plain
+    versions, one launch each."""
+    d, words, cfg, w3, _ = _krng_inputs(dev, cpa, T)
+    P, gen = d["P"], d["gen"]
+    y0 = torch.zeros(4, 3 * P, device=dev)
+    before = dict(ns.LAUNCHES)
+    got = ns.select_pass(y0, words, w3, d["sc"], d["kv"], cfg)
+    N = 8
+    lane = torch.arange(N, device=dev) % 4
+    w_r, kv = words[lane].contiguous(), d["kv"][:, lane].contiguous()
+    y1 = _states(gen, N, P, dev)
+    t1 = (0.9 * cfg.t_end * torch.rand(N, 1, generator=gen, device=dev)).contiguous()
+    h = (1e-6 * 10.0 ** (torch.arange(N, device=dev)[:, None] % 4)).contiguous()
+    err_prev = torch.full((N, 1), 0.7, device=dev)
+    w_t1 = ns._tree(w_r, cfg).evaluate(t1).contiguous()
+    att = ns.select_attempt(t1, y1, h, err_prev, w_t1, w_r, w3, d["sc"], kv, cfg)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched == {"sde_select": 1, "sde_attempt": 1}
+    assert bool(got[3].all())
+    for g, p in zip(got, ns._select_plain(y0, words, w3, d["sc"], d["kv"], cfg)):
+        assert torch.equal(g, p)
+    for g, p in zip(att, ns._attempt_plain(t1, y1, h, err_prev, w_t1, w_r, w3, d["sc"], kv, cfg)):
+        assert torch.isfinite(g).all() and torch.equal(g, p)
+
+
+@pytest.mark.parametrize("cpa,lanes", [((16, 8, 8), False), ((16, 8, 8), True),
+                                       ((32, 24, 7), False), ((32, 24, 7), True)])
+def test_sde3_bwd_team_matches_plain_bit_for_bit(dev, cpa, lanes):
+    """B4't-team (the kernel-mode sweep on one team of blocks) at 32 and 63
+    columns, past one block's capacity, on 12-step windows (the last two
+    steps padding, truncation every 5 steps, chunk 4): ybar, d wT and d iwT
+    bit for bit against the plain version, one launch, chosen by shape."""
+    d = _net_inputs(dev, cpa=cpa, T=1000)
+    gen, B, P = d["gen"], 4, d["P"]
+    assert ns.sde3_bwd_route(P, 4, B) == "team"
+    params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=cpa,
+                                          n_inputs=4, device=dev)
+    pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
+    n = 12
+    t0s, hs, dw, i10 = _team_grid(dev, gen, B, P, n, lanes, d["ts"])
+    ys = ns.replay3_fwd(_states(gen, B, P, dev), t0s, hs, dw, i10, n - 2, pw, d["sc"], d["kv"])
+    ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n - 2, 5, 4, pw, d["sc"], d["kv"])
+    before = dict(ns.LAUNCHES)
+    got = ns.replay3_bwd(*bwd)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched == {"sde3_bwd_team": 1}
+    want = ns._replay3_bwd_plain(*bwd)
+    assert bool(got[1].any())  # ybar is zeroed after step 0; d iwT is 0 before the stimulus
+    for g, p in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, p)
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+def test_sde3_bwd_team_equals_the_one_block_sweep(dev, lanes, monkeypatch):
+    """At 13 columns both kernel-mode sweeps fit: B4't-team and B4't agree
+    bit for bit over 40 steps (truncation every 16, chunk 10)."""
+    d = _net_inputs(dev, cpa=(8, 4, 1), T=1000)
+    gen, B, P = d["gen"], 4, d["P"]
+    assert ns.sde3_bwd_route(P, 4, B) == "block"
+    params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=(8, 4, 1),
+                                          n_inputs=4, device=dev)
+    pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
+    n = 40
+    t0s, hs, dw, i10 = _team_grid(dev, gen, B, P, n, lanes, d["ts"])
+    ys = ns.replay3_fwd(_states(gen, B, P, dev), t0s, hs, dw, i10, n, pw, d["sc"], d["kv"])
+    ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n, 16, 10, pw, d["sc"], d["kv"])
+    before = dict(ns.LAUNCHES)
+    block = ns.replay3_bwd(*bwd)
+    monkeypatch.setattr(ns, "sde3_bwd_route", lambda *a: "team")
+    team = ns.replay3_bwd(*bwd)
+    assert ns.LAUNCHES["sde3_bwd"] == before["sde3_bwd"] + 1
+    assert ns.LAUNCHES["sde3_bwd_team"] == before["sde3_bwd_team"] + 1
+    torch.cuda.synchronize()
+    for a, b in zip(team, block):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flags", [dict(grad_bf16=True), dict(fused_pass=True),
+                                   dict(outer=True)])
+def test_lanes_outer_adaptive_step_on_cuda_matches_cpu(dev, flags, monkeypatch):
+    """The stochastic-adaptive step at 13 columns over 50 grid points on the
+    tiers this slice ports: ``grad_bf16`` (outer mode at any width: B3t,
+    then B4t lanes as teams of 13 populations per block, then the gradbf16
+    substitute), ``fused_pass`` (B5t, then B3t and B4't), and the exact
+    outer tier on per-lane grids (weights forced to outer mode). One launch
+    of each kernel of the path and no plain version; the same step on the
+    CPU on the card's grid: loss rel 1e-5, each gradient within the larger
+    of 1e-3 and ten times the card's own spread under a 1e-7 nudge."""
+    from columnflow_torch.solvers import fused as sf
+
+    flags = dict(flags)
+    if flags.pop("outer", False):
+        monkeypatch.setattr(sf, "OUTER_ARG_BYTES", 0)
+    keys = torch.randint(0, 2**32, (4, 2), generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int64)
+
+    def step_on(device, params=None, grid=None):
+        task = parity.build_task(ColumnConfig.load(),
+                                 torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=(8, 4, 1), time_steps=50, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        rec = parity.make_train_step(task, stochastic=True, adaptive=True, **flags)(
+            torch.tensor(ODE_STIMS, device=device), keys.to(device), grid=grid)
+        return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    params0 = {k: p.detach().cpu().clone() for k, p in parity.build_task(
+        ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+        columns_per_area=(8, 4, 1), time_steps=50, device=dev).params.items()}
+    with monkeypatch.context() as m:
+        for name in ("_select_plain", "_replay3_fwd_plain", "_replay3_bwd_emit_plain",
+                     "_replay3_bwd_plain"):
+            m.setattr(ns, name, boom)
+        before = dict(ns.LAUNCHES)
+        rec, grads = step_on(dev, params0)
+        torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    kernel_mode = "fused_pass" in flags
+    assert launched == {"sde_select": 1, "sde3_fwd": 1,
+                        ("sde3_bwd" if kernel_mode else "sde3_bwd_emit"): 1}
+    st = rec["stats"]
+    grid = tuple(x.cpu() for x in (st.step_times, st.naccept, st.nreject))
+    rec_c, grads_c = step_on(torch.device("cpu"), params0, grid)
+    _, grads_n = step_on(dev, {k: v * (1.0 + 1e-7) for k, v in params0.items()},
+                         tuple(x.to(dev) for x in grid))
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        if not bool(grads_c[k].any()):
+            assert not bool(g.any()), k
+            continue
+        spread = float((grads_n[k] - g).norm()) / float(g.norm())
+        err = float((g - grads_c[k]).norm()) / float(grads_c[k].norm())
+        assert err <= max(1e-3, 10.0 * spread), (k, err, spread)
 
 
 # ---------------------------------------------------------------------------

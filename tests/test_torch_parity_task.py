@@ -485,7 +485,26 @@ BENCH = dict(stochastic=True, adaptive=True, select_bf16=True, grad_bf16=True, s
     # too (resolve_engine: use_fused, no split2), its weight gradients taken
     # outside the sweep (arg_grads "auto" -> "outer").
     (["--stochastic", "--columns-per-area", "64,32,8"], FIXED),
-    (["--stochastic", "--columns-per-area", "192,96,24"], FIXED)])
+    (["--stochastic", "--columns-per-area", "192,96,24"], FIXED),
+    # --fused-pass without --split2 replays on the three-term split with
+    # the gradbf16 weight gradients outside (B4t lanes, then the substitute);
+    # --fused-pass without --select-bf16 selects on the three-term split
+    # (B5t).
+    (FLAGSHIP_ARGV[:-1], dict(BENCH, fused_pass=True, split2=False)),
+    (FLAGSHIP_ARGV[:3] + ["--fused-pass", "--grad-bf16", "--split2"],
+     dict(XLA_SELECTION, fused_pass=True, grad_bf16=True, split2=True)),
+    # The f32-exact engine pinned at bench.py's width (the exact outer
+    # tier on per-lane grids), with B5t, and with the gradbf16 substitute.
+    (["--stochastic", "--adaptive", "--engine", "fused", "--columns-per-area", "64,32,8"],
+     XLA_SELECTION),
+    (["--stochastic", "--adaptive", "--fused", "--fused-pass", "--columns-per-area", "64,32,8"],
+     dict(XLA_SELECTION, fused_pass=True)),
+    (["--stochastic", "--adaptive", "--fused", "--grad-bf16", "--columns-per-area", "64,32,8"],
+     dict(XLA_SELECTION, grad_bf16=True)),
+    (["--stochastic", "--adaptive", "--fused", "--grad-bf16"], dict(XLA_SELECTION, grad_bf16=True)),
+    # Kernel mode past one block's capacity (B4't-team): 32 columns.
+    (["--stochastic", "--columns-per-area", "16,8,8"], FIXED),
+    (["--stochastic", "--adaptive", "--columns-per-area", "16,8,8"], XLA_SELECTION)])
 def test_command_line_resolves_the_stochastic_steps(argv, mode):
     seen = _parse(argv + ["--smoke", "--device", "cpu"])
     want = {k: bool(mode.get(k, False)) for k in tpt.Flags._fields}
@@ -499,13 +518,13 @@ def test_command_line_resolves_the_stochastic_steps(argv, mode):
     (["--columns-per-area", "256,128,32"], NotImplementedError, "A7"),
     (["--engine", "xla"], NotImplementedError, "A7"),
     (["--method", "tsit5"], NotImplementedError, "A7"),
-    # --fused-pass without --split2 replays on the three-term split with
-    # the gradbf16 weight gradients outside (B4 emit on that split); an
-    # explicit flag without --fused is the XLA engine; --fused-pass alone
+    # The split2 replay without the gradbf16 substitute: in kernel mode
+    # through 63 columns (B4s), the exact outer pass from 64 (A5b).
+    (["--stochastic", "--adaptive", "--fused", "--split2"], NotImplementedError, "B4s"),
+    (["--stochastic", "--adaptive", "--fused", "--split2", "--columns-per-area", "64,32,8"],
+     NotImplementedError, "A5b"),
+    # An explicit flag without --fused is the XLA engine; --fused-pass alone
     # is refused, as the JAX package's batched_rollout refuses it.
-    (FLAGSHIP_ARGV[:-1], NotImplementedError, "B4t"),
-    (FLAGSHIP_ARGV[:3] + ["--fused-pass", "--grad-bf16", "--split2"], NotImplementedError,
-     "B5t"),
     (["--select-bf16"], NotImplementedError, "A7"),
     (["--fused-pass", "--fused"], ValueError, "fused_pass requires"),
     (["--adaptive"], ValueError, "adaptive applies"),

@@ -169,6 +169,129 @@ def test_whole_plain_selection_matches_jax_statistically(setup):
     np.testing.assert_allclose(nr.numpy(), nr_j, rtol=0.1, atol=3)
 
 
+def _split3_body(s, b):
+    """JAX's controller body on lane b's krng tree with the three-term
+    selection drift: ``network_drift_premixed`` on ``prepare_premixed_split``
+    of the weights, the in-kernel pass's drift under ``select_prepare``."""
+    key_b, kv_b = s["keys"][b], s["kv_all"][b][:, None, :]
+    tree, i10_draw = jsa._noise_backend(key_b, s["t0"], s["t1"], 20, jnp.float32, "kernel")
+    w3 = jn.prepare_premixed_split(s["jpw"], s["jfc"])[0]
+    body = jax.jit(jsa._make_body(jsa._sra1_step, 0.5, True, s["drift"](jn.network_drift_premixed),
+                                  s["a_diff"], s["t1"], tree, i10_draw, 1e-3, 1e-3, jnp.float32,
+                                  (w3, s["jfc"], kv_b), controller="pi", doubling=None))
+    return tree, body
+
+
+def test_one_split3_attempt_matches_jax_body(setup):
+    """B5t's plain version (``drift="split3"``: the three-term split of
+    ``prepare_premixed_split``, the krng tree) for one controller attempt,
+    against JAX's body with that drift, from random states at three times
+    and three steps per lane: the same decision, err and next h rel 1e-3
+    where err lies near the decision (0.3..20), the new state within 1e-5 of
+    its scale."""
+    s = setup
+    P = s["net"].num_pops
+    model = s["model"]
+    w3 = ns.select_weights_split3({k: v.detach() for k, v in model.pw.items()}, model.sc)
+    cfg = s["cfg"]._replace(drift="split3")
+    rng = np.random.default_rng(4)
+    decisions, rel = set(), [0.0]
+    for b in range(B):
+        tree, body = _split3_body(s, b)
+        for t1 in (0.003, 0.031, 0.05):
+            a = rng.uniform(0, 5, (1, P))
+            v = a + rng.uniform(-60, 150, (1, P))
+            y1 = np.concatenate([v, a, rng.uniform(0, 50, (1, P))], 1).astype(np.float32)
+            for h in (2e-6, 5e-6, 1e-5):
+                t1f, hf = np.float32(t1), np.float32(h)
+                w_t1 = tree.evaluate(jnp.float32(t1f))
+                c = jsa._Carry(t0=jnp.float32(t1f), y0=jnp.asarray(y1), t1=jnp.float32(t1f),
+                               y1=jnp.asarray(y1), h=jnp.float32(hf), step_times=jnp.zeros(8),
+                               naccept=jnp.int32(0), nreject=jnp.int32(0),
+                               err_prev=jnp.float32(0.7), w_t1=w_t1)
+                out = body(c)
+                got = ns.select_attempt(
+                    torch.tensor([[t1f]]), torch.as_tensor(y1), torch.tensor([[hf]]),
+                    torch.tensor([[0.7]]), torch.tensor([[float(w_t1)]]), s["words"][b:b + 1],
+                    w3, model.sc, model.kv[:, b:b + 1].contiguous(), cfg)
+                accept = int(out.naccept) == 1
+                decisions.add(accept)
+                assert bool(got.accept) == accept
+                assert float(got.t_new) == float(out.t1)
+                err_jax = (float(out.err_prev) if accept
+                           else (0.9 * float(hf) / float(out.h)) ** 2)
+                h_rel = abs(float(got.h_next) / float(out.h) - 1)
+                if 0.3 <= err_jax < 20.0:
+                    rel += [h_rel, abs(float(got.err) / err_jax - 1)]
+                else:
+                    assert h_rel < 1e-3
+                if accept:
+                    want = np.asarray(out.y1)
+                    assert np.max(np.abs(got.y_new.numpy() - want)) <= 1e-5 * np.abs(want).max()
+    assert decisions == {True, False}
+    assert max(rel) < 1e-3, max(rel)
+
+
+def test_whole_split3_selection_matches_jax_in_kernel_pass_statistically(setup):
+    """B5t's plain selection loop against JAX's in-kernel pass with
+    ``select_prepare=prepare_premixed_split`` (interpret mode): both
+    succeed, and per lane naccept and nreject lie within 10% plus 3 steps
+    plus twice the port's own spread under a 1e-7 nudge of the weights.
+    Measured: naccept (394, 402) against JAX's (394, 403); nreject (62, 86)
+    against (65, 71), where the nudge alone moves the port's to (67, 67):
+    once an error estimate an ulp apart flips a decision, the two runs draw
+    other noise (ROADMAP.md section C)."""
+    s = setup
+    P = s["net"].num_pops
+    model = s["model"]
+
+    def one_pass(y0_b, key_b, kv_b):
+        return jsa._adaptive_pass_fused(
+            s["drift"](jn.network_drift_premixed), s["a_diff"], y0_b, key_b, s["t0"], s["t1"],
+            1e-3, 1e-3, s["h0"], M, 20, "pi", "sra1", (s["jpw"], s["jfc"], kv_b),
+            prepare=jn.prepare_premixed_split, interpret=True)
+
+    _, na_j, nr_j, ok_j = jax.vmap(one_pass)(jnp.zeros((B, 1, 3 * P)), s["keys"],
+                                             s["kv_all"][:, :, None, :])
+    def port(scale):
+        pw = {k: v.detach() * scale for k, v in model.pw.items()}
+        return ns._select_plain(torch.zeros(B, 3 * P), s["words"],
+                                ns.select_weights_split3(pw, model.sc), model.sc, model.kv,
+                                s["cfg"]._replace(drift="split3"))
+
+    st, na, nr, ok = port(1.0)
+    _, na_n, nr_n, _ = port(1.0 + 1e-7)
+    assert ok.all() and np.asarray(ok_j).all()
+    assert (st[torch.arange(B), na.long()] == s["t1"]).all()
+    for got, nudged, want in ((na, na_n, na_j), (nr, nr_n, nr_j)):
+        want = np.asarray(want)
+        spread = 2 * np.abs(nudged.numpy() - got.numpy())
+        assert (np.abs(got.numpy() - want) <= 0.1 * want + 3 + spread).all()
+
+
+def test_split3_selection_weights_are_one_block_of_the_replay_split(setup):
+    """``select_weights_split3`` holds the replay's three terms as one
+    contiguous (3, P, P) block (the kernel reads them through one pointer)
+    with the plain drift's views into it; the three-term drift is the
+    in-kernel pass's only on the krng tree."""
+    s = setup
+    model = s["model"]
+    pw = {k: v.detach() for k, v in model.pw.items()}
+    w3 = ns.select_weights_split3(pw, model.sc)
+    split = tn.prepare_premixed_split(pw, model.sc.fc)[0]
+    assert w3["w3"].is_contiguous() and w3["w3"].dtype == torch.bfloat16
+    for i, k in enumerate(("wT_hi", "wT_mid", "wT_lo")):
+        assert torch.equal(w3[k], split[k]) and w3[k].data_ptr() == w3["w3"][i].data_ptr()
+    assert tsa.resolve_selection(True, None, False) == ("kernel", "split3")
+    assert tsa.resolve_selection(False, None, False) == ("jax", "f32")
+    y = torch.zeros(1, 3 * s["net"].num_pops)
+    one = torch.zeros(1, 1)
+    with pytest.raises(ValueError, match="krng"):
+        ns.select_attempt(one, y, one + 1e-5, one + 1, one, s["words"][:1], w3, model.sc,
+                          model.kv[:, :1].contiguous(),
+                          s["cfg"]._replace(drift="split3", brownian="jax"))
+
+
 def _jax_noise(s):
     """The replay grid and noise exactly as the JAX batched replay builds
     them from the frozen grid."""

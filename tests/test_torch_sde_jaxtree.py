@@ -419,8 +419,7 @@ def test_frozen_grid_composes_selection_and_replay(setup):
 def test_selection_settings_are_checked():
     with pytest.raises(ValueError, match="kernel"):
         tsa.resolve_selection(True, "jax", True)
-    with pytest.raises(NotImplementedError, match="B5t"):
-        tsa.resolve_selection(True, None, False)
+    assert tsa.resolve_selection(True, None, False) == ("kernel", "split3")  # B5t
     assert tsa.resolve_selection(False, None, False) == ("jax", "f32")
     assert tsa.resolve_selection(True, None, True) == ("kernel", "select16")
     with pytest.raises(ValueError, match="brownian"):

@@ -267,25 +267,24 @@ def test_lanes_replay_loss_and_gradients_on_jax_grid(setup, bptt_every):
         assert rel_l2(grads[0][k], want_g[k]) < 3e-2 + 10 * spread, k
 
 
-@pytest.mark.parametrize("cpa,prepare,vjp,arg_grads,want", [
-    ((2, 1), "split", None, "auto", "split"),
-    ((8, 4, 1), "split", None, "auto", "split"),        # 43 KB of weights: kernel mode
-    ((64, 32, 8), "split2", "gradbf16", "auto", "split2"),
-    ((2, 1), "split2", "gradbf16", "auto", "split2"),   # the substitute forces outer
-    ((64, 32, 8), "split", None, "auto", "B4t"),        # 2.8 MB: outer on the three-term split
-    ((2, 1), "split", "gradbf16", "auto", "B4t"),
-    ((2, 1), "split2", None, "auto", "B4s"),
-    ((64, 32, 8), "split2", None, "auto", "A5b"),
-    ((2, 1), "split", "gradbf16", "kernel", ValueError),
+@pytest.mark.parametrize("cpa,prepare,vjp,arg_grads,lanes,want", [
+    ((2, 1), "split", None, "auto", True, "split"),
+    ((8, 4, 1), "split", None, "auto", True, "split"),  # 43 KB of weights: kernel mode
+    ((64, 32, 8), "split2", "gradbf16", "auto", True, "split2"),
+    ((2, 1), "split2", "gradbf16", "auto", True, "split2"),  # the substitute forces outer
+    ((64, 32, 8), "split", None, "auto", True, "split-outer"),  # 2.8 MB: outer, three-term
+    ((2, 1), "split", "gradbf16", "auto", True, "split-outer"),  # the substitute forces outer
+    ((2, 1), "split2", None, "auto", True, "B4s"),
+    ((64, 32, 8), "split2", None, "auto", True, "A5b"),
+    ((2, 1), "split", "gradbf16", "kernel", True, ValueError),
     # The uniform grid (the fixed-grid step): the three-term split in outer
-    # mode is ported there, on per-lane grids it raises B4t (above).
-    ((64, 32, 8), "split", None, "auto", "split-outer"),
-    ((2, 1), "split", None, "outer", "split-outer"),
-    ((192, 96, 24), "split", None, "auto", "split-outer")])
-def test_sdeint_fused_resolves_its_tier_as_jax(cpa, prepare, vjp, arg_grads, want):
+    # mode, exact (the substitute on that grid: test_torch_sde_lanes_outer).
+    ((64, 32, 8), "split", None, "auto", False, "split-outer"),
+    ((2, 1), "split", None, "outer", False, "split-outer"),
+    ((192, 96, 24), "split", None, "auto", False, "split-outer")])
+def test_sdeint_fused_resolves_its_tier_as_jax(cpa, prepare, vjp, arg_grads, lanes, want):
     P = 8 * sum(cpa)
     pw = {"wT": torch.empty(P, P, device="meta"), "iwT": torch.empty(4, P, device="meta")}
-    lanes = want != "split-outer"
     if want is ValueError:
         with pytest.raises(ValueError, match="vjp_drift"):
             tf.sde_tier(pw, prepare, vjp, arg_grads, lanes)
