@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's training steps on one CUDA card: the WTA
 step, the 104-column stochastic-adaptive parity step (--fused-pass), the
 deterministic fused-dopri5 parity step and its 104-column fused-split2
-tier, the XOR task's deterministic and stochastic steps, the Hopf task's
-step, the 13-column fixed-grid and adaptive stochastic parity steps,
+tier, the XOR task's deterministic, stochastic and stochastic-adaptive
+steps, the Hopf task's step, the 13-column fixed-grid and adaptive stochastic parity steps,
 bench.py's 104-column stochastic-adaptive configuration, the 104-column
 fixed-grid stochastic parity step (outer mode), and the exact three-term
 stochastic-adaptive step at 104 columns with the 32-column kernel-mode
@@ -81,7 +81,7 @@ XOR (3 columns = 24 populations, state 72, the four conditions as one batch,
 rtol 1e-7 / atol 1e-9, and SRA1 on the uniform grid with sigma = 10 on the
 membrane block):
 16. kernel vs plain, bit for bit: 16 single attempts, the replay and the
-   kernel-mode sweep on 256-step windows early, in the middle and late in
+   kernel-mode sweep on 64-step windows early, in the middle and late in
    the card's grid, the SDE and its sweep over all 999 steps; the whole
    selection over the second by its counts (within 1%) and its first 10
    accepted times, and reported as bit for bit or not.
@@ -117,9 +117,9 @@ and the adaptive step with the XLA selection (--stochastic --adaptive: the
 jax.random tree, the float32 drift, max_steps 3072, then B3t and B4't on
 the lanes' grids):
 24. kernel vs plain, bit for bit: the selection over 25 grid points, 16
-   attempts along the replay, B3t over the whole lane-batched replay, B4't
-   on 64-half-step windows early, in the middle and late, and both over all
-   999 steps of the uniform grid.
+   attempts along the replay, B3t and B4't on 64-half-step windows of the
+   lane-batched replay early, in the middle and late, and both over all 999
+   steps of the uniform grid.
 25. main path: 3 train steps of each through make_train_step, one launch of
    each of their kernels per step and none of anything else; each first
    step again on the CPU on the card's grid and noise (the fixed grid over
@@ -172,8 +172,8 @@ kernel-mode steps at 32 columns (B4't-team):
    grid points and 8 attempts along its replay; B3t-team and B4t over that
    selection's whole lanes grid; B4t lanes at 13 columns.
 36. B5t against its plain version, bit for bit: the whole selection at 13
-   columns over the full second, at 104 columns over 25 points and 8
-   attempts.
+   columns over 50 points of the second, at 104 columns over 25 points
+   and 8 attempts.
 37. B4't-team against its plain version, bit for bit, at 32 and 63 columns
    on a 64-step uniform window and a lanes window; against B4't at 13.
 38. main path: one exact step over the full second, one launch each of the
@@ -188,9 +188,28 @@ kernel-mode steps at 32 columns (B4't-team):
    --adaptive step through B4't-team, card against CPU over 5 points;
    B4't-team's time over the fixed grid.
 41. the five command lines of this path (run with the others at the end).
+The XOR stochastic-adaptive step (--stochastic --adaptive, and --fused
+--fused-pass; run after phase 19): 4 lanes of state 72, 1000 grid points
+over 1 s, each lane's step-doubling SRA1 selection (max_steps 2048) on the
+jax.random tree (the XLA selection as a kernel) or the krng tree (B5x),
+the lanes' replay (B3xl) and its kernel-mode sweep (B4'xl):
+42. kernel vs plain, bit for bit: each tree's whole selection over 25 grid
+   points, 16 attempts along each tree's full replay, B3xl and B4'xl on
+   64-half-step windows early, in the middle and late of the full grid.
+43. main path: 3 steps of each tree's step through make_train_step, one
+   launch of the selection, B3xl and B4'xl per step and of nothing else;
+   each lane's accepted and rejected counts and the time it reached.
+44. card vs CPU: each tree's first step over 100 grid points (the stimulus
+   on from point 50, inside the budget) on the card, and again on the CPU
+   with the plain versions on the card's grid and keys: the loss and the
+   rows' gradients within the larger of 1e-4 and ten times the card's own
+   spread under a 1e-7 nudge, capped at 0.25.
+45. times: each kernel's device time at full width, ns per serial step,
+   its bound, its plain version's time; each step's time and profile.
+46. the two command lines (run with the others at the end).
 Then every path's command lines at once (each in its own process; they
 are latency-bound and share the card), the kernels line (every kernel of
-the ten paths), the card's name and power limit, and the result line.
+the eleven paths), the card's name and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
 fails.
@@ -1661,22 +1680,38 @@ XOR_SOURCES = {"ode": "columnflow_torch/kernels/csrc/xor_ode.cu",
                "sde": "columnflow_torch/kernels/csrc/xor_sde.cu"}
 XOR_P, XOR_S, XOR_B, XOR_K = 24, 72, 4, 4
 XOR_LOSS_TOL, XOR_GRAD_TOL = 1e-5, 1e-3
-XOR_WINDOW = 256    # steps of each kernel-vs-plain window of the dopri5 sweep
+XOR_WINDOW = 64     # steps of each kernel-vs-plain window of the dopri5 sweep (256 before PR 10)
 
 
-def xor_bound(kernel, work, M=0):
+def xor_bound(kernel, work, M=0, tree="jax", n=0, n_real=0):
     """(bound_ms, bound_by) of an XOR kernel; ``work`` is what this run's
-    data needed: the controller attempts (selection), the accepted steps
-    (replay, sweep) or the grid's steps (SDE). A drift evaluation of the
-    batch: the 24 x 24 recurrent product (2 P^2 per lane) and ~35 P
-    elementwise operations per lane; a drift VJP: the transposed product, the
-    rows' contraction over the lanes and ~40 P elementwise. All float32-rate
-    operations. Bytes: each input read once, each output written once."""
-    B, P, N = XOR_B, XOR_P, XOR_B * XOR_S
+    data needed: the controller attempts (selection; of all lanes for the
+    adaptive step's per-lane selection), the accepted steps (replay, sweep),
+    the grid's steps (SDE) or the lanes' real half steps (the adaptive
+    replay and sweep: lanes x half steps, of n_real per lane at most on a
+    grid of n). A drift evaluation of the batch: the 24 x 24 recurrent
+    product (2 P^2 per lane) and ~35 P elementwise operations per lane; a
+    drift VJP: the transposed product, the rows' contraction over the lanes
+    and ~40 P elementwise; an adaptive attempt of one lane: 5 drift
+    evaluations, 3 SRA1 updates, the error norm and 44 normals of its tree
+    (two tree walks of 21 and two interval normals). All float32-rate
+    operations. Bytes: each input read once, each output written once (the
+    adaptive sweeps read the grid, noise and states of n_real steps)."""
+    B, P, N, S = XOR_B, XOR_P, XOR_B * XOR_S, XOR_S
     drift = B * (2 * P * P + 35 * P)
     vjp = B * (2 * P * P + 40 * P) + 4 * B * 48
     consts = 4 * (P * P + 2 * P + 48 + XOR_K * B * 32)
-    if kernel == "xor_select":  # 6 drifts, the stage sums, the error norm
+    if kernel == "xor_sde_select":
+        normal = JAX_NORMAL_OPS if tree == "jax" else KRNG_NORMAL_OPS
+        flops = work * (5 * drift / B + 3 * 16 * S + 5 * S + 44 * normal)
+        nbytes = consts + 4 * N + 16 * B + 4 * B * (M + 1) + 12 * B
+    elif kernel == "xor_sde_replay_fwd":  # per lane-half-step: 2 drifts and the SRA1 update
+        flops = work * (2 * drift / B + 16 * S)
+        nbytes = consts + 16 * n_real * B + 4 * N + 4 * (n + 1) * N
+    elif kernel == "xor_sde_replay_bwd":  # a drift, 2 VJPs and the step's cotangent sums
+        flops = work * ((drift + 2 * vjp) / B + 16 * S)
+        nbytes = consts + 12 * n_real * B + 8 * (n_real + 1) * N + 4 * N + 4 * 48
+    elif kernel == "xor_select":  # 6 drifts, the stage sums, the error norm
         flops = work * (6 * drift + (2 * 21 + 2 * 6 + 8) * N)
         nbytes = consts + 4 * N + 4 * (M + 1) + 12
     elif kernel == "xor_replay_fwd":  # 7 drifts, the stage sums, the five rows
@@ -2043,6 +2078,306 @@ def xor_phases(dev, cfg):
             for name in calls]
 
 
+# The XOR stochastic-adaptive step (columnflow/tasks/xor.py:69-75, 110-172):
+# the four conditions as 4 lanes of state 72, 1000 grid points over 1 s, each
+# lane's step-doubling SRA1 (PI controller, rtol = atol = 1e-3, max_steps
+# 2048, tree depth 20) on the jax.random tree (the XLA selection as a kernel)
+# or, with --fused-pass, the krng tree (B5x); then the lanes' replay (B3xl)
+# and its kernel-mode sweep (B4'xl) over at most 4096 half steps. Nothing cut.
+XA_MAX_STEPS = 2048
+XA_TREES = {"jax": False, "kernel": True}  # tree -> fused_pass
+XA_SEL_T = 25       # grid points of the whole selections held against their plain loop
+XA_CPU_T = 100      # grid points of the card-vs-CPU steps (the stimulus comes on at 50)
+XA_W = 64           # half steps of each kernel-vs-plain window of the replay and its sweep
+XA_TOL = 1e-4       # card against CPU: the floor of each limit (loss and gradients)
+
+
+def xor_adaptive_phases(dev, cfg):
+    """Phases 42-46 for the XOR task's stochastic-adaptive step (the
+    jax.random tree's selection, and --fused --fused-pass's krng tree);
+    returns their kernels' entries of the kernels line."""
+    import torch
+
+    from columnflow_torch.data import xor_conditions
+    from columnflow_torch.kernels import column_step as cs
+    from columnflow_torch.kernels import network_ode as no
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.kernels import xor_ode as xo
+    from columnflow_torch.kernels import xor_sde as xs
+    from columnflow_torch.models.xor import split_xor_params
+    from columnflow_torch.solvers.fused import sweep_chunk
+    from columnflow_torch.solvers.sde_adaptive import _replay_grid, _sde_key_words, select_config
+    from columnflow_torch.tasks import xor as xt
+
+    counters = {"xor_ode": xo.LAUNCHES, "xor_sde": xs.LAUNCHES, "network_ode": no.LAUNCHES,
+                "network_sde": ns.LAUNCHES, "column_step": cs.LAUNCHES}
+
+    def make_task(device=dev, params=None):
+        task = xt.build_task(cfg, torch.Generator(device=device).manual_seed(0), time_steps=XOR_T,
+                             max_steps=XOR_MAX_STEPS, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        return task
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    same, errs, plain_ms, plain_at = {}, {}, {}, {}
+
+    def tensors(x):
+        """The tensors of a kernel's output (a tensor, tuple or dict), in order."""
+        if isinstance(x, dict):
+            x = tuple(x.values())
+        return [t for v in x for t in tensors(v)] if isinstance(x, tuple) else [x]
+
+    def compare(name, got, want):
+        pairs = list(zip(tensors(got), tensors(want)))
+        ok = all(torch.equal(g, w) for g, w in pairs)
+        same[name] = same.get(name, True) and ok
+        errs[name] = max(errs.get(name, 0.0),
+                         max(float((g.float() - w.float()).abs().max()) for g, w in pairs))
+        check(ok, f"{name} against its plain version: max abs {errs[name]}")
+
+    # -- 42. kernels vs plain versions at full width ----------------------------
+    gen = torch.Generator(device=dev).manual_seed(7)
+    task = make_task()
+    conds = torch.as_tensor(xor_conditions(), device=dev)
+    sc, kv = xt.drift_inputs(task, conds)
+    pf = {k: v.detach().clone() for k, v in split_xor_params(task.params).items()}
+    B, S = XOR_B, XOR_S
+    y0 = torch.zeros(B, S, device=dev)
+    keys = torch.randint(0, 2**32, (B, 2), generator=gen, device=dev, dtype=torch.int64)
+    grids, records = {}, {}
+    for tree in XA_TREES:
+        name = f"xor_sde_select_{tree}"
+        words = _sde_key_words(keys, tree).to(dev)
+        cfg_s = select_config(task.ts[:XA_SEL_T], max_steps=XA_MAX_STEPS, brownian=tree,
+                              drift="f32")
+        got = xs.xor_sde_select(y0, words, pf, sc, kv, cfg_s)
+        want, plain_ms[name] = timed(lambda: xs._xor_select_plain(y0, words, pf, sc, kv, cfg_s))
+        plain_at[name] = f"the whole selection over {XA_SEL_T} points"
+        compare(name, got, want)
+        check(bool(got[3].all()), f"{name}: a lane did not reach {XA_SEL_T} points")
+        records[tree] = {"stats_short": [got[1].tolist(), got[2].tolist()]}
+        cfg_f = select_config(task.ts, max_steps=XA_MAX_STEPS, brownian=tree, drift="f32")
+        st, na, nr, ok = xs.xor_sde_select(y0, words, pf, sc, kv, cfg_f)
+        ht, dw, i10 = _replay_grid(st, words, cfg_f.t_start, cfg_f.t_end, 20, tree)
+        t0s, hs = ht[:, :-1].T.contiguous(), (ht[:, 1:] - ht[:, :-1]).T.contiguous()
+        i1, i10 = dw.T.contiguous(), i10.T.contiguous()
+        n_real = 2 * int(na.max())
+        grids[tree] = dict(words=words, cfg=cfg_f, st=st, na=na, nr=nr, ok=ok, t0s=t0s, hs=hs,
+                           i1=i1, i10=i10, n_real=n_real)
+        # Single attempts along the replay of the full grid, one record per lane.
+        ys = xs.xor_sde_replay_fwd(y0, t0s, hs, i1, i10, n_real, pf, sc, kv)
+        tree_w = ns.lane_noise(words, cfg_f.t_start, cfg_f.t_end, 20, tree)[0]
+        for k, stretch in ((0, 1.0), (n_real // 5, 2.5), (n_real // 2, 1.5), (n_real - 4, 4.0)):
+            t1 = t0s[k][:, None].contiguous()
+            h = (hs[k][:, None] * stretch + 1e-6).contiguous()
+            args = (t1, ys[k].contiguous(), h, torch.full_like(t1, 0.7),
+                    tree_w.evaluate(t1).contiguous(), words, pf, sc, kv, cfg_f)
+            compare("xor_sde_attempt", xs.xor_sde_attempt(*args), xs._xor_attempt_plain(*args))
+    # The replay and its sweep on the jax.random tree's grid: the whole grid by
+    # the kernels, and windows early, in the middle and late against the plain
+    # versions from the kernel's state there.
+    g = grids["jax"]
+    n, n_real = g["t0s"].shape[0], g["n_real"]
+    chunk = sweep_chunk((B, S), n)
+    ys = xs.xor_sde_replay_fwd(y0, g["t0s"], g["hs"], g["i1"], g["i10"], n_real, pf, sc, kv)
+    ysbar = torch.randn(ys.shape, generator=gen, device=dev)
+    ybar, rows = xs.xor_sde_replay_bwd(ys, ysbar, g["t0s"], g["hs"], g["i10"], n_real, chunk, pf,
+                                       sc, kv)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(ys).all()) and bool(torch.isfinite(ybar).all())
+          and torch.equal(ys[n_real + 1:], ys[n_real].expand_as(ys[n_real + 1:])),
+          "the XOR lanes' replay over the whole grid is not finite or does not carry its state")
+    windows = []
+    for k0 in (0, n_real // 2, n_real - XA_W):
+        w = slice(k0, k0 + XA_W)
+        wg = tuple(x[w].contiguous() for x in (g["t0s"], g["hs"], g["i1"], g["i10"]))
+        fwd = (ys[k0].contiguous(), *wg, XA_W, pf, sc, kv)
+        got = xs.xor_sde_replay_fwd(*fwd)
+        want, ms = timed(lambda: xs._xor_replay_fwd_plain(*fwd))
+        plain_ms.setdefault("xor_sde_replay_fwd", ms)
+        compare("xor_sde_replay_fwd", got, want)
+        check(torch.equal(got, ys[k0:k0 + XA_W + 1]), "B3xl window against its whole sweep")
+        wys = slice(k0, k0 + XA_W + 1)
+        bwd = (ys[wys].contiguous(), ysbar[wys].contiguous(), wg[0], wg[1], wg[3], XA_W, chunk,
+               pf, sc, kv)
+        got = xs.xor_sde_replay_bwd(*bwd)
+        want, ms = timed(lambda: xs._xor_replay_bwd_plain(*bwd))
+        plain_ms.setdefault("xor_sde_replay_bwd", ms)
+        compare("xor_sde_replay_bwd", got, want)
+        windows.append(k0)
+    plain_at["xor_sde_replay_fwd"] = plain_at["xor_sde_replay_bwd"] = f"{XA_W} half steps"
+    emit("xor_adaptive_kernel_vs_plain", lanes=B, T=XOR_T, max_steps=XA_MAX_STEPS,
+         whole_selection_points=XA_SEL_T, selections=records,
+         full_grids={t: {"naccept": v["na"].tolist(), "nreject": v["nr"].tolist(),
+                         "success": v["ok"].tolist(), "n_real": v["n_real"]}
+                     for t, v in grids.items()},
+         attempt_records=4 * B * len(XA_TREES), windows=windows, window_half_steps=XA_W,
+         chunk=chunk, bit_for_bit=same, max_abs_err=errs)
+
+    # -- 43. the main path: 3 steps of each tree's step at full width ---------
+    history, launches, first, step_s = {}, {}, {}, {}
+    for tree, fused_pass in XA_TREES.items():
+        task = make_task()
+        step = xt.make_train_step(task, stochastic=True, adaptive=True, fused_pass=fused_pass)
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        history[tree] = []
+        for i in range(3):
+            conds_i = conds[torch.randperm(4, generator=gen, device=dev)]
+            keys_i = torch.randint(0, 2**32, (B, 2), generator=gen, device=dev, dtype=torch.int64)
+            params_i = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+            before = {m: dict(c) for m, c in counters.items()}
+            rec, ms = timed(lambda: step(conds_i, keys=keys_i))
+            launched = {k: c[k] - before[m][k] for m, c in counters.items() for k in c
+                        if c[k] != before[m][k]}
+            want = {"xor_sde_select": 1, "xor_sde_replay_fwd": 1, "xor_sde_replay_bwd": 1}
+            check(launched == want, f"XOR adaptive step {i} ({tree} tree): launches {launched}")
+            check(bool(torch.isfinite(rec["loss"])), f"XOR adaptive step {i}: loss {rec['loss']}")
+            st = rec["stats"]
+            reached = torch.gather(st.step_times, 1, st.naccept.long()[:, None])[:, 0]
+            finite = all(bool(torch.isfinite(p.grad).all()) for p in task.params.values())
+            history[tree].append({"loss": float(rec["loss"]), "ms": ms, "grad_finite": finite,
+                                  "naccept": st.naccept.tolist(), "nreject": st.nreject.tolist(),
+                                  "success": st.success.tolist(),
+                                  "reached_s": reached.tolist()})
+            if i == 0:
+                first[tree] = dict(conds=conds_i, keys=keys_i, params=params_i)
+        launches[tree] = {k: v for m in ("xor_sde",) for k, v in counters[m].items() if v}
+
+    # -- 44. the card against the CPU on the card's grid ------------------------
+    # Over XA_CPU_T points: at the full width the budget ends each lane near
+    # 0.29 s, before the stimulus, and the plain replay of ~3500 half steps
+    # takes ~12 s on the CPU; over 100 points the stimulus is on from point
+    # 50 and every lane reaches the end.
+    def one_step(device, params, f, fused_pass, grid=None):
+        t = xt.build_task(cfg, torch.Generator(device=device).manual_seed(0), time_steps=XA_CPU_T,
+                          max_steps=XOR_MAX_STEPS, device=device)
+        with torch.no_grad():
+            for k, p in t.params.items():
+                p.copy_(params[k])
+        grid = None if grid is None else tuple(x.to(device) for x in grid)
+        rec = xt.make_train_step(t, stochastic=True, adaptive=True, fused_pass=fused_pass)(
+            f["conds"].to(device), grid=grid, keys=f["keys"].to(device))
+        st = rec["stats"]
+        return (float(rec["loss"]), {k: p.grad.detach().cpu().clone() for k, p in t.params.items()},
+                tuple(x.detach().clone() for x in (st.step_times, st.naccept, st.nreject)),
+                bool(st.success.all()))
+
+    cpu_check = {}
+    for tree, fused_pass in XA_TREES.items():
+        f = first[tree]
+        loss_k, grads_k, grid_k, ok_k = one_step(dev, f["params"], f, fused_pass)
+        (loss_c, grads_c, _, _), cpu_ms = timed(lambda: one_step(torch.device("cpu"), f["params"],
+                                                                 f, fused_pass, grid_k))
+        loss_n, grads_n, _, _ = one_step(dev, {k: v * (1.0 + 1e-7) for k, v in f["params"].items()},
+                                         f, fused_pass, grid_k)
+        spread_l = abs(loss_n - loss_k) / abs(loss_k)
+        spread_g = {k: rel_l2(grads_n[k], grads_k[k]) for k in grads_c}
+        lim_l = min(max(XA_TOL, 10 * spread_l), GRAD_TOL_CAP)
+        lim_g = {k: min(max(XA_TOL, 10 * v), GRAD_TOL_CAP) for k, v in spread_g.items()}
+        rec = {"T": XA_CPU_T, "success": ok_k, "naccept": grid_k[1].tolist(),
+               "loss_rel": abs(loss_k - loss_c) / abs(loss_c),
+               "grad_rel_l2": {k: rel_l2(grads_k[k], grads_c[k]) for k in grads_c},
+               "card_loss_spread_under_1e-7_nudge": spread_l,
+               "card_grad_spread_under_1e-7_nudge": spread_g,
+               "limits": {"loss": lim_l, "grad": lim_g}, "cpu_seconds": cpu_ms / 1e3}
+        cpu_check[tree] = rec
+        check(ok_k and rec["loss_rel"] < lim_l
+              and all(rec["grad_rel_l2"][k] < lim_g[k] for k in lim_g)
+              and all(float(g.abs().sum()) > 0 for g in grads_k.values()),
+              f"card vs CPU XOR adaptive step ({tree} tree, {XA_CPU_T} points): {rec}")
+    emit("xor_adaptive_main_path", lanes=B, T=XOR_T, max_steps=XA_MAX_STEPS, history=history,
+         launches=launches, cpu_check=cpu_check)
+
+    # -- 45. times -------------------------------------------------------------
+    pf = {k: v.detach().clone() for k, v in split_xor_params(make_task().params).items()}
+    times, serial, bounds = {}, {}, {}
+    for tree in XA_TREES:
+        g, name = grids[tree], f"xor_sde_select_{tree}"
+        times[name] = cuda_ms(lambda: xs.xor_sde_select(y0, g["words"], pf, sc, kv, g["cfg"]),
+                              reps=3, warmup=1, device_time=True)
+        attempts = g["na"] + g["nr"]
+        serial[name] = int(attempts.max())
+        bounds[name] = xor_bound("xor_sde_select", int(attempts.sum()), M=XA_MAX_STEPS,
+                                 tree=tree)
+    g = grids["jax"]
+    n, n_real = g["t0s"].shape[0], g["n_real"]
+    real_half_steps = int(2 * g["na"].sum())
+    times["xor_sde_replay_fwd"] = cuda_ms(
+        lambda: xs.xor_sde_replay_fwd(y0, g["t0s"], g["hs"], g["i1"], g["i10"], n_real, pf, sc,
+                                      kv), reps=3, warmup=1, device_time=True)
+    times["xor_sde_replay_bwd"] = cuda_ms(
+        lambda: xs.xor_sde_replay_bwd(ys, ysbar, g["t0s"], g["hs"], g["i10"], n_real, chunk, pf,
+                                      sc, kv), reps=3, warmup=1, device_time=True)
+    for name in ("xor_sde_replay_fwd", "xor_sde_replay_bwd"):
+        serial[name] = n_real
+        bounds[name] = xor_bound(name, real_half_steps, n=n, n_real=n_real)
+    emit("xor_adaptive_kernel_times", lanes=B, T=XOR_T, ms=times, plain_ms=plain_ms,
+         plain_ms_at=plain_at, serial_steps=serial,
+         ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()},
+         library_ms="n/a: no single PyTorch call computes a controller loop or a serial SDE "
+                    "sweep")
+    for tree, fused_pass in XA_TREES.items():
+        task = make_task()
+        step = xt.make_train_step(task, stochastic=True, adaptive=True, fused_pass=fused_pass)
+        keys_s = [torch.randint(0, 2**32, (B, 2), generator=gen, device=dev, dtype=torch.int64)
+                  for _ in range(5)]
+        step(conds, keys=keys_s[0])
+        _, ms = timed(lambda: [step(conds, keys=k) for k in keys_s])
+        wall, by_kernel = device_profile(lambda i: step(conds, keys=keys_s[i]), 3)
+        busy = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv_: -kv_[1])[:6]
+        emit("xor_adaptive_step_profile", tree=tree, fused_pass=fused_pass, lanes=B,
+             step_ms=ms / 5, samples_per_s=B * 1e3 / (ms / 5), profiled_wall_ms_per_step=wall,
+             device_busy_ms_per_step=busy if busy else "not measured",
+             idle_share=1.0 - busy / (ms / 5) if busy else "not measured",
+             device_kernels=len(by_kernel), top_ms_per_step=dict(top))
+
+    # -- 46. the command lines (run with the others at the end) ----------------
+    for argv in (["--smoke", "--stochastic", "--adaptive"],
+                 ["--smoke", "--stochastic", "--adaptive", "--fused", "--fused-pass"]):
+        defer_command_line("xor_adaptive_command_lines", "xor", argv, finite=True)
+
+    replaces = {"xor_sde_select_jax": "columnflow/solvers/sde_adaptive.py:314",
+                "xor_sde_select_kernel": "columnflow/solvers/sde_adaptive.py:509",
+                "xor_sde_replay_fwd": "columnflow/solvers/fused.py:845",
+                "xor_sde_replay_bwd": "columnflow/solvers/fused.py:920"}
+    path = {"xor_sde_select_jax": "XOR stochastic-adaptive (the XLA selection, jax.random tree)",
+            "xor_sde_select_kernel": "XOR stochastic-adaptive --fused-pass (B5x, krng tree)",
+            "xor_sde_replay_fwd": "XOR stochastic-adaptive (B3xl, both trees)",
+            "xor_sde_replay_bwd": "XOR stochastic-adaptive (B4'xl, both trees)"}
+    launched = {"xor_sde_select_jax": launches["jax"].get("xor_sde_select", 0),
+                "xor_sde_select_kernel": launches["kernel"].get("xor_sde_select", 0)}
+    for name in ("xor_sde_replay_fwd", "xor_sde_replay_bwd"):
+        launched[name] = launches["jax"].get(name, 0) + launches["kernel"].get(name, 0)
+    err_of = {"xor_sde_select_jax": errs["xor_sde_select_jax"],
+              "xor_sde_select_kernel": errs["xor_sde_select_kernel"],
+              "xor_sde_replay_fwd": errs["xor_sde_replay_fwd"],
+              "xor_sde_replay_bwd": errs["xor_sde_replay_bwd"]}
+    return [{"name": name, "route": "cuda", "source": XOR_SOURCES["sde"],
+             "replaces": replaces[name], "launches": launched[name], "max_abs_err": err_of[name],
+             "ms": times[name], "plain_ms": plain_ms[name], "plain_ms_at": plain_at[name],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+             "lanes": B, "path": path[name],
+             "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+            for name in replaces]
+
+
 # The Hopf task (columnflow/tasks/bifurcation.py build_task / train_bifurcation
 # defaults, scripts/bifurcation_ode.py:179-210): the MLP 3 -> 100 -> 100 ->
 # 100 -> 2 (20,802 parameters), batch 32 as one (32, 2) state under one
@@ -2335,7 +2670,7 @@ S13_CPA = (8, 4, 1)
 S13_T = 1000
 S13_B = 4
 S13_MAX_STEPS = 3072  # the command line's default, task.max_steps
-S13_W = 64            # half steps of each window of the reverse sweep held against its plain version
+S13_W = 64            # half steps of each lanes window of B3t and B4't held against plain
 S13_LOSS_TOL = 1e-5
 S13_GRAD_TOL = 1e-3   # rel L2 of each gradient, card against CPU (or ten times the card's spread)
 # bench.py's primary configuration: the 104-column step without --fused-pass.
@@ -2456,12 +2791,22 @@ def stochastic13_phases(dev, cfg):
                   dw.T.contiguous(), i10.T.contiguous())
     n_real = 2 * int(na.max())
     plain_ms, errs, same = {}, {}, {}
+    # B3t over the whole lanes grid, held against its plain version on
+    # S13_W-half-step windows early, in the middle and late, from the
+    # kernel's state there (the whole replay's plain version took 19 s: cut
+    # in depth in PR 10).
     ys_l = ns.replay3_fwd(y0, *lanes_grid, n_real, pw, model.sc, model.kv)
-    ys_lp, plain_ms["sde3_fwd_lanes"] = timed(lambda: ns._replay3_fwd_plain(
-        y0, *lanes_grid, n_real, pw, model.sc, model.kv))
-    errs["sde3_fwd_lanes"] = float((ys_l - ys_lp).abs().max())
-    same["sde3_fwd_lanes"] = bool(torch.equal(ys_l, ys_lp))
-    check(bool(torch.isfinite(ys_l).all()) and errs["sde3_fwd_lanes"] == 0.0,
+    errs["sde3_fwd_lanes"], same["sde3_fwd_lanes"] = 0.0, True
+    for k0 in (0, n_real // 2, n_real - S13_W):
+        win = tuple(x[k0:k0 + S13_W].contiguous() for x in lanes_grid)
+        got = ns.replay3_fwd(ys_l[k0].contiguous(), *win, S13_W, pw, model.sc, model.kv)
+        want, ms = timed(lambda: ns._replay3_fwd_plain(ys_l[k0].contiguous(), *win, S13_W, pw,
+                                                       model.sc, model.kv))
+        plain_ms.setdefault("sde3_fwd_lanes", ms)
+        errs["sde3_fwd_lanes"] = max(errs["sde3_fwd_lanes"], float((got - want).abs().max()))
+        same["sde3_fwd_lanes"] &= bool(torch.equal(got, want)) and bool(
+            torch.equal(got, ys_l[k0:k0 + S13_W + 1]))
+    check(bool(torch.isfinite(ys_l).all()) and same["sde3_fwd_lanes"],
           f"B3t lanes against its plain version: max abs {errs['sde3_fwd_lanes']}")
 
     # The whole selection over BENCH_SEL_T grid points, kernel and plain loop.
@@ -2686,7 +3031,7 @@ def stochastic13_phases(dev, cfg):
              "sde3_fwd_lanes": "parity13 --stochastic --adaptive",
              "sde3_bwd_lanes": "parity13 --stochastic --adaptive",
              "sde3_fwd_uniform": "parity13 --stochastic", "sde3_bwd_uniform": "parity13 --stochastic"}
-    replaces = {"sde_select_jax_f32": "columnflow/solvers/sde_adaptive.py:318",
+    replaces = {"sde_select_jax_f32": "columnflow/solvers/sde_adaptive.py:314",
                 "sde3_fwd_lanes": "columnflow/solvers/fused.py:845",
                 "sde3_bwd_lanes": "columnflow/solvers/fused.py:920",
                 "sde3_fwd_uniform": "columnflow/solvers/fused.py:845",
@@ -2696,7 +3041,8 @@ def stochastic13_phases(dev, cfg):
              "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": paths[name],
              "bit_for_bit": same[name],
-             "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+             "ns_per_serial_step": times[name] * 1e6 / serial[name],
+             **({"plain_ms_at": f"{S13_W} half steps"} if name == "sde3_fwd_lanes" else {})}
             for name in calls]
 
 
@@ -2876,7 +3222,7 @@ def bench104_phases(dev, cfg):
             "--max-steps", "16384"]
     defer_command_line("bench104_command_line", "parity", argv, timeout=900)
     return [{"name": "sde_select_jax_select16", "route": "cuda", "source": SDE_SOURCE,
-             "replaces": "columnflow/solvers/sde_adaptive.py:318",
+             "replaces": "columnflow/solvers/sde_adaptive.py:314",
              "launches": main_launches["sde_select"],
              "max_abs_err": float((sel_k[0] - sel_p[0]).abs().max()), "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
@@ -3189,6 +3535,11 @@ EX_13_CPA = (8, 4, 1)
 EX_32_CPA = (16, 8, 8)   # 32 columns: B4't-team on the command line's path
 EX_63_CPA = (32, 24, 7)  # 63 columns: the widest kernel-mode width
 EX_W = 64                # half steps of each kernel-mode sweep window
+# Grid points of B5t's whole selection at 13 columns held against its plain
+# loop (the full second's plain loop took 101.6 s on the card, 200 points
+# 69 s: cut in depth in PR 10 to keep the script under 1000 s; the kernel is
+# timed over the whole second).
+EX_B5T13_T = 50
 GRAD_TOL_CAP = 0.25      # no gradient limit of a card-vs-CPU step may exceed this rel L2
 KRNG_NORMAL_OPS = 150    # a krng normal: one Threefry-2x32 hash and ndtri
 
@@ -3340,17 +3691,20 @@ def exact104_phases(dev, cfg):
          lanes_replay={"n_real": n_l, "stride": 64}, lanes_13={"P": P13, "n_real": n13},
          bit_for_bit=dict(same), max_abs_err=dict(errs), plain_ms=dict(plain_ms))
 
-    # -- 36. B5t against its plain version: 13 columns over the full second, 104
-    # columns over BENCH_SEL_T points and 8 attempts ----------------------------------
+    # -- 36. B5t against its plain version: 13 columns over EX_B5T13_T points of
+    # the second (timed over the whole second in phase 39), 104 columns over
+    # BENCH_SEL_T points and 8 attempts -----------------------------------------------
     words_k = sa._sde_key_words(lane_keys(), "kernel")
     task13f = make_task(PARITY_T, params=task13.params, cpa=EX_13_CPA)
     model13f = parity.sde_model(task13f.params, task13f, stims)
     w3_13 = ns.select_weights_split3(pw13, model13f.sc)
     scfg_k13 = sa.select_config(task13f.ts, max_steps=S13_MAX_STEPS, brownian="kernel",
                                 drift="split3")
-    b5t_13 = ns.select_pass(y0_13, words_k, w3_13, model13f.sc, model13f.kv, scfg_k13)
+    scfg_k13w = sa.select_config(task13f.ts[:EX_B5T13_T], max_steps=S13_MAX_STEPS,
+                                 brownian="kernel", drift="split3")
+    b5t_13 = ns.select_pass(y0_13, words_k, w3_13, model13f.sc, model13f.kv, scfg_k13w)
     want, plain_ms["sde_select_krng_split3_13"] = timed(
-        lambda: ns._select_plain(y0_13, words_k, w3_13, model13f.sc, model13f.kv, scfg_k13))
+        lambda: ns._select_plain(y0_13, words_k, w3_13, model13f.sc, model13f.kv, scfg_k13w))
     compare("sde_select_krng_split3", b5t_13, want)
     w3 = ns.select_weights_split3(pw, model_s.sc)
     scfg_k = sa.select_config(task_s.ts, max_steps=PARITY_MAX_STEPS, brownian="kernel",
@@ -3362,9 +3716,9 @@ def exact104_phases(dev, cfg):
     check(bool(b5t[3].all()), f"B5t over {BENCH_SEL_T} points: success {b5t[3].tolist()}")
     att_args = attempts(ys_l, sel_k, words_k, 8, w3, model_s.sc, model_s.kv, scfg_k)
     compare("sde_select_krng_split3", ns.select_attempt(*att_args), ns._attempt_plain(*att_args))
-    emit("exact104_b5t_vs_plain", full_second_13={"naccept": b5t_13[1].tolist(),
-                                                   "nreject": b5t_13[2].tolist(),
-                                                   "success": b5t_13[3].tolist()},
+    emit("exact104_b5t_vs_plain", window_13={"T": EX_B5T13_T, "naccept": b5t_13[1].tolist(),
+                                              "nreject": b5t_13[2].tolist(),
+                                              "success": b5t_13[3].tolist()},
          window_104={"T": BENCH_SEL_T, "naccept": b5t[1].tolist(),
                      "nreject": b5t[2].tolist(), "attempts": 8},
          bit_for_bit=same["sde_select_krng_split3"],
@@ -3675,7 +4029,7 @@ def exact104_phases(dev, cfg):
         defer_command_line("exact104_command_lines", "parity", argv, timeout=900)
 
     entries = {
-        "sde_select_jax_f32_104": ("columnflow/solvers/sde_adaptive.py:318",
+        "sde_select_jax_f32_104": ("columnflow/solvers/sde_adaptive.py:314",
                                    main_launches["exact"].get("sde_select", 0),
                                    "parity104 --stochastic --adaptive --engine fused",
                                    f"{BENCH_SEL_T} grid points"),
@@ -3741,7 +4095,8 @@ def main() -> int:
 
     cfg = ColumnConfig.load()
     line = (wta_phases(dev, cfg) + parity_phases(dev, cfg) + ode_phases(dev, cfg)
-            + split2_phases(dev, cfg) + xor_phases(dev, cfg) + hopf_phases(dev, cfg)
+            + split2_phases(dev, cfg) + xor_phases(dev, cfg) + xor_adaptive_phases(dev, cfg)
+            + hopf_phases(dev, cfg)
             + stochastic13_phases(dev, cfg) + bench104_phases(dev, cfg)
             + fixedgrid104_phases(dev, cfg) + exact104_phases(dev, cfg))
     run_command_lines()

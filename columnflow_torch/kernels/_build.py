@@ -71,6 +71,10 @@ _SIGNATURES = {
     "xor_sde": {
         "cf_xor_sde_fwd": [_I, _I, _P, _I, _F] + [_P] * 9,
         "cf_xor_sde_bwd": [_I, _I, _P, _I, _F] + [_P] * 10,
+        "cf_xor_sde_select": [_I, _I, _P, _P, _I, _I, _I] + [_P] * 8,
+        "cf_xor_sde_attempt": [_I, _I, _P, _P, _I, _I] + [_P] * 12,
+        "cf_xor_sde_replay_fwd": [_I, _I, _P, _I, _I] + [_P] * 10,
+        "cf_xor_sde_replay_bwd": [_I, _I, _P, _I, _I, _I] + [_P] * 11,
     },
     "hopf_ode": {
         "cf_hopf_select": [_I, _I, _P, _P, _I, _I] + [_P] * 6,

@@ -10,10 +10,12 @@
 // rate into shared memory (one barrier), then each thread sums its
 // population's recurrent input from its lane's 24 rates and the
 // block-diagonal 24 x 24 matrix in shared memory. The VJP stores the
-// current's cotangent the same way for the transposed product, and the
-// threads of lane 0 contract the feedforward rows' cotangents over the
-// lanes. Every function is called by every thread of the block (they hold
-// barriers); threads past B * 24 compute nothing and store nothing.
+// current's cotangent the same way for the transposed product, and each
+// lane's stimulus at that lane's time, and the threads of lane 0 contract
+// the feedforward rows' cotangents over the lanes. Every function is called
+// by every thread of the block (they hold barriers); threads past B * 24
+// compute nothing and store nothing. The selection (xor_sde.cu) runs one
+// lane per block in this layout with B = 1.
 //
 // Precision: float32 elementwise arithmetic with full-precision
 // expf/tanhf/logf and IEEE division, compiled with -fmad=false; every sum of
@@ -57,11 +59,12 @@ struct XSh {
   float* rows;   // w00 (16), w01 (16), w10 (8), w11 (8)
   float* fr;     // (B, 24) rates
   float* cc;     // (B, 24) the current's cotangent
+  float* ext;    // (B, 32) each lane's stimulus at its own time (the VJP's row contraction)
   double* red;   // (threads) reduction
 };
 
-size_t xsh_bytes(int B, int threads) {
-  const size_t f = kXConsts + kXRows + 2 * (size_t)B * kXP;
+__host__ __device__ size_t xsh_bytes(int B, int threads) {
+  const size_t f = kXConsts + kXRows + (size_t)B * (2 * kXP + kXIn);
   return (f * sizeof(float) + 7) / 8 * 8 + (size_t)threads * sizeof(double);
 }
 
@@ -77,7 +80,8 @@ __device__ XSh xsh_load(unsigned char* sm, int B, const float* __restrict__ cons
   s.rows = s.adapt + kXP;
   s.fr = s.rows + kXRows;
   s.cc = s.fr + B * kXP;
-  const size_t used = (size_t)(kXConsts + kXRows + 2 * B * kXP) * sizeof(float);
+  s.ext = s.cc + B * kXP;
+  const size_t used = (size_t)(kXConsts + kXRows + B * (2 * kXP + kXIn)) * sizeof(float);
   s.red = reinterpret_cast<double*>(sm + (used + 7) / 8 * 8);
   for (int i = threadIdx.x; i < kXConsts; i += blockDim.x) f[i] = consts[i];
   for (int i = threadIdx.x; i < kXRows; i += blockDim.x) s.rows[i] = rows[i];
@@ -162,7 +166,8 @@ __device__ void xor_drift(const Net& n, const XSh& s, const Me& me, float t, con
 // the state cotangent -> g. The threads of lane 0 get this evaluation's
 // cotangents of their population's two feedforward entries, contracted over
 // the lanes, in d0 and d1 (p < 16: w00[p], w01[p]; else w10[p-16],
-// w11[p-16]). Two barriers.
+// w11[p-16]); each lane's stimulus enters at that lane's own time t (the
+// lanes may step on their own grids). Two barriers.
 __device__ void xor_drift_vjp(const Net& n, const XSh& s, const Me& me, float t, const float* y,
                               const float* ct, float* g, float& d0, float& d1) {
   float frp = 0.0f;
@@ -171,6 +176,10 @@ __device__ void xor_drift_vjp(const Net& n, const XSh& s, const Me& me, float t,
     fr_and_grad(y[0] - y[1], fr, frp);
     s.fr[me.b * kXP + me.p] = fr;
     s.cc[me.b * kXP + me.p] = ((ct[0] / n.tau_m) * n.R) * n.tau_s;
+    if (me.p < kXA0) {
+      s.ext[me.b * kXIn + me.p] = knot_interp(n, me.b, me.p, t);
+      s.ext[me.b * kXIn + kXA0 + me.p] = knot_interp(n, me.b, kXA0 + me.p, t);
+    }
   }
   __syncthreads();
   if (me.on) {
@@ -196,8 +205,8 @@ __device__ void xor_drift_vjp(const Net& n, const XSh& s, const Me& me, float t,
       for (int b = 0; b < n.B; ++b) {
         const float c = s.cc[b * kXP + me.p];
         if (me.p < kXA0) {
-          e0[b] = (double)c * (double)knot_interp(n, b, me.p, t);
-          e1[b] = (double)c * (double)knot_interp(n, b, kXA0 + me.p, t);
+          e0[b] = (double)c * (double)s.ext[b * kXIn + me.p];
+          e1[b] = (double)c * (double)s.ext[b * kXIn + kXA0 + me.p];
         } else {
           const float sb = kFFGain * c;
           e0[b] = (double)sb * (double)s.fr[b * kXP + kSrcA];

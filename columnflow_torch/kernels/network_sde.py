@@ -45,6 +45,11 @@ cotangents of its own output columns. Where the three-term weights do not
 fit a block (from ~24 columns), the forward and the emit-mode sweep run
 each lane on a team of 8 blocks with the weights in L2.
 
+The selection's plain loop (``select_plain``, ``attempt_plain``) takes the
+drift and the diffusion as callables: ``kernels.xor_sde`` runs the same
+loop on the XOR drift, and both selection kernels share their trees and
+controller (``csrc/sde_select.cuh``).
+
 The wrappers take the plain version for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise. ``LAUNCHES`` counts kernel
 launches (the plain versions count nothing).
@@ -149,10 +154,10 @@ def drift_select16(t, y, w16, sc: SDEConsts, kv):
                                            interp_fn=_knots(sc.knot_ts))
 
 
-def sra1_step(drift, t0, h, y, dw, i10, sigma: float = SIGMA):
-    """Roessler SRA1 for constant diffusion ``sigma``, h == 0 safe (padding
-    steps carry h = dw = i10 = 0 and are exact no-ops). t0, h, dw, i10 per
-    lane (B, 1)."""
+def sra1_step(drift, t0, h, y, dw, i10, sigma=SIGMA):
+    """Roessler SRA1 for the additive diffusion ``sigma`` (a number, or a
+    tensor that broadcasts against y), h == 0 safe (padding steps carry h =
+    dw = i10 = 0 and are exact no-ops). t0, h, dw, i10 per lane (B, 1)."""
     i10_h = i10 / torch.where(h > 0, h, 1.0)
     f1 = drift(t0, y)
     h2 = y + (0.75 * h) * f1 + (1.5 * i10_h) * sigma
@@ -198,20 +203,27 @@ def _lane_times(t0s, hs, k, B):
     return t0s[k, :, None], hs[k, :, None]
 
 
-def _replay_fwd_plain(y0, t0s, hs, i1, i10, n_real, w, sc, kv):
-    """ys (n + 1, B, 3P): ys[0] = y0, ys[k + 1] after step k; rows past
-    n_real hold the carried state. ``w`` in a replay format of
-    ``drift_premixed`` (split2, or the three-term split)."""
+def sra1_replay_plain(drift, sigma, y0, t0s, hs, i1, i10, n_real):
+    """SRA1 over each lane's grid for ``drift(t, y)`` (t (B, 1)) and the
+    additive diffusion ``sigma`` (a number, or a tensor that broadcasts
+    against the state): ys (n + 1, B, S), ys[0] = y0, ys[k + 1] after step
+    k; rows past n_real hold the carried state. t0s, hs (n, B) or (n,)."""
     n, B = t0s.shape[0], y0.shape[0]
     ys = torch.empty((n + 1,) + tuple(y0.shape), dtype=_F32, device=y0.device)
     ys[0] = y = y0
-    drift = lambda t, x: drift_premixed(t, x, w, sc, kv)  # noqa: E731
     for k in range(n_real):
         t0, h = _lane_times(t0s, hs, k, B)
-        y = sra1_step(drift, t0, h, y, i1[k, :, None], i10[k, :, None])
+        y = sra1_step(drift, t0, h, y, i1[k, :, None], i10[k, :, None], sigma)
         ys[k + 1] = y
     ys[n_real + 1:] = y
     return ys
+
+
+def _replay_fwd_plain(y0, t0s, hs, i1, i10, n_real, w, sc, kv):
+    """``sra1_replay_plain`` of the network drift, ``w`` in a replay format
+    of ``drift_premixed`` (split2, or the three-term split)."""
+    return sra1_replay_plain(lambda t, x: drift_premixed(t, x, w, sc, kv), SIGMA, y0, t0s, hs,
+                             i1, i10, n_real)
 
 
 def _replay_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, w2, sc, kv):
@@ -334,13 +346,21 @@ class Attempt(NamedTuple):
     w1: torch.Tensor  # (B, 1) W(t + h)
 
 
+def _constant_sigma(t, y):
+    """The network's diffusion: sigma = 10 on every component."""
+    return SIGMA
+
+
 @torch.no_grad()
-def _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg: SelectConfig):
-    """One controller attempt per lane (t1, h, err_prev, w_t1 (B, 1)):
-    step doubling with three SRA1 steps on the tree's Brownian data (the
-    JAX package's ``_sra1_doubling``: the full step and the first half step
+def attempt_plain(drift, diffusion, t1, y1, h, err_prev, w_t1, words,
+                  cfg: SelectConfig) -> Attempt:
+    """One controller attempt per lane (t1, h, err_prev, w_t1 (B, 1)) for
+    ``drift(t, y)`` (t (B, 1), y (B, S)) and the additive diffusion
+    ``diffusion(t, y)`` (its value at (t1, y1) serves every stage): step
+    doubling with three SRA1 steps on the tree's Brownian data (the JAX
+    package's ``_sra1_doubling``: the full step and the first half step
     share f1), the RMS error, the PI controller with exp(p log x) powers.
-    ``w``: the selection weights in ``cfg.drift``'s format."""
+    The selection kernels of every drift repeat this order of operations."""
     h = torch.minimum(h, cfg.t_end - t1)
     h = (t1 + h) - t1  # the representable difference
     tm, te, hh = t1 + 0.5 * h, t1 + h, 0.5 * h
@@ -353,10 +373,10 @@ def _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg: SelectConfi
     i10_a = hh * (0.5 * dw_a + sq * za)
     i10_b = hh * (0.5 * dw_b + sq * zb)
     i10_f = i10_a + i10_b + hh * dw_a
-    drift = _select_drift(w, sc, kv, cfg)
-    y_full = sra1_step(drift, t1, h, y1, dw_a + dw_b, i10_f)
-    y_half = sra1_step(drift, t1, 0.5 * h, y1, dw_a, i10_a)
-    y_half2 = sra1_step(drift, t1 + 0.5 * h, 0.5 * h, y_half, dw_b, i10_b)
+    g = diffusion(t1, y1)
+    y_full = sra1_step(drift, t1, h, y1, dw_a + dw_b, i10_f, g)
+    y_half = sra1_step(drift, t1, 0.5 * h, y1, dw_a, i10_a, g)
+    y_half2 = sra1_step(drift, t1 + 0.5 * h, 0.5 * h, y_half, dw_b, i10_b, g)
     q = (y_half2 - y_full) / (cfg.atol + cfg.rtol * torch.maximum(y1.abs(), y_half2.abs()))
     err = torch.sqrt(div((q * q).double().sum(-1, keepdim=True).float(), y1.shape[-1]))
     accept = (err <= 1.0) | (h <= cfg.dt_min)
@@ -372,9 +392,10 @@ def _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg: SelectConfi
 
 
 @torch.no_grad()
-def _select_plain(y0, words, w, sc, kv, cfg: SelectConfig):
-    """The selection loop, vectorised over lanes with per-lane masks:
-    returns (step_times (B, M+1), naccept, nreject, success)."""
+def select_plain(drift, diffusion, y0, words, cfg: SelectConfig):
+    """The selection loop of ``attempt_plain``, vectorised over lanes with
+    per-lane masks: returns (step_times (B, M+1), naccept, nreject,
+    success)."""
     B, dev = y0.shape[0], y0.device
     M = cfg.max_steps
     st = torch.full((B, M + 1), cfg.t_end, dtype=_F32, device=dev)
@@ -391,7 +412,7 @@ def _select_plain(y0, words, w, sc, kv, cfg: SelectConfig):
         active = (t1[:, 0] < cfg.t_end) & (na + nr < M)
         if not bool(active.any()):
             break
-        a = _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg)
+        a = attempt_plain(drift, diffusion, t1, y1, h, err_prev, w_t1, words, cfg)
         act = active[:, None]
         acc = a.accept & act
         na = na + acc[:, 0]
@@ -403,6 +424,19 @@ def _select_plain(y0, words, w, sc, kv, cfg: SelectConfig):
         h = torch.where(act, a.h_next, h)
         t1 = torch.where(act, a.t_new, t1)
     return st, na.to(torch.int32), nr.to(torch.int32), t1[:, 0] >= cfg.t_end
+
+
+def _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg: SelectConfig):
+    """``attempt_plain`` of the network drift: ``w`` the selection weights
+    in ``cfg.drift``'s format."""
+    return attempt_plain(_select_drift(w, sc, kv, cfg), _constant_sigma, t1, y1, h, err_prev,
+                         w_t1, words, cfg)
+
+
+def _select_plain(y0, words, w, sc, kv, cfg: SelectConfig):
+    """``select_plain`` of the network drift (the selection kernel's plain
+    version)."""
+    return select_plain(_select_drift(w, sc, kv, cfg), _constant_sigma, y0, words, cfg)
 
 
 # ---------------------------------------------------------------------------

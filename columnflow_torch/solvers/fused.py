@@ -39,8 +39,9 @@ package (``resolve_sde_arg_grads``), and these tiers are ported
 
 The XOR task's drift (``xor_drift_batched``) has its own two entry points,
 in kernel mode: ``xor_odeint_dopri5_fused`` (the kernels of
-``kernels.xor_ode``) and ``xor_sdeint_fused``, the uniform-grid SDE with
-one scalar Brownian per lane (``kernels.xor_sde``). The Hopf task's MLP
+``kernels.xor_ode``) and ``xor_sdeint_fused``, the SDE with one scalar
+Brownian per lane on the uniform grid or, lane-batched, on per-lane grids
+(the adaptive replay's engine; ``kernels.xor_sde``). The Hopf task's MLP
 drift (``hopf_mlp_drift``) has ``hopf_odeint_dopri5_fused`` (the kernels
 of ``kernels.hopf_ode``), in kernel mode.
 """
@@ -73,7 +74,12 @@ from columnflow_torch.kernels.network_sde import (
     step_vjp_split3,
 )
 from columnflow_torch.kernels.xor_ode import xor_replay_bwd, xor_replay_fwd, xor_select
-from columnflow_torch.kernels.xor_sde import xor_sde_bwd, xor_sde_fwd
+from columnflow_torch.kernels.xor_sde import (
+    xor_sde_bwd,
+    xor_sde_fwd,
+    xor_sde_replay_bwd,
+    xor_sde_replay_fwd,
+)
 from columnflow_torch.models.column import Stimulus
 from columnflow_torch.models.network import (
     _bf,
@@ -83,7 +89,7 @@ from columnflow_torch.models.network import (
     prepare_premixed_split2,
 )
 from columnflow_torch.models.hopf import PARAM_KEYS
-from columnflow_torch.models.xor import PF_KEYS
+from columnflow_torch.models.xor import PF_KEYS, XOR_STATE_DIM
 from columnflow_torch.ops.arith import div
 from columnflow_torch.ops.interp import interp_knots
 
@@ -753,22 +759,67 @@ class _XORSDERollout(torch.autograd.Function):
         return (*(rows[k] for k in PF_KEYS), ybar + ys_bar[0], None, None, None, None)
 
 
-def xor_sdeint_fused(pf: dict, sc: SDEConsts, kv, y0, ts, noise_pack, arg_grads: str = "auto"):
-    """``sdeint_fused(method="srk", noise_shape=(B, 1))`` of the XOR drift
-    on the uniform grid ``ts``: SRA1 with the membrane-only diffusion sigma
-    = 10, each lane driven by one scalar Brownian motion. ``noise_pack`` =
-    (i1, i10), each (T-1, B) or (T-1, B, 1) (from ``solvers.sde.
-    brownian_pack(generator, ts, (B, 1))``, or the JAX package's pack).
-    Returns ys (T, B, 72) with ys[0] = y0; gradients reach pf and y0 in
-    kernel mode (``xor_arg_grads``)."""
+class _XORSDEReplayLanes(torch.autograd.Function):
+    """Per-lane grids. Forward: ``xor_sde_replay_fwd`` (B3xl); backward:
+    ``xor_sde_replay_bwd`` (B4'xl). Gradients reach the four rows and y0;
+    the grids and the noise are data."""
+
+    @staticmethod
+    def forward(ctx, w00, w01, w10, w11, y0, t0s, hs, i1, i10, spec):
+        sc, kv, n_real, chunk = spec
+        pf = {k: v.detach().contiguous() for k, v in zip(PF_KEYS, (w00, w01, w10, w11))}
+        ys = xor_sde_replay_fwd(y0.detach().contiguous(), t0s, hs, i1, i10, n_real, pf, sc, kv)
+        ctx.spec, ctx.pf = spec, pf
+        ctx.save_for_backward(ys, t0s, hs, i10)
+        return ys
+
+    @staticmethod
+    def backward(ctx, ys_bar):
+        sc, kv, n_real, chunk = ctx.spec
+        ys, t0s, hs, i10 = ctx.saved_tensors
+        ys_bar = _carried_cotangent(ys_bar, n_real)
+        ybar, rows = xor_sde_replay_bwd(ys, ys_bar, t0s, hs, i10, n_real, chunk, ctx.pf, sc, kv)
+        return (*(rows[k] for k in PF_KEYS), ybar + ys_bar[0], None, None, None, None, None)
+
+
+def xor_sdeint_fused(pf: dict, sc: SDEConsts, kv, y0, ts=None, noise_pack=None,
+                     arg_grads: str = "auto", *, ts_steps=None, n_real: int | None = None):
+    """``sdeint_fused(method="srk")`` of the XOR drift: SRA1 with the
+    membrane-only diffusion sigma = 10, each lane driven by one scalar
+    Brownian motion. Either ``ts`` (T,), the uniform grid of every lane
+    (``noise_shape=(B, 1)``: the fixed-grid step), or ``ts_steps`` (B, n +
+    1), each lane advancing its own step grid row (the adaptive replay's
+    lanes mode; ``n_real``: the leading real steps, the rest h == 0 padding
+    with zero noise). ``noise_pack`` = (i1, i10), each (n, B) or (n, B, 1)
+    (from ``solvers.sde.brownian_pack(generator, ts, (B, 1))``, the
+    adaptive replay's grid, or the JAX package's pack). Returns ys (n + 1,
+    B, 72) with ys[0] = y0 (ys[i, b] at lane b's own i-th time); gradients
+    reach pf and y0 in kernel mode (``xor_arg_grads``)."""
     xor_arg_grads(pf, arg_grads, sde=True)
+    if (ts_steps is None) == (ts is None):
+        raise ValueError("give either ts_steps (per-lane grids) or ts (the uniform grid)")
     B = y0.shape[0]
+    rows = (pf[k] for k in PF_KEYS)
+    if ts_steps is not None:
+        ts_steps = ts_steps.to(torch.float32)
+        if ts_steps.dim() != 2 or ts_steps.shape[0] != B:
+            raise ValueError(f"ts_steps must be (B, n + 1) with B = {B} lanes, got "
+                             f"{tuple(ts_steps.shape)}")
+        n = ts_steps.shape[1] - 1
+        t0s = ts_steps[:, :-1].T.contiguous()
+        hs = (ts_steps[:, 1:] - ts_steps[:, :-1]).T.contiguous()
+        i1, i10 = (torch.as_tensor(x, dtype=torch.float32, device=y0.device)
+                   .reshape(n, B).contiguous() for x in noise_pack)
+        spec = (sc, kv.detach().contiguous(), n if n_real is None else int(n_real),
+                sweep_chunk((B, XOR_STATE_DIM), n))
+        return _XORSDEReplayLanes.apply(*rows, y0, t0s, hs, i1, i10, spec)
+    if n_real is not None:
+        raise ValueError("n_real applies to per-lane grids only")
     t0s, h = uniform_step_times(ts, tuple(y0.shape))
     t0s = t0s.to(y0.device)
     i1, i10 = (torch.as_tensor(x, dtype=torch.float32, device=y0.device)
                .reshape(t0s.shape[0], B).contiguous() for x in noise_pack)
-    return _XORSDERollout.apply(*(pf[k] for k in PF_KEYS), y0, t0s, i1, i10,
-                                (sc, kv.detach().contiguous(), h))
+    return _XORSDERollout.apply(*rows, y0, t0s, i1, i10, (sc, kv.detach().contiguous(), h))
 
 
 # ---------------------------------------------------------------------------

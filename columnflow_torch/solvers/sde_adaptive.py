@@ -31,9 +31,13 @@ are the 104-column ``--fused-pass`` flagship's. Keys are raw key data (B, 2), ui
 int64: a JAX key passes unchanged, and both packages then draw the same
 paths.
 
-The port specialises the path to the parity task's model
-(``PremixedNetworkSDE``); other drifts, the I controller and the other
-steppers are not ported (ROADMAP.md A8).
+The port specialises the path to the two models the tasks give it: the
+parity task's (``PremixedNetworkSDE``) and the XOR task's (``XORSDE``: the
+four feedforward rows, the membrane-only diffusion; its selection always
+runs on the float32 ``xor_drift_batched``, its replay in the XOR kernels,
+``solvers.fused.xor_sdeint_fused`` on per-lane grids, kernel mode). Other
+drifts, the I controller and the other steppers are not ported (ROADMAP.md
+A8).
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ from columnflow_torch.models.network import premix_select16
 from columnflow_torch.ops.arith import div
 from columnflow_torch.solvers import jrandom, krng
 from columnflow_torch.solvers.brownian import interval_normal as _interval_normal  # noqa: F401
-from columnflow_torch.solvers.fused import sdeint_fused
+from columnflow_torch.kernels.xor_sde import xor_sde_select
+from columnflow_torch.solvers.fused import sdeint_fused, xor_sdeint_fused
 
 # The JAX package's names: ``_interval_normal(key, ta, tb)``, the jax
 # backend's space-time-integral normal keyed by the interval's endpoint bit
@@ -82,6 +87,18 @@ class PremixedNetworkSDE(NamedTuple):
     kv: torch.Tensor
 
 
+class XORSDE(NamedTuple):
+    """The XOR task's SDE: the four feedforward rows pf = {"w00", "w01",
+    "w10", "w11"} (differentiable, ``split_xor_params``), the drift
+    constants and knot times (``build_xor_fused_consts``), and the knot
+    values kv (K, B, 32), one stimulus per lane; sigma = 10 on the membrane
+    block only."""
+
+    pf: dict
+    sc: SDEConsts
+    kv: torch.Tensor
+
+
 def _sde_key_words(keys, brownian: str = "kernel"):
     """(B, 2) raw keys -> (B, 4) (k0, k1, j0, j1): the tree's key and the
     space-time integrals' key, the raw key with the 0x51DE tag folded in by
@@ -96,10 +113,14 @@ def _sde_key_words(keys, brownian: str = "kernel"):
     return torch.stack([keys[:, 0], keys[:, 1], j0, j1], dim=1)
 
 
-def _adaptive_pass(model: PremixedNetworkSDE, y0, words, cfg: SelectConfig):
+def _adaptive_pass(model, y0, words, cfg: SelectConfig):
     """The selection of every lane (kernel on CUDA, plain loop otherwise)
     with ``cfg``'s tree and drift: (step_times (B, M+1), naccept, nreject,
     success)."""
+    if isinstance(model, XORSDE):
+        return xor_sde_select(y0.detach().contiguous(), words,
+                              {k: v.detach().contiguous() for k, v in model.pf.items()},
+                              model.sc, model.kv.detach().contiguous(), cfg)
     pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
     if cfg.drift == "select16":
         w = premix_select16(pw)
@@ -145,17 +166,22 @@ def _replay_grid(step_times, words, t_start, t_end, levy_depth, brownian: str = 
     return ht, dw, hh * (0.5 * dw + torch.sqrt(div(hh, 12.0)) * za)
 
 
-def _replay_pass_fused_batch(model: PremixedNetworkSDE, y0, ts, step_times, naccept,
+def _replay_pass_fused_batch(model, y0, ts, step_times, naccept,
                              words, t_start, t_end, levy_depth, bptt_every=None,
                              brownian: str = "kernel", prepare: str = "split2",
                              grad_bf16: bool = True):
     """The batched replay over every lane's frozen grid in one sweep. The
     tail past 2 * max(naccept) is h == 0 padding for every lane and is
     skipped; that count is read to the host (one synchronisation per
-    step)."""
+    step). ``prepare`` and ``grad_bf16`` apply to the network model."""
     st = step_times
     ht, dw, i10 = _replay_grid(st, words, t_start, t_end, levy_depth, brownian)
     n_real = 2 * int(naccept.max())
+    if isinstance(model, XORSDE):
+        ys_h = xor_sdeint_fused(model.pf, model.sc, model.kv, y0,
+                                noise_pack=(dw.T.contiguous(), i10.T.contiguous()), ts_steps=ht,
+                                n_real=n_real)
+        return _interp_accepted(ys_h[::2], y0, ts, st, naccept)
     ys_h = sdeint_fused(model.pw, model.sc, model.kv, y0, ht,
                         (dw.T.contiguous(), i10.T.contiguous()),
                         bptt_every=None if bptt_every is None else 2 * bptt_every,
@@ -194,28 +220,47 @@ def resolve_selection(fused_pass: bool, brownian: str | None, select_bf16: bool)
     return brownian, "split3" if fused_pass else "f32"
 
 
-def sdeint_adaptive_batch(model: PremixedNetworkSDE, y0, ts, keys, *, rtol: float = 1e-3,
+def sdeint_adaptive_batch(model, y0, ts, keys, *, rtol: float = 1e-3,
                           atol: float = 1e-3, dt0: float | None = None, dt_min: float = 0.0,
                           max_steps: int = 16384, levy_depth: int = 20,
                           bptt_every: int | None = None, return_stats: bool = False,
                           grid=None, fused_pass: bool = True, brownian: str | None = None,
-                          select_bf16: bool = True, prepare: str = "split2",
-                          grad_bf16: bool = True):
-    """Batched differentiable adaptive SDE integration: y0 (B, 3P), keys
+                          select_bf16: bool | None = None, prepare: str | None = None,
+                          grad_bf16: bool | None = None):
+    """Batched differentiable adaptive SDE integration: y0 (B, S), keys
     (B, 2) raw keys (uint32 words in int64), one Brownian path per lane.
-    Returns ys (B, len(ts), 3P) (and ``SDESolverStats`` with
+    Returns ys (B, len(ts), S) (and ``SDESolverStats`` with
     ``return_stats``). The JAX function's ``method="sra1", controller="pi",
-    fused=True``, with its ``fused_pass`` and ``brownian``; ``select_bf16``
-    picks its ``select_drift`` (``network_drift_premixed_select16`` or the
-    float32 ``network_drift_premixed``), ``prepare`` and ``grad_bf16`` its
-    replay's prepare hook and ``vjp_drift`` (``sdeint_fused``).
+    fused=True``, with its ``fused_pass`` and ``brownian``.
+
+    ``model``: ``PremixedNetworkSDE`` (S = 3P) or ``XORSDE`` (S = 72). For
+    the network, ``select_bf16`` picks the JAX function's ``select_drift``
+    (``network_drift_premixed_select16`` or the float32
+    ``network_drift_premixed``), ``prepare`` and ``grad_bf16`` its replay's
+    prepare hook and ``vjp_drift`` (``sdeint_fused``); unset, they are the
+    104-column flagship's (True, "split2", True). The XOR model takes none
+    of them (its selection drift is the float32 one, its replay the XOR
+    kernels in kernel mode) and no ``bptt_every``.
 
     ``grid`` = (step_times (B, M+1), naccept (B,), nreject (B,)) skips the
     selection and replays that frozen grid (tests hand in the JAX package's
     grid this way)."""
     if bptt_every is not None and bptt_every < 1:
         raise ValueError(f"bptt_every must be >= 1, got {bptt_every}")
-    brownian, drift = resolve_selection(fused_pass, brownian, select_bf16)
+    if isinstance(model, XORSDE):
+        if select_bf16 or grad_bf16 or prepare is not None:
+            raise ValueError("select_bf16, prepare and grad_bf16 apply to the network model: the "
+                             "XOR model selects on its float32 drift and replays in kernel mode")
+        if bptt_every is not None:
+            raise NotImplementedError(
+                "truncated BPTT in the XOR replay's reverse sweep is not ported (no XOR command "
+                "line passes it): ROADMAP.md B, the XOR drift's truncated sweep")
+        brownian, drift = resolve_selection(fused_pass, brownian, False)[0], "f32"
+    else:
+        select_bf16 = True if select_bf16 is None else select_bf16
+        prepare = "split2" if prepare is None else prepare
+        grad_bf16 = True if grad_bf16 is None else grad_bf16
+        brownian, drift = resolve_selection(fused_pass, brownian, select_bf16)
     ts = torch.as_tensor(ts, dtype=torch.float32, device=y0.device)
     cfg = select_config(ts, rtol, atol, dt0, dt_min, max_steps, levy_depth, brownian, drift)
     t_start, t_end = cfg.t_start, cfg.t_end

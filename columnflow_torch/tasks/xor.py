@@ -1,5 +1,5 @@
 """XOR classification task (port of ``columnflow/tasks/xor.py``: the train
-step on both engines its command line picks by default).
+step on the fused engines its command line picks).
 
 Trains the feedforward weights of a 3-column, 2-area network so that the
 output column C fires high for different inputs (target 1.0) and low for
@@ -15,7 +15,16 @@ ExponentialLR(0.8), gradients masked to the L4e/L4i targets.
   diffusion sigma = 10, SRA1 on the uniform grid with one scalar Brownian
   per lane, the rollout and its reverse sweep each one kernel
   (``solvers.fused.xor_sdeint_fused``). The Brownian integrals are drawn
-  from a ``torch.Generator`` (``solvers.sde.brownian_pack``).
+  from a ``torch.Generator`` (``solvers.sde.brownian_pack``);
+- stochastic-adaptive (``stochastic=True, adaptive=True``): each lane's own
+  step-doubling SRA1 controller (PI, rtol = atol = 1e-3, max_steps 2048,
+  the float32 drift) selects its grid on the ``jax.random`` tree, or with
+  ``fused_pass`` on the krng tree (the JAX package's in-kernel pass), one
+  kernel launch for the four lanes; the frozen grids are replayed in one
+  lane-batched kernel and its kernel-mode reverse sweep, two half steps per
+  accepted step, and interpolated onto the grid
+  (``solvers.sde_adaptive.sdeint_adaptive_batch`` with ``XORSDE``). Each
+  lane's raw key (B, 2) is drawn from the ``torch.Generator``.
 
 The training run's evaluation integrates the four conditions through the
 deterministic fused forward; the JAX package evaluates through its unfused
@@ -23,14 +32,20 @@ per-sample ``odeint`` (ROADMAP.md section C).
 
     python -m columnflow_torch.tasks.xor --smoke                  # on the card
     python -m columnflow_torch.tasks.xor --smoke --stochastic
+    python -m columnflow_torch.tasks.xor --smoke --stochastic --adaptive
+    python -m columnflow_torch.tasks.xor --smoke --stochastic --adaptive --fused --fused-pass
     python -m columnflow_torch.tasks.xor --smoke --device cpu
 
 The command line resolves as the JAX package's: no flags, ``--fused`` or
 ``--engine fused`` train the deterministic step, ``--stochastic`` (with or
-without ``--fused``) the fixed-grid SDE. Every other combination raises
-``NotImplementedError`` naming its ROADMAP.md item: ``--engine xla``,
-``--method`` other than dopri5, ``--adaptive``, ``--fused-pass``,
-``--checkpoint-out``/``--resume``, ``--metrics-out``/``--profile-dir``.
+without ``--fused``) the fixed-grid SDE, ``--stochastic --adaptive`` (with
+or without ``--fused``) the stochastic-adaptive step, and with ``--fused
+--fused-pass`` its in-kernel selection. ``--fused-pass`` without
+``--stochastic --adaptive --fused``, and ``--adaptive`` without
+``--stochastic``, are a ValueError (the JAX package refuses the one and
+ignores the other). Every other combination raises ``NotImplementedError``
+naming its ROADMAP.md item: ``--engine xla``, ``--method`` other than
+dopri5, ``--checkpoint-out``/``--resume``, ``--metrics-out``/``--profile-dir``.
 """
 
 from __future__ import annotations
@@ -56,12 +71,17 @@ from columnflow_torch.ops.interp import step_table_knots
 from columnflow_torch.ops.transfer import compute_firing_rate
 from columnflow_torch.solvers.fused import xor_odeint_dopri5_fused, xor_sdeint_fused
 from columnflow_torch.solvers.sde import brownian_pack
+from columnflow_torch.solvers.sde_adaptive import XORSDE, sdeint_adaptive_batch
 from columnflow_torch.tasks.wta import linspace
 from columnflow_torch.train.optim import mask_grads, torch_rmsprop
 
 DT = 1e-3
 STIM_DURATION = 0.5
 TIME_STEPS = int(STIM_DURATION * 2 / DT)
+# The stochastic-adaptive step's settings (the defaults of the JAX package's
+# batched_rollout, columnflow/tasks/xor.py:69-75): rtol = atol = 1e-3 are
+# sdeint_adaptive_batch's defaults here too.
+ADAPTIVE_MAX_STEPS = 2048
 
 
 class XORTask(NamedTuple):
@@ -102,30 +122,55 @@ def drift_inputs(task: XORTask, conditions):
     return SDEConsts(task.fc, kts), kv.contiguous()
 
 
+def check_flags(stochastic: bool, adaptive: bool, fused_pass: bool) -> None:
+    """Refuse what the JAX package's ``batched_rollout`` refuses
+    (``fused_pass`` without the stochastic-adaptive step) and what it would
+    ignore (``adaptive`` without ``stochastic``): ValueError."""
+    if fused_pass and not (stochastic and adaptive):
+        raise ValueError("fused_pass requires stochastic=True and adaptive=True")
+    if adaptive and not stochastic:
+        raise ValueError("adaptive applies to the stochastic step (the deterministic step is "
+                         "adaptive dopri5 already)")
+
+
 def batched_rollout(params, task: XORTask, conditions, differentiable: bool = True,
-                    stochastic: bool = False, noise=None, grid=None, return_stats: bool = False):
+                    stochastic: bool = False, noise=None, grid=None, return_stats: bool = False,
+                    adaptive: bool = False, fused_pass: bool = False, keys=None):
     """Integrate the conditions (B, 2) -> (B, T, 72).
 
     Deterministic (default): fused dopri5 with the task's max_steps, at the
     fused engine's rtol 1e-7 / atol 1e-9 (the JAX package's fused path
     passes neither tolerance); ``grid`` = (step_times, naccept) replays a
     given frozen grid. ``stochastic``: the uniform-grid SDE driven by
-    ``noise`` = (i1, i10), each (T-1, B) or (T-1, B, 1)."""
+    ``noise`` = (i1, i10), each (T-1, B) or (T-1, B, 1). With ``adaptive``:
+    each lane's selection (``fused_pass``: the krng tree, otherwise the
+    ``jax.random`` tree) from ``keys`` (B, 2), each lane's raw key, then the
+    lane-batched replay; ``grid`` = (step_times (B, M+1), naccept, nreject)
+    replays given frozen grids."""
+    check_flags(stochastic, adaptive, fused_pass)
     B = conditions.shape[0]
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
         sc, kv = drift_inputs(task, conditions)
         pf = split_xor_params(params)
         y0 = torch.zeros((B, XOR_STATE_DIM), device=conditions.device)
         stats = None
-        if stochastic:
-            if noise is None:
-                raise ValueError("the stochastic rollout needs a Brownian noise pack")
-            ys = xor_sdeint_fused(pf, sc, kv, y0, task.ts, noise)
+        if stochastic and adaptive:
+            if keys is None:
+                raise ValueError("the adaptive step needs each lane's raw key (B, 2)")
+            ys, stats = sdeint_adaptive_batch(
+                XORSDE(pf, sc, kv), y0, task.ts, torch.as_tensor(keys, device=conditions.device),
+                max_steps=ADAPTIVE_MAX_STEPS, return_stats=True, grid=grid,
+                fused_pass=fused_pass)
         else:
-            ys, stats = xor_odeint_dopri5_fused(pf, sc, kv, y0, task.ts,
-                                                max_steps=task.max_steps, grid=grid,
-                                                return_stats=True)
-        ys = ys.transpose(0, 1)
+            if stochastic:
+                if noise is None:
+                    raise ValueError("the stochastic rollout needs a Brownian noise pack")
+                ys = xor_sdeint_fused(pf, sc, kv, y0, task.ts, noise)
+            else:
+                ys, stats = xor_odeint_dopri5_fused(pf, sc, kv, y0, task.ts,
+                                                    max_steps=task.max_steps, grid=grid,
+                                                    return_stats=True)
+            ys = ys.transpose(0, 1)
     return (ys, stats) if return_stats else ys
 
 
@@ -144,20 +189,26 @@ def xor_targets(conditions):
     return torch.where(diff, 1.0, 0.25)
 
 
-def make_train_step(task: XORTask, stochastic: bool = False):
+def make_train_step(task: XORTask, stochastic: bool = False, adaptive: bool = False,
+                    fused_pass: bool = False):
     """The training step: the JAX package's ``make_train_step(task,
-    use_fused=True)`` (deterministic) or ``make_train_step(task,
-    use_fused=True, stochastic=True)``. ``train_step(conditions,
-    noise=None, grid=None)``; the stochastic step needs ``noise`` = (i1,
-    i10). It updates ``task.params`` in place, leaves the masked gradients
-    in their ``.grad`` and returns a dict with loss, out (tensors) and the
-    deterministic step's selection stats (None for the stochastic one)."""
+    use_fused=True, stochastic=..., adaptive=..., fused_pass=...)``:
+    deterministic, the fixed-grid SDE (``stochastic``), or the
+    stochastic-adaptive step (``stochastic`` and ``adaptive``, with
+    ``fused_pass`` its in-kernel selection). ``train_step(conditions,
+    noise=None, grid=None, keys=None)``: the fixed-grid step needs ``noise``
+    = (i1, i10), the adaptive step ``keys`` (B, 2), each lane's raw key. It
+    updates ``task.params`` in place, leaves the masked gradients in their
+    ``.grad`` and returns a dict with loss, out (tensors) and the
+    selection's stats (None for the fixed-grid step)."""
+    check_flags(stochastic, adaptive, fused_pass)
     params = task.params
 
-    def train_step(conditions, noise=None, grid=None):
+    def train_step(conditions, noise=None, grid=None, keys=None):
         task.optimizer.zero_grad(set_to_none=True)
         ys, stats = batched_rollout(params, task, conditions, stochastic=stochastic,
-                                    noise=noise, grid=grid, return_stats=True)
+                                    noise=noise, grid=grid, return_stats=True, adaptive=adaptive,
+                                    fused_pass=fused_pass, keys=keys)
         out, loss = readout(ys, xor_targets(conditions))
         loss.backward()
         with torch.no_grad():
@@ -181,13 +232,16 @@ def evaluate(task: XORTask, conditions):
 
 def train_xor(nr_samples: int = 160, batch_size: int = 4, seed: int = 0,
               time_steps: int | None = None, max_steps: int | None = None,
-              stochastic: bool = False, smoke: bool = False, device=None):
+              stochastic: bool = False, adaptive: bool = False, fused_pass: bool = False,
+              smoke: bool = False, device=None):
     """Training run: nr_samples // batch_size steps, each over the four
     conditions in an order drawn from a ``torch.Generator`` seeded with
-    ``seed`` (which also draws the stochastic step's Brownian integrals),
-    each followed by an evaluation of the four conditions. ``smoke``: 8
-    samples, and unless given 200 grid points and max_steps 1024 (otherwise
-    TIME_STEPS and 3072). Returns (params, history)."""
+    ``seed`` (which also draws the fixed-grid step's Brownian integrals and
+    the adaptive step's lane keys), each followed by an evaluation of the
+    four conditions. ``smoke``: 8 samples, and unless given 200 grid points
+    and max_steps 1024 (otherwise TIME_STEPS and 3072; the deterministic
+    selection's budget: the adaptive step's is ``ADAPTIVE_MAX_STEPS``).
+    Returns (params, history)."""
     if smoke:
         nr_samples = 8
     time_steps = time_steps or (200 if smoke else TIME_STEPS)
@@ -196,35 +250,51 @@ def train_xor(nr_samples: int = 160, batch_size: int = 4, seed: int = 0,
     gen = torch.Generator(device=dev).manual_seed(seed)
     task = build_task(ColumnConfig.load(), gen, time_steps=time_steps, max_steps=max_steps,
                       device=dev)
-    step = make_train_step(task, stochastic=stochastic)
+    step = make_train_step(task, stochastic=stochastic, adaptive=adaptive, fused_pass=fused_pass)
     conds_all = torch.as_tensor(xor_conditions(), device=dev)
     history = []
     for _ in range(nr_samples // batch_size):
         conds = conds_all[torch.randperm(4, generator=gen, device=dev)]
-        noise = None
-        if stochastic:
+        noise = keys = None
+        if stochastic and adaptive:
+            keys = torch.randint(0, 2**32, (conds.shape[0], 2), generator=gen, device=dev,
+                                 dtype=torch.int64)
+        elif stochastic:
             _, i1, i10, _, _ = brownian_pack(gen, task.ts, (conds.shape[0], 1))
             noise = (i1, i10)
-        rec = step(conds, noise)
+        rec = step(conds, noise, keys=keys)
         final_c, test_loss = evaluate(task, conds_all)
         out = final_c.cpu().numpy()
         acc = float(np.mean((out > (out.min() + out.max()) / 2)
                             == np.asarray([True, True, False, False])))
-        history.append({"loss": float(rec["loss"]), "test_loss": float(test_loss), "acc": acc,
-                        "final_fr": out.tolist()})
+        entry = {"loss": float(rec["loss"]), "test_loss": float(test_loss), "acc": acc,
+                 "final_fr": out.tolist()}
+        if adaptive:
+            stats = rec["stats"]
+            entry.update(naccept=stats.naccept.tolist(), nreject=stats.nreject.tolist(),
+                         success=stats.success.tolist())
+        history.append(entry)
     return task.params, history
 
 
 def resolve_mode(args) -> dict:
     """The ported step that the JAX package's flags select, as
-    ``train_xor``'s ``stochastic``. As in the JAX command line an explicit
-    ``--fused`` overrides ``--engine``; ``--engine auto`` at the XOR
-    network's 3 columns picks the fused engine. Anything else raises
-    ``NotImplementedError`` naming the ROADMAP.md item that ports it."""
+    ``train_xor``'s ``stochastic``, ``adaptive`` and ``fused_pass``. As in
+    the JAX command line an explicit ``--fused`` or ``--fused-pass``
+    overrides ``--engine``, and ``--engine auto`` at the XOR network's 3
+    columns picks the fused engine. ``--fused-pass`` without ``--stochastic
+    --adaptive --fused`` is a ValueError (the JAX package's
+    ``batched_rollout`` refuses it), as is ``--adaptive`` without
+    ``--stochastic`` (it would ignore it). What resolves to an unported path
+    raises ``NotImplementedError`` naming the ROADMAP.md item that ports
+    it."""
+    if args.fused_pass and not (args.stochastic and args.adaptive and args.fused):
+        raise ValueError("--fused-pass requires --stochastic --adaptive --fused (the in-kernel "
+                         "selection of the fused stochastic-adaptive step)")
+    if args.adaptive and not args.stochastic:
+        raise ValueError("--adaptive applies to the stochastic step (--stochastic); the "
+                         "deterministic step is adaptive dopri5 already")
     unported = [
-        (args.adaptive or args.fused_pass,
-         "--adaptive/--fused-pass: the adaptive SDE engines on the XOR drift (B3 and B4' in "
-         "lanes mode, B5) are not ported (ROADMAP.md A7a)"),
         (args.ode_method != "dopri5",
          f"--method {args.ode_method}: only dopri5 is ported (ROADMAP.md A7: the other "
          "tableaus and the unfused solvers/dopri.py)"),
@@ -232,6 +302,10 @@ def resolve_mode(args) -> dict:
          "--checkpoint-out/--resume: checkpoints are not ported (ROADMAP.md A9)"),
         (args.metrics_out is not None or args.profile_dir is not None,
          "--metrics-out/--profile-dir: metrics and profiles are not ported (ROADMAP.md A9)"),
+        (not args.fused and args.engine == "xla" and args.adaptive,
+         "--engine xla --stochastic --adaptive: the XLA engine's adaptive SDE (the unfused "
+         "sdeint_adaptive_batch on xor_drift, or the vmapped sdeint_adaptive) is not ported "
+         "(ROADMAP.md A7)"),
         (not args.fused and args.engine == "xla",
          "--engine xla: the XLA engine (the unfused per-sample odeint and sdeint) is not "
          "ported (ROADMAP.md A7)"),
@@ -239,7 +313,8 @@ def resolve_mode(args) -> dict:
     for hit, why in unported:
         if hit:
             raise NotImplementedError(why)
-    return {"stochastic": args.stochastic}
+    return {"stochastic": args.stochastic, "adaptive": args.adaptive,
+            "fused_pass": args.fused_pass}
 
 
 def main(argv=None):
@@ -256,8 +331,13 @@ def main(argv=None):
     p.add_argument("--fused", action="store_true", help="the fused engine (the default)")
     p.add_argument("--stochastic", action="store_true",
                    help="train through the Ito SDE: SRA1 on the uniform grid")
-    p.add_argument("--adaptive", action="store_true", help="not ported: raises")
-    p.add_argument("--fused-pass", action="store_true", help="not ported: raises")
+    p.add_argument("--adaptive", action="store_true",
+                   help="with --stochastic: each lane's adaptive step-doubling SRA1 on the "
+                        "jax.random tree's path, then the lane-batched replay of the frozen "
+                        "grids with their gradients")
+    p.add_argument("--fused-pass", action="store_true",
+                   help="with --stochastic --adaptive --fused: the selection on the krng tree "
+                        "(the JAX package's in-kernel pass)")
     p.add_argument("--method", default="dopri5", dest="ode_method",
                    help="only dopri5 is ported; anything else raises NotImplementedError")
     for flag in ("--metrics-out", "--profile-dir", "--checkpoint-out", "--resume"):

@@ -54,7 +54,11 @@ every float32 operation alike, so they are held bit for bit: the dopri5
 selection, single attempts, the replay and its kernel-mode sweep, the
 uniform-grid SDE and its kernel-mode sweep; both train steps against the
 same step on the CPU on the card's grid and noise (loss rel 1e-5, gradients
-rel L2 1e-3), with exactly one launch of each of their kernels.
+rel L2 1e-3), with exactly one launch of each of their kernels. The
+stochastic-adaptive kernels, bit for bit as well: the whole selection on
+either tree (max_steps 2048) and single attempts along its replay, the
+lanes' replay and its kernel-mode sweep on that grid; the adaptive step
+(either tree) against the same step on the CPU on the card's grid.
 
 Hopf kernels (the MLP 3 -> 100 -> 100 -> 100 -> 2, 32 lanes of
 ``make_hopf_dataset`` under one controller, 200 grid points over 5 s).
@@ -1204,6 +1208,125 @@ def test_xor_kernels_never_reach_the_plain_versions(dev, monkeypatch):
             monkeypatch.setattr(mod, name, boom)
     for stochastic in (False, True):
         rec, _, _, _ = _xor_step(dev, stochastic)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The XOR stochastic-adaptive kernels: the selection (B5x on the krng tree,
+# the XLA selection on the jax.random tree), the lanes' replay (B3xl) and its
+# kernel-mode reverse sweep (B4'xl)
+# ---------------------------------------------------------------------------
+
+XOR_ADAPTIVE_M = 2048
+
+
+def _xor_lane_keys(device, seed=11):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 2**32, (4, 2), generator=gen, dtype=torch.int64).to(device)
+
+
+def _xor_selection(d, tree):
+    words = _sde_key_words(_xor_lane_keys(d["y0"].device), tree).to(d["y0"].device)
+    cfg = select_config(d["task"].ts, max_steps=XOR_ADAPTIVE_M, brownian=tree, drift="f32")
+    return words, cfg
+
+
+@pytest.mark.parametrize("tree", ["jax", "kernel"])
+def test_xor_sde_select_and_attempts_equal_plain(xor, tree):
+    d = xor
+    words, cfg = _xor_selection(d, tree)
+    before = xs.LAUNCHES["xor_sde_select"]
+    got = xs.xor_sde_select(d["y0"], words, d["pf"], d["sc"], d["kv"], cfg)
+    want = xs._xor_select_plain(d["y0"], words, d["pf"], d["sc"], d["kv"], cfg)
+    torch.cuda.synchronize()
+    assert xs.LAUNCHES["xor_sde_select"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    st, na = got[0], got[1]
+    ht, dw, i10 = _replay_grid(st, words, cfg.t_start, cfg.t_end, 20, tree)
+    t0s, hs = ht[:, :-1].T.contiguous(), (ht[:, 1:] - ht[:, :-1]).T.contiguous()
+    n_real = 2 * int(na.max())
+    ys = xs._xor_replay_fwd_plain(d["y0"], t0s, hs, dw.T.contiguous(), i10.T.contiguous(), n_real,
+                                  d["pf"], d["sc"], d["kv"])
+    tree_w = ns.lane_noise(words, cfg.t_start, cfg.t_end, 20, tree)[0]
+    for k, stretch in ((0, 1.0), (n_real // 5, 2.5), (n_real // 2, 1.5), (n_real - 4, 4.0)):
+        t1 = t0s[k][:, None].contiguous()
+        h = (hs[k][:, None] * stretch + 1e-6).contiguous()
+        args = (t1, ys[k].contiguous(), h, torch.full_like(t1, 0.7),
+                tree_w.evaluate(t1).contiguous(), words, d["pf"], d["sc"], d["kv"], cfg)
+        a, a_p = xs.xor_sde_attempt(*args), xs._xor_attempt_plain(*args)
+        for g, w in zip(a, a_p):
+            assert torch.equal(g, w), k
+
+
+def test_xor_sde_replay_kernels_equal_plain(xor):
+    from columnflow_torch.solvers.fused import sweep_chunk
+
+    d = xor
+    words, cfg = _xor_selection(d, "jax")
+    st, na, _, _ = xs.xor_sde_select(d["y0"], words, d["pf"], d["sc"], d["kv"], cfg)
+    ht, dw, i10 = _replay_grid(st, words, cfg.t_start, cfg.t_end, 20, "jax")
+    t0s, hs = ht[:, :-1].T.contiguous(), (ht[:, 1:] - ht[:, :-1]).T.contiguous()
+    i1, i10 = dw.T.contiguous(), i10.T.contiguous()
+    n, n_real = t0s.shape[0], 2 * int(na.max())
+    before = dict(xs.LAUNCHES)
+    ys = xs.xor_sde_replay_fwd(d["y0"], t0s, hs, i1, i10, n_real, d["pf"], d["sc"], d["kv"])
+    ys_p = xs._xor_replay_fwd_plain(d["y0"], t0s, hs, i1, i10, n_real, d["pf"], d["sc"], d["kv"])
+    assert torch.isfinite(ys).all() and torch.equal(ys, ys_p)
+    assert torch.equal(ys[n_real + 1:], ys[n_real].expand_as(ys[n_real + 1:]))
+    ysbar = torch.randn(ys.shape, generator=d["gen"], device=ys.device)
+    chunk = sweep_chunk((4, 72), n)
+    yb, rows = xs.xor_sde_replay_bwd(ys, ysbar, t0s, hs, i10, n_real, chunk, d["pf"], d["sc"],
+                                     d["kv"])
+    yb_p, rows_p = xs._xor_replay_bwd_plain(ys, ysbar, t0s, hs, i10, n_real, chunk, d["pf"],
+                                            d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    assert xs.LAUNCHES["xor_sde_replay_fwd"] == before["xor_sde_replay_fwd"] + 1
+    assert xs.LAUNCHES["xor_sde_replay_bwd"] == before["xor_sde_replay_bwd"] + 1
+    assert torch.isfinite(yb).all() and torch.equal(yb, yb_p)
+    for k in rows:
+        assert torch.equal(rows[k], rows_p[k]), k
+
+
+def _xor_adaptive_step(device, fused_pass, params=None, grid=None):
+    from columnflow_torch.data import xor_conditions
+
+    task = _xor_task(device, params)
+    params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+    conds = torch.as_tensor(xor_conditions(), device=device)
+    step = xor_task.make_train_step(task, stochastic=True, adaptive=True, fused_pass=fused_pass)
+    rec = step(conds, grid=grid, keys=_xor_lane_keys(device))
+    return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}, params0
+
+
+@pytest.mark.parametrize("fused_pass", [False, True])
+def test_xor_adaptive_steps_on_cuda_match_cpu(dev, fused_pass):
+    counters = (xo.LAUNCHES, xs.LAUNCHES, no.LAUNCHES, ns.LAUNCHES, cs.LAUNCHES)
+    before = [dict(c) for c in counters]
+    rec, grads, params0 = _xor_adaptive_step(dev, fused_pass)
+    torch.cuda.synchronize()
+    launched = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
+    assert launched == {"xor_sde_select": 1, "xor_sde_replay_fwd": 1, "xor_sde_replay_bwd": 1}
+    assert bool(torch.isfinite(rec["loss"]))
+    stats = rec["stats"]
+    grid = tuple(x.cpu() for x in (stats.step_times, stats.naccept, stats.nreject))
+    rec_c, grads_c, _ = _xor_adaptive_step(torch.device("cpu"), fused_pass, params=params0,
+                                           grid=grid)
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        assert float((g - grads_c[k]).norm()) <= 1e-3 * float(grads_c[k].norm()) + 1e-30, k
+
+
+def test_xor_adaptive_kernels_never_reach_the_plain_versions(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_xor_select_plain", "_xor_attempt_plain", "_xor_replay_fwd_plain",
+                 "_xor_replay_bwd_plain"):
+        monkeypatch.setattr(xs, name, boom)
+    for fused_pass in (False, True):
+        rec, _, _ = _xor_adaptive_step(dev, fused_pass)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(rec["loss"]))
 
