@@ -5,9 +5,10 @@ deterministic fused-dopri5 parity step and its 104-column fused-split2
 tier, the XOR task's deterministic, stochastic and stochastic-adaptive
 steps, the Hopf task's step, the 13-column fixed-grid and adaptive stochastic parity steps,
 bench.py's 104-column stochastic-adaptive configuration, the 104-column
-fixed-grid stochastic parity step (outer mode), and the exact three-term
+fixed-grid stochastic parity step (outer mode), the exact three-term
 stochastic-adaptive step at 104 columns with the 32-column kernel-mode
-steps.
+steps, and the f32-exact deterministic engine past one block (32 columns in
+kernel mode, 104 in outer mode).
 
     python3 chip_smoke.py
 
@@ -31,27 +32,29 @@ WTA (T = 1500 grid points, 15 and 60 lanes):
 Parity (104 columns = 832 populations, state 2496, 4 lanes, 1000 grid
 points over 1 s, max_steps 16384, the flagship's flags):
 5. kernel vs plain: the selection's attempt entry on 64 states of a
-   full-horizon replay; the whole selection over 100 grid points; the
+   full-horizon replay; the whole selection over 25 grid points; the
    replay and its reverse sweep on 64-half-step windows early, in the middle
    and late in the full-horizon replay.
 6. main path: 1 training step through the kernels, the launch counters
    asserted per step; a step repeated on the CPU with the plain versions on
    the card's frozen grid and lane words: at 104 columns over 5 grid points
-   (every gradient) and 50 (the output weights), at 13 columns over 100.
-7. times: each kernel's device time at the main path's shapes, its bound
-   and ns per serial step, its plain version's time over 100 grid points,
-   the train step's wall time, and a profile of a step over 100 points.
+   (every gradient) and 25 (the output weights), at 13 columns over 100.
+7. times: each kernel's device time in the main path's step (CUDA events
+   around its call), its bound and ns per serial step, the kernel and its
+   plain version over 25 grid points, the train step's wall time, and a
+   profile of a step over 100 points.
 Deterministic parity (13 columns = 104 populations, state 312, batch 4 under
 one controller, 1000 grid points over 1 s, max_steps 3072 -> 3078, dopri5 at
 rtol 1e-7 / atol 1e-9: the reference network at its full width):
-8. kernel vs plain: the whole selection against its plain loop over the
-   common accepted prefix, single attempts from states along the replay, the
-   replay and its reverse sweep on 64-step windows early, in the middle and
-   late in the full replay.
+8. kernel vs plain: the whole selection against its plain loop over 100
+   grid points (its common accepted prefix), single attempts from states
+   along the replay, the replay and its reverse sweep on 64-step windows
+   early, in the middle and late in the full replay.
 9. main path: 5 training steps through the kernels, one launch of each per
-   step; the first step repeated on the CPU with the plain versions on the
-   card's frozen grid (loss, gradients and the gradients' own spread under a
-   1e-7 nudge of the weights).
+   step; the first step's weights over 100 grid points on the card and
+   again on the CPU with the plain versions on the card's frozen grid
+   (loss, gradients and the gradients' own spread under a 1e-7 nudge of
+   the weights).
 10. times: each kernel's device time, ns per accepted step, its bound, its
    plain version's time on the first 64 steps, the train step's wall time
    and a profile of it.
@@ -60,8 +63,8 @@ state 2496, batch 4 under one controller, 1000 grid points over 1 s,
 max_steps 16384, dopri5 at rtol 1e-7 / atol 1e-9; selection on the
 three-term split, values and gradients on the two-term one, the weight
 gradients outside the kernels):
-11. kernel vs plain: the whole selection over 100 grid points (0.1 s; the
-   full second needs ~1.3e4 attempts), single attempts from states along
+11. kernel vs plain: the whole selection over 25 grid points (the full
+   second needs ~1.3e4 attempts), single attempts from states along
    the replay, the replay and the emit-mode sweep on 64-step windows early,
    in the middle and late; 16 lanes through the selection and the replay.
 12. main path: 1 training step through make_train_step(task, split2=True),
@@ -70,8 +73,9 @@ gradients outside the kernels):
    (loss, gradients and the CPU's own spread under a 1e-7 nudge), and one
    at 13 columns over 50 points; the gradient's norm over 50 and 200
    points.
-14. times: each kernel, ns per serial step, its bound, its plain version on a
-   short window, the outer weight-gradient pass, the train step, and a
+14. times: each kernel and the outer weight-gradient pass in the main
+   path's step (CUDA events around each call), ns per serial step, its
+   bound, its plain version on a short window, the train step, and a
    profile of a step over 100 points.
 15. the command line: python -m columnflow_torch.tasks.parity
    --columns-per-area 64,32,8 --smoke --max-steps 4096 trains the tier on
@@ -181,7 +185,7 @@ kernel-mode steps at 32 columns (B4't-team):
    within the larger of 1e-5 and ten times its nudge spread, each gradient
    within the larger of 3e-2 and ten times its, a limit of at most 0.25);
    the step's profile over 100 points; each kernel and the outer pass
-   timed on the step's grid.
+   timed in the step (CUDA events around each call).
 39. --fused-pass and --grad-bf16 over 100 points: one step each, launches
    counted, card against CPU over 5 points; B5t's time.
 40. 32 columns over the full second: one --stochastic and one --stochastic
@@ -207,9 +211,37 @@ the lanes' replay (B3xl) and its kernel-mode sweep (B4'xl):
 45. times: each kernel's device time at full width, ns per serial step,
    its bound, its plain version's time; each step's time and profile.
 46. the two command lines (run with the others at the end).
+The f32-exact deterministic engine past one block (the parity command line
+with no engine flag from 18 through 103 columns, --engine fused from 104
+through 312; batch 4 under one controller, 1000 grid points over 1 s,
+max_steps 16384, dopri5 at rtol 1e-7 / atol 1e-9; run after phase 41):
+47. kernel vs plain: the selection at 32 columns against its plain loop
+   over 50 grid points (its common accepted prefix); bit for bit, B7t-team
+   at 24, 32 and 104 columns on 64-step (104: 16-step) windows early, in
+   the middle and late of the kernel's own full replay, and on an 8-step
+   window at 312 columns; B8t-team at 18, 32 and 63 columns the same way;
+   B8't at 104. The 104-column grid is the split2 phase's (both tiers
+   select on the three-term drift).
+48. main path: one full step at 32 columns (kernel mode: one launch each of
+   the selection, B7t-team and B8t-team) and one at 104 on the split2
+   phase's frozen grid (outer mode: one launch each of B7t-team and B8't,
+   then the outer pass); each kernel's device time from CUDA events around
+   its call in that step.
+49. card vs CPU on the card's grid, over 50 grid points at 32 columns and
+   5 at 104: the loss within the larger of 1e-5 and ten times its nudge
+   spread, each gradient within the larger of 1e-3 and ten times the
+   card's own spread under a 1e-7 nudge, a limit of at most 0.25 (as phase
+   38). Over 5 points at 32 columns the network has barely answered the
+   stimulus and a 1e-7 nudge moves the lateral gradient by ~9%.
+50. times: each kernel's bound and ns per accepted step, the plain
+   versions on a middle window, both steps' profiles over 100 points.
+51. the two command lines (--columns-per-area 16,8,8 and --engine fused
+   --columns-per-area 64,32,8 --max-steps 16384, with --smoke), each step's
+   selection reaching the last grid point.
 Then every path's command lines at once (each in its own process; they
-are latency-bound and share the card), the kernels line (every kernel of
-the eleven paths), the card's name and power limit, and the result line.
+are latency-bound and share the card; each run's selection counts per
+step are recorded beside its last line), the kernels line (every kernel of
+the twelve paths), the card's name and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
 fails.
@@ -243,6 +275,13 @@ SHORT_T = 100       # grid points of the CPU step check and the plain versions' 
 FULL_STEPS = 1
 GRAD_T = 5          # grid points (5 ms) of the CPU step check holding every gradient
 OUT_T = 50          # grid points of the 104-column CPU step check holding the output weights
+# The flagship's output-weight check over 25 points (over 50 its two CPU
+# steps took ~40 s; cut in depth to keep the script under its time limit).
+FLAGSHIP_OUT_T = 25
+# The flagship's whole selection against its plain loop, and its kernels and
+# plain versions timed on a short horizon, over 25 points (over SHORT_T the
+# plain versions took ~30 s; cut in depth to keep the script under its limit).
+FLAGSHIP_SEL_T = 25
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 SDE_SOURCE = "columnflow_torch/kernels/csrc/network_sde.cu"
 # The flagship's step settings; its solver flags (--stochastic --adaptive
@@ -272,7 +311,9 @@ S2_T = 1000
 S2_B = 4
 S2_MAX_STEPS = 16384
 S2_GRAD_T = 5       # grid points (5 ms) of the card-vs-CPU step
-S2_SEL_T = 100      # grid points (0.1 s) of the whole selection held against its plain loop
+S2_SEL_T = 25       # grid points of the whole selection held against its plain loop (over
+                    # 100 the plain loop took 12 s; cut in depth for the time limit)
+S2_PROFILE_T = 100  # grid points of the profiled step
 S2_PLAIN_W = 16     # steps of the window on which the plain replay and sweep are timed
 
 
@@ -302,11 +343,13 @@ def check(ok, what):
 COMMAND_LINES = []
 
 
-def defer_command_line(phase, task, argv, timeout=600, finite=False):
+def defer_command_line(phase, task, argv, timeout=600, finite=False, reach=False):
     """``python -m columnflow_torch.tasks.<task>`` with argv, to be run by
     ``run_command_lines`` and reported under ``phase``; it must exit 0 with
-    its "final loss" line (with ``finite``, every number there finite)."""
-    COMMAND_LINES.append((phase, task, list(argv), timeout, finite))
+    its "final loss" line (with ``finite``, every number there finite; with
+    ``reach``, every step's selection reached the last grid point: its
+    "step" lines all say success True)."""
+    COMMAND_LINES.append((phase, task, list(argv), timeout, finite, reach))
 
 
 def run_command_lines():
@@ -321,12 +364,13 @@ def run_command_lines():
     env = dict(os.environ, OMP_NUM_THREADS=str(threads))
     runs = []
     try:
-        for phase, task, argv, timeout, finite in COMMAND_LINES:
+        for phase, task, argv, timeout, finite, reach in COMMAND_LINES:
             out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
             proc = subprocess.Popen([sys.executable, "-m", f"columnflow_torch.tasks.{task}", *argv],
                                     stdout=out, stderr=err, text=True, cwd=root, env=env)
             runs.append(dict(phase=phase, task=task, argv=argv, timeout=timeout, finite=finite,
-                             out=out, err=err, proc=proc, t0=time.perf_counter(), seconds=None))
+                             reach=reach, out=out, err=err, proc=proc, t0=time.perf_counter(),
+                             seconds=None))
         while any(r["seconds"] is None for r in runs):
             for r in runs:
                 if r["seconds"] is not None:
@@ -348,10 +392,14 @@ def run_command_lines():
                 nums = [float(x) for x in last.replace("|", " ").split() if x[:1].isdigit()
                         or x[:1] == "-" or x in ("nan", "inf")]
                 ok = all(x == x and abs(x) != float("inf") for x in nums)
+            steps = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
+            if ok and r["reach"]:
+                ok = bool(steps) and all(ln.endswith("success True") for ln in steps)
             check(ok, f"{r['task']} {' '.join(r['argv'])}: rc {r['proc'].returncode}\n"
                       f"{stdout[-2000:]}\n{stderr[-4000:]}")
             by_phase.setdefault(r["phase"], []).append(
-                {"argv": " ".join(r["argv"]), "seconds": r["seconds"], "result": last})
+                {"argv": " ".join(r["argv"]), "seconds": r["seconds"], "result": last,
+                 "selection": steps})
         for phase, lines in by_phase.items():
             emit(phase, concurrent_runs=len(runs), runs=lines)
     finally:
@@ -359,6 +407,30 @@ def run_command_lines():
             if r["proc"].poll() is None:
                 r["proc"].kill()
                 r["proc"].wait()
+
+
+def event_timed(module, names, log):
+    """Replace ``module.<name>`` for each name by a wrapper that records a
+    CUDA event pair around every call into ``log`` (name, start, end), so a
+    train step yields each kernel's device time without a second run;
+    returns the function that puts the originals back."""
+    import torch
+
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed_call(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            log.append((name, start, end))
+            return out
+        return timed_call
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in saved.items()]
 
 
 def cuda_ms(fn, reps, warmup=1, device_time=False):
@@ -644,7 +716,7 @@ def wta_phases(dev, cfg):
     for B, d in data.items():
         for kname, (kern, plain) in kernels.items():
             times[(kname, B)] = [cuda_ms(lambda: kern(d), reps=20, warmup=3, device_time=True),
-                                 cuda_ms(lambda: plain(d), reps=2, warmup=1), None]
+                                 cuda_ms(lambda: plain(d), reps=1, warmup=0), None]
         # The reverse sweep alone (the wrapper also launches the reduction),
         # and the reduction alone on this width's partials.
         hh, sc, w, consts, g, stim_tb, i10, ys_k, ysbar_k, cin = d["bwd"]
@@ -783,6 +855,7 @@ def parity_phases(dev, cfg):
     from columnflow_torch.data import make_parity_batch
     from columnflow_torch.kernels import network_sde as ns
     from columnflow_torch.models.network import premix_select16, prepare_premixed_split2
+    from columnflow_torch.solvers import fused
     from columnflow_torch.solvers import sde_adaptive as sa
     from columnflow_torch.solvers.fused import truncation_stride
     from columnflow_torch.tasks import parity
@@ -855,8 +928,8 @@ def parity_phases(dev, cfg):
           f"sde_attempt: accept equal {same}, err rel {e_err}, h_next rel {e_hn}")
     n_acc = int(att.accept.sum())
 
-    # The whole selection over SHORT_T grid points, kernel and plain loop.
-    task_s = make_task(SHORT_T, params=task.params)
+    # The whole selection over FLAGSHIP_SEL_T grid points, kernel and plain loop.
+    task_s = make_task(FLAGSHIP_SEL_T, params=task.params)
     model_s, w2_s, w16_s, words_s, scfg_s = kernel_inputs(task_s, stims, keys)
     st_k, na_k, nr_k, ok_k = ns.select_pass(y0, words_s, w16_s, model_s.sc, model_s.kv, scfg_s)
     torch.cuda.synchronize()
@@ -874,7 +947,7 @@ def parity_phases(dev, cfg):
     d_st = torch.where(idx <= common, (st_k - st_p).abs(), 0.0)
     part = [int(torch.nonzero(r).min()) if bool(r.any()) else None for r in d_st > 0]
     check(bool(ok_k.all()) and bool(ok_p.all()) and e_t10 < 1e-6 and e_na < 0.1,
-          f"sde_select over {SHORT_T} points: success {ok_k.tolist()} {ok_p.tolist()}, "
+          f"sde_select over {FLAGSHIP_SEL_T} points: success {ok_k.tolist()} {ok_p.tolist()}, "
           f"first 10 times rel {e_t10}, naccept {na_k.tolist()} vs {na_p.tolist()}")
 
     # The replay and its reverse sweep on one truncation window (64 half
@@ -904,7 +977,7 @@ def parity_phases(dev, cfg):
          naccept=na.tolist(), nreject=nr.tolist(), n_real=n_real,
          attempt={"records": N, "accepted": n_acc, "err_rel": e_err, "err_tol": 1e-5,
                   "h_next_rel": e_hn, "h_next_tol": 1e-6, "accept_equal": same},
-         selection={"T": SHORT_T, "naccept": na_k.tolist(), "naccept_plain": na_p.tolist(),
+         selection={"T": FLAGSHIP_SEL_T, "naccept": na_k.tolist(), "naccept_plain": na_p.tolist(),
                     "nreject": nr_k.tolist(), "nreject_plain": nr_p.tolist(),
                     "first10_rel": e_t10, "first10_tol": 1e-6, "naccept_rel": e_na,
                     "naccept_tol": 0.1, "common_prefix_max_abs": float(d_st.max()),
@@ -913,21 +986,30 @@ def parity_phases(dev, cfg):
          windows=windows, tol={"fwd_scaled": 1e-4, "seeds_rel_l2": 1e-4, "carry_rel_l2": 1e-4},
          max_abs_err=errs)
 
-    # -- 6. the main path: FULL_STEPS training steps at full width ---------------
+    # -- 6. the main path: FULL_STEPS training steps at full width (its first
+    # step's kernels timed with CUDA events around each call) ---------------------
     step = parity.make_train_step(task, **FLAGSHIP)
     masks = {k: v.bool() for k, v in task.grad_mask.items()}
     params_first = {k: p.detach().cpu().clone() for k, p in task.params.items()}
     for k in ns.LAUNCHES:
         ns.LAUNCHES[k] = 0
-    history, step_s = [], []
+    history, step_s, log = [], [], []
     for i in range(FULL_STEPS):
         stims_i, keys_i = make_parity_batch(gen, n_in, B, device=dev), lane_words(B)
         before = dict(ns.LAUNCHES)
+        restore = ([event_timed(sa, ("select_pass",), log),
+                    event_timed(fused, ("replay_fwd", "replay_bwd"), log)] if i == 0 else [])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rec = step(stims_i, keys_i)
-        torch.cuda.synchronize()
+        try:
+            rec = step(stims_i, keys_i)
+            torch.cuda.synchronize()
+        finally:
+            for r in restore:
+                r()
         step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            first_stats = rec["stats"]
         launched = {k: ns.LAUNCHES[k] - before[k] for k in ns.LAUNCHES}
         check(launched == {**dict.fromkeys(ns.LAUNCHES, 0), "sde_select": 1,
                            "sde_replay_fwd": 1, "sde_replay_bwd": 1},
@@ -948,7 +1030,7 @@ def parity_phases(dev, cfg):
     # compared as computed). Over GRAD_T grid points
     # (5 ms) every gradient is held at 104 columns, so the reverse sweep and
     # the weight-gradient contraction at P = 832 are compared through the
-    # step. Over OUT_T points the solver's weight gradients are
+    # step. Over FLAGSHIP_OUT_T points the solver's weight gradients are
     # ill-conditioned at 104 columns: the CPU's own gradient moves by O(1)
     # when the weights move by one part in 1e7 ("spread"), so the loss and
     # the output-weight gradient are held there; at 13 columns over SHORT_T
@@ -968,7 +1050,7 @@ def parity_phases(dev, cfg):
     cpu = torch.device("cpu")
     cpu_check = {}
     for cpa, T_check, held_keys in ((PARITY_CPA, GRAD_T, None),
-                                    (PARITY_CPA, OUT_T, ("output_weights",)),
+                                    (PARITY_CPA, FLAGSHIP_OUT_T, ("output_weights",)),
                                     ((8, 4, 1), SHORT_T, None)):
         src = make_task(T_check, cpa=cpa).params if cpa != PARITY_CPA else params_first
         params0 = {k: p.detach().cpu().clone() for k, p in src.items()}
@@ -995,38 +1077,41 @@ def parity_phases(dev, cfg):
          cpu_check={"tol": {"loss": 1e-4, "grad": 1e-3}, **cpu_check})
 
     # -- 7. times -----------------------------------------------------------
-    ysbar = torch.randn(2 * PARITY_MAX_STEPS, B, S, generator=gen, device=dev)
+    # Each kernel's time on the main path: its CUDA events in the first step.
+    main_ms = {}
+    for name, start, end in log:
+        main_ms[name] = main_ms.get(name, 0.0) + start.elapsed_time(end)
     grid_s = replay_inputs(st_k, words_s, scfg_s)
     n_real_s = 2 * int(na_k.max())
     ys_s = ns.replay_fwd(y0, *grid_s, n_real_s, w2_s, model_s.sc, model_s.kv)
-    ysbar_s = ysbar[:ys_s.shape[0] - 1]
+    ysbar_s = torch.randn(ys_s.shape[0] - 1, B, S, generator=gen, device=dev)
     stride = truncation_stride((B, S), 2 * PARITY_MAX_STEPS, 2 * FLAGSHIP["bptt_every"])
-    calls = {  # (main path shapes, SHORT_T shapes, SHORT_T plain version)
+    calls = {  # (the main path's call, FLAGSHIP_SEL_T shapes, the plain version there)
         "sde_select": (
-            lambda: ns.select_pass(y0, words, w16, model.sc, model.kv, scfg),
+            "select_pass",
             lambda: ns.select_pass(y0, words_s, w16_s, model_s.sc, model_s.kv, scfg_s), None),
         "sde_replay_fwd": (
-            lambda: ns.replay_fwd(y0, *grid, n_real, w2, model.sc, model.kv),
+            "replay_fwd",
             lambda: ns.replay_fwd(y0, *grid_s, n_real_s, w2_s, model_s.sc, model_s.kv),
             lambda: ns._replay_fwd_plain(y0, *grid_s, n_real_s, w2_s, model_s.sc,
                                          model_s.kv)),
         "sde_replay_bwd": (
-            lambda: ns.replay_bwd(ys[:-1], ysbar, grid[0], grid[1], grid[3], n_real, stride,
-                                  w2, model.sc, model.kv),
+            "replay_bwd",
             lambda: ns.replay_bwd(ys_s[:-1], ysbar_s, grid_s[0], grid_s[1], grid_s[3],
                                   n_real_s, stride, w2_s, model_s.sc, model_s.kv),
             lambda: ns._replay_bwd_plain(ys_s[:-1], ysbar_s, grid_s[0], grid_s[1], grid_s[3],
                                          n_real_s, stride, w2_s, model_s.sc, model_s.kv)),
     }
     times = {}
-    for name, (full, short, plain) in calls.items():
-        times[name] = {"ms": cuda_ms(full, reps=1, warmup=0),
-                       "ms_short": cuda_ms(short, reps=3, warmup=1)}
+    for name, (main_call, short, plain) in calls.items():
+        times[name] = {"ms": main_ms[main_call], "ms_short": cuda_ms(short, reps=3, warmup=1)}
         if plain is not None:
             plain_ms[name] = cuda_ms(plain, reps=1, warmup=0)
-    attempts, half_steps = int((na + nr).sum()), int(2 * na.sum())
-    serial = {"sde_select": int((na + nr).max()), "sde_replay_fwd": n_real,
-              "sde_replay_bwd": n_real}
+    na_m, nr_m = first_stats.naccept, first_stats.nreject
+    n_real_m = 2 * int(na_m.max())
+    attempts, half_steps = int((na_m + nr_m).sum()), int(2 * na_m.sum())
+    serial = {"sde_select": int((na_m + nr_m).max()), "sde_replay_fwd": n_real_m,
+              "sde_replay_bwd": n_real_m}
     work = {"sde_select": attempts, "sde_replay_fwd": half_steps, "sde_replay_bwd": half_steps}
     bounds = {name: sde_bound(name, P, B, n_in, K, work[name], n=2 * PARITY_MAX_STEPS,
                               M=PARITY_MAX_STEPS) for name in calls}
@@ -1059,25 +1144,41 @@ def parity_phases(dev, cfg):
              "launches": main_launches[name], "max_abs_err": errs[name],
              "ms": times[name]["ms"], "plain_ms": plain_ms[name],
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
-             "lanes": B, "plain_ms_at": f"{SHORT_T} grid points (ms_short: the kernel there)",
+             "lanes": B,
+             "plain_ms_at": f"{FLAGSHIP_SEL_T} grid points (ms_short: the kernel there)",
              "ms_short": times[name]["ms_short"],
              "ns_per_serial_step": times[name]["ms"] * 1e6 / serial[name]}
             for name in calls]
 
 
 def ode_bound(kernel, P, B, n_in, K, work, M=0):
-    """(bound_ms, bound_by) of a dopri5 kernel. ``work`` is what this run's
-    data needed: the controller attempts (selection) or the accepted steps
-    (replay). A drift evaluation of the batch is six bf16 (B, P) x (P, P)
-    products (2 B P^2 operations each, at the bf16 tensor rate) and its
-    elementwise float32 work; a drift VJP three transposed products and
-    three (P, B) x (B, P) weight-cotangent products. Bytes: each input read
-    once, each output written once; the float32 weights count once."""
+    """(bound_ms, bound_by) of a dopri5 kernel of the f32-exact engine.
+    ``work`` is what this run's data needed: the controller attempts
+    (selection) or the accepted steps (replay, sweeps, outer pass). A drift
+    evaluation of the batch is six bf16 (B, P) x (P, P) products (2 B P^2
+    operations each, at the bf16 tensor rate) and its elementwise float32
+    work; a drift VJP three transposed products and three (P, B) x (B, P)
+    weight-cotangent products (the emit-mode sweep the transposed ones
+    only, the outer pass the weight-side ones of every step again after a
+    recomputed drift). Bytes: each input read once, each output written
+    once; the float32 weights count once. The teams (B7t-team, B8t-team)
+    compute the functions of B7 and B8."""
+    kernel = {"ode_replay_fwd_team": "ode_replay_fwd",
+              "ode_replay_bwd_team": "ode_replay_bwd"}.get(kernel, kernel)
     S, N = 3 * P, 3 * P * B
     prod = 2 * B * P * P
     drift_f32 = B * (40 * P + 8 * S)      # rates, three-term split, stimulus, tail
+    vjp_f32 = B * (30 * P + 10 * S)
     consts = 4 * (P * P + n_in * P + 2 * P + K * B * n_in)
-    if kernel == "ode_select":
+    if kernel == "ode_replay_bwd_emit_split3":  # 6 drifts, 7 state VJPs, the step cotangents out
+        flops16 = work * (6 * 6 * prod + 7 * 3 * prod)
+        flops32 = work * (6 * drift_f32 + 7 * vjp_f32 + (3 * 21 + 3 * 21 + 40) * N)
+        nbytes = consts + 4 * (work + 1) + 4 * work * N * 7 + 4 * N
+    elif kernel == "ode_outer_split3":  # per step 7 drifts, 7 state VJPs, 7 weight cotangents
+        flops16 = work * 7 * (6 + 3 + 3) * prod
+        flops32 = work * (7 * (drift_f32 + vjp_f32 + 12 * P * P) + 3 * P * P)
+        nbytes = consts + 4 * (P * P + n_in * P) + 4 * (work + 1) + 4 * work * N * 7
+    elif kernel == "ode_select":
         # 6 drifts, the stage sums (21 weighted terms) and the error norm
         flops16 = work * 6 * 6 * prod
         flops32 = work * (6 * drift_f32 + (3 * 21 + 3 * 6 + 8) * N)
@@ -1110,9 +1211,9 @@ def ode_phases(dev, cfg):
 
     gen = torch.Generator(device=dev).manual_seed(2)
 
-    def make_task(device=dev, params=None):
+    def make_task(device=dev, params=None, time_steps=ODE_T):
         task = parity.build_task(cfg, torch.Generator(device=device).manual_seed(0),
-                                 columns_per_area=ODE_CPA, n_inputs=4, time_steps=ODE_T,
+                                 columns_per_area=ODE_CPA, n_inputs=4, time_steps=time_steps,
                                  max_steps=ODE_MAX_STEPS, device=device)
         if params is not None:
             with torch.no_grad():
@@ -1139,20 +1240,28 @@ def ode_phases(dev, cfg):
     scfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]), max_steps=M)
     y0 = torch.zeros(B, S, device=dev)
     st, stats = no.ode_select(y0, pw, sc, kv, scfg)
+    na, nr, ok = (int(x) for x in stats)
+    check(ok == 1 and M == 3078, f"ode_select: stats {stats.tolist()}, max_steps {M}")
+    # The whole selection against its plain loop over the first SHORT_T grid
+    # points (the full second's plain loop took 30 s on the card: cut in depth
+    # to keep the script under its time limit; the kernel is timed over the
+    # whole second).
+    cfg_s = scfg._replace(t_end=float(task.ts[SHORT_T - 1]))
+    st_k, stats_k = no.ode_select(y0, pw, sc, kv, cfg_s)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st_p, stats_p = no._ode_select_plain(y0, w3, sc, kv, scfg)
+    st_p, stats_p = no._ode_select_plain(y0, w3, sc, kv, cfg_s)
     torch.cuda.synchronize()
     plain_ms = {"ode_select": (time.perf_counter() - t0) * 1e3}
-    na, nr, ok = (int(x) for x in stats)
+    na_k, nr_k, ok_k = (int(x) for x in stats_k)
     na_p, nr_p, ok_p = (int(x) for x in stats_p)
-    common = min(na, na_p)
-    d_st = (st[:common + 1] - st_p[:common + 1]).abs()
+    common = min(na_k, na_p)
+    d_st = (st_k[:common + 1] - st_p[:common + 1]).abs()
     parted = int(torch.nonzero(d_st).min()) if bool((d_st > 0).any()) else None
-    check(ok == 1 and ok_p == 1 and M == 3078 and abs(na - na_p) <= 0.1 * na_p
-          and max_abs(st[:11], st_p[:11]) == 0.0,
-          f"ode_select: stats {stats.tolist()} vs plain {stats_p.tolist()}, max_steps {M}, "
-          f"first parted index {parted}")
+    check(ok_k == 1 and ok_p == 1 and abs(na_k - na_p) <= 0.1 * na_p
+          and max_abs(st_k[:11], st_p[:11]) == 0.0,
+          f"ode_select over {SHORT_T} points: stats {stats_k.tolist()} vs plain "
+          f"{stats_p.tolist()}, first parted index {parted}")
     n = na
     stn = st[:n + 1].contiguous()
     ys, coeffs = no.ode_replay_fwd(y0, stn, pw, sc, kv)
@@ -1205,9 +1314,12 @@ def ode_phases(dev, cfg):
                                      max_abs(dw, dw_p), max_abs(diw, diw_p))
         windows.append({"start": k0, **e})
     emit("ode_kernel_vs_plain", columns=sum(ODE_CPA), P=P, lanes=B, T=ODE_T, max_steps=M,
-         selection={"stats": [na, nr, ok], "stats_plain": [na_p, nr_p, ok_p],
+         selection={"stats": [na, nr, ok], "T": SHORT_T, "stats_at_T": [na_k, nr_k, ok_k],
+                    "stats_plain_at_T": [na_p, nr_p, ok_p],
+                    "equal": bool(torch.equal(st_k, st_p)
+                                  and stats_k.tolist() == stats_p.tolist()),
                     "common_prefix_max_abs": float(d_st.max()), "first_parted_index": parted,
-                    "first10_max_abs": max_abs(st[:11], st_p[:11])},
+                    "first10_max_abs": max_abs(st_k[:11], st_p[:11])},
          attempt={"records": 16, **att, "ratio_tol": 1e-5, "h_next_tol": 1e-6},
          windows=windows, tol={"ys_scaled": 1e-6, "rel_l2": 1e-5}, max_abs_err=errs)
 
@@ -1217,7 +1329,7 @@ def ode_phases(dev, cfg):
     params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
     for k in no.LAUNCHES:
         no.LAUNCHES[k] = 0
-    history, step_s, first = [], [], None
+    history, step_s = [], []
     for i in range(5):
         stims_i = stims if i == 0 else make_parity_batch(gen, n_in, B, device=dev)
         before = dict(no.LAUNCHES)
@@ -1235,24 +1347,27 @@ def ode_phases(dev, cfg):
         for k, p in task.params.items():
             check(bool(torch.isfinite(p.grad).all()) and bool((p.grad[~masks[k]] == 0).all()),
                   f"ode step {i}: {k} gradient not finite or off its mask")
-        if i == 0:
-            first = (rec, {k: p.grad.detach().cpu().clone() for k, p in task.params.items()})
         history.append({"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
                         "update_applied": bool(rec["ok"]), "naccept": int(sk.naccept),
                         "nreject": int(sk.nreject), "seconds": step_s[-1]})
     main_launches = dict(no.LAUNCHES)
 
-    # The first step again on the CPU with the plain versions on the card's
-    # frozen grid; then once more with every solver weight nudged by one part
-    # in 1e7, which shows how far the gradient itself is determined: the
-    # reverse sweep rounds every transposed product to bf16 (the rounding
-    # points of jax.vjp through the three-term split), so a last-bit change
-    # of an input flips roundings 2^-9 apart.
-    rec_k, grad_k = first
+    # The first step's weights again over SHORT_T grid points on the card and
+    # on the CPU with the plain versions on the card's frozen grid (the full
+    # second took 36 s of CPU for the two steps: cut in depth to keep the
+    # script under its time limit); then the CPU once more with every
+    # solver weight nudged by one part in 1e7, which shows how far the
+    # gradient itself is determined: the reverse sweep rounds every
+    # transposed product to bf16 (the rounding points of jax.vjp through the
+    # three-term split), so a last-bit change of an input flips roundings
+    # 2^-9 apart.
+    t_s = make_task(params=params0, time_steps=SHORT_T)
+    rec_k = parity.make_train_step(t_s)(stims)
+    grad_k = {k: p.grad.detach().cpu().clone() for k, p in t_s.params.items()}
     grid_k = (rec_k["stats"].step_times.cpu(), int(rec_k["stats"].naccept))
 
     def cpu_step(params):
-        t = make_task(device="cpu", params=params)
+        t = make_task(device="cpu", params=params, time_steps=SHORT_T)
         t0 = time.perf_counter()
         rec = parity.make_train_step(t)(stims.cpu(), grid=grid_k)
         return rec, {k: p.grad.detach().clone() for k, p in t.params.items()}, \
@@ -1264,8 +1379,8 @@ def ode_phases(dev, cfg):
     loss_rel = abs(float(rec_k["loss"]) - float(rec_c["loss"])) / abs(float(rec_c["loss"]))
     grad_rel = {k: rel_l2(grad_k[k], grad_c[k]) for k in grad_k}
     spread = {k: rel_l2(grad_n[k], grad_c[k]) for k in grad_k}
-    cpu_check = {"naccept": grid_k[1], "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
-                 "spread_under_1e-7_nudge": spread, "cpu_seconds": cpu_s,
+    cpu_check = {"T": SHORT_T, "naccept": grid_k[1], "loss_rel": loss_rel,
+                 "grad_rel_l2": grad_rel, "spread_under_1e-7_nudge": spread, "cpu_seconds": cpu_s,
                  "tol": {"loss": ODE_LOSS_TOL, "grad": ODE_GRAD_TOL}}
     check(loss_rel < ODE_LOSS_TOL and max(grad_rel.values()) < ODE_GRAD_TOL,
           f"card vs CPU deterministic step: {cpu_check}")
@@ -1320,7 +1435,8 @@ def ode_phases(dev, cfg):
              "path": f"deterministic f32-exact, {sum(ODE_CPA)} columns",
              "ns_per_serial_step": times[name] * 1e6 / serial[name],
              **({"plain_ms_at": f"{W} steps (ms_window: the kernel there)",
-                 "ms_window": window_ms[name]} if name in window_ms else {})}
+                 "ms_window": window_ms[name]} if name in window_ms
+                else {"plain_ms_at": f"the whole selection over {SHORT_T} grid points"})}
             for name in calls]
 
 
@@ -1359,15 +1475,17 @@ def split2_bound(kernel, P, B, n_in, K, work, M=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def split2_phases(dev, cfg):
+def split2_phases(dev, cfg, frozen):
     """Phases 11-15 for the 104-column deterministic split2 tier; returns
-    its kernels' entries of the kernels line."""
+    its kernels' entries of the kernels line, and leaves its frozen
+    104-column grid, batch and weights in ``frozen``."""
     import torch
 
     from columnflow_torch.data import make_parity_batch
     from columnflow_torch.kernels import network_ode as no
     from columnflow_torch.models.network import prepare_premixed_split, prepare_premixed_split2
-    from columnflow_torch.solvers.fused import ode_outer_arg_grads, round_max_steps
+    from columnflow_torch.solvers import fused
+    from columnflow_torch.solvers.fused import round_max_steps
     from columnflow_torch.tasks import parity
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1408,6 +1526,10 @@ def split2_phases(dev, cfg):
     st, stats = no.ode_select(y0, pw, sc, kv, scfg)
     na, nr, ok = (int(x) for x in stats)
     check(ok == 1 and M == S2_MAX_STEPS, f"ode_select (split2 tier): stats {stats.tolist()}")
+    # Both tiers select on the three-term drift: the exact engine's phases
+    # replay this grid at 104 columns (the same weights and batch).
+    frozen.update(step_times=st, naccept=na, stims=stims,
+                  params={k: p.detach().clone() for k, p in task.params.items()})
     # The whole selection against its plain loop over the first S2_SEL_T grid
     # points: the plain loop launches a few hundred PyTorch kernels per
     # attempt, and the full second takes ~1.3e4 attempts.
@@ -1508,7 +1630,8 @@ def split2_phases(dev, cfg):
          attempt={"records": 16, **att, "ratio_tol": 1e-5, "h_next_tol": 1e-6},
          windows=windows, tol={"ys_scaled": 1e-6, "rel_l2": 1e-5}, max_abs_err=errs)
 
-    # -- 12. the main path: FULL_STEPS training steps at full width -------------
+    # -- 12. the main path: FULL_STEPS training steps at full width (its first
+    # step's kernels and outer pass timed with CUDA events around each call) ---
     step = parity.make_train_step(task, split2=True)
     masks = {k: v.bool() for k, v in task.grad_mask.items()}
     params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
@@ -1516,15 +1639,20 @@ def split2_phases(dev, cfg):
     want.update(ode_select=1, ode_replay_fwd_split2=1, ode_replay_bwd_emit=1)
     for k in no.LAUNCHES:
         no.LAUNCHES[k] = 0
-    history, step_s = [], []
+    history, step_s, log = [], [], []
     for i in range(FULL_STEPS):
         stims_i = stims if i == 0 else make_parity_batch(gen, n_in, B, device=dev)
         before = dict(no.LAUNCHES)
         prev = {k: p.detach().clone() for k, p in task.params.items()}
+        restore = event_timed(fused, ("ode_select", "ode_replay_fwd_split2", "ode_replay_bwd_emit",
+                                      "ode_outer_arg_grads"), log if i == 0 else [])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rec = step(stims_i)
-        torch.cuda.synchronize()
+        try:
+            rec = step(stims_i)
+            torch.cuda.synchronize()
+        finally:
+            restore()
         step_s.append(time.perf_counter() - t0)
         launched = {k: no.LAUNCHES[k] - before[k] for k in no.LAUNCHES}
         sk = rec["stats"]
@@ -1605,30 +1733,32 @@ def split2_phases(dev, cfg):
                                f"{S2_T}_points": {"grad_norm": history[0]["grad_norm"],
                                                   "grads_finite": history[0]["grads_finite"]}})
 
-    # -- 14. times -----------------------------------------------------------
-    cobar = torch.randn(n, 5, B, S, generator=gen, device=dev)
-    _, ybar_steps = no.ode_replay_bwd_emit(ys, cobar, stn, w2, sc, kv)
+    # -- 14. times: each kernel's CUDA events in the main path's first step
+    # (the same grid: that step's batch and weights are this phase's); the
+    # plain versions on a Wp-step window -------------------------------------
+    main_ms = {}
+    for name, start, end in log:
+        main_ms[name] = main_ms.get(name, 0.0) + start.elapsed_time(end)
     Wp = S2_PLAIN_W
-    stw, ysw, cobw = st[:Wp + 1].contiguous(), ys[:Wp].contiguous(), cobar[:Wp].contiguous()
-    calls = {  # (main path shapes, the Wp-step window, the plain version on it)
-        "ode_select": (lambda: no.ode_select(y0, pw, sc, kv, scfg), None, None),
+    cobw = torch.randn(Wp, 5, B, S, generator=gen, device=dev)
+    stw, ysw = st[:Wp + 1].contiguous(), ys[:Wp].contiguous()
+    calls = {  # (the Wp-step window, the plain version on it)
+        "ode_select": (None, None),
         "ode_replay_fwd_split2": (
-            lambda: no.ode_replay_fwd_split2(y0, stn, w2, sc, kv),
             lambda: no.ode_replay_fwd_split2(y0, stw, w2, sc, kv),
             lambda: no._ode_replay_fwd_plain(y0, stw, w2, sc, kv)),
         "ode_replay_bwd_emit": (
-            lambda: no.ode_replay_bwd_emit(ys, cobar, stn, w2, sc, kv),
             lambda: no.ode_replay_bwd_emit(ysw, cobw, stw, w2, sc, kv),
             lambda: no._ode_replay_bwd_emit_plain(ysw, cobw, stw, w2, sc, kv)),
     }
     times, window_ms = {}, {}
-    for name, (full, short, plain) in calls.items():  # warm from the main path
-        times[name] = cuda_ms(full, reps=1, warmup=0)
+    for name, (short, plain) in calls.items():  # warm from the main path
+        times[name] = main_ms[name]
         if plain is not None:
             window_ms[name] = cuda_ms(short, reps=2, warmup=1)
             plain_ms[name] = cuda_ms(plain, reps=1, warmup=0)
-    outer_ms = cuda_ms(lambda: ode_outer_arg_grads(ys, ybar_steps, cobar, stn, pw, sc, kv),
-                       reps=1, warmup=0)
+    outer_ms = main_ms["ode_outer_arg_grads"]
+    n, na, nr = history[0]["naccept"], history[0]["naccept"], history[0]["nreject"]
     serial = {"ode_select": na + nr, "ode_replay_fwd_split2": n, "ode_replay_bwd_emit": n}
     bounds = {name: split2_bound(name, P, B, n_in, K, serial[name], M=M) for name in calls}
     outer_bound = split2_bound("outer", P, B, n_in, K, n)
@@ -1643,11 +1773,11 @@ def split2_phases(dev, cfg):
     emit("split2_train_step", ms_per_step=step_ms, samples_per_s=B * 1e3 / step_ms,
          step_seconds=step_s)
     short_ms, wall, by_kernel = short_profile(
-        parity.make_train_step(make_task(time_steps=S2_SEL_T), split2=True),
+        parity.make_train_step(make_task(time_steps=S2_PROFILE_T), split2=True),
         (make_parity_batch(gen, n_in, B, device=dev),))
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    emit("split2_step_profile", lanes=B, T=S2_SEL_T, profiled_wall_ms_per_step=wall,
+    emit("split2_step_profile", lanes=B, T=S2_PROFILE_T, profiled_wall_ms_per_step=wall,
          step_ms=short_ms, device_busy_ms_per_step=busy if busy else "not measured",
          idle_share=1.0 - busy / short_ms if busy else "not measured",
          device_kernels=len(by_kernel), top_ms_per_step=dict(top))
@@ -3795,9 +3925,11 @@ def exact104_phases(dev, cfg):
     def read_counters():
         return {k: v for c in counters for k, v in c.items() if v}
 
-    def drive(flags, T=PARITY_T, cpa=EX_CPA, fixed=False):
+    def drive(flags, T=PARITY_T, cpa=EX_CPA, fixed=False, log=None):
         """One train step of ``flags`` with the counters zeroed just before
-        it and read just after: (record, launches, seconds, what to repeat it)."""
+        it and read just after: (record, launches, seconds, what to repeat it).
+        With ``log``, CUDA events around each call of the selection, the
+        replay, its sweep and the outer pass go there (``event_timed``)."""
         t = make_task(T, cpa=cpa)
         step = parity.make_train_step(t, **flags)
         stims_i = make_parity_batch(gen, n_in, B, device=dev)
@@ -3808,8 +3940,15 @@ def exact104_phases(dev, cfg):
         else:
             keys = lane_keys()
         params_i = {k: p.detach().cpu().clone() for k, p in t.params.items()}
+        restore = [] if log is None else [
+            event_timed(sa, ("select_pass",), log),
+            event_timed(sf, ("replay3_fwd", "replay3_bwd_emit", "outer_arg_grads_split3"), log)]
         zero_counters()
-        rec, ms = timed(lambda: step(stims_i, keys, noise=noise))
+        try:
+            rec, ms = timed(lambda: step(stims_i, keys, noise=noise))
+        finally:
+            for r in restore:
+                r()
         launched = read_counters()
         return rec, launched, ms / 1e3, dict(stims=stims_i, keys=keys, params=params_i,
                                              fixed=fixed)
@@ -3870,7 +4009,8 @@ def exact104_phases(dev, cfg):
               f"card vs CPU {flags}: {entry}")
         return entry
 
-    rec, launched, secs, first = drive(EXACT)
+    log = []
+    rec, launched, secs, first = drive(EXACT, log=log)
     check(launched == {"sde_select": 1, "sde3_fwd_team": 1, "sde3_bwd_emit": 1},
           f"exact step at 104 columns: launches {launched}")
     st = rec["stats"]
@@ -3893,29 +4033,15 @@ def exact104_phases(dev, cfg):
          max_steps=PARITY_MAX_STEPS, flags=EXACT, history=history["exact"],
          launches=launched, cpu_check=cpu_check["exact"], profile=profile)
 
-    # Each kernel of the main path again on its first step's grid (one launch each).
-    task_f = make_task(params=first["params"])
-    model = parity.sde_model(task_f.params, task_f, first["stims"])
-    pw_f = {k: v.detach().contiguous() for k, v in model.pw.items()}
-    words_f = sa._sde_key_words(first["keys"], "jax")
-    scfg_f = sa.select_config(task_f.ts, max_steps=PARITY_MAX_STEPS, brownian="jax", drift="f32")
-    grid_f, n_f = lanes_grid((st.step_times, st.naccept), words_f, scfg_f, "jax")
-    ys_f = ns.replay3_fwd(y0, *grid_f, n_f, pw_f, model.sc, model.kv)
-    ysbar_f = torch.randn(n_f, B, S, generator=gen, device=dev)
-    _, seeds_f = ns.replay3_bwd_emit(ys_f[:-1], ysbar_f, grid_f[0], grid_f[1], grid_f[3], n_f, 64,
-                                     pw_f, model.sc, model.kv)
-    calls = {
-        "sde_select_jax_f32_104": lambda: ns.select_pass(y0, words_f, pw_f, model.sc, model.kv,
-                                                         scfg_f),
-        "sde3_fwd_team_lanes": lambda: ns.replay3_fwd(y0, *grid_f, n_f, pw_f, model.sc,
-                                                      model.kv),
-        "sde3_bwd_emit_lanes": lambda: ns.replay3_bwd_emit(ys_f[:-1], ysbar_f, grid_f[0],
-                                                           grid_f[1], grid_f[3], n_f, 64, pw_f,
-                                                           model.sc, model.kv),
-        "outer_arg_grads_split3_lanes": lambda: sf.outer_arg_grads_split3(
-            ys_f[:-1], seeds_f, grid_f[0], grid_f[1], grid_f[3], pw_f, model.sc, model.kv),
-    }
-    times = {name: cuda_ms(fn, reps=1, warmup=0) for name, fn in calls.items()}
+    # Each kernel of the main path: its CUDA events in that step (one launch each).
+    n_f = 2 * int(st.naccept.max())  # the replay's half steps (lanes_grid)
+    main_ms = {}
+    for name, start, end in log:
+        main_ms[name] = main_ms.get(name, 0.0) + start.elapsed_time(end)
+    times = {"sde_select_jax_f32_104": main_ms["select_pass"],
+             "sde3_fwd_team_lanes": main_ms["replay3_fwd"],
+             "sde3_bwd_emit_lanes": main_ms["replay3_bwd_emit"],
+             "outer_arg_grads_split3_lanes": main_ms["outer_arg_grads_split3"]}
     n_att = int((st.naccept + st.nreject).sum())
     real = int(2 * st.naccept.sum())
     bounds = {"sde_select_jax_f32_104": jax_select_bound(P, B, n_in, K, n_att, PARITY_MAX_STEPS,
@@ -4064,6 +4190,353 @@ def exact104_phases(dev, cfg):
             for name, (rep, launches, path, at) in entries.items()]
 
 
+# The f32-exact deterministic engine past one block (the parity command line
+# with no engine flag from 18 through 103 columns, --engine fused from 104
+# through 312): batch 4 under one controller, 1000 grid points over 1 s,
+# dopri5 at rtol 1e-7 / atol 1e-9, max_steps 16384 (the default 3072 ends
+# the 104-column selection early).
+EO_T = 1000
+EO_B = 4
+EO_MAX_STEPS = 16384
+EO_FWD_CPA = ((16, 6, 2), (16, 8, 8), (64, 32, 8))  # B7t-team windows: 24, 32, 104 columns
+EO_BWD_CPA = ((12, 4, 2), (16, 8, 8), (32, 24, 7))  # B8t-team windows: 18, 32, 63 columns
+EO_32_CPA = (16, 8, 8)   # kernel mode's full width for this slice (P = 256)
+EO_104_CPA = (64, 32, 8)  # outer mode's (P = 832)
+EO_W = 64                # steps of each kernel-vs-plain window below 104 columns
+EO_W104 = 16             # at 104 columns
+EO_WIDE_W = 8            # steps of the 312-column window (FG_WIDE_CPA)
+EO_SEL_T = 50            # grid points of the 32-column selection held against its plain loop
+EO_GRAD_T32 = 50         # grid points of the 32-column card-vs-CPU step (104 columns: GRAD_T)
+
+
+def exactode_phases(dev, cfg, frozen):
+    """Phases 47-51: the f32-exact deterministic parity engine past one
+    block: B7t-team, B8t-team, B8't and the three-term outer pass, at 104
+    columns on the split2 phase's frozen grid (``frozen``; the selection
+    runs here when it is empty); returns the new kernels' entries of the
+    kernels line."""
+    import torch
+
+    from columnflow_torch.data import make_parity_batch
+    from columnflow_torch.kernels import network_ode as no
+    from columnflow_torch.solvers import fused as sf
+    from columnflow_torch.tasks import parity
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    B, n_in, K = EO_B, 4, 4
+    c32, c104 = sum(EO_32_CPA), sum(EO_104_CPA)
+
+    def make_task(cpa, T=EO_T, device=dev, params=None):
+        task = parity.build_task(cfg, torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=cpa, n_inputs=n_in, time_steps=T,
+                                 max_steps=EO_MAX_STEPS, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k].to(device))
+        return task
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    same, errs, plain_ms, window_ms = {}, {}, {}, {}
+
+    def compare(name, got, want):
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        same[name] = same.get(name, True) and ok
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        errs[name] = max(errs.get(name, 0.0), err)
+        check(ok and all(bool(torch.isfinite(g).all()) for g in got),
+              f"{name} against its plain version: max abs {err}")
+
+    def setting(cpa, T=EO_T, stims=None, params=None, grid=None):
+        """The engine's inputs at a width and a full replay of its frozen
+        grid (the kernel's own selection, or the given one)."""
+        task = make_task(cpa, T, params=params)
+        stims = make_parity_batch(gen, n_in, B, device=dev) if stims is None else stims
+        model = parity.sde_model(task.params, task, stims)
+        pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+        P = task.net.num_pops
+        y0 = torch.zeros(B, 3 * P, device=dev)
+        scfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]),
+                                  max_steps=sf.round_max_steps((B, 3 * P), EO_MAX_STEPS))
+        if grid is None:
+            st, stats = no.ode_select(y0, pw, model.sc, model.kv.contiguous(), scfg)
+            grid = (st, int(stats[0]))
+        n = grid[1]
+        stn = grid[0][:n + 1].contiguous()
+        ys, co = no.ode_replay_fwd(y0, stn, pw, model.sc, model.kv.contiguous())
+        w3 = {k: v.contiguous() for k, v in no._w3(pw, model.sc).items()}
+        return dict(task=task, stims=stims, pw=pw, sc=model.sc, kv=model.kv.contiguous(), P=P,
+                    y0=y0, st=grid[0], n=n, stn=stn, ys=ys, w3=w3, scfg=scfg)
+
+    def starts(n, W):
+        return sorted({0, max(0, n // 2 - W // 2), max(0, n - W)})
+
+    # -- 47. kernel vs plain, bit for bit -------------------------------------------
+    windows = {"ode_replay_fwd_team": {}, "ode_replay_bwd_team": {},
+               "ode_replay_bwd_emit_split3": {}}
+    settings = {}
+    if frozen:
+        settings[c104] = setting(EO_104_CPA, stims=frozen["stims"], params=frozen["params"],
+                                 grid=(frozen["step_times"], frozen["naccept"]))
+    else:  # the split2 phase did not run: select here
+        settings[c104] = setting(EO_104_CPA)
+    for cpa in EO_FWD_CPA + EO_BWD_CPA:
+        if sum(cpa) not in settings:
+            settings[sum(cpa)] = setting(cpa)
+    for cols, d in sorted(settings.items()):
+        check(d["n"] > EO_W and bool(torch.isfinite(d["ys"]).all()),
+              f"{cols} columns: {d['n']} accepted steps, replay finite")
+    # B6 at 32 columns (the kernel-mode path's width) against its plain loop
+    # over the first EO_SEL_T grid points, as phase 8 holds it at 13.
+    d = settings[c32]
+    cfg_s = d["scfg"]._replace(t_end=float(d["task"].ts[EO_SEL_T - 1]))
+    st_k, stats_k = no.ode_select(d["y0"], d["pw"], d["sc"], d["kv"], cfg_s)
+    (st_p, stats_p), sel_plain_ms = timed(lambda: no._ode_select_plain(d["y0"], d["w3"], d["sc"],
+                                                                       d["kv"], cfg_s))
+    na_k, na_p = int(stats_k[0]), int(stats_p[0])
+    common = min(na_k, na_p)
+    d_st = (st_k[:common + 1] - st_p[:common + 1]).abs()
+    selection_32 = {"T": EO_SEL_T, "stats": stats_k.tolist(), "stats_plain": stats_p.tolist(),
+                    "common_prefix_max_abs": float(d_st.max()),
+                    "first_parted_index": (int(torch.nonzero(d_st).min())
+                                           if bool((d_st > 0).any()) else None),
+                    "plain_ms": sel_plain_ms}
+    check(int(stats_k[2]) == 1 and int(stats_p[2]) == 1 and abs(na_k - na_p) <= 0.1 * na_p
+          and float((st_k[:11] - st_p[:11]).abs().max()) == 0.0,
+          f"ode_select at 32 columns over {EO_SEL_T} points: {selection_32}")
+    # B7t-team: 24, 32 and 104 columns, the states from the kernel's own replay.
+    for cpa in EO_FWD_CPA:
+        d = settings[sum(cpa)]
+        check(no.ode_fwd_route(d["P"], n_in) == "team", f"{sum(cpa)} columns: replay route")
+        W = EO_W104 if sum(cpa) == c104 else EO_W
+        for k0 in starts(d["n"], W):
+            stw, y_k = d["stn"][k0:k0 + W + 1].contiguous(), d["ys"][k0].contiguous()
+            got, kern = timed(lambda: no.ode_replay_fwd(y_k, stw, d["pw"], d["sc"], d["kv"]))
+            want, pl_ms = timed(lambda: no._ode_replay_fwd_plain(y_k, stw, d["w3"], d["sc"],
+                                                                  d["kv"]))
+            compare("ode_replay_fwd_team", got, want)
+            windows["ode_replay_fwd_team"].setdefault(sum(cpa), []).append(
+                {"start": k0, "steps": W, "ms": kern, "plain_ms": pl_ms})
+    # ... and one 8-step window at 312 columns, on the first steps of its selection.
+    task_w = make_task(FG_WIDE_CPA, T=EO_T)
+    stims_w = make_parity_batch(gen, n_in, B, device=dev)
+    m_w = parity.sde_model(task_w.params, task_w, stims_w)
+    pw_w = {k: v.detach().contiguous() for k, v in m_w.pw.items()}
+    P_w = task_w.net.num_pops
+    y0_w = torch.zeros(B, 3 * P_w, device=dev)
+    cfg_w = no.ODESelectConfig(0.0, float(task_w.ts[4]), max_steps=sf.round_max_steps(
+        (B, 3 * P_w), EO_MAX_STEPS))
+    st_w, stats_w = no.ode_select(y0_w, pw_w, m_w.sc, m_w.kv.contiguous(), cfg_w)
+    check(int(stats_w[0]) >= EO_WIDE_W, f"312 columns: stats {stats_w.tolist()}")
+    stw = st_w[:EO_WIDE_W + 1].contiguous()
+    got, kern = timed(lambda: no.ode_replay_fwd(y0_w, stw, pw_w, m_w.sc, m_w.kv.contiguous()))
+    want, pl_ms = timed(lambda: no._ode_replay_fwd_plain(y0_w, stw, no._w3(pw_w, m_w.sc), m_w.sc,
+                                                          m_w.kv.contiguous()))
+    compare("ode_replay_fwd_team", got, want)
+    windows["ode_replay_fwd_team"][sum(FG_WIDE_CPA)] = [
+        {"start": 0, "steps": EO_WIDE_W, "ms": kern, "plain_ms": pl_ms}]
+    # B8t-team: 18, 32 and 63 columns, on the kernel's states and random
+    # cotangents of the dense rows.
+    for cpa in EO_BWD_CPA:
+        d = settings[sum(cpa)]
+        check(no.ode_bwd_route(d["P"], n_in, B) == "team", f"{sum(cpa)} columns: sweep route")
+        for k0 in starts(d["n"], EO_W):
+            stw, ysw = d["stn"][k0:k0 + EO_W + 1].contiguous(), d["ys"][k0:k0 + EO_W].contiguous()
+            cob = torch.randn(EO_W, 5, B, 3 * d["P"], generator=gen, device=dev)
+            got, kern = timed(lambda: no.ode_replay_bwd(ysw, cob, stw, d["pw"], d["sc"], d["kv"]))
+            want, pl_ms = timed(lambda: no._ode_replay_bwd_plain(ysw, cob, stw, d["w3"], d["sc"],
+                                                                  d["kv"]))
+            compare("ode_replay_bwd_team", got, want)
+            windows["ode_replay_bwd_team"].setdefault(sum(cpa), []).append(
+                {"start": k0, "steps": EO_W, "ms": kern, "plain_ms": pl_ms})
+    # B8't: 104 columns.
+    d = settings[c104]
+    for k0 in starts(d["n"], EO_W104):
+        stw, ysw = d["stn"][k0:k0 + EO_W104 + 1].contiguous(), d["ys"][k0:k0 + EO_W104].contiguous()
+        cob = torch.randn(EO_W104, 5, B, 3 * d["P"], generator=gen, device=dev)
+        got, kern = timed(lambda: no.ode_replay_bwd_emit(ysw, cob, stw, d["w3"], d["sc"], d["kv"]))
+        want, pl_ms = timed(lambda: no._ode_replay_bwd_emit_plain(ysw, cob, stw, d["w3"], d["sc"],
+                                                                   d["kv"]))
+        compare("ode_replay_bwd_emit_split3", got, want)
+        windows["ode_replay_bwd_emit_split3"].setdefault(c104, []).append(
+            {"start": k0, "steps": EO_W104, "ms": kern, "plain_ms": pl_ms})
+    for name, by_cols in windows.items():
+        # The plain version's time on the main path's width: a middle window.
+        cols = c32 if name == "ode_replay_bwd_team" else c104
+        mid = by_cols[cols][len(by_cols[cols]) // 2]
+        plain_ms[name], window_ms[name] = mid["plain_ms"], mid["ms"]
+        plain_ms[f"{name}_at"] = f"{mid['steps']} steps at {cols} columns"
+    emit("exactode_kernel_vs_plain", lanes=B, T=EO_T, max_steps=EO_MAX_STEPS,
+         accepted={c: d["n"] for c, d in sorted(settings.items())},
+         grid_104="the split2 phase's" if frozen else "its own selection",
+         selection_32=selection_32, windows=windows, bit_for_bit=same, max_abs_err=errs)
+
+    # -- 48. main path: one full step at 32 columns (kernel mode) and at 104
+    # (outer mode, on the split2 phase's frozen grid) --------------------------------
+    names = ("ode_select", "ode_replay_fwd", "ode_replay_bwd", "ode_replay_bwd_emit",
+             "ode_outer_arg_grads")
+    main, dev_ms, firsts = {}, {}, {}
+    for cols, cpa in ((c32, EO_32_CPA), (c104, EO_104_CPA)):
+        d = settings[cols]
+        task = make_task(cpa, params={k: p.detach() for k, p in d["task"].params.items()})
+        step = parity.make_train_step(task)
+        grid = None
+        want = {"ode_select": 1, "ode_replay_fwd_team": 1, "ode_replay_bwd_team": 1}
+        if cols == c104:
+            grid = (d["st"], d["n"])
+            want = {"ode_replay_fwd_team": 1, "ode_replay_bwd_emit_split3": 1}
+        params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+        masks = {k: v.bool() for k, v in task.grad_mask.items()}
+        log = []
+        restore = event_timed(sf, names, log)
+        try:
+            for k in no.LAUNCHES:
+                no.LAUNCHES[k] = 0
+            rec, ms = timed(lambda: step(d["stims"], grid=grid))
+            launched = {k: v for k, v in no.LAUNCHES.items() if v}
+        finally:
+            restore()
+        dev_ms[cols] = {}
+        for name, start, end in log:
+            dev_ms[cols][name] = dev_ms[cols].get(name, 0.0) + start.elapsed_time(end)
+        sk = rec["stats"]
+        finite = {k: bool(torch.isfinite(p.grad).all()) for k, p in task.params.items()}
+        main[cols] = {"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
+                      "update_applied": bool(rec["ok"]), "grads_finite": finite,
+                      "naccept": int(sk.naccept), "nreject": int(sk.nreject),
+                      "success": bool(sk.success), "launches": launched, "seconds": ms / 1e3,
+                      "device_ms": dev_ms[cols]}
+        check(launched == want, f"exact step at {cols} columns: launches {launched}")
+        check(bool(sk.success) and bool(torch.isfinite(rec["loss"])),
+              f"exact step at {cols} columns: success {bool(sk.success)}, loss {rec['loss']}")
+        for k, p in task.params.items():
+            check(bool((p.grad[~masks[k]].nan_to_num(0.0, 0.0, 0.0) == 0).all()),
+                  f"exact step at {cols} columns: {k} gradient off its mask")
+        check(rec["ok"] == (all(finite.values()) and float(rec["gnorm"]) < 1e4),
+              f"exact step at {cols} columns: ok {rec['ok']}, finite {finite}")
+        firsts[cols] = (params0, d["stims"])
+    emit("exactode_main_path", lanes=B, T=EO_T, max_steps=EO_MAX_STEPS,
+         steps={f"{c}_columns": v for c, v in main.items()},
+         grid_104="the split2 phase's frozen grid (the same three-term selection)")
+
+    # -- 49. card against CPU: every gradient within the larger of 1e-3 and
+    # ten times the card's own spread under a 1e-7 nudge of the weights, a
+    # limit that must stay at most GRAD_TOL_CAP (as exact104_phases holds
+    # its step): 104 columns over GRAD_T points, 32 over EO_GRAD_T32. The
+    # exact engine's gradient is bf16-grade (the sweep rounds every
+    # transposed product); over 5 points at 32 columns the network has
+    # barely answered the stimulus (gradients ~1e-5) and the nudge moved
+    # the lateral gradient by 8.6e-2, over 50 points by ~6e-4 (CPU) --------
+    def one(cols, cpa, device, params, T_c, grid=None):
+        t = make_task(cpa, T_c, device=device, params=params)
+        rec = parity.make_train_step(t)(firsts[cols][1].to(device), grid=grid)
+        return rec, {k: p.grad.detach().cpu().clone() for k, p in t.params.items()}
+
+    cpu_check = {}
+    for cols, cpa, T_c in ((c32, EO_32_CPA, EO_GRAD_T32), (c104, EO_104_CPA, GRAD_T)):
+        p0 = firsts[cols][0]
+        rec_k, grads_k = one(cols, cpa, dev, p0, T_c)
+        grid = (rec_k["stats"].step_times, int(rec_k["stats"].naccept))
+        (rec_c, grads_c), cpu_ms = timed(lambda: one(cols, cpa, "cpu", p0, T_c,
+                                                     (grid[0].cpu(), grid[1])))
+        rec_n, grads_n = one(cols, cpa, dev, {k: v * (1.0 + 1e-7) for k, v in p0.items()},
+                             T_c, grid)
+        spread = {k: rel_l2(grads_n[k], grads_k[k]) for k in grads_k}
+        tol = {k: max(ODE_GRAD_TOL, 10.0 * spread[k]) for k in grads_k}
+        loss_k, loss_c, loss_n = (float(r["loss"]) for r in (rec_k, rec_c, rec_n))
+        loss_tol = max(ODE_LOSS_TOL, 10.0 * abs(loss_n - loss_k) / abs(loss_k))
+        entry = {"T": T_c, "naccept": grid[1], "loss_rel": abs(loss_k - loss_c) / abs(loss_c),
+                 "loss_tol": loss_tol,
+                 "grad_rel_l2": {k: rel_l2(grads_k[k], grads_c[k]) for k in grads_k},
+                 "card_grad_spread_under_1e-7_nudge": spread, "tol": tol,
+                 "cpu_seconds": cpu_ms / 1e3}
+        check(entry["loss_rel"] < loss_tol
+              and all(entry["grad_rel_l2"][k] < tol[k] <= GRAD_TOL_CAP for k in grads_k),
+              f"card vs CPU exact step at {cols} columns: {entry}")
+        cpu_check[f"{cols}_columns"] = entry
+    emit("exactode_card_vs_cpu", lanes=B, cpu_check=cpu_check,
+         tol={"loss": "max(1e-5, 10 x spread)", "grad": "max(1e-3, 10 x spread) <= "
+              f"{GRAD_TOL_CAP}"})
+
+    # -- 50. times: each kernel from the main-path steps' CUDA events, its bound
+    # and ns per accepted step; the plain versions on a middle window; the
+    # steps' profiles over SHORT_T points --------------------------------------------
+    n32, n104 = main[c32]["naccept"], main[c104]["naccept"]
+    P32, P104 = settings[c32]["P"], settings[c104]["P"]
+    times = {"ode_replay_fwd_team": dev_ms[c104]["ode_replay_fwd"],
+             "ode_replay_fwd_team_32": dev_ms[c32]["ode_replay_fwd"],
+             "ode_replay_bwd_team": dev_ms[c32]["ode_replay_bwd"],
+             "ode_replay_bwd_emit_split3": dev_ms[c104]["ode_replay_bwd_emit"],
+             "ode_outer_split3": dev_ms[c104]["ode_outer_arg_grads"],
+             "ode_select_32": dev_ms[c32]["ode_select"]}
+    serial = {"ode_replay_fwd_team": n104, "ode_replay_fwd_team_32": n32,
+              "ode_replay_bwd_team": n32, "ode_replay_bwd_emit_split3": n104,
+              "ode_outer_split3": n104,
+              "ode_select_32": main[c32]["naccept"] + main[c32]["nreject"]}
+    bounds = {"ode_replay_fwd_team": ode_bound("ode_replay_fwd_team", P104, B, n_in, K, n104),
+              "ode_replay_fwd_team_32": ode_bound("ode_replay_fwd_team", P32, B, n_in, K, n32),
+              "ode_replay_bwd_team": ode_bound("ode_replay_bwd_team", P32, B, n_in, K, n32),
+              "ode_replay_bwd_emit_split3": ode_bound("ode_replay_bwd_emit_split3", P104, B,
+                                                      n_in, K, n104),
+              "ode_outer_split3": ode_bound("ode_outer_split3", P104, B, n_in, K, n104),
+              "ode_select_32": ode_bound("ode_select", P32, B, n_in, K, serial["ode_select_32"],
+                                         M=EO_MAX_STEPS)}
+    profiles = {}
+    for cols, cpa in ((c32, EO_32_CPA), (c104, EO_104_CPA)):
+        short_ms, wall, by_kernel = short_profile(
+            parity.make_train_step(make_task(cpa, SHORT_T)),
+            (make_parity_batch(gen, n_in, B, device=dev),))
+        busy = sum(by_kernel.values())
+        profiles[f"{cols}_columns"] = {
+            "T": SHORT_T, "step_ms": short_ms, "profiled_wall_ms_per_step": wall,
+            "device_busy_ms_per_step": busy if busy else "not measured",
+            "idle_share": 1.0 - busy / short_ms if busy else "not measured",
+            "top_ms_per_step": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])}
+    emit("exactode_times", lanes=B, T=EO_T, naccept={c32: n32, c104: n104}, ms=times,
+         ns_per_accepted_step={k: times[k] * 1e6 / serial[k] for k in times},
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()},
+         plain_ms=plain_ms, kernel_ms_on_plain_window=window_ms,
+         step_seconds={c: main[c]["seconds"] for c in main}, profiles=profiles)
+
+    # -- 51. the command lines (run with the others at the end) ----------------------
+    for argv in (["--smoke", "--columns-per-area", "16,8,8"],
+                 ["--smoke", "--engine", "fused", "--columns-per-area", "64,32,8",
+                  "--max-steps", "16384"]):
+        defer_command_line("exactode_command_lines", "parity", argv, timeout=900, finite=True,
+                           reach=True)
+
+    entries = {
+        "ode_replay_fwd_team": ("columnflow/solvers/fused.py:294",
+                                "deterministic f32-exact, 104 columns (outer mode; also 32)"),
+        "ode_replay_bwd_team": ("columnflow/solvers/fused.py:327",
+                                "deterministic f32-exact, 32 columns (kernel mode)"),
+        "ode_replay_bwd_emit_split3": ("columnflow/solvers/fused.py:327",
+                                       "deterministic f32-exact, 104 columns (outer mode)"),
+    }
+    return [{"name": name, "route": "cuda", "source": ODE_SOURCE, "replaces": rep,
+             "launches": sum(main[c]["launches"].get(name, 0) for c in main),
+             "launches_by_path": {f"{c}_columns": main[c]["launches"].get(name, 0)
+                                  for c in main},
+             "max_abs_err": errs[name], "bit_for_bit": same[name], "ms": times[name],
+             "plain_ms": plain_ms[name], "plain_ms_at": plain_ms[f"{name}_at"],
+             "ms_window": window_ms[name], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": path,
+             "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+            for name, (rep, path) in entries.items()]
+
+
 def main() -> int:
     import torch
 
@@ -4094,11 +4567,14 @@ def main() -> int:
     emit("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
 
     cfg = ColumnConfig.load()
+    frozen = {}  # the split2 phase's 104-column grid, replayed by the exact engine's phases
     line = (wta_phases(dev, cfg) + parity_phases(dev, cfg) + ode_phases(dev, cfg)
-            + split2_phases(dev, cfg) + xor_phases(dev, cfg) + xor_adaptive_phases(dev, cfg)
+            + split2_phases(dev, cfg, frozen) + xor_phases(dev, cfg)
+            + xor_adaptive_phases(dev, cfg)
             + hopf_phases(dev, cfg)
             + stochastic13_phases(dev, cfg) + bench104_phases(dev, cfg)
-            + fixedgrid104_phases(dev, cfg) + exact104_phases(dev, cfg))
+            + fixedgrid104_phases(dev, cfg) + exact104_phases(dev, cfg)
+            + exactode_phases(dev, cfg, frozen))
     run_command_lines()
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -61,6 +61,10 @@ _SIGNATURES = {
         "cf_ode_attempt": [_I, _I, _I, _I, _P, _P] + [_P] * 16,
         "cf_ode_replay_fwd_split2": [_I, _I, _I, _I, _P, _I] + [_P] * 12,
         "cf_ode_replay_bwd_emit": [_I, _I, _I, _I, _P, _I] + [_P] * 15,
+        "cf_ode_replay_fwd_team": [_I, _I, _I, _I, _P, _I] + [_P] * 13,
+        "cf_ode_replay_bwd_emit_split3": [_I, _I, _I, _I, _P, _I] + [_P] * 17,
+        "cf_ode_replay_bwd_team": [_I, _I, _I, _I, _P, _I] + [_P] * 19,
+        "cf_ode_block_bytes": [_I, _I, _I, _I, _P],
     },
     "xor_ode": {
         "cf_xor_select": [_I, _I, _P, _P, _I, _I] + [_P] * 7,

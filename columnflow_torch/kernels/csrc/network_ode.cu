@@ -13,10 +13,25 @@
 //                                second entry point, for testing the body)
 //   cf_ode_replay_fwd         <- _make_replay_chunk_kernel: the six-stage step
 //                                over the frozen grid, step-start states and
-//                                CONTD5 rows, three-term split
+//                                CONTD5 rows, three-term split (B7, one block
+//                                per lane, through 23 columns at 4 inputs)
+//   cf_ode_replay_fwd_team    <- the same as a team of blocks per lane
+//                                (B7t-team, from 24 columns)
 //   cf_ode_replay_bwd         <- _make_bwd_chunk_kernel, kernel mode: the VJP of
 //                                the step and its dense rows w.r.t. state, wT
-//                                and iwT, three-term split
+//                                and iwT, three-term split (B8, the batch in
+//                                one block, through 17 columns at 4 lanes)
+//   cf_ode_replay_bwd_team    <- the same as one team of blocks for the batch
+//                                (B8t-team, from 18 through 63 columns)
+//   cf_ode_block_bytes        the shared memory B7 and B8 ask of one block
+//                                (what picks them or the teams)
+//   cf_ode_replay_bwd_emit_split3
+//                             <- _make_bwd_chunk_kernel(emit_steps=True,
+//                                diff_idx=()) on the three-term split (B8't):
+//                                the state cotangent alone and each step's
+//                                output cotangent, a team of blocks per lane
+//                                (the f32-exact engine in outer mode, from 64
+//                                columns)
 //   cf_ode_replay_fwd_split2  <- _make_replay_chunk_kernel with
 //                                prepare_premixed_split2 (the fused-split2 tier)
 //   cf_ode_replay_bwd_emit    <- _make_bwd_chunk_kernel(emit_steps=True,
@@ -41,15 +56,20 @@
 //    rounded one by one would be another function. A thread owns its (i, j)
 //    entries of the step's three bf16 accumulators and of the float32 sum
 //    over steps, so their sum order is fixed and no atomics are needed.
-//    Shared memory is requested with cudaFuncSetAttribute; a batch too large
-//    for one block's 227 KB makes that call fail, and the wrapper raises.
-//  - The selection (both tiers) and the split2 tier's replay and emit-mode
-//    sweep: a team of blocks (one thread-block cluster) per lane, or for
-//    the batch in the selection, the weights read from L2, the states in
-//    global memory (team.cuh says how). The selection
-//    has ONE controller for the whole (B, 3P) state (the error ratio is an
-//    RMS over all lanes), so its team holds every lane and reduces the norm
-//    over its blocks in a fixed order.
+//    Shared memory is requested with cudaFuncSetAttribute; where a block's
+//    227 KB do not hold the weights and the states (the replay from 24
+//    columns, the sweep from 18 at 4 lanes and 4 inputs) the wrappers take
+//    the team kernels instead (network_ode.py ode_fwd_route / ode_bwd_route).
+//  - The selection (both tiers), the replays as teams (B7t-team, the split2
+//    tier's B7) and the sweeps as teams (B8t-team, B8't, B8'): a team of
+//    blocks (one thread-block cluster) per lane, or for the batch in the
+//    selection and in B8t-team, the weights read from L2, the states in
+//    global memory (team.cuh says how). The selection has ONE controller
+//    for the whole (B, 3P) state (the error ratio is an RMS over all lanes),
+//    so its team holds every lane and reduces the norm over its blocks in a
+//    fixed order. B8t-team holds the batch for the same reason as B8: each
+//    block forms the weight-cotangent entries of its own output columns
+//    from every lane's exchanged terms.
 //
 // Precision: as network_sde.cu. float32 elementwise arithmetic with
 // full-precision expf/tanhf/logf/sqrtf and IEEE division, compiled with
@@ -247,18 +267,27 @@ ode_replay_bwd_kernel(Net n, int n_steps, const float* __restrict__ wT,
   for (int i = threadIdx.x; i < N; i += blockDim.x) ybar_out[i] = ysum[i];
 }
 
+// Shared memory of the one-block kernels: the replay (sweep 0, one lane per
+// block) and the kernel-mode sweep (sweep 1, the batch of B lanes in one
+// block, with the step's (n_in, P) iwT sum). cf_ode_block_bytes exports it.
+size_t block_bytes(int B, int P, int n_in, int sweep) {
+  const int nb = sweep ? B : 1;
+  const size_t vectors = sweep ? kBwdVectors : kFwdVectors;
+  const size_t extra = sweep ? (size_t)n_in * P : 0;
+  return sizeof(float) * (setup_floats(P, n_in, nb) + vectors * nb * 3 * P + extra);
+}
+
 template <typename Kern>
-int prepare(Kern kernel, int P, int n_in, int K, int nb, int vectors, size_t extra, size_t* bytes) {
+int prepare(Kern kernel, int P, int n_in, int K, size_t bytes) {
   if (int e = check_shape(P, n_in, K)) return e;
-  *bytes = sizeof(float) * (setup_floats(P, n_in, nb) + (size_t)vectors * nb * 3 * P + extra);
-  return set_smem(kernel, *bytes);
+  return set_smem(kernel, bytes);
 }
 
 
 // ---------------------------------------------------------------------------
-// Teams (team.cuh): the selection at any width and the split2 tier, a team
-// of kCluster blocks per lane (per batch in the selection), the weights
-// streamed from L2
+// Teams (team.cuh): the selection at any width, the replay and the emit-mode
+// sweep on either split, a team of kCluster blocks per lane (per batch in
+// the selection and in B8t-team), the weights streamed from L2
 // ---------------------------------------------------------------------------
 
 constexpr int kSelLanes = 4;  // lanes per thread in the selection's products
@@ -418,16 +447,19 @@ ode_attempt_kernel(Net n, Sel sel, Wg w, const float* __restrict__ t_in,
   }
 }
 
-// B7, two-term split: lane blockIdx.x / kCluster, one team each. The step
-// and its rows as ode_replay_fwd_kernel.
+// B7 as a team per lane: lane blockIdx.x / kCluster, one team each. The step
+// and its rows as ode_replay_fwd_kernel. NT = 2: the split2 tier's replay
+// (two-term split); NT = 3: B7t-team, the f32-exact engine's replay where
+// the three-term weights do not fit a block (from 24 columns at 4 inputs).
+template <int NT>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-ode_replay_fwd_split2_kernel(Net n, int n_steps, Wg w, const float* __restrict__ st,
-                             const float* __restrict__ y0, float* scr, float* __restrict__ ys,
-                             float* __restrict__ coeffs) {
+ode_replay_fwd_team_kernel(Net n, int n_steps, Wg w, const float* __restrict__ st,
+                           const float* __restrict__ y0, float* scr, float* __restrict__ ys,
+                           float* __restrict__ coeffs) {
   extern __shared__ __align__(16) unsigned char smt[];
   Team T;
   const int b = blockIdx.x / kCluster;
-  team_init(T, smt, n.P, 1, b, 2, 3, 1);
+  team_init(T, smt, n.P, 1, b, NT, NT == 3 ? 6 : 3, 1);
   const int S = T.S, B = n.B;
   SelBuf u;
   carve_global(scr + (size_t)b * 10 * S, S, &u);
@@ -439,11 +471,11 @@ ode_replay_fwd_split2_kernel(Net n, int n_steps, Wg w, const float* __restrict__
   const size_t row = (size_t)B * S;
   for (int k = 0; k < n_steps; ++k) {
     const float t0 = st[k], h = st[k + 1] - t0;
-    drift_team<2, 1>(n, T, t0, u.y, u.k[0], w);
+    drift_team<NT, 1>(n, T, t0, u.y, u.k[0], w);
     for (int i = 1; i < kStages; ++i) {
       float* dst = i == kStages - 1 ? u.y1 : u.ys;
       stage_own(T, n.P, i, h, u.y, u.k, dst);
-      drift_team<2, 1>(n, T, t0 + kC[i] * h, dst, u.k[i], w);
+      drift_team<NT, 1>(n, T, t0 + kC[i] * h, dst, u.k[i], w);
     }
     float* yk = ys + ((size_t)k * B + b) * S;
     float* ck = coeffs + ((size_t)k * 5 * B + b) * S;
@@ -464,11 +496,15 @@ ode_replay_fwd_split2_kernel(Net n, int n_steps, Wg w, const float* __restrict__
   }
 }
 
-// B8', emit mode, two-term split: the reverse sweep of the state cotangent
-// alone, lane blockIdx.x / kCluster. Per step k (n-1 down to 0) it first
-// writes ybar_steps[k] = the cotangent on the step's output from the later
-// steps, then runs the step's VJP as ode_replay_bwd_kernel does, without
-// the weight cotangents.
+// B8 in emit mode: the reverse sweep of the state cotangent alone, lane
+// blockIdx.x / kCluster. Per step k (n-1 down to 0) it first writes
+// ybar_steps[k] = the cotangent on the step's output from the later steps,
+// then runs the step's VJP as ode_replay_bwd_kernel does, without the weight
+// cotangents. NT = 2: B8', the split2 tier's sweep; NT = 3: B8't, the
+// f32-exact engine's sweep where its weights hold more than 1 MiB (from 64
+// columns at 4 inputs). Either way the weight gradients are taken outside
+// (solvers/fused.py ode_outer_arg_grads).
+template <int NT>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 ode_replay_bwd_emit_kernel(Net n, int n_steps, Wg w, const float* __restrict__ st,
                            const float* __restrict__ ys, const float* __restrict__ cobar,
@@ -477,7 +513,7 @@ ode_replay_bwd_emit_kernel(Net n, int n_steps, Wg w, const float* __restrict__ s
   extern __shared__ __align__(16) unsigned char smt[];
   Team T;
   const int b = blockIdx.x / kCluster;
-  team_init(T, smt, n.P, 1, b, 2, 3, 1);
+  team_init(T, smt, n.P, 1, b, NT, NT == 3 ? 6 : 3, 1);
   const int S = T.S, B = n.B;
   const size_t N = (size_t)B * S;
   float* base = scr + (size_t)b * 16 * S;
@@ -501,10 +537,10 @@ ode_replay_bwd_emit_kernel(Net n, int n_steps, Wg w, const float* __restrict__ s
       sk[i] = ysum[i];
     }
     __syncthreads();
-    drift_team<2, 1>(n, T, t0, Y[0], kk[0], w);
+    drift_team<NT, 1>(n, T, t0, Y[0], kk[0], w);
     for (int i = 1; i < kStages; ++i) {
       stage_own(T, n.P, i, h, Y[0], kk, Y[i]);
-      if (i < kStages - 1) drift_team<2, 1>(n, T, t0 + kC[i] * h, Y[i], kk[i], w);
+      if (i < kStages - 1) drift_team<NT, 1>(n, T, t0 + kC[i] * h, Y[i], kk[i], w);
     }
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int i = own_off(T, n.P, e);
@@ -524,7 +560,8 @@ ode_replay_bwd_emit_kernel(Net n, int n_steps, Wg w, const float* __restrict__ s
     }
     __syncthreads();
     for (int s = kStages - 1; s >= 0; --s) {
-      vjp2_team(n, T, Y[s], kk[s], g, w);
+      if constexpr (NT == 3) vjp3_team(n, T, Y[s], kk[s], g, w);
+      else vjp2_team(n, T, Y[s], kk[s], g, w);
       for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
         const int i = own_off(T, n.P, e);
         const float ge = g[i];
@@ -543,6 +580,200 @@ ode_replay_bwd_emit_kernel(Net n, int n_steps, Wg w, const float* __restrict__ s
   }
 }
 
+// B8t-team: ode_replay_bwd_kernel (kernel mode, three-term split) as one team
+// of kCluster blocks for the whole batch, where the batch's sixteen state
+// vectors and the three-term weights do not fit one block (from 18 columns
+// at 4 lanes and 4 inputs). jax.vjp contracts each product's weight
+// cotangent over the lanes before its bf16 rounding, so the lanes cannot run
+// as independent teams. As in network_sde.cu's B4't-team, block r owns
+// populations [c0, c0 + nc) of every lane (their state entries) and the
+// weight-cotangent entries of its own OUTPUT columns j, every row i. Each of
+// a step's seven drift VJPs stores the rates' three bf16 terms, the current's
+// cotangent and the stimulus into every block's shared memory (vjp3_team_w,
+// two WX buffers used in turn: a block writes buffer p of VJP m only after
+// the cluster barrier of VJP m - 1, which every block reaches after its
+// contraction of VJP m - 2, the last reads of buffer p); each block then
+// contracts its entries over the lanes in float64, in lane order, rounds to
+// bf16 and adds to the step's accumulators (global work, three (P, P) bf16
+// sums and the float32 (n_in, P) iwT sum, each entry touched by one thread
+// of its own block only): stage 6's VJP opens them, stages 5..0 add, as the
+// reverse pass meets the forward's products. After the step each block folds
+// its entries through the split once into d_wT and adds d_iwT's. No value
+// crosses a block in a sum, so the result is the one-block B8's and the plain
+// version's bit for bit. scr: 16 B 3P floats (Y0..Y6, k0..k6, ysum, g).
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
+                           const float* __restrict__ st, const float* __restrict__ ys,
+                           const float* __restrict__ cobar, float* scr,
+                           float* __restrict__ ybar_out, float* __restrict__ d_wT,
+                           float* __restrict__ d_iwT, float* work) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team T;
+  const int B = n.B;
+  team_init(T, smt, n.P, B, 0, 3, 6, 1);
+  const int P = n.P, nc = T.nc, c0 = T.c0, NI = n.n_in;
+  const size_t N = (size_t)B * T.S, PP = (size_t)P * P;
+  unsigned char* p = smt + team_bytes;
+  const WX wx[2] = {wx_at(p, P, B), wx_at(p + wx_bytes(P, B), P, B)};
+  float *Y[kStages], *kk[kStages];
+  for (int i = 0; i < kStages; ++i) {
+    Y[i] = scr + (size_t)i * N;
+    kk[i] = scr + (size_t)(kStages + i) * N;
+  }
+  float* ysum = scr + (size_t)14 * N;
+  float* g = scr + (size_t)15 * N;
+  float* acc_hi = work;
+  float* acc_mid = work + PP;
+  float* acc_lo = work + 2 * PP;
+  float* acc_iw = work + 3 * PP;
+  for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
+    const int i = e / nc;
+    d_wT[(size_t)i * P + c0 + (e - i * nc)] = 0.0f;
+  }
+  for (int e = threadIdx.x; e < NI * nc; e += blockDim.x) {
+    const int m = e / nc;
+    d_iwT[(size_t)m * P + c0 + (e - m * nc)] = 0.0f;
+  }
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) ysum[own_off(T, P, e)] = 0.0f;
+  __syncthreads();
+  int xp = 0;  // the WX buffer of the next drift VJP
+  for (int k = n_steps - 1; k >= 0; --k) {
+    const float t0 = st[k], h = st[k + 1] - t0;
+    const float* yk = ys + (size_t)k * N;
+    const float* ck = cobar + (size_t)k * 5 * N;
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int i = own_off(T, P, e);
+      Y[0][i] = yk[i];
+    }
+    __syncthreads();
+    drift_team<3, 1>(n, T, t0, Y[0], kk[0], w);
+    for (int i = 1; i < kStages; ++i) {
+      stage_own(T, P, i, h, Y[0], kk, Y[i]);
+      if (i < kStages - 1) drift_team<3, 1>(n, T, t0 + kC[i] * h, Y[i], kk[i], w);
+    }
+    for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+      const int i = own_off(T, P, e);
+      const float c1 = ck[i], c2 = ck[N + i], c3 = ck[2 * N + i], c4 = ck[3 * N + i],
+                  c5 = ck[4 * N + i];
+      const float r3bar = c3 - c4;
+      const float dybar = (c2 + c4) - r3bar;
+      const float y1bar = ysum[i] + dybar;
+      for (int j = 0; j < kStages; ++j) {
+        float v = kD[j] != 0.0f ? (h * kD[j]) * c5 : 0.0f;
+        if (j == kStages - 1) v = v - h * c4;
+        if (j == 0) v = v + h * r3bar;
+        if (kB[j] != 0.0f) v = v + (h * kB[j]) * y1bar;
+        kk[j][i] = v;
+      }
+      ysum[i] = (c1 - dybar) + y1bar;
+    }
+    __syncthreads();
+    for (int s = kStages - 1; s >= 0; --s) {
+      const WX& x = wx[xp];
+      xp ^= 1;
+      vjp3_team_w(n, T, s ? t0 + kC[s] * h : t0, nullptr, Y[s], kk[s], g, w, x);
+      for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+        const int i = own_off(T, P, e);
+        const float ge = g[i];
+        ysum[i] = ysum[i] + ge;
+        for (int j = 0; j < s; ++j) {
+          const float a = kA[s][j];
+          if (a != 0.0f) kk[j][i] = kk[j][i] + (h * a) * ge;
+        }
+      }
+      // This VJP's weight cotangents of the own columns, every row.
+      const bool first = s == kStages - 1;
+      for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
+        const int i = e / nc, j = c0 + (e - i * nc);
+        double da = 0.0, db = 0.0, de = 0.0;
+        for (int b = 0; b < B; ++b) {
+          const double q = x.c[(size_t)b * P + j];
+          da += bfd(x.x[(size_t)b * P + i]) * q;
+          db += bfd(x.x[((size_t)B + b) * P + i]) * q;
+          de += bfd(x.x[((size_t)2 * B + b) * P + i]) * q;
+        }
+        const float a = bf16r((float)da), bb = bf16r((float)db), ee = bf16r((float)de);
+        const size_t at = (size_t)i * P + j;
+        if (first) {
+          acc_hi[at] = bf16r(bf16r(a + bb) + ee);
+          acc_mid[at] = bf16r(a + bb);
+          acc_lo[at] = a;
+        } else {
+          acc_hi[at] = bf16r(bf16r(bf16r(acc_hi[at] + a) + bb) + ee);
+          acc_mid[at] = bf16r(bf16r(acc_mid[at] + a) + bb);
+          acc_lo[at] = bf16r(acc_lo[at] + a);
+        }
+      }
+      for (int e = threadIdx.x; e < NI * nc; e += blockDim.x) {
+        const int m = e / nc, j = c0 + (e - m * nc);
+        double d = 0.0;
+        for (int b = 0; b < B; ++b)
+          d += (double)x.ext[b * kMaxInputs + m] * (double)x.c[(size_t)b * P + j];
+        const size_t at = (size_t)m * P + j;
+        acc_iw[at] = first ? (float)d : acc_iw[at] + (float)d;
+      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
+      const int i = e / nc;
+      const size_t at = (size_t)i * P + c0 + (e - i * nc);
+      const float lo = acc_lo[at];
+      const float r = lo + bf16r(acc_mid[at] - lo);
+      d_wT[at] = d_wT[at] + (r + bf16r(acc_hi[at] + bf16r(-r)));
+    }
+    for (int e = threadIdx.x; e < NI * nc; e += blockDim.x) {
+      const int m = e / nc;
+      const size_t at = (size_t)m * P + c0 + (e - m * nc);
+      d_iwT[at] = d_iwT[at] + acc_iw[at];
+    }
+  }
+  for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
+    const int i = own_off(T, P, e);
+    ybar_out[i] = ysum[i];
+  }
+}
+
+// B7 as a team per lane: NT = 2 (cf_ode_replay_fwd_split2, the split2 tier)
+// or 3 (cf_ode_replay_fwd_team, B7t-team); lo unused at NT = 2.
+template <int NT>
+int replay_fwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                    const float* bg, const float* adapt, const void* hi, const void* mid,
+                    const void* lo, const float* iw, const float* kv, const float* st,
+                    const float* y0, float* scr, float* ys, float* coeffs, void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(ode_replay_fwd_team_kernel<NT>, P, n_in, K, 1, NT, NT == 3 ? 6 : 3,
+                           1, &bytes))
+    return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, NT == 3 ? (const bf16*)lo : nullptr, nullptr,
+             nullptr, nullptr, iw};
+  if (B > 0)
+    ode_replay_fwd_team_kernel<NT><<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, y0, scr, ys, coeffs);
+  return (int)cudaGetLastError();
+}
+
+// B8 in emit mode as a team per lane: NT = 2 (cf_ode_replay_bwd_emit, B8')
+// or 3 (cf_ode_replay_bwd_emit_split3, B8't); lo, loT unused at NT = 2.
+template <int NT>
+int replay_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                    const float* bg, const float* adapt, const void* hi, const void* mid,
+                    const void* lo, const void* hiT, const void* midT, const void* loT,
+                    const float* iw, const float* kv, const float* st, const float* ys,
+                    const float* cobar, float* scr, float* ybar, float* ybar_steps,
+                    void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(ode_replay_bwd_emit_kernel<NT>, P, n_in, K, 1, NT, NT == 3 ? 6 : 3,
+                           1, &bytes))
+    return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, NT == 3 ? (const bf16*)lo : nullptr,
+             (const bf16*)hiT, (const bf16*)midT, NT == 3 ? (const bf16*)loT : nullptr, iw};
+  if (B > 0)
+    ode_replay_bwd_emit_kernel<NT><<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, ys, cobar, scr, ybar,
+        ybar_steps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -551,8 +782,8 @@ int cf_ode_replay_fwd(int B, int P, int n_in, int K, const float* hc, int n_step
                       const float* bg, const float* adapt, const float* wT, const float* iwT,
                       const float* kv, const float* st, const float* y0, float* ys,
                       float* coeffs, void* stream) {
-  size_t bytes;
-  if (int e = prepare(ode_replay_fwd_kernel, P, n_in, K, 1, kFwdVectors, 0, &bytes)) return e;
+  const size_t bytes = block_bytes(1, P, n_in, 0);
+  if (int e = prepare(ode_replay_fwd_kernel, P, n_in, K, bytes)) return e;
   if (B > 0)
     ode_replay_fwd_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
         make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, wT, iwT, st, y0, ys, coeffs);
@@ -563,18 +794,27 @@ int cf_ode_replay_bwd(int B, int P, int n_in, int K, const float* hc, int n_step
                       const float* bg, const float* adapt, const float* wT, const float* iwT,
                       const float* kv, const float* st, const float* ys, const float* cobar,
                       float* ybar, float* d_wT, float* d_iwT, float* work, void* stream) {
-  size_t bytes;
-  if (int e = prepare(ode_replay_bwd_kernel, P, n_in, K, B, kBwdVectors, (size_t)n_in * P, &bytes))
-    return e;
+  const size_t bytes = block_bytes(B, P, n_in, 1);
+  if (int e = prepare(ode_replay_bwd_kernel, P, n_in, K, bytes)) return e;
   ode_replay_bwd_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
       make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, wT, iwT, st, ys, cobar, ybar, d_wT,
       d_iwT, work);
   return (int)cudaGetLastError();
 }
 
-// The split2 tier. hi/mid/lo: bf16 (P, P) terms of wT; hiT/midT their
-// transposes; iw float32 (n_in, P); scr: global scratch for the state
-// vectors (10 B 3P floats; 16 B 3P for the reverse sweep).
+// The shared memory cf_ode_replay_fwd (sweep 0) or cf_ode_replay_bwd (sweep
+// 1) asks of one block at (B, P, n_in), into *bytes: the count that
+// ode_fwd_route and ode_bwd_route (network_ode.py) hold against a block's
+// limit.
+int cf_ode_block_bytes(int B, int P, int n_in, int sweep, long long* bytes) {
+  *bytes = (long long)block_bytes(B, P, n_in, sweep);
+  return 0;
+}
+
+// The team kernels. hi/mid/lo: bf16 (P, P) terms of wT (lo: the three-term
+// split only); hiT/midT/loT their transposes; iw float32 (n_in, P); scr:
+// global scratch for the state vectors (10 B 3P floats; 16 B 3P for the
+// reverse sweeps).
 // hc (host): tau_s, tau_m, tau_a, R, sigma, kc0[K-1], kd[K-1];
 // hs (host): t_start, t_end, rtol, atol, dt0, t_end - t_start.
 int cf_ode_select(int B, int P, int n_in, int K, const float* hc, const float* hs,
@@ -610,13 +850,8 @@ int cf_ode_replay_fwd_split2(int B, int P, int n_in, int K, const float* hc, int
                              const void* mid, const float* iw, const float* kv, const float* st,
                              const float* y0, float* scr, float* ys, float* coeffs,
                              void* stream) {
-  size_t bytes;
-  if (int e = team_prepare(ode_replay_fwd_split2_kernel, P, n_in, K, 1, 2, 3, 1, &bytes)) return e;
-  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, nullptr, nullptr, nullptr, iw};
-  if (B > 0)
-    ode_replay_fwd_split2_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
-        make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, y0, scr, ys, coeffs);
-  return (int)cudaGetLastError();
+  return replay_fwd_team<2>(B, P, n_in, K, hc, n_steps, bg, adapt, hi, mid, nullptr, iw, kv, st,
+                            y0, scr, ys, coeffs, stream);
 }
 
 int cf_ode_replay_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps,
@@ -624,14 +859,48 @@ int cf_ode_replay_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n
                            const void* hiT, const void* midT, const float* iw, const float* kv,
                            const float* st, const float* ys, const float* cobar, float* scr,
                            float* ybar, float* ybar_steps, void* stream) {
-  size_t bytes;
-  if (int e = team_prepare(ode_replay_bwd_emit_kernel, P, n_in, K, 1, 2, 3, 1, &bytes)) return e;
-  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, (const bf16*)hiT, (const bf16*)midT,
-             nullptr, iw};
-  if (B > 0)
-    ode_replay_bwd_emit_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
-        make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, ys, cobar, scr, ybar,
-        ybar_steps);
+  return replay_bwd_emit<2>(B, P, n_in, K, hc, n_steps, bg, adapt, hi, mid, nullptr, hiT, midT,
+                            nullptr, iw, kv, st, ys, cobar, scr, ybar, ybar_steps, stream);
+}
+
+// The f32-exact engine's team kernels, on the three-term split
+// (prepare_premixed_split); work (B8t-team): 3 P^2 + n_in P floats, the
+// step's accumulators. P must be a multiple of 8.
+int cf_ode_replay_fwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                           const float* bg, const float* adapt, const void* hi, const void* mid,
+                           const void* lo, const float* iw, const float* kv, const float* st,
+                           const float* y0, float* scr, float* ys, float* coeffs, void* stream) {
+  return replay_fwd_team<3>(B, P, n_in, K, hc, n_steps, bg, adapt, hi, mid, lo, iw, kv, st, y0,
+                            scr, ys, coeffs, stream);
+}
+
+int cf_ode_replay_bwd_emit_split3(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                                  const float* bg, const float* adapt, const void* hi,
+                                  const void* mid, const void* lo, const void* hiT,
+                                  const void* midT, const void* loT, const float* iw,
+                                  const float* kv, const float* st, const float* ys,
+                                  const float* cobar, float* scr, float* ybar, float* ybar_steps,
+                                  void* stream) {
+  return replay_bwd_emit<3>(B, P, n_in, K, hc, n_steps, bg, adapt, hi, mid, lo, hiT, midT, loT,
+                            iw, kv, st, ys, cobar, scr, ybar, ybar_steps, stream);
+}
+
+int cf_ode_replay_bwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                           const float* bg, const float* adapt, const void* hi, const void* mid,
+                           const void* lo, const void* hiT, const void* midT, const void* loT,
+                           const float* iw, const float* kv, const float* st, const float* ys,
+                           const float* cobar, float* scr, float* ybar, float* d_wT,
+                           float* d_iwT, float* work, void* stream) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  if (P % kCluster || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t team = team_smem(P, B, 3, 6, 1);
+  const size_t bytes = team + 2 * wx_bytes(P, B);
+  if (int e = set_smem(ode_replay_bwd_team_kernel, bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, (const bf16*)hiT,
+             (const bf16*)midT, (const bf16*)loT, iw};
+  ode_replay_bwd_team_kernel<<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, (int)team, st, ys, cobar, scr,
+      ybar, d_wT, d_iwT, work);
   return (int)cudaGetLastError();
 }
 

@@ -842,61 +842,6 @@ sde3_bwd_emit_kernel(Net n, Grid3 g, int stride, Wg w, const float* __restrict__
 // is B4't's and the plain version's bit for bit. d_iwT's columns the same
 // way, in float32.
 
-// One VJP's exchange for the weight cotangents.
-struct WX {
-  bf16* x;     // (3, nb, P) the rates' bf16 terms, every population
-  float* c;    // (nb, P) the current's cotangent, every population
-  float* ext;  // (nb, kMaxInputs) the stimulus at each lane's time (this block's own copy)
-};
-
-__host__ __device__ inline size_t wx_bytes(int P, int nb) {
-  const size_t x = ((size_t)3 * nb * P * sizeof(bf16) + 15) / 16 * 16;
-  return x + (size_t)nb * (P + kMaxInputs) * sizeof(float);
-}
-
-__device__ WX wx_at(unsigned char* p, int P, int nb) {
-  WX x;
-  x.x = reinterpret_cast<bf16*>(p);
-  x.c = reinterpret_cast<float*>(p + ((size_t)3 * nb * P * sizeof(bf16) + 15) / 16 * 16);
-  x.ext = x.c + (size_t)nb * P;
-  return x;
-}
-
-// The state cotangent of one drift evaluation of the team's lanes at y for
-// the output cotangent ct -> out (own entries), as vjp3_team, exchanging
-// into x both the current's cotangent and the rates' three bf16 terms of the
-// own populations, and the stimulus at each lane's time tl[b] (for d iwT).
-// Ends with a block barrier.
-__device__ void vjp3_team_w(const Net& n, Team& T, const float* tl, const float* y,
-                            const float* ct, float* out, const Wg& w, const WX& x) {
-  cg::cluster_group cl = cg::this_cluster();
-  const int P = n.P, nb = T.nb;
-  for (int e = threadIdx.x; e < nb * T.nc; e += blockDim.x) {
-    const int b = e / T.nc, c = T.c0 + (e - b * T.nc);
-    float fr, frp, hi, mid, lo;
-    fr_and_grad(y[b * T.S + c] - y[b * T.S + P + c], fr, frp);
-    T.fr[e] = frp;
-    split3(fr, hi, mid, lo);
-    const bf16 th = __float2bfloat16_rn(hi), tm = __float2bfloat16_rn(mid),
-               tlo = __float2bfloat16_rn(lo);
-    const float cc = ((ct[b * T.S + c] / n.tau_m) * n.R) * n.tau_s;
-    for (int q = 0; q < kCluster; ++q) {
-      bf16* dx = cl.map_shared_rank(x.x, q);
-      dx[(size_t)b * P + c] = th;
-      dx[((size_t)nb + b) * P + c] = tm;
-      dx[((size_t)2 * nb + b) * P + c] = tlo;
-      cl.map_shared_rank(x.c, q)[(size_t)b * P + c] = cc;
-    }
-  }
-  for (int idx = threadIdx.x; idx < nb * n.n_in; idx += blockDim.x) {
-    const int b = idx / n.n_in, m = idx - b * n.n_in;
-    x.ext[b * kMaxInputs + m] = knot_interp(n, b, m, tl[b]);
-  }
-  cl.sync();
-  vjp_products<3>(n, T, x.c, ct, out, w);
-  __syncthreads();
-}
-
 // Over steps n_real-1..0, as sde3_bwd_kernel. scr: 7 B 3P floats (f1, h2,
 // c, cw, c_h2, c_y, ybar); work: P^2 + n_in P floats (the chunk sums of
 // d_wT and d_iwT). team_bytes: the Team's shared memory (team_smem), after
@@ -968,14 +913,14 @@ sde3_bwd_team_kernel(Net n, Grid3 g, int stride, int chunk, Wg w, int team_bytes
       cw[off] = ((h * cc[off]) / 3.0f) * 2.0f;
     }
     __syncthreads();
-    vjp3_team_w(n, T, t2, h2, cw, ch2, w, wx2);
+    vjp3_team_w(n, T, 0.0f, t2, h2, cw, ch2, w, wx2);
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
       const float h = hl[off / S];
       cw[off] = (h * cc[off]) / 3.0f + (0.75f * h) * ch2[off];
     }
     __syncthreads();
-    vjp3_team_w(n, T, tl, y, cw, cy, w, wx1);
+    vjp3_team_w(n, T, 0.0f, tl, y, cw, cy, w, wx1);
     const bool cut = stride > 0 && k % stride == 0;
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);

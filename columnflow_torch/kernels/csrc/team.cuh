@@ -1,8 +1,9 @@
 // Teams of thread blocks: one thread-block cluster of kCluster blocks runs
 // the drift evaluations and drift VJPs of one lane (or of one batch) of the
 // column network at widths where a step does not fit one block. What the
-// dopri5 kernels (network_ode.cu: B6 at any width, the split2 tier's B7 and
-// B8') and the three-term SDE sweeps (network_sde.cu: B3t-team, B4t) share.
+// dopri5 kernels (network_ode.cu: B6 at any width, B7 and B8' on either
+// split, B8t-team) and the three-term SDE sweeps (network_sde.cu: B3t-team,
+// B4t, B4't-team) share.
 // Included once per source; every source is its own library, so the
 // definitions live in an unnamed namespace.
 
@@ -11,6 +12,7 @@
 #include <cooperative_groups.h>
 
 #include "network_drift.cuh"
+#include "split3_drift.cuh"
 
 namespace {
 
@@ -441,6 +443,65 @@ __device__ void vjp2_team(const Net& n, Team& T, const float* y, const float* ct
 __device__ void vjp3_team(const Net& n, Team& T, const float* y, const float* ct, float* out,
                           const Wg& w) {
   vjp_team<3>(n, T, y, ct, out, w);
+}
+
+// One drift VJP's exchange for the weight cotangents of the kernel-mode
+// sweeps that hold the batch on one team (network_sde.cu's B4't-team,
+// network_ode.cu's B8t-team): every block receives every population's
+// terms, so each forms the weight-cotangent entries of its own output
+// columns by itself.
+struct WX {
+  bf16* x;     // (3, nb, P) the rates' bf16 terms, every population
+  float* c;    // (nb, P) the current's cotangent, every population
+  float* ext;  // (nb, kMaxInputs) the stimulus at each lane's time (this block's own copy)
+};
+
+__host__ __device__ inline size_t wx_bytes(int P, int nb) {
+  const size_t x = ((size_t)3 * nb * P * sizeof(bf16) + 15) / 16 * 16;
+  return x + (size_t)nb * (P + kMaxInputs) * sizeof(float);
+}
+
+__device__ WX wx_at(unsigned char* p, int P, int nb) {
+  WX x;
+  x.x = reinterpret_cast<bf16*>(p);
+  x.c = reinterpret_cast<float*>(p + ((size_t)3 * nb * P * sizeof(bf16) + 15) / 16 * 16);
+  x.ext = x.c + (size_t)nb * P;
+  return x;
+}
+
+// The state cotangent of one three-term drift evaluation of the team's lanes
+// at y for the output cotangent ct -> out (own entries), as vjp3_team,
+// exchanging into x both the current's cotangent and the rates' three bf16
+// terms of the own populations, and the stimulus at the shared time t (or
+// lane b at its own time tl[b]) for d iwT. Ends with a block barrier.
+__device__ void vjp3_team_w(const Net& n, Team& T, float t, const float* tl, const float* y,
+                            const float* ct, float* out, const Wg& w, const WX& x) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int P = n.P, nb = T.nb;
+  for (int e = threadIdx.x; e < nb * T.nc; e += blockDim.x) {
+    const int b = e / T.nc, c = T.c0 + (e - b * T.nc);
+    float fr, frp, hi, mid, lo;
+    fr_and_grad(y[b * T.S + c] - y[b * T.S + P + c], fr, frp);
+    T.fr[e] = frp;
+    split3(fr, hi, mid, lo);
+    const bf16 th = __float2bfloat16_rn(hi), tm = __float2bfloat16_rn(mid),
+               tlo = __float2bfloat16_rn(lo);
+    const float cc = ((ct[b * T.S + c] / n.tau_m) * n.R) * n.tau_s;
+    for (int q = 0; q < kCluster; ++q) {
+      bf16* dx = cl.map_shared_rank(x.x, q);
+      dx[(size_t)b * P + c] = th;
+      dx[((size_t)nb + b) * P + c] = tm;
+      dx[((size_t)2 * nb + b) * P + c] = tlo;
+      cl.map_shared_rank(x.c, q)[(size_t)b * P + c] = cc;
+    }
+  }
+  for (int idx = threadIdx.x; idx < nb * n.n_in; idx += blockDim.x) {
+    const int b = idx / n.n_in, m = idx - b * n.n_in;
+    x.ext[b * kMaxInputs + m] = knot_interp(n, T.b0 + b, m, tl ? tl[b] : t);
+  }
+  cl.sync();
+  vjp_products<3>(n, T, x.c, ct, out, w);
+  __syncthreads();
 }
 
 // Check the shape and request the shared memory of a team kernel for nb

@@ -9,10 +9,13 @@ with a plain PyTorch version beside it that repeats its arithmetic:
     wrapper               kernel                     plain version               replaces (columnflow/solvers/fused.py)
     ode_select            cf_ode_select              _ode_select_plain           _make_adaptive_kernel
     ode_attempt           cf_ode_attempt             _ode_attempt_plain          one iteration of that kernel's body
-    ode_replay_fwd        cf_ode_replay_fwd          _ode_replay_fwd_plain       _make_replay_chunk_kernel
-    ode_replay_bwd        cf_ode_replay_bwd          _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode
+    ode_replay_fwd        cf_ode_replay_fwd          _ode_replay_fwd_plain       _make_replay_chunk_kernel (B7;
+                          (cf_ode_replay_fwd_team)                               as a team, B7t-team: ``ode_fwd_route``)
+    ode_replay_bwd        cf_ode_replay_bwd          _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode (B8;
+                          (cf_ode_replay_bwd_team)                               as a team, B8t-team: ``ode_bwd_route``)
     ode_replay_fwd_split2 cf_ode_replay_fwd_split2   _ode_replay_fwd_plain       _make_replay_chunk_kernel, split2
     ode_replay_bwd_emit   cf_ode_replay_bwd_emit     _ode_replay_bwd_emit_plain  _make_bwd_chunk_kernel, emit mode
+                          (split2: B8'), cf_ode_replay_bwd_emit_split3 (three-term split: B8't)
 
 The JAX kernels trace any drift. These compute the parity task's
 deterministic drift: ``network_drift_premixed`` with the knot stimulus and a
@@ -21,21 +24,27 @@ split (``prepare_premixed_split``) in both tiers: the f32-exact engine's
 drift, and the split2 tier's ``select_func`` on ``select_args``; its wrapper
 takes the split with PyTorch ops (the values the JAX kernel's prepare hook
 computes inside). ``ode_replay_fwd`` and ``ode_replay_bwd`` are the exact
-engine's replay and kernel-mode sweep at the reference width: they split the
+engine's replay and kernel-mode sweep: at the reference width they split the
 float32 ``wT`` themselves into shared memory, and the sweep runs the batch
 in one block (its weight cotangents are contracted over the batch before
-they are rounded to bf16). ``ode_replay_fwd_split2`` and
-``ode_replay_bwd_emit`` are the ``fused-split2`` tier, on the two-term split
-(``prepare_premixed_split2``); the sweep is the emit mode: the state
+they are rounded to bf16). ``ode_replay_fwd_split2`` is the ``fused-split2``
+tier's replay, on the two-term split (``prepare_premixed_split2``).
+``ode_replay_bwd_emit`` is the emit mode on either split: the state
 cotangent alone, with each step's output cotangent written out for the
-weight gradients outside the kernels (``solvers.fused.ode_outer_arg_grads``).
+weight gradients outside the kernels (``solvers.fused.ode_outer_arg_grads``):
+the split2 tier at every width, the exact engine where its weights hold more
+than 1 MiB (from 64 columns with 4 inputs).
 
-Where nothing of a step fits one block (P = 832: 4.15 MB of three-term
-weights), the selection and the split2 tier's kernels keep the weights in
-global memory (L2) and spread each drift evaluation over a team of blocks
-(one thread-block cluster): one team for the selection's batch (one
-controller steers the whole (B, 3P) state), one per lane for the replay and
-the sweep.
+Where a step does not fit one block (the replay's three-term weights from 24
+columns, the sweep's batch and weights from 18 columns at 4 lanes; at P =
+832 the three-term weights alone are 4.15 MB), the kernels keep the weights
+in global memory (L2) and spread each drift evaluation over a team of
+blocks (one thread-block cluster): one team for the selection's batch (one
+controller steers the whole (B, 3P) state) and for the kernel-mode sweep's
+(B8t-team: each block forms the weight cotangents of its own output
+columns), one per lane for the replay and the emit-mode sweep. Which kernel
+runs is decided by shape before the launch (``ode_fwd_route``,
+``ode_bwd_route``).
 
 The wrappers take the plain version for tensors on the CPU; for CUDA tensors
 they launch the kernel or raise. ``LAUNCHES`` counts kernel launches (the
@@ -53,6 +62,9 @@ from typing import NamedTuple
 import torch
 
 from columnflow_torch.kernels.network_sde import (
+    _MAX_INPUTS,
+    _THREADS,
+    SMEM_BLOCK_BYTES,
     SDEConsts,
     _check,
     _drift_host_consts,
@@ -68,6 +80,7 @@ from columnflow_torch.models.network import (
     network_drift_premixed,
     network_drift_premixed_split2_vjp,
     network_drift_premixed_split2_weight_vjp,
+    network_drift_premixed_split3_vjp,
     network_drift_premixed_split_vjp,
     prepare_premixed_split,
     split2_fold,
@@ -81,7 +94,8 @@ from columnflow_torch.solvers import rk
 # same numbers as literals.
 _SAFETY, _IFACTOR, _DFACTOR, _ORDER = 0.9, 10.0, 0.2, 5
 LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_bwd": 0,
-            "ode_replay_fwd_split2": 0, "ode_replay_bwd_emit": 0}
+            "ode_replay_fwd_split2": 0, "ode_replay_bwd_emit": 0, "ode_replay_fwd_team": 0,
+            "ode_replay_bwd_team": 0, "ode_replay_bwd_emit_split3": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 
@@ -301,8 +315,9 @@ def step_vjp(t0, h, y, ybar, cbar, w, sc: SDEConsts, kv, weights: bool = True):
     accumulators."""
     f = _network_f(w, sc, kv)
     if not weights:
-        return rk_step_vjp(f, lambda t, Y, kb: network_drift_premixed_split2_vjp(Y, kb, w, sc.fc),
-                           t0, h, y, ybar, cbar)
+        state_vjp = (network_drift_premixed_split3_vjp if "wT_lo" in w
+                     else network_drift_premixed_split2_vjp)
+        return rk_step_vjp(f, lambda t, Y, kb: state_vjp(Y, kb, w, sc.fc), t0, h, y, ybar, cbar)
     if "wT_lo" in w:
         vjp, fold = network_drift_premixed_split_vjp, split3_fold
     else:
@@ -334,17 +349,17 @@ def _ode_replay_bwd_plain(ys, cobar, st, w3, sc, kv):
 
 
 @torch.no_grad()
-def _ode_replay_bwd_emit_plain(ys, cobar, st, w2, sc, kv):
+def _ode_replay_bwd_emit_plain(ys, cobar, st, w, sc, kv):
     """The emit-mode reverse sweep over steps n-1..0, the state cotangent
     alone: (ybar0 (B, 3P), ybar_steps (n, B, 3P)); ybar_steps[k] is the
     cotangent on step k's output that the later steps send back, written
-    before step k's VJP."""
+    before step k's VJP. ``w``: the three-term split or the two-term one."""
     n = ys.shape[0]
     ybar = cobar.new_zeros(tuple(cobar.shape[2:]))
     ybar_steps = torch.empty_like(ys)
     for k in range(n - 1, -1, -1):
         ybar_steps[k] = ybar
-        ybar = step_vjp(st[k], st[k + 1] - st[k], ys[k], ybar, cobar[k], w2, sc, kv,
+        ybar = step_vjp(st[k], st[k + 1] - st[k], ys[k], ybar, cobar[k], w, sc, kv,
                         weights=False)
     return ybar, ybar_steps
 
@@ -379,29 +394,87 @@ def _replay_named(st, n):
     return {"step_times": (st, _F32, (n + 1,))}
 
 
-def ode_replay_fwd(y0, st, pw, sc: SDEConsts, kv):
-    """The replay of the frozen grid st (n + 1,) from y0 (B, 3P): returns
-    (ys (n, B, 3P) the step-start states, coeffs (n, 5, B, 3P) the dense-
-    output rows of every step)."""
+def ode_block_bytes(P: int, n_in: int, B: int, sweep: bool) -> int:
+    """Shared memory that the one-block replay (B7, ``sweep`` False: one lane
+    per block) or kernel-mode sweep (B8, ``sweep`` True: the batch of B
+    lanes in one block) asks for at (P, n_in): ``setup_floats`` of
+    csrc/split3_drift.cuh (the three-term weights, iwT and the drift's
+    scratch), ten (3P) state vectors per lane for the replay, sixteen and
+    the step's (n_in, P) iwT sum for the sweep. The library computes the
+    same count (``cf_ode_block_bytes``, ``block_bytes`` in
+    csrc/network_ode.cu); the card's tests hold the two equal."""
+    nb, vectors, extra = (B, 16, n_in * P) if sweep else (1, 10, 0)
+    floats = ((3 * P * P + 1) // 2 + n_in * P + 5 * nb * P + nb * _MAX_INPUTS + 1
+              + 2 * (_THREADS // 32) + vectors * nb * 3 * P + extra)
+    return 4 * floats
+
+
+def ode_fwd_route(P: int, n_in: int) -> str:
+    """Which kernel computes ``ode_replay_fwd`` on the card, by shape alone:
+    "block" (B7, ``cf_ode_replay_fwd``, one block per lane) where its
+    ``ode_block_bytes`` fit the 232,448 bytes of shared memory a block can
+    use, else "team" (B7t-team, ``cf_ode_replay_fwd_team``: a team of 8
+    blocks per lane, the weights streamed from L2). With 4 inputs that is
+    "block" through 23 columns (P = 184) and "team" from 24."""
+    return "block" if ode_block_bytes(P, n_in, 1, False) <= SMEM_BLOCK_BYTES else "team"
+
+
+def ode_bwd_route(P: int, n_in: int, B: int) -> str:
+    """Which kernel computes ``ode_replay_bwd`` on the card, by shape alone:
+    "block" (B8, ``cf_ode_replay_bwd``, the batch in one block) where its
+    ``ode_block_bytes`` fit the 232,448 bytes of shared memory a block can
+    use, else "team" (B8t-team, ``cf_ode_replay_bwd_team``: the batch on
+    one team of 8 blocks, the weights streamed from L2). With 4 inputs and
+    4 lanes that is "block" through 17 columns (P = 136) and "team" from 18;
+    fewer lanes move the edge up, more move it down (16 lanes take the team
+    at 13 columns)."""
+    return "block" if ode_block_bytes(P, n_in, B, True) <= SMEM_BLOCK_BYTES else "team"
+
+
+def ode_replay_fwd(y0, st, pw, sc: SDEConsts, kv, w3=None):
+    """The replay of the frozen grid st (n + 1,) from y0 (B, 3P) on the
+    three-term split of pw = {"wT", "iwT"} (float32): returns (ys (n, B,
+    3P) the step-start states, coeffs (n, 5, B, 3P) the dense-output rows of
+    every step). On the card B7 or B7t-team, as ``ode_fwd_route`` decides
+    by shape before the launch. ``w3``: that split (contiguous), where the
+    caller already holds it; B7 splits wT itself."""
     n = st.shape[0] - 1
     if not _on_cuda(y0, {**_named(y0, pw, sc, kv), **_replay_named(st, n)}):
-        return _ode_replay_fwd_plain(y0, st, _w3(pw, sc), sc, kv)
+        return _ode_replay_fwd_plain(y0, st, _w3(pw, sc) if w3 is None else w3, sc, kv)
     B, S = y0.shape
     ys = torch.empty((n, B, S), dtype=_F32, device=y0.device)
     coeffs = torch.empty((n, 5, B, S), dtype=_F32, device=y0.device)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
     dims, ptrs = _net_args(y0, pw, sc, kv)
-    _check(_lib().cf_ode_replay_fwd(*dims, hc_p, n, *ptrs, st.data_ptr(), y0.data_ptr(),
-                                    ys.data_ptr(), coeffs.data_ptr(), _stream(y0)),
-           "ode_replay_fwd")
-    LAUNCHES["ode_replay_fwd"] += 1
+    if ode_fwd_route(S // 3, kv.shape[2]) == "block":
+        _check(_lib().cf_ode_replay_fwd(*dims, hc_p, n, *ptrs, st.data_ptr(), y0.data_ptr(),
+                                        ys.data_ptr(), coeffs.data_ptr(), _stream(y0)),
+               "ode_replay_fwd")
+        LAUNCHES["ode_replay_fwd"] += 1
+        return ys, coeffs
+    w3 = _w3_cuda(pw, sc) if w3 is None else w3
+    scratch = torch.empty(10 * B * S, dtype=_F32, device=y0.device)
+    bg, adapt, kvp = _consts(sc, kv)
+    _check(_lib().cf_ode_replay_fwd_team(*dims, hc_p, n, bg, adapt, *_w_ptrs(w3, _W3), kvp,
+                                         st.data_ptr(), y0.data_ptr(), scratch.data_ptr(),
+                                         ys.data_ptr(), coeffs.data_ptr(), _stream(y0)),
+           "ode_replay_fwd_team")
+    LAUNCHES["ode_replay_fwd_team"] += 1
     return ys, coeffs
+
+
+def _terms_and_transposes(w, terms):
+    """The bf16 terms of a split and their transposes, contiguous, in the
+    order the team sweeps take them: terms..., transposes..."""
+    ws = tuple(w[k].contiguous() for k in terms)
+    return ws + tuple(t.T.contiguous() for t in ws)
 
 
 def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv):
     """The reverse sweep: ys (n, B, 3P) the step-start states, cobar (n, 5,
     B, 3P) the cotangents of the dense-output rows. Returns (ybar0 (B, 3P),
-    d wT (P, P), d iwT (n_in, P))."""
+    d wT (P, P), d iwT (n_in, P)). On the card B8 or B8t-team, as
+    ``ode_bwd_route`` decides by shape before the launch."""
     n, B, S = ys.shape
     P, n_in = S // 3, kv.shape[2]
     named = {"ys": (ys, _F32, (n, B, S)), "cobar": (cobar, _F32, (n, 5, B, S)),
@@ -413,14 +486,26 @@ def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv):
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     d_wT = torch.empty((P, P), dtype=_F32, device=dev)
     d_iwT = torch.empty((n_in, P), dtype=_F32, device=dev)
-    work = torch.empty((3, P, P), dtype=_F32, device=dev)  # the step's bf16 accumulators
     hc, hc_p = _host_floats(_drift_host_consts(sc))
     dims, ptrs = _net_args(ys, pw, sc, kv)
-    _check(_lib().cf_ode_replay_bwd(*dims, hc_p, n, *ptrs, st.data_ptr(), ys.data_ptr(),
-                                    cobar.data_ptr(), ybar.data_ptr(), d_wT.data_ptr(),
-                                    d_iwT.data_ptr(), work.data_ptr(), _stream(ys)),
-           "ode_replay_bwd")
-    LAUNCHES["ode_replay_bwd"] += 1
+    if ode_bwd_route(P, n_in, B) == "block":
+        work = torch.empty((3, P, P), dtype=_F32, device=dev)  # the step's bf16 accumulators
+        _check(_lib().cf_ode_replay_bwd(*dims, hc_p, n, *ptrs, st.data_ptr(), ys.data_ptr(),
+                                        cobar.data_ptr(), ybar.data_ptr(), d_wT.data_ptr(),
+                                        d_iwT.data_ptr(), work.data_ptr(), _stream(ys)),
+               "ode_replay_bwd")
+        LAUNCHES["ode_replay_bwd"] += 1
+        return ybar, d_wT, d_iwT
+    w3 = _w3_cuda(pw, sc)
+    scratch = torch.empty((16, B, S), dtype=_F32, device=dev)
+    work = torch.empty((3 * P + n_in, P), dtype=_F32, device=dev)  # and the step's iwT sum
+    bg, adapt, kvp = _consts(sc, kv)
+    _check(_lib().cf_ode_replay_bwd_team(
+        *dims, hc_p, n, bg, adapt, *(t.data_ptr() for t in _terms_and_transposes(w3, _W3)),
+        w3["iwT"].data_ptr(), kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),
+        scratch.data_ptr(), ybar.data_ptr(), d_wT.data_ptr(), d_iwT.data_ptr(), work.data_ptr(),
+        _stream(ys)), "ode_replay_bwd_team")
+    LAUNCHES["ode_replay_bwd_team"] += 1
     return ybar, d_wT, d_iwT
 
 
@@ -527,30 +612,34 @@ def ode_replay_fwd_split2(y0, st, w2, sc: SDEConsts, kv):
     return ys, coeffs
 
 
-def ode_replay_bwd_emit(ys, cobar, st, w2, sc: SDEConsts, kv):
-    """The emit-mode reverse sweep of ``ode_replay_fwd_split2``: ys (n, B,
-    3P) the step-start states, cobar (n, 5, B, 3P) the cotangents of the
-    dense rows. Returns (ybar0 (B, 3P), ybar_steps (n, B, 3P)), ybar_steps[k]
-    the cotangent on step k's output from the later steps."""
+def ode_replay_bwd_emit(ys, cobar, st, w, sc: SDEConsts, kv):
+    """The emit-mode reverse sweep of the replay: ys (n, B, 3P) the
+    step-start states, cobar (n, 5, B, 3P) the cotangents of the dense
+    rows, ``w`` the split the replay ran on: the three-term one
+    (``prepare_premixed_split``, B8't: the f32-exact engine in outer mode)
+    or the two-term one (``prepare_premixed_split2``, B8': the split2
+    tier). Returns (ybar0 (B, 3P), ybar_steps (n, B, 3P)), ybar_steps[k]
+    the cotangent on step k's output from the later steps. One team of 8
+    blocks per lane, at any width."""
     n, B, S = ys.shape
     P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
+    split3 = "wT_lo" in w
+    terms = _W3 if split3 else _W2
     named = {"ys": (ys, _F32, (n, B, S)), "cobar": (cobar, _F32, (n, 5, B, S)),
-             **_split_named(w2, P, n_in, _W2), **_drift_named(sc, kv, B, P),
+             **_split_named(w, P, n_in, terms), **_drift_named(sc, kv, B, P),
              **_replay_named(st, n)}
     if not _on_cuda(ys, named):
-        return _ode_replay_bwd_emit_plain(ys, cobar, st, w2, sc, kv)
+        return _ode_replay_bwd_emit_plain(ys, cobar, st, w, sc, kv)
     dev = ys.device
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     ybar_steps = torch.empty_like(ys)
     scratch = torch.empty(16 * B * S, dtype=_F32, device=dev)
-    hiT, midT = (w2[k].T.contiguous() for k in _W2)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
     bg, adapt, kvp = _consts(sc, kv)
-    _check(_lib().cf_ode_replay_bwd_emit(B, P, n_in, K, hc_p, n, bg, adapt, *_w_ptrs(w2, _W2)[:2],
-                                         hiT.data_ptr(), midT.data_ptr(), w2["iwT"].data_ptr(),
-                                         kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),
-                                         scratch.data_ptr(), ybar.data_ptr(),
-                                         ybar_steps.data_ptr(), _stream(ys)),
-           "ode_replay_bwd_emit")
-    LAUNCHES["ode_replay_bwd_emit"] += 1
+    name = "ode_replay_bwd_emit_split3" if split3 else "ode_replay_bwd_emit"
+    _check(getattr(_lib(), "cf_" + name)(
+        B, P, n_in, K, hc_p, n, bg, adapt, *(t.data_ptr() for t in _terms_and_transposes(w, terms)),
+        w["iwT"].data_ptr(), kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),
+        scratch.data_ptr(), ybar.data_ptr(), ybar_steps.data_ptr(), _stream(ys)), name)
+    LAUNCHES[name] += 1
     return ybar, ybar_steps

@@ -563,6 +563,18 @@ def split3_fold(acc):
     return r + _bf(hi + _bf(-r))
 
 
+def network_drift_premixed_split3_vjp(y, ct, pw3, fc):
+    """State cotangent of ``network_drift_premixed`` with the three-term
+    weights (``prepare_premixed_split`` output) at state y for output
+    cotangent ``ct``: the state part of ``network_drift_premixed_split_vjp``,
+    without the weight cotangents; the stimulus is data (no time cotangent)."""
+    P = fc["bg"].shape[0]
+    _, frp = fr_and_grad(y[..., :P] - y[..., P : 2 * P])
+    c_cur = _cot_current(ct[..., :P], fc)
+    x_bar = split3_cotangent(c_cur, pw3["wT_hi"], pw3["wT_mid"], pw3["wT_lo"])
+    return _state_cot(y, ct, x_bar, frp, fc)
+
+
 def network_drift_premixed_split_vjp(t, y, ct, pw3, fc, stim: Stimulus, interp_fn=interp_at,
                                      acc=None):
     """VJP of ``network_drift_premixed`` with the three-term weights

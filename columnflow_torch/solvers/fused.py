@@ -4,10 +4,11 @@ in ``columnflow/solvers/fused.py``).
 ``odeint_dopri5_fused`` (below, second half): adaptive dopri5 with the
 selection, the dense-output replay and its reverse sweep each one kernel
 (``kernels.network_ode``), specialised to the parity task's deterministic
-drift: the f32-exact engine (three-term split, weight gradients in the
-reverse-sweep kernel) and the ``fused-split2`` tier (two-term split, the
-reverse sweep in emit mode, weight gradients outside the kernels,
-``ode_outer_arg_grads``).
+drift: the f32-exact engine (three-term split; the weight gradients in the
+reverse-sweep kernel through 63 columns, outside the kernels from 64 as the
+JAX package takes them) and the ``fused-split2`` tier (two-term split, the
+reverse sweep in emit mode, weight gradients outside the kernels). Outside
+the kernels means ``ode_outer_arg_grads``, on the replay's own split.
 
 ``sdeint_fused``: fixed-grid SRA1 with its gradient, specialised to what
 the parity task integrates: ``network_drift_premixed`` with the knot
@@ -481,8 +482,10 @@ def round_max_steps(state_shape, max_steps: int) -> int:
 
 
 class _ODEReplay(torch.autograd.Function):
-    """Forward: ``ode_replay_fwd``; backward: ``ode_replay_bwd``. Gradients
-    reach wT, iwT and y0; the step grid is data."""
+    """The f32-exact engine in kernel mode. Forward: ``ode_replay_fwd`` (B7
+    or B7t-team); backward: ``ode_replay_bwd`` (B8 or B8t-team), the weight
+    gradients in the sweep. Gradients reach wT, iwT and y0; the step grid is
+    data."""
 
     @staticmethod
     def forward(ctx, wT, iwT, y0, st, spec):
@@ -526,56 +529,77 @@ def resolve_arg_grads(pw: dict, arg_grads: str = "auto") -> str:
     return "outer" if outer_by_default(*pw["wT"].shape[:1], pw["iwT"].shape[0]) else "kernel"
 
 
+# Float64 bytes of one (block, P, P) temporary of ``ode_outer_arg_grads``:
+# 128 steps up to P = 1024 (the 104-column width, P = 832, keeps 128), fewer
+# past that (21 at P = 2496, 312 columns), where 128 would not fit the card.
+OUTER_BLOCK_BYTES = 1 << 30
+
+
 def ode_outer_arg_grads(ys, ybar_steps, cobar, st, pw: dict, sc: SDEConsts, kv,
-                        block: int = 128):
-    """The weight gradients of the split2 replay (``_outer_arg_grads``,
+                        prepare=prepare_premixed_split2, block: int | None = None, w=None):
+    """The weight gradients of the replay in outer mode (``_outer_arg_grads``,
     ``columnflow/solvers/fused.py:645-686``): for every accepted step k,
     the VJP of the replay step at (ys[k], st[k], st[k+1] - st[k]) with
-    respect to wT and iwT through ``prepare_premixed_split2``, fed the
-    cotangent ybar_steps[k] on the step's output and cobar[k] on its dense
-    rows; summed over the steps in float32. The steps run ``block`` at a
-    time as one batched ``step_vjp``; each keeps its own bf16 accumulators,
-    folded through the split once per step, as ``jax.vmap`` of ``jax.vjp``
+    respect to wT and iwT through ``prepare`` (``prepare_premixed_split2``:
+    the split2 tier; ``prepare_premixed_split``: the f32-exact engine from
+    64 columns), fed the cotangent ybar_steps[k] on the step's output and
+    cobar[k] on its dense rows; summed over the steps in float32. The steps
+    run ``block`` at a time as one batched ``step_vjp``; each keeps its own
+    bf16 accumulators, folded through the split once per step
+    (``split2_fold`` / ``split3_fold``), as ``jax.vmap`` of ``jax.vjp``
     does. Only the n accepted steps are passed, so there is no padding.
     A block's temporaries are (block, P, P) float64 (0.7 GB at P = 832); the
     pass is a few hundred PyTorch launches per block whatever its size, so
-    large blocks keep the launches' share small."""
-    w2 = prepare_premixed_split2({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
+    large blocks keep the launches' share small. ``block`` None: 128 steps,
+    fewer where one (block, P, P) float64 temporary would pass
+    ``OUTER_BLOCK_BYTES``. ``w``: ``prepare``'s split of pw, where the
+    caller already holds it (the replay ran on it)."""
+    if w is None:
+        w = prepare({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
     d_wT = torch.zeros_like(pw["wT"], dtype=torch.float32)
     d_iwT = torch.zeros_like(pw["iwT"], dtype=torch.float32)
+    P = pw["wT"].shape[0]
+    if block is None:
+        block = max(1, min(128, OUTER_BLOCK_BYTES // (8 * P * P)))
     t0s, hs = st[:-1], st[1:] - st[:-1]
     for s in range(0, ys.shape[0], block):
         sl = slice(s, s + block)
         _, gw, giw = step_vjp(t0s[sl, None, None], hs[sl, None, None], ys[sl], ybar_steps[sl],
-                              cobar[sl], w2, sc, kv)
+                              cobar[sl], w, sc, kv)
         d_wT += gw.sum(0)
         d_iwT += giw.sum(0)
     return d_wT, d_iwT
 
 
-class _ODEReplaySplit2(torch.autograd.Function):
-    """The split2 tier with ``arg_grads="outer"``. Forward:
-    ``ode_replay_fwd_split2``; backward: ``ode_replay_bwd_emit`` for the
-    state cotangent and each step's output cotangent, then
-    ``ode_outer_arg_grads`` for wT and iwT."""
+class _ODEReplayOuter(torch.autograd.Function):
+    """``arg_grads="outer"`` on either split: the split2 tier (``spec``'s
+    prepare ``prepare_premixed_split2``) and the f32-exact engine from 64
+    columns (``prepare_premixed_split``). Forward: ``ode_replay_fwd_split2``
+    or ``ode_replay_fwd`` (B7t-team there); backward: ``ode_replay_bwd_emit``
+    on the same split (B8' or B8't) for the state cotangent and each step's
+    output cotangent, then ``ode_outer_arg_grads`` for wT and iwT."""
 
     @staticmethod
     def forward(ctx, wT, iwT, y0, st, spec):
-        sc, kv = spec
-        pw = {"wT": wT.detach(), "iwT": iwT.detach()}
-        w2 = {k: v.contiguous() for k, v in prepare_premixed_split2(pw, sc.fc)[0].items()}
-        ys, coeffs = ode_replay_fwd_split2(y0.detach().contiguous(), st, w2, sc, kv)
-        ctx.spec, ctx.pw, ctx.w2 = spec, pw, w2
+        sc, kv, prepare = spec
+        pw = {"wT": wT.detach().contiguous(), "iwT": iwT.detach().contiguous()}
+        w = {k: v.contiguous() for k, v in prepare(pw, sc.fc)[0].items()}
+        y0 = y0.detach().contiguous()
+        if "wT_lo" in w:
+            ys, coeffs = ode_replay_fwd(y0, st, pw, sc, kv, w3=w)
+        else:
+            ys, coeffs = ode_replay_fwd_split2(y0, st, w, sc, kv)
+        ctx.spec, ctx.pw, ctx.w = spec, pw, w
         ctx.save_for_backward(ys, st)
         return coeffs
 
     @staticmethod
     def backward(ctx, coeffs_bar):
-        sc, kv = ctx.spec
+        sc, kv, _ = ctx.spec
         ys, st = ctx.saved_tensors
         cobar = coeffs_bar.to(torch.float32).contiguous()
-        ybar, ybar_steps = ode_replay_bwd_emit(ys, cobar, st, ctx.w2, sc, kv)
-        d_wT, d_iwT = ode_outer_arg_grads(ys, ybar_steps, cobar, st, ctx.pw, sc, kv)
+        ybar, ybar_steps = ode_replay_bwd_emit(ys, cobar, st, ctx.w, sc, kv)
+        d_wT, d_iwT = ode_outer_arg_grads(ys, ybar_steps, cobar, st, ctx.pw, sc, kv, w=ctx.w)
         return d_wT, d_iwT, ybar, None, None
 
 
@@ -591,21 +615,26 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
     through the frozen accepted steps and reach pw and y0.
 
     ``split2=False``: the f32-exact engine, the three-term split
-    (``prepare_premixed_split``) everywhere, the weight gradients inside the
-    reverse-sweep kernel. ``split2=True``: the JAX package's ``fused-split2``
-    tier (``columnflow/tasks/parity.py:452-484``): the selection keeps the
-    three-term drift on a split taken outside the kernel, so the frozen grid
-    is the exact engine's; values and gradients use the two-term split
-    (``prepare_premixed_split2``). ``arg_grads`` as in the JAX package
-    (``resolve_arg_grads``); the split2 tier is ported with ``"outer"``
-    only (the reverse sweep in emit mode, then ``ode_outer_arg_grads``), and
-    ``"kernel"`` raises. The exact engine takes its weight gradients in the
-    kernel whatever ``arg_grads`` says: the two modes sum the same per-step
-    VJPs, in another order.
+    (``prepare_premixed_split``) everywhere. ``split2=True``: the JAX
+    package's ``fused-split2`` tier (``columnflow/tasks/parity.py:452-484``):
+    the selection keeps the three-term drift on a split taken outside the
+    kernel, so the frozen grid is the exact engine's; values and gradients
+    use the two-term split (``prepare_premixed_split2``). ``arg_grads``
+    resolves as in the JAX package (``resolve_arg_grads``,
+    ``columnflow/solvers/fused.py:569-576``): "auto" takes the weight
+    gradients outside the reverse sweep ("outer") when wT and iwT hold more
+    than 1 MiB (from 64 columns with 4 inputs), else inside it ("kernel").
+    The exact engine runs either mode at any width: "kernel" the replay B7
+    (B7t-team from 24 columns) and the sweep B8 (B8t-team from 18 columns at
+    4 lanes) with the weight cotangents in it; "outer" the same replay, the
+    emit-mode sweep B8't and the step-batched weight VJPs
+    (``ode_outer_arg_grads``). The split2 tier is ported with "outer" only
+    (B8', then ``ode_outer_arg_grads``), and "kernel" raises (B8s).
 
     ``grid`` = (step_times (M+1,), naccept) skips the selection and replays
     that frozen grid (tests hand in the JAX package's grid this way)."""
-    if resolve_arg_grads(pw, arg_grads) == "kernel" and split2:
+    mode = resolve_arg_grads(pw, arg_grads)
+    if mode == "kernel" and split2:
         raise NotImplementedError(
             "the split2 tier with its weight gradients in the reverse-sweep kernel "
             "(arg_grads='kernel', or 'auto' with weights of at most 1 MiB: 63 columns or "
@@ -620,9 +649,15 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
         return ode_select(y0.detach().contiguous(),
                           {k: v.detach().contiguous() for k, v in pw.items()}, sc, kv, cfg)
 
-    replay = _ODEReplaySplit2 if split2 else _ODEReplay
-    return _dopri5_solve(select, lambda st: replay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv)),
-                         y0, ts, rtol, atol, dt0, max_steps, grid, return_stats)
+    if mode == "kernel":
+        def replay(st):
+            return _ODEReplay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv))
+    else:
+        prepare = prepare_premixed_split2 if split2 else prepare_premixed_split
+
+        def replay(st):
+            return _ODEReplayOuter.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv, prepare))
+    return _dopri5_solve(select, replay, y0, ts, rtol, atol, dt0, max_steps, grid, return_stats)
 
 
 def _dopri5_solve(select, replay, y0, ts, rtol, atol, dt0, max_steps, grid, return_stats):

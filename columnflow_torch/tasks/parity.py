@@ -11,7 +11,9 @@ selected by the JAX package's flags (``make_train_step``):
   tolerances) under one shared controller: step-size selection, the
   dense-output replay and its reverse sweep each one kernel
   (``solvers.fused.odeint_dopri5_fused``). Below 104 columns the f32-exact
-  engine; from 104 through 312 columns (``split2=True``) the
+  engine (``--engine fused`` through 312), its weight gradients in the
+  reverse sweep through 63 columns and outside it from 64, as the JAX
+  package takes them; from 104 through 312 columns (``split2=True``) the
   ``fused-split2`` tier, whose weight gradients are taken outside the
   kernels;
 - ``stochastic``: the Ito SDE (sigma = 10 on the whole state, one scalar
@@ -41,6 +43,8 @@ JAX package's).
 
     python -m columnflow_torch.tasks.parity --smoke                # on the card
     python -m columnflow_torch.tasks.parity --smoke --columns-per-area 64,32,8  # split2 tier
+    python -m columnflow_torch.tasks.parity --smoke --engine fused --columns-per-area 64,32,8 \
+        --max-steps 16384                                      # the f32-exact engine there
     python -m columnflow_torch.tasks.parity --smoke --device cpu
     python -m columnflow_torch.tasks.parity --smoke --stochastic   # the fixed-grid SDE
     python -m columnflow_torch.tasks.parity --smoke --stochastic --columns-per-area 64,32,8
@@ -357,7 +361,8 @@ def train_parity(nr_samples: int = 6400, batch_size: int = 4, seed: int = 0,
         entry = {"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
                  "update_applied": int(rec["ok"])}
         if stats is not None:
-            entry.update(naccept=stats.naccept.tolist(), nreject=stats.nreject.tolist())
+            entry.update(naccept=stats.naccept.tolist(), nreject=stats.nreject.tolist(),
+                         success=stats.success.tolist())
         history.append(entry)
     eval_stims = torch.as_tensor(parity_combinations(n_inputs), device=dev)
     eval_gen = torch.Generator(device=dev).manual_seed(1234)
@@ -525,6 +530,11 @@ def main(argv=None):
         bptt_every=args.bptt_every, clip_grad_norm=args.clip_grad_norm, smoke=args.smoke,
         device=args.device)
     final = next(h for h in reversed(hist) if "loss" in h)
+    for i, h in enumerate(x for x in hist if "naccept" in x):
+        # The selection's counts: success False means the step budget
+        # (--max-steps) ran out before the last grid point.
+        print(f"step {i}: naccept {h['naccept']} | nreject {h['nreject']} | "
+              f"success {h['success']}")
     print(f"final loss {final['loss']:.5f} | acc {hist[-1]['acc']:.2f}")
 
 

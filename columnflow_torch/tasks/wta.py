@@ -17,6 +17,10 @@ mask is None, so their gradient passes through).
 
     python -m columnflow_torch.tasks.wta --smoke           # on the card
     python -m columnflow_torch.tasks.wta --smoke --device cpu
+
+The command line takes the JAX package's flags; ``--metrics-out``,
+``--profile-dir``, ``--checkpoint-out`` and ``--resume`` raise
+``NotImplementedError`` naming ROADMAP.md A9.
 """
 
 from __future__ import annotations
@@ -223,10 +227,18 @@ def main(argv=None):
                    help="build the legacy x1e-3 anatomy generation")
     p.add_argument("--smoke", action="store_true",
                    help="tiny run: 48 samples, batch 8, 300 steps")
+    for flag in ("--metrics-out", "--profile-dir", "--checkpoint-out", "--resume"):
+        p.add_argument(flag, default=None, help="not ported: raises")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
     args = p.parse_args(argv)
+    if args.checkpoint_out is not None or args.resume is not None:
+        raise NotImplementedError("--checkpoint-out/--resume: checkpoints are not ported "
+                                  "(ROADMAP.md A9)")
+    if args.metrics_out is not None or args.profile_dir is not None:
+        raise NotImplementedError("--metrics-out/--profile-dir: metrics and profiles are not "
+                                  "ported (ROADMAP.md A9)")
 
     if args.smoke:
         kw = dict(nr_samples=48, batch_size=8, time_steps=300)

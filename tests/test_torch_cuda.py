@@ -44,9 +44,13 @@ batch 4 under one controller, 200 grid points). Kernel and plain version sum
 every product exactly and round every float32 operation alike, so they are
 held bit for bit: the whole selection (accepted times and counts, 4 and 16
 lanes), single attempts, the replay's states and dense rows, the reverse
-sweep's state and weight cotangents; the split2 tier's replay and emit-mode
-sweep; its train step against the same step on the CPU (loss rel 1e-5,
-gradients rel L2 1e-3, as the exact step's).
+sweep's state and weight cotangents (16 lanes: B8t-team); the split2 tier's
+replay and emit-mode sweep; its train step against the same step on the CPU
+(loss rel 1e-5, gradients rel L2 1e-3, as the exact step's). Past one block:
+B7t-team at 24 columns, B8t-team at 18 and 32, B8't at 64, bit for bit; the
+exact step at 32 (kernel mode) and 64 columns (outer mode) with one launch
+of each of its kernels, against the CPU (loss rel 1e-5, gradients within the
+larger of 1e-3 and ten times the CPU's own nudge spread).
 
 XOR kernels (the XOR network, the four conditions as one batch, 200 grid
 points). Kernel and plain version sum every product in one order and round
@@ -91,6 +95,10 @@ from columnflow_torch.tasks import bifurcation
 from columnflow_torch.tasks import parity
 from columnflow_torch.tasks import xor as xor_task
 from columnflow_torch.tasks.wta import DT, linspace
+
+# No gradient limit of a card-against-CPU step may exceed this rel L2 (a
+# larger one would pass a wrong gradient); chip_smoke.py holds the same cap.
+GRAD_TOL_CAP = 0.25
 
 pytestmark = pytest.mark.cuda
 
@@ -931,14 +939,27 @@ def test_ode_replay_kernels_equal_plain(ode):
 
 
 def test_ode_wrappers_raise_on_a_batch_too_large_for_one_block(ode):
+    """Sixteen (B, 312) states and the split weights exceed one block's
+    shared memory: the sweep no longer raises but routes to B8t-team (one
+    team of 8 blocks for the batch), which equals the plain version bit for
+    bit."""
     d = ode
-    B = 16  # sixteen (B, 312) states and the split weights exceed a block's shared memory
+    B = 16
     kv = d["kv"][:, :1].expand(-1, B, -1).contiguous()
-    st = torch.linspace(0.0, 1e-3, 3, device=kv.device)
-    with pytest.raises(RuntimeError, match="ode_replay_bwd"):
-        no.ode_replay_bwd(torch.zeros(2, B, 3 * d["P"], device=kv.device),
-                          torch.zeros(2, 5, B, 3 * d["P"], device=kv.device), st, d["pw"],
-                          d["sc"], kv)
+    assert no.ode_bwd_route(d["P"], 4, B) == "team"
+    y0 = torch.zeros(B, 3 * d["P"], device=kv.device)
+    st, stats = no.ode_select(y0, d["pw"], d["sc"], kv, d["cfg"])
+    stn = st[:17].contiguous()
+    ys, co = no.ode_replay_fwd(y0, stn, d["pw"], d["sc"], kv)
+    cobar = torch.randn(co.shape, generator=torch.Generator(device=kv.device).manual_seed(3),
+                        device=kv.device)
+    before = no.LAUNCHES["ode_replay_bwd_team"]
+    got = no.ode_replay_bwd(ys, cobar, stn, d["pw"], d["sc"], kv)
+    want = no._ode_replay_bwd_plain(ys, cobar, stn, d["w3"], d["sc"], kv)
+    torch.cuda.synchronize()
+    assert no.LAUNCHES["ode_replay_bwd_team"] == before + 1
+    for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
+        assert torch.isfinite(g).all() and torch.equal(g, w), name
 
 
 def _ode_step(dev, grid=None, params=None):
@@ -982,6 +1003,161 @@ def test_ode_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     rec, _, _, _ = _ode_step(dev)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The f32-exact engine past one block: B7t-team (the replay as a team per
+# lane, from 24 columns), B8t-team (the kernel-mode sweep as one team for the
+# batch, 18-63 columns) and B8't (the emit-mode sweep on the three-term split,
+# from 64 columns, with the weight gradients outside)
+# ---------------------------------------------------------------------------
+
+
+def _exact(dev, cpa, T=50):
+    from columnflow_torch.solvers.fused import round_max_steps
+
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=cpa, n_inputs=4, time_steps=T, max_steps=1024,
+                             device=dev)
+    model = parity.sde_model(task.params, task, torch.tensor(ODE_STIMS, device=dev))
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    P = task.net.num_pops
+    cfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]),
+                             max_steps=round_max_steps((4, 3 * P), 1024))
+    y0 = torch.zeros(4, 3 * P, device=dev)
+    st, stats = no.ode_select(y0, pw, model.sc, model.kv.contiguous(), cfg)
+    return dict(pw=pw, sc=model.sc, kv=model.kv.contiguous(), P=P, w3=no._w3(pw, model.sc),
+                y0=y0, st=st, n=int(stats[0]))
+
+
+def test_exact_replay_team_equals_plain(dev):
+    """B7t-team at 24 columns (P = 192, where one block's 227 KB no longer
+    hold the three-term weights) on the first 16 accepted steps."""
+    d = _exact(dev, (16, 6, 2))
+    assert no.ode_fwd_route(d["P"], 4) == "team"
+    stn = d["st"][:17].contiguous()
+    before = dict(no.LAUNCHES)
+    ys, co = no.ode_replay_fwd(d["y0"], stn, d["pw"], d["sc"], d["kv"])
+    ys_p, co_p = no._ode_replay_fwd_plain(d["y0"], stn, d["w3"], d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    assert {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]} == {
+        "ode_replay_fwd_team": 1}
+    assert torch.isfinite(co).all() and torch.equal(ys, ys_p) and torch.equal(co, co_p)
+
+
+@pytest.mark.parametrize("cpa", [(8, 6, 4), (16, 8, 8)])
+def test_exact_sweep_team_equals_plain(dev, cpa):
+    """B8t-team at 18 and 32 columns on 16 steps (ybar0, d wT and d iwT bit
+    for bit), and on an empty grid."""
+    d = _exact(dev, cpa)
+    assert no.ode_bwd_route(d["P"], 4, 4) == "team"
+    stn = d["st"][:17].contiguous()
+    ys, co = no._ode_replay_fwd_plain(d["y0"], stn, d["w3"], d["sc"], d["kv"])
+    cobar = torch.randn(co.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    before = no.LAUNCHES["ode_replay_bwd_team"]
+    got = no.ode_replay_bwd(ys.contiguous(), cobar, stn, d["pw"], d["sc"], d["kv"])
+    want = no._ode_replay_bwd_plain(ys, cobar, stn, d["w3"], d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    assert no.LAUNCHES["ode_replay_bwd_team"] == before + 1
+    for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
+        assert torch.isfinite(g).all() and torch.equal(g, w), name
+    ybar, d_wT, d_iwT = no.ode_replay_bwd(ys[:0].contiguous(), cobar[:0], stn[:1].contiguous(),
+                                          d["pw"], d["sc"], d["kv"])
+    assert not bool(ybar.any()) and not bool(d_wT.any()) and not bool(d_iwT.any())
+
+
+def test_exact_emit_sweep_equals_plain(dev):
+    """B8't at 64 columns (P = 512) on 8 steps: ybar0 and every ybar_steps[k]
+    bit for bit."""
+    d = _exact(dev, (32, 24, 8))
+    w3 = {k: v.contiguous() for k, v in d["w3"].items()}
+    stn = d["st"][:9].contiguous()
+    ys, co = no.ode_replay_fwd(d["y0"], stn, d["pw"], d["sc"], d["kv"])
+    cobar = torch.randn(co.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                        device=dev)
+    before = no.LAUNCHES["ode_replay_bwd_emit_split3"]
+    got = no.ode_replay_bwd_emit(ys, cobar, stn, w3, d["sc"], d["kv"])
+    want = no._ode_replay_bwd_emit_plain(ys, cobar, stn, w3, d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    assert no.LAUNCHES["ode_replay_bwd_emit_split3"] == before + 1
+    for g, w, name in zip(got, want, ("ybar", "ybar_steps")):
+        assert torch.isfinite(g).all() and torch.equal(g, w), name
+
+
+def _exact_step(dev, cpa, grid=None, params=None, T=50):
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=cpa, n_inputs=4, time_steps=T, max_steps=1024,
+                             device=dev)
+    if params is not None:
+        with torch.no_grad():
+            for k, p in task.params.items():
+                p.copy_(params[k])
+    params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+    rec = parity.make_train_step(task)(torch.tensor(ODE_STIMS, device=dev), grid=grid)
+    return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}, params0
+
+
+@pytest.mark.parametrize("cpa,T,want", [
+    ((16, 8, 8), 50, {"ode_select": 1, "ode_replay_fwd_team": 1, "ode_replay_bwd_team": 1}),
+    ((32, 24, 8), 25,
+     {"ode_select": 1, "ode_replay_fwd_team": 1, "ode_replay_bwd_emit_split3": 1})])
+def test_exact_step_past_one_block_on_cuda_matches_cpu(dev, cpa, T, want):
+    """The deterministic step at 32 columns (kernel mode: B7t-team, B8t-team)
+    over 50 points and 64 (outer mode: B7t-team, B8't, the outer pass) over
+    25: one launch of each of its kernels and none of anything else; against
+    the same step on the CPU on the card's grid, the loss within 1e-5 and
+    each gradient within the larger of 1e-3 and ten times the CPU's own
+    spread under a 1e-7 nudge of the weights (the sweep rounds every
+    transposed product to bf16, so a last-bit change of a rate flips
+    roundings), a limit that must stay at most GRAD_TOL_CAP: a larger one
+    would pass a wrong gradient. (At 64 columns over 50 points the lateral
+    gradient's spread is 4.4e-2 on the CPU, over 25 points 2.3e-3.)"""
+    before = dict(no.LAUNCHES)
+    rec, grads, params0 = _exact_step(dev, cpa, T=T)
+    torch.cuda.synchronize()
+    launched = {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]}
+    assert launched == want
+    st = rec["stats"]
+    assert bool(st.success) and bool(torch.isfinite(rec["loss"]))
+    grid = (st.step_times.cpu(), int(st.naccept))
+    rec_c, grads_c, _ = _exact_step(torch.device("cpu"), cpa, grid=grid, params=params0, T=T)
+    nudged = {k: v if k == "output_weights" else v * (1.0 + 1e-7) for k, v in params0.items()}
+    _, grads_n, _ = _exact_step(torch.device("cpu"), cpa, grid=grid, params=nudged, T=T)
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        norm = float(grads_c[k].norm()) + 1e-30
+        tol = max(1e-3, 10 * float((grads_n[k] - grads_c[k]).norm()) / norm)
+        assert torch.isfinite(g).all(), k
+        assert tol <= GRAD_TOL_CAP, (k, tol)
+        assert float((g - grads_c[k]).norm()) / norm <= tol, (k, tol)
+
+
+@pytest.mark.parametrize("columns,B", [(13, 4), (17, 4), (18, 4), (23, 4), (24, 4), (63, 4),
+                                       (104, 4), (312, 4), (13, 16)])
+def test_route_byte_count_is_the_librarys(dev, columns, B):
+    """``ode_block_bytes``, which ``ode_fwd_route`` and ``ode_bwd_route``
+    read, equals the shared memory the library's B7 and B8 ask for
+    (``cf_ode_block_bytes``)."""
+    import ctypes
+
+    P, got = 8 * columns, ctypes.c_longlong()
+    for sweep in (False, True):
+        assert no._lib().cf_ode_block_bytes(B, P, 4, int(sweep), ctypes.byref(got)) == 0
+        assert got.value == no.ode_block_bytes(P, 4, B, sweep), (columns, B, sweep)
+
+
+def test_exact_team_kernels_never_reach_the_plain_versions(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_ode_select_plain", "_ode_attempt_plain", "_ode_replay_fwd_plain",
+                 "_ode_replay_bwd_plain", "_ode_replay_bwd_emit_plain"):
+        monkeypatch.setattr(no, name, boom)
+    for cpa in ((8, 6, 4), (32, 24, 8)):
+        rec, _, _ = _exact_step(dev, cpa, T=20)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(rec["loss"])), cpa
 
 
 # ---------------------------------------------------------------------------

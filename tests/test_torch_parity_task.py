@@ -451,7 +451,14 @@ def _parse(argv):
     (["--engine", "fused-split2", "--columns-per-area", "64,32,8"], False, True),
     (["--fused", "--split2", "--columns-per-area", "64,32,8"], False, True),
     (["--columns-per-area", "192,96,24"], False, True),
-    (["--fused", "--columns-per-area", "64,32,8"], False, False)])
+    (["--fused", "--columns-per-area", "64,32,8"], False, False),
+    # The f32-exact engine past 17 columns: auto through 103 columns (B7t-team
+    # from 24, B8t-team from 18), pinned from 104 through 312 (outer mode).
+    (["--columns-per-area", "12,4,2"], False, False),
+    (["--columns-per-area", "16,6,2"], False, False),
+    (["--columns-per-area", "16,8,8"], False, False),
+    (["--columns-per-area", "32,24,7"], False, False),
+    (["--engine", "fused", "--columns-per-area", "192,96,24"], False, False)])
 def test_command_line_selects_the_step(argv, stochastic, split2, capsys):
     seen = _parse(argv + ["--smoke", "--device", "cpu"])
     assert seen["stochastic"] is stochastic and seen["split2"] is split2

@@ -162,6 +162,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+@pytest.mark.parametrize("flag", ["--metrics-out", "--profile-dir", "--checkpoint-out",
+                                  "--resume"])
+def test_command_line_refuses_the_jax_flags_naming_a9(flag):
+    """The JAX parser's flags (``columnflow/tasks/wta.py:414-418``) are
+    accepted and raise naming the ROADMAP item, not argparse's exit 2."""
+    with pytest.raises(NotImplementedError, match="A9"):
+        wta.main([flag, "m.out", "--smoke", "--device", "cpu"])
+
+
 def test_port_imports_neither_jax_nor_columnflow():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
