@@ -7,8 +7,9 @@ steps, the Hopf task's step, the 13-column fixed-grid and adaptive stochastic pa
 bench.py's 104-column stochastic-adaptive configuration, the 104-column
 fixed-grid stochastic parity step (outer mode), the exact three-term
 stochastic-adaptive step at 104 columns with the 32-column kernel-mode
-steps, and the f32-exact deterministic engine past one block (32 columns in
-kernel mode, 104 in outer mode).
+steps, the f32-exact deterministic engine past one block (32 columns in
+kernel mode, 104 in outer mode), and the two-term split's kernel-mode
+sweeps and exact outer pass (32 and 104 columns).
 
     python3 chip_smoke.py
 
@@ -141,7 +142,7 @@ gradbf16 pass; bptt 32, clip 1.0, loss scale 1e-6):
 28. main path: 1 train step at full width, one launch of each of the three
    kernels per step; one step over 5 grid points again on the CPU on the
    card's grid.
-29. kernel vs plain: the selection of two lanes over 25 grid points (bit for
+29. kernel vs plain: the selection of two lanes over 12 grid points (bit for
    bit, or its counts within 1%), 8 attempts along the first step's replay.
 30. times: the selection's device time, bound and ns per attempt, the step's
    time and a profile over 100 points; the command line (--smoke
@@ -217,9 +218,10 @@ through 312; batch 4 under one controller, 1000 grid points over 1 s,
 max_steps 16384, dopri5 at rtol 1e-7 / atol 1e-9; run after phase 41):
 47. kernel vs plain: the selection at 32 columns against its plain loop
    over 50 grid points (its common accepted prefix); bit for bit, B7t-team
-   at 24, 32 and 104 columns on 64-step (104: 16-step) windows early, in
-   the middle and late of the kernel's own full replay, and on an 8-step
-   window at 312 columns; B8t-team at 18, 32 and 63 columns the same way;
+   at 24, 32 and 104 columns on 64-step (104: 16-step) windows of the
+   kernel's own full replay (early, in the middle and late at 32 and 104
+   columns, the middle at 24), and on an 8-step window at 312 columns;
+   B8t-team at 18, 32 and 63 columns the same way (three windows at 32);
    B8't at 104. The 104-column grid is the split2 phase's (both tiers
    select on the three-term drift).
 48. main path: one full step at 32 columns (kernel mode: one launch each of
@@ -238,10 +240,38 @@ max_steps 16384, dopri5 at rtol 1e-7 / atol 1e-9; run after phase 41):
 51. the two command lines (--columns-per-area 16,8,8 and --engine fused
    --columns-per-area 64,32,8 --max-steps 16384, with --smoke), each step's
    selection reaching the last grid point.
+The two-term split with its exact weight gradients (run after phase 51):
+the deterministic fused-split2 tier in kernel mode (``--engine
+fused-split2`` through 63 columns: B6, B7 split2, B8s), the
+stochastic-adaptive split2 replay in kernel mode (``--stochastic --adaptive
+--engine fused-split2`` through 63 columns: the f32 selection on the
+jax.random tree, B3, B4s) and with the exact outer pass from 64 columns
+(B3, B4, ``outer_arg_grads_split2``); batch 4, 1000 grid points over 1 s:
+52. kernel vs plain, bit for bit, at 13, 32 and 63 columns: B7 split2 and
+   B8s on 32-step windows of the deterministic selection's grid over 100
+   points (early, middle and late at 32 columns, the middle elsewhere), B3
+   and B4s the same way on 32-half-step windows of the f32 selection's
+   lanes grid over 100 points.
+53. main path: one deterministic split2 step at 32 columns over the full
+   second (max_steps 16384), one stochastic-adaptive split2 step there
+   (max_steps 3072, the command line's default: it ends before 1 s, as at
+   13 columns), one exact split2 stochastic-adaptive step at 104 columns
+   over 100 points (max_steps 16384); one launch of each kernel of the path
+   and of nothing else; each kernel's and the outer pass's device time
+   from CUDA events around its call.
+54. card vs CPU on the card's grid (32 columns over 50 points, 104 over
+   25): the loss within the larger of 1e-5 and ten times its nudge spread,
+   each gradient within the larger of 1e-3 (deterministic) or 3e-2
+   (stochastic) and ten times the card's own spread under a 1e-7 nudge, a
+   limit of at most 0.25.
+55. times: each kernel's bound and ns per serial step, the plain versions
+   on a middle window, the three steps' profiles over 100 points.
+56. the three command lines (--engine fused-split2 at 16,8,8; with
+   --stochastic --adaptive there; and at 64,32,8 with --max-steps 16384).
 Then every path's command lines at once (each in its own process; they
 are latency-bound and share the card; each run's selection counts per
 step are recorded beside its last line), the kernels line (every kernel of
-the twelve paths), the card's name and power limit, and the result line.
+the thirteen paths), the card's name and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
 fails.
@@ -348,7 +378,8 @@ def defer_command_line(phase, task, argv, timeout=600, finite=False, reach=False
     ``run_command_lines`` and reported under ``phase``; it must exit 0 with
     its "final loss" line (with ``finite``, every number there finite; with
     ``reach``, every step's selection reached the last grid point: its
-    "step" lines all say success True)."""
+    "step" lines all say success True, for every lane where there are
+    lanes)."""
     COMMAND_LINES.append((phase, task, list(argv), timeout, finite, reach))
 
 
@@ -393,8 +424,10 @@ def run_command_lines():
                         or x[:1] == "-" or x in ("nan", "inf")]
                 ok = all(x == x and abs(x) != float("inf") for x in nums)
             steps = [ln for ln in stdout.splitlines() if ln.startswith("step ")]
-            if ok and r["reach"]:
-                ok = bool(steps) and all(ln.endswith("success True") for ln in steps)
+            if ok and r["reach"]:  # "success True", or per lane "success [True, ...]"
+                ok = bool(steps) and all("True" in ln.split("success")[-1]
+                                         and "False" not in ln.split("success")[-1]
+                                         for ln in steps)
             check(ok, f"{r['task']} {' '.join(r['argv'])}: rc {r['proc'].returncode}\n"
                       f"{stdout[-2000:]}\n{stderr[-4000:]}")
             by_phase.setdefault(r["phase"], []).append(
@@ -2808,6 +2841,7 @@ BENCH = dict(stochastic=True, adaptive=True, select_bf16=True, grad_bf16=True, s
              bptt_every=32, clip_grad_norm=1.0, loss_scale=1e-6)
 JAX_NORMAL_OPS = 300  # a jax.random normal: two Threefry-2x32 hashes and an erf_inv
 BENCH_SEL_T = 25      # grid points of the whole jax-tree selections held against their plain loop
+BENCH104_SEL_T = 12   # ... in phase 29 (two lanes on the select16 drift; 25 took 13 s of plain loop)
 
 
 def jax_select_bound(P, B, n_in, K, attempts, M, f32: bool):
@@ -3278,8 +3312,8 @@ def bench104_phases(dev, cfg):
     scfg = sa.select_config(task.ts, max_steps=PARITY_MAX_STEPS, brownian="jax",
                             drift="select16")
     y0 = torch.zeros(B, S, device=dev)
-    # The whole selection of two lanes over BENCH_SEL_T grid points.
-    task_s = make_task(BENCH_SEL_T, params=task.params)
+    # The whole selection of two lanes over BENCH104_SEL_T grid points.
+    task_s = make_task(BENCH104_SEL_T, params=task.params)
     model_s = parity.sde_model(task_s.params, task_s, first["stims"][:2])
     scfg_s = sa.select_config(task_s.ts, max_steps=PARITY_MAX_STEPS, brownian="jax",
                               drift="select16")
@@ -3294,7 +3328,7 @@ def bench104_phases(dev, cfg):
     e_t10 = float(((sel_k[0][:, :11] - sel_p[0][:, :11]).abs()
                    / sel_p[0][:, :11].clamp_min(1e-30)).max())
     check(bool(sel_k[3].all()) and e_na < 0.01 and e_t10 < 1e-6,
-          f"jax-tree selection (select16) over {BENCH_SEL_T} points: {sel_k[1].tolist()} vs "
+          f"jax-tree selection (select16) over {BENCH104_SEL_T} points: {sel_k[1].tolist()} vs "
           f"{sel_p[1].tolist()}")
     # 8 attempts from states along the main path's first replay.
     st = first["stats"].step_times
@@ -3319,7 +3353,7 @@ def bench104_phases(dev, cfg):
     e_err = float(((att.err - att_p.err).abs() / att_p.err.clamp_min(1e-30)).max())
     check(bool(torch.equal(att.accept, att_p.accept)) and e_err < 1e-5,
           f"jax-tree attempts (select16): err rel {e_err}")
-    emit("bench104_kernel_vs_plain", selection={"T": BENCH_SEL_T, "lanes": 2,
+    emit("bench104_kernel_vs_plain", selection={"T": BENCH104_SEL_T, "lanes": 2,
                                                 "naccept": sel_k[1].tolist(),
                                                 "naccept_plain": sel_p[1].tolist(),
                                                 "nreject": sel_k[2].tolist(),
@@ -3357,7 +3391,7 @@ def bench104_phases(dev, cfg):
              "max_abs_err": float((sel_k[0] - sel_p[0]).abs().max()), "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
              "library_ms": None, "lanes": B, "path": "parity104 bench (--stochastic --adaptive)",
-             "bit_for_bit": same, "plain_ms_at": f"{BENCH_SEL_T} grid points, 2 lanes",
+             "bit_for_bit": same, "plain_ms_at": f"{BENCH104_SEL_T} grid points, 2 lanes",
              "ns_per_serial_step": ms * 1e6 / serial}]
 
 
@@ -4279,7 +4313,11 @@ def exactode_phases(dev, cfg, frozen):
         return dict(task=task, stims=stims, pw=pw, sc=model.sc, kv=model.kv.contiguous(), P=P,
                     y0=y0, st=grid[0], n=n, stn=stn, ys=ys, w3=w3, scfg=scfg)
 
-    def starts(n, W):
+    def starts(n, W, cols=None):
+        """Early, middle and late windows at the main paths' widths (32 and
+        104 columns); the middle one elsewhere (the plain versions' time)."""
+        if cols is not None and cols not in (c32, c104):
+            return [max(0, n // 2 - W // 2)]
         return sorted({0, max(0, n // 2 - W // 2), max(0, n - W)})
 
     # -- 47. kernel vs plain, bit for bit -------------------------------------------
@@ -4320,7 +4358,7 @@ def exactode_phases(dev, cfg, frozen):
         d = settings[sum(cpa)]
         check(no.ode_fwd_route(d["P"], n_in) == "team", f"{sum(cpa)} columns: replay route")
         W = EO_W104 if sum(cpa) == c104 else EO_W
-        for k0 in starts(d["n"], W):
+        for k0 in starts(d["n"], W, sum(cpa)):
             stw, y_k = d["stn"][k0:k0 + W + 1].contiguous(), d["ys"][k0].contiguous()
             got, kern = timed(lambda: no.ode_replay_fwd(y_k, stw, d["pw"], d["sc"], d["kv"]))
             want, pl_ms = timed(lambda: no._ode_replay_fwd_plain(y_k, stw, d["w3"], d["sc"],
@@ -4351,7 +4389,7 @@ def exactode_phases(dev, cfg, frozen):
     for cpa in EO_BWD_CPA:
         d = settings[sum(cpa)]
         check(no.ode_bwd_route(d["P"], n_in, B) == "team", f"{sum(cpa)} columns: sweep route")
-        for k0 in starts(d["n"], EO_W):
+        for k0 in starts(d["n"], EO_W, sum(cpa)):
             stw, ysw = d["stn"][k0:k0 + EO_W + 1].contiguous(), d["ys"][k0:k0 + EO_W].contiguous()
             cob = torch.randn(EO_W, 5, B, 3 * d["P"], generator=gen, device=dev)
             got, kern = timed(lambda: no.ode_replay_bwd(ysw, cob, stw, d["pw"], d["sc"], d["kv"]))
@@ -4537,6 +4575,392 @@ def exactode_phases(dev, cfg, frozen):
             for name, (rep, path) in entries.items()]
 
 
+S2K_WIN_CPA = ((8, 4, 1), (16, 8, 8), (32, 24, 7))  # B8s and B4s windows: 13, 32, 63 columns
+S2K_32_CPA = (16, 8, 8)   # the kernel-mode steps' width (P = 256)
+S2K_104_CPA = (64, 32, 8)  # the exact split2 outer pass's (P = 832)
+S2K_SEL_T = 100           # grid points of the selections whose grids the windows run on
+S2K_W = 32                # steps (half steps) of each B8s (B4s) window
+S2K_T104 = 100            # grid points of the exact split2 stochastic step at 104 columns
+S2K_GRAD_T32 = 50         # grid points of the 32-column card-vs-CPU steps
+# ... and of the 104-column one: over 5 points (GRAD_T) the card's nudge
+# spread of its feedforward gradient was 2.7e-2, a limit past GRAD_TOL_CAP
+S2K_GRAD_T104 = 25
+
+
+def split2_kernel_bound(kernel, P, B, n_in, K, work, n=0):
+    """(bound_ms, bound_by) of the two-term kernel-mode sweeps and the
+    exact split2 outer pass. B8s (``work``: accepted steps): per step 6
+    two-term drift evaluations of the batch (three bf16 (B, P) x (P, P)
+    products, 2 B P^2 operations each, at the bf16 rate) and 7 drift VJPs
+    (two transposed and two weight-side products each), the elementwise and
+    fold work at the float32 rate. B4s (``work``: real half steps of all
+    lanes): per lane step a drift (three products of 2 P^2) and two VJPs
+    (two state-side and two weight-side products each). The outer pass
+    (``work``: half steps, n): per step one drift and two VJPs of the batch,
+    11 products of 2 B P^2 at the float32 rate (PyTorch's float64 and
+    float32 matmuls, as ``outer_bound`` counts). Bytes: each input read
+    once (the two bf16 terms of wT), each output written once."""
+    S, N = 3 * P, 3 * P * B
+    consts = 4 * (n_in * P + 2 * P + K * B * n_in)
+    wout = 4 * (P * P + n_in * P)
+    if kernel == "ode_replay_bwd_split2":
+        prod = 2 * B * P * P
+        flops16 = work * (6 * 3 * prod + 7 * 4 * prod)
+        flops32 = work * (6 * B * (40 * P + 8 * S) + 7 * (B * (60 * P + 10 * S) + 20 * P * P)
+                          + (3 * 21 + 3 * 21 + 40) * N + 6 * P * P)
+        nbytes = 2 * 2 * P * P + consts + 4 * (work + 1) + 4 * work * N * 6 + 4 * N + wout
+    elif kernel == "sde2_bwd":
+        prod = 2 * P * P
+        flops16 = work * 7 * prod
+        flops32 = work * (30 * P + 2 * (20 * P + 10 * S) + 12 * S) + (work / B) * 6 * P * P
+        nbytes = 2 * 2 * P * P + consts + 12 * work + 2 * 4 * work * S + 4 * B * S + wout
+    else:  # outer_arg_grads_split2
+        flops16 = 0.0
+        flops32 = work * 11 * 2 * B * P * P
+        nbytes = 2 * 4 * work * B * S + 2 * wout + consts
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops16 / BF16_FLOPS + flops32 / FP32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def split2kernel_phases(dev, cfg):
+    """Phases 52-56: the two-term split with its exact weight gradients:
+    B8s (the deterministic fused-split2 tier in kernel mode), B4s (the
+    stochastic-adaptive split2 replay in kernel mode) and the exact split2
+    outer pass (from 64 columns); returns the entries of B8s and B4s."""
+    import torch
+
+    from columnflow_torch.data import make_parity_batch
+    from columnflow_torch.kernels import column_step, hopf_ode, xor_ode, xor_sde
+    from columnflow_torch.kernels import network_ode as no
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.models import network as nw
+    from columnflow_torch.solvers import fused as sf
+    from columnflow_torch.solvers import sde_adaptive as sa
+    from columnflow_torch.tasks import parity
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    B, n_in, K = 4, 4, 4
+    counters = (column_step.LAUNCHES, ns.LAUNCHES, no.LAUNCHES, xor_ode.LAUNCHES,
+                xor_sde.LAUNCHES, hopf_ode.LAUNCHES)
+
+    def make_task(cpa, T=EO_T, device=dev, params=None, max_steps=EO_MAX_STEPS):
+        task = parity.build_task(cfg, torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=cpa, n_inputs=n_in, time_steps=T,
+                                 max_steps=max_steps, device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k].to(device))
+        return task
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    same, errs, windows = {}, {}, {"ode_replay_fwd_split2": {}, "ode_replay_bwd_split2": {},
+                                   "sde_replay_fwd": {}, "sde2_bwd": {}}
+
+    def compare(name, got, want):
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        same[name] = same.get(name, True) and ok
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        errs[name] = max(errs.get(name, 0.0), err)
+        check(ok and all(bool(torch.isfinite(g).all()) for g in got),
+              f"{name} against its plain version: max abs {err}")
+
+    def w2_of(pw, sc):
+        return {k: v.contiguous() for k, v in nw.prepare_premixed_split2(pw, sc.fc)[0].items()}
+
+    # -- 52. kernel vs plain, bit for bit: B7 split2 and B8s on the deterministic
+    # selection's grid, B3 and B4s on the f32 jax-tree selection's lanes grid, at
+    # 13, 32 and 63 columns (three windows at 32, the main path's width) -------------
+    accepted = {}
+    for cpa in S2K_WIN_CPA:
+        cols = sum(cpa)
+        task = make_task(cpa, S2K_SEL_T)
+        stims = make_parity_batch(gen, n_in, B, device=dev)
+        model = parity.sde_model(task.params, task, stims)
+        pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+        sc, kv, P = model.sc, model.kv.contiguous(), task.net.num_pops
+        w2 = w2_of(pw, sc)
+        y0 = torch.zeros(B, 3 * P, device=dev)
+        check(no.ode_bwd_route(P, n_in, B, terms=2) == "team"
+              and ns.sde3_bwd_route(P, n_in, B, terms=2) == "team", f"{cols} columns: routes")
+        scfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]),
+                                  max_steps=sf.round_max_steps((B, 3 * P), EO_MAX_STEPS))
+        st, stats = no.ode_select(y0, pw, sc, kv, scfg)
+        n = int(stats[0])
+        check(n > S2K_W, f"{cols} columns: {n} accepted steps over {S2K_SEL_T} points")
+        stn = st[:n + 1].contiguous()
+        ys, co = no.ode_replay_fwd_split2(y0, stn, w2, sc, kv)
+        starts = sorted({0, n // 2 - S2K_W // 2, n - S2K_W}) if cpa == S2K_32_CPA else [n // 2]
+        for k0 in starts:
+            stw, y_k = stn[k0:k0 + S2K_W + 1].contiguous(), ys[k0].contiguous()
+            got, kern = timed(lambda: no.ode_replay_fwd_split2(y_k, stw, w2, sc, kv))
+            want, pl_ms = timed(lambda: no._ode_replay_fwd_plain(y_k, stw, w2, sc, kv))
+            compare("ode_replay_fwd_split2", got, want)
+            windows["ode_replay_fwd_split2"].setdefault(cols, []).append(
+                {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
+            ysw = ys[k0:k0 + S2K_W].contiguous()
+            cob = torch.randn(S2K_W, 5, B, 3 * P, generator=gen, device=dev)
+            got, kern = timed(lambda: no.ode_replay_bwd_split2(ysw, cob, stw, w2, sc, kv))
+            want, pl_ms = timed(lambda: no._ode_replay_bwd_plain(ysw, cob, stw, w2, sc, kv))
+            compare("ode_replay_bwd_split2", got, want)
+            windows["ode_replay_bwd_split2"].setdefault(cols, []).append(
+                {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
+        # The stochastic replay: the f32 selection on the jax.random tree, its
+        # lanes grid, B3 over the whole grid, B4s on windows of it.
+        keys = torch.randint(0, 2**32, (B, 2), generator=gen, device=dev, dtype=torch.int64)
+        words = sa._sde_key_words(keys, "jax")
+        ccfg = sa.select_config(task.ts, max_steps=S13_MAX_STEPS, brownian="jax", drift="f32")
+        sel = ns.select_pass(y0, words, pw, sc, kv, ccfg)
+        ht, dw, i10 = sa._replay_grid(sel[0], words, ccfg.t_start, ccfg.t_end, ccfg.depth, "jax")
+        nl = 2 * int(sel[1].max())
+        check(nl > S2K_W, f"{cols} columns: {nl} half steps over {S2K_SEL_T} points")
+        grid = tuple(x.contiguous() for x in (ht[:, :nl].T, (ht[:, 1:nl + 1] - ht[:, :nl]).T,
+                                              dw[:, :nl].T, i10[:, :nl].T))
+        ys_l = ns.replay_fwd(y0, *grid, nl, w2, sc, kv)
+        starts = (sorted({0, nl // 2 - S2K_W // 2, nl - S2K_W}) if cpa == S2K_32_CPA
+                  else [nl // 2])
+        for k0 in starts:
+            sl = slice(k0, k0 + S2K_W)
+            fwd = (tuple(x[sl].contiguous() for x in grid), S2K_W, w2, sc, kv)
+            y_k = ys_l[k0].contiguous()
+            got, kern = timed(lambda: ns.replay_fwd(y_k, *fwd[0], *fwd[1:]))
+            want, pl_ms = timed(lambda: ns._replay_fwd_plain(y_k, *fwd[0], *fwd[1:]))
+            compare("sde_replay_fwd", got, want)
+            windows["sde_replay_fwd"].setdefault(cols, []).append(
+                {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
+            bwd = (ys_l[sl].contiguous(), torch.randn(S2K_W, B, 3 * P, generator=gen, device=dev),
+                   grid[0][sl].contiguous(), grid[1][sl].contiguous(), grid[3][sl].contiguous(),
+                   S2K_W, 0, sf.sweep_chunk((B, 3 * P), S2K_W), w2, sc, kv)
+            got, kern = timed(lambda: ns.replay2_bwd(*bwd))
+            want, pl_ms = timed(lambda: ns._replay2_bwd_plain(*bwd))
+            compare("sde2_bwd", got, want)
+            windows["sde2_bwd"].setdefault(cols, []).append(
+                {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
+        accepted[cols] = {"deterministic": n, "lanes_half_steps": nl}
+    c32 = sum(S2K_32_CPA)
+    plain_ms, window_ms = {}, {}
+    for name, by_cols in windows.items():
+        mid = by_cols[c32][len(by_cols[c32]) // 2]
+        plain_ms[name], window_ms[name] = mid["plain_ms"], mid["ms"]
+        plain_ms[f"{name}_at"] = f"{mid['steps']} steps at {c32} columns"
+    emit("split2kernel_kernel_vs_plain", lanes=B, T=S2K_SEL_T, accepted=accepted,
+         windows=windows, bit_for_bit=same, max_abs_err=errs)
+
+    # -- 53. main path: the deterministic split2 step at 32 columns over the full
+    # second (B6, B7 split2, B8s), the stochastic-adaptive one (the f32 selection,
+    # B3, B4s), and the exact split2 stochastic-adaptive step at 104 columns over
+    # S2K_T104 points (the f32 selection, B3, B4 emit, outer_arg_grads_split2) ------
+    paths = {
+        "deterministic_32": (S2K_32_CPA, EO_T, EO_MAX_STEPS, dict(split2=True),
+                             {"ode_select": 1, "ode_replay_fwd_split2": 1,
+                              "ode_replay_bwd_split2": 1}),
+        "adaptive_32": (S2K_32_CPA, EO_T, S13_MAX_STEPS,
+                        dict(stochastic=True, adaptive=True, split2=True),
+                        {"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd": 1}),
+        "adaptive_104": (S2K_104_CPA, S2K_T104, PARITY_MAX_STEPS,
+                         dict(stochastic=True, adaptive=True, split2=True),
+                         {"sde_select": 1, "sde_replay_fwd": 1, "sde_replay_bwd": 1}),
+    }
+    timed_sf = ("ode_select", "ode_replay_fwd_split2", "ode_replay_bwd_split2", "replay_fwd",
+                "replay2_bwd", "replay_bwd", "outer_arg_grads_split2")
+    main, dev_ms, firsts = {}, {}, {}
+    for name, (cpa, T, max_steps, flags, want) in paths.items():
+        task = make_task(cpa, T, max_steps=max_steps)
+        step = parity.make_train_step(task, **flags)
+        stims = make_parity_batch(gen, n_in, B, device=dev)
+        keys = (torch.randint(0, 2**32, (B, 2), generator=gen, device=dev, dtype=torch.int64)
+                if flags.get("stochastic") else None)
+        params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
+        masks = {k: v.bool() for k, v in task.grad_mask.items()}
+        log = []
+        restore = [event_timed(sf, timed_sf, log), event_timed(sa, ("select_pass",), log)]
+        try:
+            for c in counters:
+                for k in c:
+                    c[k] = 0
+            rec, ms = timed(lambda: step(stims, keys))
+            launched = {k: v for c in counters for k, v in c.items() if v}
+        finally:
+            for r in restore:
+                r()
+        dev_ms[name] = {}
+        for fn, start, end in log:
+            dev_ms[name][fn] = dev_ms[name].get(fn, 0.0) + start.elapsed_time(end)
+        sk = rec["stats"]
+        finite = {k: bool(torch.isfinite(p.grad).all()) for k, p in task.params.items()}
+        main[name] = {"columns": sum(cpa), "T": T, "max_steps": max_steps, "flags": flags,
+                      "loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
+                      "update_applied": bool(rec["ok"]), "grads_finite": finite,
+                      "naccept": sk.naccept.tolist(), "nreject": sk.nreject.tolist(),
+                      "success": sk.success.tolist(), "launches": launched,
+                      "seconds": ms / 1e3, "device_ms": dev_ms[name]}
+        check(launched == want, f"split2 {name}: launches {launched}")
+        check(bool(torch.isfinite(rec["loss"])), f"split2 {name}: loss {rec['loss']}")
+        if name != "adaptive_32":  # 3072 attempts end before 1 s at 32 columns, as at 13
+            check(bool(sk.success.all()), f"split2 {name}: success {sk.success.tolist()}")
+        for k, p in task.params.items():
+            check(bool((p.grad[~masks[k]].nan_to_num(0.0, 0.0, 0.0) == 0).all()),
+                  f"split2 {name}: {k} gradient off its mask")
+        firsts[name] = (params0, stims, keys)
+    emit("split2kernel_main_path", lanes=B, steps=main)
+
+    # -- 54. card against CPU on the card's grid, the capped rule of phases 38 and
+    # 49: the loss within the larger of 1e-5 and ten times its nudge spread, each
+    # finite gradient within the larger of a floor (1e-3 deterministic, 3e-2
+    # stochastic) and ten times the card's own spread under a 1e-7 nudge, a limit
+    # of at most GRAD_TOL_CAP; a gradient not finite on the CPU must not be finite
+    # on the card either --------------------------------------------------------------
+    def one(name, device, params, T_c, grid=None):
+        cpa, _, max_steps, flags, _ = paths[name]
+        t = make_task(cpa, T_c, device=device, params=params, max_steps=max_steps)
+        _, stims, keys = firsts[name]
+        rec = parity.make_train_step(t, **flags)(
+            stims.to(device), None if keys is None else keys.to(device), grid=grid)
+        return rec, {k: p.grad.detach().cpu().clone() for k, p in t.params.items()}
+
+    cpu_check = {}
+    for name, T_c, floor in (("deterministic_32", S2K_GRAD_T32, ODE_GRAD_TOL),
+                             ("adaptive_32", S2K_GRAD_T32, 3e-2),
+                             ("adaptive_104", S2K_GRAD_T104, 3e-2)):
+        p0 = firsts[name][0]
+        rec_k, grads_k = one(name, dev, p0, T_c)
+        sk = rec_k["stats"]
+        if paths[name][3].get("stochastic"):
+            grid = (sk.step_times, sk.naccept, sk.nreject)
+        else:
+            grid = (sk.step_times, int(sk.naccept))
+        (rec_c, grads_c), cpu_ms = timed(lambda: one(
+            name, "cpu", p0, T_c, tuple(x.cpu() if torch.is_tensor(x) else x for x in grid)))
+        rec_n, grads_n = one(name, dev, {k: v * (1.0 + 1e-7) for k, v in p0.items()}, T_c, grid)
+        held = [k for k in grads_k if bool(torch.isfinite(grads_c[k]).all())]
+        not_finite = [k for k in grads_k if k not in held]
+        spread = {k: rel_l2(grads_n[k], grads_k[k]) for k in held}
+        tol = {k: max(floor, 10.0 * spread[k]) for k in held}
+        loss_k, loss_c, loss_n = (float(r["loss"]) for r in (rec_k, rec_c, rec_n))
+        loss_tol = max(ODE_LOSS_TOL, 10.0 * abs(loss_n - loss_k) / abs(loss_k))
+        entry = {"T": T_c, "held": held, "not_finite_on_either": not_finite,
+                 "loss_rel": abs(loss_k - loss_c) / abs(loss_c), "loss_tol": loss_tol,
+                 "grad_rel_l2": {k: rel_l2(grads_k[k], grads_c[k]) for k in held},
+                 "card_grad_spread_under_1e-7_nudge": spread, "tol": tol,
+                 "cpu_seconds": cpu_ms / 1e3}
+        check(entry["loss_rel"] < loss_tol
+              and all(entry["grad_rel_l2"][k] < tol[k] <= GRAD_TOL_CAP for k in held)
+              and not any(bool(torch.isfinite(grads_k[k]).all()) for k in not_finite),
+              f"card vs CPU split2 {name}: {entry}")
+        cpu_check[name] = entry
+    emit("split2kernel_card_vs_cpu", lanes=B, cpu_check=cpu_check,
+         tol={"loss": "max(1e-5, 10 x spread)", "grad": "max(floor, 10 x spread) <= "
+              f"{GRAD_TOL_CAP}; floor 1e-3 deterministic, 3e-2 stochastic"})
+
+    # -- 55. times: each kernel and the outer pass from the main-path steps' CUDA
+    # events, bounds, ns per serial step, the plain versions on a middle window,
+    # the steps' profiles over SHORT_T points (the 104-column step's own) --------------
+    P32, P104 = 8 * c32, 8 * sum(S2K_104_CPA)
+    d32, a32, a104 = main["deterministic_32"], main["adaptive_32"], main["adaptive_104"]
+    n_d = d32["naccept"]
+    n_a32 = 2 * max(a32["naccept"])
+    n_a104 = 2 * max(a104["naccept"])
+    real32, real104 = 2 * sum(a32["naccept"]), 2 * sum(a104["naccept"])
+    times = {"ode_replay_bwd_split2": dev_ms["deterministic_32"]["ode_replay_bwd_split2"],
+             "ode_replay_fwd_split2_32": dev_ms["deterministic_32"]["ode_replay_fwd_split2"],
+             "ode_select_32": dev_ms["deterministic_32"]["ode_select"],
+             "sde2_bwd": dev_ms["adaptive_32"]["replay2_bwd"],
+             "sde_replay_fwd_32": dev_ms["adaptive_32"]["replay_fwd"],
+             "sde_select_jax_f32_32": dev_ms["adaptive_32"]["select_pass"],
+             "outer_arg_grads_split2": dev_ms["adaptive_104"]["outer_arg_grads_split2"],
+             "sde_replay_fwd_104": dev_ms["adaptive_104"]["replay_fwd"],
+             "sde_replay_bwd_104": dev_ms["adaptive_104"]["replay_bwd"],
+             "sde_select_jax_f32_104": dev_ms["adaptive_104"]["select_pass"]}
+    serial = {"ode_replay_bwd_split2": n_d, "ode_replay_fwd_split2_32": n_d,
+              "ode_select_32": n_d + d32["nreject"], "sde2_bwd": n_a32,
+              "sde_replay_fwd_32": n_a32,
+              "sde_select_jax_f32_32": max(a + r for a, r in zip(a32["naccept"], a32["nreject"])),
+              "outer_arg_grads_split2": n_a104, "sde_replay_fwd_104": n_a104,
+              "sde_replay_bwd_104": n_a104,
+              "sde_select_jax_f32_104": max(a + r for a, r in zip(a104["naccept"],
+                                                                  a104["nreject"]))}
+    att32 = sum(a + r for a, r in zip(a32["naccept"], a32["nreject"]))
+    att104 = sum(a + r for a, r in zip(a104["naccept"], a104["nreject"]))
+    bounds = {
+        "ode_replay_bwd_split2": split2_kernel_bound("ode_replay_bwd_split2", P32, B, n_in, K,
+                                                     n_d),
+        "ode_replay_fwd_split2_32": split2_bound("ode_replay_fwd_split2", P32, B, n_in, K, n_d),
+        "ode_select_32": split2_bound("ode_select", P32, B, n_in, K, serial["ode_select_32"],
+                                      M=EO_MAX_STEPS),
+        "sde2_bwd": split2_kernel_bound("sde2_bwd", P32, B, n_in, K, real32, n_a32),
+        "sde_replay_fwd_32": sde_bound("sde_replay_fwd", P32, B, n_in, K, real32, n_a32),
+        "sde_select_jax_f32_32": jax_select_bound(P32, B, n_in, K, att32, S13_MAX_STEPS, True),
+        "outer_arg_grads_split2": split2_kernel_bound("outer_arg_grads_split2", P104, B, n_in,
+                                                      K, n_a104),
+        "sde_replay_fwd_104": sde_bound("sde_replay_fwd", P104, B, n_in, K, real104, n_a104),
+        "sde_replay_bwd_104": sde_bound("sde_replay_bwd", P104, B, n_in, K, real104, n_a104),
+        "sde_select_jax_f32_104": jax_select_bound(P104, B, n_in, K, att104, PARITY_MAX_STEPS,
+                                                   True)}
+    profiles = {}
+    for name, (cpa, T, max_steps, flags, _) in paths.items():
+        T_p = min(T, SHORT_T)
+        keys = (torch.randint(0, 2**32, (B, 2), generator=gen, device=dev, dtype=torch.int64)
+                if flags.get("stochastic") else None)
+        short_ms, wall, by_kernel = short_profile(
+            parity.make_train_step(make_task(cpa, T_p, max_steps=max_steps), **flags),
+            (make_parity_batch(gen, n_in, B, device=dev), keys))
+        busy = sum(by_kernel.values())
+        profiles[name] = {
+            "T": T_p, "step_ms": short_ms, "profiled_wall_ms_per_step": wall,
+            "device_busy_ms_per_step": busy if busy else "not measured",
+            "idle_share": 1.0 - busy / short_ms if busy else "not measured",
+            "top_ms_per_step": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])}
+    emit("split2kernel_times", lanes=B, ms=times,
+         ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
+         serial_steps=serial, bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()}, plain_ms=plain_ms,
+         kernel_ms_on_plain_window=window_ms,
+         step_seconds={k: v["seconds"] for k, v in main.items()}, profiles=profiles,
+         outer_pass={"name": "outer_arg_grads_split2", "route": "PyTorch ops (XLA in the JAX "
+                     "package, no Pallas kernel)", "replaces": "columnflow/solvers/fused.py:1373",
+                     "ms": times["outer_arg_grads_split2"], "half_steps": n_a104,
+                     "bound_ms": bounds["outer_arg_grads_split2"][0],
+                     "bound_by": bounds["outer_arg_grads_split2"][1]})
+
+    # -- 56. the command lines (run with the others at the end) ----------------------
+    for argv, reach in ((["--smoke", "--engine", "fused-split2", "--columns-per-area", "16,8,8"],
+                         True),
+                        (["--smoke", "--stochastic", "--adaptive", "--engine", "fused-split2",
+                          "--columns-per-area", "16,8,8"], False),
+                        (["--smoke", "--stochastic", "--adaptive", "--engine", "fused-split2",
+                          "--columns-per-area", "64,32,8", "--max-steps", "16384"], True)):
+        defer_command_line("split2kernel_command_lines", "parity", argv, timeout=900,
+                           finite=True, reach=reach)
+
+    entries = {
+        "ode_replay_bwd_split2": (ODE_SOURCE, "columnflow/solvers/fused.py:327",
+                                  "deterministic fused-split2, 32 columns (kernel mode)",
+                                  main["deterministic_32"]["launches"]),
+        "sde2_bwd": (SDE_SOURCE, "columnflow/solvers/fused.py:920",
+                     "parity32 --stochastic --adaptive --engine fused-split2 (kernel mode)",
+                     main["adaptive_32"]["launches"]),
+    }
+    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launched.get(name, 0), "max_abs_err": errs[name],
+             "bit_for_bit": same[name], "ms": times[name], "plain_ms": plain_ms[name],
+             "plain_ms_at": plain_ms[f"{name}_at"], "ms_window": window_ms[name],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+             "lanes": B, "path": path, "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+            for name, (src, rep, path, launched) in entries.items()]
+
+
 def main() -> int:
     import torch
 
@@ -4574,7 +4998,7 @@ def main() -> int:
             + hopf_phases(dev, cfg)
             + stochastic13_phases(dev, cfg) + bench104_phases(dev, cfg)
             + fixedgrid104_phases(dev, cfg) + exact104_phases(dev, cfg)
-            + exactode_phases(dev, cfg, frozen))
+            + exactode_phases(dev, cfg, frozen) + split2kernel_phases(dev, cfg))
     run_command_lines()
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

@@ -53,6 +53,7 @@ _SIGNATURES = {
         "cf_sde3_fwd_team": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 15,
         "cf_sde3_bwd_emit": [_I, _I, _I, _I, _P, _I, _I, _I, _I] + [_P] * 19,
         "cf_sde3_bwd_team": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 21,
+        "cf_sde2_bwd": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 19,
     },
     "network_ode": {
         "cf_ode_replay_fwd": [_I, _I, _I, _I, _P, _I] + [_P] * 10,
@@ -64,6 +65,7 @@ _SIGNATURES = {
         "cf_ode_replay_fwd_team": [_I, _I, _I, _I, _P, _I] + [_P] * 13,
         "cf_ode_replay_bwd_emit_split3": [_I, _I, _I, _I, _P, _I] + [_P] * 17,
         "cf_ode_replay_bwd_team": [_I, _I, _I, _I, _P, _I] + [_P] * 19,
+        "cf_ode_replay_bwd_split2": [_I, _I, _I, _I, _P, _I] + [_P] * 17,
         "cf_ode_block_bytes": [_I, _I, _I, _I, _P],
     },
     "xor_ode": {

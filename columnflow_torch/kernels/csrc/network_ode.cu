@@ -23,6 +23,10 @@
 //                                one block, through 17 columns at 4 lanes)
 //   cf_ode_replay_bwd_team    <- the same as one team of blocks for the batch
 //                                (B8t-team, from 18 through 63 columns)
+//   cf_ode_replay_bwd_split2  <- _make_bwd_chunk_kernel, kernel mode, with
+//                                prepare_premixed_split2 (B8s: the fused-split2
+//                                tier through 63 columns), the same team kernel
+//                                on the two-term split
 //   cf_ode_block_bytes        the shared memory B7 and B8 ask of one block
 //                                (what picks them or the teams)
 //   cf_ode_replay_bwd_emit_split3
@@ -588,19 +592,26 @@ ode_replay_bwd_emit_kernel(Net n, int n_steps, Wg w, const float* __restrict__ s
 // as independent teams. As in network_sde.cu's B4't-team, block r owns
 // populations [c0, c0 + nc) of every lane (their state entries) and the
 // weight-cotangent entries of its own OUTPUT columns j, every row i. Each of
-// a step's seven drift VJPs stores the rates' three bf16 terms, the current's
-// cotangent and the stimulus into every block's shared memory (vjp3_team_w,
+// a step's seven drift VJPs stores the rates' bf16 terms, the current's
+// cotangent and the stimulus into every block's shared memory (vjp_team_w,
 // two WX buffers used in turn: a block writes buffer p of VJP m only after
 // the cluster barrier of VJP m - 1, which every block reaches after its
 // contraction of VJP m - 2, the last reads of buffer p); each block then
 // contracts its entries over the lanes in float64, in lane order, rounds to
-// bf16 and adds to the step's accumulators (global work, three (P, P) bf16
+// bf16 and adds to the step's accumulators (global work, NT (P, P) bf16
 // sums and the float32 (n_in, P) iwT sum, each entry touched by one thread
 // of its own block only): stage 6's VJP opens them, stages 5..0 add, as the
 // reverse pass meets the forward's products. After the step each block folds
 // its entries through the split once into d_wT and adds d_iwT's. No value
 // crosses a block in a sum, so the result is the one-block B8's and the plain
 // version's bit for bit. scr: 16 B 3P floats (Y0..Y6, k0..k6, ysum, g).
+// NT = 3: B8t-team (the f32-exact engine, prepare_premixed_split); NT = 2:
+// B8s, the fused-split2 tier's sweep with its weight gradients in the kernel
+// (prepare_premixed_split2: two bf16 terms of the rates against two of wT,
+// three products per drift, the accumulators hi and mid, split2_fold), at
+// every width where the JAX package takes kernel mode (through 63 columns at
+// 4 inputs); there is no one-block B8s.
+template <int NT>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
                            const float* __restrict__ st, const float* __restrict__ ys,
@@ -610,7 +621,7 @@ ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
   extern __shared__ __align__(16) unsigned char smt[];
   Team T;
   const int B = n.B;
-  team_init(T, smt, n.P, B, 0, 3, 6, 1);
+  team_init(T, smt, n.P, B, 0, NT, NT == 3 ? 6 : 3, 1);
   const int P = n.P, nc = T.nc, c0 = T.c0, NI = n.n_in;
   const size_t N = (size_t)B * T.S, PP = (size_t)P * P;
   unsigned char* p = smt + team_bytes;
@@ -622,10 +633,7 @@ ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
   }
   float* ysum = scr + (size_t)14 * N;
   float* g = scr + (size_t)15 * N;
-  float* acc_hi = work;
-  float* acc_mid = work + PP;
-  float* acc_lo = work + 2 * PP;
-  float* acc_iw = work + 3 * PP;
+  float* acc_iw = work + NT * PP;  // after the NT accumulators (hi, mid[, lo])
   for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
     const int i = e / nc;
     d_wT[(size_t)i * P + c0 + (e - i * nc)] = 0.0f;
@@ -646,10 +654,10 @@ ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
       Y[0][i] = yk[i];
     }
     __syncthreads();
-    drift_team<3, 1>(n, T, t0, Y[0], kk[0], w);
+    drift_team<NT, 1>(n, T, t0, Y[0], kk[0], w);
     for (int i = 1; i < kStages; ++i) {
       stage_own(T, P, i, h, Y[0], kk, Y[i]);
-      if (i < kStages - 1) drift_team<3, 1>(n, T, t0 + kC[i] * h, Y[i], kk[i], w);
+      if (i < kStages - 1) drift_team<NT, 1>(n, T, t0 + kC[i] * h, Y[i], kk[i], w);
     }
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int i = own_off(T, P, e);
@@ -671,7 +679,7 @@ ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
     for (int s = kStages - 1; s >= 0; --s) {
       const WX& x = wx[xp];
       xp ^= 1;
-      vjp3_team_w(n, T, s ? t0 + kC[s] * h : t0, nullptr, Y[s], kk[s], g, w, x);
+      vjp_team_w<NT>(n, T, s ? t0 + kC[s] * h : t0, nullptr, Y[s], kk[s], g, w, x);
       for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
         const int i = own_off(T, P, e);
         const float ge = g[i];
@@ -685,24 +693,14 @@ ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
       const bool first = s == kStages - 1;
       for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
         const int i = e / nc, j = c0 + (e - i * nc);
-        double da = 0.0, db = 0.0, de = 0.0;
-        for (int b = 0; b < B; ++b) {
-          const double q = x.c[(size_t)b * P + j];
-          da += bfd(x.x[(size_t)b * P + i]) * q;
-          db += bfd(x.x[((size_t)B + b) * P + i]) * q;
-          de += bfd(x.x[((size_t)2 * B + b) * P + i]) * q;
-        }
-        const float a = bf16r((float)da), bb = bf16r((float)db), ee = bf16r((float)de);
         const size_t at = (size_t)i * P + j;
-        if (first) {
-          acc_hi[at] = bf16r(bf16r(a + bb) + ee);
-          acc_mid[at] = bf16r(a + bb);
-          acc_lo[at] = a;
-        } else {
-          acc_hi[at] = bf16r(bf16r(bf16r(acc_hi[at] + a) + bb) + ee);
-          acc_mid[at] = bf16r(bf16r(acc_mid[at] + a) + bb);
-          acc_lo[at] = bf16r(acc_lo[at] + a);
-        }
+        float d[NT], acc[NT];
+        wx_cot<NT>(x, B, P, i, j, d);
+#pragma unroll
+        for (int q = 0; q < NT; ++q) acc[q] = first ? 0.0f : work[q * PP + at];
+        acc_add<NT>(acc, d, first);
+#pragma unroll
+        for (int q = 0; q < NT; ++q) work[q * PP + at] = acc[q];
       }
       for (int e = threadIdx.x; e < NI * nc; e += blockDim.x) {
         const int m = e / nc, j = c0 + (e - m * nc);
@@ -717,9 +715,10 @@ ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
     for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
       const int i = e / nc;
       const size_t at = (size_t)i * P + c0 + (e - i * nc);
-      const float lo = acc_lo[at];
-      const float r = lo + bf16r(acc_mid[at] - lo);
-      d_wT[at] = d_wT[at] + (r + bf16r(acc_hi[at] + bf16r(-r)));
+      float acc[NT];
+#pragma unroll
+      for (int q = 0; q < NT; ++q) acc[q] = work[q * PP + at];
+      d_wT[at] = d_wT[at] + acc_fold<NT>(acc);
     }
     for (int e = threadIdx.x; e < NI * nc; e += blockDim.x) {
       const int m = e / nc;
@@ -771,6 +770,29 @@ int replay_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps,
     ode_replay_bwd_emit_kernel<NT><<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
         make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, st, ys, cobar, scr, ybar,
         ybar_steps);
+  return (int)cudaGetLastError();
+}
+
+// The kernel-mode sweep as one team for the batch: NT = 3
+// (cf_ode_replay_bwd_team, B8t-team) or 2 (cf_ode_replay_bwd_split2, B8s);
+// lo, loT unused at NT = 2; work: NT P^2 + n_in P floats.
+template <int NT>
+int replay_bwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                    const float* bg, const float* adapt, const void* hi, const void* mid,
+                    const void* lo, const void* hiT, const void* midT, const void* loT,
+                    const float* iw, const float* kv, const float* st, const float* ys,
+                    const float* cobar, float* scr, float* ybar, float* d_wT, float* d_iwT,
+                    float* work, void* stream) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  if (P % kCluster || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t team = team_smem(P, B, NT, NT == 3 ? 6 : 3, 1);
+  const size_t bytes = team + 2 * wx_bytes(P, B);
+  if (int e = set_smem(ode_replay_bwd_team_kernel<NT>, bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, NT == 3 ? (const bf16*)lo : nullptr,
+             (const bf16*)hiT, (const bf16*)midT, NT == 3 ? (const bf16*)loT : nullptr, iw};
+  ode_replay_bwd_team_kernel<NT><<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, (int)team, st, ys, cobar, scr,
+      ybar, d_wT, d_iwT, work);
   return (int)cudaGetLastError();
 }
 
@@ -891,17 +913,21 @@ int cf_ode_replay_bwd_team(int B, int P, int n_in, int K, const float* hc, int n
                            const float* iw, const float* kv, const float* st, const float* ys,
                            const float* cobar, float* scr, float* ybar, float* d_wT,
                            float* d_iwT, float* work, void* stream) {
-  if (int e = check_shape(P, n_in, K)) return e;
-  if (P % kCluster || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t team = team_smem(P, B, 3, 6, 1);
-  const size_t bytes = team + 2 * wx_bytes(P, B);
-  if (int e = set_smem(ode_replay_bwd_team_kernel, bytes)) return e;
-  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, (const bf16*)hiT,
-             (const bf16*)midT, (const bf16*)loT, iw};
-  ode_replay_bwd_team_kernel<<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
-      make_net(B, P, n_in, K, hc, bg, adapt, kv), n_steps, w, (int)team, st, ys, cobar, scr,
-      ybar, d_wT, d_iwT, work);
-  return (int)cudaGetLastError();
+  return replay_bwd_team<3>(B, P, n_in, K, hc, n_steps, bg, adapt, hi, mid, lo, hiT, midT, loT,
+                            iw, kv, st, ys, cobar, scr, ybar, d_wT, d_iwT, work, stream);
+}
+
+// B8s: the split2 tier's kernel-mode sweep, on the two-term split
+// (prepare_premixed_split2); hi, mid and their transposes; work: 2 P^2 +
+// n_in P floats. P must be a multiple of 8.
+int cf_ode_replay_bwd_split2(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                             const float* bg, const float* adapt, const void* hi,
+                             const void* mid, const void* hiT, const void* midT, const float* iw,
+                             const float* kv, const float* st, const float* ys,
+                             const float* cobar, float* scr, float* ybar, float* d_wT,
+                             float* d_iwT, float* work, void* stream) {
+  return replay_bwd_team<2>(B, P, n_in, K, hc, n_steps, bg, adapt, hi, mid, nullptr, hiT, midT,
+                            nullptr, iw, kv, st, ys, cobar, scr, ybar, d_wT, d_iwT, work, stream);
 }
 
 }  // extern "C"

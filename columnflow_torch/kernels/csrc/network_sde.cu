@@ -30,6 +30,10 @@
 //   cf_sde3_bwd_team   <- B4't as one team of blocks for the whole batch
 //                         (B4't-team), for widths whose three-term weights and
 //                         batch do not fit a block (through 63 columns)
+//   cf_sde2_bwd        <- _make_sde_bwd_chunk_kernel in kernel mode on the
+//                         two-term split (B4s: prepare_premixed_split2 without
+//                         the gradbf16 substitute, through 63 columns), the
+//                         same team kernel
 // and cf_sde_select / cf_sde_attempt on the three-term split (kSplit3, B5t):
 // _make_sde_adaptive_kernel with select_prepare=prepare_premixed_split.
 // The JAX kernels trace any drift; these are written for the premixed
@@ -846,6 +850,12 @@ sde3_bwd_emit_kernel(Net n, Grid3 g, int stride, Wg w, const float* __restrict__
 // c, cw, c_h2, c_y, ybar); work: P^2 + n_in P floats (the chunk sums of
 // d_wT and d_iwT). team_bytes: the Team's shared memory (team_smem), after
 // which lie the two WX buffers and the lanes' step scalars.
+// NT = 3: B4't-team (prepare_premixed_split); NT = 2: B4s, the two-term
+// split's kernel-mode sweep (prepare_premixed_split2: two bf16 terms of the
+// rates, three products per drift, the accumulators hi and mid,
+// split2_fold), at every width where the JAX package takes kernel mode
+// (through 63 columns at 4 inputs); there is no one-block B4s.
+template <int NT>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 sde3_bwd_team_kernel(Net n, Grid3 g, int stride, int chunk, Wg w, int team_bytes,
                      const float* __restrict__ ys_prev, const float* __restrict__ ysbar,
@@ -854,7 +864,7 @@ sde3_bwd_team_kernel(Net n, Grid3 g, int stride, int chunk, Wg w, int team_bytes
   extern __shared__ __align__(16) unsigned char smt[];
   Team T;
   const int B = n.B;
-  team_init(T, smt, n.P, B, 0, 3, 6, 1);
+  team_init(T, smt, n.P, B, 0, NT, NT == 3 ? 6 : 3, 1);
   const int P = n.P, S = T.S, N = B * S, nc = T.nc, c0 = T.c0, NI = n.n_in;
   unsigned char* p = smt + team_bytes;
   const WX wx2 = wx_at(p, P, B);  // the second stage's VJP (at h2), met first
@@ -904,7 +914,7 @@ sde3_bwd_team_kernel(Net n, Grid3 g, int stride, int chunk, Wg w, int team_bytes
       cc[off] = yb[off] + sbk[off];
     }
     __syncthreads();
-    drift_team<3, 1>(n, T, 0.0f, y, f1, w, tl);
+    drift_team<NT, 1>(n, T, 0.0f, y, f1, w, tl);
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
       const int b = off / S;
@@ -913,14 +923,14 @@ sde3_bwd_team_kernel(Net n, Grid3 g, int stride, int chunk, Wg w, int team_bytes
       cw[off] = ((h * cc[off]) / 3.0f) * 2.0f;
     }
     __syncthreads();
-    vjp3_team_w(n, T, 0.0f, t2, h2, cw, ch2, w, wx2);
+    vjp_team_w<NT>(n, T, 0.0f, t2, h2, cw, ch2, w, wx2);
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
       const float h = hl[off / S];
       cw[off] = (h * cc[off]) / 3.0f + (0.75f * h) * ch2[off];
     }
     __syncthreads();
-    vjp3_team_w(n, T, 0.0f, tl, y, cw, cy, w, wx1);
+    vjp_team_w<NT>(n, T, 0.0f, tl, y, cw, cy, w, wx1);
     const bool cut = stride > 0 && k % stride == 0;
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
@@ -930,25 +940,13 @@ sde3_bwd_team_kernel(Net n, Grid3 g, int stride, int chunk, Wg w, int team_bytes
     const bool fold = k % chunk == 0;
     for (int e = threadIdx.x; e < P * nc; e += blockDim.x) {
       const int i = e / nc, j = c0 + (e - i * nc);
-      double a2 = 0.0, b2 = 0.0, e2 = 0.0, a1 = 0.0, b1 = 0.0, e1 = 0.0;
-      for (int b = 0; b < B; ++b) {
-        const double q2 = wx2.c[(size_t)b * P + j], q1 = wx1.c[(size_t)b * P + j];
-        a2 += bfd(wx2.x[(size_t)b * P + i]) * q2;
-        b2 += bfd(wx2.x[((size_t)B + b) * P + i]) * q2;
-        e2 += bfd(wx2.x[((size_t)2 * B + b) * P + i]) * q2;
-        a1 += bfd(wx1.x[(size_t)b * P + i]) * q1;
-        b1 += bfd(wx1.x[((size_t)B + b) * P + i]) * q1;
-        e1 += bfd(wx1.x[((size_t)2 * B + b) * P + i]) * q1;
-      }
-      const float a = bf16r((float)a2), bb = bf16r((float)b2), ee = bf16r((float)e2);
-      float hi = bf16r(bf16r(a + bb) + ee), mid = bf16r(a + bb), lo = a;
-      const float a_ = bf16r((float)a1), b_ = bf16r((float)b1), e_ = bf16r((float)e1);
-      hi = bf16r(bf16r(bf16r(hi + a_) + b_) + e_);
-      mid = bf16r(bf16r(mid + a_) + b_);
-      lo = bf16r(lo + a_);
-      const float r = lo + bf16r(mid - lo);
+      float d[NT], acc[NT];
+      wx_cot<NT>(wx2, B, P, i, j, d);
+      acc_add<NT>(acc, d, true);
+      wx_cot<NT>(wx1, B, P, i, j, d);
+      acc_add<NT>(acc, d, false);
       const size_t at = (size_t)i * P + j;
-      const float sum = chunk_w[at] + (r + bf16r(hi + bf16r(-r)));
+      const float sum = chunk_w[at] + acc_fold<NT>(acc);
       if (fold) d_wT[at] = d_wT[at] + sum;
       chunk_w[at] = fold ? 0.0f : sum;
     }
@@ -1011,6 +1009,29 @@ struct AttemptLaunch {
     return (int)cudaGetLastError();
   }
 };
+
+// The kernel-mode sweep as one team for the batch: NT = 3 (B4't-team) or 2
+// (B4s); lo, loT unused at NT = 2.
+template <int NT>
+int bwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real, int lanes,
+             int stride, int chunk, const float* bg, const float* adapt, const void* hi,
+             const void* mid, const void* lo, const void* hiT, const void* midT, const void* loT,
+             const float* iwT, const float* kv, const float* t0s, const float* hs,
+             const float* i10, const float* ys_prev, const float* ysbar, float* scr, float* ybar,
+             float* d_wT, float* d_iwT, float* work, void* stream) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  if (P % kCluster || chunk < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t team = team_smem(P, B, NT, NT == 3 ? 6 : 3, 1);
+  const size_t bytes = team + 2 * wx_bytes(P, B) + 4 * sizeof(float) * (size_t)B;
+  if (int e = set_smem(sde3_bwd_team_kernel<NT>, bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, NT == 3 ? (const bf16*)lo : nullptr,
+             (const bf16*)hiT, (const bf16*)midT, NT == 3 ? (const bf16*)loT : nullptr, iwT};
+  const Grid3 g{n_steps, n_real, lanes, t0s, hs, nullptr, i10};
+  sde3_bwd_team_kernel<NT><<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
+      make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, chunk, w, (int)team, ys_prev,
+      ysbar, scr, ybar, d_wT, d_iwT, work);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1130,18 +1151,23 @@ int cf_sde3_bwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps
                      const float* t0s, const float* hs, const float* i10,
                      const float* ys_prev, const float* ysbar, float* scr, float* ybar,
                      float* d_wT, float* d_iwT, float* work, void* stream) {
-  if (int e = check_shape(P, n_in, K)) return e;
-  if (P % kCluster || chunk < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t team = team_smem(P, B, 3, 6, 1);
-  const size_t bytes = team + 2 * wx_bytes(P, B) + 4 * sizeof(float) * (size_t)B;
-  if (int e = set_smem(sde3_bwd_team_kernel, bytes)) return e;
-  const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, (const bf16*)hiT,
-             (const bf16*)midT, (const bf16*)loT, iwT};
-  const Grid3 g{n_steps, n_real, lanes, t0s, hs, nullptr, i10};
-  sde3_bwd_team_kernel<<<kCluster, kThreads, bytes, (cudaStream_t)stream>>>(
-      make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, chunk, w, (int)team, ys_prev,
-      ysbar, scr, ybar, d_wT, d_iwT, work);
-  return (int)cudaGetLastError();
+  return bwd_team<3>(B, P, n_in, K, hc, n_steps, n_real, lanes, stride, chunk, bg, adapt, hi,
+                     mid, lo, hiT, midT, loT, iwT, kv, t0s, hs, i10, ys_prev, ysbar, scr, ybar,
+                     d_wT, d_iwT, work, stream);
+}
+
+// B4s (the two-term split's kernel-mode sweep, the same team kernel): hi,
+// mid the bf16 terms of prepare_premixed_split2, hiT, midT their
+// transposes; the rest as cf_sde3_bwd_team.
+int cf_sde2_bwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                int lanes, int stride, int chunk, const float* bg, const float* adapt,
+                const void* hi, const void* mid, const void* hiT, const void* midT,
+                const float* iwT, const float* kv, const float* t0s, const float* hs,
+                const float* i10, const float* ys_prev, const float* ysbar, float* scr,
+                float* ybar, float* d_wT, float* d_iwT, float* work, void* stream) {
+  return bwd_team<2>(B, P, n_in, K, hc, n_steps, n_real, lanes, stride, chunk, bg, adapt, hi,
+                     mid, nullptr, hiT, midT, nullptr, iwT, kv, t0s, hs, i10, ys_prev, ysbar, scr,
+                     ybar, d_wT, d_iwT, work, stream);
 }
 
 int cf_sde_replay_fwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,

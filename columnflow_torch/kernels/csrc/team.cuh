@@ -469,29 +469,39 @@ __device__ WX wx_at(unsigned char* p, int P, int nb) {
   return x;
 }
 
-// The state cotangent of one three-term drift evaluation of the team's lanes
-// at y for the output cotangent ct -> out (own entries), as vjp3_team,
-// exchanging into x both the current's cotangent and the rates' three bf16
-// terms of the own populations, and the stimulus at the shared time t (or
-// lane b at its own time tl[b]) for d iwT. Ends with a block barrier.
-__device__ void vjp3_team_w(const Net& n, Team& T, float t, const float* tl, const float* y,
-                            const float* ct, float* out, const Wg& w, const WX& x) {
+// The state cotangent of one drift evaluation of the team's lanes at y for
+// the output cotangent ct -> out (own entries), as vjp_team<NT>, exchanging
+// into x both the current's cotangent and the rates' NT bf16 terms of the
+// own populations (NT = 3: the three-term split, split3; NT = 2: the
+// two-term one, hi = bf16(fr), mid = bf16(fr - hi)), and the stimulus at the
+// shared time t (or lane b at its own time tl[b]) for d iwT. Ends with a
+// block barrier.
+template <int NT>
+__device__ void vjp_team_w(const Net& n, Team& T, float t, const float* tl, const float* y,
+                           const float* ct, float* out, const Wg& w, const WX& x) {
   cg::cluster_group cl = cg::this_cluster();
   const int P = n.P, nb = T.nb;
   for (int e = threadIdx.x; e < nb * T.nc; e += blockDim.x) {
     const int b = e / T.nc, c = T.c0 + (e - b * T.nc);
-    float fr, frp, hi, mid, lo;
+    float fr, frp;
     fr_and_grad(y[b * T.S + c] - y[b * T.S + P + c], fr, frp);
     T.fr[e] = frp;
-    split3(fr, hi, mid, lo);
-    const bf16 th = __float2bfloat16_rn(hi), tm = __float2bfloat16_rn(mid),
-               tlo = __float2bfloat16_rn(lo);
+    bf16 term[NT];
+    if constexpr (NT == 3) {
+      float hi, mid, lo;
+      split3(fr, hi, mid, lo);
+      term[0] = __float2bfloat16_rn(hi);
+      term[1] = __float2bfloat16_rn(mid);
+      term[2] = __float2bfloat16_rn(lo);
+    } else {
+      term[0] = __float2bfloat16_rn(fr);
+      term[1] = __float2bfloat16_rn(fr - bf16r(fr));
+    }
     const float cc = ((ct[b * T.S + c] / n.tau_m) * n.R) * n.tau_s;
     for (int q = 0; q < kCluster; ++q) {
       bf16* dx = cl.map_shared_rank(x.x, q);
-      dx[(size_t)b * P + c] = th;
-      dx[((size_t)nb + b) * P + c] = tm;
-      dx[((size_t)2 * nb + b) * P + c] = tlo;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) dx[((size_t)j * nb + b) * P + c] = term[j];
       cl.map_shared_rank(x.c, q)[(size_t)b * P + c] = cc;
     }
   }
@@ -500,8 +510,66 @@ __device__ void vjp3_team_w(const Net& n, Team& T, float t, const float* tl, con
     x.ext[b * kMaxInputs + m] = knot_interp(n, T.b0 + b, m, tl ? tl[b] : t);
   }
   cl.sync();
-  vjp_products<3>(n, T, x.c, ct, out, w);
+  vjp_products<NT>(n, T, x.c, ct, out, w);
   __syncthreads();
+}
+
+// The bf16 cotangents of one drift VJP's NT products at weight entry (i, j),
+// each contracted over the nb lanes of x in float64, in lane order, and
+// rounded: d[0] = bf(x_hi^T c), d[1] = bf(x_mid^T c), d[2] = bf(x_lo^T c).
+template <int NT>
+__device__ __forceinline__ void wx_cot(const WX& x, int nb, int P, int i, int j, float* d) {
+  double s[NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) s[q] = 0.0;
+  for (int b = 0; b < nb; ++b) {
+    const double c = x.c[(size_t)b * P + j];
+#pragma unroll
+    for (int q = 0; q < NT; ++q) s[q] += bfd(x.x[((size_t)q * nb + b) * P + i]) * c;
+  }
+#pragma unroll
+  for (int q = 0; q < NT; ++q) d[q] = bf16r((float)s[q]);
+}
+
+// Add one drift VJP's product cotangents d (wx_cot) to the bf16 accumulators
+// acc[0..NT) (hi, mid[, lo]) in the order the reverse pass meets the
+// forward's products (models/network.py split3_accumulate /
+// split2_accumulate); ``first`` opens them.
+template <int NT>
+__device__ __forceinline__ void acc_add(float* acc, const float* d, bool first) {
+  if constexpr (NT == 3) {
+    const float a = d[0], bb = d[1], ee = d[2];
+    if (first) {
+      acc[1] = bf16r(a + bb);
+      acc[0] = bf16r(acc[1] + ee);
+      acc[2] = a;
+    } else {
+      acc[0] = bf16r(bf16r(bf16r(acc[0] + a) + bb) + ee);
+      acc[1] = bf16r(bf16r(acc[1] + a) + bb);
+      acc[2] = bf16r(acc[2] + a);
+    }
+  } else {
+    const float a = d[0], bb = d[1];
+    if (first) {
+      acc[0] = bf16r(bb + a);
+      acc[1] = a;
+    } else {
+      acc[0] = bf16r(bf16r(acc[0] + bb) + a);
+      acc[1] = bf16r(acc[1] + a);
+    }
+  }
+}
+
+// The cotangent of w from those of its NT terms, once per prepare
+// (split3_fold / split2_fold).
+template <int NT>
+__device__ __forceinline__ float acc_fold(const float* acc) {
+  if constexpr (NT == 3) {
+    const float r = acc[2] + bf16r(acc[1] - acc[2]);
+    return r + bf16r(acc[0] + bf16r(-r));
+  } else {
+    return acc[1] + bf16r(acc[0] - acc[1]);
+  }
 }
 
 // Check the shape and request the shared memory of a team kernel for nb

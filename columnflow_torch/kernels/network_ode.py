@@ -14,6 +14,8 @@ with a plain PyTorch version beside it that repeats its arithmetic:
     ode_replay_bwd        cf_ode_replay_bwd          _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode (B8;
                           (cf_ode_replay_bwd_team)                               as a team, B8t-team: ``ode_bwd_route``)
     ode_replay_fwd_split2 cf_ode_replay_fwd_split2   _ode_replay_fwd_plain       _make_replay_chunk_kernel, split2
+    ode_replay_bwd_split2 cf_ode_replay_bwd_split2   _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode,
+                                                                                 split2 (B8s, a team)
     ode_replay_bwd_emit   cf_ode_replay_bwd_emit     _ode_replay_bwd_emit_plain  _make_bwd_chunk_kernel, emit mode
                           (split2: B8'), cf_ode_replay_bwd_emit_split3 (three-term split: B8't)
 
@@ -28,7 +30,10 @@ engine's replay and kernel-mode sweep: at the reference width they split the
 float32 ``wT`` themselves into shared memory, and the sweep runs the batch
 in one block (its weight cotangents are contracted over the batch before
 they are rounded to bf16). ``ode_replay_fwd_split2`` is the ``fused-split2``
-tier's replay, on the two-term split (``prepare_premixed_split2``).
+tier's replay, on the two-term split (``prepare_premixed_split2``), and
+``ode_replay_bwd_split2`` its kernel-mode sweep (B8s: the weight gradients
+in the sweep where the JAX package takes them there, through 63 columns at
+4 inputs), B8t-team's team kernel on the two-term split.
 ``ode_replay_bwd_emit`` is the emit mode on either split: the state
 cotangent alone, with each step's output cotangent written out for the
 weight gradients outside the kernels (``solvers.fused.ode_outer_arg_grads``):
@@ -95,7 +100,7 @@ from columnflow_torch.solvers import rk
 _SAFETY, _IFACTOR, _DFACTOR, _ORDER = 0.9, 10.0, 0.2, 5
 LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_bwd": 0,
             "ode_replay_fwd_split2": 0, "ode_replay_bwd_emit": 0, "ode_replay_fwd_team": 0,
-            "ode_replay_bwd_team": 0, "ode_replay_bwd_emit_split3": 0}
+            "ode_replay_bwd_team": 0, "ode_replay_bwd_emit_split3": 0, "ode_replay_bwd_split2": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 
@@ -419,15 +424,23 @@ def ode_fwd_route(P: int, n_in: int) -> str:
     return "block" if ode_block_bytes(P, n_in, 1, False) <= SMEM_BLOCK_BYTES else "team"
 
 
-def ode_bwd_route(P: int, n_in: int, B: int) -> str:
-    """Which kernel computes ``ode_replay_bwd`` on the card, by shape alone:
-    "block" (B8, ``cf_ode_replay_bwd``, the batch in one block) where its
+def ode_bwd_route(P: int, n_in: int, B: int, terms: int = 3) -> str:
+    """Which kernel computes the kernel-mode sweep on the card, by shape
+    alone. On the three-term split (``terms`` 3, ``ode_replay_bwd``): "block"
+    (B8, ``cf_ode_replay_bwd``, the batch in one block) where its
     ``ode_block_bytes`` fit the 232,448 bytes of shared memory a block can
     use, else "team" (B8t-team, ``cf_ode_replay_bwd_team``: the batch on
     one team of 8 blocks, the weights streamed from L2). With 4 inputs and
     4 lanes that is "block" through 17 columns (P = 136) and "team" from 18;
     fewer lanes move the edge up, more move it down (16 lanes take the team
-    at 13 columns)."""
+    at 13 columns). On the two-term split (``terms`` 2,
+    ``ode_replay_bwd_split2``) always "team" (B8s): there is no one-block
+    two-term sweep, and the team runs at any P that is a multiple of 8 (13
+    columns: 13 populations per block)."""
+    if terms not in (2, 3):
+        raise ValueError(f"terms must be 2 or 3, got {terms}")
+    if terms == 2:
+        return "team"
     return "block" if ode_block_bytes(P, n_in, B, True) <= SMEM_BLOCK_BYTES else "team"
 
 
@@ -643,3 +656,37 @@ def ode_replay_bwd_emit(ys, cobar, st, w, sc: SDEConsts, kv):
         scratch.data_ptr(), ybar.data_ptr(), ybar_steps.data_ptr(), _stream(ys)), name)
     LAUNCHES[name] += 1
     return ybar, ybar_steps
+
+
+def ode_replay_bwd_split2(ys, cobar, st, w2, sc: SDEConsts, kv):
+    """The kernel-mode reverse sweep of the split2 replay
+    (``ode_replay_fwd_split2``): ys (n, B, 3P) the step-start states, cobar
+    (n, 5, B, 3P) the cotangents of the dense rows, ``w2`` the two-term
+    split (``prepare_premixed_split2``). Returns (ybar0 (B, 3P), d wT (P, P),
+    d iwT (n_in, P)): each step's seven drift VJPs add their weight
+    cotangents, contracted over the batch and rounded to bf16, into the
+    step's two bf16 accumulators, folded once per step (``split2_fold``)
+    and summed over the steps in float32. On the card B8s, one team of 8
+    blocks for the batch (``ode_bwd_route`` with two terms)."""
+    n, B, S = ys.shape
+    P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
+    named = {"ys": (ys, _F32, (n, B, S)), "cobar": (cobar, _F32, (n, 5, B, S)),
+             **_split_named(w2, P, n_in, _W2), **_drift_named(sc, kv, B, P),
+             **_replay_named(st, n)}
+    if not _on_cuda(ys, named):
+        return _ode_replay_bwd_plain(ys, cobar, st, w2, sc, kv)
+    dev = ys.device
+    ybar = torch.empty((B, S), dtype=_F32, device=dev)
+    d_wT = torch.empty((P, P), dtype=_F32, device=dev)
+    d_iwT = torch.empty((n_in, P), dtype=_F32, device=dev)
+    scratch = torch.empty((16, B, S), dtype=_F32, device=dev)
+    work = torch.empty((2 * P + n_in, P), dtype=_F32, device=dev)  # hi, mid and the iwT sum
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    bg, adapt, kvp = _consts(sc, kv)
+    _check(_lib().cf_ode_replay_bwd_split2(
+        B, P, n_in, K, hc_p, n, bg, adapt, *(t.data_ptr() for t in _terms_and_transposes(w2, _W2)),
+        w2["iwT"].data_ptr(), kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),
+        scratch.data_ptr(), ybar.data_ptr(), d_wT.data_ptr(), d_iwT.data_ptr(), work.data_ptr(),
+        _stream(ys)), "ode_replay_bwd_split2")
+    LAUNCHES["ode_replay_bwd_split2"] += 1
+    return ybar, d_wT, d_iwT

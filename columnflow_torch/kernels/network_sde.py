@@ -23,6 +23,9 @@ with a plain PyTorch version beside it that repeats its arithmetic:
                     cf_sde3_bwd_emit    _replay3_bwd_emit_plain
                                                            the same body, emit mode, three-term
                                                            split (B4t)
+    replay2_bwd     cf_sde2_bwd         _replay2_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
+                                                           two-term split (B4s, B4't-team's team
+                                                           kernel)
 
 The JAX kernels trace any drift. These compute the parity task's drift:
 ``network_drift_premixed`` with the knot stimulus and the constant
@@ -32,7 +35,8 @@ tree (``brownian="kernel"``, the JAX package's in-kernel pass) or from the
 of ``premix_select16`` (``drift="select16"``), the float32 ones
 (``drift="f32"``) or, in the in-kernel pass, the three-term split of
 ``prepare_premixed_split`` (``drift="split3"``, ``select_weights_split3``).
-The split2 replay and its emit-mode sweep run on the
+The split2 replay, its emit-mode sweep and its kernel-mode sweep (B4s, the
+weight cotangents in the sweep) run on the
 two-term split of ``prepare_premixed_split2``; the three-term ones on
 ``prepare_premixed_split``, with the weight cotangents in the sweep (kernel
 mode) or outside it (emit mode: the state cotangent and each step's seed).
@@ -75,8 +79,10 @@ from columnflow_torch.models.network import (
     network_drift_premixed,
     network_drift_premixed_select16,
     network_drift_premixed_split2_vjp,
+    network_drift_premixed_split2_weight_vjp,
     network_drift_premixed_split_vjp,
     prepare_premixed_split,
+    split2_fold,
     split3_fold,
 )
 from columnflow_torch.ops.arith import div
@@ -93,7 +99,7 @@ _SAFETY, _IFACTOR, _DFACTOR = 0.9, 5.0, 0.2
 _PI_A, _PI_B, _ERR_EXP = 0.5, 0.25, 0.5
 LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_replay_fwd": 0, "sde_replay_bwd": 0,
             "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0,
-            "sde3_bwd_team": 0}
+            "sde3_bwd_team": 0, "sde2_bwd": 0}
 # What a thread block can hold (sm_90: 227 KB of shared memory), and the
 # kernels' layout constants (csrc/network_drift.cuh kThreads, kMaxInputs).
 SMEM_BLOCK_BYTES = 232448
@@ -165,16 +171,30 @@ def sra1_step(drift, t0, h, y, dw, i10, sigma=SIGMA):
     return y + h * (div(f1, 3.0) + div(2.0 * f2, 3.0)) + (dw - i10_h) * sigma + i10_h * sigma
 
 
-def step_vjp_split2(t0, h, y, i10, c, w2, sc: SDEConsts, kv, sigma: float = SIGMA):
+def step_vjp_split2(t0, h, y, i10, c, w2, sc: SDEConsts, kv, sigma: float = SIGMA,
+                    weights: bool = False):
     """State cotangent of one replay step (``sra1_step`` with the split2
-    drift) for the cotangent c of its output."""
-    drift = lambda t, x: drift_premixed(t, x, w2, sc, kv)  # noqa: E731
+    drift) for the cotangent c of its output. With ``weights``: (state
+    cotangent, the step's d wT, its d iwT), as ``step_vjp_split3`` takes
+    them on the three-term split: the second stage's drift is met first and
+    its weight cotangents open the step's two bf16 accumulators
+    (``split2_accumulate``), the first stage's add to them, one fold
+    (``split2_fold``); d iwT in float32. The state cotangent is the same
+    either way."""
     i10_h = i10 / torch.where(h > 0, h, 1.0)
-    h2 = y + (0.75 * h) * drift(t0, y) + (1.5 * i10_h) * sigma
+    h2 = y + (0.75 * h) * drift_premixed(t0, y, w2, sc, kv) + (1.5 * i10_h) * sigma
     c3 = div(h * c, 3.0)
-    c_h2 = network_drift_premixed_split2_vjp(h2, c3 * 2.0, w2, sc.fc)
-    c_y = network_drift_premixed_split2_vjp(y, c3 + (0.75 * h) * c_h2, w2, sc.fc)
-    return (c + c_h2) + c_y
+    if not weights:
+        c_h2 = network_drift_premixed_split2_vjp(h2, c3 * 2.0, w2, sc.fc)
+        c_y = network_drift_premixed_split2_vjp(y, c3 + (0.75 * h) * c_h2, w2, sc.fc)
+        return (c + c_h2) + c_y
+    stim = Stimulus(0.0, 0.0, kv)
+    interp = _knots(sc.knot_ts)
+    c_h2, acc, d_iw2 = network_drift_premixed_split2_weight_vjp(
+        t0 + 0.75 * h, h2, c3 * 2.0, w2, sc.fc, stim, interp_fn=interp)
+    c_y, acc, d_iw1 = network_drift_premixed_split2_weight_vjp(
+        t0, y, c3 + (0.75 * h) * c_h2, w2, sc.fc, stim, interp_fn=interp, acc=acc)
+    return (c + c_h2) + c_y, split2_fold(acc), d_iw2 + d_iw1
 
 
 def step_vjp_split3(t0, h, y, i10, c, w3, sc: SDEConsts, kv, sigma: float = SIGMA):
@@ -265,6 +285,28 @@ def _replay3_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, chunk, pw, 
         t0, h = _lane_times(t0s, hs, k, B)
         ybar, g_w, g_iw = step_vjp_split3(t0, h, ys_prev[k], i10[k, :, None], ybar + ysbar[k],
                                           w3, sc, kv)
+        if stride and k % stride == 0:
+            ybar = torch.zeros_like(ybar)
+        part = [part[0] + g_w, part[1] + g_iw]
+        if k % chunk == 0:
+            d = [d[0] + part[0], d[1] + part[1]]
+            part = [torch.zeros_like(p) for p in part]
+    return ybar, d[0], d[1]
+
+
+@torch.no_grad()
+def _replay2_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, chunk, w2, sc, kv):
+    """B4s's plain version: ``_replay3_bwd_plain`` on the two-term split
+    ``w2`` (``prepare_premixed_split2``), each step through
+    ``step_vjp_split2(..., weights=True)``: (ybar, d wT, d iwT)."""
+    B, P = ys_prev.shape[1], ys_prev.shape[2] // 3
+    ybar = torch.zeros_like(ys_prev[0])
+    d = [ybar.new_zeros((P, P)), ybar.new_zeros((kv.shape[2], P))]
+    part = [torch.zeros_like(x) for x in d]
+    for k in range(n_real - 1, -1, -1):
+        t0, h = _lane_times(t0s, hs, k, B)
+        ybar, g_w, g_iw = step_vjp_split2(t0, h, ys_prev[k], i10[k, :, None], ybar + ysbar[k],
+                                          w2, sc, kv, weights=True)
         if stride and k % stride == 0:
             ybar = torch.zeros_like(ybar)
         part = [part[0] + g_w, part[1] + g_iw]
@@ -738,8 +780,11 @@ def replay3_bwd_emit(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, pw,
     return ybar, seeds
 
 
-def sde3_bwd_route(P: int, n_in: int, B: int) -> str:
-    """Which kernel computes ``replay3_bwd`` on the card, by shape alone:
+def sde3_bwd_route(P: int, n_in: int, B: int, terms: int = 3) -> str:
+    """Which kernel computes the kernel-mode sweep on the card, by shape
+    alone. On the two-term split (``terms`` 2, ``replay2_bwd``) always
+    "team" (B4s): there is no one-block two-term sweep. On the three-term
+    split (``replay3_bwd``):
     "block" (B4't, ``cf_sde3_bwd``) where the three-term weights (6 P^2
     bytes), iwT, the drift's scratch for B lanes (``setup_floats`` of
     csrc/split3_drift.cuh), the sweep's eight (B, 3P) buffers, four lane
@@ -748,6 +793,10 @@ def sde3_bwd_route(P: int, n_in: int, B: int) -> str:
     the batch on one team of 8 blocks, the weights streamed from L2). With
     4 inputs and 4 lanes that is "block" through 19 columns (P = 152) and
     "team" from 20; fewer lanes move the edge up, more move it down."""
+    if terms not in (2, 3):
+        raise ValueError(f"terms must be 2 or 3, got {terms}")
+    if terms == 2:
+        return "team"
     floats = ((3 * P * P + 1) // 2 + n_in * P + 5 * B * P + B * _MAX_INPUTS + 1
               + 2 * (_THREADS // 32) + 8 * B * 3 * P + 4 * B + 2 * n_in * P)
     return "block" if 4 * floats <= SMEM_BLOCK_BYTES else "team"
@@ -799,4 +848,41 @@ def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: i
         hs.data_ptr(), i10.data_ptr(), ys_prev.data_ptr(), ysbar.data_ptr(), ybar.data_ptr(),
         d_wT.data_ptr(), d_iwT.data_ptr(), work.data_ptr(), _stream(ys_prev)), "sde3_bwd")
     LAUNCHES["sde3_bwd"] += 1
+    return ybar, d_wT, d_iwT
+
+
+def replay2_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: int, w2,
+                sc: SDEConsts, kv):
+    """The kernel-mode reverse sweep of the split2 replay (``replay_fwd``):
+    ys_prev (n, B, 3P) the states before each step, ysbar (n, B, 3P) the
+    direct cotangents on each step's output, t0s, hs, i10 (n, B) each lane's
+    step times, sizes and noise, ``w2`` the two-term split
+    (``prepare_premixed_split2``). Returns (ybar (B, 3P) before step 0, d
+    wT, d iwT); ``stride`` and ``chunk`` as ``replay3_bwd``. On the card B4s,
+    one team of 8 blocks for the batch (``sde3_bwd_route`` with two
+    terms)."""
+    n, B, S = ys_prev.shape
+    P = S // 3
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    named = {"ys_prev": (ys_prev, _F32, (n, B, S)), "ysbar": (ysbar, _F32, (n, B, S)),
+             **_replay_named(t0s, hs, i10, w2, sc, kv, B, P, n_real)}
+    if not _on_cuda(ys_prev, named):
+        return _replay2_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, chunk, w2, sc, kv)
+    dev = ys_prev.device
+    ybar = torch.empty((B, S), dtype=_F32, device=dev)
+    d_wT = torch.empty((P, P), dtype=_F32, device=dev)
+    d_iwT = torch.empty((kv.shape[2], P), dtype=_F32, device=dev)
+    hiT, midT = w2["wT_hi"].T.contiguous(), w2["wT_mid"].T.contiguous()
+    scr = torch.empty((7, B, S), dtype=_F32, device=dev)
+    work = torch.empty((P + kv.shape[2], P), dtype=_F32, device=dev)
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    _check(_lib().cf_sde2_bwd(
+        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), 1, int(stride or 0), int(chunk),
+        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), w2["wT_hi"].data_ptr(),
+        w2["wT_mid"].data_ptr(), hiT.data_ptr(), midT.data_ptr(), w2["iwT"].data_ptr(),
+        kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(), ys_prev.data_ptr(),
+        ysbar.data_ptr(), scr.data_ptr(), ybar.data_ptr(), d_wT.data_ptr(), d_iwT.data_ptr(),
+        work.data_ptr(), _stream(ys_prev)), "sde2_bwd")
+    LAUNCHES["sde2_bwd"] += 1
     return ybar, d_wT, d_iwT

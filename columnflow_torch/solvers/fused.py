@@ -6,9 +6,11 @@ selection, the dense-output replay and its reverse sweep each one kernel
 (``kernels.network_ode``), specialised to the parity task's deterministic
 drift: the f32-exact engine (three-term split; the weight gradients in the
 reverse-sweep kernel through 63 columns, outside the kernels from 64 as the
-JAX package takes them) and the ``fused-split2`` tier (two-term split, the
-reverse sweep in emit mode, weight gradients outside the kernels). Outside
-the kernels means ``ode_outer_arg_grads``, on the replay's own split.
+JAX package takes them) and the ``fused-split2`` tier (two-term split, by
+the same rule: the reverse-sweep kernel B8s through 63 columns, the
+emit-mode sweep and the weight gradients outside the kernels from 64).
+Outside the kernels means ``ode_outer_arg_grads``, on the replay's own
+split.
 
 ``sdeint_fused``: fixed-grid SRA1 with its gradient, specialised to what
 the parity task integrates: ``network_drift_premixed`` with the knot
@@ -31,12 +33,15 @@ package (``resolve_sde_arg_grads``), and these tiers are ported
   (``outer_arg_grads_split3``) on the uniform grid or per-lane grids, or,
   with ``vjp_drift="gradbf16"`` on per-lane grids, the bf16 substitute
   (``outer_arg_grads``);
-- the two-term split (``prepare="split2"``) in outer mode with the bf16
-  substitute ``network_drift_premixed_gradbf16`` for the weight gradients
-  (``vjp_drift="gradbf16"``): the replay kernel B3, the emit-mode sweep B4
-  for the state cotangent and its per-step seeds, then the weight-gradient
-  contraction over all steps outside the kernels (``_Replay``); per-lane
-  grids.
+- the two-term split (``prepare="split2"``) on per-lane grids: in outer
+  mode with the bf16 substitute ``network_drift_premixed_gradbf16`` for the
+  weight gradients (``vjp_drift="gradbf16"``) or without it: the replay
+  kernel B3, the emit-mode sweep B4 for the state cotangent and its
+  per-step seeds, then the weight-gradient contraction over all steps
+  outside the kernels (``_Replay``: ``outer_arg_grads``, or the exact
+  ``outer_arg_grads_split2``); in kernel mode (``vjp_drift`` None, weights
+  of at most 1 MiB) B3 and the reverse-sweep kernel B4s with the weight
+  cotangents in it (``_Replay2``).
 
 The XOR task's drift (``xor_drift_batched``) has its own two entry points,
 in kernel mode: ``xor_odeint_dopri5_fused`` (the kernels of
@@ -58,6 +63,7 @@ from columnflow_torch.kernels.network_ode import (
     ODESelectConfig,
     ode_replay_bwd,
     ode_replay_bwd_emit,
+    ode_replay_bwd_split2,
     ode_replay_fwd,
     ode_replay_fwd_split2,
     ode_select,
@@ -67,11 +73,13 @@ from columnflow_torch.kernels.hopf_ode import MuTable, hopf_replay_bwd, hopf_rep
 from columnflow_torch.kernels.network_sde import (
     SIGMA,
     SDEConsts,
+    replay2_bwd,
     replay3_bwd,
     replay3_bwd_emit,
     replay3_fwd,
     replay_bwd,
     replay_fwd,
+    step_vjp_split2,
     step_vjp_split3,
 )
 from columnflow_torch.kernels.xor_ode import xor_replay_bwd, xor_replay_fwd, xor_select
@@ -172,9 +180,33 @@ def outer_arg_grads_split3(ys_prev, seeds, t0s, hs, i10, pw, sc: SDEConsts, kv,
     sub-blocks of as many steps as keep one (P, P) float32 temporary per
     step under ``OUTER_SUB_BYTES``). PyTorch ops: the JAX package computes
     this in XLA, outside any Pallas kernel."""
+    w3 = prepare_premixed_split({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
+    return _outer_exact(step_vjp_split3, w3, ys_prev, seeds, t0s, hs, i10, pw, sc, kv, block)
+
+
+def outer_arg_grads_split2(ys_prev, seeds, t0s, hs, i10, pw, sc: SDEConsts, kv,
+                           block: int = 256):
+    """``outer_arg_grads_split3`` on the two-term split: the exact weight
+    gradients of the split2 replay in outer mode (``_outer_sde_arg_grads``
+    with ``vjp_step=None`` and ``prepare_premixed_split2``,
+    ``columnflow/solvers/fused.py:1373-1437``; the adaptive replay's
+    ``--split2`` without ``--grad-bf16`` from 64 columns). Per step the VJP
+    of one SRA1 step through the two-term split
+    (``step_vjp_split2(..., weights=True)``: two bf16 accumulators opened by
+    the second stage's drift, one ``split2_fold``); the same blocks and
+    sub-blocks. PyTorch ops, as XLA computes it in the JAX package."""
+    w2 = prepare_premixed_split2({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
+    return _outer_exact(lambda *a: step_vjp_split2(*a, weights=True), w2, ys_prev, seeds, t0s,
+                        hs, i10, pw, sc, kv, block)
+
+
+def _outer_exact(vjp, w, ys_prev, seeds, t0s, hs, i10, pw, sc: SDEConsts, kv, block: int):
+    """What both exact outer passes share: ``vjp(t0, h, y, i10, c, w, sc,
+    kv)`` -> (state cotangent, the steps' d wT, d iwT) over sub-blocks of
+    steps, summed in float32 within each block of min(block, n) steps, the
+    blocks' sums added to the total."""
     n, B, S = ys_prev.shape
     P = S // 3
-    w3 = prepare_premixed_split({k: v.detach() for k, v in pw.items()}, sc.fc)[0]
     d_wT = torch.zeros_like(pw["wT"], dtype=torch.float32)
     d_iwT = torch.zeros_like(pw["iwT"], dtype=torch.float32)
     blk = max(1, min(block, n))
@@ -187,8 +219,7 @@ def outer_arg_grads_split3(ys_prev, seeds, t0s, hs, i10, pw, sc: SDEConsts, kv,
             sl = slice(s0, min(s0 + sub, b1))
             t0 = t0s[sl, :, None] if lanes else t0s[sl, None, None]
             h = hs[sl, :, None] if lanes else hs[sl, None, None]
-            _, g_w, g_iw = step_vjp_split3(t0, h, ys_prev[sl], i10[sl, :, None], seeds[sl], w3,
-                                           sc, kv)
+            _, g_w, g_iw = vjp(t0, h, ys_prev[sl], i10[sl, :, None], seeds[sl], w, sc, kv)
             part_w += g_w.sum(0)
             part_iw += g_iw.sum(0)
         d_wT += part_w
@@ -241,13 +272,15 @@ def _carried_cotangent(ys_bar, n_real: int):
 
 
 class _Replay(torch.autograd.Function):
-    """Forward: ``replay_fwd`` (B3). Backward: ``replay_bwd`` (B4), then
-    ``outer_arg_grads``. Gradients reach wT, iwT and y0; the step grid and
-    the noise are data."""
+    """The two-term split in outer mode. Forward: ``replay_fwd`` (B3).
+    Backward: ``replay_bwd`` (B4), then the weight VJPs on the lanes' own
+    step times: ``outer_arg_grads`` (``vjp_drift`` "gradbf16") or the exact
+    ``outer_arg_grads_split2`` (``vjp_drift`` None). Gradients reach wT, iwT
+    and y0; the step grid and the noise are data."""
 
     @staticmethod
     def forward(ctx, wT, iwT, y0, t0s, hs, i1, i10, spec):
-        sc, kv, n_real, stride = spec
+        sc, kv, n_real = spec[:3]
         w2 = prepare_premixed_split2({"wT": wT.detach(), "iwT": iwT.detach()}, sc.fc)[0]
         w2 = {k: v.contiguous() for k, v in w2.items()}
         ys = replay_fwd(y0.detach().contiguous(), t0s, hs, i1, i10, n_real, w2, sc, kv)
@@ -257,14 +290,40 @@ class _Replay(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ys_bar):
-        sc, kv, n_real, stride = ctx.spec
+        sc, kv, n_real, stride, vjp_drift = ctx.spec
         wT, iwT, ys, t0s, hs, i10 = ctx.saved_tensors
         ys_bar = _carried_cotangent(ys_bar, n_real)
         ybar, seeds = replay_bwd(ys[:-1], ys_bar[1:], t0s, hs, i10, n_real, stride,
                                  ctx.w2, sc, kv)
         pw = {"wT": wT.detach(), "iwT": iwT.detach()}
-        d_wT, d_iwT = outer_arg_grads(ys[:n_real], seeds[:n_real], t0s[:n_real],
-                                      hs[:n_real], i10[:n_real], pw, sc, kv)
+        outer = outer_arg_grads if vjp_drift == "gradbf16" else outer_arg_grads_split2
+        d_wT, d_iwT = outer(ys[:n_real], seeds[:n_real], t0s[:n_real], hs[:n_real],
+                            i10[:n_real], pw, sc, kv)
+        return d_wT, d_iwT, ybar + ys_bar[0], None, None, None, None, None
+
+
+class _Replay2(torch.autograd.Function):
+    """The two-term split in kernel mode. Forward: ``replay_fwd`` (B3);
+    backward: ``replay2_bwd`` (B4s), the weight gradients in the sweep.
+    Gradients reach wT, iwT and y0; the step grid and the noise are data."""
+
+    @staticmethod
+    def forward(ctx, wT, iwT, y0, t0s, hs, i1, i10, spec):
+        sc, kv, n_real, stride, chunk = spec
+        w2 = prepare_premixed_split2({"wT": wT.detach(), "iwT": iwT.detach()}, sc.fc)[0]
+        w2 = {k: v.contiguous() for k, v in w2.items()}
+        ys = replay_fwd(y0.detach().contiguous(), t0s, hs, i1, i10, n_real, w2, sc, kv)
+        ctx.spec, ctx.w2 = spec, w2
+        ctx.save_for_backward(ys, t0s, hs, i10)
+        return ys
+
+    @staticmethod
+    def backward(ctx, ys_bar):
+        sc, kv, n_real, stride, chunk = ctx.spec
+        ys, t0s, hs, i10 = ctx.saved_tensors
+        ys_bar = _carried_cotangent(ys_bar, n_real)
+        ybar, d_wT, d_iwT = replay2_bwd(ys[:-1], ys_bar[1:], t0s, hs, i10, n_real, stride, chunk,
+                                        ctx.w2, sc, kv)
         return d_wT, d_iwT, ybar + ys_bar[0], None, None, None, None, None
 
 
@@ -355,7 +414,13 @@ def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
       columns) or with the gradbf16 substitute (``outer_arg_grads``:
       ``--grad-bf16`` without ``--split2``);
     - "split2": the two-term split in outer mode with the gradbf16
-      substitute (B3, B4 and ``outer_arg_grads`` on per-lane grids).
+      substitute (B3, B4 and ``outer_arg_grads`` on per-lane grids);
+    - "split2-kernel": the two-term split in kernel mode without a
+      substitute (B3, B4s; per-lane grids: ``--split2`` without
+      ``--grad-bf16`` through 63 columns);
+    - "split2-outer": the two-term split in outer mode without a substitute
+      (B3, B4, then the exact ``outer_arg_grads_split2`` on the lanes' own
+      step times: the same from 64 columns).
 
     Anything else raises naming its ROADMAP.md item."""
     if prepare not in ("split", "split2"):
@@ -368,18 +433,14 @@ def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
         return "split"
     if prepare == "split" and (vjp_drift is None or lanes):
         return "split-outer"
-    if prepare == "split2" and mode == "outer" and vjp_drift == "gradbf16" and lanes:
-        return "split2"
+    if prepare == "split2" and lanes:
+        if vjp_drift == "gradbf16":
+            return "split2"
+        return "split2-kernel" if mode == "kernel" else "split2-outer"
     if prepare == "split":
         why = ("the gradbf16 substitute on the uniform grid is not ported (the JAX package's "
                "fixed-grid step never passes vjp_drift): ROADMAP.md B, the substitute on the "
                "uniform grid")
-    elif mode == "kernel":
-        why = ("the two-term split with its weight gradients in the sweep (arg_grads 'kernel') is "
-               "not ported: ROADMAP.md A5b, kernel B4s")
-    elif vjp_drift is None:
-        why = ("the two-term split's exact outer weight gradients (arg_grads 'outer' without the "
-               "gradbf16 substitute) are not ported: ROADMAP.md A5b")
     else:
         why = ("the two-term split on the uniform grid is not ported (the JAX package's fixed-grid "
                "step takes the three-term split): ROADMAP.md B, the two-term split on the "
@@ -438,10 +499,11 @@ def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps=None, noise_pack=None
                .contiguous() for x in noise_pack)
     n_real = n if n_real is None else int(n_real)
     stride = truncation_stride(tuple(y0.shape), n, bptt_every)
-    if tier == "split":
+    if tier in ("split", "split2-kernel"):
         spec = (sc, kv.contiguous(), n_real, stride,
                 sweep_chunk(tuple(y0.shape), n, bptt_every))
-        return _Replay3.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
+        replay = _Replay3 if tier == "split" else _Replay2
+        return replay.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
     if tier == "split-outer":
         if ts_steps is None:
             t0_o, h_o = outer_step_times(ts)
@@ -452,7 +514,7 @@ def sdeint_fused(pw: dict, sc: SDEConsts, kv, y0, ts_steps=None, noise_pack=None
         spec = (sc, kv.contiguous(), n_real, stride, outer, vjp_drift)
         return _Replay3Outer.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10, spec)
     return _Replay.apply(pw["wT"], pw["iwT"], y0, t0s, hs, dw, i10,
-                         (sc, kv.contiguous(), n_real, stride))
+                         (sc, kv.contiguous(), n_real, stride, vjp_drift))
 
 
 # ---------------------------------------------------------------------------
@@ -482,26 +544,36 @@ def round_max_steps(state_shape, max_steps: int) -> int:
 
 
 class _ODEReplay(torch.autograd.Function):
-    """The f32-exact engine in kernel mode. Forward: ``ode_replay_fwd`` (B7
-    or B7t-team); backward: ``ode_replay_bwd`` (B8 or B8t-team), the weight
-    gradients in the sweep. Gradients reach wT, iwT and y0; the step grid is
-    data."""
+    """Kernel mode, the weight gradients in the sweep, on either split
+    (``spec``'s split2). The f32-exact engine: forward ``ode_replay_fwd`` (B7
+    or B7t-team), backward ``ode_replay_bwd`` (B8 or B8t-team). The split2
+    tier: forward ``ode_replay_fwd_split2`` (B7 split2), backward
+    ``ode_replay_bwd_split2`` (B8s). Gradients reach wT, iwT and y0; the
+    step grid is data."""
 
     @staticmethod
     def forward(ctx, wT, iwT, y0, st, spec):
-        sc, kv = spec
+        sc, kv, split2 = spec
         pw = {"wT": wT.detach().contiguous(), "iwT": iwT.detach().contiguous()}
-        ys, coeffs = ode_replay_fwd(y0.detach().contiguous(), st, pw, sc, kv)
+        y0 = y0.detach().contiguous()
+        if split2:
+            ctx.w = {k: v.contiguous() for k, v in prepare_premixed_split2(pw, sc.fc)[0].items()}
+            ys, coeffs = ode_replay_fwd_split2(y0, st, ctx.w, sc, kv)
+        else:
+            ys, coeffs = ode_replay_fwd(y0, st, pw, sc, kv)
         ctx.spec, ctx.pw = spec, pw
         ctx.save_for_backward(ys, st)
         return coeffs
 
     @staticmethod
     def backward(ctx, coeffs_bar):
-        sc, kv = ctx.spec
+        sc, kv, split2 = ctx.spec
         ys, st = ctx.saved_tensors
-        ybar, d_wT, d_iwT = ode_replay_bwd(ys, coeffs_bar.to(torch.float32).contiguous(), st,
-                                           ctx.pw, sc, kv)
+        cobar = coeffs_bar.to(torch.float32).contiguous()
+        if split2:
+            ybar, d_wT, d_iwT = ode_replay_bwd_split2(ys, cobar, st, ctx.w, sc, kv)
+        else:
+            ybar, d_wT, d_iwT = ode_replay_bwd(ys, cobar, st, ctx.pw, sc, kv)
         return d_wT, d_iwT, ybar, None, None
 
 
@@ -628,19 +700,13 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
     (B7t-team from 24 columns) and the sweep B8 (B8t-team from 18 columns at
     4 lanes) with the weight cotangents in it; "outer" the same replay, the
     emit-mode sweep B8't and the step-batched weight VJPs
-    (``ode_outer_arg_grads``). The split2 tier is ported with "outer" only
-    (B8', then ``ode_outer_arg_grads``), and "kernel" raises (B8s).
+    (``ode_outer_arg_grads``). The split2 tier: "kernel" its replay (B7
+    split2) and the sweep B8s with the weight cotangents in it, "outer" the
+    same replay, B8' and ``ode_outer_arg_grads`` on the two-term split.
 
     ``grid`` = (step_times (M+1,), naccept) skips the selection and replays
     that frozen grid (tests hand in the JAX package's grid this way)."""
     mode = resolve_arg_grads(pw, arg_grads)
-    if mode == "kernel" and split2:
-        raise NotImplementedError(
-            "the split2 tier with its weight gradients in the reverse-sweep kernel "
-            "(arg_grads='kernel', or 'auto' with weights of at most 1 MiB: 63 columns or "
-            "fewer with 4 inputs) is not ported: ROADMAP.md B8s (B8 kernel mode with the "
-            "split2 prepare); "
-            "arg_grads='outer' runs the ported tier")
     kv = kv.detach().contiguous()
 
     def select(cfg):
@@ -651,7 +717,7 @@ def odeint_dopri5_fused(pw: dict, sc: SDEConsts, kv, y0, ts, *, rtol: float = 1e
 
     if mode == "kernel":
         def replay(st):
-            return _ODEReplay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv))
+            return _ODEReplay.apply(pw["wT"], pw["iwT"], y0, st, (sc, kv, split2))
     else:
         prepare = prepare_premixed_split2 if split2 else prepare_premixed_split
 

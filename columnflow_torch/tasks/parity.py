@@ -13,9 +13,10 @@ selected by the JAX package's flags (``make_train_step``):
   (``solvers.fused.odeint_dopri5_fused``). Below 104 columns the f32-exact
   engine (``--engine fused`` through 312), its weight gradients in the
   reverse sweep through 63 columns and outside it from 64, as the JAX
-  package takes them; from 104 through 312 columns (``split2=True``) the
-  ``fused-split2`` tier, whose weight gradients are taken outside the
-  kernels;
+  package takes them; from 104 through 312 columns (``split2=True``; at
+  any width with ``--engine fused-split2`` or ``--fused --split2``) the
+  ``fused-split2`` tier, by the same rule (the reverse-sweep kernel B8s
+  through 63 columns);
 - ``stochastic``: the Ito SDE (sigma = 10 on the whole state, one scalar
   Brownian per lane). On the fixed grid (SRA1 over ``task.ts`` through
   ``solvers.fused.sdeint_fused`` on the three-term split: below 64 columns
@@ -29,7 +30,10 @@ selected by the JAX package's flags (``make_train_step``):
   otherwise from the ``jax.random`` tree (its XLA pass). ``select_bf16``:
   the bf16 selection drift, else the float32 one (the in-kernel pass: the
   three-term split); ``split2`` with ``grad_bf16``: the two-term replay
-  with the bf16 weight gradients outside the kernels; otherwise the
+  with the bf16 weight gradients outside the kernels; ``split2`` alone: the
+  two-term replay with its exact weight gradients, in the reverse sweep
+  through 63 columns (B4s) and outside it from 64
+  (``outer_arg_grads_split2``); otherwise the
   three-term replay, its weight gradients in the reverse sweep through 63
   columns and outside it from 64 (exact, or with ``grad_bf16`` the bf16
   substitute, which takes them outside at every width).
@@ -45,6 +49,8 @@ JAX package's).
     python -m columnflow_torch.tasks.parity --smoke --columns-per-area 64,32,8  # split2 tier
     python -m columnflow_torch.tasks.parity --smoke --engine fused --columns-per-area 64,32,8 \
         --max-steps 16384                                      # the f32-exact engine there
+    # at 312 columns (192,96,24) its selection needs ~2.1e4 accepted steps for the
+    # second: --max-steps 32768 (16384 ends at ~0.79 s; tools/exact312_step.py)
     python -m columnflow_torch.tasks.parity --smoke --device cpu
     python -m columnflow_torch.tasks.parity --smoke --stochastic   # the fixed-grid SDE
     python -m columnflow_torch.tasks.parity --smoke --stochastic --columns-per-area 64,32,8
@@ -58,16 +64,21 @@ JAX package's).
         --engine fused --columns-per-area 64,32,8 --max-steps 16384 --bptt-every 32 \
         --clip-grad-norm 1.0 --loss-scale 1e-6     # the f32-exact engine at 104 columns
     python -m columnflow_torch.tasks.parity --smoke --stochastic --columns-per-area 16,8,8
+    python -m columnflow_torch.tasks.parity --smoke --engine fused-split2 \
+        --columns-per-area 16,8,8                  # split2 in kernel mode (B8s)
+    python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
+        --engine fused-split2 --columns-per-area 16,8,8   # B4s
+    python -m columnflow_torch.tasks.parity --smoke --stochastic --adaptive \
+        --engine fused-split2 --columns-per-area 64,32,8 --max-steps 16384
+                                                   # the exact split2 outer pass
 
 ``resolve_mode`` resolves the command line's flags as the JAX package's
 ``main`` does (explicit engine flags switch ``--engine`` off). Every
 combination that resolves to an unported path raises
 ``NotImplementedError`` naming its ROADMAP.md item: the XLA engine
 (``--engine xla``, past 312 columns, an explicit flag without ``--fused``,
-the stochastic-adaptive step past 8 lanes at 104 columns or more: A7), the
-split2 tier at 63 columns or fewer (B8s), ``--method`` other than dopri5
-(A7), the split2 replay without ``--grad-bf16`` (A5b: B4s in kernel mode,
-the exact split2 outer pass from 64 columns),
+the stochastic-adaptive step past 8 lanes at 104 columns or more: A7),
+``--method`` other than dopri5 (A7),
 ``--random-fan-in``/``--legacy-host-rng``
 (A3), ``--position-invariant`` and ``--reference-rails`` (A6b), and
 checkpoints, metrics, profiles and evaluation (A9). A flag that the JAX
@@ -96,7 +107,6 @@ from columnflow_torch.ops.transfer import compute_firing_rate
 from columnflow_torch.solvers.fused import (
     sde_tier,
     odeint_dopri5_fused,
-    outer_by_default,
     sdeint_fused,
 )
 from columnflow_torch.solvers.sde import brownian_pack
@@ -469,12 +479,6 @@ def resolve_mode(args, total_columns: int) -> dict:
             "solvers/dopri.py, sdeint and sdeint_adaptive_batch), which is not ported "
             "(ROADMAP.md A7)")
     check_flags(f, total_columns)
-    if f.split2 and not f.stochastic and not outer_by_default(8 * total_columns, 4):
-        raise NotImplementedError(
-            f"the split2 tier at {total_columns} columns takes its weight gradients in the "
-            "reverse-sweep kernel (arg_grads 'auto' -> 'kernel': the weights hold at most "
-            "1 MiB), which is not ported: ROADMAP.md B8s (B8 kernel mode with the split2 "
-            "prepare)")
     return f._asdict()
 
 

@@ -50,7 +50,12 @@ replay and emit-mode sweep; its train step against the same step on the CPU
 B7t-team at 24 columns, B8t-team at 18 and 32, B8't at 64, bit for bit; the
 exact step at 32 (kernel mode) and 64 columns (outer mode) with one launch
 of each of its kernels, against the CPU (loss rel 1e-5, gradients within the
-larger of 1e-3 and ten times the CPU's own nudge spread).
+larger of 1e-3 and ten times the CPU's own nudge spread). The two-term
+split's kernel-mode sweeps, one team for the batch at every width: B8s
+(after B7 split2) and B4s (after B3) at 13, 32 and 63 columns, bit for bit;
+both kernel-mode steps at 13 columns against the CPU (loss rel 1e-5,
+gradients within the larger of 1e-3 and ten times the card's own nudge
+spread).
 
 XOR kernels (the XOR network, the four conditions as one batch, 200 grid
 points). Kernel and plain version sum every product in one order and round
@@ -1248,6 +1253,135 @@ def test_split2_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     rec, _, _ = _split2_step(dev, monkeypatch)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The two-term split's kernel-mode sweeps: B8s (deterministic) and B4s
+# (stochastic, per-lane grids), each one team for the batch at every width
+# ---------------------------------------------------------------------------
+
+
+def _w2(pw, sc):
+    return {k: v.contiguous() for k, v in nw.prepare_premixed_split2(pw, sc.fc)[0].items()}
+
+
+@pytest.mark.parametrize("cpa", [(8, 4, 1), (16, 8, 8), (32, 24, 7)])
+def test_split2_kernel_mode_b8s_equals_plain(dev, cpa):
+    """B7 split2 on the first 16 accepted steps of the selection at 13, 32
+    and 63 columns, and B8s over them with random cotangents of the dense
+    rows: ys, rows, ybar0, d wT and d iwT bit for bit, one launch each (B8s
+    takes the team at every width: 13 populations per block at 13
+    columns)."""
+    d = _exact(dev, cpa)
+    w2 = _w2(d["pw"], d["sc"])
+    assert no.ode_bwd_route(d["P"], 4, 4, terms=2) == "team"
+    stn = d["st"][:17].contiguous()
+    before = dict(no.LAUNCHES)
+    ys, co = no.ode_replay_fwd_split2(d["y0"], stn, w2, d["sc"], d["kv"])
+    ys_p, co_p = no._ode_replay_fwd_plain(d["y0"], stn, w2, d["sc"], d["kv"])
+    cobar = torch.randn(co.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    got = no.ode_replay_bwd_split2(ys, cobar, stn, w2, d["sc"], d["kv"])
+    want = no._ode_replay_bwd_plain(ys, cobar, stn, w2, d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    assert {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]} == {
+        "ode_replay_fwd_split2": 1, "ode_replay_bwd_split2": 1}
+    assert torch.isfinite(co).all() and torch.equal(ys, ys_p) and torch.equal(co, co_p)
+    for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
+        assert torch.isfinite(g).all() and torch.equal(g, w), name
+    assert bool(got[1].any())
+
+
+@pytest.mark.parametrize("cpa", [(8, 4, 1), (16, 8, 8), (32, 24, 7)])
+def test_split2_kernel_mode_b4s_equals_plain(dev, cpa):
+    """B3 and B4s at 13, 32 and 63 columns on a 12-step window of per-lane
+    grids (the last two steps padding, truncation every 5 steps, chunk 4):
+    ys, ybar, d wT and d iwT bit for bit against the plain versions, one
+    launch each."""
+    d = _net_inputs(dev, cpa=cpa, T=1000)
+    gen, B, P = d["gen"], 4, d["P"]
+    assert ns.sde3_bwd_route(P, 4, B, terms=2) == "team"
+    n = 12
+    t0s, hs, dw, i10 = _team_grid(dev, gen, B, P, n, True, d["ts"])
+    y0 = _states(gen, B, P, dev)
+    before = dict(ns.LAUNCHES)
+    fwd = (t0s, hs, dw, i10, n - 2, d["w2"], d["sc"], d["kv"])
+    ys = ns.replay_fwd(y0, *fwd)
+    ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n - 2, 5, 4, d["w2"], d["sc"], d["kv"])
+    got = ns.replay2_bwd(*bwd)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched == {"sde_replay_fwd": 1, "sde2_bwd": 1}
+    assert torch.isfinite(ys).all() and torch.equal(ys, ns._replay_fwd_plain(y0, *fwd))
+    assert bool(got[1].any())
+    for g, w in zip(got, ns._replay2_bwd_plain(*bwd)):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_split2_kernel_mode_steps_on_cuda_match_cpu(dev, stochastic, monkeypatch):
+    """``make_train_step(task, split2=True)`` (B6, B7 split2, B8s) and
+    ``make_train_step(task, stochastic=True, adaptive=True, split2=True)``
+    (the f32 selection on the jax.random tree, B3, B4s) at 13 columns over
+    50 grid points, "auto" taking kernel mode: one launch of each kernel of
+    the path and no plain version; the same step on the CPU on the card's
+    grid: loss rel 1e-5, each gradient within the larger of 1e-3 and ten
+    times the card's own spread under a 1e-7 nudge of the weights, a limit
+    of at most GRAD_TOL_CAP."""
+    flags = dict(split2=True, stochastic=stochastic, adaptive=stochastic)
+    keys = torch.randint(0, 2**32, (4, 2), generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int64)
+
+    def step_on(device, params=None, grid=None):
+        task = parity.build_task(ColumnConfig.load(),
+                                 torch.Generator(device=device).manual_seed(0),
+                                 columns_per_area=(8, 4, 1), time_steps=50, max_steps=1024,
+                                 device=device)
+        if params is not None:
+            with torch.no_grad():
+                for k, p in task.params.items():
+                    p.copy_(params[k])
+        rec = parity.make_train_step(task, **flags)(
+            torch.tensor(ODE_STIMS, device=device), keys.to(device) if stochastic else None,
+            grid=grid)
+        return rec, {k: p.grad.detach().cpu() for k, p in task.params.items()}
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    params0 = {k: p.detach().cpu().clone() for k, p in parity.build_task(
+        ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+        columns_per_area=(8, 4, 1), time_steps=50, device=dev).params.items()}
+    mod = ns if stochastic else no
+    with monkeypatch.context() as m:
+        for name in (("_select_plain", "_replay_fwd_plain", "_replay2_bwd_plain") if stochastic
+                     else ("_ode_select_plain", "_ode_replay_fwd_plain", "_ode_replay_bwd_plain")):
+            m.setattr(mod, name, boom)
+        before = dict(mod.LAUNCHES)
+        rec, grads = step_on(dev, params0)
+        torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in mod.LAUNCHES.items() if v != before[k]}
+    assert launched == ({"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd": 1} if stochastic
+                        else {"ode_select": 1, "ode_replay_fwd_split2": 1,
+                              "ode_replay_bwd_split2": 1})
+    st = rec["stats"]
+    if stochastic:
+        grid = tuple(x.cpu() for x in (st.step_times, st.naccept, st.nreject))
+    else:
+        grid = (st.step_times.cpu(), int(st.naccept))
+    rec_c, grads_c = step_on(torch.device("cpu"), params0, grid)
+    _, grads_n = step_on(dev, {k: v * (1.0 + 1e-7) for k, v in params0.items()},
+                         tuple(x.to(dev) if torch.is_tensor(x) else x for x in grid))
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for k, g in grads.items():
+        if not bool(grads_c[k].any()):
+            assert not bool(g.any()), k
+            continue
+        spread = float((grads_n[k] - g).norm()) / float(g.norm())
+        err = float((g - grads_c[k]).norm()) / float(grads_c[k].norm())
+        tol = max(1e-3, 10.0 * spread)
+        assert err <= tol <= GRAD_TOL_CAP, (k, err, spread)
 
 
 # ---------------------------------------------------------------------------

@@ -179,7 +179,21 @@ def test_make_dp_train_step_raises():
         tbt.make_dp_train_step(None)
 
 
-def test_command_line_smoke_on_cpu(capsys):
+@pytest.fixture
+def one_torch_thread():
+    """Run the test on one PyTorch intra-op thread, then restore the count.
+    The smoke run is thousands of small (8, 100) products and elementwise
+    ops: alone it takes ~6 s on 8 threads (~5 s on one), but beside five
+    busy processes (the suite's other xdist workers) each op's eight
+    OpenMP threads wait for one another on an oversubscribed CPU and it took
+    148 s (one thread: 3.8 s), near the suite's 150 s budget per test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_command_line_smoke_on_cpu(capsys, one_torch_thread):
     tbt.main(["--smoke", "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.startswith("final loss ") and np.isfinite(float(out.split()[-1]))

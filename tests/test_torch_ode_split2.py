@@ -67,8 +67,10 @@ def _port_params(task, jparams, jnet):
             p.copy_(params[k])
 
 
-@pytest.fixture(scope="module")
-def setup():
+def build_setup():
+    """The JAX task and its port at this file's size, JAX's frozen grid (the
+    three-term selection) and JAX's split2 replay on it
+    (``test_torch_split2_kernel_mode`` uses it too)."""
     jtask = jpt.build_task(JaxConfig.load(), jax.random.PRNGKey(0), columns_per_area=(2, 1),
                            n_inputs=N_IN, time_steps=T, max_steps=M)
     task = tpt.build_task(ColumnConfig.load(), torch.Generator().manual_seed(0),
@@ -93,6 +95,11 @@ def setup():
                 drift=drift, jargs=(jpw, jfc, jkv), P=task.net.num_pops,
                 jgrid=(np.asarray(st), np.asarray(stats)), n=n, jys=np.stack(ys),
                 jco=np.stack(co), w2=tn.prepare_premixed_split2(pw, model.sc.fc)[0])
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return build_setup()
 
 
 def test_split2_weight_cotangent_rounding_points_equal_jax():
@@ -359,18 +366,26 @@ def test_arg_grads_rule_matches_jax(columns, n_in, mode):
     assert want == mode
 
 
-def test_kernel_mode_split2_raises_naming_its_item(setup):
+def test_kernel_mode_split2_raises_naming_its_item(setup, monkeypatch):
+    """Kernel mode on the two-term split (B8s; "auto" at this size) resolves
+    and runs: the solve through ``ode_replay_bwd_split2`` and the
+    ``--split2`` training run. Only an unknown mode still raises."""
     s = setup
     y0 = torch.zeros(B, 3 * s["P"])
-    with pytest.raises(NotImplementedError, match="B8s"):
-        odeint_dopri5_fused(s["pw"], s["sc"], s["kv"], y0, torch.linspace(0, 0.01, 5),
-                            split2=True)
+    seen = []
+    orig = fused.ode_replay_bwd_split2
+    monkeypatch.setattr(fused, "ode_replay_bwd_split2",
+                        lambda *a, **k: seen.append(1) or orig(*a, **k))
+    pw = {k: v.clone().requires_grad_(True) for k, v in s["pw"].items()}
+    ys = odeint_dopri5_fused(pw, s["sc"], s["kv"], y0, torch.linspace(0, 0.01, 5), split2=True)
+    ys.sum().backward()
+    assert seen and all(torch.isfinite(p.grad).all() for p in pw.values())
     with pytest.raises(ValueError, match="arg_grads"):
         odeint_dopri5_fused(s["pw"], s["sc"], s["kv"], y0, torch.linspace(0, 0.01, 5),
                             split2=True, arg_grads="inner")
-    with pytest.raises(NotImplementedError, match="B8s"):
-        tpt.train_parity(smoke=True, device="cpu", columns_per_area=(2, 1), n_inputs=2,
-                         time_steps=T, max_steps=M, split2=True)
+    _, hist = tpt.train_parity(smoke=True, device="cpu", columns_per_area=(2, 1), n_inputs=2,
+                               time_steps=T, max_steps=M, split2=True)
+    assert all(np.isfinite(h["loss"]) for h in hist if "loss" in h)
 
 
 def test_split2_wrappers_check_their_tensors(setup):

@@ -458,7 +458,12 @@ def _parse(argv):
     (["--columns-per-area", "16,6,2"], False, False),
     (["--columns-per-area", "16,8,8"], False, False),
     (["--columns-per-area", "32,24,7"], False, False),
-    (["--engine", "fused", "--columns-per-area", "192,96,24"], False, False)])
+    (["--engine", "fused", "--columns-per-area", "192,96,24"], False, False),
+    # The split2 tier below 64 columns takes its weight gradients in the
+    # reverse-sweep kernel (B8s): pinned at 13 and 32 columns.
+    (["--engine", "fused-split2"], False, True),
+    (["--fused", "--split2"], False, True),
+    (["--engine", "fused-split2", "--columns-per-area", "16,8,8"], False, True)])
 def test_command_line_selects_the_step(argv, stochastic, split2, capsys):
     seen = _parse(argv + ["--smoke", "--device", "cpu"])
     assert seen["stochastic"] is stochastic and seen["split2"] is split2
@@ -511,6 +516,16 @@ BENCH = dict(stochastic=True, adaptive=True, select_bf16=True, grad_bf16=True, s
     (["--stochastic", "--adaptive", "--fused", "--grad-bf16"], dict(XLA_SELECTION, grad_bf16=True)),
     # Kernel mode past one block's capacity (B4't-team): 32 columns.
     (["--stochastic", "--columns-per-area", "16,8,8"], FIXED),
+    # The split2 replay without the gradbf16 substitute: in kernel mode
+    # through 63 columns (B4s), the exact outer pass from 64; with
+    # --fused-pass and no --select-bf16, B5t selects and B4s sweeps.
+    (["--stochastic", "--adaptive", "--fused", "--split2"], dict(XLA_SELECTION, split2=True)),
+    (["--stochastic", "--adaptive", "--fused", "--split2", "--columns-per-area", "64,32,8"],
+     dict(XLA_SELECTION, split2=True)),
+    (["--stochastic", "--adaptive", "--engine", "fused-split2", "--columns-per-area", "16,8,8"],
+     dict(XLA_SELECTION, split2=True)),
+    (["--stochastic", "--adaptive", "--fused", "--fused-pass", "--split2"],
+     dict(XLA_SELECTION, fused_pass=True, split2=True)),
     (["--stochastic", "--adaptive", "--columns-per-area", "16,8,8"], XLA_SELECTION)])
 def test_command_line_resolves_the_stochastic_steps(argv, mode):
     seen = _parse(argv + ["--smoke", "--device", "cpu"])
@@ -520,16 +535,9 @@ def test_command_line_resolves_the_stochastic_steps(argv, mode):
 
 @pytest.mark.parametrize("argv,exc,item", [
     (["--split2"], ValueError, "requires --fused"),
-    (["--engine", "fused-split2"], NotImplementedError, "B8s"),
-    (["--fused", "--split2"], NotImplementedError, "B8s"),
     (["--columns-per-area", "256,128,32"], NotImplementedError, "A7"),
     (["--engine", "xla"], NotImplementedError, "A7"),
     (["--method", "tsit5"], NotImplementedError, "A7"),
-    # The split2 replay without the gradbf16 substitute: in kernel mode
-    # through 63 columns (B4s), the exact outer pass from 64 (A5b).
-    (["--stochastic", "--adaptive", "--fused", "--split2"], NotImplementedError, "B4s"),
-    (["--stochastic", "--adaptive", "--fused", "--split2", "--columns-per-area", "64,32,8"],
-     NotImplementedError, "A5b"),
     # An explicit flag without --fused is the XLA engine; --fused-pass alone
     # is refused, as the JAX package's batched_rollout refuses it.
     (["--select-bf16"], NotImplementedError, "A7"),
@@ -553,8 +561,7 @@ def test_command_line_resolves_the_stochastic_steps(argv, mode):
     (["--eval", "ck.npz"], NotImplementedError, "A9"),
     (["--eval-demo"], NotImplementedError, "A9")])
 def test_unported_command_lines_raise(argv, exc, item):
-    # At the default 13 columns the split2 tier would take its weight
-    # gradients in the kernel (B8s); past 312 columns auto picks XLA (A7).
+    # Past 312 columns auto picks XLA (A7).
     with pytest.raises(exc, match=item):
         _parse(argv + ["--smoke", "--device", "cpu"])
 

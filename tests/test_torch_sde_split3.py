@@ -274,8 +274,13 @@ def test_lanes_replay_loss_and_gradients_on_jax_grid(setup, bptt_every):
     ((2, 1), "split2", "gradbf16", "auto", True, "split2"),  # the substitute forces outer
     ((64, 32, 8), "split", None, "auto", True, "split-outer"),  # 2.8 MB: outer, three-term
     ((2, 1), "split", "gradbf16", "auto", True, "split-outer"),  # the substitute forces outer
-    ((2, 1), "split2", None, "auto", True, "B4s"),
-    ((64, 32, 8), "split2", None, "auto", True, "A5b"),
+    # The two-term split without the substitute: kernel mode (B4s) while
+    # the weights hold at most 1 MiB, the exact outer pass from 64 columns.
+    ((2, 1), "split2", None, "auto", True, "split2-kernel"),
+    ((64, 32, 8), "split2", None, "auto", True, "split2-outer"),
+    ((2, 1), "split2", None, "outer", True, "split2-outer"),
+    ((2, 1), "split2", "gradbf16", "auto", False, "uniform grid"),
+    ((2, 1), "split2", None, "auto", False, "uniform grid"),
     ((2, 1), "split", "gradbf16", "kernel", True, ValueError),
     # The uniform grid (the fixed-grid step): the three-term split in outer
     # mode, exact (the substitute on that grid: test_torch_sde_lanes_outer).
@@ -288,7 +293,7 @@ def test_sdeint_fused_resolves_its_tier_as_jax(cpa, prepare, vjp, arg_grads, lan
     if want is ValueError:
         with pytest.raises(ValueError, match="vjp_drift"):
             tf.sde_tier(pw, prepare, vjp, arg_grads, lanes)
-    elif want in ("split", "split2", "split-outer"):
+    elif want in ("split", "split2", "split-outer", "split2-kernel", "split2-outer"):
         assert tf.sde_tier(pw, prepare, vjp, arg_grads, lanes) == want
     else:
         with pytest.raises(NotImplementedError, match=want):
