@@ -8,8 +8,9 @@ bench.py's 104-column stochastic-adaptive configuration, the 104-column
 fixed-grid stochastic parity step (outer mode), the exact three-term
 stochastic-adaptive step at 104 columns with the 32-column kernel-mode
 steps, the f32-exact deterministic engine past one block (32 columns in
-kernel mode, 104 in outer mode), and the two-term split's kernel-mode
-sweeps and exact outer pass (32 and 104 columns).
+kernel mode, 104 in outer mode), the two-term split's kernel-mode
+sweeps and exact outer pass (32 and 104 columns), and the Hopf MLP in outer
+mode (the reference width, and a 3-512-512-512-2 MLP past the 1 MiB rule).
 
     python3 chip_smoke.py
 
@@ -64,7 +65,7 @@ state 2496, batch 4 under one controller, 1000 grid points over 1 s,
 max_steps 16384, dopri5 at rtol 1e-7 / atol 1e-9; selection on the
 three-term split, values and gradients on the two-term one, the weight
 gradients outside the kernels):
-11. kernel vs plain: the whole selection over 25 grid points (the full
+11. kernel vs plain: the whole selection over 12 grid points (the full
    second needs ~1.3e4 attempts), single attempts from states along
    the replay, the replay and the emit-mode sweep on 64-step windows early,
    in the middle and late; 16 lanes through the selection and the replay.
@@ -87,9 +88,9 @@ rtol 1e-7 / atol 1e-9, and SRA1 on the uniform grid with sigma = 10 on the
 membrane block):
 16. kernel vs plain, bit for bit: 16 single attempts, the replay and the
    kernel-mode sweep on 64-step windows early, in the middle and late in
-   the card's grid, the SDE and its sweep over all 999 steps; the whole
-   selection over the second by its counts (within 1%) and its first 10
-   accepted times, and reported as bit for bit or not.
+   the card's grid, the SDE and its sweep over the first 250 steps; the
+   whole selection over 250 points (0.25 s) by its counts (within 1%) and
+   its first 10 accepted times, and reported as bit for bit or not.
 17. main path: 3 deterministic and 3 stochastic train steps through
    make_train_step, one launch of each of their kernels per step and none of
    anything else; the evaluation of the four conditions.
@@ -123,8 +124,8 @@ jax.random tree, the float32 drift, max_steps 3072, then B3t and B4't on
 the lanes' grids):
 24. kernel vs plain, bit for bit: the selection over 25 grid points, 16
    attempts along the replay, B3t and B4't on 64-half-step windows of the
-   lane-batched replay early, in the middle and late, and both over all 999
-   steps of the uniform grid.
+   lane-batched replay early, in the middle and late, and both over the
+   first 250 steps of the uniform grid.
 25. main path: 3 train steps of each through make_train_step, one launch of
    each of their kernels per step and none of anything else; each first
    step again on the CPU on the card's grid and noise (the fixed grid over
@@ -177,7 +178,7 @@ kernel-mode steps at 32 columns (B4't-team):
    grid points and 8 attempts along its replay; B3t-team and B4t over that
    selection's whole lanes grid; B4t lanes at 13 columns.
 36. B5t against its plain version, bit for bit: the whole selection at 13
-   columns over 50 points of the second, at 104 columns over 25 points
+   columns over 25 points of the second, at 104 columns over 25 points
    and 8 attempts.
 37. B4't-team against its plain version, bit for bit, at 32 and 63 columns
    on a 64-step uniform window and a lanes window; against B4't at 13.
@@ -198,7 +199,7 @@ The XOR stochastic-adaptive step (--stochastic --adaptive, and --fused
 over 1 s, each lane's step-doubling SRA1 selection (max_steps 2048) on the
 jax.random tree (the XLA selection as a kernel) or the krng tree (B5x),
 the lanes' replay (B3xl) and its kernel-mode sweep (B4'xl):
-42. kernel vs plain, bit for bit: each tree's whole selection over 25 grid
+42. kernel vs plain, bit for bit: each tree's whole selection over 12 grid
    points, 16 attempts along each tree's full replay, B3xl and B4'xl on
    64-half-step windows early, in the middle and late of the full grid.
 43. main path: 3 steps of each tree's step through make_train_step, one
@@ -268,10 +269,34 @@ jax.random tree, B3, B4s) and with the exact outer pass from 64 columns
    on a middle window, the three steps' profiles over 100 points.
 56. the three command lines (--engine fused-split2 at 16,8,8; with
    --stochastic --adaptive there; and at 64,32,8 with --max-steps 16384).
+The Hopf MLP in outer mode (run after phase 56; batch 32, 1000 grid points
+over 25 s, max_steps 1024, the seed-5 batch of phase 20): the emit-mode
+sweep B8ho with the parameter gradients outside it
+(``hopf_outer_arg_grads``), at the reference width with arg_grads="outer"
+and at the 3-512-512-512-2 MLP (init std 0.1 sqrt(100/512)), whose 2.1 MB
+of parameters send "auto" there, through B6h-wide, B7h-wide and B8ho-wide:
+57. B8ho against its plain version over phase 20's whole grid, bit for bit
+   in ybar0 and every ybar_steps row; its ybar0 against B8h's.
+58. at width 512: the whole selection against its plain loop (bit for bit
+   up to where the grids part, the counts within 1%, as phase 20), 8
+   attempts along the replay, the replay and the emit-mode sweep over the
+   whole grid, bit for bit.
+59. main paths, launches counted, no plain version reached: the
+   reference-width outer step (one launch each of B6h, B7h and B8ho), its
+   gradients against the kernel-mode step on the same frozen grid within
+   the larger of 1e-5 and ten times the card's own spread under a 1e-7
+   nudge; the wide make_train_step at full depth (one launch each of the
+   three wide kernels); the wide step over 10 points (0.25 s) again on the
+   CPU on the card's grid: the loss within 1e-5, each gradient within the
+   larger of 1e-5 and ten times the card's nudge spread.
+60. times: each new kernel and both outer passes from CUDA events around
+   their calls in the main-path steps, bounds and ns per serial step, the
+   plain versions' times, both steps' profiles and idle shares over 100
+   points.
 Then every path's command lines at once (each in its own process; they
 are latency-bound and share the card; each run's selection counts per
 step are recorded beside its last line), the kernels line (every kernel of
-the thirteen paths), the card's name and power limit, and the result line.
+the fourteen paths), the card's name and power limit, and the result line.
 
 It needs a CUDA device and the repository beside it; without either it
 fails.
@@ -341,8 +366,9 @@ S2_T = 1000
 S2_B = 4
 S2_MAX_STEPS = 16384
 S2_GRAD_T = 5       # grid points (5 ms) of the card-vs-CPU step
-S2_SEL_T = 25       # grid points of the whole selection held against its plain loop (over
-                    # 100 the plain loop took 12 s; cut in depth for the time limit)
+S2_SEL_T = 12       # grid points of the whole selection held against its plain loop (over
+                    # 100 the plain loop took 12 s, over 25 11 s on a slow host; cut in
+                    # depth for the time limit)
 S2_PROFILE_T = 100  # grid points of the profiled step
 S2_PLAIN_W = 16     # steps of the window on which the plain replay and sweep are timed
 
@@ -1844,6 +1870,10 @@ XOR_SOURCES = {"ode": "columnflow_torch/kernels/csrc/xor_ode.cu",
 XOR_P, XOR_S, XOR_B, XOR_K = 24, 72, 4, 4
 XOR_LOSS_TOL, XOR_GRAD_TOL = 1e-5, 1e-3
 XOR_WINDOW = 64     # steps of each kernel-vs-plain window of the dopri5 sweep (256 before PR 10)
+XOR_SEL_T = 250     # grid points of the whole selection held against its plain loop (over
+                    # the second it took 19.8 s; cut in depth for the time limit)
+XOR_SDE_W = 250     # steps of the uniform-grid SDE and its sweep held against their plain
+                    # versions (all 999 took 10.9 s of plain loop)
 
 
 def xor_bound(kernel, work, M=0, tree="jax", n=0, n_real=0):
@@ -1947,25 +1977,29 @@ def xor_phases(dev, cfg):
     scfg = xo.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]), max_steps=M)
     y0 = torch.zeros(B, S, device=dev)
     plain_ms = {}
-    st, stats = xo.xor_select(y0, pf, sc, kv, scfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st_p, stats_p = xo._xor_select_plain(y0, pf, sc, kv, scfg)
-    torch.cuda.synchronize()
-    plain_ms["xor_select"] = (time.perf_counter() - t0) * 1e3
+    st, stats = xo.xor_select(y0, pf, sc, kv, scfg)  # the second: the replay's grid below
     na, nr, ok = (int(x) for x in stats)
-    na_p = int(stats_p[0])
-    sel_equal = stats.tolist() == stats_p.tolist() and equal(st, st_p)
+    check(ok == 1 and M == 3135, f"xor_select: stats {stats.tolist()}, max_steps {M}")
+    # The whole selection over the first XOR_SEL_T points, kernel and plain loop.
     # The error norm's float64 sum runs in thread order in the kernel and in
     # PyTorch's order in the plain version: at rtol 1e-7 one float32 ulp of
     # a norm can move the grid, so the selection is held bit for bit only up
     # to where the grids part, and by its counts.
-    d_st = (st[:min(na, na_p) + 1] - st_p[:min(na, na_p) + 1]).abs()
+    scfg_s = xo.ODESelectConfig(float(task.ts[0]), float(task.ts[XOR_SEL_T - 1]), max_steps=M)
+    st_s, stats_s = xo.xor_select(y0, pf, sc, kv, scfg_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_p, stats_p = xo._xor_select_plain(y0, pf, sc, kv, scfg_s)
+    torch.cuda.synchronize()
+    plain_ms["xor_select"] = (time.perf_counter() - t0) * 1e3
+    na_s, na_p = int(stats_s[0]), int(stats_p[0])
+    sel_equal = stats_s.tolist() == stats_p.tolist() and equal(st_s, st_p)
+    d_st = (st_s[:min(na_s, na_p) + 1] - st_p[:min(na_s, na_p) + 1]).abs()
     parted = int(torch.nonzero(d_st).min()) if bool((d_st > 0).any()) else None
-    check(ok == 1 and int(stats_p[2]) == 1 and M == 3135 and abs(na - na_p) <= 0.01 * na_p + 1
-          and equal(st[:11], st_p[:11]),
-          f"xor_select: stats {stats.tolist()} vs plain {stats_p.tolist()}, max_steps {M}, "
-          f"first parted index {parted}")
+    check(int(stats_s[2]) == 1 and int(stats_p[2]) == 1 and abs(na_s - na_p) <= 0.01 * na_p + 1
+          and equal(st_s[:11], st_p[:11]),
+          f"xor_select over {XOR_SEL_T} points: stats {stats_s.tolist()} vs plain "
+          f"{stats_p.tolist()}, first parted index {parted}")
     stn = st[:na + 1].contiguous()
     ys, co = xo.xor_replay_fwd(y0, stn, pf, sc, kv)
     torch.cuda.synchronize()
@@ -2025,29 +2059,35 @@ def xor_phases(dev, cfg):
     _, i1, i10, _, _ = brownian_pack(gen, task.ts, (B,))
     i1, i10 = i1.contiguous(), i10.contiguous()
     yss = xs.xor_sde_fwd(y0, t0s, h, i1, i10, pf, sc, kv)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    yss_p = xs._xor_sde_fwd_plain(y0, t0s, h, i1, i10, pf, sc, kv)
-    torch.cuda.synchronize()
-    plain_ms["xor_sde_fwd"] = (time.perf_counter() - t0) * 1e3
-    check(bool(torch.isfinite(yss).all()) and equal(yss, yss_p),
-          f"xor_sde_fwd: {max_abs(yss, yss_p)}")
     ysbar = torch.randn(yss.shape, generator=gen, device=dev)
     ybs, rws = xs.xor_sde_bwd(yss, ysbar, t0s, h, i10, pf, sc, kv)
     torch.cuda.synchronize()
+    check(bool(torch.isfinite(yss).all()) and bool(torch.isfinite(ybs).all()),
+          "xor_sde over the whole grid is not finite")
+    # Both against their plain versions over the first XOR_SDE_W steps.
+    Ws = XOR_SDE_W
     t0 = time.perf_counter()
-    ybs_p, rws_p = xs._xor_sde_bwd_plain(yss, ysbar, t0s, h, i10, pf, sc, kv)
+    yss_p = xs._xor_sde_fwd_plain(y0, t0s[:Ws], h, i1[:Ws], i10[:Ws], pf, sc, kv)
+    torch.cuda.synchronize()
+    plain_ms["xor_sde_fwd"] = (time.perf_counter() - t0) * 1e3
+    check(equal(yss[:Ws + 1], yss_p), f"xor_sde_fwd: {max_abs(yss[:Ws + 1], yss_p)}")
+    ybs, rws = xs.xor_sde_bwd(yss[:Ws + 1], ysbar[:Ws + 1], t0s[:Ws], h, i10[:Ws], pf, sc, kv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ybs_p, rws_p = xs._xor_sde_bwd_plain(yss[:Ws + 1], ysbar[:Ws + 1], t0s[:Ws], h, i10[:Ws],
+                                         pf, sc, kv)
     torch.cuda.synchronize()
     plain_ms["xor_sde_bwd"] = (time.perf_counter() - t0) * 1e3
-    check(bool(torch.isfinite(ybs).all()) and equal(ybs, ybs_p) and equal(rws, rws_p),
-          f"xor_sde_bwd: ybar {rel_l2(ybs, ybs_p)}")
-    errs["xor_sde_fwd"] = max_abs(yss, yss_p)
+    check(equal(ybs, ybs_p) and equal(rws, rws_p), f"xor_sde_bwd: ybar {rel_l2(ybs, ybs_p)}")
+    errs["xor_sde_fwd"] = max_abs(yss[:Ws + 1], yss_p)
     errs["xor_sde_bwd"] = max(max_abs(ybs, ybs_p), rows_err(rws, rws_p))
     emit("xor_kernel_vs_plain", P=XOR_P, lanes=B, T=XOR_T, max_steps=M,
-         selection={"stats": [na, nr, ok], "stats_plain": stats_p.tolist(),
+         selection={"stats": [na, nr, ok], "held_against_plain_over_points": XOR_SEL_T,
+                    "stats_there": stats_s.tolist(), "stats_plain": stats_p.tolist(),
                     "bit_for_bit": sel_equal, "first_parted_index": parted},
          attempt={"records": 16, **att}, sweep_windows=windows, window_steps=W,
-         sde_steps=XOR_T - 1, tol="bit for bit", max_abs_err=errs)
+         sde_steps=XOR_T - 1, sde_steps_held_against_plain=XOR_SDE_W, tol="bit for bit",
+         max_abs_err=errs)
 
     # -- 17. the main path: 3 deterministic and 3 stochastic train steps ------
     # As in the JAX package, the XOR step applies its update whatever the
@@ -2237,7 +2277,10 @@ def xor_phases(dev, cfg):
              "lanes": B, "path": path[name],
              "ns_per_serial_step": times[name] * 1e6 / serial[name],
              **({"plain_ms_at": f"{W} steps (ms_window: the kernel there)",
-                 "ms_window": window_ms[name]} if name in window_ms else {})}
+                 "ms_window": window_ms[name]} if name in window_ms else {}),
+             **({"plain_ms_at": f"the whole selection over {XOR_SEL_T} points"}
+                if name == "xor_select" else {}),
+             **({"plain_ms_at": f"the first {XOR_SDE_W} steps"} if "sde" in name else {})}
             for name in calls]
 
 
@@ -2249,7 +2292,8 @@ def xor_phases(dev, cfg):
 # and its kernel-mode sweep (B4'xl) over at most 4096 half steps. Nothing cut.
 XA_MAX_STEPS = 2048
 XA_TREES = {"jax": False, "kernel": True}  # tree -> fused_pass
-XA_SEL_T = 25       # grid points of the whole selections held against their plain loop
+XA_SEL_T = 12       # grid points of the whole selections held against their plain loop
+                    # (over 25 they took 14 s on a slow host)
 XA_CPU_T = 100      # grid points of the card-vs-CPU steps (the stimulus comes on at 50)
 XA_W = 64           # half steps of each kernel-vs-plain window of the replay and its sweep
 XA_TOL = 1e-4       # card against CPU: the floor of each limit (loss and gradients)
@@ -2555,30 +2599,42 @@ HOPF_SOURCE = "columnflow_torch/kernels/csrc/hopf_ode.cu"
 HOPF_LOSS_TOL, HOPF_GRAD_TOL = 1e-5, 1e-5
 
 
-def hopf_bound(kernel, work, T=HOPF_T, M=0):
-    """(bound_ms, bound_by) of a Hopf kernel; ``work`` is what this run's data
-    needed: the controller attempts (selection) or the accepted steps
-    (replay, sweep). A drift evaluation of the batch is the MLP's products,
-    2 B (3 H + 2 H^2 + 2 H) float32 operations, plus ~4 B H for the biases
-    and ReLUs; a drift VJP's products are twice that (the transposed
-    products and the weight cotangents contracted over the lanes). The
-    selection takes 6 drifts per attempt, the replay 7 per step, the sweep 7
-    drifts (the stage states and each stage's activations) and 7 VJPs per
-    step. All float32-rate operations. Bytes: each input read once, each
-    output written once."""
+def hopf_bound(kernel, work, T=HOPF_T, M=0, H=None):
+    """(bound_ms, bound_by) of a Hopf kernel or outer pass at hidden width H
+    (the reference's by default; the wide kernels' names end in ``_wide``);
+    ``work`` is what this run's data needed: the controller attempts
+    (selection) or the accepted steps (replay, sweeps, outer pass). A drift
+    evaluation of the batch is the MLP's products, 2 B (3 H + 2 H^2 + 2 H)
+    float32 operations, plus ~4 B H for the biases and ReLUs; a drift VJP's
+    products are twice that (the transposed products and the weight
+    cotangents contracted over the lanes), its state part alone once. The
+    selection takes 6 drifts per attempt, the replay 7 per step, the
+    kernel-mode sweep 7 drifts (the stage states and each stage's
+    activations) and 7 VJPs per step, the emit-mode sweep 7 drifts and 7
+    state VJPs, the outer pass 7 drifts and 7 VJPs per step. All
+    float32-rate operations. Bytes: each input read once, each output
+    written once."""
     from columnflow_torch.models.hopf import MLP_SIZES
 
-    B, H = HOPF_B, MLP_SIZES[1]
+    B, H = HOPF_B, H or MLP_SIZES[1]
+    sizes = (3, H, H, H, 2)
     N = 2 * B
-    n_params = sum(a * b + b for a, b in zip(MLP_SIZES[:-1], MLP_SIZES[1:]))
+    n_params = sum(a * b + b for a, b in zip(sizes[:-1], sizes[1:]))
     drift = 2 * B * (3 * H + 2 * H * H + 2 * H) + 4 * B * H
     inputs = 4 * (n_params + T * B)
+    kernel = kernel.removesuffix("_wide")
     if kernel == "hopf_select":
         flops = work * (6 * drift + (2 * 21 + 2 * 6 + 8) * N)
         nbytes = inputs + 4 * N + 4 * (M + 1) + 12
     elif kernel == "hopf_replay_fwd":
         flops = work * (7 * drift + (2 * 21 + 2 * 6 + 20) * N)
         nbytes = inputs + 4 * N + 4 * (work + 1) + 4 * work * N * 6
+    elif kernel == "hopf_replay_bwd_emit":
+        flops = work * (7 * drift + 7 * drift + (2 * 21 + 2 * 21 + 40) * N)
+        nbytes = inputs + 4 * (work + 1) + 4 * work * N * 6 + 4 * N + 4 * work * N
+    elif kernel == "hopf_outer_arg_grads":
+        flops = work * (7 * drift + 7 * 2 * drift + (2 * 21 + 2 * 21 + 40) * N)
+        nbytes = inputs + 4 * (work + 1) + 4 * work * N * 7 + 4 * n_params
     else:  # hopf_replay_bwd
         flops = work * (7 * drift + 7 * 2 * drift + (2 * 21 + 2 * 21 + 40) * N)
         nbytes = inputs + 4 * (work + 1) + 4 * work * N * 6 + 4 * N + 4 * n_params
@@ -2834,6 +2890,8 @@ S13_T = 1000
 S13_B = 4
 S13_MAX_STEPS = 3072  # the command line's default, task.max_steps
 S13_W = 64            # half steps of each lanes window of B3t and B4't held against plain
+S13_UNIFORM_W = 250   # steps of the uniform grid B3t and B4't are held against plain on
+                      # (all 999 took 11.9 s of plain loop)
 S13_LOSS_TOL = 1e-5
 S13_GRAD_TOL = 1e-3   # rel L2 of each gradient, card against CPU (or ten times the card's spread)
 # bench.py's primary configuration: the 104-column step without --fused-pass.
@@ -3018,20 +3076,26 @@ def stochastic13_phases(dev, cfg):
     plain_ms["sde3_bwd_lanes"] = sum(bwd_lanes_plain) / len(bwd_lanes_plain)
     check(same["sde3_bwd_lanes"], f"B4't lanes windows: max abs {errs['sde3_bwd_lanes']}")
 
-    # The uniform grid: all 999 steps, forward and reverse sweep.
+    # The uniform grid: the kernels over all 999 steps (timed below), held
+    # against their plain versions over the first S13_UNIFORM_W.
     t0u, hu = uniform_step_times(task.ts, (B, S))
     t0u = t0u.to(dev)
     hs_u = torch.full_like(t0u, hu)
     n_u = t0u.shape[0]
     i1u, i10u = (x.reshape(n_u, B).contiguous() for x in noise_pack(task.ts))
     fwd_u = (t0u, hs_u, i1u, i10u, n_u, pw, model.sc, model.kv)
-    ys_u = ns.replay3_fwd(y0, *fwd_u)
-    ys_up, plain_ms["sde3_fwd_uniform"] = timed(lambda: ns._replay3_fwd_plain(y0, *fwd_u))
     ysbar_u = torch.randn(n_u, B, S, generator=gen, device=dev)
-    bwd_u = (ys_u[:-1].contiguous(), ysbar_u, t0u, hs_u, i10u, n_u, 0, sweep_chunk((B, S), n_u),
-             pw, model.sc, model.kv)
-    got_u = ns.replay3_bwd(*bwd_u)
-    want_u, plain_ms["sde3_bwd_uniform"] = timed(lambda: ns._replay3_bwd_plain(*bwd_u))
+    ys_full = ns.replay3_fwd(y0, *fwd_u)
+    bwd_u = (ys_full[:-1].contiguous(), ysbar_u, t0u, hs_u, i10u, n_u, 0,
+             sweep_chunk((B, S), n_u), pw, model.sc, model.kv)
+    Wu = S13_UNIFORM_W
+    fwd_w = (t0u[:Wu], hs_u[:Wu], i1u[:Wu], i10u[:Wu], Wu, pw, model.sc, model.kv)
+    ys_u = ns.replay3_fwd(y0, *fwd_w)
+    ys_up, plain_ms["sde3_fwd_uniform"] = timed(lambda: ns._replay3_fwd_plain(y0, *fwd_w))
+    bwd_w = (ys_u[:-1].contiguous(), ysbar_u[:Wu].contiguous(), t0u[:Wu], hs_u[:Wu], i10u[:Wu],
+             Wu, 0, sweep_chunk((B, S), Wu), pw, model.sc, model.kv)
+    got_u = ns.replay3_bwd(*bwd_w)
+    want_u, plain_ms["sde3_bwd_uniform"] = timed(lambda: ns._replay3_bwd_plain(*bwd_w))
     errs["sde3_fwd_uniform"] = float((ys_u - ys_up).abs().max())
     errs["sde3_bwd_uniform"] = max(float((g - w).abs().max()) for g, w in zip(got_u, want_u))
     same["sde3_fwd_uniform"] = bool(torch.equal(ys_u, ys_up))
@@ -3206,7 +3270,9 @@ def stochastic13_phases(dev, cfg):
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": paths[name],
              "bit_for_bit": same[name],
              "ns_per_serial_step": times[name] * 1e6 / serial[name],
-             **({"plain_ms_at": f"{S13_W} half steps"} if name == "sde3_fwd_lanes" else {})}
+             **({"plain_ms_at": f"{S13_W} half steps"} if name == "sde3_fwd_lanes" else {}),
+             **({"plain_ms_at": f"the first {S13_UNIFORM_W} steps"} if "uniform" in name
+                else {})}
             for name in calls]
 
 
@@ -3703,7 +3769,7 @@ EX_W = 64                # half steps of each kernel-mode sweep window
 # loop (the full second's plain loop took 101.6 s on the card, 200 points
 # 69 s: cut in depth in PR 10 to keep the script under 1000 s; the kernel is
 # timed over the whole second).
-EX_B5T13_T = 50
+EX_B5T13_T = 25     # (over 50 points its plain loop took 10 s)
 GRAD_TOL_CAP = 0.25      # no gradient limit of a card-vs-CPU step may exceed this rel L2
 KRNG_NORMAL_OPS = 150    # a krng normal: one Threefry-2x32 hash and ndtri
 
@@ -4961,6 +5027,363 @@ def split2kernel_phases(dev, cfg):
             for name, (src, rep, path, launched) in entries.items()]
 
 
+# The Hopf MLP in outer mode (phases 57-60). The wide configuration: the
+# task's own (batch 32, 1000 grid points over 25 s, max_steps 1024, rtol 1e-7
+# / atol 1e-9, RMSprop) on the MLP 3-512-512-512-2, the smallest
+# power-of-two width whose parameters (2,113,544 B) pass the 1 MiB past
+# which the JAX package's arg_grads="auto" takes the parameter gradients
+# outside the reverse sweep (columnflow/solvers/fused.py:571-574), at init
+# std 0.1 sqrt(100/512): the reference's std scaled by the fan-in, so each
+# layer's gain is the reference's (at 0.1 the state runs off). Built by hand
+# around build_hopf_mlp(sizes=..., init_std=...), as a user of the JAX
+# package would (its build_task takes no width).
+HOPF_WIDE_SIZES = (3, 512, 512, 512, 2)
+HOPF_WIDE_STD = 0.1 * (100 / 512) ** 0.5
+HOPF_OUTER_SOURCE = "columnflow_torch/kernels/csrc/hopf_outer.cu"
+HOPF_WIDE_ATTEMPTS = 8                    # attempts along the wide replay held against plain
+HOPF_WIDE_STEPS = 1   # full-depth wide steps: the seed step takes 166 accepted steps (6.4 s
+                      # on the H100), the next one 492 (18.7 s)
+HOPF_CPU_T, HOPF_CPU_SPAN = 10, 0.25      # the wide card-vs-CPU step (~4 accepted steps)
+
+
+def hopf_outer_phases(dev, cfg):
+    """Phases 57-60: the Hopf MLP in outer mode, at the reference width
+    (B8ho and the outer pass) and at width 512 (B6h-wide, B7h-wide,
+    B8ho-wide and the outer pass); returns the new kernels' entries of the
+    kernels line."""
+    import torch
+
+    from columnflow_torch.data import make_hopf_dataset
+    from columnflow_torch.kernels import column_step as cs
+    from columnflow_torch.kernels import hopf_ode as ho
+    from columnflow_torch.kernels import network_ode as no
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.kernels import xor_ode as xo
+    from columnflow_torch.kernels import xor_sde as xs
+    from columnflow_torch.models.hopf import build_hopf_mlp
+    from columnflow_torch.ops.losses import smooth_l1
+    from columnflow_torch.solvers import fused as sf
+    from columnflow_torch.tasks import bifurcation as bt
+    from columnflow_torch.tasks.wta import linspace
+    from columnflow_torch.train.optim import torch_rmsprop
+
+    counters = (ho.LAUNCHES, xo.LAUNCHES, xs.LAUNCHES, no.LAUNCHES, ns.LAUNCHES, cs.LAUNCHES)
+    B, Hw = HOPF_B, HOPF_WIDE_SIZES[1]
+    timed_fns = ("hopf_select", "hopf_replay_fwd", "hopf_replay_bwd_emit", "hopf_outer_arg_grads")
+
+    def copy_into(task, params):
+        with torch.no_grad():
+            for layer, src in zip(task.params, params):
+                for k, p in layer.items():
+                    p.copy_(src[k])
+        return task
+
+    def ref_task(device=dev, params=None, T=HOPF_T, span=HOPF_SPAN):
+        task = bt.build_task(torch.Generator(device=device).manual_seed(0), time_points=T,
+                             total_time=span, max_steps=HOPF_MAX_STEPS, device=device)
+        return task if params is None else copy_into(task, params)
+
+    def wide_task(device=dev, params=None, T=HOPF_T, span=HOPF_SPAN):
+        p = build_hopf_mlp(torch.Generator(device=device).manual_seed(0), sizes=HOPF_WIDE_SIZES,
+                           init_std=HOPF_WIDE_STD, device=device)
+        for layer in p:
+            for v in layer.values():
+                v.requires_grad_(True)
+        ts = linspace(0.0, span, T, device=device)
+        opt, _ = torch_rmsprop([v for layer in p for v in layer.values()], lr=1e-3, alpha=0.99)
+        task = bt.HopfTask(p, ts, float((ts[1] - ts[0]).item()), opt, HOPF_MAX_STEPS)
+        return task if params is None else copy_into(task, params)
+
+    def outer_step(task):
+        """make_train_step's step with arg_grads="outer" given:
+        hopf_odeint_dopri5_fused, SmoothL1, backward, RMSprop."""
+        def step(true_y, grid=None):
+            task.optimizer.zero_grad(set_to_none=True)
+            pred, stats = sf.hopf_odeint_dopri5_fused(
+                task.params, true_y[:, :, 2], task.dt, true_y[0, :, :2], task.ts,
+                max_steps=task.max_steps, grid=grid, return_stats=True, arg_grads="outer")
+            loss = smooth_l1(pred, true_y[:, :, :2])
+            loss.backward()
+            task.optimizer.step()
+            return {"loss": loss.detach(), "stats": stats}
+        return step
+
+    def host(params):
+        return [{k: v.detach().cpu().clone() for k, v in layer.items()} for layer in params]
+
+    def grads_of(task):
+        return {f"{i}.{k}": p.grad.detach().cpu().clone() for i, layer in enumerate(task.params)
+                for k, p in layer.items()}
+
+    def max_abs(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def counted(fn):
+        """fn() with every launch counter at 0 before and read after, and a
+        CUDA event pair around each kernel and outer-pass call of the step."""
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        log = []
+        restore = event_timed(sf, timed_fns, log)
+        try:
+            out, ms = timed(fn)
+        finally:
+            restore()
+        dev_ms = {}
+        for name, start, end in log:
+            dev_ms[name] = dev_ms.get(name, 0.0) + start.elapsed_time(end)
+        return out, ms, {k: v for c in counters for k, v in c.items() if v}, dev_ms
+
+    # -- 57. B8ho against its plain version over phase 20's whole grid -------------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    task = ref_task()
+    ds = make_hopf_dataset(gen, 2 * B, task.ts, device=dev)  # phase 20's two batches
+    batch = ds[:, :B]
+    mu = ho.MuTable(batch[:, :, 2].contiguous(), 0.0, task.dt)
+    y0 = batch[0, :, :2].contiguous()
+    params = [{k: v.detach().clone() for k, v in layer.items()} for layer in task.params]
+    M = sf.round_max_steps((B, 2), HOPF_MAX_STEPS)
+    scfg = ho.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]), max_steps=M)
+    st, stats = ho.hopf_select(y0, params, mu, scfg)
+    na = int(stats[0])
+    stn = st[:na + 1].contiguous()
+    ys, co = ho.hopf_replay_fwd(y0, stn, params, mu)
+    cobar = torch.randn(co.shape, generator=gen, device=dev)
+    yb, steps = ho.hopf_replay_bwd_emit(ys, cobar, stn, params, mu)
+    (yb_p, steps_p), emit_plain_ms = timed(
+        lambda: ho._hopf_replay_bwd_emit_plain(ys, cobar, stn, params, mu))
+    yb_k, _ = ho.hopf_replay_bwd(ys, cobar, stn, params, mu)
+    torch.cuda.synchronize()
+    emit_same = torch.equal(yb, yb_p) and torch.equal(steps, steps_p)
+    errs = {"hopf_replay_bwd_emit": max(max_abs(yb, yb_p), max_abs(steps, steps_p))}
+    check(bool(torch.isfinite(steps).all()) and emit_same and torch.equal(yb, yb_k),
+          f"hopf_replay_bwd_emit over the whole grid: ybar0 {max_abs(yb, yb_p)}, steps "
+          f"{max_abs(steps, steps_p)}, ybar0 against B8h's {max_abs(yb, yb_k)}")
+    emit("hopf_outer_emit_vs_plain", lanes=B, T=HOPF_T, max_steps=M, sweep_steps=na,
+         tol="bit for bit", bit_for_bit=emit_same, ybar0_equals_kernel_mode=True,
+         max_abs_err=errs, plain_ms=emit_plain_ms)
+
+    # -- 58. the wide kernels against their plain versions ------------------------------------
+    wtask = wide_task()
+    wparams = [{k: v.detach().clone() for k, v in layer.items()} for layer in wtask.params]
+    check(sf.hopf_arg_grads(wparams) == "outer" and ho._kernel_ready(wparams, B) == Hw,
+          "the wide MLP's mode")
+    plain_ms = {"hopf_replay_bwd_emit": emit_plain_ms}
+    wst, wstats = ho.hopf_select(y0, wparams, mu, scfg)
+    (wst_p, wstats_p), plain_ms["hopf_select_wide"] = timed(
+        lambda: ho._hopf_select_plain(y0, wparams, mu, scfg))
+    wna, wnr, wok = (int(x) for x in wstats)
+    wna_p = int(wstats_p[0])
+    sel_equal = wstats.tolist() == wstats_p.tolist() and torch.equal(wst, wst_p)
+    d_st = (wst[:min(wna, wna_p) + 1] - wst_p[:min(wna, wna_p) + 1]).abs()
+    parted = int(torch.nonzero(d_st).min()) if bool((d_st > 0).any()) else None
+    check(wok == 1 and int(wstats_p[2]) == 1 and abs(wna - wna_p) <= 0.01 * wna_p + 1
+          and torch.equal(wst[:11], wst_p[:11]),
+          f"hopf_select_wide: stats {wstats.tolist()} vs plain {wstats_p.tolist()}, "
+          f"first parted index {parted}")
+    errs["hopf_select_wide"] = float(d_st.max())
+    wstn = wst[:wna + 1].contiguous()
+    wys, wco = ho.hopf_replay_fwd(y0, wstn, wparams, mu)
+    (wys_p, wco_p), plain_ms["hopf_replay_fwd_wide"] = timed(
+        lambda: ho._hopf_replay_fwd_plain(y0, wstn, wparams, mu))
+    check(bool(torch.isfinite(wco).all()) and torch.equal(wys, wys_p) and torch.equal(wco, wco_p),
+          f"hopf_replay_fwd_wide: ys {max_abs(wys, wys_p)}, rows {max_abs(wco, wco_p)}")
+    errs["hopf_replay_fwd_wide"] = max(max_abs(wys, wys_p), max_abs(wco, wco_p))
+    att = {"equal": True, "accepted": 0}
+    for r in range(HOPF_WIDE_ATTEMPTS):
+        k = int(r / HOPF_WIDE_ATTEMPTS * (wna - 1))
+        t, y = wstn[k].clone(), wys[k].contiguous()
+        h = ((wstn[k + 1] - wstn[k]) * (1.0, 1.5, 2.5)[r % 3]).clone()
+        f0 = ho.hopf_ode_drift(t, y, wparams, mu).contiguous()
+        a = ho.hopf_attempt(t, y, f0, h, wparams, mu, scfg)
+        a_p = ho._hopf_attempt_plain(t, y, f0, h, wparams, mu, scfg)
+        att["equal"] &= all(torch.equal(g, w) for g, w in zip(a, a_p))
+        att["accepted"] += int(a.ratio <= 1.0)
+    check(att["equal"], f"hopf_attempt_wide: {att}")
+    wcobar = torch.randn(wco.shape, generator=gen, device=dev)
+    wyb, wsteps = ho.hopf_replay_bwd_emit(wys, wcobar, wstn, wparams, mu)
+    (wyb_p, wsteps_p), plain_ms["hopf_replay_bwd_emit_wide"] = timed(
+        lambda: ho._hopf_replay_bwd_emit_plain(wys, wcobar, wstn, wparams, mu))
+    check(bool(torch.isfinite(wsteps).all()) and torch.equal(wyb, wyb_p)
+          and torch.equal(wsteps, wsteps_p),
+          f"hopf_replay_bwd_emit_wide: ybar0 {max_abs(wyb, wyb_p)}, steps "
+          f"{max_abs(wsteps, wsteps_p)}")
+    errs["hopf_replay_bwd_emit_wide"] = max(max_abs(wyb, wyb_p), max_abs(wsteps, wsteps_p))
+    emit("hopf_wide_kernel_vs_plain", lanes=B, sizes=HOPF_WIDE_SIZES, init_std=HOPF_WIDE_STD,
+         param_bytes=4 * sum(v.numel() for layer in wparams for v in layer.values()),
+         T=HOPF_T, max_steps=M,
+         selection={"stats": [wna, wnr, wok], "stats_plain": wstats_p.tolist(),
+                    "bit_for_bit": sel_equal, "first_parted_index": parted},
+         attempt={"records": HOPF_WIDE_ATTEMPTS, **att}, replay_steps=wna, sweep_steps=wna,
+         tol="bit for bit", max_abs_err=errs, plain_ms=plain_ms)
+
+    # -- 59. the main paths ---------------------------------------------------------------------
+    # (a) the reference-width step in outer mode, from the seed weights.
+    p0 = host(task.params)
+    rec_a, ms_a, launched_a, dev_a = counted(lambda: outer_step(task)(batch))
+    check(launched_a == {"hopf_select": 1, "hopf_replay_fwd": 1, "hopf_replay_bwd_emit": 1},
+          f"hopf outer step: launches {launched_a}")
+    ska = rec_a["stats"]
+    check(bool(torch.isfinite(rec_a["loss"])) and bool(ska.success),
+          f"hopf outer step: loss {rec_a['loss']}, success {bool(ska.success)}")
+    g_outer = grads_of(task)
+    grid_a = (ska.step_times, int(ska.naccept))
+    t_k = ref_task(params=p0)
+    rec_k = bt.make_train_step(t_k)(batch, grid=grid_a)
+    g_kernel = grads_of(t_k)
+    t_n = ref_task(params=[{k: v * (1.0 + 1e-7) for k, v in layer.items()} for layer in p0])
+    outer_step(t_n)(batch, grid=grid_a)
+    g_nudged = grads_of(t_n)
+    spread = {k: rel_l2(g_nudged[k], g_outer[k]) for k in g_outer}
+    tol = {k: max(HOPF_GRAD_TOL, 10.0 * spread[k]) for k in g_outer}
+    vs_kernel = {"loss_equal": float(rec_a["loss"]) == float(rec_k["loss"]),
+                 "grad_rel_l2": {k: rel_l2(g_outer[k], g_kernel[k]) for k in g_outer},
+                 "card_grad_spread_under_1e-7_nudge": spread, "tol": tol}
+    check(vs_kernel["loss_equal"] and all(vs_kernel["grad_rel_l2"][k] < tol[k] for k in tol),
+          f"hopf outer step against kernel mode: {vs_kernel}")
+    ref_main = {"loss": float(rec_a["loss"]), "naccept": int(ska.naccept),
+                "nreject": int(ska.nreject), "success": bool(ska.success), "seconds": ms_a / 1e3,
+                "launches": launched_a, "device_ms": dev_a, "against_kernel_mode": vs_kernel}
+
+    # (b) the wide make_train_step at full depth.
+    wp0 = host(wtask.params)
+    wstep = bt.make_train_step(wtask)
+    wide_main = []
+    for i in range(HOPF_WIDE_STEPS):
+        rec_b, ms_b, launched_b, dev_b = counted(lambda: wstep(batch))
+        check(launched_b == {"hopf_select_wide": 1, "hopf_replay_fwd_wide": 1,
+                             "hopf_replay_bwd_emit_wide": 1},
+              f"wide hopf step {i}: launches {launched_b}")
+        skb = rec_b["stats"]
+        check(bool(torch.isfinite(rec_b["loss"])) and bool(skb.success)
+              and all(bool(torch.isfinite(p.grad).all()) for layer in wtask.params
+                      for p in layer.values()),
+              f"wide hopf step {i}: loss {rec_b['loss']}, success {bool(skb.success)}")
+        wide_main.append({"loss": float(rec_b["loss"]), "naccept": int(skb.naccept),
+                          "nreject": int(skb.nreject), "success": bool(skb.success),
+                          "seconds": ms_b / 1e3, "launches": launched_b, "device_ms": dev_b})
+
+    # The wide step over HOPF_CPU_T points on the card and again on the CPU with
+    # the plain versions on the card's grid, beside the card's nudge spread.
+    short_y = make_hopf_dataset(torch.Generator(device=dev).manual_seed(5), 2 * B,
+                                linspace(0.0, HOPF_CPU_SPAN, HOPF_CPU_T, device=dev),
+                                device=dev)[:, :B]
+
+    def wide_short(device, params, grid=None):
+        t = wide_task(device, params, T=HOPF_CPU_T, span=HOPF_CPU_SPAN)
+        rec = bt.make_train_step(t)(short_y.to(device), grid=grid)
+        return rec, grads_of(t)
+
+    rec_s, g_s = wide_short(dev, wp0)
+    sks = rec_s["stats"]
+    grid_s = (sks.step_times.cpu(), int(sks.naccept))
+    (rec_c, g_c), cpu_ms = timed(lambda: wide_short("cpu", wp0, grid_s))
+    rec_n, g_n = wide_short(dev, [{k: v * (1.0 + 1e-7) for k, v in layer.items()}
+                                  for layer in wp0], (sks.step_times, grid_s[1]))
+    wspread = {k: rel_l2(g_n[k], g_s[k]) for k in g_s}
+    wtol = {k: max(HOPF_GRAD_TOL, 10.0 * wspread[k]) for k in g_s}
+    cpu_check = {"T": HOPF_CPU_T, "span": HOPF_CPU_SPAN, "naccept": grid_s[1],
+                 "loss_rel": abs(float(rec_s["loss"]) - float(rec_c["loss"]))
+                 / abs(float(rec_c["loss"])),
+                 "grad_rel_l2": {k: rel_l2(g_s[k], g_c[k]) for k in g_s},
+                 "card_grad_spread_under_1e-7_nudge": wspread, "cpu_seconds": cpu_ms / 1e3,
+                 "tol": {"loss": HOPF_LOSS_TOL, "grad": wtol}}
+    check(cpu_check["loss_rel"] < HOPF_LOSS_TOL
+          and all(cpu_check["grad_rel_l2"][k] < wtol[k] for k in g_s),
+          f"card vs CPU wide hopf step: {cpu_check}")
+    emit("hopf_outer_main_path", lanes=B, T=HOPF_T, max_steps=M, reference_outer=ref_main,
+         wide=wide_main, wide_cpu_check=cpu_check)
+
+    # -- 60. times --------------------------------------------------------------------------
+    wide0 = wide_main[0]
+    times = {"hopf_replay_bwd_emit": dev_a["hopf_replay_bwd_emit"],
+             "hopf_select_wide": wide0["device_ms"]["hopf_select"],
+             "hopf_replay_fwd_wide": wide0["device_ms"]["hopf_replay_fwd"],
+             "hopf_replay_bwd_emit_wide": wide0["device_ms"]["hopf_replay_bwd_emit"],
+             "hopf_outer_arg_grads": dev_a["hopf_outer_arg_grads"],
+             "hopf_outer_arg_grads_wide": wide0["device_ms"]["hopf_outer_arg_grads"],
+             "hopf_select_in_outer_step": dev_a["hopf_select"],
+             "hopf_replay_fwd_in_outer_step": dev_a["hopf_replay_fwd"]}
+    n_a, n_b = ref_main["naccept"], wide0["naccept"]
+    serial = {"hopf_replay_bwd_emit": n_a, "hopf_select_wide": n_b + wide0["nreject"],
+              "hopf_replay_fwd_wide": n_b, "hopf_replay_bwd_emit_wide": n_b,
+              "hopf_outer_arg_grads": n_a, "hopf_outer_arg_grads_wide": n_b,
+              "hopf_select_in_outer_step": n_a + ref_main["nreject"],
+              "hopf_replay_fwd_in_outer_step": n_a}
+    bounds = {name: hopf_bound(name.removesuffix("_in_outer_step"), serial[name], M=M,
+                               H=Hw if name.endswith("_wide") else None) for name in times}
+
+    def seed_steps(make_task, make_step, true_y):
+        t = make_task()
+        seed = host(t.params)
+        step = make_step(t)
+
+        def run(i=0):
+            copy_into(t, seed)
+            return step(true_y)
+        return run
+
+    def profile(run, T, n):
+        """A warm-up, n timed steps and n profiled ones, each from the seed
+        weights (a trained step would replay another grid)."""
+        run()
+        step_ms = sum(timed(run)[1] for _ in range(n)) / n
+        wall, by_kernel = device_profile(run, n)
+        busy = sum(by_kernel.values())
+        return {"T": T, "step_ms": step_ms, "profiled_wall_ms_per_step": wall,
+                "device_busy_ms_per_step": busy if busy else "not measured",
+                "idle_share": 1.0 - busy / step_ms if busy else "not measured",
+                "top_ms_per_step": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])}
+
+    # Both profiled over the first SHORT_T points of the grid (the profiler's
+    # own cost on the outer pass's launches is ~4 s a full-horizon step).
+    short_span = float(task.ts[SHORT_T - 1])
+    profiles = {"reference_outer": profile(seed_steps(lambda: ref_task(T=SHORT_T, span=short_span),
+                                                      outer_step, ds[:SHORT_T, :B]), SHORT_T, 1),
+                "wide": profile(seed_steps(lambda: wide_task(T=SHORT_T, span=short_span),
+                                           bt.make_train_step, ds[:SHORT_T, :B]), SHORT_T, 1)}
+    emit("hopf_outer_times", lanes=B, ms=times, serial_steps=serial,
+         ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()}, plain_ms=plain_ms,
+         step_seconds={"reference_outer": ref_main["seconds"],
+                       "wide": [w["seconds"] for w in wide_main]},
+         profiles=profiles,
+         outer_passes={name: {"route": "PyTorch ops (XLA in the JAX package, no Pallas kernel)",
+                              "replaces": "columnflow/solvers/fused.py:645",
+                              "ms": times[name], "steps": serial[name],
+                              "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+                       for name in ("hopf_outer_arg_grads", "hopf_outer_arg_grads_wide")})
+
+    entries = {
+        "hopf_replay_bwd_emit": (HOPF_OUTER_SOURCE, "columnflow/solvers/fused.py:620", launched_a,
+                                 "Hopf, arg_grads='outer' (reference width)"),
+        "hopf_select_wide": (HOPF_OUTER_SOURCE, "columnflow/solvers/fused.py:590",
+                             wide0["launches"], "Hopf, 3-512-512-512-2 MLP"),
+        "hopf_replay_fwd_wide": (HOPF_OUTER_SOURCE, "columnflow/solvers/fused.py:606",
+                                 wide0["launches"], "Hopf, 3-512-512-512-2 MLP"),
+        "hopf_replay_bwd_emit_wide": (HOPF_OUTER_SOURCE, "columnflow/solvers/fused.py:620",
+                                      wide0["launches"], "Hopf, 3-512-512-512-2 MLP"),
+    }
+    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launched.get(name, 0), "max_abs_err": errs[name], "bit_for_bit": True,
+             "ms": times[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+             "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": path,
+             "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+            for name, (src, rep, launched, path) in entries.items()]
+
+
 def main() -> int:
     import torch
 
@@ -4998,7 +5421,8 @@ def main() -> int:
             + hopf_phases(dev, cfg)
             + stochastic13_phases(dev, cfg) + bench104_phases(dev, cfg)
             + fixedgrid104_phases(dev, cfg) + exact104_phases(dev, cfg)
-            + exactode_phases(dev, cfg, frozen) + split2kernel_phases(dev, cfg))
+            + exactode_phases(dev, cfg, frozen) + split2kernel_phases(dev, cfg)
+            + hopf_outer_phases(dev, cfg))
     run_command_lines()
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

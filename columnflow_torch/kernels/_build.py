@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # must not contract multiply-adds there.
 SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
                 "network_ode": ["-fmad=false"], "xor_ode": ["-fmad=false"],
-                "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"]}
+                "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"],
+                "hopf_outer": ["-fmad=false"]}
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 # C entry points of each source and their argument types; every one returns
@@ -87,6 +88,13 @@ _SIGNATURES = {
         "cf_hopf_attempt": [_I, _I, _P, _P] + [_P] * 10,
         "cf_hopf_replay_fwd": [_I, _I, _P, _I] + [_P] * 7,
         "cf_hopf_replay_bwd": [_I, _I, _P, _I] + [_P] * 9,
+    },
+    "hopf_outer": {
+        "cf_hopf_replay_bwd_emit": [_I, _I, _P, _I] + [_P] * 8,
+        "cf_hopf_wide_select": [_I, _I, _P, _P, _I, _I] + [_P] * 8,
+        "cf_hopf_wide_attempt": [_I, _I, _P, _P] + [_P] * 12,
+        "cf_hopf_wide_replay_fwd": [_I, _I, _P, _I] + [_P] * 9,
+        "cf_hopf_wide_replay_bwd_emit": [_I, _I, _P, _I] + [_P] * 10,
     },
 }
 

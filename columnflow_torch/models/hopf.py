@@ -5,8 +5,10 @@
 - ``build_hopf_mlp`` / ``hopf_mlp_drift``: the trainable neural-ODE drift, an
   MLP 3 -> 100 -> 100 -> 100 -> 2 with ReLU, weights N(0, 0.1), zero biases.
 - ``hopf_mlp_drift_vjp``: its hand-derived VJP for the fused engine's
-  reverse sweep (``kernels.hopf_ode``), which takes the weight cotangents
-  in the kernel.
+  reverse sweeps (``kernels.hopf_ode``): the kernel-mode sweep takes the
+  weight cotangents in the kernel, the emit-mode sweep the state cotangent
+  alone, and the outer pass (``solvers.fused.hopf_outer_arg_grads``) the
+  weight cotangents of many steps at once.
 
 Params are a list of ``{"w": (dout, din), "b": (dout,)}`` float32 tensors,
 as in the JAX package. Every product of a layer takes its float32 terms
@@ -79,16 +81,19 @@ def hopf_mlp_drift(t, y, params, stim: Stimulus, interp_fn=interp_at):
 
 
 def _contract(a, b):
-    """sum over the leading (lane) axis of a[l, i] b[l, j] -> (i, j): the
-    products exact in float64, ``tree_sum``-ed over the lanes, rounded
-    once."""
-    return tree_sum(a.double().T[:, None, :] * b.double().T[None, :, :]).to(a.dtype)
+    """sum over the lane axis (-2) of a[..., l, i] b[..., l, j] -> (..., i,
+    j): the products exact in float64, ``tree_sum``-ed over the lanes,
+    rounded once."""
+    return tree_sum(a.double().mT[..., :, None, :] * b.double().mT[..., None, :, :]).to(a.dtype)
 
 
-def hopf_mlp_drift_vjp(t, y, ct, params, stim: Stimulus, interp_fn=interp_at):
+def hopf_mlp_drift_vjp(t, y, ct, params, stim: Stimulus, interp_fn=interp_at,
+                       weights: bool = True):
     """The VJP of ``hopf_mlp_drift`` at (t, y) for the output cotangent ct
     (B, 2): (state cotangent (B, 2), [{"w", "b"}] each layer's cotangents,
-    contracted over the lanes).
+    contracted over the lanes, or None without ``weights``). Axes before
+    (B, 2) batch separate evaluations (t then gives each its own time, as
+    ``interp_fn`` takes it), each with its own cotangents.
 
     The forward is recomputed at (t, y), so the ReLU masks are those of the
     drift at the same state; the derivative at exactly 0 is 0, as in
@@ -101,11 +106,12 @@ def hopf_mlp_drift_vjp(t, y, ct, params, stim: Stimulus, interp_fn=interp_at):
     for layer in params[:-1]:
         xs.append(torch.relu(linear(xs[-1], layer["w"], layer["b"])))
     g = ct
-    grads = [None] * len(params)
+    grads = [None] * len(params) if weights else None
     for i in range(len(params) - 1, -1, -1):
         x = xs[i]
-        ones = torch.ones_like(g[:, :1])
-        grads[i] = {"w": _contract(g, x), "b": _contract(g, ones)[:, 0]}
+        if weights:
+            ones = torch.ones_like(g[..., :1])
+            grads[i] = {"w": _contract(g, x), "b": _contract(g, ones)[..., 0]}
         gx = tree_sum(g.double()[..., None, :] * params[i]["w"].double().T).to(g.dtype)
         g = torch.where(x > 0, gx, torch.zeros_like(gx)) if i else gx
     return g[..., :2], grads

@@ -49,7 +49,9 @@ in kernel mode: ``xor_odeint_dopri5_fused`` (the kernels of
 Brownian per lane on the uniform grid or, lane-batched, on per-lane grids
 (the adaptive replay's engine; ``kernels.xor_sde``). The Hopf task's MLP
 drift (``hopf_mlp_drift``) has ``hopf_odeint_dopri5_fused`` (the kernels
-of ``kernels.hopf_ode``), in kernel mode.
+of ``kernels.hopf_ode``): kernel mode for the reference MLP, outer mode
+(the emit-mode sweep B8ho and ``hopf_outer_arg_grads``) past 1 MiB of
+parameters or on request.
 """
 
 from __future__ import annotations
@@ -69,7 +71,16 @@ from columnflow_torch.kernels.network_ode import (
     ode_select,
     step_vjp,
 )
-from columnflow_torch.kernels.hopf_ode import MuTable, hopf_replay_bwd, hopf_replay_fwd, hopf_select
+from columnflow_torch.kernels.hopf_ode import (
+    MuTable,
+    hopf_replay_bwd,
+    hopf_replay_bwd_emit,
+    hopf_replay_fwd,
+    hopf_select,
+    hopf_step_vjp,
+    pack_params,
+    unpack_params,
+)
 from columnflow_torch.kernels.network_sde import (
     SIGMA,
     SDEConsts,
@@ -924,32 +935,33 @@ def xor_sdeint_fused(pf: dict, sc: SDEConsts, kv, y0, ts=None, noise_pack=None,
 
 
 # ---------------------------------------------------------------------------
-# The Hopf MLP drift: fused dopri5, kernel mode
+# The Hopf MLP drift: fused dopri5, kernel and outer mode
 # ---------------------------------------------------------------------------
 
 
 def hopf_arg_grads(params, arg_grads: str = "auto") -> str:
     """JAX's ``arg_grads`` rule for the MLP parameters (``columnflow/solvers/
-    fused.py:571-574``): "outer" when they hold more than 1 MiB, else
-    "kernel". The reference MLP holds 83 KB, so "auto" is "kernel"; only
-    kernel mode is ported, "outer" raises."""
+    fused.py:569-576``): "outer" when they hold more than 1 MiB (the 3-512-
+    512-512-2 MLP's 2.1 MB), else "kernel" (the reference MLP's 83 KB). The
+    rule's "kernel" when nothing is differentiable does not arise: the
+    parameters are always the drift's differentiable args. Kernel mode past
+    1 MiB (B8h at such a width) is not ported and raises."""
     if arg_grads not in ("auto", "kernel", "outer"):
         raise ValueError(f"unknown arg_grads mode: {arg_grads!r}")
+    big = sum(4 * layer[k].numel() for layer in params for k in PARAM_KEYS) > OUTER_ARG_BYTES
     if arg_grads == "auto":
-        big = sum(4 * layer[k].numel() for layer in params for k in PARAM_KEYS) > OUTER_ARG_BYTES
         arg_grads = "outer" if big else "kernel"
-    if arg_grads == "outer":
+    if arg_grads == "kernel" and big:
         raise NotImplementedError(
-            "the Hopf MLP's parameter gradients outside the reverse sweep (arg_grads='outer': "
-            "emit mode and step-batched VJPs, parameters over 1 MiB) are not ported: "
-            "ROADMAP.md B8ho")
+            "the Hopf MLP's parameter gradients inside the reverse sweep (arg_grads='kernel') "
+            "past 1 MiB of parameters are not ported: ROADMAP.md B8hw")
     return arg_grads
 
 
 class _HopfODEReplay(torch.autograd.Function):
-    """Forward: ``hopf_replay_fwd``; backward: ``hopf_replay_bwd``.
-    Gradients reach y0 and the eight parameter tensors; the step grid and
-    the mu table are data."""
+    """Kernel mode. Forward: ``hopf_replay_fwd``; backward:
+    ``hopf_replay_bwd``. Gradients reach y0 and the eight parameter
+    tensors; the step grid and the mu table are data."""
 
     @staticmethod
     def forward(ctx, y0, st, mu, *leaves):
@@ -968,6 +980,52 @@ class _HopfODEReplay(torch.autograd.Function):
         return (ybar, None, None, *(g[k] for g in grads for k in PARAM_KEYS))
 
 
+class _HopfODEReplayOuter(_HopfODEReplay):
+    """Outer mode (``arg_grads="outer"``). Forward: ``hopf_replay_fwd``, as
+    in kernel mode; backward: ``hopf_replay_bwd_emit`` (B8ho) for the state
+    cotangent and each step's output cotangent, then
+    ``hopf_outer_arg_grads`` for the parameters."""
+
+    @staticmethod
+    def backward(ctx, coeffs_bar):
+        ys, st = ctx.saved_tensors
+        cobar = coeffs_bar.to(torch.float32).contiguous()
+        ybar, ybar_steps = hopf_replay_bwd_emit(ys, cobar, st, ctx.params, ctx.mu)
+        grads = hopf_outer_arg_grads(ys, ybar_steps, cobar, st, ctx.params, ctx.mu)
+        return (ybar, None, None, *(g[k] for g in grads for k in PARAM_KEYS))
+
+
+@torch.no_grad()
+def hopf_outer_arg_grads(ys, ybar_steps, cobar, st, params, mu: MuTable,
+                         block: int | None = None):
+    """The MLP's parameter gradients of the replay in outer mode
+    (``_outer_arg_grads``, ``columnflow/solvers/fused.py:645-686``): for
+    every accepted step k, the VJP of the replay step at (ys[k], st[k],
+    st[k+1] - st[k]) with respect to the eight parameter tensors, fed the
+    cotangent ybar_steps[k] on the step's output and cobar[k] on its dense
+    rows; summed over the steps in float32. The steps run ``block`` at a
+    time as one batched ``hopf_step_vjp``, each keeping its own cotangents
+    (as ``jax.vmap`` of ``jax.vjp`` does), each block's sum added to the
+    total. PyTorch ops: the JAX package computes this pass in XLA, not in a
+    Pallas kernel. A block's largest temporaries are the (block, B, H, H)
+    float64 products of a hidden layer (67 MB a step at B = 32, H = 512);
+    ``block`` None: 128 steps, fewer where one such temporary would pass
+    ``OUTER_BLOCK_BYTES`` (16 at that width). Returns a list of ``{"w",
+    "b"}``."""
+    if block is None:
+        B = ys.shape[1]
+        widest = max(layer["w"].numel() for layer in params)
+        block = max(1, min(128, OUTER_BLOCK_BYTES // (8 * B * widest)))
+    t0s, hs = st[:-1], st[1:] - st[:-1]
+    acc = torch.zeros_like(pack_params(params))
+    for s in range(0, ys.shape[0], block):
+        sl = slice(s, s + block)
+        _, g = hopf_step_vjp(t0s[sl, None, None], hs[sl, None, None], ys[sl], ybar_steps[sl],
+                             cobar[sl], params, mu)
+        acc += g.sum(0)
+    return unpack_params(acc, params)
+
+
 def hopf_odeint_dopri5_fused(params, mu_table, dt: float, y0, ts, *, rtol: float = 1e-7,
                              atol: float = 1e-9, dt0: float | None = None,
                              max_steps: int = 2048, grid=None, return_stats: bool = False,
@@ -979,10 +1037,14 @@ def hopf_odeint_dopri5_fused(params, mu_table, dt: float, y0, ts, *, rtol: float
     with ``return_stats``). ``params``: the list of ``{"w", "b"}``
     (differentiable); ``mu_table`` (T, B) the drive on the grid dt *
     arange(T) (data). Gradients are discrete backpropagation through the
-    frozen accepted steps, in kernel mode (``hopf_arg_grads``), and reach
-    params and y0. ``grid`` = (step_times (M+1,), naccept) skips the
-    selection and replays that frozen grid."""
-    hopf_arg_grads(params, arg_grads)
+    frozen accepted steps and reach params and y0. ``arg_grads`` resolves
+    as in the JAX package (``hopf_arg_grads``): "kernel" takes the
+    parameter cotangents in the reverse sweep (B8h), "outer" (the default
+    past 1 MiB of parameters) runs the emit-mode sweep B8ho and
+    ``hopf_outer_arg_grads``. ``grid`` = (step_times (M+1,), naccept) skips
+    the selection and replays that frozen grid."""
+    outer = hopf_arg_grads(params, arg_grads) == "outer"
+    replay_fn = _HopfODEReplayOuter if outer else _HopfODEReplay
     mu = MuTable(mu_table.detach().to(torch.float32).contiguous(), 0.0, float(dt))
     leaves = [layer[k] for layer in params for k in PARAM_KEYS]
 
@@ -992,6 +1054,6 @@ def hopf_odeint_dopri5_fused(params, mu_table, dt: float, y0, ts, *, rtol: float
                            mu, cfg)
 
     def replay(st):
-        return _HopfODEReplay.apply(y0, st, mu, *leaves)
+        return replay_fn.apply(y0, st, mu, *leaves)
 
     return _dopri5_solve(select, replay, y0, ts, rtol, atol, dt0, max_steps, grid, return_stats)

@@ -8,7 +8,11 @@ mu(t). Ground truth comes from the per-lane adaptive dopri5
 with one shared controller: the fused dopri5 at rtol 1e-7 / atol 1e-9, the
 selection, the dense-output replay and its reverse sweep each one kernel
 (``solvers.fused.hopf_odeint_dopri5_fused``). RMSprop(lr 1e-3, alpha
-0.99), SmoothL1 trajectory loss.
+0.99), SmoothL1 trajectory loss. A wider MLP goes in through a ``HopfTask``
+built by hand around ``build_hopf_mlp(generator, sizes=..., init_std=...)``,
+as in the JAX package (whose ``build_task`` takes no width); past 1 MiB of
+parameters the fused solve takes their gradients outside the reverse sweep
+("outer" mode), as the JAX package's does.
 
     python -m columnflow_torch.tasks.bifurcation --smoke               # on the card
     python -m columnflow_torch.tasks.bifurcation --smoke --device cpu  # plain versions

@@ -76,7 +76,15 @@ and round every float32 operation alike, so they are held bit for bit: the
 selection, single attempts, the replay and its kernel-mode sweep; the train
 step against the same step on the CPU on the card's grid (loss rel 1e-5,
 gradients rel L2 1e-3), with exactly one launch of each kernel; the wrappers
-refuse other widths and more than 32 lanes.
+refuse other widths and more than 32 lanes. Outer mode: the emit-mode sweep
+B8ho bit for bit, its ybar0 the kernel-mode sweep's; at the 3-512-512-512-2
+MLP (init std 0.1 sqrt(100/512), what "auto" sends to outer mode) the
+selection, attempts, replay and emit-mode sweep bit for bit over 100 points
+(2.5 s); the outer-mode step at the reference width and the wide
+``make_train_step`` (10 points over 0.25 s: the CPU's plain versions take
+~20 s a step there) against the CPU on the card's grid (loss rel 1e-5,
+gradients rel L2 1e-3), one launch of each of their kernels, no plain
+version reached.
 """
 
 import pytest
@@ -1758,5 +1766,155 @@ def test_hopf_kernels_never_reach_the_plain_versions(hopf, monkeypatch):
                  "_hopf_replay_bwd_plain"):
         monkeypatch.setattr(ho, name, boom)
     rec, _, _ = _hopf_step(hopf["y0"].device, hopf["true_y"])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The Hopf MLP in outer mode: B8ho at the reference width, and the wide MLP
+# (3-512-512-512-2) through B6h-wide, B7h-wide and B8ho-wide
+# ---------------------------------------------------------------------------
+
+HOPF_WIDE = (3, 512, 512, 512, 2)
+HOPF_WIDE_STD = 0.1 * (100 / 512) ** 0.5
+
+
+def _hopf_wide_task(device, params=None, time_points=100, total_time=2.5):
+    """A ``HopfTask`` built by hand around the wide MLP, as a user would."""
+    from columnflow_torch.models.hopf import build_hopf_mlp
+    from columnflow_torch.train.optim import torch_rmsprop
+
+    if params is None:
+        params = build_hopf_mlp(torch.Generator(device=device).manual_seed(0), sizes=HOPF_WIDE,
+                                init_std=HOPF_WIDE_STD, device=device)
+    params = [{k: v.detach().to(device).clone().requires_grad_(True) for k, v in layer.items()}
+              for layer in params]
+    ts = linspace(0.0, total_time, time_points, device=device)
+    opt, _ = torch_rmsprop([p for layer in params for p in layer.values()], lr=1e-3, alpha=0.99)
+    return bifurcation.HopfTask(params, ts, float((ts[1] - ts[0]).item()), opt, 1024)
+
+
+def test_hopf_emit_sweep_equals_plain_and_kernel_mode(hopf):
+    d = hopf
+    st, stats = ho.hopf_select(d["y0"], d["params"], d["mu"], d["cfg"])
+    stn = st[:int(stats[0]) + 1].contiguous()
+    ys, co = ho.hopf_replay_fwd(d["y0"], stn, d["params"], d["mu"])
+    cobar = torch.randn(co.shape, generator=d["gen"], device=co.device)
+    before = ho.LAUNCHES["hopf_replay_bwd_emit"]
+    yb, steps = ho.hopf_replay_bwd_emit(ys, cobar, stn, d["params"], d["mu"])
+    yb_p, steps_p = ho._hopf_replay_bwd_emit_plain(ys, cobar, stn, d["params"], d["mu"])
+    yb_k, _ = ho.hopf_replay_bwd(ys, cobar, stn, d["params"], d["mu"])
+    torch.cuda.synchronize()
+    assert ho.LAUNCHES["hopf_replay_bwd_emit"] == before + 1
+    assert torch.isfinite(steps).all() and torch.equal(steps, steps_p)
+    assert torch.equal(yb, yb_p) and torch.equal(yb, yb_k)
+
+
+@pytest.fixture
+def hopf_wide(dev):
+    from columnflow_torch.data import make_hopf_dataset
+
+    task = _hopf_wide_task(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    true_y = make_hopf_dataset(gen, 32, task.ts, device=dev)
+    params = [{k: v.detach().clone() for k, v in layer.items()} for layer in task.params]
+    mu = ho.MuTable(true_y[:, :, 2].contiguous(), 0.0, task.dt)
+    cfg = no.ODESelectConfig(0.0, float(task.ts[-1]), max_steps=1024)
+    return dict(task=task, true_y=true_y, params=params, mu=mu, cfg=cfg, gen=gen,
+                y0=true_y[0, :, :2].contiguous())
+
+
+def test_hopf_wide_kernels_equal_plain(hopf_wide):
+    d = hopf_wide
+    before = dict(ho.LAUNCHES)
+    st, stats = ho.hopf_select(d["y0"], d["params"], d["mu"], d["cfg"])
+    st_p, stats_p = ho._hopf_select_plain(d["y0"], d["params"], d["mu"], d["cfg"])
+    assert int(stats[2]) == 1 and stats.tolist() == stats_p.tolist() and torch.equal(st, st_p)
+    n = int(stats[0])
+    stn = st[:n + 1].contiguous()
+    ys, co = ho.hopf_replay_fwd(d["y0"], stn, d["params"], d["mu"])
+    ys_p, co_p = ho._hopf_replay_fwd_plain(d["y0"], stn, d["params"], d["mu"])
+    assert torch.isfinite(co).all() and torch.equal(ys, ys_p) and torch.equal(co, co_p)
+    for k, stretch in ((0, 1.0), (n // 2, 2.5), (n - 2, 4.0)):
+        t, y = stn[k].clone(), ys[k].contiguous()
+        h = ((stn[k + 1] - stn[k]) * stretch).clone()
+        f0 = ho.hopf_ode_drift(t, y, d["params"], d["mu"]).contiguous()
+        a = ho.hopf_attempt(t, y, f0, h, d["params"], d["mu"], d["cfg"])
+        a_p = ho._hopf_attempt_plain(t, y, f0, h, d["params"], d["mu"], d["cfg"])
+        for got, want in zip(a, a_p):
+            assert torch.equal(got, want), k
+    cobar = torch.randn(co.shape, generator=d["gen"], device=co.device)
+    yb, steps = ho.hopf_replay_bwd_emit(ys, cobar, stn, d["params"], d["mu"])
+    yb_p, steps_p = ho._hopf_replay_bwd_emit_plain(ys, cobar, stn, d["params"], d["mu"])
+    torch.cuda.synchronize()
+    assert torch.isfinite(yb).all() and torch.equal(yb, yb_p) and torch.equal(steps, steps_p)
+    launched = {k: v - before[k] for k, v in ho.LAUNCHES.items() if v != before[k]}
+    assert launched == {"hopf_select_wide": 1, "hopf_replay_fwd_wide": 1, "hopf_attempt_wide": 3,
+                        "hopf_replay_bwd_emit_wide": 1}
+    with pytest.raises(ValueError, match="MLP"):
+        ho.hopf_replay_bwd(ys, cobar, stn, d["params"], d["mu"])
+
+
+def _hopf_outer_step(device, true_y, wide, params=None, grid=None):
+    """One outer-mode train step: the wide task's ``make_train_step`` ("auto"
+    is "outer" there), or at the reference width ``hopf_odeint_dopri5_fused``
+    with ``arg_grads="outer"``, SmoothL1, backward and RMSprop."""
+    from columnflow_torch.ops.losses import smooth_l1
+    from columnflow_torch.solvers.fused import hopf_odeint_dopri5_fused
+
+    true_y = true_y.to(device)
+    if wide:
+        task = _hopf_wide_task(device, params, time_points=10, total_time=0.25)
+        rec = bifurcation.make_train_step(task)(true_y[:10], grid=grid)
+    else:
+        task = _hopf_task(device, params)
+        task.optimizer.zero_grad(set_to_none=True)
+        pred, stats = hopf_odeint_dopri5_fused(task.params, true_y[:, :, 2], task.dt,
+                                               true_y[0, :, :2], task.ts,
+                                               max_steps=task.max_steps, grid=grid,
+                                               return_stats=True, arg_grads="outer")
+        loss = smooth_l1(pred, true_y[:, :, :2])
+        loss.backward()
+        task.optimizer.step()
+        rec = {"loss": loss.detach(), "stats": stats}
+    grads = [{k: p.grad.detach().cpu() for k, p in layer.items()} for layer in task.params]
+    return rec, grads
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_hopf_outer_steps_on_cuda_match_cpu(dev, hopf, wide):
+    from columnflow_torch.models.hopf import build_hopf_mlp
+
+    counters = (ho.LAUNCHES, xo.LAUNCHES, xs.LAUNCHES, no.LAUNCHES, ns.LAUNCHES, cs.LAUNCHES)
+    before = [dict(c) for c in counters]
+    params0 = (build_hopf_mlp(torch.Generator(device=dev).manual_seed(0), sizes=HOPF_WIDE,
+                              init_std=HOPF_WIDE_STD, device=dev) if wide
+               else [{k: v.cpu() for k, v in layer.items()} for layer in hopf["params"]])
+    rec, grads = _hopf_outer_step(dev, hopf["true_y"], wide, params0)
+    torch.cuda.synchronize()
+    launched = {k: c[k] - b[k] for c, b in zip(counters, before) for k in c if c[k] != b[k]}
+    sfx = "_wide" if wide else ""
+    assert launched == {f"hopf_select{sfx}": 1, f"hopf_replay_fwd{sfx}": 1,
+                        f"hopf_replay_bwd_emit{sfx}": 1}
+    assert bool(torch.isfinite(rec["loss"])) and bool(rec["stats"].success)
+    grid = (rec["stats"].step_times.cpu(), int(rec["stats"].naccept))
+    rec_c, grads_c = _hopf_outer_step(torch.device("cpu"), hopf["true_y"].cpu(), wide,
+                                      [{k: v.cpu() for k, v in layer.items()} for layer in params0],
+                                      grid=grid)
+    assert float(rec["loss"]) == pytest.approx(float(rec_c["loss"]), rel=1e-5)
+    for g, g_c in zip(grads, grads_c):
+        for k in g:
+            assert float((g[k] - g_c[k]).norm()) <= 1e-3 * float(g_c[k].norm()) + 1e-30, k
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_hopf_outer_steps_never_reach_the_plain_versions(dev, hopf, wide, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_hopf_select_plain", "_hopf_attempt_plain", "_hopf_replay_fwd_plain",
+                 "_hopf_replay_bwd_plain", "_hopf_replay_bwd_emit_plain"):
+        monkeypatch.setattr(ho, name, boom)
+    rec, _ = _hopf_outer_step(dev, hopf["true_y"], wide)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))

@@ -397,22 +397,37 @@ def test_dopri_lanes_refuses_unported_options():
 
 
 def test_arg_grads_rule(setup):
+    """JAX's rule: "kernel" up to 1 MiB of parameters, "outer" past it or on
+    request; kernel mode past 1 MiB is not ported (B8hw)."""
     assert tf.hopf_arg_grads(setup["params"]) == "kernel"
+    assert tf.hopf_arg_grads(setup["params"], "outer") == "outer"
     big = [{"w": torch.zeros(600, 600), "b": torch.zeros(600)}]
-    for params, mode in ((setup["params"], "outer"), (big, "auto")):
-        with pytest.raises(NotImplementedError, match="B8ho"):
-            tf.hopf_arg_grads(params, mode)
+    assert tf.hopf_arg_grads(big) == "outer"
+    with pytest.raises(NotImplementedError, match="B8hw"):
+        tf.hopf_arg_grads(big, "kernel")
     with pytest.raises(ValueError):
         tf.hopf_arg_grads(setup["params"], "both")
 
 
 def test_kernels_hold_the_reference_width_only(setup):
+    """The kernels hold the MLP (3, H, H, H, 2) at the reference width 100
+    and at 512 (the wide kernels), 1 to 32 lanes; any other width, and 33
+    lanes, are refused. The kernel-mode sweep holds the reference width
+    only."""
     with pytest.raises(ValueError, match="MLP"):
         ho._kernel_ready(setup["params"], B)
     full = th.build_hopf_mlp(torch.Generator().manual_seed(0))
-    ho._kernel_ready(full, 32)
-    with pytest.raises(ValueError, match="lanes"):
-        ho._kernel_ready(full, 33)
+    assert ho._kernel_ready(full, 32) == 100
+    wide = th.build_hopf_mlp(torch.Generator().manual_seed(0), sizes=(3, 512, 512, 512, 2))
+    assert ho._kernel_ready(wide, 1) == 512
+    with pytest.raises(ValueError, match="MLP"):
+        ho._kernel_ready(wide, 32, widths=ho.KERNEL_WIDTHS[:1])
+    for sizes in ((3, 256, 256, 256, 2), (3, 100, 512, 100, 2), (3, 512, 512, 2)):
+        with pytest.raises(ValueError, match="MLP"):
+            ho._kernel_ready(th.build_hopf_mlp(torch.Generator().manual_seed(0), sizes=sizes), 8)
+    for params in (full, wide):
+        with pytest.raises(ValueError, match="lanes"):
+            ho._kernel_ready(params, 33)
 
 
 def test_pack_params_round_trip(setup):
