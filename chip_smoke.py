@@ -324,21 +324,46 @@ PARITY_T = 1000
 PARITY_B = 4
 PARITY_MAX_STEPS = 16384
 SHORT_T = 100       # grid points of the CPU step check and the plain versions' times
-# Full-width train steps of the flagship, split2 and bench main paths (each
-# ~15-18 s on the H100): one, to keep the whole script well under its time
-# limit.
+# Full-width train steps of the flagship, split2 and bench main paths (6-7 s
+# for the flagship and bench, ~18 s for split2 on the H100): one, to keep the
+# whole script well under its time limit.
 FULL_STEPS = 1
 GRAD_T = 5          # grid points (5 ms) of the CPU step check holding every gradient
 OUT_T = 50          # grid points of the 104-column CPU step check holding the output weights
-# The flagship's output-weight check over 25 points (over 50 its two CPU
-# steps took ~40 s; cut in depth to keep the script under its time limit).
-FLAGSHIP_OUT_T = 25
+# The flagship's output-weight check over 12 points (over 50 its two CPU
+# steps took ~40 s, over 25 ~16 s; cut in depth to keep the script under its
+# time limit).
+FLAGSHIP_OUT_T = 12
 # The flagship's whole selection against its plain loop, and its kernels and
-# plain versions timed on a short horizon, over 25 points (over SHORT_T the
-# plain versions took ~30 s; cut in depth to keep the script under its limit).
-FLAGSHIP_SEL_T = 25
+# plain versions timed on a short horizon, over 12 points (over SHORT_T the
+# plain versions took ~30 s, over 25 ~9 s; cut in depth to keep the script
+# under its limit).
+FLAGSHIP_SEL_T = 12
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 SDE_SOURCE = "columnflow_torch/kernels/csrc/network_sde.cu"
+TEAM2_SOURCE = "columnflow_torch/kernels/csrc/replay2_team.cuh"  # B3, B4: cluster teams
+# Every window on which B3 and B4 are held against their plain versions, by
+# width: (max abs error, bit for bit, differing elements); the kernels line
+# reports the largest error over all of them.
+REPLAY2_CHECKS = {"sde_replay_fwd": {}, "sde_replay_bwd": {}}
+
+
+def record_replay2(name, columns, got, want):
+    """Record one B3 (``sde_replay_fwd``) or B4 (``sde_replay_bwd``) window
+    against its plain version at ``columns`` columns; returns its entry."""
+    import torch
+
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+    entry = REPLAY2_CHECKS[name].setdefault(columns, {"max_abs_err": 0.0, "bit_for_bit": True,
+                                                     "differing": 0, "windows": 0})
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    entry["bit_for_bit"] = entry["bit_for_bit"] and differ == 0
+    entry["differing"] += differ
+    entry["windows"] += 1
+    return {"max_abs_err": err, "differing": differ}
 # The flagship's step settings; its solver flags (--stochastic --adaptive
 # --fused --fused-pass --select-bf16 --grad-bf16 --split2) select the port's
 # stochastic step.
@@ -1031,6 +1056,8 @@ def parity_phases(dev, cfg):
               and e["carry_rel_l2"] < 1e-4, f"replay window at {k0}: {e}")
         errs["sde_replay_fwd"] = max(errs["sde_replay_fwd"], float((ys_k - ys_p).abs().max()))
         errs["sde_replay_bwd"] = max(errs["sde_replay_bwd"], float((seeds - seeds_p).abs().max()))
+        e["fwd"] = record_replay2("sde_replay_fwd", sum(PARITY_CPA), ys_k, ys_p)
+        e["bwd"] = record_replay2("sde_replay_bwd", sum(PARITY_CPA), (seeds, yb), (seeds_p, yb_p))
         windows.append({"start": k0, **e})
     emit("parity_kernel_vs_plain", columns=sum(PARITY_CPA), P=P, lanes=B, T=PARITY_T,
          naccept=na.tolist(), nreject=nr.tolist(), n_real=n_real,
@@ -1057,7 +1084,8 @@ def parity_phases(dev, cfg):
         stims_i, keys_i = make_parity_batch(gen, n_in, B, device=dev), lane_words(B)
         before = dict(ns.LAUNCHES)
         restore = ([event_timed(sa, ("select_pass",), log),
-                    event_timed(fused, ("replay_fwd", "replay_bwd"), log)] if i == 0 else [])
+                    event_timed(fused, ("replay_fwd", "replay_bwd", "outer_arg_grads"), log)]
+                   if i == 0 else [])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -1166,6 +1194,26 @@ def parity_phases(dev, cfg):
         times[name] = {"ms": main_ms[main_call], "ms_short": cuda_ms(short, reps=3, warmup=1)}
         if plain is not None:
             plain_ms[name] = cuda_ms(plain, reps=1, warmup=0)
+    # B3 and B4 on each route of the same FLAGSHIP_SEL_T grid: the cluster teams
+    # with their slices resident (the route the shape picks here) or streamed,
+    # and the stepping stone (B3t-team's and B4t's bodies on the two-term split,
+    # teams of 8 blocks, the terms in L2).
+    t_yard = time.perf_counter()
+    yardstick = {}
+    for route in ("resident", "streamed", "team8"):
+        f_ms = cuda_ms(lambda: ns.replay_fwd(y0, *grid_s, n_real_s, w2_s, model_s.sc,
+                                             model_s.kv, route=route), reps=3, warmup=1)
+        b_ms = cuda_ms(lambda: ns.replay_bwd(ys_s[:-1], ysbar_s, grid_s[0], grid_s[1],
+                                             grid_s[3], n_real_s, stride, w2_s, model_s.sc,
+                                             model_s.kv, route=route), reps=3, warmup=1)
+        yardstick[route] = {"sde_replay_fwd_us_per_half_step": f_ms * 1e3 / n_real_s,
+                            "sde_replay_bwd_us_per_half_step": b_ms * 1e3 / n_real_s}
+    plan = ns.sde2_replay_plan(P, n_in)
+    emit("replay2_teams", columns=sum(PARITY_CPA), P=P, lanes=B, half_steps=n_real_s,
+         T=FLAGSHIP_SEL_T, route=ns.sde2_replay_route(P, n_in), plan=plan._asdict(),
+         max_active_clusters={"sde_replay_fwd": ns.sde2_max_clusters(P, n_in, False, False),
+                              "sde_replay_bwd": ns.sde2_max_clusters(P, n_in, False, True)},
+         us_per_half_step=yardstick, seconds=time.perf_counter() - t_yard)
     na_m, nr_m = first_stats.naccept, first_stats.nreject
     n_real_m = 2 * int(na_m.max())
     attempts, half_steps = int((na_m + nr_m).sum()), int(2 * na_m.sum())
@@ -1184,8 +1232,13 @@ def parity_phases(dev, cfg):
          bound_by={k: v[1] for k, v in bounds.items()})
 
     step_ms = step_s[-1] * 1e3
+    # The first step's device time inside the four solver calls' CUDA events
+    # (the selection, B3, B4, the outer pass): the step's other device work
+    # counts as idle, so 1 - events / step bounds its idle share from above.
+    in_events = sum(main_ms.values())
     emit("parity_train_step", ms_per_step=step_ms, samples_per_s=B * 1e3 / step_ms,
-         step_seconds=step_s)
+         step_seconds=step_s, device_ms_in_solver_events=main_ms,
+         idle_share_at_most=1.0 - in_events / (step_s[0] * 1e3))
     short_ms, wall, by_kernel = short_profile(
         parity.make_train_step(make_task(SHORT_T), **FLAGSHIP),
         (make_parity_batch(gen, n_in, B, device=dev), lane_words(B)))
@@ -1199,7 +1252,9 @@ def parity_phases(dev, cfg):
     replaces = {"sde_select": "columnflow/solvers/sde_adaptive.py:509",
                 "sde_replay_fwd": "columnflow/solvers/fused.py:845",
                 "sde_replay_bwd": "columnflow/solvers/fused.py:920"}
-    return [{"name": name, "route": "cuda", "source": SDE_SOURCE, "replaces": replaces[name],
+    sources = {"sde_select": SDE_SOURCE, "sde_replay_fwd": TEAM2_SOURCE,
+               "sde_replay_bwd": TEAM2_SOURCE}
+    return [{"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
              "launches": main_launches[name], "max_abs_err": errs[name],
              "ms": times[name]["ms"], "plain_ms": plain_ms[name],
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
@@ -3405,6 +3460,26 @@ def bench104_phases(dev, cfg):
     grid_f = (ht[:, :-1].T.contiguous(), (ht[:, 1:] - ht[:, :-1]).T.contiguous(),
               dw.T.contiguous(), i10.T.contiguous())
     ys = ns.replay_fwd(y0, *grid_f, 2 * int(na0.max()), w2, model.sc, model.kv)
+    # B3 and B4 on 16 half steps in the middle of that grid, from the kernel's
+    # state there, against their plain versions (phase 5's limits).
+    W, k0 = 16, int(na0.max()) & ~1
+    win = tuple(x[k0:k0 + W].contiguous() for x in grid_f)
+    fwd = (ys[k0].contiguous(), *win, W, w2, model.sc, model.kv)
+    ys_k, ys_p = ns.replay_fwd(*fwd), ns._replay_fwd_plain(*fwd)
+    ysbar_w = torch.randn(W, B, S, generator=torch.Generator(device=dev).manual_seed(13),
+                          device=dev)
+    bwd = (ys_p[:-1].contiguous(), ysbar_w, win[0], win[1], win[3], W, 0, w2, model.sc,
+           model.kv)
+    (yb_k, seeds_k), (yb_p, seeds_p) = ns.replay_bwd(*bwd), ns._replay_bwd_plain(*bwd)
+    replay_window = {"start": k0, "half_steps": W, "fwd_scaled": scaled_err(ys_k, ys_p),
+                     "seeds_rel_l2": rel_l2_rows(seeds_k, seeds_p),
+                     "carry_rel_l2": rel_l2_rows(yb_k[None], yb_p[None]),
+                     "fwd": record_replay2("sde_replay_fwd", sum(PARITY_CPA), ys_k, ys_p),
+                     "bwd": record_replay2("sde_replay_bwd", sum(PARITY_CPA), (seeds_k, yb_k),
+                                           (seeds_p, yb_p))}
+    check(all(bool(torch.isfinite(x).all()) for x in (ys_k, seeds_k, yb_k))
+          and replay_window["fwd_scaled"] < 1e-4 and replay_window["seeds_rel_l2"] < 1e-4
+          and replay_window["carry_rel_l2"] < 1e-4, f"bench replay window: {replay_window}")
     N = 8
     li = torch.arange(N, device=dev) % B
     ri = torch.tensor([2 * int((r // B) / 2 * (int(na0[r % B]) - 1)) for r in range(N)],
@@ -3426,6 +3501,8 @@ def bench104_phases(dev, cfg):
                                                 "nreject_plain": sel_p[2].tolist(),
                                                 "bit_for_bit": same, "first10_rel": e_t10},
          attempts={"records": N, "bit_for_bit": att_same, "err_rel": e_err},
+         replay_window=replay_window, replay_tol={"fwd_scaled": 1e-4, "seeds_rel_l2": 1e-4,
+                                                  "carry_rel_l2": 1e-4},
          plain_ms_at_short_horizon=plain_ms)
 
     # -- 30. times, profile and the command line --------------------------------------
@@ -4731,7 +4808,7 @@ def split2kernel_phases(dev, cfg):
         return out, (time.perf_counter() - t0) * 1e3
 
     same, errs, windows = {}, {}, {"ode_replay_fwd_split2": {}, "ode_replay_bwd_split2": {},
-                                   "sde_replay_fwd": {}, "sde2_bwd": {}}
+                                   "sde_replay_fwd": {}, "sde2_bwd": {}, "sde_replay_bwd": {}}
 
     def compare(name, got, want):
         if torch.is_tensor(got):
@@ -4804,6 +4881,7 @@ def split2kernel_phases(dev, cfg):
             got, kern = timed(lambda: ns.replay_fwd(y_k, *fwd[0], *fwd[1:]))
             want, pl_ms = timed(lambda: ns._replay_fwd_plain(y_k, *fwd[0], *fwd[1:]))
             compare("sde_replay_fwd", got, want)
+            ys_fwd_k, ys_fwd_p = got, want
             windows["sde_replay_fwd"].setdefault(cols, []).append(
                 {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
             bwd = (ys_l[sl].contiguous(), torch.randn(S2K_W, B, 3 * P, generator=gen, device=dev),
@@ -4814,15 +4892,65 @@ def split2kernel_phases(dev, cfg):
             compare("sde2_bwd", got, want)
             windows["sde2_bwd"].setdefault(cols, []).append(
                 {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
+            record_replay2("sde_replay_fwd", cols, ys_fwd_k, ys_fwd_p)
+            # B4 (emit mode) on the same window and cotangents, truncating every
+            # 5 steps: phase 5's limits, bit for bit recorded
+            ebwd = (*bwd[:6], 5, w2, sc, kv)
+            (yb_k, sd_k), (yb_p, sd_p) = ns.replay_bwd(*ebwd), ns._replay_bwd_plain(*ebwd)
+            e4 = {"seeds_rel_l2": rel_l2_rows(sd_k, sd_p),
+                  "carry_rel_l2": rel_l2_rows(yb_k[None], yb_p[None]),
+                  **record_replay2("sde_replay_bwd", cols, (sd_k, yb_k), (sd_p, yb_p))}
+            check(bool(torch.isfinite(sd_k).all()) and e4["seeds_rel_l2"] < 1e-4
+                  and (e4["carry_rel_l2"] < 1e-4 or not bool(yb_p.any())),
+                  f"sde_replay_bwd at {cols} columns, window {k0}: {e4}")
+            windows["sde_replay_bwd"].setdefault(cols, []).append({"start": k0, **e4})
         accepted[cols] = {"deterministic": n, "lanes_half_steps": nl}
+    # B3 and B4 at 312 columns (streamed through the ring): one 8-half-step
+    # window of per-lane grids (0.2-1 ms steps) from states in the rates'
+    # working range, truncating every 5 steps; phase 5's limits. Its own
+    # generator: the phase's later draws stay what they were.
+    t_wide = time.perf_counter()
+    gen_w = torch.Generator(device=dev).manual_seed(31)
+    task_w = make_task(FG_WIDE_CPA, S2K_SEL_T)
+    model_w = parity.sde_model(task_w.params, task_w,
+                               make_parity_batch(gen_w, n_in, B, device=dev))
+    P_w = task_w.net.num_pops
+    pw_w = {k: v.detach().contiguous() for k, v in model_w.pw.items()}
+    w2_w, sc_w, kv_w = w2_of(pw_w, model_w.sc), model_w.sc, model_w.kv.contiguous()
+    hs_w = (2e-4 + 8e-4 * torch.rand(FG_WIDE_W, B, generator=gen_w, device=dev)).contiguous()
+    t0_w = (torch.cumsum(hs_w, 0) - hs_w + 0.3).contiguous()
+    dw_w = (torch.randn(FG_WIDE_W, B, generator=gen_w, device=dev) * hs_w.sqrt()).contiguous()
+    i10_w = (hs_w * (0.5 * dw_w + (hs_w / 12.0).sqrt()
+                     * torch.randn(FG_WIDE_W, B, generator=gen_w, device=dev))).contiguous()
+    a = 5.0 * torch.rand(B, P_w, generator=gen_w, device=dev)
+    y_w = torch.cat([a + 80.0 * torch.rand(B, P_w, generator=gen_w, device=dev) - 40.0, a,
+                     40.0 * torch.rand(B, P_w, generator=gen_w, device=dev)], dim=1)
+    fwd = (y_w, t0_w, hs_w, dw_w, i10_w, FG_WIDE_W, w2_w, sc_w, kv_w)
+    ys_w, ys_wp = ns.replay_fwd(*fwd), ns._replay_fwd_plain(*fwd)
+    bwd = (ys_wp[:-1].contiguous(), torch.randn(FG_WIDE_W, B, 3 * P_w, generator=gen_w, device=dev),
+           t0_w, hs_w, i10_w, FG_WIDE_W, 5, w2_w, sc_w, kv_w)
+    (yb_w, sd_w), (yb_wp, sd_wp) = ns.replay_bwd(*bwd), ns._replay_bwd_plain(*bwd)
+    wide = {"columns": sum(FG_WIDE_CPA), "P": P_w, "half_steps": FG_WIDE_W,
+            "route": ns.sde2_replay_route(P_w, n_in), "fwd_scaled": scaled_err(ys_w, ys_wp),
+            "seeds_rel_l2": rel_l2_rows(sd_w, sd_wp),
+            "fwd": record_replay2("sde_replay_fwd", sum(FG_WIDE_CPA), ys_w, ys_wp),
+            "bwd": record_replay2("sde_replay_bwd", sum(FG_WIDE_CPA), (sd_w, yb_w),
+                                  (sd_wp, yb_wp))}
+    check(all(bool(torch.isfinite(x).all()) for x in (ys_w, sd_w)) and wide["fwd_scaled"] < 1e-4
+          and wide["seeds_rel_l2"] < 1e-4, f"B3/B4 at {sum(FG_WIDE_CPA)} columns: {wide}")
+    wide["seconds"] = time.perf_counter() - t_wide
+    del task_w, model_w, pw_w, w2_w, ys_w, ys_wp, sd_w, sd_wp
     c32 = sum(S2K_32_CPA)
     plain_ms, window_ms = {}, {}
     for name, by_cols in windows.items():
+        if name == "sde_replay_bwd":
+            continue
         mid = by_cols[c32][len(by_cols[c32]) // 2]
         plain_ms[name], window_ms[name] = mid["plain_ms"], mid["ms"]
         plain_ms[f"{name}_at"] = f"{mid['steps']} steps at {c32} columns"
     emit("split2kernel_kernel_vs_plain", lanes=B, T=S2K_SEL_T, accepted=accepted,
-         windows=windows, bit_for_bit=same, max_abs_err=errs)
+         windows=windows, bit_for_bit=same, max_abs_err=errs, replay2_wide=wide,
+         replay2_tol={"fwd_scaled": 1e-4, "seeds_rel_l2": 1e-4, "carry_rel_l2": 1e-4})
 
     # -- 53. main path: the deterministic split2 step at 32 columns over the full
     # second (B6, B7 split2, B8s), the stochastic-adaptive one (the f32 selection,
@@ -5424,6 +5552,13 @@ def main() -> int:
             + exactode_phases(dev, cfg, frozen) + split2kernel_phases(dev, cfg)
             + hopf_outer_phases(dev, cfg))
     run_command_lines()
+    for entry in line:
+        if entry["name"] in REPLAY2_CHECKS:
+            by_cols = REPLAY2_CHECKS[entry["name"]]
+            entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                       + [c["max_abs_err"] for c in by_cols.values()])
+            entry["held_by_columns"] = by_cols
+    emit("replay2_checks", **REPLAY2_CHECKS)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

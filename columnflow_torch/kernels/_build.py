@@ -47,8 +47,12 @@ _SIGNATURES = {
     "network_sde": {
         "cf_sde_select": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _I] + [_P] * 10,
         "cf_sde_attempt": [_I, _I, _I, _I, _P, _P, _I, _I, _I] + [_P] * 14,
-        "cf_sde_replay_fwd": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
-        "cf_sde_replay_bwd": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 16,
+        "cf_sde_replay_fwd": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 12,
+        "cf_sde_replay_bwd": [_I, _I, _I, _I, _P, _I, _I, _I, _I] + [_P] * 13,
+        "cf_sde2_plan": [_I, _I, _I, _P],
+        "cf_sde2_max_clusters": [_I, _I, _I, _I, _P],
+        "cf_sde2_fwd_team8": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 14,
+        "cf_sde2_bwd_team8": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 17,
         "cf_sde3_fwd": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 12,
         "cf_sde3_bwd": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 15,
         "cf_sde3_fwd_team": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 15,

@@ -12,10 +12,15 @@
 //   cf_sde_attempt     <- the same body, one controller attempt per record
 //                         (a second entry point, for testing the body)
 //   cf_sde_replay_fwd  <- fused.py _make_sde_chunk_kernel, variable_h="lanes"
-//                         (B3): SRA1 over each lane's frozen half-step grid
+//                         (B3): SRA1 over each lane's frozen half-step grid,
+//                         a cluster team per lane (replay2_team.cuh)
 //   cf_sde_replay_bwd  <- fused.py _make_sde_bwd_chunk_kernel, emit_steps,
 //                         lanes (B4): the step VJP w.r.t. the state, emitting
-//                         each step's total cotangent (seed)
+//                         each step's total cotangent (seed), the same teams
+//   cf_sde2_fwd_team8, cf_sde2_bwd_team8
+//                      <- B3 and B4 as B3t-team's and B4t's bodies on the
+//                         two-term split (teams of 8 blocks, the terms in
+//                         L2): a yardstick for the cluster teams, on no path
 //   cf_sde3_fwd        <- _make_sde_chunk_kernel on the three-term split,
 //                         lanes or the uniform grid (B3t)
 //   cf_sde3_bwd        <- _make_sde_bwd_chunk_kernel in kernel mode on the
@@ -48,12 +53,12 @@
 // replay ~1.4 * 10^4 half steps of 2 drift evaluations (3 products each),
 // the reverse sweep 7 products per half step. The work per step is a few
 // MFLOP, microseconds of the card's peak, and each step waits for the
-// previous one. What this first design does about it: one thread block per
-// lane, 512 threads, the state and every intermediate in shared memory,
-// the weights read from L2 (2.8 MB of bf16 hi + mid stays resident there)
-// at every product; lanes run in parallel on separate SMs. Spreading one
-// lane's product over the SMs of a cluster (the matrix in distributed
-// shared memory) is later work. The three-term sweeps serve the small
+// previous one. The selection runs one thread block per lane, 512 threads,
+// the state and every intermediate in shared memory, the weights read from
+// L2 at every product; lanes run in parallel on separate SMs. The split2
+// replay and its emit-mode sweep spread each lane over a cluster of 8 or 16
+// blocks, each holding its columns of the two terms in shared memory
+// (replay2_team.cuh). The three-term sweeps serve the small
 // widths (13 columns: 2 * 10^3 to 10^4 steps of 104 populations): the
 // split weights in shared memory (65 KB at P = 104), B3t one block per
 // lane, B4't the batch in one block, because jax.vjp contracts each
@@ -80,6 +85,7 @@
 // (torch float64 matmul) agree bit for bit apart from rare ties, and the
 // bf16 roundings of the reverse sweep's cotangents round the same way.
 
+#include "replay2_team.cuh"
 #include "sde_select.cuh"
 #include "split3_drift.cuh"
 #include "team.cuh"
@@ -89,32 +95,32 @@ namespace {
 // Shared-memory scratch of one drift evaluation.
 struct Scratch {
   float* fr;   // (P) rates
-  float* xa;   // (P) bf16(rates)            (split2: x_hi)
-  float* xb;   // (P) bf16(rates - x_hi)      (split2 only)
-  float* aux;  // (P) derivative / current cotangent (reverse sweep)
+  float* xa;   // (P) bf16(rates), or split3's hi term
+  float* xb;   // (P) split3's mid term
+  float* aux;  // (P) split3's lo term
   float* ext;  // (n_in) stimulus
   double* red; // (kThreads / 32) reduction partials
   float* scal; // (8) broadcast scalars
   float* zb;   // (2 (kMaxDepth + 1)) the jax tree's normals of two queries
 };
 
-// The drift's weight formats: the selection's bf16 copy (select16: rec =
-// bf16(fr) W16, e = bf16(ext) iwT16), the replay's two-term split (split2:
-// rec = (x_hi W_hi + x_hi W_mid) + x_mid W_hi, e = ext iwT), float32
-// weights (the f32 selection drift network_drift_premixed: rec = fr wT,
-// e = ext iwT), and the three-term split (split3: w0 holds the bf16 terms
-// hi, mid, lo of prepare_premixed_split one after the other; rec = x_hi W_lo
-// + x_mid W_mid + x_lo W_hi + x_hi W_mid + x_mid W_hi + x_hi W_hi, left to
-// right, the order of split3_drift.cuh's drift3; e = ext iwT).
-enum Mode { kSel16 = 0, kSplit2 = 1, kF32 = 2, kSplit3 = 3 };
+// The selection drift's weight formats: the bf16 copy (select16: rec =
+// bf16(fr) W16, e = bf16(ext) iwT16), float32 weights (the f32 selection
+// drift network_drift_premixed: rec = fr wT, e = ext iwT), and the
+// three-term split (split3: w0 holds the bf16 terms hi, mid, lo of
+// prepare_premixed_split one after the other; rec = x_hi W_lo + x_mid W_mid
+// + x_lo W_hi + x_hi W_mid + x_mid W_hi + x_hi W_hi, left to right, the
+// order of split3_drift.cuh's drift3; e = ext iwT). Code 1 was the replay's
+// two-term split, now replay2_team.cuh's.
+enum Mode { kSel16 = 0, kF32 = 2, kSplit3 = 3 };
 
 // One drift evaluation of lane b at time t, state y -> out (all 3P), by the
-// whole block, with the weights w0 (and w1, split2's mid term) and iw in
-// kMode's format. Ends with a barrier.
+// whole block, with the weights w0 and iw in kMode's format. Ends with a
+// barrier.
 template <int kMode>
 __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
-                      const void* __restrict__ w0, const void* __restrict__ w1,
-                      const void* __restrict__ iw, const Scratch& s) {
+                      const void* __restrict__ w0, const void* __restrict__ iw,
+                      const Scratch& s) {
   const int P = n.P;
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     const float fr = firing_rate(y[i] - y[P + i]);
@@ -124,9 +130,7 @@ __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
     } else if (kMode == kSplit3) {
       split3(fr, s.xa[i], s.xb[i], s.aux[i]);
     } else {
-      const float hi = bf16r(fr);
-      s.xa[i] = hi;
-      if (kMode == kSplit2) s.xb[i] = bf16r(fr - hi);
+      s.xa[i] = bf16r(fr);
     }
   }
   if (threadIdx.x < n.n_in) {
@@ -139,8 +143,7 @@ __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
     double p1a = 0.0, p1b = 0.0, p2a = 0.0, p2b = 0.0, p3a = 0.0, p3b = 0.0;
     double p4a = 0.0, p4b = 0.0, p5a = 0.0, p5b = 0.0, p6a = 0.0, p6b = 0.0;
     const __nv_bfloat162* wr0 = reinterpret_cast<const __nv_bfloat162*>(w0) + c;
-    const __nv_bfloat162* wr1 =
-        kMode == kSplit3 ? wr0 + PP2 : reinterpret_cast<const __nv_bfloat162*>(w1) + c;
+    const __nv_bfloat162* wr1 = wr0 + PP2;      // split3's mid term
     const __nv_bfloat162* wr2 = wr0 + 2 * PP2;  // split3's lo term
     const float2* wf = reinterpret_cast<const float2*>(w0) + c;
     for (int k = 0; k < P; ++k) {
@@ -167,22 +170,11 @@ __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
       }
       p1a += xa * (double)wh.x;
       p1b += xa * (double)wh.y;
-      if (kMode == kSplit2) {
-        const float2 wm = __bfloat1622float2(wr1[(size_t)k * (P / 2)]);
-        const double xb = s.xb[k];
-        p2a += xa * (double)wm.x;
-        p2b += xa * (double)wm.y;
-        p3a += xb * (double)wh.x;
-        p3b += xb * (double)wh.y;
-      }
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = 2 * c + j;
-      float rec = kMode == kSplit2
-                      ? ((float)(j ? p1b : p1a) + (float)(j ? p2b : p2a))
-                            + (float)(j ? p3b : p3a)
-                      : (float)(j ? p1b : p1a);
+      float rec = (float)(j ? p1b : p1a);
       if (kMode == kSplit3)
         rec = (((((float)(j ? p1b : p1a) + (float)(j ? p2b : p2a)) + (float)(j ? p3b : p3a))
                 + (float)(j ? p4b : p4a)) + (float)(j ? p5b : p5a)) + (float)(j ? p6b : p6a);
@@ -198,53 +190,6 @@ __device__ void drift(const Net& n, int b, float t, const float* y, float* out,
       out[col] = (-y[col] + total * n.R) / n.tau_m;
       out[P + col] = (-y[P + col] + n.adapt[col] * s.fr[col]) / n.tau_a;
       out[2 * P + col] = (-y[2 * P + col] + s.fr[col]) / n.tau_s;
-    }
-  }
-  __syncthreads();
-}
-
-// State cotangent of one split2 drift evaluation at y for the output
-// cotangent ct -> out (all 3P). wT_hi/wT_mid are the TRANSPOSED split
-// matrices ((P_out, P_in) row-major), so the transposed product reads rows
-// with neighbouring threads on neighbouring columns. The cotangent the
-// product sends to the rates keeps jax.vjp's bf16 rounding points:
-// m = bf16(c W_hi^T), q = bf16(c W_mid^T), x_bar = m + bf16(bf16(m + q) - m).
-__device__ void drift_vjp(const Net& n, const float* y, const float* ct, float* out,
-                          const bf16* __restrict__ whT, const bf16* __restrict__ wmT,
-                          const Scratch& s) {
-  const int P = n.P;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    float fr, frp;
-    fr_and_grad(y[i] - y[P + i], fr, frp);
-    s.fr[i] = frp;
-    s.aux[i] = ((ct[i] / n.tau_m) * n.R) * n.tau_s;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < P / 2; c += blockDim.x) {
-    double ma = 0.0, mb = 0.0, qa = 0.0, qb = 0.0;
-    const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(whT) + c;
-    const __nv_bfloat162* rm = reinterpret_cast<const __nv_bfloat162*>(wmT) + c;
-    for (int i = 0; i < P; ++i) {
-      const double cc = s.aux[i];
-      const float2 wh = __bfloat1622float2(rh[(size_t)i * (P / 2)]);
-      const float2 wm = __bfloat1622float2(rm[(size_t)i * (P / 2)]);
-      ma += cc * (double)wh.x;
-      mb += cc * (double)wh.y;
-      qa += cc * (double)wm.x;
-      qb += cc * (double)wm.y;
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = 2 * c + j;
-      const float m = bf16r((float)(j ? mb : ma));
-      const float q = bf16r((float)(j ? qb : qa));
-      const float xbar = m + bf16r(bf16r(m + q) - m);
-      const float cv = ct[k], ca = ct[P + k], cr = ct[2 * P + k];
-      const float c_fr = (xbar + n.adapt[k] * (ca / n.tau_a)) + cr / n.tau_s;
-      const float c_x = s.fr[k] * c_fr;
-      out[k] = -(cv / n.tau_m) + c_x;
-      out[P + k] = -(ca / n.tau_a) - c_x;
-      out[2 * P + k] = -(cr / n.tau_s);
     }
   }
   __syncthreads();
@@ -287,11 +232,11 @@ __device__ float attempt(const Net& n, const Sel& sel, int b, const uint32_t* kw
   const float sg = n.sigma;
 
   // Full step.
-  drift<kMode>(n, b, t, u.y, u.f1, w, nullptr, iw, s);
+  drift<kMode>(n, b, t, u.y, u.f1, w, iw, s);
   const float i10h_f = i10_f / (h > 0.0f ? h : 1.0f);
   stage2_state(S, u.y, u.f1, h, i10h_f, sg, u.hst);
   __syncthreads();
-  drift<kMode>(n, b, t + 0.75f * h, u.hst, u.f, w, nullptr, iw, s);
+  drift<kMode>(n, b, t + 0.75f * h, u.hst, u.f, w, iw, s);
   const float dw_f = dw_a + dw_b;
   for (int i = threadIdx.x; i < S; i += blockDim.x)
     u.yf[i] = sra1_final(u.y[i], u.f1[i], u.f[i], h, dw_f, i10h_f, sg);
@@ -299,17 +244,17 @@ __device__ float attempt(const Net& n, const Sel& sel, int b, const uint32_t* kw
   const float i10h_a = i10_a / (hh > 0.0f ? hh : 1.0f);
   stage2_state(S, u.y, u.f1, hh, i10h_a, sg, u.hst);
   __syncthreads();
-  drift<kMode>(n, b, t + 0.75f * hh, u.hst, u.f, w, nullptr, iw, s);
+  drift<kMode>(n, b, t + 0.75f * hh, u.hst, u.f, w, iw, s);
   for (int i = threadIdx.x; i < S; i += blockDim.x)
     u.yh[i] = sra1_final(u.y[i], u.f1[i], u.f[i], hh, dw_a, i10h_a, sg);
   __syncthreads();
   // Second half step from t + h/2.
   const float th = t + 0.5f * h;
-  drift<kMode>(n, b, th, u.yh, u.g1, w, nullptr, iw, s);
+  drift<kMode>(n, b, th, u.yh, u.g1, w, iw, s);
   const float i10h_b = i10_b / (hh > 0.0f ? hh : 1.0f);
   stage2_state(S, u.yh, u.g1, hh, i10h_b, sg, u.hst);
   __syncthreads();
-  drift<kMode>(n, b, th + 0.75f * hh, u.hst, u.f, w, nullptr, iw, s);
+  drift<kMode>(n, b, th + 0.75f * hh, u.hst, u.f, w, iw, s);
   double acc = 0.0;
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     const float yn = sra1_final(u.yh[i], u.g1[i], u.f[i], hh, dw_b, i10h_b, sg);
@@ -435,117 +380,6 @@ sde_attempt_kernel(Net n, Sel sel, const void* __restrict__ w, const void* __res
     o[4] = c.accept ? t1 + hc : t1;
     o[5] = w1;
   }
-}
-
-// ---------------------------------------------------------------------------
-// The replay (B3) and its reverse sweep (B4), lane b = blockIdx.x
-// ---------------------------------------------------------------------------
-
-struct Replay {
-  int n_steps, n_real, stride;  // stride: truncation every stride steps (0: none)
-  const float* t0s;  // (n_steps, B)
-  const float* hs;   // (n_steps, B)
-  const float* i1;   // (n_steps, B)
-  const float* i10;  // (n_steps, B)
-};
-
-__global__ void __launch_bounds__(kThreads)
-sde_replay_fwd_kernel(Net n, Replay rp, const bf16* __restrict__ w_hi,
-                      const bf16* __restrict__ w_mid, const float* __restrict__ iwT,
-                      const float* __restrict__ y0, float* __restrict__ ys) {
-  extern __shared__ float sm[];
-  const int P = n.P, S = 3 * P, B = n.B, b = blockIdx.x;
-  float* y = sm;
-  float* f1 = y + S;
-  float* h2 = f1 + S;
-  float* f2 = h2 + S;
-  Scratch s;
-  carve(f2 + S, P, n.n_in, nullptr, &s);
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    y[i] = y0[(size_t)b * S + i];
-    ys[(size_t)b * S + i] = y[i];
-  }
-  __syncthreads();
-  for (int k = 0; k < rp.n_real; ++k) {
-    const size_t kb = (size_t)k * B + b;
-    const float t0 = rp.t0s[kb], h = rp.hs[kb], di1 = rp.i1[kb];
-    const float i10h = rp.i10[kb] / (h > 0.0f ? h : 1.0f);
-    drift<true>(n, b, t0, y, f1, w_hi, w_mid, iwT, s);
-    stage2_state(S, y, f1, h, i10h, n.sigma, h2);
-    __syncthreads();
-    drift<true>(n, b, t0 + 0.75f * h, h2, f2, w_hi, w_mid, iwT, s);
-    float* out = ys + ((size_t)(k + 1) * B + b) * S;
-    for (int i = threadIdx.x; i < S; i += blockDim.x) {
-      y[i] = sra1_final(y[i], f1[i], f2[i], h, di1, i10h, n.sigma);
-      out[i] = y[i];
-    }
-    __syncthreads();
-  }
-  // Rows past n_real: the carried state (h == 0 padding is a no-op).
-  for (int k = rp.n_real; k < rp.n_steps; ++k) {
-    float* out = ys + ((size_t)(k + 1) * B + b) * S;
-    for (int i = threadIdx.x; i < S; i += blockDim.x) out[i] = y[i];
-  }
-}
-
-// Reverse sweep. Given c = ybar + ysbar[k] (the total cotangent on step k's
-// output, written to seeds[k]), recompute f1 and h2 from ys_prev[k], then
-//   c_f2 = ((h c)/3) 2;   c_h2 = f^T|_{h2} c_f2
-//   c_f1 = (h c)/3 + (0.75 h) c_h2;   c_y = f^T|_y c_f1
-//   ybar = (c + c_h2) + c_y,  zeroed after every step k with k % stride == 0.
-// Steps from n_real on carry zero cotangents: their seeds are written 0.
-__global__ void __launch_bounds__(kThreads)
-sde_replay_bwd_kernel(Net n, Replay rp, const bf16* __restrict__ w_hi,
-                      const bf16* __restrict__ w_mid, const bf16* __restrict__ w_hiT,
-                      const bf16* __restrict__ w_midT, const float* __restrict__ iwT,
-                      const float* __restrict__ ys_prev, const float* __restrict__ ysbar,
-                      float* __restrict__ ybar_out, float* __restrict__ seeds) {
-  extern __shared__ float sm[];
-  const int P = n.P, S = 3 * P, B = n.B, b = blockIdx.x;
-  float* y = sm;
-  float* f1 = y + S;
-  float* h2 = f1 + S;
-  float* c = h2 + S;
-  float* cw = c + S;
-  float* ch2 = cw + S;
-  float* cy = ch2 + S;
-  float* yb = cy + S;
-  Scratch s;
-  carve(yb + S, P, n.n_in, nullptr, &s);
-  for (int k = rp.n_real; k < rp.n_steps; ++k) {
-    float* o = seeds + ((size_t)k * B + b) * S;
-    for (int i = threadIdx.x; i < S; i += blockDim.x) o[i] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < S; i += blockDim.x) yb[i] = 0.0f;
-  __syncthreads();
-  for (int k = rp.n_real - 1; k >= 0; --k) {
-    const size_t kb = (size_t)k * B + b;
-    const float t0 = rp.t0s[kb], h = rp.hs[kb];
-    const float i10h = rp.i10[kb] / (h > 0.0f ? h : 1.0f);
-    const float* yk = ys_prev + kb * S;
-    const float* sbk = ysbar + kb * S;
-    float* sk = seeds + kb * S;
-    for (int i = threadIdx.x; i < S; i += blockDim.x) {
-      y[i] = yk[i];
-      c[i] = yb[i] + sbk[i];
-      sk[i] = c[i];
-    }
-    __syncthreads();
-    drift<true>(n, b, t0, y, f1, w_hi, w_mid, iwT, s);
-    stage2_state(S, y, f1, h, i10h, n.sigma, h2);
-    for (int i = threadIdx.x; i < S; i += blockDim.x) cw[i] = ((h * c[i]) / 3.0f) * 2.0f;
-    __syncthreads();
-    drift_vjp(n, h2, cw, ch2, w_hiT, w_midT, s);
-    const float a = 0.75f * h;
-    for (int i = threadIdx.x; i < S; i += blockDim.x) cw[i] = (h * c[i]) / 3.0f + a * ch2[i];
-    __syncthreads();
-    drift_vjp(n, y, cw, cy, w_hiT, w_midT, s);
-    const bool cut = rp.stride > 0 && k % rp.stride == 0;
-    for (int i = threadIdx.x; i < S; i += blockDim.x)
-      yb[i] = cut ? 0.0f : (c[i] + ch2[i]) + cy[i];
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < S; i += blockDim.x) ybar_out[(size_t)b * S + i] = yb[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -710,14 +544,16 @@ sde3_bwd_kernel(Net n, Grid3 g, int stride, int chunk, const float* __restrict__
 // ---------------------------------------------------------------------------
 
 // B3t-team: the step and the rows of sde3_fwd_kernel. scr: 4 (3P) floats
-// per lane (y, f1, h2, f2).
+// per lane (y, f1, h2, f2). NT = 3: B3t-team; NT = 2: the same body on the
+// two-term split, a yardstick for B3's cluster teams (cf_sde2_fwd_team8).
+template <int NT>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 sde3_fwd_team_kernel(Net n, Grid3 g, Wg w, const float* __restrict__ y0, float* scr,
                      float* __restrict__ ys) {
   extern __shared__ __align__(16) unsigned char smt[];
   Team T;
   const int b = blockIdx.x / kCluster;
-  team_init(T, smt, n.P, 1, b, 3, 6, 1);
+  team_init(T, smt, n.P, 1, b, NT, NT == 3 ? 6 : 3, 1);
   const int P = n.P, S = T.S, B = n.B;
   float* y = scr + (size_t)b * 4 * S;
   float* f1 = y + S;
@@ -733,14 +569,14 @@ sde3_fwd_team_kernel(Net n, Grid3 g, Wg w, const float* __restrict__ y0, float* 
     const float t0 = g.t0s[g.at(k, b, B)], h = g.hs[g.at(k, b, B)];
     const float di1 = g.i1[(size_t)k * B + b];
     const float i10h = g.i10[(size_t)k * B + b] / (h > 0.0f ? h : 1.0f);
-    drift_team<3, 1>(n, T, t0, y, f1, w);
+    drift_team<NT, 1>(n, T, t0, y, f1, w);
     const float a = 0.75f * h, kk = 1.5f * i10h;
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
       h2[off] = (y[off] + a * f1[off]) + kk * n.sigma;
     }
     __syncthreads();
-    drift_team<3, 1>(n, T, t0 + 0.75f * h, h2, f2, w);
+    drift_team<NT, 1>(n, T, t0 + 0.75f * h, h2, f2, w);
     float* out = ys + ((size_t)(k + 1) * B + b) * S;
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
@@ -765,7 +601,9 @@ sde3_fwd_team_kernel(Net n, Grid3 g, Wg w, const float* __restrict__ y0, float* 
 //   c_h2 = f^T|_{h2} (((h c) / 3) 2);  c_y = f^T|_y ((h c) / 3 + (0.75 h) c_h2)
 //   ybar = (c + c_h2) + c_y, zeroed after every step k with k % stride == 0,
 // the order of step_vjp_split3. Rows of seeds from n_real on are zero, as
-// the JAX kernel zero-fills them. scr: 7 (3P) floats per lane.
+// the JAX kernel zero-fills them. scr: 7 (3P) floats per lane. NT = 3: B4t;
+// NT = 2: the same body on the two-term split (cf_sde2_bwd_team8).
+template <int NT>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 sde3_bwd_emit_kernel(Net n, Grid3 g, int stride, Wg w, const float* __restrict__ ys_prev,
                      const float* __restrict__ ysbar, float* scr, float* __restrict__ ybar_out,
@@ -773,7 +611,7 @@ sde3_bwd_emit_kernel(Net n, Grid3 g, int stride, Wg w, const float* __restrict__
   extern __shared__ __align__(16) unsigned char smt[];
   Team T;
   const int b = blockIdx.x / kCluster;
-  team_init(T, smt, n.P, 1, b, 3, 6, 1);
+  team_init(T, smt, n.P, 1, b, NT, NT == 3 ? 6 : 3, 1);
   const int P = n.P, S = T.S, B = n.B;
   float* f1 = scr + (size_t)b * 7 * S;
   float* h2 = f1 + S;
@@ -799,7 +637,7 @@ sde3_bwd_emit_kernel(Net n, Grid3 g, int stride, Wg w, const float* __restrict__
       seeds[kb + off] = cc[off];
     }
     __syncthreads();
-    drift_team<3, 1>(n, T, t0, y, f1, w);
+    drift_team<NT, 1>(n, T, t0, y, f1, w);
     const float a = 0.75f * h, kk = 1.5f * i10h;
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
@@ -807,13 +645,13 @@ sde3_bwd_emit_kernel(Net n, Grid3 g, int stride, Wg w, const float* __restrict__
       cw[off] = ((h * cc[off]) / 3.0f) * 2.0f;
     }
     __syncthreads();
-    vjp3_team(n, T, h2, cw, ch2, w);
+    vjp_team<NT>(n, T, h2, cw, ch2, w);
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
       cw[off] = (h * cc[off]) / 3.0f + a * ch2[off];
     }
     __syncthreads();
-    vjp3_team(n, T, y, cw, cy, w);
+    vjp_team<NT>(n, T, y, cw, cy, w);
     const bool cut = stride > 0 && k % stride == 0;
     for (int e = threadIdx.x; e < own_count(T); e += blockDim.x) {
       const int off = own_off(T, P, e);
@@ -1112,11 +950,11 @@ int cf_sde3_fwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps
                      const float* t0s, const float* hs, const float* i1, const float* i10,
                      const float* y0, float* scr, float* ys, void* stream) {
   size_t bytes;
-  if (int e = team_prepare(sde3_fwd_team_kernel, P, n_in, K, 1, 3, 6, 1, &bytes)) return e;
+  if (int e = team_prepare(sde3_fwd_team_kernel<3>, P, n_in, K, 1, 3, 6, 1, &bytes)) return e;
   const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, nullptr, iwT};
   const Grid3 g{n_steps, n_real, lanes, t0s, hs, i1, i10};
   if (B > 0)
-    sde3_fwd_team_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+    sde3_fwd_team_kernel<3><<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
         make_net(B, P, n_in, K, hc, bg, adapt, kv), g, w, y0, scr, ys);
   return (int)cudaGetLastError();
 }
@@ -1130,12 +968,12 @@ int cf_sde3_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps
                      const float* hs, const float* i10, const float* ys_prev,
                      const float* ysbar, float* scr, float* ybar, float* seeds, void* stream) {
   size_t bytes;
-  if (int e = team_prepare(sde3_bwd_emit_kernel, P, n_in, K, 1, 3, 6, 1, &bytes)) return e;
+  if (int e = team_prepare(sde3_bwd_emit_kernel<3>, P, n_in, K, 1, 3, 6, 1, &bytes)) return e;
   const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, (const bf16*)hiT,
              (const bf16*)midT, (const bf16*)loT, iwT};
   const Grid3 g{n_steps, n_real, lanes, t0s, hs, nullptr, i10};
   if (B > 0)
-    sde3_bwd_emit_kernel<<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+    sde3_bwd_emit_kernel<3><<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
         make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, w, ys_prev, ysbar, scr, ybar,
         seeds);
   return (int)cudaGetLastError();
@@ -1170,34 +1008,106 @@ int cf_sde2_bwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int
                      ybar, d_wT, d_iwT, work, stream);
 }
 
+// B3 and B4 (replay2_team.cuh): wpk the two terms of wT packed per block
+// (sde2_pack in kernels/network_sde.py: (C, P, rw) 32-bit words, the plan's
+// layout); iwT float32 (n_in, P); t0s, hs, i1, i10 (n_steps, B) each lane's
+// grid; ys (n_steps + 1, B, 3P). stream: 1 streams the slices through a
+// ring of tiles even where they fit (the plan streams them anyway where
+// they do not). P must be a multiple of 8.
 int cf_sde_replay_fwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
-                      const float* bg, const float* adapt, const void* w_hi, const void* w_mid,
+                      int stream, const float* bg, const float* adapt, const void* wpk,
                       const float* iwT, const float* kv, const float* t0s, const float* hs,
                       const float* i1, const float* i10, const float* y0, float* ys,
-                      void* stream) {
+                      void* cstream) {
   if (int e = check_shape(P, n_in, K)) return e;
-  const size_t bytes = sizeof(float) * 4 * 3 * (size_t)P + scratch_bytes(P);
-  if (int e = set_smem(sde_replay_fwd_kernel, bytes)) return e;
-  const Replay rp{n_steps, n_real, 0, t0s, hs, i1, i10};
-  sde_replay_fwd_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      make_net(B, P, n_in, K, hc, bg, adapt, kv), rp, (const bf16*)w_hi, (const bf16*)w_mid,
-      iwT, y0, ys);
+  if (P % 8) return (int)cudaErrorInvalidValue;
+  const Plan2 p = plan2(P, n_in, stream);
+  if (p.stream && p.S < 1) return (int)cudaErrorInvalidValue;
+  const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
+  const Replay2 rp{n_steps, n_real, 0, t0s, hs, i1, i10};
+  const uint32_t* w = (const uint32_t*)wpk;
+  return p.stream ? team2_launch(sde2_fwd_kernel<true>, p, B, (cudaStream_t)cstream, n, rp, w,
+                                 iwT, y0, ys)
+                  : team2_launch(sde2_fwd_kernel<false>, p, B, (cudaStream_t)cstream, n, rp, w,
+                                 iwT, y0, ys);
+}
+
+// ys_prev, ysbar, seeds (n_steps, B, 3P); ybar (B, 3P); stride: truncation
+// every stride steps (0: none); the rest as cf_sde_replay_fwd.
+int cf_sde_replay_bwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                      int stride, int stream, const float* bg, const float* adapt,
+                      const void* wpk, const float* iwT, const float* kv, const float* t0s,
+                      const float* hs, const float* i10, const float* ys_prev,
+                      const float* ysbar, float* ybar, float* seeds, void* cstream) {
+  if (int e = check_shape(P, n_in, K)) return e;
+  if (P % 8) return (int)cudaErrorInvalidValue;
+  const Plan2 p = plan2(P, n_in, stream);
+  if (p.stream && p.S < 1) return (int)cudaErrorInvalidValue;
+  const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
+  const Replay2 rp{n_steps, n_real, stride, t0s, hs, nullptr, i10};
+  const uint32_t* w = (const uint32_t*)wpk;
+  return p.stream ? team2_launch(sde2_bwd_kernel<true>, p, B, (cudaStream_t)cstream, n, rp, w,
+                                 iwT, ys_prev, ysbar, ybar, seeds)
+                  : team2_launch(sde2_bwd_kernel<false>, p, B, (cudaStream_t)cstream, n, rp, w,
+                                 iwT, ys_prev, ysbar, ybar, seeds);
+}
+
+// The plan of B3 and B4 at P (Plan2, in order: C, nc, nw, rw, L, Lv, stream,
+// R, T, S, fixed bytes, bytes), for the wrapper's own reckoning to be held
+// against.
+int cf_sde2_plan(int P, int n_in, int stream, long long* out) {
+  if (P <= 0 || P % 8 || n_in < 0 || n_in > kMaxInputs) return (int)cudaErrorInvalidValue;
+  const Plan2 p = plan2(P, n_in, stream);
+  const long long v[12] = {p.C, p.nc, p.nw, p.rw, p.L, p.Lv, p.stream, p.R, p.T, p.S,
+                           (long long)p.fixed, (long long)p.bytes};
+  for (int j = 0; j < 12; ++j) out[j] = v[j];
+  return 0;
+}
+
+// cudaOccupancyMaxActiveClusters of B3 (bwd 0) or B4 (bwd 1) at P.
+int cf_sde2_max_clusters(int P, int n_in, int stream, int bwd, int* out) {
+  if (P <= 0 || P % 8 || n_in < 0 || n_in > kMaxInputs) return (int)cudaErrorInvalidValue;
+  const Plan2 p = plan2(P, n_in, stream);
+  if (bwd)
+    return p.stream ? team2_max_clusters(sde2_bwd_kernel<true>, p, out)
+                    : team2_max_clusters(sde2_bwd_kernel<false>, p, out);
+  return p.stream ? team2_max_clusters(sde2_fwd_kernel<true>, p, out)
+                  : team2_max_clusters(sde2_fwd_kernel<false>, p, out);
+}
+
+// The yardstick: B3t-team's and B4t's bodies on the two-term split. hi, mid
+// the bf16 terms of prepare_premixed_split2, hiT, midT their transposes;
+// scr: 4 (fwd) or 7 (bwd) B 3P floats; the rest as cf_sde_replay_fwd/bwd.
+int cf_sde2_fwd_team8(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                      const float* bg, const float* adapt, const void* hi, const void* mid,
+                      const float* iwT, const float* kv, const float* t0s, const float* hs,
+                      const float* i1, const float* i10, const float* y0, float* scr, float* ys,
+                      void* stream) {
+  size_t bytes;
+  if (int e = team_prepare(sde3_fwd_team_kernel<2>, P, n_in, K, 1, 2, 3, 1, &bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, nullptr, nullptr, nullptr, iwT};
+  const Grid3 g{n_steps, n_real, 1, t0s, hs, i1, i10};
+  if (B > 0)
+    sde3_fwd_team_kernel<2><<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), g, w, y0, scr, ys);
   return (int)cudaGetLastError();
 }
 
-int cf_sde_replay_bwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
-                      int stride, const float* bg, const float* adapt, const void* w_hi,
-                      const void* w_mid, const void* w_hiT, const void* w_midT,
-                      const float* iwT, const float* kv, const float* t0s, const float* hs,
-                      const float* i10, const float* ys_prev, const float* ysbar, float* ybar,
+int cf_sde2_bwd_team8(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                      int stride, const float* bg, const float* adapt, const void* hi,
+                      const void* mid, const void* hiT, const void* midT, const float* iwT,
+                      const float* kv, const float* t0s, const float* hs, const float* i10,
+                      const float* ys_prev, const float* ysbar, float* scr, float* ybar,
                       float* seeds, void* stream) {
-  if (int e = check_shape(P, n_in, K)) return e;
-  const size_t bytes = sizeof(float) * 8 * 3 * (size_t)P + scratch_bytes(P);
-  if (int e = set_smem(sde_replay_bwd_kernel, bytes)) return e;
-  const Replay rp{n_steps, n_real, stride, t0s, hs, nullptr, i10};
-  sde_replay_bwd_kernel<<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      make_net(B, P, n_in, K, hc, bg, adapt, kv), rp, (const bf16*)w_hi, (const bf16*)w_mid,
-      (const bf16*)w_hiT, (const bf16*)w_midT, iwT, ys_prev, ysbar, ybar, seeds);
+  size_t bytes;
+  if (int e = team_prepare(sde3_bwd_emit_kernel<2>, P, n_in, K, 1, 2, 3, 1, &bytes)) return e;
+  const Wg w{(const bf16*)hi, (const bf16*)mid, nullptr, (const bf16*)hiT, (const bf16*)midT,
+             nullptr, iwT};
+  const Grid3 g{n_steps, n_real, 1, t0s, hs, nullptr, i10};
+  if (B > 0)
+    sde3_bwd_emit_kernel<2><<<kCluster * B, kThreads, bytes, (cudaStream_t)stream>>>(
+        make_net(B, P, n_in, K, hc, bg, adapt, kv), g, stride, w, ys_prev, ysbar, scr, ybar,
+        seeds);
   return (int)cudaGetLastError();
 }
 

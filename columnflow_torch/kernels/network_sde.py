@@ -11,8 +11,10 @@ with a plain PyTorch version beside it that repeats its arithmetic:
                                                            on the three-term split, B5t), and the
                                                            XLA selection _adaptive_pass
     select_attempt  cf_sde_attempt      _attempt_plain     one iteration of that loop's body
-    replay_fwd      cf_sde_replay_fwd   _replay_fwd_plain  fused.py _make_sde_chunk_kernel, lanes (B3)
-    replay_bwd      cf_sde_replay_bwd   _replay_bwd_plain  fused.py _make_sde_bwd_chunk_kernel, emit (B4)
+    replay_fwd      cf_sde_replay_fwd   _replay_fwd_plain  fused.py _make_sde_chunk_kernel, lanes (B3;
+                                                           a cluster team per lane: ``sde2_replay_plan``)
+    replay_bwd      cf_sde_replay_bwd   _replay_bwd_plain  fused.py _make_sde_bwd_chunk_kernel, emit (B4;
+                                                           the same teams)
     replay3_fwd     cf_sde3_fwd         _replay3_fwd_plain _make_sde_chunk_kernel on the three-term
                     (cf_sde3_fwd_team)                     split, lanes or uniform grid (B3t; as a
                                                            team, B3t-team: ``sde3_fwd_route``)
@@ -40,7 +42,11 @@ weight cotangents in the sweep) run on the
 two-term split of ``prepare_premixed_split2``; the three-term ones on
 ``prepare_premixed_split``, with the weight cotangents in the sweep (kernel
 mode) or outside it (emit mode: the state cotangent and each step's seed).
-The selection and the split2 sweeps run one thread block per lane; the
+The selection runs one thread block per lane; the split2 replay and its
+emit-mode sweep run each lane on a cluster of 8 or 16 blocks, each block
+holding its columns of the two terms in shared memory (``sde2_pack``: the
+wrapper packs them per block on every call; streamed through a ring of
+tiles where they do not fit, ``sde2_replay_route``). The
 three-term kernel-mode reverse sweep holds the batch in one block, because
 jax.vjp contracts each weight cotangent over the lanes before rounding it
 to bf16, or, where the batch and the weights do not fit a block (from ~20
@@ -69,6 +75,7 @@ three-term sweep sums the weight cotangents chunk by chunk as JAX does
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -99,11 +106,11 @@ _SAFETY, _IFACTOR, _DFACTOR = 0.9, 5.0, 0.2
 _PI_A, _PI_B, _ERR_EXP = 0.5, 0.25, 0.5
 LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_replay_fwd": 0, "sde_replay_bwd": 0,
             "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0,
-            "sde3_bwd_team": 0, "sde2_bwd": 0}
+            "sde3_bwd_team": 0, "sde2_bwd": 0, "sde2_fwd_team8": 0, "sde2_bwd_team8": 0}
 # What a thread block can hold (sm_90: 227 KB of shared memory), and the
 # kernels' layout constants (csrc/network_drift.cuh kThreads, kMaxInputs).
 SMEM_BLOCK_BYTES = 232448
-_THREADS, _MAX_INPUTS = 512, 16
+_THREADS, _MAX_INPUTS, _MAX_KNOTS = 512, 16, 8
 # The kernels' codes of the two trees and of the selection drifts.
 TREES = {"kernel": 0, "jax": 1}
 SELECT_DRIFTS = {"select16": 0, "f32": 2, "split3": 3}
@@ -633,47 +640,194 @@ def _replay_named(t0s, hs, i10, w2, sc, kv, B, P, n_real):
             "iwT": (w2["iwT"], _F32, (kv.shape[2], P)), **_drift_named(sc, kv, B, P)}
 
 
-def replay_fwd(y0, t0s, hs, i1, i10, n_real: int, w2, sc: SDEConsts, kv):
+# The cluster teams of B3 and B4 (csrc/replay2_team.cuh kT2MaxStages,
+# kT2MinTileRows).
+_T2_MAX_STAGES, _T2_MIN_TILE_ROWS = 8, 32
+SPLIT2_ROUTES = ("resident", "streamed", "team8")
+
+
+class Replay2Plan(NamedTuple):
+    """The shape of B3's and B4's teams at P populations (csrc/
+    replay2_team.cuh ``plan2``, which ``cf_sde2_plan`` reports)."""
+
+    C: int        # blocks per lane: the cluster size
+    nc: int       # populations each block owns
+    nw: int       # 32-bit words of one term's row of a block's slice (nc bf16, padded to even)
+    rw: int       # words of a packed row: hi (nw), mid (nw), one pad word
+    L: int        # forward products: lanes per column pair
+    Lv: int       # VJP products: lanes per row
+    stream: bool  # the slice streams through a ring of tiles (else it stays resident)
+    R: int        # rows per tile (resident: P)
+    T: int        # tiles per product pass
+    S: int        # stages of the ring (resident: 1)
+    fixed: int    # shared-memory bytes before the weights
+    bytes: int    # shared-memory bytes of a block
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def sde2_replay_plan(P: int, n_in: int, stream: bool = False) -> Replay2Plan:
+    """The team shape of B3 and B4 at P populations and n_in inputs: a
+    cluster of 16 blocks per lane where 16 divides P, else 8; block r owns
+    populations [r nc, (r + 1) nc) and keeps the columns [r nc, (r + 1) nc)
+    of both split2 terms in shared memory as (P, rw) packed words, beside
+    two exchange slots of P float64 pairs, the own columns' sums, the VJP's
+    own cotangents, the stimulus and the mbarriers (``fixed``). The slice
+    stays resident where all of it fits the 232,448 bytes a block can use
+    (every width through 79 columns, even ones through 110: 206,224 bytes
+    at 104), else (or with ``stream``) it streams in tiles of R rows
+    through S stages (at 312 columns three stages of 64 rows)."""
+    if P <= 0 or P % 8:
+        raise ValueError(f"P must be a positive multiple of 8, got {P}")
+    if not 0 <= n_in <= _MAX_INPUTS:
+        raise ValueError(f"n_in must lie in [0, {_MAX_INPUTS}], got {n_in}")
+    C = 16 if P % 16 == 0 else 8
+    nc = P // C
+    nw = (nc + 1) // 2
+    rw = 2 * nw + 1
+    L = 32
+    while L > 1 and nw * L > _THREADS:
+        L //= 2
+    Lv = 1
+    while Lv < 32 and 16 * Lv < nw:
+        Lv *= 2
+    while Lv < 32 and Lv < nw and P * Lv < _THREADS:
+        Lv *= 2
+    fixed = (_align16(2 * 2 * 8 * P) + _align16(3 * 8 * nc) + _align16(2 * 8 * nw)
+             + _align16(2 * 4 * n_in) + _align16(4 * _MAX_KNOTS * n_in)
+             + _align16(4 * (n_in + 2) * nc) + _align16(8 * (1 + 2 * _T2_MAX_STAGES)))
+    row = 4 * rw
+    if not stream and fixed + row * P <= SMEM_BLOCK_BYTES:
+        return Replay2Plan(C, nc, nw, rw, L, Lv, False, P, 1, 1, fixed, fixed + row * P)
+    R = max(_T2_MIN_TILE_ROWS, L, _THREADS // Lv)
+    T = -(-P // R)
+    S = min(_T2_MAX_STAGES, max(SMEM_BLOCK_BYTES - fixed, 0) // (row * R), T)
+    return Replay2Plan(C, nc, nw, rw, L, Lv, True, R, T, S, fixed, fixed + row * R * S)
+
+
+def sde2_replay_route(P: int, n_in: int) -> str:
+    """How B3 and B4 hold the weights on the card, by shape alone:
+    "resident" (each block's packed slice stays in shared memory, copied
+    once by TMA) where ``sde2_replay_plan`` fits it, else "streamed"
+    (tiles through a ring of stages): "resident" at 13, 32, 63 and 104
+    columns, "streamed" at 312."""
+    return "streamed" if sde2_replay_plan(P, n_in).stream else "resident"
+
+
+def sde2_pack(w2, P: int, plan: Replay2Plan) -> torch.Tensor:
+    """The two split2 terms of wT packed per block, (C, P, rw) int32 words:
+    row k of block r holds W_hi[k, r nc:(r+1) nc] then W_mid[k, ...], each
+    padded to 2 nw bf16, then one zero pad word."""
+    C, nc, nw = plan.C, plan.nc, plan.nw
+    hi, mid = w2["wT_hi"], w2["wT_mid"]
+    pk = torch.zeros((C, P, 2 * plan.rw), dtype=_BF16, device=hi.device)
+    pk[:, :, :nc] = hi.view(P, C, nc).transpose(0, 1)
+    pk[:, :, 2 * nw:2 * nw + nc] = mid.view(P, C, nc).transpose(0, 1)
+    return pk.view(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def sde2_max_clusters(P: int, n_in: int, stream: bool, bwd: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of B3 (``bwd`` False) or B4 on the
+    card: how many lanes' teams run at once."""
+    out = ctypes.c_int()
+    _check(_lib().cf_sde2_max_clusters(P, n_in, int(stream), int(bwd), ctypes.byref(out)),
+           "sde2_max_clusters")
+    return out.value
+
+
+def _team2(route, P, n_in, bwd: bool):
+    """(stream flag, plan) of a cluster-team launch on ``route``; raises
+    where no team of the plan fits the card."""
+    stream = route == "streamed" or sde2_replay_plan(P, n_in).stream
+    plan = sde2_replay_plan(P, n_in, stream)
+    if sde2_max_clusters(P, n_in, stream, bwd) < 1:
+        raise RuntimeError(f"no cluster of {plan.C} blocks with {plan.bytes} bytes of shared "
+                           "memory each fits the card")
+    return stream, plan
+
+
+def _check_route(route):
+    if route is not None and route not in SPLIT2_ROUTES:
+        raise ValueError(f"route must be one of {SPLIT2_ROUTES}, got {route!r}")
+
+
+def replay_fwd(y0, t0s, hs, i1, i10, n_real: int, w2, sc: SDEConsts, kv, route=None):
     """SRA1 over each lane's frozen grid: y0 (B, 3P); t0s, hs, i1, i10
     (n, B); the first ``n_real`` steps are integrated, the rest are h == 0
-    padding. w2 from ``prepare_premixed_split2``. Returns ys (n + 1, B, 3P)."""
+    padding. w2 from ``prepare_premixed_split2``. Returns ys (n + 1, B, 3P).
+    On the card B3, a cluster team per lane; ``route`` (default
+    ``sde2_replay_route``): "resident", "streamed", or "team8", B3t-team's
+    body on the two-term split (a yardstick, on no path)."""
     B, S = y0.shape
     P, n = S // 3, t0s.shape[0]
+    _check_route(route)
     named = {"y0": (y0, _F32, (B, S)), "i1": (i1, _F32, (n, B)),
              **_replay_named(t0s, hs, i10, w2, sc, kv, B, P, n_real)}
     if not _on_cuda(y0, named):
         return _replay_fwd_plain(y0, t0s, hs, i1, i10, n_real, w2, sc, kv)
+    route = route or sde2_replay_route(P, kv.shape[2])
     ys = torch.empty((n + 1, B, S), dtype=_F32, device=y0.device)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
+    grid = (kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i1.data_ptr(), i10.data_ptr(),
+            y0.data_ptr())
+    if route == "team8":
+        scr = torch.empty((B, 4, S), dtype=_F32, device=y0.device)
+        _check(_lib().cf_sde2_fwd_team8(
+            B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), sc.fc["bg"].data_ptr(),
+            sc.fc["adapt"].data_ptr(), w2["wT_hi"].data_ptr(), w2["wT_mid"].data_ptr(),
+            w2["iwT"].data_ptr(), *grid, scr.data_ptr(), ys.data_ptr(), _stream(y0)),
+            "sde2_fwd_team8")
+        LAUNCHES["sde2_fwd_team8"] += 1
+        return ys
+    stream, plan = _team2(route, P, kv.shape[2], False)
+    wpk = sde2_pack(w2, P, plan)
     _check(_lib().cf_sde_replay_fwd(
-        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), sc.fc["bg"].data_ptr(),
-        sc.fc["adapt"].data_ptr(), w2["wT_hi"].data_ptr(), w2["wT_mid"].data_ptr(),
-        w2["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i1.data_ptr(),
-        i10.data_ptr(), y0.data_ptr(), ys.data_ptr(), _stream(y0)), "sde_replay_fwd")
+        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(stream),
+        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), wpk.data_ptr(),
+        w2["iwT"].data_ptr(), *grid, ys.data_ptr(), _stream(y0)), "sde_replay_fwd")
     LAUNCHES["sde_replay_fwd"] += 1
     return ys
 
 
-def replay_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride, w2, sc: SDEConsts, kv):
+def replay_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride, w2, sc: SDEConsts, kv,
+               route=None):
     """The reverse sweep of the state cotangent: ys_prev (n, B, 3P) the
     states before each step, ysbar (n, B, 3P) the direct cotangents on each
-    step's output. Returns (ybar (B, 3P), seeds (n, B, 3P))."""
+    step's output. Returns (ybar (B, 3P), seeds (n, B, 3P)). On the card B4,
+    the teams and ``route`` of ``replay_fwd``."""
     n, B, S = ys_prev.shape
     P = S // 3
+    _check_route(route)
     named = {"ys_prev": (ys_prev, _F32, (n, B, S)), "ysbar": (ysbar, _F32, (n, B, S)),
              **_replay_named(t0s, hs, i10, w2, sc, kv, B, P, n_real)}
     if not _on_cuda(ys_prev, named):
         return _replay_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, w2, sc, kv)
+    route = route or sde2_replay_route(P, kv.shape[2])
     ybar = torch.empty((B, S), dtype=_F32, device=ys_prev.device)
     seeds = torch.empty_like(ys_prev)
-    w_hiT, w_midT = w2["wT_hi"].T.contiguous(), w2["wT_mid"].T.contiguous()
     hc, hc_p = _host_floats(_drift_host_consts(sc))
+    grid = (kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(), ys_prev.data_ptr(),
+            ysbar.data_ptr())
+    if route == "team8":
+        hiT, midT = w2["wT_hi"].T.contiguous(), w2["wT_mid"].T.contiguous()
+        scr = torch.empty((B, 7, S), dtype=_F32, device=ys_prev.device)
+        _check(_lib().cf_sde2_bwd_team8(
+            B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(stride or 0),
+            sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), w2["wT_hi"].data_ptr(),
+            w2["wT_mid"].data_ptr(), hiT.data_ptr(), midT.data_ptr(), w2["iwT"].data_ptr(),
+            *grid, scr.data_ptr(), ybar.data_ptr(), seeds.data_ptr(), _stream(ys_prev)),
+            "sde2_bwd_team8")
+        LAUNCHES["sde2_bwd_team8"] += 1
+        return ybar, seeds
+    stream, plan = _team2(route, P, kv.shape[2], True)
+    wpk = sde2_pack(w2, P, plan)
     _check(_lib().cf_sde_replay_bwd(
-        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(stride or 0),
-        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), w2["wT_hi"].data_ptr(),
-        w2["wT_mid"].data_ptr(), w_hiT.data_ptr(), w_midT.data_ptr(), w2["iwT"].data_ptr(),
-        kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(), ys_prev.data_ptr(),
-        ysbar.data_ptr(), ybar.data_ptr(), seeds.data_ptr(), _stream(ys_prev)),
+        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(stride or 0), int(stream),
+        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), wpk.data_ptr(),
+        w2["iwT"].data_ptr(), *grid, ybar.data_ptr(), seeds.data_ptr(), _stream(ys_prev)),
         "sde_replay_bwd")
     LAUNCHES["sde_replay_bwd"] += 1
     return ybar, seeds

@@ -26,7 +26,13 @@ an error estimate moves h and with it every later draw). Replay over 64
 half steps: 1e-4 of each component's largest magnitude. Reverse sweep:
 each step's seed and the carry rel L2 1e-4 (the cotangents pass through
 bf16 roundings, and a rate an ulp apart can round one element a bf16 ulp,
-2^-8, apart).
+2^-8, apart). B3 and B4 as cluster teams at 13, 32, 63, 104 (the weights
+resident in shared memory) and 312 columns (streamed): bit for bit against
+their plain versions on per-lane windows, one launch each; at 104 the
+forced streamed ring and the yardstick (B3t-team's and B4t's bodies on the
+two-term split) bit for bit with the resident teams; the team plan the
+wrappers reckon equals the library's; bench.py's step at 104 columns runs
+each of its kernels once and no plain version.
 
 The three-term sweeps as teams (B3t-team, B4t) at 104 and 312 columns on
 short uniform and per-lane windows: bit for bit against their plain
@@ -390,6 +396,109 @@ def test_sde_replay_kernels_skip_the_padding(dev, replayed):
                                 d["sc"], d["kv"])
     torch.cuda.synchronize()
     assert bool((seeds[m:] == 0).all()) and bool((seeds[:m] != 0).any())
+
+
+# ---------------------------------------------------------------------------
+# B3 and B4 as cluster teams (csrc/replay2_team.cuh)
+# ---------------------------------------------------------------------------
+
+TEAM_CPA = {13: (8, 4, 1), 32: (16, 8, 8), 63: (32, 24, 7), 104: (64, 32, 8),
+            312: (192, 96, 24)}
+
+
+def _team2_window(dev, columns, n):
+    """A window of n per-lane half steps (the last two padding) at
+    ``columns`` columns: the kernel inputs, start states from the rate
+    regimes of ``_states`` and random cotangents of the step outputs."""
+    d = _net_inputs(dev, cpa=TEAM_CPA[columns], T=1000)
+    gen, B, P = d["gen"], 4, d["P"]
+    t0s, hs, dw, i10 = _team_grid(dev, gen, B, P, n, True, d["ts"])
+    y0 = _states(gen, B, P, dev)
+    ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
+    return d, (t0s, hs, dw, i10), y0, ysbar
+
+
+@pytest.mark.parametrize("columns", [13, 32, 63, 104, 312])
+def test_split2_team_kernels_equal_plain(dev, columns):
+    """B3 and B4 (truncation every 5 steps) at 13, 32, 63, 104 (weights
+    resident) and 312 columns (streamed) on a window of per-lane grids, 12
+    half steps (8 at 312), the last two padding: ys, ybar and seeds bit for
+    bit against the plain versions, one launch each."""
+    n = 8 if columns == 312 else 12
+    d, (t0s, hs, dw, i10), y0, ysbar = _team2_window(dev, columns, n)
+    assert ns.sde2_replay_route(d["P"], 4) == ("streamed" if columns == 312 else "resident")
+    before = dict(ns.LAUNCHES)
+    fwd = (t0s, hs, dw, i10, n - 2, d["w2"], d["sc"], d["kv"])
+    ys = ns.replay_fwd(y0, *fwd)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n - 2, 5, d["w2"], d["sc"], d["kv"])
+    got = ns.replay_bwd(*bwd)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched == {"sde_replay_fwd": 1, "sde_replay_bwd": 1}
+    assert torch.isfinite(ys).all() and torch.equal(ys, ns._replay_fwd_plain(y0, *fwd))
+    assert bool(got[1][:n - 2].any()) and not bool(got[1][n - 2:].any())
+    for g, w in zip(got, ns._replay_bwd_plain(*bwd)):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("route", ["streamed", "team8"])
+def test_split2_team_routes_equal_resident(dev, route):
+    """At 104 columns the streamed ring (forced) and the yardstick (B3t-team's
+    and B4t's bodies on the two-term split, "team8") give the resident
+    teams' ys, ybar and seeds bit for bit."""
+    n = 12
+    d, (t0s, hs, dw, i10), y0, ysbar = _team2_window(dev, 104, n)
+    fwd = (t0s, hs, dw, i10, n - 2, d["w2"], d["sc"], d["kv"])
+    ys = ns.replay_fwd(y0, *fwd)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n - 2, 5, d["w2"], d["sc"], d["kv"])
+    want = ns.replay_bwd(*bwd)
+    key = {"streamed": "sde_replay_fwd", "team8": "sde2_fwd_team8"}[route]
+    before = ns.LAUNCHES[key]
+    assert torch.equal(ns.replay_fwd(y0, *fwd, route=route), ys)
+    for g, w in zip(ns.replay_bwd(*bwd, route=route), want):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+    assert ns.LAUNCHES[key] == before + 1
+
+
+@pytest.mark.parametrize("columns", [13, 32, 63, 104, 150, 151, 312])
+def test_split2_plan_is_the_librarys(dev, columns):
+    """``sde2_replay_plan``, which the wrappers and ``sde2_replay_route``
+    read, equals the plan the library launches with (``cf_sde2_plan``), and
+    at least one team of each kernel fits the card."""
+    import ctypes
+
+    P, out = 8 * columns, (ctypes.c_longlong * 12)()
+    for stream in (False, True):
+        assert ns._lib().cf_sde2_plan(P, 4, int(stream), out) == 0
+        assert tuple(out) == tuple(int(v) for v in ns.sde2_replay_plan(P, 4, stream)), stream
+        plan = ns.sde2_replay_plan(P, 4, stream)
+        for bwd in (False, True):
+            assert ns.sde2_max_clusters(P, 4, plan.stream, bwd) >= 1
+
+
+def test_bench_step_runs_the_teams_once(dev, monkeypatch):
+    """bench.py's configuration at 104 columns (the jax.random tree's
+    select16 selection, B3, B4 emit, the outer pass), over 20 grid points:
+    one launch of each kernel, no plain version reached, finite loss."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_select_plain", "_attempt_plain", "_replay_fwd_plain", "_replay_bwd_plain"):
+        monkeypatch.setattr(ns, name, boom)
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=FULL, n_inputs=4, time_steps=20,
+                             max_steps=16384, device=dev)
+    stims = make_parity_batch(torch.Generator(device=dev).manual_seed(1), 4, 4, device=dev)
+    keys = torch.randint(0, 2**32, (4, 2), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int64).to(dev)
+    before = dict(ns.LAUNCHES)
+    rec = parity.make_train_step(task, stochastic=True, adaptive=True, select_bf16=True,
+                                 grad_bf16=True, split2=True, **STEP)(stims, keys)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched == {"sde_select": 1, "sde_replay_fwd": 1, "sde_replay_bwd": 1}
+    assert bool(torch.isfinite(rec["loss"])) and bool(rec["stats"].success.all())
 
 
 def _parity_step(dev, cpa, grid=None, params=None, guard=None):
