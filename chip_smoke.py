@@ -377,6 +377,11 @@ ODE_B = 4
 ODE_MAX_STEPS = 3072
 ODE_WINDOW = 64     # steps of a kernel-vs-plain replay window
 ODE_SOURCE = "columnflow_torch/kernels/csrc/network_ode.cu"
+# B6, B8' and B8't as cluster teams (csrc/ode_team.cuh) have sources of their own.
+ODE_TEAM_SOURCES = {"ode_select": "columnflow_torch/kernels/csrc/ode_select_team.cu",
+                    "ode_replay_bwd_emit": "columnflow_torch/kernels/csrc/ode_emit_team.cu",
+                    "ode_replay_bwd_emit_split3":
+                        "columnflow_torch/kernels/csrc/ode_emit_team.cu"}
 ODE_LOSS_TOL = 1e-5
 ODE_GRAD_TOL = 1e-3  # rel L2 of each gradient, card against CPU
 # The 104-column deterministic tier (columnflow/tasks/parity.py resolve_engine:
@@ -536,6 +541,21 @@ def cuda_ms(fn, reps, warmup=1, device_time=False):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def team_routes(run, serial, plan_route):
+    """B6, B8' and B8't as cluster teams (csrc/ode_team.cuh) against the
+    8-block team they replaced ("team8", the yardstick) on the same call:
+    CUDA-event ms of ``run(route)`` on the shape's own route (and on
+    "streamed" where the slice is resident), on team8, and us per serial
+    step (attempt or accepted step)."""
+    routes = [plan_route] + (["streamed"] if plan_route == "resident" else []) + ["team8"]
+    out = {"weights": plan_route}
+    for route in routes:
+        ms = cuda_ms(lambda: run(route), reps=1, warmup=1)
+        out[route] = {"ms": ms, "us_per_serial_step": ms * 1e3 / max(serial, 1)}
+    out["team8_over_team"] = out["team8"]["ms"] / out[plan_route]["ms"]
+    return out
 
 
 def device_profile(run, n):
@@ -1385,7 +1405,8 @@ def ode_phases(dev, cfg):
 
     # Single attempts from 16 states along the replay, with 1, 1.5 and 2.5
     # times the accepted step.
-    att = {"ratio_rel": 0.0, "h_next_rel": 0.0, "y1_max_abs": 0.0, "accepted": 0, "equal": True}
+    att = {"ratio_rel": 0.0, "h_next_rel": 0.0, "y1_max_abs": 0.0, "accepted": 0, "equal": True,
+           "bit_for_bit": True}
     for r in range(16):
         k = int(r / 16 * (n - 1))
         t, y = st[k].clone(), ys[k].contiguous()
@@ -1399,7 +1420,9 @@ def ode_phases(dev, cfg):
         att["y1_max_abs"] = max(att["y1_max_abs"], max_abs(a.y1, a_p.y1), max_abs(a.f1, a_p.f1))
         att["accepted"] += int(a.ratio <= 1.0)
         att["equal"] &= bool((a.ratio <= 1.0) == (a_p.ratio <= 1.0))
-    check(att["equal"] and att["ratio_rel"] < 1e-5 and att["h_next_rel"] < 1e-6,
+        att["bit_for_bit"] &= all(torch.equal(g, w) for g, w in zip(a, a_p))
+    check(att["equal"] and att["bit_for_bit"] and att["ratio_rel"] < 1e-5
+          and att["h_next_rel"] < 1e-6,
           f"ode_attempt: {att}")
 
     # The replay and its reverse sweep on windows early, in the middle and
@@ -1522,7 +1545,11 @@ def ode_phases(dev, cfg):
             plain_ms[name] = cuda_ms(plain, reps=1, warmup=0)
     serial = {"ode_select": na + nr, "ode_replay_fwd": n, "ode_replay_bwd": n}
     bounds = {name: ode_bound(name, P, B, n_in, K, serial[name], M=M) for name in calls}
+    # B6's cluster team against team8 over the short horizon of phase 8.
+    sel_routes = team_routes(lambda r: no.ode_select(y0, pw, sc, kv, cfg_s, route=r),
+                             na_k + nr_k, no.ode_team_route(P, n_in, B, 3, False))
     emit("ode_kernel_times", lanes=B, T=ODE_T, naccept=na, nreject=nr, ms=times,
+         team_routes={"ode_select": {"T": SHORT_T, **sel_routes}},
          plain_ms=plain_ms, plain_window_steps=W, kernel_ms_on_plain_window=window_ms,
          ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
          bound_ms={k: v[0] for k, v in bounds.items()},
@@ -1542,12 +1569,14 @@ def ode_phases(dev, cfg):
     replaces = {"ode_select": "columnflow/solvers/fused.py:238",
                 "ode_replay_fwd": "columnflow/solvers/fused.py:294",
                 "ode_replay_bwd": "columnflow/solvers/fused.py:327"}
-    return [{"name": name, "route": "cuda", "source": ODE_SOURCE, "replaces": replaces[name],
+    return [{"name": name, "route": "cuda", "source": ODE_TEAM_SOURCES.get(name, ODE_SOURCE),
+             "replaces": replaces[name],
              "launches": main_launches[name], "max_abs_err": errs[name], "ms": times[name],
              "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B,
              "path": f"deterministic f32-exact, {sum(ODE_CPA)} columns",
              "ns_per_serial_step": times[name] * 1e6 / serial[name],
+             **({"team_routes": {"T": SHORT_T, **sel_routes}} if name == "ode_select" else {}),
              **({"plain_ms_at": f"{W} steps (ms_window: the kernel there)",
                  "ms_window": window_ms[name]} if name in window_ms
                 else {"plain_ms_at": f"the whole selection over {SHORT_T} grid points"})}
@@ -1672,7 +1701,8 @@ def split2_phases(dev, cfg, frozen):
 
     # Single attempts from 16 states along the replay, with 1, 1.5 and 2.5
     # times the accepted step.
-    att = {"ratio_rel": 0.0, "h_next_rel": 0.0, "y1_max_abs": 0.0, "accepted": 0, "equal": True}
+    att = {"ratio_rel": 0.0, "h_next_rel": 0.0, "y1_max_abs": 0.0, "accepted": 0, "equal": True,
+           "bit_for_bit": True}
     for r in range(16):
         k = int(r / 16 * (n - 1))
         t, y = st[k].clone(), ys[k].contiguous()
@@ -1686,7 +1716,9 @@ def split2_phases(dev, cfg, frozen):
         att["y1_max_abs"] = max(att["y1_max_abs"], max_abs(a.y1, a_p.y1), max_abs(a.f1, a_p.f1))
         att["accepted"] += int(a.ratio <= 1.0)
         att["equal"] &= bool((a.ratio <= 1.0) == (a_p.ratio <= 1.0))
-    check(att["equal"] and att["ratio_rel"] < 1e-5 and att["h_next_rel"] < 1e-6,
+        att["bit_for_bit"] &= all(torch.equal(g, w) for g, w in zip(a, a_p))
+    check(att["equal"] and att["bit_for_bit"] and att["ratio_rel"] < 1e-5
+          and att["h_next_rel"] < 1e-6,
           f"ode_attempt (split2 tier): {att}")
 
     # The replay and the emit sweep on windows early, in the middle and
@@ -1876,7 +1908,17 @@ def split2_phases(dev, cfg, frozen):
     serial = {"ode_select": na + nr, "ode_replay_fwd_split2": n, "ode_replay_bwd_emit": n}
     bounds = {name: split2_bound(name, P, B, n_in, K, serial[name], M=M) for name in calls}
     outer_bound = split2_bound("outer", P, B, n_in, K, n)
+    # The cluster teams against team8: B6 over the S2_SEL_T points of phase
+    # 11, B8' on the Wp-step window.
+    routes = {
+        "ode_select": {"T": S2_SEL_T, **team_routes(
+            lambda r: no.ode_select(y0, pw, sc, kv, cfg_s, route=r), na_k + nr_k,
+            no.ode_team_route(P, n_in, B, 3, False))},
+        "ode_replay_bwd_emit": {"steps": Wp, **team_routes(
+            lambda r: no.ode_replay_bwd_emit(ysw, cobw, stw, w2, sc, kv, route=r), Wp,
+            no.ode_team_route(P, n_in, 1, 2, True))}}
     emit("split2_kernel_times", lanes=B, T=S2_T, naccept=na, nreject=nr, ms=times,
+         team_routes=routes,
          ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
          bound_ms={k: v[0] for k, v in bounds.items()},
          bound_by={k: v[1] for k, v in bounds.items()},
@@ -1903,12 +1945,14 @@ def split2_phases(dev, cfg, frozen):
     replaces = {"ode_select": "columnflow/solvers/fused.py:238",
                 "ode_replay_fwd_split2": "columnflow/solvers/fused.py:294",
                 "ode_replay_bwd_emit": "columnflow/solvers/fused.py:327"}
-    return [{"name": name, "route": "cuda", "source": ODE_SOURCE, "replaces": replaces[name],
+    return [{"name": name, "route": "cuda", "source": ODE_TEAM_SOURCES.get(name, ODE_SOURCE),
+             "replaces": replaces[name],
              "launches": main_launches[name], "max_abs_err": errs[name], "ms": times[name],
              "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B,
              "path": f"deterministic fused-split2, {sum(S2_CPA)} columns",
              "ns_per_serial_step": times[name] * 1e6 / serial[name],
+             **({"team_routes": routes[name]} if name in routes else {}),
              **({"plain_ms_at": f"{Wp} steps (ms_window: the kernel there)",
                  "ms_window": window_ms[name]} if name in window_ms else {})}
             for name in calls]
@@ -4527,6 +4571,28 @@ def exactode_phases(dev, cfg, frozen):
     compare("ode_replay_fwd_team", got, want)
     windows["ode_replay_fwd_team"][sum(FG_WIDE_CPA)] = [
         {"start": 0, "steps": EO_WIDE_W, "ms": kern, "plain_ms": pl_ms}]
+    # B6 and B8't at 312 columns on the same window (their own generator:
+    # a draw from this phase's would move its later inputs): four single
+    # attempts with 1, 1.5 and 2.5 times the accepted step, and the emit
+    # sweep, bit for bit against the plain versions.
+    gen_w = torch.Generator(device=dev).manual_seed(31)
+    kv_w, ys_w = m_w.kv.contiguous(), got[0].contiguous()
+    w3_w = {k: v.contiguous() for k, v in no._w3(pw_w, m_w.sc).items()}
+    for r in range(4):
+        k = r * (EO_WIDE_W - 1) // 3
+        t, y = st_w[k].clone(), ys_w[k].contiguous()
+        h = ((st_w[k + 1] - st_w[k]) * (1.0, 1.5, 2.5)[r % 3]).clone()
+        f0 = no.ode_drift(t, y, w3_w, m_w.sc, kv_w).contiguous()
+        compare("ode_attempt_312", tuple(no.ode_attempt(t, y, f0, h, pw_w, m_w.sc, kv_w, cfg_w)),
+                tuple(no._ode_attempt_plain(t, y, f0, h, w3_w, m_w.sc, kv_w, cfg_w)))
+    cob_w = torch.randn(EO_WIDE_W, 5, B, 3 * P_w, generator=gen_w, device=dev)
+    got, kern = timed(lambda: no.ode_replay_bwd_emit(ys_w, cob_w, stw, w3_w, m_w.sc, kv_w))
+    want, pl_ms = timed(lambda: no._ode_replay_bwd_emit_plain(ys_w, cob_w, stw, w3_w, m_w.sc,
+                                                               kv_w))
+    compare("ode_replay_bwd_emit_split3", got, want)
+    windows["ode_replay_bwd_emit_split3"][sum(FG_WIDE_CPA)] = [
+        {"start": 0, "steps": EO_WIDE_W, "ms": kern, "plain_ms": pl_ms,
+         "weights": no.ode_team_route(P_w, n_in, 1, 3, True)}]
     # B8t-team: 18, 32 and 63 columns, on the kernel's states and random
     # cotangents of the dense rows.
     for cpa in EO_BWD_CPA:
@@ -4552,6 +4618,19 @@ def exactode_phases(dev, cfg, frozen):
         compare("ode_replay_bwd_emit_split3", got, want)
         windows["ode_replay_bwd_emit_split3"].setdefault(c104, []).append(
             {"start": k0, "steps": EO_W104, "ms": kern, "plain_ms": pl_ms})
+    # The cluster teams against team8: B8't on a middle 104-column window,
+    # B6 over the 32-column selection's EO_SEL_T points.
+    k0 = max(0, d["n"] // 2 - EO_W104 // 2)
+    stw, ysw = d["stn"][k0:k0 + EO_W104 + 1].contiguous(), d["ys"][k0:k0 + EO_W104].contiguous()
+    cob = torch.randn(EO_W104, 5, B, 3 * d["P"], generator=gen_w, device=dev)
+    d32 = settings[c32]
+    routes = {
+        "ode_replay_bwd_emit_split3": {"steps": EO_W104, **team_routes(
+            lambda r: no.ode_replay_bwd_emit(ysw, cob, stw, d["w3"], d["sc"], d["kv"], route=r),
+            EO_W104, no.ode_team_route(d["P"], n_in, 1, 3, True))},
+        "ode_select_32": {"T": EO_SEL_T, **team_routes(
+            lambda r: no.ode_select(d32["y0"], d32["pw"], d32["sc"], d32["kv"], cfg_s, route=r),
+            int(stats_k[0]) + int(stats_k[1]), no.ode_team_route(d32["P"], n_in, B, 3, False))}}
     for name, by_cols in windows.items():
         # The plain version's time on the main path's width: a middle window.
         cols = c32 if name == "ode_replay_bwd_team" else c104
@@ -4561,7 +4640,8 @@ def exactode_phases(dev, cfg, frozen):
     emit("exactode_kernel_vs_plain", lanes=B, T=EO_T, max_steps=EO_MAX_STEPS,
          accepted={c: d["n"] for c, d in sorted(settings.items())},
          grid_104="the split2 phase's" if frozen else "its own selection",
-         selection_32=selection_32, windows=windows, bit_for_bit=same, max_abs_err=errs)
+         selection_32=selection_32, windows=windows, bit_for_bit=same, max_abs_err=errs,
+         team_routes=routes)
 
     # -- 48. main path: one full step at 32 columns (kernel mode) and at 104
     # (outer mode, on the split2 phase's frozen grid) --------------------------------
@@ -4706,7 +4786,8 @@ def exactode_phases(dev, cfg, frozen):
         "ode_replay_bwd_emit_split3": ("columnflow/solvers/fused.py:327",
                                        "deterministic f32-exact, 104 columns (outer mode)"),
     }
-    return [{"name": name, "route": "cuda", "source": ODE_SOURCE, "replaces": rep,
+    return [{"name": name, "route": "cuda", "source": ODE_TEAM_SOURCES.get(name, ODE_SOURCE),
+             "replaces": rep,
              "launches": sum(main[c]["launches"].get(name, 0) for c in main),
              "launches_by_path": {f"{c}_columns": main[c]["launches"].get(name, 0)
                                   for c in main},
@@ -4714,7 +4795,8 @@ def exactode_phases(dev, cfg, frozen):
              "plain_ms": plain_ms[name], "plain_ms_at": plain_ms[f"{name}_at"],
              "ms_window": window_ms[name], "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": path,
-             "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+             "ns_per_serial_step": times[name] * 1e6 / serial[name],
+             **({"team_routes": routes[name]} if name in routes else {})}
             for name, (rep, path) in entries.items()]
 
 

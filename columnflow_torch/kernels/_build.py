@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # operation as its plain PyTorch version does (see their headers), so nvcc
 # must not contract multiply-adds there.
 SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
-                "network_ode": ["-fmad=false"], "xor_ode": ["-fmad=false"],
+                "network_ode": ["-fmad=false"], "ode_select_team": ["-fmad=false"],
+                "ode_emit_team": ["-fmad=false"], "xor_ode": ["-fmad=false"],
                 "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"],
                 "hopf_outer": ["-fmad=false"]}
 
@@ -63,15 +64,24 @@ _SIGNATURES = {
     "network_ode": {
         "cf_ode_replay_fwd": [_I, _I, _I, _I, _P, _I] + [_P] * 10,
         "cf_ode_replay_bwd": [_I, _I, _I, _I, _P, _I] + [_P] * 13,
-        "cf_ode_select": [_I, _I, _I, _I, _P, _P, _I, _I] + [_P] * 12,
-        "cf_ode_attempt": [_I, _I, _I, _I, _P, _P] + [_P] * 16,
+        "cf_ode_select_team8": [_I, _I, _I, _I, _P, _P, _I, _I] + [_P] * 12,
+        "cf_ode_attempt_team8": [_I, _I, _I, _I, _P, _P] + [_P] * 16,
+        "cf_ode_replay_bwd_emit_team8": [_I, _I, _I, _I, _P, _I] + [_P] * 15,
+        "cf_ode_replay_bwd_emit_split3_team8": [_I, _I, _I, _I, _P, _I] + [_P] * 17,
         "cf_ode_replay_fwd_split2": [_I, _I, _I, _I, _P, _I] + [_P] * 12,
-        "cf_ode_replay_bwd_emit": [_I, _I, _I, _I, _P, _I] + [_P] * 15,
         "cf_ode_replay_fwd_team": [_I, _I, _I, _I, _P, _I] + [_P] * 13,
-        "cf_ode_replay_bwd_emit_split3": [_I, _I, _I, _I, _P, _I] + [_P] * 17,
         "cf_ode_replay_bwd_team": [_I, _I, _I, _I, _P, _I] + [_P] * 19,
         "cf_ode_replay_bwd_split2": [_I, _I, _I, _I, _P, _I] + [_P] * 17,
         "cf_ode_block_bytes": [_I, _I, _I, _I, _P],
+    },
+    "ode_select_team": {
+        "cf_ode_select": [_I, _I, _I, _I, _P, _P, _I, _I, _I] + [_P] * 9,
+        "cf_ode_attempt": [_I, _I, _I, _I, _P, _P, _I] + [_P] * 13,
+        "cf_ode_team_plan": [_I, _I, _I, _I, _I, _I, _P],
+    },
+    "ode_emit_team": {
+        "cf_ode_replay_bwd_emit": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,
+        "cf_ode_replay_bwd_emit_split3": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,
     },
     "xor_ode": {
         "cf_xor_select": [_I, _I, _P, _P, _I, _I] + [_P] * 7,

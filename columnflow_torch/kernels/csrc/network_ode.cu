@@ -4,12 +4,16 @@
 // columnflow_torch/kernels/_build.py; each returns cudaGetLastError().
 //
 // Replaces (columnflow/solvers/fused.py, the kernels of odeint_dopri5_fused):
-//   cf_ode_select             <- _make_adaptive_kernel: Hairer's initial step,
+//   cf_ode_select_team8       <- _make_adaptive_kernel: Hairer's initial step,
 //                                the whole accept/reject while-loop, the
 //                                accepted times, on the three-term split (the
 //                                f32-exact engine's drift, and the split2
-//                                tier's select_func), at any width
-//   cf_ode_attempt            <- the same body, one controller attempt (a
+//                                tier's select_func), at any width, as one
+//                                team of kCluster blocks that reads the
+//                                weights from L2 (team.cuh): the yardstick of
+//                                the cluster team in ode_select_team.cu, and
+//                                the shapes its plan does not take
+//   cf_ode_attempt_team8      <- the same body, one controller attempt (a
 //                                second entry point, for testing the body)
 //   cf_ode_replay_fwd         <- _make_replay_chunk_kernel: the six-stage step
 //                                over the frozen grid, step-start states and
@@ -29,18 +33,22 @@
 //                                on the two-term split
 //   cf_ode_block_bytes        the shared memory B7 and B8 ask of one block
 //                                (what picks them or the teams)
-//   cf_ode_replay_bwd_emit_split3
+//   cf_ode_replay_bwd_emit_split3_team8
 //                             <- _make_bwd_chunk_kernel(emit_steps=True,
 //                                diff_idx=()) on the three-term split (B8't):
 //                                the state cotangent alone and each step's
-//                                output cotangent, a team of blocks per lane
-//                                (the f32-exact engine in outer mode, from 64
-//                                columns)
+//                                output cotangent, a team of kCluster blocks
+//                                per lane that reads the weights and their
+//                                transposes from L2 (the yardstick of the
+//                                cluster team in ode_emit_team.cu)
 //   cf_ode_replay_fwd_split2  <- _make_replay_chunk_kernel with
 //                                prepare_premixed_split2 (the fused-split2 tier)
-//   cf_ode_replay_bwd_emit    <- _make_bwd_chunk_kernel(emit_steps=True,
-//                                diff_idx=()): the state cotangent alone and
-//                                each step's output cotangent, two-term split
+//   cf_ode_replay_bwd_emit_team8
+//                             <- the same on the two-term split (B8'),
+//                                prepare_premixed_split2
+// The cluster teams that replace B6, B8' and B8't on the main paths
+// (ode_team.cuh) are built from ode_select_team.cu and ode_emit_team.cu,
+// their own sources so that nvcc compiles them beside this one.
 // The JAX kernels trace any drift; these are written for the premixed
 // column-network drift with a knot stimulus and a bf16 split of the
 // recurrent matrix: the three-term one (prepare_premixed_split /
@@ -64,16 +72,19 @@
 //    227 KB do not hold the weights and the states (the replay from 24
 //    columns, the sweep from 18 at 4 lanes and 4 inputs) the wrappers take
 //    the team kernels instead (network_ode.py ode_fwd_route / ode_bwd_route).
-//  - The selection (both tiers), the replays as teams (B7t-team, the split2
-//    tier's B7) and the sweeps as teams (B8t-team, B8't, B8'): a team of
-//    blocks (one thread-block cluster) per lane, or for the batch in the
-//    selection and in B8t-team, the weights read from L2, the states in
-//    global memory (team.cuh says how). The selection has ONE controller
-//    for the whole (B, 3P) state (the error ratio is an RMS over all lanes),
-//    so its team holds every lane and reduces the norm over its blocks in a
-//    fixed order. B8t-team holds the batch for the same reason as B8: each
-//    block forms the weight-cotangent entries of its own output columns
-//    from every lane's exchanged terms.
+//  - The replays as teams (B7t-team, the split2 tier's B7) and the
+//    kernel-mode sweeps as teams (B8t-team, B8s): a team of kCluster blocks
+//    (one thread-block cluster) per lane, or for the batch in B8t-team, the
+//    weights read from L2, the states in global memory (team.cuh says how).
+//    B8t-team holds the batch for the same reason as B8: each block forms
+//    the weight-cotangent entries of its own output columns from every
+//    lane's exchanged terms.
+//  - The selection (B6, both tiers) and the emit-mode sweeps (B8', B8't)
+//    as teams of kCluster blocks, the weights from L2 (the yardstick; the
+//    main paths run ode_team.cuh's clusters of 16). The selection has ONE
+//    controller for the whole (B, 3P) state (the error ratio is an RMS over
+//    all lanes), so its team holds every lane and reduces the norm over its
+//    blocks in a fixed order.
 //
 // Precision: as network_sde.cu. float32 elementwise arithmetic with
 // full-precision expf/tanhf/logf/sqrtf and IEEE division, compiled with
@@ -839,7 +850,7 @@ int cf_ode_block_bytes(int B, int P, int n_in, int sweep, long long* bytes) {
 // reverse sweeps).
 // hc (host): tau_s, tau_m, tau_a, R, sigma, kc0[K-1], kd[K-1];
 // hs (host): t_start, t_end, rtol, atol, dt0, t_end - t_start.
-int cf_ode_select(int B, int P, int n_in, int K, const float* hc, const float* hs,
+int cf_ode_select_team8(int B, int P, int n_in, int K, const float* hc, const float* hs,
                      int use_initial, int max_steps, const float* bg, const float* adapt,
                      const void* hi, const void* mid, const void* lo, const float* iw,
                      const float* kv, const float* y0, float* scr, float* st, int* stats,
@@ -853,7 +864,7 @@ int cf_ode_select(int B, int P, int n_in, int K, const float* hc, const float* h
   return (int)cudaGetLastError();
 }
 
-int cf_ode_attempt(int B, int P, int n_in, int K, const float* hc, const float* hs,
+int cf_ode_attempt_team8(int B, int P, int n_in, int K, const float* hc, const float* hs,
                       const float* bg, const float* adapt, const void* hi, const void* mid,
                       const void* lo, const float* iw, const float* kv, const float* t,
                       const float* h, const float* y, const float* f0, float* scr, float* y1,
@@ -876,7 +887,7 @@ int cf_ode_replay_fwd_split2(int B, int P, int n_in, int K, const float* hc, int
                             y0, scr, ys, coeffs, stream);
 }
 
-int cf_ode_replay_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps,
+int cf_ode_replay_bwd_emit_team8(int B, int P, int n_in, int K, const float* hc, int n_steps,
                            const float* bg, const float* adapt, const void* hi, const void* mid,
                            const void* hiT, const void* midT, const float* iw, const float* kv,
                            const float* st, const float* ys, const float* cobar, float* scr,
@@ -896,7 +907,8 @@ int cf_ode_replay_fwd_team(int B, int P, int n_in, int K, const float* hc, int n
                             scr, ys, coeffs, stream);
 }
 
-int cf_ode_replay_bwd_emit_split3(int B, int P, int n_in, int K, const float* hc, int n_steps,
+int cf_ode_replay_bwd_emit_split3_team8(int B, int P, int n_in, int K, const float* hc,
+                                  int n_steps,
                                   const float* bg, const float* adapt, const void* hi,
                                   const void* mid, const void* lo, const void* hiT,
                                   const void* midT, const void* loT, const float* iw,

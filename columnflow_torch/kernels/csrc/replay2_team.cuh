@@ -31,7 +31,7 @@
 // through a ring of S stages, refilled by thread 0 one tile behind the
 // consumers (full and empty mbarriers per stage), the tile sequence running
 // on across product passes so that the next pass's first tiles load while
-// the team synchronises.
+// the team synchronises (tma_ring.cuh, shared with ode_team.cuh).
 //   The state of a population lives in the registers of the thread that
 // owns it (thread i of block r: population r nc + i), so every elementwise
 // operation of a step is thread-private. A drift evaluation: each owner
@@ -62,14 +62,11 @@
 
 #include "network_drift.cuh"
 #include "sde_select.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
 namespace cgt = cooperative_groups;
-
-constexpr int kT2MaxStages = 8;
-constexpr int kT2MinTileRows = 32;
-constexpr size_t kT2SmemLimit = 232448;  // shared memory a block can use (sm_90)
 
 // A team's shape at P populations and n_in inputs, computed alike on the
 // host (launch, shared-memory bytes) and in the kernel (carving, thread
@@ -85,8 +82,6 @@ struct Plan2 {
   int R, T, S;  // rows per tile, tiles per product pass, stages (resident: P, 1, 1)
   size_t fixed, bytes;  // bytes before the weights; all of a block's shared memory
 };
-
-__host__ __device__ inline size_t t2_align(size_t x) { return (x + 15) / 16 * 16; }
 
 __host__ __device__ inline Plan2 plan2(int P, int n_in, int want_stream) {
   Plan2 p;
@@ -130,57 +125,6 @@ __host__ __device__ inline Plan2 plan2(int P, int n_in, int want_stream) {
   return p;
 }
 
-// ---------------------------------------------------------------------------
-// mbarriers and bulk copies (PTX)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t t2_smem(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void t2_mbar_init(uint64_t* b, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(t2_smem(b)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void t2_mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(t2_smem(b)) : "memory");
-}
-
-__device__ __forceinline__ void t2_mbar_wait(uint64_t* b, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "T2_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra T2_DONE;\n"
-      "bra T2_WAIT;\n"
-      "T2_DONE:\n"
-      "}\n" ::"r"(t2_smem(b)),
-      "r"(parity)
-      : "memory");
-}
-
-// Copy bytes (a multiple of 16) from device memory into this block's shared
-// memory, in bulk copies of at most kT2CopyBytes; the copies complete on b,
-// which expects exactly these bytes (one arrival).
-constexpr uint32_t kT2CopyBytes = 32768;
-
-__device__ __forceinline__ void t2_bulk_load(void* dst, const void* src, uint32_t bytes,
-                                             uint64_t* b) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(t2_smem(b)),
-               "r"(bytes)
-               : "memory");
-  for (uint32_t off = 0; off < bytes; off += kT2CopyBytes) {
-    const uint32_t part = bytes - off < kT2CopyBytes ? bytes - off : kT2CopyBytes;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];\n" ::"r"(t2_smem(static_cast<unsigned char*>(dst) + off)),
-        "l"(static_cast<const unsigned char*>(src) + off), "r"(part), "r"(t2_smem(b))
-        : "memory");
-  }
-}
-
 // The two bf16 of a packed word as float64 (exact).
 __device__ __forceinline__ double t2_lo(uint32_t w) { return (double)__uint_as_float(w << 16); }
 __device__ __forceinline__ double t2_hi(uint32_t w) {
@@ -207,19 +151,6 @@ struct Team2 {
   const uint32_t* src;  // this block's packed slice in device memory
   int used, limit;      // streamed tiles consumed so far; tiles the kernel consumes in all
 };
-
-__device__ __forceinline__ uint32_t* t2_stage(const Team2& T, int s) {
-  return T.w + (size_t)s * T.p.R * T.p.rw;
-}
-
-// Start the bulk copy of tile sequence number g (tile g mod T of the slice)
-// into stage g mod S (thread 0; the stage is free).
-__device__ void t2_fetch(Team2& T, int g, int P) {
-  const int s = g % T.p.S, m = g % T.p.T;
-  const int rows = min(T.p.R, P - m * T.p.R);
-  t2_bulk_load(t2_stage(T, s), T.src + (size_t)m * T.p.R * T.p.rw,
-               (uint32_t)(4 * rows * T.p.rw), T.mbar + 1 + s);
-}
 
 // Carve the shared memory, copy what the drift reads of this block's
 // populations and of its lane's stimulus, start the weights' copies, and
@@ -285,28 +216,6 @@ __device__ void team2_init(Team2& T, unsigned char* sm, const Net& n, const uint
   }
   cgt::this_cluster().sync();
   if (!T.p.stream) t2_mbar_wait(T.mbar, 0);
-}
-
-// The rows of tile sequence number g, once they have landed. Thread 0 first
-// refills the stage of tile g - 1 (which every warp has released) with tile
-// g - 1 + S.
-template <bool kStream>
-__device__ __forceinline__ const uint32_t* t2_acquire(Team2& T, int g, int P) {
-  if (!kStream) return T.w;
-  const int S = T.p.S;
-  if (threadIdx.x == 0 && g >= 1 && g - 1 + S < T.limit) {
-    t2_mbar_wait(T.mbar + 1 + kT2MaxStages + (g - 1) % S, (uint32_t)(((g - 1) / S) & 1));
-    t2_fetch(T, g - 1 + S, P);
-  }
-  t2_mbar_wait(T.mbar + 1 + g % S, (uint32_t)((g / S) & 1));
-  return t2_stage(T, g % S);
-}
-
-template <bool kStream>
-__device__ __forceinline__ void t2_release(Team2& T, int g) {
-  if (!kStream) return;
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) t2_mbar_arrive(T.mbar + 1 + kT2MaxStages + g % T.p.S);
 }
 
 // The own columns' three product sums of a drift evaluation, with the rate
@@ -626,49 +535,6 @@ sde2_bwd_kernel(Net n, Replay2 rp, const uint32_t* __restrict__ wpk,
 #pragma unroll
     for (int j = 0; j < 3; ++j) ybar_out[(size_t)b * S + j * P + col] = yb[j];
   }
-}
-
-// A team kernel's attributes (p.bytes of shared memory; cluster size 16 is
-// non-portable) and launch configuration for B lanes of C blocks each.
-template <typename... K>
-int team2_prepare(void (*kernel)(K...), const Plan2& p) {
-  if (int e = set_smem(kernel, p.bytes)) return e;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-}
-
-inline cudaLaunchConfig_t team2_config(const Plan2& p, int B, cudaStream_t stream,
-                                       cudaLaunchAttribute* at) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * p.C, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = p.bytes;
-  cfg.stream = stream;
-  at->id = cudaLaunchAttributeClusterDimension;
-  at->val.clusterDim.x = p.C;
-  at->val.clusterDim.y = 1;
-  at->val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <typename... K, typename... A>
-int team2_launch(void (*kernel)(K...), const Plan2& p, int B, cudaStream_t stream, A... args) {
-  if (int e = team2_prepare(kernel, p)) return e;
-  if (B < 1) return (int)cudaGetLastError();
-  cudaLaunchAttribute at;
-  const cudaLaunchConfig_t cfg = team2_config(p, B, stream, &at);
-  if (int e = (int)cudaLaunchKernelEx(&cfg, kernel, args...)) return e;
-  return (int)cudaGetLastError();
-}
-
-// How many of the kernel's clusters the card holds at once (0: none fits).
-template <typename... K>
-int team2_max_clusters(void (*kernel)(K...), const Plan2& p, int* out) {
-  if (int e = team2_prepare(kernel, p)) return e;
-  cudaLaunchAttribute at;
-  const cudaLaunchConfig_t cfg = team2_config(p, 1, nullptr, &at);
-  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
 }  // namespace

@@ -3,11 +3,14 @@ dense-output replay over the frozen grid, and its reverse sweep (ports of
 the three Pallas kernels of ``odeint_dopri5_fused`` in
 ``columnflow/solvers/fused.py``).
 
-Each kernel is CUDA C++ in ``csrc/network_ode.cu`` (built by ``_build``)
-with a plain PyTorch version beside it that repeats its arithmetic:
+Each kernel is CUDA C++ in ``csrc/network_ode.cu``, or, for the cluster
+teams of B6, B8' and B8't (``csrc/ode_team.cuh``), ``csrc/ode_select_team.cu``
+and ``csrc/ode_emit_team.cu`` (built by ``_build``), with a plain PyTorch
+version beside it that repeats its arithmetic:
 
     wrapper               kernel                     plain version               replaces (columnflow/solvers/fused.py)
-    ode_select            cf_ode_select              _ode_select_plain           _make_adaptive_kernel
+    ode_select            cf_ode_select              _ode_select_plain           _make_adaptive_kernel (B6;
+                          (cf_ode_select_team8)                                  route "team8": the yardstick)
     ode_attempt           cf_ode_attempt             _ode_attempt_plain          one iteration of that kernel's body
     ode_replay_fwd        cf_ode_replay_fwd          _ode_replay_fwd_plain       _make_replay_chunk_kernel (B7;
                           (cf_ode_replay_fwd_team)                               as a team, B7t-team: ``ode_fwd_route``)
@@ -17,7 +20,8 @@ with a plain PyTorch version beside it that repeats its arithmetic:
     ode_replay_bwd_split2 cf_ode_replay_bwd_split2   _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode,
                                                                                  split2 (B8s, a team)
     ode_replay_bwd_emit   cf_ode_replay_bwd_emit     _ode_replay_bwd_emit_plain  _make_bwd_chunk_kernel, emit mode
-                          (split2: B8'), cf_ode_replay_bwd_emit_split3 (three-term split: B8't)
+                          (split2: B8'), cf_ode_replay_bwd_emit_split3 (three-term split: B8't);
+                          route "team8": cf_ode_replay_bwd_emit[_split3]_team8
 
 The JAX kernels trace any drift. These compute the parity task's
 deterministic drift: ``network_drift_premixed`` with the knot stimulus and a
@@ -42,14 +46,20 @@ than 1 MiB (from 64 columns with 4 inputs).
 
 Where a step does not fit one block (the replay's three-term weights from 24
 columns, the sweep's batch and weights from 18 columns at 4 lanes; at P =
-832 the three-term weights alone are 4.15 MB), the kernels keep the weights
-in global memory (L2) and spread each drift evaluation over a team of
-blocks (one thread-block cluster): one team for the selection's batch (one
-controller steers the whole (B, 3P) state) and for the kernel-mode sweep's
-(B8t-team: each block forms the weight cotangents of its own output
-columns), one per lane for the replay and the emit-mode sweep. Which kernel
-runs is decided by shape before the launch (``ode_fwd_route``,
-``ode_bwd_route``).
+832 the three-term weights alone are 4.15 MB), the kernels spread each
+drift evaluation over a team of blocks (one thread-block cluster). The
+replays and the kernel-mode sweep (B7t-team, B8t-team, B8s) keep the
+weights in global memory (L2), a team of 8 blocks per lane or for the
+batch. The selection (B6: one team for the batch, since one controller
+steers the whole (B, 3P) state) and the emit-mode sweep (B8', B8't: one
+team per lane) are clusters of 16 (or 8) blocks, each block holding its
+columns of the split in shared memory (csrc/ode_team.cuh,
+``ode_team_plan``, ``ode_team_pack``): resident at 13 and 32 columns,
+streamed through a ring of tiles at 104 and 312; ``route="team8"`` runs the
+8-block team they replaced (the yardstick; ``ode_team_route`` picks it only
+for shapes the plan does not take: 8 or more lanes at 312 columns). Which
+kernel runs is decided by shape before the launch (``ode_fwd_route``,
+``ode_bwd_route``, ``ode_team_route``).
 
 The wrappers take the plain version for tensors on the CPU; for CUDA tensors
 they launch the kernel or raise. ``LAUNCHES`` counts kernel launches (the
@@ -68,9 +78,13 @@ import torch
 
 from columnflow_torch.kernels.network_sde import (
     _MAX_INPUTS,
+    _MAX_KNOTS,
+    _T2_MAX_STAGES,
+    _T2_MIN_TILE_ROWS,
     _THREADS,
     SMEM_BLOCK_BYTES,
     SDEConsts,
+    _align16,
     _check,
     _drift_host_consts,
     _drift_named,
@@ -100,7 +114,9 @@ from columnflow_torch.solvers import rk
 _SAFETY, _IFACTOR, _DFACTOR, _ORDER = 0.9, 10.0, 0.2, 5
 LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_bwd": 0,
             "ode_replay_fwd_split2": 0, "ode_replay_bwd_emit": 0, "ode_replay_fwd_team": 0,
-            "ode_replay_bwd_team": 0, "ode_replay_bwd_emit_split3": 0, "ode_replay_bwd_split2": 0}
+            "ode_replay_bwd_team": 0, "ode_replay_bwd_emit_split3": 0, "ode_replay_bwd_split2": 0,
+            "ode_select_team8": 0, "ode_attempt_team8": 0, "ode_replay_bwd_emit_team8": 0,
+            "ode_replay_bwd_emit_split3_team8": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 
@@ -552,52 +568,220 @@ def _w3_cuda(pw, sc: SDEConsts):
     return {k: v.contiguous() for k, v in _w3(pw, sc).items()}
 
 
-def ode_select(y0, pw, sc: SDEConsts, kv, cfg: ODESelectConfig):
+# ---------------------------------------------------------------------------
+# The cluster teams of B6, B8' and B8't (csrc/ode_team.cuh)
+# ---------------------------------------------------------------------------
+
+ODE_TEAM_ROUTES = ("resident", "streamed", "team8")
+_T3_MAX_ITEMS = 2  # csrc/ode_team.cuh kT3MaxItems
+
+
+class ODETeamPlan(NamedTuple):
+    """The shape of a B6 or B8'/B8't team at P populations (csrc/ode_team.cuh
+    ``plan3``, which ``cf_ode_team_plan`` reports)."""
+
+    C: int        # blocks per team: the cluster size
+    nc: int       # populations each block owns
+    NT: int       # terms of the split
+    NB: int       # lanes the team holds (the selection: the batch; the sweep: 1)
+    LB: int       # forward products: lanes per thread (the sweep 1, the selection 4; 2
+                  # where a thread owns two items)
+    G: int        # lane groups
+    gw: int       # exchange words of a lane group at one row (even)
+    xs: int       # exchange words of a row
+    L: int        # forward products: lanes per (group, column)
+    Lv: int       # VJP products: lanes per row (32 / L)
+    rw: int       # 32-bit words of a packed row: NT nc bf16, then pad (max(1, Lv / 2) times odd)
+    ipt: int      # owned (lane, population) items per thread
+    slots: int    # exchange slots: 2 (double buffered) or 1
+    stream: bool  # the slice streams through a ring of tiles (else it stays resident)
+    R: int        # rows per tile (resident: P)
+    T: int        # tiles per product pass
+    S: int        # stages of the ring (resident: 1)
+    fits: bool    # False: this design takes no such team (the route is "team8")
+    slot: int     # bytes of an exchange slot
+    fixed: int    # shared-memory bytes before the weights
+    bytes: int    # shared-memory bytes of a block
+
+
+def _t3_fixed(C, nc, NB, n_in, slot, slots):
+    return (slots * slot + _align16(4 * NB * nc) + _align16(8 * nc) + _align16(8 * NB * n_in)
+            + _align16(4 * _MAX_KNOTS * NB * n_in) + _align16(4 * (n_in + 2) * nc)
+            + _align16(8 * (_THREADS // 32 + 2 * C)) + _align16(8 * (1 + 2 * _T2_MAX_STAGES)))
+
+
+def ode_team_plan(P: int, n_in: int, NB: int, NT: int, sweep: bool,
+                  stream: bool = False) -> ODETeamPlan:
+    """The team shape of the selection (``sweep`` False: NB lanes, three
+    terms) or the emit-mode sweep (``sweep`` True: one lane, NT terms) at P
+    populations and n_in inputs: a cluster of 16 blocks where 16 divides P,
+    else 8; block r owns populations [r nc, (r + 1) nc) of every lane and
+    keeps the columns [r nc, (r + 1) nc) of the NT bf16 terms in shared
+    memory: a (P, rw) slice of words, resident where it and two exchange
+    slots fit the 232,448 bytes a block can use (the selection through 32
+    columns, the sweeps through 63 and the two-term one at 104), else (or
+    with ``stream``) streamed in tiles of R rows through S stages; one exchange slot where two leave no room for two stages (16
+    lanes at 104 columns). ``fits`` is False where no tiling fits or a
+    thread would own more than two (lane, population) items (16 lanes at
+    312 columns): the route is then "team8"."""
+    if P <= 0 or P % 8:
+        raise ValueError(f"P must be a positive multiple of 8, got {P}")
+    if not 0 <= n_in <= _MAX_INPUTS:
+        raise ValueError(f"n_in must lie in [0, {_MAX_INPUTS}], got {n_in}")
+    if NT not in (2, 3) or NB < 1 or (sweep and NB != 1):
+        raise ValueError(f"no team takes NT={NT}, NB={NB}, sweep={sweep}")
+    C = 16 if P % 16 == 0 else 8
+    nc = P // C
+    ipt = -(-NB * nc // _THREADS)
+    LB = 1 if sweep else (4 if ipt == 1 else 2)
+    G = -(-NB // LB)
+    gw = -(-LB * NT // 2) * 2
+    xs = G * gw
+    L = 32
+    while L > 1 and G * nc * L > _THREADS:
+        L //= 2
+    Lv = 32 // L
+    v = max(1, Lv // 2)
+    rw = -(-(-(-NT * nc // 2)) // v) * v
+    if (rw // v) % 2 == 0:
+        rw += v
+    slot = _align16(max(4 * P * xs, 8 * NT * P if sweep else 0))
+    row = 4 * rw
+    fits = ipt <= _T3_MAX_ITEMS
+    head = (C, nc, NT, NB, LB, G, gw, xs, L, Lv, rw, ipt)
+    f2 = _t3_fixed(C, nc, NB, n_in, slot, 2)
+    if not stream and f2 + row * P <= SMEM_BLOCK_BYTES:
+        return ODETeamPlan(*head, 2, False, P, 1, 1, fits, slot, f2, f2 + row * P)
+    # Streamed: the first tile height from r0 down that leaves two stages.
+    r0, rmin = max(16 * L, _T2_MIN_TILE_ROWS), max(L, 8)
+    for slots in (2, 1):
+        f = _t3_fixed(C, nc, NB, n_in, slot, slots)
+        room = max(SMEM_BLOCK_BYTES - f, 0)
+        R = r0
+        while R >= rmin:
+            T = -(-P // R)
+            S = min(_T2_MAX_STAGES, room // (row * R), T)
+            if S >= min(T, 2):
+                return ODETeamPlan(*head, slots, True, R, T, S, fits, slot, f, f + row * R * S)
+            R //= 2
+    f1 = _t3_fixed(C, nc, NB, n_in, slot, 1)
+    return ODETeamPlan(*head, 1, True, P, 1, 0, False, slot, f1, f1)
+
+
+def ode_team_route(P: int, n_in: int, NB: int, NT: int, sweep: bool) -> str:
+    """How the selection (``sweep`` False, NB lanes) or the emit-mode sweep
+    runs on the card, by shape alone: "resident" or "streamed" (the cluster
+    teams, as ``ode_team_plan`` holds the weights) where the plan fits, else
+    "team8" (the 8-block team kernel that reads the weights from L2). With
+    4 inputs the selection is "resident" at 13 and 32 columns, "streamed"
+    at 63, 104 (4 or 16 lanes) and 312 (4 lanes), "team8" for 8 or more
+    lanes at 312; the sweeps are "resident" through 63 columns and at 104
+    on two terms, else "streamed"."""
+    p = ode_team_plan(P, n_in, NB, NT, sweep)
+    return "team8" if not p.fits else ("streamed" if p.stream else "resident")
+
+
+def ode_team_pack(w, P: int, plan: ODETeamPlan) -> torch.Tensor:
+    """The NT bf16 terms of a split of wT packed per block, (C, P, rw) int32
+    words of two bf16 each: row k of block r holds W_hi[k, r nc:(r+1) nc],
+    then W_mid's (then W_lo's), then zero pad."""
+    C, nc = plan.C, plan.nc
+    names = _W3 if plan.NT == 3 else _W2
+    pk = torch.zeros((C, P, 2 * plan.rw), dtype=_BF16, device=w[names[0]].device)
+    for t, name in enumerate(names):
+        pk[:, :, t * nc:(t + 1) * nc] = w[name].view(P, C, nc).transpose(0, 1)
+    return pk.view(torch.int32)
+
+
+def _check_ode_route(route):
+    if route is not None and route not in ODE_TEAM_ROUTES:
+        raise ValueError(f"route must be one of {ODE_TEAM_ROUTES}, got {route!r}")
+
+
+def _team3(route, P, n_in, NB, NT, sweep):
+    """(route, plan) of a launch on the card: ``route`` or the shape's
+    default; the plan None for "team8". Raises where the team asked for
+    does not take the shape."""
+    route = route or ode_team_route(P, n_in, NB, NT, sweep)
+    if route == "team8":
+        return route, None
+    plan = ode_team_plan(P, n_in, NB, NT, sweep, stream=route == "streamed")
+    if not plan.fits or (route == "resident" and plan.stream):
+        raise ValueError(f"no {route} team takes P={P} with {NB} lanes and {NT} terms "
+                         f"({'streamed' if plan.fits else 'team8'} does)")
+    return route, plan
+
+
+def ode_select(y0, pw, sc: SDEConsts, kv, cfg: ODESelectConfig, route=None):
     """The step-size selection for the batch state y0 (B, 3P) under one
     controller, on the three-term split of ``pw`` = {"wT" (P, P), "iwT"
     (n_in, P)} float32: the f32-exact engine's selection and the split2
     tier's (``select_func`` on ``prepare_premixed_split``). kv (K, B, n_in).
     Returns (step_times (M+1,) float32, stats (3,) int32 = naccept, nreject,
-    success)."""
+    success). On the card B6, one cluster team for the batch; ``route``
+    (default ``ode_team_route``): "resident", "streamed", or "team8", the
+    8-block team that reads the weights from L2 (a yardstick, and the shapes
+    the teams do not take)."""
+    _check_ode_route(route)
     if not _on_cuda(y0, _named(y0, pw, sc, kv)):
         return _ode_select_plain(y0, _w3(pw, sc), sc, kv, cfg)
     B, S = y0.shape
     P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
+    route, plan = _team3(route, P, n_in, B, 3, False)
     dev = y0.device
     st = torch.empty(cfg.max_steps + 1, dtype=_F32, device=dev)
     stats = torch.empty(3, dtype=torch.int32, device=dev)
-    scratch = torch.empty(10 * B * S, dtype=_F32, device=dev)
     w3 = _w3_cuda(pw, sc)
     keep, hc_p, hs_p = _select_host(sc, cfg)
     bg, adapt, kvp = _consts(sc, kv)
-    _check(_lib().cf_ode_select(B, P, n_in, K, hc_p, hs_p, int(cfg.dt0 is None), cfg.max_steps,
-                                bg, adapt, *_w_ptrs(w3, _W3), kvp, y0.data_ptr(),
-                                scratch.data_ptr(), st.data_ptr(), stats.data_ptr(),
-                                _stream(y0)), "ode_select")
+    head = (B, P, n_in, K, hc_p, hs_p, int(cfg.dt0 is None), cfg.max_steps)
+    if route == "team8":
+        scratch = torch.empty(10 * B * S, dtype=_F32, device=dev)
+        _check(_lib().cf_ode_select_team8(*head, bg, adapt, *_w_ptrs(w3, _W3), kvp,
+                                          y0.data_ptr(), scratch.data_ptr(), st.data_ptr(),
+                                          stats.data_ptr(), _stream(y0)), "ode_select_team8")
+        LAUNCHES["ode_select_team8"] += 1
+        return st, stats
+    wpk = ode_team_pack(w3, P, plan)
+    _check(_lib().cf_ode_select(*head, int(plan.stream), bg, adapt, wpk.data_ptr(),
+                                w3["iwT"].data_ptr(), kvp, y0.data_ptr(), st.data_ptr(),
+                                stats.data_ptr(), _stream(y0)), "ode_select")
     LAUNCHES["ode_select"] += 1
     return st, stats
 
 
-def ode_attempt(t, y, f0, h, pw, sc: SDEConsts, kv, cfg: ODESelectConfig) -> ODEAttempt:
+def ode_attempt(t, y, f0, h, pw, sc: SDEConsts, kv, cfg: ODESelectConfig,
+                route=None) -> ODEAttempt:
     """One controller attempt (the body of the selection kernel) from the
-    0-dim tensors t, h and the batch state y with f0 = f(t, y)."""
+    0-dim tensors t, h and the batch state y with f0 = f(t, y); ``route`` as
+    ``ode_select``'s."""
+    _check_ode_route(route)
     named = {**_named(y, pw, sc, kv), "f0": (f0, _F32, tuple(y.shape)),
              "t": (t, _F32, ()), "h": (h, _F32, ())}
     if not _on_cuda(y, named):
         return _ode_attempt_plain(t, y, f0, h, _w3(pw, sc), sc, kv, cfg)
     B, S = y.shape
     P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
+    route, plan = _team3(route, P, n_in, B, 3, False)
     y1, f1 = torch.empty_like(y), torch.empty_like(y)
     rec = torch.empty(3, dtype=_F32, device=y.device)
-    scratch = torch.empty(10 * B * S, dtype=_F32, device=y.device)
     w3 = _w3_cuda(pw, sc)
     keep, hc_p, hs_p = _select_host(sc, cfg)
     bg, adapt, kvp = _consts(sc, kv)
-    _check(_lib().cf_ode_attempt(B, P, n_in, K, hc_p, hs_p, bg, adapt, *_w_ptrs(w3, _W3), kvp,
-                                 t.data_ptr(), h.data_ptr(), y.data_ptr(), f0.data_ptr(),
-                                 scratch.data_ptr(), y1.data_ptr(), f1.data_ptr(), rec.data_ptr(),
-                                 _stream(y)), "ode_attempt")
-    LAUNCHES["ode_attempt"] += 1
+    tail = (t.data_ptr(), h.data_ptr(), y.data_ptr(), f0.data_ptr())
+    outs = (y1.data_ptr(), f1.data_ptr(), rec.data_ptr(), _stream(y))
+    if route == "team8":
+        scratch = torch.empty(10 * B * S, dtype=_F32, device=y.device)
+        _check(_lib().cf_ode_attempt_team8(B, P, n_in, K, hc_p, hs_p, bg, adapt,
+                                           *_w_ptrs(w3, _W3), kvp, *tail, scratch.data_ptr(),
+                                           *outs), "ode_attempt_team8")
+        LAUNCHES["ode_attempt_team8"] += 1
+    else:
+        wpk = ode_team_pack(w3, P, plan)
+        _check(_lib().cf_ode_attempt(B, P, n_in, K, hc_p, hs_p, int(plan.stream), bg, adapt,
+                                     wpk.data_ptr(), w3["iwT"].data_ptr(), kvp, *tail, *outs),
+               "ode_attempt")
+        LAUNCHES["ode_attempt"] += 1
     return ODEAttempt(y1, f1, rec[0], rec[1], rec[2])
 
 
@@ -625,15 +809,16 @@ def ode_replay_fwd_split2(y0, st, w2, sc: SDEConsts, kv):
     return ys, coeffs
 
 
-def ode_replay_bwd_emit(ys, cobar, st, w, sc: SDEConsts, kv):
+def ode_replay_bwd_emit(ys, cobar, st, w, sc: SDEConsts, kv, route=None):
     """The emit-mode reverse sweep of the replay: ys (n, B, 3P) the
     step-start states, cobar (n, 5, B, 3P) the cotangents of the dense
     rows, ``w`` the split the replay ran on: the three-term one
     (``prepare_premixed_split``, B8't: the f32-exact engine in outer mode)
     or the two-term one (``prepare_premixed_split2``, B8': the split2
     tier). Returns (ybar0 (B, 3P), ybar_steps (n, B, 3P)), ybar_steps[k]
-    the cotangent on step k's output from the later steps. One team of 8
-    blocks per lane, at any width."""
+    the cotangent on step k's output from the later steps. On the card a
+    cluster team per lane; ``route`` as ``ode_select``'s."""
+    _check_ode_route(route)
     n, B, S = ys.shape
     P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
     split3 = "wT_lo" in w
@@ -643,17 +828,26 @@ def ode_replay_bwd_emit(ys, cobar, st, w, sc: SDEConsts, kv):
              **_replay_named(st, n)}
     if not _on_cuda(ys, named):
         return _ode_replay_bwd_emit_plain(ys, cobar, st, w, sc, kv)
+    route, plan = _team3(route, P, n_in, 1, len(terms), True)
     dev = ys.device
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     ybar_steps = torch.empty_like(ys)
-    scratch = torch.empty(16 * B * S, dtype=_F32, device=dev)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
     bg, adapt, kvp = _consts(sc, kv)
     name = "ode_replay_bwd_emit_split3" if split3 else "ode_replay_bwd_emit"
-    _check(getattr(_lib(), "cf_" + name)(
-        B, P, n_in, K, hc_p, n, bg, adapt, *(t.data_ptr() for t in _terms_and_transposes(w, terms)),
-        w["iwT"].data_ptr(), kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),
-        scratch.data_ptr(), ybar.data_ptr(), ybar_steps.data_ptr(), _stream(ys)), name)
+    data = (w["iwT"].data_ptr(), kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr())
+    outs = (ybar.data_ptr(), ybar_steps.data_ptr(), _stream(ys))
+    if route == "team8":
+        scratch = torch.empty(16 * B * S, dtype=_F32, device=dev)
+        _check(getattr(_lib(), f"cf_{name}_team8")(
+            B, P, n_in, K, hc_p, n, bg, adapt,
+            *(t.data_ptr() for t in _terms_and_transposes(w, terms)), *data,
+            scratch.data_ptr(), *outs), f"{name}_team8")
+        LAUNCHES[f"{name}_team8"] += 1
+        return ybar, ybar_steps
+    wpk = ode_team_pack(w, P, plan)
+    _check(getattr(_lib(), "cf_" + name)(B, P, n_in, K, hc_p, n, int(plan.stream), bg, adapt,
+                                         wpk.data_ptr(), *data, *outs), name)
     LAUNCHES[name] += 1
     return ybar, ybar_steps
 

@@ -1122,9 +1122,13 @@ def test_ode_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     for name in ("_ode_select_plain", "_ode_attempt_plain", "_ode_replay_fwd_plain",
                  "_ode_replay_bwd_plain"):
         monkeypatch.setattr(no, name, boom)
+    before = dict(no.LAUNCHES)
     rec, _, _, _ = _ode_step(dev)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))
+    # the selection ran as the cluster team, never as team8
+    assert no.LAUNCHES["ode_select"] == before["ode_select"] + 1
+    assert no.LAUNCHES["ode_select_team8"] == before["ode_select_team8"]
 
 
 # ---------------------------------------------------------------------------
@@ -1277,9 +1281,15 @@ def test_exact_team_kernels_never_reach_the_plain_versions(dev, monkeypatch):
                  "_ode_replay_bwd_plain", "_ode_replay_bwd_emit_plain"):
         monkeypatch.setattr(no, name, boom)
     for cpa in ((8, 6, 4), (32, 24, 8)):
+        before = dict(no.LAUNCHES)
         rec, _, _ = _exact_step(dev, cpa, T=20)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(rec["loss"])), cpa
+        launched = {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]}
+        # B6 and (at 64 columns, outer mode) B8't as cluster teams, once each
+        assert launched["ode_select"] == 1 and not any(k.endswith("team8") for k in launched)
+        if cpa == (32, 24, 8):
+            assert launched["ode_replay_bwd_emit_split3"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -1328,6 +1338,122 @@ def test_ode_split2_replay_kernels_equal_plain(ode):
         assert torch.isfinite(g).all() and torch.equal(g, w), name
 
 
+# ---------------------------------------------------------------------------
+# B6, B8' and B8't as cluster teams (csrc/ode_team.cuh): the selection one
+# team of 16 (or 8) blocks for the batch, the emit-mode sweep one per lane,
+# each block's columns of the split in shared memory by TMA
+# ---------------------------------------------------------------------------
+
+
+def _team3_routes(P, NB, NT, sweep):
+    """The cluster-team routes that take the shape: resident where the plan
+    keeps the slice, and streamed always."""
+    plan = no.ode_team_plan(P, 4, NB, NT, sweep)
+    assert plan.fits
+    return ["streamed"] if plan.stream else ["resident", "streamed"]
+
+
+def _team3_setup(dev, columns, B, T=40):
+    from columnflow_torch.data import parity_combinations
+
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=TEAM_CPA[columns], n_inputs=4, time_steps=T,
+                             max_steps=16384, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stims = (torch.as_tensor(parity_combinations(4, fixed_position=False), device=dev)
+             if B == 16 else make_parity_batch(gen, 4, B, device=dev))
+    model = parity.sde_model(task.params, task, stims)
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    sc, kv = model.sc, model.kv.contiguous()
+    w3 = {k: v.contiguous() for k, v in nw.prepare_premixed_split(pw, sc.fc)[0].items()}
+    w2 = _w2(pw, sc)
+    return dict(task=task, gen=gen, pw=pw, sc=sc, kv=kv, w3=w3, w2=w2, P=task.net.num_pops,
+                B=B, y0=torch.zeros(B, 3 * task.net.num_pops, device=dev))
+
+
+def _team3_cfg(d, t_index):
+    from columnflow_torch.solvers.fused import round_max_steps
+
+    return no.ODESelectConfig(float(d["task"].ts[0]), float(d["task"].ts[t_index]),
+                              max_steps=round_max_steps((d["B"], 3 * d["P"]), 16384))
+
+
+@pytest.mark.parametrize("columns,B", [(13, 4), (13, 16), (32, 4), (104, 4), (104, 16)])
+def test_ode_team_selection_equals_plain(dev, columns, B):
+    """B6 as one cluster team at 13, 32 and 104 columns, 4 and 16 lanes, on
+    every route the shape admits: the selection over a short horizon (its
+    accepted times and stats) and 16 single attempts along the replay, with
+    1, 1.5 and 2.5 times the accepted step (y1, f1, ratio, h, next h), bit
+    for bit against the plain versions; one launch of the team, none of
+    team8."""
+    d = _team3_setup(dev, columns, B)
+    cfg = _team3_cfg(d, {13: 8, 32: 8, 104: 3}[columns])
+    st_p, stats_p = no._ode_select_plain(d["y0"], d["w3"], d["sc"], d["kv"], cfg)
+    n = int(stats_p[0])
+    ys, _ = no._ode_replay_fwd_plain(d["y0"], st_p[:n + 1].contiguous(), d["w3"], d["sc"],
+                                     d["kv"])
+    for route in _team3_routes(d["P"], B, 3, False):
+        before = dict(no.LAUNCHES)
+        st, stats = no.ode_select(d["y0"], d["pw"], d["sc"], d["kv"], cfg, route=route)
+        torch.cuda.synchronize()
+        assert no.LAUNCHES["ode_select"] == before["ode_select"] + 1
+        assert no.LAUNCHES["ode_select_team8"] == before["ode_select_team8"]
+        assert int(stats[2]) == 1 and stats.tolist() == stats_p.tolist(), route
+        assert torch.equal(st, st_p), route
+        for r in range(16):
+            k = int(r / 16 * (n - 1))
+            t, y = st_p[k].clone(), ys[k].contiguous()
+            h = ((st_p[k + 1] - st_p[k]) * (1.0, 1.5, 2.5)[r % 3]).clone()
+            f0 = no.ode_drift(t, y, d["w3"], d["sc"], d["kv"]).contiguous()
+            a = no.ode_attempt(t, y, f0, h, d["pw"], d["sc"], d["kv"], cfg, route=route)
+            a_p = no._ode_attempt_plain(t, y, f0, h, d["w3"], d["sc"], d["kv"], cfg)
+            for g, w in zip(a, a_p):
+                assert torch.equal(g, w), (route, r)
+
+
+@pytest.mark.parametrize("columns", [13, 32, 104])
+@pytest.mark.parametrize("terms", [2, 3])
+def test_ode_team_emit_sweep_equals_plain(dev, columns, terms):
+    """B8' (two terms) and B8't (three) as a cluster team per lane at 13,
+    32 and 104 columns on every route the shape admits, over 12 accepted
+    steps (8 at 104): ybar0 and every ybar_steps[k] bit for bit against the
+    plain version, one launch each, and team8's result equal too."""
+    d = _team3_setup(dev, columns, 4)
+    st, stats = no.ode_select(d["y0"], d["pw"], d["sc"], d["kv"], _team3_cfg(d, 6))
+    W = 8 if columns == 104 else 12
+    stn = st[:W + 1].contiguous()
+    w = d["w3"] if terms == 3 else d["w2"]
+    ys, co = no._ode_replay_fwd_plain(d["y0"], stn, w, d["sc"], d["kv"])
+    ys = ys.contiguous()
+    cobar = torch.randn(co.shape, generator=d["gen"], device=dev)
+    want = no._ode_replay_bwd_emit_plain(ys, cobar, stn, w, d["sc"], d["kv"])
+    name = "ode_replay_bwd_emit_split3" if terms == 3 else "ode_replay_bwd_emit"
+    for route in _team3_routes(d["P"], 1, terms, True) + ["team8"]:
+        key = name + ("_team8" if route == "team8" else "")
+        before = no.LAUNCHES[key]
+        got = no.ode_replay_bwd_emit(ys, cobar, stn, w, d["sc"], d["kv"], route=route)
+        torch.cuda.synchronize()
+        assert no.LAUNCHES[key] == before + 1, route
+        for g, ref, what in zip(got, want, ("ybar", "ybar_steps")):
+            assert torch.isfinite(g).all() and torch.equal(g, ref), (route, what)
+
+
+@pytest.mark.parametrize("columns", [13, 18, 32, 63, 104, 151, 312])
+def test_ode_team_plan_is_the_librarys(dev, columns):
+    """``ode_team_plan``, which the wrappers and ``ode_team_route`` read,
+    equals the plan the library launches with (``cf_ode_team_plan``) for the
+    selection's 1, 4 and 16 lanes and the sweep's two and three terms."""
+    import ctypes
+
+    P, out = 8 * columns, (ctypes.c_longlong * 21)()
+    for NB, NT, sweep in ((1, 3, False), (4, 3, False), (16, 3, False), (1, 2, True),
+                          (1, 3, True)):
+        for stream in (False, True):
+            assert no._lib().cf_ode_team_plan(P, 4, NB, NT, int(sweep), int(stream), out) == 0
+            want = tuple(int(v) for v in no.ode_team_plan(P, 4, NB, NT, sweep, stream))
+            assert tuple(out) == want, (NB, NT, sweep, stream)
+
+
 def _split2_step(dev, monkeypatch, grid=None, params=None):
     from columnflow_torch.solvers import fused
 
@@ -1367,9 +1493,12 @@ def test_split2_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     for name in ("_ode_select_plain", "_ode_attempt_plain", "_ode_replay_fwd_plain",
                  "_ode_replay_bwd_emit_plain"):
         monkeypatch.setattr(no, name, boom)
+    before = dict(no.LAUNCHES)
     rec, _, _ = _split2_step(dev, monkeypatch)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))
+    launched = {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]}
+    assert launched == {"ode_select": 1, "ode_replay_fwd_split2": 1, "ode_replay_bwd_emit": 1}
 
 
 # ---------------------------------------------------------------------------
