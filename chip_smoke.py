@@ -293,10 +293,29 @@ of parameters send "auto" there, through B6h-wide, B7h-wide and B8ho-wide:
    their calls in the main-path steps, bounds and ns per serial step, the
    plain versions' times, both steps' profiles and idle shares over 100
    points.
+The SDE selection as cluster teams (csrc/sde_select_team.cu; the other
+phases hold it where their paths run it):
+61. kernel vs plain, bit for bit: the whole selection over 25 grid points
+   at 13 and 32 columns (4 lanes) and over 12 at 104 columns with 8 lanes
+   (clusters of 8), for select16 on both trees and f32 on the jax.random
+   tree; 16 attempts a width (13, 32, 104) from extreme states (v - a over
+   the rates' whole range) for those and the three-term split, on the
+   shape's route and the streamed ring, against the plain body as the
+   single-attempt card test holds them (the decision, steps and W(t + h)
+   equal; err, h_next and the new state within 1e-5, 1e-6, 1e-5), each
+   value's differing elements from the plain body and from the one-block
+   kernel counted (three float64 orders of the products).
+62. times: every route (the team's, the ring forced, the one-block kernel)
+   on a 25-point window at 3, 13, 32 and 104 columns (4 lanes, and 8 at
+   104), the team's routes bit for bit with each other, the one-block
+   kernel's grid held beside them (where it parts, if it does); µs per
+   attempt, the plan, and the card's cluster capacity at 104 columns.
 Then every path's command lines at once (each in its own process; they
 are latency-bound and share the card; each run's selection counts per
 step are recorded beside its last line), the kernels line (every kernel of
-the fourteen paths), the card's name and power limit, and the result line.
+the fourteen paths; the selection's entries name the team's source and
+carry its routes' times), the card's name and power limit, and the result
+line.
 
 It needs a CUDA device and the repository beside it; without either it
 fails.
@@ -1028,8 +1047,10 @@ def parity_phases(dev, cfg):
     e_err = float(((att.err - att_p.err).abs() / att_p.err.clamp_min(1e-30)).max())
     e_hn = float(((att.h_next - att_p.h_next).abs() / att_p.h_next).max())
     same = bool(torch.equal(att.accept, att_p.accept))
-    check(same and e_err < 1e-5 and e_hn < 1e-6,
-          f"sde_attempt: accept equal {same}, err rel {e_err}, h_next rel {e_hn}")
+    att_bit = all(torch.equal(g, w) for g, w in zip(att, att_p))
+    check(same and att_bit and e_err < 1e-5 and e_hn < 1e-6,
+          f"sde_attempt: accept equal {same}, bit for bit {att_bit}, err rel {e_err}, "
+          f"h_next rel {e_hn}")
     n_acc = int(att.accept.sum())
 
     # The whole selection over FLAGSHIP_SEL_T grid points, kernel and plain loop.
@@ -1050,9 +1071,12 @@ def parity_phases(dev, cfg):
     idx = torch.arange(st_k.shape[1], device=dev)[None]
     d_st = torch.where(idx <= common, (st_k - st_p).abs(), 0.0)
     part = [int(torch.nonzero(r).min()) if bool(r.any()) else None for r in d_st > 0]
-    check(bool(ok_k.all()) and bool(ok_p.all()) and e_t10 < 1e-6 and e_na < 0.1,
+    sel_bit = all(torch.equal(g, w) for g, w in zip((st_k, na_k, nr_k, ok_k),
+                                                    (st_p, na_p, nr_p, ok_p)))
+    check(bool(ok_k.all()) and bool(ok_p.all()) and sel_bit and e_t10 < 1e-6 and e_na < 0.1,
           f"sde_select over {FLAGSHIP_SEL_T} points: success {ok_k.tolist()} {ok_p.tolist()}, "
-          f"first 10 times rel {e_t10}, naccept {na_k.tolist()} vs {na_p.tolist()}")
+          f"bit for bit {sel_bit}, first 10 times rel {e_t10}, naccept {na_k.tolist()} vs "
+          f"{na_p.tolist()}")
 
     # The replay and its reverse sweep on one truncation window (64 half
     # steps) early, in the middle and late, from the kernel's state there.
@@ -1082,8 +1106,10 @@ def parity_phases(dev, cfg):
     emit("parity_kernel_vs_plain", columns=sum(PARITY_CPA), P=P, lanes=B, T=PARITY_T,
          naccept=na.tolist(), nreject=nr.tolist(), n_real=n_real,
          attempt={"records": N, "accepted": n_acc, "err_rel": e_err, "err_tol": 1e-5,
-                  "h_next_rel": e_hn, "h_next_tol": 1e-6, "accept_equal": same},
-         selection={"T": FLAGSHIP_SEL_T, "naccept": na_k.tolist(), "naccept_plain": na_p.tolist(),
+                  "h_next_rel": e_hn, "h_next_tol": 1e-6, "accept_equal": same,
+                  "bit_for_bit": att_bit},
+         selection={"T": FLAGSHIP_SEL_T, "bit_for_bit": sel_bit,
+                    "naccept": na_k.tolist(), "naccept_plain": na_p.tolist(),
                     "nreject": nr_k.tolist(), "nreject_plain": nr_p.tolist(),
                     "first10_rel": e_t10, "first10_tol": 1e-6, "naccept_rel": e_na,
                     "naccept_tol": 0.1, "common_prefix_max_abs": float(d_st.max()),
@@ -3492,9 +3518,9 @@ def bench104_phases(dev, cfg):
     e_na = float(((sel_k[1] - sel_p[1]).abs().float() / sel_p[1].float()).max())
     e_t10 = float(((sel_k[0][:, :11] - sel_p[0][:, :11]).abs()
                    / sel_p[0][:, :11].clamp_min(1e-30)).max())
-    check(bool(sel_k[3].all()) and e_na < 0.01 and e_t10 < 1e-6,
+    check(bool(sel_k[3].all()) and same and e_na < 0.01 and e_t10 < 1e-6,
           f"jax-tree selection (select16) over {BENCH104_SEL_T} points: {sel_k[1].tolist()} vs "
-          f"{sel_p[1].tolist()}")
+          f"{sel_p[1].tolist()}, bit for bit {same}")
     # 8 attempts from states along the main path's first replay.
     st = first["stats"].step_times
     na0 = first["stats"].naccept
@@ -3536,8 +3562,8 @@ def bench104_phases(dev, cfg):
     att, att_p = ns.select_attempt(*att_args), ns._attempt_plain(*att_args)
     att_same = all(torch.equal(g, w) for g, w in zip(att, att_p))
     e_err = float(((att.err - att_p.err).abs() / att_p.err.clamp_min(1e-30)).max())
-    check(bool(torch.equal(att.accept, att_p.accept)) and e_err < 1e-5,
-          f"jax-tree attempts (select16): err rel {e_err}")
+    check(bool(torch.equal(att.accept, att_p.accept)) and att_same and e_err < 1e-5,
+          f"jax-tree attempts (select16): err rel {e_err}, bit for bit {att_same}")
     emit("bench104_kernel_vs_plain", selection={"T": BENCH104_SEL_T, "lanes": 2,
                                                 "naccept": sel_k[1].tolist(),
                                                 "naccept_plain": sel_p[1].tolist(),
@@ -5594,6 +5620,184 @@ def hopf_outer_phases(dev, cfg):
             for name, (src, rep, launched, path) in entries.items()]
 
 
+# The selection as cluster teams (csrc/sde_select_team.cu): the instances the
+# main paths run (select16 on both trees, f32 on the jax.random tree) at the
+# widths and lane counts the other phases do not hold against their plain
+# loop (phases 5, 24, 29, 35 and 52 hold 104-column select16 krng, 13-column
+# f32, 104-column select16 jax, 104-column f32 and 32-column f32; 35-36 the
+# three-term split (B5t) at 13 and 104 columns), the split's attempts, and
+# every team route timed beside the one-block kernel.
+ST_CPA = {3: (2, 1), 13: (8, 4, 1), 32: (16, 8, 8), 104: (64, 32, 8)}
+ST_T = 25           # grid points of the 13- and 32-column selections and of the timing windows
+ST_T104 = 12        # grid points of the 8-lane selections at 104 columns (plain loop ~6 s each)
+ST_INSTANCES = (("select16", "jax"), ("select16", "kernel"), ("f32", "jax"))
+SELECT_TEAM_SOURCE = "columnflow_torch/kernels/csrc/sde_select_team.cu"
+# The kernels line's selection entries and the (columns, lanes, drift, tree)
+# of their team_routes timing.
+SELECT_TEAM_ENTRIES = {"sde_select": (104, 4, "select16", "kernel"),
+                       "sde_select_jax_select16": (104, 4, "select16", "jax"),
+                       "sde_select_jax_f32_104": (104, 4, "f32", "jax"),
+                       "sde_select_jax_f32": (13, 4, "f32", "jax"),
+                       "sde_select_jax_f32_32": (32, 4, "f32", "jax"),
+                       "sde_select_krng_split3": (104, 4, "split3", "kernel")}
+SELECT_TEAMS = {}   # filled by select_team_phases: team_routes of each timed shape
+
+
+def select_team_phases(dev, cfg):
+    """Phases 61-62: the selection teams against their plain versions where
+    no other phase holds them, and every route timed."""
+    import torch
+
+    from columnflow_torch.data import make_parity_batch
+    from columnflow_torch.kernels import network_sde as ns
+    from columnflow_torch.models.network import premix_select16
+    from columnflow_torch.solvers import sde_adaptive as sa
+    from columnflow_torch.tasks import parity
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+
+    def inputs(columns, lanes, T):
+        task = parity.build_task(cfg, torch.Generator(device=dev).manual_seed(0),
+                                 columns_per_area=ST_CPA[columns], n_inputs=4, time_steps=T,
+                                 max_steps=PARITY_MAX_STEPS, device=dev)
+        stims = make_parity_batch(gen, 4, lanes, device=dev)
+        keys = torch.randint(0, 2**32, (lanes, 2), generator=gen, device=dev, dtype=torch.int64)
+        model = parity.sde_model(task.params, task, stims)
+        pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+        return task, model, {"select16": premix_select16(pw), "f32": pw,
+                             "split3": ns.select_weights_split3(pw, model.sc)}, keys
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # -- 61. kernel vs plain, bit for bit ----------------------------------------
+    t_phase = time.perf_counter()
+    held, attempts_held = {}, {}
+    for columns, lanes, T in ((13, 4, ST_T), (32, 4, ST_T), (104, 8, ST_T104)):
+        task, model, ws, keys = inputs(columns, lanes, T)
+        P = task.net.num_pops
+        y0 = torch.zeros(lanes, 3 * P, device=dev)
+        for drift, tree in ST_INSTANCES:
+            name = f"{columns}_{lanes}_{drift}_{tree}"
+            scfg = sa.select_config(task.ts, max_steps=PARITY_MAX_STEPS, brownian=tree,
+                                    drift=drift)
+            words = sa._sde_key_words(keys, tree)
+            before = dict(ns.LAUNCHES)
+            got = ns.select_pass(y0, words, ws[drift], model.sc, model.kv, scfg)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+            t0 = time.perf_counter()
+            want = ns._select_plain(y0, words, ws[drift], model.sc, model.kv, scfg)
+            plain_s = time.perf_counter() - t0
+            route, plan = ns._select_team(None, P, 4, lanes, scfg)
+            held[name] = {"T": T, "route": route, "C": plan.C, "bit_for_bit": equal(got, want),
+                          "naccept": got[1].tolist(), "naccept_plain": want[1].tolist(),
+                          "nreject": got[2].tolist(), "nreject_plain": want[2].tolist(),
+                          "max_abs_err": float((got[0] - want[0]).abs().max()),
+                          "launches": launched, "plain_seconds": plain_s}
+            check(held[name]["bit_for_bit"] and bool(got[3].all())
+                  and launched == {"sde_select": 1},
+                  f"selection team {name} against its plain loop: {held[name]}")
+    # 16 attempts a shape from states in the rates' regimes, steps 1e-6 to 1e-3.
+    for columns in (13, 32, 104):
+        task, model, ws, keys = inputs(columns, 4, ST_T)
+        P, N = task.net.num_pops, 16
+        lane = torch.arange(N, device=dev) % 4
+        a = 5.0 * torch.rand(N, P, generator=gen, device=dev)
+        y1 = torch.cat([a + 80.0 * torch.rand(N, P, generator=gen, device=dev) - 40.0, a,
+                        40.0 * torch.rand(N, P, generator=gen, device=dev)], dim=1)
+        t1 = (0.9 * float(task.ts[-1]) * torch.rand(N, 1, generator=gen, device=dev)).contiguous()
+        h = (1e-6 * 10.0 ** (torch.arange(N, device=dev)[:, None] % 4)).contiguous()
+        kv = model.kv[:, lane].contiguous()
+        for drift, tree in ST_INSTANCES + (("split3", "kernel"),):
+            scfg = sa.select_config(task.ts, max_steps=PARITY_MAX_STEPS, brownian=tree,
+                                    drift=drift)
+            words = sa._sde_key_words(keys, tree)[lane].contiguous()
+            args = (t1, y1, h, torch.full((N, 1), 0.7, device=dev),
+                    ns._tree(words, scfg).evaluate(t1).contiguous(), words, ws[drift],
+                    model.sc, kv, scfg)
+            want = ns._attempt_plain(*args)
+            block = ns.select_attempt(*args, route="block")
+            for route in (None, "streamed"):
+                name = f"{columns}_{drift}_{tree}_{route or 'default'}"
+                got = ns.select_attempt(*args, route=route)
+                # From these extreme states (large, cancelling rate terms) the
+                # three float64 orders (the team's butterfly, the one-block
+                # kernel's rows in order, cuBLAS's under the plain body) can
+                # round a rec to different float32: held as the single-attempt
+                # card test holds them (the decision, h, t_new and W(t + h)
+                # equal; err rel 1e-5, h_next rel 1e-6, y_new 1e-5 of each
+                # component's largest magnitude), and every differing element
+                # counted.
+                e = {"err_rel": float(((got.err - want.err).abs()
+                                       / want.err.clamp_min(1e-30)).max()),
+                     "h_next_rel": float(((got.h_next - want.h_next).abs()
+                                          / want.h_next).max()),
+                     "y_new_scaled": scaled_err(got.y_new, want.y_new)}
+                attempts_held[name] = {
+                    "bit_for_bit": equal(got, want), **e,
+                    "differing_from_plain": {f: int((g != w).sum()) for f, g, w in
+                                             zip(got._fields, got, want)},
+                    "block_differing_from_plain": sum(int((b != w).sum())
+                                                      for b, w in zip(block, want)),
+                    "differing_from_block": sum(int((g != b).sum())
+                                                for g, b in zip(got, block))}
+                check(all(torch.equal(g, w) for g, w in
+                          zip((got.accept, got.h, got.t_new, got.w1),
+                              (want.accept, want.h, want.t_new, want.w1)))
+                      and e["err_rel"] < 1e-5 and e["h_next_rel"] < 1e-6
+                      and e["y_new_scaled"] < 1e-5,
+                      f"attempt team {name}: {attempts_held[name]}")
+    emit("select_team_vs_plain", selections=held, attempts=attempts_held,
+         seconds=time.perf_counter() - t_phase)
+
+    # -- 62. every route timed (CUDA events) on a ST_T-point window ----------------
+    t_phase = time.perf_counter()
+    timed = {}
+    caps = {}
+    for columns, lanes in ((3, 4), (13, 4), (32, 4), (104, 4), (104, 8)):
+        task, model, ws, keys = inputs(columns, lanes, ST_T)
+        P = task.net.num_pops
+        y0 = torch.zeros(lanes, 3 * P, device=dev)
+        for drift, tree in ST_INSTANCES + (("split3", "kernel"), ("f32", "kernel")):
+            scfg = sa.select_config(task.ts, max_steps=PARITY_MAX_STEPS, brownian=tree,
+                                    drift=drift)
+            words = sa._sde_key_words(keys, tree)
+            run = lambda r: ns.select_pass(y0, words, ws[drift], model.sc, model.kv, scfg,
+                                           route=r)
+            ref = run(None)
+            serial = int((ref[1] + ref[2]).max())
+            default, plan = ns._select_team(None, P, 4, lanes, scfg)
+            routes = [default] + (["streamed"] if default == "resident" else []) + ["block"]
+            entry = {"route": default, "C": plan.C, "plan": plan._asdict(),
+                     "serial_attempts": serial}
+            for r in routes:
+                got = run(r)
+                if r == "block":
+                    # the one-block kernel sums in another float64 order: the
+                    # first accepted index where its grid parts, if any
+                    d = (got[0] != ref[0]).any(dim=0)
+                    entry["block_bit_for_bit"] = equal(got, ref)
+                    entry["block_first_parted_index"] = (int(torch.nonzero(d).min())
+                                                         if bool(d.any()) else None)
+                else:  # the team's routes sum in one order
+                    check(equal(got, ref), f"route {r} at {columns} columns ({drift}, {tree}) "
+                                           "parts from the team's default route")
+                entry[f"{r}_us_per_attempt"] = cuda_ms(lambda: run(r), reps=3,
+                                                       warmup=1) * 1e3 / serial
+            timed[f"{columns}_{lanes}_{drift}_{tree}"] = entry
+            SELECT_TEAMS[columns, lanes, drift, tree] = entry
+        if columns == 104 and lanes == 4:
+            for drift in ("select16", "f32", "split3"):
+                for C in (c for c in (8, 16) if P % c == 0):
+                    stream = ns.sde_select_plan(P, 4, drift, C).stream
+                    caps[f"{drift}_C{C}"] = ns.sde_select_max_clusters(
+                        P, 4, "kernel" if drift == "split3" else "jax", drift, C, stream)
+    emit("select_team_routes", T=ST_T, us_per_attempt=timed,
+         max_active_clusters_at_104_columns=caps, seconds=time.perf_counter() - t_phase)
+    return []
+
+
 def main() -> int:
     import torch
 
@@ -5632,9 +5836,13 @@ def main() -> int:
             + stochastic13_phases(dev, cfg) + bench104_phases(dev, cfg)
             + fixedgrid104_phases(dev, cfg) + exact104_phases(dev, cfg)
             + exactode_phases(dev, cfg, frozen) + split2kernel_phases(dev, cfg)
-            + hopf_outer_phases(dev, cfg))
+            + hopf_outer_phases(dev, cfg) + select_team_phases(dev, cfg))
     run_command_lines()
     for entry in line:
+        if entry["name"] in SELECT_TEAM_ENTRIES:
+            entry["source"] = SELECT_TEAM_SOURCE
+            entry["kernel"] = "sde_select_team_kernel (a cluster team per lane)"
+            entry["team_routes"] = SELECT_TEAMS.get(SELECT_TEAM_ENTRIES[entry["name"]])
         if entry["name"] in REPLAY2_CHECKS:
             by_cols = REPLAY2_CHECKS[entry["name"]]
             entry["max_abs_err"] = max([entry["max_abs_err"]]

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # must not contract multiply-adds there.
 SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
                 "network_ode": ["-fmad=false"], "ode_select_team": ["-fmad=false"],
-                "ode_emit_team": ["-fmad=false"], "xor_ode": ["-fmad=false"],
+                "ode_emit_team": ["-fmad=false"], "sde_select_team": ["-fmad=false"],
+                "xor_ode": ["-fmad=false"],
                 "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"],
                 "hopf_outer": ["-fmad=false"]}
 
@@ -82,6 +83,12 @@ _SIGNATURES = {
     "ode_emit_team": {
         "cf_ode_replay_bwd_emit": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,
         "cf_ode_replay_bwd_emit_split3": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,
+    },
+    "sde_select_team": {
+        "cf_sde_select_team": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 10,
+        "cf_sde_attempt_team": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I] + [_P] * 14,
+        "cf_sde_select_plan": [_I, _I, _I, _I, _I, _P],
+        "cf_sde_select_max_clusters": [_I, _I, _I, _I, _I, _I, _P],
     },
     "xor_ode": {
         "cf_xor_select": [_I, _I, _P, _P, _I, _I] + [_P] * 7,

@@ -8,7 +8,9 @@
 //   cf_sde_select      <- sde_adaptive.py _make_sde_adaptive_kernel (B5): the
 //                         whole selection while-loop of one lane on the krng
 //                         tree; and, on the jax.random tree, the XLA
-//                         selection (_adaptive_pass, no Pallas kernel)
+//                         selection (_adaptive_pass, no Pallas kernel). One
+//                         block per lane: the wrapper's route "block", the
+//                         yardstick of sde_select_team.cu's cluster teams
 //   cf_sde_attempt     <- the same body, one controller attempt per record
 //                         (a second entry point, for testing the body)
 //   cf_sde_replay_fwd  <- fused.py _make_sde_chunk_kernel, variable_h="lanes"

@@ -202,17 +202,6 @@ int team3_plan(int B, int P, int n_in, int K, int NB, int NT, int sweep, int str
   return p->fits ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A bf16 weight h as the float64 w 2^-896, exactly: its sign, exponent and
-// mantissa bits placed in the double's (exponent 0 gives a subnormal, which
-// is the scaled bf16 subnormal or zero); the other operand of every product
-// is scaled by 2^896 (exact: it is a finite float32), so each product is
-// the unscaled one, exactly, and every sum is the same float64 sum. Only a
-// non-finite weight would differ; a split of finite float32 weights has
-// none.
-__device__ __forceinline__ double t3_w(uint32_t h) {
-  return __hiloint2double((int)(((h << 16) & 0x80000000u) | ((h & 0x7fffu) << 13)), 0);
-}
-constexpr double kT3Scale = 0x1p896;
 // The high word of x 2^896 (x a bf16 value: its low word is 0).
 __device__ __forceinline__ uint32_t t3_hiword(float x) {
   return (uint32_t)__double2hiint((double)x * kT3Scale);

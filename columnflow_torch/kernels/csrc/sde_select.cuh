@@ -28,11 +28,14 @@ Sel make_sel(const float* hs, int max_steps, int depth) {
 }
 
 // ---------------------------------------------------------------------------
-// Counter-based RNG and the two Brownian trees. The krng tree
-// (solvers/krng.py) is walked by one thread per query; the jax.random tree
-// (solvers/brownian.py VirtualBrownianTree over solvers/jrandom.py) draws
-// its 21 normals on 21 threads, since a normal costs two Threefry hashes
-// and an erf_inv, and one thread then combines them.
+// Counter-based RNG and the two Brownian trees, the krng tree
+// (solvers/krng.py) and the jax.random tree (solvers/brownian.py
+// VirtualBrownianTree over solvers/jrandom.py). The bisection codes on a
+// query's path depend only on t, t0 and t1, so an attempt draws each
+// level's normal (a Threefry hash and an inverse normal CDF, two hashes
+// and an erf_inv on the jax tree) on a thread of its own, and one thread
+// per query then combines them in the one-thread walk's order and
+// arithmetic (tree_combine), which keeps its bits.
 // ---------------------------------------------------------------------------
 
 enum TreeKind { kKrng = 0, kJax = 1 };
@@ -99,28 +102,60 @@ __device__ __forceinline__ uint32_t t_code(float t, float t0, float t1) {
   return (uint32_t)(int32_t)(x * 1073741824.0f);
 }
 
-__device__ float tree_eval(uint32_t k0, uint32_t k1, float t, float t0, float t1, int depth) {
+// The fold_in datum (jax tree) or counter (krng) of a tree's draw lvl for
+// time t: 0 for the right end W(t1) (lvl 0), else the code of bisection
+// lvl - 1's midpoint on t's path.
+__device__ uint32_t jt_code(float t, float t0, float t1, int lvl) {
+  if (lvl == 0) return 0u;
   t = fminf(fmaxf(t, t0), t1);
-  const float w_right = normal2(k0, k1, 0u, 0u) * sqrtf(fmaxf(t1 - t0, 0.0f));
-  float tl = t0, tr = t1, wl = 0.0f, wr = w_right;
+  float tl = t0, tr = t1;
   uint32_t code = 0u;
+  for (int d = 0; d < lvl - 1; ++d) {
+    const float tm = 0.5f * (tl + tr);
+    if (t < tm) {
+      tr = tm;
+      code = code * 2u + 1u;
+    } else {
+      tl = tm;
+      code = code * 2u + 2u;
+    }
+  }
+  return code * 2u + 1u;
+}
+
+// W(t) of a tree from its depth + 1 normals z (lvl order): the one-thread
+// walk's arithmetic (the krng tree clamps the span's square root at 0).
+template <int kTree>
+__device__ float tree_combine(float t, float t0, float t1, int depth, const float* z) {
+  t = fminf(fmaxf(t, t0), t1);
+  const float w_right = z[0] * sqrtf(kTree == kKrng ? fmaxf(t1 - t0, 0.0f) : t1 - t0);
+  float tl = t0, tr = t1, wl = 0.0f, wr = w_right;
   for (int d = 0; d < depth; ++d) {
     const float tm = 0.5f * (tl + tr);
-    const uint32_t code_m = code * 2u + 1u;
-    const float z = normal2(k0, k1, code_m, 0u);
-    const float wm = 0.5f * (wl + wr) + (0.5f * sqrtf(tr - tl)) * z;
+    const float wm = 0.5f * (wl + wr) + (0.5f * sqrtf(tr - tl)) * z[1 + d];
     if (t < tm) {
       tr = tm;
       wr = wm;
-      code = code_m;
     } else {
       tl = tm;
       wl = wm;
-      code = code * 2u + 2u;
     }
   }
   const float frac = tr > tl ? (t - tl) / (tr - tl) : 0.0f;
   return wl + frac * (wr - wl);
+}
+
+// The krng tree's draw lvl for time t.
+__device__ __forceinline__ float kr_normal(uint32_t k0, uint32_t k1, float t, float t0, float t1,
+                                           int lvl) {
+  return normal2(k0, k1, jt_code(t, t0, t1, lvl), 0u);
+}
+
+// W(t) of the krng tree by one thread.
+__device__ float tree_eval(uint32_t k0, uint32_t k1, float t, float t0, float t1, int depth) {
+  float z[kMaxDepth + 1];
+  for (int l = 0; l <= depth; ++l) z[l] = kr_normal(k0, k1, t, t0, t1, l);
+  return tree_combine<kKrng>(t, t0, t1, depth, z);
 }
 
 // XLA's float32 erf_inv (Giles): w = -log1p(-x^2), a degree-8 polynomial in
@@ -169,52 +204,11 @@ __device__ float jax_interval_normal(uint32_t j0, uint32_t j1, float ta, float t
   return jax_normal(c, d);
 }
 
-// The fold_in datum of the jax tree's draw lvl for time t: 0 for the right
-// end W(t1) (lvl 0), else the code of bisection lvl - 1's midpoint on t's
-// path.
-__device__ uint32_t jt_code(float t, float t0, float t1, int lvl) {
-  if (lvl == 0) return 0u;
-  t = fminf(fmaxf(t, t0), t1);
-  float tl = t0, tr = t1;
-  uint32_t code = 0u;
-  for (int d = 0; d < lvl - 1; ++d) {
-    const float tm = 0.5f * (tl + tr);
-    if (t < tm) {
-      tr = tm;
-      code = code * 2u + 1u;
-    } else {
-      tl = tm;
-      code = code * 2u + 2u;
-    }
-  }
-  return code * 2u + 1u;
-}
-
-// W(t) of the jax tree from its depth + 1 normals z (lvl order).
-__device__ float jt_combine(float t, float t0, float t1, int depth, const float* z) {
-  t = fminf(fmaxf(t, t0), t1);
-  const float w_right = z[0] * sqrtf(t1 - t0);
-  float tl = t0, tr = t1, wl = 0.0f, wr = w_right;
-  for (int d = 0; d < depth; ++d) {
-    const float tm = 0.5f * (tl + tr);
-    const float wm = 0.5f * (wl + wr) + (0.5f * sqrtf(tr - tl)) * z[1 + d];
-    if (t < tm) {
-      tr = tm;
-      wr = wm;
-    } else {
-      tl = tm;
-      wl = wm;
-    }
-  }
-  const float frac = tr > tl ? (t - tl) / (tr - tl) : 0.0f;
-  return wl + frac * (wr - wl);
-}
-
 // W(t) of the jax tree by one thread.
 __device__ float jt_eval(uint32_t k0, uint32_t k1, float t, float t0, float t1, int depth) {
   float z[kMaxDepth + 1];
   for (int l = 0; l <= depth; ++l) z[l] = jax_fold_normal(k0, k1, jt_code(t, t0, t1, l));
-  return jt_combine(t, t0, t1, depth, z);
+  return tree_combine<kJax>(t, t0, t1, depth, z);
 }
 
 // y1 = ((y + h (f1/3 + (2 f2)/3)) + (dw - i10h) sigma) + i10h sigma
@@ -232,40 +226,32 @@ __device__ float lane_w(const Sel& sel, const uint32_t* kw, float t) {
 
 // The Brownian data of an attempt from t, by the whole block: scal[0..3] =
 // W(tm), W(te), and the interval normals of [t, tm] and [tm, te]; zb holds
-// the jax tree's 2 (depth + 1) normals (any block of at least 4 threads:
-// the jax tree's draws stride over the block). Ends with a barrier.
+// the tree's 2 (depth + 1) normals of the two queries, drawn a thread each
+// (any block of at least 2 threads: the draws stride over the block), then
+// combined by threads 0 and 1. Ends with a barrier.
 template <int kTree>
 __device__ void draw_noise(const Sel& sel, const uint32_t* kw, float t, float tm, float te,
                            float* scal, float* zb) {
-  if (kTree == kKrng) {
-    if (threadIdx.x < 4) {
-      float v;
-      if (threadIdx.x == 0) v = tree_eval(kw[0], kw[1], tm, sel.t_start, sel.t_end, sel.depth);
-      else if (threadIdx.x == 1) v = tree_eval(kw[0], kw[1], te, sel.t_start, sel.t_end, sel.depth);
-      else if (threadIdx.x == 2) v = normal2(kw[2], kw[3], t_code(t, sel.t_start, sel.t_end),
-                                             t_code(tm, sel.t_start, sel.t_end));
-      else v = normal2(kw[2], kw[3], t_code(tm, sel.t_start, sel.t_end),
-                       t_code(te, sel.t_start, sel.t_end));
-      scal[threadIdx.x] = v;
+  const int nz = sel.depth + 1;
+  for (int q = threadIdx.x; q < 2 * nz + 2; q += blockDim.x) {
+    if (q < 2 * nz) {
+      const int e = q / nz;
+      const float tq = e ? te : tm;
+      zb[q] = kTree == kKrng ? kr_normal(kw[0], kw[1], tq, sel.t_start, sel.t_end, q - e * nz)
+                             : jax_fold_normal(kw[0], kw[1], jt_code(tq, sel.t_start, sel.t_end,
+                                                                     q - e * nz));
+    } else {
+      const float ta = q == 2 * nz ? t : tm, tb = q == 2 * nz ? tm : te;
+      scal[q - 2 * nz + 2] =
+          kTree == kKrng ? normal2(kw[2], kw[3], t_code(ta, sel.t_start, sel.t_end),
+                                   t_code(tb, sel.t_start, sel.t_end))
+                         : jax_interval_normal(kw[2], kw[3], ta, tb);
     }
-  } else {
-    const int nz = sel.depth + 1;
-    for (int q = threadIdx.x; q < 2 * nz + 2; q += blockDim.x) {
-      if (q < 2 * nz) {
-        const int e = q / nz;
-        zb[q] = jax_fold_normal(kw[0], kw[1], jt_code(e ? te : tm, sel.t_start, sel.t_end,
-                                                      q - e * nz));
-      } else if (q == 2 * nz) {
-        scal[2] = jax_interval_normal(kw[2], kw[3], t, tm);
-      } else {
-        scal[3] = jax_interval_normal(kw[2], kw[3], tm, te);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < 2)
-      scal[threadIdx.x] = jt_combine(threadIdx.x ? te : tm, sel.t_start, sel.t_end, sel.depth,
-                                     zb + threadIdx.x * nz);
   }
+  __syncthreads();
+  if (threadIdx.x < 2)
+    scal[threadIdx.x] = tree_combine<kTree>(threadIdx.x ? te : tm, sel.t_start, sel.t_end,
+                                            sel.depth, zb + threadIdx.x * nz);
   __syncthreads();
 }
 

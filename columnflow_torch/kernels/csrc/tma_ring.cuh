@@ -1,9 +1,10 @@
 // What the Hopper cluster teams share (replay2_team.cuh: B3 and B4;
-// ode_team.cuh: B6, B8' and B8't): mbarriers and TMA bulk copies (PTX), the
-// ring of tile stages through which a block's packed weight slice streams
-// where it does not stay resident in shared memory, and the launch of a
-// cluster of C blocks per team with cudaLaunchKernelEx (a cluster of 16 is
-// non-portable). Included once per source; every source is its own library,
+// ode_team.cuh: B6, B8' and B8't; sde_select_team.cu: the SDE selection):
+// mbarriers and TMA bulk copies (PTX), bf16 and float32 weights placed in a
+// double without a conversion, the ring of tile stages through which a
+// block's packed weight slice streams where it does not stay resident in
+// shared memory, and the launch of a cluster of C blocks per team with
+// cudaLaunchKernelEx (a cluster of 16 is non-portable). Included once per source; every source is its own library,
 // so the definitions live in an unnamed namespace.
 //
 // The ring. A team's plan cuts a block's slice (P rows of rw 32-bit words)
@@ -94,6 +95,31 @@ __device__ __forceinline__ void t2_bulk_load(void* dst, const void* src, uint32_
         : "memory");
   }
 }
+
+// ---------------------------------------------------------------------------
+// Weights placed in a double without a conversion
+// ---------------------------------------------------------------------------
+
+// A bf16 weight h as the float64 w 2^-896, exactly: its sign, exponent and
+// mantissa bits placed in the double's (exponent 0 gives a subnormal, which
+// is the scaled bf16 subnormal or zero); the other operand of every product
+// is scaled by 2^896 (exact: it is a finite float32), so each product is
+// the unscaled one, exactly, and every sum is the same float64 sum. Only a
+// non-finite weight would differ; a split of finite float32 weights has
+// none.
+__device__ __forceinline__ double t3_w(uint32_t h) {
+  return __hiloint2double((int)(((h << 16) & 0x80000000u) | ((h & 0x7fffu) << 13)), 0);
+}
+// A float32 weight w (its bits) as the float64 w 2^-896, exactly, the same
+// placement: the sign stays, the exponent and mantissa bits move down by
+// three, into the double's exponent (whose top three bits are then 0) and
+// mantissa; the mantissa's last three bits open the low word. That is w
+// 2^(127 - 1023) for every finite float32, subnormals and +-0 included.
+__device__ __forceinline__ double t3_w32(uint32_t w) {
+  return __hiloint2double((int)((w & 0x80000000u) | ((w & 0x7fffffffu) >> 3)), (int)(w << 29));
+}
+// The scale of the other operand of such a product.
+constexpr double kT3Scale = 0x1p896;
 
 // ---------------------------------------------------------------------------
 // The ring

@@ -3,14 +3,19 @@ over the frozen step grids, and its reverse sweep (ports of the Pallas
 kernels B5, B3 and B4 of ``columnflow/solvers``, and of the XLA selection
 loop ``_adaptive_pass`` as a kernel).
 
-Each kernel is CUDA C++ in ``csrc/network_sde.cu`` (built by ``_build``)
-with a plain PyTorch version beside it that repeats its arithmetic:
+Each kernel is CUDA C++ in ``csrc/network_sde.cu`` or, for the
+selection's cluster teams, ``csrc/sde_select_team.cu`` (built by
+``_build``) with a plain PyTorch version beside it that repeats its
+arithmetic:
 
     wrapper         kernel              plain version      replaces (columnflow/solvers/)
-    select_pass     cf_sde_select       _select_plain      sde_adaptive.py _make_sde_adaptive_kernel (B5;
-                                                           on the three-term split, B5t), and the
-                                                           XLA selection _adaptive_pass
-    select_attempt  cf_sde_attempt      _attempt_plain     one iteration of that loop's body
+    select_pass     cf_sde_select_team  _select_plain      sde_adaptive.py _make_sde_adaptive_kernel (B5;
+                    (cf_sde_select)                        on the three-term split, B5t), and the
+                                                           XLA selection _adaptive_pass (a cluster
+                                                           team per lane: ``sde_select_route``;
+                                                           route "block": the one-block kernel)
+    select_attempt  cf_sde_attempt_team _attempt_plain     one iteration of that loop's body
+                    (cf_sde_attempt)
     replay_fwd      cf_sde_replay_fwd   _replay_fwd_plain  fused.py _make_sde_chunk_kernel, lanes (B3;
                                                            a cluster team per lane: ``sde2_replay_plan``)
     replay_bwd      cf_sde_replay_bwd   _replay_bwd_plain  fused.py _make_sde_bwd_chunk_kernel, emit (B4;
@@ -42,9 +47,9 @@ weight cotangents in the sweep) run on the
 two-term split of ``prepare_premixed_split2``; the three-term ones on
 ``prepare_premixed_split``, with the weight cotangents in the sweep (kernel
 mode) or outside it (emit mode: the state cotangent and each step's seed).
-The selection runs one thread block per lane; the split2 replay and its
-emit-mode sweep run each lane on a cluster of 8 or 16 blocks, each block
-holding its columns of the two terms in shared memory (``sde2_pack``: the
+The selection and the split2 replay and its emit-mode sweep run each lane
+on a cluster of 8 or 16 blocks, each block holding its columns of the
+weights in shared memory (``sde_select_pack``, ``sde2_pack``: the
 wrapper packs them per block on every call; streamed through a ring of
 tiles where they do not fit, ``sde2_replay_route``). The
 three-term kernel-mode reverse sweep holds the batch in one block, because
@@ -104,13 +109,14 @@ SIGMA = NETWORK_NOISE_STD
 # same numbers as literals.
 _SAFETY, _IFACTOR, _DFACTOR = 0.9, 5.0, 0.2
 _PI_A, _PI_B, _ERR_EXP = 0.5, 0.25, 0.5
-LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_replay_fwd": 0, "sde_replay_bwd": 0,
+LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_select_block": 0, "sde_attempt_block": 0,
+            "sde_replay_fwd": 0, "sde_replay_bwd": 0,
             "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0,
             "sde3_bwd_team": 0, "sde2_bwd": 0, "sde2_fwd_team8": 0, "sde2_bwd_team8": 0}
 # What a thread block can hold (sm_90: 227 KB of shared memory), and the
 # kernels' layout constants (csrc/network_drift.cuh kThreads, kMaxInputs).
 SMEM_BLOCK_BYTES = 232448
-_THREADS, _MAX_INPUTS, _MAX_KNOTS = 512, 16, 8
+_THREADS, _MAX_INPUTS, _MAX_KNOTS, _MAX_DEPTH = 512, 16, 8, 31
 # The kernels' codes of the two trees and of the selection drifts.
 TREES = {"kernel": 0, "jax": 1}
 SELECT_DRIFTS = {"select16": 0, "f32": 2, "split3": 3}
@@ -574,14 +580,192 @@ def _select_named(w, kv, P, cfg: SelectConfig):
     return named, (w[keys[0]], w[keys[1]])
 
 
-def select_pass(y0, words, w, sc: SDEConsts, kv, cfg: SelectConfig):
+# ---------------------------------------------------------------------------
+# The selection's cluster teams (csrc/sde_select_team.cu)
+# ---------------------------------------------------------------------------
+
+SELECT_ROUTES = ("resident", "streamed", "block")
+
+
+class SelectTeamPlan(NamedTuple):
+    """The shape of a selection team at P populations (csrc/
+    sde_select_team.cu ``plan_sel``, which ``cf_sde_select_plan``
+    reports)."""
+
+    C: int        # blocks per lane: the cluster size
+    nc: int       # populations each block owns
+    mode: int     # the drift's code (SELECT_DRIFTS): select16 (bf16, two a word), f32 (one
+                  # a word), split3 (the three bf16 terms, each two a word)
+    np: int       # column pairs of a block, (nc + 1) // 2
+    wpt: int      # 32-bit words of a pair in a packed row (1, 2 or 3)
+    xw: int       # exchanged float64 values of a row (the split's 3 terms, else 1)
+    L: int        # lanes per pair: thread (pair, l) sums the rows k = l mod L
+    rw: int       # words of a packed row: np wpt, padded to v times an odd number,
+                  # v = (32 / L) wpt (the consecutive words a warp reads in a row)
+    stream: bool  # the slice streams through a ring of tiles (else it stays resident)
+    R: int        # rows per tile (resident: P)
+    T: int        # tiles per product pass
+    S: int        # stages of the ring (resident: 1)
+    fits: bool    # False: no shape of this design fits a block
+    fixed: int    # shared-memory bytes before the weights
+    bytes: int    # shared-memory bytes of a block
+
+
+def _sel_fixed(P, nc, C, n_in, xw):
+    return (_align16(8 * 2 * xw * P) + _align16(4 * nc) + _align16(4 * 2 * n_in)
+            + _align16(4 * _MAX_KNOTS * n_in) + _align16(4 * (n_in + 2) * nc)
+            + _align16(4 * (8 + 2 * (_MAX_DEPTH + 1))) + _align16(8 * (_THREADS // 32 + 2 * C))
+            + _align16(8 * (1 + 2 * _T2_MAX_STAGES)))
+
+
+def sde_select_plan(P: int, n_in: int, drift: str, C: int = 16,
+                    stream: bool = False) -> SelectTeamPlan:
+    """The team shape of the selection on ``drift`` ("select16": bf16
+    weights, two a word; "f32": float32, one a word; "split3": the three
+    bf16 terms of ``select_weights_split3``, a word of each per column pair)
+    at P populations and n_in inputs with clusters of C (8 or 16) blocks
+    per lane: block r owns populations [r nc, (r + 1) nc) and keeps the
+    columns [r nc, (r + 1) nc) of the weights as a (P, rw) slice of words,
+    resident where it and the fixed part (two exchange slots of P float64,
+    three for the split's terms, the lane's stimulus and knots, the own
+    columns' iw, bg and adaptation, the trees' normals, the sums and the
+    mbarriers) fit the 232,448 bytes a block can use, else (or with
+    ``stream``) streamed in tiles of R rows through S stages. At 104
+    columns and C = 16 select16 and float32 are resident (86.5 and 173
+    KB), the split streams (260 KB); at 312 all stream."""
+    if P <= 0 or P % 8:
+        raise ValueError(f"P must be a positive multiple of 8, got {P}")
+    if not 0 <= n_in <= _MAX_INPUTS:
+        raise ValueError(f"n_in must lie in [0, {_MAX_INPUTS}], got {n_in}")
+    if drift not in SELECT_DRIFTS:
+        raise ValueError(f"no selection team takes the drift {drift!r}")
+    if C not in (8, 16) or P % C:
+        raise ValueError(f"a team of C={C} blocks does not take P={P}")
+    nc = P // C
+    np_ = -(-nc // 2)
+    wpt = {"select16": 1, "f32": 2, "split3": 3}[drift]
+    xw = 3 if drift == "split3" else 1
+    L = 32
+    while L > 1 and np_ * L > _THREADS:
+        L //= 2
+    v = (32 // L) * wpt
+    rw = -(-np_ * wpt // v) * v
+    if (rw // v) % 2 == 0:
+        rw += v
+    fits = nc <= _THREADS
+    head = (C, nc, SELECT_DRIFTS[drift], np_, wpt, xw, L, rw)
+    fixed = _sel_fixed(P, nc, C, n_in, xw)
+    row = 4 * rw
+    if not stream and fixed + row * P <= SMEM_BLOCK_BYTES:
+        return SelectTeamPlan(*head, False, P, 1, 1, fits, fixed, fixed + row * P)
+    room = max(SMEM_BLOCK_BYTES - fixed, 0)
+    R = max(16 * L, _T2_MIN_TILE_ROWS)
+    while R >= max(L, 8):
+        T = -(-P // R)
+        S = min(_T2_MAX_STAGES, room // (row * R), T)
+        if S >= min(T, 2):
+            return SelectTeamPlan(*head, True, R, T, S, fits, fixed, fixed + row * R * S)
+        R //= 2
+    return SelectTeamPlan(*head, True, P, 1, 0, False, fixed, fixed)
+
+
+def sde_select_cluster(P: int, B: int, max_clusters) -> int:
+    """The cluster size of B lanes' selection teams: 16 where 16 divides P
+    and the card holds B clusters of 16 at once (``max_clusters(16)``, the
+    kernel's ``cudaOccupancyMaxActiveClusters``), else 8, so that no lane
+    waits for another's whole selection (at 104 columns 7 clusters of 16
+    fit the H100: bench.py's batch 8 takes clusters of 8)."""
+    return 16 if P % 16 == 0 and max_clusters(16) >= B else 8
+
+
+def sde_select_route(P: int, n_in: int, B: int, drift: str, max_clusters) -> tuple:
+    """How the selection runs on the card, by shape alone, before the launch:
+    (route, C). "resident" or "streamed" (the cluster teams, as
+    ``sde_select_plan`` holds the weights, with ``sde_select_cluster``'s C)
+    where the plan fits, else "block" (the one-block kernel), C 0. From 13
+    columns the team is the faster (~10x at 104); at 3 columns, a width no
+    command line runs, the one-block kernel is 2-3 us an attempt faster
+    (PERF.md). ``max_clusters(C)``: how many clusters of C the card holds at
+    once."""
+    C = sde_select_cluster(P, B, max_clusters)
+    plan = sde_select_plan(P, n_in, drift, C)
+    if not plan.fits:
+        return "block", 0
+    return ("streamed" if plan.stream else "resident"), C
+
+
+def sde_select_pack(w0, P: int, plan: SelectTeamPlan) -> torch.Tensor:
+    """The selection weights (select16's bf16 ``wT16`` (P, P), the float32
+    ``wT``, or the split's bf16 terms ``w3`` (3, P, P)) packed per block,
+    (C, P, rw) int32 words: row k of block r holds W[k, r nc:(r+1) nc] (two
+    bf16 a word, the even column in the low half; or one float32 a word;
+    the split: for each column pair the word of W_hi, of W_mid, of W_lo),
+    then zero pad."""
+    C, nc, np_ = plan.C, plan.nc, plan.np
+    per = 1 if plan.mode == SELECT_DRIFTS["f32"] else 2
+    pk = torch.zeros((C, P, per * plan.rw), dtype=w0.dtype, device=w0.device)
+    if plan.mode != SELECT_DRIFTS["split3"]:
+        pk[:, :, :nc] = w0.view(P, C, nc).transpose(0, 1)
+        return pk.view(torch.int32)
+    terms = torch.zeros((3, P, C, 2 * np_), dtype=w0.dtype, device=w0.device)
+    terms[..., :nc] = w0.view(3, P, C, nc)
+    # (3, P, C, np, 2) -> (C, P, np, 3, 2): a pair's three words side by side
+    pk[:, :, :6 * np_] = terms.view(3, P, C, np_, 2).permute(2, 1, 3, 0, 4).reshape(C, P, -1)
+    return pk.view(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def sde_select_max_clusters(P: int, n_in: int, tree: str, drift: str, C: int,
+                            stream: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of the selection team kernel on the
+    card: how many lanes' teams of C blocks run at once."""
+    out = ctypes.c_int()
+    _check(_lib().cf_sde_select_max_clusters(P, n_in, TREES[tree], SELECT_DRIFTS[drift], C,
+                                             int(stream), ctypes.byref(out)),
+           "sde_select_max_clusters")
+    return out.value
+
+
+def _check_select_route(route):
+    if route is not None and route not in SELECT_ROUTES:
+        raise ValueError(f"route must be one of {SELECT_ROUTES}, got {route!r}")
+
+
+def _select_team(route, P, n_in, B, cfg: SelectConfig):
+    """(route, plan) of a selection launch on the card: ``route`` or the
+    shape's default; the plan None for "block". Raises where the team asked
+    for does not take the shape."""
+    def clusters(C):
+        stream = sde_select_plan(P, n_in, cfg.drift, C).stream
+        return sde_select_max_clusters(P, n_in, cfg.brownian, cfg.drift, C, stream)
+
+    if route is None:
+        route, C = sde_select_route(P, n_in, B, cfg.drift, clusters)
+    elif route != "block":
+        C = sde_select_cluster(P, B, clusters)
+    if route == "block":
+        return route, None
+    plan = sde_select_plan(P, n_in, cfg.drift, C, stream=route == "streamed")
+    if not plan.fits or (route == "resident" and plan.stream):
+        raise ValueError(f"no {route} team takes P={P} with the {cfg.drift} drift")
+    if clusters(C) < 1:
+        raise RuntimeError(f"no cluster of {C} blocks with {plan.bytes} bytes of shared memory "
+                           "each fits the card")
+    return route, plan
+
+
+def select_pass(y0, words, w, sc: SDEConsts, kv, cfg: SelectConfig, route=None):
     """The step-size selection of every lane: y0 (B, 3P), words (B, 4)
     (k0, k1, j0, j1 as int64: the tree's key and the space-time integrals'
     key of ``cfg.brownian``), ``w`` the selection weights (``premix_select16``
     for ``cfg.drift`` "select16", the float32 {"wT", "iwT"} for "f32",
     ``select_weights_split3`` for "split3"), kv
     (K, B, n_in). Returns (step_times (B, M+1), naccept, nreject (B,)
-    int32, success (B,) bool)."""
+    int32, success (B,) bool). On the card a cluster team per lane
+    (csrc/sde_select_team.cu); ``route`` (default ``sde_select_route``):
+    "resident", "streamed", or "block", the one-block kernel (a
+    yardstick)."""
+    _check_select_route(route)
     B, S = y0.shape
     P = S // 3
     w_named, (w0, iw) = _select_named(w, kv, P, cfg)
@@ -589,23 +773,34 @@ def select_pass(y0, words, w, sc: SDEConsts, kv, cfg: SelectConfig):
              **_drift_named(sc, kv, B, P)}
     if not _on_cuda(y0, named):
         return _select_plain(y0, words, w, sc, kv, cfg)
+    route, plan = _select_team(route, P, kv.shape[2], B, cfg)
     st = torch.empty((B, cfg.max_steps + 1), dtype=_F32, device=y0.device)
     stats = torch.empty((B, 3), dtype=torch.int32, device=y0.device)
     keep, hc_p, hs_p = _select_host(sc, cfg)
     w32 = _words32(words)
-    _check(_lib().cf_sde_select(
-        B, P, kv.shape[2], kv.shape[0], hc_p, hs_p, cfg.max_steps, cfg.depth,
-        TREES[cfg.brownian], SELECT_DRIFTS[cfg.drift], sc.fc["bg"].data_ptr(),
-        sc.fc["adapt"].data_ptr(), w0.data_ptr(), iw.data_ptr(), kv.data_ptr(), w32.data_ptr(),
-        y0.data_ptr(), st.data_ptr(), stats.data_ptr(), _stream(y0)), "sde_select")
-    LAUNCHES["sde_select"] += 1
+    head = (B, P, kv.shape[2], kv.shape[0], hc_p, hs_p, cfg.max_steps, cfg.depth,
+            TREES[cfg.brownian], SELECT_DRIFTS[cfg.drift])
+    tail = (kv.data_ptr(), w32.data_ptr(), y0.data_ptr(), st.data_ptr(), stats.data_ptr(),
+            _stream(y0))
+    consts = (sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr())
+    if route == "block":
+        _check(_lib().cf_sde_select(*head, *consts, w0.data_ptr(), iw.data_ptr(), *tail),
+               "sde_select_block")
+        LAUNCHES["sde_select_block"] += 1
+    else:
+        wpk = sde_select_pack(w0, P, plan)
+        _check(_lib().cf_sde_select_team(*head, plan.C, int(plan.stream), *consts,
+                                         wpk.data_ptr(), iw.data_ptr(), *tail), "sde_select")
+        LAUNCHES["sde_select"] += 1
     return st, stats[:, 0], stats[:, 1], stats[:, 2] > 0
 
 
 def select_attempt(t1, y1, h, err_prev, w_t1, words, w, sc: SDEConsts, kv,
-                   cfg: SelectConfig) -> Attempt:
+                   cfg: SelectConfig, route=None) -> Attempt:
     """One controller attempt for each of N records (t1, h, err_prev, w_t1
-    (N, 1); y1 (N, 3P)): the body of the selection kernel."""
+    (N, 1); y1 (N, 3P)): the body of the selection kernel, on ``route`` as
+    ``select_pass``'s (a team per record)."""
+    _check_select_route(route)
     N, S = y1.shape
     P = S // 3
     w_named, (w0, iw) = _select_named(w, kv, P, cfg)
@@ -614,17 +809,25 @@ def select_attempt(t1, y1, h, err_prev, w_t1, words, w, sc: SDEConsts, kv,
              "words": (words, _I64, (N, 4)), **w_named, **_drift_named(sc, kv, N, P)}
     if not _on_cuda(y1, named):
         return _attempt_plain(t1, y1, h, err_prev, w_t1, words, w, sc, kv, cfg)
+    route, plan = _select_team(route, P, kv.shape[2], N, cfg)
     y_new = torch.empty_like(y1)
     rec = torch.empty((N, 6), dtype=_F32, device=y1.device)
     keep, hc_p, hs_p = _select_host(sc, cfg)
     w32 = _words32(words)
-    _check(_lib().cf_sde_attempt(
-        N, P, kv.shape[2], kv.shape[0], hc_p, hs_p, cfg.depth, TREES[cfg.brownian],
-        SELECT_DRIFTS[cfg.drift], sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
-        w0.data_ptr(), iw.data_ptr(), kv.data_ptr(), w32.data_ptr(), t1.data_ptr(),
-        y1.data_ptr(), h.data_ptr(), err_prev.data_ptr(), w_t1.data_ptr(), y_new.data_ptr(),
-        rec.data_ptr(), _stream(y1)), "sde_attempt")
-    LAUNCHES["sde_attempt"] += 1
+    head = (N, P, kv.shape[2], kv.shape[0], hc_p, hs_p, cfg.depth, TREES[cfg.brownian],
+            SELECT_DRIFTS[cfg.drift])
+    consts = (sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr())
+    tail = (kv.data_ptr(), w32.data_ptr(), t1.data_ptr(), y1.data_ptr(), h.data_ptr(),
+            err_prev.data_ptr(), w_t1.data_ptr(), y_new.data_ptr(), rec.data_ptr(), _stream(y1))
+    if route == "block":
+        _check(_lib().cf_sde_attempt(*head, *consts, w0.data_ptr(), iw.data_ptr(), *tail),
+               "sde_attempt_block")
+        LAUNCHES["sde_attempt_block"] += 1
+    else:
+        wpk = sde_select_pack(w0, P, plan)
+        _check(_lib().cf_sde_attempt_team(*head, plan.C, int(plan.stream), *consts,
+                                          wpk.data_ptr(), iw.data_ptr(), *tail), "sde_attempt")
+        LAUNCHES["sde_attempt"] += 1
     col = [rec[:, i:i + 1] for i in range(6)]
     err_c = torch.clamp_min(col[0], 1e-10)
     return Attempt(y_new, col[0], col[1] > 0, col[2], col[3], col[4], err_c, col[5])

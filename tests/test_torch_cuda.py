@@ -34,6 +34,16 @@ two-term split) bit for bit with the resident teams; the team plan the
 wrappers reckon equals the library's; bench.py's step at 104 columns runs
 each of its kernels once and no plain version.
 
+The selection as cluster teams (a cluster of 16 or 8 blocks per lane,
+each block's weight columns in shared memory; select16 on both trees, f32
+on the jax.random tree, the three-term split (B5t) on the krng tree) at 13,
+32 and 104 columns, 4 lanes and 8 at 104,
+on every route the shape admits: the whole selection (stats and accepted
+times) and 16 single attempts bit for bit against the plain versions; the
+plan the wrapper reckons equals the library's; the flagship, bench.py's and
+the exact adaptive steps at 104 columns launch the team once and never the
+one-block kernel.
+
 The three-term sweeps as teams (B3t-team, B4t) at 104 and 312 columns on
 short uniform and per-lane windows: bit for bit against their plain
 versions, one launch each; the forward kernel picked by shape (the one-block
@@ -273,7 +283,8 @@ def _net_inputs(dev, cpa=FULL, n_in=4, B=4, T=1000, seed=0):
     w2 = nw.prepare_premixed_split2(pw, fc)[0]
     return dict(gen=gen, P=net.num_pops, ts=ts, sc=ns.SDEConsts(fc, kts), kv=kv.contiguous(),
                 w2={k: v.contiguous() for k, v in w2.items()}, w16=nw.premix_select16(pw),
-                words=_sde_key_words(keys))
+                wf={"wT": pw["wT"].contiguous(), "iwT": pw["iwT"].contiguous()},
+                words=_sde_key_words(keys), keys=keys)
 
 
 def _states(gen, N, P, dev):
@@ -545,6 +556,133 @@ def test_parity_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     rec, _, _, _ = _parity_step(dev, (2, 1))
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# The selection as cluster teams (csrc/sde_select_team.cu): select16 on both
+# trees, f32 on the jax.random tree and the three-term split on the krng
+# tree, at 13, 32 and 104 columns
+# ---------------------------------------------------------------------------
+
+SELECT_INSTANCES = (("select16", "jax"), ("select16", "kernel"), ("f32", "jax"),
+                    ("split3", "kernel"))
+SELECT_CPA = {13: (8, 4, 1), 32: (16, 8, 8), 104: FULL}
+
+
+def _select_team_inputs(dev, columns, lanes, drift, tree, T):
+    d = _net_inputs(dev, cpa=SELECT_CPA[columns], B=lanes)
+    cfg = select_config(d["ts"][:T], max_steps=4096, brownian=tree, drift=drift)
+    w = {"select16": d["w16"], "f32": d["wf"]}.get(drift)
+    if drift == "split3":
+        w = ns.select_weights_split3(d["wf"], d["sc"])
+    return d, _sde_key_words(d["keys"], tree), cfg, w
+
+
+@pytest.mark.parametrize("columns,lanes,route", [(13, 4, None), (13, 4, "streamed"),
+                                                 (32, 4, None), (32, 4, "streamed"),
+                                                 (104, 4, None), (104, 4, "streamed"),
+                                                 (104, 8, None)])
+@pytest.mark.parametrize("drift,tree", SELECT_INSTANCES)
+def test_sde_select_team_equals_plain(dev, columns, lanes, route, drift, tree, monkeypatch):
+    """The whole selection over 25 grid points (15 at 104 columns) on every
+    route the shape admits (the team's resident slice, the ring forced; 8
+    lanes at 104 columns take clusters of 8): the stats equal and the
+    accepted times bit for bit, one team launch, neither the one-block
+    kernel nor the plain version."""
+    d, words, cfg, w = _select_team_inputs(dev, columns, lanes, drift, tree,
+                                           15 if columns == 104 else 25)
+    y0 = torch.zeros(lanes, 3 * d["P"], device=dev)
+    want = ns._select_plain(y0, words, w, d["sc"], d["kv"], cfg)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(ns, "_select_plain", boom)
+    before = dict(ns.LAUNCHES)
+    got = ns.select_pass(y0, words, w, d["sc"], d["kv"], cfg, route=route)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched == {"sde_select": 1}
+    assert bool(got[3].all())
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("columns", [13, 32, 104])
+@pytest.mark.parametrize("route", [None, "streamed"])
+@pytest.mark.parametrize("drift,tree", SELECT_INSTANCES)
+def test_sde_attempt_team_equals_plain(dev, columns, route, drift, tree):
+    """16 single attempts (a team each) from states in the rates' regimes,
+    steps 1e-6 to 1e-3, bit for bit against the plain body."""
+    d, _, _, w = _select_team_inputs(dev, columns, 4, drift, tree, 25)
+    N, gen = 16, d["gen"]
+    lane = torch.arange(N, device=dev) % 4
+    words = _sde_key_words(d["keys"], tree)[lane].contiguous()
+    kv = d["kv"][:, lane].contiguous()
+    y1 = _states(gen, N, d["P"], dev)
+    t1 = (0.9 * torch.rand(N, 1, generator=gen, device=dev)).contiguous()
+    h = (1e-6 * 10.0 ** (torch.arange(N, device=dev)[:, None] % 4)).contiguous()
+    err_prev = torch.full((N, 1), 0.7, device=dev)
+    cfg = ns.SelectConfig(float(d["ts"][0]), float(d["ts"][-1]), h0=2.5e-4, brownian=tree,
+                          drift=drift)
+    w_t1 = ns._tree(words, cfg).evaluate(t1).contiguous()
+    args = (t1, y1, h, err_prev, w_t1, words, w, d["sc"], kv, cfg)
+    before = ns.LAUNCHES["sde_attempt"]
+    got = ns.select_attempt(*args, route=route)
+    torch.cuda.synchronize()
+    assert ns.LAUNCHES["sde_attempt"] == before + 1
+    for g, p in zip(got, ns._attempt_plain(*args)):
+        assert torch.isfinite(g).all() and torch.equal(g, p)
+
+
+@pytest.mark.parametrize("columns", [13, 24, 32, 63, 104, 312])
+def test_sde_select_plan_is_the_librarys(dev, columns):
+    import ctypes
+
+    P = 8 * columns
+    for drift in ("select16", "f32", "split3"):
+        for C in (8, 16):
+            if P % C:
+                continue
+            for stream in (False, True):
+                plan = ns.sde_select_plan(P, 4, drift, C, stream)
+                out = (ctypes.c_longlong * 15)()
+                assert ns._lib().cf_sde_select_plan(P, 4, ns.SELECT_DRIFTS[drift], C,
+                                                    int(stream), out) == 0
+                assert tuple(int(v) for v in plan) == tuple(out), (columns, drift, C, stream)
+    route, C = ns.sde_select_route(P, 4, 4, "select16", lambda c: ns.sde_select_max_clusters(
+        P, 4, "jax", "select16", c, ns.sde_select_plan(P, 4, "select16", c).stream))
+    assert C == (16 if P % 16 == 0 else 8) and route == ("streamed" if columns == 312
+                                                         else "resident")
+
+
+@pytest.mark.parametrize("path", ["flagship", "bench", "exact"])
+def test_104_column_steps_launch_the_selection_team(dev, path, monkeypatch):
+    """The flagship (--fused-pass: krng tree, select16), bench.py's
+    configuration (jax.random tree, select16) and the exact adaptive step
+    (jax.random tree, f32) at 104 columns over 20 grid points: one launch of
+    the selection team, never the one-block kernel or a plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_select_plain", "_attempt_plain"):
+        monkeypatch.setattr(ns, name, boom)
+    flags = {"flagship": FLAGSHIP_FLAGS,
+             "bench": dict(stochastic=True, adaptive=True, select_bf16=True, grad_bf16=True,
+                           split2=True),
+             "exact": dict(stochastic=True, adaptive=True)}[path]
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=FULL, n_inputs=4, time_steps=20,
+                             max_steps=16384, device=dev)
+    stims = make_parity_batch(torch.Generator(device=dev).manual_seed(1), 4, 4, device=dev)
+    keys = torch.randint(0, 2**32, (4, 2), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int64).to(dev)
+    before = dict(ns.LAUNCHES)
+    rec = parity.make_train_step(task, **flags, **STEP)(stims, keys)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+    assert launched["sde_select"] == 1 and "sde_select_block" not in launched, launched
+    assert bool(torch.isfinite(rec["loss"])) and bool(rec["stats"].success.all())
 
 
 # ---------------------------------------------------------------------------
