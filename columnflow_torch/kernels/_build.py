@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # must not contract multiply-adds there.
 SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
                 "network_ode": ["-fmad=false"], "ode_select_team": ["-fmad=false"],
-                "ode_emit_team": ["-fmad=false"], "sde_select_team": ["-fmad=false"],
+                "ode_emit_team": ["-fmad=false"], "ode_replay_team": ["-fmad=false"],
+                "sde_select_team": ["-fmad=false"],
                 "xor_ode": ["-fmad=false"],
                 "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"],
                 "hopf_outer": ["-fmad=false"]}
@@ -69,8 +70,8 @@ _SIGNATURES = {
         "cf_ode_attempt_team8": [_I, _I, _I, _I, _P, _P] + [_P] * 16,
         "cf_ode_replay_bwd_emit_team8": [_I, _I, _I, _I, _P, _I] + [_P] * 15,
         "cf_ode_replay_bwd_emit_split3_team8": [_I, _I, _I, _I, _P, _I] + [_P] * 17,
-        "cf_ode_replay_fwd_split2": [_I, _I, _I, _I, _P, _I] + [_P] * 12,
-        "cf_ode_replay_fwd_team": [_I, _I, _I, _I, _P, _I] + [_P] * 13,
+        "cf_ode_replay_fwd_split2_team8": [_I, _I, _I, _I, _P, _I] + [_P] * 12,
+        "cf_ode_replay_fwd_team_team8": [_I, _I, _I, _I, _P, _I] + [_P] * 13,
         "cf_ode_replay_bwd_team": [_I, _I, _I, _I, _P, _I] + [_P] * 19,
         "cf_ode_replay_bwd_split2": [_I, _I, _I, _I, _P, _I] + [_P] * 17,
         "cf_ode_block_bytes": [_I, _I, _I, _I, _P],
@@ -78,7 +79,12 @@ _SIGNATURES = {
     "ode_select_team": {
         "cf_ode_select": [_I, _I, _I, _I, _P, _P, _I, _I, _I] + [_P] * 9,
         "cf_ode_attempt": [_I, _I, _I, _I, _P, _P, _I] + [_P] * 13,
-        "cf_ode_team_plan": [_I, _I, _I, _I, _I, _I, _P],
+        "cf_ode_team_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "ode_replay_team": {
+        "cf_ode_replay_fwd_team": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 10,
+        "cf_ode_replay_fwd_split2": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 10,
+        "cf_ode_replay_max_clusters": [_I, _I, _I, _I, _I, _P],
     },
     "ode_emit_team": {
         "cf_ode_replay_bwd_emit": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,

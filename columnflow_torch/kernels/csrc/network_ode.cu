@@ -19,8 +19,11 @@
 //                                over the frozen grid, step-start states and
 //                                CONTD5 rows, three-term split (B7, one block
 //                                per lane, through 23 columns at 4 inputs)
-//   cf_ode_replay_fwd_team    <- the same as a team of blocks per lane
-//                                (B7t-team, from 24 columns)
+//   cf_ode_replay_fwd_team_team8
+//                             <- the same as a team of kCluster blocks per
+//                                lane that reads the weights from L2 (the
+//                                yardstick of B7t-team, the cluster team in
+//                                ode_replay_team.cu)
 //   cf_ode_replay_bwd         <- _make_bwd_chunk_kernel, kernel mode: the VJP of
 //                                the step and its dense rows w.r.t. state, wT
 //                                and iwT, three-term split (B8, the batch in
@@ -41,14 +44,18 @@
 //                                per lane that reads the weights and their
 //                                transposes from L2 (the yardstick of the
 //                                cluster team in ode_emit_team.cu)
-//   cf_ode_replay_fwd_split2  <- _make_replay_chunk_kernel with
-//                                prepare_premixed_split2 (the fused-split2 tier)
+//   cf_ode_replay_fwd_split2_team8
+//                             <- _make_replay_chunk_kernel with
+//                                prepare_premixed_split2 (the fused-split2
+//                                tier), the same team (the yardstick of B7
+//                                split2 in ode_replay_team.cu)
 //   cf_ode_replay_bwd_emit_team8
 //                             <- the same on the two-term split (B8'),
 //                                prepare_premixed_split2
-// The cluster teams that replace B6, B8' and B8't on the main paths
-// (ode_team.cuh) are built from ode_select_team.cu and ode_emit_team.cu,
-// their own sources so that nvcc compiles them beside this one.
+// The cluster teams that replace B6, B7t-team, B7 split2, B8' and B8't on
+// the main paths (ode_team.cuh) are built from ode_select_team.cu,
+// ode_replay_team.cu and ode_emit_team.cu, their own sources so that nvcc
+// compiles them beside this one.
 // The JAX kernels trace any drift; these are written for the premixed
 // column-network drift with a knot stimulus and a bf16 split of the
 // recurrent matrix: the three-term one (prepare_premixed_split /
@@ -72,10 +79,11 @@
 //    227 KB do not hold the weights and the states (the replay from 24
 //    columns, the sweep from 18 at 4 lanes and 4 inputs) the wrappers take
 //    the team kernels instead (network_ode.py ode_fwd_route / ode_bwd_route).
-//  - The replays as teams (B7t-team, the split2 tier's B7) and the
-//    kernel-mode sweeps as teams (B8t-team, B8s): a team of kCluster blocks
-//    (one thread-block cluster) per lane, or for the batch in B8t-team, the
-//    weights read from L2, the states in global memory (team.cuh says how).
+//  - The replays as teams (B7t-team, the split2 tier's B7; the yardstick
+//    of ode_replay_team.cu's clusters) and the kernel-mode sweeps as teams
+//    (B8t-team, B8s): a team of kCluster blocks (one thread-block cluster)
+//    per lane, or for the batch in B8t-team, the weights read from L2, the
+//    states in global memory (team.cuh says how).
 //    B8t-team holds the batch for the same reason as B8: each block forms
 //    the weight-cotangent entries of its own output columns from every
 //    lane's exchanged terms.
@@ -743,8 +751,8 @@ ode_replay_bwd_team_kernel(Net n, int n_steps, Wg w, int team_bytes,
   }
 }
 
-// B7 as a team per lane: NT = 2 (cf_ode_replay_fwd_split2, the split2 tier)
-// or 3 (cf_ode_replay_fwd_team, B7t-team); lo unused at NT = 2.
+// B7 as a team per lane: NT = 2 (cf_ode_replay_fwd_split2_team8, the split2
+// tier) or 3 (cf_ode_replay_fwd_team_team8, B7t-team); lo unused at NT = 2.
 template <int NT>
 int replay_fwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps,
                     const float* bg, const float* adapt, const void* hi, const void* mid,
@@ -878,11 +886,11 @@ int cf_ode_attempt_team8(int B, int P, int n_in, int K, const float* hc, const f
   return (int)cudaGetLastError();
 }
 
-int cf_ode_replay_fwd_split2(int B, int P, int n_in, int K, const float* hc, int n_steps,
-                             const float* bg, const float* adapt, const void* hi,
-                             const void* mid, const float* iw, const float* kv, const float* st,
-                             const float* y0, float* scr, float* ys, float* coeffs,
-                             void* stream) {
+int cf_ode_replay_fwd_split2_team8(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                                   const float* bg, const float* adapt, const void* hi,
+                                   const void* mid, const float* iw, const float* kv,
+                                   const float* st, const float* y0, float* scr, float* ys,
+                                   float* coeffs, void* stream) {
   return replay_fwd_team<2>(B, P, n_in, K, hc, n_steps, bg, adapt, hi, mid, nullptr, iw, kv, st,
                             y0, scr, ys, coeffs, stream);
 }
@@ -899,10 +907,11 @@ int cf_ode_replay_bwd_emit_team8(int B, int P, int n_in, int K, const float* hc,
 // The f32-exact engine's team kernels, on the three-term split
 // (prepare_premixed_split); work (B8t-team): 3 P^2 + n_in P floats, the
 // step's accumulators. P must be a multiple of 8.
-int cf_ode_replay_fwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps,
-                           const float* bg, const float* adapt, const void* hi, const void* mid,
-                           const void* lo, const float* iw, const float* kv, const float* st,
-                           const float* y0, float* scr, float* ys, float* coeffs, void* stream) {
+int cf_ode_replay_fwd_team_team8(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                                 const float* bg, const float* adapt, const void* hi,
+                                 const void* mid, const void* lo, const float* iw,
+                                 const float* kv, const float* st, const float* y0, float* scr,
+                                 float* ys, float* coeffs, void* stream) {
   return replay_fwd_team<3>(B, P, n_in, K, hc, n_steps, bg, adapt, hi, mid, lo, iw, kv, st, y0,
                             scr, ys, coeffs, stream);
 }

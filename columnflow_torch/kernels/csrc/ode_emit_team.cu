@@ -21,7 +21,7 @@ int emit16(int B, int P, int n_in, int K, const float* hc, int n_steps, int stre
            const float* st, const float* ys, const float* cobar, float* ybar, float* ybar_steps,
            void* cstream) {
   Plan3 p;
-  if (int e = team3_plan(B, P, n_in, K, 1, NT, 1, stream, &p)) return e;
+  if (int e = team3_plan(B, P, n_in, K, 1, NT, kT3Sweep, stream, &p)) return e;
   const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
   const uint32_t* w = (const uint32_t*)wpk;
   const cudaStream_t s = (cudaStream_t)cstream;

@@ -6,8 +6,8 @@
 //                       split (the f32-exact engine's drift, and the split2
 //                       tier's select_func)
 //   cf_ode_attempt   <- the same body, one controller attempt
-//   cf_ode_team_plan the teams' plan (plan3), for the wrapper's to be held
-//                       against
+//   cf_ode_team_plan the teams' plan (plan3: the selection's, the sweep's and
+//                       the replay's), for the wrapper's to be held against
 // Plain C entry points, loaded with ctypes by
 // columnflow_torch/kernels/_build.py; each returns cudaGetLastError().
 // Precision and design: ode_team.cuh.
@@ -50,7 +50,7 @@ int cf_ode_select(int B, int P, int n_in, int K, const float* hc, const float* h
                   const float* adapt, const void* wpk, const float* iw, const float* kv,
                   const float* y0, float* st, int* stats, void* cstream) {
   Plan3 p;
-  if (int e = team3_plan(B, P, n_in, K, B, 3, 0, stream, &p)) return e;
+  if (int e = team3_plan(B, P, n_in, K, B, 3, kT3Select, stream, &p)) return e;
   const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
   const Sel sel = make_sel(hs, use_initial, max_steps);
   const uint32_t* w = (const uint32_t*)wpk;
@@ -64,7 +64,7 @@ int cf_ode_attempt(int B, int P, int n_in, int K, const float* hc, const float* 
                    const float* kv, const float* t, const float* h, const float* y,
                    const float* f0, float* y1, float* f1, float* rec, void* cstream) {
   Plan3 p;
-  if (int e = team3_plan(B, P, n_in, K, B, 3, 0, stream, &p)) return e;
+  if (int e = team3_plan(B, P, n_in, K, B, 3, kT3Select, stream, &p)) return e;
   const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
   const Sel sel = make_sel(hs, 0, 0);
   const uint32_t* w = (const uint32_t*)wpk;
@@ -74,17 +74,21 @@ int cf_ode_attempt(int B, int P, int n_in, int K, const float* hc, const float* 
 }
 
 // The team plan (Plan3, in order: C, nc, NT, NB, LB, G, gw, xs, L, Lv, rw,
-// ipt, slots, stream, R, T, S, fits, slot bytes, fixed bytes, bytes) of the
-// selection (sweep 0, NB lanes, three terms) or the sweep (sweep 1, one
-// lane, NT terms) at P, for the wrapper's own reckoning to be held against.
-int cf_ode_team_plan(int P, int n_in, int NB, int NT, int sweep, int stream, long long* out) {
-  if (P <= 0 || P % 8 || n_in < 0 || n_in > kMaxInputs || NB < 1 || NT < 2 || NT > 3)
+// ipt, slots, stream, R, T, S, fits, slot bytes, fixed bytes, bytes, f32) of the
+// selection (use kT3Select: NB lanes, three terms), the sweep (kT3Sweep:
+// one lane, NT terms) or the replay (kT3Replay: one lane, NT terms) at P
+// with clusters of C blocks (0: the default, 16 where 16 divides P, else
+// 8), for the wrapper's own reckoning to be held against.
+int cf_ode_team_plan(int P, int n_in, int NB, int NT, int use, int C, int stream,
+                     long long* out) {
+  if (P <= 0 || P % 8 || n_in < 0 || n_in > kMaxInputs || NB < 1 || NT < 2 || NT > 3 ||
+      use < kT3Select || use > kT3Replay || (C != 0 && C != 8 && C != 16) || (C && P % C))
     return (int)cudaErrorInvalidValue;
-  const Plan3 p = plan3(P, n_in, NB, NT, sweep, stream);
-  const long long v[21] = {p.C, p.nc, p.NT, p.NB, p.LB, p.G, p.gw, p.xs, p.L, p.Lv, p.rw,
+  const Plan3 p = plan3(P, n_in, NB, NT, use, stream, C);
+  const long long v[22] = {p.C, p.nc, p.NT, p.NB, p.LB, p.G, p.gw, p.xs, p.L, p.Lv, p.rw,
                            p.ipt, p.slots, p.stream, p.R, p.T, p.S, p.fits,
-                           (long long)p.slot, (long long)p.fixed, (long long)p.bytes};
-  for (int j = 0; j < 21; ++j) out[j] = v[j];
+                           (long long)p.slot, (long long)p.fixed, (long long)p.bytes, p.f32};
+  for (int j = 0; j < 22; ++j) out[j] = v[j];
   return 0;
 }
 

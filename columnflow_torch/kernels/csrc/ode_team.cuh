@@ -1,45 +1,53 @@
-// The dopri5 selection (B6) and the emit-mode reverse sweep (B8' on the
-// two-term split, B8't on the three-term one) as Hopper thread-block-cluster
-// teams: network_ode.cu's cf_ode_select, cf_ode_attempt,
-// cf_ode_replay_bwd_emit and cf_ode_replay_bwd_emit_split3. Included once;
-// the definitions live in an unnamed namespace.
+// The dopri5 selection (B6), the forward replay over the frozen grid (B7t-team
+// on the three-term split, B7 split2 on the two-term one) and the emit-mode
+// reverse sweep (B8' on the two-term split, B8't on the three-term one) as
+// Hopper thread-block-cluster teams: cf_ode_select, cf_ode_attempt
+// (ode_select_team.cu), cf_ode_replay_fwd_team, cf_ode_replay_fwd_split2
+// (ode_replay_team.cu), cf_ode_replay_bwd_emit and
+// cf_ode_replay_bwd_emit_split3 (ode_emit_team.cu). Included once per
+// source; the definitions live in an unnamed namespace.
 //
 // Replaces (columnflow/solvers/fused.py):
 //   ode_select16_kernel  <- _make_adaptive_kernel (B6): Hairer's initial
 //                           step, the accept/reject loop and the accepted
 //                           times, on prepare_premixed_split's three terms
 //   ode_attempt16_kernel <- one iteration of that loop (a test entry)
+//   ode_replay16_kernel  <- _make_replay_chunk_kernel (B7t-team, B7 split2):
+//                           per step the step-start state and the six-stage
+//                           step's five dense-output rows
 //   ode_emit16_kernel    <- _make_bwd_chunk_kernel(emit_steps=True) (B8',
 //                           B8't): the state cotangent alone and each
 //                           step's output cotangent
 //
 // What bounds them on this card: serial chains (~1.3 * 10^4 selection
 // attempts over the second at 104 columns, ~1.2 * 10^4 accepted steps),
-// each attempt six drift evaluations and each sweep step six drifts and
-// seven drift VJPs, every one a (B, P) x (P, P) product on each term of the
-// split. The work of one is a few MFLOP; what costs is its latency. The
-// teams they replace (team.cuh, 8 blocks) read the bf16 terms from L2 in
-// every product and kept the states in global memory.
+// each attempt six drift evaluations, each replay step seven and each sweep
+// step six drifts and seven drift VJPs, every one a (B, P) x (P, P) product
+// on each term of the split. The work of one is a few MFLOP; what costs is
+// its latency. The teams they replace (team.cuh, 8 blocks) read the bf16
+// terms from L2 in every product and kept the states in global memory.
 //
 // This design follows B3/B4's (replay2_team.cuh). A team is a cluster of C
-// blocks (16 where 16 divides P, else 8; launched with cudaLaunchKernelEx):
-// ONE team for the selection's batch (its controller's error ratio is an
-// RMS over every lane, so every block must see the same sum, which a
-// cluster barrier gives and a launch of several clusters does not), one per
-// lane for the sweep. Block r owns the populations [r nc, (r+1) nc), nc =
-// P / C, of every lane it holds, and keeps the columns [r nc, (r+1) nc) of
-// the NT bf16 terms of wT, packed by the wrapper (ode_team_pack) into one
-// (P, rw) slice of 32-bit words: row k holds the hi, mid (and lo) bf16 of
-// the block's columns, two a word, then pad words. A product needs no
+// blocks (16 where 16 divides P, else 8; the replay also takes 8 where the
+// card cannot hold a cluster of 16 for every lane at once; launched with
+// cudaLaunchKernelEx): ONE team for the selection's batch (its controller's
+// error ratio is an RMS over every lane, so every block must see the same
+// sum, which a cluster barrier gives and a launch of several clusters does
+// not), one per lane for the replay and the sweep. Block r owns the
+// populations [r nc, (r+1) nc), nc = P / C, of every lane it holds, and
+// keeps the columns [r nc, (r+1) nc) of the NT bf16 terms of wT, packed by
+// the wrapper (ode_team_pack) into one (P, rw) slice of 32-bit words: row k
+// holds the hi, mid (and lo) bf16 of the block's columns, two a word, then
+// pad words. A product needs no
 // conversion: the bf16's bits placed in a double's sign, exponent and
 // mantissa make the exact float64 w 2^-896 (t3_w), the other operand is
 // held scaled by 2^896, and the product is exact (B3's and B4's products
 // convert at ~7.5 bf16 -> float64 a cycle, PERF.md; each weight held as its
 // float64 high word would need no bit operations but streams twice the
 // bytes, which measured slower at 104 columns). The slice is copied by TMA
-// bulk copies on mbarriers: once,
-// where it fits (13 and 32 columns, and the two-term sweep at 104), else
-// through tma_ring.cuh's ring of tiles.
+// bulk copies on mbarriers: once, where it fits (13 and 32 columns, and the
+// two-term replay and sweep at 104), else through tma_ring.cuh's ring of
+// tiles, whose tile sequence runs on across drifts and steps.
 //   The state of an owned (lane, population) lives in the registers of the
 // thread that owns it (item q of thread x: e = x + q * kThreads, lane e /
 // nc, population r nc + e mod nc; at most two items a thread). A drift
@@ -61,7 +69,15 @@
 // copy of the weights is needed. Exchange slots are double buffered (team.cuh's
 // argument: one cluster barrier per exchange) where two fit; where only one
 // does (16 lanes at 104 columns) a second cluster barrier precedes each
-// exchange's stores.
+// exchange's stores. The replay has no VJP: its plan (LB = 1, no VJP slot)
+// gives what that frees to the slice; its products sum in the 8-block
+// team's order (t3_chunks: contiguous chunks of rows, a thread for each
+// chunk and column), so that it equals that team bit for bit; where the
+// three bf16 terms would stream and the float32 wT fits (104 columns), the
+// slice holds wT, split as it is read (t3_split_w); and its owners write
+// each step's rows to device memory from registers after the next drift's
+// cluster barrier, so that the barrier's release does not wait for the
+// stores.
 //   Rows are padded so that a warp's loads fall in distinct banks: rw is
 // max(1, u / 2) times an odd number, u = 32 / L = Lv; a warp of the forward
 // products reads L rows of 32 / L consecutive columns, one of the VJP 32 /
@@ -88,6 +104,11 @@ namespace cgo = cooperative_groups;
 
 constexpr int kT3MaxItems = 2;  // owned (lane, population) items a thread holds at most
 
+// The uses of a team's plan (Plan3): the selection (the batch, forward
+// products only), the emit-mode sweep (one lane, drifts and VJPs), the
+// replay (one lane, drifts only).
+constexpr int kT3Select = 0, kT3Sweep = 1, kT3Replay = 2;
+
 // A team's shape, computed alike on the host (launch, shared-memory bytes)
 // and in the kernel (carving, thread mappings); kernels/network_ode.py
 // ode_team_plan repeats it and cf_ode_team_plan reports it.
@@ -95,11 +116,12 @@ struct Plan3 {
   int C;        // blocks per team (the cluster size)
   int nc;       // populations a block owns
   int NT, NB;   // terms of the split; lanes the team holds
-  int LB, G;    // forward products: lanes per thread (the sweep 1, the selection 4; 2 where
-                // a thread owns two items, for registers), lane groups
+  int LB, G;    // forward products: lanes per thread (the sweep and the replay 1, the
+                // selection 4; 2 where a thread owns two items, for registers), lane groups
   int gw, xs;   // exchange words of a lane group, of a row k (even)
   int L, Lv;    // forward products: lanes per (group, column); VJP: lanes per row
-  int rw;       // 32-bit words of a packed row: NT nc bf16 and pad (max(1, Lv / 2) times odd)
+  int rw;       // 32-bit words of a packed row: NT nc bf16 (f32: nc float32) and pad (max(1,
+                // Lv / 2) times odd; f32: Lv times odd)
   int ipt;      // owned items per thread
   int slots;    // exchange slots (2: double buffered)
   int stream;   // 0: the slice is resident; 1: streamed in tiles
@@ -107,12 +129,45 @@ struct Plan3 {
   int fits;     // 0: no shape of this design fits a block, or a thread would own more than
                 // kT3MaxItems items (the route takes team8)
   size_t slot, fixed, bytes;  // bytes of an exchange slot, before the weights, in all
+  int f32;      // 1: the slice holds the float32 wT, split as it is read (t3_split_w)
 };
 
-__host__ __device__ inline size_t t3_fixed(const Plan3& p, int n_in, int slots) {
+// Words of a packed row, padded so that a warp's loads fall in distinct
+// banks: NT nc bf16, two a word (f32: nc float32, one a word), padded to v
+// times an odd number of words, v = max(1, u / 2) (f32: u) for the u = 32 /
+// L (= Lv) consecutive columns a warp reads in a row.
+__host__ __device__ inline int t3_row_words(int nc, int NT, int Lv, bool f32) {
+  const int v = f32 ? Lv : (Lv > 1 ? Lv / 2 : 1);
+  int rw = ((f32 ? nc : (NT * nc + 1) / 2) + v - 1) / v * v;
+  if ((rw / v) % 2 == 0) rw += v;
+  return rw;
+}
+
+// The replay's forward products take the 8-block team's sum order
+// (team.cuh drift_team, team8): the P rows in G contiguous chunks of kc
+// (G from split_of of team8's P / 8 columns a block: 4 at 104 columns, 8
+// through 64, 1 at 312), each chunk summed in order, the chunks' sums added
+// in chunk order, so that its float64 sums, and its rows, are team8's bit
+// for bit. (The selection's order, rows k = l mod L and a butterfly, parts
+// from cuBLAS's in the float32 rounding of a sum a little more often: one
+// element of phase 47's 104-column windows, PERF.md.) Thread (g, j) sums
+// chunk g of column j for all the products, so that each weight is read and
+// split once.
+__host__ __device__ inline int t3_chunks(int P) {
+  const int nc8 = P / 8;
+  return 2 * nc8 <= kThreads ? (kThreads / nc8 < 8 ? kThreads / nc8 : 8) : 1;
+}
+
+// The VJP's own cotangents (nc float64), or the replay's chunk sums (G NP nc).
+__host__ __device__ inline size_t t3_cvec(const Plan3& p, int use) {
+  const size_t np = p.NT == 3 ? 6 : 3;
+  return t2_align(8 * (use == kT3Replay ? t3_chunks(p.C * p.nc) * np : 1) * (size_t)p.nc);
+}
+
+__host__ __device__ inline size_t t3_fixed(const Plan3& p, int n_in, int slots, int use) {
   return (size_t)slots * p.slot
          + t2_align(4 * (size_t)p.NB * p.nc)                   // the lanes' rec sums
-         + t2_align(8 * (size_t)p.nc)                          // the VJP's own cotangents
+         + t3_cvec(p, use)
          + t2_align(4 * 2 * (size_t)p.NB * n_in)               // the stimulus, double buffered
          + t2_align(4 * (size_t)kMaxKnots * p.NB * n_in)       // the lanes' knot values
          + t2_align(4 * (size_t)(n_in + 2) * p.nc)             // own iwT columns, bg, adapt
@@ -120,32 +175,39 @@ __host__ __device__ inline size_t t3_fixed(const Plan3& p, int n_in, int slots) 
          + t2_align(8 * (size_t)(1 + 2 * kT2MaxStages));       // mbarriers
 }
 
-__host__ __device__ inline Plan3 plan3(int P, int n_in, int NB, int NT, int sweep,
-                                       int want_stream) {
+// The plan of a use at P populations; C the cluster size (0: 16 where 16
+// divides P, else 8; the caller has checked that C divides P).
+__host__ __device__ inline Plan3 plan3(int P, int n_in, int NB, int NT, int use,
+                                       int want_stream, int C = 0) {
   Plan3 p;
-  p.C = P % 16 == 0 ? 16 : 8;
+  p.C = C > 0 ? C : (P % 16 == 0 ? 16 : 8);
   p.nc = P / p.C;
   p.NT = NT;
   p.NB = NB;
   p.ipt = (NB * p.nc + kThreads - 1) / kThreads;
-  p.LB = sweep ? 1 : (p.ipt == 1 ? 4 : 2);
+  p.LB = use != kT3Select ? 1 : (p.ipt == 1 ? 4 : 2);
   p.G = (NB + p.LB - 1) / p.LB;
   p.gw = (p.LB * NT + 1) / 2 * 2;
   p.xs = p.G * p.gw;
   p.L = 32;
   while (p.L > 1 && p.G * p.nc * p.L > kThreads) p.L /= 2;
   p.Lv = 32 / p.L;
-  // A row's NT nc bf16, two a word, padded to v times an odd number of
-  // words, v = max(1, u / 2) for the u = 32 / L (= Lv) consecutive columns
-  // a warp reads in a row: the warp's rows then fall in distinct banks.
-  const int v = p.Lv > 1 ? p.Lv / 2 : 1;
-  p.rw = ((NT * p.nc + 1) / 2 + v - 1) / v * v;
-  if ((p.rw / v) % 2 == 0) p.rw += v;
-  const size_t xb = 4 * (size_t)P * p.xs, vb = sweep ? 8 * (size_t)NT * P : 0;
+  p.rw = t3_row_words(p.nc, NT, p.Lv, false);
+  const size_t xb = 4 * (size_t)P * p.xs, vb = use == kT3Sweep ? 8 * (size_t)NT * P : 0;
   p.slot = t2_align(xb > vb ? xb : vb);
-  const size_t row = 4 * (size_t)p.rw;
   p.fits = p.ipt <= kT3MaxItems;
-  const size_t f2 = t3_fixed(p, n_in, 2);
+  const size_t f2 = t3_fixed(p, n_in, 2, use);
+  // The three-term replay keeps the float32 wT instead where that slice
+  // stays resident and the three bf16 terms' would not (4 bytes a weight
+  // against 6: 90-104 columns with clusters of 16, 63-72 with clusters of
+  // 8): splitting each weight as it is read costs more than the ring saves
+  // where the terms stream anyway (312 columns), and the same where they fit
+  // (PERF.md).
+  const int rw32 = t3_row_words(p.nc, NT, p.Lv, true);
+  p.f32 = use == kT3Replay && NT == 3 && f2 + 4 * (size_t)p.rw * P > kT2SmemLimit &&
+          f2 + 4 * (size_t)rw32 * P <= kT2SmemLimit;
+  if (p.f32) p.rw = rw32;
+  const size_t row = 4 * (size_t)p.rw;
   if (!want_stream && f2 + row * P <= kT2SmemLimit) {
     p.slots = 2;
     p.stream = 0;
@@ -165,7 +227,7 @@ __host__ __device__ inline Plan3 plan3(int P, int n_in, int NB, int NT, int swee
   const int r0 = 16 * p.L > kT2MinTileRows ? 16 * p.L : kT2MinTileRows;
   const int rmin = p.L > 8 ? p.L : 8;
   for (int slots = 2; slots >= 1; --slots) {
-    const size_t f = t3_fixed(p, n_in, slots);
+    const size_t f = t3_fixed(p, n_in, slots, use);
     const size_t room = f < kT2SmemLimit ? kT2SmemLimit - f : 0;
     for (int R = r0; R >= rmin; R /= 2) {
       const int T = (P + R - 1) / R;
@@ -188,17 +250,18 @@ __host__ __device__ inline Plan3 plan3(int P, int n_in, int NB, int NT, int swee
   p.R = P;
   p.T = 1;
   p.S = 0;
-  p.fixed = t3_fixed(p, n_in, 1);
+  p.fixed = t3_fixed(p, n_in, 1, use);
   p.bytes = p.fixed;
   return p;
 }
 
 // The team plan of a launch, or an error where the shape is not taken.
-int team3_plan(int B, int P, int n_in, int K, int NB, int NT, int sweep, int stream,
-               Plan3* p) {
+int team3_plan(int B, int P, int n_in, int K, int NB, int NT, int use, int stream, Plan3* p,
+               int C = 0) {
   if (int e = check_shape(P, n_in, K)) return e;
-  if (P % 8 || B < 1) return (int)cudaErrorInvalidValue;
-  *p = plan3(P, n_in, NB, NT, sweep, stream);
+  if (P % 8 || B < 1 || (C != 0 && C != 8 && C != 16) || (C && P % C))
+    return (int)cudaErrorInvalidValue;
+  *p = plan3(P, n_in, NB, NT, use, stream, C);
   return p->fits ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -221,7 +284,8 @@ struct Team3 {
   unsigned char* ex;     // exchange slot 0: X (P, xs) words, or (NT, C, nc) VJP partials
   size_t exs;            // bytes from slot 0 to slot 1 (0: one slot)
   float* recs;           // (NB, nc) the lanes' rec sums of the own columns
-  double* cvec;          // (nc) the VJP's cotangent of the own populations
+  double* cvec;          // (nc) the VJP's cotangent of the own populations; the replay:
+                         // (G, NP, nc) the own columns' chunk sums (t3_fwd_chunks)
   float* ext;            // (2, NB, n_in) the stimulus
   float* kvs;            // (K, NB, n_in) the lanes' knot values
   float* iwc;            // (n_in, nc) the own columns of iwT
@@ -243,13 +307,13 @@ __device__ __forceinline__ unsigned char* t3_slot(const Team3& T) {
 // Carve the shared memory, copy what the drift reads of the own populations
 // and of the lanes' stimulus, start the weights' copies, and make sure every
 // block of the cluster has started before any writes into another's shared
-// memory. NB lanes from b0 of the knot table; sweep: the emit-mode sweep's
-// plan (one lane, with VJPs).
-__device__ __forceinline__ void team3_init(Team3& T, unsigned char* sm, const Net& n, int NB, int NT, int sweep,
-                           int b0, const uint32_t* wpk, const float* __restrict__ iw,
-                           int stream) {
+// memory. NB lanes from b0 of the knot table; use: kT3Select, kT3Sweep or
+// kT3Replay; C: the cluster size (0: the default).
+__device__ __forceinline__ void team3_init(Team3& T, unsigned char* sm, const Net& n, int NB,
+                                           int NT, int use, int b0, const uint32_t* wpk,
+                                           const float* __restrict__ iw, int stream, int C = 0) {
   const int P = n.P, NI = n.n_in;
-  T.p = plan3(P, NI, NB, NT, sweep, stream);
+  T.p = plan3(P, NI, NB, NT, use, stream, C);
   const Plan3& p = T.p;
   T.rank = (int)cgo::this_cluster().block_rank();
   T.c0 = T.rank * p.nc;
@@ -262,7 +326,7 @@ __device__ __forceinline__ void team3_init(Team3& T, unsigned char* sm, const Ne
   T.recs = reinterpret_cast<float*>(q);
   q += t2_align(4 * (size_t)NB * p.nc);
   T.cvec = reinterpret_cast<double*>(q);
-  q += t2_align(8 * (size_t)p.nc);
+  q += t3_cvec(p, use);
   T.ext = reinterpret_cast<float*>(q);
   q += t2_align(4 * 2 * (size_t)NB * NI);
   T.kvs = reinterpret_cast<float*>(q);
@@ -340,6 +404,20 @@ __device__ __forceinline__ float t3_knot(const Net& n, const Team3& T, int bb, i
     out = out + frac * (T.kvs[(k * NB + bb) * NI + m] - T.kvs[((k - 1) * NB + bb) * NI + m]);
   }
   return out;
+}
+
+// A float32 weight (its bits u) split as split_f32 splits it (hi = bf16(w),
+// mid = bf16(w - hi), lo = bf16((w - hi) - mid), each rounded to nearest),
+// each term as the float64 t3_w gives its bf16.
+__device__ __forceinline__ void t3_split_w(uint32_t u, double& wh, double& wm, double& wl) {
+  const float w = __uint_as_float(u);
+  const bf16 h = __float2bfloat16_rn(w);
+  const float r = w - __bfloat162float(h);
+  const bf16 m = __float2bfloat16_rn(r);
+  const bf16 l = __float2bfloat16_rn(r - __bfloat162float(m));
+  wh = t3_w(__bfloat16_as_ushort(h));
+  wm = t3_w(__bfloat16_as_ushort(m));
+  wl = t3_w(__bfloat16_as_ushort(l));
 }
 
 // The forward products of a drift evaluation: for every lane b and own
@@ -439,6 +517,84 @@ __device__ __forceinline__ void t3_fwd_products(Team3& T, int P, const uint32_t*
   }
 }
 
+// The replay's forward products (one lane a team) in team8's sum order
+// (t3_chunks): thread (g, j) walks the tiles in order, summing the rows of
+// chunk g in each for every product of column j, stores its chunk sums,
+// and after a block barrier the owner of column j adds the G chunks' sums
+// of each product in chunk order, rounds each to float32 and adds them in
+// matmul_split's order (three terms: x_hi W_lo, x_mid W_mid, x_lo W_hi,
+// x_hi W_mid, x_mid W_hi, x_hi W_hi; two: x_hi W_hi, x_hi W_mid,
+// x_mid W_hi) -> recs[j]. A warp's threads take consecutive columns of one
+// row: consecutive words of the slice, the rates' row a broadcast. kF32:
+// the slice holds the float32 wT, split as it is read.
+template <int NT, bool kStream, bool kF32>
+__device__ __forceinline__ void t3_fwd_chunks(Team3& T, int P, const uint32_t* __restrict__ X) {
+  constexpr int NP = NT == 3 ? 6 : 3;
+  const Plan3& p = T.p;
+  const int G = t3_chunks(P), kc = (P + G - 1) / G;
+  const int nc = p.nc, rw = p.rw, xs = p.xs, R = p.R, NTl = p.T;
+  const int o = threadIdx.x, j = o % nc, g = o / nc;
+  const bool act = g < G;
+  const int c0 = g * kc, c1 = min(P, c0 + kc);
+  double acc[NP];
+#pragma unroll
+  for (int r = 0; r < NP; ++r) acc[r] = 0.0;
+  for (int m = 0; m < NTl; ++m) {
+    const int gg = T.used + m;
+    const uint32_t* tile = t2_acquire<kStream>(T, gg, P);
+    const int tk0 = m * R, k0 = max(tk0, c0), k1 = min(min(P, tk0 + R), c1);
+    if (act) {
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) {
+        double wh, wm, wl = 0.0;
+        if constexpr (kF32) {
+          t3_split_w(tile[(size_t)(k - tk0) * rw + j], wh, wm, wl);
+        } else {
+          const uint16_t* row =
+              reinterpret_cast<const uint16_t*>(tile + (size_t)(k - tk0) * rw) + j;
+          wh = t3_w(row[0]);
+          wm = t3_w(row[nc]);
+          if constexpr (NT == 3) wl = t3_w(row[2 * nc]);
+        }
+        if constexpr (NT == 3) {
+          const uint4 u = *reinterpret_cast<const uint4*>(X + (size_t)k * xs);
+          const double a = t3_x(u.x), c = t3_x(u.y), d = t3_x(u.z);
+          acc[0] = fma(a, wl, acc[0]);
+          acc[1] = fma(c, wm, acc[1]);
+          acc[2] = fma(d, wh, acc[2]);
+          acc[3] = fma(a, wm, acc[3]);
+          acc[4] = fma(c, wh, acc[4]);
+          acc[5] = fma(a, wh, acc[5]);
+        } else {
+          const uint2 u = *reinterpret_cast<const uint2*>(X + (size_t)k * xs);
+          const double a = t3_x(u.x), c = t3_x(u.y);
+          acc[0] = fma(a, wh, acc[0]);
+          acc[1] = fma(a, wm, acc[1]);
+          acc[2] = fma(c, wh, acc[2]);
+        }
+      }
+    }
+    t2_release<kStream>(T, gg);
+  }
+  if (kStream) T.used += NTl;
+  double* const part = T.cvec;  // (G, NP, nc)
+  if (act) {
+#pragma unroll
+    for (int r = 0; r < NP; ++r) part[((size_t)g * NP + r) * nc + j] = acc[r];
+  }
+  __syncthreads();
+  if (o < nc) {
+    float rec = 0.0f;
+#pragma unroll
+    for (int r = 0; r < NP; ++r) {
+      double q = part[(size_t)r * nc + o];
+      for (int gc = 1; gc < G; ++gc) q += part[((size_t)gc * NP + r) * nc + o];
+      rec = r == 0 ? (float)q : rec + (float)q;
+    }
+    T.recs[o] = rec;
+  }
+}
+
 // A VJP's products (one lane a team): for every row k, the sums over this
 // block's columns j of cvec[j] W_t[k, j] for each term t (Lv lanes per row,
 // lane l summing the columns j = l mod Lv in order, then a butterfly),
@@ -487,11 +643,20 @@ __device__ __forceinline__ void t3_vjp_products(Team3& T, int P) {
   if (kStream) T.used += NTl;
 }
 
+struct T3NoOp {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // One drift evaluation of the team's lanes at time t: the owned items'
 // states s -> out (owner threads); every thread of the block calls it.
-template <int NT, int LB, int IPT, bool kStream>
+// kChunks: the replay's products in team8's order (t3_fwd_chunks; one lane),
+// kF32 its slice the float32 wT.
+// after_barrier() runs in every thread right after the exchange's cluster
+// barrier (the replay stores its previous step's rows there).
+template <int NT, int LB, int IPT, bool kStream, bool kF32 = false, bool kChunks = false,
+          class Mid = T3NoOp>
 __device__ __forceinline__ void t3_drift(const Net& n, Team3& T, float t, const float (&s)[IPT][3],
-                                         float (&out)[IPT][3]) {
+                                         float (&out)[IPT][3], Mid after_barrier = Mid()) {
   cgo::cluster_group cl = cgo::this_cluster();
   const Plan3& p = T.p;
   const int nc = p.nc, NI = n.n_in, NB = p.NB, own = NB * nc, C = p.C, xs = p.xs, gw = p.gw;
@@ -548,7 +713,11 @@ __device__ __forceinline__ void t3_drift(const Net& n, Team3& T, float t, const 
     }
   }
   cl.sync();
-  t3_fwd_products<NT, LB, kStream>(T, n.P, X);
+  after_barrier();
+  if constexpr (kChunks)
+    t3_fwd_chunks<NT, kStream, kF32>(T, n.P, X);
+  else
+    t3_fwd_products<NT, LB, kStream>(T, n.P, X);
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < IPT; ++q) {
@@ -734,7 +903,7 @@ ode_select16_kernel(Net n, Sel sel, const uint32_t* __restrict__ wpk,
                     float* __restrict__ st, int* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smt[];
   Team3 T;
-  team3_init(T, smt, n, n.B, 3, 0, 0, wpk, iw, kStream);
+  team3_init(T, smt, n, n.B, 3, kT3Select, 0, wpk, iw, kStream);
   const int P = n.P, N = n.B * 3 * P, M = sel.max_steps;
   const bool lead = T.rank == 0;
   if (lead)
@@ -794,7 +963,7 @@ ode_attempt16_kernel(Net n, Sel sel, const uint32_t* __restrict__ wpk,
                      float* __restrict__ f1, float* __restrict__ rec) {
   extern __shared__ __align__(16) unsigned char smt[];
   Team3 T;
-  team3_init(T, smt, n, n.B, 3, 0, 0, wpk, iw, kStream);
+  team3_init(T, smt, n, n.B, 3, kT3Select, 0, wpk, iw, kStream);
   const int P = n.P, N = n.B * 3 * P;
   SelState<IPT> u;
 #pragma unroll
@@ -828,6 +997,86 @@ ode_attempt16_kernel(Net n, Sel sel, const uint32_t* __restrict__ wpk,
 }
 
 // ---------------------------------------------------------------------------
+// B7t-team / B7 split2: the replay over the frozen grid, one team per lane
+// ---------------------------------------------------------------------------
+
+// Lane blockIdx.x / C over steps 0..n-1: per step k, from the step-start
+// state y at t0 = st[k] with h = st[k+1] - t0, the stages k0 = f(t0, y)
+// and k_i = f(t0 + c_i h, Y_i), Y_i = y + sum_j (h a_ij) k_j (Y_6 = y1),
+// then ys[k] = y and the five dense rows
+//   r1 = y, r2 = dy = y1 - y, r3 = h k0 - dy, r4 = (dy - h k6) - r3,
+//   r5 = sum_j (h d_j) k_j
+// (network_ode.cu ode_replay_fwd_kernel, operation for operation), y = y1.
+// The owners keep y and the seven stage derivatives in registers and write
+// a step's six rows after the next step's first cluster barrier (the last
+// step's at the end). NT = 3: B7t-team; NT = 2: B7 split2. kF32: the
+// slice holds the float32 wT (Plan3 f32).
+template <int NT, bool kStream, bool kF32>
+__global__ void __launch_bounds__(kThreads, 1)
+ode_replay16_kernel(Net n, int C, int n_steps, const uint32_t* __restrict__ wpk,
+                    const float* __restrict__ iw, const float* __restrict__ st,
+                    const float* __restrict__ y0, float* __restrict__ ys,
+                    float* __restrict__ coeffs) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team3 T;
+  const int b = blockIdx.x / C;
+  team3_init(T, smt, n, 1, NT, kT3Replay, b, wpk, iw, kStream, C);
+  const int P = n.P;
+  const size_t N = (size_t)n.B * 3 * P;  // a (B, 3P) row of ys or coeffs
+  const bool own = threadIdx.x < T.p.nc;
+  const size_t col = (size_t)b * 3 * P + T.c0 + threadIdx.x;
+  float y[1][3], Y[1][3], f[1][3], kk[3][kStages];
+  float rows[5][3];  // the step's dense rows, written after the next barrier
+  int done = -1;     // the step whose rows are pending
+#pragma unroll
+  for (int c = 0; c < 3; ++c) y[0][c] = own ? y0[col + c * P] : 0.0f;
+  float ta = n_steps > 0 ? st[0] : 0.0f, tb = n_steps > 0 ? st[1] : 0.0f;
+  auto store = [&]() {
+    if (own && done >= 0) {
+      float* yk = ys + (size_t)done * N + col;
+      float* ck = coeffs + (size_t)done * 5 * N + col;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        yk[c * P] = rows[0][c];
+#pragma unroll
+        for (int r = 0; r < 5; ++r) ck[r * N + c * P] = rows[r][c];
+      }
+    }
+  };
+  for (int k = 0; k < n_steps; ++k) {
+    const float t0 = ta, h = tb - t0;
+    const float tc = k + 2 <= n_steps ? st[k + 2] : 0.0f;  // the next step's end, early
+    t3_drift<NT, 1, 1, kStream, kF32, true>(n, T, t0, y, f, store);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) kk[c][0] = f[0][c];
+#pragma unroll
+    for (int i = 1; i < kStages; ++i) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) Y[0][c] = stage(i, h, y[0][c], kk[c]);
+      t3_drift<NT, 1, 1, kStream, kF32, true>(n, T, t0 + kC[i] * h, Y, f);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) kk[c][i] = f[0][c];
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {  // Y holds y1 = Y_6
+      const float dy = Y[0][c] - y[0][c];
+      const float r3 = h * kk[c][0] - dy;
+      rows[0][c] = y[0][c];
+      rows[1][c] = dy;
+      rows[2][c] = r3;
+      rows[3][c] = (dy - h * kk[c][kStages - 1]) - r3;
+      rows[4][c] = weighted(kD, h, kk[c]);
+      y[0][c] = Y[0][c];
+    }
+    done = k;
+    ta = tb;
+    tb = tc;
+  }
+  store();
+  if (kStream) t2_drain(T);
+}
+
+// ---------------------------------------------------------------------------
 // B8' / B8't: the emit-mode sweep, one team per lane
 // ---------------------------------------------------------------------------
 
@@ -849,7 +1098,7 @@ ode_emit16_kernel(Net n, int n_steps, const uint32_t* __restrict__ wpk,
   extern __shared__ __align__(16) unsigned char smt[];
   Team3 T;
   const int b = blockIdx.x / (n.P % 16 == 0 ? 16 : 8);
-  team3_init(T, smt, n, 1, NT, 1, b, wpk, iw, kStream);
+  team3_init(T, smt, n, 1, NT, kT3Sweep, b, wpk, iw, kStream);
   const int P = n.P, S = 3 * P, B = n.B;
   const size_t N = (size_t)B * S;
   const bool own = threadIdx.x < T.p.nc;

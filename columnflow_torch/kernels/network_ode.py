@@ -4,19 +4,22 @@ the three Pallas kernels of ``odeint_dopri5_fused`` in
 ``columnflow/solvers/fused.py``).
 
 Each kernel is CUDA C++ in ``csrc/network_ode.cu``, or, for the cluster
-teams of B6, B8' and B8't (``csrc/ode_team.cuh``), ``csrc/ode_select_team.cu``
-and ``csrc/ode_emit_team.cu`` (built by ``_build``), with a plain PyTorch
-version beside it that repeats its arithmetic:
+teams of B6, B7t-team, B7 split2, B8' and B8't (``csrc/ode_team.cuh``),
+``csrc/ode_select_team.cu``, ``csrc/ode_replay_team.cu`` and
+``csrc/ode_emit_team.cu`` (built by ``_build``), with a plain PyTorch version
+beside it that repeats its arithmetic:
 
     wrapper               kernel                     plain version               replaces (columnflow/solvers/fused.py)
     ode_select            cf_ode_select              _ode_select_plain           _make_adaptive_kernel (B6;
                           (cf_ode_select_team8)                                  route "team8": the yardstick)
     ode_attempt           cf_ode_attempt             _ode_attempt_plain          one iteration of that kernel's body
     ode_replay_fwd        cf_ode_replay_fwd          _ode_replay_fwd_plain       _make_replay_chunk_kernel (B7;
-                          (cf_ode_replay_fwd_team)                               as a team, B7t-team: ``ode_fwd_route``)
+                          (cf_ode_replay_fwd_team)                               as a team, B7t-team: ``ode_fwd_route``;
+                                                                                 route "team8": cf_ode_replay_fwd_team_team8)
     ode_replay_bwd        cf_ode_replay_bwd          _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode (B8;
                           (cf_ode_replay_bwd_team)                               as a team, B8t-team: ``ode_bwd_route``)
     ode_replay_fwd_split2 cf_ode_replay_fwd_split2   _ode_replay_fwd_plain       _make_replay_chunk_kernel, split2
+                                                                                 (route "team8": cf_ode_replay_fwd_split2_team8)
     ode_replay_bwd_split2 cf_ode_replay_bwd_split2   _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode,
                                                                                  split2 (B8s, a team)
     ode_replay_bwd_emit   cf_ode_replay_bwd_emit     _ode_replay_bwd_emit_plain  _make_bwd_chunk_kernel, emit mode
@@ -48,18 +51,21 @@ Where a step does not fit one block (the replay's three-term weights from 24
 columns, the sweep's batch and weights from 18 columns at 4 lanes; at P =
 832 the three-term weights alone are 4.15 MB), the kernels spread each
 drift evaluation over a team of blocks (one thread-block cluster). The
-replays and the kernel-mode sweep (B7t-team, B8t-team, B8s) keep the
-weights in global memory (L2), a team of 8 blocks per lane or for the
-batch. The selection (B6: one team for the batch, since one controller
-steers the whole (B, 3P) state) and the emit-mode sweep (B8', B8't: one
-team per lane) are clusters of 16 (or 8) blocks, each block holding its
-columns of the split in shared memory (csrc/ode_team.cuh,
-``ode_team_plan``, ``ode_team_pack``): resident at 13 and 32 columns,
-streamed through a ring of tiles at 104 and 312; ``route="team8"`` runs the
-8-block team they replaced (the yardstick; ``ode_team_route`` picks it only
-for shapes the plan does not take: 8 or more lanes at 312 columns). Which
-kernel runs is decided by shape before the launch (``ode_fwd_route``,
-``ode_bwd_route``, ``ode_team_route``).
+kernel-mode sweeps (B8t-team, B8s) keep the weights in global memory (L2),
+a team of 8 blocks for the batch. The selection (B6: one team for the
+batch, since one controller steers the whole (B, 3P) state), the replays
+(B7t-team, B7 split2: one team per lane) and the emit-mode sweep (B8',
+B8't: one team per lane) are clusters of 16 (or 8) blocks, each block
+holding its columns of the split in shared memory (csrc/ode_team.cuh,
+``ode_team_plan``, ``ode_team_pack``): resident at 13 and 32 columns and
+for the two-term replay and sweep at 104, streamed through a ring of tiles
+at 104 and 312; ``route="team8"`` runs the 8-block team they replaced (the
+yardstick; ``ode_team_route`` picks it only for shapes the plan does not
+take: 8 or more lanes at 312 columns). The replays take clusters of 8 where
+the card cannot hold a cluster of 16 for every lane at once
+(``ode_replay_route``). Which kernel runs is decided by shape before the
+launch (``ode_fwd_route``, ``ode_bwd_route``, ``ode_team_route``,
+``ode_replay_route``).
 
 The wrappers take the plain version for tensors on the CPU; for CUDA tensors
 they launch the kernel or raise. ``LAUNCHES`` counts kernel launches (the
@@ -72,6 +78,8 @@ each sweep here is one launch over the accepted steps.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -116,7 +124,8 @@ LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_
             "ode_replay_fwd_split2": 0, "ode_replay_bwd_emit": 0, "ode_replay_fwd_team": 0,
             "ode_replay_bwd_team": 0, "ode_replay_bwd_emit_split3": 0, "ode_replay_bwd_split2": 0,
             "ode_select_team8": 0, "ode_attempt_team8": 0, "ode_replay_bwd_emit_team8": 0,
-            "ode_replay_bwd_emit_split3_team8": 0}
+            "ode_replay_bwd_emit_split3_team8": 0, "ode_replay_fwd_team_team8": 0,
+            "ode_replay_fwd_split2_team8": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 
@@ -434,8 +443,8 @@ def ode_fwd_route(P: int, n_in: int) -> str:
     """Which kernel computes ``ode_replay_fwd`` on the card, by shape alone:
     "block" (B7, ``cf_ode_replay_fwd``, one block per lane) where its
     ``ode_block_bytes`` fit the 232,448 bytes of shared memory a block can
-    use, else "team" (B7t-team, ``cf_ode_replay_fwd_team``: a team of 8
-    blocks per lane, the weights streamed from L2). With 4 inputs that is
+    use, else "team" (B7t-team, ``cf_ode_replay_fwd_team``: a cluster team
+    per lane, as ``ode_replay_route`` decides). With 4 inputs that is
     "block" through 23 columns (P = 184) and "team" from 24."""
     return "block" if ode_block_bytes(P, n_in, 1, False) <= SMEM_BLOCK_BYTES else "team"
 
@@ -460,36 +469,32 @@ def ode_bwd_route(P: int, n_in: int, B: int, terms: int = 3) -> str:
     return "block" if ode_block_bytes(P, n_in, B, True) <= SMEM_BLOCK_BYTES else "team"
 
 
-def ode_replay_fwd(y0, st, pw, sc: SDEConsts, kv, w3=None):
+def ode_replay_fwd(y0, st, pw, sc: SDEConsts, kv, w3=None, route=None):
     """The replay of the frozen grid st (n + 1,) from y0 (B, 3P) on the
     three-term split of pw = {"wT", "iwT"} (float32): returns (ys (n, B,
     3P) the step-start states, coeffs (n, 5, B, 3P) the dense-output rows of
     every step). On the card B7 or B7t-team, as ``ode_fwd_route`` decides
-    by shape before the launch. ``w3``: that split (contiguous), where the
-    caller already holds it; B7 splits wT itself."""
+    by shape before the launch; B7t-team is a cluster team per lane
+    (``ode_replay_route``). ``route`` ("resident", "streamed" or "team8",
+    the 8-block team that reads the weights from L2) runs that team at any
+    width. ``w3``: that split (contiguous), where the caller already holds
+    it; B7 splits wT itself."""
+    _check_ode_route(route)
     n = st.shape[0] - 1
     if not _on_cuda(y0, {**_named(y0, pw, sc, kv), **_replay_named(st, n)}):
         return _ode_replay_fwd_plain(y0, st, _w3(pw, sc) if w3 is None else w3, sc, kv)
     B, S = y0.shape
-    ys = torch.empty((n, B, S), dtype=_F32, device=y0.device)
-    coeffs = torch.empty((n, 5, B, S), dtype=_F32, device=y0.device)
-    hc, hc_p = _host_floats(_drift_host_consts(sc))
-    dims, ptrs = _net_args(y0, pw, sc, kv)
-    if ode_fwd_route(S // 3, kv.shape[2]) == "block":
+    if route is None and ode_fwd_route(S // 3, kv.shape[2]) == "block":
+        ys = torch.empty((n, B, S), dtype=_F32, device=y0.device)
+        coeffs = torch.empty((n, 5, B, S), dtype=_F32, device=y0.device)
+        hc, hc_p = _host_floats(_drift_host_consts(sc))
+        dims, ptrs = _net_args(y0, pw, sc, kv)
         _check(_lib().cf_ode_replay_fwd(*dims, hc_p, n, *ptrs, st.data_ptr(), y0.data_ptr(),
                                         ys.data_ptr(), coeffs.data_ptr(), _stream(y0)),
                "ode_replay_fwd")
         LAUNCHES["ode_replay_fwd"] += 1
         return ys, coeffs
-    w3 = _w3_cuda(pw, sc) if w3 is None else w3
-    scratch = torch.empty(10 * B * S, dtype=_F32, device=y0.device)
-    bg, adapt, kvp = _consts(sc, kv)
-    _check(_lib().cf_ode_replay_fwd_team(*dims, hc_p, n, bg, adapt, *_w_ptrs(w3, _W3), kvp,
-                                         st.data_ptr(), y0.data_ptr(), scratch.data_ptr(),
-                                         ys.data_ptr(), coeffs.data_ptr(), _stream(y0)),
-           "ode_replay_fwd_team")
-    LAUNCHES["ode_replay_fwd_team"] += 1
-    return ys, coeffs
+    return _replay_team_launch("ode_replay_fwd_team", y0, st, w3, _W3, sc, kv, route, pw)
 
 
 def _terms_and_transposes(w, terms):
@@ -539,9 +544,8 @@ def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv):
 
 
 # ---------------------------------------------------------------------------
-# Team kernels: the selection (both tiers) and the split2 tier's replay and
-# sweep; the weights stream from L2, each lane (the selection: the batch)
-# spread over a cluster of blocks
+# Team kernels: each lane (the selection: the batch) spread over a cluster
+# of blocks
 # ---------------------------------------------------------------------------
 
 
@@ -569,29 +573,33 @@ def _w3_cuda(pw, sc: SDEConsts):
 
 
 # ---------------------------------------------------------------------------
-# The cluster teams of B6, B8' and B8't (csrc/ode_team.cuh)
+# The cluster teams of B6, B7t-team, B7 split2, B8' and B8't (csrc/ode_team.cuh)
 # ---------------------------------------------------------------------------
 
 ODE_TEAM_ROUTES = ("resident", "streamed", "team8")
 _T3_MAX_ITEMS = 2  # csrc/ode_team.cuh kT3MaxItems
+# The uses of a team's plan (csrc/ode_team.cuh kT3Select, kT3Sweep, kT3Replay).
+SELECT, SWEEP, REPLAY = 0, 1, 2
 
 
 class ODETeamPlan(NamedTuple):
-    """The shape of a B6 or B8'/B8't team at P populations (csrc/ode_team.cuh
-    ``plan3``, which ``cf_ode_team_plan`` reports)."""
+    """The shape of a B6, B7t-team / B7 split2 or B8'/B8't team at P
+    populations (csrc/ode_team.cuh ``plan3``, which ``cf_ode_team_plan``
+    reports)."""
 
     C: int        # blocks per team: the cluster size
     nc: int       # populations each block owns
     NT: int       # terms of the split
-    NB: int       # lanes the team holds (the selection: the batch; the sweep: 1)
-    LB: int       # forward products: lanes per thread (the sweep 1, the selection 4; 2
-                  # where a thread owns two items)
+    NB: int       # lanes the team holds (the selection: the batch; the replay, the sweep: 1)
+    LB: int       # forward products: lanes per thread (the replay and the sweep 1, the
+                  # selection 4; 2 where a thread owns two items)
     G: int        # lane groups
     gw: int       # exchange words of a lane group at one row (even)
     xs: int       # exchange words of a row
     L: int        # forward products: lanes per (group, column)
     Lv: int       # VJP products: lanes per row (32 / L)
-    rw: int       # 32-bit words of a packed row: NT nc bf16, then pad (max(1, Lv / 2) times odd)
+    rw: int       # 32-bit words of a packed row: NT nc bf16 (f32: nc float32), then pad
+                  # (max(1, Lv / 2) times odd; f32: Lv times odd)
     ipt: int      # owned (lane, population) items per thread
     slots: int    # exchange slots: 2 (double buffered) or 1
     stream: bool  # the slice streams through a ring of tiles (else it stays resident)
@@ -602,38 +610,67 @@ class ODETeamPlan(NamedTuple):
     slot: int     # bytes of an exchange slot
     fixed: int    # shared-memory bytes before the weights
     bytes: int    # shared-memory bytes of a block
+    f32: bool     # the slice holds the float32 wT, split as it is read (``ode_replay_pack``)
 
 
-def _t3_fixed(C, nc, NB, n_in, slot, slots):
-    return (slots * slot + _align16(4 * NB * nc) + _align16(8 * nc) + _align16(8 * NB * n_in)
+def _t3_row_words(nc, NT, Lv, f32):
+    """Words of a packed row (csrc/ode_team.cuh ``t3_row_words``): NT nc bf16,
+    two a word (f32: nc float32, one a word), padded to v times an odd
+    number of words, v = max(1, Lv / 2) (f32: Lv), for the Lv consecutive
+    columns a warp reads in a row: the warp's rows fall in distinct banks."""
+    v = Lv if f32 else max(1, Lv // 2)
+    rw = -(-(nc if f32 else -(-NT * nc // 2)) // v) * v
+    return rw + v if (rw // v) % 2 == 0 else rw
+
+
+def _t3_chunks(P):
+    """The replay's sum order (csrc/ode_team.cuh ``t3_chunks``), the 8-block
+    team's: the P rows in G contiguous chunks (G from team8's ``split_of``
+    of its P / 8 columns a block), each summed in order, the chunks' sums
+    added in chunk order; returns G."""
+    nc8 = P // 8
+    return min(_THREADS // nc8, 8) if 2 * nc8 <= _THREADS else 1
+
+
+def _t3_fixed(C, nc, NB, n_in, slot, slots, use, NT):
+    # the VJP's own cotangents, or the replay's chunk sums (G, NP, nc)
+    cvec = _align16(8 * (_t3_chunks(C * nc) * (6 if NT == 3 else 3) if use == REPLAY else 1) * nc)
+    return (slots * slot + _align16(4 * NB * nc) + cvec + _align16(8 * NB * n_in)
             + _align16(4 * _MAX_KNOTS * NB * n_in) + _align16(4 * (n_in + 2) * nc)
             + _align16(8 * (_THREADS // 32 + 2 * C)) + _align16(8 * (1 + 2 * _T2_MAX_STAGES)))
 
 
-def ode_team_plan(P: int, n_in: int, NB: int, NT: int, sweep: bool,
-                  stream: bool = False) -> ODETeamPlan:
-    """The team shape of the selection (``sweep`` False: NB lanes, three
-    terms) or the emit-mode sweep (``sweep`` True: one lane, NT terms) at P
-    populations and n_in inputs: a cluster of 16 blocks where 16 divides P,
-    else 8; block r owns populations [r nc, (r + 1) nc) of every lane and
+def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
+                  stream: bool = False, C: int | None = None) -> ODETeamPlan:
+    """The team shape of the selection (``use`` SELECT or False: NB lanes,
+    three terms), the emit-mode sweep (SWEEP or True: one lane, NT terms)
+    or the replay (REPLAY: one lane, NT terms, no VJP) at P populations and
+    n_in inputs: a cluster of C blocks (default 16 where 16 divides P, else
+    8); block r owns populations [r nc, (r + 1) nc) of every lane and
     keeps the columns [r nc, (r + 1) nc) of the NT bf16 terms in shared
     memory: a (P, rw) slice of words, resident where it and two exchange
     slots fit the 232,448 bytes a block can use (the selection through 32
-    columns, the sweeps through 63 and the two-term one at 104), else (or
-    with ``stream``) streamed in tiles of R rows through S stages; one exchange slot where two leave no room for two stages (16
-    lanes at 104 columns). ``fits`` is False where no tiling fits or a
-    thread would own more than two (lane, population) items (16 lanes at
-    312 columns): the route is then "team8"."""
+    columns, the replay and the sweep through 63 and on two terms at 104),
+    else (or with ``stream``) streamed in tiles of R rows through S stages;
+    one exchange slot where two leave no room for two stages (16 lanes at
+    104 columns). The replay's plan has no VJP slot and no cotangent vector.
+    ``fits`` is False where no tiling fits or a thread would own more than
+    two (lane, population) items (16 lanes at 312 columns): the route is
+    then "team8"."""
+    use = int(use)
     if P <= 0 or P % 8:
         raise ValueError(f"P must be a positive multiple of 8, got {P}")
     if not 0 <= n_in <= _MAX_INPUTS:
         raise ValueError(f"n_in must lie in [0, {_MAX_INPUTS}], got {n_in}")
-    if NT not in (2, 3) or NB < 1 or (sweep and NB != 1):
-        raise ValueError(f"no team takes NT={NT}, NB={NB}, sweep={sweep}")
-    C = 16 if P % 16 == 0 else 8
+    if use not in (SELECT, SWEEP, REPLAY) or NT not in (2, 3) or NB < 1 or (use and NB != 1):
+        raise ValueError(f"no team takes NT={NT}, NB={NB}, use={use}")
+    if C is None:
+        C = 16 if P % 16 == 0 else 8
+    elif C not in (8, 16) or P % C:
+        raise ValueError(f"a team of C={C} blocks does not take P={P}")
     nc = P // C
     ipt = -(-NB * nc // _THREADS)
-    LB = 1 if sweep else (4 if ipt == 1 else 2)
+    LB = 4 if use == SELECT and ipt == 1 else (2 if use == SELECT else 1)
     G = -(-NB // LB)
     gw = -(-LB * NT // 2) * 2
     xs = G * gw
@@ -641,31 +678,35 @@ def ode_team_plan(P: int, n_in: int, NB: int, NT: int, sweep: bool,
     while L > 1 and G * nc * L > _THREADS:
         L //= 2
     Lv = 32 // L
-    v = max(1, Lv // 2)
-    rw = -(-(-(-NT * nc // 2)) // v) * v
-    if (rw // v) % 2 == 0:
-        rw += v
-    slot = _align16(max(4 * P * xs, 8 * NT * P if sweep else 0))
-    row = 4 * rw
+    rw = _t3_row_words(nc, NT, Lv, False)
+    slot = _align16(max(4 * P * xs, 8 * NT * P if use == SWEEP else 0))
     fits = ipt <= _T3_MAX_ITEMS
+    f2 = _t3_fixed(C, nc, NB, n_in, slot, 2, use, NT)
+    # The three-term replay keeps the float32 wT where that slice stays
+    # resident and the bf16 terms' would not (104 columns with clusters of 16).
+    rw32 = _t3_row_words(nc, NT, Lv, True)
+    f32 = (use == REPLAY and NT == 3 and f2 + 4 * rw * P > SMEM_BLOCK_BYTES
+           and f2 + 4 * rw32 * P <= SMEM_BLOCK_BYTES)
+    rw = rw32 if f32 else rw
+    row = 4 * rw
     head = (C, nc, NT, NB, LB, G, gw, xs, L, Lv, rw, ipt)
-    f2 = _t3_fixed(C, nc, NB, n_in, slot, 2)
     if not stream and f2 + row * P <= SMEM_BLOCK_BYTES:
-        return ODETeamPlan(*head, 2, False, P, 1, 1, fits, slot, f2, f2 + row * P)
+        return ODETeamPlan(*head, 2, False, P, 1, 1, fits, slot, f2, f2 + row * P, f32)
     # Streamed: the first tile height from r0 down that leaves two stages.
     r0, rmin = max(16 * L, _T2_MIN_TILE_ROWS), max(L, 8)
     for slots in (2, 1):
-        f = _t3_fixed(C, nc, NB, n_in, slot, slots)
+        f = _t3_fixed(C, nc, NB, n_in, slot, slots, use, NT)
         room = max(SMEM_BLOCK_BYTES - f, 0)
         R = r0
         while R >= rmin:
             T = -(-P // R)
             S = min(_T2_MAX_STAGES, room // (row * R), T)
             if S >= min(T, 2):
-                return ODETeamPlan(*head, slots, True, R, T, S, fits, slot, f, f + row * R * S)
+                return ODETeamPlan(*head, slots, True, R, T, S, fits, slot, f, f + row * R * S,
+                                   f32)
             R //= 2
-    f1 = _t3_fixed(C, nc, NB, n_in, slot, 1)
-    return ODETeamPlan(*head, 1, True, P, 1, 0, False, slot, f1, f1)
+    f1 = _t3_fixed(C, nc, NB, n_in, slot, 1, use, NT)
+    return ODETeamPlan(*head, 1, True, P, 1, 0, False, slot, f1, f1, f32)
 
 
 def ode_team_route(P: int, n_in: int, NB: int, NT: int, sweep: bool) -> str:
@@ -679,6 +720,17 @@ def ode_team_route(P: int, n_in: int, NB: int, NT: int, sweep: bool) -> str:
     on two terms, else "streamed"."""
     p = ode_team_plan(P, n_in, NB, NT, sweep)
     return "team8" if not p.fits else ("streamed" if p.stream else "resident")
+
+
+def ode_replay_pack(wT, P: int, plan: ODETeamPlan) -> torch.Tensor:
+    """The three-term replay's slices: the float32 wT (P, P) per block,
+    (C, P, rw) int32 words: row k of block r holds wT[k, r nc:(r+1) nc], then
+    zero pad; the kernel splits each weight into its three bf16 terms as
+    ``split_f32`` does."""
+    C, nc = plan.C, plan.nc
+    pk = torch.zeros((C, P, plan.rw), dtype=_F32, device=wT.device)
+    pk[:, :, :nc] = wT.view(P, C, nc).transpose(0, 1)
+    return pk.view(torch.int32)
 
 
 def ode_team_pack(w, P: int, plan: ODETeamPlan) -> torch.Tensor:
@@ -699,9 +751,9 @@ def _check_ode_route(route):
 
 
 def _team3(route, P, n_in, NB, NT, sweep):
-    """(route, plan) of a launch on the card: ``route`` or the shape's
-    default; the plan None for "team8". Raises where the team asked for
-    does not take the shape."""
+    """(route, plan) of a selection or sweep launch on the card: ``route``
+    or the shape's default; the plan None for "team8". Raises where the team
+    asked for does not take the shape."""
     route = route or ode_team_route(P, n_in, NB, NT, sweep)
     if route == "team8":
         return route, None
@@ -709,6 +761,62 @@ def _team3(route, P, n_in, NB, NT, sweep):
     if not plan.fits or (route == "resident" and plan.stream):
         raise ValueError(f"no {route} team takes P={P} with {NB} lanes and {NT} terms "
                          f"({'streamed' if plan.fits else 'team8'} does)")
+    return route, plan
+
+
+def ode_replay_cluster(P: int, B: int, max_clusters) -> int:
+    """The cluster size of B lanes' replay teams: 16 where 16 divides P and
+    the card holds B clusters of 16 at once (``max_clusters(16)``, the
+    kernel's ``cudaOccupancyMaxActiveClusters``), else 8, so that no lane's
+    team waits for another's whole replay (at 104 columns 7 clusters of 16
+    fit the H100: 16 lanes take clusters of 8)."""
+    return 16 if P % 16 == 0 and max_clusters(16) >= B else 8
+
+
+def ode_replay_route(P: int, n_in: int, B: int, NT: int, max_clusters) -> tuple:
+    """How the replay of B lanes on NT terms runs on the card, by shape alone,
+    before the launch: (route, C), "resident" or "streamed" as
+    ``ode_team_plan(P, n_in, 1, NT, REPLAY, C=C)`` holds the slice with
+    ``ode_replay_cluster``'s C. With 4 inputs and 4 lanes: "resident" at 13,
+    24, 32 and 63 columns and on two terms at 104, "streamed" on three terms
+    at 104 and at 312. ``max_clusters(C)``: how many clusters of C blocks
+    the card holds at once."""
+    C = ode_replay_cluster(P, B, max_clusters)
+    return ("streamed" if ode_team_plan(P, n_in, 1, NT, REPLAY, C=C).stream else "resident"), C
+
+
+@functools.lru_cache(maxsize=None)
+def ode_replay_max_clusters(P: int, n_in: int, NT: int, C: int, stream: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of the replay's team kernel on the
+    card: how many lanes' teams of C blocks run at once."""
+    out = ctypes.c_int()
+    _check(_lib().cf_ode_replay_max_clusters(P, n_in, NT, C, int(stream), ctypes.byref(out)),
+           "ode_replay_max_clusters")
+    return out.value
+
+
+def _replay_team(route, P, n_in, B, NT):
+    """(route, plan) of a replay launch on the card: ``route`` or the shape's
+    default; the plan None for "team8". Raises where the team asked for does
+    not take the shape, or no cluster of it fits the card."""
+    if route == "team8":
+        return route, None
+
+    def clusters(C):
+        stream = ode_team_plan(P, n_in, 1, NT, REPLAY, C=C).stream
+        return ode_replay_max_clusters(P, n_in, NT, C, stream)
+
+    if route is None:
+        route, C = ode_replay_route(P, n_in, B, NT, clusters)
+    else:
+        C = ode_replay_cluster(P, B, clusters)
+    plan = ode_team_plan(P, n_in, 1, NT, REPLAY, stream=route == "streamed", C=C)
+    if route == "resident" and plan.stream:
+        raise ValueError(f"no resident replay team of {C} blocks takes P={P} with {NT} terms "
+                         "(streamed does)")
+    if ode_replay_max_clusters(P, n_in, NT, C, plan.stream) < 1:
+        raise RuntimeError(f"no cluster of {C} blocks with {plan.bytes} bytes of shared memory "
+                           "each fits the card")
     return route, plan
 
 
@@ -785,27 +893,55 @@ def ode_attempt(t, y, f0, h, pw, sc: SDEConsts, kv, cfg: ODESelectConfig,
     return ODEAttempt(y1, f1, rec[0], rec[1], rec[2])
 
 
-def ode_replay_fwd_split2(y0, st, w2, sc: SDEConsts, kv):
+def ode_replay_fwd_split2(y0, st, w2, sc: SDEConsts, kv, route=None):
     """The replay of the frozen grid st (n + 1,) from y0 (B, 3P) with the
     two-term split (``prepare_premixed_split2`` output): (ys (n, B, 3P) the
-    step-start states, coeffs (n, 5, B, 3P) the dense-output rows)."""
+    step-start states, coeffs (n, 5, B, 3P) the dense-output rows). On the
+    card B7 split2, a cluster team per lane (``ode_replay_route``);
+    ``route`` as ``ode_replay_fwd``'s."""
+    _check_ode_route(route)
     B, S = y0.shape
-    P, n_in, K, n = S // 3, kv.shape[2], kv.shape[0], st.shape[0] - 1
+    P, n_in, n = S // 3, kv.shape[2], st.shape[0] - 1
     named = {"y0": (y0, _F32, (B, S)), **_split_named(w2, P, n_in, _W2),
              **_drift_named(sc, kv, B, P), **_replay_named(st, n)}
     if not _on_cuda(y0, named):
         return _ode_replay_fwd_plain(y0, st, w2, sc, kv)
+    return _replay_team_launch("ode_replay_fwd_split2", y0, st, w2, _W2, sc, kv, route)
+
+
+def _replay_team_launch(name, y0, st, w, terms, sc, kv, route, pw=None):
+    """B7t-team (``name`` "ode_replay_fwd_team", three terms: the split
+    ``w``, taken here where it is None, or where the plan says f32 the
+    float32 ``pw["wT"]``) or B7 split2 ("ode_replay_fwd_split2", two: the
+    split ``w``) on the card: the cluster team on ``route`` (default
+    ``ode_replay_route``), or the 8-block team8."""
+    B, S = y0.shape
+    P, n_in, K, n = S // 3, kv.shape[2], kv.shape[0], st.shape[0] - 1
+    route, plan = _replay_team(route, P, n_in, B, len(terms))
     dev = y0.device
     ys = torch.empty((n, B, S), dtype=_F32, device=dev)
     coeffs = torch.empty((n, 5, B, S), dtype=_F32, device=dev)
-    scratch = torch.empty(10 * B * S, dtype=_F32, device=dev)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
     bg, adapt, kvp = _consts(sc, kv)
-    _check(_lib().cf_ode_replay_fwd_split2(B, P, n_in, K, hc_p, n, bg, adapt, *_w_ptrs(w2, _W2),
-                                           kvp, st.data_ptr(), y0.data_ptr(),
-                                           scratch.data_ptr(), ys.data_ptr(), coeffs.data_ptr(),
-                                           _stream(y0)), "ode_replay_fwd_split2")
-    LAUNCHES["ode_replay_fwd_split2"] += 1
+    data = (st.data_ptr(), y0.data_ptr())
+    outs = (ys.data_ptr(), coeffs.data_ptr(), _stream(y0))
+    if route == "team8":
+        w = _w3_cuda(pw, sc) if w is None else w
+        scratch = torch.empty(10 * B * S, dtype=_F32, device=dev)
+        _check(getattr(_lib(), f"cf_{name}_team8")(B, P, n_in, K, hc_p, n, bg, adapt,
+                                                    *_w_ptrs(w, terms), kvp, *data,
+                                                    scratch.data_ptr(), *outs), f"{name}_team8")
+        LAUNCHES[f"{name}_team8"] += 1
+        return ys, coeffs
+    if plan.f32:
+        wpk, iw = ode_replay_pack(pw["wT"], P, plan), pw["iwT"]
+    else:
+        w = _w3_cuda(pw, sc) if w is None else w
+        wpk, iw = ode_team_pack(w, P, plan), w["iwT"]
+    _check(getattr(_lib(), "cf_" + name)(B, P, n_in, K, hc_p, n, plan.C, int(plan.stream), bg,
+                                         adapt, wpk.data_ptr(), iw.data_ptr(), kvp, *data,
+                                         *outs), name)
+    LAUNCHES[name] += 1
     return ys, coeffs
 
 

@@ -71,7 +71,11 @@ split's kernel-mode sweeps, one team for the batch at every width: B8s
 (after B7 split2) and B4s (after B3) at 13, 32 and 63 columns, bit for bit;
 both kernel-mode steps at 13 columns against the CPU (loss rel 1e-5,
 gradients within the larger of 1e-3 and ten times the card's own nudge
-spread).
+spread). The replays as cluster teams per lane (B7t-team, B7 split2:
+``ode_replay16_kernel``, the 8-block team's sum order) at 13, 24, 32, 63,
+104 and 312 columns, 4 lanes and 16 at 104 (clusters of 8), on every route
+and team8: bit for bit with the plain version, one launch each; their plan
+equals the library's; the exact and split2 steps launch them, never team8.
 
 XOR kernels (the XOR network, the four conditions as one batch, 200 grid
 points). Kernel and plain version sum every product in one order and round
@@ -413,8 +417,8 @@ def test_sde_replay_kernels_skip_the_padding(dev, replayed):
 # B3 and B4 as cluster teams (csrc/replay2_team.cuh)
 # ---------------------------------------------------------------------------
 
-TEAM_CPA = {13: (8, 4, 1), 32: (16, 8, 8), 63: (32, 24, 7), 104: (64, 32, 8),
-            312: (192, 96, 24)}
+TEAM_CPA = {13: (8, 4, 1), 24: (16, 6, 2), 32: (16, 8, 8), 63: (32, 24, 7),
+            104: (64, 32, 8), 312: (192, 96, 24)}
 
 
 def _team2_window(dev, columns, n):
@@ -1424,9 +1428,11 @@ def test_exact_team_kernels_never_reach_the_plain_versions(dev, monkeypatch):
         torch.cuda.synchronize()
         assert bool(torch.isfinite(rec["loss"])), cpa
         launched = {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]}
-        # B6 and (at 64 columns, outer mode) B8't as cluster teams, once each
+        # B6, and at 64 columns (outer mode) B7t-team and B8't, as cluster
+        # teams, once each; never team8
         assert launched["ode_select"] == 1 and not any(k.endswith("team8") for k in launched)
         if cpa == (32, 24, 8):
+            assert launched["ode_replay_fwd_team"] == 1
             assert launched["ode_replay_bwd_emit_split3"] == 1
 
 
@@ -1583,13 +1589,68 @@ def test_ode_team_plan_is_the_librarys(dev, columns):
     selection's 1, 4 and 16 lanes and the sweep's two and three terms."""
     import ctypes
 
-    P, out = 8 * columns, (ctypes.c_longlong * 21)()
+    P, out = 8 * columns, (ctypes.c_longlong * 22)()
     for NB, NT, sweep in ((1, 3, False), (4, 3, False), (16, 3, False), (1, 2, True),
                           (1, 3, True)):
         for stream in (False, True):
-            assert no._lib().cf_ode_team_plan(P, 4, NB, NT, int(sweep), int(stream), out) == 0
+            assert no._lib().cf_ode_team_plan(P, 4, NB, NT, int(sweep), 0, int(stream), out) == 0
             want = tuple(int(v) for v in no.ode_team_plan(P, 4, NB, NT, sweep, stream))
             assert tuple(out) == want, (NB, NT, sweep, stream)
+
+
+@pytest.mark.parametrize("columns", [13, 24, 32, 63, 94, 104, 106, 151, 312])
+def test_ode_replay_plan_is_the_librarys(dev, columns):
+    """The replay's plan (``ode_team_plan(..., REPLAY, C=...)``, which
+    ``ode_replay_route`` and the wrappers read) equals the library's
+    (``cf_ode_team_plan``) on two and three terms, clusters of 8 and (where
+    16 divides P) 16, resident and streamed; and the card holds at least one
+    cluster of each (``cf_ode_replay_max_clusters``)."""
+    import ctypes
+
+    P, out = 8 * columns, (ctypes.c_longlong * 22)()
+    for NT in (2, 3):
+        for C in (8, 16):
+            if P % C:
+                continue
+            for stream in (False, True):
+                assert no._lib().cf_ode_team_plan(P, 4, 1, NT, no.REPLAY, C, int(stream),
+                                                  out) == 0
+                plan = no.ode_team_plan(P, 4, 1, NT, no.REPLAY, stream, C)
+                assert tuple(out) == tuple(int(v) for v in plan), (NT, C, stream)
+                assert no.ode_replay_max_clusters(P, 4, NT, C, plan.stream) >= 1
+
+
+@pytest.mark.parametrize("columns,B", [(13, 4), (24, 4), (32, 4), (63, 4), (104, 4), (104, 16),
+                                       (312, 4)])
+def test_ode_team_replay_equals_plain(dev, columns, B):
+    """B7t-team (three terms) and B7 split2 (two) as cluster teams per lane
+    at 13-312 columns, 4 lanes and 16 at 104 (clusters of 8 there: the card
+    holds 7 of 16), on every route the shape admits and on team8, over 16
+    accepted steps (8 at 312 and with 16 lanes): ys and the dense rows bit
+    for bit against the plain version (so every route equals the others and
+    team8), one launch of the route's kernel each, none of anything else."""
+    d = _team3_setup(dev, columns, B)
+    st, stats = no.ode_select(d["y0"], d["pw"], d["sc"], d["kv"],
+                              _team3_cfg(d, 3 if B == 16 else (4 if columns == 312 else 6)))
+    W = min(8 if columns == 312 or B == 16 else 16, int(stats[0]))
+    stn = st[:W + 1].contiguous()
+    for NT, w, name in ((3, d["w3"], "ode_replay_fwd_team"), (2, d["w2"], "ode_replay_fwd_split2")):
+        want = no._ode_replay_fwd_plain(d["y0"], stn, w, d["sc"], d["kv"])
+        route, plan = no._replay_team(None, d["P"], 4, B, NT)
+        assert plan.C == (16 if d["P"] % 16 == 0 and B <= 7 else 8)
+        for r in list(dict.fromkeys([route, "streamed"])) + ["team8"]:
+            key = name + ("_team8" if r == "team8" else "")
+            before = dict(no.LAUNCHES)
+            if NT == 3:
+                got = no.ode_replay_fwd(d["y0"], stn, d["pw"], d["sc"], d["kv"], route=r)
+            else:
+                got = no.ode_replay_fwd_split2(d["y0"], stn, w, d["sc"], d["kv"], route=r)
+            torch.cuda.synchronize()
+            launched = {k: no.LAUNCHES[k] - before[k] for k in before
+                        if no.LAUNCHES[k] != before[k]}
+            assert launched == {key: 1}, (r, launched)
+            for g, x, what in zip(got, want, ("ys", "coeffs")):
+                assert torch.isfinite(g).all() and torch.equal(g, x), (NT, r, what)
 
 
 def _split2_step(dev, monkeypatch, grid=None, params=None):
@@ -1636,6 +1697,7 @@ def test_split2_kernels_never_reach_the_plain_versions(dev, monkeypatch):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rec["loss"]))
     launched = {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]}
+    # B6, B7 split2 and B8' as cluster teams, once each; never team8
     assert launched == {"ode_select": 1, "ode_replay_fwd_split2": 1, "ode_replay_bwd_emit": 1}
 
 

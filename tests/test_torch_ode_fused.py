@@ -316,6 +316,22 @@ def test_whole_selection_statistically(setup):
     assert bool((got_st[int(got[0]):] == got_st[-1]).all())
 
 
+def _jax_replay(s):
+    """The JAX package's replay step (interpret mode) over JAX's accepted
+    steps, computed once for the module: (ys (n, B, 3P), coeffs (n, 5, B,
+    3P)) as numpy."""
+    if "jreplay" not in s:
+        st, stats = s["jgrid"]
+        step = jax.jit(lambda t0, h, y: _jstep(s, t0, h, y))
+        y, want_ys, want_co = jnp.zeros_like(s["y"]), [], []
+        for k in range(int(stats[0])):
+            want_ys.append(np.asarray(y))
+            y, co = step(st[k], st[k + 1] - st[k], y)
+            want_co.append(np.asarray(co))
+        s["jreplay"] = np.stack(want_ys), np.stack(want_co)
+    return s["jreplay"]
+
+
 def test_replay_on_jax_grid(setup):
     """ys and the dense coefficients of every accepted step on JAX's grid:
     within 1e-5 of each state component's largest magnitude (measured ys
@@ -328,21 +344,39 @@ def test_replay_on_jax_grid(setup):
     s = setup
     st, stats = s["jgrid"]
     n = int(stats[0])
-    step = jax.jit(lambda t0, h, y: _jstep(s, t0, h, y))
-    y, want_ys, want_co = jnp.zeros_like(s["y"]), [], []
-    for k in range(n):
-        want_ys.append(np.asarray(y))
-        y, co = step(st[k], st[k + 1] - st[k], y)
-        want_co.append(np.asarray(co))
     ys, co = no.ode_replay_fwd(torch.zeros(B, 3 * s["P"]), torch.as_tensor(st[:n + 1]),
                                s["pw"], s["sc"], s["kv"])
     assert tuple(ys.shape) == (n, B, 3 * s["P"]) and tuple(co.shape) == (n, 5, B, 3 * s["P"])
-    want_ys, want_co = np.stack(want_ys), np.stack(want_co)
+    want_ys, want_co = _jax_replay(s)
     assert scaled(ys, want_ys) < 1e-5
     scale = np.maximum(np.abs(want_ys).reshape(-1, want_ys.shape[-1]).max(0), 1e-30)
     for r in range(5):
         err = float((np.abs(co[:, r].numpy() - want_co[:, r]) / scale).max())
         assert err < (5e-5 if r == 4 else 1e-5), r
+
+
+@pytest.mark.parametrize("route", no.ODE_TEAM_ROUTES)
+def test_replay_routes_on_jax_grid(setup, route):
+    """``ode_replay_fwd`` on each route of the card's cluster team
+    (B7t-team: "resident", "streamed", "team8") with CPU tensors: the plain
+    version, whatever the route, held against the JAX package's replay on
+    its grid with the limits of ``test_replay_on_jax_grid`` (ys and rows
+    1-4 within 1e-5 of each state component's largest magnitude, the last
+    row within 5e-5), and equal to the route-less call bit for bit."""
+    s = setup
+    st, stats = s["jgrid"]
+    n = int(stats[0])
+    args = (torch.zeros(B, 3 * s["P"]), torch.as_tensor(st[:n + 1]), s["pw"], s["sc"], s["kv"])
+    ys, co = no.ode_replay_fwd(*args, route=route)
+    want_ys, want_co = _jax_replay(s)
+    assert scaled(ys, want_ys) < 1e-5
+    scale = np.maximum(np.abs(want_ys).reshape(-1, want_ys.shape[-1]).max(0), 1e-30)
+    for r in range(5):
+        err = float((np.abs(co[:, r].numpy() - want_co[:, r]) / scale).max())
+        assert err < (5e-5 if r == 4 else 1e-5), r
+    ys0, co0 = no.ode_replay_fwd(*args)
+    assert torch.equal(ys, ys0) and torch.equal(co, co0)
+    assert all(v == 0 for v in no.LAUNCHES.values())  # plain versions count nothing
 
 
 def test_solve_loss_and_gradients_on_jax_grid(setup):

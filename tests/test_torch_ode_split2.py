@@ -220,6 +220,28 @@ def test_replay_split2_on_jax_grid(setup):
         assert err < (5e-5 if r == 4 else 2e-5), r
 
 
+@pytest.mark.parametrize("route", no.ODE_TEAM_ROUTES)
+def test_replay_split2_routes_on_jax_grid(setup, route):
+    """``ode_replay_fwd_split2`` on each route of the card's cluster team (B7
+    split2: "resident", "streamed", "team8") with CPU tensors: the plain
+    version, whatever the route, held against the JAX package's replay on
+    its grid with the limits of ``test_replay_split2_on_jax_grid`` (ys and
+    rows 1-4 within 2e-5 of each state component's largest magnitude, the
+    last row within 5e-5), and equal to the route-less call bit for bit."""
+    s = setup
+    n = s["n"]
+    args = (torch.zeros(B, 3 * s["P"]), torch.as_tensor(s["jgrid"][0][:n + 1]), s["w2"], s["sc"],
+            s["kv"])
+    ys, co = no.ode_replay_fwd_split2(*args, route=route)
+    assert scaled(ys, s["jys"]) < 2e-5
+    scale = np.maximum(np.abs(s["jys"]).reshape(-1, s["jys"].shape[-1]).max(0), 1e-30)
+    for r in range(5):
+        err = float((np.abs(co[:, r].numpy() - s["jco"][:, r]) / scale).max())
+        assert err < (5e-5 if r == 4 else 2e-5), r
+    ys0, co0 = no.ode_replay_fwd_split2(*args)
+    assert torch.equal(ys, ys0) and torch.equal(co, co0)
+
+
 def _jax_emit(s, jpw, cobar):
     """The JAX package's emit-mode reverse-sweep kernel (interpret mode) over
     JAX's accepted steps in one chunk: (ybar0, ybar_steps)."""

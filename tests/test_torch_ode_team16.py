@@ -1,6 +1,7 @@
-"""B6, B8' and B8't as cluster teams (``kernels.network_ode`` ``ode_select``,
-``ode_attempt`` and ``ode_replay_bwd_emit`` on the card): what the CPU can
-check of them.
+"""B6, B7t-team, B7 split2, B8' and B8't as cluster teams
+(``kernels.network_ode`` ``ode_select``, ``ode_attempt``, ``ode_replay_fwd``,
+``ode_replay_fwd_split2`` and ``ode_replay_bwd_emit`` on the card): what the
+CPU can check of them.
 
 - The team's shape (``ode_team_plan``): the cluster size, the route
   (resident, streamed or team8) at 13, 18, 32, 63, 104 and 312 columns for
@@ -22,7 +23,20 @@ check of them.
   Every product is exact in float64, so the sums differ only in the last
   bits of a float64; rounded to float32 they agree bit for bit on all of
   these vectors (the test counts the entries that do not: 0).
-- A bad ``route`` raises before any device is touched.
+- The replay's plan (``ode_team_plan(..., REPLAY)``) and route
+  (``ode_replay_route``): the cluster size, route and the float32 slice at
+  13, 24, 32, 63, 104 and 312 columns for 1, 4, 8 and 16 lanes on two and
+  three terms, with the H100's cluster capacity given (7 clusters of 16,
+  15 of 8 at 104 columns: 8 and 16 lanes take clusters of 8); the
+  shared-memory bytes at every width from 1 through 312 columns with 0, 4
+  and 16 inputs; the cluster of 8 wherever the occupancy reader holds fewer
+  clusters of 16 than lanes; ``ode_replay_pack``'s layout of the float32
+  wT; the replay's sum order (the 8-block team's: contiguous chunks of
+  rows, each in order, the chunks' sums in order) emulated with numpy on
+  the six products at 104 and 312 columns against the plain matmul,
+  rounded to float32 (0 entries differ).
+- A bad ``route`` raises before any device is touched; CPU tensors take the
+  plain version of the replay on every route.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
@@ -273,6 +287,46 @@ def test_summation_order_rounds_as_the_plain_matmul(columns):
     assert mismatches == dict.fromkeys(mismatches, 0), mismatches
 
 
+def emulate_chunks(G, x, W):
+    """x (N, P), W (P, nc) float64: the replay's float64 sums x W (team8's
+    order, ``_t3_chunks``): the rows in G contiguous chunks, each summed in
+    order, the chunks' sums added in chunk order."""
+    P = W.shape[0]
+    kc = -(-P // G)
+    total = None
+    for g in range(G):
+        part = np.zeros((x.shape[0], W.shape[1]))
+        for k in range(g * kc, min(P, (g + 1) * kc)):
+            part = part + x[:, k:k + 1] * W[k][None, :]
+        total = part if total is None else total + part
+    return total
+
+
+@pytest.mark.parametrize("columns", [104, 312])
+def test_replay_chunk_order_rounds_as_the_plain_matmul(columns):
+    """The replay's sum order (team8's: 4 chunks at 104 columns, 1 at 312)
+    emulated in float64 with numpy on the three-term split's six products
+    for 64 rate vectors (at 312 columns the columns of four blocks), against
+    the plain versions' float64 matmul, rounded to float32: the entries that
+    differ are counted (0)."""
+    P, w3, (x_hi, x_mid, x_lo), _ = _split3_inputs(columns)
+    G = no._t3_chunks(P)
+    assert G == {104: 4, 312: 1}[columns]
+    nc = P // 16
+    cols = np.concatenate([np.arange(r * nc, (r + 1) * nc)
+                           for r in (range(16) if columns == 104 else (0, 5, 10, 15))])
+    W = {k: w3[k].double().numpy()[:, cols] for k in ("wT_hi", "wT_mid", "wT_lo")}
+    products = (("x_hi W_lo", x_hi, "wT_lo"), ("x_mid W_mid", x_mid, "wT_mid"),
+                ("x_lo W_hi", x_lo, "wT_hi"), ("x_hi W_mid", x_hi, "wT_mid"),
+                ("x_mid W_hi", x_mid, "wT_hi"), ("x_hi W_hi", x_hi, "wT_hi"))
+    mismatches = {}
+    for name, x, k in products:
+        got = emulate_chunks(G, x.double().numpy(), W[k]).astype(np.float32)
+        want = torch.matmul(x.double(), w3[k].double()).float().numpy()[:, cols]
+        mismatches[name] = int((got != want).sum())
+    assert mismatches == dict.fromkeys(mismatches, 0), mismatches
+
+
 @pytest.mark.parametrize("entry", ["select", "attempt", "emit"])
 def test_routes_are_checked_before_the_device(entry):
     P, B = 104, 2
@@ -287,6 +341,153 @@ def test_routes_are_checked_before_the_device(entry):
             no.ode_attempt(t, y, y, t, {}, None, kv, cfg, route="team16")
         else:
             no.ode_replay_bwd_emit(y[None], None, None, {}, None, kv, route="resident16")
+
+
+def h100_clusters(C):
+    """The H100's capacity for the replay teams at 104 columns (one block an
+    SM, a cluster inside a GPC; cudaOccupancyMaxActiveClusters on the card):
+    7 clusters of 16 blocks, 15 of 8."""
+    return 7 if C == 16 else 15
+
+
+# (columns, lanes, terms) -> (route, C, f32) of the replay with 4 inputs and
+# h100_clusters: clusters of 16 where 16 divides P and 7 lanes' clusters or
+# fewer are asked for; the three-term replay keeps the float32 wT where
+# that slice stays resident and the bf16 terms' would not (63 columns on
+# clusters of 8, 104 on clusters of 16); resident through 63 columns and
+# at 104 with C = 16.
+REPLAY_ROUTES = {}
+for _cols in (13, 24, 32, 63, 104, 312):
+    for _lanes in (1, 4, 8, 16):
+        for _terms in (2, 3):
+            _C = 16 if (8 * _cols) % 16 == 0 and _lanes <= 7 else 8
+            _res = _cols <= 63 or (_cols == 104 and _C == 16)
+            REPLAY_ROUTES[_cols, _lanes, _terms] = (
+                "resident" if _res else "streamed", _C,
+                _terms == 3 and (_cols == 63 or (_cols == 104 and _C == 16)))
+
+
+@pytest.mark.parametrize("columns,lanes,terms", sorted(REPLAY_ROUTES))
+def test_replay_cluster_size_and_route(columns, lanes, terms):
+    P = 8 * columns
+    route, C = no.ode_replay_route(P, 4, lanes, terms, h100_clusters)
+    want_route, want_C, want_f32 = REPLAY_ROUTES[columns, lanes, terms]
+    assert (route, C) == (want_route, want_C)
+    assert no.ode_replay_cluster(P, lanes, h100_clusters) == C
+    plan = no.ode_team_plan(P, 4, 1, terms, no.REPLAY, C=C)
+    assert (plan.C, plan.nc, plan.NT, plan.NB, plan.LB, plan.ipt) == (C, P // C, terms, 1, 1, 1)
+    assert plan.fits and plan.stream == (route == "streamed") and plan.f32 == want_f32
+    # the exchange slot holds the rates' terms alone, no VJP partials (the
+    # sweep's slot does)
+    assert plan.slot == -(-4 * P * plan.xs // 16) * 16 and plan.bytes <= SMEM
+    sweep = no.ode_team_plan(P, 4, 1, terms, no.SWEEP, C=C)
+    assert plan.slot < sweep.slot and plan.L == sweep.L
+
+
+def _replay_invariants(p, P, stream):
+    assert p.bytes <= SMEM and p.fits and p.ipt == 1 and p.LB == 1, p
+    # the chunk sums of team8's order (G, NP, nc float64) before the weights;
+    # a thread for each (chunk, own column)
+    G = no._t3_chunks(P)
+    assert 1 <= G <= 8 and p.nc * G <= 512
+    assert p.fixed >= 2 * p.slot + 8 * G * (6 if p.NT == 3 else 3) * p.nc
+    v = p.Lv if p.f32 else max(1, p.Lv // 2)
+    assert p.L * p.Lv == 32 and p.rw % v == 0 and (p.rw // v) % 2 == 1
+    assert (p.rw >= p.nc) if p.f32 else (2 * p.rw >= p.NT * p.nc)
+    assert p.xs % 2 == 0 and p.gw % 2 == 0 and p.gw >= p.NT and p.slot == -(-4 * P * p.xs // 16) * 16
+    assert p.fixed % 16 == 0 and (P * 4 * p.rw) % 16 == 0
+    if p.stream:
+        assert p.S >= min(2, p.T) and p.R % p.L == 0 and p.R % 8 == 0
+        assert (p.R * 4 * p.rw) % 16 == 0 and p.T * p.R >= P > (p.T - 1) * p.R
+        assert p.bytes == p.fixed + p.S * p.R * 4 * p.rw
+    else:
+        assert (p.R, p.T, p.S, p.slots) == (P, 1, 1, 2) and not stream
+        assert p.bytes == p.fixed + P * 4 * p.rw
+
+
+@pytest.mark.parametrize("terms", [2, 3])
+def test_replay_shared_memory_fits_at_every_width(terms):
+    """Every width from 1 through 312 columns, 0, 4 and 16 inputs, clusters
+    of 8 and (where 16 divides P) 16, resident or the ring forced: the plan
+    fits a block; the float32 slice only where it is resident and the bf16
+    terms' would not be."""
+    f32 = set()
+    for columns in range(1, 313):
+        P = 8 * columns
+        for C in (8, 16):
+            if P % C:
+                continue
+            for n_in in (0, 4, 16):
+                for stream in (False, True):
+                    p = no.ode_team_plan(P, n_in, 1, terms, no.REPLAY, stream, C)
+                    _replay_invariants(p, P, stream)
+                    if p.f32:
+                        f32.add((columns, C, n_in))
+                        assert terms == 3
+                        bf16 = p.fixed + P * 4 * no._t3_row_words(p.nc, 3, p.Lv, False)
+                        assert bf16 > SMEM and p.fixed + P * 4 * p.rw <= SMEM
+    if terms == 3:
+        # with 4 inputs: clusters of 16 from 90 through 104 columns (even; the
+        # bf16 terms fit through 88, the float32 wT through 104), of 8 from 63
+        # through 72
+        assert {c for c, C, n_in in f32 if C == 16 and n_in == 4} == set(range(90, 105, 2))
+        assert {c for c, C, n_in in f32 if C == 8 and n_in == 4} == set(range(63, 73))
+
+
+def test_replay_cluster_of_8_where_the_card_holds_fewer_clusters_of_16():
+    P = 832
+    assert no.ode_replay_cluster(P, 4, lambda C: 7) == 16
+    assert no.ode_replay_cluster(P, 7, lambda C: 7) == 16
+    assert no.ode_replay_cluster(P, 8, lambda C: 7) == 8
+    assert no.ode_replay_cluster(P, 4, lambda C: 3 if C == 16 else 16) == 8
+    assert no.ode_replay_cluster(504, 1, lambda C: 100) == 8  # 16 does not divide P
+    assert no.ode_replay_route(P, 4, 16, 3, h100_clusters) == ("streamed", 8)
+    assert no.ode_replay_route(P, 4, 16, 2, h100_clusters) == ("streamed", 8)
+
+
+def test_replay_pack_layout_against_wT():
+    P, pw, fc = _network(104)
+    plan = no.ode_team_plan(P, 4, 1, 3, no.REPLAY)
+    assert plan.f32 and not plan.stream
+    pk = no.ode_replay_pack(pw["wT"], P, plan)
+    assert pk.dtype == torch.int32 and tuple(pk.shape) == (plan.C, P, plan.rw)
+    words = pk.view(torch.float32)
+    nc = plan.nc
+    for r in range(plan.C):
+        assert torch.equal(words[r, :, :nc], pw["wT"][:, r * nc:(r + 1) * nc])
+        assert not words[r, :, nc:].any()
+
+
+@pytest.mark.parametrize("split", ["split3", "split2"])
+def test_replay_routes_checked_before_the_device_and_plain_on_cpu(split):
+    """A bad route raises before any device is touched; on CPU tensors every
+    route runs the plain version (bit for bit with ``_ode_replay_fwd_plain``)
+    and launches nothing."""
+    P, pw, fc = _network(13)
+    pw = {k: v.contiguous() for k, v in pw.items()}
+    sc = no.SDEConsts(fc=fc, knot_ts=(0.0, 0.5, 1.0))
+    kv = torch.from_numpy(np.random.default_rng(3).uniform(0.0, 20.0, (3, 2, 4))
+                          .astype(np.float32))
+    y0 = torch.from_numpy(np.random.default_rng(4).uniform(-5.0, 5.0, (2, 3 * P))
+                          .astype(np.float32))
+    st = torch.tensor([0.0, 1e-4, 3e-4, 6e-4], dtype=torch.float32)
+    w = {k: v.contiguous() for k, v in (nw.prepare_premixed_split if split == "split3"
+                                         else nw.prepare_premixed_split2)(pw, fc)[0].items()}
+
+    def call(route):
+        if split == "split3":
+            return no.ode_replay_fwd(y0, st, pw, sc, kv, route=route)
+        return no.ode_replay_fwd_split2(y0, st, w, sc, kv, route=route)
+
+    for bad in ("block", "team16", "Resident"):
+        with pytest.raises(ValueError, match="route"):
+            call(bad)
+    before = dict(no.LAUNCHES)
+    want = no._ode_replay_fwd_plain(y0, st, w, sc, kv)
+    for route in (None,) + no.ODE_TEAM_ROUTES:
+        got = call(route)
+        assert all(torch.equal(g, x) for g, x in zip(got, want)), route
+    assert no.LAUNCHES == before
 
 
 def test_resident_route_refuses_a_streamed_shape():
