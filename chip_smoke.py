@@ -181,12 +181,18 @@ lanes' own step times), with --fused-pass (B5t) and --grad-bf16, and the
 kernel-mode steps at 32 columns (B4't-team):
 35. kernel vs plain, bit for bit: the f32 selection of 4 lanes over 25
    grid points and 8 attempts along its replay; B3t-team and B4t over that
-   selection's whole lanes grid; B4t lanes at 13 columns.
+   selection's whole lanes grid; B4t lanes at 13 columns. The cluster
+   teams' routes (team_routes): B3t-team and B4t on a 256-half-step window
+   of that lanes grid on the shape's route, the other one and team8 (the
+   8-block teams they replaced), CUDA events on the same call.
 36. B5t against its plain version, bit for bit: the whole selection at 13
    columns over 25 points of the second, at 104 columns over 25 points
    and 8 attempts.
 37. B4't-team against its plain version, bit for bit, at 32 and 63 columns
    on a 64-step uniform window and a lanes window; against B4't at 13.
+   B3t-team at 32 columns on that uniform window against its plain
+   version, bit for bit; the teams' routes at 32 columns on a 256-step
+   uniform window.
 38. main path: one exact step over the full second, one launch each of the
    selection, B3t-team and B4t; card against CPU over 5 points (the loss
    within the larger of 1e-5 and ten times its nudge spread, each gradient
@@ -368,6 +374,8 @@ FLAGSHIP_SEL_T = 12
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 SDE_SOURCE = "columnflow_torch/kernels/csrc/network_sde.cu"
 TEAM2_SOURCE = "columnflow_torch/kernels/csrc/replay2_team.cuh"  # B3, B4: cluster teams
+# B3t-team, B4t: cluster teams per lane on ode_team.cuh
+SDE3_TEAM_SOURCE = "columnflow_torch/kernels/csrc/sde3_replay_team.cu"
 # Every window on which B3 and B4 are held against their plain versions, by
 # width: (max abs error, bit for bit, differing elements); the kernels line
 # reports the largest error over all of them.
@@ -3821,7 +3829,7 @@ FG_WIDE_CPA = (192, 96, 24)  # 312 columns, the widest the fused engine takes
 FG_W = 64           # steps of each uniform kernel-vs-plain window at 104 columns
 FG_LANES_W = 16     # steps of the per-lane window
 FG_WIDE_W = 8       # steps of the 312-column window
-FG_SOURCE = SDE_SOURCE
+FG_SOURCE = SDE3_TEAM_SOURCE
 
 
 def outer_bound(P, B, n_in, K, steps):
@@ -4254,6 +4262,29 @@ def exact104_phases(dev, cfg):
     compare("sde3_bwd_emit_lanes", got, want)
     att_args = attempts(ys_l, sel_k, words_j, 8, pw, model_s.sc, model_s.kv, scfg_j)
     compare("sde_select_jax_f32_104", ns.select_attempt(*att_args), ns._attempt_plain(*att_args))
+    # B3t-team's and B4t's routes on a window of the lanes grid (the shape's
+    # route, the other one, team8; the same call).
+    sde3_routes = {"sde3_fwd_team": {}, "sde3_bwd_emit": {}}
+
+    def route_times(key, y, grid, w, ybar_w, pw_r, sc_r, kv_r, lanes):
+        n_in_r, Pr = kv_r.shape[2], y.shape[-1] // 3
+        for name, bwd in (("sde3_fwd_team", False), ("sde3_bwd_emit", True)):
+            plan = ns._sde3_team(None, Pr, n_in_r, B, bwd)
+            if bwd:
+                def run(r):
+                    return ns.replay3_bwd_emit(y[:w].contiguous(), ybar_w, grid[0], grid[1],
+                                               grid[3], w, 64 if lanes else 0, pw_r, sc_r, kv_r,
+                                               route=r)
+            else:
+                def run(r):
+                    return ns.replay3_fwd(y[0].contiguous(), *grid, w, pw_r, sc_r, kv_r, route=r)
+            sde3_routes[name][key] = {"P": Pr, "C": plan.C, "f32": plan.f32,
+                                      **team_routes(run, w, "streamed" if plan.stream
+                                                    else "resident")}
+
+    w_r = min(ROUTE_W, n_l)
+    route_times("104_lanes", ys_l, tuple(x[:w_r].contiguous() for x in grid_l), w_r,
+                ysbar_l[:w_r].contiguous(), pw, model_s.sc, model_s.kv, True)
     # 13 columns: B4t lanes at P = 104 (the --grad-bf16 path at the default width).
     task13 = make_task(BENCH_SEL_T, cpa=EX_13_CPA)
     P13 = task13.net.num_pops
@@ -4327,6 +4358,14 @@ def exact104_phases(dev, cfg):
         ys_u = ns.replay3_fwd(y0_w, *grid_u, nu, pw_w, m_w.sc, m_w.kv)
         k0 = (nu // 2) & ~7
         win = tuple(x[k0:k0 + EX_W].contiguous() for x in grid_u)
+        if cpa == EX_32_CPA:  # B3t-team at 32 columns (kernel mode's replay)
+            fwd32 = (ys_u[k0].contiguous(), *win, EX_W, pw_w, m_w.sc, m_w.kv)
+            got = ns.replay3_fwd(*fwd32)
+            want, plain_ms["sde3_fwd_team_32"] = timed(lambda: ns._replay3_fwd_plain(*fwd32))
+            compare("sde3_fwd_team_32", got, want)
+            route_times("32_uniform", ys_u, tuple(x[:ROUTE_W].contiguous() for x in grid_u),
+                        ROUTE_W, torch.randn(ROUTE_W, B, 3 * Pw, generator=gen, device=dev),
+                        pw_w, m_w.sc, m_w.kv, False)
         chunk = sf.sweep_chunk((B, 3 * Pw), EX_W, 32)
         bwd = (ys_u[k0:k0 + EX_W].contiguous(),
                torch.randn(EX_W, B, 3 * Pw, generator=gen, device=dev), win[0], win[1], win[3],
@@ -4364,6 +4403,10 @@ def exact104_phases(dev, cfg):
         ns.sde3_bwd_route = by_shape
     compare("sde3_bwd_team", team13, ns.replay3_bwd(*bwd))
     compare("sde3_bwd_team", team13, ns._replay3_bwd_plain(*bwd))
+    emit("exact104_team_routes", sde3_fwd_team_32={
+        "start": team_windows[sum(EX_32_CPA)]["uniform_start"], "steps": EX_W,
+        "bit_for_bit": same["sde3_fwd_team_32"], "max_abs_err": errs["sde3_fwd_team_32"]},
+        team_routes=sde3_routes)
     emit("exact104_b4t_team_vs_plain", windows=team_windows,
          against_one_block_13={"P": P13, "start": k0, "steps": w_n},
          bit_for_bit=same["sde3_bwd_team"], max_abs_err=errs["sde3_bwd_team"],
@@ -4641,11 +4684,17 @@ def exact104_phases(dev, cfg):
                 "sde3_bwd_emit_lanes": plain_ms["sde3_bwd_emit_lanes"],
                 "sde_select_krng_split3": plain_ms["sde_select_krng_split3"],
                 "sde3_bwd_team": plain_ms[f"sde3_bwd_team_{sum(EX_32_CPA)}"]}
-    return [{"name": name, "route": "cuda", "source": SDE_SOURCE, "replaces": rep,
+    teams = {"sde3_fwd_team_lanes": {"team_routes": sde3_routes["sde3_fwd_team"],
+                                     "bit_for_bit_32_columns": same["sde3_fwd_team_32"]},
+             "sde3_bwd_emit_lanes": {"team_routes": sde3_routes["sde3_bwd_emit"],
+                                     "bit_for_bit_13_columns": same["sde3_bwd_emit_lanes_13"]}}
+    return [{"name": name, "route": "cuda",
+             "source": SDE3_TEAM_SOURCE if name in teams else SDE_SOURCE, "replaces": rep,
              "launches": launches, "max_abs_err": errs[name], "ms": times[name],
              "plain_ms": plain_of[name], "plain_ms_at": at, "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": path,
-             "bit_for_bit": same[name], "ns_per_serial_step": times[name] * 1e6 / serial[name]}
+             "bit_for_bit": same[name], "ns_per_serial_step": times[name] * 1e6 / serial[name],
+             **teams.get(name, {})}
             for name, (rep, launches, path, at) in entries.items()]
 
 

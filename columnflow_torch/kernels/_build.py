@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
                 "network_ode": ["-fmad=false"], "ode_select_team": ["-fmad=false"],
                 "ode_emit_team": ["-fmad=false"], "ode_replay_team": ["-fmad=false"],
+                "sde3_replay_team": ["-fmad=false"],
                 "sde_select_team": ["-fmad=false"],
                 "xor_ode": ["-fmad=false"],
                 "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"],
@@ -58,8 +59,8 @@ _SIGNATURES = {
         "cf_sde2_bwd_team8": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 17,
         "cf_sde3_fwd": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 12,
         "cf_sde3_bwd": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 15,
-        "cf_sde3_fwd_team": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 15,
-        "cf_sde3_bwd_emit": [_I, _I, _I, _I, _P, _I, _I, _I, _I] + [_P] * 19,
+        "cf_sde3_fwd_team_team8": [_I, _I, _I, _I, _P, _I, _I, _I] + [_P] * 15,
+        "cf_sde3_bwd_emit_team8": [_I, _I, _I, _I, _P, _I, _I, _I, _I] + [_P] * 19,
         "cf_sde3_bwd_team": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 21,
         "cf_sde2_bwd": [_I, _I, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 19,
     },
@@ -89,6 +90,11 @@ _SIGNATURES = {
     "ode_emit_team": {
         "cf_ode_replay_bwd_emit": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,
         "cf_ode_replay_bwd_emit_split3": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,
+    },
+    "sde3_replay_team": {
+        "cf_sde3_fwd_team": [_I, _I, _I, _I, _P] + [_I] * 5 + [_P] * 12,
+        "cf_sde3_bwd_emit": [_I, _I, _I, _I, _P] + [_I] * 6 + [_P] * 13,
+        "cf_sde3_max_clusters": [_I] * 5 + [_P],
     },
     "sde_select_team": {
         "cf_sde_select_team": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 10,

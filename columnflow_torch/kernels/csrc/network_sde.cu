@@ -28,12 +28,15 @@
 //   cf_sde3_bwd        <- _make_sde_bwd_chunk_kernel in kernel mode on the
 //                         three-term split (B4't): the state cotangent and the
 //                         wT / iwT cotangents in the kernel
-//   cf_sde3_fwd_team   <- B3t as a team of blocks per lane (B3t-team), for
-//                         widths whose three-term weights do not fit a block
-//   cf_sde3_bwd_emit   <- _make_sde_bwd_chunk_kernel, emit_steps, on the
-//                         three-term split (B4t): the state cotangent alone
-//                         and each step's total output cotangent (seed), a
-//                         team of blocks per lane
+//   cf_sde3_fwd_team_team8
+//                      <- B3t as a team of 8 blocks per lane (B3t-team's
+//                         yardstick: the cluster teams of sde3_replay_team.cu
+//                         replaced it on every path; route "team8")
+//   cf_sde3_bwd_emit_team8
+//                      <- _make_sde_bwd_chunk_kernel, emit_steps, on the
+//                         three-term split (B4t's yardstick, the same): the
+//                         state cotangent alone and each step's total output
+//                         cotangent (seed), a team of 8 blocks per lane
 //   cf_sde3_bwd_team   <- B4't as one team of blocks for the whole batch
 //                         (B4't-team), for widths whose three-term weights and
 //                         batch do not fit a block (through 63 columns)
@@ -66,9 +69,10 @@
 // lane, B4't the batch in one block, because jax.vjp contracts each
 // product's weight cotangent over the lanes before rounding it to bf16.
 // From ~24 columns the three-term weights (6 P^2 bytes) no longer fit a
-// block: B3t-team and B4t run each lane on a team of 8 blocks (team.cuh),
-// the six bf16 (P, P) terms and transposes streamed from L2 (8.3 MB at
-// P = 832), the lane's state vectors in global memory. B4t forms no weight
+// block: B3t-team and B4t run each lane on a cluster team
+// (sde3_replay_team.cu); their 8-block yardsticks here (team.cuh) read the
+// six bf16 (P, P) terms and transposes from L2 (8.3 MB at P = 832) and keep
+// the lane's state vectors in global memory. B4t forms no weight
 // cotangent, so its lanes are independent: the weight gradients are taken
 // outside the kernel from the seeds it emits (solvers/fused.py
 // outer_arg_grads_split3). Where the weights hold at most 1 MiB (through 63
@@ -545,7 +549,8 @@ sde3_bwd_kernel(Net n, Grid3 g, int stride, int chunk, const float* __restrict__
 // populations' entries only.
 // ---------------------------------------------------------------------------
 
-// B3t-team: the step and the rows of sde3_fwd_kernel. scr: 4 (3P) floats
+// B3t-team's 8-block team (the yardstick of sde3_replay_team.cu's cluster
+// teams): the step and the rows of sde3_fwd_kernel. scr: 4 (3P) floats
 // per lane (y, f1, h2, f2). NT = 3: B3t-team; NT = 2: the same body on the
 // two-term split, a yardstick for B3's cluster teams (cf_sde2_fwd_team8).
 template <int NT>
@@ -596,7 +601,8 @@ sde3_fwd_team_kernel(Net n, Grid3 g, Wg w, const float* __restrict__ y0, float* 
   }
 }
 
-// B4t: the state-only reverse sweep (emit mode). Over steps n_real-1..0,
+// B4t's 8-block team (the yardstick, as above): the state-only reverse
+// sweep (emit mode). Over steps n_real-1..0,
 // with c = ybar + ysbar[k] written to seeds[k] (the total cotangent on step
 // k's output) and lane b's t0, h, i10h:
 //   f1 = f(t0, y);  h2 = (y + (0.75 h) f1) + (1.5 i10h) sigma
@@ -941,16 +947,18 @@ int cf_sde3_bwd(int B, int P, int n_in, int K, const float* hc, int n_steps, int
   return (int)cudaGetLastError();
 }
 
-// The three-term sweeps as teams (B3t-team, B4t). hi, mid, lo: the bf16
+// The three-term sweeps as teams of 8 blocks (B3t-team's and B4t's
+// yardsticks, route "team8"). hi, mid, lo: the bf16
 // (P, P) terms of wT (prepare_premixed_split); hiT, midT, loT their
 // transposes; iwT float32 (n_in, P); lanes, t0s, hs, i1, i10 as cf_sde3_fwd;
 // scr: global scratch, 4 (fwd) or 7 (bwd) B 3P floats. P must be a
 // multiple of 8.
-int cf_sde3_fwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
-                     int lanes, const float* bg, const float* adapt, const void* hi,
-                     const void* mid, const void* lo, const float* iwT, const float* kv,
-                     const float* t0s, const float* hs, const float* i1, const float* i10,
-                     const float* y0, float* scr, float* ys, void* stream) {
+int cf_sde3_fwd_team_team8(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                           int n_real, int lanes, const float* bg, const float* adapt,
+                           const void* hi, const void* mid, const void* lo, const float* iwT,
+                           const float* kv, const float* t0s, const float* hs, const float* i1,
+                           const float* i10, const float* y0, float* scr, float* ys,
+                           void* stream) {
   size_t bytes;
   if (int e = team_prepare(sde3_fwd_team_kernel<3>, P, n_in, K, 1, 3, 6, 1, &bytes)) return e;
   const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, nullptr, nullptr, nullptr, iwT};
@@ -963,12 +971,13 @@ int cf_sde3_fwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps
 
 // ys_prev, ysbar, seeds (n_steps, B, 3P); ybar (B, 3P); stride: truncation
 // every stride steps (0: none).
-int cf_sde3_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
-                     int lanes, int stride, const float* bg, const float* adapt, const void* hi,
-                     const void* mid, const void* lo, const void* hiT, const void* midT,
-                     const void* loT, const float* iwT, const float* kv, const float* t0s,
-                     const float* hs, const float* i10, const float* ys_prev,
-                     const float* ysbar, float* scr, float* ybar, float* seeds, void* stream) {
+int cf_sde3_bwd_emit_team8(int B, int P, int n_in, int K, const float* hc, int n_steps,
+                           int n_real, int lanes, int stride, const float* bg,
+                           const float* adapt, const void* hi, const void* mid, const void* lo,
+                           const void* hiT, const void* midT, const void* loT,
+                           const float* iwT, const float* kv, const float* t0s, const float* hs,
+                           const float* i10, const float* ys_prev, const float* ysbar,
+                           float* scr, float* ybar, float* seeds, void* stream) {
   size_t bytes;
   if (int e = team_prepare(sde3_bwd_emit_kernel<3>, P, n_in, K, 1, 3, 6, 1, &bytes)) return e;
   const Wg w{(const bf16*)hi, (const bf16*)mid, (const bf16*)lo, (const bf16*)hiT,
@@ -982,7 +991,7 @@ int cf_sde3_bwd_emit(int B, int P, int n_in, int K, const float* hc, int n_steps
 }
 
 // B4't-team (the batch on one team: sde3_bwd_kernel's sweep, the terms
-// in L2). hi..loT, iwT as cf_sde3_bwd_emit; the rest as cf_sde3_bwd; scr: 7 B
+// in L2). hi..loT, iwT as cf_sde3_bwd_emit_team8; the rest as cf_sde3_bwd; scr: 7 B
 // 3P floats; work: P^2 + n_in P floats. P must be a multiple of 8.
 int cf_sde3_bwd_team(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
                      int lanes, int stride, int chunk, const float* bg, const float* adapt,

@@ -4,8 +4,10 @@
 // Hopper thread-block-cluster teams: cf_ode_select, cf_ode_attempt
 // (ode_select_team.cu), cf_ode_replay_fwd_team, cf_ode_replay_fwd_split2
 // (ode_replay_team.cu), cf_ode_replay_bwd_emit and
-// cf_ode_replay_bwd_emit_split3 (ode_emit_team.cu). Included once per
-// source; the definitions live in an unnamed namespace.
+// cf_ode_replay_bwd_emit_split3 (ode_emit_team.cu). Its team functions
+// (team3_init, t3_drift, t3_vjp) also carry the three-term SDE replay and
+// its emit-mode sweep (sde3_replay_team.cu). Included once per source; the
+// definitions live in an unnamed namespace.
 //
 // Replaces (columnflow/solvers/fused.py):
 //   ode_select16_kernel  <- _make_adaptive_kernel (B6): Hairer's initial
@@ -106,8 +108,16 @@ constexpr int kT3MaxItems = 2;  // owned (lane, population) items a thread holds
 
 // The uses of a team's plan (Plan3): the selection (the batch, forward
 // products only), the emit-mode sweep (one lane, drifts and VJPs), the
-// replay (one lane, drifts only).
-constexpr int kT3Select = 0, kT3Sweep = 1, kT3Replay = 2;
+// replay (one lane, drifts only), and the SDE's emit-mode sweep (B4t,
+// sde3_replay_team.cu: one lane, drifts in the replay's sum order and
+// VJPs).
+constexpr int kT3Select = 0, kT3Sweep = 1, kT3Replay = 2, kT3SdeSweep = 3;
+
+// The uses whose drifts sum in team8's order (t3_fwd_chunks), and which may
+// keep the float32 wT as their slice.
+__host__ __device__ inline bool t3_chunked(int use) {
+  return use == kT3Replay || use == kT3SdeSweep;
+}
 
 // A team's shape, computed alike on the host (launch, shared-memory bytes)
 // and in the kernel (carving, thread mappings); kernels/network_ode.py
@@ -158,10 +168,11 @@ __host__ __device__ inline int t3_chunks(int P) {
   return 2 * nc8 <= kThreads ? (kThreads / nc8 < 8 ? kThreads / nc8 : 8) : 1;
 }
 
-// The VJP's own cotangents (nc float64), or the replay's chunk sums (G NP nc).
+// The VJP's own cotangents (nc float64), or the replay's chunk sums (G NP
+// nc; the SDE sweep's VJPs use their first nc).
 __host__ __device__ inline size_t t3_cvec(const Plan3& p, int use) {
   const size_t np = p.NT == 3 ? 6 : 3;
-  return t2_align(8 * (use == kT3Replay ? t3_chunks(p.C * p.nc) * np : 1) * (size_t)p.nc);
+  return t2_align(8 * (t3_chunked(use) ? t3_chunks(p.C * p.nc) * np : 1) * (size_t)p.nc);
 }
 
 __host__ __device__ inline size_t t3_fixed(const Plan3& p, int n_in, int slots, int use) {
@@ -193,18 +204,20 @@ __host__ __device__ inline Plan3 plan3(int P, int n_in, int NB, int NT, int use,
   while (p.L > 1 && p.G * p.nc * p.L > kThreads) p.L /= 2;
   p.Lv = 32 / p.L;
   p.rw = t3_row_words(p.nc, NT, p.Lv, false);
-  const size_t xb = 4 * (size_t)P * p.xs, vb = use == kT3Sweep ? 8 * (size_t)NT * P : 0;
+  const size_t xb = 4 * (size_t)P * p.xs;
+  const size_t vb = use == kT3Sweep || use == kT3SdeSweep ? 8 * (size_t)NT * P : 0;
   p.slot = t2_align(xb > vb ? xb : vb);
   p.fits = p.ipt <= kT3MaxItems;
   const size_t f2 = t3_fixed(p, n_in, 2, use);
-  // The three-term replay keeps the float32 wT instead where that slice
-  // stays resident and the three bf16 terms' would not (4 bytes a weight
-  // against 6: 90-104 columns with clusters of 16, 63-72 with clusters of
-  // 8): splitting each weight as it is read costs more than the ring saves
-  // where the terms stream anyway (312 columns), and the same where they fit
+  // The three-term replays (dopri5 and SDE) and the SDE sweep keep the
+  // float32 wT instead where that slice stays resident and the three bf16
+  // terms' would not (4 bytes a weight against 6: 90-104 columns with
+  // clusters of 16, 63-72 with clusters of 8 for the replays): splitting
+  // each weight as it is read costs more than the ring saves where the
+  // terms stream anyway (312 columns), and the same where they fit
   // (PERF.md).
   const int rw32 = t3_row_words(p.nc, NT, p.Lv, true);
-  p.f32 = use == kT3Replay && NT == 3 && f2 + 4 * (size_t)p.rw * P > kT2SmemLimit &&
+  p.f32 = t3_chunked(use) && NT == 3 && f2 + 4 * (size_t)p.rw * P > kT2SmemLimit &&
           f2 + 4 * (size_t)rw32 * P <= kT2SmemLimit;
   if (p.f32) p.rw = rw32;
   const size_t row = 4 * (size_t)p.rw;
@@ -307,8 +320,8 @@ __device__ __forceinline__ unsigned char* t3_slot(const Team3& T) {
 // Carve the shared memory, copy what the drift reads of the own populations
 // and of the lanes' stimulus, start the weights' copies, and make sure every
 // block of the cluster has started before any writes into another's shared
-// memory. NB lanes from b0 of the knot table; use: kT3Select, kT3Sweep or
-// kT3Replay; C: the cluster size (0: the default).
+// memory. NB lanes from b0 of the knot table; use: kT3Select, kT3Sweep,
+// kT3Replay or kT3SdeSweep; C: the cluster size (0: the default).
 __device__ __forceinline__ void team3_init(Team3& T, unsigned char* sm, const Net& n, int NB,
                                            int NT, int use, int b0, const uint32_t* wpk,
                                            const float* __restrict__ iw, int stream, int C = 0) {
@@ -599,7 +612,8 @@ __device__ __forceinline__ void t3_fwd_chunks(Team3& T, int P, const uint32_t* _
 // block's columns j of cvec[j] W_t[k, j] for each term t (Lv lanes per row,
 // lane l summing the columns j = l mod Lv in order, then a butterfly),
 // stored into slot (t, rank, k mod nc) of the exchange slot of k's owner.
-template <int NT, bool kStream>
+// kF32: the slice holds the float32 wT, each weight split as it is read.
+template <int NT, bool kStream, bool kF32 = false>
 __device__ __forceinline__ void t3_vjp_products(Team3& T, int P) {
   const Plan3& p = T.p;
   cgo::cluster_group cl = cgo::this_cluster();
@@ -618,13 +632,26 @@ __device__ __forceinline__ void t3_vjp_products(Team3& T, int P) {
 #pragma unroll
       for (int t = 0; t < NT; ++t) d[t] = 0.0;
       if (ok) {
-        const uint16_t* row = reinterpret_cast<const uint16_t*>(tile + (size_t)r * rw);
+        if constexpr (kF32) {
+          const uint32_t* row = tile + (size_t)r * rw;
 #pragma unroll 2
-        for (int j = l; j < nc; j += Lv) {
-          const double c = cv[j];
-          d[0] = fma(c, t3_w(row[j]), d[0]);
-          d[1] = fma(c, t3_w(row[nc + j]), d[1]);
-          if constexpr (NT == 3) d[2] = fma(c, t3_w(row[2 * nc + j]), d[2]);
+          for (int j = l; j < nc; j += Lv) {
+            const double c = cv[j];
+            double wh, wm, wl;
+            t3_split_w(row[j], wh, wm, wl);
+            d[0] = fma(c, wh, d[0]);
+            d[1] = fma(c, wm, d[1]);
+            d[2] = fma(c, wl, d[2]);
+          }
+        } else {
+          const uint16_t* row = reinterpret_cast<const uint16_t*>(tile + (size_t)r * rw);
+#pragma unroll 2
+          for (int j = l; j < nc; j += Lv) {
+            const double c = cv[j];
+            d[0] = fma(c, t3_w(row[j]), d[0]);
+            d[1] = fma(c, t3_w(row[nc + j]), d[1]);
+            if constexpr (NT == 3) d[2] = fma(c, t3_w(row[2 * nc + j]), d[2]);
+          }
         }
       }
       for (int off = Lv / 2; off > 0; off >>= 1) {
@@ -743,7 +770,8 @@ __device__ __forceinline__ void t3_drift(const Net& n, Team3& T, float t, const 
 // The state cotangent of one drift evaluation (one lane a team) at the own
 // state y for the output cotangent ct -> out (owner threads), with jax.vjp's
 // rounding points (team.cuh vjp_out). The stimulus is data: no time enters.
-template <int NT, bool kStream>
+// kF32: the slice holds the float32 wT (t3_vjp_products).
+template <int NT, bool kStream, bool kF32 = false>
 __device__ __forceinline__ void t3_vjp(const Net& n, Team3& T, const float (&y)[3],
                                        const float (&ct)[3], float (&out)[3]) {
   const int i = threadIdx.x, nc = T.p.nc, C = T.p.C;
@@ -756,7 +784,7 @@ __device__ __forceinline__ void t3_vjp(const Net& n, Team3& T, const float (&y)[
     cvec[i] = (double)(((ct[0] / n.tau_m) * n.R) * n.tau_s) * kT3Scale;
   }
   __syncthreads();
-  t3_vjp_products<NT, kStream>(T, n.P);
+  t3_vjp_products<NT, kStream, kF32>(T, n.P);
   cgo::this_cluster().sync();
   if (i < nc) {
     const double* slot = reinterpret_cast<const double*>(t3_slot(T));

@@ -578,8 +578,12 @@ def _w3_cuda(pw, sc: SDEConsts):
 
 ODE_TEAM_ROUTES = ("resident", "streamed", "team8")
 _T3_MAX_ITEMS = 2  # csrc/ode_team.cuh kT3MaxItems
-# The uses of a team's plan (csrc/ode_team.cuh kT3Select, kT3Sweep, kT3Replay).
-SELECT, SWEEP, REPLAY = 0, 1, 2
+# The uses of a team's plan (csrc/ode_team.cuh kT3Select, kT3Sweep, kT3Replay,
+# kT3SdeSweep: the three-term SDE's emit-mode sweep, B4t).
+SELECT, SWEEP, REPLAY, SDE_SWEEP = 0, 1, 2, 3
+# The uses whose drifts sum in the 8-block team's order and which may keep
+# the float32 wT as their slice (csrc/ode_team.cuh t3_chunked).
+_CHUNKED = (REPLAY, SDE_SWEEP)
 
 
 class ODETeamPlan(NamedTuple):
@@ -633,8 +637,9 @@ def _t3_chunks(P):
 
 
 def _t3_fixed(C, nc, NB, n_in, slot, slots, use, NT):
-    # the VJP's own cotangents, or the replay's chunk sums (G, NP, nc)
-    cvec = _align16(8 * (_t3_chunks(C * nc) * (6 if NT == 3 else 3) if use == REPLAY else 1) * nc)
+    # the VJP's own cotangents, or the replays' chunk sums (G, NP, nc)
+    cvec = _align16(8 * (_t3_chunks(C * nc) * (6 if NT == 3 else 3) if use in _CHUNKED else 1)
+                    * nc)
     return (slots * slot + _align16(4 * NB * nc) + cvec + _align16(8 * NB * n_in)
             + _align16(4 * _MAX_KNOTS * NB * n_in) + _align16(4 * (n_in + 2) * nc)
             + _align16(8 * (_THREADS // 32 + 2 * C)) + _align16(8 * (1 + 2 * _T2_MAX_STAGES)))
@@ -643,8 +648,10 @@ def _t3_fixed(C, nc, NB, n_in, slot, slots, use, NT):
 def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
                   stream: bool = False, C: int | None = None) -> ODETeamPlan:
     """The team shape of the selection (``use`` SELECT or False: NB lanes,
-    three terms), the emit-mode sweep (SWEEP or True: one lane, NT terms)
-    or the replay (REPLAY: one lane, NT terms, no VJP) at P populations and
+    three terms), the emit-mode sweep (SWEEP or True: one lane, NT terms),
+    the replay (REPLAY: one lane, NT terms, no VJP; the dopri5 and the SDE
+    replay) or the SDE's emit-mode sweep (SDE_SWEEP: one lane, three terms,
+    the replay's drifts and a VJP slot) at P populations and
     n_in inputs: a cluster of C blocks (default 16 where 16 divides P, else
     8); block r owns populations [r nc, (r + 1) nc) of every lane and
     keeps the columns [r nc, (r + 1) nc) of the NT bf16 terms in shared
@@ -653,7 +660,9 @@ def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
     columns, the replay and the sweep through 63 and on two terms at 104),
     else (or with ``stream``) streamed in tiles of R rows through S stages;
     one exchange slot where two leave no room for two stages (16 lanes at
-    104 columns). The replay's plan has no VJP slot and no cotangent vector.
+    104 columns). The replay's plan has no VJP slot and no cotangent vector;
+    the replays and the SDE sweep keep the chunk sums of the 8-block team's
+    order, and the float32 wT where the bf16 terms would stream and it fits.
     ``fits`` is False where no tiling fits or a thread would own more than
     two (lane, population) items (16 lanes at 312 columns): the route is
     then "team8"."""
@@ -662,7 +671,8 @@ def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
         raise ValueError(f"P must be a positive multiple of 8, got {P}")
     if not 0 <= n_in <= _MAX_INPUTS:
         raise ValueError(f"n_in must lie in [0, {_MAX_INPUTS}], got {n_in}")
-    if use not in (SELECT, SWEEP, REPLAY) or NT not in (2, 3) or NB < 1 or (use and NB != 1):
+    if (use not in (SELECT, SWEEP, REPLAY, SDE_SWEEP) or NT not in (2, 3) or NB < 1
+            or (use and NB != 1) or (use == SDE_SWEEP and NT != 3)):
         raise ValueError(f"no team takes NT={NT}, NB={NB}, use={use}")
     if C is None:
         C = 16 if P % 16 == 0 else 8
@@ -679,13 +689,14 @@ def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
         L //= 2
     Lv = 32 // L
     rw = _t3_row_words(nc, NT, Lv, False)
-    slot = _align16(max(4 * P * xs, 8 * NT * P if use == SWEEP else 0))
+    slot = _align16(max(4 * P * xs, 8 * NT * P if use in (SWEEP, SDE_SWEEP) else 0))
     fits = ipt <= _T3_MAX_ITEMS
     f2 = _t3_fixed(C, nc, NB, n_in, slot, 2, use, NT)
-    # The three-term replay keeps the float32 wT where that slice stays
-    # resident and the bf16 terms' would not (104 columns with clusters of 16).
+    # The three-term replays and the SDE sweep keep the float32 wT where that
+    # slice stays resident and the bf16 terms' would not (104 columns with
+    # clusters of 16).
     rw32 = _t3_row_words(nc, NT, Lv, True)
-    f32 = (use == REPLAY and NT == 3 and f2 + 4 * rw * P > SMEM_BLOCK_BYTES
+    f32 = (use in _CHUNKED and NT == 3 and f2 + 4 * rw * P > SMEM_BLOCK_BYTES
            and f2 + 4 * rw32 * P <= SMEM_BLOCK_BYTES)
     rw = rw32 if f32 else rw
     row = 4 * rw

@@ -4,9 +4,9 @@ kernels B5, B3 and B4 of ``columnflow/solvers``, and of the XLA selection
 loop ``_adaptive_pass`` as a kernel).
 
 Each kernel is CUDA C++ in ``csrc/network_sde.cu`` or, for the
-selection's cluster teams, ``csrc/sde_select_team.cu`` (built by
-``_build``) with a plain PyTorch version beside it that repeats its
-arithmetic:
+selection's cluster teams, ``csrc/sde_select_team.cu`` and, for
+B3t-team's and B4t's, ``csrc/sde3_replay_team.cu`` (built by ``_build``)
+with a plain PyTorch version beside it that repeats its arithmetic:
 
     wrapper         kernel              plain version      replaces (columnflow/solvers/)
     select_pass     cf_sde_select_team  _select_plain      sde_adaptive.py _make_sde_adaptive_kernel (B5;
@@ -22,14 +22,17 @@ arithmetic:
                                                            the same teams)
     replay3_fwd     cf_sde3_fwd         _replay3_fwd_plain _make_sde_chunk_kernel on the three-term
                     (cf_sde3_fwd_team)                     split, lanes or uniform grid (B3t; as a
-                                                           team, B3t-team: ``sde3_fwd_route``)
+                                                           cluster team, B3t-team: ``sde3_fwd_route``,
+                                                           ``sde3_team_route``; route "team8":
+                                                           cf_sde3_fwd_team_team8)
     replay3_bwd     cf_sde3_bwd         _replay3_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
                     (cf_sde3_bwd_team)                     three-term split (B4't; as a team,
                                                            B4't-team: ``sde3_bwd_route``)
     replay3_bwd_emit
                     cf_sde3_bwd_emit    _replay3_bwd_emit_plain
                                                            the same body, emit mode, three-term
-                                                           split (B4t)
+                                                           split (B4t, a cluster team; route
+                                                           "team8": cf_sde3_bwd_emit_team8)
     replay2_bwd     cf_sde2_bwd         _replay2_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
                                                            two-term split (B4s, B4't-team's team
                                                            kernel)
@@ -57,8 +60,12 @@ jax.vjp contracts each weight cotangent over the lanes before rounding it
 to bf16, or, where the batch and the weights do not fit a block (from ~20
 columns at 4 lanes), in one team of 8 blocks, each forming the weight
 cotangents of its own output columns. Where the three-term weights do not
-fit a block (from ~24 columns), the forward and the emit-mode sweep run
-each lane on a team of 8 blocks with the weights in L2.
+fit a block (from ~24 columns), the forward and the emit-mode sweep (at
+every width) run each lane on a cluster of 16 (or 8) blocks, each block's
+columns of the three terms, or of the float32 wT, in shared memory
+(``sde3_team_plan``: resident through 104 columns, streamed at 312), the
+sums in the 8-block team's order; ``route="team8"`` runs that 8-block team
+(the weights in L2), kept as the yardstick.
 
 The selection's plain loop (``select_plain``, ``attempt_plain``) takes the
 drift and the diffusion as callables: ``kernels.xor_sde`` runs the same
@@ -112,7 +119,8 @@ _PI_A, _PI_B, _ERR_EXP = 0.5, 0.25, 0.5
 LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_select_block": 0, "sde_attempt_block": 0,
             "sde_replay_fwd": 0, "sde_replay_bwd": 0,
             "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0,
-            "sde3_bwd_team": 0, "sde2_bwd": 0, "sde2_fwd_team8": 0, "sde2_bwd_team8": 0}
+            "sde3_bwd_team": 0, "sde2_bwd": 0, "sde2_fwd_team8": 0, "sde2_bwd_team8": 0,
+            "sde3_fwd_team_team8": 0, "sde3_bwd_emit_team8": 0}
 # What a thread block can hold (sm_90: 227 KB of shared memory), and the
 # kernels' layout constants (csrc/network_drift.cuh kThreads, kMaxInputs).
 SMEM_BLOCK_BYTES = 232448
@@ -1047,17 +1055,106 @@ def _replay3_named(t0s, hs, i10, pw, sc, kv, B, P, n_real):
 
 
 def sde3_fwd_route(P: int, n_in: int) -> str:
-    """Which kernel computes ``replay3_fwd`` on the card, by shape alone:
-    "block" (B3t, ``cf_sde3_fwd``) where one lane's three-term weights
+    """Which kernel computes ``replay3_fwd`` on the card by default, by shape
+    alone: "block" (B3t, ``cf_sde3_fwd``) where one lane's three-term weights
     (6 P^2 bytes), iwT and four state vectors fit the 232,448 bytes of
     shared memory a block can use (``setup_floats`` of
     csrc/split3_drift.cuh plus 4 (3P) floats), else "team" (B3t-team,
-    ``cf_sde3_fwd_team``: a team of 8 blocks per lane, the weights streamed
-    from L2). With 4 inputs that is "block" through 23 columns (P = 184)
-    and "team" from 24; 13 columns take "block", 64 through 312 "team"."""
+    ``cf_sde3_fwd_team``: a cluster team per lane, ``sde3_team_route``).
+    With 4 inputs that is "block" through 23 columns (P = 184) and "team"
+    from 24; 13 columns take "block", 64 through 312 "team"."""
     floats = ((3 * P * P + 1) // 2 + n_in * P + 5 * P + _MAX_INPUTS + 1 + 2 * (_THREADS // 32)
               + 4 * 3 * P)
     return "block" if 4 * floats <= SMEM_BLOCK_BYTES else "team"
+
+
+# B3t-team and B4t as cluster teams per lane (csrc/sde3_replay_team.cu, on
+# csrc/ode_team.cuh's team functions): "resident" or "streamed" as the
+# team's plan holds the weights, or "team8", the 8-block teams they replaced
+# (the yardstick: ``cf_sde3_fwd_team_team8``, ``cf_sde3_bwd_emit_team8``).
+SPLIT3_ROUTES = ("resident", "streamed", "team8")
+
+
+def _ode():
+    """``kernels.network_ode`` (the team plans), which imports this module."""
+    from columnflow_torch.kernels import network_ode
+
+    return network_ode
+
+
+def sde3_team_plan(P: int, n_in: int, bwd: bool, stream: bool = False, C: int | None = None):
+    """The team shape of B3t-team (``bwd`` False: the replay's plan,
+    ``network_ode.ode_team_plan(P, n_in, 1, 3, REPLAY)``) or B4t (True:
+    ``SDE_SWEEP``, the replay's chunk sums beside a VJP slot) with clusters
+    of C blocks (default 16 where 16 divides P, else 8): block r owns
+    populations [r nc, (r + 1) nc) and keeps the columns [r nc, (r + 1) nc)
+    of the three bf16 terms, or of the float32 wT where the terms would
+    stream and it fits (``f32``: 104 columns on clusters of 16), in shared
+    memory; resident where it fits, else (or with ``stream``) streamed
+    through a ring of tiles."""
+    no = _ode()
+    return no.ode_team_plan(P, n_in, 1, 3, no.SDE_SWEEP if bwd else no.REPLAY, stream, C)
+
+
+def sde3_team_route(P: int, n_in: int, B: int, bwd: bool, max_clusters) -> tuple:
+    """How B3t-team (``bwd`` False) or B4t runs B lanes on the card, by shape
+    alone, before the launch: (route, C), C from ``network_ode.
+    ode_replay_cluster`` (16 where 16 divides P and the card holds B
+    clusters of 16 at once, else 8) and "resident" or "streamed" as
+    ``sde3_team_plan`` holds the weights. With 4 inputs and 4 lanes:
+    "resident" from 24 through 104 columns (at 90-104 the float32 wT),
+    "streamed" at 312. ``max_clusters(C)``: how many clusters of C blocks
+    the card holds at once."""
+    C = _ode().ode_replay_cluster(P, B, max_clusters)
+    return ("streamed" if sde3_team_plan(P, n_in, bwd, C=C).stream else "resident"), C
+
+
+@functools.lru_cache(maxsize=None)
+def sde3_max_clusters(P: int, n_in: int, C: int, stream: bool, bwd: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of B3t-team (``bwd`` False) or B4t
+    with clusters of C blocks on the card: how many lanes' teams run at
+    once."""
+    out = ctypes.c_int()
+    _check(_lib().cf_sde3_max_clusters(P, n_in, C, int(stream), int(bwd), ctypes.byref(out)),
+           "sde3_max_clusters")
+    return out.value
+
+
+def _check_split3_route(route):
+    if route is not None and route not in SPLIT3_ROUTES:
+        raise ValueError(f"route must be one of {SPLIT3_ROUTES}, got {route!r}")
+
+
+def _sde3_team(route, P, n_in, B, bwd):
+    """The plan of a B3t-team or B4t launch on ``route`` ("resident",
+    "streamed", or None: the shape's own). Raises where the team asked for
+    does not take the shape, or no cluster of it fits the card."""
+    def clusters(C):
+        return sde3_max_clusters(P, n_in, C, sde3_team_plan(P, n_in, bwd, C=C).stream, bwd)
+
+    if route is None:
+        route, C = sde3_team_route(P, n_in, B, bwd, clusters)
+    else:
+        C = _ode().ode_replay_cluster(P, B, clusters)
+    plan = sde3_team_plan(P, n_in, bwd, stream=route == "streamed", C=C)
+    if route == "resident" and plan.stream:
+        raise ValueError(f"no resident team of {C} blocks takes P={P} (streamed does)")
+    if sde3_max_clusters(P, n_in, C, plan.stream, bwd) < 1:
+        raise RuntimeError(f"no cluster of {C} blocks with {plan.bytes} bytes of shared memory "
+                           "each fits the card")
+    return plan
+
+
+def _sde3_pack(pw, sc: SDEConsts, P: int, plan):
+    """The team's weight slices: the float32 wT's where the plan says f32
+    (``network_ode.ode_replay_pack``), else the three bf16 terms'
+    (``ode_team_pack``)."""
+    no = _ode()
+    if plan.f32:
+        return no.ode_replay_pack(pw["wT"], P, plan)
+    w3 = prepare_premixed_split(pw, sc.fc)[0]
+    return no.ode_team_pack({k: w3[k].contiguous() for k in ("wT_hi", "wT_mid", "wT_lo")}, P,
+                            plan)
 
 
 def _split3_terms(pw, sc: SDEConsts):
@@ -1067,44 +1164,55 @@ def _split3_terms(pw, sc: SDEConsts):
     return tuple(w3[k].contiguous() for k in ("wT_hi", "wT_mid", "wT_lo"))
 
 
-def replay3_fwd(y0, t0s, hs, i1, i10, n_real: int, pw, sc: SDEConsts, kv):
+def replay3_fwd(y0, t0s, hs, i1, i10, n_real: int, pw, sc: SDEConsts, kv, route=None):
     """SRA1 on the three-term split of pw = {"wT", "iwT"} (float32): y0
     (B, 3P); t0s, hs (n, B) each lane's step times and sizes, or (n,) the
     uniform grid's for every lane; i1, i10 (n, B). The first ``n_real``
     steps are integrated, the rest are h == 0 padding. Returns ys
     (n + 1, B, 3P). On the card B3t or B3t-team, as ``sde3_fwd_route``
-    decides by shape before the launch."""
+    decides by shape before the launch; ``route`` ("resident", "streamed"
+    or "team8", ``SPLIT3_ROUTES``) runs B3t-team on that route at any
+    width."""
+    _check_split3_route(route)
     B, S = y0.shape
     P, n = S // 3, t0s.shape[0]
     named = {"y0": (y0, _F32, (B, S)), "i1": (i1, _F32, (n, B)),
              **_replay3_named(t0s, hs, i10, pw, sc, kv, B, P, n_real)}
     if not _on_cuda(y0, named):
         return _replay3_fwd_plain(y0, t0s, hs, i1, i10, n_real, pw, sc, kv)
+    n_in, K = kv.shape[2], kv.shape[0]
     ys = torch.empty((n + 1, B, S), dtype=_F32, device=y0.device)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
     lanes = int(t0s.dim() == 2)
-    if sde3_fwd_route(P, kv.shape[2]) == "block":
-        _check(_lib().cf_sde3_fwd(
-            B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), lanes,
-            sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), pw["wT"].data_ptr(),
-            pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i1.data_ptr(),
-            i10.data_ptr(), y0.data_ptr(), ys.data_ptr(), _stream(y0)), "sde3_fwd")
+    consts = (sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr())
+    grid = (kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i1.data_ptr(), i10.data_ptr(),
+            y0.data_ptr())
+    if route is None and sde3_fwd_route(P, n_in) == "block":
+        _check(_lib().cf_sde3_fwd(B, P, n_in, K, hc_p, n, int(n_real), lanes, *consts,
+                                  pw["wT"].data_ptr(), pw["iwT"].data_ptr(), *grid,
+                                  ys.data_ptr(), _stream(y0)), "sde3_fwd")
         LAUNCHES["sde3_fwd"] += 1
         return ys
-    hi, mid, lo = _split3_terms(pw, sc)
-    scr = torch.empty((B, 4, S), dtype=_F32, device=y0.device)
+    if route == "team8":
+        scr = torch.empty((B, 4, S), dtype=_F32, device=y0.device)
+        _check(_lib().cf_sde3_fwd_team_team8(
+            B, P, n_in, K, hc_p, n, int(n_real), lanes, *consts,
+            *(t.data_ptr() for t in _split3_terms(pw, sc)), pw["iwT"].data_ptr(), *grid,
+            scr.data_ptr(), ys.data_ptr(), _stream(y0)), "sde3_fwd_team_team8")
+        LAUNCHES["sde3_fwd_team_team8"] += 1
+        return ys
+    plan = _sde3_team(route, P, n_in, B, False)
+    wpk = _sde3_pack(pw, sc, P, plan)
     _check(_lib().cf_sde3_fwd_team(
-        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), lanes, sc.fc["bg"].data_ptr(),
-        sc.fc["adapt"].data_ptr(), hi.data_ptr(), mid.data_ptr(), lo.data_ptr(),
-        pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i1.data_ptr(),
-        i10.data_ptr(), y0.data_ptr(), scr.data_ptr(), ys.data_ptr(), _stream(y0)),
+        B, P, n_in, K, hc_p, n, int(n_real), lanes, plan.C, int(plan.stream), *consts,
+        wpk.data_ptr(), pw["iwT"].data_ptr(), *grid, ys.data_ptr(), _stream(y0)),
         "sde3_fwd_team")
     LAUNCHES["sde3_fwd_team"] += 1
     return ys
 
 
 def replay3_bwd_emit(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, pw,
-                     sc: SDEConsts, kv):
+                     sc: SDEConsts, kv, route=None):
     """The emit-mode reverse sweep of ``replay3_fwd`` (B4t): the state
     cotangent alone. ys_prev (n, B, 3P) the states before each step, ysbar
     (n, B, 3P) the direct cotangents on each step's output; t0s, hs (n, B)
@@ -1112,27 +1220,40 @@ def replay3_bwd_emit(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, pw,
     (n, B, 3P)): seeds[k] is the total cotangent on step k's output, from
     which the weight gradients are taken outside (``solvers.fused.
     outer_arg_grads_split3``); rows past n_real are zero. ``stride``:
-    truncation (0: none). One team of 8 blocks per lane, at any width."""
+    truncation (0: none). On the card a cluster team per lane at any width,
+    on ``route`` ("resident", "streamed" or "team8"; default
+    ``sde3_team_route``)."""
+    _check_split3_route(route)
     n, B, S = ys_prev.shape
     P = S // 3
     named = {"ys_prev": (ys_prev, _F32, (n, B, S)), "ysbar": (ysbar, _F32, (n, B, S)),
              **_replay3_named(t0s, hs, i10, pw, sc, kv, B, P, n_real)}
     if not _on_cuda(ys_prev, named):
         return _replay3_bwd_emit_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, pw, sc, kv)
+    n_in, K = kv.shape[2], kv.shape[0]
     dev = ys_prev.device
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     seeds = torch.empty_like(ys_prev)
-    scr = torch.empty((B, 7, S), dtype=_F32, device=dev)
-    terms = _split3_terms(pw, sc)
-    hiT, midT, loT = (t.T.contiguous() for t in terms)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
+    head = (B, P, n_in, K, hc_p, n, int(n_real), int(t0s.dim() == 2), int(stride or 0))
+    consts = (sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr())
+    grid = (kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(), ys_prev.data_ptr(),
+            ysbar.data_ptr())
+    if route == "team8":
+        scr = torch.empty((B, 7, S), dtype=_F32, device=dev)
+        terms = _split3_terms(pw, sc)
+        transposed = tuple(t.T.contiguous() for t in terms)
+        _check(_lib().cf_sde3_bwd_emit_team8(
+            *head, *consts, *(t.data_ptr() for t in terms + transposed), pw["iwT"].data_ptr(),
+            *grid, scr.data_ptr(), ybar.data_ptr(), seeds.data_ptr(), _stream(ys_prev)),
+            "sde3_bwd_emit_team8")
+        LAUNCHES["sde3_bwd_emit_team8"] += 1
+        return ybar, seeds
+    plan = _sde3_team(route, P, n_in, B, True)
+    wpk = _sde3_pack(pw, sc, P, plan)
     _check(_lib().cf_sde3_bwd_emit(
-        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
-        int(stride or 0), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
-        *(t.data_ptr() for t in terms), hiT.data_ptr(), midT.data_ptr(), loT.data_ptr(),
-        pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(),
-        ys_prev.data_ptr(), ysbar.data_ptr(), scr.data_ptr(), ybar.data_ptr(),
-        seeds.data_ptr(), _stream(ys_prev)), "sde3_bwd_emit")
+        *head, plan.C, int(plan.stream), *consts, wpk.data_ptr(), pw["iwT"].data_ptr(), *grid,
+        ybar.data_ptr(), seeds.data_ptr(), _stream(ys_prev)), "sde3_bwd_emit")
     LAUNCHES["sde3_bwd_emit"] += 1
     return ybar, seeds
 

@@ -973,6 +973,152 @@ def test_fixed_grid_104_column_step_on_cuda_matches_cpu(dev, monkeypatch):
         assert err <= max(3e-2, 10.0 * spread), (k, err, spread)
 
 
+# ---------------------------------------------------------------------------
+# B3t-team and B4t as cluster teams per lane (csrc/sde3_replay_team.cu)
+# ---------------------------------------------------------------------------
+
+
+def _sde3_team_setup(dev, columns, B, lanes):
+    """The parity network at ``columns`` (4 inputs), B lanes' knot values,
+    a window of n half steps from t = 0.3 s: the uniform grid's (t0s, hs
+    (n,), h = 50 us) or per-lane grids (20-100 us), with Brownian data of
+    those steps; and start states from the rates' working range
+    (``_states``)."""
+    cpa = {13: (8, 4, 1), 32: (16, 8, 8), 104: (64, 32, 8), 312: (192, 96, 24)}[columns]
+    d = _net_inputs(dev, cpa=cpa, B=B, T=1000)
+    gen = d["gen"]
+    params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=cpa,
+                                          n_inputs=4, device=dev)
+    pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
+    n = 24 if columns == 312 else 72
+    if lanes:
+        hs = (2e-5 + 8e-5 * torch.rand(n, B, generator=gen, device=dev)).contiguous()
+        h = hs
+    else:
+        hs = torch.full((n,), 5e-5, device=dev)
+        h = hs[:, None].expand(n, B)
+    t0s = (torch.cumsum(hs, 0) - hs + 0.3).contiguous()
+    dw = torch.randn(n, B, generator=gen, device=dev) * h.sqrt()
+    i10 = h * (0.5 * dw + (h / 12.0).sqrt() * torch.randn(n, B, generator=gen, device=dev))
+    return d, pw, n, (t0s, hs, dw.contiguous(), i10.contiguous()), _states(gen, B, d["P"], dev)
+
+
+@pytest.mark.parametrize("lanes", [False, True])
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("columns", [13, 32, 104, 312])
+def test_sde3_cluster_teams_equal_plain(dev, columns, B, lanes):
+    """B3t-team and B4t as cluster teams at 13, 32, 104 and 312 columns,
+    1, 4 and 8 lanes (clusters of 8 where 16 does not divide P or the card
+    holds fewer clusters of 16 than lanes), on the uniform and per-lane
+    grids, over 72 half steps (24 at 312) with n_real two short, the sweep
+    with truncation every 64 steps and none. From the zero state (where
+    every step of the main path starts): on the shape's route, on the other
+    one and on team8, the states, seeds and carry bit for bit against the
+    plain versions (so every route equals the others), one launch of the
+    route's kernel each and nothing else. From ``_states``'s high rates the
+    windows run off (|y| ~ 1e4-1e5 within a dozen steps at 104 and 312
+    columns), where team8's sum order and the card's float64 matmul of the
+    plain version part on a near-tie now and then; there every route is
+    held bit for bit against team8."""
+    d, pw, n, grid, y_hi = _sde3_team_setup(dev, columns, B, lanes)
+    P = d["P"]
+    y0 = torch.zeros_like(y_hi)
+    fwd = (*grid, n - 2, pw, d["sc"], d["kv"])
+    want_ys = ns._replay3_fwd_plain(y0, *fwd)
+    ysbar = torch.randn((n, B, 3 * P), generator=d["gen"], device=dev)
+    ys_hi = ns.replay3_fwd(y_hi, *fwd, route="team8")
+    bwd_hi = (ys_hi[:-1].contiguous(), ysbar, grid[0], grid[1], grid[3], n - 2, 64, pw, d["sc"],
+              d["kv"])
+    seeds_hi = ns.replay3_bwd_emit(*bwd_hi, route="team8")
+    for bwd in (False, True):
+        plan = ns._sde3_team(None, P, 4, B, bwd)
+        route = "streamed" if plan.stream else "resident"
+        assert plan.C == (16 if P % 16 == 0 and B <= 7 else 8)
+        for r in list(dict.fromkeys([route, "streamed"])) + ["team8"]:
+            key = ("sde3_bwd_emit" if bwd else "sde3_fwd_team") + ("_team8" if r == "team8"
+                                                                    else "")
+            for stride in ((0, 64) if bwd else (None,)):
+                before = dict(ns.LAUNCHES)
+                if bwd:
+                    args = (want_ys[:-1].contiguous(), ysbar, grid[0], grid[1], grid[3], n - 2,
+                            stride, pw, d["sc"], d["kv"])
+                    got = ns.replay3_bwd_emit(*args, route=r)
+                    want = ns._replay3_bwd_emit_plain(*args)
+                else:
+                    got, want = (ns.replay3_fwd(y0, *fwd, route=r),), (want_ys,)
+                torch.cuda.synchronize()
+                launched = {k: ns.LAUNCHES[k] - before[k] for k in before
+                            if ns.LAUNCHES[k] != before[k]}
+                assert launched == {key: 1}, (r, launched)
+                for g, x in zip(got, want):
+                    assert torch.isfinite(g).all() and torch.equal(g, x), (bwd, r, stride)
+            if bwd:
+                got, want = ns.replay3_bwd_emit(*bwd_hi, route=r), seeds_hi
+            else:
+                got, want = (ns.replay3_fwd(y_hi, *fwd, route=r),), (ys_hi,)
+            for g, x in zip(got, want):
+                assert torch.equal(g, x), (bwd, r, "high rates")
+
+
+@pytest.mark.parametrize("columns", [13, 24, 32, 63, 94, 104, 312])
+def test_sde3_team_plan_is_the_librarys(dev, columns):
+    """``sde3_team_plan`` (the wrappers' and ``sde3_team_route``'s) equals the
+    library's (``cf_ode_team_plan`` with REPLAY and SDE_SWEEP) on clusters
+    of 8 and (where 16 divides P) 16, resident and streamed; the card holds
+    at least one cluster of each (``cf_sde3_max_clusters``)."""
+    import ctypes
+
+    P, out = 8 * columns, (ctypes.c_longlong * 22)()
+    for bwd in (False, True):
+        for C in (8, 16):
+            if P % C:
+                continue
+            for stream in (False, True):
+                use = no.SDE_SWEEP if bwd else no.REPLAY
+                assert no._lib().cf_ode_team_plan(P, 4, 1, 3, use, C, int(stream), out) == 0
+                plan = ns.sde3_team_plan(P, 4, bwd, stream, C)
+                assert tuple(out) == tuple(int(v) for v in plan), (bwd, C, stream)
+                assert ns.sde3_max_clusters(P, 4, C, plan.stream, bwd) >= 1
+
+
+@pytest.mark.parametrize("case", ["exact104", "fixed104", "kernel32"])
+def test_sde3_steps_launch_the_cluster_teams(dev, monkeypatch, case):
+    """The exact stochastic-adaptive step (``--stochastic --adaptive --engine
+    fused`` at 104 columns, 10 points), the fixed-grid step at 104 columns
+    and the kernel-mode fixed-grid step at 32 columns: with the plain
+    versions made to raise, each launches B3t-team (and at 104 columns B4t)
+    once, the new cluster teams and never team8."""
+    flags = {"exact104": dict(stochastic=True, adaptive=True, bptt_every=32, loss_scale=1e-6),
+             "fixed104": dict(stochastic=True), "kernel32": dict(stochastic=True)}[case]
+    cpa = (16, 8, 8) if case == "kernel32" else (64, 32, 8)
+    want = {"exact104": {"sde_select": 1, "sde3_fwd_team": 1, "sde3_bwd_emit": 1},
+            "fixed104": {"sde3_fwd_team": 1, "sde3_bwd_emit": 1},
+            "kernel32": {"sde3_fwd_team": 1, "sde3_bwd_team": 1}}[case]
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("_select_plain", "_replay3_fwd_plain", "_replay3_bwd_emit_plain",
+                 "_replay3_bwd_plain"):
+        monkeypatch.setattr(ns, name, boom)
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=cpa, time_steps=10, max_steps=16384, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stims = torch.tensor(ODE_STIMS, device=dev)
+    keys, noise = None, None
+    if flags.get("adaptive"):
+        keys = torch.randint(0, 2**32, (4, 2), generator=gen, device=dev, dtype=torch.int64)
+    else:
+        _, i1, i10, _, _ = brownian_pack(gen, task.ts, (4, 1))
+        noise = (i1, i10)
+    before = dict(ns.LAUNCHES)
+    rec = parity.make_train_step(task, **flags)(stims, keys, noise=noise)
+    torch.cuda.synchronize()
+    launched = {k: ns.LAUNCHES[k] - before[k] for k in before if ns.LAUNCHES[k] != before[k]}
+    assert launched == want, launched
+    assert bool(torch.isfinite(rec["loss"]))
+
+
 def _krng_inputs(dev, cpa, T):
     """The in-kernel pass's inputs on the three-term split (B5t): the krng
     tree's key words, ``select_weights_split3`` of the network's weights."""

@@ -112,6 +112,47 @@ def _pw(s, scale=1.0):
     return {k: (v.detach() * scale).contiguous() for k, v in s["model"].pw.items()}
 
 
+@pytest.fixture(scope="module")
+def jax_replay(setup):
+    """JAX's fixed-grid three-term replay, a cotangent on every state, and
+    JAX's emit-mode sweep on that trajectory, at the weights and nudged by
+    1e-7 (the sweep's own spread)."""
+    s = setup
+    ys, ysbar, t0s, hs, i10 = _uniform_inputs(s)
+    nudged = {k: v * (1.0 + 1e-7) for k, v in s["jpw"].items()}
+    return dict(ys=ys, ysbar=ysbar, grid=(t0s, hs, i10),
+                emit=_jax_emit(s, s["jpw"], ys[:-1], ysbar[1:]),
+                emit_nudged=_jax_emit(s, nudged, ys[:-1], ysbar[1:]))
+
+
+@pytest.mark.parametrize("route", [None, "resident", "streamed", "team8"])
+def test_replay_routes_hold_jax_three_term_replay(setup, jax_replay, route):
+    """``replay3_fwd`` and ``replay3_bwd_emit`` on each ``route`` (CPU
+    tensors: the plain versions, whatever the route) against the JAX
+    package's three-term replay on the fixed grid and its emit-mode sweep,
+    at 3 columns: the forward within 5e-5 of each component's scale (as
+    ``test_fixed_grid_forward_matches_jax``), the sweep within 1e-3 plus
+    twice the larger nudge spread, rel L2 (as
+    ``test_emit_sweep_on_jax_trajectory_matches_jax``)."""
+    s, j = setup, jax_replay
+    m = s["model"]
+    t0s, hs, i10 = j["grid"]
+    n, P = t0s.shape[0], s["P"]
+    i1 = torch.as_tensor(s["pack"][0]).reshape(n, B)
+    ys = ns.replay3_fwd(torch.zeros(B, 3 * P), t0s, hs, i1, i10, n, _pw(s), m.sc, m.kv,
+                        route=route)
+    assert ys.shape == j["ys"].shape and torch.isfinite(ys).all()
+    assert scaled(ys.numpy(), j["ys"]) < 5e-5
+    args = (torch.as_tensor(j["ys"][:-1]), torch.as_tensor(j["ysbar"][1:]), t0s, hs, i10, n, 0)
+    yb, seeds = ns.replay3_bwd_emit(*args, _pw(s), m.sc, m.kv, route=route)
+    yb_n, seeds_n = ns.replay3_bwd_emit(*args, _pw(s, 1.0 + 1e-7), m.sc, m.kv, route=route)
+    (want_yb, want_seeds), (jyb_n, jseeds_n) = j["emit"], j["emit_nudged"]
+    spread = max(rel_l2(yb_n, yb), rel_l2(seeds_n, seeds), rel_l2(jyb_n, want_yb),
+                 rel_l2(jseeds_n, want_seeds))
+    err = (rel_l2(yb, want_yb), rel_l2(seeds, want_seeds))
+    assert max(err) < 1e-3 + 2 * spread, (err, spread)
+
+
 def test_emit_sweep_on_jax_trajectory_matches_jax(setup):
     """B4t's plain version on JAX's fixed-grid trajectory with a cotangent
     on every state, against JAX's emit kernel: ybar0 and the seeds of all 59
