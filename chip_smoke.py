@@ -54,15 +54,18 @@ rtol 1e-7 / atol 1e-9: the reference network at its full width):
 8. kernel vs plain: the whole selection against its plain loop over 100
    grid points (its common accepted prefix), single attempts from states
    along the replay, the replay and its reverse sweep on 64-step windows
-   early, in the middle and late in the full replay.
+   early, in the middle and late in the full replay; the sweep (the
+   kernel-mode sweep's cluster team for the batch) bit for bit against its
+   plain version and against B8, the one-block kernel it replaced.
 9. main path: 5 training steps through the kernels, one launch of each per
-   step; the first step's weights over 100 grid points on the card and
+   step (the sweep's team, never B8); the first step's weights over 100 grid points on the card and
    again on the CPU with the plain versions on the card's frozen grid
    (loss, gradients and the gradients' own spread under a 1e-7 nudge of
    the weights).
 10. times: each kernel's device time, ns per accepted step, its bound, its
    plain version's time on the first 64 steps, the train step's wall time
-   and a profile of it.
+   and a profile of it; the sweep's team against B8 on a 256-step window
+   (team_routes, CUDA events on the same call, bit for bit).
 Deterministic parity, fused-split2 tier (104 columns = 832 populations,
 state 2496, batch 4 under one controller, 1000 grid points over 1 s,
 max_steps 16384, dopri5 at rtol 1e-7 / atol 1e-9; selection on the
@@ -233,11 +236,13 @@ max_steps 16384, dopri5 at rtol 1e-7 / atol 1e-9; run after phase 41):
    at 24, 32 and 104 columns on 64-step (104: 16-step) windows of the
    kernel's own full replay (early, in the middle and late at 32 and 104
    columns, the middle at 24), and on an 8-step window at 312 columns;
-   B8t-team at 18, 32 and 63 columns the same way (three windows at 32);
-   B8't at 104. The 104-column grid is the split2 phase's (both tiers
-   select on the three-term drift).
+   the kernel-mode sweep's cluster team at 18, 32 and 63 columns the same
+   way (three windows at 32), against its plain version and against
+   B8t-team (route "team8"), the kernel it replaced there; B8't at 104.
+   The 104-column grid is the split2 phase's (both tiers select on the
+   three-term drift).
 48. main path: one full step at 32 columns (kernel mode: one launch each of
-   the selection, B7t-team and B8t-team) and one at 104 on the split2
+   the selection, B7t-team and the sweep's team) and one at 104 on the split2
    phase's frozen grid (outer mode: one launch each of B7t-team and B8't,
    then the outer pass); each kernel's device time from CUDA events around
    its call in that step.
@@ -250,7 +255,8 @@ max_steps 16384, dopri5 at rtol 1e-7 / atol 1e-9; run after phase 41):
 50. times: each kernel's bound and ns per accepted step, the plain
    versions on a middle window, both steps' profiles over 100 points;
    B7t-team's routes against team8 on 256-step windows of the full
-   replays at 104 and 32 columns.
+   replays at 104 and 32 columns; the sweep's team against B8t-team on a
+   256-step window at 32 columns (bit for bit).
 51. the two command lines (--columns-per-area 16,8,8 and --engine fused
    --columns-per-area 64,32,8 --max-steps 16384, with --smoke), each step's
    selection reaching the last grid point.
@@ -411,9 +417,11 @@ ODE_B = 4
 ODE_MAX_STEPS = 3072
 ODE_WINDOW = 64     # steps of a kernel-vs-plain replay window
 ODE_SOURCE = "columnflow_torch/kernels/csrc/network_ode.cu"
-# B6, B7t-team, B7 split2, B8' and B8't as cluster teams (csrc/ode_team.cuh)
-# have sources of their own.
+# B6, B7t-team, B7 split2, B8', B8't and the kernel-mode sweep (B8, B8t-team)
+# as cluster teams (csrc/ode_team.cuh) have sources of their own.
+ODE_KSWEEP_SOURCE = "columnflow_torch/kernels/csrc/ode_ksweep_team.cu"
 ODE_TEAM_SOURCES = {"ode_select": "columnflow_torch/kernels/csrc/ode_select_team.cu",
+                    "ode_replay_bwd": ODE_KSWEEP_SOURCE, "ode_replay_bwd_team": ODE_KSWEEP_SOURCE,
                     "ode_replay_fwd_team": "columnflow_torch/kernels/csrc/ode_replay_team.cu",
                     "ode_replay_fwd_split2": "columnflow_torch/kernels/csrc/ode_replay_team.cu",
                     "ode_replay_bwd_emit": "columnflow_torch/kernels/csrc/ode_emit_team.cu",
@@ -731,6 +739,58 @@ def team_routes(run, serial, plan_route):
         ms = cuda_ms(lambda: run(route), reps=1, warmup=1)
         out[route] = {"ms": ms, "us_per_serial_step": ms * 1e3 / max(serial, 1)}
     out["team8_over_team"] = out["team8"]["ms"] / out[plan_route]["ms"]
+    return out
+
+
+def sweep_routes(run, serial, route, yardstick):
+    """The kernel-mode sweep's cluster team (csrc/ode_ksweep_team.cu) on the
+    shape's route, on "streamed" where that is "resident", and the kernel it
+    replaced on the shape (``yardstick``: "block", B8's one block, or
+    "team8", B8t-team) on the same call: CUDA-event ms of ``run(route)`` and
+    us per accepted step; every route's ybar0, d wT and d iwT must equal the
+    team's on its own route bit for bit (the elements that part are
+    counted)."""
+    import torch
+
+    ref = run(route)
+    out = {"weights": route, "yardstick": yardstick}
+    for r in [route] + (["streamed"] if route == "resident" else []) + [yardstick]:
+        got = run(r)
+        parted = [int((g != w).sum()) for g, w in zip(got, ref)]
+        check(not any(parted), f"sweep route {r} parts from {route}: {parted} elements")
+        ms = cuda_ms(lambda: run(r), reps=1, warmup=0)
+        out[r] = {"ms": ms, "us_per_serial_step": ms * 1e3 / max(serial, 1),
+                  "elements_parted": parted}
+    out[f"{yardstick}_over_team"] = out[yardstick]["ms"] / out[route]["ms"]
+    torch.cuda.synchronize()
+    return out
+
+
+def ptxas_of(fragment):
+    """Registers and spills of each compiled instance of the kernel
+    template ``fragment``, from the build's ``-Xptxas -v`` report:
+    {"<template arguments>": {"registers", "spill_store_bytes",
+    "spill_load_bytes"}}."""
+    import re
+
+    from columnflow_torch.kernels import _build
+
+    out, inst = {}, None
+    for ln in _build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(re.escape(fragment) + r"I((?:L[a-z]+\d+E)+)E", ln)
+            inst = None
+            if m:
+                args = re.findall(r"L([a-z]+)(\d+)E", m.group(1))
+                inst = "<" + ", ".join(("true" if v == "1" else "false") if t == "b" else v
+                                       for t, v in args) + ">"
+                out[inst] = {}
+        elif inst is not None and "spill stores" in ln:
+            nums = [int(t) for t in re.findall(r"(\d+) bytes", ln)]
+            out[inst].update(spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif inst is not None and "Used" in ln and "registers" in ln:
+            out[inst]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            inst = None
     return out
 
 
@@ -1625,13 +1685,21 @@ def ode_phases(dev, cfg):
         cobar = torch.randn(W, 5, B, S, generator=gen, device=dev)
         yb, dw, diw = no.ode_replay_bwd(ys_p.contiguous(), cobar, stw, pw, sc, kv)
         yb_p, dw_p, diw_p = no._ode_replay_bwd_plain(ys_p, cobar, stw, w3, sc, kv)
+        # B8, the one-block kernel the cluster team replaced on this path
+        old = no.ode_replay_bwd(ys_p.contiguous(), cobar, stw, pw, sc, kv, route="block")
         torch.cuda.synchronize()
         e = {"ys_scaled": scaled_err(ys_k, ys_p), "coeffs_max_abs": max_abs(co_k, co_p),
              "ybar_rel_l2": rel_l2(yb, yb_p), "d_wT_rel_l2": rel_l2(dw, dw_p),
-             "d_iwT_rel_l2": rel_l2(diw, diw_p)}
+             "d_iwT_rel_l2": rel_l2(diw, diw_p),
+             "sweep_elements_parted_from_plain": [int((g != w).sum()) for g, w in
+                                                  zip((yb, dw, diw), (yb_p, dw_p, diw_p))],
+             "sweep_elements_parted_from_block": [int((g != w).sum()) for g, w in
+                                                  zip((yb, dw, diw), old)]}
         check(all(bool(torch.isfinite(x).all()) for x in (ys_k, co_k, yb, dw, diw))
               and e["ys_scaled"] < 1e-6 and e["ybar_rel_l2"] < 1e-5
-              and e["d_wT_rel_l2"] < 1e-5 and e["d_iwT_rel_l2"] < 1e-5,
+              and e["d_wT_rel_l2"] < 1e-5 and e["d_iwT_rel_l2"] < 1e-5
+              and not any(e["sweep_elements_parted_from_plain"])
+              and not any(e["sweep_elements_parted_from_block"]),
               f"ode replay window at {k0}: {e}")
         errs["ode_replay_fwd"] = max(errs["ode_replay_fwd"], max_abs(ys_k, ys_p),
                                      max_abs(co_k, co_p))
@@ -1665,7 +1733,7 @@ def ode_phases(dev, cfg):
         step_s.append(time.perf_counter() - t0)
         launched = {k: no.LAUNCHES[k] - before[k] for k in no.LAUNCHES}
         check(launched == {**{k: 0 for k in no.LAUNCHES}, "ode_select": 1, "ode_replay_fwd": 1,
-                           "ode_replay_bwd": 1}, f"ode step {i}: launches {launched}")
+                           "ode_replay_bwd_ksweep": 1}, f"ode step {i}: launches {launched}")
         sk = rec["stats"]
         check(bool(sk.success) and bool(torch.isfinite(rec["loss"])),
               f"ode step {i}: success {bool(sk.success)}, loss {rec['loss']}")
@@ -1732,11 +1800,20 @@ def ode_phases(dev, cfg):
             plain_ms[name] = cuda_ms(plain, reps=1, warmup=0)
     serial = {"ode_select": na + nr, "ode_replay_fwd": n, "ode_replay_bwd": n}
     bounds = {name: ode_bound(name, P, B, n_in, K, serial[name], M=M) for name in calls}
-    # B6's cluster team against team8 over the short horizon of phase 8.
+    # B6's cluster team against team8 over the short horizon of phase 8; the
+    # sweep's against B8 (route "block") on a ROUTE_W-step window in the
+    # middle of the full grid.
     sel_routes = team_routes(lambda r: no.ode_select(y0, pw, sc, kv, cfg_s, route=r),
                              na_k + nr_k, no.ode_team_route(P, n_in, B, 3, False))
+    kr = max(0, min(n - ROUTE_W, n // 2))
+    str_, ysr = st[kr:kr + ROUTE_W + 1].contiguous(), ys[kr:kr + ROUTE_W].contiguous()
+    cobr = cobar[kr:kr + ROUTE_W].contiguous()
+    W_r = str_.shape[0] - 1
+    bwd_routes = {"steps": W_r, "start": kr, **sweep_routes(
+        lambda r: no.ode_replay_bwd(ysr, cobr, str_, pw, sc, kv, route=r), W_r,
+        no.ode_bwd_route(P, n_in, B), "block")}
     emit("ode_kernel_times", lanes=B, T=ODE_T, naccept=na, nreject=nr, ms=times,
-         team_routes={"ode_select": {"T": SHORT_T, **sel_routes}},
+         team_routes={"ode_select": {"T": SHORT_T, **sel_routes}, "ode_replay_bwd": bwd_routes},
          plain_ms=plain_ms, plain_window_steps=W, kernel_ms_on_plain_window=window_ms,
          ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
          bound_ms={k: v[0] for k, v in bounds.items()},
@@ -1756,14 +1833,21 @@ def ode_phases(dev, cfg):
     replaces = {"ode_select": "columnflow/solvers/fused.py:238",
                 "ode_replay_fwd": "columnflow/solvers/fused.py:294",
                 "ode_replay_bwd": "columnflow/solvers/fused.py:327"}
+    sweep = {"kernel": "ode_ksweep16_kernel (cf_ode_replay_bwd_ksweep): one cluster team "
+                       "for the batch", "launch_key": "ode_replay_bwd_ksweep",
+             "weights": bwd_routes["weights"],
+             "registers": ptxas_of("ode_ksweep16_kernel"), "team_routes": bwd_routes}
     return [{"name": name, "route": "cuda", "source": ODE_TEAM_SOURCES.get(name, ODE_SOURCE),
              "replaces": replaces[name],
-             "launches": main_launches[name], "max_abs_err": errs[name], "ms": times[name],
+             "launches": main_launches["ode_replay_bwd_ksweep" if name == "ode_replay_bwd"
+                                       else name],
+             "max_abs_err": errs[name], "ms": times[name],
              "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B,
              "path": f"deterministic f32-exact, {sum(ODE_CPA)} columns",
              "ns_per_serial_step": times[name] * 1e6 / serial[name],
              **({"team_routes": {"T": SHORT_T, **sel_routes}} if name == "ode_select" else {}),
+             **(sweep if name == "ode_replay_bwd" else {}),
              **({"plain_ms_at": f"{W} steps (ms_window: the kernel there)",
                  "ms_window": window_ms[name]} if name in window_ms
                 else {"plain_ms_at": f"the whole selection over {SHORT_T} grid points"})}
@@ -4880,11 +4964,14 @@ def exactode_phases(dev, cfg, frozen):
     windows["ode_replay_bwd_emit_split3"][sum(FG_WIDE_CPA)] = [
         {"start": 0, "steps": EO_WIDE_W, "ms": kern, "plain_ms": pl_ms,
          "weights": no.ode_team_route(P_w, n_in, 1, 3, True)}]
-    # B8t-team: 18, 32 and 63 columns, on the kernel's states and random
-    # cotangents of the dense rows.
+    # The kernel-mode sweep past one block (B8t-team's widths, now the cluster
+    # team for the batch): 18, 32 and 63 columns, on the kernel's states and
+    # random cotangents of the dense rows, against the plain version and
+    # against B8t-team (route "team8", the kernel it replaced there).
     for cpa in EO_BWD_CPA:
         d = settings[sum(cpa)]
-        check(no.ode_bwd_route(d["P"], n_in, B) == "team", f"{sum(cpa)} columns: sweep route")
+        route = no.ode_bwd_route(d["P"], n_in, B)
+        check(route in ("resident", "streamed"), f"{sum(cpa)} columns: sweep route {route}")
         for k0 in starts(d["n"], EO_W, sum(cpa)):
             stw, ysw = d["stn"][k0:k0 + EO_W + 1].contiguous(), d["ys"][k0:k0 + EO_W].contiguous()
             cob = torch.randn(EO_W, 5, B, 3 * d["P"], generator=gen, device=dev)
@@ -4892,8 +4979,10 @@ def exactode_phases(dev, cfg, frozen):
             want, pl_ms = timed(lambda: no._ode_replay_bwd_plain(ysw, cob, stw, d["w3"], d["sc"],
                                                                   d["kv"]))
             compare("ode_replay_bwd_team", got, want)
+            compare("ode_replay_bwd_team_vs_team8", got,
+                    no.ode_replay_bwd(ysw, cob, stw, d["pw"], d["sc"], d["kv"], route="team8"))
             windows["ode_replay_bwd_team"].setdefault(sum(cpa), []).append(
-                {"start": k0, "steps": EO_W, "ms": kern, "plain_ms": pl_ms})
+                {"start": k0, "steps": EO_W, "ms": kern, "plain_ms": pl_ms, "route": route})
     # B8't: 104 columns.
     d = settings[c104]
     for k0 in starts(d["n"], EO_W104):
@@ -4940,7 +5029,7 @@ def exactode_phases(dev, cfg, frozen):
         task = make_task(cpa, params={k: p.detach() for k, p in d["task"].params.items()})
         step = parity.make_train_step(task)
         grid = None
-        want = {"ode_select": 1, "ode_replay_fwd_team": 1, "ode_replay_bwd_team": 1}
+        want = {"ode_select": 1, "ode_replay_fwd_team": 1, "ode_replay_bwd_ksweep": 1}
         if cols == c104:
             grid = (d["st"], d["n"])
             want = {"ode_replay_fwd_team": 1, "ode_replay_bwd_emit_split3": 1}
@@ -5068,6 +5157,18 @@ def exactode_phases(dev, cfg, frozen):
             "steps": W_r, "start": kr, "columns": cols, "C": plan.C, "f32": plan.f32,
             **team_routes(lambda r: no.ode_replay_fwd(yr, str_, dr["pw"], dr["sc"], dr["kv"],
                                                       w3=dr["w3"], route=r), W_r, route)}
+    # The kernel-mode sweep's cluster team against B8t-team on a ROUTE_W-step
+    # window in the middle of the full 32-column replay.
+    d32 = settings[c32]
+    kr = max(0, min(d32["n"] - ROUTE_W, d32["n"] // 2))
+    str_ = d32["stn"][kr:kr + ROUTE_W + 1].contiguous()
+    ysr = d32["ys"][kr:kr + ROUTE_W].contiguous()
+    W_r = str_.shape[0] - 1
+    cobr = torch.randn(W_r, 5, B, 3 * d32["P"], generator=gen_w, device=dev)
+    replay_routes["ode_replay_bwd_team"] = {"steps": W_r, "start": kr, "columns": c32,
+                                            **sweep_routes(
+        lambda r: no.ode_replay_bwd(ysr, cobr, str_, d32["pw"], d32["sc"], d32["kv"], route=r),
+        W_r, no.ode_bwd_route(d32["P"], n_in, B), "team8")}
     routes.update(replay_routes)
     emit("exactode_times", lanes=B, T=EO_T, naccept={c32: n32, c104: n104}, ms=times,
          ns_per_accepted_step={k: times[k] * 1e6 / serial[k] for k in times},
@@ -5091,17 +5192,24 @@ def exactode_phases(dev, cfg, frozen):
         "ode_replay_bwd_emit_split3": ("columnflow/solvers/fused.py:327",
                                        "deterministic f32-exact, 104 columns (outer mode)"),
     }
+    key = {"ode_replay_bwd_team": "ode_replay_bwd_ksweep"}  # its launch counter
     return [{"name": name, "route": "cuda", "source": ODE_TEAM_SOURCES.get(name, ODE_SOURCE),
              "replaces": rep,
-             "launches": sum(main[c]["launches"].get(name, 0) for c in main),
-             "launches_by_path": {f"{c}_columns": main[c]["launches"].get(name, 0)
+             "launches": sum(main[c]["launches"].get(key.get(name, name), 0) for c in main),
+             "launches_by_path": {f"{c}_columns": main[c]["launches"].get(key.get(name, name), 0)
                                   for c in main},
              "max_abs_err": errs[name], "bit_for_bit": same[name], "ms": times[name],
              "plain_ms": plain_ms[name], "plain_ms_at": plain_ms[f"{name}_at"],
              "ms_window": window_ms[name], "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": path,
              "ns_per_serial_step": times[name] * 1e6 / serial[name],
-             **({"team_routes": routes[name]} if name in routes else {})}
+             **({"team_routes": routes[name]} if name in routes else {}),
+             **({"kernel": "ode_ksweep16_kernel (cf_ode_replay_bwd_ksweep): one cluster team "
+                           "for the batch", "launch_key": "ode_replay_bwd_ksweep",
+                 "weights": routes[name]["weights"],
+                 "registers": ptxas_of("ode_ksweep16_kernel"),
+                 "bit_for_bit_with_team8": same["ode_replay_bwd_team_vs_team8"]}
+                if name == "ode_replay_bwd_team" else {})}
             for name, (rep, path) in entries.items()]
 
 

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
                 "network_ode": ["-fmad=false"], "ode_select_team": ["-fmad=false"],
                 "ode_emit_team": ["-fmad=false"], "ode_replay_team": ["-fmad=false"],
+                "ode_ksweep_team": ["-fmad=false"],
                 "sde3_replay_team": ["-fmad=false"],
                 "sde_select_team": ["-fmad=false"],
                 "xor_ode": ["-fmad=false"],
@@ -90,6 +91,9 @@ _SIGNATURES = {
     "ode_emit_team": {
         "cf_ode_replay_bwd_emit": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,
         "cf_ode_replay_bwd_emit_split3": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 11,
+    },
+    "ode_ksweep_team": {
+        "cf_ode_replay_bwd_ksweep": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
     },
     "sde3_replay_team": {
         "cf_sde3_fwd_team": [_I, _I, _I, _I, _P] + [_I] * 5 + [_P] * 12,

@@ -1,10 +1,13 @@
 // The dopri5 selection (B6), the forward replay over the frozen grid (B7t-team
-// on the three-term split, B7 split2 on the two-term one) and the emit-mode
-// reverse sweep (B8' on the two-term split, B8't on the three-term one) as
-// Hopper thread-block-cluster teams: cf_ode_select, cf_ode_attempt
+// on the three-term split, B7 split2 on the two-term one), the emit-mode
+// reverse sweep (B8' on the two-term split, B8't on the three-term one) and
+// the kernel-mode reverse sweep (B8 and B8t-team: the exact engine's sweep
+// with its weight cotangents, one team for the batch) as Hopper
+// thread-block-cluster teams: cf_ode_select, cf_ode_attempt
 // (ode_select_team.cu), cf_ode_replay_fwd_team, cf_ode_replay_fwd_split2
-// (ode_replay_team.cu), cf_ode_replay_bwd_emit and
-// cf_ode_replay_bwd_emit_split3 (ode_emit_team.cu). Its team functions
+// (ode_replay_team.cu), cf_ode_replay_bwd_emit,
+// cf_ode_replay_bwd_emit_split3 (ode_emit_team.cu) and
+// cf_ode_replay_bwd_ksweep (ode_ksweep_team.cu). Its team functions
 // (team3_init, t3_drift, t3_vjp) also carry the three-term SDE replay and
 // its emit-mode sweep (sde3_replay_team.cu). Included once per source; the
 // definitions live in an unnamed namespace.
@@ -20,6 +23,9 @@
 //   ode_emit16_kernel    <- _make_bwd_chunk_kernel(emit_steps=True) (B8',
 //                           B8't): the state cotangent alone and each
 //                           step's output cotangent
+//   ode_ksweep16_kernel  <- _make_bwd_chunk_kernel, kernel mode (B8,
+//                           B8t-team): the state cotangent and the weight
+//                           cotangents d wT, d iwT, the batch on one team
 //
 // What bounds them on this card: serial chains (~1.3 * 10^4 selection
 // attempts over the second at 104 columns, ~1.2 * 10^4 accepted steps),
@@ -98,6 +104,7 @@
 
 #include "dopri5.cuh"
 #include "network_drift.cuh"
+#include "split_acc.cuh"
 #include "tma_ring.cuh"
 
 namespace {
@@ -108,10 +115,11 @@ constexpr int kT3MaxItems = 2;  // owned (lane, population) items a thread holds
 
 // The uses of a team's plan (Plan3): the selection (the batch, forward
 // products only), the emit-mode sweep (one lane, drifts and VJPs), the
-// replay (one lane, drifts only), and the SDE's emit-mode sweep (B4t,
+// replay (one lane, drifts only), the SDE's emit-mode sweep (B4t,
 // sde3_replay_team.cu: one lane, drifts in the replay's sum order and
-// VJPs).
-constexpr int kT3Select = 0, kT3Sweep = 1, kT3Replay = 2, kT3SdeSweep = 3;
+// VJPs), and the kernel-mode sweep (the batch, drifts in the replay's sum
+// order, VJPs and their weight cotangents: plan3k).
+constexpr int kT3Select = 0, kT3Sweep = 1, kT3Replay = 2, kT3SdeSweep = 3, kT3KSweep = 4;
 
 // The uses whose drifts sum in team8's order (t3_fwd_chunks), and which may
 // keep the float32 wT as their slice.
@@ -140,6 +148,8 @@ struct Plan3 {
                 // kT3MaxItems items (the route takes team8)
   size_t slot, fixed, bytes;  // bytes of an exchange slot, before the weights, in all
   int f32;      // 1: the slice holds the float32 wT, split as it is read (t3_split_w)
+  int accs;     // the kernel-mode sweep: 1 keeps the step's weight-cotangent accumulators
+                // and the own columns' d wT in shared memory, 0 in device memory
 };
 
 // Words of a packed row, padded so that a warp's loads fall in distinct
@@ -168,9 +178,11 @@ __host__ __device__ inline int t3_chunks(int P) {
   return 2 * nc8 <= kThreads ? (kThreads / nc8 < 8 ? kThreads / nc8 : 8) : 1;
 }
 
-// The VJP's own cotangents (nc float64), or the replay's chunk sums (G NP
-// nc; the SDE sweep's VJPs use their first nc).
+// The VJP's own cotangents (nc float64; the kernel-mode sweep's NB nc,
+// double buffered), or the replay's chunk sums (G NP nc; the SDE sweep's
+// VJPs use their first nc).
 __host__ __device__ inline size_t t3_cvec(const Plan3& p, int use) {
+  if (use == kT3KSweep) return t2_align(8 * 2 * (size_t)p.NB * p.nc);
   const size_t np = p.NT == 3 ? 6 : 3;
   return t2_align(8 * (t3_chunked(use) ? t3_chunks(p.C * p.nc) * np : 1) * (size_t)p.nc);
 }
@@ -186,11 +198,123 @@ __host__ __device__ inline size_t t3_fixed(const Plan3& p, int n_in, int slots, 
          + t2_align(8 * (size_t)(1 + 2 * kT2MaxStages));       // mbarriers
 }
 
+// The kernel-mode sweep's shared memory past t3_fixed: the current's
+// cotangent of the own populations (float32, double buffered), the step's
+// d iwT sum and the own columns' d iwT, and with accs the step's NT
+// weight-cotangent accumulators and the own columns' d wT (P nc each).
+__host__ __device__ inline size_t t3k_extra(const Plan3& p, int n_in, int accs) {
+  return t2_align(4 * 2 * (size_t)p.NB * p.nc) + t2_align(4 * 2 * (size_t)n_in * p.nc)
+         + (accs ? t2_align(4 * (size_t)(p.NT + 1) * (p.C * p.nc) * p.nc) : 0);
+}
+
+// The kernel-mode sweep's exchange slot: the forward's rate words X (P, xs)
+// or the VJP's rate terms (P, NB) as bf16 bits (two words: hi | mid << 16,
+// lo), then the VJP's partials (C, nc, NB, NT float64) or the forward's
+// chunk sums (G, NP, NB, nc float64).
+__host__ __device__ inline size_t t3k_xbytes(const Plan3& p) {
+  const size_t P = (p.C * p.nc), x = 4 * P * p.xs, v = 8 * P * p.NB;
+  return t2_align(x > v ? x : v);
+}
+
+__host__ __device__ inline size_t t3k_slot(const Plan3& p) {
+  const size_t np = p.NT == 3 ? 6 : 3, a = (size_t)p.NT * p.C, b = t3_chunks((p.C * p.nc)) * np;
+  return t3k_xbytes(p) + t2_align(8 * (size_t)p.NB * p.nc * (a > b ? a : b));
+}
+
+// The kernel-mode sweep (ode_ksweep16_kernel): the batch of NB lanes on one
+// cluster of C blocks (16 where 16 divides P, else 8), block r owning
+// populations [r nc, (r+1) nc) of every lane, one (lane, population) item a
+// thread. Its forward products take the replay's sum order (t3_chunks: G
+// chunks of rows, a thread for each chunk and column) for LB lanes a thread
+// (1, or 4 where the G nc threads of a lane group cannot give every lane its
+// own: kThreads / (G nc) groups); its VJP products take Lv lanes a row, Lv
+// the largest power of two up to 32 with kThreads / Lv rows covering P. Two
+// exchange slots and the accumulators in shared memory where they fit, else
+// one slot, else the accumulators in device memory; the slice resident
+// where it fits, else streamed. fits is 0 for NT != 3 (only the three-term
+// split is built), more than one item a thread, or more than four lanes a
+// thread.
+__host__ __device__ inline Plan3 plan3k(int P, int n_in, int NB, int NT, int want_stream) {
+  Plan3 p;
+  p.C = P % 16 == 0 ? 16 : 8;
+  p.nc = P / p.C;
+  p.NT = NT;
+  p.NB = NB;
+  p.ipt = (NB * p.nc + kThreads - 1) / kThreads;
+  const int groups = kThreads / (t3_chunks(P) * p.nc);
+  const int lt = groups > 0 ? (NB + groups - 1) / groups : kThreads;
+  p.LB = lt == 1 ? 1 : 4;
+  p.G = (NB + p.LB - 1) / p.LB;
+  p.gw = (p.LB * NT + 1) / 2 * 2;
+  p.xs = p.G * p.gw;
+  p.Lv = 32;
+  while (p.Lv > 1 && kThreads / p.Lv < P) p.Lv /= 2;
+  p.L = 32 / p.Lv;
+  p.rw = t3_row_words(p.nc, NT, p.Lv, false);
+  p.f32 = 0;
+  p.fits = NT == 3 && p.ipt == 1 && lt <= 4;
+  p.slot = t3k_slot(p);
+  const size_t row = 4 * (size_t)p.rw;
+  for (int slots = 2; slots >= 1; --slots) {
+    for (int accs = 1; accs >= 0; --accs) {
+      const size_t f = t3_fixed(p, n_in, slots, kT3KSweep) + t3k_extra(p, n_in, accs);
+      if (!want_stream && f + row * P <= kT2SmemLimit) {
+        p.slots = slots;
+        p.accs = accs;
+        p.stream = 0;
+        p.R = P;
+        p.T = 1;
+        p.S = 1;
+        p.fixed = f;
+        p.bytes = f + row * P;
+        return p;
+      }
+    }
+  }
+  // Streamed: tiles of R rows, R the first power of two from kThreads / Lv
+  // (one VJP pass a tile) down that leaves S >= 2 stages.
+  p.stream = 1;
+  const int r0 = kThreads / p.Lv > kT2MinTileRows ? kThreads / p.Lv : kT2MinTileRows;
+  for (int slots = 2; slots >= 1; --slots) {
+    for (int accs = 1; accs >= 0; --accs) {
+      const size_t f = t3_fixed(p, n_in, slots, kT3KSweep) + t3k_extra(p, n_in, accs);
+      const size_t room = f < kT2SmemLimit ? kT2SmemLimit - f : 0;
+      for (int R = r0; R >= 8; R /= 2) {
+        const int T = (P + R - 1) / R;
+        size_t s = room / (row * R);
+        if (s > (size_t)kT2MaxStages) s = kT2MaxStages;
+        if (s > (size_t)T) s = T;
+        if ((int)s >= (T < 2 ? T : 2)) {
+          p.slots = slots;
+          p.accs = accs;
+          p.R = R;
+          p.T = T;
+          p.S = (int)s;
+          p.fixed = f;
+          p.bytes = f + row * R * s;
+          return p;
+        }
+      }
+    }
+  }
+  p.fits = 0;
+  p.slots = 1;
+  p.accs = 0;
+  p.R = P;
+  p.T = 1;
+  p.S = 0;
+  p.fixed = t3_fixed(p, n_in, 1, kT3KSweep) + t3k_extra(p, n_in, 0);
+  p.bytes = p.fixed;
+  return p;
+}
+
 // The plan of a use at P populations; C the cluster size (0: 16 where 16
 // divides P, else 8; the caller has checked that C divides P).
 __host__ __device__ inline Plan3 plan3(int P, int n_in, int NB, int NT, int use,
                                        int want_stream, int C = 0) {
+  if (use == kT3KSweep) return plan3k(P, n_in, NB, NT, want_stream);
   Plan3 p;
+  p.accs = 0;
   p.C = C > 0 ? C : (P % 16 == 0 ? 16 : 8);
   p.nc = P / p.C;
   p.NT = NT;
@@ -322,11 +446,11 @@ __device__ __forceinline__ unsigned char* t3_slot(const Team3& T) {
 // block of the cluster has started before any writes into another's shared
 // memory. NB lanes from b0 of the knot table; use: kT3Select, kT3Sweep,
 // kT3Replay or kT3SdeSweep; C: the cluster size (0: the default).
-__device__ __forceinline__ void team3_init(Team3& T, unsigned char* sm, const Net& n, int NB,
-                                           int NT, int use, int b0, const uint32_t* wpk,
-                                           const float* __restrict__ iw, int stream, int C = 0) {
+__device__ __forceinline__ void team3_init_plan(Team3& T, unsigned char* sm, const Net& n,
+                                                int NB, int use, int b0, const uint32_t* wpk,
+                                                const float* __restrict__ iw, const Plan3& plan) {
   const int P = n.P, NI = n.n_in;
-  T.p = plan3(P, NI, NB, NT, use, stream, C);
+  T.p = plan;
   const Plan3& p = T.p;
   T.rank = (int)cgo::this_cluster().block_rank();
   T.c0 = T.rank * p.nc;
@@ -388,6 +512,12 @@ __device__ __forceinline__ void team3_init(Team3& T, unsigned char* sm, const Ne
   }
   cgo::this_cluster().sync();
   if (!p.stream) t2_mbar_wait(T.mbar, 0);
+}
+
+__device__ __forceinline__ void team3_init(Team3& T, unsigned char* sm, const Net& n, int NB,
+                                           int NT, int use, int b0, const uint32_t* wpk,
+                                           const float* __restrict__ iw, int stream, int C = 0) {
+  team3_init_plan(T, sm, n, NB, use, b0, wpk, iw, plan3(n.P, n.n_in, NB, NT, use, stream, C));
 }
 
 // Sum of v over every thread of the team, the same double in every block:
@@ -674,13 +804,17 @@ struct T3NoOp {
   __device__ __forceinline__ void operator()() const {}
 };
 
+template <int NT, int LT, bool kStream>
+__device__ __forceinline__ void t3k_fwd_chunks(Team3& T, int P, const uint32_t* __restrict__ X);
+
 // One drift evaluation of the team's lanes at time t: the owned items'
 // states s -> out (owner threads); every thread of the block calls it.
-// kChunks: the replay's products in team8's order (t3_fwd_chunks; one lane),
-// kF32 its slice the float32 wT.
+// kChunks 1: the replay's products in team8's order (t3_fwd_chunks; one
+// lane), kF32 its slice the float32 wT; 2: the same order for the NB lanes
+// of the kernel-mode sweep, LB a thread (t3k_fwd_chunks).
 // after_barrier() runs in every thread right after the exchange's cluster
 // barrier (the replay stores its previous step's rows there).
-template <int NT, int LB, int IPT, bool kStream, bool kF32 = false, bool kChunks = false,
+template <int NT, int LB, int IPT, bool kStream, bool kF32 = false, int kChunks = 0,
           class Mid = T3NoOp>
 __device__ __forceinline__ void t3_drift(const Net& n, Team3& T, float t, const float (&s)[IPT][3],
                                          float (&out)[IPT][3], Mid after_barrier = Mid()) {
@@ -741,7 +875,9 @@ __device__ __forceinline__ void t3_drift(const Net& n, Team3& T, float t, const 
   }
   cl.sync();
   after_barrier();
-  if constexpr (kChunks)
+  if constexpr (kChunks == 2)
+    t3k_fwd_chunks<NT, LB, kStream>(T, n.P, X);
+  else if constexpr (kChunks == 1)
     t3_fwd_chunks<NT, kStream, kF32>(T, n.P, X);
   else
     t3_fwd_products<NT, LB, kStream>(T, n.P, X);
@@ -1205,6 +1341,523 @@ ode_emit16_kernel(Net n, int n_steps, const uint32_t* __restrict__ wpk,
   if (own) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) ybar_out[col + c * P] = ysum[c];
+  }
+  if (kStream) t2_drain(T);
+}
+
+// ---------------------------------------------------------------------------
+// B8 / B8t-team: the kernel-mode sweep, one team for the batch
+// ---------------------------------------------------------------------------
+
+// The kernel-mode sweep's exchange slot in use: the rates (forward: X words;
+// VJP: (P, NB) uint2 of the NT terms' bf16 bits), then the float64 region
+// (the VJP's (C, nc, NB, NT) partials, or the forward's (G, NP, NB, nc)
+// chunk sums): t3k_part.
+__device__ __forceinline__ double* t3k_part(const Team3& T) {
+  return reinterpret_cast<double*>(t3_slot(T) + t3k_xbytes(T.p));
+}
+
+// The forward products of the NB lanes in the replay's sum order
+// (t3_fwd_chunks, for every lane): thread o = j + nc (g + G lg) sums chunk g
+// of column j for the lanes [LT lg, LT lg + LT) of the batch, reading each
+// weight once for its LT lanes and the lanes' rate words as LT NT words of
+// lane group lg (t3_drift's X layout with LB = LT); its chunk sums go to the
+// slot's float64 region, and after a block barrier the owner of (lane b,
+// column j) adds the G chunks' sums of each product in chunk order, rounds
+// each to float32 and adds them in matmul_split's order -> recs[b nc + j].
+template <int NT, int LT, bool kStream>
+__device__ __forceinline__ void t3k_fwd_chunks(Team3& T, int P, const uint32_t* __restrict__ X) {
+  constexpr int NP = NT == 3 ? 6 : 3;
+  constexpr int GW = (LT * NT + 1) / 2 * 2;
+  const Plan3& p = T.p;
+  const int G = t3_chunks(P), kc = (P + G - 1) / G;
+  const int nc = p.nc, rw = p.rw, xs = p.xs, R = p.R, NTl = p.T, NB = p.NB;
+  const int o = threadIdx.x, j = o % nc, g = (o / nc) % G, lg = o / (nc * G);
+  const int b0 = lg * LT;
+  const bool act = b0 < NB;
+  const int c0 = g * kc, c1 = min(P, c0 + kc);
+  double acc[LT][NP];
+#pragma unroll
+  for (int q = 0; q < LT; ++q) {
+#pragma unroll
+    for (int r = 0; r < NP; ++r) acc[q][r] = 0.0;
+  }
+  const uint32_t* xg = X + lg * GW;
+  for (int m = 0; m < NTl; ++m) {
+    const int gg = T.used + m;
+    const uint32_t* tile = t2_acquire<kStream>(T, gg, P);
+    const int tk0 = m * R, k0 = max(tk0, c0), k1 = min(min(P, tk0 + R), c1);
+    if (act) {
+#pragma unroll 2
+      for (int k = k0; k < k1; ++k) {
+        const uint16_t* row = reinterpret_cast<const uint16_t*>(tile + (size_t)(k - tk0) * rw) + j;
+        const double wh = t3_w(row[0]), wm = t3_w(row[nc]);
+        double wl = 0.0;
+        if constexpr (NT == 3) wl = t3_w(row[2 * nc]);
+        uint32_t xw[GW];
+        if constexpr (GW % 4 == 0) {
+          const uint4* x4 = reinterpret_cast<const uint4*>(xg + (size_t)k * xs);
+#pragma unroll
+          for (int v = 0; v < GW / 4; ++v) {
+            const uint4 u = x4[v];
+            xw[4 * v] = u.x;
+            xw[4 * v + 1] = u.y;
+            xw[4 * v + 2] = u.z;
+            xw[4 * v + 3] = u.w;
+          }
+        } else {
+          const uint2* x2 = reinterpret_cast<const uint2*>(xg + (size_t)k * xs);
+#pragma unroll
+          for (int v = 0; v < GW / 2; ++v) {
+            const uint2 u = x2[v];
+            xw[2 * v] = u.x;
+            xw[2 * v + 1] = u.y;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < LT; ++q) {
+          if (LT == 1 || b0 + q < NB) {
+            const double a = t3_x(xw[q * NT]), c = t3_x(xw[q * NT + 1]);
+            if constexpr (NT == 3) {
+              const double d = t3_x(xw[q * NT + 2]);
+              acc[q][0] = fma(a, wl, acc[q][0]);
+              acc[q][1] = fma(c, wm, acc[q][1]);
+              acc[q][2] = fma(d, wh, acc[q][2]);
+              acc[q][3] = fma(a, wm, acc[q][3]);
+              acc[q][4] = fma(c, wh, acc[q][4]);
+              acc[q][5] = fma(a, wh, acc[q][5]);
+            } else {
+              acc[q][0] = fma(a, wh, acc[q][0]);
+              acc[q][1] = fma(a, wm, acc[q][1]);
+              acc[q][2] = fma(c, wh, acc[q][2]);
+            }
+          }
+        }
+      }
+    }
+    t2_release<kStream>(T, gg);
+  }
+  if (kStream) T.used += NTl;
+  double* const part = t3k_part(T);  // (G, NP, NB, nc)
+  if (act) {
+#pragma unroll
+    for (int q = 0; q < LT; ++q) {
+      if (LT == 1 || b0 + q < NB) {
+#pragma unroll
+        for (int r = 0; r < NP; ++r) part[(((size_t)g * NP + r) * NB + b0 + q) * nc + j] = acc[q][r];
+      }
+    }
+  }
+  __syncthreads();
+  if (o < NB * nc) {
+    float rec = 0.0f;
+#pragma unroll
+    for (int r = 0; r < NP; ++r) {
+      double s = part[(size_t)r * NB * nc + o];
+#pragma unroll
+      for (int gc = 1; gc < 8; ++gc) {  // t3_chunks gives at most 8
+        if (gc < G) s += part[((size_t)gc * NP + r) * NB * nc + o];
+      }
+      rec = r == 0 ? (float)s : rec + (float)s;
+    }
+    T.recs[o] = rec;
+  }
+}
+
+// The VJP products of the NB lanes: for every row k and lane b, the sums
+// over this block's columns j of cv[b][j] W_t[k, j] (cv: the cotangents
+// times 2^896) for each term t (Lv threads a row, thread l summing the
+// columns j = l mod Lv in order, then a butterfly), four lanes at a time,
+// stored as (rank, k mod nc, b, t) into the float64 region of the
+// exchange slot of k's owner.
+template <int NT, bool kStream>
+__device__ __forceinline__ void t3k_vjp_products(Team3& T, int P, const double* cv) {
+  constexpr int KL = 4;
+  const Plan3& p = T.p;
+  cgo::cluster_group cl = cgo::this_cluster();
+  const int nc = p.nc, Lv = p.Lv, rw = p.rw, R = p.R, NTl = p.T, rank = T.rank, NB = p.NB;
+  const int RR = kThreads / Lv, rr = threadIdx.x / Lv, l = threadIdx.x - rr * Lv;
+  double* const part = t3k_part(T);
+  for (int m = 0; m < NTl; ++m) {
+    const int g = T.used + m;
+    const uint32_t* tile = t2_acquire<kStream>(T, g, P);
+    const int k0 = m * R, rows = min(R, P - k0);
+    for (int r0 = 0; r0 < rows; r0 += RR) {
+      const int r = r0 + rr;
+      const bool ok = r < rows;
+      const uint16_t* row = reinterpret_cast<const uint16_t*>(tile + (size_t)(ok ? r : 0) * rw);
+      for (int bb = 0; bb < NB; bb += KL) {
+        double d[KL][NT];
+#pragma unroll
+        for (int q = 0; q < KL; ++q) {
+#pragma unroll
+          for (int t = 0; t < NT; ++t) d[q][t] = 0.0;
+        }
+        if (ok) {
+#pragma unroll 2
+          for (int j = l; j < nc; j += Lv) {
+            double w[NT];
+#pragma unroll
+            for (int t = 0; t < NT; ++t) w[t] = t3_w(row[t * nc + j]);
+#pragma unroll
+            for (int q = 0; q < KL; ++q) {
+              if (bb + q < NB) {
+                const double c = cv[(bb + q) * nc + j];
+#pragma unroll
+                for (int t = 0; t < NT; ++t) d[q][t] = fma(c, w[t], d[q][t]);
+              }
+            }
+          }
+        }
+        for (int off = Lv / 2; off > 0; off >>= 1) {
+#pragma unroll
+          for (int q = 0; q < KL; ++q) {
+#pragma unroll
+            for (int t = 0; t < NT; ++t) d[q][t] += __shfl_xor_sync(0xffffffffu, d[q][t], off);
+          }
+        }
+        if (ok && l == 0) {
+          const int k = k0 + r, owner = k / nc;
+          double* dst = cl.map_shared_rank(part, owner) +
+                        (((size_t)rank * nc + (k - owner * nc)) * NB + bb) * NT;
+          if (NB % 2 == 0) {  // an even count of doubles from an even offset
+            double2* d2 = reinterpret_cast<double2*>(dst);
+#pragma unroll
+            for (int v = 0; v < KL * NT / 2; ++v) {
+              if (2 * v < (NB - bb) * NT)
+                d2[v] = make_double2(d[(2 * v) / NT][(2 * v) % NT],
+                                     d[(2 * v + 1) / NT][(2 * v + 1) % NT]);
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < KL; ++q) {
+              if (bb + q < NB) {
+#pragma unroll
+                for (int t = 0; t < NT; ++t) dst[q * NT + t] = d[q][t];
+              }
+            }
+          }
+        }
+      }
+    }
+    t2_release<kStream>(T, g);
+  }
+  if (kStream) T.used += NTl;
+}
+
+// A block's share of the kernel-mode sweep's weight cotangents: the entries
+// (i, j) of its own columns j = c0 .. c0 + nc - 1, every row i, at q = (j -
+// c0) P + i; thread x takes the rows i = x mod R (mod R) and in each the
+// columns j - c0 = x / R (mod Lw), Lw = max(1, kThreads / P) threads a row,
+// R = kThreads / Lw (t3k_entries), in every pass that touches them:
+// consecutive threads touch consecutive words.
+// Call f(i, j0, Lw) for the rows i of this thread's weight-cotangent
+// entries (KAcc): its columns are j0, j0 + Lw, ... below nc.
+template <class F>
+__device__ __forceinline__ void t3k_entries(int P, int nc, F&& f) {
+  const int Lw = kThreads / P > 1 ? kThreads / P : 1, R = kThreads / Lw;
+  const int j0 = threadIdx.x / R;
+  if (j0 >= nc || j0 >= Lw) return;
+  for (int i = threadIdx.x - j0 * R; i < P; i += R) f(i, j0, Lw);
+}
+
+struct KAcc {
+  float* acc;   // (NT, nc, P) the step's bf16 accumulators (hi, mid[, lo])
+  float* dw;    // (nc, P) d wT of the own columns, the float32 sum over the steps so far
+  float* cown;  // (2, NB, nc) the current's cotangent of the own populations
+  float* aiw;   // (n_in, nc) the step's d iwT sum of the own columns
+  float* dwi;   // (n_in, nc) d iwT of the own columns over the steps so far
+};
+
+// Carve KAcc past t3_fixed: in shared memory, or with the plan's accs 0 the
+// accumulators and d wT in this block's (NT + 1) P nc floats of work.
+__device__ __forceinline__ KAcc t3k_carve(const Team3& T, unsigned char* sm, const Net& n,
+                                          float* work) {
+  const Plan3& p = T.p;
+  const size_t Pnc = (size_t)n.P * p.nc;
+  unsigned char* q = sm + t3_fixed(p, n.n_in, p.slots, kT3KSweep);
+  KAcc A;
+  A.cown = reinterpret_cast<float*>(q);
+  q += t2_align(4 * 2 * (size_t)p.NB * p.nc);
+  A.aiw = reinterpret_cast<float*>(q);
+  A.dwi = A.aiw + (size_t)n.n_in * p.nc;
+  q += t2_align(4 * 2 * (size_t)n.n_in * p.nc);
+  A.acc = p.accs ? reinterpret_cast<float*>(q) : work + (size_t)T.rank * (p.NT + 1) * Pnc;
+  A.dw = A.acc + (size_t)p.NT * Pnc;
+  return A;
+}
+
+// One drift VJP of the team's NB lanes (one item a thread) at the own
+// states y for the output cotangents ct -> out (owner threads), with
+// jax.vjp's rounding points (t3_vjp), and its weight cotangents added to
+// the step's accumulators (``first``: stage 6's VJP, which opens them). The
+// owners put their rates' NT bf16 terms (as bits) into every block beside
+// the VJP products' partials: one cluster barrier. Then the owners add the
+// C partials in rank order, and every block contracts the entries of its
+// own columns over the lanes in float64, in lane order, rounds to bf16 and
+// adds to its accumulators (team.cuh wx_cot, acc_add): no value crosses a
+// block in a sum. A weight-cotangent product needs no conversion: the
+// term's bits placed in a double (t3_w) times the cotangent held times
+// 2^896 (the VJP products' own operand, double buffered as the slot is, so
+// the next VJP's owners may write theirs while this pass still reads).
+template <int NT, bool kStream>
+__device__ __forceinline__ void t3k_vjp(const Net& n, Team3& T, const KAcc& A, float t,
+                                        bool first, const float (&y)[3], const float (&ct)[3],
+                                        float (&out)[3]) {
+  cgo::cluster_group cl = cgo::this_cluster();
+  const Plan3& p = T.p;
+  const int P = n.P, nc = p.nc, C = p.C, NB = p.NB, NI = n.n_in, own = NB * nc, c0 = T.c0;
+  const int e = threadIdx.x;
+  uint2* const xr = reinterpret_cast<uint2*>(t3_slot(T));  // (P, NB): the rates' bf16 terms
+  float* const ext = T.ext + T.par * NB * NI;
+  float* const cown = A.cown + T.par * own;
+  double* const cv = T.cvec + T.par * own;
+  if (p.slots == 1) cl.sync();  // every block is done with the slot's last exchange
+  float frp = 0.0f;
+  if (e < own) {
+    const int b = e / nc, i = e - b * nc;
+    float fr;
+    fr_and_grad(y[0] - y[1], fr, frp);
+    const float cc = ((ct[0] / n.tau_m) * n.R) * n.tau_s;
+    cv[e] = (double)cc * kT3Scale;
+    cown[e] = cc;
+    const bf16 bh = __float2bfloat16_rn(fr);
+    const float r = fr - __bfloat162float(bh);
+    const bf16 bm = __float2bfloat16_rn(r);
+    uint32_t lo = 0u;
+    if constexpr (NT == 3) lo = __bfloat16_as_ushort(__float2bfloat16_rn(r - __bfloat162float(bm)));
+    xr[(size_t)(c0 + i) * NB + b] =
+        make_uint2((uint32_t)__bfloat16_as_ushort(bh) | ((uint32_t)__bfloat16_as_ushort(bm) << 16),
+                   lo);
+  }
+  for (int idx = threadIdx.x; idx < NB * NI; idx += blockDim.x) {
+    const int bb = idx / NI, m = idx - bb * NI;
+    ext[idx] = t3_knot(n, T, bb, m, t);
+  }
+  __syncthreads();
+  {  // the own rows of the rates' terms to every other block, 8 bytes a store
+    const int nv = nc * NB;
+    const uint2* src = xr + (size_t)c0 * NB;
+    for (int idx = threadIdx.x; idx < C * nv; idx += blockDim.x) {
+      const int r = idx / nv, v = idx - r * nv;
+      if (r != T.rank) cl.map_shared_rank(const_cast<uint2*>(src), r)[v] = src[v];
+    }
+  }
+  t3k_vjp_products<NT, kStream>(T, P, cv);
+  cl.sync();
+  if (e < own) {
+    const int b = e / nc, i = e - b * nc;
+    const double* part = t3k_part(T);
+    double d[NT];
+#pragma unroll
+    for (int q = 0; q < NT; ++q) d[q] = 0.0;
+#pragma unroll 4
+    for (int r = 0; r < C; ++r) {  // each term's partials in rank order
+      const double* s = part + (((size_t)r * nc + i) * NB + b) * NT;
+#pragma unroll
+      for (int q = 0; q < NT; ++q) d[q] += s[q];
+    }
+    const float m = bf16r((float)d[0]), q = bf16r((float)d[1]);
+    float xbar;
+    if constexpr (NT == 2) {
+      xbar = m + bf16r(bf16r(m + q) - m);
+    } else {
+      const float lo = bf16r((float)d[2]);
+      const float u = bf16r(m + q);
+      const float r = m + bf16r(u - m);
+      xbar = r + bf16r(bf16r(u + lo) + bf16r(-r));
+    }
+    const float cv = ct[0], ca = ct[1], cr = ct[2];
+    const float c_fr = (xbar + T.ad[i] * (ca / n.tau_a)) + cr / n.tau_s;
+    const float c_x = frp * c_fr;
+    out[0] = -(cv / n.tau_m) + c_x;
+    out[1] = -(ca / n.tau_a) - c_x;
+    out[2] = -(cr / n.tau_s);
+  }
+  // The weight cotangents of the own columns, every row.
+  const size_t Pnc = (size_t)P * nc;
+  t3k_entries(P, nc, [&](int i, int j0, int Lw) {
+    constexpr int KL = 4;
+    double xd[KL][NT];  // row i's terms of lanes 0..3, placed once for the row's columns
+    if (NB <= KL) {
+#pragma unroll
+      for (int b = 0; b < KL; ++b) {
+        const uint2 x = b < NB ? xr[(size_t)i * NB + b] : make_uint2(0u, 0u);
+        xd[b][0] = t3_w(x.x & 0xffffu);
+        xd[b][1] = t3_w(x.x >> 16);
+        if constexpr (NT == 3) xd[b][2] = t3_w(x.y);
+      }
+    }
+#pragma unroll 2
+    for (int j = j0; j < nc; j += Lw) {
+      double s[NT];
+#pragma unroll
+      for (int u = 0; u < NT; ++u) s[u] = 0.0;
+      if (NB <= KL) {  // each product exact: x 2^-896 times c 2^896, in lane order
+#pragma unroll
+        for (int b = 0; b < KL; ++b) {
+          if (b < NB) {
+            const double c = cv[b * nc + j];
+#pragma unroll
+            for (int u = 0; u < NT; ++u) s[u] = fma(xd[b][u], c, s[u]);
+          }
+        }
+      } else {
+        for (int b = 0; b < NB; ++b) {
+          const uint2 x = xr[(size_t)i * NB + b];
+          const double c = cv[b * nc + j];
+          s[0] = fma(t3_w(x.x & 0xffffu), c, s[0]);
+          s[1] = fma(t3_w(x.x >> 16), c, s[1]);
+          if constexpr (NT == 3) s[2] = fma(t3_w(x.y), c, s[2]);
+        }
+      }
+      const size_t q = (size_t)j * P + i;
+      float d[NT], a[NT];
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        d[u] = bf16r((float)s[u]);
+        a[u] = first ? 0.0f : A.acc[u * Pnc + q];
+      }
+      acc_add<NT>(a, d, first);
+#pragma unroll
+      for (int u = 0; u < NT; ++u) A.acc[u * Pnc + q] = a[u];
+    }
+  });
+  for (int q = threadIdx.x; q < NI * nc; q += kThreads) {
+    const int m = q / nc, j = q - m * nc;
+    double s = 0.0;
+    for (int b = 0; b < NB; ++b) s += (double)ext[b * NI + m] * (double)cown[b * nc + j];
+    A.aiw[q] = first ? (float)s : A.aiw[q] + (float)s;
+  }
+  T.par ^= 1;
+}
+
+// B8 / B8t-team: the kernel-mode reverse sweep over steps n-1..0 of the
+// batch (n.B lanes) on one team. Per step k it rebuilds the stage states
+// Y0..Y6 from ys[k] (drifts k0..k5 in the replay's sum order, t3k_fwd_chunks:
+// the stage states B7, B7t-team and team8 form), then
+//   r3bar = c3 - c4;  dybar = (c2 + c4) - r3bar;  y1bar = ybar + dybar
+//   kbar_j = (h d_j) c5;  kbar_6 -= h c4;  kbar_0 += h r3bar
+//   kbar_j += (h b_j) y1bar;  ysum = (c1 - dybar) + y1bar
+//   for s = 6..0:  g = f^T|_{Y_s} kbar_s;  ysum += g;  kbar_j += (h a_sj) g
+// and ybar = ysum (network_ode.cu ode_replay_bwd_kernel, operation for
+// operation); each VJP's weight cotangents add into the step's NT bf16
+// accumulators of the block's own columns (t3k_vjp), folded once a step
+// through the split into d wT, the d iwT sums added, both written once at
+// the end. plan: the host's plan3k (a kernel parameter, so the compiler
+// reads its fields from the constant bank instead of holding them in
+// registers). work: with the plan's accs 0, (C, NT + 1, nc, P) floats. NT = 3:
+// the f32-exact engine (prepare_premixed_split); LT: the forward products'
+// lanes a thread (the plan's LB, 1 or 4).
+template <int NT, int LT, bool kStream>
+__global__ void __launch_bounds__(kThreads, 1)
+ode_ksweep16_kernel(Net n, const Plan3 plan, int n_steps, const uint32_t* __restrict__ wpk,
+                    const float* __restrict__ iw, const float* __restrict__ st,
+                    const float* __restrict__ ys, const float* __restrict__ cobar,
+                    float* __restrict__ ybar_out, float* __restrict__ d_wT,
+                    float* __restrict__ d_iwT, float* work) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team3 T;
+  team3_init_plan(T, smt, n, n.B, kT3KSweep, 0, wpk, iw, plan);
+  const KAcc A = t3k_carve(T, smt, n, work);
+  const int P = n.P, S = 3 * P, nc = T.p.nc, NI = n.n_in, c0 = T.c0;
+  const size_t N = (size_t)n.B * S, Pnc = (size_t)P * nc;
+  const int e = threadIdx.x;
+  const bool own = e < n.B * nc;
+  const int b = own ? e / nc : 0;
+  const size_t col = (size_t)b * S + c0 + (e - b * nc);
+  t3k_entries(P, nc, [&](int i, int j0, int Lw) {
+    for (int j = j0; j < nc; j += Lw) A.dw[(size_t)j * P + i] = 0.0f;
+  });
+  for (int q = threadIdx.x; q < NI * nc; q += kThreads) A.dwi[q] = 0.0f;
+  float Y[kStages][1][3], kk[3][kStages], ysum[3] = {0.0f, 0.0f, 0.0f};
+  float yn[3] = {0.0f, 0.0f, 0.0f};
+  float f[1][3], g[3];
+  if (own && n_steps > 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) yn[c] = ys[(size_t)(n_steps - 1) * N + col + c * P];
+  }
+  for (int k = n_steps - 1; k >= 0; --k) {
+    const float t0 = st[k], h = st[k + 1] - t0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) Y[0][0][c] = yn[c];
+    if (own && k >= 1) {  // the next step's state, one step ahead
+#pragma unroll
+      for (int c = 0; c < 3; ++c) yn[c] = ys[(size_t)(k - 1) * N + col + c * P];
+    }
+    t3_drift<NT, LT, 1, kStream, false, 2>(n, T, t0, Y[0], f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) kk[c][0] = f[0][c];
+#pragma unroll
+    for (int i = 1; i < kStages; ++i) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) Y[i][0][c] = stage(i, h, Y[0][0][c], kk[c]);
+      if (i < kStages - 1) {
+        t3_drift<NT, LT, 1, kStream, false, 2>(n, T, t0 + kC[i] * h, Y[i], f);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) kk[c][i] = f[0][c];
+      }
+    }
+    float cc[5][3];
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        cc[r][c] = own ? cobar[((size_t)k * 5 + r) * N + col + c * P] : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float c1 = cc[0][c], c2 = cc[1][c], c3 = cc[2][c], c4 = cc[3][c], c5 = cc[4][c];
+      const float r3bar = c3 - c4;
+      const float dybar = (c2 + c4) - r3bar;
+      const float y1bar = ysum[c] + dybar;
+#pragma unroll
+      for (int j = 0; j < kStages; ++j) {
+        float v = kD[j] != 0.0f ? (h * kD[j]) * c5 : 0.0f;
+        if (j == kStages - 1) v = v - h * c4;
+        if (j == 0) v = v + h * r3bar;
+        if (kB[j] != 0.0f) v = v + (h * kB[j]) * y1bar;
+        kk[c][j] = v;
+      }
+      ysum[c] = (c1 - dybar) + y1bar;
+    }
+#pragma unroll
+    for (int s = kStages - 1; s >= 0; --s) {
+      const float ct[3] = {kk[0][s], kk[1][s], kk[2][s]};
+      t3k_vjp<NT, kStream>(n, T, A, s ? t0 + kC[s] * h : t0, s == kStages - 1, Y[s][0], ct, g);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        ysum[c] = ysum[c] + g[c];
+#pragma unroll
+        for (int j = 0; j < s; ++j) {
+          const float a = kA[s][j];
+          if (a != 0.0f) kk[c][j] = kk[c][j] + (h * a) * g[c];
+        }
+      }
+    }
+    // The step's accumulators through the split once, into the own columns'
+    // sums (each entry by the thread that formed it).
+    t3k_entries(P, nc, [&](int i, int j0, int Lw) {
+      for (int j = j0; j < nc; j += Lw) {
+        const size_t q = (size_t)j * P + i;
+        float a[NT];
+#pragma unroll
+        for (int u = 0; u < NT; ++u) a[u] = A.acc[u * Pnc + q];
+        A.dw[q] = A.dw[q] + acc_fold<NT>(a);
+      }
+    });
+    for (int q = threadIdx.x; q < NI * nc; q += kThreads) A.dwi[q] = A.dwi[q] + A.aiw[q];
+  }
+  if (own) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ybar_out[col + c * P] = ysum[c];
+  }
+  t3k_entries(P, nc, [&](int i, int j0, int Lw) {
+    for (int j = j0; j < nc; j += Lw) d_wT[(size_t)i * P + c0 + j] = A.dw[(size_t)j * P + i];
+  });
+  for (int q = threadIdx.x; q < NI * nc; q += kThreads) {
+    const int m = q / nc;
+    d_iwT[(size_t)m * P + c0 + (q - m * nc)] = A.dwi[q];
   }
   if (kStream) t2_drain(T);
 }

@@ -12,6 +12,7 @@
 #include <cooperative_groups.h>
 
 #include "network_drift.cuh"
+#include "split_acc.cuh"
 #include "split3_drift.cuh"
 
 namespace {
@@ -529,47 +530,6 @@ __device__ __forceinline__ void wx_cot(const WX& x, int nb, int P, int i, int j,
   }
 #pragma unroll
   for (int q = 0; q < NT; ++q) d[q] = bf16r((float)s[q]);
-}
-
-// Add one drift VJP's product cotangents d (wx_cot) to the bf16 accumulators
-// acc[0..NT) (hi, mid[, lo]) in the order the reverse pass meets the
-// forward's products (models/network.py split3_accumulate /
-// split2_accumulate); ``first`` opens them.
-template <int NT>
-__device__ __forceinline__ void acc_add(float* acc, const float* d, bool first) {
-  if constexpr (NT == 3) {
-    const float a = d[0], bb = d[1], ee = d[2];
-    if (first) {
-      acc[1] = bf16r(a + bb);
-      acc[0] = bf16r(acc[1] + ee);
-      acc[2] = a;
-    } else {
-      acc[0] = bf16r(bf16r(bf16r(acc[0] + a) + bb) + ee);
-      acc[1] = bf16r(bf16r(acc[1] + a) + bb);
-      acc[2] = bf16r(acc[2] + a);
-    }
-  } else {
-    const float a = d[0], bb = d[1];
-    if (first) {
-      acc[0] = bf16r(bb + a);
-      acc[1] = a;
-    } else {
-      acc[0] = bf16r(bf16r(acc[0] + bb) + a);
-      acc[1] = bf16r(acc[1] + a);
-    }
-  }
-}
-
-// The cotangent of w from those of its NT terms, once per prepare
-// (split3_fold / split2_fold).
-template <int NT>
-__device__ __forceinline__ float acc_fold(const float* acc) {
-  if constexpr (NT == 3) {
-    const float r = acc[2] + bf16r(acc[1] - acc[2]);
-    return r + bf16r(acc[0] + bf16r(-r));
-  } else {
-    return acc[1] + bf16r(acc[0] - acc[1]);
-  }
 }
 
 // Check the shape and request the shared memory of a team kernel for nb

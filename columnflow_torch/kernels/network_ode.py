@@ -4,10 +4,11 @@ the three Pallas kernels of ``odeint_dopri5_fused`` in
 ``columnflow/solvers/fused.py``).
 
 Each kernel is CUDA C++ in ``csrc/network_ode.cu``, or, for the cluster
-teams of B6, B7t-team, B7 split2, B8' and B8't (``csrc/ode_team.cuh``),
-``csrc/ode_select_team.cu``, ``csrc/ode_replay_team.cu`` and
-``csrc/ode_emit_team.cu`` (built by ``_build``), with a plain PyTorch version
-beside it that repeats its arithmetic:
+teams of B6, B7t-team, B7 split2, B8', B8't and the kernel-mode sweep
+(``csrc/ode_team.cuh``), ``csrc/ode_select_team.cu``,
+``csrc/ode_replay_team.cu``, ``csrc/ode_emit_team.cu`` and
+``csrc/ode_ksweep_team.cu`` (built by ``_build``), with a plain PyTorch
+version beside it that repeats its arithmetic:
 
     wrapper               kernel                     plain version               replaces (columnflow/solvers/fused.py)
     ode_select            cf_ode_select              _ode_select_plain           _make_adaptive_kernel (B6;
@@ -16,8 +17,10 @@ beside it that repeats its arithmetic:
     ode_replay_fwd        cf_ode_replay_fwd          _ode_replay_fwd_plain       _make_replay_chunk_kernel (B7;
                           (cf_ode_replay_fwd_team)                               as a team, B7t-team: ``ode_fwd_route``;
                                                                                  route "team8": cf_ode_replay_fwd_team_team8)
-    ode_replay_bwd        cf_ode_replay_bwd          _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode (B8;
-                          (cf_ode_replay_bwd_team)                               as a team, B8t-team: ``ode_bwd_route``)
+    ode_replay_bwd        cf_ode_replay_bwd_ksweep   _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode (B8
+                          (cf_ode_replay_bwd,                                    and B8t-team: one cluster team for the
+                          cf_ode_replay_bwd_team)                                batch, ``ode_bwd_route``; routes "block"
+                                                                                 and "team8": the yardsticks)
     ode_replay_fwd_split2 cf_ode_replay_fwd_split2   _ode_replay_fwd_plain       _make_replay_chunk_kernel, split2
                                                                                  (route "team8": cf_ode_replay_fwd_split2_team8)
     ode_replay_bwd_split2 cf_ode_replay_bwd_split2   _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode,
@@ -48,11 +51,16 @@ the split2 tier at every width, the exact engine where its weights hold more
 than 1 MiB (from 64 columns with 4 inputs).
 
 Where a step does not fit one block (the replay's three-term weights from 24
-columns, the sweep's batch and weights from 18 columns at 4 lanes; at P =
-832 the three-term weights alone are 4.15 MB), the kernels spread each
-drift evaluation over a team of blocks (one thread-block cluster). The
-kernel-mode sweeps (B8t-team, B8s) keep the weights in global memory (L2),
-a team of 8 blocks for the batch. The selection (B6: one team for the
+columns; at P = 832 the three-term weights alone are 4.15 MB), the kernels
+spread each drift evaluation over a team of blocks (one thread-block
+cluster). The exact engine's kernel-mode sweep (B8 and B8t-team) is one
+cluster team of 16 (or 8) blocks for the batch at every width its plan
+takes (``ode_team_plan(..., KSWEEP)``: through 63 columns at 4 lanes), each
+block holding its columns of the split in shared memory and forming the
+weight cotangents of those columns (``ode_bwd_route``); the one-block B8
+(route "block") and the 8-block B8t-team (route "team8") stay as
+yardsticks. The two-term kernel-mode sweep (B8s) keeps the weights in
+global memory (L2), a team of 8 blocks for the batch. The selection (B6: one team for the
 batch, since one controller steers the whole (B, 3P) state), the replays
 (B7t-team, B7 split2: one team per lane) and the emit-mode sweep (B8',
 B8't: one team per lane) are clusters of 16 (or 8) blocks, each block
@@ -121,6 +129,7 @@ from columnflow_torch.solvers import rk
 # same numbers as literals.
 _SAFETY, _IFACTOR, _DFACTOR, _ORDER = 0.9, 10.0, 0.2, 5
 LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_bwd": 0,
+            "ode_replay_bwd_ksweep": 0,
             "ode_replay_fwd_split2": 0, "ode_replay_bwd_emit": 0, "ode_replay_fwd_team": 0,
             "ode_replay_bwd_team": 0, "ode_replay_bwd_emit_split3": 0, "ode_replay_bwd_split2": 0,
             "ode_select_team8": 0, "ode_attempt_team8": 0, "ode_replay_bwd_emit_team8": 0,
@@ -451,14 +460,19 @@ def ode_fwd_route(P: int, n_in: int) -> str:
 
 def ode_bwd_route(P: int, n_in: int, B: int, terms: int = 3) -> str:
     """Which kernel computes the kernel-mode sweep on the card, by shape
-    alone. On the three-term split (``terms`` 3, ``ode_replay_bwd``): "block"
+    alone. On the three-term split (``terms`` 3, ``ode_replay_bwd``):
+    "resident" or "streamed" (the cluster team for the batch,
+    ``cf_ode_replay_bwd_ksweep``, as ``ode_team_plan(P, n_in, B, 3,
+    KSWEEP)`` holds the weights) wherever that plan fits; elsewhere "block"
     (B8, ``cf_ode_replay_bwd``, the batch in one block) where its
     ``ode_block_bytes`` fit the 232,448 bytes of shared memory a block can
-    use, else "team" (B8t-team, ``cf_ode_replay_bwd_team``: the batch on
-    one team of 8 blocks, the weights streamed from L2). With 4 inputs and
-    4 lanes that is "block" through 17 columns (P = 136) and "team" from 18;
-    fewer lanes move the edge up, more move it down (16 lanes take the team
-    at 13 columns). On the two-term split (``terms`` 2,
+    use, else "team8" (B8t-team, ``cf_ode_replay_bwd_team``: the batch on one
+    team of 8 blocks, the weights from L2). With 4 inputs and 4 lanes the
+    team takes every width the exact engine runs in kernel mode (through 63
+    columns): "resident" through 50 columns and at the even widths past
+    them, "streamed" at the odd ones (clusters of 8); 16 lanes take the team
+    through 16 columns and at the even widths through 32, "team8" elsewhere.
+    On the two-term split (``terms`` 2,
     ``ode_replay_bwd_split2``) always "team" (B8s): there is no one-block
     two-term sweep, and the team runs at any P that is a multiple of 8 (13
     columns: 13 populations per block)."""
@@ -466,7 +480,10 @@ def ode_bwd_route(P: int, n_in: int, B: int, terms: int = 3) -> str:
         raise ValueError(f"terms must be 2 or 3, got {terms}")
     if terms == 2:
         return "team"
-    return "block" if ode_block_bytes(P, n_in, B, True) <= SMEM_BLOCK_BYTES else "team"
+    plan = ode_team_plan(P, n_in, B, 3, KSWEEP)
+    if plan.fits:
+        return "streamed" if plan.stream else "resident"
+    return "block" if ode_block_bytes(P, n_in, B, True) <= SMEM_BLOCK_BYTES else "team8"
 
 
 def ode_replay_fwd(y0, st, pw, sc: SDEConsts, kv, w3=None, route=None):
@@ -504,11 +521,34 @@ def _terms_and_transposes(w, terms):
     return ws + tuple(t.T.contiguous() for t in ws)
 
 
-def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv):
+ODE_BWD_ROUTES = ("resident", "streamed", "block", "team8")
+
+
+def _ksweep_route(route, P, n_in, B):
+    """(route, plan) of a kernel-mode sweep launch on the card: ``route`` or
+    the shape's default (``ode_bwd_route``); the plan None for "block" and
+    "team8". Raises where the team asked for does not take the shape."""
+    route = route or ode_bwd_route(P, n_in, B)
+    if route in ("block", "team8"):
+        return route, None
+    plan = ode_team_plan(P, n_in, B, 3, KSWEEP, stream=route == "streamed")
+    if not plan.fits or (route == "resident" and plan.stream):
+        raise ValueError(f"no {route} kernel-mode sweep team takes P={P} with {B} lanes "
+                         f"({'streamed' if plan.fits else 'block or team8'} does)")
+    return route, plan
+
+
+def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv, route=None):
     """The reverse sweep: ys (n, B, 3P) the step-start states, cobar (n, 5,
     B, 3P) the cotangents of the dense-output rows. Returns (ybar0 (B, 3P),
-    d wT (P, P), d iwT (n_in, P)). On the card B8 or B8t-team, as
-    ``ode_bwd_route`` decides by shape before the launch."""
+    d wT (P, P), d iwT (n_in, P)). On the card the cluster team for the
+    batch (``cf_ode_replay_bwd_ksweep``), or where its plan does not fit B8
+    or B8t-team, as ``ode_bwd_route`` decides by shape before the launch.
+    ``route`` (one of ``ODE_BWD_ROUTES``): "resident" or "streamed" runs the
+    cluster team so, "block" the one-block B8 and "team8" the 8-block
+    B8t-team (the yardsticks), at any shape they take."""
+    if route is not None and route not in ODE_BWD_ROUTES:
+        raise ValueError(f"route must be one of {ODE_BWD_ROUTES}, got {route!r}")
     n, B, S = ys.shape
     P, n_in = S // 3, kv.shape[2]
     named = {"ys": (ys, _F32, (n, B, S)), "cobar": (cobar, _F32, (n, 5, B, S)),
@@ -516,13 +556,29 @@ def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv):
              **_drift_named(sc, kv, B, P), **_replay_named(st, n)}
     if not _on_cuda(ys, named):
         return _ode_replay_bwd_plain(ys, cobar, st, _w3(pw, sc), sc, kv)
+    route, plan = _ksweep_route(route, P, n_in, B)
     dev = ys.device
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     d_wT = torch.empty((P, P), dtype=_F32, device=dev)
     d_iwT = torch.empty((n_in, P), dtype=_F32, device=dev)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
+    if plan is not None:
+        w3 = _w3_cuda(pw, sc)
+        wpk = ode_team_pack(w3, P, plan)
+        # the step's accumulators and d wT of each block's columns, where
+        # shared memory does not hold them
+        work = (None if plan.accs else
+                torch.empty((plan.C, plan.NT + 1, plan.nc, P), dtype=_F32, device=dev))
+        bg, adapt, kvp = _consts(sc, kv)
+        _check(_lib().cf_ode_replay_bwd_ksweep(
+            B, P, n_in, kv.shape[0], hc_p, n, int(plan.stream), bg, adapt, wpk.data_ptr(),
+            w3["iwT"].data_ptr(), kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),
+            ybar.data_ptr(), d_wT.data_ptr(), d_iwT.data_ptr(),
+            None if work is None else work.data_ptr(), _stream(ys)), "ode_replay_bwd_ksweep")
+        LAUNCHES["ode_replay_bwd_ksweep"] += 1
+        return ybar, d_wT, d_iwT
     dims, ptrs = _net_args(ys, pw, sc, kv)
-    if ode_bwd_route(P, n_in, B) == "block":
+    if route == "block":
         work = torch.empty((3, P, P), dtype=_F32, device=dev)  # the step's bf16 accumulators
         _check(_lib().cf_ode_replay_bwd(*dims, hc_p, n, *ptrs, st.data_ptr(), ys.data_ptr(),
                                         cobar.data_ptr(), ybar.data_ptr(), d_wT.data_ptr(),
@@ -579,17 +635,18 @@ def _w3_cuda(pw, sc: SDEConsts):
 ODE_TEAM_ROUTES = ("resident", "streamed", "team8")
 _T3_MAX_ITEMS = 2  # csrc/ode_team.cuh kT3MaxItems
 # The uses of a team's plan (csrc/ode_team.cuh kT3Select, kT3Sweep, kT3Replay,
-# kT3SdeSweep: the three-term SDE's emit-mode sweep, B4t).
-SELECT, SWEEP, REPLAY, SDE_SWEEP = 0, 1, 2, 3
+# kT3SdeSweep: the three-term SDE's emit-mode sweep, B4t; kT3KSweep: the
+# exact engine's kernel-mode sweep, B8 and B8t-team).
+SELECT, SWEEP, REPLAY, SDE_SWEEP, KSWEEP = 0, 1, 2, 3, 4
 # The uses whose drifts sum in the 8-block team's order and which may keep
 # the float32 wT as their slice (csrc/ode_team.cuh t3_chunked).
 _CHUNKED = (REPLAY, SDE_SWEEP)
 
 
 class ODETeamPlan(NamedTuple):
-    """The shape of a B6, B7t-team / B7 split2 or B8'/B8't team at P
-    populations (csrc/ode_team.cuh ``plan3``, which ``cf_ode_team_plan``
-    reports)."""
+    """The shape of a B6, B7t-team / B7 split2, B8'/B8't or kernel-mode
+    sweep team at P populations (csrc/ode_team.cuh ``plan3``, which
+    ``cf_ode_team_plan`` reports)."""
 
     C: int        # blocks per team: the cluster size
     nc: int       # populations each block owns
@@ -615,6 +672,8 @@ class ODETeamPlan(NamedTuple):
     fixed: int    # shared-memory bytes before the weights
     bytes: int    # shared-memory bytes of a block
     f32: bool     # the slice holds the float32 wT, split as it is read (``ode_replay_pack``)
+    accs: bool = False  # the kernel-mode sweep: the step's weight-cotangent accumulators and
+                        # the own columns' d wT in shared memory (else in device memory)
 
 
 def _t3_row_words(nc, NT, Lv, f32):
@@ -637,12 +696,78 @@ def _t3_chunks(P):
 
 
 def _t3_fixed(C, nc, NB, n_in, slot, slots, use, NT):
-    # the VJP's own cotangents, or the replays' chunk sums (G, NP, nc)
-    cvec = _align16(8 * (_t3_chunks(C * nc) * (6 if NT == 3 else 3) if use in _CHUNKED else 1)
-                    * nc)
+    # the VJP's own cotangents (the kernel-mode sweep's of NB lanes, double
+    # buffered), or the replays' chunk sums (G, NP, nc)
+    if use == KSWEEP:
+        cvec = _align16(8 * 2 * NB * nc)
+    else:
+        cvec = _align16(8 * (_t3_chunks(C * nc) * (6 if NT == 3 else 3) if use in _CHUNKED
+                             else 1) * nc)
     return (slots * slot + _align16(4 * NB * nc) + cvec + _align16(8 * NB * n_in)
             + _align16(4 * _MAX_KNOTS * NB * n_in) + _align16(4 * (n_in + 2) * nc)
             + _align16(8 * (_THREADS // 32 + 2 * C)) + _align16(8 * (1 + 2 * _T2_MAX_STAGES)))
+
+
+def _t3k_extra(NB, nc, P, n_in, NT, accs):
+    """The kernel-mode sweep's shared memory past ``_t3_fixed``
+    (csrc/ode_team.cuh ``t3k_extra``): the current's cotangent of the own
+    populations (double buffered), the step's d iwT sum and the own
+    columns' d iwT, and with ``accs`` the step's NT accumulators and the own
+    columns' d wT (P nc floats each)."""
+    return (_align16(4 * 2 * NB * nc) + _align16(4 * 2 * n_in * nc)
+            + (_align16(4 * (NT + 1) * P * nc) if accs else 0))
+
+
+def _ksweep_plan(P, n_in, NB, NT, stream):
+    """``ode_team_plan(..., KSWEEP)`` (csrc/ode_team.cuh ``plan3k``)."""
+    C = 16 if P % 16 == 0 else 8
+    nc = P // C
+    ipt = -(-NB * nc // _THREADS)
+    G8 = _t3_chunks(P)
+    groups = _THREADS // (G8 * nc)
+    lt = -(-NB // groups) if groups > 0 else _THREADS
+    LB = 1 if lt == 1 else 4
+    G = -(-NB // LB)
+    gw = -(-LB * NT // 2) * 2
+    xs = G * gw
+    Lv = 32
+    while Lv > 1 and _THREADS // Lv < P:
+        Lv //= 2
+    rw = _t3_row_words(nc, NT, Lv, False)
+    fits = NT == 3 and ipt == 1 and lt <= 4
+    np_ = 6 if NT == 3 else 3
+    slot = (_align16(max(4 * P * xs, 8 * P * NB))
+            + _align16(8 * NB * nc * max(NT * C, G8 * np_)))
+    row = 4 * rw
+    head = (C, nc, NT, NB, LB, G, gw, xs, 32 // Lv, Lv, rw, ipt)
+
+    def fixed(slots, accs):
+        return (_t3_fixed(C, nc, NB, n_in, slot, slots, KSWEEP, NT)
+                + _t3k_extra(NB, nc, P, n_in, NT, accs))
+
+    order = [(slots, accs) for slots in (2, 1) for accs in (True, False)]
+    if not stream:
+        for slots, accs in order:
+            f = fixed(slots, accs)
+            if f + row * P <= SMEM_BLOCK_BYTES:
+                return ODETeamPlan(*head, slots, False, P, 1, 1, fits, slot, f, f + row * P,
+                                   False, accs)
+    # Streamed: the first tile height from kThreads / Lv (one VJP pass a
+    # tile) down that leaves two stages.
+    r0 = max(_THREADS // Lv, _T2_MIN_TILE_ROWS)
+    for slots, accs in order:
+        f = fixed(slots, accs)
+        room = max(SMEM_BLOCK_BYTES - f, 0)
+        R = r0
+        while R >= 8:
+            T = -(-P // R)
+            S = min(_T2_MAX_STAGES, room // (row * R), T)
+            if S >= min(T, 2):
+                return ODETeamPlan(*head, slots, True, R, T, S, fits, slot, f,
+                                   f + row * R * S, False, accs)
+            R //= 2
+    f1 = fixed(1, False)
+    return ODETeamPlan(*head, 1, True, P, 1, 0, False, slot, f1, f1, False, False)
 
 
 def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
@@ -665,12 +790,29 @@ def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
     order, and the float32 wT where the bf16 terms would stream and it fits.
     ``fits`` is False where no tiling fits or a thread would own more than
     two (lane, population) items (16 lanes at 312 columns): the route is
-    then "team8"."""
+    then "team8".
+
+    KSWEEP: the exact engine's kernel-mode sweep (B8, B8t-team), NB lanes on
+    one cluster of C blocks (16 where 16 divides P, else 8; ``C`` must be
+    None), three terms only (the two-term B8s is not built on it), one item
+    a thread; the forward products in the replay's chunk order for LB lanes
+    a thread (1, or 4), the VJP's with Lv threads a row (the largest power of
+    two up to 32 with 512 / Lv rows covering P); two exchange slots and
+    ``accs`` (the weight-cotangent accumulators in shared memory) where they
+    fit, else one slot, else the accumulators in device memory; resident or
+    streamed as above. ``fits`` is False past one item or four lanes a
+    thread (``ode_bwd_route`` then takes "block" or "team8")."""
     use = int(use)
     if P <= 0 or P % 8:
         raise ValueError(f"P must be a positive multiple of 8, got {P}")
     if not 0 <= n_in <= _MAX_INPUTS:
         raise ValueError(f"n_in must lie in [0, {_MAX_INPUTS}], got {n_in}")
+    if use == KSWEEP:
+        if NT != 3 or NB < 1 or C is not None:
+            raise ValueError(f"the kernel-mode sweep's team takes three terms (the two-term "
+                             f"B8s is not built on it), NB >= 1 and the default cluster; got "
+                             f"NT={NT}, NB={NB}, C={C}")
+        return _ksweep_plan(P, n_in, NB, NT, bool(stream))
     if (use not in (SELECT, SWEEP, REPLAY, SDE_SWEEP) or NT not in (2, 3) or NB < 1
             or (use and NB != 1) or (use == SDE_SWEEP and NT != 3)):
         raise ValueError(f"no team takes NT={NT}, NB={NB}, use={use}")

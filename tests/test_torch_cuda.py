@@ -1068,7 +1068,7 @@ def test_sde3_team_plan_is_the_librarys(dev, columns):
     at least one cluster of each (``cf_sde3_max_clusters``)."""
     import ctypes
 
-    P, out = 8 * columns, (ctypes.c_longlong * 22)()
+    P, out = 8 * columns, (ctypes.c_longlong * 23)()
     for bwd in (False, True):
         for C in (8, 16):
             if P % C:
@@ -1350,24 +1350,26 @@ def test_ode_replay_kernels_equal_plain(ode):
 
 def test_ode_wrappers_raise_on_a_batch_too_large_for_one_block(ode):
     """Sixteen (B, 312) states and the split weights exceed one block's
-    shared memory: the sweep no longer raises but routes to B8t-team (one
-    team of 8 blocks for the batch), which equals the plain version bit for
-    bit."""
+    shared memory: the sweep no longer raises but routes to the cluster team
+    for the batch (its accumulators in device memory there), which equals
+    the plain version bit for bit."""
     d = ode
     B = 16
     kv = d["kv"][:, :1].expand(-1, B, -1).contiguous()
-    assert no.ode_bwd_route(d["P"], 4, B) == "team"
+    assert no.ode_block_bytes(d["P"], 4, B, True) > 232448
+    assert no.ode_bwd_route(d["P"], 4, B) == "resident"
+    assert not no.ode_team_plan(d["P"], 4, B, 3, no.KSWEEP).accs
     y0 = torch.zeros(B, 3 * d["P"], device=kv.device)
     st, stats = no.ode_select(y0, d["pw"], d["sc"], kv, d["cfg"])
     stn = st[:17].contiguous()
     ys, co = no.ode_replay_fwd(y0, stn, d["pw"], d["sc"], kv)
     cobar = torch.randn(co.shape, generator=torch.Generator(device=kv.device).manual_seed(3),
                         device=kv.device)
-    before = no.LAUNCHES["ode_replay_bwd_team"]
+    before = no.LAUNCHES["ode_replay_bwd_ksweep"]
     got = no.ode_replay_bwd(ys, cobar, stn, d["pw"], d["sc"], kv)
     want = no._ode_replay_bwd_plain(ys, cobar, stn, d["w3"], d["sc"], kv)
     torch.cuda.synchronize()
-    assert no.LAUNCHES["ode_replay_bwd_team"] == before + 1
+    assert no.LAUNCHES["ode_replay_bwd_ksweep"] == before + 1
     for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
         assert torch.isfinite(g).all() and torch.equal(g, w), name
 
@@ -1389,8 +1391,9 @@ def test_deterministic_parity_step_on_cuda_matches_cpu(dev):
     before = dict(no.LAUNCHES)
     rec, grads, params0, task = _ode_step(dev)
     torch.cuda.synchronize()
-    for k in ("ode_select", "ode_replay_fwd", "ode_replay_bwd"):
+    for k in ("ode_select", "ode_replay_fwd", "ode_replay_bwd_ksweep"):
         assert no.LAUNCHES[k] == before[k] + 1, k
+    assert no.LAUNCHES["ode_replay_bwd"] == before["ode_replay_bwd"]
     st = rec["stats"]
     assert bool(st.success) and bool(torch.isfinite(rec["loss"]))
     for k, g in grads.items():
@@ -1461,19 +1464,20 @@ def test_exact_replay_team_equals_plain(dev):
 
 @pytest.mark.parametrize("cpa", [(8, 6, 4), (16, 8, 8)])
 def test_exact_sweep_team_equals_plain(dev, cpa):
-    """B8t-team at 18 and 32 columns on 16 steps (ybar0, d wT and d iwT bit
-    for bit), and on an empty grid."""
+    """The kernel-mode sweep past one block (B8t-team's widths, now the
+    cluster team for the batch) at 18 and 32 columns on 16 steps (ybar0, d
+    wT and d iwT bit for bit), and on an empty grid."""
     d = _exact(dev, cpa)
-    assert no.ode_bwd_route(d["P"], 4, 4) == "team"
+    assert no.ode_bwd_route(d["P"], 4, 4) == "resident"
     stn = d["st"][:17].contiguous()
     ys, co = no._ode_replay_fwd_plain(d["y0"], stn, d["w3"], d["sc"], d["kv"])
     cobar = torch.randn(co.shape, generator=torch.Generator(device=dev).manual_seed(1),
                         device=dev)
-    before = no.LAUNCHES["ode_replay_bwd_team"]
+    before = no.LAUNCHES["ode_replay_bwd_ksweep"]
     got = no.ode_replay_bwd(ys.contiguous(), cobar, stn, d["pw"], d["sc"], d["kv"])
     want = no._ode_replay_bwd_plain(ys, cobar, stn, d["w3"], d["sc"], d["kv"])
     torch.cuda.synchronize()
-    assert no.LAUNCHES["ode_replay_bwd_team"] == before + 1
+    assert no.LAUNCHES["ode_replay_bwd_ksweep"] == before + 1
     for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
         assert torch.isfinite(g).all() and torch.equal(g, w), name
     ybar, d_wT, d_iwT = no.ode_replay_bwd(ys[:0].contiguous(), cobar[:0], stn[:1].contiguous(),
@@ -1513,11 +1517,12 @@ def _exact_step(dev, cpa, grid=None, params=None, T=50):
 
 
 @pytest.mark.parametrize("cpa,T,want", [
-    ((16, 8, 8), 50, {"ode_select": 1, "ode_replay_fwd_team": 1, "ode_replay_bwd_team": 1}),
+    ((16, 8, 8), 50, {"ode_select": 1, "ode_replay_fwd_team": 1, "ode_replay_bwd_ksweep": 1}),
     ((32, 24, 8), 25,
      {"ode_select": 1, "ode_replay_fwd_team": 1, "ode_replay_bwd_emit_split3": 1})])
 def test_exact_step_past_one_block_on_cuda_matches_cpu(dev, cpa, T, want):
-    """The deterministic step at 32 columns (kernel mode: B7t-team, B8t-team)
+    """The deterministic step at 32 columns (kernel mode: B7t-team, the
+    kernel-mode sweep's cluster team)
     over 50 points and 64 (outer mode: B7t-team, B8't, the outer pass) over
     25: one launch of each of its kernels and none of anything else; against
     the same step on the CPU on the card's grid, the loss within 1e-5 and
@@ -1574,9 +1579,12 @@ def test_exact_team_kernels_never_reach_the_plain_versions(dev, monkeypatch):
         torch.cuda.synchronize()
         assert bool(torch.isfinite(rec["loss"])), cpa
         launched = {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]}
-        # B6, and at 64 columns (outer mode) B7t-team and B8't, as cluster
-        # teams, once each; never team8
+        # B6, at 18 columns the kernel-mode sweep, and at 64 (outer mode)
+        # B7t-team and B8't, as cluster teams, once each; never team8
         assert launched["ode_select"] == 1 and not any(k.endswith("team8") for k in launched)
+        assert "ode_replay_bwd_team" not in launched and "ode_replay_bwd" not in launched
+        if cpa == (8, 6, 4):
+            assert launched["ode_replay_bwd_ksweep"] == 1
         if cpa == (32, 24, 8):
             assert launched["ode_replay_fwd_team"] == 1
             assert launched["ode_replay_bwd_emit_split3"] == 1
@@ -1728,20 +1736,108 @@ def test_ode_team_emit_sweep_equals_plain(dev, columns, terms):
             assert torch.isfinite(g).all() and torch.equal(g, ref), (route, what)
 
 
+# The kernel-mode sweep (B8 at 13-17 columns, B8t-team at 18-63) as one
+# cluster team for the batch (csrc/ode_ksweep_team.cu): (columns, lanes) ->
+# the accepted steps of its window
+KSWEEP_CASES = {(13, 4): 64, (17, 4): 32, (18, 4): 32, (32, 4): 32, (63, 4): 12, (13, 1): 32,
+                (13, 16): 16, (32, 16): 12}
+KSWEEP_CPA = {13: (8, 4, 1), 17: (8, 6, 3), 18: (8, 6, 4), 32: (16, 8, 8), 63: (32, 24, 7)}
+
+
+def _ksweep_window(dev, columns, B, W):
+    """The engine's inputs at a width and lane count, the kernel's own
+    selection over 60 grid points, the plain replay of its first W accepted
+    steps from the zero state, and random cotangents of the dense rows."""
+    from columnflow_torch.data import parity_combinations
+    from columnflow_torch.solvers.fused import round_max_steps
+
+    task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
+                             columns_per_area=KSWEEP_CPA[columns], n_inputs=4, time_steps=60,
+                             max_steps=16384, device=dev)
+    stims = torch.as_tensor(parity_combinations(4, fixed_position=False), device=dev)
+    stims = stims[torch.arange(B, device=dev) % stims.shape[0]]
+    model = parity.sde_model(task.params, task, stims)
+    pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
+    sc, kv, P = model.sc, model.kv.contiguous(), task.net.num_pops
+    y0 = torch.zeros(B, 3 * P, device=dev)
+    cfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]),
+                             max_steps=round_max_steps((B, 3 * P), 16384))
+    st, stats = no.ode_select(y0, pw, sc, kv, cfg)
+    W = min(W, int(stats[0]))
+    stn = st[:W + 1].contiguous()
+    w3 = no._w3(pw, sc)
+    ys, co = no._ode_replay_fwd_plain(y0, stn, w3, sc, kv)
+    gen = torch.Generator(device=dev).manual_seed(columns * 100 + B)
+    cobar = torch.randn(co.shape, generator=gen, device=dev)
+    return dict(pw=pw, sc=sc, kv=kv, P=P, w3=w3, ys=ys.contiguous(), cobar=cobar, stn=stn)
+
+
+@pytest.mark.parametrize("columns,B", sorted(KSWEEP_CASES))
+def test_ksweep_team_equals_plain_and_the_yardsticks(dev, columns, B):
+    """The kernel-mode sweep's cluster team at 13, 17, 18, 32 and 63
+    columns, 1, 4 and 16 lanes, on every route its plan admits (resident
+    where the slice fits, streamed always): ybar0, d wT and d iwT bit for
+    bit against the plain version and against the kernels it replaces on
+    the shape (B8, route "block", where one block holds the batch;
+    B8t-team, route "team8"); one launch of the team a sweep and none of
+    the others."""
+    d = _ksweep_window(dev, columns, B, KSWEEP_CASES[columns, B])
+    P = d["P"]
+    plan = no.ode_team_plan(P, 4, B, 3, no.KSWEEP)
+    assert plan.fits and no.ode_bwd_route(P, 4, B) == ("streamed" if plan.stream else "resident")
+    args = (d["ys"], d["cobar"], d["stn"], d["pw"], d["sc"], d["kv"])
+    want = no._ode_replay_bwd_plain(d["ys"], d["cobar"], d["stn"], d["w3"], d["sc"], d["kv"])
+    for route in [None] + ([] if plan.stream else ["resident"]) + ["streamed"]:
+        before = dict(no.LAUNCHES)
+        got = no.ode_replay_bwd(*args, route=route)
+        torch.cuda.synchronize()
+        launched = {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]}
+        assert launched == {"ode_replay_bwd_ksweep": 1}, (route, launched)
+        for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
+            assert torch.isfinite(g).all() and torch.equal(g, w), (route, name)
+    yardsticks = ["team8"] + (["block"] if no.ode_block_bytes(P, 4, B, True) <= 232448 else [])
+    for route in yardsticks:
+        key = "ode_replay_bwd" if route == "block" else "ode_replay_bwd_team"
+        before = no.LAUNCHES[key]
+        old = no.ode_replay_bwd(*args, route=route)
+        torch.cuda.synchronize()
+        assert no.LAUNCHES[key] == before + 1, route
+        for g, w, name in zip(got, old, ("ybar", "d_wT", "d_iwT")):
+            assert torch.equal(g, w), (route, name)
+
+
+def test_ksweep_routes_refuse_what_they_do_not_take(dev):
+    """A resident team where the plan streams (63 columns at 4 lanes)
+    raises before the launch; where the plan does not fit (17 columns at 16
+    lanes) the route is B8t-team's; the empty grid gives zeros."""
+    d = _ksweep_window(dev, 63, 4, 2)
+    with pytest.raises(ValueError, match="resident"):
+        no.ode_replay_bwd(d["ys"], d["cobar"], d["stn"], d["pw"], d["sc"], d["kv"],
+                          route="resident")
+    assert no.ode_bwd_route(8 * 17, 4, 16) == "team8"
+    ybar, d_wT, d_iwT = no.ode_replay_bwd(d["ys"][:0].contiguous(), d["cobar"][:0],
+                                          d["stn"][:1].contiguous(), d["pw"], d["sc"], d["kv"])
+    torch.cuda.synchronize()
+    assert not bool(ybar.any()) and not bool(d_wT.any()) and not bool(d_iwT.any())
+
+
 @pytest.mark.parametrize("columns", [13, 18, 32, 63, 104, 151, 312])
 def test_ode_team_plan_is_the_librarys(dev, columns):
-    """``ode_team_plan``, which the wrappers and ``ode_team_route`` read,
-    equals the plan the library launches with (``cf_ode_team_plan``) for the
-    selection's 1, 4 and 16 lanes and the sweep's two and three terms."""
+    """``ode_team_plan``, which the wrappers, ``ode_team_route`` and
+    ``ode_bwd_route`` read, equals the plan the library launches with
+    (``cf_ode_team_plan``) for the selection's 1, 4 and 16 lanes, the
+    emit-mode sweep's two and three terms and the kernel-mode sweep's 1, 4
+    and 16 lanes."""
     import ctypes
 
-    P, out = 8 * columns, (ctypes.c_longlong * 22)()
-    for NB, NT, sweep in ((1, 3, False), (4, 3, False), (16, 3, False), (1, 2, True),
-                          (1, 3, True)):
+    P, out = 8 * columns, (ctypes.c_longlong * 23)()
+    for NB, NT, use in ((1, 3, no.SELECT), (4, 3, no.SELECT), (16, 3, no.SELECT),
+                        (1, 2, no.SWEEP), (1, 3, no.SWEEP), (1, 3, no.KSWEEP),
+                        (4, 3, no.KSWEEP), (16, 3, no.KSWEEP)):
         for stream in (False, True):
-            assert no._lib().cf_ode_team_plan(P, 4, NB, NT, int(sweep), 0, int(stream), out) == 0
-            want = tuple(int(v) for v in no.ode_team_plan(P, 4, NB, NT, sweep, stream))
-            assert tuple(out) == want, (NB, NT, sweep, stream)
+            assert no._lib().cf_ode_team_plan(P, 4, NB, NT, use, 0, int(stream), out) == 0
+            want = tuple(int(v) for v in no.ode_team_plan(P, 4, NB, NT, use, stream))
+            assert tuple(out) == want, (NB, NT, use, stream)
 
 
 @pytest.mark.parametrize("columns", [13, 24, 32, 63, 94, 104, 106, 151, 312])
@@ -1753,7 +1849,7 @@ def test_ode_replay_plan_is_the_librarys(dev, columns):
     cluster of each (``cf_ode_replay_max_clusters``)."""
     import ctypes
 
-    P, out = 8 * columns, (ctypes.c_longlong * 22)()
+    P, out = 8 * columns, (ctypes.c_longlong * 23)()
     for NT in (2, 3):
         for C in (8, 16):
             if P % C:

@@ -386,15 +386,28 @@ def test_train_step_matches_jax_outer_train_step(setup, outer, monkeypatch):
     (64, 4, "team", "team"), (104, 4, "team", "team"), (312, 4, "team", "team"),
     (13, 16, "block", "team")])
 def test_routes_follow_the_byte_count(columns, B, fwd, bwd):
-    """``ode_fwd_route`` and ``ode_bwd_route`` take the one-block kernels
-    (B7, B8) where their shared memory fits the 232,448 bytes a block may
-    use, else the teams (B7t-team, B8t-team): the replay one block through
-    23 columns at 4 inputs, the sweep through 17 at 4 lanes; 16 lanes take
-    the team at 13 columns. ``tests/test_torch_cuda.py`` holds
-    ``ode_block_bytes`` against the library's own count."""
+    """``ode_fwd_route`` takes the one-block replay (B7) where its shared
+    memory fits the 232,448 bytes a block may use, else the team (B7t-team):
+    one block through 23 columns at 4 inputs. The one-block sweep (B8) fits
+    through 17 columns at 4 lanes (``bwd``: "block" there, "team" past it;
+    16 lanes leave it at 13 columns), but ``ode_bwd_route`` now takes the
+    cluster team for the batch wherever its plan fits (every width through
+    63 columns at 4 lanes, and 13 columns at 16), and the byte count picks
+    between B8 and the 8-block B8t-team only where that plan does not fit.
+    ``tests/test_torch_cuda.py`` holds ``ode_block_bytes`` against the
+    library's own count."""
     P, n_in = 8 * columns, 4
     assert no.ode_fwd_route(P, n_in) == fwd
-    assert no.ode_bwd_route(P, n_in, B) == bwd
+    one_block = no.ode_block_bytes(P, n_in, B, True) <= 232448
+    assert ("block" if one_block else "team") == bwd
+    plan = no.ode_team_plan(P, n_in, B, 3, no.KSWEEP)
+    if plan.fits:
+        want = "streamed" if plan.stream else "resident"
+    else:
+        want = "block" if one_block else "team8"
+    assert no.ode_bwd_route(P, n_in, B) == want
+    if columns <= 63 or (columns, B) == (13, 16):
+        assert want in ("resident", "streamed")
 
 
 def test_split3_emit_wrapper_checks_its_tensors(setup):
