@@ -382,6 +382,7 @@ SDE_SOURCE = "columnflow_torch/kernels/csrc/network_sde.cu"
 TEAM2_SOURCE = "columnflow_torch/kernels/csrc/replay2_team.cuh"  # B3, B4: cluster teams
 # B3t-team, B4t: cluster teams per lane on ode_team.cuh
 SDE3_TEAM_SOURCE = "columnflow_torch/kernels/csrc/sde3_replay_team.cu"
+SDE3_KSWEEP_SOURCE = "columnflow_torch/kernels/csrc/sde3_ksweep_team.cu"
 # Every window on which B3 and B4 are held against their plain versions, by
 # width: (max abs error, bit for bit, differing elements); the kernels line
 # reports the largest error over all of them.
@@ -420,6 +421,7 @@ ODE_SOURCE = "columnflow_torch/kernels/csrc/network_ode.cu"
 # B6, B7t-team, B7 split2, B8', B8't and the kernel-mode sweep (B8, B8t-team)
 # as cluster teams (csrc/ode_team.cuh) have sources of their own.
 ODE_KSWEEP_SOURCE = "columnflow_torch/kernels/csrc/ode_ksweep_team.cu"
+ODE_KSWEEP2_SOURCE = "columnflow_torch/kernels/csrc/ode_ksweep2_team.cu"
 ODE_TEAM_SOURCES = {"ode_select": "columnflow_torch/kernels/csrc/ode_select_team.cu",
                     "ode_replay_bwd": ODE_KSWEEP_SOURCE, "ode_replay_bwd_team": ODE_KSWEEP_SOURCE,
                     "ode_replay_fwd_team": "columnflow_torch/kernels/csrc/ode_replay_team.cu",
@@ -743,13 +745,15 @@ def team_routes(run, serial, plan_route):
 
 
 def sweep_routes(run, serial, route, yardstick):
-    """The kernel-mode sweep's cluster team (csrc/ode_ksweep_team.cu) on the
+    """A kernel-mode sweep's cluster team for the batch (B8 and B8t-team:
+    csrc/ode_ksweep_team.cu; B8s: csrc/ode_ksweep2_team.cu; B4't:
+    csrc/sde3_ksweep_team.cu) on the
     shape's route, on "streamed" where that is "resident", and the kernel it
-    replaced on the shape (``yardstick``: "block", B8's one block, or
-    "team8", B8t-team) on the same call: CUDA-event ms of ``run(route)`` and
-    us per accepted step; every route's ybar0, d wT and d iwT must equal the
-    team's on its own route bit for bit (the elements that part are
-    counted)."""
+    replaced on the shape (``yardstick``: "block", B8's or B4't's one block,
+    or "team8", B8t-team's or B8s's 8-block team) on the same call:
+    CUDA-event ms of ``run(route)`` and us per serial step (accepted or
+    half step); every route's ybar, d wT and d iwT must equal the team's on
+    its own route bit for bit (the elements that part are counted)."""
     import torch
 
     ref = run(route)
@@ -1836,7 +1840,8 @@ def ode_phases(dev, cfg):
     sweep = {"kernel": "ode_ksweep16_kernel (cf_ode_replay_bwd_ksweep): one cluster team "
                        "for the batch", "launch_key": "ode_replay_bwd_ksweep",
              "weights": bwd_routes["weights"],
-             "registers": ptxas_of("ode_ksweep16_kernel"), "team_routes": bwd_routes}
+             "registers": {k: v for k, v in ptxas_of("ode_ksweep16_kernel").items()
+                           if k.startswith("<3,")}, "team_routes": bwd_routes}
     return [{"name": name, "route": "cuda", "source": ODE_TEAM_SOURCES.get(name, ODE_SOURCE),
              "replaces": replaces[name],
              "launches": main_launches["ode_replay_bwd_ksweep" if name == "ode_replay_bwd"
@@ -3360,8 +3365,9 @@ def sde3_bound(kernel, P, B, n_in, K, steps, n):
 
 def stochastic13_phases(dev, cfg):
     """Phases 24-27: the fixed-grid SDE step and the XLA selection's
-    adaptive step at 13 columns; returns their kernels' entries of the
-    kernels line."""
+    adaptive step at 13 columns (B3t; B4't as one cluster team for the
+    batch, held against its plain version and the one block it replaced);
+    returns their kernels' entries of the kernels line."""
     import torch
 
     from columnflow_torch.data import make_parity_batch
@@ -3466,7 +3472,23 @@ def stochastic13_phases(dev, cfg):
     same["sde_attempt_jax_f32"] = equal(att, att_p)
     check(same["sde_attempt_jax_f32"], "jax-tree attempts (f32) against the plain body")
 
-    # The reverse sweep on windows early, in the middle and late of the replay.
+    # The reverse sweep on windows early, in the middle and late of the replay:
+    # B4't's cluster team (the shape's route) against its plain version and
+    # against the one block it replaced (route "block", the yardstick), the
+    # elements that part from the yardstick counted.
+    check(ns.sde3_bwd_route(P, n_in, B) == "resident",
+          f"{sum(S13_CPA)} columns: B4't route {ns.sde3_bwd_route(P, n_in, B)}")
+    parted_block = {"sde3_bwd_lanes": [], "sde3_bwd_uniform": []}
+    new_check_s = [0.0]  # the seconds these yardstick checks and route timings add
+
+    def against_block(name, got, bwd):
+        t_c = time.perf_counter()
+        old = ns.replay3_bwd(*bwd, route="block")
+        parted = [int((g != o).sum()) for g, o in zip(got, old)]
+        parted_block[name].append(parted)
+        check(not any(parted), f"{name}: the team parts from route block: {parted} elements")
+        new_check_s[0] += time.perf_counter() - t_c
+
     chunk = sweep_chunk((B, S), lanes_grid[0].shape[0])
     errs["sde3_bwd_lanes"], same["sde3_bwd_lanes"], bwd_lanes_plain = 0.0, True, []
     for k0 in (0, (n_real // 2) & ~1, n_real - S13_W):
@@ -3475,6 +3497,7 @@ def stochastic13_phases(dev, cfg):
         bwd = (ys_l[k0:k0 + S13_W].contiguous(), ysbar, win[0], win[1], win[3], S13_W, 0,
                chunk, pw, model.sc, model.kv)
         got = ns.replay3_bwd(*bwd)
+        against_block("sde3_bwd_lanes", got, bwd)
         want, ms = timed(lambda: ns._replay3_bwd_plain(*bwd))
         bwd_lanes_plain.append(ms)
         errs["sde3_bwd_lanes"] = max(errs["sde3_bwd_lanes"],
@@ -3502,6 +3525,7 @@ def stochastic13_phases(dev, cfg):
     bwd_w = (ys_u[:-1].contiguous(), ysbar_u[:Wu].contiguous(), t0u[:Wu], hs_u[:Wu], i10u[:Wu],
              Wu, 0, sweep_chunk((B, S), Wu), pw, model.sc, model.kv)
     got_u = ns.replay3_bwd(*bwd_w)
+    against_block("sde3_bwd_uniform", got_u, bwd_w)
     want_u, plain_ms["sde3_bwd_uniform"] = timed(lambda: ns._replay3_bwd_plain(*bwd_w))
     errs["sde3_fwd_uniform"] = float((ys_u - ys_up).abs().max())
     errs["sde3_bwd_uniform"] = max(float((g - w).abs().max()) for g, w in zip(got_u, want_u))
@@ -3516,7 +3540,7 @@ def stochastic13_phases(dev, cfg):
                                              "short_naccept": sel_k[1].tolist(),
                                              "short_nreject": sel_k[2].tolist()},
          attempts=N, sweep_windows=S13_W, chunk=chunk, bit_for_bit=same, max_abs_err=errs,
-         plain_ms=plain_ms)
+         plain_ms=plain_ms, sde3_bwd_parted_from_block=parted_block)
 
     # -- 25. main path: 3 fixed-grid and 3 adaptive train steps --------------------
     history, main_launches, first, step_s = {}, {}, {}, {}
@@ -3537,7 +3561,7 @@ def stochastic13_phases(dev, cfg):
             step_s[name].append(ms / 1e3)
             launched = {k: ns.LAUNCHES[k] - before[k] for k in ns.LAUNCHES
                         if ns.LAUNCHES[k] != before[k]}
-            want = {"sde3_fwd": 1, "sde3_bwd": 1}
+            want = {"sde3_fwd": 1, "sde3_bwd_ksweep": 1}
             if keys_i is not None:
                 want["sde_select"] = 1
             check(launched == want, f"{name} step {i}: launches {launched}")
@@ -3629,8 +3653,27 @@ def stochastic13_phases(dev, cfg):
               "sde3_bwd_uniform": sde3_bound("sde3_bwd", P, B, n_in, K, B * n_u, n_u)}
     plain_ms["sde_select_jax_f32_at"] = f"{BENCH_SEL_T} grid points"
     plain_ms["sde3_bwd_lanes_at"] = f"{S13_W} half steps"
+    # B4't's cluster team against the one block it replaced on ROUTE_W-step
+    # windows: the middle of the lanes grid, the start of the uniform grid
+    t_c = time.perf_counter()
+    kr = max(0, (n_real // 2 - ROUTE_W // 2) & ~1)
+    w_r = min(ROUTE_W, n_real - kr)
+    bwd_r = (ys_l[kr:kr + w_r].contiguous(), ysbar_l[kr:kr + w_r].contiguous(),
+             *(lanes_grid[i][kr:kr + w_r].contiguous() for i in (0, 1, 3)), w_r, 0,
+             sweep_chunk((B, S), w_r), pw, model.sc, model.kv)
+    w_u = min(ROUTE_W, n_u)
+    bwd_ru = (ys_full[:w_u].contiguous(), ysbar_u[:w_u].contiguous(), t0u[:w_u], hs_u[:w_u],
+              i10u[:w_u], w_u, 0, sweep_chunk((B, S), w_u), pw, model.sc, model.kv)
+    route13 = ns.sde3_bwd_route(P, n_in, B)
+    b4t_routes = {
+        "lanes": {"steps": w_r, "start": kr, **sweep_routes(
+            lambda r: ns.replay3_bwd(*bwd_r, route=r), w_r, route13, "block")},
+        "uniform": {"steps": w_u, "start": 0, **sweep_routes(
+            lambda r: ns.replay3_bwd(*bwd_ru, route=r), w_u, route13, "block")}}
+    new_check_s[0] += time.perf_counter() - t_c
+    b4t_routes["seconds_of_the_yardstick_checks_and_route_timings"] = new_check_s[0]
     emit("stochastic13_kernel_times", lanes=B, T=S13_T, attempts=attempts,
-         real_half_steps=real_steps, ms=times, plain_ms=plain_ms,
+         team_routes=b4t_routes, real_half_steps=real_steps, ms=times, plain_ms=plain_ms,
          ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
          bound_ms={k: v[0] for k, v in bounds.items()},
          bound_by={k: v[1] for k, v in bounds.items()})
@@ -3666,9 +3709,9 @@ def stochastic13_phases(dev, cfg):
 
     launches = {"sde_select_jax_f32": main_launches["xla_selection"]["sde_select"],
                 "sde3_fwd_lanes": main_launches["xla_selection"]["sde3_fwd"],
-                "sde3_bwd_lanes": main_launches["xla_selection"]["sde3_bwd"],
+                "sde3_bwd_lanes": main_launches["xla_selection"]["sde3_bwd_ksweep"],
                 "sde3_fwd_uniform": main_launches["fixed_grid"]["sde3_fwd"],
-                "sde3_bwd_uniform": main_launches["fixed_grid"]["sde3_bwd"]}
+                "sde3_bwd_uniform": main_launches["fixed_grid"]["sde3_bwd_ksweep"]}
     paths = {"sde_select_jax_f32": "parity13 --stochastic --adaptive",
              "sde3_fwd_lanes": "parity13 --stochastic --adaptive",
              "sde3_bwd_lanes": "parity13 --stochastic --adaptive",
@@ -3678,11 +3721,24 @@ def stochastic13_phases(dev, cfg):
                 "sde3_bwd_lanes": "columnflow/solvers/fused.py:920",
                 "sde3_fwd_uniform": "columnflow/solvers/fused.py:845",
                 "sde3_bwd_uniform": "columnflow/solvers/fused.py:920"}
-    return [{"name": name, "route": "cuda", "source": SDE_SOURCE, "replaces": replaces[name],
+    registers = ptxas_of("sde3_ksweep16_kernel")
+
+    def b4t(name):  # B4't's cluster team: its kernel, launch key, registers, routes
+        if not name.startswith("sde3_bwd"):
+            return {}
+        grid = "lanes" if name.endswith("lanes") else "uniform"
+        return {"kernel": "sde3_ksweep16_kernel (cf_sde3_bwd_ksweep): one cluster team for the "
+                          "batch", "launch_key": "sde3_bwd_ksweep", "weights": route13,
+                "registers": registers, "team_routes": b4t_routes[grid],
+                "parted_from_block": parted_block[name]}
+
+    return [{"name": name, "route": "cuda",
+             "source": SDE3_KSWEEP_SOURCE if name.startswith("sde3_bwd") else SDE_SOURCE,
+             "replaces": replaces[name],
              "launches": launches[name], "max_abs_err": errs[name], "ms": times[name],
              "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": paths[name],
-             "bit_for_bit": same[name],
+             "bit_for_bit": same[name], **b4t(name),
              "ns_per_serial_step": times[name] * 1e6 / serial[name],
              **({"plain_ms_at": f"{S13_W} half steps"} if name == "sde3_fwd_lanes" else {}),
              **({"plain_ms_at": f"the first {S13_UNIFORM_W} steps"} if "uniform" in name
@@ -4479,13 +4535,8 @@ def exact104_phases(dev, cfg):
     win = tuple(x[k0:k0 + w_n].contiguous() for x in grid13)
     bwd = (ys13[k0:k0 + w_n].contiguous(), torch.randn(w_n, B, 3 * P13, generator=gen, device=dev),
            win[0], win[1], win[3], w_n, 16, 10, pw13, model13.sc, model13.kv)
-    by_shape = ns.sde3_bwd_route
-    ns.sde3_bwd_route = lambda *a: "team"  # both fit at 13 columns: force the team
-    try:
-        team13 = ns.replay3_bwd(*bwd)
-    finally:
-        ns.sde3_bwd_route = by_shape
-    compare("sde3_bwd_team", team13, ns.replay3_bwd(*bwd))
+    team13 = ns.replay3_bwd(*bwd, route="team")  # every sweep fits at 13 columns
+    compare("sde3_bwd_team", team13, ns.replay3_bwd(*bwd, route="block"))
     compare("sde3_bwd_team", team13, ns._replay3_bwd_plain(*bwd))
     emit("exact104_team_routes", sde3_fwd_team_32={
         "start": team_windows[sum(EX_32_CPA)]["uniform_start"], "steps": EX_W,
@@ -5207,7 +5258,8 @@ def exactode_phases(dev, cfg, frozen):
              **({"kernel": "ode_ksweep16_kernel (cf_ode_replay_bwd_ksweep): one cluster team "
                            "for the batch", "launch_key": "ode_replay_bwd_ksweep",
                  "weights": routes[name]["weights"],
-                 "registers": ptxas_of("ode_ksweep16_kernel"),
+                 "registers": {k: v for k, v in ptxas_of("ode_ksweep16_kernel").items()
+                               if k.startswith("<3,")},
                  "bit_for_bit_with_team8": same["ode_replay_bwd_team_vs_team8"]}
                 if name == "ode_replay_bwd_team" else {})}
             for name, (rep, path) in entries.items()]
@@ -5263,7 +5315,9 @@ def split2_kernel_bound(kernel, P, B, n_in, K, work, n=0):
 
 def split2kernel_phases(dev, cfg):
     """Phases 52-56: the two-term split with its exact weight gradients:
-    B8s (the deterministic fused-split2 tier in kernel mode), B4s (the
+    B8s (the deterministic fused-split2 tier in kernel mode: the kernel-mode
+    sweep's cluster team on two terms, held against its plain version and
+    the 8-block team it replaced), B4s (the
     stochastic-adaptive split2 replay in kernel mode) and the exact split2
     outer pass (from 64 columns); returns the entries of B8s and B4s."""
     import torch
@@ -5321,7 +5375,7 @@ def split2kernel_phases(dev, cfg):
     # -- 52. kernel vs plain, bit for bit: B7 split2 and B8s on the deterministic
     # selection's grid, B3 and B4s on the f32 jax-tree selection's lanes grid, at
     # 13, 32 and 63 columns (three windows at 32, the main path's width) -------------
-    accepted = {}
+    accepted, b8s_check_s = {}, 0.0  # b8s_check_s: the seconds B8s's new checks add
     for cpa in S2K_WIN_CPA:
         cols = sum(cpa)
         task = make_task(cpa, S2K_SEL_T)
@@ -5331,7 +5385,7 @@ def split2kernel_phases(dev, cfg):
         sc, kv, P = model.sc, model.kv.contiguous(), task.net.num_pops
         w2 = w2_of(pw, sc)
         y0 = torch.zeros(B, 3 * P, device=dev)
-        check(no.ode_bwd_route(P, n_in, B, terms=2) == "team"
+        check(no.ode_bwd_route(P, n_in, B, terms=2) == "resident"
               and ns.sde3_bwd_route(P, n_in, B, terms=2) == "team", f"{cols} columns: routes")
         scfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]),
                                   max_steps=sf.round_max_steps((B, 3 * P), EO_MAX_STEPS))
@@ -5353,8 +5407,17 @@ def split2kernel_phases(dev, cfg):
             got, kern = timed(lambda: no.ode_replay_bwd_split2(ysw, cob, stw, w2, sc, kv))
             want, pl_ms = timed(lambda: no._ode_replay_bwd_plain(ysw, cob, stw, w2, sc, kv))
             compare("ode_replay_bwd_split2", got, want)
+            # B8s's cluster team against the 8-block team it replaced (the
+            # yardstick): the elements that part are counted
+            t_c = time.perf_counter()
+            old = no.ode_replay_bwd_split2(ysw, cob, stw, w2, sc, kv, route="team8")
+            parted = [int((g != o).sum()) for g, o in zip(got, old)]
+            check(not any(parted), f"B8s at {cols} columns, window {k0}: the team parts "
+                                   f"from team8: {parted} elements")
+            b8s_check_s += time.perf_counter() - t_c
             windows["ode_replay_bwd_split2"].setdefault(cols, []).append(
-                {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
+                {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms,
+                 "parted_from_team8": parted})
         # The stochastic replay: the f32 selection on the jax.random tree, its
         # lanes grid, B3 over the whole grid, B4s on windows of it.
         keys = torch.randint(0, 2**32, (B, 2), generator=gen, device=dev, dtype=torch.int64)
@@ -5454,7 +5517,7 @@ def split2kernel_phases(dev, cfg):
     paths = {
         "deterministic_32": (S2K_32_CPA, EO_T, EO_MAX_STEPS, dict(split2=True),
                              {"ode_select": 1, "ode_replay_fwd_split2": 1,
-                              "ode_replay_bwd_split2": 1}),
+                              "ode_replay_bwd_split2_ksweep": 1}),
         "adaptive_32": (S2K_32_CPA, EO_T, S13_MAX_STEPS,
                         dict(stochastic=True, adaptive=True, split2=True),
                         {"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd": 1}),
@@ -5600,6 +5663,32 @@ def split2kernel_phases(dev, cfg):
         "sde_replay_bwd_104": sde_bound("sde_replay_bwd", P104, B, n_in, K, real104, n_a104),
         "sde_select_jax_f32_104": jax_select_bound(P104, B, n_in, K, att104, PARITY_MAX_STEPS,
                                                    True)}
+    # B8s's cluster team against the 8-block team it replaced (route "team8",
+    # the yardstick) on a ROUTE_W-step window in the middle of the 32-column
+    # step's grid (its own generator: the phase's later draws stay as they were)
+    t_c = time.perf_counter()
+    gen_r = torch.Generator(device=dev).manual_seed(37)
+    params_r, stims_r, _ = firsts["deterministic_32"]
+    task_r = make_task(S2K_32_CPA, params=params_r)
+    model_r = parity.sde_model(task_r.params, task_r, stims_r)
+    pw_r = {k: v.detach().contiguous() for k, v in model_r.pw.items()}
+    sc_r, kv_r = model_r.sc, model_r.kv.contiguous()
+    w2_r, y0_r = w2_of(pw_r, sc_r), torch.zeros(B, 3 * P32, device=dev)
+    st_r, stats_r = no.ode_select(y0_r, pw_r, sc_r, kv_r, no.ODESelectConfig(
+        float(task_r.ts[0]), float(task_r.ts[-1]),
+        max_steps=sf.round_max_steps((B, 3 * P32), EO_MAX_STEPS)))
+    n_r = int(stats_r[0])
+    kr = max(0, min(n_r - ROUTE_W, n_r // 2))
+    W_r = min(ROUTE_W, n_r - kr)
+    ys_r, _ = no.ode_replay_fwd_split2(y0_r, st_r[:kr + W_r + 1].contiguous(), w2_r, sc_r, kv_r)
+    str_, ysr = st_r[kr:kr + W_r + 1].contiguous(), ys_r[kr:kr + W_r].contiguous()
+    cobr = torch.randn(W_r, 5, B, 3 * P32, generator=gen_r, device=dev)
+    b8s_routes = {"steps": W_r, "start": kr, **sweep_routes(
+        lambda r: no.ode_replay_bwd_split2(ysr, cobr, str_, w2_r, sc_r, kv_r, route=r), W_r,
+        no.ode_bwd_route(P32, n_in, B, terms=2), "team8")}
+    del task_r, model_r, ys_r
+    b8s_routes["seconds_of_the_yardstick_checks_and_route_timings"] = (
+        b8s_check_s + time.perf_counter() - t_c)
     profiles = {}
     for name, (cpa, T, max_steps, flags, _) in paths.items():
         T_p = min(T, SHORT_T)
@@ -5615,6 +5704,7 @@ def split2kernel_phases(dev, cfg):
             "idle_share": 1.0 - busy / short_ms if busy else "not measured",
             "top_ms_per_step": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])}
     emit("split2kernel_times", lanes=B, ms=times,
+         team_routes={"ode_replay_bwd_split2": b8s_routes},
          ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
          serial_steps=serial, bound_ms={k: v[0] for k, v in bounds.items()},
          bound_by={k: v[1] for k, v in bounds.items()}, plain_ms=plain_ms,
@@ -5637,20 +5727,30 @@ def split2kernel_phases(dev, cfg):
                            finite=True, reach=reach)
 
     entries = {
-        "ode_replay_bwd_split2": (ODE_SOURCE, "columnflow/solvers/fused.py:327",
+        "ode_replay_bwd_split2": (ODE_KSWEEP2_SOURCE, "columnflow/solvers/fused.py:327",
                                   "deterministic fused-split2, 32 columns (kernel mode)",
-                                  main["deterministic_32"]["launches"]),
+                                  main["deterministic_32"]["launches"],
+                                  "ode_replay_bwd_split2_ksweep"),
         "sde2_bwd": (SDE_SOURCE, "columnflow/solvers/fused.py:920",
                      "parity32 --stochastic --adaptive --engine fused-split2 (kernel mode)",
-                     main["adaptive_32"]["launches"]),
+                     main["adaptive_32"]["launches"], "sde2_bwd"),
     }
+    b8s = {"kernel": "ode_ksweep16_kernel<2, *, *> (cf_ode_replay_bwd_split2_ksweep): one "
+                     "cluster team for the batch on the two-term split",
+           "launch_key": "ode_replay_bwd_split2_ksweep", "weights": b8s_routes["weights"],
+           "registers": {k: v for k, v in ptxas_of("ode_ksweep16_kernel").items()
+                         if k.startswith("<2,")},
+           "team_routes": b8s_routes,
+           "parted_from_team8": {c: [w["parted_from_team8"] for w in ws] for c, ws in
+                                 windows["ode_replay_bwd_split2"].items()}}
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launched.get(name, 0), "max_abs_err": errs[name],
+             "launches": launched.get(key, 0), "max_abs_err": errs[name],
              "bit_for_bit": same[name], "ms": times[name], "plain_ms": plain_ms[name],
              "plain_ms_at": plain_ms[f"{name}_at"], "ms_window": window_ms[name],
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
-             "lanes": B, "path": path, "ns_per_serial_step": times[name] * 1e6 / serial[name]}
-            for name, (src, rep, path, launched) in entries.items()]
+             "lanes": B, "path": path, "ns_per_serial_step": times[name] * 1e6 / serial[name],
+             **(b8s if name == "ode_replay_bwd_split2" else {})}
+            for name, (src, rep, path, launched, key) in entries.items()]
 
 
 # The Hopf MLP in outer mode (phases 57-60). The wide configuration: the

@@ -32,8 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
                 "network_ode": ["-fmad=false"], "ode_select_team": ["-fmad=false"],
                 "ode_emit_team": ["-fmad=false"], "ode_replay_team": ["-fmad=false"],
-                "ode_ksweep_team": ["-fmad=false"],
-                "sde3_replay_team": ["-fmad=false"],
+                "ode_ksweep_team": ["-fmad=false"], "ode_ksweep2_team": ["-fmad=false"],
+                "sde3_replay_team": ["-fmad=false"], "sde3_ksweep_team": ["-fmad=false"],
                 "sde_select_team": ["-fmad=false"],
                 "xor_ode": ["-fmad=false"],
                 "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"],
@@ -95,10 +95,16 @@ _SIGNATURES = {
     "ode_ksweep_team": {
         "cf_ode_replay_bwd_ksweep": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
     },
+    "ode_ksweep2_team": {
+        "cf_ode_replay_bwd_split2_ksweep": [_I, _I, _I, _I, _P, _I, _I] + [_P] * 13,
+    },
     "sde3_replay_team": {
         "cf_sde3_fwd_team": [_I, _I, _I, _I, _P] + [_I] * 5 + [_P] * 12,
         "cf_sde3_bwd_emit": [_I, _I, _I, _I, _P] + [_I] * 6 + [_P] * 13,
         "cf_sde3_max_clusters": [_I] * 5 + [_P],
+    },
+    "sde3_ksweep_team": {
+        "cf_sde3_bwd_ksweep": [_I, _I, _I, _I, _P] + [_I] * 6 + [_P] * 15,
     },
     "sde_select_team": {
         "cf_sde_select_team": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 10,

@@ -1,6 +1,7 @@
 // B8 and B8t-team, the column network's kernel-mode dopri5 reverse sweep on
 // the three-term split, as one Hopper cluster team for the batch
-// (ode_team.cuh ode_ksweep16_kernel).
+// (ode_team.cuh ode_ksweep16_kernel; its two-term instances, B8s, are built
+// from ode_ksweep2_team.cu).
 //   cf_ode_replay_bwd_ksweep  <- columnflow/solvers/fused.py
 //                                _make_bwd_chunk_kernel (kernel mode) with
 //                                prepare_premixed_split: the state cotangent
@@ -44,41 +45,19 @@
 #include "dopri5.cuh"
 #include "ode_team.cuh"
 
-namespace {
-
-template <int LT, class F>
-int ksweep_instance(const Plan3& p, F&& f) {
-  return p.stream ? f(ode_ksweep16_kernel<3, LT, true>) : f(ode_ksweep16_kernel<3, LT, false>);
-}
-
-}  // namespace
-
 extern "C" {
 
 // The kernel-mode sweep as one cluster team for the batch of B lanes
-// (ode_team.cuh plan3k, kT3KSweep). wpk: the three bf16 terms of wT packed
-// per block (ode_team_pack in kernels/network_ode.py: (C, P, rw) 32-bit
-// words of the plan's layout); iw float32 (n_in, P); stream: 1 streams the
-// slices through the ring even where they fit; st (n + 1,); ys (n, B, 3P);
-// cobar (n, 5, B, 3P); ybar (B, 3P); d_wT (P, P); d_iwT (n_in, P); work:
-// (C, 4, P / C, P) floats where the plan keeps the accumulators in device
-// memory (else unused). hc as cf_ode_replay_bwd's.
+// (ode_team.cuh plan3k, kT3KSweep, ode_ksweep_launch): wpk the three bf16
+// terms of wT packed per block; the arguments as ode_ksweep_launch's, hc as
+// cf_ode_replay_bwd's.
 int cf_ode_replay_bwd_ksweep(int B, int P, int n_in, int K, const float* hc, int n_steps,
                              int stream, const float* bg, const float* adapt, const void* wpk,
                              const float* iw, const float* kv, const float* st, const float* ys,
                              const float* cobar, float* ybar, float* d_wT, float* d_iwT,
                              float* work, void* cstream) {
-  Plan3 p;
-  if (int e = team3_plan(B, P, n_in, K, B, 3, kT3KSweep, stream, &p)) return e;
-  if (n_steps < 0 || (!p.accs && work == nullptr)) return (int)cudaErrorInvalidValue;
-  const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
-  const uint32_t* w = (const uint32_t*)wpk;
-  const cudaStream_t s = (cudaStream_t)cstream;
-  const auto launch = [&](auto kernel) {
-    return team2_launch(kernel, p, 1, s, n, p, n_steps, w, iw, st, ys, cobar, ybar, d_wT,
-                        d_iwT, work);
-  };
-  return p.LB == 1 ? ksweep_instance<1>(p, launch) : ksweep_instance<4>(p, launch);
+  return ode_ksweep_launch<3>(B, P, n_in, K, hc, n_steps, stream, bg, adapt, wpk, iw, kv, st,
+                              ys, cobar, ybar, d_wT, d_iwT, work, cstream);
 }
 
 }  // extern "C"

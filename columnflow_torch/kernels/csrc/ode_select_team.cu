@@ -79,14 +79,15 @@ int cf_ode_attempt(int B, int P, int n_in, int K, const float* hc, const float* 
 // accs) of the selection (use kT3Select: NB lanes, three terms), the sweep
 // (kT3Sweep: one lane, NT terms), the replay (kT3Replay: one lane, NT
 // terms), the SDE sweep (kT3SdeSweep: one lane, three terms) or the
-// kernel-mode sweep (kT3KSweep: NB lanes, NT terms; C must be 0) at P with
-// clusters of C blocks (0: the default, 16 where 16 divides P, else 8), for
-// the wrapper's own reckoning to be held against.
+// kernel-mode sweeps (kT3KSweep, the dopri5 sweep, and kT3SdeKSweep, the
+// SDE's: NB lanes, NT terms; C must be 0) at P with clusters of C blocks (0:
+// the default, 16 where 16 divides P, else 8), for the wrapper's own
+// reckoning to be held against.
 int cf_ode_team_plan(int P, int n_in, int NB, int NT, int use, int C, int stream,
                      long long* out) {
   if (P <= 0 || P % 8 || n_in < 0 || n_in > kMaxInputs || NB < 1 || NT < 2 || NT > 3 ||
-      use < kT3Select || use > kT3KSweep || (C != 0 && C != 8 && C != 16) || (C && P % C) ||
-      (C && use == kT3KSweep))
+      use < kT3Select || use > kT3SdeKSweep || (C != 0 && C != 8 && C != 16) ||
+      (C && P % C) || (C && t3_ksweep(use)))
     return (int)cudaErrorInvalidValue;
   const Plan3 p = plan3(P, n_in, NB, NT, use, stream, C);
   const long long v[23] = {p.C, p.nc, p.NT, p.NB, p.LB, p.G, p.gw, p.xs, p.L, p.Lv, p.rw,

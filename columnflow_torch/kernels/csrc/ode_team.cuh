@@ -2,15 +2,18 @@
 // on the three-term split, B7 split2 on the two-term one), the emit-mode
 // reverse sweep (B8' on the two-term split, B8't on the three-term one) and
 // the kernel-mode reverse sweep (B8 and B8t-team: the exact engine's sweep
-// with its weight cotangents, one team for the batch) as Hopper
-// thread-block-cluster teams: cf_ode_select, cf_ode_attempt
-// (ode_select_team.cu), cf_ode_replay_fwd_team, cf_ode_replay_fwd_split2
-// (ode_replay_team.cu), cf_ode_replay_bwd_emit,
-// cf_ode_replay_bwd_emit_split3 (ode_emit_team.cu) and
-// cf_ode_replay_bwd_ksweep (ode_ksweep_team.cu). Its team functions
-// (team3_init, t3_drift, t3_vjp) also carry the three-term SDE replay and
-// its emit-mode sweep (sde3_replay_team.cu). Included once per source; the
-// definitions live in an unnamed namespace.
+// with its weight cotangents, one team for the batch; B8s: the same on the
+// two-term split) as Hopper thread-block-cluster teams: cf_ode_select,
+// cf_ode_attempt (ode_select_team.cu), cf_ode_replay_fwd_team,
+// cf_ode_replay_fwd_split2 (ode_replay_team.cu), cf_ode_replay_bwd_emit,
+// cf_ode_replay_bwd_emit_split3 (ode_emit_team.cu),
+// cf_ode_replay_bwd_ksweep (ode_ksweep_team.cu) and
+// cf_ode_replay_bwd_split2_ksweep (ode_ksweep2_team.cu). Its team functions
+// (team3_init, t3_drift, t3_vjp, t3k_vjp) also carry the three-term SDE
+// replay and its emit-mode sweep (sde3_replay_team.cu) and the SDE's
+// kernel-mode sweep B4't (sde3_ksweep16_kernel, cf_sde3_bwd_ksweep in
+// sde3_ksweep_team.cu). Included once per source; the definitions live in
+// an unnamed namespace.
 //
 // Replaces (columnflow/solvers/fused.py):
 //   ode_select16_kernel  <- _make_adaptive_kernel (B6): Hairer's initial
@@ -24,8 +27,11 @@
 //                           B8't): the state cotangent alone and each
 //                           step's output cotangent
 //   ode_ksweep16_kernel  <- _make_bwd_chunk_kernel, kernel mode (B8,
-//                           B8t-team): the state cotangent and the weight
-//                           cotangents d wT, d iwT, the batch on one team
+//                           B8t-team; on the two-term split B8s): the state
+//                           cotangent and the weight cotangents d wT, d iwT,
+//                           the batch on one team
+//   sde3_ksweep16_kernel <- _make_sde_bwd_chunk_kernel, kernel mode (B4't):
+//                           the same for the SRA1 replay on each lane's grid
 //
 // What bounds them on this card: serial chains (~1.3 * 10^4 selection
 // attempts over the second at 104 columns, ~1.2 * 10^4 accepted steps),
@@ -117,9 +123,17 @@ constexpr int kT3MaxItems = 2;  // owned (lane, population) items a thread holds
 // products only), the emit-mode sweep (one lane, drifts and VJPs), the
 // replay (one lane, drifts only), the SDE's emit-mode sweep (B4t,
 // sde3_replay_team.cu: one lane, drifts in the replay's sum order and
-// VJPs), and the kernel-mode sweep (the batch, drifts in the replay's sum
-// order, VJPs and their weight cotangents: plan3k).
-constexpr int kT3Select = 0, kT3Sweep = 1, kT3Replay = 2, kT3SdeSweep = 3, kT3KSweep = 4;
+// VJPs), the kernel-mode sweep (the batch, drifts in the replay's sum
+// order, VJPs and their weight cotangents: plan3k), and the SDE's
+// kernel-mode sweep (B4't, sde3_ksweep_team.cu: the same, with a chunk
+// partial of the weight cotangents and the lanes' own step times).
+constexpr int kT3Select = 0, kT3Sweep = 1, kT3Replay = 2, kT3SdeSweep = 3, kT3KSweep = 4,
+              kT3SdeKSweep = 5;
+
+// The kernel-mode sweeps: the batch on one team, weight cotangents formed.
+__host__ __device__ inline bool t3_ksweep(int use) {
+  return use == kT3KSweep || use == kT3SdeKSweep;
+}
 
 // The uses whose drifts sum in team8's order (t3_fwd_chunks), and which may
 // keep the float32 wT as their slice.
@@ -182,7 +196,7 @@ __host__ __device__ inline int t3_chunks(int P) {
 // double buffered), or the replay's chunk sums (G NP nc; the SDE sweep's
 // VJPs use their first nc).
 __host__ __device__ inline size_t t3_cvec(const Plan3& p, int use) {
-  if (use == kT3KSweep) return t2_align(8 * 2 * (size_t)p.NB * p.nc);
+  if (t3_ksweep(use)) return t2_align(8 * 2 * (size_t)p.NB * p.nc);
   const size_t np = p.NT == 3 ? 6 : 3;
   return t2_align(8 * (t3_chunked(use) ? t3_chunks(p.C * p.nc) * np : 1) * (size_t)p.nc);
 }
@@ -198,13 +212,25 @@ __host__ __device__ inline size_t t3_fixed(const Plan3& p, int n_in, int slots, 
          + t2_align(8 * (size_t)(1 + 2 * kT2MaxStages));       // mbarriers
 }
 
+// Float planes of P nc a block keeps of its weight cotangents (t3k_carve):
+// the NT accumulators, d wT and (the SDE's) the chunk partial.
+__host__ __device__ inline int t3k_planes(int NT, int use) {
+  return NT + 1 + (use == kT3SdeKSweep ? 1 : 0);
+}
+
 // The kernel-mode sweep's shared memory past t3_fixed: the current's
 // cotangent of the own populations (float32, double buffered), the step's
 // d iwT sum and the own columns' d iwT, and with accs the step's NT
-// weight-cotangent accumulators and the own columns' d wT (P nc each).
-__host__ __device__ inline size_t t3k_extra(const Plan3& p, int n_in, int accs) {
+// weight-cotangent accumulators and the own columns' d wT (P nc each). The
+// SDE's (kT3SdeKSweep) keeps with accs a third plane (its chunk partial of d
+// wT), then its chunk partial of d iwT and the lanes' step times (t0,
+// t0 + 0.75 h, h, i10 / h): t3k_carve_sde.
+__host__ __device__ inline size_t t3k_extra(const Plan3& p, int n_in, int accs, int use) {
   return t2_align(4 * 2 * (size_t)p.NB * p.nc) + t2_align(4 * 2 * (size_t)n_in * p.nc)
-         + (accs ? t2_align(4 * (size_t)(p.NT + 1) * (p.C * p.nc) * p.nc) : 0);
+         + (accs ? t2_align(4 * (size_t)t3k_planes(p.NT, use) * (p.C * p.nc) * p.nc) : 0)
+         + (use == kT3SdeKSweep
+                ? t2_align(4 * (size_t)n_in * p.nc) + t2_align(4 * 4 * (size_t)p.NB)
+                : 0);
 }
 
 // The kernel-mode sweep's exchange slot: the forward's rate words X (P, xs)
@@ -221,20 +247,21 @@ __host__ __device__ inline size_t t3k_slot(const Plan3& p) {
   return t3k_xbytes(p) + t2_align(8 * (size_t)p.NB * p.nc * (a > b ? a : b));
 }
 
-// The kernel-mode sweep (ode_ksweep16_kernel): the batch of NB lanes on one
-// cluster of C blocks (16 where 16 divides P, else 8), block r owning
-// populations [r nc, (r+1) nc) of every lane, one (lane, population) item a
-// thread. Its forward products take the replay's sum order (t3_chunks: G
-// chunks of rows, a thread for each chunk and column) for LB lanes a thread
-// (1, or 4 where the G nc threads of a lane group cannot give every lane its
-// own: kThreads / (G nc) groups); its VJP products take Lv lanes a row, Lv
-// the largest power of two up to 32 with kThreads / Lv rows covering P. Two
-// exchange slots and the accumulators in shared memory where they fit, else
-// one slot, else the accumulators in device memory; the slice resident
-// where it fits, else streamed. fits is 0 for NT != 3 (only the three-term
-// split is built), more than one item a thread, or more than four lanes a
-// thread.
-__host__ __device__ inline Plan3 plan3k(int P, int n_in, int NB, int NT, int want_stream) {
+// The kernel-mode sweeps (use kT3KSweep: ode_ksweep16_kernel; kT3SdeKSweep:
+// sde3_ksweep16_kernel): the batch of NB lanes on one cluster of C blocks
+// (16 where 16 divides P, else 8), block r owning populations [r nc,
+// (r+1) nc) of every lane, one (lane, population) item a thread. Its
+// forward products take the replay's sum order (t3_chunks: G chunks of rows,
+// a thread for each chunk and column) for LB lanes a thread (1, or 4 where
+// the G nc threads of a lane group cannot give every lane its own: kThreads
+// / (G nc) groups); its VJP products take Lv lanes a row, Lv the largest
+// power of two up to 32 with kThreads / Lv rows covering P. Two exchange
+// slots and the accumulators in shared memory where they fit, else one
+// slot, else the accumulators in device memory; the slice resident where it
+// fits, else streamed. fits is 0 for NT other than 2 and 3, more than one
+// item a thread, or more than four lanes a thread.
+__host__ __device__ inline Plan3 plan3k(int P, int n_in, int NB, int NT, int want_stream,
+                                        int use) {
   Plan3 p;
   p.C = P % 16 == 0 ? 16 : 8;
   p.nc = P / p.C;
@@ -252,12 +279,12 @@ __host__ __device__ inline Plan3 plan3k(int P, int n_in, int NB, int NT, int wan
   p.L = 32 / p.Lv;
   p.rw = t3_row_words(p.nc, NT, p.Lv, false);
   p.f32 = 0;
-  p.fits = NT == 3 && p.ipt == 1 && lt <= 4;
+  p.fits = (NT == 2 || NT == 3) && p.ipt == 1 && lt <= 4;
   p.slot = t3k_slot(p);
   const size_t row = 4 * (size_t)p.rw;
   for (int slots = 2; slots >= 1; --slots) {
     for (int accs = 1; accs >= 0; --accs) {
-      const size_t f = t3_fixed(p, n_in, slots, kT3KSweep) + t3k_extra(p, n_in, accs);
+      const size_t f = t3_fixed(p, n_in, slots, use) + t3k_extra(p, n_in, accs, use);
       if (!want_stream && f + row * P <= kT2SmemLimit) {
         p.slots = slots;
         p.accs = accs;
@@ -277,7 +304,7 @@ __host__ __device__ inline Plan3 plan3k(int P, int n_in, int NB, int NT, int wan
   const int r0 = kThreads / p.Lv > kT2MinTileRows ? kThreads / p.Lv : kT2MinTileRows;
   for (int slots = 2; slots >= 1; --slots) {
     for (int accs = 1; accs >= 0; --accs) {
-      const size_t f = t3_fixed(p, n_in, slots, kT3KSweep) + t3k_extra(p, n_in, accs);
+      const size_t f = t3_fixed(p, n_in, slots, use) + t3k_extra(p, n_in, accs, use);
       const size_t room = f < kT2SmemLimit ? kT2SmemLimit - f : 0;
       for (int R = r0; R >= 8; R /= 2) {
         const int T = (P + R - 1) / R;
@@ -303,7 +330,7 @@ __host__ __device__ inline Plan3 plan3k(int P, int n_in, int NB, int NT, int wan
   p.R = P;
   p.T = 1;
   p.S = 0;
-  p.fixed = t3_fixed(p, n_in, 1, kT3KSweep) + t3k_extra(p, n_in, 0);
+  p.fixed = t3_fixed(p, n_in, 1, use) + t3k_extra(p, n_in, 0, use);
   p.bytes = p.fixed;
   return p;
 }
@@ -312,7 +339,7 @@ __host__ __device__ inline Plan3 plan3k(int P, int n_in, int NB, int NT, int wan
 // divides P, else 8; the caller has checked that C divides P).
 __host__ __device__ inline Plan3 plan3(int P, int n_in, int NB, int NT, int use,
                                        int want_stream, int C = 0) {
-  if (use == kT3KSweep) return plan3k(P, n_in, NB, NT, want_stream);
+  if (t3_ksweep(use)) return plan3k(P, n_in, NB, NT, want_stream, use);
   Plan3 p;
   p.accs = 0;
   p.C = C > 0 ? C : (P % 16 == 0 ? 16 : 8);
@@ -548,6 +575,11 @@ __device__ __forceinline__ float t3_knot(const Net& n, const Team3& T, int bb, i
   }
   return out;
 }
+
+// The stimulus time of the team's lane bb: one time for every lane, or each
+// lane's own (the SDE's per-lane grids: NB times in shared memory).
+__device__ __forceinline__ float t3_time(float t, int) { return t; }
+__device__ __forceinline__ float t3_time(const float* t, int bb) { return t[bb]; }
 
 // A float32 weight (its bits u) split as split_f32 splits it (hi = bf16(w),
 // mid = bf16(w - hi), lo = bf16((w - hi) - mid), each rounded to nearest),
@@ -807,16 +839,17 @@ struct T3NoOp {
 template <int NT, int LT, bool kStream>
 __device__ __forceinline__ void t3k_fwd_chunks(Team3& T, int P, const uint32_t* __restrict__ X);
 
-// One drift evaluation of the team's lanes at time t: the owned items'
-// states s -> out (owner threads); every thread of the block calls it.
+// One drift evaluation of the team's lanes at time t (a float, or the NB
+// lanes' own times in shared memory: t3_time): the owned items' states s ->
+// out (owner threads); every thread of the block calls it.
 // kChunks 1: the replay's products in team8's order (t3_fwd_chunks; one
 // lane), kF32 its slice the float32 wT; 2: the same order for the NB lanes
 // of the kernel-mode sweep, LB a thread (t3k_fwd_chunks).
 // after_barrier() runs in every thread right after the exchange's cluster
 // barrier (the replay stores its previous step's rows there).
 template <int NT, int LB, int IPT, bool kStream, bool kF32 = false, int kChunks = 0,
-          class Mid = T3NoOp>
-__device__ __forceinline__ void t3_drift(const Net& n, Team3& T, float t, const float (&s)[IPT][3],
+          class Mid = T3NoOp, class Tm = float>
+__device__ __forceinline__ void t3_drift(const Net& n, Team3& T, Tm t, const float (&s)[IPT][3],
                                          float (&out)[IPT][3], Mid after_barrier = Mid()) {
   cgo::cluster_group cl = cgo::this_cluster();
   const Plan3& p = T.p;
@@ -852,7 +885,7 @@ __device__ __forceinline__ void t3_drift(const Net& n, Team3& T, float t, const 
   }
   for (int idx = threadIdx.x; idx < NB * NI; idx += blockDim.x) {
     const int bb = idx / NI, m = idx - bb * NI;
-    ext[idx] = t3_knot(n, T, bb, m, t);
+    ext[idx] = t3_knot(n, T, bb, m, t3_time(t, bb));
   }
   __syncthreads();
   // The own rows, contiguous in X, to every other block in 16- (or 8-)
@@ -1587,6 +1620,43 @@ __device__ __forceinline__ KAcc t3k_carve(const Team3& T, unsigned char* sm, con
   return A;
 }
 
+// The SDE's kernel-mode sweep's (kT3SdeKSweep) weight cotangents: KAcc's,
+// with a third plane beside the accumulators and d wT (t3k_planes), and
+// past them its chunk partial of d iwT and the lanes' step times
+// (t3k_extra). A struct of its own: the dopri5 sweep's KAcc carries none of
+// these fields (with them nvcc spilled its kernel's registers otherwise).
+struct KSdeAcc : KAcc {
+  float* cw;   // (nc, P) d wT of the own columns over the chunk so far
+  float* ciw;  // (n_in, nc) d iwT of the own columns over the chunk so far
+  float* lt;   // (4, NB) the lanes' t0, t0 + 0.75 h, h and i10 / h
+};
+
+__device__ __forceinline__ KSdeAcc t3k_carve_sde(const Team3& T, unsigned char* sm,
+                                                 const Net& n, float* work) {
+  const Plan3& p = T.p;
+  const size_t Pnc = (size_t)n.P * p.nc, inc = (size_t)n.n_in * p.nc;
+  const int planes = t3k_planes(p.NT, kT3SdeKSweep);
+  unsigned char* q = sm + t3_fixed(p, n.n_in, p.slots, kT3SdeKSweep);
+  KSdeAcc A;
+  A.cown = reinterpret_cast<float*>(q);
+  q += t2_align(4 * 2 * (size_t)p.NB * p.nc);
+  A.aiw = reinterpret_cast<float*>(q);
+  A.dwi = A.aiw + inc;
+  q += t2_align(4 * 2 * inc);
+  if (p.accs) {
+    A.acc = reinterpret_cast<float*>(q);
+    q += t2_align(4 * (size_t)planes * Pnc);
+  } else {
+    A.acc = work + (size_t)T.rank * planes * Pnc;
+  }
+  A.dw = A.acc + (size_t)p.NT * Pnc;
+  A.cw = A.dw + Pnc;
+  A.ciw = reinterpret_cast<float*>(q);
+  q += t2_align(4 * inc);
+  A.lt = reinterpret_cast<float*>(q);
+  return A;
+}
+
 // One drift VJP of the team's NB lanes (one item a thread) at the own
 // states y for the output cotangents ct -> out (owner threads), with
 // jax.vjp's rounding points (t3_vjp), and its weight cotangents added to
@@ -1600,8 +1670,8 @@ __device__ __forceinline__ KAcc t3k_carve(const Team3& T, unsigned char* sm, con
 // term's bits placed in a double (t3_w) times the cotangent held times
 // 2^896 (the VJP products' own operand, double buffered as the slot is, so
 // the next VJP's owners may write theirs while this pass still reads).
-template <int NT, bool kStream>
-__device__ __forceinline__ void t3k_vjp(const Net& n, Team3& T, const KAcc& A, float t,
+template <int NT, bool kStream, class Tm = float>
+__device__ __forceinline__ void t3k_vjp(const Net& n, Team3& T, const KAcc& A, Tm t,
                                         bool first, const float (&y)[3], const float (&ct)[3],
                                         float (&out)[3]) {
   cgo::cluster_group cl = cgo::this_cluster();
@@ -1632,7 +1702,7 @@ __device__ __forceinline__ void t3k_vjp(const Net& n, Team3& T, const KAcc& A, f
   }
   for (int idx = threadIdx.x; idx < NB * NI; idx += blockDim.x) {
     const int bb = idx / NI, m = idx - bb * NI;
-    ext[idx] = t3_knot(n, T, bb, m, t);
+    ext[idx] = t3_knot(n, T, bb, m, t3_time(t, bb));
   }
   __syncthreads();
   {  // the own rows of the rates' terms to every other block, 8 bytes a store
@@ -1747,8 +1817,9 @@ __device__ __forceinline__ void t3k_vjp(const Net& n, Team3& T, const KAcc& A, f
 // the end. plan: the host's plan3k (a kernel parameter, so the compiler
 // reads its fields from the constant bank instead of holding them in
 // registers). work: with the plan's accs 0, (C, NT + 1, nc, P) floats. NT = 3:
-// the f32-exact engine (prepare_premixed_split); LT: the forward products'
-// lanes a thread (the plan's LB, 1 or 4).
+// the f32-exact engine (prepare_premixed_split; B8, B8t-team); NT = 2: the
+// fused-split2 tier (prepare_premixed_split2; B8s); LT: the forward
+// products' lanes a thread (the plan's LB, 1 or 4).
 template <int NT, int LT, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
 ode_ksweep16_kernel(Net n, const Plan3 plan, int n_steps, const uint32_t* __restrict__ wpk,
@@ -1851,6 +1922,159 @@ ode_ksweep16_kernel(Net n, const Plan3 plan, int n_steps, const uint32_t* __rest
   if (own) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) ybar_out[col + c * P] = ysum[c];
+  }
+  t3k_entries(P, nc, [&](int i, int j0, int Lw) {
+    for (int j = j0; j < nc; j += Lw) d_wT[(size_t)i * P + c0 + j] = A.dw[(size_t)j * P + i];
+  });
+  for (int q = threadIdx.x; q < NI * nc; q += kThreads) {
+    const int m = q / nc;
+    d_iwT[(size_t)m * P + c0 + (q - m * nc)] = A.dwi[q];
+  }
+  if (kStream) t2_drain(T);
+}
+
+// The kernel-mode dopri5 sweep on NT terms as one cluster team for the batch
+// of B lanes (plan3k, kT3KSweep): the plan, then the instance of its LB and
+// ring. cf_ode_replay_bwd_ksweep (three terms, ode_ksweep_team.cu) and
+// cf_ode_replay_bwd_split2_ksweep (two, ode_ksweep2_team.cu) each
+// instantiate one NT, so that nvcc builds the two in parallel. wpk: the NT
+// bf16 terms of wT packed per block (ode_team_pack in
+// kernels/network_ode.py: (C, P, rw) 32-bit words of the plan's layout); iw
+// float32 (n_in, P); stream: 1 streams the slices through the ring even
+// where they fit; st (n + 1,); ys (n, B, 3P); cobar (n, 5, B, 3P); ybar (B,
+// 3P); d_wT (P, P); d_iwT (n_in, P); work: (C, NT + 1, P / C, P) floats
+// where the plan keeps the accumulators in device memory (else unused); hc
+// the drift's constants (network_drift.cuh make_net).
+template <int NT>
+int ode_ksweep_launch(int B, int P, int n_in, int K, const float* hc, int n_steps, int stream,
+                      const float* bg, const float* adapt, const void* wpk, const float* iw,
+                      const float* kv, const float* st, const float* ys, const float* cobar,
+                      float* ybar, float* d_wT, float* d_iwT, float* work, void* cstream) {
+  Plan3 p;
+  if (int e = team3_plan(B, P, n_in, K, B, NT, kT3KSweep, stream, &p)) return e;
+  if (n_steps < 0 || (!p.accs && work == nullptr)) return (int)cudaErrorInvalidValue;
+  const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
+  const uint32_t* w = (const uint32_t*)wpk;
+  const cudaStream_t s = (cudaStream_t)cstream;
+  const auto launch = [&](auto kernel) {
+    return team2_launch(kernel, p, 1, s, n, p, n_steps, w, iw, st, ys, cobar, ybar, d_wT,
+                        d_iwT, work);
+  };
+  if (p.LB == 1)
+    return p.stream ? launch(ode_ksweep16_kernel<NT, 1, true>)
+                    : launch(ode_ksweep16_kernel<NT, 1, false>);
+  return p.stream ? launch(ode_ksweep16_kernel<NT, 4, true>)
+                  : launch(ode_ksweep16_kernel<NT, 4, false>);
+}
+
+// ---------------------------------------------------------------------------
+// B4't: the SDE's kernel-mode sweep, one team for the batch
+// ---------------------------------------------------------------------------
+
+// An SDE sweep's step grid (network_sde.cu Grid3): each lane's (lanes: t0s,
+// hs (n, B)) or one for every lane (the uniform grid: (n,)); i10 (n, B).
+struct T3Grid {
+  int n_real, lanes;
+  const float *t0s, *hs, *i10;
+};
+
+// B4't: the kernel-mode reverse sweep of SRA1 on the split over steps
+// n_real-1..0 of the batch (n.B lanes) on one team (plan3k, kT3SdeKSweep).
+// With c = ybar + ysbar[k] and lane b's t0, h, i10h = i10 / h (h = 0: i10),
+// its own times:
+//   f1 = f(t0, y);  h2 = (y + (0.75 h) f1) + (1.5 i10h) sigma
+//   c_h2 = f^T|_{t0 + 0.75 h, h2} (((h c) / 3) 2)      (opens the accumulators)
+//   c_y  = f^T|_{t0, y} ((h c) / 3 + (0.75 h) c_h2)     (adds to them)
+//   ybar = (c + c_h2) + c_y, zeroed after every step k with k % stride == 0
+// (network_sde.cu sde3_bwd_kernel, operation for operation). Each step's
+// accumulators fold once (acc_fold) into the own columns' chunk partial,
+// which is added to d wT after the chunk's first step (k % chunk == 0), as
+// the JAX kernel sums each chunk's steps and then the chunks; d iwT alike
+// (float32 throughout). The drift sums its products in the replay's order
+// (t3k_fwd_chunks), so f1 and h2 are B3t's; the VJPs and their weight
+// cotangents are t3k_vjp's, each lane's stimulus at its own time (A.lt).
+// Steps with h = 0 (padding) are exact no-ops, as in the plain version.
+// work: with the plan's accs 0, (C, NT + 2, nc, P) floats. NT = 3: B4't
+// (prepare_premixed_split); LT: the forward products' lanes a thread.
+template <int NT, int LT, bool kStream>
+__global__ void __launch_bounds__(kThreads, 1)
+sde3_ksweep16_kernel(Net n, const Plan3 plan, T3Grid g, int stride, int chunk,
+                     const uint32_t* __restrict__ wpk, const float* __restrict__ iw,
+                     const float* __restrict__ ys_prev, const float* __restrict__ ysbar,
+                     float* __restrict__ ybar_out, float* __restrict__ d_wT,
+                     float* __restrict__ d_iwT, float* work) {
+  extern __shared__ __align__(16) unsigned char smt[];
+  Team3 T;
+  team3_init_plan(T, smt, n, n.B, kT3SdeKSweep, 0, wpk, iw, plan);
+  const KSdeAcc A = t3k_carve_sde(T, smt, n, work);
+  const int P = n.P, B = n.B, nc = T.p.nc, NI = n.n_in, c0 = T.c0;
+  const size_t N = (size_t)B * 3 * P, Pnc = (size_t)P * nc;
+  const int e = threadIdx.x;
+  const bool own = e < B * nc;
+  const int b = own ? e / nc : 0;
+  const size_t col = (size_t)b * 3 * P + c0 + (e - b * nc);
+  t3k_entries(P, nc, [&](int i, int j0, int Lw) {
+    for (int j = j0; j < nc; j += Lw) A.dw[(size_t)j * P + i] = A.cw[(size_t)j * P + i] = 0.0f;
+  });
+  for (int q = threadIdx.x; q < NI * nc; q += kThreads) A.dwi[q] = A.ciw[q] = 0.0f;
+  float yb[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = g.n_real - 1; k >= 0; --k) {
+    if (threadIdx.x < B) {  // the lanes' times, rounded as the plain version's
+      const int l = threadIdx.x;
+      const size_t at = g.lanes ? (size_t)k * B + l : (size_t)k;
+      const float t0 = g.t0s[at], h = g.hs[at];
+      A.lt[l] = t0;
+      A.lt[B + l] = t0 + 0.75f * h;
+      A.lt[2 * B + l] = h;
+      A.lt[3 * B + l] = g.i10[(size_t)k * B + l] / (h > 0.0f ? h : 1.0f);
+    }
+    float y[1][3], cc[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const size_t at = (size_t)k * N + col + (size_t)c * P;
+      y[0][c] = own ? ys_prev[at] : 0.0f;
+      cc[c] = own ? yb[c] + ysbar[at] : 0.0f;
+    }
+    __syncthreads();
+    const float h = A.lt[2 * B + b], ih = A.lt[3 * B + b];
+    const float* lt = A.lt;
+    float f[1][3], h2[3], cw[3], ch2[3], cy[3];
+    t3_drift<NT, LT, 1, kStream, false, 2>(n, T, lt, y, f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      h2[c] = (y[0][c] + (0.75f * h) * f[0][c]) + (1.5f * ih) * n.sigma;
+      cw[c] = ((h * cc[c]) / 3.0f) * 2.0f;
+    }
+    t3k_vjp<NT, kStream>(n, T, A, lt + B, true, h2, cw, ch2);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cw[c] = (h * cc[c]) / 3.0f + (0.75f * h) * ch2[c];
+    t3k_vjp<NT, kStream>(n, T, A, lt, false, y[0], cw, cy);
+    const bool cut = stride > 0 && k % stride == 0;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) yb[c] = cut ? 0.0f : (cc[c] + ch2[c]) + cy[c];
+    // The step's accumulators through the split once, into the own columns'
+    // chunk partial, and the partial into the sums at the chunk's first step.
+    const bool fold = k % chunk == 0;
+    t3k_entries(P, nc, [&](int i, int j0, int Lw) {
+      for (int j = j0; j < nc; j += Lw) {
+        const size_t q = (size_t)j * P + i;
+        float a[NT];
+#pragma unroll
+        for (int u = 0; u < NT; ++u) a[u] = A.acc[u * Pnc + q];
+        const float sum = A.cw[q] + acc_fold<NT>(a);
+        if (fold) A.dw[q] = A.dw[q] + sum;
+        A.cw[q] = fold ? 0.0f : sum;
+      }
+    });
+    for (int q = threadIdx.x; q < NI * nc; q += kThreads) {
+      const float sum = A.ciw[q] + A.aiw[q];
+      if (fold) A.dwi[q] = A.dwi[q] + sum;
+      A.ciw[q] = fold ? 0.0f : sum;
+    }
+  }
+  if (own) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ybar_out[col + c * P] = yb[c];
   }
   t3k_entries(P, nc, [&](int i, int j0, int Lw) {
     for (int j = j0; j < nc; j += Lw) d_wT[(size_t)i * P + c0 + j] = A.dw[(size_t)j * P + i];

@@ -6,9 +6,10 @@ the three Pallas kernels of ``odeint_dopri5_fused`` in
 Each kernel is CUDA C++ in ``csrc/network_ode.cu``, or, for the cluster
 teams of B6, B7t-team, B7 split2, B8', B8't and the kernel-mode sweep
 (``csrc/ode_team.cuh``), ``csrc/ode_select_team.cu``,
-``csrc/ode_replay_team.cu``, ``csrc/ode_emit_team.cu`` and
-``csrc/ode_ksweep_team.cu`` (built by ``_build``), with a plain PyTorch
-version beside it that repeats its arithmetic:
+``csrc/ode_replay_team.cu``, ``csrc/ode_emit_team.cu``,
+``csrc/ode_ksweep_team.cu`` and ``csrc/ode_ksweep2_team.cu`` (built by
+``_build``), with a plain PyTorch version beside it that repeats its
+arithmetic:
 
     wrapper               kernel                     plain version               replaces (columnflow/solvers/fused.py)
     ode_select            cf_ode_select              _ode_select_plain           _make_adaptive_kernel (B6;
@@ -23,8 +24,10 @@ version beside it that repeats its arithmetic:
                                                                                  and "team8": the yardsticks)
     ode_replay_fwd_split2 cf_ode_replay_fwd_split2   _ode_replay_fwd_plain       _make_replay_chunk_kernel, split2
                                                                                  (route "team8": cf_ode_replay_fwd_split2_team8)
-    ode_replay_bwd_split2 cf_ode_replay_bwd_split2   _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode,
-                                                                                 split2 (B8s, a team)
+    ode_replay_bwd_split2 cf_ode_replay_bwd_split2_  _ode_replay_bwd_plain       _make_bwd_chunk_kernel, kernel mode,
+                          ksweep                                                 split2 (B8s: one cluster team for the
+                          (cf_ode_replay_bwd_split2)                             batch, ``ode_bwd_route(..., terms=2)``;
+                                                                                 route "team8": the yardstick)
     ode_replay_bwd_emit   cf_ode_replay_bwd_emit     _ode_replay_bwd_emit_plain  _make_bwd_chunk_kernel, emit mode
                           (split2: B8'), cf_ode_replay_bwd_emit_split3 (three-term split: B8't);
                           route "team8": cf_ode_replay_bwd_emit[_split3]_team8
@@ -43,7 +46,7 @@ they are rounded to bf16). ``ode_replay_fwd_split2`` is the ``fused-split2``
 tier's replay, on the two-term split (``prepare_premixed_split2``), and
 ``ode_replay_bwd_split2`` its kernel-mode sweep (B8s: the weight gradients
 in the sweep where the JAX package takes them there, through 63 columns at
-4 inputs), B8t-team's team kernel on the two-term split.
+4 inputs), the kernel-mode sweep's cluster team on the two-term split.
 ``ode_replay_bwd_emit`` is the emit mode on either split: the state
 cotangent alone, with each step's output cotangent written out for the
 weight gradients outside the kernels (``solvers.fused.ode_outer_arg_grads``):
@@ -59,8 +62,9 @@ takes (``ode_team_plan(..., KSWEEP)``: through 63 columns at 4 lanes), each
 block holding its columns of the split in shared memory and forming the
 weight cotangents of those columns (``ode_bwd_route``); the one-block B8
 (route "block") and the 8-block B8t-team (route "team8") stay as
-yardsticks. The two-term kernel-mode sweep (B8s) keeps the weights in
-global memory (L2), a team of 8 blocks for the batch. The selection (B6: one team for the
+yardsticks; the two-term kernel-mode sweep (B8s) is the same cluster team
+on two terms, its 8-block team (weights from L2) the yardstick behind route
+"team8". The selection (B6: one team for the
 batch, since one controller steers the whole (B, 3P) state), the replays
 (B7t-team, B7 split2: one team per lane) and the emit-mode sweep (B8',
 B8't: one team per lane) are clusters of 16 (or 8) blocks, each block
@@ -134,7 +138,7 @@ LAUNCHES = {"ode_select": 0, "ode_attempt": 0, "ode_replay_fwd": 0, "ode_replay_
             "ode_replay_bwd_team": 0, "ode_replay_bwd_emit_split3": 0, "ode_replay_bwd_split2": 0,
             "ode_select_team8": 0, "ode_attempt_team8": 0, "ode_replay_bwd_emit_team8": 0,
             "ode_replay_bwd_emit_split3_team8": 0, "ode_replay_fwd_team_team8": 0,
-            "ode_replay_fwd_split2_team8": 0}
+            "ode_replay_fwd_split2_team8": 0, "ode_replay_bwd_split2_ksweep": 0}
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 
@@ -473,16 +477,19 @@ def ode_bwd_route(P: int, n_in: int, B: int, terms: int = 3) -> str:
     them, "streamed" at the odd ones (clusters of 8); 16 lanes take the team
     through 16 columns and at the even widths through 32, "team8" elsewhere.
     On the two-term split (``terms`` 2,
-    ``ode_replay_bwd_split2``) always "team" (B8s): there is no one-block
-    two-term sweep, and the team runs at any P that is a multiple of 8 (13
-    columns: 13 populations per block)."""
+    ``ode_replay_bwd_split2``, B8s): "resident" or "streamed" (the same
+    cluster team on two terms, ``cf_ode_replay_bwd_split2_ksweep``) wherever
+    ``ode_team_plan(P, n_in, B, 2, KSWEEP)`` fits, else "team8" (the 8-block
+    team, ``cf_ode_replay_bwd_split2``; there is no one-block two-term
+    sweep). With 4 inputs and 4 lanes the two-term team is "resident" at
+    every width of the split2 tier's kernel mode (13 through 63 columns)."""
     if terms not in (2, 3):
         raise ValueError(f"terms must be 2 or 3, got {terms}")
-    if terms == 2:
-        return "team"
-    plan = ode_team_plan(P, n_in, B, 3, KSWEEP)
+    plan = ode_team_plan(P, n_in, B, terms, KSWEEP)
     if plan.fits:
         return "streamed" if plan.stream else "resident"
+    if terms == 2:
+        return "team8"
     return "block" if ode_block_bytes(P, n_in, B, True) <= SMEM_BLOCK_BYTES else "team8"
 
 
@@ -524,17 +531,19 @@ def _terms_and_transposes(w, terms):
 ODE_BWD_ROUTES = ("resident", "streamed", "block", "team8")
 
 
-def _ksweep_route(route, P, n_in, B):
-    """(route, plan) of a kernel-mode sweep launch on the card: ``route`` or
-    the shape's default (``ode_bwd_route``); the plan None for "block" and
-    "team8". Raises where the team asked for does not take the shape."""
-    route = route or ode_bwd_route(P, n_in, B)
+def _ksweep_route(route, P, n_in, B, NT=3):
+    """(route, plan) of a kernel-mode sweep launch on NT terms on the card:
+    ``route`` or the shape's default (``ode_bwd_route``); the plan None for
+    "block" and "team8". Raises where the team asked for does not take the
+    shape."""
+    route = route or ode_bwd_route(P, n_in, B, terms=NT)
     if route in ("block", "team8"):
         return route, None
-    plan = ode_team_plan(P, n_in, B, 3, KSWEEP, stream=route == "streamed")
+    plan = ode_team_plan(P, n_in, B, NT, KSWEEP, stream=route == "streamed")
     if not plan.fits or (route == "resident" and plan.stream):
-        raise ValueError(f"no {route} kernel-mode sweep team takes P={P} with {B} lanes "
-                         f"({'streamed' if plan.fits else 'block or team8'} does)")
+        other = "streamed" if plan.fits else ("team8" if NT == 2 else "block or team8")
+        raise ValueError(f"no {route} kernel-mode sweep team takes P={P} with {B} lanes and "
+                         f"{NT} terms ({other} does)")
     return route, plan
 
 
@@ -567,8 +576,8 @@ def ode_replay_bwd(ys, cobar, st, pw, sc: SDEConsts, kv, route=None):
         wpk = ode_team_pack(w3, P, plan)
         # the step's accumulators and d wT of each block's columns, where
         # shared memory does not hold them
-        work = (None if plan.accs else
-                torch.empty((plan.C, plan.NT + 1, plan.nc, P), dtype=_F32, device=dev))
+        work = (None if plan.accs else torch.empty(
+            (plan.C, t3k_planes(3, KSWEEP), plan.nc, P), dtype=_F32, device=dev))
         bg, adapt, kvp = _consts(sc, kv)
         _check(_lib().cf_ode_replay_bwd_ksweep(
             B, P, n_in, kv.shape[0], hc_p, n, int(plan.stream), bg, adapt, wpk.data_ptr(),
@@ -636,8 +645,10 @@ ODE_TEAM_ROUTES = ("resident", "streamed", "team8")
 _T3_MAX_ITEMS = 2  # csrc/ode_team.cuh kT3MaxItems
 # The uses of a team's plan (csrc/ode_team.cuh kT3Select, kT3Sweep, kT3Replay,
 # kT3SdeSweep: the three-term SDE's emit-mode sweep, B4t; kT3KSweep: the
-# exact engine's kernel-mode sweep, B8 and B8t-team).
-SELECT, SWEEP, REPLAY, SDE_SWEEP, KSWEEP = 0, 1, 2, 3, 4
+# dopri5 kernel-mode sweep, B8, B8t-team and B8s; kT3SdeKSweep: the SDE's
+# kernel-mode sweep, B4't).
+SELECT, SWEEP, REPLAY, SDE_SWEEP, KSWEEP, SDE_KSWEEP = 0, 1, 2, 3, 4, 5
+_KSWEEPS = (KSWEEP, SDE_KSWEEP)
 # The uses whose drifts sum in the 8-block team's order and which may keep
 # the float32 wT as their slice (csrc/ode_team.cuh t3_chunked).
 _CHUNKED = (REPLAY, SDE_SWEEP)
@@ -696,9 +707,9 @@ def _t3_chunks(P):
 
 
 def _t3_fixed(C, nc, NB, n_in, slot, slots, use, NT):
-    # the VJP's own cotangents (the kernel-mode sweep's of NB lanes, double
+    # the VJP's own cotangents (the kernel-mode sweeps' of NB lanes, double
     # buffered), or the replays' chunk sums (G, NP, nc)
-    if use == KSWEEP:
+    if use in _KSWEEPS:
         cvec = _align16(8 * 2 * NB * nc)
     else:
         cvec = _align16(8 * (_t3_chunks(C * nc) * (6 if NT == 3 else 3) if use in _CHUNKED
@@ -708,18 +719,31 @@ def _t3_fixed(C, nc, NB, n_in, slot, slots, use, NT):
             + _align16(8 * (_THREADS // 32 + 2 * C)) + _align16(8 * (1 + 2 * _T2_MAX_STAGES)))
 
 
-def _t3k_extra(NB, nc, P, n_in, NT, accs):
-    """The kernel-mode sweep's shared memory past ``_t3_fixed``
+def t3k_planes(NT, use):
+    """Float planes of P nc that a block of a kernel-mode sweep keeps of its
+    weight cotangents (csrc/ode_team.cuh ``t3k_planes``): the NT
+    accumulators, d wT and, for the SDE's sweep, the chunk partial; in
+    shared memory with the plan's ``accs``, else in a (C, planes, nc, P)
+    work tensor."""
+    return NT + 1 + (use == SDE_KSWEEP)
+
+
+def _t3k_extra(NB, nc, P, n_in, NT, accs, use=KSWEEP):
+    """The kernel-mode sweeps' shared memory past ``_t3_fixed``
     (csrc/ode_team.cuh ``t3k_extra``): the current's cotangent of the own
     populations (double buffered), the step's d iwT sum and the own
     columns' d iwT, and with ``accs`` the step's NT accumulators and the own
-    columns' d wT (P nc floats each)."""
+    columns' d wT (P nc floats each). The SDE's (``SDE_KSWEEP``) keeps with
+    ``accs`` a third plane (its chunk partial of d wT), then its chunk
+    partial of d iwT and the lanes' four step times."""
     return (_align16(4 * 2 * NB * nc) + _align16(4 * 2 * n_in * nc)
-            + (_align16(4 * (NT + 1) * P * nc) if accs else 0))
+            + (_align16(4 * t3k_planes(NT, use) * P * nc) if accs else 0)
+            + (_align16(4 * n_in * nc) + _align16(4 * 4 * NB) if use == SDE_KSWEEP else 0))
 
 
-def _ksweep_plan(P, n_in, NB, NT, stream):
-    """``ode_team_plan(..., KSWEEP)`` (csrc/ode_team.cuh ``plan3k``)."""
+def _ksweep_plan(P, n_in, NB, NT, stream, use=KSWEEP):
+    """``ode_team_plan(..., KSWEEP or SDE_KSWEEP)`` (csrc/ode_team.cuh
+    ``plan3k``)."""
     C = 16 if P % 16 == 0 else 8
     nc = P // C
     ipt = -(-NB * nc // _THREADS)
@@ -734,7 +758,7 @@ def _ksweep_plan(P, n_in, NB, NT, stream):
     while Lv > 1 and _THREADS // Lv < P:
         Lv //= 2
     rw = _t3_row_words(nc, NT, Lv, False)
-    fits = NT == 3 and ipt == 1 and lt <= 4
+    fits = NT in (2, 3) and ipt == 1 and lt <= 4
     np_ = 6 if NT == 3 else 3
     slot = (_align16(max(4 * P * xs, 8 * P * NB))
             + _align16(8 * NB * nc * max(NT * C, G8 * np_)))
@@ -742,8 +766,8 @@ def _ksweep_plan(P, n_in, NB, NT, stream):
     head = (C, nc, NT, NB, LB, G, gw, xs, 32 // Lv, Lv, rw, ipt)
 
     def fixed(slots, accs):
-        return (_t3_fixed(C, nc, NB, n_in, slot, slots, KSWEEP, NT)
-                + _t3k_extra(NB, nc, P, n_in, NT, accs))
+        return (_t3_fixed(C, nc, NB, n_in, slot, slots, use, NT)
+                + _t3k_extra(NB, nc, P, n_in, NT, accs, use))
 
     order = [(slots, accs) for slots in (2, 1) for accs in (True, False)]
     if not stream:
@@ -792,27 +816,29 @@ def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
     two (lane, population) items (16 lanes at 312 columns): the route is
     then "team8".
 
-    KSWEEP: the exact engine's kernel-mode sweep (B8, B8t-team), NB lanes on
-    one cluster of C blocks (16 where 16 divides P, else 8; ``C`` must be
-    None), three terms only (the two-term B8s is not built on it), one item
-    a thread; the forward products in the replay's chunk order for LB lanes
-    a thread (1, or 4), the VJP's with Lv threads a row (the largest power of
-    two up to 32 with 512 / Lv rows covering P); two exchange slots and
+    KSWEEP: the dopri5 kernel-mode sweep (B8, B8t-team on three terms, B8s
+    on two), NB lanes on one cluster of C blocks (16 where 16 divides P,
+    else 8; ``C`` must be None), one item a thread; the forward products in
+    the replay's chunk order for LB lanes a thread (1, or 4), the VJP's with
+    Lv threads a row (the largest power of two up to 32 with 512 / Lv rows
+    covering P); two exchange slots and
     ``accs`` (the weight-cotangent accumulators in shared memory) where they
     fit, else one slot, else the accumulators in device memory; resident or
     streamed as above. ``fits`` is False past one item or four lanes a
-    thread (``ode_bwd_route`` then takes "block" or "team8")."""
+    thread (``ode_bwd_route`` then takes "block" or "team8"). SDE_KSWEEP:
+    the SDE's kernel-mode sweep (B4't), the same shape with the chunk
+    partials of the weight cotangents and the lanes' step times beside the
+    accumulators (``t3k_planes``, ``_t3k_extra``)."""
     use = int(use)
     if P <= 0 or P % 8:
         raise ValueError(f"P must be a positive multiple of 8, got {P}")
     if not 0 <= n_in <= _MAX_INPUTS:
         raise ValueError(f"n_in must lie in [0, {_MAX_INPUTS}], got {n_in}")
-    if use == KSWEEP:
-        if NT != 3 or NB < 1 or C is not None:
-            raise ValueError(f"the kernel-mode sweep's team takes three terms (the two-term "
-                             f"B8s is not built on it), NB >= 1 and the default cluster; got "
-                             f"NT={NT}, NB={NB}, C={C}")
-        return _ksweep_plan(P, n_in, NB, NT, bool(stream))
+    if use in _KSWEEPS:
+        if NT not in (2, 3) or NB < 1 or C is not None:
+            raise ValueError(f"the kernel-mode sweeps' team takes two or three terms, NB >= 1 "
+                             f"and the default cluster; got NT={NT}, NB={NB}, C={C}")
+        return _ksweep_plan(P, n_in, NB, NT, bool(stream), use)
     if (use not in (SELECT, SWEEP, REPLAY, SDE_SWEEP) or NT not in (2, 3) or NB < 1
             or (use and NB != 1) or (use == SDE_SWEEP and NT != 3)):
         raise ValueError(f"no team takes NT={NT}, NB={NB}, use={use}")
@@ -1141,7 +1167,7 @@ def ode_replay_bwd_emit(ys, cobar, st, w, sc: SDEConsts, kv, route=None):
     return ybar, ybar_steps
 
 
-def ode_replay_bwd_split2(ys, cobar, st, w2, sc: SDEConsts, kv):
+def ode_replay_bwd_split2(ys, cobar, st, w2, sc: SDEConsts, kv, route=None):
     """The kernel-mode reverse sweep of the split2 replay
     (``ode_replay_fwd_split2``): ys (n, B, 3P) the step-start states, cobar
     (n, 5, B, 3P) the cotangents of the dense rows, ``w2`` the two-term
@@ -1149,8 +1175,15 @@ def ode_replay_bwd_split2(ys, cobar, st, w2, sc: SDEConsts, kv):
     d iwT (n_in, P)): each step's seven drift VJPs add their weight
     cotangents, contracted over the batch and rounded to bf16, into the
     step's two bf16 accumulators, folded once per step (``split2_fold``)
-    and summed over the steps in float32. On the card B8s, one team of 8
-    blocks for the batch (``ode_bwd_route`` with two terms)."""
+    and summed over the steps in float32. On the card B8s, the kernel-mode
+    sweep's cluster team for the batch on the two terms
+    (``cf_ode_replay_bwd_split2_ksweep``) where its plan fits, else the
+    8-block team (``cf_ode_replay_bwd_split2``), as ``ode_bwd_route(...,
+    terms=2)`` decides by shape before the launch. ``route`` ("resident",
+    "streamed" or "team8", the yardstick) runs that kernel at any shape it
+    takes."""
+    if route is not None and route not in ODE_TEAM_ROUTES:
+        raise ValueError(f"route must be one of {ODE_TEAM_ROUTES}, got {route!r}")
     n, B, S = ys.shape
     P, n_in, K = S // 3, kv.shape[2], kv.shape[0]
     named = {"ys": (ys, _F32, (n, B, S)), "cobar": (cobar, _F32, (n, 5, B, S)),
@@ -1158,14 +1191,29 @@ def ode_replay_bwd_split2(ys, cobar, st, w2, sc: SDEConsts, kv):
              **_replay_named(st, n)}
     if not _on_cuda(ys, named):
         return _ode_replay_bwd_plain(ys, cobar, st, w2, sc, kv)
+    route, plan = _ksweep_route(route, P, n_in, B, NT=2)
     dev = ys.device
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     d_wT = torch.empty((P, P), dtype=_F32, device=dev)
     d_iwT = torch.empty((n_in, P), dtype=_F32, device=dev)
-    scratch = torch.empty((16, B, S), dtype=_F32, device=dev)
-    work = torch.empty((2 * P + n_in, P), dtype=_F32, device=dev)  # hi, mid and the iwT sum
     hc, hc_p = _host_floats(_drift_host_consts(sc))
     bg, adapt, kvp = _consts(sc, kv)
+    if plan is not None:
+        wpk = ode_team_pack(w2, P, plan)
+        # the step's accumulators and d wT of each block's columns, where
+        # shared memory does not hold them
+        work = (None if plan.accs else torch.empty(
+            (plan.C, t3k_planes(2, KSWEEP), plan.nc, P), dtype=_F32, device=dev))
+        _check(_lib().cf_ode_replay_bwd_split2_ksweep(
+            B, P, n_in, K, hc_p, n, int(plan.stream), bg, adapt, wpk.data_ptr(),
+            w2["iwT"].data_ptr(), kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),
+            ybar.data_ptr(), d_wT.data_ptr(), d_iwT.data_ptr(),
+            None if work is None else work.data_ptr(), _stream(ys)),
+            "ode_replay_bwd_split2_ksweep")
+        LAUNCHES["ode_replay_bwd_split2_ksweep"] += 1
+        return ybar, d_wT, d_iwT
+    scratch = torch.empty((16, B, S), dtype=_F32, device=dev)
+    work = torch.empty((2 * P + n_in, P), dtype=_F32, device=dev)  # hi, mid and the iwT sum
     _check(_lib().cf_ode_replay_bwd_split2(
         B, P, n_in, K, hc_p, n, bg, adapt, *(t.data_ptr() for t in _terms_and_transposes(w2, _W2)),
         w2["iwT"].data_ptr(), kvp, st.data_ptr(), ys.data_ptr(), cobar.data_ptr(),

@@ -4,8 +4,9 @@ kernels B5, B3 and B4 of ``columnflow/solvers``, and of the XLA selection
 loop ``_adaptive_pass`` as a kernel).
 
 Each kernel is CUDA C++ in ``csrc/network_sde.cu`` or, for the
-selection's cluster teams, ``csrc/sde_select_team.cu`` and, for
-B3t-team's and B4t's, ``csrc/sde3_replay_team.cu`` (built by ``_build``)
+selection's cluster teams, ``csrc/sde_select_team.cu``, for B3t-team's and
+B4t's, ``csrc/sde3_replay_team.cu`` and, for B4't's cluster team,
+``csrc/sde3_ksweep_team.cu`` (built by ``_build``)
 with a plain PyTorch version beside it that repeats its arithmetic:
 
     wrapper         kernel              plain version      replaces (columnflow/solvers/)
@@ -25,9 +26,11 @@ with a plain PyTorch version beside it that repeats its arithmetic:
                                                            cluster team, B3t-team: ``sde3_fwd_route``,
                                                            ``sde3_team_route``; route "team8":
                                                            cf_sde3_fwd_team_team8)
-    replay3_bwd     cf_sde3_bwd         _replay3_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
-                    (cf_sde3_bwd_team)                     three-term split (B4't; as a team,
-                                                           B4't-team: ``sde3_bwd_route``)
+    replay3_bwd     cf_sde3_bwd_ksweep  _replay3_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
+                    (cf_sde3_bwd,                          three-term split (B4't: one cluster team
+                    cf_sde3_bwd_team)                      for the batch, ``sde3_bwd_route``; route
+                                                           "block": the one-block yardstick; past it
+                                                           B4't-team)
     replay3_bwd_emit
                     cf_sde3_bwd_emit    _replay3_bwd_emit_plain
                                                            the same body, emit mode, three-term
@@ -55,11 +58,15 @@ on a cluster of 8 or 16 blocks, each block holding its columns of the
 weights in shared memory (``sde_select_pack``, ``sde2_pack``: the
 wrapper packs them per block on every call; streamed through a ring of
 tiles where they do not fit, ``sde2_replay_route``). The
-three-term kernel-mode reverse sweep holds the batch in one block, because
+three-term kernel-mode reverse sweep holds the batch on one team, because
 jax.vjp contracts each weight cotangent over the lanes before rounding it
-to bf16, or, where the batch and the weights do not fit a block (from ~20
-columns at 4 lanes), in one team of 8 blocks, each forming the weight
-cotangents of its own output columns. Where the three-term weights do not
+to bf16: through 19 columns at 4 lanes one cluster of 8 (or 16) blocks
+(csrc/ode_team.cuh ``sde3_ksweep16_kernel``, the plan
+``network_ode.ode_team_plan(..., SDE_KSWEEP)``), each block holding its
+columns of the three terms in shared memory and forming the weight
+cotangents of its own output columns (the one-block kernel it replaced
+stays behind ``route="block"``), and from ~20 columns one team of 8 blocks
+(B4't-team) reading the weights from L2. Where the three-term weights do not
 fit a block (from ~24 columns), the forward and the emit-mode sweep (at
 every width) run each lane on a cluster of 16 (or 8) blocks, each block's
 columns of the three terms, or of the float32 wT, in shared memory
@@ -120,7 +127,7 @@ LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_select_block": 0, "sde_attem
             "sde_replay_fwd": 0, "sde_replay_bwd": 0,
             "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0,
             "sde3_bwd_team": 0, "sde2_bwd": 0, "sde2_fwd_team8": 0, "sde2_bwd_team8": 0,
-            "sde3_fwd_team_team8": 0, "sde3_bwd_emit_team8": 0}
+            "sde3_fwd_team_team8": 0, "sde3_bwd_emit_team8": 0, "sde3_bwd_ksweep": 0}
 # What a thread block can hold (sm_90: 227 KB of shared memory), and the
 # kernels' layout constants (csrc/network_drift.cuh kThreads, kMaxInputs).
 SMEM_BLOCK_BYTES = 232448
@@ -1258,37 +1265,79 @@ def replay3_bwd_emit(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, pw,
     return ybar, seeds
 
 
+def sde3_block_fits(P: int, n_in: int, B: int) -> bool:
+    """Whether the one-block B4't (``cf_sde3_bwd``) holds the batch: the
+    three-term weights (6 P^2 bytes), iwT, the drift's scratch for B lanes
+    (``setup_floats`` of csrc/split3_drift.cuh), the sweep's eight (B, 3P)
+    buffers, four lane scalars and two (n_in, P) accumulators within the
+    232,448 bytes of shared memory a block can use. With 4 inputs and 4
+    lanes: through 19 columns (P = 152); fewer lanes move the edge up, more
+    move it down."""
+    floats = ((3 * P * P + 1) // 2 + n_in * P + 5 * B * P + B * _MAX_INPUTS + 1
+              + 2 * (_THREADS // 32) + 8 * B * 3 * P + 4 * B + 2 * n_in * P)
+    return 4 * floats <= SMEM_BLOCK_BYTES
+
+
 def sde3_bwd_route(P: int, n_in: int, B: int, terms: int = 3) -> str:
     """Which kernel computes the kernel-mode sweep on the card, by shape
     alone. On the two-term split (``terms`` 2, ``replay2_bwd``) always
     "team" (B4s): there is no one-block two-term sweep. On the three-term
-    split (``replay3_bwd``):
-    "block" (B4't, ``cf_sde3_bwd``) where the three-term weights (6 P^2
-    bytes), iwT, the drift's scratch for B lanes (``setup_floats`` of
-    csrc/split3_drift.cuh), the sweep's eight (B, 3P) buffers, four lane
-    scalars and two (n_in, P) accumulators fit the 232,448 bytes of shared
-    memory a block can use, else "team" (B4't-team, ``cf_sde3_bwd_team``:
-    the batch on one team of 8 blocks, the weights streamed from L2). With
-    4 inputs and 4 lanes that is "block" through 19 columns (P = 152) and
-    "team" from 20; fewer lanes move the edge up, more move it down."""
+    split (``replay3_bwd``), where the one-block B4't holds the batch
+    (``sde3_block_fits``): "resident" or "streamed", B4't as one cluster
+    team for the batch (``cf_sde3_bwd_ksweep``, as ``network_ode.
+    ode_team_plan(P, n_in, B, 3, SDE_KSWEEP)`` holds the weights) wherever
+    that plan fits, else "block" (``cf_sde3_bwd``, the batch in one block,
+    the yardstick); past the one block "team" (B4't-team,
+    ``cf_sde3_bwd_team``: the batch on one team of 8 blocks, the weights
+    streamed from L2). With 4 inputs and 4 lanes that is "resident" through
+    19 columns and "team" from 20."""
     if terms not in (2, 3):
         raise ValueError(f"terms must be 2 or 3, got {terms}")
     if terms == 2:
         return "team"
-    floats = ((3 * P * P + 1) // 2 + n_in * P + 5 * B * P + B * _MAX_INPUTS + 1
-              + 2 * (_THREADS // 32) + 8 * B * 3 * P + 4 * B + 2 * n_in * P)
-    return "block" if 4 * floats <= SMEM_BLOCK_BYTES else "team"
+    if not sde3_block_fits(P, n_in, B):
+        return "team"
+    no = _ode()
+    plan = no.ode_team_plan(P, n_in, B, 3, no.SDE_KSWEEP)
+    if plan.fits:
+        return "streamed" if plan.stream else "resident"
+    return "block"
+
+
+# The routes of ``replay3_bwd``: the cluster team for the batch ("resident",
+# "streamed"), the one-block B4't ("block") and B4't-team ("team").
+SDE3_BWD_ROUTES = ("resident", "streamed", "block", "team")
+
+
+def _sde3_ksweep_route(route, P, n_in, B):
+    """(route, plan) of a ``replay3_bwd`` launch on the card: ``route`` or
+    the shape's default (``sde3_bwd_route``); the plan None for "block" and
+    "team". Raises where the cluster team asked for does not take the
+    shape."""
+    route = route or sde3_bwd_route(P, n_in, B)
+    if route in ("block", "team"):
+        return route, None
+    no = _ode()
+    plan = no.ode_team_plan(P, n_in, B, 3, no.SDE_KSWEEP, stream=route == "streamed")
+    if not plan.fits or (route == "resident" and plan.stream):
+        raise ValueError(f"no {route} kernel-mode sweep team takes P={P} with {B} lanes "
+                         f"({'streamed' if plan.fits else 'block or team'} does)")
+    return route, plan
 
 
 def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: int, pw,
-                sc: SDEConsts, kv):
+                sc: SDEConsts, kv, route=None):
     """The kernel-mode reverse sweep of ``replay3_fwd``: ys_prev (n, B, 3P)
     the states before each step, ysbar (n, B, 3P) the direct cotangents on
     each step's output. Returns (ybar (B, 3P) before step 0, d wT, d iwT).
     ``stride``: truncation (0: none); ``chunk``: the steps whose weight
     cotangents the JAX kernel sums before adding them to the total. On the
-    card B4't or B4't-team, as ``sde3_bwd_route`` decides by shape before
-    the launch."""
+    card B4't as one cluster team for the batch, the one-block B4't or
+    B4't-team, as ``sde3_bwd_route`` decides by shape before the launch;
+    ``route`` (one of ``SDE3_BWD_ROUTES``) runs that kernel at any shape it
+    takes ("block": the yardstick)."""
+    if route is not None and route not in SDE3_BWD_ROUTES:
+        raise ValueError(f"route must be one of {SDE3_BWD_ROUTES}, got {route!r}")
     n, B, S = ys_prev.shape
     P = S // 3
     if chunk < 1:
@@ -1298,19 +1347,36 @@ def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: i
     if not _on_cuda(ys_prev, named):
         return _replay3_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, chunk, pw, sc,
                                   kv)
+    route, plan = _sde3_ksweep_route(route, P, kv.shape[2], B)
     dev = ys_prev.device
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     d_wT = torch.empty((P, P), dtype=_F32, device=dev)
     d_iwT = torch.empty((kv.shape[2], P), dtype=_F32, device=dev)
     hc, hc_p = _host_floats(_drift_host_consts(sc))
-    if sde3_bwd_route(P, kv.shape[2], B) == "team":
+    head = (B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
+            int(stride or 0), int(chunk))
+    if plan is not None:
+        no = _ode()
+        wpk = _sde3_pack(pw, sc, P, plan)
+        # the step's accumulators, d wT and the chunk partial of each block's
+        # columns, where shared memory does not hold them
+        work = (None if plan.accs else torch.empty(
+            (plan.C, no.t3k_planes(3, no.SDE_KSWEEP), plan.nc, P), dtype=_F32, device=dev))
+        _check(_lib().cf_sde3_bwd_ksweep(
+            *head, int(plan.stream), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
+            wpk.data_ptr(), pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(),
+            i10.data_ptr(), ys_prev.data_ptr(), ysbar.data_ptr(), ybar.data_ptr(),
+            d_wT.data_ptr(), d_iwT.data_ptr(), None if work is None else work.data_ptr(),
+            _stream(ys_prev)), "sde3_bwd_ksweep")
+        LAUNCHES["sde3_bwd_ksweep"] += 1
+        return ybar, d_wT, d_iwT
+    if route == "team":
         terms = _split3_terms(pw, sc)
         hiT, midT, loT = (t.T.contiguous() for t in terms)
         scr = torch.empty((7, B, S), dtype=_F32, device=dev)
         work = torch.empty((P + kv.shape[2], P), dtype=_F32, device=dev)
         _check(_lib().cf_sde3_bwd_team(
-            B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
-            int(stride or 0), int(chunk), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
+            *head, sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
             *(t.data_ptr() for t in terms), hiT.data_ptr(), midT.data_ptr(), loT.data_ptr(),
             pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(),
             ys_prev.data_ptr(), ysbar.data_ptr(), scr.data_ptr(), ybar.data_ptr(),
@@ -1320,8 +1386,7 @@ def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: i
         return ybar, d_wT, d_iwT
     work = torch.empty((4, P, P), dtype=_F32, device=dev)
     _check(_lib().cf_sde3_bwd(
-        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
-        int(stride or 0), int(chunk), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
+        *head, sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
         pw["wT"].data_ptr(), pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(),
         hs.data_ptr(), i10.data_ptr(), ys_prev.data_ptr(), ysbar.data_ptr(), ybar.data_ptr(),
         d_wT.data_ptr(), d_iwT.data_ptr(), work.data_ptr(), _stream(ys_prev)), "sde3_bwd")

@@ -744,7 +744,8 @@ def test_jax_tree_attempt_kernel_matches_plain_bit_for_bit(dev):
 def test_sde3_kernels_match_plain_bit_for_bit(dev, lanes):
     """B3t and B4't at 13 columns: per-lane grids (a selection's, with the
     jax.random tree's noise, the padding past the longest lane skipped) or
-    the uniform grid (every lane the same times)."""
+    the uniform grid (every lane the same times); B4't on its shape's route,
+    the cluster team for the batch."""
     from columnflow_torch.solvers.fused import uniform_step_times
 
     d, words, cfg, w, pw = _jax_inputs(dev, (8, 4, 1), T=100)
@@ -771,7 +772,7 @@ def test_sde3_kernels_match_plain_bit_for_bit(dev, lanes):
     got = ns.replay3_bwd(*bwd)
     torch.cuda.synchronize()
     assert ns.LAUNCHES["sde3_fwd"] == before["sde3_fwd"] + 1
-    assert ns.LAUNCHES["sde3_bwd"] == before["sde3_bwd"] + 1
+    assert ns.LAUNCHES["sde3_bwd_ksweep"] == before["sde3_bwd_ksweep"] + 1
     assert torch.equal(ys, ns._replay3_fwd_plain(y0, *fwd))
     for g, p in zip(got, ns._replay3_bwd_plain(*bwd)):
         assert torch.isfinite(g).all() and torch.equal(g, p)
@@ -824,7 +825,7 @@ def test_stochastic_13_column_steps_on_cuda_match_cpu(dev, adaptive, monkeypatch
         rec, grads, task, noise = step_on(dev)
         torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
-    want = {"sde3_fwd": 1, "sde3_bwd": 1}
+    want = {"sde3_fwd": 1, "sde3_bwd_ksweep": 1}
     if adaptive:
         want["sde_select"] = 1
     assert launched == want
@@ -1193,11 +1194,13 @@ def test_sde3_bwd_team_matches_plain_bit_for_bit(dev, cpa, lanes):
 
 @pytest.mark.parametrize("lanes", [False, True])
 def test_sde3_bwd_team_equals_the_one_block_sweep(dev, lanes, monkeypatch):
-    """At 13 columns both kernel-mode sweeps fit: B4't-team and B4't agree
-    bit for bit over 40 steps (truncation every 16, chunk 10)."""
+    """At 13 columns every kernel-mode sweep fits: B4't-team, the one-block
+    B4't (route "block") and the cluster team for the batch (the shape's
+    route) agree bit for bit over 40 steps (truncation every 16, chunk
+    10)."""
     d = _net_inputs(dev, cpa=(8, 4, 1), T=1000)
     gen, B, P = d["gen"], 4, d["P"]
-    assert ns.sde3_bwd_route(P, 4, B) == "block"
+    assert ns.sde3_bwd_route(P, 4, B) == "resident" and ns.sde3_block_fits(P, 4, B)
     params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=(8, 4, 1),
                                           n_inputs=4, device=dev)
     pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
@@ -1207,14 +1210,16 @@ def test_sde3_bwd_team_equals_the_one_block_sweep(dev, lanes, monkeypatch):
     ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
     bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n, 16, 10, pw, d["sc"], d["kv"])
     before = dict(ns.LAUNCHES)
-    block = ns.replay3_bwd(*bwd)
+    block = ns.replay3_bwd(*bwd, route="block")
     monkeypatch.setattr(ns, "sde3_bwd_route", lambda *a: "team")
     team = ns.replay3_bwd(*bwd)
+    cluster = ns.replay3_bwd(*bwd, route="resident")
     assert ns.LAUNCHES["sde3_bwd"] == before["sde3_bwd"] + 1
     assert ns.LAUNCHES["sde3_bwd_team"] == before["sde3_bwd_team"] + 1
+    assert ns.LAUNCHES["sde3_bwd_ksweep"] == before["sde3_bwd_ksweep"] + 1
     torch.cuda.synchronize()
-    for a, b in zip(team, block):
-        assert torch.equal(a, b)
+    for a, b, c in zip(team, block, cluster):
+        assert torch.equal(a, b) and torch.equal(c, b)
 
 
 @pytest.mark.parametrize("flags", [dict(grad_bf16=True), dict(fused_pass=True),
@@ -1264,7 +1269,7 @@ def test_lanes_outer_adaptive_step_on_cuda_matches_cpu(dev, flags, monkeypatch):
     launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
     kernel_mode = "fused_pass" in flags
     assert launched == {"sde_select": 1, "sde3_fwd": 1,
-                        ("sde3_bwd" if kernel_mode else "sde3_bwd_emit"): 1}
+                        ("sde3_bwd_ksweep" if kernel_mode else "sde3_bwd_emit"): 1}
     st = rec["stats"]
     grid = tuple(x.cpu() for x in (st.step_times, st.naccept, st.nreject))
     rec_c, grads_c = step_on(torch.device("cpu"), params0, grid)
@@ -1821,19 +1826,105 @@ def test_ksweep_routes_refuse_what_they_do_not_take(dev):
     assert not bool(ybar.any()) and not bool(d_wT.any()) and not bool(d_iwT.any())
 
 
+# B8s as the kernel-mode sweep's cluster team on the two-term split
+# (ode_ksweep16_kernel<2, *, *>): (columns, lanes) -> the accepted steps of
+# its window
+KSWEEP2_CASES = {(13, 4): 48, (32, 4): 32, (63, 4): 12, (13, 1): 32, (13, 16): 16,
+                 (32, 16): 12}
+
+
+@pytest.mark.parametrize("columns,B", sorted(KSWEEP2_CASES))
+def test_b8s_ksweep_team_equals_plain_and_team8(dev, columns, B):
+    """B8s's cluster team at 13, 32 and 63 columns, 1, 4 and 16 lanes, on
+    its shape's route and on "streamed": ybar0, d wT and d iwT bit for bit
+    against the plain version on the two-term split and against the 8-block
+    B8s (route "team8", the yardstick); one launch of the team a sweep."""
+    d = _ksweep_window(dev, columns, B, KSWEEP2_CASES[columns, B])
+    P = d["P"]
+    w2 = _w2(d["pw"], d["sc"])
+    plan = no.ode_team_plan(P, 4, B, 2, no.KSWEEP)
+    assert plan.fits and no.ode_bwd_route(P, 4, B, terms=2) == (
+        "streamed" if plan.stream else "resident")
+    args = (d["ys"], d["cobar"], d["stn"], w2, d["sc"], d["kv"])
+    want = no._ode_replay_bwd_plain(*args)
+    for route in [None] + ([] if plan.stream else ["resident"]) + ["streamed"]:
+        before = dict(no.LAUNCHES)
+        got = no.ode_replay_bwd_split2(*args, route=route)
+        torch.cuda.synchronize()
+        launched = {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]}
+        assert launched == {"ode_replay_bwd_split2_ksweep": 1}, (route, launched)
+        for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
+            assert torch.isfinite(g).all() and torch.equal(g, w), (route, name)
+    before = no.LAUNCHES["ode_replay_bwd_split2"]
+    old = no.ode_replay_bwd_split2(*args, route="team8")
+    torch.cuda.synchronize()
+    assert no.LAUNCHES["ode_replay_bwd_split2"] == before + 1
+    for g, w, name in zip(got, old, ("ybar", "d_wT", "d_iwT")):
+        assert torch.equal(g, w), name
+    assert bool(got[1].any())
+
+
+SDE_KSWEEP_CPA = {13: (8, 4, 1), 17: (8, 6, 3), 19: (8, 6, 5)}
+
+
+@pytest.mark.parametrize("columns,lanes,B", [(13, True, 4), (13, False, 4), (17, True, 4),
+                                             (17, False, 4), (19, True, 4), (19, False, 4),
+                                             (13, True, 1), (13, True, 8)])
+def test_sde3_ksweep_team_equals_plain_and_the_block(dev, columns, lanes, B):
+    """B4't as one cluster team for the batch at 13, 17 and 19 columns on
+    per-lane and uniform grids (4 lanes; 1 and 8 at 13 columns), over 40
+    steps (the last two padding, truncation every 16, chunk 10), on its
+    shape's route and on "streamed": ybar, d wT and d iwT bit for bit
+    against the plain version and the one-block B4't (route "block", the
+    yardstick); one launch of the team a sweep."""
+    d = _net_inputs(dev, cpa=SDE_KSWEEP_CPA[columns], T=1000, B=B)
+    gen, P = d["gen"], d["P"]
+    assert ns.sde3_bwd_route(P, 4, B) == "resident"
+    params, net = nw.build_column_network(ColumnConfig.load(), gen,
+                                          columns_per_area=SDE_KSWEEP_CPA[columns], n_inputs=4,
+                                          device=dev)
+    pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
+    n = 40
+    t0s, hs, dw, i10 = _team_grid(dev, gen, B, P, n, lanes, d["ts"])
+    ys = ns.replay3_fwd(_states(gen, B, P, dev), t0s, hs, dw, i10, n - 2, pw, d["sc"], d["kv"])
+    ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n - 2, 16, 10, pw, d["sc"], d["kv"])
+    want = ns._replay3_bwd_plain(*bwd)
+    for route in (None, "streamed"):
+        before = dict(ns.LAUNCHES)
+        got = ns.replay3_bwd(*bwd, route=route)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+        assert launched == {"sde3_bwd_ksweep": 1}, (route, launched)
+        for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
+            assert torch.isfinite(g).all() and torch.equal(g, w), (route, name)
+    before = ns.LAUNCHES["sde3_bwd"]
+    block = ns.replay3_bwd(*bwd, route="block")
+    torch.cuda.synchronize()
+    assert ns.LAUNCHES["sde3_bwd"] == before + 1
+    for g, w, name in zip(got, block, ("ybar", "d_wT", "d_iwT")):
+        assert torch.equal(g, w), name
+    assert bool(got[1].any())
+    with pytest.raises(ValueError, match="route"):
+        ns.replay3_bwd(*bwd, route="team8")
+
+
 @pytest.mark.parametrize("columns", [13, 18, 32, 63, 104, 151, 312])
 def test_ode_team_plan_is_the_librarys(dev, columns):
-    """``ode_team_plan``, which the wrappers, ``ode_team_route`` and
-    ``ode_bwd_route`` read, equals the plan the library launches with
-    (``cf_ode_team_plan``) for the selection's 1, 4 and 16 lanes, the
-    emit-mode sweep's two and three terms and the kernel-mode sweep's 1, 4
-    and 16 lanes."""
+    """``ode_team_plan``, which the wrappers, ``ode_team_route``,
+    ``ode_bwd_route`` and ``sde3_bwd_route`` read, equals the plan the
+    library launches with (``cf_ode_team_plan``) for the selection's 1, 4
+    and 16 lanes, the emit-mode sweep's two and three terms, the kernel-mode
+    sweep's 1, 4 and 16 lanes on three terms (B8, B8t-team) and on two
+    (B8s), and the SDE's kernel-mode sweep's 1, 4 and 8 lanes (B4't)."""
     import ctypes
 
     P, out = 8 * columns, (ctypes.c_longlong * 23)()
     for NB, NT, use in ((1, 3, no.SELECT), (4, 3, no.SELECT), (16, 3, no.SELECT),
                         (1, 2, no.SWEEP), (1, 3, no.SWEEP), (1, 3, no.KSWEEP),
-                        (4, 3, no.KSWEEP), (16, 3, no.KSWEEP)):
+                        (4, 3, no.KSWEEP), (16, 3, no.KSWEEP), (1, 2, no.KSWEEP),
+                        (4, 2, no.KSWEEP), (16, 2, no.KSWEEP), (1, 3, no.SDE_KSWEEP),
+                        (4, 3, no.SDE_KSWEEP), (8, 3, no.SDE_KSWEEP)):
         for stream in (False, True):
             assert no._lib().cf_ode_team_plan(P, 4, NB, NT, use, 0, int(stream), out) == 0
             want = tuple(int(v) for v in no.ode_team_plan(P, 4, NB, NT, use, stream))
@@ -1958,11 +2049,11 @@ def test_split2_kernel_mode_b8s_equals_plain(dev, cpa):
     """B7 split2 on the first 16 accepted steps of the selection at 13, 32
     and 63 columns, and B8s over them with random cotangents of the dense
     rows: ys, rows, ybar0, d wT and d iwT bit for bit, one launch each (B8s
-    takes the team at every width: 13 populations per block at 13
-    columns)."""
+    takes the kernel-mode sweep's cluster team on two terms at every one of
+    these widths: 13 populations per block at 13 columns)."""
     d = _exact(dev, cpa)
     w2 = _w2(d["pw"], d["sc"])
-    assert no.ode_bwd_route(d["P"], 4, 4, terms=2) == "team"
+    assert no.ode_bwd_route(d["P"], 4, 4, terms=2) == "resident"
     stn = d["st"][:17].contiguous()
     before = dict(no.LAUNCHES)
     ys, co = no.ode_replay_fwd_split2(d["y0"], stn, w2, d["sc"], d["kv"])
@@ -1973,7 +2064,7 @@ def test_split2_kernel_mode_b8s_equals_plain(dev, cpa):
     want = no._ode_replay_bwd_plain(ys, cobar, stn, w2, d["sc"], d["kv"])
     torch.cuda.synchronize()
     assert {k: no.LAUNCHES[k] - before[k] for k in before if no.LAUNCHES[k] != before[k]} == {
-        "ode_replay_fwd_split2": 1, "ode_replay_bwd_split2": 1}
+        "ode_replay_fwd_split2": 1, "ode_replay_bwd_split2_ksweep": 1}
     assert torch.isfinite(co).all() and torch.equal(ys, ys_p) and torch.equal(co, co_p)
     for g, w, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
         assert torch.isfinite(g).all() and torch.equal(g, w), name
@@ -2052,7 +2143,7 @@ def test_split2_kernel_mode_steps_on_cuda_match_cpu(dev, stochastic, monkeypatch
     launched = {k: v - before[k] for k, v in mod.LAUNCHES.items() if v != before[k]}
     assert launched == ({"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd": 1} if stochastic
                         else {"ode_select": 1, "ode_replay_fwd_split2": 1,
-                              "ode_replay_bwd_split2": 1})
+                              "ode_replay_bwd_split2_ksweep": 1})
     st = rec["stats"]
     if stochastic:
         grid = tuple(x.cpu() for x in (st.step_times, st.naccept, st.nreject))

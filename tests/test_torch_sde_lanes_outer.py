@@ -30,6 +30,7 @@ from columnflow.tasks import parity as jpt
 from columnflow.train import mask_grads as j_mask_grads
 from columnflow_torch.config import ColumnConfig
 from columnflow_torch.convert import lane_key_words, network_from_jax
+from columnflow_torch.kernels import network_ode as no
 from columnflow_torch.kernels import network_sde as ns
 from columnflow_torch.solvers import fused as tf
 from columnflow_torch.solvers import sde_adaptive as tsa
@@ -223,22 +224,27 @@ def test_gradbf16_substitute_on_the_uniform_grid_raises():
 
 
 @pytest.mark.parametrize("cols,lanes,want", [
-    (13, 4, "block"), (19, 4, "block"), (20, 4, "team"), (24, 4, "team"), (32, 4, "team"),
-    (63, 4, "team"),
+    (13, 4, "resident"), (19, 4, "resident"), (20, 4, "team"), (24, 4, "team"),
+    (32, 4, "team"), (63, 4, "team"),
     # The edge moves with the batch: fewer lanes fit more columns.
-    (21, 2, "block"), (24, 2, "team"), (13, 1, "block"), (19, 8, "team"), (13, 8, "block")])
+    (21, 2, "resident"), (24, 2, "team"), (13, 1, "resident"), (19, 8, "team"),
+    (13, 8, "resident")])
 def test_kernel_mode_sweep_is_chosen_by_shape(cols, lanes, want):
-    """``replay3_bwd`` takes the one-block B4't where the three-term weights,
-    iwT, the drift's scratch for every lane and the sweep's eight (B, 3P)
-    buffers fit a block's 227 KB of shared memory (4 inputs, 4 lanes:
-    through 19 columns), B4't-team otherwise."""
+    """``replay3_bwd`` takes B4't where the one-block B4't's three-term
+    weights, iwT, the drift's scratch for every lane and the sweep's eight
+    (B, 3P) buffers fit a block's 227 KB of shared memory (4 inputs, 4
+    lanes: through 19 columns), as one cluster team for the batch (its
+    plan's slice "resident" at all these shapes; the one block stays behind
+    route "block"), B4't-team otherwise."""
     assert ns.sde3_bwd_route(8 * cols, 4, lanes) == want
 
 
 def test_kernel_mode_sweep_route_counts_the_kernels_bytes():
     """The route's byte count is ``cf_sde3_bwd``'s: ``setup_floats`` of
     csrc/split3_drift.cuh for B lanes, 8 B 3P floats, 4 B lane scalars and
-    two (n_in, P) accumulators, against 232,448 bytes."""
+    two (n_in, P) accumulators, against 232,448 bytes; where they fit, the
+    route is the cluster team's (its plan's "resident" or "streamed", or
+    "block" where no team plan fits), else "team"."""
     def floats(P, n_in, nb):
         setup = (3 * P * P + 1) // 2 + n_in * P + 5 * nb * P + nb * 16 + 1 + 2 * (512 // 32)
         return setup + 8 * nb * 3 * P + 4 * nb + 2 * n_in * P
@@ -246,7 +252,11 @@ def test_kernel_mode_sweep_route_counts_the_kernels_bytes():
     for P in range(8, 8 * 64, 8):
         for nb in (1, 2, 4, 8):
             fits = 4 * floats(P, 4, nb) <= ns.SMEM_BLOCK_BYTES
-            assert ns.sde3_bwd_route(P, 4, nb) == ("block" if fits else "team"), (P, nb)
+            assert ns.sde3_block_fits(P, 4, nb) == fits, (P, nb)
+            team = no.ode_team_plan(P, 4, nb, 3, no.SDE_KSWEEP)
+            want = ((("streamed" if team.stream else "resident") if team.fits else "block")
+                    if fits else "team")
+            assert ns.sde3_bwd_route(P, 4, nb) == want, (P, nb)
     assert ns.SMEM_BLOCK_BYTES == 232448
 
 
