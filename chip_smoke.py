@@ -181,7 +181,8 @@ The exact three-term stochastic-adaptive step at 104 columns (--stochastic
 32, clip 1.0, loss scale 1e-6: the jax.random tree's selection on the
 float32 drift, B3t-team and B4t in lanes mode, the exact outer pass on the
 lanes' own step times), with --fused-pass (B5t) and --grad-bf16, and the
-kernel-mode steps at 32 columns (B4't-team):
+kernel-mode steps at 32 columns (B4't as one cluster team for the batch,
+where B4't-team ran before):
 35. kernel vs plain, bit for bit: the f32 selection of 4 lanes over 25
    grid points and 8 attempts along its replay; B3t-team and B4t over that
    selection's whole lanes grid; B4t lanes at 13 columns. The cluster
@@ -191,11 +192,13 @@ kernel-mode steps at 32 columns (B4't-team):
 36. B5t against its plain version, bit for bit: the whole selection at 13
    columns over 25 points of the second, at 104 columns over 25 points
    and 8 attempts.
-37. B4't-team against its plain version, bit for bit, at 32 and 63 columns
-   on a 64-step uniform window and a lanes window; against B4't at 13.
-   B3t-team at 32 columns on that uniform window against its plain
-   version, bit for bit; the teams' routes at 32 columns on a 256-step
-   uniform window.
+37. B4't's cluster team against its plain version and against B4't-team
+   (route "team", the yardstick), bit for bit, at 20, 32 and 63 columns on
+   64-step uniform and lanes windows, each from the zero state and from the
+   middle of its grid (the elements that part from the team counted);
+   B4't-team against B4't and the team at 13. B3t-team at 32 columns on
+   the middle uniform window against its plain version, bit for bit; the
+   teams' routes at 32 columns on a 256-step uniform window.
 38. main path: one exact step over the full second, one launch each of the
    selection, B3t-team and B4t; card against CPU over 5 points (the loss
    within the larger of 1e-5 and ten times its nudge spread, each gradient
@@ -205,8 +208,10 @@ kernel-mode steps at 32 columns (B4't-team):
 39. --fused-pass and --grad-bf16 over 100 points: one step each, launches
    counted, card against CPU over 5 points; B5t's time.
 40. 32 columns over the full second: one --stochastic and one --stochastic
-   --adaptive step through B4't-team, card against CPU over 5 points;
-   B4't-team's time over the fixed grid.
+   --adaptive step through B4't's cluster team (one launch of
+   cf_sde3_bwd_ksweep each, none of B4't-team), card against CPU over 5
+   points; the team and B4't-team timed on each step's own sweep (the
+   fixed grid's 999 steps, the adaptive step's lanes), bit for bit.
 41. the five command lines of this path (run with the others at the end).
 The XOR stochastic-adaptive step (--stochastic --adaptive, and --fused
 --fused-pass; run after phase 19): 4 lanes of state 72, 1000 grid points
@@ -267,11 +272,14 @@ stochastic-adaptive split2 replay in kernel mode (``--stochastic --adaptive
 --engine fused-split2`` through 63 columns: the f32 selection on the
 jax.random tree, B3, B4s) and with the exact outer pass from 64 columns
 (B3, B4, ``outer_arg_grads_split2``); batch 4, 1000 grid points over 1 s:
-52. kernel vs plain, bit for bit, at 13, 32 and 63 columns: B7 split2 and
-   B8s on 32-step windows of the deterministic selection's grid over 100
-   points (early, middle and late at 32 columns, the middle elsewhere), B3
-   and B4s the same way on 32-half-step windows of the f32 selection's
-   lanes grid over 100 points.
+52. kernel vs plain, bit for bit, at 13, 20, 32 and 63 columns: B7 split2
+   and B8s on 32-step windows of the deterministic selection's grid over
+   100 points (early, middle and late at 32 columns, the middle elsewhere),
+   B3 and B4s the same way on 32-half-step windows of the f32 selection's
+   lanes grid over 100 points (the first, from the zero state, and the
+   middle elsewhere); B8s against its 8-block team, B4s's cluster team
+   against its 8-block team (route "team"), the elements that part
+   counted.
 53. main path: one deterministic split2 step at 32 columns over the full
    second (max_steps 16384), one stochastic-adaptive split2 step there
    (max_steps 3072, the command line's default: it ends before 1 s, as at
@@ -285,7 +293,9 @@ jax.random tree, B3, B4s) and with the exact outer pass from 64 columns
    (stochastic) and ten times the card's own spread under a 1e-7 nudge, a
    limit of at most 0.25.
 55. times: each kernel's bound and ns per serial step, the plain versions
-   on a middle window, the three steps' profiles over 100 points.
+   on a middle window, the three steps' profiles over 100 points; B8s's
+   and B4s's routes and yardsticks on 256-step windows, and B4s and its
+   8-block team on the 32-column step's whole sweep, bit for bit.
 56. the three command lines (--engine fused-split2 at 16,8,8; with
    --stochastic --adaptive there; and at 64,32,8 with --max-steps 16384).
 The Hopf MLP in outer mode (run after phase 56; batch 32, 1000 grid points
@@ -383,6 +393,7 @@ TEAM2_SOURCE = "columnflow_torch/kernels/csrc/replay2_team.cuh"  # B3, B4: clust
 # B3t-team, B4t: cluster teams per lane on ode_team.cuh
 SDE3_TEAM_SOURCE = "columnflow_torch/kernels/csrc/sde3_replay_team.cu"
 SDE3_KSWEEP_SOURCE = "columnflow_torch/kernels/csrc/sde3_ksweep_team.cu"
+SDE2_KSWEEP_SOURCE = "columnflow_torch/kernels/csrc/sde2_ksweep_team.cu"
 # Every window on which B3 and B4 are held against their plain versions, by
 # width: (max abs error, bit for bit, differing elements); the kernels line
 # reports the largest error over all of them.
@@ -706,6 +717,21 @@ def event_timed(module, names, log):
     for n, fn in saved.items():
         setattr(module, n, wrap(n, fn))
     return lambda: [setattr(module, n, fn) for n, fn in saved.items()]
+
+
+def capture_calls(module, name, store):
+    """Replace ``module.<name>`` by a wrapper that appends each call's
+    (args, kwargs) to ``store`` before it runs the original, so that a
+    kernel can be run again on a train step's own inputs; returns the
+    function that puts the original back."""
+    saved = getattr(module, name)
+
+    def call(*a, **k):
+        store.append((a, k))
+        return saved(*a, **k)
+
+    setattr(module, name, call)
+    return lambda: setattr(module, name, saved)
 
 
 def cuda_ms(fn, reps, warmup=1, device_time=False):
@@ -4258,12 +4284,13 @@ def fixedgrid104_phases(dev, cfg):
 # three-term split, its weight gradients outside the sweep on the lanes'
 # own step times), with --fused-pass (B5t: the selection on the three-term
 # split, krng tree) and --grad-bf16 (the gradbf16 substitute); and the
-# kernel-mode step past one block's capacity at 32 columns (B4't-team).
+# kernel-mode steps at 32 columns (B4't as one cluster team for the batch).
 EXACT = dict(stochastic=True, adaptive=True, bptt_every=32, clip_grad_norm=1.0,
              loss_scale=1e-6)
 EX_CPA = (64, 32, 8)
 EX_13_CPA = (8, 4, 1)
-EX_32_CPA = (16, 8, 8)   # 32 columns: B4't-team on the command line's path
+EX_20_CPA = (10, 6, 4)   # 20 columns: the first width past the one-block B4't
+EX_32_CPA = (16, 8, 8)   # 32 columns: the kernel-mode steps' width
 EX_63_CPA = (32, 24, 7)  # 63 columns: the widest kernel-mode width
 EX_W = 64                # half steps of each kernel-mode sweep window
 # Grid points of B5t's whole selection at 13 columns held against its plain
@@ -4295,7 +4322,7 @@ def exact104_phases(dev, cfg):
     """Phases 35-41: the exact three-term stochastic-adaptive step at 104
     columns (and with --fused-pass, --grad-bf16), the kernel-mode step at
     32 columns; returns the entries of the f32 selection at 104 columns,
-    B3t-team and B4t in lanes mode, B5t and B4't-team."""
+    B3t-team and B4t in lanes mode, B5t and B4't at 32 columns."""
     import torch
 
     from columnflow_torch.data import make_parity_batch
@@ -4479,41 +4506,66 @@ def exact104_phases(dev, cfg):
          max_abs_err=errs["sde_select_krng_split3"],
          plain_ms={k: v for k, v in plain_ms.items() if "split3" in k})
 
-    # -- 37. B4't-team against its plain version at 32 and 63 columns (the
-    # uniform grid and a lanes window), and against B4't at 13 columns -----------------
+    # -- 37. B4't as one cluster team for the batch where B4't-team ran (20, 32 and
+    # 63 columns) against its plain version and B4't-team (route "team", the
+    # yardstick), on the uniform grid and a lanes window, each from the zero
+    # state (the grids' first EX_W steps) and from the middle of the grid; at 13
+    # columns the team and B4't-team against the one block and the plain version ----
     team_windows = {}
-    for cpa in (EX_32_CPA, EX_63_CPA):
+    # the 20-column and zero-state windows draw from a generator of their own:
+    # the phase's later draws stay what they were without them
+    gen_z = torch.Generator(device=dev).manual_seed(41)
+
+    def b4t_window(key, bwd):
+        """The shape's route against the plain version (bit for bit) and
+        against B4't-team: the elements that part are counted."""
+        got = ns.replay3_bwd(*bwd)
+        want, ms = timed(lambda: ns._replay3_bwd_plain(*bwd))
+        compare("sde3_bwd_ksweep_32", got, want)
+        old = ns.replay3_bwd(*bwd, route="team")
+        parted = [int((g != o).sum()) for g, o in zip(got, old)]
+        check(not any(parted), f"B4't {key}: the team parts from B4't-team: {parted} elements")
+        return ms, parted
+
+    for cpa in (EX_20_CPA, EX_32_CPA, EX_63_CPA):
         t_w = make_task(PARITY_T, cpa=cpa)
         Pw = t_w.net.num_pops
-        check(ns.sde3_bwd_route(Pw, n_in, B) == "team", f"{sum(cpa)} columns must take the team")
+        route_w = ns.sde3_bwd_route(Pw, n_in, B)
+        check(route_w in ("resident", "streamed"),
+              f"{sum(cpa)} columns must take the cluster team, not {route_w}")
         m_w = parity.sde_model(t_w.params, t_w, stims)
         pw_w = {k: v.detach().contiguous() for k, v in m_w.pw.items()}
         y0_w = torch.zeros(B, 3 * Pw, device=dev)
         t0u, hu = sf.uniform_step_times(t_w.ts, (B, 3 * Pw))
         t0u = t0u.to(dev)
-        _, i1u, i10u, _, _ = brownian_pack(gen, t_w.ts, (B, 1))
+        g_w = gen_z if cpa == EX_20_CPA else gen
+        _, i1u, i10u, _, _ = brownian_pack(g_w, t_w.ts, (B, 1))
         nu = t0u.shape[0]
         grid_u = (t0u, torch.full_like(t0u, hu), i1u.reshape(nu, B).contiguous(),
                   i10u.reshape(nu, B).contiguous())
         ys_u = ns.replay3_fwd(y0_w, *grid_u, nu, pw_w, m_w.sc, m_w.kv)
-        k0 = (nu // 2) & ~7
-        win = tuple(x[k0:k0 + EX_W].contiguous() for x in grid_u)
-        if cpa == EX_32_CPA:  # B3t-team at 32 columns (kernel mode's replay)
-            fwd32 = (ys_u[k0].contiguous(), *win, EX_W, pw_w, m_w.sc, m_w.kv)
-            got = ns.replay3_fwd(*fwd32)
-            want, plain_ms["sde3_fwd_team_32"] = timed(lambda: ns._replay3_fwd_plain(*fwd32))
-            compare("sde3_fwd_team_32", got, want)
-            route_times("32_uniform", ys_u, tuple(x[:ROUTE_W].contiguous() for x in grid_u),
-                        ROUTE_W, torch.randn(ROUTE_W, B, 3 * Pw, generator=gen, device=dev),
-                        pw_w, m_w.sc, m_w.kv, False)
         chunk = sf.sweep_chunk((B, 3 * Pw), EX_W, 32)
-        bwd = (ys_u[k0:k0 + EX_W].contiguous(),
-               torch.randn(EX_W, B, 3 * Pw, generator=gen, device=dev), win[0], win[1], win[3],
-               EX_W, 16, chunk, pw_w, m_w.sc, m_w.kv)
-        got = ns.replay3_bwd(*bwd)
-        want, ms = timed(lambda: ns._replay3_bwd_plain(*bwd))
-        compare("sde3_bwd_team", got, want)
-        plain_ms[f"sde3_bwd_team_{sum(cpa)}"] = ms
+        ent = {"P": Pw, "route": route_w, "steps": EX_W, "chunk": chunk, "uniform": {},
+               "lanes": {}}
+        for k0 in (0, (nu // 2) & ~7):
+            win = tuple(x[k0:k0 + EX_W].contiguous() for x in grid_u)
+            if cpa == EX_32_CPA and k0:  # B3t-team at 32 columns (kernel mode's replay)
+                fwd32 = (ys_u[k0].contiguous(), *win, EX_W, pw_w, m_w.sc, m_w.kv)
+                got = ns.replay3_fwd(*fwd32)
+                want, plain_ms["sde3_fwd_team_32"] = timed(
+                    lambda: ns._replay3_fwd_plain(*fwd32))
+                compare("sde3_fwd_team_32", got, want)
+                route_times("32_uniform", ys_u, tuple(x[:ROUTE_W].contiguous() for x in grid_u),
+                            ROUTE_W, torch.randn(ROUTE_W, B, 3 * Pw, generator=gen, device=dev),
+                            pw_w, m_w.sc, m_w.kv, False)
+                ent["uniform_start_b3t"] = k0
+            bwd = (ys_u[k0:k0 + EX_W].contiguous(),
+                   torch.randn(EX_W, B, 3 * Pw, generator=g_w if k0 else gen_z, device=dev),
+                   win[0], win[1], win[3], EX_W, 16, chunk, pw_w, m_w.sc, m_w.kv)
+            ms, parted = b4t_window(f"at {sum(cpa)} columns, uniform window {k0}", bwd)
+            ent["uniform"][k0] = {"plain_ms": ms, "parted_from_team": parted}
+            if k0:
+                plain_ms[f"sde3_bwd_ksweep_{sum(cpa)}"] = ms
         t_sw = make_task(BENCH_SEL_T, params=t_w.params, cpa=cpa)
         m_sw = parity.sde_model(t_sw.params, t_sw, stims)
         scfg_w = sa.select_config(t_sw.ts, max_steps=PARITY_MAX_STEPS, brownian="jax",
@@ -4522,30 +4574,31 @@ def exact104_phases(dev, cfg):
         grid_w, n_w = lanes_grid(sel_w, words_j, scfg_w, "jax")
         ys_w = ns.replay3_fwd(y0_w, *grid_w, n_w, pw_w, m_sw.sc, m_sw.kv)
         w_n = min(EX_W, n_w)
-        k0 = max(0, min((n_w // 2) & ~1, n_w - w_n))
-        win = tuple(x[k0:k0 + w_n].contiguous() for x in grid_w)
-        bwd = (ys_w[k0:k0 + w_n].contiguous(),
-               torch.randn(w_n, B, 3 * Pw, generator=gen, device=dev), win[0], win[1], win[3],
-               w_n, 16, chunk, pw_w, m_sw.sc, m_sw.kv)
-        compare("sde3_bwd_team", ns.replay3_bwd(*bwd), ns._replay3_bwd_plain(*bwd))
-        team_windows[sum(cpa)] = {"P": Pw, "uniform_start": (nu // 2) & ~7, "steps": EX_W,
-                                  "lanes_start": k0, "lanes_steps": w_n, "chunk": chunk}
+        for k0 in (0, max(0, min((n_w // 2) & ~1, n_w - w_n))):
+            win = tuple(x[k0:k0 + w_n].contiguous() for x in grid_w)
+            bwd = (ys_w[k0:k0 + w_n].contiguous(),
+                   torch.randn(w_n, B, 3 * Pw, generator=g_w if k0 else gen_z, device=dev),
+                   win[0], win[1], win[3], w_n, 16, chunk, pw_w, m_sw.sc, m_sw.kv)
+            ms, parted = b4t_window(f"at {sum(cpa)} columns, lanes window {k0}", bwd)
+            ent["lanes"][k0] = {"steps": w_n, "plain_ms": ms, "parted_from_team": parted}
+        team_windows[sum(cpa)] = ent
     w_n = min(EX_W, n13)
     k0 = max(0, min((n13 // 2) & ~1, n13 - w_n))
     win = tuple(x[k0:k0 + w_n].contiguous() for x in grid13)
     bwd = (ys13[k0:k0 + w_n].contiguous(), torch.randn(w_n, B, 3 * P13, generator=gen, device=dev),
            win[0], win[1], win[3], w_n, 16, 10, pw13, model13.sc, model13.kv)
     team13 = ns.replay3_bwd(*bwd, route="team")  # every sweep fits at 13 columns
-    compare("sde3_bwd_team", team13, ns.replay3_bwd(*bwd, route="block"))
-    compare("sde3_bwd_team", team13, ns._replay3_bwd_plain(*bwd))
+    compare("sde3_bwd_ksweep_32", team13, ns.replay3_bwd(*bwd, route="block"))
+    compare("sde3_bwd_ksweep_32", team13, ns._replay3_bwd_plain(*bwd))
+    compare("sde3_bwd_ksweep_32", team13, ns.replay3_bwd(*bwd))
     emit("exact104_team_routes", sde3_fwd_team_32={
-        "start": team_windows[sum(EX_32_CPA)]["uniform_start"], "steps": EX_W,
+        "start": team_windows[sum(EX_32_CPA)]["uniform_start_b3t"], "steps": EX_W,
         "bit_for_bit": same["sde3_fwd_team_32"], "max_abs_err": errs["sde3_fwd_team_32"]},
         team_routes=sde3_routes)
-    emit("exact104_b4t_team_vs_plain", windows=team_windows,
+    emit("exact104_b4t_vs_plain_and_team", windows=team_windows,
          against_one_block_13={"P": P13, "start": k0, "steps": w_n},
-         bit_for_bit=same["sde3_bwd_team"], max_abs_err=errs["sde3_bwd_team"],
-         plain_ms={k: v for k, v in plain_ms.items() if k.startswith("sde3_bwd_team")})
+         bit_for_bit=same["sde3_bwd_ksweep_32"], max_abs_err=errs["sde3_bwd_ksweep_32"],
+         plain_ms={k: v for k, v in plain_ms.items() if k.startswith("sde3_bwd_ksweep")})
 
     # -- 38. main path: one exact step at 104 columns over the full second -------------
     def zero_counters():
@@ -4737,16 +4790,23 @@ def exact104_phases(dev, cfg):
               "full_second_13_columns_ms": times["sde_select_krng_split3_13"]})
 
     # -- 40. 32 columns over the full second: --stochastic and --stochastic
-    # --adaptive through B4't-team ---------------------------------------------------
-    team = {}
+    # --adaptive through B4't as one cluster team for the batch; the sweep's
+    # inputs of each step kept, to time the team and B4't-team on them --------------
+    team, swept = {}, {}
     for name, flags, fixed in (("fixed_grid", dict(stochastic=True), True),
                                ("adaptive", dict(stochastic=True, adaptive=True), False)):
-        rec, launched, secs, first_i = drive(flags, cpa=EX_32_CPA, fixed=fixed)
-        want = {"sde3_fwd_team": 1, "sde3_bwd_team": 1}
+        calls = []
+        restore = capture_calls(sf, "replay3_bwd", calls)
+        try:
+            rec, launched, secs, first_i = drive(flags, cpa=EX_32_CPA, fixed=fixed)
+        finally:
+            restore()
+        want = {"sde3_fwd_team": 1, "sde3_bwd_ksweep": 1}
         if not fixed:
             want["sde_select"] = 1
-        check(launched == want and bool(torch.isfinite(rec["loss"])),
+        check(launched == want and bool(torch.isfinite(rec["loss"])) and len(calls) == 1,
               f"{name} step at 32 columns: launches {launched}, loss {rec['loss']}")
+        swept[name] = calls[0]
         entry = {"loss": float(rec["loss"]), "grad_norm": float(rec["gnorm"]),
                  "update_applied": bool(rec["ok"]), "seconds": secs, "launches": launched,
                  "cpu_check": card_vs_cpu(flags, first_i, GRAD_T, f"32_columns_{name}",
@@ -4756,30 +4816,35 @@ def exact104_phases(dev, cfg):
                          success=rec["stats"].success.tolist())
         team[name] = entry
         main_launches[f"32_{name}"] = launched
-        if fixed:
-            first32 = first_i
-    # B4't-team's time over the 32-column fixed grid's 999 steps.
-    t32 = make_task(cpa=EX_32_CPA, params=first32["params"])
-    P32 = t32.net.num_pops
-    m32 = parity.sde_model(t32.params, t32, first32["stims"])
-    pw32 = {k: v.detach().contiguous() for k, v in m32.pw.items()}
-    t0u, hu = sf.uniform_step_times(t32.ts, (B, 3 * P32))
-    t0u = t0u.to(dev)
-    nu = t0u.shape[0]
-    _, i1u, i10u, _, _ = brownian_pack(gen, t32.ts, (B, 1))
-    grid32 = (t0u, torch.full_like(t0u, hu), i1u.reshape(nu, B).contiguous(),
-              i10u.reshape(nu, B).contiguous())
-    ys32 = ns.replay3_fwd(torch.zeros(B, 3 * P32, device=dev), *grid32, nu, pw32, m32.sc, m32.kv)
-    bwd32 = (ys32[:-1].contiguous(), torch.randn(nu, B, 3 * P32, generator=gen, device=dev),
-             grid32[0], grid32[1], grid32[3], nu, 0, sf.sweep_chunk((B, 3 * P32), nu), pw32,
-             m32.sc, m32.kv)
-    times["sde3_bwd_team"] = cuda_ms(lambda: ns.replay3_bwd(*bwd32), reps=2, warmup=1)
-    bounds["sde3_bwd_team"] = sde3_bound("sde3_bwd", P32, B, n_in, K, B * nu, nu)
-    serial["sde3_bwd_team"] = nu
+    # B4't's time at 32 columns over each step's own sweep (the fixed grid's 999
+    # steps, the adaptive step's lanes), on the shape's route and on B4't-team
+    # (route "team", the yardstick), the same inputs, bit for bit
+    P32 = 8 * sum(EX_32_CPA)
+    b4t32 = {}
+    for name, (a, k) in swept.items():
+        n_sw, lanes_sw = int(a[5]), a[2].dim() == 2
+        got, old = ns.replay3_bwd(*a, **k), ns.replay3_bwd(*a, **k, route="team")
+        parted = [int((g != o).sum()) for g, o in zip(got, old)]
+        check(not any(parted), f"B4't at 32 columns ({name}): parts from B4't-team: {parted}")
+        ms = cuda_ms(lambda: ns.replay3_bwd(*a, **k), reps=2, warmup=1)
+        team_ms = cuda_ms(lambda: ns.replay3_bwd(*a, **k, route="team"), reps=2, warmup=0)
+        real = int((a[3][:n_sw] > 0).sum()) if lanes_sw else B * n_sw
+        b4t32[name] = {"steps": n_sw, "real_lane_steps": real, "ms": ms, "team_ms": team_ms,
+                       "ns_per_step": ms * 1e6 / n_sw, "team_ns_per_step": team_ms * 1e6 / n_sw,
+                       "team_over_cluster": team_ms / ms, "parted_from_team": parted,
+                       "route": ns.sde3_bwd_route(P32, n_in, B)}
+    nu = b4t32["fixed_grid"]["steps"]
+    times["sde3_bwd_ksweep_32"] = b4t32["fixed_grid"]["ms"]
+    bounds["sde3_bwd_ksweep_32"] = sde3_bound("sde3_bwd", P32, B, n_in, K, B * nu, nu)
+    serial["sde3_bwd_ksweep_32"] = nu
+    n_al = b4t32["adaptive"]["steps"]
+    b4t32["adaptive"]["bound_ms"] = sde3_bound("sde3_bwd", P32, B, n_in, K,
+                                               b4t32["adaptive"]["real_lane_steps"], n_al)[0]
+    b4t32["fixed_grid"]["bound_ms"] = bounds["sde3_bwd_ksweep_32"][0]
+    del swept
     emit("exact32_main_path", columns=sum(EX_32_CPA), P=P32, lanes=B, T=PARITY_T, steps=team,
-         b4t_team={"steps": nu, "ms": times["sde3_bwd_team"],
-                   "bound_ms": bounds["sde3_bwd_team"][0],
-                   "ns_per_step": times["sde3_bwd_team"] * 1e6 / nu})
+         b4t=b4t32, registers={k: v for k, v in ptxas_of("sde3_ksweep16_kernel").items()
+                               if k.startswith("<3,")})
 
     # -- 41. the command lines (run with the others at the end) --------------------------
     bench = ["--columns-per-area", "64,32,8", "--max-steps", "16384", "--bptt-every", "32",
@@ -4808,23 +4873,32 @@ def exact104_phases(dev, cfg):
                                    main_launches["fused_pass"].get("sde_select", 0),
                                    "parity104 --stochastic --adaptive --fused --fused-pass",
                                    f"{BENCH_SEL_T} grid points"),
-        "sde3_bwd_team": ("columnflow/solvers/fused.py:920",
-                          main_launches["32_fixed_grid"].get("sde3_bwd_team", 0)
-                          + main_launches["32_adaptive"].get("sde3_bwd_team", 0),
-                          "parity32 --stochastic, --stochastic --adaptive (kernel mode)",
-                          f"{EX_W} steps at 32 columns"),
+        "sde3_bwd_ksweep_32": ("columnflow/solvers/fused.py:920",
+                               main_launches["32_fixed_grid"].get("sde3_bwd_ksweep", 0)
+                               + main_launches["32_adaptive"].get("sde3_bwd_ksweep", 0),
+                               "parity32 --stochastic, --stochastic --adaptive (kernel mode)",
+                               f"{EX_W} steps at 32 columns"),
     }
     plain_of = {"sde_select_jax_f32_104": plain_ms["sde_select_jax_f32_104"],
                 "sde3_fwd_team_lanes": plain_ms["sde3_fwd_team_lanes"],
                 "sde3_bwd_emit_lanes": plain_ms["sde3_bwd_emit_lanes"],
                 "sde_select_krng_split3": plain_ms["sde_select_krng_split3"],
-                "sde3_bwd_team": plain_ms[f"sde3_bwd_team_{sum(EX_32_CPA)}"]}
+                "sde3_bwd_ksweep_32": plain_ms[f"sde3_bwd_ksweep_{sum(EX_32_CPA)}"]}
     teams = {"sde3_fwd_team_lanes": {"team_routes": sde3_routes["sde3_fwd_team"],
                                      "bit_for_bit_32_columns": same["sde3_fwd_team_32"]},
              "sde3_bwd_emit_lanes": {"team_routes": sde3_routes["sde3_bwd_emit"],
-                                     "bit_for_bit_13_columns": same["sde3_bwd_emit_lanes_13"]}}
-    return [{"name": name, "route": "cuda",
-             "source": SDE3_TEAM_SOURCE if name in teams else SDE_SOURCE, "replaces": rep,
+                                     "bit_for_bit_13_columns": same["sde3_bwd_emit_lanes_13"]},
+             "sde3_bwd_ksweep_32": {
+                 "kernel": "sde3_ksweep16_kernel<3, *, *> (cf_sde3_bwd_ksweep): one cluster "
+                           "team for the batch, where B4't-team (cf_sde3_bwd_team, now route "
+                           "\"team\", the yardstick) ran", "launch_key": "sde3_bwd_ksweep",
+                 "by_step": b4t32, "windows": team_windows,
+                 "registers": {k: v for k, v in ptxas_of("sde3_ksweep16_kernel").items()
+                               if k.startswith("<3,")}}}
+    sources = {"sde3_fwd_team_lanes": SDE3_TEAM_SOURCE, "sde3_bwd_emit_lanes": SDE3_TEAM_SOURCE,
+               "sde3_bwd_ksweep_32": SDE3_KSWEEP_SOURCE}
+    return [{"name": name, "route": "cuda", "source": sources.get(name, SDE_SOURCE),
+             "replaces": rep,
              "launches": launches, "max_abs_err": errs[name], "ms": times[name],
              "plain_ms": plain_of[name], "plain_ms_at": at, "bound_ms": bounds[name][0],
              "bound_by": bounds[name][1], "library_ms": None, "lanes": B, "path": path,
@@ -5265,7 +5339,8 @@ def exactode_phases(dev, cfg, frozen):
             for name, (rep, path) in entries.items()]
 
 
-S2K_WIN_CPA = ((8, 4, 1), (16, 8, 8), (32, 24, 7))  # B8s and B4s windows: 13, 32, 63 columns
+# B8s and B4s windows: 13, 20, 32 and 63 columns
+S2K_WIN_CPA = ((8, 4, 1), (10, 6, 4), (16, 8, 8), (32, 24, 7))
 S2K_32_CPA = (16, 8, 8)   # the kernel-mode steps' width (P = 256)
 S2K_104_CPA = (64, 32, 8)  # the exact split2 outer pass's (P = 832)
 S2K_SEL_T = 100           # grid points of the selections whose grids the windows run on
@@ -5376,17 +5451,22 @@ def split2kernel_phases(dev, cfg):
     # selection's grid, B3 and B4s on the f32 jax-tree selection's lanes grid, at
     # 13, 32 and 63 columns (three windows at 32, the main path's width) -------------
     accepted, b8s_check_s = {}, 0.0  # b8s_check_s: the seconds B8s's new checks add
+    b4s_check_s = 0.0  # the seconds of B4s's checks against its 8-block team
+    # the 20-column windows and B4s's zero-state windows draw from a generator
+    # of their own: the phase's later draws stay what they were without them
+    gen_z = torch.Generator(device=dev).manual_seed(43)
     for cpa in S2K_WIN_CPA:
         cols = sum(cpa)
+        g_c = gen_z if cols == 20 else gen
         task = make_task(cpa, S2K_SEL_T)
-        stims = make_parity_batch(gen, n_in, B, device=dev)
+        stims = make_parity_batch(g_c, n_in, B, device=dev)
         model = parity.sde_model(task.params, task, stims)
         pw = {k: v.detach().contiguous() for k, v in model.pw.items()}
         sc, kv, P = model.sc, model.kv.contiguous(), task.net.num_pops
         w2 = w2_of(pw, sc)
         y0 = torch.zeros(B, 3 * P, device=dev)
         check(no.ode_bwd_route(P, n_in, B, terms=2) == "resident"
-              and ns.sde3_bwd_route(P, n_in, B, terms=2) == "team", f"{cols} columns: routes")
+              and ns.sde3_bwd_route(P, n_in, B, terms=2) == "resident", f"{cols} columns: routes")
         scfg = no.ODESelectConfig(float(task.ts[0]), float(task.ts[-1]),
                                   max_steps=sf.round_max_steps((B, 3 * P), EO_MAX_STEPS))
         st, stats = no.ode_select(y0, pw, sc, kv, scfg)
@@ -5403,7 +5483,7 @@ def split2kernel_phases(dev, cfg):
             windows["ode_replay_fwd_split2"].setdefault(cols, []).append(
                 {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
             ysw = ys[k0:k0 + S2K_W].contiguous()
-            cob = torch.randn(S2K_W, 5, B, 3 * P, generator=gen, device=dev)
+            cob = torch.randn(S2K_W, 5, B, 3 * P, generator=g_c, device=dev)
             got, kern = timed(lambda: no.ode_replay_bwd_split2(ysw, cob, stw, w2, sc, kv))
             want, pl_ms = timed(lambda: no._ode_replay_bwd_plain(ysw, cob, stw, w2, sc, kv))
             compare("ode_replay_bwd_split2", got, want)
@@ -5420,7 +5500,7 @@ def split2kernel_phases(dev, cfg):
                  "parted_from_team8": parted})
         # The stochastic replay: the f32 selection on the jax.random tree, its
         # lanes grid, B3 over the whole grid, B4s on windows of it.
-        keys = torch.randint(0, 2**32, (B, 2), generator=gen, device=dev, dtype=torch.int64)
+        keys = torch.randint(0, 2**32, (B, 2), generator=g_c, device=dev, dtype=torch.int64)
         words = sa._sde_key_words(keys, "jax")
         ccfg = sa.select_config(task.ts, max_steps=S13_MAX_STEPS, brownian="jax", drift="f32")
         sel = ns.select_pass(y0, words, pw, sc, kv, ccfg)
@@ -5431,7 +5511,7 @@ def split2kernel_phases(dev, cfg):
                                               dw[:, :nl].T, i10[:, :nl].T))
         ys_l = ns.replay_fwd(y0, *grid, nl, w2, sc, kv)
         starts = (sorted({0, nl // 2 - S2K_W // 2, nl - S2K_W}) if cpa == S2K_32_CPA
-                  else [nl // 2])
+                  else [0, nl // 2])  # the first from the zero state
         for k0 in starts:
             sl = slice(k0, k0 + S2K_W)
             fwd = (tuple(x[sl].contiguous() for x in grid), S2K_W, w2, sc, kv)
@@ -5442,14 +5522,24 @@ def split2kernel_phases(dev, cfg):
             ys_fwd_k, ys_fwd_p = got, want
             windows["sde_replay_fwd"].setdefault(cols, []).append(
                 {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
-            bwd = (ys_l[sl].contiguous(), torch.randn(S2K_W, B, 3 * P, generator=gen, device=dev),
+            g_k = g_c if k0 or cpa == S2K_32_CPA else gen_z
+            bwd = (ys_l[sl].contiguous(), torch.randn(S2K_W, B, 3 * P, generator=g_k, device=dev),
                    grid[0][sl].contiguous(), grid[1][sl].contiguous(), grid[3][sl].contiguous(),
                    S2K_W, 0, sf.sweep_chunk((B, 3 * P), S2K_W), w2, sc, kv)
             got, kern = timed(lambda: ns.replay2_bwd(*bwd))
             want, pl_ms = timed(lambda: ns._replay2_bwd_plain(*bwd))
             compare("sde2_bwd", got, want)
+            # B4s's cluster team against its 8-block team (route "team", the
+            # yardstick): the elements that part are counted
+            t_c = time.perf_counter()
+            old = ns.replay2_bwd(*bwd, route="team")
+            parted = [int((g != o).sum()) for g, o in zip(got, old)]
+            check(not any(parted), f"B4s at {cols} columns, window {k0}: the team parts "
+                                   f"from B4s's 8-block team: {parted} elements")
+            b4s_check_s += time.perf_counter() - t_c
             windows["sde2_bwd"].setdefault(cols, []).append(
-                {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms})
+                {"start": k0, "steps": S2K_W, "ms": kern, "plain_ms": pl_ms,
+                 "parted_from_team": parted})
             record_replay2("sde_replay_fwd", cols, ys_fwd_k, ys_fwd_p)
             # B4 (emit mode) on the same window and cotangents, truncating every
             # 5 steps: phase 5's limits, bit for bit recorded
@@ -5520,7 +5610,7 @@ def split2kernel_phases(dev, cfg):
                               "ode_replay_bwd_split2_ksweep": 1}),
         "adaptive_32": (S2K_32_CPA, EO_T, S13_MAX_STEPS,
                         dict(stochastic=True, adaptive=True, split2=True),
-                        {"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd": 1}),
+                        {"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd_ksweep": 1}),
         "adaptive_104": (S2K_104_CPA, S2K_T104, PARITY_MAX_STEPS,
                          dict(stochastic=True, adaptive=True, split2=True),
                          {"sde_select": 1, "sde_replay_fwd": 1, "sde_replay_bwd": 1}),
@@ -5536,8 +5626,10 @@ def split2kernel_phases(dev, cfg):
                 if flags.get("stochastic") else None)
         params0 = {k: p.detach().cpu().clone() for k, p in task.params.items()}
         masks = {k: v.bool() for k, v in task.grad_mask.items()}
-        log = []
+        log, calls = [], []
         restore = [event_timed(sf, timed_sf, log), event_timed(sa, ("select_pass",), log)]
+        if name == "adaptive_32":  # B4s's inputs, to run its team and yardstick on later
+            restore.append(capture_calls(sf, "replay2_bwd", calls))
         try:
             for c in counters:
                 for k in c:
@@ -5545,8 +5637,10 @@ def split2kernel_phases(dev, cfg):
             rec, ms = timed(lambda: step(stims, keys))
             launched = {k: v for c in counters for k, v in c.items() if v}
         finally:
-            for r in restore:
+            for r in reversed(restore):
                 r()
+        if calls:
+            b4s_args = calls[0]
         dev_ms[name] = {}
         for fn, start, end in log:
             dev_ms[name][fn] = dev_ms[name].get(fn, 0.0) + start.elapsed_time(end)
@@ -5689,6 +5783,32 @@ def split2kernel_phases(dev, cfg):
     del task_r, model_r, ys_r
     b8s_routes["seconds_of_the_yardstick_checks_and_route_timings"] = (
         b8s_check_s + time.perf_counter() - t_c)
+    # B4s's cluster team and its 8-block team (route "team", the yardstick)
+    # on the 32-column step's own sweep (each lane's half steps over the
+    # run), bit for bit, and on a ROUTE_W-half-step window in its middle
+    t_c = time.perf_counter()
+    a4, k4 = b4s_args
+    n4 = int(a4[5])
+    got, old = ns.replay2_bwd(*a4, **k4), ns.replay2_bwd(*a4, **k4, route="team")
+    parted = [int((g != o).sum()) for g, o in zip(got, old)]
+    check(not any(parted), f"B4s on the 32-column step's sweep: parts from its 8-block team: "
+                           f"{parted} elements")
+    b4s_ms = cuda_ms(lambda: ns.replay2_bwd(*a4, **k4), reps=2, warmup=1)
+    b4s_team_ms = cuda_ms(lambda: ns.replay2_bwd(*a4, **k4, route="team"), reps=2, warmup=0)
+    k4r = max(0, min(n4 - ROUTE_W, n4 // 2)) & ~1
+    W4 = min(ROUTE_W, n4 - k4r)
+    win4 = (*(x[k4r:k4r + W4].contiguous() for x in a4[:5]), W4, 0,
+            sf.sweep_chunk((B, 3 * P32), W4), *a4[8:])
+    b4s_routes = {"steps": W4, "start": k4r, **sweep_routes(
+        lambda r: ns.replay2_bwd(*win4, route=r), W4, ns.sde3_bwd_route(P32, n_in, B, 2),
+        "team")}
+    b4s_routes["whole_sweep"] = {
+        "half_steps": n4, "ms": b4s_ms, "team_ms": b4s_team_ms,
+        "us_per_half_step": b4s_ms * 1e3 / n4, "team_us_per_half_step": b4s_team_ms * 1e3 / n4,
+        "team_over_cluster": b4s_team_ms / b4s_ms, "parted_from_team": parted}
+    b4s_routes["seconds_of_the_yardstick_checks_and_route_timings"] = (
+        b4s_check_s + time.perf_counter() - t_c)
+    del b4s_args, a4, k4, win4, got, old
     profiles = {}
     for name, (cpa, T, max_steps, flags, _) in paths.items():
         T_p = min(T, SHORT_T)
@@ -5704,7 +5824,7 @@ def split2kernel_phases(dev, cfg):
             "idle_share": 1.0 - busy / short_ms if busy else "not measured",
             "top_ms_per_step": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])}
     emit("split2kernel_times", lanes=B, ms=times,
-         team_routes={"ode_replay_bwd_split2": b8s_routes},
+         team_routes={"ode_replay_bwd_split2": b8s_routes, "sde2_bwd": b4s_routes},
          ns_per_serial_step={k: times[k] * 1e6 / serial[k] for k in times},
          serial_steps=serial, bound_ms={k: v[0] for k, v in bounds.items()},
          bound_by={k: v[1] for k, v in bounds.items()}, plain_ms=plain_ms,
@@ -5731,9 +5851,9 @@ def split2kernel_phases(dev, cfg):
                                   "deterministic fused-split2, 32 columns (kernel mode)",
                                   main["deterministic_32"]["launches"],
                                   "ode_replay_bwd_split2_ksweep"),
-        "sde2_bwd": (SDE_SOURCE, "columnflow/solvers/fused.py:920",
+        "sde2_bwd": (SDE2_KSWEEP_SOURCE, "columnflow/solvers/fused.py:920",
                      "parity32 --stochastic --adaptive --engine fused-split2 (kernel mode)",
-                     main["adaptive_32"]["launches"], "sde2_bwd"),
+                     main["adaptive_32"]["launches"], "sde2_bwd_ksweep"),
     }
     b8s = {"kernel": "ode_ksweep16_kernel<2, *, *> (cf_ode_replay_bwd_split2_ksweep): one "
                      "cluster team for the batch on the two-term split",
@@ -5743,13 +5863,21 @@ def split2kernel_phases(dev, cfg):
            "team_routes": b8s_routes,
            "parted_from_team8": {c: [w["parted_from_team8"] for w in ws] for c, ws in
                                  windows["ode_replay_bwd_split2"].items()}}
+    b4s = {"kernel": "sde3_ksweep16_kernel<2, *, *> (cf_sde2_bwd_ksweep): one cluster team "
+                     "for the batch on the two-term split",
+           "launch_key": "sde2_bwd_ksweep", "weights": b4s_routes["weights"],
+           "registers": {k: v for k, v in ptxas_of("sde3_ksweep16_kernel").items()
+                         if k.startswith("<2,")},
+           "team_routes": b4s_routes,
+           "parted_from_team": {c: [w["parted_from_team"] for w in ws] for c, ws in
+                                windows["sde2_bwd"].items()}}
     return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": launched.get(key, 0), "max_abs_err": errs[name],
              "bit_for_bit": same[name], "ms": times[name], "plain_ms": plain_ms[name],
              "plain_ms_at": plain_ms[f"{name}_at"], "ms_window": window_ms[name],
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
              "lanes": B, "path": path, "ns_per_serial_step": times[name] * 1e6 / serial[name],
-             **(b8s if name == "ode_replay_bwd_split2" else {})}
+             **(b8s if name == "ode_replay_bwd_split2" else b4s)}
             for name, (src, rep, path, launched, key) in entries.items()]
 
 

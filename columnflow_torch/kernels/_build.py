@@ -34,6 +34,7 @@ SOURCE_FLAGS = {"column_step": [], "network_sde": ["-fmad=false"],
                 "ode_emit_team": ["-fmad=false"], "ode_replay_team": ["-fmad=false"],
                 "ode_ksweep_team": ["-fmad=false"], "ode_ksweep2_team": ["-fmad=false"],
                 "sde3_replay_team": ["-fmad=false"], "sde3_ksweep_team": ["-fmad=false"],
+                "sde2_ksweep_team": ["-fmad=false"],
                 "sde_select_team": ["-fmad=false"],
                 "xor_ode": ["-fmad=false"],
                 "xor_sde": ["-fmad=false"], "hopf_ode": ["-fmad=false"],
@@ -105,6 +106,9 @@ _SIGNATURES = {
     },
     "sde3_ksweep_team": {
         "cf_sde3_bwd_ksweep": [_I, _I, _I, _I, _P] + [_I] * 6 + [_P] * 15,
+    },
+    "sde2_ksweep_team": {
+        "cf_sde2_bwd_ksweep": [_I, _I, _I, _I, _P] + [_I] * 6 + [_P] * 15,
     },
     "sde_select_team": {
         "cf_sde_select_team": [_I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I] + [_P] * 10,

@@ -12,7 +12,8 @@
 // (team3_init, t3_drift, t3_vjp, t3k_vjp) also carry the three-term SDE
 // replay and its emit-mode sweep (sde3_replay_team.cu) and the SDE's
 // kernel-mode sweep B4't (sde3_ksweep16_kernel, cf_sde3_bwd_ksweep in
-// sde3_ksweep_team.cu). Included once per source; the definitions live in
+// sde3_ksweep_team.cu) and on the two-term split B4s (cf_sde2_bwd_ksweep in
+// sde2_ksweep_team.cu). Included once per source; the definitions live in
 // an unnamed namespace.
 //
 // Replaces (columnflow/solvers/fused.py):
@@ -30,8 +31,9 @@
 //                           B8t-team; on the two-term split B8s): the state
 //                           cotangent and the weight cotangents d wT, d iwT,
 //                           the batch on one team
-//   sde3_ksweep16_kernel <- _make_sde_bwd_chunk_kernel, kernel mode (B4't):
-//                           the same for the SRA1 replay on each lane's grid
+//   sde3_ksweep16_kernel <- _make_sde_bwd_chunk_kernel, kernel mode (B4't;
+//                           on the two-term split B4s): the same for the
+//                           SRA1 replay on each lane's grid
 //
 // What bounds them on this card: serial chains (~1.3 * 10^4 selection
 // attempts over the second at 104 columns, ~1.2 * 10^4 accepted steps),
@@ -1995,7 +1997,8 @@ struct T3Grid {
 // cotangents are t3k_vjp's, each lane's stimulus at its own time (A.lt).
 // Steps with h = 0 (padding) are exact no-ops, as in the plain version.
 // work: with the plan's accs 0, (C, NT + 2, nc, P) floats. NT = 3: B4't
-// (prepare_premixed_split); LT: the forward products' lanes a thread.
+// and B4't-team's shapes (prepare_premixed_split); NT = 2: B4s
+// (prepare_premixed_split2); LT: the forward products' lanes a thread.
 template <int NT, int LT, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
 sde3_ksweep16_kernel(Net n, const Plan3 plan, T3Grid g, int stride, int chunk,
@@ -2084,6 +2087,48 @@ sde3_ksweep16_kernel(Net n, const Plan3 plan, T3Grid g, int stride, int chunk,
     d_iwT[(size_t)m * P + c0 + (q - m * nc)] = A.dwi[q];
   }
   if (kStream) t2_drain(T);
+}
+
+// The SDE's kernel-mode sweep on NT terms as one cluster team for the batch
+// of B lanes (plan3k, kT3SdeKSweep): the plan, then the instance of its LB
+// and ring. cf_sde3_bwd_ksweep (three terms, sde3_ksweep_team.cu) and
+// cf_sde2_bwd_ksweep (two, sde2_ksweep_team.cu) each instantiate one NT, so
+// that nvcc builds the two in parallel. wpk: the NT bf16 terms of wT packed
+// per block (ode_team_pack in kernels/network_ode.py: (C, P, rw) 32-bit
+// words of the plan's layout); iw float32 (n_in, P); n_steps the rows of
+// the grid, n_real the steps swept (n_real - 1 .. 0); lanes: 1 takes t0s,
+// hs (n, B), 0 the uniform grid's (n,); i10 (n, B); stride: the carry is
+// zeroed after every step k with k % stride == 0 (0: never); chunk (>= 1):
+// the steps whose weight cotangents add before the total; stream: 1 streams
+// the slices through the ring even where they fit; ys_prev, ysbar (n, B,
+// 3P); ybar (B, 3P); d_wT (P, P); d_iwT (n_in, P); work: (C, NT + 2, P / C,
+// P) floats where the plan keeps the accumulators in device memory (else
+// unused); hc the drift's constants and sigma (network_drift.cuh make_net).
+template <int NT>
+int sde_ksweep_launch(int B, int P, int n_in, int K, const float* hc, int n_steps, int n_real,
+                      int lanes, int stride, int chunk, int stream, const float* bg,
+                      const float* adapt, const void* wpk, const float* iw, const float* kv,
+                      const float* t0s, const float* hs, const float* i10,
+                      const float* ys_prev, const float* ysbar, float* ybar, float* d_wT,
+                      float* d_iwT, float* work, void* cstream) {
+  Plan3 p;
+  if (int e = team3_plan(B, P, n_in, K, B, NT, kT3SdeKSweep, stream, &p)) return e;
+  if (n_real < 0 || n_real > n_steps || stride < 0 || chunk < 1 ||
+      (!p.accs && work == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
+  const T3Grid g{n_real, lanes, t0s, hs, i10};
+  const uint32_t* w = (const uint32_t*)wpk;
+  const cudaStream_t s = (cudaStream_t)cstream;
+  const auto launch = [&](auto kernel) {
+    return team2_launch(kernel, p, 1, s, n, p, g, stride, chunk, w, iw, ys_prev, ysbar, ybar,
+                        d_wT, d_iwT, work);
+  };
+  if (p.LB == 1)
+    return p.stream ? launch(sde3_ksweep16_kernel<NT, 1, true>)
+                    : launch(sde3_ksweep16_kernel<NT, 1, false>);
+  return p.stream ? launch(sde3_ksweep16_kernel<NT, 4, true>)
+                  : launch(sde3_ksweep16_kernel<NT, 4, false>);
 }
 
 }  // namespace

@@ -14,10 +14,14 @@
 // uniform grid), each one drift evaluation, two drift VJPs and two
 // weight-cotangent passes of the batch, every one a (B, P) x (P, P) product
 // on each term of the split: a few MFLOP whose latency is what costs. The
-// kernel it replaces on the main paths (network_sde.cu sde3_bwd_kernel, kept
-// as the yardstick: cf_sde3_bwd, route "block") ran the batch on ONE block,
-// one SM of 132, with a block barrier between every elementwise pass and
-// the step's three accumulators in device memory.
+// kernels it replaces on the main paths, kept as the yardsticks, are
+// network_sde.cu's sde3_bwd_kernel (cf_sde3_bwd, route "block"), which ran
+// the batch on ONE block, one SM of 132, with a block barrier between every
+// elementwise pass and the step's three accumulators in device memory, and
+// past that block's capacity (from 20 columns at 4 lanes) its
+// sde3_bwd_team_kernel<3> (cf_sde3_bwd_team, route "team"), one team of 8
+// blocks that read the three terms and their transposes from L2 in every
+// product.
 //
 // Design (ode_team.cuh plan3k, kT3SdeKSweep; the kernel-mode dopri5
 // sweep's, ode_ksweep_team.cu, on the SRA1 step): jax.vjp contracts each
@@ -39,51 +43,22 @@
 
 #include "ode_team.cuh"
 
-namespace {
-
-template <int NT, int LT, class F>
-int sde3_ksweep_instance(const Plan3& p, F&& f) {
-  return p.stream ? f(sde3_ksweep16_kernel<NT, LT, true>)
-                  : f(sde3_ksweep16_kernel<NT, LT, false>);
-}
-
-}  // namespace
-
 extern "C" {
 
 // B4't as one cluster team for the batch of B lanes (ode_team.cuh plan3k,
-// kT3SdeKSweep). wpk: the three bf16 terms of wT packed per block
-// (ode_team_pack in kernels/network_ode.py: (C, P, rw) 32-bit words of the
-// plan's layout); iw float32 (n_in, P); n_steps the rows of the grid,
-// n_real the steps swept (n_real - 1 .. 0); lanes: 1 takes t0s, hs (n, B),
-// 0 the uniform grid's (n,); i10 (n, B); stride: the carry is zeroed after
-// every step k with k % stride == 0 (0: never); chunk (>= 1): the steps
-// whose weight cotangents add before the total; stream: 1 streams the
-// slices through the ring even where they fit; ys_prev, ysbar (n, B, 3P);
-// ybar (B, 3P); d_wT (P, P); d_iwT (n_in, P); work: (C, 5, P / C, P) floats
-// where the plan keeps the accumulators in device memory (else unused); hc
-// the drift's constants and sigma (network_drift.cuh make_net).
+// kT3SdeKSweep): wpk the three bf16 terms of wT packed per block
+// (ode_team_pack), work (C, 5, P / C, P) floats where the plan keeps the
+// accumulators in device memory; the arguments as ode_team.cuh
+// sde_ksweep_launch's.
 int cf_sde3_bwd_ksweep(int B, int P, int n_in, int K, const float* hc, int n_steps,
                        int n_real, int lanes, int stride, int chunk, int stream,
                        const float* bg, const float* adapt, const void* wpk, const float* iw,
                        const float* kv, const float* t0s, const float* hs, const float* i10,
                        const float* ys_prev, const float* ysbar, float* ybar, float* d_wT,
                        float* d_iwT, float* work, void* cstream) {
-  Plan3 p;
-  if (int e = team3_plan(B, P, n_in, K, B, 3, kT3SdeKSweep, stream, &p)) return e;
-  if (n_real < 0 || n_real > n_steps || stride < 0 || chunk < 1 ||
-      (!p.accs && work == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Net n = make_net(B, P, n_in, K, hc, bg, adapt, kv);
-  const T3Grid g{n_real, lanes, t0s, hs, i10};
-  const uint32_t* w = (const uint32_t*)wpk;
-  const cudaStream_t s = (cudaStream_t)cstream;
-  const auto launch = [&](auto kernel) {
-    return team2_launch(kernel, p, 1, s, n, p, g, stride, chunk, w, iw, ys_prev, ysbar, ybar,
-                        d_wT, d_iwT, work);
-  };
-  return p.LB == 1 ? sde3_ksweep_instance<3, 1>(p, launch)
-                   : sde3_ksweep_instance<3, 4>(p, launch);
+  return sde_ksweep_launch<3>(B, P, n_in, K, hc, n_steps, n_real, lanes, stride, chunk, stream,
+                              bg, adapt, wpk, iw, kv, t0s, hs, i10, ys_prev, ysbar, ybar, d_wT,
+                              d_iwT, work, cstream);
 }
 
 }  // extern "C"

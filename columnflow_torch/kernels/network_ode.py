@@ -646,7 +646,7 @@ _T3_MAX_ITEMS = 2  # csrc/ode_team.cuh kT3MaxItems
 # The uses of a team's plan (csrc/ode_team.cuh kT3Select, kT3Sweep, kT3Replay,
 # kT3SdeSweep: the three-term SDE's emit-mode sweep, B4t; kT3KSweep: the
 # dopri5 kernel-mode sweep, B8, B8t-team and B8s; kT3SdeKSweep: the SDE's
-# kernel-mode sweep, B4't).
+# kernel-mode sweep, B4't and B4s).
 SELECT, SWEEP, REPLAY, SDE_SWEEP, KSWEEP, SDE_KSWEEP = 0, 1, 2, 3, 4, 5
 _KSWEEPS = (KSWEEP, SDE_KSWEEP)
 # The uses whose drifts sum in the 8-block team's order and which may keep
@@ -826,9 +826,9 @@ def ode_team_plan(P: int, n_in: int, NB: int, NT: int, use: int,
     fit, else one slot, else the accumulators in device memory; resident or
     streamed as above. ``fits`` is False past one item or four lanes a
     thread (``ode_bwd_route`` then takes "block" or "team8"). SDE_KSWEEP:
-    the SDE's kernel-mode sweep (B4't), the same shape with the chunk
-    partials of the weight cotangents and the lanes' step times beside the
-    accumulators (``t3k_planes``, ``_t3k_extra``)."""
+    the SDE's kernel-mode sweep (B4't; on two terms B4s), the same shape
+    with the chunk partials of the weight cotangents and the lanes' step
+    times beside the accumulators (``t3k_planes``, ``_t3k_extra``)."""
     use = int(use)
     if P <= 0 or P % 8:
         raise ValueError(f"P must be a positive multiple of 8, got {P}")

@@ -5,8 +5,9 @@ loop ``_adaptive_pass`` as a kernel).
 
 Each kernel is CUDA C++ in ``csrc/network_sde.cu`` or, for the
 selection's cluster teams, ``csrc/sde_select_team.cu``, for B3t-team's and
-B4t's, ``csrc/sde3_replay_team.cu`` and, for B4't's cluster team,
-``csrc/sde3_ksweep_team.cu`` (built by ``_build``)
+B4t's, ``csrc/sde3_replay_team.cu`` and, for B4't's and B4s's cluster
+teams, ``csrc/sde3_ksweep_team.cu`` and ``csrc/sde2_ksweep_team.cu``
+(built by ``_build``)
 with a plain PyTorch version beside it that repeats its arithmetic:
 
     wrapper         kernel              plain version      replaces (columnflow/solvers/)
@@ -28,17 +29,18 @@ with a plain PyTorch version beside it that repeats its arithmetic:
                                                            cf_sde3_fwd_team_team8)
     replay3_bwd     cf_sde3_bwd_ksweep  _replay3_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
                     (cf_sde3_bwd,                          three-term split (B4't: one cluster team
-                    cf_sde3_bwd_team)                      for the batch, ``sde3_bwd_route``; route
-                                                           "block": the one-block yardstick; past it
-                                                           B4't-team)
+                    cf_sde3_bwd_team)                      for the batch, ``sde3_bwd_route``; routes
+                                                           "block" and "team": the one-block B4't and
+                                                           B4't-team, the yardsticks)
     replay3_bwd_emit
                     cf_sde3_bwd_emit    _replay3_bwd_emit_plain
                                                            the same body, emit mode, three-term
                                                            split (B4t, a cluster team; route
                                                            "team8": cf_sde3_bwd_emit_team8)
-    replay2_bwd     cf_sde2_bwd         _replay2_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
-                                                           two-term split (B4s, B4't-team's team
-                                                           kernel)
+    replay2_bwd     cf_sde2_bwd_ksweep  _replay2_bwd_plain _make_sde_bwd_chunk_kernel, kernel mode,
+                    (cf_sde2_bwd)                          two-term split (B4s: the same cluster team
+                                                           on two terms; route "team": the
+                                                           8-block team, the yardstick)
 
 The JAX kernels trace any drift. These compute the parity task's drift:
 ``network_drift_premixed`` with the knot stimulus and the constant
@@ -58,16 +60,17 @@ on a cluster of 8 or 16 blocks, each block holding its columns of the
 weights in shared memory (``sde_select_pack``, ``sde2_pack``: the
 wrapper packs them per block on every call; streamed through a ring of
 tiles where they do not fit, ``sde2_replay_route``). The
-three-term kernel-mode reverse sweep holds the batch on one team, because
-jax.vjp contracts each weight cotangent over the lanes before rounding it
-to bf16: through 19 columns at 4 lanes one cluster of 8 (or 16) blocks
-(csrc/ode_team.cuh ``sde3_ksweep16_kernel``, the plan
-``network_ode.ode_team_plan(..., SDE_KSWEEP)``), each block holding its
-columns of the three terms in shared memory and forming the weight
-cotangents of its own output columns (the one-block kernel it replaced
-stays behind ``route="block"``), and from ~20 columns one team of 8 blocks
-(B4't-team) reading the weights from L2. Where the three-term weights do not
-fit a block (from ~24 columns), the forward and the emit-mode sweep (at
+kernel-mode reverse sweeps on either split hold the batch on one team,
+because jax.vjp contracts each weight cotangent over the lanes before
+rounding it to bf16: at every width of kernel mode (through 63 columns at
+4 lanes) one cluster of 8 (or 16) blocks (csrc/ode_team.cuh
+``sde3_ksweep16_kernel``, the plan ``network_ode.ode_team_plan(...,
+SDE_KSWEEP)``), each block holding its columns of the split's terms in
+shared memory and forming the weight cotangents of its own output columns.
+The kernels it replaced stay behind ``route="block"`` (the one-block B4't)
+and ``route="team"`` (B4't-team and B4s, one team of 8 blocks reading the
+weights from L2), and run where its plan does not fit. Where the
+three-term weights do not fit a block (from ~24 columns), the forward and the emit-mode sweep (at
 every width) run each lane on a cluster of 16 (or 8) blocks, each block's
 columns of the three terms, or of the float32 wT, in shared memory
 (``sde3_team_plan``: resident through 104 columns, streamed at 312), the
@@ -127,7 +130,8 @@ LAUNCHES = {"sde_select": 0, "sde_attempt": 0, "sde_select_block": 0, "sde_attem
             "sde_replay_fwd": 0, "sde_replay_bwd": 0,
             "sde3_fwd": 0, "sde3_bwd": 0, "sde3_fwd_team": 0, "sde3_bwd_emit": 0,
             "sde3_bwd_team": 0, "sde2_bwd": 0, "sde2_fwd_team8": 0, "sde2_bwd_team8": 0,
-            "sde3_fwd_team_team8": 0, "sde3_bwd_emit_team8": 0, "sde3_bwd_ksweep": 0}
+            "sde3_fwd_team_team8": 0, "sde3_bwd_emit_team8": 0, "sde3_bwd_ksweep": 0,
+            "sde2_bwd_ksweep": 0}
 # What a thread block can hold (sm_90: 227 KB of shared memory), and the
 # kernels' layout constants (csrc/network_drift.cuh kThreads, kMaxInputs).
 SMEM_BLOCK_BYTES = 232448
@@ -1280,49 +1284,74 @@ def sde3_block_fits(P: int, n_in: int, B: int) -> bool:
 
 def sde3_bwd_route(P: int, n_in: int, B: int, terms: int = 3) -> str:
     """Which kernel computes the kernel-mode sweep on the card, by shape
-    alone. On the two-term split (``terms`` 2, ``replay2_bwd``) always
-    "team" (B4s): there is no one-block two-term sweep. On the three-term
-    split (``replay3_bwd``), where the one-block B4't holds the batch
-    (``sde3_block_fits``): "resident" or "streamed", B4't as one cluster
-    team for the batch (``cf_sde3_bwd_ksweep``, as ``network_ode.
-    ode_team_plan(P, n_in, B, 3, SDE_KSWEEP)`` holds the weights) wherever
-    that plan fits, else "block" (``cf_sde3_bwd``, the batch in one block,
-    the yardstick); past the one block "team" (B4't-team,
+    alone: "resident" or "streamed", the cluster team for the batch
+    (``sde3_ksweep16_kernel``: ``cf_sde3_bwd_ksweep`` on the three-term
+    split, ``replay3_bwd``; ``cf_sde2_bwd_ksweep`` on the two-term split,
+    ``terms`` 2, ``replay2_bwd``), wherever ``network_ode.ode_team_plan(P,
+    n_in, B, terms, SDE_KSWEEP)`` fits. Elsewhere, on three terms "block"
+    (``cf_sde3_bwd``, the batch in one block) where that block holds the
+    batch (``sde3_block_fits``), else "team" (B4't-team,
     ``cf_sde3_bwd_team``: the batch on one team of 8 blocks, the weights
-    streamed from L2). With 4 inputs and 4 lanes that is "resident" through
-    19 columns and "team" from 20."""
+    from L2); on two terms "team" (``cf_sde2_bwd``, the same 8-block team
+    on two terms; there is no one-block two-term sweep). With 4 inputs and 4
+    lanes the cluster team takes every width of kernel mode (1 through 63
+    columns) on both splits: "resident", but "streamed" on three terms at
+    the odd widths from 51 columns (clusters of 8). With 8 lanes the odd
+    widths from 33 columns would need eight forward lanes a thread and take
+    "team"; with 16 the odd widths from 17 columns and every width past
+    32."""
     if terms not in (2, 3):
         raise ValueError(f"terms must be 2 or 3, got {terms}")
-    if terms == 2:
-        return "team"
-    if not sde3_block_fits(P, n_in, B):
-        return "team"
     no = _ode()
-    plan = no.ode_team_plan(P, n_in, B, 3, no.SDE_KSWEEP)
+    plan = no.ode_team_plan(P, n_in, B, terms, no.SDE_KSWEEP)
     if plan.fits:
         return "streamed" if plan.stream else "resident"
-    return "block"
+    return "block" if terms == 3 and sde3_block_fits(P, n_in, B) else "team"
 
 
 # The routes of ``replay3_bwd``: the cluster team for the batch ("resident",
-# "streamed"), the one-block B4't ("block") and B4't-team ("team").
+# "streamed"), the one-block B4't ("block") and B4't-team ("team"); of
+# ``replay2_bwd``: the cluster team and B4s's 8-block team ("team").
 SDE3_BWD_ROUTES = ("resident", "streamed", "block", "team")
+SDE2_BWD_ROUTES = ("resident", "streamed", "team")
 
 
-def _sde3_ksweep_route(route, P, n_in, B):
-    """(route, plan) of a ``replay3_bwd`` launch on the card: ``route`` or
-    the shape's default (``sde3_bwd_route``); the plan None for "block" and
-    "team". Raises where the cluster team asked for does not take the
-    shape."""
-    route = route or sde3_bwd_route(P, n_in, B)
+def _sde3_ksweep_route(route, P, n_in, B, NT=3):
+    """(route, plan) of a kernel-mode sweep launch on NT terms on the card:
+    ``route`` or the shape's default (``sde3_bwd_route``); the plan None for
+    "block" and "team". Raises where the cluster team asked for does not
+    take the shape."""
+    route = route or sde3_bwd_route(P, n_in, B, NT)
     if route in ("block", "team"):
         return route, None
     no = _ode()
-    plan = no.ode_team_plan(P, n_in, B, 3, no.SDE_KSWEEP, stream=route == "streamed")
+    plan = no.ode_team_plan(P, n_in, B, NT, no.SDE_KSWEEP, stream=route == "streamed")
     if not plan.fits or (route == "resident" and plan.stream):
-        raise ValueError(f"no {route} kernel-mode sweep team takes P={P} with {B} lanes "
-                         f"({'streamed' if plan.fits else 'block or team'} does)")
+        other = "streamed" if plan.fits else ("team" if NT == 2 else "block or team")
+        raise ValueError(f"no {route} kernel-mode sweep team takes P={P} with {B} lanes and "
+                         f"{NT} terms ({other} does)")
     return route, plan
+
+
+def _ksweep_launch(name, plan, head, wpk, iw, sc, kv, t0s, hs, i10, ys_prev, ysbar, out):
+    """Launch ``cf_<name>``, the kernel-mode sweep's cluster team for the
+    batch on the plan's NT terms (``sde3_bwd_ksweep``: three,
+    ``sde2_bwd_ksweep``: two), on the packed terms ``wpk`` and iwT ``iw``
+    into ``out`` = (ybar, d wT, d iwT); counts the launch and returns
+    ``out``."""
+    no, P = _ode(), head[1]
+    # the step's accumulators, d wT and the chunk partial of each block's
+    # columns, where shared memory does not hold them
+    work = (None if plan.accs else torch.empty(
+        (plan.C, no.t3k_planes(plan.NT, no.SDE_KSWEEP), plan.nc, P), dtype=_F32,
+        device=ys_prev.device))
+    _check(getattr(_lib(), f"cf_{name}")(
+        *head, int(plan.stream), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
+        wpk.data_ptr(), iw.data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(),
+        i10.data_ptr(), ys_prev.data_ptr(), ysbar.data_ptr(), *(t.data_ptr() for t in out),
+        None if work is None else work.data_ptr(), _stream(ys_prev)), name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: int, pw,
@@ -1332,10 +1361,11 @@ def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: i
     each step's output. Returns (ybar (B, 3P) before step 0, d wT, d iwT).
     ``stride``: truncation (0: none); ``chunk``: the steps whose weight
     cotangents the JAX kernel sums before adding them to the total. On the
-    card B4't as one cluster team for the batch, the one-block B4't or
-    B4't-team, as ``sde3_bwd_route`` decides by shape before the launch;
-    ``route`` (one of ``SDE3_BWD_ROUTES``) runs that kernel at any shape it
-    takes ("block": the yardstick)."""
+    card B4't as one cluster team for the batch, or where its plan does not
+    fit the one-block B4't or B4't-team, as ``sde3_bwd_route`` decides by
+    shape before the launch; ``route`` (one of ``SDE3_BWD_ROUTES``) runs
+    that kernel at any shape it takes ("block" and "team": the
+    yardsticks)."""
     if route is not None and route not in SDE3_BWD_ROUTES:
         raise ValueError(f"route must be one of {SDE3_BWD_ROUTES}, got {route!r}")
     n, B, S = ys_prev.shape
@@ -1356,20 +1386,9 @@ def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: i
     head = (B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), int(t0s.dim() == 2),
             int(stride or 0), int(chunk))
     if plan is not None:
-        no = _ode()
-        wpk = _sde3_pack(pw, sc, P, plan)
-        # the step's accumulators, d wT and the chunk partial of each block's
-        # columns, where shared memory does not hold them
-        work = (None if plan.accs else torch.empty(
-            (plan.C, no.t3k_planes(3, no.SDE_KSWEEP), plan.nc, P), dtype=_F32, device=dev))
-        _check(_lib().cf_sde3_bwd_ksweep(
-            *head, int(plan.stream), sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(),
-            wpk.data_ptr(), pw["iwT"].data_ptr(), kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(),
-            i10.data_ptr(), ys_prev.data_ptr(), ysbar.data_ptr(), ybar.data_ptr(),
-            d_wT.data_ptr(), d_iwT.data_ptr(), None if work is None else work.data_ptr(),
-            _stream(ys_prev)), "sde3_bwd_ksweep")
-        LAUNCHES["sde3_bwd_ksweep"] += 1
-        return ybar, d_wT, d_iwT
+        return _ksweep_launch("sde3_bwd_ksweep", plan, head, _sde3_pack(pw, sc, P, plan),
+                              pw["iwT"], sc, kv, t0s, hs, i10, ys_prev, ysbar,
+                              (ybar, d_wT, d_iwT))
     if route == "team":
         terms = _split3_terms(pw, sc)
         hiT, midT, loT = (t.T.contiguous() for t in terms)
@@ -1395,15 +1414,21 @@ def replay3_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: i
 
 
 def replay2_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: int, w2,
-                sc: SDEConsts, kv):
+                sc: SDEConsts, kv, route=None):
     """The kernel-mode reverse sweep of the split2 replay (``replay_fwd``):
     ys_prev (n, B, 3P) the states before each step, ysbar (n, B, 3P) the
     direct cotangents on each step's output, t0s, hs, i10 (n, B) each lane's
     step times, sizes and noise, ``w2`` the two-term split
     (``prepare_premixed_split2``). Returns (ybar (B, 3P) before step 0, d
-    wT, d iwT); ``stride`` and ``chunk`` as ``replay3_bwd``. On the card B4s,
-    one team of 8 blocks for the batch (``sde3_bwd_route`` with two
-    terms)."""
+    wT, d iwT); ``stride`` and ``chunk`` as ``replay3_bwd``. On the card B4s
+    as one cluster team for the batch (``cf_sde2_bwd_ksweep``,
+    ``sde3_ksweep16_kernel`` on two terms) where its plan fits, else the
+    team of 8 blocks (``cf_sde2_bwd``), as ``sde3_bwd_route(...,
+    terms=2)`` decides by shape before the launch; ``route`` (one of
+    ``SDE2_BWD_ROUTES``; "team": the yardstick) runs that kernel at any
+    shape it takes."""
+    if route is not None and route not in SDE2_BWD_ROUTES:
+        raise ValueError(f"route must be one of {SDE2_BWD_ROUTES}, got {route!r}")
     n, B, S = ys_prev.shape
     P = S // 3
     if chunk < 1:
@@ -1412,17 +1437,23 @@ def replay2_bwd(ys_prev, ysbar, t0s, hs, i10, n_real: int, stride: int, chunk: i
              **_replay_named(t0s, hs, i10, w2, sc, kv, B, P, n_real)}
     if not _on_cuda(ys_prev, named):
         return _replay2_bwd_plain(ys_prev, ysbar, t0s, hs, i10, n_real, stride, chunk, w2, sc, kv)
+    route, plan = _sde3_ksweep_route(route, P, kv.shape[2], B, NT=2)
     dev = ys_prev.device
     ybar = torch.empty((B, S), dtype=_F32, device=dev)
     d_wT = torch.empty((P, P), dtype=_F32, device=dev)
     d_iwT = torch.empty((kv.shape[2], P), dtype=_F32, device=dev)
+    hc, hc_p = _host_floats(_drift_host_consts(sc))
+    head = (B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), 1, int(stride or 0),
+            int(chunk))
+    if plan is not None:
+        return _ksweep_launch("sde2_bwd_ksweep", plan, head, _ode().ode_team_pack(w2, P, plan),
+                              w2["iwT"], sc, kv, t0s, hs, i10, ys_prev, ysbar,
+                              (ybar, d_wT, d_iwT))
     hiT, midT = w2["wT_hi"].T.contiguous(), w2["wT_mid"].T.contiguous()
     scr = torch.empty((7, B, S), dtype=_F32, device=dev)
     work = torch.empty((P + kv.shape[2], P), dtype=_F32, device=dev)
-    hc, hc_p = _host_floats(_drift_host_consts(sc))
     _check(_lib().cf_sde2_bwd(
-        B, P, kv.shape[2], kv.shape[0], hc_p, n, int(n_real), 1, int(stride or 0), int(chunk),
-        sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), w2["wT_hi"].data_ptr(),
+        *head, sc.fc["bg"].data_ptr(), sc.fc["adapt"].data_ptr(), w2["wT_hi"].data_ptr(),
         w2["wT_mid"].data_ptr(), hiT.data_ptr(), midT.data_ptr(), w2["iwT"].data_ptr(),
         kv.data_ptr(), t0s.data_ptr(), hs.data_ptr(), i10.data_ptr(), ys_prev.data_ptr(),
         ysbar.data_ptr(), scr.data_ptr(), ybar.data_ptr(), d_wT.data_ptr(), d_iwT.data_ptr(),

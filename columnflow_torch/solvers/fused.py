@@ -22,7 +22,7 @@ package (``resolve_sde_arg_grads``), and these tiers are ported
 
 - the three-term split (``prepare="split"``, ``prepare_premixed_split``) in
   kernel mode: the sweep kernel B3t forward, the reverse-sweep kernel B4't
-  (B4't-team where the batch and the weights do not fit a block) with the
+  (one cluster team for the batch at every width of kernel mode) with the
   weight cotangents in it (``_Replay3``); both grid modes;
 - the three-term split in outer mode (the fixed-grid step from 64 columns,
   where the weights hold more than 1 MiB, and the adaptive replay's
@@ -415,8 +415,8 @@ def resolve_sde_arg_grads(pw: dict, arg_grads: str = "auto", vjp_drift: str | No
 def sde_tier(pw, prepare, vjp_drift, arg_grads, lanes: bool) -> str:
     """Which ported tier computes ``sdeint_fused``'s gradients:
 
-    - "split": the three-term split in kernel mode (B3t or B3t-team, B4't or
-      B4't-team), either grid;
+    - "split": the three-term split in kernel mode (B3t or B3t-team, B4't),
+      either grid;
     - "split-outer": the three-term split in outer mode (B3t or B3t-team,
       B4t, then the weight VJPs outside the sweep): on the uniform grid
       exact at the outer pass's times (``outer_arg_grads_split3``; the

@@ -1082,25 +1082,34 @@ def test_sde3_team_plan_is_the_librarys(dev, columns):
                 assert ns.sde3_max_clusters(P, 4, C, plan.stream, bwd) >= 1
 
 
-@pytest.mark.parametrize("case", ["exact104", "fixed104", "kernel32"])
+@pytest.mark.parametrize("case", ["exact104", "fixed104", "kernel32", "adaptive32",
+                                  "split2_32"])
 def test_sde3_steps_launch_the_cluster_teams(dev, monkeypatch, case):
     """The exact stochastic-adaptive step (``--stochastic --adaptive --engine
-    fused`` at 104 columns, 10 points), the fixed-grid step at 104 columns
-    and the kernel-mode fixed-grid step at 32 columns: with the plain
-    versions made to raise, each launches B3t-team (and at 104 columns B4t)
-    once, the new cluster teams and never team8."""
+    fused`` at 104 columns, 10 points), the fixed-grid step at 104 columns,
+    and at 32 columns the kernel-mode steps: ``--stochastic``,
+    ``--stochastic --adaptive`` and ``--stochastic --adaptive --engine
+    fused-split2``: with the plain versions made to raise, each launches its
+    forward (B3t-team, or B3 on two terms) once and its sweep once, the
+    cluster teams (B4t at 104 columns; at 32 B4't and B4s as one cluster
+    team for the batch, ``sde3_bwd_ksweep`` and ``sde2_bwd_ksweep``), never
+    team8 or the 8-block teams."""
     flags = {"exact104": dict(stochastic=True, adaptive=True, bptt_every=32, loss_scale=1e-6),
-             "fixed104": dict(stochastic=True), "kernel32": dict(stochastic=True)}[case]
-    cpa = (16, 8, 8) if case == "kernel32" else (64, 32, 8)
+             "fixed104": dict(stochastic=True), "kernel32": dict(stochastic=True),
+             "adaptive32": dict(stochastic=True, adaptive=True),
+             "split2_32": dict(stochastic=True, adaptive=True, split2=True)}[case]
+    cpa = (16, 8, 8) if case.endswith("32") else (64, 32, 8)
     want = {"exact104": {"sde_select": 1, "sde3_fwd_team": 1, "sde3_bwd_emit": 1},
             "fixed104": {"sde3_fwd_team": 1, "sde3_bwd_emit": 1},
-            "kernel32": {"sde3_fwd_team": 1, "sde3_bwd_team": 1}}[case]
+            "kernel32": {"sde3_fwd_team": 1, "sde3_bwd_ksweep": 1},
+            "adaptive32": {"sde_select": 1, "sde3_fwd_team": 1, "sde3_bwd_ksweep": 1},
+            "split2_32": {"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd_ksweep": 1}}[case]
 
     def boom(*a, **k):
         raise AssertionError("plain version called for CUDA tensors")
 
     for name in ("_select_plain", "_replay3_fwd_plain", "_replay3_bwd_emit_plain",
-                 "_replay3_bwd_plain"):
+                 "_replay3_bwd_plain", "_replay_fwd_plain", "_replay2_bwd_plain"):
         monkeypatch.setattr(ns, name, boom)
     task = parity.build_task(ColumnConfig.load(), torch.Generator(device=dev).manual_seed(0),
                              columns_per_area=cpa, time_steps=10, max_steps=16384, device=dev)
@@ -1166,13 +1175,15 @@ def test_split3_selection_kernels_match_plain_bit_for_bit(dev, cpa, T):
 @pytest.mark.parametrize("cpa,lanes", [((16, 8, 8), False), ((16, 8, 8), True),
                                        ((32, 24, 7), False), ((32, 24, 7), True)])
 def test_sde3_bwd_team_matches_plain_bit_for_bit(dev, cpa, lanes):
-    """B4't-team (the kernel-mode sweep on one team of blocks) at 32 and 63
-    columns, past one block's capacity, on 12-step windows (the last two
-    steps padding, truncation every 5 steps, chunk 4): ybar, d wT and d iwT
-    bit for bit against the plain version, one launch, chosen by shape."""
+    """B4't-team (the kernel-mode sweep on one team of 8 blocks, now the
+    yardstick behind route "team") at 32 and 63 columns, past one block's
+    capacity, on 12-step windows (the last two steps padding, truncation
+    every 5 steps, chunk 4): ybar, d wT and d iwT bit for bit against the
+    plain version, one launch; the shape's own route there is the cluster
+    team for the batch."""
     d = _net_inputs(dev, cpa=cpa, T=1000)
     gen, B, P = d["gen"], 4, d["P"]
-    assert ns.sde3_bwd_route(P, 4, B) == "team"
+    assert ns.sde3_bwd_route(P, 4, B) in ("resident", "streamed")
     params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=cpa,
                                           n_inputs=4, device=dev)
     pw = {k: v.detach().contiguous() for k, v in nw.premix_network_weights(params, net).items()}
@@ -1182,7 +1193,7 @@ def test_sde3_bwd_team_matches_plain_bit_for_bit(dev, cpa, lanes):
     ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
     bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n - 2, 5, 4, pw, d["sc"], d["kv"])
     before = dict(ns.LAUNCHES)
-    got = ns.replay3_bwd(*bwd)
+    got = ns.replay3_bwd(*bwd, route="team")
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
     assert launched == {"sde3_bwd_team": 1}
@@ -1909,6 +1920,80 @@ def test_sde3_ksweep_team_equals_plain_and_the_block(dev, columns, lanes, B):
         ns.replay3_bwd(*bwd, route="team8")
 
 
+# B4't and B4s as one cluster team for the batch (sde3_ksweep16_kernel<3 or
+# 2, *, *>) at every width of kernel mode: (terms, columns, per-lane grids,
+# lanes); B4s runs on per-lane grids only
+SDE_KSWEEP_WIDE_CPA = {13: (8, 4, 1), 20: (10, 6, 4), 32: (16, 8, 8), 63: (32, 24, 7)}
+SDE_KSWEEP_WIDE = [(3, 20, True, 4), (3, 20, False, 4), (3, 32, True, 4), (3, 32, False, 4),
+                   (3, 63, True, 4), (3, 63, False, 4), (3, 32, True, 1), (3, 32, True, 8),
+                   (2, 13, True, 4), (2, 20, True, 4), (2, 32, True, 4), (2, 63, True, 4),
+                   (2, 13, True, 1), (2, 32, True, 8)]
+
+
+@pytest.mark.parametrize("terms,columns,lanes,B", SDE_KSWEEP_WIDE)
+def test_sde_ksweep_teams_equal_plain_and_team(dev, terms, columns, lanes, B):
+    """The cluster team for the batch on three terms (B4't, where B4't-team
+    ran before: 20-63 columns) and on two (B4s), from the zero state over 40
+    steps (the last two padding, truncation every 16, chunk 10) at 13, 20,
+    32 and 63 columns, 1, 4 and 8 lanes, per-lane and uniform grids: on
+    the shape's route and on "streamed", ybar, d wT and d iwT bit for bit
+    against the plain version and against the 8-block team it replaced
+    (route "team", the yardstick); one launch of the team a sweep."""
+    cpa = SDE_KSWEEP_WIDE_CPA[columns]
+    d = _net_inputs(dev, cpa=cpa, T=1000, B=B)
+    gen, P = d["gen"], d["P"]
+    plan = no.ode_team_plan(P, 4, B, terms, no.SDE_KSWEEP)
+    assert plan.fits and ns.sde3_bwd_route(P, 4, B, terms) == (
+        "streamed" if plan.stream else "resident")
+    n = 40
+    t0s, hs, dw, i10 = _team_grid(dev, gen, B, P, n, lanes, d["ts"])
+    y0 = torch.zeros(B, 3 * P, device=dev)
+    if terms == 3:
+        w = d["wf"]
+        ys = ns.replay3_fwd(y0, t0s, hs, dw, i10, n - 2, w, d["sc"], d["kv"])
+        sweep, plain, key, old = ns.replay3_bwd, ns._replay3_bwd_plain, "sde3_bwd_ksweep", \
+            "sde3_bwd_team"
+    else:
+        w = d["w2"]
+        ys = ns.replay_fwd(y0, t0s, hs, dw, i10, n - 2, w, d["sc"], d["kv"])
+        sweep, plain, key, old = ns.replay2_bwd, ns._replay2_bwd_plain, "sde2_bwd_ksweep", \
+            "sde2_bwd"
+    ysbar = torch.randn((n, B, 3 * P), generator=gen, device=dev)
+    bwd = (ys[:-1].contiguous(), ysbar, t0s, hs, i10, n - 2, 16, 10, w, d["sc"], d["kv"])
+    want = plain(*bwd)
+    for route in (None, "streamed"):
+        before = dict(ns.LAUNCHES)
+        got = sweep(*bwd, route=route)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
+        assert launched == {key: 1}, (route, launched)
+        for g, p, name in zip(got, want, ("ybar", "d_wT", "d_iwT")):
+            assert torch.isfinite(g).all() and torch.equal(g, p), (route, name)
+    before = ns.LAUNCHES[old]
+    team = sweep(*bwd, route="team")
+    torch.cuda.synchronize()
+    assert ns.LAUNCHES[old] == before + 1
+    for g, p, name in zip(got, team, ("ybar", "d_wT", "d_iwT")):
+        assert torch.equal(g, p), name
+    assert bool(got[1].any())
+
+
+def test_sde_ksweep_routes_refuse_what_they_do_not_take(dev):
+    """Where the plan does not fit (63 columns at 8 lanes) both splits'
+    routes are the 8-block team's and a forced cluster route raises before
+    the launch; a route of the other split raises too."""
+    d = _net_inputs(dev, cpa=(32, 24, 7), T=1000, B=8)
+    P, B, n = d["P"], 8, 4
+    assert ns.sde3_bwd_route(P, 4, B) == "team" and ns.sde3_bwd_route(P, 4, B, 2) == "team"
+    z = torch.zeros(n, B, 3 * P, device=dev)
+    t = torch.full((n, B), 1e-3, device=dev)
+    for route in ("resident", "streamed"):
+        with pytest.raises(ValueError, match="team"):
+            ns.replay2_bwd(z, z, t, t, t, n, 0, 1, d["w2"], d["sc"], d["kv"], route=route)
+    with pytest.raises(ValueError, match="route"):
+        ns.replay2_bwd(z, z, t, t, t, n, 0, 1, d["w2"], d["sc"], d["kv"], route="block")
+
+
 @pytest.mark.parametrize("columns", [13, 18, 32, 63, 104, 151, 312])
 def test_ode_team_plan_is_the_librarys(dev, columns):
     """``ode_team_plan``, which the wrappers, ``ode_team_route``,
@@ -1916,7 +2001,8 @@ def test_ode_team_plan_is_the_librarys(dev, columns):
     library launches with (``cf_ode_team_plan``) for the selection's 1, 4
     and 16 lanes, the emit-mode sweep's two and three terms, the kernel-mode
     sweep's 1, 4 and 16 lanes on three terms (B8, B8t-team) and on two
-    (B8s), and the SDE's kernel-mode sweep's 1, 4 and 8 lanes (B4't)."""
+    (B8s), and the SDE's kernel-mode sweep's 1, 4 and 8 lanes on three terms
+    (B4't) and on two (B4s)."""
     import ctypes
 
     P, out = 8 * columns, (ctypes.c_longlong * 23)()
@@ -1924,7 +2010,8 @@ def test_ode_team_plan_is_the_librarys(dev, columns):
                         (1, 2, no.SWEEP), (1, 3, no.SWEEP), (1, 3, no.KSWEEP),
                         (4, 3, no.KSWEEP), (16, 3, no.KSWEEP), (1, 2, no.KSWEEP),
                         (4, 2, no.KSWEEP), (16, 2, no.KSWEEP), (1, 3, no.SDE_KSWEEP),
-                        (4, 3, no.SDE_KSWEEP), (8, 3, no.SDE_KSWEEP)):
+                        (4, 3, no.SDE_KSWEEP), (8, 3, no.SDE_KSWEEP), (1, 2, no.SDE_KSWEEP),
+                        (4, 2, no.SDE_KSWEEP), (8, 2, no.SDE_KSWEEP)):
         for stream in (False, True):
             assert no._lib().cf_ode_team_plan(P, 4, NB, NT, use, 0, int(stream), out) == 0
             want = tuple(int(v) for v in no.ode_team_plan(P, 4, NB, NT, use, stream))
@@ -2076,10 +2163,12 @@ def test_split2_kernel_mode_b4s_equals_plain(dev, cpa):
     """B3 and B4s at 13, 32 and 63 columns on a 12-step window of per-lane
     grids (the last two steps padding, truncation every 5 steps, chunk 4):
     ys, ybar, d wT and d iwT bit for bit against the plain versions, one
-    launch each."""
+    launch each; B4s on its cluster team for the batch (the shape's route,
+    "resident" at every one of these widths), and the same against the
+    8-block team (route "team", the yardstick)."""
     d = _net_inputs(dev, cpa=cpa, T=1000)
     gen, B, P = d["gen"], 4, d["P"]
-    assert ns.sde3_bwd_route(P, 4, B, terms=2) == "team"
+    assert ns.sde3_bwd_route(P, 4, B, terms=2) == "resident"
     n = 12
     t0s, hs, dw, i10 = _team_grid(dev, gen, B, P, n, True, d["ts"])
     y0 = _states(gen, B, P, dev)
@@ -2091,11 +2180,17 @@ def test_split2_kernel_mode_b4s_equals_plain(dev, cpa):
     got = ns.replay2_bwd(*bwd)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in ns.LAUNCHES.items() if v != before[k]}
-    assert launched == {"sde_replay_fwd": 1, "sde2_bwd": 1}
+    assert launched == {"sde_replay_fwd": 1, "sde2_bwd_ksweep": 1}
     assert torch.isfinite(ys).all() and torch.equal(ys, ns._replay_fwd_plain(y0, *fwd))
     assert bool(got[1].any())
     for g, w in zip(got, ns._replay2_bwd_plain(*bwd)):
         assert torch.isfinite(g).all() and torch.equal(g, w)
+    before = ns.LAUNCHES["sde2_bwd"]
+    team = ns.replay2_bwd(*bwd, route="team")
+    torch.cuda.synchronize()
+    assert ns.LAUNCHES["sde2_bwd"] == before + 1
+    for g, w in zip(got, team):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("stochastic", [False, True])
@@ -2141,7 +2236,8 @@ def test_split2_kernel_mode_steps_on_cuda_match_cpu(dev, stochastic, monkeypatch
         rec, grads = step_on(dev, params0)
         torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in mod.LAUNCHES.items() if v != before[k]}
-    assert launched == ({"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd": 1} if stochastic
+    assert launched == ({"sde_select": 1, "sde_replay_fwd": 1, "sde2_bwd_ksweep": 1}
+                        if stochastic
                         else {"ode_select": 1, "ode_replay_fwd_split2": 1,
                               "ode_replay_bwd_split2_ksweep": 1})
     st = rec["stats"]

@@ -10,8 +10,13 @@ what the CPU can check of it.
   (``KSWEEP``) plus the chunk partials of d wT and d iwT and the lanes'
   step times; and at every width from 1 through 63 columns, the plan's
   invariants and at most 232,448 bytes a block wherever it fits.
-- ``sde3_bwd_route``: the team wherever the one block held the batch (the
-  default of B4't's shapes), B4't-team ("team") past it.
+- ``sde3_bwd_route``: the team wherever its plan fits, on either split:
+  every width of kernel mode (1-63 columns) at 4 lanes, past where the one
+  block held the batch (B4't-team's 20-63 columns); at 20, 24, 32, 48 and
+  63 columns for 1, 4 and 8 lanes on two and three terms the plan's
+  cluster, forward lanes a thread, ring, slots and accumulators; "team"
+  (the 8-block B4't-team, or B4s) only where the plan does not fit (8
+  lanes at the odd widths from 33 columns).
 - Each lane's stimulus at its own time: the kernel's knot interpolation
   (``t3_knot`` at ``t3_time``, float32 operation for operation) emulated
   with numpy for lanes at different times, against ``interp_knots`` of the
@@ -20,12 +25,14 @@ what the CPU can check of it.
   padding steps): the kernel's loop (each step's folded cotangents into a
   chunk partial, the partial into the sums at each chunk's first step)
   emulated with numpy on the per-step cotangents of ``step_vjp_split3``,
-  against ``_replay3_bwd_plain``: bit for bit.
+  against ``_replay3_bwd_plain``, and of ``step_vjp_split2(...,
+  weights=True)`` against ``_replay2_bwd_plain`` (B4s): bit for bit.
 - A bad ``route`` raises before any device is touched; CPU tensors take the
-  plain version on every route and launch nothing.
+  plain version on every route and launch nothing (``replay3_bwd`` and
+  ``replay2_bwd``).
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py -k
-sde3_ksweep``, ``chip_smoke.py``).
+"sde3_ksweep or sde_ksweep"``, ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -43,29 +50,30 @@ _A16 = no._align16
 
 # (columns, lanes) -> (C, LB, slots) of B4't's team plan with 4 inputs (the
 # slice resident, the accumulators and the chunk partial in shared memory at
-# every one), and the default route
+# every one), and the default route; whether the one-block B4't held the
+# batch (its route before the cluster team took every width)
 SDE_KSWEEP_PLANS = {
-    (13, 1): ((8, 1, 2), "resident"), (13, 4): ((8, 1, 2), "resident"),
-    (13, 8): ((8, 4, 2), "resident"),
-    (16, 1): ((16, 1, 2), "resident"), (16, 4): ((16, 1, 2), "resident"),
-    (16, 8): ((16, 1, 2), "resident"),
-    (17, 1): ((8, 1, 2), "resident"), (17, 4): ((8, 4, 2), "resident"),
-    (17, 8): ((8, 4, 2), "team"),
-    (19, 1): ((8, 1, 2), "resident"), (19, 4): ((8, 4, 2), "resident"),
-    (19, 8): ((8, 4, 2), "team"),
+    (13, 1): ((8, 1, 2), "resident", True), (13, 4): ((8, 1, 2), "resident", True),
+    (13, 8): ((8, 4, 2), "resident", True),
+    (16, 1): ((16, 1, 2), "resident", True), (16, 4): ((16, 1, 2), "resident", True),
+    (16, 8): ((16, 1, 2), "resident", True),
+    (17, 1): ((8, 1, 2), "resident", True), (17, 4): ((8, 4, 2), "resident", True),
+    (17, 8): ((8, 4, 2), "resident", False),
+    (19, 1): ((8, 1, 2), "resident", True), (19, 4): ((8, 4, 2), "resident", True),
+    (19, 8): ((8, 4, 2), "resident", False),
 }
 
 
 @pytest.mark.parametrize("columns,lanes", sorted(SDE_KSWEEP_PLANS))
 def test_sde3_ksweep_plan_and_route(columns, lanes):
     P = 8 * columns
-    (C, LB, slots), route = SDE_KSWEEP_PLANS[columns, lanes]
+    (C, LB, slots), route, block = SDE_KSWEEP_PLANS[columns, lanes]
     p = no.ode_team_plan(P, 4, lanes, 3, no.SDE_KSWEEP)
     assert p.fits and not p.stream and p.accs and p.ipt == 1 and p.bytes <= SMEM
     assert (p.C, p.nc, p.NT, p.NB, p.LB, p.slots) == (C, P // C, 3, lanes, LB, slots)
     assert ns.sde3_bwd_route(P, 4, lanes) == route
-    # the one-block B4't held the batch exactly where the team is the default
-    assert ns.sde3_block_fits(P, 4, lanes) == (route == "resident")
+    # the team is the default also where the one-block B4't did not hold the batch
+    assert ns.sde3_block_fits(P, 4, lanes) == block
     # the bytes: the dopri5 sweep's plan of the same shape, plus the chunk
     # partials (P nc and n_in nc floats) and the lanes' four step times
     k = no.ode_team_plan(P, 4, lanes, 3, no.KSWEEP)
@@ -95,7 +103,69 @@ def test_sde3_ksweep_shared_memory_fits_at_every_width(lanes):
                     assert p.fixed >= 4 * (3 * n_in * p.nc + 4 * lanes)
     if lanes == 4:
         assert all(ns.sde3_bwd_route(8 * c, 4, 4) == "resident" for c in range(1, 20))
-        assert all(ns.sde3_bwd_route(8 * c, 4, 4) == "team" for c in range(20, 64))
+        assert all(ns.sde3_bwd_route(8 * c, 4, 4) == (
+            "streamed" if c % 2 and c >= 51 else "resident") for c in range(20, 64))
+
+
+# (terms, columns, lanes) -> (C, LB, stream, slots, accs) of the team's plan
+# with 4 inputs where the 8-block teams of B4't-team and B4s ran before
+WIDE_PLANS = {
+    (3, 20, 1): (16, 1, False, 2, True), (3, 20, 4): (16, 1, False, 2, True),
+    (3, 20, 8): (16, 4, False, 2, True), (3, 24, 4): (16, 1, False, 2, True),
+    (3, 32, 1): (16, 1, False, 2, True), (3, 32, 4): (16, 1, False, 2, True),
+    (3, 32, 8): (16, 4, False, 2, False), (3, 48, 4): (16, 4, False, 2, False),
+    (3, 48, 8): (16, 4, False, 1, False), (3, 63, 1): (8, 1, False, 1, False),
+    (3, 63, 4): (8, 4, True, 1, False),
+    (2, 13, 4): (8, 1, False, 2, True), (2, 20, 4): (16, 1, False, 2, True),
+    (2, 24, 4): (16, 1, False, 2, True), (2, 32, 1): (16, 1, False, 2, True),
+    (2, 32, 4): (16, 1, False, 2, True), (2, 32, 8): (16, 4, False, 2, True),
+    (2, 48, 4): (16, 4, False, 2, False), (2, 63, 1): (8, 1, False, 2, False),
+    (2, 63, 4): (8, 4, False, 1, False),
+}
+
+
+@pytest.mark.parametrize("terms,columns,lanes", sorted(WIDE_PLANS))
+def test_sde_ksweep_plan_and_route_past_one_block(terms, columns, lanes):
+    """The plan at the widths the 8-block teams ran (B4't-team from 20
+    columns, B4s at every width): its shape, at most 232,448 bytes a block,
+    the work tensor's planes where the accumulators leave shared memory, and
+    the route that the wrappers take by shape."""
+    P = 8 * columns
+    C, LB, stream, slots, accs = WIDE_PLANS[terms, columns, lanes]
+    p = no.ode_team_plan(P, 4, lanes, terms, no.SDE_KSWEEP)
+    assert p.fits and p.ipt == 1 and p.bytes <= SMEM
+    assert (p.C, p.nc, p.NT, p.NB, p.LB, p.stream, p.slots, p.accs) == (
+        C, P // C, terms, lanes, LB, stream, slots, accs)
+    assert ns.sde3_bwd_route(P, 4, lanes, terms) == ("streamed" if stream else "resident")
+    assert no.t3k_planes(terms, no.SDE_KSWEEP) == terms + 2
+    # the dopri5 sweep's plan of the same shape differs only past its head
+    k = no.ode_team_plan(P, 4, lanes, terms, no.KSWEEP)
+    assert k[:12] == p[:12]
+
+
+@pytest.mark.parametrize("terms", [2, 3])
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+def test_sde_ksweep_plan_fits_every_kernel_mode_width(terms, lanes):
+    """From 13 through 63 columns the team's plan fits, within 232,448 bytes
+    a block, its invariants held, wherever a thread forms the forward
+    products of at most four lanes: everywhere at 1 and 4 lanes; at 8 lanes
+    not at the odd widths from 33 columns (clusters of 8 with 33-63
+    populations a block leave one lane group), where the route is the
+    8-block team's ("team")."""
+    from test_torch_ode_ksweep_team import _invariants
+
+    for columns in range(13, 64):
+        P = 8 * columns
+        p = no.ode_team_plan(P, 4, lanes, terms, no.SDE_KSWEEP)
+        refused = lanes == 8 and columns % 2 == 1 and columns >= 33
+        assert p.fits != refused, columns
+        route = ns.sde3_bwd_route(P, 4, lanes, terms)
+        if refused:
+            assert route == "team"
+            continue
+        _invariants(p, P, 4, p.stream, planes=terms + 2)
+        assert p.bytes <= SMEM and p.ipt == 1 and p.LB in (1, 4)
+        assert route == ("streamed" if p.stream else "resident")
 
 
 def test_sde3_ksweep_plan_refuses_what_the_kernel_does_not_take():
@@ -111,7 +181,9 @@ def test_sde3_ksweep_plan_refuses_what_the_kernel_does_not_take():
         ns._sde3_ksweep_route("resident", 8 * 63, 4, 4)
     assert ns._sde3_ksweep_route(None, 104, 4, 4)[0] == "resident"
     assert ns._sde3_ksweep_route("block", 104, 4, 4) == ("block", None)
-    assert ns._sde3_ksweep_route(None, 8 * 32, 4, 4) == ("team", None)
+    route, plan = ns._sde3_ksweep_route(None, 8 * 32, 4, 4)
+    assert route == "resident" and plan.C == 16 and not plan.stream
+    assert ns._sde3_ksweep_route("team", 8 * 32, 4, 4) == ("team", None)
     route, plan = ns._sde3_ksweep_route("streamed", 104, 4, 4)
     assert route == "streamed" and plan.stream and plan.NT == 3
 
@@ -153,7 +225,7 @@ def test_lanes_read_the_stimulus_at_their_own_times():
     assert parted == 0
 
 
-def _setup(columns=13, B=4, n=12, lanes=True, seed=0):
+def _setup(columns=13, B=4, n=12, lanes=True, seed=0, terms=3):
     cpa = {3: (2, 1), 13: (8, 4, 1)}[columns]
     gen = torch.Generator().manual_seed(seed)
     params, net = nw.build_column_network(ColumnConfig.load(), gen, columns_per_area=cpa,
@@ -183,9 +255,13 @@ def _setup(columns=13, B=4, n=12, lanes=True, seed=0):
     y0 = torch.from_numpy(np.concatenate([rng.uniform(-20.0, 30.0, (B, P)),
                                           rng.uniform(0.0, 5.0, (B, P)),
                                           rng.uniform(0.0, 40.0, (B, P))], 1).astype(np.float32))
-    ys = ns._replay3_fwd_plain(y0, t0s, hs, dw, i10, n_real, pw, sc, kv)
+    w2 = {k: v.contiguous() for k, v in nw.prepare_premixed_split2(pw, fc)[0].items()}
+    if terms == 3:
+        ys = ns._replay3_fwd_plain(y0, t0s, hs, dw, i10, n_real, pw, sc, kv)
+    else:
+        ys = ns._replay_fwd_plain(y0, t0s, hs, dw, i10, n_real, w2, sc, kv)
     ysbar = torch.from_numpy(rng.standard_normal((n, B, 3 * P)).astype(np.float32))
-    return dict(P=P, pw=pw, sc=sc, kv=kv, t0s=t0s, hs=hs, i10=i10, n_real=n_real,
+    return dict(P=P, pw=pw, w2=w2, sc=sc, kv=kv, t0s=t0s, hs=hs, i10=i10, n_real=n_real,
                 ys_prev=ys[:-1].contiguous(), ysbar=ysbar, B=B)
 
 
@@ -223,6 +299,60 @@ def test_chunked_weight_cotangents_as_the_kernel_sums_them(lanes):
     assert folds == 3 and bool(want[1].abs().sum() > 0) and bool(want[2].abs().sum() > 0)
     assert torch.equal(ybar, want[0])
     assert np.array_equal(dw, want[1].numpy()) and np.array_equal(diw, want[2].numpy())
+
+
+def test_two_term_chunked_weight_cotangents_as_the_kernel_sums_them():
+    """B4s's loop, as the three-term one above, on the two-term split: each
+    step's folded weight cotangents (``step_vjp_split2(..., weights=True)``,
+    whose two-term drift and VJP the team forms) added in float32 to a chunk
+    partial, the partial added to the sums at each chunk's first step,
+    emulated with numpy on per-lane grids, against ``_replay2_bwd_plain``:
+    ybar, d wT and d iwT bit for bit."""
+    s = _setup(terms=2)
+    stride, chunk, B = 5, 4, s["B"]
+    f = np.float32
+    ybar = torch.zeros_like(s["ys_prev"][0])
+    dw, cw = np.zeros((s["P"],) * 2, f), np.zeros((s["P"],) * 2, f)
+    diw, ciw = np.zeros((4, s["P"]), f), np.zeros((4, s["P"]), f)
+    folds = 0
+    for k in range(s["n_real"] - 1, -1, -1):
+        t0, h = ns._lane_times(s["t0s"], s["hs"], k, B)
+        ybar, g_w, g_iw = ns.step_vjp_split2(t0, h, s["ys_prev"][k], s["i10"][k, :, None],
+                                             ybar + s["ysbar"][k], s["w2"], s["sc"], s["kv"],
+                                             weights=True)
+        if k % stride == 0:
+            ybar = torch.zeros_like(ybar)
+        sw, siw = cw + g_w.numpy(), ciw + g_iw.numpy()
+        if k % chunk == 0:
+            dw, diw = dw + sw, diw + siw
+            folds += 1
+        cw = np.zeros_like(cw) if k % chunk == 0 else sw
+        ciw = np.zeros_like(ciw) if k % chunk == 0 else siw
+    want = ns._replay2_bwd_plain(s["ys_prev"], s["ysbar"], s["t0s"], s["hs"], s["i10"],
+                                 s["n_real"], stride, chunk, s["w2"], s["sc"], s["kv"])
+    assert folds == 3 and bool(want[1].abs().sum() > 0) and bool(want[2].abs().sum() > 0)
+    assert torch.equal(ybar, want[0])
+    assert np.array_equal(dw, want[1].numpy()) and np.array_equal(diw, want[2].numpy())
+
+
+def test_sde2_routes_checked_before_the_device_and_plain_on_cpu():
+    """``replay2_bwd``: a bad route (the three-term sweep's "block", the
+    dopri5 sweeps' "team8") raises before any device is touched; on CPU
+    tensors every route (and the default) runs ``_replay2_bwd_plain``, bit
+    for bit, and launches nothing."""
+    s = _setup(columns=3, n=8, terms=2)
+    args = (s["ys_prev"], s["ysbar"], s["t0s"], s["hs"], s["i10"], s["n_real"], 3, 2, s["w2"],
+            s["sc"], s["kv"])
+    for bad in ("block", "team8", "ksweep", "Resident"):
+        with pytest.raises(ValueError, match="route"):
+            ns.replay2_bwd(*args, route=bad)
+    before = dict(ns.LAUNCHES)
+    want = ns._replay2_bwd_plain(*args)
+    assert ns.SDE2_BWD_ROUTES == ("resident", "streamed", "team")
+    for route in (None,) + ns.SDE2_BWD_ROUTES:
+        got = ns.replay2_bwd(*args, route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), route
+    assert ns.LAUNCHES == before and "sde2_bwd_ksweep" in ns.LAUNCHES
 
 
 def test_sde3_routes_checked_before_the_device_and_plain_on_cpu():

@@ -224,27 +224,28 @@ def test_gradbf16_substitute_on_the_uniform_grid_raises():
 
 
 @pytest.mark.parametrize("cols,lanes,want", [
-    (13, 4, "resident"), (19, 4, "resident"), (20, 4, "team"), (24, 4, "team"),
-    (32, 4, "team"), (63, 4, "team"),
-    # The edge moves with the batch: fewer lanes fit more columns.
-    (21, 2, "resident"), (24, 2, "team"), (13, 1, "resident"), (19, 8, "team"),
-    (13, 8, "resident")])
+    (13, 4, "resident"), (19, 4, "resident"), (20, 4, "resident"), (24, 4, "resident"),
+    (32, 4, "resident"), (63, 4, "streamed"),
+    # Past four forward lanes a thread the team's plan does not fit.
+    (21, 2, "resident"), (24, 2, "resident"), (13, 1, "resident"), (19, 8, "resident"),
+    (13, 8, "resident"), (33, 8, "team"), (63, 8, "team")])
 def test_kernel_mode_sweep_is_chosen_by_shape(cols, lanes, want):
-    """``replay3_bwd`` takes B4't where the one-block B4't's three-term
-    weights, iwT, the drift's scratch for every lane and the sweep's eight
-    (B, 3P) buffers fit a block's 227 KB of shared memory (4 inputs, 4
-    lanes: through 19 columns), as one cluster team for the batch (its
-    plan's slice "resident" at all these shapes; the one block stays behind
-    route "block"), B4't-team otherwise."""
+    """``replay3_bwd`` takes B4't as one cluster team for the batch wherever
+    its plan fits (4 inputs, 4 lanes: every width of kernel mode, the slice
+    "resident", streamed at the odd widths from 51 columns), the one-block
+    B4't (route "block") or B4't-team (route "team") elsewhere: B4't-team
+    where the one block's three-term weights, iwT, the drift's scratch for
+    every lane and the sweep's eight (B, 3P) buffers do not fit a block's
+    227 KB of shared memory."""
     assert ns.sde3_bwd_route(8 * cols, 4, lanes) == want
 
 
 def test_kernel_mode_sweep_route_counts_the_kernels_bytes():
     """The route's byte count is ``cf_sde3_bwd``'s: ``setup_floats`` of
     csrc/split3_drift.cuh for B lanes, 8 B 3P floats, 4 B lane scalars and
-    two (n_in, P) accumulators, against 232,448 bytes; where they fit, the
-    route is the cluster team's (its plan's "resident" or "streamed", or
-    "block" where no team plan fits), else "team"."""
+    two (n_in, P) accumulators, against 232,448 bytes; the route is the
+    cluster team's wherever its plan fits (its plan's "resident" or
+    "streamed"), else "block" where those bytes fit, else "team"."""
     def floats(P, n_in, nb):
         setup = (3 * P * P + 1) // 2 + n_in * P + 5 * nb * P + nb * 16 + 1 + 2 * (512 // 32)
         return setup + 8 * nb * 3 * P + 4 * nb + 2 * n_in * P
@@ -254,8 +255,8 @@ def test_kernel_mode_sweep_route_counts_the_kernels_bytes():
             fits = 4 * floats(P, 4, nb) <= ns.SMEM_BLOCK_BYTES
             assert ns.sde3_block_fits(P, 4, nb) == fits, (P, nb)
             team = no.ode_team_plan(P, 4, nb, 3, no.SDE_KSWEEP)
-            want = ((("streamed" if team.stream else "resident") if team.fits else "block")
-                    if fits else "team")
+            want = (("streamed" if team.stream else "resident") if team.fits
+                    else ("block" if fits else "team"))
             assert ns.sde3_bwd_route(P, 4, nb) == want, (P, nb)
     assert ns.SMEM_BLOCK_BYTES == 232448
 

@@ -584,18 +584,21 @@ def test_train_step_matches_jax(jax_split2_runs, name, monkeypatch):
 
 @pytest.mark.parametrize("columns", [3, 13, 32, 63])
 def test_two_term_sweeps_always_take_the_team(columns):
-    """There is no one-block two-term kernel-mode sweep: B8s runs every
-    width on a team for the batch, the kernel-mode sweep's cluster team
-    where its two-term plan fits ("resident" or "streamed") and the 8-block
-    team elsewhere ("team8": 16 lanes at 63 columns); B4s on its team of 8
-    blocks; the three-term routes keep their byte counts."""
+    """There is no one-block two-term kernel-mode sweep: B8s and B4s run
+    every width on a team for the batch, the kernel-mode sweeps' cluster
+    teams where their two-term plans fit ("resident" or "streamed") and the
+    8-block teams elsewhere ("team8" for B8s, "team" for B4s: 16 lanes at
+    63 columns); the three-term routes keep their byte counts."""
     P = 8 * columns
     for lanes in (1, 4, 16):
         plan = no.ode_team_plan(P, 4, lanes, 2, no.KSWEEP)
         assert no.ode_bwd_route(P, 4, lanes, terms=2) == (
             ("streamed" if plan.stream else "resident") if plan.fits else "team8")
         assert plan.fits == (columns < 63 or lanes < 16)
-        assert ns.sde3_bwd_route(P, 4, lanes, terms=2) == "team"
+        sde = no.ode_team_plan(P, 4, lanes, 2, no.SDE_KSWEEP)
+        assert ns.sde3_bwd_route(P, 4, lanes, terms=2) == (
+            ("streamed" if sde.stream else "resident") if sde.fits else "team")
+        assert sde.fits == plan.fits
         assert no.ode_bwd_route(P, 4, lanes) == no.ode_bwd_route(P, 4, lanes, terms=3)
     with pytest.raises(ValueError, match="terms"):
         no.ode_bwd_route(P, 4, 4, terms=1)
